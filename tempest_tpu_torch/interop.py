@@ -1,0 +1,72 @@
+"""State exchange with the JAX package, through numpy arrays.
+
+This module has no counterpart in tempest_tpu. It turns the JAX package's
+`History`, `Current` and `ModeStatistics` fields, given as numpy arrays,
+into this package's dataclasses, and back. It imports no jax: callers
+pass `np.array(jax_value)` for each field. The arrays are copied, because
+numpy views of JAX arrays are read-only and `torch.from_numpy` warns on
+them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from .modes import ModeStatistics
+from .state import Current, History
+
+HISTORY_FIELDS = (
+    "u", "x", "logl", "mis_c", "beta", "logz", "ess", "cv",
+    "acceptance", "efficiency", "steps", "calls",
+)
+CURRENT_FIELDS = (
+    "u", "x", "logl", "assignments", "beta", "logz", "ess", "cv",
+    "acceptance", "efficiency",
+)
+CURRENT_COUNTERS = ("steps", "calls", "iteration")
+MODE_FIELDS = (
+    "means", "covariances", "degrees_of_freedom", "inv_covariances",
+    "chol_covariances", "k_mask",
+)
+
+
+def _tensor(value, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(value, copy=True)).to(device)
+
+
+def history_from_numpy(fields: Mapping[str, np.ndarray], device) -> History:
+    """History from the JAX History's fields (HISTORY_FIELDS and `t`)."""
+    return History(
+        **{k: _tensor(fields[k], device) for k in HISTORY_FIELDS}, t=int(fields["t"])
+    )
+
+
+def history_to_numpy(hist: History) -> Dict[str, np.ndarray]:
+    out = {k: getattr(hist, k).detach().cpu().numpy().copy() for k in HISTORY_FIELDS}
+    out["t"] = np.int32(hist.t)
+    return out
+
+
+def current_from_numpy(fields: Mapping[str, np.ndarray], device) -> Current:
+    """Current from the JAX Current's fields (CURRENT_FIELDS and CURRENT_COUNTERS)."""
+    return Current(
+        **{k: _tensor(fields[k], device) for k in CURRENT_FIELDS},
+        **{k: int(fields[k]) for k in CURRENT_COUNTERS},
+    )
+
+
+def current_to_numpy(cur: Current) -> Dict[str, np.ndarray]:
+    out = {k: getattr(cur, k).detach().cpu().numpy().copy() for k in CURRENT_FIELDS}
+    out.update({k: np.int32(getattr(cur, k)) for k in CURRENT_COUNTERS})
+    return out
+
+
+def modes_from_numpy(fields: Mapping[str, np.ndarray], device) -> ModeStatistics:
+    return ModeStatistics(**{k: _tensor(fields[k], device) for k in MODE_FIELDS})
+
+
+def modes_to_numpy(modes: ModeStatistics) -> Dict[str, np.ndarray]:
+    return {k: getattr(modes, k).detach().cpu().numpy().copy() for k in MODE_FIELDS}

@@ -1,0 +1,137 @@
+"""One Persistent Sampling iteration on the unclustered path.
+
+Counterpart of tempest_tpu/fused.py `_make_iteration_fn` (:38-250) with
+`clustering=False`, run eagerly:
+
+1. reweight: the next beta by ESS bisection and the MIS weights
+   (skipped at t == 0, where the first-iteration values of :227-236 are
+   set instead of running the reweight on an empty history);
+2. at beta == 0, the warm-up branch (:195-207): fresh prior draws;
+3. otherwise trim the weights, keep the top-`train_max_points` samples by
+   weight (:113-129), fit the global Student-t mode (:165-167), resample
+   and run the adaptive MCMC;
+4. commit the active set to the history.
+
+Every draw comes from the `Draws` object passed in. Each stage runs inside
+a `record_function` range ("ps/reweight", "ps/fit", "ps/resample",
+"ps/mutate", "ps/warmup", "ps/commit"), which `torch.profiler` reports as
+the stage's time; without a profiler a range costs a few microseconds.
+The JAX package's `_pin_history_layouts`, donation and sharding have no
+counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from .config import DOF_FALLBACK, TRIM_BINS, TRIM_ESS, SamplerConfig
+from .mcmc import MCMCKernel
+from .modes import fit_global_mode
+from .ops.boundary import make_boundary_masks
+from .ops.tools import trim_weights_mask
+from .state import Current, History, commit
+from .steps.mutate import warmup
+from .steps.resample import resample
+from .steps.reweight import reweight
+
+
+def select_fit_points(
+    hist: History, weights: torch.Tensor, train_max_points: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(u_fit (m, d), w_fit (m,)): the trimmed weights and, once the history
+    holds more than `train_max_points` samples, only the heaviest of them
+    (fused.py:114-130)."""
+    _, w_trim = trim_weights_mask(
+        weights.reshape(-1),
+        mask=hist.sample_mask().reshape(-1),
+        ess=TRIM_ESS,
+        bins=TRIM_BINS,
+    )
+    u_all = hist.u.reshape(hist.n_dim, -1)
+    if train_max_points and train_max_points < w_trim.shape[0]:
+        w_fit, idx = torch.topk(w_trim, train_max_points)
+        return u_all[:, idx].T, w_fit
+    return u_all.T, w_trim
+
+
+def make_iteration(
+    config: SamplerConfig, log_likelihood_batch: Callable, prior_transform_batch: Callable
+) -> Callable:
+    """Build `iteration(draws, hist, cur) -> (hist, cur)`; the caller grows
+    the history so that capacity > hist.t."""
+    cfg = config
+    N, d = cfg.n_particles, cfg.n_dim
+    p_mask, r_mask, s_mask = make_boundary_masks(d, cfg.periodic, cfg.reflective, device=cfg.device)
+    mcmc = MCMCKernel(
+        log_likelihood_batch,
+        prior_transform_batch,
+        d,
+        method=cfg.sample,
+        n_steps=cfg.n_steps,
+        n_max_steps=cfg.n_max_steps,
+        periodic_mask=p_mask,
+        reflective_mask=r_mask,
+        strict_mask=s_mask,
+        n_candidates=cfg.n_candidates,
+    )
+    ess_target = cfg.ess_ratio * N
+
+    def mutate_branch(draws, hist: History, cur: Current, weights: torch.Tensor) -> None:
+        with record_function("ps/fit"):
+            u_fit, w_fit = select_fit_points(hist, weights, cfg.train_max_points)
+            modes = fit_global_mode(u_fit, w_fit, dof_fallback=DOF_FALLBACK)
+        with record_function("ps/resample"):
+            u, x, logl, assignments = resample(
+                draws.resample(N, cfg.resample), hist, weights, N, method=cfg.resample
+            )
+        with record_function("ps/mutate"):
+            res = mcmc(draws, u, x, logl, assignments, cur.beta, modes)
+        cur.u, cur.x, cur.logl = res.u, res.x, res.logl
+        cur.assignments = assignments
+        cur.efficiency = res.efficiency.to(cfg.dtype)
+        cur.acceptance = res.acceptance.to(cfg.dtype)
+        cur.steps = res.steps
+        cur.calls += res.n_call_sweeps
+
+    def warmup_branch(draws, cur: Current) -> None:
+        u_draw, patch_uniforms = draws.warmup(N, d)
+        wr = warmup(u_draw, patch_uniforms, log_likelihood_batch, prior_transform_batch)
+        cur.u, cur.x, cur.logl = wr.u, wr.x, wr.logl
+        cur.assignments = torch.zeros((N,), dtype=torch.int32, device=cfg.device)
+        cur.logz = cur.logz + wr.logz_correction
+        cur.calls += 1  # one full-batch sweep
+        cur.steps = 1
+        cur.acceptance = torch.ones((), dtype=cfg.dtype, device=cfg.device)
+        cur.efficiency = torch.ones((), dtype=cfg.dtype, device=cfg.device)
+
+    def iteration(draws, hist: History, cur: Current) -> Tuple[History, Current]:
+        if hist.t == 0:
+            # Nothing committed yet: the first-iteration values.
+            zero = torch.zeros((), dtype=cfg.dtype, device=cfg.device)
+            cur.beta, cur.cv = zero, zero.clone()
+            cur.ess = torch.tensor(ess_target, dtype=cfg.dtype, device=cfg.device)
+            weights = None
+        else:
+            with record_function("ps/reweight"):
+                rw = reweight(hist, cur.beta, ess_target)
+            cur.beta = rw.beta.to(cfg.dtype)
+            cur.logz = rw.logz.to(cfg.dtype)
+            cur.ess = rw.ess.to(cfg.dtype)
+            cur.cv = rw.cv.to(cfg.dtype)
+            weights = rw.weights
+        cur.iteration += 1
+
+        # beta == 0: the target is still the prior — fresh draws instead of
+        # fit/resample/MCMC.
+        if bool(cur.beta == 0.0):
+            with record_function("ps/warmup"):
+                warmup_branch(draws, cur)
+        else:
+            mutate_branch(draws, hist, cur, weights)
+        with record_function("ps/commit"):
+            return commit(hist, cur), cur
+
+    return iteration

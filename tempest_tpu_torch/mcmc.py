@@ -1,0 +1,252 @@
+"""Adaptive MCMC mutation: tpCN and random-walk Metropolis.
+
+Counterpart of tempest_tpu/mcmc.py:138-433 with the per-walker matrices
+gathered once per mutation (:250-254); the K-loop form and the
+hardware-PRNG branches are not ported. Semantics kept:
+
+- tpCN proposal u' = mu + sqrt(1 - s^2)(u - mu) + s sqrt(g) L z with the
+  inverse-gamma mixture scale g, and the Student-t density-ratio factor
+  (:296-338); RWM proposal u' = u + s L z;
+- `n_candidates` i.i.d. candidates per walker, the first in-bounds one
+  taken by a where-chain, alpha = 0 for walkers with none (:168-219);
+- tempered Metropolis alpha = min(1, exp(beta dlogl + factor)), NaN -> 0;
+- per-cluster Robbins-Monro adaptation of sigma toward 0.234, clipped to
+  [0, min(2.38/sqrt(d), 0.99)] for tpCN (:355-380);
+- the adaptive stop n_steps d (0.234/acc)(sigma_0/sigma)^2 clamped to
+  [n_steps d, n_max_steps d] (:382-392).
+
+`MCMCKernel.step` is the pure step on explicit draws; `MCMCKernel.__call__`
+loops it, taking draws from a `Draws` object. The JAX `lax.while_loop`
+becomes a Python loop whose stop test reads one boolean per step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from .modes import ModeStatistics
+from .ops.boundary import apply_boundary_conditions, check_bounds
+
+
+class MCMCResult(NamedTuple):
+    u: torch.Tensor
+    x: torch.Tensor
+    logl: torch.Tensor
+    efficiency: torch.Tensor
+    acceptance: torch.Tensor
+    steps: int
+    n_call_sweeps: int  # batched likelihood evaluations of all walkers
+
+
+@dataclasses.dataclass
+class Walkers:
+    """What one mutation holds fixed: the walkers' modes and matrices."""
+
+    assignments: torch.Tensor  # (N,)
+    beta: torch.Tensor  # ()
+    mu: torch.Tensor  # (N, d) mode mean per walker
+    dof: torch.Tensor  # (N,)
+    chol: torch.Tensor  # (N, d, d) gathered Cholesky factors
+    inv: torch.Tensor  # (N, d, d) gathered inverse covariances
+    onehot: torch.Tensor  # (N, K)
+    count_k: torch.Tensor  # (K,)
+    gamma_shape: Optional[torch.Tensor]  # (N,) tpCN only
+
+
+@dataclasses.dataclass
+class ChainState:
+    u: torch.Tensor
+    x: torch.Tensor
+    logl: torch.Tensor
+    sigmas: torch.Tensor  # (K,)
+    iteration: int
+    alpha_mean: torch.Tensor
+    done: torch.Tensor  # () bool
+
+
+def _quadratic(diff: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
+    """diff_n^T M_n diff_n for per-walker matrices (N, d, d) (mcmc.py:127-130)."""
+    v = torch.einsum("nj,nji->ni", diff, mats)
+    return torch.sum(v * diff, dim=1)
+
+
+class MCMCKernel:
+    """Adaptive mutation (mcmc.py:138-433).
+
+    log_likelihood_batch: x (N, d) -> logl (N,)
+    prior_transform_batch: u (N, d) -> x (N, d)
+    """
+
+    def __init__(
+        self,
+        log_likelihood_batch: Callable,
+        prior_transform_batch: Callable,
+        n_dim: int,
+        method: str = "tpcn",
+        n_steps: int = 1,
+        n_max_steps: int = 20,
+        periodic_mask: Optional[torch.Tensor] = None,
+        reflective_mask: Optional[torch.Tensor] = None,
+        strict_mask: Optional[torch.Tensor] = None,
+        n_candidates: int = 8,
+    ):
+        self.log_likelihood_batch = log_likelihood_batch
+        self.prior_transform_batch = prior_transform_batch
+        self.n_dim = n_dim
+        self.is_tpcn = method == "tpcn"
+        self.n_candidates = n_candidates
+        if periodic_mask is None:
+            periodic_mask = torch.zeros(n_dim, dtype=torch.bool)
+        if reflective_mask is None:
+            reflective_mask = torch.zeros(n_dim, dtype=torch.bool)
+        if strict_mask is None:
+            strict_mask = ~(periodic_mask | reflective_mask)
+        self.periodic_mask = periodic_mask
+        self.reflective_mask = reflective_mask
+        self.strict_mask = strict_mask
+        # float32 arithmetic, as the JAX package computes these constants.
+        f32 = torch.float32
+        sqrt_d = torch.sqrt(torch.tensor(float(n_dim), dtype=f32))
+        self.sigma_0 = float(torch.tensor(2.38, dtype=f32) / sqrt_d)
+        self.sigma_cap = min(self.sigma_0, float(torch.tensor(0.99, dtype=f32)))
+        self.n_steps_min = float(n_steps * n_dim)
+        self.n_steps_cap = float(n_max_steps * n_dim)
+
+    # ------------------------------------------------------------------
+    def prepare(self, assignments, beta, modes: ModeStatistics) -> Walkers:
+        """Gather the per-walker mode quantities once per mutation."""
+        k_max = modes.k_max
+        dtype = modes.means.dtype
+        onehot = (assignments[:, None] == torch.arange(k_max, device=assignments.device)).to(dtype)
+        dof = modes.degrees_of_freedom[assignments]
+        return Walkers(
+            assignments=assignments,
+            beta=torch.as_tensor(beta, dtype=dtype, device=assignments.device),
+            mu=modes.means[assignments],
+            dof=dof,
+            chol=modes.chol_covariances[assignments],
+            inv=modes.inv_covariances[assignments],
+            onehot=onehot,
+            count_k=torch.sum(onehot, dim=0),
+            gamma_shape=(self.n_dim + dof) / 2.0 if self.is_tpcn else None,
+        )
+
+    def initial_state(self, u, x, logl, k_max: int) -> ChainState:
+        sigma = self.sigma_cap if self.is_tpcn else self.sigma_0
+        return ChainState(
+            u=u, x=x, logl=logl,
+            sigmas=torch.full((k_max,), sigma, dtype=u.dtype, device=u.device),
+            iteration=0,
+            alpha_mean=torch.zeros((), dtype=u.dtype, device=u.device),
+            done=torch.zeros((), dtype=torch.bool, device=u.device),
+        )
+
+    def _propose(self, w: Walkers, u, diff, sigma_w, scale_w, z):
+        """First in-bounds of the R candidates per walker, and whether any was."""
+        step = torch.einsum("rnj,nij->rni", z, w.chol)  # z_rn @ L_n^T
+        if self.is_tpcn:
+            cand = (
+                w.mu
+                + torch.sqrt(1.0 - sigma_w**2)[:, None] * diff
+                + (sigma_w * scale_w)[:, None] * step
+            )
+        else:
+            cand = u + sigma_w[:, None] * step
+        dev = cand.device
+        cand = apply_boundary_conditions(
+            cand, self.periodic_mask.to(dev), self.reflective_mask.to(dev)
+        )
+        valid = check_bounds(cand, self.strict_mask.to(dev))  # (R, N)
+        any_valid = torch.any(valid, dim=0)
+        prop = cand[-1]
+        for r in range(cand.shape[0] - 2, -1, -1):
+            prop = torch.where(valid[r][:, None], cand[r], prop)
+        return torch.where(any_valid[:, None], prop, cand[0]), any_valid
+
+    def step(self, w: Walkers, s: ChainState, z, g, u_acc) -> ChainState:
+        """One Metropolis step on explicit draws: z (R, N, d) normals, g (N,)
+        unit gamma(w.gamma_shape) draws (tpCN; ignored for RWM), u_acc (N,)
+        acceptance uniforms."""
+        n_walkers = s.u.shape[0]
+        dtype = s.u.dtype
+        iteration = s.iteration + 1
+        sigmas = s.sigmas
+        sigma_w = sigmas[w.assignments]
+        diff = s.u - w.mu
+        if self.is_tpcn:
+            dot = _quadratic(diff, w.inv)
+            g_scale = 2.0 / (w.dof + dot)
+            scale_w = torch.sqrt(1.0 / (g * g_scale))
+        else:
+            scale_w = torch.ones_like(s.logl)
+
+        u_prime, valid = self._propose(w, s.u, diff, sigma_w, scale_w, z)
+        x_prime = self.prior_transform_batch(u_prime)
+        logl_prime = self.log_likelihood_batch(x_prime).to(dtype)
+
+        if self.is_tpcn:
+            dot_p = _quadratic(u_prime - w.mu, w.inv)
+            coeff = -0.5 * (self.n_dim + w.dof)
+            factor = -coeff * torch.log1p(dot_p / w.dof) + coeff * torch.log1p(dot / w.dof)
+        else:
+            factor = torch.zeros_like(s.logl)
+
+        alpha = torch.exp(w.beta * (logl_prime - s.logl) + factor)
+        alpha = torch.nan_to_num(torch.clamp(alpha, max=1.0), nan=0.0)
+        alpha = torch.where(valid, alpha, torch.zeros_like(alpha))
+
+        accept = u_acc < alpha
+        u = torch.where(accept[:, None], u_prime, s.u)
+        x = torch.where(accept[:, None], x_prime, s.x)
+        logl = torch.where(accept, logl_prime, s.logl)
+
+        # Per-cluster Robbins-Monro adaptation toward 0.234.
+        alpha_k = torch.sum(w.onehot * alpha[:, None], dim=0)
+        mean_accept = torch.sum(accept.to(dtype)) / n_walkers
+        mean_alpha = torch.sum(alpha) / n_walkers
+        mean_acc_k = alpha_k / torch.clamp(w.count_k, min=1.0)
+        rate = 1.0 / (float(iteration) + 1.0)
+        new_sigmas = sigmas + rate * (mean_acc_k - 0.234)
+        if self.is_tpcn:
+            new_sigmas = torch.clamp(new_sigmas, 0.0, self.sigma_cap)
+        sigmas = torch.where(w.count_k > 0, new_sigmas, sigmas)
+
+        # Adaptive termination: population-weighted sigma over non-empty clusters.
+        w_sigma = torch.sum(w.count_k * sigmas) / torch.clamp(torch.sum(w.count_k), min=1.0)
+        n_adaptive = (
+            self.n_steps_min
+            * (0.234 / torch.clamp(mean_accept, min=0.01))
+            * (self.sigma_0 / torch.clamp(w_sigma, min=1e-6)) ** 2
+        )
+        n_final = torch.clamp(n_adaptive, self.n_steps_min, self.n_steps_cap)
+        done = float(iteration) >= n_final
+        return ChainState(
+            u=u, x=x, logl=logl, sigmas=sigmas, iteration=iteration,
+            alpha_mean=mean_alpha, done=done,
+        )
+
+    # ------------------------------------------------------------------
+    def __call__(self, draws, u, x, logl, assignments, beta, modes: ModeStatistics) -> MCMCResult:
+        """Run the adaptive chain to its stop rule, drawing from `draws`."""
+        w = self.prepare(assignments, beta, modes)
+        s = self.initial_state(u, x, logl, modes.k_max)
+        n, d = u.shape
+        while True:
+            z, g, u_acc = draws.mcmc_step(self.n_candidates, n, d, w.gamma_shape)
+            s = self.step(w, s, z, g, u_acc)
+            if bool(s.done):  # one host sync per step
+                break
+        k_mask = modes.k_mask
+        mean_sigma = torch.sum(torch.where(k_mask, s.sigmas, torch.zeros_like(s.sigmas))) / (
+            torch.clamp(torch.sum(k_mask), min=1)
+        )
+        return MCMCResult(
+            u=s.u, x=s.x, logl=s.logl,
+            efficiency=mean_sigma / self.sigma_0,
+            acceptance=s.alpha_mean,
+            steps=s.iteration,
+            n_call_sweeps=s.iteration,
+        )

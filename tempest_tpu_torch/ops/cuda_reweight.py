@@ -1,0 +1,221 @@
+"""The ESS-mode temperature bisection: a CUDA kernel and its plain version.
+
+Counterpart of tempest_tpu/ops/pallas_reweight.py, whose Pallas kernel
+(`_kernel`, :55-111) runs the whole bisection in one TPU launch. Here the
+bisection is the CUDA kernel in `csrc/ess_bisect.cu` (one block of 1024
+threads, every probe a pass over the history held in L2; the design note
+is at the top of that file), built with nvcc for sm_90a at first use and
+bound with ctypes.
+
+Both versions compute, for x = beta * logl - Bm,
+
+    ESS(beta) = s1^2 / s2,  s1 = sum exp(x - m),  s2 = sum exp(2(x - m)),
+
+stay at beta_prev when ESS(beta_prev) <= target, jump to 1 when
+ESS(1) >= target, and otherwise bisect on [beta_prev, 1] with the dual
+tolerance and the 200-probe cap of steps/reweight._find_beta_bisection.
+One deliberate difference from the Pallas kernel: x is -inf wherever logl
+is not finite or Bm is +inf, as in state.logw_from_denominator
+(tempest_tpu/state.py:392-394). The Pallas kernel computes 0 * -inf = NaN
+there at beta = 0, which makes ESS(0) NaN and skips the "stay" rule.
+
+`ess_bisect_beta` picks its route only by the tensors' device: CPU tensors
+go to the plain version, CUDA float32 contiguous tensors to the kernel,
+anything else raises. A failed build or launch raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Tuple
+
+import torch
+
+from ..config import (
+    BETA_RTOL,
+    BETA_TOLERANCE,
+    ESS_TOLERANCE,
+    MAX_BISECTION_ITERATIONS,
+    METRIC_ATOL,
+)
+from .tools import ess_from_logw, logsumexp
+
+_PACKAGE = Path(__file__).resolve().parents[1]
+SOURCES = (_PACKAGE / "csrc" / "ess_bisect.cu",)
+BUILD_DIR = _PACKAGE.parent / "build" / "tempest_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+# Kernel launches made by `ess_bisect_beta` in this process.
+LAUNCHES = 0
+
+_library = None
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version: the XLA path's semantics
+# (tempest_tpu/steps/reweight.py:122-166, 214-224).
+# ---------------------------------------------------------------------------
+def _interval_tol(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    scale = torch.clamp(torch.maximum(lo.abs(), hi.abs()), min=torch.finfo(lo.dtype).tiny)
+    return torch.maximum(BETA_RTOL * scale, BETA_TOLERANCE * scale)
+
+
+def ess_bisect_beta_reference(
+    logl: torch.Tensor, bm: torch.Tensor, scal: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Next beta for ESS mode, in plain PyTorch.
+
+    logl: (S,) log-likelihoods; bm: (S,) masked MIS denominator (+inf on
+    invalid slots); scal: (2,) = (beta_prev, target). Returns the (1,)
+    float32 beta and the (1,) int32 count of ESS evaluations.
+    """
+    keep = torch.isfinite(logl) & (bm != float("inf"))
+    neg_inf = torch.full_like(logl, float("-inf"))
+    beta_prev, target = scal[0], scal[1]
+    one = torch.ones((), dtype=logl.dtype, device=logl.device)
+
+    def ess_at(beta):
+        logw = torch.where(keep, beta * logl - bm, neg_inf)
+        return ess_from_logw(logw - logsumexp(logw))
+
+    ess_cur = ess_at(beta_prev)
+    ess_one = ess_at(one)
+    probes = 2
+    if bool(ess_cur <= target):
+        beta = beta_prev
+    elif bool(ess_one >= target):
+        beta = one
+    else:
+        lo, hi = beta_prev, one
+        atol = max(ESS_TOLERANCE * abs(float(target)), METRIC_ATOL)
+        for _ in range(MAX_BISECTION_ITERATIONS):
+            beta = 0.5 * (lo + hi)
+            metric = ess_at(beta)
+            probes += 1
+            metric = torch.where(torch.isfinite(metric), metric, torch.full_like(metric, 1e10))
+            done = (
+                bool(torch.abs(metric - target) < atol)
+                or bool((hi - lo) < _interval_tol(lo, hi))
+                or bool(beta == 1.0)
+            )
+            if done:
+                break
+            if bool(metric >= target):  # ESS decreases with beta
+                lo = beta
+            else:
+                hi = beta
+    return (
+        beta.reshape(1).to(torch.float32),
+        torch.full((1,), probes, dtype=torch.int32, device=logl.device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+def ess_bisect_beta(
+    logl: torch.Tensor, bm: torch.Tensor, scal: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Next beta for ESS mode: (beta (1,) f32, ESS evaluations (1,) i32).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream without a host sync (scal stays on the device).
+    """
+    device = logl.device
+    if bm.device != device or scal.device != device:
+        raise ValueError(
+            f"logl, bm and scal must share one device (got {device}, {bm.device}, {scal.device})"
+        )
+    if device.type == "cpu":
+        return ess_bisect_beta_reference(logl, bm, scal)
+    if device.type != "cuda":
+        raise ValueError(f"ess_bisect_beta runs on cpu or cuda tensors, not {device}")
+    for name, t in (("logl", logl), ("bm", bm), ("scal", scal)):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.dim() != 1:
+            raise ValueError(
+                f"{name} must be a contiguous 1-D float32 tensor "
+                f"(got {t.dtype}, shape {tuple(t.shape)}, contiguous={t.is_contiguous()})"
+            )
+    if bm.shape != logl.shape or logl.numel() == 0 or scal.numel() != 2:
+        raise ValueError(
+            f"need logl and bm of one shape (S,) with S > 0 and scal of shape (2,); "
+            f"got {tuple(logl.shape)}, {tuple(bm.shape)}, {tuple(scal.shape)}"
+        )
+    return _launch(logl, bm, scal)
+
+
+def _launch(logl, bm, scal):
+    global LAUNCHES
+    lib = load_library()
+    beta = torch.empty(1, dtype=torch.float32, device=logl.device)
+    probes = torch.empty(1, dtype=torch.int32, device=logl.device)
+    with torch.cuda.device(logl.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tempest_ess_bisect(
+            logl.data_ptr(), bm.data_ptr(), scal.data_ptr(),
+            beta.data_ptr(), probes.data_ptr(), logl.numel(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ess_bisect kernel launch failed with CUDA error {err}")
+    LAUNCHES += 1
+    return beta, probes
+
+
+# ---------------------------------------------------------------------------
+# Build (nvcc into a shared library with a plain C interface) and load.
+# ---------------------------------------------------------------------------
+def library_path() -> Path:
+    """Where the build of the current sources lives: the name carries a
+    hash of the sources and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libess_bisect_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and CUDA_HOME is not None:
+        nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
+    if nvcc is None or not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return nvcc
+
+
+def build() -> Path:
+    """Compile the kernel sources unless this build exists; return the .so."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load once, and declare the C signature."""
+    global _library
+    if _library is None:
+        lib = ctypes.CDLL(str(build()))
+        fn = lib.tempest_ess_bisect
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _library = lib
+    return _library

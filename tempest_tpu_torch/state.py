@@ -1,0 +1,282 @@
+"""Particle state: preallocated history buffers and the MIS weight math.
+
+Counterpart of tempest_tpu/state.py. The layouts are the JAX package's, so
+the tests compare like with like: `u`/`x` are (d, T_max, N) and
+`logl`/`mis_c` are (T_max, N); slots `>= t` are masked out of every
+computation.
+
+Unlike the immutable JAX pytrees, `History` is updated in place: `commit`
+writes iteration slot `t` with `index_copy_`-style slice assignment and
+advances the Python integer `t`. Nothing else holds a reference to the
+buffers, so no caller sees a half-written history.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import torch
+
+from .ops.tools import logsumexp
+
+_NEG_INF = float("-inf")
+
+
+@dataclasses.dataclass
+class History:
+    """Rectangular particle history; valid iterations are [0, t)
+    (state.py:43-118)."""
+
+    u: torch.Tensor  # (d, T_max, N) unit-hypercube coordinates
+    x: torch.Tensor  # (d, T_max, N) physical coordinates
+    logl: torch.Tensor  # (T_max, N)
+    # Running MIS-denominator accumulator (state.py:50-57):
+    #   mis_c[t', s] = logsumexp_{t < T} (beta_t * logl[t', s] - logZ_t)
+    mis_c: torch.Tensor  # (T_max, N)
+    beta: torch.Tensor  # (T_max,)
+    logz: torch.Tensor  # (T_max,)
+    ess: torch.Tensor  # (T_max,)
+    cv: torch.Tensor  # (T_max,)
+    acceptance: torch.Tensor  # (T_max,)
+    efficiency: torch.Tensor  # (T_max,)
+    steps: torch.Tensor  # (T_max,) int32
+    calls: torch.Tensor  # (T_max,) int32 cumulative likelihood-call sweeps
+    t: int  # number of committed iterations
+
+    @property
+    def capacity(self) -> int:
+        return self.u.shape[1]
+
+    @property
+    def n_particles(self) -> int:
+        return self.u.shape[2]
+
+    @property
+    def n_dim(self) -> int:
+        return self.u.shape[0]
+
+    def iter_mask(self) -> torch.Tensor:
+        """(T_max,) bool — which iteration slots are valid."""
+        return torch.arange(self.capacity, device=self.logl.device) < self.t
+
+    def sample_mask(self) -> torch.Tensor:
+        """(T_max, N) bool — which history samples are valid."""
+        return self.iter_mask()[:, None].expand(self.capacity, self.n_particles)
+
+
+@dataclasses.dataclass
+class Current:
+    """Active particle set and per-iteration scalars (state.py:212-229).
+
+    The float scalars are 0-d tensors on the device, so the loop reads them
+    on the host only where it branches; the counters are Python integers.
+    """
+
+    u: torch.Tensor  # (N, d)
+    x: torch.Tensor  # (N, d)
+    logl: torch.Tensor  # (N,)
+    assignments: torch.Tensor  # (N,) int32 cluster labels
+    beta: torch.Tensor
+    logz: torch.Tensor
+    ess: torch.Tensor
+    cv: torch.Tensor
+    acceptance: torch.Tensor
+    efficiency: torch.Tensor
+    steps: int
+    calls: int  # cumulative likelihood-call sweeps (see History.calls)
+    iteration: int
+
+
+def make_history(
+    capacity: int, n_particles: int, n_dim: int, dtype=torch.float32, device=None
+) -> History:
+    """Allocate an empty history buffer (state.py:151-179)."""
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def neg_inf():
+        return torch.full((capacity, n_particles), _NEG_INF, dtype=dtype, device=device)
+
+    return History(
+        u=zeros(n_dim, capacity, n_particles),
+        x=zeros(n_dim, capacity, n_particles),
+        logl=neg_inf(),
+        mis_c=neg_inf(),
+        beta=zeros(capacity),
+        logz=zeros(capacity),
+        ess=zeros(capacity),
+        cv=zeros(capacity),
+        acceptance=zeros(capacity),
+        efficiency=zeros(capacity),
+        steps=torch.zeros(capacity, dtype=torch.int32, device=device),
+        calls=torch.zeros(capacity, dtype=torch.int32, device=device),
+        t=0,
+    )
+
+
+def make_current(n_particles: int, n_dim: int, dtype=torch.float32, device=None) -> Current:
+    """An empty active set (state.py:232-258)."""
+
+    def scalar():
+        return torch.zeros((), dtype=dtype, device=device)
+
+    return Current(
+        u=torch.zeros((n_particles, n_dim), dtype=dtype, device=device),
+        x=torch.zeros((n_particles, n_dim), dtype=dtype, device=device),
+        logl=torch.full((n_particles,), _NEG_INF, dtype=dtype, device=device),
+        assignments=torch.zeros((n_particles,), dtype=torch.int32, device=device),
+        beta=scalar(),
+        logz=scalar(),
+        ess=scalar(),
+        cv=scalar(),
+        acceptance=scalar(),
+        efficiency=scalar(),
+        steps=0,
+        calls=0,
+        iteration=0,
+    )
+
+
+def grow_history(hist: History, new_capacity: int) -> History:
+    """Grow the capacity with contents preserved (state.py:182-209)."""
+    cap = hist.capacity
+    if new_capacity <= cap:
+        raise ValueError(f"new capacity {new_capacity} must exceed {cap}")
+
+    def pad(arr, fill=0.0, dim=0):
+        shape = list(arr.shape)
+        shape[dim] = new_capacity - cap
+        filler = torch.full(shape, fill, dtype=arr.dtype, device=arr.device)
+        return torch.cat([arr, filler], dim=dim)
+
+    return History(
+        u=pad(hist.u, dim=1),
+        x=pad(hist.x, dim=1),
+        logl=pad(hist.logl, _NEG_INF),
+        mis_c=pad(hist.mis_c, _NEG_INF),
+        beta=pad(hist.beta),
+        logz=pad(hist.logz),
+        ess=pad(hist.ess),
+        cv=pad(hist.cv),
+        acceptance=pad(hist.acceptance),
+        efficiency=pad(hist.efficiency),
+        steps=pad(hist.steps, 0),
+        calls=pad(hist.calls, 0),
+        t=hist.t,
+    )
+
+
+def gather_history(
+    hist: History, t_idx: torch.Tensor, n_idx: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(u, x, logl) rows for sample coordinates (t, n); u/x come back as
+    (k, d) (state.py:121-148)."""
+    s_idx = t_idx * hist.n_particles + n_idx
+    d = hist.n_dim
+    u = hist.u.reshape(d, -1)[:, s_idx].T
+    x = hist.x.reshape(d, -1)[:, s_idx].T
+    logl = hist.logl.reshape(-1)[s_idx]
+    return u, x, logl
+
+
+def _masked_term(beta, logl: torch.Tensor, logz) -> torch.Tensor:
+    """beta * logl - logz, forced to -inf where logl is not finite
+    (0 * -inf would be NaN)."""
+    term = beta * logl - logz
+    return torch.where(torch.isfinite(logl), term, torch.full_like(term, _NEG_INF))
+
+
+def commit(hist: History, cur: Current) -> History:
+    """Append the current state as iteration slot `t`, in place
+    (state.py:261-321).
+
+    Also maintains the MIS accumulator: each committed row gains one
+    logaddexp with the new (beta_T, logZ_T) term — O(S) — and the new row
+    is a logsumexp over all T+1 committed temperatures — O(N*T). The
+    caller must ensure capacity > t.
+    """
+    t = hist.t
+    if t >= hist.capacity:
+        raise ValueError(f"history is full (capacity {hist.capacity}); grow it first")
+    beta_T = cur.beta.to(hist.logl.dtype)
+    logz_T = cur.logz.to(hist.logl.dtype)
+
+    # Rows of the committed iterations (slots < t) — rows >= t stay -inf.
+    hist.mis_c[:t] = torch.logaddexp(hist.mis_c[:t], _masked_term(beta_T, hist.logl[:t], logz_T))
+
+    # The new iteration's row over all t' <= t.
+    hist.beta[t] = beta_T
+    hist.logz[t] = logz_T
+    vals = _masked_term(hist.beta[: t + 1, None], cur.logl[None, :], hist.logz[: t + 1, None])
+    hist.mis_c[t] = logsumexp(vals, dim=0)
+
+    hist.u[:, t] = cur.u.T
+    hist.x[:, t] = cur.x.T
+    hist.logl[t] = cur.logl
+    hist.ess[t] = cur.ess
+    hist.cv[t] = cur.cv
+    hist.acceptance[t] = cur.acceptance
+    hist.efficiency[t] = cur.efficiency
+    hist.steps[t] = cur.steps
+    hist.calls[t] = cur.calls
+    hist.t = t + 1
+    return hist
+
+
+# ---------------------------------------------------------------------------
+# The MIS / balance-heuristic weight computation.
+# ---------------------------------------------------------------------------
+def mis_denominator(hist: History) -> torch.Tensor:
+    """B_s = mis_c_s - log(T), the beta-independent MIS denominator — O(S)
+    (state.py:327-338). Shape (T_max, N)."""
+    return hist.mis_c - math.log(max(hist.t, 1))
+
+
+def mis_denominator_exact(hist: History) -> torch.Tensor:
+    """Full-matrix O(S*T) denominator, the reference formulation
+    (state.py:341-363); the ground truth in tests. Shape (T_max, N)."""
+    it_mask = hist.iter_mask()
+    log_mix = torch.where(
+        it_mask,
+        torch.full_like(hist.beta, -math.log(max(hist.t, 1))),
+        torch.full_like(hist.beta, _NEG_INF),
+    )
+    rows = []
+    for logl_row in hist.logl:
+        b = logl_row[:, None] * hist.beta[None, :] - hist.logz[None, :] + log_mix[None, :]
+        b = torch.where(it_mask[None, :], b, torch.full_like(b, _NEG_INF))
+        rows.append(logsumexp(b, dim=1))
+    return torch.stack(rows)
+
+
+def logw_from_denominator(
+    hist: History, denom: torch.Tensor, beta_final, normalize: bool = True
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Log-weights (T_max, N) and logZ at `beta_final` (state.py:374-400).
+
+    logw_s = beta_final * logl_s - B_s;  logz = logsumexp_s(logw_s) - log(t*N).
+    Non-finite logl and invalid slots get exactly zero weight.
+    """
+    N = hist.n_particles
+    beta_final = torch.as_tensor(beta_final, dtype=hist.logl.dtype, device=hist.logl.device)
+    keep = hist.sample_mask() & torch.isfinite(hist.logl)
+    logw = beta_final * hist.logl - denom
+    logw = torch.where(keep, logw, torch.full_like(logw, _NEG_INF))
+    if hist.t > 0:
+        logz_new = logsumexp(logw) - math.log(hist.t * N)
+    else:
+        logz_new = torch.full((), _NEG_INF, dtype=logw.dtype, device=logw.device)
+    if normalize:
+        logw = logw - logsumexp(logw)
+    return logw, logz_new
+
+
+def compute_logw_and_logz(
+    hist: History, beta_final, normalize: bool = True
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Importance log-weights for all historical samples at `beta_final`
+    and the evidence estimate (state.py:440-456)."""
+    return logw_from_denominator(hist, mis_denominator(hist), beta_final, normalize)

@@ -1,0 +1,176 @@
+"""The PyTorch port: every submodule imports, no JAX, and the config
+refuses by name what is not ported.
+
+The config checks mirror tests/test_config.py against tempest_tpu's
+messages; the device checks hold the port to "no quiet fallback".
+"""
+
+import importlib
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from tempest_tpu.config import SamplerConfig as JaxConfig
+from tempest_tpu_torch.config import SamplerConfig
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+
+SUBMODULES = [
+    "tempest_tpu_torch",
+    "tempest_tpu_torch.config",
+    "tempest_tpu_torch.core",
+    "tempest_tpu_torch.draws",
+    "tempest_tpu_torch.interop",
+    "tempest_tpu_torch.iteration",
+    "tempest_tpu_torch.mcmc",
+    "tempest_tpu_torch.modes",
+    "tempest_tpu_torch.ops.boundary",
+    "tempest_tpu_torch.ops.cuda_reweight",
+    "tempest_tpu_torch.ops.tools",
+    "tempest_tpu_torch.sampler",
+    "tempest_tpu_torch.state",
+    "tempest_tpu_torch.steps.mutate",
+    "tempest_tpu_torch.steps.resample",
+    "tempest_tpu_torch.steps.reweight",
+    "tempest_tpu_torch.student",
+    "tempest_tpu_torch.utils.wrappers",
+]
+
+
+def prior(u):
+    return 20.0 * u - 10.0
+
+
+def loglike(x):
+    return -0.5 * torch.sum(x * x, dim=-1)
+
+
+@pytest.mark.parametrize("name", SUBMODULES)
+def test_importable(name):
+    importlib.import_module(name)
+
+
+def test_public_api():
+    import tempest_tpu_torch
+
+    assert tempest_tpu_torch.__all__ == ["Sampler"]
+    assert callable(tempest_tpu_torch.Sampler)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys; import tempest_tpu_torch, tempest_tpu_torch.sampler, "
+        "tempest_tpu_torch.interop, tempest_tpu_torch.ops.cuda_reweight; "
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tempest_tpu.'))]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_constants_match_jax():
+    import tempest_tpu.config as jc
+    import tempest_tpu_torch.config as tc
+
+    for name in (
+        "BETA_TOLERANCE", "BETA_RTOL", "ESS_TOLERANCE", "METRIC_ATOL", "METRIC_ATOL_CV",
+        "DOF_FALLBACK", "TRIM_ESS", "TRIM_BINS", "MAX_BISECTION_ITERATIONS",
+        "N_PROPOSAL_CANDIDATES", "DEFAULT_HISTORY_CAPACITY", "DEFAULT_K_MAX",
+    ):
+        assert getattr(tc, name) == getattr(jc, name), name
+
+
+def _config(cls, **kw):
+    base = dict(prior_transform=prior, log_likelihood=loglike, n_dim=3, vectorize=True,
+                clustering=False)
+    base.update(kw)
+    return cls(**base)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(n_particles=0),
+    dict(ess_ratio=-1.0),
+    dict(sample="bogus"),
+    dict(resample="bogus"),
+    dict(periodic=[0], reflective=[0]),
+    dict(periodic=[7]),
+    dict(n_particles=0, sample="bogus", resample="nope"),
+])
+def test_validation_messages_match_jax(bad):
+    with pytest.raises(ValueError) as jax_err:
+        _config(JaxConfig, **bad)
+    with pytest.raises(ValueError) as port_err:
+        _config(SamplerConfig, device="cpu", **bad)
+    assert str(port_err.value) == str(jax_err.value)
+
+
+def test_defaults_match_jax():
+    j = _config(JaxConfig)
+    p = _config(SamplerConfig, device="cpu")
+    for name in ("n_particles", "n_steps", "n_max_steps", "train_max_points",
+                 "leaf_fit_points", "output_dir", "output_label", "k_max", "n_candidates"):
+        assert getattr(p, name) == getattr(j, name), name
+    assert p.get_target_metric() == j.get_target_metric()
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(clustering=True), "queue 1, item 9"),
+    (dict(volume_variation=1.0), "queue 1, item 11"),
+    (dict(blob_size=2), "queue 1, item 11"),
+    (dict(host_likelihood=True), "queue 1, item 11"),
+    (dict(pool=2), "queue 1, item 11"),
+    (dict(mesh=object()), "queue 1, item 11"),
+    (dict(dtype=torch.float64), "queue 1, item 11"),
+    (dict(cluster_every=2), "queue 1, item 11"),
+    (dict(vectorize=False), "queue 1, item 11"),
+    (dict(hardware_prng=True), "queue 2, items 2-4"),
+])
+def test_unported_options_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        _config(SamplerConfig, device="cpu", **kw)
+
+
+def test_default_clustering_points_at_clustering_false():
+    from tempest_tpu_torch import Sampler
+
+    with pytest.raises(NotImplementedError, match="clustering=False"):
+        Sampler(prior, loglike, n_dim=3, vectorize=True, device="cpu")
+
+
+def test_cuda_device_raises_without_gpu():
+    """The default device is the GPU, and nothing moves to the CPU quietly."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU")
+    from tempest_tpu_torch import Sampler
+
+    with pytest.raises((RuntimeError, AssertionError)):
+        Sampler(prior, loglike, n_dim=3, vectorize=True, clustering=False)
+
+
+def test_sampler_properties_and_single_iterations():
+    from tempest_tpu_torch import Sampler
+
+    s = Sampler(prior, loglike, n_dim=3, n_particles=16, vectorize=True, clustering=False,
+                random_state=3, history_capacity=4, device="cpu")
+    assert (s.n_dim, s.n_particles, s.ess_ratio, s.resample) == (3, 16, 2.0, "mult")
+    assert s.device == torch.device("cpu") and not s.clustering
+    first = s.sample()
+    assert first["beta"] == 0.0 and first["iter"] == 1 and first["calls"] == 16
+    for _ in range(5):
+        out = s.sample()  # grows the history past capacity 4
+    assert s.state.hist.capacity == 8 and s.state.hist.t == 6
+    assert math.isfinite(out["logz"]) and 0.0 <= out["beta"] <= 1.0
+    res = s.results()
+    assert res["beta"].shape == (6,) and res["u"].shape == (6, 16, 3)
+    s.reset(random_state=3)
+    assert s.state.hist.t == 0 and s.state.cur.iteration == 0
+    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+        s.evidence(n_bootstrap=8)

@@ -1,0 +1,148 @@
+"""The port's whole unclustered slice against tempest_tpu.
+
+1. One iteration, value for value: the JAX sampler runs a 4-D Gaussian
+   past its warm-up; its state goes through `interop` into the port, which
+   runs the next iteration on the JAX iteration's own draws (the resample
+   uniforms from k_res and the MCMC key chain from k_mut, fused.py:89).
+   beta, logZ, the fitted mode and the mutated particles must agree with
+   what JAX computes for that iteration. Tolerances: beta and logZ 1e-5
+   (the same float32 bisection and logsumexp), mode rtol 1e-3 (float32 EM
+   with other summation orders), particles atol 1e-4 after the whole
+   adaptive chain.
+2. A whole run on the CPU: the tests/test_end_to_end.py problem and bar.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tempest_tpu import Sampler as JaxSampler
+from tempest_tpu.config import TRIM_BINS, TRIM_ESS
+from tempest_tpu.modes import fit_global_mode as jax_fit_global_mode
+from tempest_tpu.ops.tools import trim_weights_mask as jax_trim
+from tempest_tpu.steps.reweight import reweight as jax_reweight
+from tempest_tpu_torch import Sampler, interop
+from tempest_tpu_torch.config import SamplerConfig
+from tempest_tpu_torch.iteration import make_iteration, select_fit_points
+from tempest_tpu_torch.modes import fit_global_mode
+from tempest_tpu_torch.steps.reweight import reweight
+
+torch.set_num_threads(1)
+
+D4, N4 = 4, 128
+
+
+class JaxIterationDraws:
+    """The draws of one tempest_tpu mutate branch, from its iteration key."""
+
+    def __init__(self, it_key):
+        _k_train, self.k_res, self.k_mut = jax.random.split(it_key, 3)
+
+    def resample(self, n, method):
+        assert method == "mult"
+        return torch.from_numpy(np.array(jax.random.uniform(self.k_res, (n,), dtype=jnp.float32)))
+
+    def mcmc_step(self, n_candidates, n, d, gamma_shape):
+        self.k_mut, k_g, k_p, k_a = jax.random.split(self.k_mut, 4)
+        g = torch.from_numpy(np.array(
+            jax.random.gamma(k_g, jnp.asarray(gamma_shape.numpy()), dtype=jnp.float32)))
+        z = np.array(jax.random.normal(k_p, (n_candidates, n, d), dtype=jnp.float32))
+        acc = np.array(jax.random.uniform(k_a, (n,), dtype=jnp.float32))
+        return torch.from_numpy(z), g, torch.from_numpy(acc)
+
+
+def _prior(u):
+    return 20.0 * u - 10.0
+
+
+def _loglike_j(x):
+    return -0.5 * jnp.sum(x * x, axis=-1)
+
+
+def _loglike_t(x):
+    return -0.5 * torch.sum(x * x, dim=-1)
+
+
+def test_one_iteration_value_for_value():
+    js = JaxSampler(_prior, _loglike_j, n_dim=D4, n_particles=N4, vectorize=True,
+                    clustering=False, random_state=0, history_capacity=16)
+    while js.state.cur.beta == 0.0 or int(js.state.hist.t) < 5:
+        js.sample()
+    core = js.state
+    hist_j, cur_j = core.hist, core.cur
+    fields_h = {k: np.array(getattr(hist_j, k)) for k in interop.HISTORY_FIELDS + ("t",)}
+    fields_c = {k: np.array(getattr(cur_j, k))
+                for k in interop.CURRENT_FIELDS + interop.CURRENT_COUNTERS}
+    it_key = jax.random.split(core.key)[1]  # what core._next_key() hands the iteration
+
+    # What JAX computes in that iteration, stage by stage ...
+    target = 2.0 * N4
+    rw_j = jax_reweight(hist_j, cur_j.beta, target, use_pallas=False)
+    _, w_trim = jax_trim(rw_j.weights.reshape(-1), mask=hist_j.sample_mask().reshape(-1),
+                         ess=TRIM_ESS, bins=TRIM_BINS)
+    modes_j = jax_fit_global_mode(hist_j.u.reshape(D4, -1).T, w_trim, dof_fallback=1e6)
+    # ... and as one iteration.
+    out_j = js.sample()
+
+    th = interop.history_from_numpy(fields_h, "cpu")
+    tc = interop.current_from_numpy(fields_c, "cpu")
+    rw_t = reweight(th, tc.beta, target)
+    assert abs(float(rw_t.beta) - float(rw_j.beta)) < 1e-5
+    assert abs(float(rw_t.logz) - float(rw_j.logz)) < 1e-5
+    modes_t = fit_global_mode(*select_fit_points(th, rw_t.weights, 4096), dof_fallback=1e6)
+    np.testing.assert_allclose(modes_t.means.numpy(), np.asarray(modes_j.means), rtol=1e-3)
+    cov_j = np.asarray(modes_j.covariances)
+    np.testing.assert_allclose(modes_t.covariances.numpy(), cov_j, rtol=1e-3,
+                               atol=1e-3 * np.abs(cov_j).max())
+    assert abs(1 / float(modes_t.degrees_of_freedom[0])
+               - 1 / float(modes_j.degrees_of_freedom[0])) < 1e-3
+
+    cfg = SamplerConfig(prior_transform=_prior, log_likelihood=_loglike_t, n_dim=D4,
+                        n_particles=N4, vectorize=True, clustering=False, device="cpu")
+    iteration = make_iteration(cfg, _loglike_t, _prior)
+    th, tc = iteration(JaxIterationDraws(it_key), th, tc)
+
+    assert th.t == int(core.hist.t) and tc.iteration == out_j["iter"]
+    assert abs(float(tc.beta) - out_j["beta"]) < 1e-5
+    assert abs(float(tc.logz) - out_j["logz"]) < 1e-5
+    assert tc.steps == out_j["steps"] and tc.calls * N4 == out_j["calls"]
+    np.testing.assert_allclose(tc.u.numpy(), out_j["u"], atol=1e-4)
+    np.testing.assert_allclose(tc.logl.numpy(), out_j["logl"], atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(float(tc.acceptance), out_j["acceptance"], atol=1e-4)
+    np.testing.assert_allclose(th.mis_c.numpy(), np.asarray(core.hist.mis_c), atol=1e-4,
+                               rtol=1e-5)
+
+
+N_DIM = 10
+ANALYTIC_LOGZ = -N_DIM * math.log(20.0)
+
+
+def _gauss_loglike(x):
+    return -0.5 * torch.sum(x * x, dim=-1) - 0.5 * N_DIM * math.log(2 * math.pi)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_10d_gaussian_end_to_end(seed):
+    """The bar of tests/test_end_to_end.py, on the port."""
+    s = Sampler(_prior, _gauss_loglike, n_dim=N_DIM, n_particles=512, vectorize=True,
+                clustering=False, random_state=seed, history_capacity=64, device="cpu")
+    s.run(n_total=2048, progress=False, on_device=True)
+
+    assert s.beta > 0.99
+    logz, err = s.evidence()
+    assert err is None and abs(logz - ANALYTIC_LOGZ) < 0.5
+    assert s.state.posterior_ess() >= 2048
+
+    x, w, logl = s.posterior()
+    mean = np.average(x, axis=0, weights=w)
+    var = np.average((x - mean) ** 2, axis=0, weights=w)
+    np.testing.assert_allclose(mean, 0.0, atol=0.25)
+    np.testing.assert_allclose(var, 1.0, atol=0.5)
+    assert float(s.state.cur.acceptance) > 0.1
+
+    xs, ws, _ = s.posterior(resample=True)
+    assert xs.shape == x.shape and np.allclose(ws, 1.0 / len(ws))

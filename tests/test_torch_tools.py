@@ -1,0 +1,120 @@
+"""ops/tools.py and ops/boundary.py of the port against tempest_tpu.
+
+Inputs are made with numpy from a seed and handed to both packages.
+Tolerances: rtol 1e-5 for float32 reductions whose summation order differs;
+exact for the boundary ops (elementwise, same formulas); and at least 99 %
+equal indices for the resamplers, because a cumsum taken in another order
+can move a uniform across a CDF edge.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tempest_tpu.ops import boundary as jb
+from tempest_tpu.ops import tools as jt
+from tempest_tpu_torch.ops import boundary as tb
+from tempest_tpu_torch.ops import tools as tt
+
+torch.set_num_threads(1)
+
+
+def _logw(seed, n=500, n_neg_inf=20):
+    rng = np.random.default_rng(seed)
+    logw = rng.normal(-3.0, 4.0, n).astype(np.float32)
+    logw[rng.choice(n, n_neg_inf, replace=False)] = -np.inf
+    return logw
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_logsumexp_and_ess(seed):
+    logw = _logw(seed)
+    np.testing.assert_allclose(
+        tt.logsumexp(torch.from_numpy(logw)).numpy(), np.asarray(jt.logsumexp(jnp.asarray(logw))),
+        rtol=1e-5,
+    )
+    two_d = logw.reshape(20, 25)
+    for axis in (0, 1):
+        np.testing.assert_allclose(
+            tt.logsumexp(torch.from_numpy(two_d), dim=axis).numpy(),
+            np.asarray(jt.logsumexp(jnp.asarray(two_d), axis=axis)),
+            rtol=1e-5,
+        )
+    np.testing.assert_allclose(
+        tt.ess_from_logw(torch.from_numpy(logw)).numpy(),
+        np.asarray(jt.ess_from_logw(jnp.asarray(logw))),
+        rtol=1e-5,
+    )
+
+
+def test_logsumexp_all_neg_inf():
+    x = np.full((4, 3), -np.inf, np.float32)
+    assert tt.logsumexp(torch.from_numpy(x)).item() == -np.inf
+    assert np.all(tt.logsumexp(torch.from_numpy(x), dim=1).numpy() == -np.inf)
+
+
+@pytest.mark.parametrize("seed,n_valid", [(0, 600), (1, 450), (2, 37)])
+def test_trim_weights_mask(seed, n_valid):
+    rng = np.random.default_rng(seed)
+    w = (rng.exponential(size=600) ** 3).astype(np.float32)
+    mask = np.arange(600) < n_valid
+    keep_j, w_j = jt.trim_weights_mask(jnp.asarray(w), mask=jnp.asarray(mask))
+    keep_t, w_t = tt.trim_weights_mask(torch.from_numpy(w), mask=torch.from_numpy(mask))
+    np.testing.assert_array_equal(keep_t.numpy(), np.asarray(keep_j))
+    np.testing.assert_allclose(w_t.numpy(), np.asarray(w_j), rtol=1e-5, atol=1e-12)
+    assert keep_t.sum() < n_valid  # the trim did cut the light tail
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_resamplers_fed_jax_uniforms(seed):
+    rng = np.random.default_rng(seed)
+    w = rng.exponential(size=4000).astype(np.float32)
+    w[rng.choice(4000, 1000, replace=False)] = 0.0
+    key = jax.random.PRNGKey(seed)
+    n = 3000
+
+    idx_j = np.asarray(jt.multinomial_resample(key, n, jnp.asarray(w)))
+    us = np.array(jax.random.uniform(key, (n,), dtype=jnp.float32))
+    idx_t = tt.multinomial_resample(torch.from_numpy(us), torch.from_numpy(w)).numpy()
+    assert np.mean(idx_t == idx_j) >= 0.99
+    assert np.all(w[idx_t] > 0)
+
+    idx_j = np.asarray(jt.systematic_resample(key, n, jnp.asarray(w)))
+    u0 = np.array(jax.random.uniform(key, ()))
+    idx_t = tt.systematic_resample(torch.from_numpy(u0), n, torch.from_numpy(w)).numpy()
+    assert np.mean(idx_t == idx_j) >= 0.99
+    assert np.all(w[idx_t] > 0)
+
+
+def test_volume_variation_dtn():
+    rng = np.random.default_rng(4)
+    u = rng.uniform(size=(3, 6, 40)).astype(np.float32)
+    w = rng.exponential(size=(6, 40)).astype(np.float32)
+    mask = np.broadcast_to((np.arange(6) < 4)[:, None], (6, 40))
+    cv_j = float(jt.volume_variation_dtn(jnp.asarray(u), jnp.asarray(w), mask=jnp.asarray(mask)))
+    cv_t = float(tt.volume_variation_dtn(torch.from_numpy(u), torch.from_numpy(w),
+                                         mask=torch.from_numpy(mask.copy())))
+    np.testing.assert_allclose(cv_t, cv_j, rtol=1e-4)
+    # Too few valid samples for a d x d covariance: both flag 1e10.
+    few = np.zeros((6, 40), bool)
+    few[0, :2] = True
+    assert float(tt.volume_variation_dtn(torch.from_numpy(u), torch.from_numpy(w),
+                                         mask=torch.from_numpy(few))) == 1e10
+
+
+def test_boundary_ops_exact():
+    rng = np.random.default_rng(5)
+    u = rng.uniform(-2.5, 3.5, size=(7, 64, 5)).astype(np.float32)
+    pj, rj, sj = jb.make_boundary_masks(5, periodic=[0, 3], reflective=[1])
+    pt, rt, st = tb.make_boundary_masks(5, periodic=[0, 3], reflective=[1])
+    for a, b in ((pt, pj), (rt, rj), (st, sj)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    out_j = np.asarray(jb.apply_boundary_conditions(jnp.asarray(u), pj, rj))
+    out_t = tb.apply_boundary_conditions(torch.from_numpy(u), pt, rt).numpy()
+    np.testing.assert_array_equal(out_t, out_j)
+    np.testing.assert_array_equal(
+        tb.check_bounds(torch.from_numpy(out_t), st).numpy(),
+        np.asarray(jb.check_bounds(jnp.asarray(out_j), sj)),
+    )
