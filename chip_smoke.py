@@ -2,19 +2,43 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version on the card, then drives the port's main
-path through `Sampler(...).run(...)`: the canonical unclustered problem
-(paired 10-D Rosenbrock, U(-10, 10) prior, n_particles=1024,
-n_total=8192, history_capacity=64; seeds 42, 43 and 44 after a warm-up
-run) and the 10-D Gaussian of tests/test_end_to_end.py. Every phase prints
-one line and exits non-zero on failure. The last two lines are the kernel
-table and {"ok": true, "device": {...}}.
+Builds every CUDA kernel of the port from the sources in this checkout
+(one nvcc per source, started together), holds each against its plain
+PyTorch version on the card, then drives the port through
+`Sampler(...).run(...)` / `.sample()`. Phases, in order; each prints its
+lines and a failure exits non-zero:
+
+ 1. the card: `nvidia-smi` name and power limit;
+ 2. build every kernel;
+ 3. the ESS-bisection kernel against its plain version (S = 65,536 and a
+    ragged S);
+ 4. the three PRNG kernels against their plain versions on one key and call
+    index, their moments, and their times beside their plain versions' and
+    the PyTorch generator's, and the launch floor;
+ 5. the canonical problem unclustered (paired 10-D Rosenbrock, U(-10, 10)
+    prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42;
+ 6. A: the canonical problem at the reference defaults, clustered
+    (k_max=16), hardware_prng=False, seeds 42-44 after a warm-up;
+ 7. A again with hardware_prng=True: every MCMC step draws through the
+    mutation-draws kernel;
+ 8. B: the large-ensemble hardware_prng configuration of
+    benchmarks/results/hw_prng_e2e.json (10-D Gaussian, n_particles=131072,
+    history_capacity=8, unclustered) through its first four mutation
+    iterations: the normal and bits kernels, 7 + 7 launches per MCMC step;
+    then the normal kernel at its R*N*d and the ESS kernel at the S reached,
+    each against its plain version;
+ 9. C: the 10-D bimodal mixture of tests/test_multimodal.py, clustered;
+10. the 10-D Gaussian of tests/test_end_to_end.py.
+
+Every path phase sets the kernels' launch counts to 0 just before it
+drives the path and reads them just after. The last three lines are the
+total wall, the kernel table and {"ok": true, "device": {...}}.
 
 Without a GPU, or without the rest of the repository beside it, the
 script exits non-zero before printing any result. `--profile DIR` also
-profiles five mid-ladder iterations of the canonical problem under
-torch.profiler and writes the tables (by stage range and by kernel) to DIR.
+profiles five mid-ladder iterations of the clustered canonical problem
+under torch.profiler, prints each stage's share and writes the tables
+(by stage range and by kernel) to DIR.
 """
 
 from __future__ import annotations
@@ -29,10 +53,12 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from tempest_tpu_torch import Sampler  # noqa: E402
-from tempest_tpu_torch.ops import cuda_reweight  # noqa: E402
+from tempest_tpu_torch.config import N_PROPOSAL_CANDIDATES  # noqa: E402
+from tempest_tpu_torch.ops import _build, cuda_prng, cuda_reweight, philox  # noqa: E402
 from tempest_tpu_torch.ops.tools import ess_from_logw  # noqa: E402
 from tempest_tpu_torch.state import (  # noqa: E402
     commit,
@@ -45,12 +71,43 @@ from tempest_tpu_torch.state import (  # noqa: E402
 N_DIM, N_PARTICLES, N_TOTAL, CAPACITY = 10, 1024, 8192, 64
 SEEDS = (42, 43, 44)
 # tempest_tpu on the same problem with clustering=False: -35.53 +/- 0.12 over
-# 5 seeds (benchmarks/results/flagship_tpu.json, secondary_unimodal). The
-# band is about 6 sigma of that scatter and holds the reference's clustered
-# -34.98 (benchmarks/results/reference_cpu.json).
-LOGZ_CENTER, LOGZ_BAND = -35.53, 0.75
+# 5 seeds (benchmarks/results/flagship_tpu.json, secondary_unimodal).
+UNCLUSTERED_LOGZ = (-35.53, 0.75)
+# The reference's clustered 5-seed mean, +/- 3x its std of 0.334
+# (benchmarks/results/reference_cpu.json); it holds JAX's clustered -35.11
+# (benchmarks/results/flagship_tpu.json).
+CLUSTERED_LOGZ = (-34.98, 1.0)
 BETA_TOL = 2e-3  # the Pallas-vs-XLA drift from summation order (tests/test_pallas.py)
 TIMED_CALLS = 50
+DRAW_TOL = 1e-5  # normals and uniforms, absolute; gamma draws, relative
+MAX_FLIP_SHARE = 1e-4  # gamma draws whose accept test may fall the other way
+# B: benchmarks/results/hw_prng_e2e.json
+B_PARTICLES, B_CAPACITY, B_MUTATIONS = 131072, 8, 4
+# One H100 SXM at 700 W (NVIDIA's data sheet): HBM at 3.35 TB/s, 132 SMs at
+# a 1.98 GHz boost clock. An SM issues at most 128 thread-instructions a
+# clock (4 schedulers x 32 lanes; with an FMA as two flops, the data sheet's
+# 67 TFLOP/s float32), of which at most 64 can be 32-bit integer ones.
+HBM_BYTES_PER_S = 3.35e12
+SM_CLOCKS_PER_S = 132 * 1.98e9
+ISSUE_PER_SM_CLOCK, INT32_PER_SM_CLOCK = 128, 64
+# Instruction counts for the bounds, as (32-bit integer, float32), estimated
+# low. A Philox4x32-10 block: 10 rounds of 2 wide 32x32 products and 2
+# three-input xors, 2 key additions in 9 of them. A word to (0, 1]: a shift
+# and an or, then one subtraction. CUDA's precise float32 functions as
+# sequences of about this many instructions:
+PHILOX_INT, UNIT = 58, (2, 1)
+LOGF, SQRTF, SINCOSF, COSF, POWF, EXPF, DIVF = 18, 7, 28, 20, 40, 8, 8
+# 4 normals from one block: 4 unit maps, 2 x (log, sqrt, sincos, 4 products).
+NORMAL_BLOCK = (PHILOX_INT + 4 * UNIT[0], 4 * UNIT[1] + 2 * (LOGF + SQRTF + SINCOSF + 4))
+# One Marsaglia-Tsang round: its block, 3 unit maps, a cos-only normal, the
+# cube, two logs and about 14 products, sums, compares and selects.
+MT_ROUND = (PHILOX_INT + 3 * UNIT[0], 3 * UNIT[1] + 3 * LOGF + SQRTF + COSF + 17)
+# Per walker besides its rounds: the boost/accept block and 2 unit maps, the
+# set-up (sqrt, a division), the boost (a division, a power) and 6 more ops.
+WALKER_EXTRA = (PHILOX_INT + 2 * UNIT[0], 2 * UNIT[1] + SQRTF + 2 * DIVF + POWF + 6)
+# The ESS kernel, per sample and probe: the finite tests, beta * logl - Bm,
+# one exp, the running max and the two sums; the loop's index.
+ESS_SAMPLE_PROBE = (2, EXPF + 6)
 
 
 def fail(msg: str) -> None:
@@ -78,6 +135,96 @@ def gaussian(x):
     return -0.5 * torch.sum(x * x, dim=-1) - 0.5 * N_DIM * math.log(2 * math.pi)
 
 
+def half_square(x):
+    # hw_prng_e2e.json's likelihood: -0.5 |x|^2
+    return -0.5 * torch.sum(x * x, dim=-1)
+
+
+SEP, SIGMA = 3.0, 0.5  # tests/test_multimodal.py
+
+
+def bimodal(x):
+    norm = -0.5 * N_DIM * math.log(2 * math.pi * SIGMA**2)
+    a = norm - 0.5 * torch.sum((x - SEP) ** 2, dim=-1) / SIGMA**2
+    b = norm - 0.5 * torch.sum((x + SEP) ** 2, dim=-1) / SIGMA**2
+    return torch.logaddexp(a, b) - math.log(2.0)
+
+
+# ---------------------------------------------------------------------------
+# Launch counts and timing
+# ---------------------------------------------------------------------------
+def reset_counts() -> None:
+    cuda_reweight.LAUNCHES = 0
+    for name in cuda_prng.LAUNCHES:
+        cuda_prng.LAUNCHES[name] = 0
+
+
+def counts() -> dict:
+    return {"ess_bisect": cuda_reweight.LAUNCHES, **cuda_prng.LAUNCHES}
+
+
+def diff(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def time_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def timed_in_turns(fns: dict, calls: int = TIMED_CALLS) -> dict:
+    """Median of `calls` synchronized calls of each function, in turns."""
+    for fn in fns.values():
+        fn()  # warm-up
+    times = {k: [] for k in fns}
+    for _ in range(calls):
+        for k, fn in fns.items():
+            times[k].append(time_ms(fn))
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
+def _self_device_us(event) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, name):
+            return float(getattr(event, name))
+    return 0.0
+
+
+def device_ms(fn, kernel: str, calls: int = 20) -> float:
+    """Device time per call of the CUDA kernels whose name contains
+    `kernel`, from torch.profiler's kernel records (no host overhead)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_self_device_us(e) for e in prof.key_averages() if kernel in e.key)
+    check(us > 0.0, f"no device time recorded for kernel {kernel}")
+    return us / 1e3 / calls
+
+
+def bound(n_bytes: float, n_int: float, n_f32: float):
+    """(least ms, what bounds it) for the bytes moved and the 32-bit integer
+    and float32 instructions issued, over the whole card."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    sm_clocks = max(n_int / INT32_PER_SM_CLOCK, (n_int + n_f32) / ISSUE_PER_SM_CLOCK)
+    t_ops = 1e3 * sm_clocks / SM_CLOCKS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def work(*terms):
+    """(integer, float32) instruction totals of (count, (int, f32)) terms."""
+    return tuple(sum(n * per[i] for n, per in terms) for i in (0, 1))
+
+
+# ---------------------------------------------------------------------------
+# Phases 1-4: the card, the build, the kernels against their plain versions
 # ---------------------------------------------------------------------------
 def phase_device() -> str:
     smi = subprocess.run(
@@ -93,9 +240,13 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    path = cuda_reweight.build()
-    cuda_reweight.load_library()
-    print(f"build: {path.name} in {time.perf_counter() - t0:.3f} s", flush=True)
+    libs = (cuda_reweight.LIBRARY, cuda_prng.LIBRARY)
+    paths = _build.build_all(libs)
+    for lib in libs:
+        _build.load(lib)
+    names = " ".join(p.name for p in paths.values())
+    print(f"build: {names} in {time.perf_counter() - t0:.3f} s (one nvcc per source, in parallel)",
+          flush=True)
 
 
 def synthetic_history(device, n_particles, capacity, t_fill, seed):
@@ -134,23 +285,19 @@ def ess_at(hist, denom, beta) -> float:
     return float(ess_from_logw(logw))
 
 
-def time_ms(fn) -> float:
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return 1e3 * (time.perf_counter() - t0)
+def kernel_inputs(hist):
+    denom = mis_denominator(hist)
+    bm = torch.where(hist.sample_mask(), denom, torch.full_like(denom, float("inf")))
+    return denom, hist.logl.reshape(-1).contiguous(), bm.reshape(-1).contiguous()
 
 
-def phase_kernel(device):
+def phase_ess_kernel(device) -> dict:
     """Kernel against its plain version at S = 65,536 and at a ragged S."""
     max_err = 0.0
-    timing = None
+    row = None
     for n_particles, capacity, t_fill in ((1024, 64, 40), (1000, 61, 33)):
         hist = synthetic_history(device, n_particles, capacity, t_fill, seed=capacity)
-        denom = mis_denominator(hist)
-        bm = torch.where(hist.sample_mask(), denom, torch.full_like(denom, float("inf")))
-        logl, bm = hist.logl.reshape(-1).contiguous(), bm.reshape(-1).contiguous()
+        denom, logl, bm = kernel_inputs(hist)
         S = logl.numel()
         beta_prev = float(hist.beta[t_fill // 2])
         ess_cur, ess_one = ess_at(hist, denom, beta_prev), ess_at(hist, denom, 1.0)
@@ -175,64 +322,329 @@ def phase_kernel(device):
                       f"S={S} bisect: kernel {bk} vs plain {br} (beta_prev {bp})")
             else:
                 check(bk == br and probes_k.item() == 2, f"S={S} {kind}: kernel {bk} vs plain {br}")
-            print(f"kernel S={S} {kind}: beta_prev={bp:.6g} target={target:.6g} "
+            print(f"ess kernel S={S} {kind}: beta_prev={bp:.6g} target={target:.6g} "
                   f"kernel={bk:.7f} ({probes_k.item()} probes) plain={br:.7f} "
                   f"({probes_r.item()} probes)", flush=True)
         if S == CAPACITY * N_PARTICLES:
             scal = torch.tensor([beta_prev, math.sqrt(ess_cur * ess_one)], device=device)
-            ks, ps = [], []
-            for _ in range(TIMED_CALLS):  # in turns, on the same inputs
-                ps.append(time_ms(lambda: cuda_reweight.ess_bisect_beta_reference(logl, bm, scal)))
-                ks.append(time_ms(lambda: cuda_reweight.ess_bisect_beta(logl, bm, scal)))
-            timing = (sorted(ks)[TIMED_CALLS // 2], sorted(ps)[TIMED_CALLS // 2])
-            print(f"kernel timing S={S}: kernel {timing[0]:.4f} ms, plain {timing[1]:.4f} ms "
-                  f"(median of {TIMED_CALLS}, synchronized)", flush=True)
-    check(timing is not None, "no timing at S = 65,536")
-    return max_err, timing
+            probes = int(cuda_reweight.ess_bisect_beta(logl, bm, scal)[1].item())
+            t = timed_in_turns({
+                "plain": lambda: cuda_reweight.ess_bisect_beta_reference(logl, bm, scal),
+                "kernel": lambda: cuda_reweight.ess_bisect_beta(logl, bm, scal),
+            })
+            # logl and Bm read once, scal read, beta and the probe count written.
+            b_ms, b_by = bound(8 * S + 16, *work((S * probes, ESS_SAMPLE_PROBE)))
+            dev = device_ms(lambda: cuda_reweight.ess_bisect_beta(logl, bm, scal), "ess_bisect")
+            row = dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None, device_ms=dev)
+            print(f"ess kernel timing S={S} ({probes} probes): kernel {t['kernel']:.4f} ms, "
+                  f"plain {t['plain']:.4f} ms, bound {b_ms:.5f} ms ({b_by}) "
+                  f"(median of {TIMED_CALLS}, synchronized, in turns); device time "
+                  f"{dev:.4f} ms per launch (torch.profiler)", flush=True)
+    check(row is not None, "no timing at S = 65,536")
+    row["max_abs_err"] = max_err
+    return row
 
 
-def canonical_sampler(device, seed):
+def _moments(z: torch.Tensor):
+    z = z.double()
+    m, v = float(z.mean()), float(z.var(unbiased=False))
+    kurt = float(((z - m) ** 4).mean()) / v**2
+    return m, v, kurt
+
+
+def _gamma_flips(got: torch.Tensor, want: torch.Tensor) -> int:
+    return int(torch.sum(torch.abs(got - want) > DRAW_TOL * torch.abs(want)))
+
+
+def phase_prng_kernels(device) -> dict:
+    """Each PRNG kernel against its plain version on one key and call index,
+    the moments of tests/test_tpu_smoke.py:181-243 on the kernel outputs,
+    and the times of kernel, plain version and PyTorch generator."""
+    key = philox.key_from_seed(2024)
+    rows = {}
+
+    # --- mutation draws: R=8, N=1024, d=10, alpha half 7.5, half 0.7 ----------
+    R, N, d = 8, 1024, 10
+    alpha = torch.cat([torch.full((N // 2,), 7.5), torch.full((N // 2,), 0.7)]).to(device)
+    z, g, u = cuda_prng.hw_mutation_draws(key, 1, alpha, (R, N, d))
+    wz, wg, wu = philox.mutation_draws(key, 1, alpha, (R, N, d))
+    torch.cuda.synchronize()
+    err_z = float(torch.max(torch.abs(z - wz)))
+    err_u = float(torch.max(torch.abs(u - wu)))
+    flips = _gamma_flips(g, wg)
+    agree = torch.abs(g - wg) <= DRAW_TOL * torch.abs(wg)
+    err_g = float(torch.max(torch.abs(g - wg)[agree]))
+    print(f"mutation draws R={R} N={N} d={d}: max|dz|={err_z:.3g} max|du|={err_u:.3g} "
+          f"gamma flips={flips} of {N}, max|dg| elsewhere={err_g:.3g}", flush=True)
+    check(err_z <= DRAW_TOL and err_u <= DRAW_TOL, "mutation draws: z or u differ from plain")
+    check(flips <= max(1, MAX_FLIP_SHARE * N), f"mutation draws: {flips} gamma flips")
+    zs, gs, us = [], [], []
+    for c in range(32):
+        z, g, u = cuda_prng.hw_mutation_draws(key, 100 + c, alpha, (R, N, d))
+        zs.append(z.reshape(-1)), gs.append(g), us.append(u)
+    z, g, u = torch.cat(zs), torch.stack(gs), torch.cat(us)
+    zm, zv, zk = _moments(z)
+    g_hi, g_lo = g[:, : N // 2].double(), g[:, N // 2:].double()
+    print(f"mutation draws moments (32 calls): z mean={zm:.5f} var={zv:.5f} kurt={zk:.4f}; "
+          f"u min={float(u.min()):.3g} mean={float(u.mean()):.5f}; "
+          f"g(7.5) mean={float(g_hi.mean()):.4f} var={float(g_hi.var()):.4f}; "
+          f"g(0.7) mean={float(g_lo.mean()):.4f} var={float(g_lo.var()):.4f}", flush=True)
+    check(abs(zm) < 0.005 and abs(zv - 1.0) < 0.01 and abs(zk - 3.0) < 0.05, "mutation z moments")
+    check(0.0 < float(u.min()) and float(u.max()) <= 1.0 and abs(float(u.mean()) - 0.5) < 0.01,
+          "mutation u moments")
+    check(float(g_lo.min()) > 0.0, "mutation g(0.7) not positive")
+    check(abs(float(g_hi.mean()) - 7.5) < 0.1 and abs(float(g_hi.var()) - 7.5) < 0.3,
+          "mutation g(7.5) moments")
+    check(abs(float(g_lo.mean()) - 0.7) < 0.03 and abs(float(g_lo.var()) - 0.7) < 0.05,
+          "mutation g(0.7) moments")
+    t = timed_in_turns({
+        "kernel": lambda: cuda_prng.hw_mutation_draws(key, 1, alpha, (R, N, d)),
+        "plain": lambda: philox.mutation_draws(key, 1, alpha, (R, N, d)),
+        "library": lambda: (torch.randn((R, N, d), device=device), torch._standard_gamma(alpha),
+                            torch.rand(N, device=device)),
+    })
+    n_z = R * N * d
+    ops = work((-(-n_z // 4), NORMAL_BLOCK), (N * philox.MT_ROUNDS, MT_ROUND), (N, WALKER_EXTRA))
+    b_ms, b_by = bound(4 * N + 4 * n_z + 8 * N, *ops)
+    rows["mutation_draws"] = dict(
+        max_abs_err=max(err_z, err_u, err_g), gamma_flips=flips, ms=t["kernel"],
+        plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by, library_ms=t["library"],
+        device_ms=device_ms(lambda: cuda_prng.hw_mutation_draws(key, 1, alpha, (R, N, d)),
+                            "mutation_draws_kernel"))
+
+    # --- normal and bits at 2^20 ------------------------------------------------
+    n = 1 << 20
+    z = cuda_prng.hw_normal(key, 2, (n,), device)
+    err_n = float(torch.max(torch.abs(z - philox.normal(key, 2, n, device))))
+    b = cuda_prng.hw_bits(key, 3, (n,), device)
+    bits_equal = bool(torch.equal(b, philox.bits(key, 3, n, device)))
+    u = philox.unit_open_closed(b)
+    zm, zv, zk = _moments(z)
+    tail = float((z.abs() > 3).double().mean())
+    um, uv, _ = _moments(u)
+    print(f"normal n={n}: max|dz|={err_n:.3g} mean={zm:.5f} var={zv:.5f} kurt={zk:.4f} "
+          f"P(|z|>3)={tail:.5f}; bits n={n}: equal={bits_equal}, uniform min={float(u.min()):.3g} "
+          f"max={float(u.max())} mean={um:.5f} var={uv:.5f}", flush=True)
+    check(err_n <= DRAW_TOL, f"normal kernel differs from plain by {err_n}")
+    check(bits_equal, "bits kernel differs from plain")
+    check(abs(zm) < 0.005 and abs(zv - 1.0) < 0.01 and abs(zk - 3.0) < 0.05
+          and abs(tail - 0.0027) < 0.0005, "normal moments")
+    check(0.0 < float(u.min()) and float(u.max()) <= 1.0 and abs(um - 0.5) < 0.002
+          and abs(uv - 1.0 / 12.0) < 0.001, "uniform moments")
+    t = timed_in_turns({
+        "kernel": lambda: cuda_prng.hw_normal(key, 2, (n,), device),
+        "plain": lambda: philox.normal(key, 2, n, device),
+        "library": lambda: torch.randn(n, device=device),
+    })
+    b_ms, b_by = bound(4 * n, *work((n // 4, NORMAL_BLOCK)))
+    rows["normal"] = dict(max_abs_err=err_n, ms=t["kernel"], plain_ms=t["plain"], bound_ms=b_ms,
+                          bound_by=b_by, library_ms=t["library"],
+                          device_ms=device_ms(lambda: cuda_prng.hw_normal(key, 2, (n,), device),
+                                              "normal_kernel"))
+    t = timed_in_turns({
+        "kernel": lambda: cuda_prng.hw_bits(key, 3, (n,), device),
+        "plain": lambda: philox.bits(key, 3, n, device),
+        "library": lambda: torch.empty(n, dtype=torch.int32, device=device).random_(),
+    })
+    b_ms, b_by = bound(4 * n, *work((n // 4, (PHILOX_INT, 0))))
+    rows["bits"] = dict(max_abs_err=0.0 if bits_equal else float("nan"), ms=t["kernel"],
+                        plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by, library_ms=t["library"],
+                        device_ms=device_ms(lambda: cuda_prng.hw_bits(key, 3, (n,), device),
+                                            "bits_kernel"))
+
+    # --- hw_gamma (13 launches) at 2^18 ---------------------------------------------
+    n = 1 << 18
+    for a in (0.5, 1.5, 7.5, 50.0):
+        alpha = torch.full((n,), a, device=device)
+        g = cuda_prng.hw_gamma(key, 10, alpha)
+        flips = _gamma_flips(g, philox.gamma(key, 10, alpha))
+        gm, gv = float(g.double().mean()), float(g.double().var())
+        print(f"hw_gamma alpha={a} n={n}: flips={flips} mean={gm:.4f} var={gv:.4f}", flush=True)
+        check(flips <= MAX_FLIP_SHARE * n, f"hw_gamma alpha={a}: {flips} flips")
+        check(float(g.min()) > 0.0 and abs(gm - a) < 5 * math.sqrt(a / n) + 0.01
+              and abs(gv - a) < 0.05 * a + 0.02, f"hw_gamma alpha={a} moments")
+    t = timed_in_turns({
+        "kernels": lambda: cuda_prng.hw_gamma(key, 10, alpha),
+        "plain": lambda: philox.gamma(key, 10, alpha),
+        "library": lambda: torch._standard_gamma(alpha),
+    })
+    print(f"prng timing (median of {TIMED_CALLS}, synchronized, in turns): "
+          + "; ".join(f"{k} kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms) plain "
+                      f"{r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms bound "
+                      f"{r['bound_ms']:.5f} ms" for k, r in rows.items())
+          + f"; hw_gamma n={n} (13 launches) {t['kernels']:.4f} ms plain {t['plain']:.4f} ms "
+          f"torch._standard_gamma {t['library']:.4f} ms", flush=True)
+    return rows
+
+
+def launch_floor(device) -> dict:
+    """The least a launch costs: a bits kernel on 4 words, as a synchronized
+    host-timed call and as device time per launch."""
+    key = philox.key_from_seed(2024)
+    fn = lambda: cuda_prng.hw_bits(key, 0, (4,), device)  # noqa: E731
+    floor = {"call_ms": timed_in_turns({"bits4": fn})["bits4"],
+             "device_ms": device_ms(fn, "bits_kernel")}
+    print(f"launch floor (bits kernel, 4 words): call {floor['call_ms']:.4f} ms, device "
+          f"{floor['device_ms']:.4f} ms per launch", flush=True)
+    return floor
+
+
+# ---------------------------------------------------------------------------
+# Phases 5-10: the paths
+# ---------------------------------------------------------------------------
+def canonical_sampler(device, seed, clustering, hardware_prng=False):
     return Sampler(prior_transform, rosenbrock, n_dim=N_DIM, n_particles=N_PARTICLES,
-                   vectorize=True, clustering=False, history_capacity=CAPACITY,
-                   random_state=seed, device=device)
+                   vectorize=True, clustering=clustering, hardware_prng=hardware_prng,
+                   history_capacity=CAPACITY, random_state=seed, device=device)
 
 
-def phase_canonical(device) -> int:
-    s = canonical_sampler(device, seed=7)
-    s.run(n_total=512, progress=False, on_device=True)  # warm-up: allocator, kernels
-    cuda_reweight.LAUNCHES = 0
-    total_launches = 0
-    for seed in SEEDS:
+def mcmc_steps(s) -> int:
+    """MCMC steps over the run's mutation iterations (beta > 0)."""
+    res = s.results()
+    return int(res["steps"][res["beta"] > 0].sum())
+
+
+def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band) -> dict:
+    s = canonical_sampler(device, 7, clustering, hardware_prng)
+    for _ in range(8):  # warm-up: allocator, libraries, kernels, a clustered fit
+        s.sample()
+    reset_counts()
+    walls, effs = [], []
+    for seed in seeds:
         s.reset(random_state=seed)
-        before = cuda_reweight.LAUNCHES
+        before = counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s.run(n_total=N_TOTAL, progress=False, on_device=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = cuda_reweight.LAUNCHES - before
-        total_launches += launches
+        launched = diff(counts(), before)
         ess = s.state.posterior_ess()
         logz, _ = s.evidence()
         iters = s.state.hist.t
-        print(f"canonical seed {seed}: wall={wall:.3f} s ess={ess:.1f} eff/s={ess / wall:.1f} "
-              f"iters={iters} logz={logz:.4f} beta={s.beta:.6f} calls={s.calls} "
-              f"kernel_launches={launches}", flush=True)
-        check(s.beta >= 1.0 - 1e-4, f"seed {seed}: beta {s.beta} < 1 - 1e-4")
-        check(ess >= N_TOTAL, f"seed {seed}: posterior ESS {ess} < {N_TOTAL}")
-        check(abs(logz - LOGZ_CENTER) <= LOGZ_BAND,
-              f"seed {seed}: logZ {logz} outside {LOGZ_CENTER} +/- {LOGZ_BAND}")
-        check(launches == iters - 1,
-              f"seed {seed}: {launches} kernel launches for {iters - 1} reweights at t >= 1")
-    check(cuda_reweight.LAUNCHES == total_launches, "launch count changed outside the runs")
-    return total_launches
+        steps = mcmc_steps(s)
+        k = int(s.state.cluster_model.n_clusters())
+        walls.append(wall)
+        effs.append(ess / wall)
+        print(f"{name} seed {seed}: wall={wall:.3f} s ess={ess:.1f} eff/s={ess / wall:.1f} "
+              f"iters={iters} clusters={k} logz={logz:.4f} beta={s.beta:.6f} calls={s.calls} "
+              f"mcmc_steps={steps} launches={launched}", flush=True)
+        check(s.beta >= 1.0 - 1e-4, f"{name} seed {seed}: beta {s.beta} < 1 - 1e-4")
+        check(ess >= N_TOTAL, f"{name} seed {seed}: posterior ESS {ess} < {N_TOTAL}")
+        check(abs(logz - logz_band[0]) <= logz_band[1],
+              f"{name} seed {seed}: logZ {logz} outside {logz_band[0]} +/- {logz_band[1]}")
+        check(launched["ess_bisect"] == iters - 1,
+              f"{name} seed {seed}: {launched['ess_bisect']} ESS launches for {iters - 1} "
+              "reweights at t >= 1")
+        if hardware_prng:
+            check(launched["mutation_draws"] == steps,
+                  f"{name} seed {seed}: {launched['mutation_draws']} mutation-draws launches "
+                  f"for {steps} MCMC steps")
+        check(launched["normal"] == 0 and launched["bits"] == 0
+              and (hardware_prng or launched["mutation_draws"] == 0),
+              f"{name} seed {seed}: unexpected PRNG launches {launched}")
+    total = counts()
+    print(f"{name}: mean wall {sum(walls) / len(walls):.3f} s, mean eff/s "
+          f"{sum(effs) / len(effs):.1f}, launches {total}", flush=True)
+    return total
 
 
-def phase_gaussian(device) -> None:
-    import numpy as np
+def phase_large_ensemble(device) -> dict:
+    """B: the first four mutation iterations at N = 131,072."""
+    s = Sampler(prior_transform, half_square, n_dim=N_DIM, n_particles=B_PARTICLES,
+                vectorize=True, clustering=False, hardware_prng=True,
+                history_capacity=B_CAPACITY, random_state=42, device=device)
+    reset_counts()
+    betas, mutations, iters = [], 0, 0
+    while mutations < B_MUTATIONS:
+        check(iters < B_CAPACITY, f"B: {iters} iterations and only {mutations} mutations")
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = s.sample()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        iters += 1
+        launched = diff(counts(), before)
+        print(f"B iteration {out['iter']}: {wall:.3f} s beta={out['beta']:.6g} "
+              f"steps={out['steps']} acceptance={out['acceptance']:.4f} launches={launched}",
+              flush=True)
+        if out["beta"] > 0.0:
+            mutations += 1
+            steps = out["steps"]
+            check(launched["normal"] == 7 * steps and launched["bits"] == 7 * steps
+                  and launched["mutation_draws"] == 0,
+                  f"B: launches {launched} for {steps} MCMC steps (want 7 + 7 per step)")
+            check(out["acceptance"] > 0.1, f"B: acceptance {out['acceptance']}")
+            check(not betas or out["beta"] > betas[-1], f"B: beta did not rise: {betas}")
+            betas.append(out["beta"])
+    total = counts()
 
+    # The normal kernel at this path's R*N*d (several grid-stride passes per
+    # thread) against its plain version.
+    z_shape = (N_PROPOSAL_CANDIDATES, B_PARTICLES, N_DIM)
+    n_z = math.prod(z_shape)
+    key = philox.key_from_seed(2024)
+    z = cuda_prng.hw_normal(key, 20, z_shape, device).reshape(-1)
+    err_n = float(torch.max(torch.abs(z - philox.normal(key, 20, n_z, device))))
+    print(f"B: normal kernel at n={n_z}: max|dz|={err_n:.3g} against its plain version",
+          flush=True)
+    check(err_n <= DRAW_TOL, f"B: normal kernel differs from plain by {err_n} at n={n_z}")
+
+    # The ESS kernel at the S this history reached, against its plain version.
+    hist = s.state.hist
+    _, logl, bm = kernel_inputs(hist)
+    S = logl.numel()
+    beta_prev = float(s.state.cur.beta)
+    scal = torch.tensor([beta_prev, 2.0 * B_PARTICLES], device=device)
+    beta_k, probes_k = cuda_reweight.ess_bisect_beta(logl, bm, scal)
+    beta_r, probes_r = cuda_reweight.ess_bisect_beta_reference(logl, bm, scal)
+    bk, br, probes = beta_k.item(), beta_r.item(), int(probes_k.item())
+    err_b = abs(bk - br)
+    print(f"B: ESS kernel at S={S}: beta_prev={beta_prev:.6g} kernel={bk:.7f} ({probes} probes) "
+          f"plain={br:.7f} ({probes_r.item()} probes)", flush=True)
+    if probes_r.item() == 2:  # stay or jump
+        check(bk == br, f"B: ESS kernel {bk} vs plain {br} at S={S}")
+    else:
+        check(err_b < BETA_TOL and beta_prev < bk <= 1.0,
+              f"B: ESS kernel {bk} vs plain {br} at S={S} (beta_prev {beta_prev})")
+    t = timed_in_turns({
+        "kernel": lambda: cuda_reweight.ess_bisect_beta(logl, bm, scal),
+        "plain": lambda: cuda_reweight.ess_bisect_beta_reference(logl, bm, scal),
+    }, calls=10)
+    print(f"B: ESS kernel at S={S} (t={hist.t}, {probes} probes): kernel {t['kernel']:.4f} ms, "
+          f"plain {t['plain']:.4f} ms (median of 10); launches {total}", flush=True)
+    return total, {"normal": err_n, "ess_bisect": err_b}
+
+
+def phase_bimodal(device) -> dict:
+    """C: tests/test_multimodal.py's 10-D mixture, clustered, on the card."""
+    s = Sampler(prior_transform, bimodal, n_dim=N_DIM, n_particles=256, vectorize=True,
+                clustering=True, k_max=8, history_capacity=64, random_state=4, device=device)
+    reset_counts()
+    t0 = time.perf_counter()
+    s.run(n_total=512, progress=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k = int(s.state.cluster_model.n_clusters())
+    x, w, _ = s.posterior()
+    mass = float(np.sum(w[x[:, 0] > 0]))
+    logz, _ = s.evidence()
+    analytic = -N_DIM * math.log(20.0)
+    print(f"bimodal 10-D: wall={wall:.3f} s clusters={k} mass(x0>0)={mass:.4f} logz={logz:.4f} "
+          f"(analytic {analytic:.4f}) beta={s.beta:.6f} launches={counts()}", flush=True)
+    check(k >= 2, f"bimodal: {k} cluster(s)")
+    check(0.3 < mass < 0.7, f"bimodal: mass {mass}")
+    check(abs(logz - analytic) < 0.5, f"bimodal: logZ {logz} vs {analytic}")
+    check(cuda_reweight.LAUNCHES > 0, "bimodal: no ESS kernel launch")
+    return counts()
+
+
+def phase_gaussian(device) -> dict:
     s = Sampler(prior_transform, gaussian, n_dim=N_DIM, n_particles=512, vectorize=True,
                 clustering=False, random_state=0, history_capacity=64, device=device)
+    reset_counts()
     s.run(n_total=2048, progress=False, on_device=True)
     logz, _ = s.evidence()
     x, w, _ = s.posterior()
@@ -242,19 +654,21 @@ def phase_gaussian(device) -> None:
     analytic = -N_DIM * math.log(20.0)
     print(f"gaussian 10-D: logz={logz:.4f} (analytic {analytic:.4f}) beta={s.beta:.6f} "
           f"max|mean|={np.abs(mean).max():.4f} max|var-1|={np.abs(var - 1).max():.4f} "
-          f"acceptance={acc:.4f}", flush=True)
+          f"acceptance={acc:.4f} launches={counts()}", flush=True)
     check(s.beta > 0.99, f"gaussian: beta {s.beta}")
     check(abs(logz - analytic) < 0.5, f"gaussian: logZ {logz} vs {analytic}")
     check(bool(np.all(np.abs(mean) <= 0.25)), f"gaussian: mean {mean}")
     check(bool(np.all(np.abs(var - 1.0) <= 0.5)), f"gaussian: var {var}")
     check(acc > 0.1, f"gaussian: acceptance {acc}")
+    check(cuda_reweight.LAUNCHES > 0, "gaussian: no ESS kernel launch")
+    return counts()
 
 
 def phase_profile(device, out_dir: str) -> None:
-    """Profile 5 mid-ladder iterations (21-25) of the canonical seed 42."""
+    """Profile 5 mid-ladder iterations (21-25) of the clustered canonical seed 42."""
     from torch.profiler import ProfilerActivity, profile
 
-    s = canonical_sampler(device, seed=SEEDS[0])
+    s = canonical_sampler(device, SEEDS[0], clustering=True)
     for _ in range(20):
         s.sample()
     torch.cuda.synchronize()
@@ -265,43 +679,75 @@ def phase_profile(device, out_dir: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "canonical_profile.txt")
+    path = os.path.join(out_dir, "canonical_clustered_profile.txt")
     events = prof.key_averages()
     with open(path, "w") as f:
         f.write(events.table(sort_by="cpu_time_total", row_limit=60))
         f.write("\n")
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=30))
-    print(f"profile: iterations 21-25 of seed {SEEDS[0]} in {wall:.3f} s under the profiler "
-          f"-> {path}", flush=True)
+    stages = {}
+    for e in events:  # a range appears once on the host and once on the device
+        if e.key.startswith("ps/"):
+            stages[e.key] = max(stages.get(e.key, 0.0), e.cpu_time_total / 1e3)
+    shares = ", ".join(f"{k} {v:.1f} ms ({100 * v / (1e3 * wall):.1f} %)"
+                       for k, v in sorted(stages.items(), key=lambda kv: -kv[1]))
+    print(f"profile: iterations 21-25 of clustered seed {SEEDS[0]} in {wall:.3f} s under the "
+          f"profiler; stages: {shares} -> {path}", flush=True)
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="profile five canonical iterations into DIR")
+                        help="profile five clustered canonical iterations into DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs only on an NVIDIA GPU")
     device = torch.device("cuda")
+    t_start = time.perf_counter()
 
     kind = phase_device()
     phase_build()
-    max_err, (kernel_ms, plain_ms) = phase_kernel(device)
-    launches = phase_canonical(device)
+    rows = {"ess_bisect": phase_ess_kernel(device)}
+    rows.update(phase_prng_kernels(device))
+    floor = launch_floor(device)
+    run_canonical(device, "canonical unclustered", SEEDS[:1], False, False, UNCLUSTERED_LOGZ)
+    main_path = run_canonical(device, "A clustered", SEEDS, True, False, CLUSTERED_LOGZ)
+    hw_path = run_canonical(device, "A clustered hardware_prng", SEEDS, True, True,
+                            CLUSTERED_LOGZ)
+    large, large_errs = phase_large_ensemble(device)
+    for name, err in large_errs.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    phase_bimodal(device)
     phase_gaussian(device)
     if args.profile:
         phase_profile(device, args.profile)
 
-    print(json.dumps({"kernels": [{
-        "name": "ess_bisect",
-        "route": "cuda",
-        "source": "tempest_tpu_torch/csrc/ess_bisect.cu",
-        "replaces": "tempest_tpu/ops/pallas_reweight.py:55",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    launches = {"ess_bisect": main_path["ess_bisect"],
+                "mutation_draws": hw_path["mutation_draws"],
+                "normal": large["normal"], "bits": large["bits"]}
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on its path")
+    source = {"ess_bisect": "tempest_tpu_torch/csrc/ess_bisect.cu"}
+    replaces = {
+        "ess_bisect": "tempest_tpu/ops/pallas_reweight.py:55",
+        "mutation_draws": "tempest_tpu/ops/pallas_prng.py:159",
+        "normal": "tempest_tpu/ops/pallas_prng.py:83",
+        "bits": "tempest_tpu/ops/pallas_prng.py:108",
+    }
+    table = []
+    for name in ("ess_bisect", "mutation_draws", "normal", "bits"):
+        row = rows[name]
+        table.append({
+            "name": name, "route": "cuda",
+            "source": source.get(name, "tempest_tpu_torch/csrc/prng_draws.cu"),
+            "replaces": replaces[name], "launches": launches[name],
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+            "device_ms": row["device_ms"], "launch_floor_ms": floor["device_ms"],
+            **({"gamma_flips": row["gamma_flips"]} if "gamma_flips" in row else {}),
+        })
+    print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

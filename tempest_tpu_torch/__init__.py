@@ -1,13 +1,14 @@
 """tempest_tpu_torch — Persistent Sampling in PyTorch for NVIDIA GPUs.
 
 The PyTorch counterpart of `tempest_tpu` (the JAX package beside it, which
-is the reference this package is tested against). It implements the
-unclustered path of Persistent Sampling (Karamanis & Seljak 2025,
-arXiv:2407.20722): the adaptive ESS temperature ladder with persistent
-multiple-importance-sampling reweighting over all past particles, a global
-Student-t preconditioner, tpCN or RWM mutation, and evidence estimation.
-The ESS bisection runs as a hand-written CUDA kernel on the GPU
-(`ops/cuda_reweight.py`).
+is the reference this package is tested against). It implements
+Persistent Sampling (Karamanis & Seljak 2025, arXiv:2407.20722): the
+adaptive ESS temperature ladder with persistent multiple-importance-
+sampling reweighting over all past particles, hierarchical BIC-gated
+Gaussian-mixture clustering with one Student-t preconditioner per
+cluster, tpCN or RWM mutation, and evidence estimation. The ESS bisection
+and the `hardware_prng=True` draws run as hand-written CUDA kernels on
+the GPU (`ops/cuda_reweight.py`, `ops/cuda_prng.py`).
 
 This package imports `torch` and never `jax`.
 """

@@ -72,7 +72,7 @@ class SamplerConfig:
 
     pool: Optional[Union[int, Any]] = None
 
-    # Clustering (the reference default stays True; this package needs False)
+    # Clustering
     clustering: bool = True
     normalize: bool = True
     cluster_every: int = 1
@@ -240,10 +240,6 @@ class SamplerConfig:
 
     def _check_ported(self) -> None:
         """Refuse, by name, every option this package does not run yet."""
-        if self.clustering:
-            raise not_ported(
-                "clustering=True (pass clustering=False for now)", "queue 1, item 9"
-            )
         unported = [
             (self.volume_variation is not None, "volume_variation (dynamic/CV mode)"),
             (self.blobs_dtype is not None or self.blob_size is not None, "blobs"),
@@ -257,8 +253,6 @@ class SamplerConfig:
         for bad, what in unported:
             if bad:
                 raise not_ported(what, "queue 1, item 11")
-        if self.hardware_prng:
-            raise not_ported("hardware_prng=True", "queue 2, items 2-4")
 
     def get_target_metric(self) -> float:
         """Target metric: CV in dynamic mode, else ess_ratio * n_particles."""

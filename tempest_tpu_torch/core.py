@@ -1,11 +1,13 @@
 """SamplerCore — the Persistent Sampling annealing loop.
 
-Counterpart of tempest_tpu/core.py for the unclustered path: construction
-and `reset`, capacity pre-growth and doubling (:239-272), `run_sampling`
-(:274-324) with the termination rule of `_not_termination` (:466-477) and
-the final logZ at beta = 1, and the posterior, evidence and results
-extraction. `run(on_device=True)` is accepted and runs the same eager loop
-as `on_device=False`: there is one code path. The dispatch-budget chunking
+Counterpart of tempest_tpu/core.py: construction and `reset`, capacity
+pre-growth and doubling (:239-272), `run_sampling` (:274-324) with the
+termination rule of `_not_termination` (:466-477) and the final logZ at
+beta = 1, and the posterior, evidence and results extraction. The fitted
+cluster model is carried from iteration to iteration in `cluster_model`
+(in JAX, `s.state.trainer.cluster_model`). `run(on_device=True)` is
+accepted and runs the same eager loop as `on_device=False`: there is one
+code path. The dispatch-budget chunking
 of the TPU whole-run program is not ported (ROADMAP.md queue 1, item 12).
 """
 
@@ -16,8 +18,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .cluster import ClusterModel, single_cluster_model
 from .config import SamplerConfig, not_ported
-from .draws import Draws
+from .draws import Draws, HardwareDraws
 from .iteration import make_iteration
 from .ops.tools import ess_from_logw, systematic_resample, trim_weights_mask
 from .state import (
@@ -59,7 +62,11 @@ class SamplerCore:
         (default: the config's, else 0)."""
         cfg = self.config
         seed = random_state if random_state is not None else (cfg.random_state or 0)
-        self.draws = Draws(seed, self.device, self.dtype)
+        draws = HardwareDraws if cfg.hardware_prng else Draws
+        self.draws = draws(seed, self.device, self.dtype)
+        self.cluster_model: ClusterModel = single_cluster_model(
+            cfg.n_dim, cfg.k_max if cfg.clustering else 1, cfg.dtype, cfg.normalize, self.device
+        )
         self.hist: History = make_history(
             cfg.history_capacity, cfg.n_particles, cfg.n_dim, dtype=cfg.dtype, device=self.device
         )
@@ -132,7 +139,9 @@ class SamplerCore:
 
     def _advance(self) -> None:
         self._ensure_capacity()
-        self.hist, self.cur = self._iteration(self.draws, self.hist, self.cur)
+        self.hist, self.cur, self.cluster_model = self._iteration(
+            self.draws, self.hist, self.cur, self.cluster_model
+        )
 
     # ------------------------------------------------------------------
     def compute_posterior(

@@ -1,7 +1,7 @@
 """State exchange with the JAX package, through numpy arrays.
 
 This module has no counterpart in tempest_tpu. It turns the JAX package's
-`History`, `Current` and `ModeStatistics` fields, given as numpy arrays,
+`History`, `Current`, `ModeStatistics` and `ClusterModel` fields, given as numpy arrays,
 into this package's dataclasses, and back. It imports no jax: callers
 pass `np.array(jax_value)` for each field. The arrays are copied, because
 numpy views of JAX arrays are read-only and `torch.from_numpy` warns on
@@ -15,6 +15,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from .cluster import ClusterModel
 from .modes import ModeStatistics
 from .state import Current, History
 
@@ -27,6 +28,10 @@ CURRENT_FIELDS = (
     "acceptance", "efficiency",
 )
 CURRENT_COUNTERS = ("steps", "calls", "iteration")
+CLUSTER_FIELDS = (
+    "centers", "covariances", "weights", "k_mask", "data_min", "data_max",
+    "chol_inv", "logdet",
+)
 MODE_FIELDS = (
     "means", "covariances", "degrees_of_freedom", "inv_covariances",
     "chol_covariances", "k_mask",
@@ -70,3 +75,18 @@ def modes_from_numpy(fields: Mapping[str, np.ndarray], device) -> ModeStatistics
 
 def modes_to_numpy(modes: ModeStatistics) -> Dict[str, np.ndarray]:
     return {k: getattr(modes, k).detach().cpu().numpy().copy() for k in MODE_FIELDS}
+
+
+def cluster_model_from_numpy(fields: Mapping[str, np.ndarray], device) -> ClusterModel:
+    """ClusterModel from the JAX model's fields (CLUSTER_FIELDS and the
+    static `normalize` flag)."""
+    return ClusterModel(
+        **{k: _tensor(fields[k], device) for k in CLUSTER_FIELDS},
+        normalize=bool(fields["normalize"]),
+    )
+
+
+def cluster_model_to_numpy(model: ClusterModel) -> Dict[str, np.ndarray]:
+    out = {k: getattr(model, k).detach().cpu().numpy().copy() for k in CLUSTER_FIELDS}
+    out["normalize"] = model.normalize
+    return out

@@ -1,23 +1,26 @@
-"""One Persistent Sampling iteration on the unclustered path.
+"""One Persistent Sampling iteration.
 
 Counterpart of tempest_tpu/fused.py `_make_iteration_fn` (:38-250) with
-`clustering=False`, run eagerly:
+`cluster_every == 1`, run eagerly:
 
 1. reweight: the next beta by ESS bisection and the MIS weights
    (skipped at t == 0, where the first-iteration values of :227-236 are
    set instead of running the reweight on an empty history);
 2. at beta == 0, the warm-up branch (:195-207): fresh prior draws;
-3. otherwise trim the weights, keep the top-`train_max_points` samples by
-   weight (:113-129), fit the global Student-t mode (:165-167), resample
-   and run the adaptive MCMC;
+3. otherwise trim the weights and keep the top-`train_max_points` samples
+   by weight (:113-129); with clustering, fit the hierarchical Gaussian
+   mixture on them and label them with it (:131-161), then fit one
+   Student-t mode per cluster (:162-164), else one global mode
+   (:165-167); resample, labelling the walkers with the fitted model, and
+   run the adaptive MCMC;
 4. commit the active set to the history.
 
-Every draw comes from the `Draws` object passed in. Each stage runs inside
-a `record_function` range ("ps/reweight", "ps/fit", "ps/resample",
-"ps/mutate", "ps/warmup", "ps/commit"), which `torch.profiler` reports as
-the stage's time; without a profiler a range costs a few microseconds.
-The JAX package's `_pin_history_layouts`, donation and sharding have no
-counterpart here.
+Every draw comes from the draws object passed in. Each stage runs inside
+a `record_function` range ("ps/reweight", "ps/cluster", "ps/fit",
+"ps/resample", "ps/mutate", "ps/warmup", "ps/commit"), which
+`torch.profiler` reports as the stage's time; without a profiler a range
+costs a few microseconds. The JAX package's `_pin_history_layouts`,
+donation and sharding have no counterpart here.
 """
 
 from __future__ import annotations
@@ -27,9 +30,10 @@ from typing import Callable, Tuple
 import torch
 from torch.profiler import record_function
 
+from .cluster import ClusterModel, cluster_predict, fit_uniforms, hgm_fit
 from .config import DOF_FALLBACK, TRIM_BINS, TRIM_ESS, SamplerConfig
 from .mcmc import MCMCKernel
-from .modes import fit_global_mode
+from .modes import fit_global_mode, fit_mode_statistics
 from .ops.boundary import make_boundary_masks
 from .ops.tools import trim_weights_mask
 from .state import Current, History, commit
@@ -40,11 +44,12 @@ from .steps.reweight import reweight
 
 def select_fit_points(
     hist: History, weights: torch.Tensor, train_max_points: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(u_fit (m, d), w_fit (m,)): the trimmed weights and, once the history
-    holds more than `train_max_points` samples, only the heaviest of them
-    (fused.py:114-130)."""
-    _, w_trim = trim_weights_mask(
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(u_fit (m, d), w_fit (m,), keep_fit (m,)): the trimmed weights and,
+    once the history holds more than `train_max_points` samples, only the
+    heaviest of them (fused.py:114-130). `keep_fit` marks the rows the
+    clustering may use."""
+    keep, w_trim = trim_weights_mask(
         weights.reshape(-1),
         mask=hist.sample_mask().reshape(-1),
         ess=TRIM_ESS,
@@ -53,15 +58,17 @@ def select_fit_points(
     u_all = hist.u.reshape(hist.n_dim, -1)
     if train_max_points and train_max_points < w_trim.shape[0]:
         w_fit, idx = torch.topk(w_trim, train_max_points)
-        return u_all[:, idx].T, w_fit
-    return u_all.T, w_trim
+        return u_all[:, idx].T, w_fit, w_fit > 0.0
+    return u_all.T, w_trim, keep
 
 
 def make_iteration(
     config: SamplerConfig, log_likelihood_batch: Callable, prior_transform_batch: Callable
 ) -> Callable:
-    """Build `iteration(draws, hist, cur) -> (hist, cur)`; the caller grows
-    the history so that capacity > hist.t."""
+    """Build `iteration(draws, hist, cur, model) -> (hist, cur, model)`;
+    `model` is the ClusterModel carried from the last fit (the one-cluster
+    placeholder before it). The caller grows the history so that
+    capacity > hist.t."""
     cfg = config
     N, d = cfg.n_particles, cfg.n_dim
     p_mask, r_mask, s_mask = make_boundary_masks(d, cfg.periodic, cfg.reflective, device=cfg.device)
@@ -78,14 +85,45 @@ def make_iteration(
         n_candidates=cfg.n_candidates,
     )
     ess_target = cfg.ess_ratio * N
+    # The clusterer's settings (fused.py:79-83): 2 d points per child (4 d
+    # when n_max_clusters caps K), at most k_max - 1 split rounds, and the
+    # k-means++ uniforms of the fixed fit key.
+    min_points = 2 * d if cfg.n_max_clusters is None else 4 * d
+    round_cap = 1000 if cfg.n_max_clusters is None else cfg.n_max_clusters - 1
+    max_rounds = max(min(round_cap, cfg.k_max - 1), 0)
+    uniforms = fit_uniforms(cfg.k_max, device=cfg.device) if cfg.clustering else None
 
-    def mutate_branch(draws, hist: History, cur: Current, weights: torch.Tensor) -> None:
+    def fit_clusters(u_fit, w_fit, keep_fit) -> Tuple[ClusterModel, torch.Tensor]:
+        model, _, _ = hgm_fit(
+            u_fit, w_fit, keep_fit,
+            min_points=min_points,
+            threshold_modifier=cfg.split_threshold,
+            k_max=cfg.k_max,
+            max_rounds=max_rounds,
+            normalize=cfg.normalize,
+            split_all=cfg.split_all,
+            leaf_fit_points=cfg.leaf_fit_points or None,
+            uniforms=uniforms,
+        )
+        return model, cluster_predict(model, u_fit)
+
+    def mutate_branch(draws, hist: History, cur: Current, weights, model):
         with record_function("ps/fit"):
-            u_fit, w_fit = select_fit_points(hist, weights, cfg.train_max_points)
-            modes = fit_global_mode(u_fit, w_fit, dof_fallback=DOF_FALLBACK)
+            u_fit, w_fit, keep_fit = select_fit_points(hist, weights, cfg.train_max_points)
+        if cfg.clustering:
+            with record_function("ps/cluster"):
+                model, labels = fit_clusters(u_fit, w_fit, keep_fit)
+            with record_function("ps/fit"):
+                modes = fit_mode_statistics(
+                    u_fit, w_fit, labels, k_max=cfg.k_max, dof_fallback=DOF_FALLBACK
+                )
+        else:
+            with record_function("ps/fit"):
+                modes = fit_global_mode(u_fit, w_fit, dof_fallback=DOF_FALLBACK)
         with record_function("ps/resample"):
             u, x, logl, assignments = resample(
-                draws.resample(N, cfg.resample), hist, weights, N, method=cfg.resample
+                draws.resample(N, cfg.resample), hist, weights, N, method=cfg.resample,
+                cluster_model=model if cfg.clustering else None,
             )
         with record_function("ps/mutate"):
             res = mcmc(draws, u, x, logl, assignments, cur.beta, modes)
@@ -95,6 +133,7 @@ def make_iteration(
         cur.acceptance = res.acceptance.to(cfg.dtype)
         cur.steps = res.steps
         cur.calls += res.n_call_sweeps
+        return model
 
     def warmup_branch(draws, cur: Current) -> None:
         u_draw, patch_uniforms = draws.warmup(N, d)
@@ -107,7 +146,9 @@ def make_iteration(
         cur.acceptance = torch.ones((), dtype=cfg.dtype, device=cfg.device)
         cur.efficiency = torch.ones((), dtype=cfg.dtype, device=cfg.device)
 
-    def iteration(draws, hist: History, cur: Current) -> Tuple[History, Current]:
+    def iteration(
+        draws, hist: History, cur: Current, model: ClusterModel
+    ) -> Tuple[History, Current, ClusterModel]:
         if hist.t == 0:
             # Nothing committed yet: the first-iteration values.
             zero = torch.zeros((), dtype=cfg.dtype, device=cfg.device)
@@ -125,13 +166,13 @@ def make_iteration(
         cur.iteration += 1
 
         # beta == 0: the target is still the prior — fresh draws instead of
-        # fit/resample/MCMC.
+        # fit/resample/MCMC; the carried model stays as it is.
         if bool(cur.beta == 0.0):
             with record_function("ps/warmup"):
                 warmup_branch(draws, cur)
         else:
-            mutate_branch(draws, hist, cur, weights)
+            model = mutate_branch(draws, hist, cur, weights, model)
         with record_function("ps/commit"):
-            return commit(hist, cur), cur
+            return commit(hist, cur), cur, model
 
     return iteration

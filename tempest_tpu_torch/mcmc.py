@@ -1,8 +1,11 @@
 """Adaptive MCMC mutation: tpCN and random-walk Metropolis.
 
 Counterpart of tempest_tpu/mcmc.py:138-433 with the per-walker matrices
-gathered once per mutation (:250-254); the K-loop form and the
-hardware-PRNG branches are not ported. Semantics kept:
+gathered once per mutation (:250-254); the K-loop form is not ported. The
+hardware-PRNG branches (:187-192, :272-315) live in the draws source:
+with `hardware_prng=True` the loop is handed a `draws.HardwareDraws`,
+which routes each step's draws to the Philox kernels by the same size
+thresholds. Semantics kept:
 
 - tpCN proposal u' = mu + sqrt(1 - s^2)(u - mu) + s sqrt(g) L z with the
   inverse-gamma mixture scale g, and the Student-t density-ratio factor
@@ -16,7 +19,7 @@ hardware-PRNG branches are not ported. Semantics kept:
   [n_steps d, n_max_steps d] (:382-392).
 
 `MCMCKernel.step` is the pure step on explicit draws; `MCMCKernel.__call__`
-loops it, taking draws from a `Draws` object. The JAX `lax.while_loop`
+loops it, taking draws from a `Draws` or `HardwareDraws` object. The JAX `lax.while_loop`
 becomes a Python loop whose stop test reads one boolean per step.
 """
 

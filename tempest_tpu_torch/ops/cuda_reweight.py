@@ -27,11 +27,6 @@ anything else raises. A failed build or launch raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Tuple
 
 import torch
@@ -43,20 +38,16 @@ from ..config import (
     MAX_BISECTION_ITERATIONS,
     METRIC_ATOL,
 )
+from . import _build
 from .tools import ess_from_logw, logsumexp
 
-_PACKAGE = Path(__file__).resolve().parents[1]
-SOURCES = (_PACKAGE / "csrc" / "ess_bisect.cu",)
-BUILD_DIR = _PACKAGE.parent / "build" / "tempest_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+LIBRARY = _build.CudaLibrary(
+    "ess_bisect.cu",
+    {"tempest_ess_bisect": [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_void_p]},
 )
 
 # Kernel launches made by `ess_bisect_beta` in this process.
 LAUNCHES = 0
-
-_library = None
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +145,7 @@ def ess_bisect_beta(
 
 def _launch(logl, bm, scal):
     global LAUNCHES
-    lib = load_library()
+    lib = _build.load(LIBRARY)
     beta = torch.empty(1, dtype=torch.float32, device=logl.device)
     probes = torch.empty(1, dtype=torch.int32, device=logl.device)
     with torch.cuda.device(logl.device):
@@ -163,59 +154,6 @@ def _launch(logl, bm, scal):
             logl.data_ptr(), bm.data_ptr(), scal.data_ptr(),
             beta.data_ptr(), probes.data_ptr(), logl.numel(), stream,
         )
-    if err != 0:
-        raise RuntimeError(f"ess_bisect kernel launch failed with CUDA error {err}")
+    _build.check(err, "ess_bisect")
     LAUNCHES += 1
     return beta, probes
-
-
-# ---------------------------------------------------------------------------
-# Build (nvcc into a shared library with a plain C interface) and load.
-# ---------------------------------------------------------------------------
-def library_path() -> Path:
-    """Where the build of the current sources lives: the name carries a
-    hash of the sources and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libess_bisect_{h.hexdigest()[:16]}.so"
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    nvcc = shutil.which("nvcc")
-    if nvcc is None and CUDA_HOME is not None:
-        nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
-    if nvcc is None or not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return nvcc
-
-
-def build() -> Path:
-    """Compile the kernel sources unless this build exists; return the .so."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out
-
-
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load once, and declare the C signature."""
-    global _library
-    if _library is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.tempest_ess_bisect
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _library = lib
-    return _library

@@ -1,17 +1,19 @@
 """Resampling step: draw the next active set from ALL historical particles.
 
-Counterpart of tempest_tpu/steps/resample.py:26-57 on the unclustered
-path: the CDF is inverted over the t-major flattened weights and every
-walker gets cluster label 0. The uniforms come in as an argument: (n,)
-for multinomial resampling, one for systematic.
+Counterpart of tempest_tpu/steps/resample.py:26-57: the CDF is inverted
+over the t-major flattened weights, and each walker's cluster label comes
+from `cluster_predict` with the fitted model, or is 0 without clustering.
+The uniforms come in as an argument: (n,) for multinomial resampling, one
+for systematic.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from ..cluster import ClusterModel, cluster_predict
 from ..ops.tools import multinomial_resample, systematic_resample
 from ..state import History, gather_history
 
@@ -22,11 +24,13 @@ def resample(
     weights: torch.Tensor,
     n_particles: int,
     method: str = "mult",
+    cluster_model: Optional[ClusterModel] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(u, x, logl, assignments) of the new active set.
 
     `weights` are the normalized (T_max, N) MIS weights; masked slots carry
-    zero weight and are never selected.
+    zero weight and are never selected. With `cluster_model` the walkers
+    are labelled by it; without, all get label 0.
     """
     N = hist.n_particles
     w_flat = weights.reshape(-1)
@@ -37,5 +41,8 @@ def resample(
     else:
         raise ValueError(f"Unknown resample method {method}")
     u, x, logl = gather_history(hist, idx // N, idx % N)
-    assignments = torch.zeros((n_particles,), dtype=torch.int32, device=u.device)
+    if cluster_model is not None:
+        assignments = cluster_predict(cluster_model, u)
+    else:
+        assignments = torch.zeros((n_particles,), dtype=torch.int32, device=u.device)
     return u, x, logl, assignments

@@ -23,6 +23,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 SUBMODULES = [
     "tempest_tpu_torch",
+    "tempest_tpu_torch.cluster",
     "tempest_tpu_torch.config",
     "tempest_tpu_torch.core",
     "tempest_tpu_torch.draws",
@@ -30,8 +31,11 @@ SUBMODULES = [
     "tempest_tpu_torch.iteration",
     "tempest_tpu_torch.mcmc",
     "tempest_tpu_torch.modes",
+    "tempest_tpu_torch.ops._build",
     "tempest_tpu_torch.ops.boundary",
+    "tempest_tpu_torch.ops.cuda_prng",
     "tempest_tpu_torch.ops.cuda_reweight",
+    "tempest_tpu_torch.ops.philox",
     "tempest_tpu_torch.ops.tools",
     "tempest_tpu_torch.sampler",
     "tempest_tpu_torch.state",
@@ -39,6 +43,7 @@ SUBMODULES = [
     "tempest_tpu_torch.steps.resample",
     "tempest_tpu_torch.steps.reweight",
     "tempest_tpu_torch.student",
+    "tempest_tpu_torch.utils.threefry",
     "tempest_tpu_torch.utils.wrappers",
 ]
 
@@ -64,10 +69,12 @@ def test_public_api():
 
 
 def test_port_imports_no_jax():
+    """Every submodule, and chip_smoke.py, imports neither jax nor tempest_tpu."""
     code = (
-        "import sys; import tempest_tpu_torch, tempest_tpu_torch.sampler, "
-        "tempest_tpu_torch.interop, tempest_tpu_torch.ops.cuda_reweight; "
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tempest_tpu.'))]; "
+        "import importlib, sys; "
+        f"[importlib.import_module(m) for m in {SUBMODULES!r} + ['chip_smoke']]; "
+        "bad = [m for m in sys.modules if m in ('jax', 'tempest_tpu') "
+        "or m.startswith(('jax.', 'tempest_tpu.'))]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run(
@@ -122,7 +129,6 @@ def test_defaults_match_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(clustering=True), "queue 1, item 9"),
     (dict(volume_variation=1.0), "queue 1, item 11"),
     (dict(blob_size=2), "queue 1, item 11"),
     (dict(host_likelihood=True), "queue 1, item 11"),
@@ -131,18 +137,23 @@ def test_defaults_match_jax():
     (dict(dtype=torch.float64), "queue 1, item 11"),
     (dict(cluster_every=2), "queue 1, item 11"),
     (dict(vectorize=False), "queue 1, item 11"),
-    (dict(hardware_prng=True), "queue 2, items 2-4"),
 ])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _config(SamplerConfig, device="cpu", **kw)
 
 
-def test_default_clustering_points_at_clustering_false():
+@pytest.mark.parametrize("kw", [dict(), dict(hardware_prng=True), dict(n_max_clusters=3)])
+def test_clustered_and_hardware_prng_configs_are_accepted(kw):
+    """The reference defaults (clustering=True) and hardware_prng=True run."""
     from tempest_tpu_torch import Sampler
+    from tempest_tpu_torch.draws import HardwareDraws
 
-    with pytest.raises(NotImplementedError, match="clustering=False"):
-        Sampler(prior, loglike, n_dim=3, vectorize=True, device="cpu")
+    s = Sampler(prior, loglike, n_dim=3, vectorize=True, device="cpu", **kw)
+    assert s.clustering
+    assert isinstance(s.state.draws, HardwareDraws) == bool(kw.get("hardware_prng"))
+    assert s.state.cluster_model.k_max == s.state.config.k_max
+    assert int(s.state.cluster_model.n_clusters()) == 1
 
 
 def test_cuda_device_raises_without_gpu():

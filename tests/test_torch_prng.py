@@ -1,0 +1,180 @@
+"""The plain versions of the hardware-PRNG kernels (ops/philox.py,
+ops/cuda_prng.py, draws.HardwareDraws) against tempest_tpu.ops.pallas_prng.
+
+- Philox4x32-10 on Random123's known-answer vectors, exactly.
+- The (0, 1] word mapping against `_unit_open_closed`, bit for bit.
+- Marsaglia-Tsang against JAX `hw_gamma` fed the same normals and
+  uniforms (its `hw_normal`/`hw_uniform` replaced by tables), rtol 1e-6:
+  the same float32 operations, so at most the last bit of log differs.
+- Moments of the plain draws at CPU sizes with the tolerances of
+  tests/test_tpu_smoke.py:181-243 (about 5 sigma).
+- The routing of `HardwareDraws`, as tempest_tpu/mcmc.py routes.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tempest_tpu.ops import pallas_prng
+from tempest_tpu_torch import draws as draws_mod
+from tempest_tpu_torch.ops import cuda_prng, philox
+
+torch.set_num_threads(1)
+
+KEY = philox.key_from_seed(42)
+
+
+def words(*vals):
+    return [torch.tensor([v], dtype=torch.int64) for v in vals]
+
+
+@pytest.mark.parametrize("ctr,key,want", [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF, 0xFFFFFFFF),
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+])
+def test_philox_known_answers(ctr, key, want):
+    got = philox.philox4x32(*words(*ctr), key)
+    assert tuple(int(w) for w in got) == want
+
+
+def test_unit_open_closed_bit_for_bit():
+    rng = np.random.default_rng(0)
+    w = np.concatenate([
+        np.array([0, 1, 511, 512, 0x7FFFFFFF, 0x80000000, 0xFFFFFE00, 0xFFFFFFFF], np.uint32),
+        rng.integers(0, 1 << 32, size=4096, dtype=np.uint64).astype(np.uint32),
+    ])
+    want = np.asarray(pallas_prng._unit_open_closed(jnp.asarray(w))).view(np.uint32)
+    from_int64 = philox.unit_open_closed(torch.from_numpy(w.astype(np.int64)))
+    from_int32 = philox.unit_open_closed(torch.from_numpy(w.view(np.int32)))
+    np.testing.assert_array_equal(from_int64.numpy().view(np.uint32), want)
+    np.testing.assert_array_equal(from_int32.numpy().view(np.uint32), want)
+    assert from_int64.min() > 0.0 and from_int64.max() == 1.0
+
+
+def test_bits_are_the_philox_words():
+    b = philox.bits(KEY, 5, 10, "cpu")
+    w = philox.philox4x32(*words(0, philox.STREAM_BITS, 5, 0), KEY)
+    assert b.dtype == torch.int32
+    assert [int(v) & 0xFFFFFFFF for v in b[:4]] == [int(x) for x in w]
+
+
+def test_marsaglia_tsang_against_jax_hw_gamma(monkeypatch):
+    n = 4096
+    alpha_np = np.concatenate([np.full(n // 4, a, np.float32) for a in (0.3, 0.9, 2.5, 40.0)])
+    alpha = torch.from_numpy(alpha_np)
+    zc, uc, bc = philox.gamma_counters(7)
+    normals = [philox.normal(KEY, c, n, "cpu") for c in zc]
+    uniforms = [philox.unit_open_closed(philox.bits(KEY, c, n, "cpu")) for c in uc + (bc,)]
+    normal_tables = [jnp.asarray(z.numpy()) for z in normals]
+    uniform_tables = [jnp.asarray(u.numpy()) for u in uniforms]
+    monkeypatch.setattr(pallas_prng, "hw_normal", lambda key, shape, dtype: normal_tables.pop(0))
+    monkeypatch.setattr(pallas_prng, "hw_uniform", lambda key, shape, dtype: uniform_tables.pop(0))
+    want = np.asarray(pallas_prng.hw_gamma(jax.random.key(0), jnp.asarray(alpha_np)))
+    assert not normal_tables and not uniform_tables  # every table used, in call order
+    got = philox.marsaglia_tsang(alpha, normals, uniforms[:-1], uniforms[-1])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    np.testing.assert_allclose(philox.gamma(KEY, 7, alpha).numpy(), want, rtol=1e-6)
+
+
+def test_normal_and_uniform_moments():
+    n = 1 << 20
+    z = cuda_prng.hw_normal(KEY, 0, (n,), "cpu").double().numpy()
+    assert abs(z.mean()) < 0.005 and abs(z.var() - 1.0) < 0.01
+    kurt = ((z - z.mean()) ** 4).mean() / z.var() ** 2
+    assert abs(kurt - 3.0) < 0.05
+    assert abs((np.abs(z) > 3).mean() - 0.0027) < 0.0005
+
+    u = cuda_prng.hw_uniform(KEY, 1, (n,), "cpu").double().numpy()
+    assert 0.0 < u.min() and u.max() <= 1.0
+    assert abs(u.mean() - 0.5) < 0.002 and abs(u.var() - 1.0 / 12.0) < 0.001
+
+
+@pytest.mark.parametrize("a", [0.5, 1.5, 7.5, 50.0])
+def test_gamma_moments(a):
+    n = 1 << 16
+    g = cuda_prng.hw_gamma(KEY, 100, torch.full((n,), a)).double().numpy()
+    assert g.min() > 0.0
+    assert abs(g.mean() - a) < 5 * np.sqrt(a / n) + 0.01
+    assert abs(g.var() - a) < 0.05 * a + 0.02
+
+
+def test_mutation_draws_moments_and_layout():
+    R, N, d = 8, 1024, 10
+    alpha = torch.cat([torch.full((N // 2,), 7.5), torch.full((N // 2,), 0.7)])
+    zs, gs, us = [], [], []
+    for c in range(32):  # aggregate draws for tight moments, as the TPU test does
+        z, g, u = cuda_prng.hw_mutation_draws(KEY, c, alpha, (R, N, d))
+        zs.append(z.reshape(-1)), gs.append(g), us.append(u)
+    # The proposal normals are those of `normal` on the same call.
+    assert torch.equal(zs[3], philox.normal(KEY, 3, R * N * d, "cpu"))
+    z = torch.cat(zs).double().numpy()
+    g = torch.stack(gs).double().numpy()
+    u = torch.cat(us).double().numpy()
+    assert abs(z.mean()) < 0.005 and abs(z.var() - 1.0) < 0.01
+    assert abs(((z - z.mean()) ** 4).mean() / z.var() ** 2 - 3.0) < 0.05
+    assert 0.0 < u.min() and u.max() <= 1.0 and abs(u.mean() - 0.5) < 0.01
+    g_hi, g_lo = g[:, : N // 2].ravel(), g[:, N // 2:].ravel()
+    assert g_lo.min() > 0.0
+    assert abs(g_hi.mean() - 7.5) < 0.1 and abs(g_hi.var() - 7.5) < 0.3
+    assert abs(g_lo.mean() - 0.7) < 0.03 and abs(g_lo.var() - 0.7) < 0.05
+
+
+def test_wrappers_route_by_device():
+    before = dict(cuda_prng.LAUNCHES)
+    alpha = torch.full((16,), 3.0)
+    z, g, u = cuda_prng.hw_mutation_draws(KEY, 0, alpha, (2, 16, 3))
+    assert z.shape == (2, 16, 3) and g.shape == u.shape == (16,)
+    assert cuda_prng.hw_bits(KEY, 0, (3, 5), "cpu").shape == (3, 5)
+    assert cuda_prng.LAUNCHES == before  # the plain versions launch nothing
+    with pytest.raises(ValueError):
+        cuda_prng.hw_normal(KEY, 0, (8,), "meta")
+    with pytest.raises(ValueError):
+        cuda_prng.hw_mutation_draws(KEY, 0, alpha.to("meta"), (2, 16, 3))
+    with pytest.raises(ValueError):
+        cuda_prng.hw_normal((1 << 32, 0), 0, (8,), "cpu")
+    with pytest.raises(ValueError):
+        cuda_prng.hw_mutation_draws(KEY, 0, alpha, (2, 15, 3))
+
+
+def _step(hw, n, gamma_shape, R=2, d=3):
+    return hw.mcmc_step(R, n, d, gamma_shape)
+
+
+def test_hardware_draws_routes_as_jax():
+    n = 64
+    alpha = torch.full((n,), 2.5)
+    hw = draws_mod.HardwareDraws(7, "cpu")
+    assert hw.key == philox.key_from_seed(7)
+    # tpCN at R N d <= 2^19: the mutation-draws kernel, one call index per step.
+    z, g, u = _step(hw, n, alpha)
+    wz, wg, wu = philox.mutation_draws(hw.key, 0, alpha, (2, n, 3))
+    assert torch.equal(z, wz) and torch.equal(g, wg) and torch.equal(u, wu)
+    assert hw.counter == 1
+    # RWM (no gamma shape) below 2^20 normals: all from the generator.
+    z, g, u = _step(hw, n, None)
+    assert g is None and hw.counter == 1
+
+
+def test_hardware_draws_large_route(monkeypatch):
+    """Past the thresholds: z from hw_normal, g from hw_gamma (13 calls), the
+    acceptance uniforms from the generator (shrunk thresholds, same rules)."""
+    monkeypatch.setattr(draws_mod, "FUSED_DRAWS_MAX_ELEMS", 0)
+    monkeypatch.setattr(draws_mod, "HW_NORMAL_MIN_ELEMS", 2 * 64 * 3)
+    monkeypatch.setattr(draws_mod, "HW_GAMMA_MIN_WALKERS", 64)
+    n = 64
+    alpha = torch.full((n,), 2.5)
+    hw = draws_mod.HardwareDraws(7, "cpu")
+    z, g, u = _step(hw, n, alpha)
+    assert torch.equal(g, philox.gamma(hw.key, 0, alpha))
+    assert torch.equal(z.reshape(-1), philox.normal(hw.key, philox.GAMMA_CALLS, 2 * n * 3, "cpu"))
+    assert hw.counter == philox.GAMMA_CALLS + 1
+    ref = torch.Generator().manual_seed(7)
+    assert torch.equal(u, torch.rand((n,), generator=ref))
+    # One walker short of the gamma threshold: g from the generator.
+    z, g, u = _step(hw, n - 1, torch.full((n - 1,), 2.5))
+    assert hw.counter == philox.GAMMA_CALLS + 1 and g.shape == (n - 1,)

@@ -148,6 +148,8 @@ def test_dispatch_by_device():
 
 
 def test_build_name_carries_source_hash():
-    path = cuda_reweight.library_path()
-    assert path.parent == cuda_reweight.BUILD_DIR
+    from tempest_tpu_torch.ops import _build
+
+    path = cuda_reweight.LIBRARY.path()
+    assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libess_bisect_") and path.suffix == ".so"

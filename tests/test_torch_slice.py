@@ -26,6 +26,7 @@ from tempest_tpu.modes import fit_global_mode as jax_fit_global_mode
 from tempest_tpu.ops.tools import trim_weights_mask as jax_trim
 from tempest_tpu.steps.reweight import reweight as jax_reweight
 from tempest_tpu_torch import Sampler, interop
+from tempest_tpu_torch.cluster import single_cluster_model
 from tempest_tpu_torch.config import SamplerConfig
 from tempest_tpu_torch.iteration import make_iteration, select_fit_points
 from tempest_tpu_torch.modes import fit_global_mode
@@ -93,7 +94,7 @@ def test_one_iteration_value_for_value():
     rw_t = reweight(th, tc.beta, target)
     assert abs(float(rw_t.beta) - float(rw_j.beta)) < 1e-5
     assert abs(float(rw_t.logz) - float(rw_j.logz)) < 1e-5
-    modes_t = fit_global_mode(*select_fit_points(th, rw_t.weights, 4096), dof_fallback=1e6)
+    modes_t = fit_global_mode(*select_fit_points(th, rw_t.weights, 4096)[:2], dof_fallback=1e6)
     np.testing.assert_allclose(modes_t.means.numpy(), np.asarray(modes_j.means), rtol=1e-3)
     cov_j = np.asarray(modes_j.covariances)
     np.testing.assert_allclose(modes_t.covariances.numpy(), cov_j, rtol=1e-3,
@@ -104,7 +105,7 @@ def test_one_iteration_value_for_value():
     cfg = SamplerConfig(prior_transform=_prior, log_likelihood=_loglike_t, n_dim=D4,
                         n_particles=N4, vectorize=True, clustering=False, device="cpu")
     iteration = make_iteration(cfg, _loglike_t, _prior)
-    th, tc = iteration(JaxIterationDraws(it_key), th, tc)
+    th, tc, _ = iteration(JaxIterationDraws(it_key), th, tc, single_cluster_model(D4, 1))
 
     assert th.t == int(core.hist.t) and tc.iteration == out_j["iter"]
     assert abs(float(tc.beta) - out_j["beta"]) < 1e-5
