@@ -1,6 +1,7 @@
 """Smoke test of tempest_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py --kernels-only [--package-root DIR]
 
 Builds every CUDA kernel of the port from the sources in this checkout
 (one nvcc per source, started together), holds each against its plain
@@ -10,11 +11,19 @@ lines and a failure exits non-zero:
 
  1. the card: `nvidia-smi` name and power limit;
  2. build every kernel;
- 3. the ESS-bisection kernel against its plain version (S = 65,536 and a
-    ragged S);
+ 3. the ESS-bisection kernel against its plain version on both routes of
+    its launch plan (slices in shared memory: S = 65,536, a ragged S and the
+    last S held on chip, 393,216; slices streamed from L2: 393,217 and
+    B's 1,048,576), two launches giving the same bits, and its times; at
+    S = 65,536 and 393,216 both routes through the C entry, giving the same
+    bits, their device times in turns (one pass and a bisection);
  4. the three PRNG kernels against their plain versions on one key and call
-    index, their moments, and their times beside their plain versions' and
-    the PyTorch generator's, and the launch floor;
+    index (mutation draws at (8, 1024, 10), a ragged (8, 1000, 10) and the
+    largest fused shape (8, 6553, 10); normal and bits at 2^20 and at B's
+    shapes), their moments, their device and host-timed call times beside
+    their plain versions' and the PyTorch generator's, the launch floor,
+    and one synchronized call of each kernel split into wrapper, launch,
+    device and sync time;
  5. the canonical problem unclustered (paired 10-D Rosenbrock, U(-10, 10)
     prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42;
  6. A: the canonical problem at the reference defaults, clustered
@@ -38,7 +47,11 @@ Without a GPU, or without the rest of the repository beside it, the
 script exits non-zero before printing any result. `--profile DIR` also
 profiles five mid-ladder iterations of the clustered canonical problem
 under torch.profiler, prints each stage's share and writes the tables
-(by stage range and by kernel) to DIR.
+(by stage range and by kernel) to DIR. `--kernels-only` runs phases 1-4
+and prints their table without driving the paths; with `--package-root
+DIR` it imports `tempest_tpu_torch` from DIR (for instance a `git archive`
+of another commit that has `cuda_reweight.plan_launch`), so two versions
+of the kernels can be timed on one card in turns, each in its own process.
 """
 
 from __future__ import annotations
@@ -51,15 +64,34 @@ import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+
+def _package_root() -> str:
+    """The directory to import tempest_tpu_torch from: --package-root, else
+    this script's own."""
+    argv = sys.argv[1:]
+    for i, arg in enumerate(argv):
+        if arg == "--package-root" and i + 1 < len(argv):
+            return os.path.abspath(argv[i + 1])
+        if arg.startswith("--package-root="):
+            return os.path.abspath(arg.split("=", 1)[1])
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+sys.path.insert(0, _package_root())
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from tempest_tpu_torch import Sampler  # noqa: E402
-from tempest_tpu_torch.config import N_PROPOSAL_CANDIDATES  # noqa: E402
+from tempest_tpu_torch.config import (  # noqa: E402
+    ESS_TOLERANCE,
+    METRIC_ATOL,
+    N_PROPOSAL_CANDIDATES,
+)
 from tempest_tpu_torch.ops import _build, cuda_prng, cuda_reweight, philox  # noqa: E402
 from tempest_tpu_torch.ops.tools import ess_from_logw  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
 from tempest_tpu_torch.state import (  # noqa: E402
     commit,
     logw_from_denominator,
@@ -78,6 +110,10 @@ UNCLUSTERED_LOGZ = (-35.53, 0.75)
 # (benchmarks/results/flagship_tpu.json).
 CLUSTERED_LOGZ = (-34.98, 1.0)
 BETA_TOL = 2e-3  # the Pallas-vs-XLA drift from summation order (tests/test_pallas.py)
+# A bisection's beta matches the plain version's when both took the same
+# probes and end this close (relative), or when the kernel's beta meets the
+# stop rule on the plain ESS; and always within BETA_TOL.
+BETA_MATCH_RTOL = 1e-6
 TIMED_CALLS = 50
 DRAW_TOL = 1e-5  # normals and uniforms, absolute; gamma draws, relative
 MAX_FLIP_SHARE = 1e-4  # gamma draws whose accept test may fall the other way
@@ -176,7 +212,9 @@ def time_ms(fn) -> float:
 
 
 def timed_in_turns(fns: dict, calls: int = TIMED_CALLS) -> dict:
-    """Median of `calls` synchronized calls of each function, in turns."""
+    """Median of `calls` synchronized calls of each function, in turns.
+    The phases time a plain version (hundreds of launches and host syncs
+    a call) apart: the call timed just after it comes out slower."""
     for fn in fns.values():
         fn()  # warm-up
     times = {k: [] for k in fns}
@@ -193,20 +231,86 @@ def _self_device_us(event) -> float:
     return 0.0
 
 
-def device_ms(fn, kernel: str, calls: int = 20) -> float:
-    """Device time per call of the CUDA kernels whose name contains
-    `kernel`, from torch.profiler's kernel records (no host overhead)."""
+def device_ms(fn, kernel=None, calls: int = 20) -> float:
+    """Device time per call of fn, from torch.profiler's device records (no
+    host overhead): the kernels whose name contains `kernel`, or every
+    device record of the call when `kernel` is None (a library call)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(3):  # the profiler now and then records no device activity
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_self_device_us(e) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key))
+        if us > 0.0:
+            return us / 1e3 / calls
+    fail(f"no device time recorded for {kernel or 'the library call'} in 3 profiles")
+
+
+class _TimedFn:
+    """A C entry point that adds up the host time spent inside its calls."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds, self.calls = fn, 0.0, 0
+
+    def __call__(self, *args):
+        t0 = time.perf_counter()
+        err = self.fn(*args)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return err
+
+
+def call_split(name: str, fn, library, entry: str, kernel: str, rounds: int = 5,
+               calls: int = 200) -> dict:
+    """One synchronized call of fn split into wrapper, launch, device and
+    sync time (ms), each timed in its own loop, the loops in turns:
+    synchronized calls (median); `calls` calls with no sync between them,
+    with the C entry point timed inside (host time per call = wrapper +
+    launch); torch.cuda.synchronize() with nothing in flight; the device
+    time from the profiler. sync = synchronized call - (wrapper + launch)."""
+    handle = _build.load(library)
+    inner = _TimedFn(getattr(handle, entry))
+    setattr(handle, entry, inner)
+    for mod in (cuda_prng, cuda_reweight):  # entry points cached by a wrapper
+        getattr(mod, "_functions", {}).clear()
+    try:
+        sync_call, enqueue, launch, idle = [], [], [], []
+        fn()
         torch.cuda.synchronize()
-    us = sum(_self_device_us(e) for e in prof.key_averages() if kernel in e.key)
-    check(us > 0.0, f"no device time recorded for kernel {kernel}")
-    return us / 1e3 / calls
+        for _ in range(rounds):
+            sync_call.append(timed_in_turns({"c": fn}, calls=21)["c"])
+            inner.seconds, inner.calls = 0.0, 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            enqueue.append(1e3 * (time.perf_counter() - t0) / calls)
+            check(inner.calls == calls, f"{name}: {inner.calls} entry calls for {calls} calls")
+            launch.append(1e3 * inner.seconds / calls)
+            torch.cuda.synchronize()
+            idle.append(timed_in_turns({"s": lambda: None}, calls=21)["s"])
+    finally:
+        setattr(handle, entry, inner.fn)
+        for mod in (cuda_prng, cuda_reweight):
+            getattr(mod, "_functions", {}).clear()
+
+    def med(v):
+        return sorted(v)[len(v) // 2]
+
+    out = {"call_ms": med(sync_call), "wrapper_ms": med(enqueue) - med(launch),
+           "launch_ms": med(launch), "device_ms": device_ms(fn, kernel),
+           "idle_sync_ms": med(idle)}
+    out["sync_ms"] = out["call_ms"] - med(enqueue)
+    print(f"call split {name}: synchronized call {out['call_ms']:.4f} ms = wrapper "
+          f"{out['wrapper_ms']:.4f} + launch (C entry) {out['launch_ms']:.4f} + until sync returns "
+          f"{out['sync_ms']:.4f} (device {out['device_ms']:.4f}, idle synchronize "
+          f"{out['idle_sync_ms']:.4f}); medians of {rounds} rounds in turns", flush=True)
+    return out
 
 
 def bound(n_bytes: float, n_int: float, n_f32: float):
@@ -280,9 +384,11 @@ def synthetic_history(device, n_particles, capacity, t_fill, seed):
     return hist
 
 
-def ess_at(hist, denom, beta) -> float:
-    logw, _ = logw_from_denominator(hist, denom, beta)
-    return float(ess_from_logw(logw))
+def ess_of(logl, bm, beta) -> float:
+    """ESS at beta of the kernel's inputs, dropped samples masked."""
+    keep = torch.isfinite(logl) & (bm != float("inf"))
+    logw = torch.where(keep, beta * logl - bm, torch.full_like(logl, float("-inf")))
+    return float(ess_from_logw(logw - torch.logsumexp(logw, dim=0)))
 
 
 def kernel_inputs(hist):
@@ -291,58 +397,160 @@ def kernel_inputs(hist):
     return denom, hist.logl.reshape(-1).contiguous(), bm.reshape(-1).contiguous()
 
 
+def check_beta(what: str, logl, bm, bp: float, target: float, bk: float, pk: int, br: float,
+               pr: int) -> None:
+    """The kernel's (beta, probes) against the plain version's on one input:
+    stay and jump exact with 2 probes; a bisection with the same probes,
+    within BETA_TOL, and within BETA_MATCH_RTOL of the plain beta or at a
+    beta whose plain ESS meets the stop rule."""
+    if pr == 2:
+        check(bk == br and pk == 2, f"{what}: kernel {bk} ({pk} probes) vs plain {br} (2 probes)")
+        return
+    close = abs(bk - br) <= BETA_MATCH_RTOL * max(abs(br), 1e-30)
+    stops = abs(ess_of(logl, bm, bk) - target) < max(ESS_TOLERANCE * abs(target), METRIC_ATOL)
+    check(pk == pr and abs(bk - br) < BETA_TOL and bp < bk <= 1.0 and (close or stops),
+          f"{what}: kernel {bk} ({pk} probes) vs plain {br} ({pr} probes), beta_prev {bp}")
+
+
+def _route(S: int) -> str:
+    plan = cuda_reweight.plan_launch(S)
+    where = "shared memory" if plan.resident else "streamed from L2"
+    return f"cluster {plan.cluster} x slice {plan.slice}, {where}"
+
+
+def forced_route(logl, bm, scal, resident: bool):
+    """A launch of the ESS kernel on the given route through its C entry,
+    outside the wrapper and its count: the streamed route also takes an S
+    that the plan holds on chip."""
+    entry = _build.load(cuda_reweight.LIBRARY).tempest_ess_bisect
+    plan = cuda_reweight.plan_launch(logl.numel())
+    beta = torch.empty(1, device=logl.device)
+    probes = torch.empty(1, dtype=torch.int32, device=logl.device)
+
+    def launch():
+        err = entry(logl.data_ptr(), bm.data_ptr(), scal.data_ptr(), beta.data_ptr(),
+                    probes.data_ptr(), logl.numel(), plan.slice, int(resident),
+                    torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "ess_bisect")
+        return beta, probes
+
+    return launch
+
+
+def compare_routes(S: int, logl, bm, scals: dict) -> dict:
+    """Both routes at an S the plan holds on chip: the same bits, and the
+    device time per launch (torch.profiler) of a one-pass launch ("stay")
+    and of a bisection, in turns (resident, streamed, streamed, resident).
+    A pass costs (bisection - stay) / (passes - 1), a bisection of P probes
+    making P - 2 passes; what the resident route's one-time load of the
+    slice costs is at most its one-pass launch less the streamed one's plus
+    the streamed route's extra time a pass."""
+    fns = {(route, case): forced_route(logl, bm, scal, route == "resident")
+           for route in ("resident", "streamed") for case, scal in scals.items()}
+    probes = {}
+    for case in scals:
+        got = [tuple(t.clone() for t in fns[(route, case)]()) for route in ("resident", "streamed")]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in zip(*got)), f"S={S} {case}: the two routes differ")
+        probes[case] = int(got[0][1].item())
+    times = {k: [] for k in fns}
+    for route in ("resident", "streamed", "streamed", "resident"):
+        for case in scals:
+            times[(route, case)].append(device_ms(fns[(route, case)], "ess_bisect"))
+    out = {"probes": probes}
+    for route in ("resident", "streamed"):
+        stay, bisect = (min(times[(route, c)]) for c in ("stay", "bisect"))
+        per_pass = (bisect - stay) / (probes["bisect"] - 3)
+        out[route] = {"stay_ms": times[(route, "stay")], "bisect_ms": times[(route, "bisect")],
+                      "pass_ms": per_pass}
+    out["load_ms_at_most"] = (min(out["resident"]["stay_ms"]) - min(out["streamed"]["stay_ms"])
+                              + out["streamed"]["pass_ms"] - out["resident"]["pass_ms"])
+    res, st = out["resident"], out["streamed"]
+    print(f"ess routes S={S} (device ms per launch, resident / streamed, each twice in turns): "
+          f"one pass {res['stay_ms'][0]:.4f} {res['stay_ms'][1]:.4f} / {st['stay_ms'][0]:.4f} "
+          f"{st['stay_ms'][1]:.4f}; bisection ({probes['bisect']} probes) "
+          f"{res['bisect_ms'][0]:.4f} {res['bisect_ms'][1]:.4f} / {st['bisect_ms'][0]:.4f} "
+          f"{st['bisect_ms'][1]:.4f}; a pass {res['pass_ms']:.5f} / {st['pass_ms']:.5f}; the "
+          f"slice's one-time load at most {out['load_ms_at_most']:.5f}", flush=True)
+    return out
+
+
+ROUTES_COMPARED = (65536, 393216)  # the canonical S and the largest held on chip
+
+# (label, n_particles, capacity, t_fill, the S prefixes checked, the S timed)
+ESS_SHAPES = (
+    ("canonical", 1024, 64, 40, (65536,), 65536),
+    ("ragged", 1000, 61, 33, (61000,), None),
+    ("on-chip boundary", 49153, 8, 8, (393216, 393217), 393217),
+    ("B", 131072, 8, 8, (1048576,), 1048576),
+)
+
+
 def phase_ess_kernel(device) -> dict:
-    """Kernel against its plain version at S = 65,536 and at a ragged S."""
+    """Kernel against its plain version on both routes; two launches give
+    the same bits; times at three S."""
     max_err = 0.0
-    row = None
-    for n_particles, capacity, t_fill in ((1024, 64, 40), (1000, 61, 33)):
+    row, shapes, routes = None, {}, {}
+    for label, n_particles, capacity, t_fill, prefixes, timed in ESS_SHAPES:
         hist = synthetic_history(device, n_particles, capacity, t_fill, seed=capacity)
-        denom, logl, bm = kernel_inputs(hist)
-        S = logl.numel()
+        _, logl_all, bm_all = kernel_inputs(hist)
         beta_prev = float(hist.beta[t_fill // 2])
-        ess_cur, ess_one = ess_at(hist, denom, beta_prev), ess_at(hist, denom, 1.0)
-        check(ess_cur > ess_one, f"S={S}: synthetic ladder gives ESS {ess_cur} <= {ess_one}")
-        cases = [
-            ("stay", beta_prev, 1.5 * ess_cur),
-            ("jump", beta_prev, 0.5 * ess_one),
-            ("bisect", beta_prev, math.sqrt(ess_cur * ess_one)),
-            ("bisect", 0.0, 2.0 * n_particles),
-            ("bisect", beta_prev, 0.9 * ess_cur),
-        ]
-        for kind, bp, target in cases:
-            scal = torch.tensor([bp, target], dtype=torch.float32, device=device)
-            beta_k, probes_k = cuda_reweight.ess_bisect_beta(logl, bm, scal)
-            beta_r, probes_r = cuda_reweight.ess_bisect_beta_reference(logl, bm, scal)
-            torch.cuda.synchronize()
-            bk, br = beta_k.item(), beta_r.item()
-            err = abs(bk - br)
-            max_err = max(max_err, err)
-            if kind == "bisect":
-                check(err < BETA_TOL and bp < bk <= 1.0,
-                      f"S={S} bisect: kernel {bk} vs plain {br} (beta_prev {bp})")
-            else:
-                check(bk == br and probes_k.item() == 2, f"S={S} {kind}: kernel {bk} vs plain {br}")
-            print(f"ess kernel S={S} {kind}: beta_prev={bp:.6g} target={target:.6g} "
-                  f"kernel={bk:.7f} ({probes_k.item()} probes) plain={br:.7f} "
-                  f"({probes_r.item()} probes)", flush=True)
-        if S == CAPACITY * N_PARTICLES:
+        for S in prefixes:
+            logl, bm = logl_all[:S], bm_all[:S]
+            ess_cur, ess_one = ess_of(logl, bm, beta_prev), ess_of(logl, bm, 1.0)
+            check(ess_cur > ess_one, f"S={S}: synthetic ladder gives ESS {ess_cur} <= {ess_one}")
+            cases = [
+                ("stay", beta_prev, 1.5 * ess_cur),
+                ("jump", beta_prev, 0.5 * ess_one),
+                ("bisect", beta_prev, math.sqrt(ess_cur * ess_one)),
+                ("bisect", 0.0, 2.0 * n_particles),
+                ("bisect", beta_prev, 0.9 * ess_cur),
+            ]
+            for kind, bp, target in cases:
+                scal = torch.tensor([bp, target], dtype=torch.float32, device=device)
+                beta_k, probes_k = cuda_reweight.ess_bisect_beta(logl, bm, scal)
+                again, _ = cuda_reweight.ess_bisect_beta(logl, bm, scal)
+                beta_r, probes_r = cuda_reweight.ess_bisect_beta_reference(logl, bm, scal)
+                torch.cuda.synchronize()
+                bk, br, pk, pr = beta_k.item(), beta_r.item(), probes_k.item(), probes_r.item()
+                check(torch.equal(beta_k.view(torch.int32), again.view(torch.int32)),
+                      f"S={S} {kind}: two launches differ")
+                max_err = max(max_err, abs(bk - br))
+                check((pr > 2) == (kind == "bisect"), f"S={S} {kind}: the plain version took {pr} "
+                      "probes")
+                check_beta(f"S={S} {kind}", logl, bm, bp, float(scal[1]), bk, pk, br, pr)
+                print(f"ess kernel S={S} [{_route(S)}] {kind}: beta_prev={bp:.6g} "
+                      f"target={target:.6g} kernel={bk:.7f} ({pk} probes) plain={br:.7f} "
+                      f"({pr} probes)", flush=True)
+            if S in ROUTES_COMPARED:
+                routes[S] = compare_routes(S, logl, bm, {
+                    "stay": torch.tensor([beta_prev, 1.5 * ess_cur], device=device),
+                    "bisect": torch.tensor([beta_prev, math.sqrt(ess_cur * ess_one)],
+                                           device=device)})
+            if S != timed:
+                continue
             scal = torch.tensor([beta_prev, math.sqrt(ess_cur * ess_one)], device=device)
-            probes = int(cuda_reweight.ess_bisect_beta(logl, bm, scal)[1].item())
-            t = timed_in_turns({
-                "plain": lambda: cuda_reweight.ess_bisect_beta_reference(logl, bm, scal),
-                "kernel": lambda: cuda_reweight.ess_bisect_beta(logl, bm, scal),
-            })
+            probes = int(cuda_reweight.ess_bisect_beta_reference(logl, bm, scal)[1].item())
+            kernel = lambda: cuda_reweight.ess_bisect_beta(logl, bm, scal)  # noqa: E731
+            t = timed_in_turns({"kernel": kernel})
+            t.update(timed_in_turns({"plain": lambda: cuda_reweight.ess_bisect_beta_reference(
+                logl, bm, scal)}, calls=TIMED_CALLS if S <= 65536 else 10))
+            dev = device_ms(kernel, "ess_bisect")
             # logl and Bm read once, scal read, beta and the probe count written.
             b_ms, b_by = bound(8 * S + 16, *work((S * probes, ESS_SAMPLE_PROBE)))
-            dev = device_ms(lambda: cuda_reweight.ess_bisect_beta(logl, bm, scal), "ess_bisect")
-            row = dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by,
-                       library_ms=None, device_ms=dev)
-            print(f"ess kernel timing S={S} ({probes} probes): kernel {t['kernel']:.4f} ms, "
-                  f"plain {t['plain']:.4f} ms, bound {b_ms:.5f} ms ({b_by}) "
-                  f"(median of {TIMED_CALLS}, synchronized, in turns); device time "
-                  f"{dev:.4f} ms per launch (torch.profiler)", flush=True)
+            shapes[S] = dict(probes=probes, route=_route(S), ms=t["kernel"], device_ms=dev,
+                             plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by)
+            print(f"ess kernel timing S={S} ({label}, {probes} probes, {_route(S)}): kernel call "
+                  f"{t['kernel']:.4f} ms device {dev:.4f} ms; plain {t['plain']:.4f} ms; bound "
+                  f"{b_ms:.5f} ms ({b_by}) (calls: median of {TIMED_CALLS} synchronized calls, "
+                  "the plain version's timed apart; device: torch.profiler)", flush=True)
+            if S == CAPACITY * N_PARTICLES:
+                row = dict(shapes[S], library_ms=None)
     check(row is not None, "no timing at S = 65,536")
     row["max_abs_err"] = max_err
+    row["shapes"] = shapes
+    row["routes"] = routes
     return row
 
 
@@ -357,6 +565,26 @@ def _gamma_flips(got: torch.Tensor, want: torch.Tensor) -> int:
     return int(torch.sum(torch.abs(got - want) > DRAW_TOL * torch.abs(want)))
 
 
+def _later_rounds_decide(key, counter, alpha) -> int:
+    """Walkers whose first Marsaglia-Tsang round rejects and a later one
+    accepts: their draw differs from the one-round draw."""
+    n, dev = alpha.numel(), alpha.device
+    w0, w1, w2, _ = philox._blocks(n, philox.STREAM_GAMMA_ROUND0, counter, key, dev)
+    z0 = torch.sqrt(-2.0 * torch.log(philox.unit_open_closed(w0))) * torch.cos(
+        philox.TWO_PI * philox.unit_open_closed(w1))
+    boost = philox.unit_open_closed(
+        philox._blocks(n, philox.STREAM_BOOST_ACCEPT, counter, key, dev)[0])
+    one = philox.marsaglia_tsang(alpha, [z0], [philox.unit_open_closed(w2)], boost)
+    return int(torch.sum(one != philox.mutation_draws(key, counter, alpha, (1, n, 1))[1]))
+
+
+# (8, 1024, 10): A's shape; (8, 1000, 10): ragged; (8, 6553, 10): the largest
+# the fused route takes (R N d <= 2^19, tempest_tpu_torch/draws.py).
+MUTATION_SHAPES = ((8, 1024, 10), (8, 1000, 10), (8, 6553, 10))
+B_NORMALS = N_PROPOSAL_CANDIDATES * B_PARTICLES * N_DIM  # B's hw_normal: 10,485,760
+B_GAMMA = B_PARTICLES  # B's hw_gamma: 6 normal and 7 bits launches of 131,072
+
+
 def phase_prng_kernels(device) -> dict:
     """Each PRNG kernel against its plain version on one key and call index,
     the moments of tests/test_tpu_smoke.py:181-243 on the kernel outputs,
@@ -364,21 +592,61 @@ def phase_prng_kernels(device) -> dict:
     key = philox.key_from_seed(2024)
     rows = {}
 
-    # --- mutation draws: R=8, N=1024, d=10, alpha half 7.5, half 0.7 ----------
-    R, N, d = 8, 1024, 10
+    # --- mutation draws at three shapes; alpha above 1, below 1, and small
+    # enough that later Marsaglia-Tsang rounds decide -------------------------
+    max_err, max_flips, shapes = 0.0, 0, {}
+    for R, N, d in MUTATION_SHAPES:
+        third = N // 3
+        alpha = torch.cat([torch.full((third,), 7.5), torch.full((third,), 0.7),
+                           torch.full((N - 2 * third,), 0.02)]).to(device)
+        later = _later_rounds_decide(key, 1, alpha)
+        z, g, u = cuda_prng.hw_mutation_draws(key, 1, alpha, (R, N, d))
+        wz, wg, wu = philox.mutation_draws(key, 1, alpha, (R, N, d))
+        torch.cuda.synchronize()
+        err_z = float(torch.max(torch.abs(z - wz)))
+        err_u = float(torch.max(torch.abs(u - wu)))
+        flips = _gamma_flips(g, wg)
+        agree = torch.abs(g - wg) <= DRAW_TOL * torch.abs(wg)
+        err_g = float(torch.max(torch.abs(g - wg)[agree]))
+        print(f"mutation draws R={R} N={N} d={d}: max|dz|={err_z:.3g} max|du|={err_u:.3g} "
+              f"gamma flips={flips} of {N}, max|dg| elsewhere={err_g:.3g}; {later} walkers "
+              "decided by a later round", flush=True)
+        check(later > 0, f"mutation draws N={N}: no walker decided by a later round")
+        check(z.shape == (R, N, d) and g.shape == u.shape == (N,), "mutation draws: shapes")
+        check(err_z <= DRAW_TOL and err_u <= DRAW_TOL, "mutation draws: z or u differ from plain")
+        check(flips <= max(1, MAX_FLIP_SHARE * N), f"mutation draws: {flips} gamma flips")
+        max_err, max_flips = max(max_err, err_z, err_u, err_g), max(max_flips, flips)
+        fns = {
+            "kernel": lambda: cuda_prng.hw_mutation_draws(key, 1, alpha, (R, N, d)),
+            "library": lambda: (torch.randn((R, N, d), device=device),
+                                torch._standard_gamma(alpha), torch.rand(N, device=device)),
+        }
+        t = timed_in_turns(fns)
+        t.update(timed_in_turns(
+            {"plain": lambda: philox.mutation_draws(key, 1, alpha, (R, N, d))}, calls=10))
+        dev = {"kernel": device_ms(fns["kernel"], "mutation_draws_kernel"),
+               "library": device_ms(fns["library"])}
+        n_z = R * N * d
+        ops = work((-(-n_z // 4), NORMAL_BLOCK), (N * philox.MT_ROUNDS, MT_ROUND),
+                   (N, WALKER_EXTRA))
+        b_ms, b_by = bound(4 * N + 4 * n_z + 8 * N, *ops)
+        shapes[f"{R}x{N}x{d}"] = dict(
+            ms=t["kernel"], device_ms=dev["kernel"], plain_ms=t["plain"],
+            library_ms=t["library"], library_device_ms=dev["library"], bound_ms=b_ms,
+            bound_by=b_by)
+        print(f"mutation draws timing R={R} N={N} d={d}: kernel call {t['kernel']:.4f} ms device "
+              f"{dev['kernel']:.4f} ms; library (randn + _standard_gamma + rand) call "
+              f"{t['library']:.4f} ms device {dev['library']:.4f} ms; plain {t['plain']:.4f} ms; "
+              f"bound {b_ms:.6f} ms ({b_by})", flush=True)
+    first = shapes["8x1024x10"]
+    rows["mutation_draws"] = dict(
+        max_abs_err=max_err, gamma_flips=max_flips, ms=first["ms"], plain_ms=first["plain_ms"],
+        bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=first["library_ms"],
+        device_ms=first["device_ms"], library_device_ms=first["library_device_ms"],
+        shapes=shapes)
+
+    R, N, d = MUTATION_SHAPES[0]
     alpha = torch.cat([torch.full((N // 2,), 7.5), torch.full((N // 2,), 0.7)]).to(device)
-    z, g, u = cuda_prng.hw_mutation_draws(key, 1, alpha, (R, N, d))
-    wz, wg, wu = philox.mutation_draws(key, 1, alpha, (R, N, d))
-    torch.cuda.synchronize()
-    err_z = float(torch.max(torch.abs(z - wz)))
-    err_u = float(torch.max(torch.abs(u - wu)))
-    flips = _gamma_flips(g, wg)
-    agree = torch.abs(g - wg) <= DRAW_TOL * torch.abs(wg)
-    err_g = float(torch.max(torch.abs(g - wg)[agree]))
-    print(f"mutation draws R={R} N={N} d={d}: max|dz|={err_z:.3g} max|du|={err_u:.3g} "
-          f"gamma flips={flips} of {N}, max|dg| elsewhere={err_g:.3g}", flush=True)
-    check(err_z <= DRAW_TOL and err_u <= DRAW_TOL, "mutation draws: z or u differ from plain")
-    check(flips <= max(1, MAX_FLIP_SHARE * N), f"mutation draws: {flips} gamma flips")
     zs, gs, us = [], [], []
     for c in range(32):
         z, g, u = cuda_prng.hw_mutation_draws(key, 100 + c, alpha, (R, N, d))
@@ -398,22 +666,8 @@ def phase_prng_kernels(device) -> dict:
           "mutation g(7.5) moments")
     check(abs(float(g_lo.mean()) - 0.7) < 0.03 and abs(float(g_lo.var()) - 0.7) < 0.05,
           "mutation g(0.7) moments")
-    t = timed_in_turns({
-        "kernel": lambda: cuda_prng.hw_mutation_draws(key, 1, alpha, (R, N, d)),
-        "plain": lambda: philox.mutation_draws(key, 1, alpha, (R, N, d)),
-        "library": lambda: (torch.randn((R, N, d), device=device), torch._standard_gamma(alpha),
-                            torch.rand(N, device=device)),
-    })
-    n_z = R * N * d
-    ops = work((-(-n_z // 4), NORMAL_BLOCK), (N * philox.MT_ROUNDS, MT_ROUND), (N, WALKER_EXTRA))
-    b_ms, b_by = bound(4 * N + 4 * n_z + 8 * N, *ops)
-    rows["mutation_draws"] = dict(
-        max_abs_err=max(err_z, err_u, err_g), gamma_flips=flips, ms=t["kernel"],
-        plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by, library_ms=t["library"],
-        device_ms=device_ms(lambda: cuda_prng.hw_mutation_draws(key, 1, alpha, (R, N, d)),
-                            "mutation_draws_kernel"))
 
-    # --- normal and bits at 2^20 ------------------------------------------------
+    # --- normal and bits at 2^20 (moments) and at B's shapes (times) ------------
     n = 1 << 20
     z = cuda_prng.hw_normal(key, 2, (n,), device)
     err_n = float(torch.max(torch.abs(z - philox.normal(key, 2, n, device))))
@@ -432,26 +686,45 @@ def phase_prng_kernels(device) -> dict:
           and abs(tail - 0.0027) < 0.0005, "normal moments")
     check(0.0 < float(u.min()) and float(u.max()) <= 1.0 and abs(um - 0.5) < 0.002
           and abs(uv - 1.0 / 12.0) < 0.001, "uniform moments")
-    t = timed_in_turns({
-        "kernel": lambda: cuda_prng.hw_normal(key, 2, (n,), device),
-        "plain": lambda: philox.normal(key, 2, n, device),
-        "library": lambda: torch.randn(n, device=device),
-    })
-    b_ms, b_by = bound(4 * n, *work((n // 4, NORMAL_BLOCK)))
-    rows["normal"] = dict(max_abs_err=err_n, ms=t["kernel"], plain_ms=t["plain"], bound_ms=b_ms,
-                          bound_by=b_by, library_ms=t["library"],
-                          device_ms=device_ms(lambda: cuda_prng.hw_normal(key, 2, (n,), device),
-                                              "normal_kernel"))
-    t = timed_in_turns({
-        "kernel": lambda: cuda_prng.hw_bits(key, 3, (n,), device),
-        "plain": lambda: philox.bits(key, 3, n, device),
-        "library": lambda: torch.empty(n, dtype=torch.int32, device=device).random_(),
-    })
-    b_ms, b_by = bound(4 * n, *work((n // 4, (PHILOX_INT, 0))))
-    rows["bits"] = dict(max_abs_err=0.0 if bits_equal else float("nan"), ms=t["kernel"],
-                        plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by, library_ms=t["library"],
-                        device_ms=device_ms(lambda: cuda_prng.hw_bits(key, 3, (n,), device),
-                                            "bits_kernel"))
+    for name, kernel_name, sizes in (("normal", "normal_kernel", (n, B_NORMALS, B_GAMMA)),
+                                     ("bits", "bits_kernel", (n, B_GAMMA))):
+        shapes = {}
+        for m in sizes:
+            if name == "normal":
+                fns = {"kernel": lambda m=m: cuda_prng.hw_normal(key, 2, (m,), device),
+                       "library": lambda m=m: torch.randn(m, device=device),
+                       "plain": lambda m=m: philox.normal(key, 2, m, device)}
+                b_ms, b_by = bound(4 * m, *work((-(-m // 4), NORMAL_BLOCK)))
+            else:
+                fns = {"kernel": lambda m=m: cuda_prng.hw_bits(key, 3, (m,), device),
+                       "library": lambda m=m: torch.empty(
+                           m, dtype=torch.int32, device=device).random_(),
+                       "plain": lambda m=m: philox.bits(key, 3, m, device)}
+                b_ms, b_by = bound(4 * m, *work((-(-m // 4), (PHILOX_INT, 0))))
+            if m != n:
+                got = fns["kernel"]().reshape(-1)
+                want = fns["plain"]()
+                err = (float(torch.max(torch.abs(got - want))) if name == "normal"
+                       else (0.0 if torch.equal(got, want) else float("nan")))
+                check(err <= DRAW_TOL, f"{name} kernel differs from plain at n={m}: {err}")
+            plain = fns.pop("plain")
+            t = timed_in_turns(fns)
+            t.update(timed_in_turns({"plain": plain}, calls=10))
+            dev = {"kernel": device_ms(fns["kernel"], kernel_name),
+                   "library": device_ms(fns["library"])}
+            shapes[m] = dict(ms=t["kernel"], device_ms=dev["kernel"], plain_ms=t["plain"],
+                             library_ms=t["library"], library_device_ms=dev["library"],
+                             bound_ms=b_ms, bound_by=b_by)
+            print(f"{name} timing n={m}: kernel call {t['kernel']:.4f} ms device "
+                  f"{dev['kernel']:.4f} ms; library call {t['library']:.4f} ms device "
+                  f"{dev['library']:.4f} ms; plain {t['plain']:.4f} ms; bound {b_ms:.6f} ms "
+                  f"({b_by})", flush=True)
+        main = shapes[B_NORMALS if name == "normal" else B_GAMMA]  # the shape on B's path
+        rows[name] = dict(max_abs_err=err_n if name == "normal" else (
+            0.0 if bits_equal else float("nan")), **{
+                k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                     "device_ms", "library_device_ms")},
+            shapes={str(k): v for k, v in shapes.items()})
 
     # --- hw_gamma (13 launches) at 2^18 ---------------------------------------------
     n = 1 << 18
@@ -469,13 +742,35 @@ def phase_prng_kernels(device) -> dict:
         "plain": lambda: philox.gamma(key, 10, alpha),
         "library": lambda: torch._standard_gamma(alpha),
     })
-    print(f"prng timing (median of {TIMED_CALLS}, synchronized, in turns): "
-          + "; ".join(f"{k} kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms) plain "
-                      f"{r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms bound "
-                      f"{r['bound_ms']:.5f} ms" for k, r in rows.items())
-          + f"; hw_gamma n={n} (13 launches) {t['kernels']:.4f} ms plain {t['plain']:.4f} ms "
-          f"torch._standard_gamma {t['library']:.4f} ms", flush=True)
+    print(f"hw_gamma n={n} (13 launches) {t['kernels']:.4f} ms plain {t['plain']:.4f} ms "
+          f"torch._standard_gamma {t['library']:.4f} ms (median of {TIMED_CALLS}, synchronized, "
+          "in turns)", flush=True)
     return rows
+
+
+def phase_call_split(device) -> dict:
+    """One synchronized call of each kernel split into its parts."""
+    key = philox.key_from_seed(2024)
+    hist = synthetic_history(device, N_PARTICLES, CAPACITY, 40, seed=CAPACITY)
+    _, logl, bm = kernel_inputs(hist)
+    scal = torch.tensor([float(hist.beta[20]), 1.1 * N_PARTICLES], device=device)
+    R, N, d = MUTATION_SHAPES[0]
+    alpha = torch.full((N,), 2.5, device=device)
+    return {
+        "ess_bisect": call_split(
+            "ess_bisect S=65536", lambda: cuda_reweight.ess_bisect_beta(logl, bm, scal),
+            cuda_reweight.LIBRARY, "tempest_ess_bisect", "ess_bisect"),
+        "mutation_draws": call_split(
+            "mutation_draws 8x1024x10",
+            lambda: cuda_prng.hw_mutation_draws(key, 1, alpha, (R, N, d)),
+            cuda_prng.LIBRARY, "tempest_mutation_draws", "mutation_draws_kernel"),
+        "normal": call_split(
+            f"normal n={B_GAMMA}", lambda: cuda_prng.hw_normal(key, 2, (B_GAMMA,), device),
+            cuda_prng.LIBRARY, "tempest_normal", "normal_kernel"),
+        "bits": call_split(
+            f"bits n={B_GAMMA}", lambda: cuda_prng.hw_bits(key, 3, (B_GAMMA,), device),
+            cuda_prng.LIBRARY, "tempest_bits", "bits_kernel"),
+    }
 
 
 def launch_floor(device) -> dict:
@@ -604,11 +899,8 @@ def phase_large_ensemble(device) -> dict:
     err_b = abs(bk - br)
     print(f"B: ESS kernel at S={S}: beta_prev={beta_prev:.6g} kernel={bk:.7f} ({probes} probes) "
           f"plain={br:.7f} ({probes_r.item()} probes)", flush=True)
-    if probes_r.item() == 2:  # stay or jump
-        check(bk == br, f"B: ESS kernel {bk} vs plain {br} at S={S}")
-    else:
-        check(err_b < BETA_TOL and beta_prev < bk <= 1.0,
-              f"B: ESS kernel {bk} vs plain {br} at S={S} (beta_prev {beta_prev})")
+    check_beta(f"B: ESS kernel at S={S}", logl, bm, beta_prev, 2.0 * B_PARTICLES, bk, probes, br,
+               int(probes_r.item()))
     t = timed_in_turns({
         "kernel": lambda: cuda_reweight.ess_bisect_beta(logl, bm, scal),
         "plain": lambda: cuda_reweight.ess_bisect_beta_reference(logl, bm, scal),
@@ -695,21 +987,60 @@ def phase_profile(device, out_dir: str) -> None:
           f"profiler; stages: {shares} -> {path}", flush=True)
 
 
+SOURCES = {"ess_bisect": "tempest_tpu_torch/csrc/ess_bisect.cu"}
+REPLACES = {
+    "ess_bisect": "tempest_tpu/ops/pallas_reweight.py:55",
+    "mutation_draws": "tempest_tpu/ops/pallas_prng.py:159",
+    "normal": "tempest_tpu/ops/pallas_prng.py:83",
+    "bits": "tempest_tpu/ops/pallas_prng.py:108",
+}
+
+
+def kernel_table(rows: dict, launches: dict, floor: dict, split: dict) -> list:
+    table = []
+    for name in ("ess_bisect", "mutation_draws", "normal", "bits"):
+        row = rows[name]
+        table.append({
+            "name": name, "route": "cuda",
+            "source": SOURCES.get(name, "tempest_tpu_torch/csrc/prng_draws.cu"),
+            "replaces": REPLACES[name], "launches": launches.get(name),
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+            **{k: row[k] for k in ("device_ms", "library_device_ms", "gamma_flips",
+                                   "shapes", "routes") if k in row},
+            "launch_floor_ms": floor["device_ms"], "call_split": split[name],
+        })
+    return table
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
                         help="profile five clustered canonical iterations into DIR")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="run phases 1-4 only and print their table (no result line)")
+    parser.add_argument("--package-root", metavar="DIR",
+                        help="import tempest_tpu_torch from DIR (with --kernels-only)")
     args = parser.parse_args()
+    if args.package_root and not args.kernels_only:
+        fail("--package-root times another version's kernels: use it with --kernels-only")
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs only on an NVIDIA GPU")
     device = torch.device("cuda")
     t_start = time.perf_counter()
 
     kind = phase_device()
+    print(f"package: {os.path.dirname(os.path.dirname(os.path.abspath(cuda_reweight.__file__)))}",
+          flush=True)
     phase_build()
     rows = {"ess_bisect": phase_ess_kernel(device)}
     rows.update(phase_prng_kernels(device))
     floor = launch_floor(device)
+    split = phase_call_split(device)
+    if args.kernels_only:
+        print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(json.dumps({"kernels": kernel_table(rows, {}, floor, split)}), flush=True)
+        return
     run_canonical(device, "canonical unclustered", SEEDS[:1], False, False, UNCLUSTERED_LOGZ)
     main_path = run_canonical(device, "A clustered", SEEDS, True, False, CLUSTERED_LOGZ)
     hw_path = run_canonical(device, "A clustered hardware_prng", SEEDS, True, True,
@@ -727,27 +1058,8 @@ def main() -> None:
                 "normal": large["normal"], "bits": large["bits"]}
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on its path")
-    source = {"ess_bisect": "tempest_tpu_torch/csrc/ess_bisect.cu"}
-    replaces = {
-        "ess_bisect": "tempest_tpu/ops/pallas_reweight.py:55",
-        "mutation_draws": "tempest_tpu/ops/pallas_prng.py:159",
-        "normal": "tempest_tpu/ops/pallas_prng.py:83",
-        "bits": "tempest_tpu/ops/pallas_prng.py:108",
-    }
-    table = []
-    for name in ("ess_bisect", "mutation_draws", "normal", "bits"):
-        row = rows[name]
-        table.append({
-            "name": name, "route": "cuda",
-            "source": source.get(name, "tempest_tpu_torch/csrc/prng_draws.cu"),
-            "replaces": replaces[name], "launches": launches[name],
-            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")},
-            "device_ms": row["device_ms"], "launch_floor_ms": floor["device_ms"],
-            **({"gamma_flips": row["gamma_flips"]} if "gamma_flips" in row else {}),
-        })
     print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": table}), flush=True)
+    print(json.dumps({"kernels": kernel_table(rows, launches, floor, split)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

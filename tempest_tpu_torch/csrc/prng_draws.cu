@@ -31,14 +31,28 @@
 // products), one log, one sqrt and one sincos per 2 outputs; at 4 bytes per
 // output the card writes 3.35 TB/s, i.e. ~0.84 G normals per ms, and issues
 // the instructions for about as many (chip_smoke.py counts both; the bits
-// kernel, without the float32 functions, is bound by its bytes). So each
-// kernel does no more than it must: a grid-stride loop in
+// kernel, without the float32 functions, is bound by its bytes). So the
+// normal and bits kernels do no more than they must: a grid-stride loop in
 // which every thread encrypts one counter, computes four outputs in
 // registers and writes them as one 16-byte store; nothing but the outputs
-// touches device memory. The mutation-draws kernel adds per-walker work
-// (seven Philox blocks, six rounds of Marsaglia-Tsang) on the same threads.
-// Seed words and the call index are launch arguments, so no launch reads
-// the device or syncs the host. Any size: no 128-lane alignment is needed.
+// touches device memory. Seed words and the call index are launch
+// arguments, so no launch reads the device or syncs the host. Any size: no
+// 128-lane alignment is needed.
+//
+// The mutation-draws kernel, at the sizes its route takes (R N d <= 2^19,
+// N <= 6,553 at R = 8, d = 10), is far below those bounds and far below the
+// card: it is bound by the launch and by its longest thread. A walker's
+// work is seven Philox blocks and six Marsaglia-Tsang rounds (three logs, a
+// sqrt, a cos each) and a pow. The first design ran them in series on
+// thread n of the first N threads, beside that thread's normals: at N =
+// 1,024 the whole tail sat on 4 of 80 CTAs and set the launch's length
+// (4.2 us on the H100 against a 1.0 us launch floor). Now walker work has
+// CTAs of its own, 8 lanes a walker (N = 1,024: 32 CTAs beside 80 of
+// normals), and the rounds run side by side, one per lane, so the longest
+// thread does one Philox block and one round. Every round uses the same
+// words and float32 operations in the same order as before, so the kernel
+// still equals philox.mutation_draws. The wrapper hands one buffer for z,
+// g and u, so a call allocates once.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,7 +67,9 @@ constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
 constexpr float kTwoPi = 6.283185307179586f;  // pallas_prng.py:42
 constexpr int kMtRounds = 6;                  // pallas_prng.py:43
 constexpr uint32_t kStreamNormal = 0, kStreamBits = 0;
-constexpr uint32_t kStreamGammaRound0 = 1, kStreamBoostAccept = 1 + kMtRounds;
+constexpr uint32_t kStreamGammaRound0 = 1;  // rounds on 1..6, boost/accept on 7
+constexpr int kLanesPerWalker = 8;          // 6 rounds, boost/accept, one idle
+constexpr unsigned kFullMask = 0xffffffffu;
 
 struct Call {
   uint32_t k0, k1, ctr_lo, ctr_hi;
@@ -134,42 +150,57 @@ bits_kernel(uint32_t* __restrict__ out, int64_t total, Call call) {
 // gamma(alpha, 1) by Marsaglia-Tsang, as pallas_prng.py:185-214: six rounds,
 // the first accepted one wins, a draw no round accepts keeps d; alpha < 1 is
 // boosted as gamma(alpha + 1) * U^(1/alpha).
+//
+// Grid: the first `walker_ctas` CTAs serve the walkers, eight lanes each
+// (four walkers a warp); the other CTAs draw the proposal normals, one
+// Philox block a thread. In walker n's group, lane r encrypts block n of
+// stream 1 + r: lanes 0-5 run Marsaglia-Tsang round r, lane 6 (stream 7)
+// the boost and acceptance uniforms, lane 7 is idle. A ballot over the
+// group picks the first accepted round; lane 6 takes its value by a shuffle
+// and writes g and u.
 __global__ void __launch_bounds__(kThreads)
 mutation_draws_kernel(const float* __restrict__ alpha, float* __restrict__ z,
                       float* __restrict__ g, float* __restrict__ u_acc, int64_t n_z,
-                      int64_t n_walkers, Call call) {
-  const int64_t n_blocks = (n_z + 3) / 4;
-  const int64_t work = n_blocks > n_walkers ? n_blocks : n_walkers;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < work;
-       i += stride) {
-    if (i < n_blocks) normal_block(z, n_z, i, call);
-    if (i < n_walkers) {
-      const uint32_t n = static_cast<uint32_t>(i);
-      const float a = alpha[i];
-      const bool boost = a < 1.0f;
-      const float a_eff = boost ? a + 1.0f : a;
-      const float d = a_eff - 1.0f / 3.0f;
-      const float c = 1.0f / sqrtf(9.0f * d);
-      float res = d;
-      bool accepted = false;
-#pragma unroll
-      for (int r = 0; r < kMtRounds; ++r) {
-        const uint4 w = philox(n, kStreamGammaRound0 + r, call);
-        const float zn = sqrtf(-2.0f * logf(unit_open_closed(w.x))) *
-                         cosf(kTwoPi * unit_open_closed(w.y));
-        const float one_cz = 1.0f + c * zn;
-        const float v = one_cz * one_cz * one_cz;
-        const bool ok = (v > 0.0f) && (logf(unit_open_closed(w.z)) <
-                                       0.5f * zn * zn + d - d * v + d * logf(fmaxf(v, 1e-30f)));
-        if (ok && !accepted) res = d * v;
-        accepted = accepted || ok;
-      }
-      const uint4 w = philox(n, kStreamBoostAccept, call);
-      const float scale = powf(unit_open_closed(w.x), 1.0f / fmaxf(a, 1e-12f));
-      g[i] = res * (boost ? scale : 1.0f);
-      u_acc[i] = unit_open_closed(w.y);
-    }
+                      int64_t n_walkers, int walker_ctas, Call call) {
+  if (static_cast<int>(blockIdx.x) >= walker_ctas) {
+    const int64_t i =
+        static_cast<int64_t>(blockIdx.x - walker_ctas) * kThreads + threadIdx.x;
+    if (i < (n_z + 3) / 4) normal_block(z, n_z, i, call);
+    return;
+  }
+  const int64_t n = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kLanesPerWalker;
+  // Groups are whole: 8 | 32, so a group's lanes are all active or all not.
+  const unsigned active = __ballot_sync(kFullMask, n < n_walkers);
+  if (n >= n_walkers) return;
+  const int lane = threadIdx.x & 31;
+  const int r = lane & (kLanesPerWalker - 1);  // round, or kMtRounds: boost/accept
+  const int first_lane = lane - r;
+
+  const float a = alpha[n];
+  const bool boost = a < 1.0f;
+  const float a_eff = boost ? a + 1.0f : a;
+  const float d = a_eff - 1.0f / 3.0f;
+  const float c = 1.0f / sqrtf(9.0f * d);
+  const uint4 w = philox(static_cast<uint32_t>(n), kStreamGammaRound0 + r, call);  // r = 6: stream 7
+  bool ok = false;
+  float proposal = 0.0f;
+  if (r < kMtRounds) {
+    const float zn = sqrtf(-2.0f * logf(unit_open_closed(w.x))) *
+                     cosf(kTwoPi * unit_open_closed(w.y));
+    const float one_cz = 1.0f + c * zn;
+    const float v = one_cz * one_cz * one_cz;
+    ok = (v > 0.0f) && (logf(unit_open_closed(w.z)) <
+                        0.5f * zn * zn + d - d * v + d * logf(fmaxf(v, 1e-30f)));
+    proposal = d * v;
+  }
+  const unsigned votes = (__ballot_sync(active, ok) >> first_lane) & ((1u << kMtRounds) - 1u);
+  const int winner = votes ? __ffs(static_cast<int>(votes)) - 1 : 0;  // the first accepted round
+  const float won = __shfl_sync(active, proposal, first_lane + winner);
+  if (r == kMtRounds) {
+    const float res = votes ? won : d;
+    const float scale = powf(unit_open_closed(w.x), 1.0f / fmaxf(a, 1e-12f));
+    g[n] = res * (boost ? scale : 1.0f);
+    u_acc[n] = unit_open_closed(w.y);
   }
 }
 
@@ -204,15 +235,19 @@ extern "C" int tempest_bits(void* out, int64_t total, uint32_t k0, uint32_t k1, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// alpha: (n_walkers,) float32 gamma shapes in; z: (n_z,) proposal normals,
-// g: (n_walkers,) gamma draws, u_acc: (n_walkers,) uniforms in (0, 1] out.
-extern "C" int tempest_mutation_draws(const void* alpha, void* z, void* g, void* u_acc,
-                                      int64_t n_z, int64_t n_walkers, uint32_t k0, uint32_t k1,
+// alpha: (n_walkers,) float32 gamma shapes in; out: (n_z + 2 n_walkers,)
+// float32, 16-byte aligned: z, the proposal normals, then g, the gamma
+// draws, then u_acc, the uniforms in (0, 1].
+extern "C" int tempest_mutation_draws(const void* alpha, void* out, int64_t n_z,
+                                      int64_t n_walkers, uint32_t k0, uint32_t k1,
                                       uint64_t counter, void* stream) {
-  const int64_t n_blocks = (n_z + 3) / 4;
-  mutation_draws_kernel<<<grid_for(n_blocks > n_walkers ? n_blocks : n_walkers), kThreads, 0,
+  const int64_t walker_ctas = (kLanesPerWalker * n_walkers + kThreads - 1) / kThreads;
+  const int64_t normal_ctas = ((n_z + 3) / 4 + kThreads - 1) / kThreads;
+  if (walker_ctas + normal_ctas > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  float* z = static_cast<float*>(out);
+  mutation_draws_kernel<<<static_cast<int>(walker_ctas + normal_ctas), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(alpha), static_cast<float*>(z), static_cast<float*>(g),
-      static_cast<float*>(u_acc), n_z, n_walkers, make_call(k0, k1, counter));
+      static_cast<const float*>(alpha), z, z + n_z, z + n_z + n_walkers, n_z, n_walkers,
+      static_cast<int>(walker_ctas), make_call(k0, k1, counter));
   return static_cast<int>(cudaGetLastError());
 }

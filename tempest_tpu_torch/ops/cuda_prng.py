@@ -13,6 +13,15 @@ from a fresh key. `hw_gamma` composes 13 launches of the normal and bits
 kernels, as the JAX function composes its Pallas calls (pallas_prng.py:
 293-306): it uses call indices counter .. counter + 12.
 
+`hw_mutation_draws` launches one grid: CTAs of 256 threads, the first
+ceil(8 N / 256) for the walkers (8 lanes each: six Marsaglia-Tsang rounds
+side by side, the boost/accept block, one idle lane), the rest for the
+R N d proposal normals (4 a thread). Its outputs are views of one buffer,
+and its launch path is short: the C function is looked up once, the stream
+is read without a device switch (the wrappers switch only for a device
+other than the current one), and only the dtype, contiguity and 32-bit
+index checks stay.
+
 Dispatch is by device only, as in `ops/cuda_reweight.py`: a CPU tensor
 takes the plain version, a CUDA float32 tensor the kernel, anything else
 raises. `LAUNCHES` counts each kernel's launches in this process.
@@ -35,9 +44,9 @@ LIBRARY = _build.CudaLibrary(
                            ctypes.c_uint64, ctypes.c_void_p],
         "tempest_bits": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
                          ctypes.c_uint64, ctypes.c_void_p],
-        "tempest_mutation_draws": [ctypes.c_void_p] * 4 + [
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint64,
-            ctypes.c_void_p,
+        "tempest_mutation_draws": [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32,
+            ctypes.c_uint32, ctypes.c_uint64, ctypes.c_void_p,
         ],
     },
     # No FMA contraction: the plain version's separate elementwise ops round
@@ -49,6 +58,7 @@ LIBRARY = _build.CudaLibrary(
 LAUNCHES = {"mutation_draws": 0, "normal": 0, "bits": 0}
 
 _MAX_BLOCKS = 1 << 32  # the block index is one 32-bit counter word
+_functions = {}  # C entry points by name, looked up once
 
 
 def _route(device: torch.device, what: str) -> bool:
@@ -69,9 +79,21 @@ def _check_call(key: Key, counter: int, total: int) -> None:
         raise ValueError(f"{total} draws exceed one call's 2^32 blocks of 4")
 
 
+def _function(name: str):
+    fn = _functions.get(name)
+    if fn is None:
+        fn = _functions[name] = getattr(_build.load(LIBRARY), name)
+    return fn
+
+
 def _stream(device) -> int:
-    with torch.cuda.device(device):
-        return torch.cuda.current_stream().cuda_stream
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _elsewhere(device: torch.device) -> bool:
+    """True for a CUDA device other than the current one: the C entries
+    launch on the current device, so the wrapper switches to it first."""
+    return device.index is not None and device.index != torch.cuda.current_device()
 
 
 def hw_normal(key: Key, counter: int, shape, device) -> torch.Tensor:
@@ -81,10 +103,13 @@ def hw_normal(key: Key, counter: int, shape, device) -> torch.Tensor:
     _check_call(key, counter, total)
     if not _route(device, "hw_normal"):
         return philox.normal(key, counter, total, device).reshape(shape)
+    if _elsewhere(device):
+        with torch.cuda.device(device):
+            return hw_normal(key, counter, shape, device)
     out = torch.empty(shape, dtype=torch.float32, device=device)
     if total:
-        lib = _build.load(LIBRARY)
-        err = lib.tempest_normal(out.data_ptr(), total, key[0], key[1], counter, _stream(device))
+        err = _function("tempest_normal")(
+            out.data_ptr(), total, key[0], key[1], counter, _stream(device))
         _build.check(err, "normal")
         LAUNCHES["normal"] += 1
     return out
@@ -97,10 +122,13 @@ def hw_bits(key: Key, counter: int, shape, device) -> torch.Tensor:
     _check_call(key, counter, total)
     if not _route(device, "hw_bits"):
         return philox.bits(key, counter, total, device).reshape(shape)
+    if _elsewhere(device):
+        with torch.cuda.device(device):
+            return hw_bits(key, counter, shape, device)
     out = torch.empty(shape, dtype=torch.int32, device=device)
     if total:
-        lib = _build.load(LIBRARY)
-        err = lib.tempest_bits(out.data_ptr(), total, key[0], key[1], counter, _stream(device))
+        err = _function("tempest_bits")(
+            out.data_ptr(), total, key[0], key[1], counter, _stream(device))
         _build.check(err, "bits")
         LAUNCHES["bits"] += 1
     return out
@@ -136,20 +164,21 @@ def hw_mutation_draws(
         raise ValueError(f"{N} walkers exceed the 2^32 a call can index")
     if not _route(alpha.device, "hw_mutation_draws"):
         return philox.mutation_draws(key, counter, alpha, z_shape)
+    if _elsewhere(alpha.device):
+        with torch.cuda.device(alpha.device):
+            return hw_mutation_draws(key, counter, alpha, z_shape)
     if alpha.dtype != torch.float32 or not alpha.is_contiguous():
         raise ValueError(
             f"alpha must be a contiguous float32 tensor (got {alpha.dtype}, "
             f"contiguous={alpha.is_contiguous()})"
         )
-    z = torch.empty(z_shape, dtype=torch.float32, device=alpha.device)
-    g = torch.empty(N, dtype=torch.float32, device=alpha.device)
-    u = torch.empty(N, dtype=torch.float32, device=alpha.device)
+    out = torch.empty(n_z + 2 * N, dtype=torch.float32, device=alpha.device)
+    z, g, u = out.split((n_z, N, N))
     if N:
-        lib = _build.load(LIBRARY)
-        err = lib.tempest_mutation_draws(
-            alpha.data_ptr(), z.data_ptr(), g.data_ptr(), u.data_ptr(), n_z, N,
-            key[0], key[1], counter, _stream(alpha.device),
+        err = _function("tempest_mutation_draws")(
+            alpha.data_ptr(), out.data_ptr(), n_z, N, key[0], key[1], counter,
+            _stream(alpha.device),
         )
         _build.check(err, "mutation_draws")
         LAUNCHES["mutation_draws"] += 1
-    return z, g, u
+    return z.view(z_shape), g, u

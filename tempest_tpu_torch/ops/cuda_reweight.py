@@ -2,10 +2,15 @@
 
 Counterpart of tempest_tpu/ops/pallas_reweight.py, whose Pallas kernel
 (`_kernel`, :55-111) runs the whole bisection in one TPU launch. Here the
-bisection is the CUDA kernel in `csrc/ess_bisect.cu` (one block of 1024
-threads, every probe a pass over the history held in L2; the design note
-is at the top of that file), built with nvcc for sm_90a at first use and
-bound with ctypes.
+bisection is the CUDA kernel in `csrc/ess_bisect.cu` (design note at the
+top of that file), built with nvcc for sm_90a at first use and bound with
+ctypes. It needs a Hopper card: one launch runs the whole bisection on one
+thread-block cluster of `ESS_CLUSTER` = 16 CTAs of 1024 threads (a
+non-portable cluster size), each CTA owning one contiguous slice of the S
+samples, with one cluster barrier per pass and no host sync. `plan_launch`
+picks the route by S alone: while a slice fits `ESS_SLICE_MAX` samples
+(S <= 393,216) each CTA holds its slice in shared memory, loaded and masked
+once; past that every pass streams the slices from L2.
 
 Both versions compute, for x = beta * logl - Bm,
 
@@ -21,13 +26,14 @@ there at beta = 0, which makes ESS(0) NaN and skips the "stay" rule.
 
 `ess_bisect_beta` picks its route only by the tensors' device: CPU tensors
 go to the plain version, CUDA float32 contiguous tensors to the kernel,
-anything else raises. A failed build or launch raises; nothing falls back.
+anything else raises. A failed build, a cluster that does not fit the card
+or a failed launch raises; nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -43,11 +49,30 @@ from .tools import ess_from_logw, logsumexp
 
 LIBRARY = _build.CudaLibrary(
     "ess_bisect.cu",
-    {"tempest_ess_bisect": [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_void_p]},
+    {
+        "tempest_ess_bisect": [ctypes.c_void_p] * 5
+        + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
+    },
 )
 
 # Kernel launches made by `ess_bisect_beta` in this process.
 LAUNCHES = 0
+
+ESS_CLUSTER = 16  # CTAs in the cluster: csrc kCluster
+ESS_SLICE_MAX = 24576  # samples a CTA holds in shared memory (192 KB): csrc kSliceMax
+
+
+class LaunchPlan(NamedTuple):
+    cluster: int  # CTAs, one slice each
+    slice: int  # samples per CTA, a multiple of 4
+    resident: bool  # slice held in shared memory, 8 bytes a sample (else streamed from L2)
+
+
+def plan_launch(n: int) -> LaunchPlan:
+    """The launch of the ESS kernel for S = n samples: the route by S only."""
+    per_cta = -(-n // ESS_CLUSTER)
+    slice_ = max(4, -(-per_cta // 4) * 4)
+    return LaunchPlan(ESS_CLUSTER, slice_, slice_ <= ESS_SLICE_MAX)
 
 
 # ---------------------------------------------------------------------------
@@ -145,15 +170,18 @@ def ess_bisect_beta(
 
 def _launch(logl, bm, scal):
     global LAUNCHES
+    if logl.device.index != torch.cuda.current_device():  # the C entry launches on the current one
+        with torch.cuda.device(logl.device):
+            return _launch(logl, bm, scal)
     lib = _build.load(LIBRARY)
+    plan = plan_launch(logl.numel())
     beta = torch.empty(1, dtype=torch.float32, device=logl.device)
     probes = torch.empty(1, dtype=torch.int32, device=logl.device)
-    with torch.cuda.device(logl.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tempest_ess_bisect(
-            logl.data_ptr(), bm.data_ptr(), scal.data_ptr(),
-            beta.data_ptr(), probes.data_ptr(), logl.numel(), stream,
-        )
+    err = lib.tempest_ess_bisect(
+        logl.data_ptr(), bm.data_ptr(), scal.data_ptr(), beta.data_ptr(), probes.data_ptr(),
+        logl.numel(), plan.slice, int(plan.resident),
+        torch.cuda.current_stream(logl.device).cuda_stream,
+    )
     _build.check(err, "ess_bisect")
     LAUNCHES += 1
     return beta, probes

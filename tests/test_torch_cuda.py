@@ -6,9 +6,14 @@ installed; there, skip tests/conftest.py (which configures JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-The ESS kernel's beta must be within 2e-3 of its plain version's, the
-documented drift between two bisections that sum in different orders
-(tests/test_pallas.py:53-54); stay and jump are exact. The PRNG kernels
+The ESS kernel must take as many probes as its plain version and end
+within 1e-6 (relative) of its beta, or else on a beta whose plain ESS meets
+the stop rule; and always within 2e-3, the documented drift between two
+bisections that sum in different orders (tests/test_pallas.py:53-54).
+Stay and jump are exact, with 2 probes, and two launches on the same
+inputs give the same bits. Both routes of its
+launch plan are held to it: slices in shared memory (S <= 393,216) and
+slices streamed from L2 (S >= 393,217). The PRNG kernels
 and their plain versions (ops/philox.py) on the card and on one key and
 call index, at the tolerances of chip_smoke.py's kernel phase: bits
 exactly equal, normals and uniforms within 1e-5 absolute, gamma draws
@@ -23,7 +28,9 @@ import pytest
 import torch
 
 from tempest_tpu_torch import Sampler
+from tempest_tpu_torch.config import ESS_TOLERANCE, METRIC_ATOL
 from tempest_tpu_torch.ops import cuda_prng, cuda_reweight, philox
+from tempest_tpu_torch.ops.tools import ess_from_logw, logsumexp
 from tempest_tpu_torch.state import commit, make_current, make_history, mis_denominator
 
 
@@ -32,6 +39,25 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return torch.device("cuda")
+
+
+def _ess(logl, bm, beta) -> float:
+    keep = torch.isfinite(logl) & (bm != float("inf"))
+    logw = torch.where(keep, beta * logl - bm, torch.full_like(logl, float("-inf")))
+    return float(ess_from_logw(logw - logsumexp(logw)))
+
+
+def _assert_beta_matches(logl, bm, scal, got, want):
+    """(beta, probes) of the kernel against the plain version's."""
+    (bk, pk), (br, pr) = [(b.item(), p.item()) for b, p in (got, want)]
+    assert pk == pr, (bk, pk, br, pr)
+    if pr == 2:  # stay or jump
+        assert bk == br
+        return
+    target = scal[1].item()
+    close = abs(bk - br) <= 1e-6 * max(abs(br), 1e-30)
+    stops = abs(_ess(logl, bm, bk) - target) < max(ESS_TOLERANCE * abs(target), METRIC_ATOL)
+    assert abs(bk - br) < 2e-3 and (close or stops), (bk, br, pr)
 
 
 def _synthetic(device, cap, N, t_fill, seed):
@@ -48,24 +74,77 @@ def _synthetic(device, cap, N, t_fill, seed):
     return h.logl.reshape(-1).contiguous(), bm.reshape(-1).contiguous()
 
 
+ON_CHIP_MAX = cuda_reweight.ESS_CLUSTER * cuda_reweight.ESS_SLICE_MAX  # 393,216
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "cap,N,t_fill", [(64, 1024, 40), (7, 1000, 5), (8, 64, 2), (8, 131072, 8)]
+    "cap,N,t_fill,S",
+    [
+        (64, 1024, 40, None),  # the canonical S = 65,536
+        (7, 1000, 5, None),  # ragged
+        (8, 64, 2, None),  # tiny, unfilled slots
+        (8, 49152, 6, ON_CHIP_MAX),  # the last S held on chip
+        (8, 49153, 6, ON_CHIP_MAX + 1),  # the first S streamed
+        (8, 131072, 8, None),  # B's S = 1,048,576
+    ],
 )
-def test_kernel_matches_plain_version(cuda_device, cap, N, t_fill):
+def test_kernel_matches_plain_version(cuda_device, cap, N, t_fill, S):
     logl, bm = _synthetic(cuda_device, cap, N, t_fill, seed=cap)
+    if S is not None:
+        logl, bm = logl[:S], bm[:S]
+    plan = cuda_reweight.plan_launch(logl.numel())
+    assert plan.resident == (logl.numel() <= ON_CHIP_MAX)
     before = cuda_reweight.LAUNCHES
-    for beta_prev, target in [(0.0, 2.0 * N), (0.02, 1.5 * N), (0.5, 1e9), (0.1, 0.5)]:
+    bp = 0.0 if t_fill < 3 else 0.01 * (t_fill - 1)  # the last committed beta
+    cur, one = _ess(logl, bm, bp), _ess(logl, bm, 1.0)
+    assert cur > 1.01 * one
+    cases = [(bp, 1.5 * cur), (bp, 0.5 * one), (bp, (cur * one) ** 0.5), (0.0, 2.0 * N),
+             (0.1, 0.5)]
+    kinds = set()
+    for beta_prev, target in cases:
         scal = torch.tensor([beta_prev, target], device=cuda_device)
         beta_k, probes_k = cuda_reweight.ess_bisect_beta(logl, bm, scal)
+        again, _ = cuda_reweight.ess_bisect_beta(logl, bm, scal)
         beta_r, probes_r = cuda_reweight.ess_bisect_beta_reference(logl, bm, scal)
         torch.cuda.synchronize()
-        assert probes_k.item() >= 2
-        if probes_r.item() == 2:  # stay or jump
-            assert beta_k.item() == beta_r.item()
+        assert torch.equal(beta_k.view(torch.int32), again.view(torch.int32))  # same bits
+        _assert_beta_matches(logl, bm, scal, (beta_k, probes_k), (beta_r, probes_r))
+        if probes_r.item() == 2:
+            kinds.add("stay" if beta_r.item() == scal[0].item() else "jump")
         else:
-            assert abs(beta_k.item() - beta_r.item()) < 2e-3
-    assert cuda_reweight.LAUNCHES == before + 4
+            kinds.add("bisect")
+    assert kinds == {"stay", "jump", "bisect"}
+    assert cuda_reweight.LAUNCHES == before + 2 * len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [65536, ON_CHIP_MAX + 1])
+def test_kernel_with_every_sample_dropped(cuda_device, S):
+    """No finite logl: ESS is NaN everywhere and counts as 1e10, as in the
+    plain version, which then bisects up to its bracket tolerance."""
+    logl = torch.full((S,), float("-inf"), device=cuda_device)
+    bm = torch.zeros(S, device=cuda_device)
+    scal = torch.tensor([0.25, 100.0], device=cuda_device)
+    got = cuda_reweight.ess_bisect_beta(logl, bm, scal)
+    want = cuda_reweight.ess_bisect_beta_reference(logl, bm, scal)
+    torch.cuda.synchronize()
+    assert want[1].item() > 2
+    _assert_beta_matches(logl, bm, scal, got, want)
+
+
+@pytest.mark.cuda
+def test_kernel_takes_unaligned_views(cuda_device):
+    """A view that starts one float in is not 16-byte aligned: the kernel
+    reads it by scalar loads, on both routes."""
+    logl, bm = _synthetic(cuda_device, 8, 49153, 6, seed=3)
+    for S in (65535, ON_CHIP_MAX + 3):
+        lv, bv = logl[1:S + 1], bm[1:S + 1]
+        scal = torch.tensor([0.0, 2.0 * 49153], device=cuda_device)
+        got = cuda_reweight.ess_bisect_beta(lv, bv, scal)
+        want = cuda_reweight.ess_bisect_beta_reference(lv, bv, scal)
+        torch.cuda.synchronize()
+        _assert_beta_matches(lv, bv, scal, got, want)
 
 
 @pytest.mark.cuda
@@ -135,14 +214,20 @@ def test_gamma_matches_plain(cuda_device, a):
 
 
 @pytest.mark.cuda
-def test_mutation_draws_kernel_matches_plain(cuda_device):
-    R, N, d = 8, 1024, 10
-    alpha = torch.cat([torch.full((N // 2,), 7.5), torch.full((N // 2,), 0.7)]).to(cuda_device)
+# (8, 6553, 10): the largest shape the fused route takes (R N d <= 2^19).
+@pytest.mark.parametrize("R,N,d", [(8, 1024, 10), (8, 1000, 10), (8, 6553, 10)])
+def test_mutation_draws_kernel_matches_plain(cuda_device, R, N, d):
+    # alpha above 1, below 1 (boosted), and small enough that later rounds
+    # decide (tests/test_torch_launch.py checks that they do for these draws)
+    third = N // 3
+    alpha = torch.cat([torch.full((third,), 7.5), torch.full((third,), 0.7),
+                       torch.full((N - 2 * third,), 0.02)]).to(cuda_device)
     before = cuda_prng.LAUNCHES["mutation_draws"]
     z, g, u = cuda_prng.hw_mutation_draws(KEY, 5, alpha, (R, N, d))
     wz, wg, wu = philox.mutation_draws(KEY, 5, alpha, (R, N, d))
     torch.cuda.synchronize()
     assert cuda_prng.LAUNCHES["mutation_draws"] == before + 1
+    assert z.shape == (R, N, d) and g.shape == u.shape == (N,)
     assert float(torch.max(torch.abs(z - wz))) <= 1e-5
     assert float(torch.max(torch.abs(u - wu))) <= 1e-5
     assert _gamma_mismatches(g, wg) <= max(1, 1e-4 * N)
