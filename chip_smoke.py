@@ -28,8 +28,8 @@ lines and a failure exits non-zero:
     prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42;
  6. A: the canonical problem at the reference defaults, clustered
     (k_max=16), hardware_prng=False, seeds 42-44 after a warm-up;
- 7. A again with hardware_prng=True: every MCMC step draws through the
-    mutation-draws kernel;
+ 7. A again with hardware_prng=True, seed 42: every MCMC step draws through
+    the mutation-draws kernel;
  8. B: the large-ensemble hardware_prng configuration of
     benchmarks/results/hw_prng_e2e.json (10-D Gaussian, n_particles=131072,
     history_capacity=8, unclustered) through its first four mutation
@@ -37,7 +37,24 @@ lines and a failure exits non-zero:
     then the normal kernel at its R*N*d and the ESS kernel at the S reached,
     each against its plain version;
  9. C: the 10-D bimodal mixture of tests/test_multimodal.py, clustered;
-10. the 10-D Gaussian of tests/test_end_to_end.py.
+10. the 10-D Gaussian of tests/test_end_to_end.py;
+11. the reference surface on A's problem, seed 42: the reference's default
+    call form (per-point torch functions, `vectorize` left False) with a
+    likelihood returning (logl, |x|^2, x0), so blobs are detected;
+    `run(save_every=10)` into a temporary directory, the blobs of
+    `posterior(return_blobs=True)` against the function evaluated again,
+    `evidence(n_bootstrap=256)`; a new sampler resumed from the
+    iteration-20 file, and a pickle taken one iteration after the last
+    numbered file, each run to the end; the draw state through a
+    checkpoint, with hardware_prng off and on: the two iterations after
+    iteration 20, from the sampler that ran on and from one that loaded
+    the iteration-20 file, must agree;
+12. dynamic (CV) mode: benchmarks/suite.py's `rosenbrock10_cv` (chained
+    10-D Rosenbrock, n_particles=1024, n_total=8192, history_capacity=192,
+    unclustered, volume_variation=1.0), seed 42, with logZ inside the anchor
+    taken from the JAX package; probes per reweight;
+13. the refit cadence, C with cluster_every=3, and a host likelihood: the
+    10-D Gaussian as a numpy per-point function with host_likelihood=True.
 
 Every path phase sets the kernels' launch counts to 0 just before it
 drives the path and reads them just after. The last three lines are the
@@ -45,8 +62,9 @@ total wall, the kernel table and {"ok": true, "device": {...}}.
 
 Without a GPU, or without the rest of the repository beside it, the
 script exits non-zero before printing any result. `--profile DIR` also
-profiles five mid-ladder iterations of the clustered canonical problem
-under torch.profiler, prints each stage's share and writes the tables
+profiles five mid-ladder iterations (21-25) of the clustered canonical
+problem, of phase 11's per-point configuration and of phase 12's dynamic
+mode under torch.profiler, prints each stage's share and writes the tables
 (by stage range and by kernel) to DIR. `--kernels-only` runs phases 1-4
 and prints their table without driving the paths; with `--package-root
 DIR` it imports `tempest_tpu_torch` from DIR (for instance a `git archive`
@@ -60,8 +78,10 @@ import argparse
 import json
 import math
 import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -91,6 +111,7 @@ from tempest_tpu_torch.config import (  # noqa: E402
 )
 from tempest_tpu_torch.ops import _build, cuda_prng, cuda_reweight, philox  # noqa: E402
 from tempest_tpu_torch.ops.tools import ess_from_logw  # noqa: E402
+from tempest_tpu_torch.steps import reweight as reweight_step  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from tempest_tpu_torch.state import (  # noqa: E402
     commit,
@@ -109,6 +130,11 @@ UNCLUSTERED_LOGZ = (-35.53, 0.75)
 # (benchmarks/results/reference_cpu.json); it holds JAX's clustered -35.11
 # (benchmarks/results/flagship_tpu.json).
 CLUSTERED_LOGZ = (-34.98, 1.0)
+# Dynamic mode, rosenbrock10_cv: tempest_tpu on the CPU, seeds 42-44, logZ
+# -51.0069 / -51.5353 / -51.4085, mean -51.3169 +/- max(3 sigma, 1.0) with
+# sigma 0.2759 (scripts/rosenbrock10_cv_anchor.py; PERF.md section 2).
+CV_LOGZ = (-51.3169, 1.0)
+GAUSSIAN_LOGZ = (-N_DIM * math.log(20.0), 0.5)  # analytic; tests/test_end_to_end.py
 BETA_TOL = 2e-3  # the Pallas-vs-XLA drift from summation order (tests/test_pallas.py)
 # A bisection's beta matches the plain version's when both took the same
 # probes and end this close (relative), or when the kernel's beta meets the
@@ -169,6 +195,23 @@ def rosenbrock(x):
 
 def gaussian(x):
     return -0.5 * torch.sum(x * x, dim=-1) - 0.5 * N_DIM * math.log(2 * math.pi)
+
+
+def rosenbrock_blobs(x):
+    # Per point: the log-likelihood and two blobs, |x|^2 and x0.
+    return rosenbrock(x), torch.sum(x * x), x[0]
+
+
+def rosenbrock_chained(x):
+    # benchmarks/suite.py:37-41
+    return -torch.sum(
+        100.0 * (x[..., 1:] - x[..., :-1] ** 2) ** 2 + (1.0 - x[..., :-1]) ** 2, dim=-1
+    )
+
+
+def gaussian_numpy(x):
+    # A host likelihood of one numpy point.
+    return float(-0.5 * np.sum(x * x) - 0.5 * N_DIM * math.log(2 * math.pi))
 
 
 def half_square(x):
@@ -842,7 +885,7 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band) -> 
     total = counts()
     print(f"{name}: mean wall {sum(walls) / len(walls):.3f} s, mean eff/s "
           f"{sum(effs) / len(effs):.1f}, launches {total}", flush=True)
-    return total
+    return total, dict(zip(seeds, walls))
 
 
 def phase_large_ensemble(device) -> dict:
@@ -956,11 +999,210 @@ def phase_gaussian(device) -> dict:
     return counts()
 
 
-def phase_profile(device, out_dir: str) -> None:
-    """Profile 5 mid-ladder iterations (21-25) of the clustered canonical seed 42."""
+# ---------------------------------------------------------------------------
+# Phases 11-13: the reference surface, dynamic mode, cadence and host calls
+# ---------------------------------------------------------------------------
+def per_point_sampler(device, hardware_prng=False, output_dir=None):
+    """A's problem in the reference's default call form: per-point torch
+    functions, `vectorize` left at False, blobs detected from the returns."""
+    return Sampler(prior_transform, rosenbrock_blobs, n_dim=N_DIM, n_particles=N_PARTICLES,
+                   k_max=16, history_capacity=CAPACITY, random_state=SEEDS[0],
+                   hardware_prng=hardware_prng, output_dir=output_dir, device=device)
+
+
+def check_run(name, s, band, launched) -> float:
+    """beta = 1, posterior ESS >= n_total, logZ in the band, one ESS launch
+    per reweight; returns the posterior ESS."""
+    ess = s.state.posterior_ess()
+    logz = s.evidence()[0]
+    iters = s.state.hist.t
+    print(f"{name}: iters={iters} ess={ess:.1f} logz={logz:.4f} beta={s.beta:.6f} "
+          f"launches={launched}", flush=True)
+    check(s.beta >= 1.0 - 1e-4, f"{name}: beta {s.beta} < 1 - 1e-4")
+    check(ess >= N_TOTAL, f"{name}: posterior ESS {ess} < {N_TOTAL}")
+    check(abs(logz - band[0]) <= band[1], f"{name}: logZ {logz} outside {band[0]} +/- {band[1]}")
+    return ess
+
+
+def iteration_rows(s, first: int, n: int = 2) -> list:
+    """(iteration, beta, logZ) of the n iterations after iteration `first`."""
+    res = s.results()
+    return [(int(res["iter"][i]), float(res["beta"][i]), float(res["logz"][i]))
+            for i in range(first, first + n)]
+
+
+def check_same_stream(what: str, rows_a: list, rows_b: list) -> None:
+    """The same iterations from a sampler that ran on and from one that
+    loaded its state file: beta to 1e-6 (relative) and logZ to 1e-5. A
+    re-seeded stream would part at the first MCMC step."""
+    check(len(rows_a) == len(rows_b) > 0, f"{what}: no iterations to compare")
+    for (it_a, beta_a, logz_a), (it_b, beta_b, logz_b) in zip(rows_a, rows_b):
+        print(f"{what} iteration {it_a}: beta {beta_a:.9g} / {beta_b:.9g}, logz "
+              f"{logz_a:.7f} / {logz_b:.7f}", flush=True)
+        check(it_a == it_b and beta_a > 0.0, f"{what}: iterations {it_a} / {it_b}, beta {beta_a}")
+        check(abs(beta_a - beta_b) <= 1e-6 * abs(beta_a), f"{what}: beta {beta_a} vs {beta_b}")
+        check(abs(logz_a - logz_b) <= 1e-5, f"{what}: logZ {logz_a} vs {logz_b}")
+
+
+def hardware_prng_draw_state(device, tmp: str) -> dict:
+    """With hardware_prng=True: a sampler at iteration 20 saves its state
+    and runs two iterations; a new sampler loads the file and runs the
+    same two. Returns the launches of the four iterations."""
+    s = per_point_sampler(device, hardware_prng=True)
+    for _ in range(20):
+        s.sample()
+    path = os.path.join(tmp, "hardware_prng_20.state")
+    s.save_state(path)
+    reset_counts()
+    for _ in range(2):
+        s.sample()
+    resumed = per_point_sampler(device, hardware_prng=True)
+    resumed.load_state(path)
+    for _ in range(2):
+        resumed.sample()
+    launched = counts()
+    check_same_stream("draw state hardware_prng=True", iteration_rows(s, 20),
+                      iteration_rows(resumed, 20))
+    check(launched["mutation_draws"] > 0, "draw state: no mutation-draws launch")
+    return launched
+
+
+def phase_reference_surface(device, vectorized_wall: float) -> dict:
+    """11: the reference's default Sampler surface at A's full width."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        s = per_point_sampler(device, output_dir=tmp)
+        schema = s.state.blob_schema
+        check(not s.vectorize and schema is not None and schema.width == 2,
+              f"reference surface: vectorize={s.vectorize}, blob schema {schema}")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run(n_total=N_TOTAL, progress=False, save_every=10)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        ess = check_run("reference surface run", s, CLUSTERED_LOGZ, launched)
+        check(launched["ess_bisect"] == s.state.hist.t - 1,
+              f"reference surface: {launched['ess_bisect']} ESS launches for "
+              f"{s.state.hist.t - 1} reweights")
+        out["run"] = launched
+        print(f"reference surface (per-point, blobs, save_every=10): wall={wall:.3f} s "
+              f"eff/s={ess / wall:.1f}; phase 6 vectorized seed {SEEDS[0]}: "
+              f"{vectorized_wall:.3f} s", flush=True)
+        files = sorted(os.listdir(tmp))
+        want = [f"ps_{i}.state" for i in range(10, s.state.cur.iteration, 10)]
+        want.append("ps_final.state")
+        check(all(f in files for f in want), f"reference surface: files {files}, want {want}")
+
+        x, _, logl, blobs = s.posterior(return_blobs=True)
+        logl_again, r2, x0 = torch.func.vmap(rosenbrock_blobs)(torch.from_numpy(x).to(device))
+        want_blobs = torch.stack([r2, x0], dim=1).cpu().numpy()
+        err = float(np.max(np.abs(blobs - want_blobs) / np.maximum(np.abs(want_blobs), 1e-30)))
+        err_l = float(np.max(np.abs(logl - logl_again.cpu().numpy())
+                             / np.maximum(np.abs(logl), 1e-30)))
+        print(f"reference surface posterior: {len(x)} samples, blobs {blobs.shape} max rel err "
+              f"{err:.3g}, logl max rel err {err_l:.3g}", flush=True)
+        check(blobs.shape == (len(x), 2) and err <= 1e-6 and err_l <= 1e-6,
+              "reference surface: posterior blobs differ from the function at x")
+        logz, logz_err = s.evidence(n_bootstrap=256)
+        print(f"reference surface evidence: logz={logz:.4f} bootstrap error={logz_err:.5f}",
+              flush=True)
+        check(math.isfinite(logz_err) and logz_err > 0.0, f"bootstrap error {logz_err}")
+
+        # Resume from the iteration-20 file: the run must go on as the
+        # first did (the draw state with hardware_prng=False) and end in the band.
+        reset_counts()
+        resumed = per_point_sampler(device)
+        resumed.run(n_total=N_TOTAL, progress=False,
+                    resume_state_path=os.path.join(tmp, "ps_20.state"))
+        out["resume"] = counts()
+        check_run("reference surface resumed from ps_20.state", resumed, CLUSTERED_LOGZ,
+                  out["resume"])
+        check_same_stream("draw state hardware_prng=False", iteration_rows(s, 20),
+                          iteration_rows(resumed, 20))
+        out["draw_state_hardware_prng"] = hardware_prng_draw_state(device, tmp)
+
+        # A pickle taken mid-run, one iteration after the last numbered file.
+        reset_counts()
+        live = per_point_sampler(device)
+        live.load_state(os.path.join(tmp, want[-2]))
+        live.sample()
+        unpickled = pickle.loads(pickle.dumps(live))
+        check(unpickled.state.hist.t == live.state.hist.t, "pickle: another iteration")
+        unpickled.run(n_total=N_TOTAL, progress=False)
+        out["pickle"] = counts()
+        check_run(f"reference surface from a pickle at iteration {live.state.hist.t}", unpickled,
+                  CLUSTERED_LOGZ, out["pickle"])
+    return out
+
+
+def phase_dynamic(device) -> dict:
+    """12: dynamic (CV) mode on rosenbrock10_cv."""
+    s = Sampler(prior_transform, rosenbrock_chained, n_dim=N_DIM, n_particles=N_PARTICLES,
+                vectorize=True, clustering=False, history_capacity=192, volume_variation=1.0,
+                random_state=SEEDS[0], device=device)
+    reset_counts()
+    before = dict(reweight_step.PROBES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.run(n_total=N_TOTAL, progress=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    probes = {k: reweight_step.PROBES[k] - before[k] for k in before}
+    launched = counts()
+    ess = check_run("dynamic rosenbrock10_cv", s, CV_LOGZ, launched)
+    n = max(probes["reweights"], 1)
+    print(f"dynamic: {s.state.hist.t} iterations, {probes['reweights']} dynamic reweights, "
+          f"{probes['ess_bracket'] / n:.2f} ESS-bracket and {probes['cv'] / n:.2f} CV probes per "
+          f"reweight (one host sync each); wall={wall:.3f} s eff/s={ess / wall:.1f}", flush=True)
+    check(probes["reweights"] == s.state.hist.t - 1,
+          f"dynamic: {probes['reweights']} dynamic reweights for {s.state.hist.t - 1}")
+    check(launched["ess_bisect"] == 0, "dynamic: the ESS kernel ran in dynamic mode")
+    return {"launches": launched, "probes": probes, "wall_s": wall}
+
+
+def phase_cadence_and_host(device) -> dict:
+    """13: C with cluster_every=3, and the 10-D Gaussian as a host likelihood."""
+    s = Sampler(prior_transform, bimodal, n_dim=N_DIM, n_particles=256, vectorize=True,
+                clustering=True, k_max=8, cluster_every=3, history_capacity=64, random_state=4,
+                device=device)
+    reset_counts()
+    s.run(n_total=512, progress=False)
+    cadence = counts()
+    k = int(s.state.cluster_model.n_clusters())
+    x, w, _ = s.posterior()
+    mass = float(np.sum(w[x[:, 0] > 0]))
+    print(f"cadence (C, cluster_every=3): clusters={k} mass(x0>0)={mass:.4f} "
+          f"logz={s.evidence()[0]:.4f} beta={s.beta:.6f} launches={cadence}", flush=True)
+    check(k >= 2 and 0.15 < mass < 0.85, f"cadence: {k} cluster(s), mass {mass}")
+    check(cadence["ess_bisect"] > 0, "cadence: no ESS kernel launch")
+
+    s = Sampler(prior_transform, gaussian_numpy, n_dim=N_DIM, n_particles=512,
+                host_likelihood=True, clustering=False, random_state=0, history_capacity=64,
+                device=device)
+    reset_counts()
+    t0 = time.perf_counter()
+    s.run(n_total=2048, progress=False)
+    wall = time.perf_counter() - t0
+    host = counts()
+    logz = s.evidence()[0]
+    acc = float(s.state.cur.acceptance)
+    print(f"host likelihood (numpy, pool=None): logz={logz:.4f} (analytic "
+          f"{GAUSSIAN_LOGZ[0]:.4f}) beta={s.beta:.6f} acceptance={acc:.4f} calls={s.calls} "
+          f"wall={wall:.3f} s launches={host}", flush=True)
+    check(s.beta > 0.99 and abs(logz - GAUSSIAN_LOGZ[0]) < GAUSSIAN_LOGZ[1] and acc > 0.1,
+          f"host likelihood: beta {s.beta}, logZ {logz}, acceptance {acc}")
+    check(host["ess_bisect"] > 0, "host likelihood: no ESS kernel launch")
+    return {"cadence": cadence, "host": host}
+
+
+def profile_iterations(s, name: str, out_dir: str) -> None:
+    """Profile iterations 21-25 of sampler `s`: each stage's host time and
+    share of the wall, the device's self time and idle share; the tables
+    (by stage range and by kernel) go to DIR/<name>_profile.txt."""
     from torch.profiler import ProfilerActivity, profile
 
-    s = canonical_sampler(device, SEEDS[0], clustering=True)
     for _ in range(20):
         s.sample()
     torch.cuda.synchronize()
@@ -971,7 +1213,7 @@ def phase_profile(device, out_dir: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "canonical_clustered_profile.txt")
+    path = os.path.join(out_dir, f"{name}_profile.txt")
     events = prof.key_averages()
     with open(path, "w") as f:
         f.write(events.table(sort_by="cpu_time_total", row_limit=60))
@@ -981,10 +1223,25 @@ def phase_profile(device, out_dir: str) -> None:
     for e in events:  # a range appears once on the host and once on the device
         if e.key.startswith("ps/"):
             stages[e.key] = max(stages.get(e.key, 0.0), e.cpu_time_total / 1e3)
+    device_ms = sum(_self_device_us(e) for e in events  # kernels; not the stage ranges
+                    if e.device_type == DeviceType.CUDA and not e.key.startswith("ps/")) / 1e3
     shares = ", ".join(f"{k} {v:.1f} ms ({100 * v / (1e3 * wall):.1f} %)"
                        for k, v in sorted(stages.items(), key=lambda kv: -kv[1]))
-    print(f"profile: iterations 21-25 of clustered seed {SEEDS[0]} in {wall:.3f} s under the "
-          f"profiler; stages: {shares} -> {path}", flush=True)
+    print(f"profile {name}: iterations 21-25 in {wall:.3f} s under the profiler; device self "
+          f"time {device_ms:.1f} ms (idle {100 * (1 - device_ms / (1e3 * wall)):.1f} %); "
+          f"stages: {shares} -> {path}", flush=True)
+
+
+def phase_profile(device, out_dir: str) -> None:
+    """Profile the clustered canonical seed 42, phase 11's per-point
+    configuration and phase 12's dynamic mode."""
+    profile_iterations(canonical_sampler(device, SEEDS[0], clustering=True),
+                       "canonical_clustered", out_dir)
+    profile_iterations(per_point_sampler(device), "reference_surface", out_dir)
+    profile_iterations(
+        Sampler(prior_transform, rosenbrock_chained, n_dim=N_DIM, n_particles=N_PARTICLES,
+                vectorize=True, clustering=False, history_capacity=192, volume_variation=1.0,
+                random_state=SEEDS[0], device=device), "dynamic_rosenbrock10_cv", out_dir)
 
 
 SOURCES = {"ess_bisect": "tempest_tpu_torch/csrc/ess_bisect.cu"}
@@ -996,7 +1253,7 @@ REPLACES = {
 }
 
 
-def kernel_table(rows: dict, launches: dict, floor: dict, split: dict) -> list:
+def kernel_table(rows: dict, launches: dict, floor: dict, split: dict, paths=None) -> list:
     table = []
     for name in ("ess_bisect", "mutation_draws", "normal", "bits"):
         row = rows[name]
@@ -1009,6 +1266,7 @@ def kernel_table(rows: dict, launches: dict, floor: dict, split: dict) -> list:
             **{k: row[k] for k in ("device_ms", "library_device_ms", "gamma_flips",
                                    "shapes", "routes") if k in row},
             "launch_floor_ms": floor["device_ms"], "call_split": split[name],
+            "launches_by_path": {p: n[name] for p, n in (paths or {}).items()},
         })
     return table
 
@@ -1041,25 +1299,34 @@ def main() -> None:
         print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
         print(json.dumps({"kernels": kernel_table(rows, {}, floor, split)}), flush=True)
         return
+    paths = {}
     run_canonical(device, "canonical unclustered", SEEDS[:1], False, False, UNCLUSTERED_LOGZ)
-    main_path = run_canonical(device, "A clustered", SEEDS, True, False, CLUSTERED_LOGZ)
-    hw_path = run_canonical(device, "A clustered hardware_prng", SEEDS, True, True,
-                            CLUSTERED_LOGZ)
-    large, large_errs = phase_large_ensemble(device)
+    paths["A"], walls = run_canonical(device, "A clustered", SEEDS, True, False, CLUSTERED_LOGZ)
+    paths["A_hardware_prng"], _ = run_canonical(device, "A clustered hardware_prng", SEEDS[:1],
+                                                True, True, CLUSTERED_LOGZ)
+    paths["B"], large_errs = phase_large_ensemble(device)
     for name, err in large_errs.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
-    phase_bimodal(device)
-    phase_gaussian(device)
+    paths["C"] = phase_bimodal(device)
+    paths["gaussian"] = phase_gaussian(device)
+    for name, n in phase_reference_surface(device, walls[SEEDS[0]]).items():
+        paths[f"reference_surface_{name}"] = n
+    dynamic = phase_dynamic(device)
+    paths["dynamic"] = dynamic["launches"]
+    for name, n in phase_cadence_and_host(device).items():
+        paths[name] = n
     if args.profile:
         phase_profile(device, args.profile)
 
-    launches = {"ess_bisect": main_path["ess_bisect"],
-                "mutation_draws": hw_path["mutation_draws"],
-                "normal": large["normal"], "bits": large["bits"]}
+    launches = {"ess_bisect": paths["A"]["ess_bisect"],
+                "mutation_draws": paths["A_hardware_prng"]["mutation_draws"],
+                "normal": paths["B"]["normal"], "bits": paths["B"]["bits"]}
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on its path")
+    print(f"launches by path: {json.dumps(paths)}", flush=True)
+    print(f"dynamic probes: {json.dumps(dynamic['probes'])}", flush=True)
     print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": kernel_table(rows, launches, floor, split)}), flush=True)
+    print(json.dumps({"kernels": kernel_table(rows, launches, floor, split, paths)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -250,6 +250,9 @@ class ClusterModel:
     chol_inv: torch.Tensor  # (K_max, d, d)
     logdet: torch.Tensor  # (K_max,)
     normalize: bool = False
+    # A real fit (False for the placeholder of single_cluster_model): the
+    # `fitted` flag JAX carries beside the model (fused.py:155-157).
+    fitted: bool = True
 
     @property
     def k_max(self) -> int:
@@ -276,6 +279,7 @@ def single_cluster_model(
         chol_inv=chol_inv,
         logdet=logdet,
         normalize=normalize,
+        fitted=False,
     )
 
 

@@ -6,14 +6,16 @@ keywords, defaults and validation messages. Two fields are new here:
 `dtype` is a torch dtype and `device` names the torch device every tensor
 lives on.
 
-Options outside the ported slice raise NotImplementedError naming the
-ROADMAP.md item that will bring them. The TPU-only knobs of ROADMAP.md
+Two options are outside the ported slice, the mesh and dtypes other than
+float32; they raise NotImplementedError naming the ROADMAP.md item that
+will bring them. The TPU-only knobs of ROADMAP.md
 queue 1, item 12 (`on_device_dispatch_budget_s`, `donate_state`, `fused`)
 and the mesh axis name are not part of this package.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Callable, List, Optional, Union
@@ -147,6 +149,22 @@ class SamplerConfig:
         self.validate()
         self._check_ported()
 
+        if self.pool is not None and not self.host_likelihood:
+            warnings.warn(
+                "pool is ignored for torch likelihoods: they run batched on the "
+                "device. It IS honored together with host_likelihood=True.",
+                UserWarning,
+                stacklevel=2,
+            )
+
+        if self.volume_variation is not None and self.n_particles < self.n_dim + 1:
+            warnings.warn(
+                f"For dynamic mode, n_particles ({self.n_particles}) should be "
+                f">= n_dim + 1 ({self.n_dim + 1}) for reliable results.",
+                UserWarning,
+                stacklevel=2,
+            )
+
     def validate(self) -> None:
         """Check every field; collect all problems and raise once.
 
@@ -241,14 +259,8 @@ class SamplerConfig:
     def _check_ported(self) -> None:
         """Refuse, by name, every option this package does not run yet."""
         unported = [
-            (self.volume_variation is not None, "volume_variation (dynamic/CV mode)"),
-            (self.blobs_dtype is not None or self.blob_size is not None, "blobs"),
-            (self.host_likelihood, "host_likelihood=True"),
-            (self.pool is not None, "pool"),
             (self.mesh is not None, "mesh (particle-axis sharding)"),
             (self.dtype != torch.float32, f"dtype={self.dtype} (only torch.float32)"),
-            (self.cluster_every != 1, "cluster_every > 1"),
-            (not self.vectorize, "vectorize=False (per-point likelihoods)"),
         ]
         for bad, what in unported:
             if bad:

@@ -1,41 +1,51 @@
 """SamplerCore — the Persistent Sampling annealing loop.
 
-Counterpart of tempest_tpu/core.py: construction and `reset`, capacity
-pre-growth and doubling (:239-272), `run_sampling` (:274-324) with the
-termination rule of `_not_termination` (:466-477) and the final logZ at
-beta = 1, and the posterior, evidence and results extraction. The fitted
+Counterpart of tempest_tpu/core.py: construction (the blob schema, the
+model wrappers) and `reset`, capacity pre-growth and doubling (:239-272),
+`run_sampling` (:274-324) with the termination rule of `_not_termination`
+(:466-477), `save_every` checkpoints and `resume_state_path`, the final
+logZ at beta = 1, and the posterior (with blobs), evidence (with the
+block-bootstrap error), results and state-file extraction. The fitted
 cluster model is carried from iteration to iteration in `cluster_model`
-(in JAX, `s.state.trainer.cluster_model`). `run(on_device=True)` is
-accepted and runs the same eager loop as `on_device=False`: there is one
-code path. The dispatch-budget chunking
-of the TPU whole-run program is not ported (ROADMAP.md queue 1, item 12).
+(in JAX, `_fused_model` and `_fused_fitted`), and saved with the state.
+`run(on_device=True)` is accepted and runs the same eager loop as
+`on_device=False`: there is one code path, so `save_every` works on every
+path. The dispatch-budget chunking of the TPU whole-run program is not
+ported (ROADMAP.md queue 1, item 12).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from pathlib import Path
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from .cluster import ClusterModel, single_cluster_model
-from .config import SamplerConfig, not_ported
-from .draws import Draws, HardwareDraws
+from .config import SamplerConfig
+from .draws import Draws, HardwareDraws, seed_from_key_words
 from .iteration import make_iteration
 from .ops.tools import ess_from_logw, systematic_resample, trim_weights_mask
 from .state import (
     Current,
     History,
+    bootstrap_logz_err,
     compute_logw_and_logz,
     grow_history,
     make_current,
     make_history,
 )
-from .utils.wrappers import FunctionWrapper, build_log_likelihood, build_prior_transform
-
-
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+from .utils.checkpoint import load_checkpoint, save_checkpoint
+from .utils.host import fetch
+from .utils.progress import ProgressBar
+from .utils.wrappers import (
+    FunctionWrapper,
+    make_pool_map,
+    build_blob_schema,
+    build_log_likelihood,
+    build_prior_transform,
+)
 
 
 class SamplerCore:
@@ -51,9 +61,32 @@ class SamplerCore:
         wrapped = FunctionWrapper(
             cfg.log_likelihood, cfg.log_likelihood_args, cfg.log_likelihood_kwargs
         )
+        self.blob_schema = build_blob_schema(
+            wrapped,
+            cfg.n_dim,
+            cfg.blobs_dtype is not None,
+            cfg.host_likelihood,
+            cfg.blobs_dtype,
+            declared_size=cfg.blob_size,
+            prior_transform=cfg.prior_transform,
+            vectorize=cfg.vectorize,
+        )
+        self.blob_size = None if self.blob_schema is None else self.blob_schema.width
+        self._blobs_dtype = None if self.blob_schema is None else self.blob_schema.device_dtype
+        # The host map of host_likelihood=True (a spawned pool for pool=<int>).
+        self.pool_map = make_pool_map(cfg.pool) if cfg.host_likelihood else None
         self._prior_batch = build_prior_transform(cfg.prior_transform, cfg.vectorize)
-        self._loglike_batch = build_log_likelihood(wrapped, cfg.vectorize, dtype=cfg.dtype)
+        self._loglike_batch = build_log_likelihood(
+            wrapped,
+            cfg.vectorize,
+            self.blob_schema is not None,
+            cfg.host_likelihood,
+            dtype=cfg.dtype,
+            schema=self.blob_schema,
+            pool_map=self.pool_map,
+        )
         self._iteration = make_iteration(cfg, self._loglike_batch, self._prior_batch)
+        self.pbar: Optional[ProgressBar] = None
         self.reset()
 
     # ------------------------------------------------------------------
@@ -62,19 +95,35 @@ class SamplerCore:
         (default: the config's, else 0)."""
         cfg = self.config
         seed = random_state if random_state is not None else (cfg.random_state or 0)
-        draws = HardwareDraws if cfg.hardware_prng else Draws
-        self.draws = draws(seed, self.device, self.dtype)
-        self.cluster_model: ClusterModel = single_cluster_model(
-            cfg.n_dim, cfg.k_max if cfg.clustering else 1, cfg.dtype, cfg.normalize, self.device
-        )
+        self.draws = self._make_draws(seed)
+        self.cluster_model: ClusterModel = self._placeholder_model()
         self.hist: History = make_history(
-            cfg.history_capacity, cfg.n_particles, cfg.n_dim, dtype=cfg.dtype, device=self.device
+            cfg.history_capacity, cfg.n_particles, cfg.n_dim, dtype=cfg.dtype,
+            device=self.device, blob_size=self.blob_size, blobs_dtype=self._blobs_dtype,
         )
         self.cur: Current = make_current(
-            cfg.n_particles, cfg.n_dim, dtype=cfg.dtype, device=self.device
+            cfg.n_particles, cfg.n_dim, dtype=cfg.dtype, device=self.device,
+            blob_size=self.blob_size, blobs_dtype=self._blobs_dtype,
         )
         self.n_total: Optional[int] = None
         self.logz_err = None
+        self.t0 = 0
+
+    def _make_draws(self, seed: int) -> Draws:
+        draws = HardwareDraws if self.config.hardware_prng else Draws
+        return draws(seed, self.device, self.dtype)
+
+    def _placeholder_model(self) -> ClusterModel:
+        cfg = self.config
+        return single_cluster_model(
+            cfg.n_dim, cfg.k_max if cfg.clustering else 1, cfg.dtype, cfg.normalize, self.device
+        )
+
+    def close(self) -> None:
+        """End the worker processes of `pool=<int>`, if any were started."""
+        close = getattr(self.pool_map, "close", None)
+        if close is not None:
+            close()
 
     def _pregrow_capacity(self) -> None:
         """Size the history for a typical run when the user left the
@@ -96,26 +145,41 @@ class SamplerCore:
         self,
         n_total: int = 4096,
         progress: bool = True,
-        resume_state_path=None,
+        resume_state_path: Union[str, Path, None] = None,
         save_every: Optional[int] = None,
         on_device: bool = False,
     ) -> None:
-        """Anneal until beta reaches 1 and the posterior ESS reaches n_total.
-
-        `progress` is accepted for API parity; the progress bar is not
-        ported yet (ROADMAP.md queue 1, item 11), so nothing is drawn.
-        """
-        if resume_state_path is not None or save_every is not None:
-            raise not_ported("checkpoints (resume_state_path, save_every)", "queue 1, item 11")
+        """Anneal until beta reaches 1 and the posterior ESS reaches n_total
+        (core.py:274-324). With `resume_state_path`, continue from that
+        file; with `save_every`, write `<output_label>_<iteration>.state`
+        every `save_every` iterations and `<output_label>_final.state` at
+        the end, into `output_dir`."""
+        t0 = 0
+        if resume_state_path is not None:
+            self.load_sampler_state(resume_state_path)
+            t0 = self.cur.iteration
         self.n_total = int(n_total)
+        self.t0 = t0
         self._pregrow_capacity()
+        self.pbar = ProgressBar(progress, initial=t0)
+        if self.pbar.enabled:
+            self.pbar.update_stats(dict(
+                beta=float(self.cur.beta), calls=self.calls_total(),
+                ESS=int(self.config.ess_ratio * self.n_particles), logZ=float(self.cur.logz),
+                logL=0.0, acc=0.0, steps=0, eff=0.0, K=1,
+            ))
         while self._not_termination():
-            self._advance()
+            self._step(save_every, t0)
 
         # Final evidence at beta = 1 over the whole history.
         _, logz = compute_logw_and_logz(self.hist, 1.0)
         self.cur.logz = logz.to(self.dtype)
         self.logz_err = None
+        cfg = self.config
+        if save_every is not None:
+            self.save_sampler_state(cfg.output_dir / f"{cfg.output_label}_final.state")
+        self.pbar.close()
+        self.pbar = None
 
     def posterior_ess(self) -> float:
         """ESS of the MIS weights of the whole history at beta = 1."""
@@ -131,17 +195,35 @@ class SamplerCore:
         return self.posterior_ess() < (self.n_total or 0)
 
     def execute_iteration(self, save_every: Optional[int] = None, t0: int = 0) -> dict:
-        """One reweight -> fit -> resample -> mutate -> commit iteration."""
-        if save_every is not None:
-            raise not_ported("checkpoints (save_every)", "queue 1, item 11")
-        self._advance()
+        """One reweight -> fit -> resample -> mutate -> commit iteration
+        (core.py:480-604); the state after it, as `get_current_dict`."""
+        self._step(save_every, t0)
         return self.get_current_dict()
 
-    def _advance(self) -> None:
+    def _step(self, save_every: Optional[int], t0: int) -> None:
+        """One iteration, after the checkpoint `save_every` asks for."""
+        cfg = self.config
+        it = self.cur.iteration
+        if save_every is not None and (it - t0) % int(save_every) == 0 and it != t0:
+            self.save_sampler_state(cfg.output_dir / f"{cfg.output_label}_{it}.state")
         self._ensure_capacity()
+        if self.pbar is not None:
+            self.pbar.update_iter()
         self.hist, self.cur, self.cluster_model = self._iteration(
             self.draws, self.hist, self.cur, self.cluster_model
         )
+        self._update_progress_bar()
+        self._prune_blob_store()
+
+    def _prune_blob_store(self) -> None:
+        """Drop the object-blob payloads whose ids are no longer in the
+        history or the active set (rejected MCMC proposals; core.py:606-617)."""
+        sch = self.blob_schema
+        if sch is None or not sch.is_object:
+            return
+        live = np.concatenate([fetch(self.hist.blobs).reshape(-1),
+                               fetch(self.cur.blobs).reshape(-1)])
+        sch.prune_store(live)
 
     # ------------------------------------------------------------------
     def compute_posterior(
@@ -153,19 +235,19 @@ class SamplerCore:
         ess_trim: float = 0.99,
         bins_trim: int = 1000,
     ):
-        """(x, weights, logl[, logw]) as numpy arrays (core.py:636-702)."""
-        if return_blobs:
-            raise not_ported("blobs", "queue 1, item 11")
+        """(x, weights, logl[, blobs][, logw]) as numpy arrays
+        (core.py:636-702); blobs only when the run has them."""
         logw, _ = compute_logw_and_logz(self.hist, 1.0)
-        valid = _host(self.hist.sample_mask()).reshape(-1)
-        logw_np = _host(logw).reshape(-1)
+        valid = fetch(self.hist.sample_mask()).reshape(-1)
+        logw_np = fetch(logw).reshape(-1)
 
         def snd(arr):  # (B, T, N) -> (S, B), t-major sample order
-            a = np.moveaxis(_host(arr), 0, -1)
+            a = np.moveaxis(fetch(arr), 0, -1)
             return a.reshape(-1, a.shape[-1])
 
         x = snd(self.hist.x)
-        logl = _host(self.hist.logl).reshape(-1)
+        logl = fetch(self.hist.logl).reshape(-1)
+        blobs = None if self.hist.blobs is None else snd(self.hist.blobs)
 
         weights = np.exp(logw_np - np.max(logw_np[valid]))
         weights[~valid] = 0.0
@@ -182,22 +264,31 @@ class SamplerCore:
             sel = valid
             weights = weights[sel]
         x, logl, logw_np = x[sel], logl[sel], logw_np[sel]
+        if blobs is not None:
+            blobs = blobs[sel]
 
         if resample:
             u0 = self.draws.resample(1, "syst").cpu()
             idx = systematic_resample(u0, len(weights), torch.from_numpy(weights)).numpy()
             x, logl, logw_np = x[idx], logl[idx], logw_np[idx]
+            if blobs is not None:
+                blobs = blobs[idx]
             weights = np.ones(len(idx)) / len(idx)
 
         out = [x, weights, logl]
+        if return_blobs and blobs is not None:
+            out.append(self.blob_schema.unpack(blobs))
         if return_logw:
             out.append(logw_np)
         return tuple(out)
 
     def compute_evidence(self, n_bootstrap: int = 0):
-        """(logz, logz_err); logz_err is None, as in the reference."""
-        if n_bootstrap > 0:
-            raise not_ported("the bootstrap logZ error (n_bootstrap > 0)", "queue 1, item 11")
+        """(logz, logz_err) (core.py:704-717): logz_err is None, as in the
+        reference, unless n_bootstrap > 0 asks for the block-bootstrap
+        error, whose uniforms come from the run's draws."""
+        if n_bootstrap > 0 and self.hist.t > 0:
+            uniforms = self.draws.bootstrap(int(n_bootstrap), self.hist.capacity)
+            return float(self.cur.logz), float(bootstrap_logz_err(self.hist, uniforms))
         return float(self.cur.logz), self.logz_err
 
     def compute_results(self) -> dict:
@@ -205,30 +296,62 @@ class SamplerCore:
         h = self.hist
         t = h.t
         logw, _ = compute_logw_and_logz(h, 1.0)
-        return {
-            "u": np.moveaxis(_host(h.u[:, :t]), 0, -1),
-            "x": np.moveaxis(_host(h.x[:, :t]), 0, -1),
-            "logl": _host(h.logl[:t]),
-            "beta": _host(h.beta[:t]),
-            "logz": _host(h.logz[:t]),
-            "ess": _host(h.ess[:t]),
-            "cv": _host(h.cv[:t]),
-            "acceptance": _host(h.acceptance[:t]),
-            "efficiency": _host(h.efficiency[:t]),
-            "steps": _host(h.steps[:t]),
-            "calls": _host(h.calls[:t]).astype(np.int64) * self.n_particles,
+        out = {
+            "u": np.moveaxis(fetch(h.u[:, :t]), 0, -1),
+            "x": np.moveaxis(fetch(h.x[:, :t]), 0, -1),
+            "logl": fetch(h.logl[:t]),
+            "beta": fetch(h.beta[:t]),
+            "logz": fetch(h.logz[:t]),
+            "ess": fetch(h.ess[:t]),
+            "cv": fetch(h.cv[:t]),
+            "acceptance": fetch(h.acceptance[:t]),
+            "efficiency": fetch(h.efficiency[:t]),
+            "steps": fetch(h.steps[:t]),
+            "calls": fetch(h.calls[:t]).astype(np.int64) * self.n_particles,
             "iter": np.arange(1, t + 1),
-            "logw": _host(logw).reshape(-1)[_host(h.sample_mask()).reshape(-1)],
         }
+        if h.blobs is not None:
+            b = np.moveaxis(fetch(h.blobs[:, :t]), 0, -1)  # (t, N, B)
+            un = self.blob_schema.unpack(b.reshape(t * self.n_particles, -1))
+            out["blobs"] = un.reshape((t, self.n_particles) + un.shape[1:])
+        out["logw"] = fetch(logw).reshape(-1)[fetch(h.sample_mask()).reshape(-1)]
+        return out
+
+    # ------------------------------------------------------------------
+    def save_sampler_state(self, path: Union[str, Path]) -> None:
+        """Write the state, draw state and carried model to `path`
+        (core.py:749-769; utils/checkpoint.py)."""
+        meta = {"n_total": self.n_total, "random_state": self.config.random_state, "version": 1}
+        sch = self.blob_schema
+        store = sch.store if sch is not None and sch.is_object else None
+        save_checkpoint(Path(path), self.hist, self.cur, self.draws.get_state(), meta,
+                        blob_store=store, model=self.cluster_model)
+
+    def load_sampler_state(self, path: Union[str, Path]) -> None:
+        """Continue from a file of either package (core.py:771-792): the
+        port's own draw state where the file has one, else draws re-seeded
+        from the JAX file's key words (draws.seed_from_key_words)."""
+        ck = load_checkpoint(Path(path), self.device)
+        self.hist, self.cur = ck.hist, ck.cur
+        if ck.draws is not None:
+            self.draws.set_state(ck.draws)
+        else:
+            self.draws = self._make_draws(seed_from_key_words(ck.rng_key))
+        self.cluster_model = ck.model if ck.model is not None else self._placeholder_model()
+        if ck.blob_store is not None and self.blob_schema is not None:
+            self.blob_schema.store = ck.blob_store
+        if ck.meta.get("n_total") is not None:
+            self.n_total = ck.meta["n_total"]
 
     # ------------------------------------------------------------------
     def get_current_dict(self) -> dict:
         c = self.cur
         return {
-            "u": _host(c.u),
-            "x": _host(c.x),
-            "logl": _host(c.logl),
-            "assignments": _host(c.assignments),
+            "u": fetch(c.u),
+            "x": fetch(c.x),
+            "logl": fetch(c.logl),
+            "blobs": None if c.blobs is None else self.blob_schema.unpack(fetch(c.blobs)),
+            "assignments": fetch(c.assignments),
             "beta": float(c.beta),
             "logz": float(c.logz),
             "ess": float(c.ess),
@@ -243,3 +366,14 @@ class SamplerCore:
     def calls_total(self) -> int:
         """Cumulative raw likelihood calls (sweeps times n_particles)."""
         return int(self.cur.calls) * self.n_particles
+
+    def _update_progress_bar(self) -> None:
+        if self.pbar is None or not self.pbar.enabled:
+            return
+        c = self.cur
+        self.pbar.update_stats(dict(
+            calls=self.calls_total(), beta=float(c.beta), ESS=int(float(c.ess)),
+            logZ=float(c.logz), logL=float(torch.mean(c.logl)), acc=float(c.acceptance),
+            steps=int(c.steps), eff=float(c.efficiency),
+            K=int(self.cluster_model.n_clusters()), CV=float(c.cv),
+        ))

@@ -1,20 +1,29 @@
 """Random draws of the sampler.
 
 Every stochastic step of the port is a function of explicit draws; the
-loops take those draws from a draws object with three methods (`warmup`,
-`resample`, `mcmc_step`). `Draws` takes all of them from one seeded
-`torch.Generator` on the sampler's device. `HardwareDraws`, the source of
+loops take those draws from a draws object with four methods (`warmup`,
+`resample`, `mcmc_step`, `bootstrap`). `Draws` takes all of them from one
+seeded `torch.Generator` on the sampler's device. `HardwareDraws`, the source of
 `hardware_prng=True`, routes each MCMC step's draws to the Philox kernels
 of `ops/cuda_prng.py` as tempest_tpu/mcmc.py:187-192 and :272-315 route
 them to the Pallas kernels. A test can hand a loop another object with the
 same methods (for instance one that replays the JAX package's key chain)
 and compare values with `tempest_tpu`, not only distributions.
+
+`get_state()` / `set_state()` carry the whole draw state through a
+checkpoint as numpy arrays: the generator's own state (for a CUDA
+generator its seed and offset, `torch.Generator.get_state`), and for
+`HardwareDraws` also the Philox key and call counter. Restoring it
+continues the stream where it stopped; nothing is re-seeded.
+`seed_from_key_words` is the rule for a file that holds no such state (one
+the JAX package wrote, with a threefry key that torch cannot continue).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .ops import cuda_prng, philox
@@ -61,6 +70,23 @@ class Draws:
         )
         return z, g, self._uniform((n,))
 
+    def bootstrap(self, n_bootstrap: int, t_max: int) -> torch.Tensor:
+        """(n_bootstrap, t_max) uniforms of the block bootstrap of logZ."""
+        return self._uniform((n_bootstrap, t_max))
+
+    def get_state(self) -> Dict[str, np.ndarray]:
+        return {"generator": self.generator.get_state().numpy().copy()}
+
+    def set_state(self, state: Dict[str, np.ndarray]) -> None:
+        self.generator.set_state(torch.from_numpy(np.asarray(state["generator"], np.uint8)))
+
+
+def seed_from_key_words(words) -> int:
+    """The seed a run resumed from a threefry key continues with: the two
+    uint32 key words (w0, w1) as the 64-bit integer (w0 << 32) | w1."""
+    w0, w1 = (int(w) & 0xFFFFFFFF for w in np.asarray(words).reshape(-1)[-2:])
+    return (w0 << 32) | w1
+
 
 class HardwareDraws(Draws):
     """`hardware_prng=True`: MCMC-step draws from the Philox kernels.
@@ -75,6 +101,16 @@ class HardwareDraws(Draws):
         super().__init__(seed, device, dtype)
         self.key = philox.key_from_seed(seed)
         self.counter = 0
+
+    def get_state(self) -> Dict[str, np.ndarray]:
+        return {**super().get_state(), "philox_key": np.array(self.key, dtype=np.uint32),
+                "philox_counter": np.array(self.counter, dtype=np.int64)}
+
+    def set_state(self, state: Dict[str, np.ndarray]) -> None:
+        super().set_state(state)
+        if "philox_key" in state:  # absent from a file written by plain Draws
+            self.key = tuple(int(w) for w in state["philox_key"])
+            self.counter = int(state["philox_counter"])
 
     def _calls(self, n: int) -> int:
         first = self.counter

@@ -42,30 +42,43 @@ def _tensor(value, device) -> torch.Tensor:
     return torch.from_numpy(np.array(value, copy=True)).to(device)
 
 
+def _blobs(fields: Mapping[str, np.ndarray], device):
+    value = fields.get("blobs")
+    return None if value is None else _tensor(value, device)
+
+
 def history_from_numpy(fields: Mapping[str, np.ndarray], device) -> History:
-    """History from the JAX History's fields (HISTORY_FIELDS and `t`)."""
+    """History from the JAX History's fields (HISTORY_FIELDS, `t` and,
+    optionally, `blobs`)."""
     return History(
-        **{k: _tensor(fields[k], device) for k in HISTORY_FIELDS}, t=int(fields["t"])
+        **{k: _tensor(fields[k], device) for k in HISTORY_FIELDS}, t=int(fields["t"]),
+        blobs=_blobs(fields, device),
     )
 
 
 def history_to_numpy(hist: History) -> Dict[str, np.ndarray]:
     out = {k: getattr(hist, k).detach().cpu().numpy().copy() for k in HISTORY_FIELDS}
     out["t"] = np.int32(hist.t)
+    if hist.blobs is not None:
+        out["blobs"] = hist.blobs.detach().cpu().numpy().copy()
     return out
 
 
 def current_from_numpy(fields: Mapping[str, np.ndarray], device) -> Current:
-    """Current from the JAX Current's fields (CURRENT_FIELDS and CURRENT_COUNTERS)."""
+    """Current from the JAX Current's fields (CURRENT_FIELDS, CURRENT_COUNTERS
+    and, optionally, `blobs`)."""
     return Current(
         **{k: _tensor(fields[k], device) for k in CURRENT_FIELDS},
         **{k: int(fields[k]) for k in CURRENT_COUNTERS},
+        blobs=_blobs(fields, device),
     )
 
 
 def current_to_numpy(cur: Current) -> Dict[str, np.ndarray]:
     out = {k: getattr(cur, k).detach().cpu().numpy().copy() for k in CURRENT_FIELDS}
     out.update({k: np.int32(getattr(cur, k)) for k in CURRENT_COUNTERS})
+    if cur.blobs is not None:
+        out["blobs"] = cur.blobs.detach().cpu().numpy().copy()
     return out
 
 
@@ -78,15 +91,17 @@ def modes_to_numpy(modes: ModeStatistics) -> Dict[str, np.ndarray]:
 
 
 def cluster_model_from_numpy(fields: Mapping[str, np.ndarray], device) -> ClusterModel:
-    """ClusterModel from the JAX model's fields (CLUSTER_FIELDS and the
-    static `normalize` flag)."""
+    """ClusterModel from the JAX model's fields (CLUSTER_FIELDS, the static
+    `normalize` flag and, optionally, the carried `fitted` flag)."""
     return ClusterModel(
         **{k: _tensor(fields[k], device) for k in CLUSTER_FIELDS},
         normalize=bool(fields["normalize"]),
+        fitted=bool(fields.get("fitted", True)),
     )
 
 
 def cluster_model_to_numpy(model: ClusterModel) -> Dict[str, np.ndarray]:
     out = {k: getattr(model, k).detach().cpu().numpy().copy() for k in CLUSTER_FIELDS}
     out["normalize"] = model.normalize
+    out["fitted"] = model.fitted
     return out

@@ -1,19 +1,22 @@
 """One Persistent Sampling iteration.
 
-Counterpart of tempest_tpu/fused.py `_make_iteration_fn` (:38-250) with
-`cluster_every == 1`, run eagerly:
+Counterpart of tempest_tpu/fused.py `_make_iteration_fn` (:38-250), run
+eagerly:
 
-1. reweight: the next beta by ESS bisection and the MIS weights
-   (skipped at t == 0, where the first-iteration values of :227-236 are
-   set instead of running the reweight on an empty history);
+1. reweight: the next beta by ESS bisection, or in dynamic mode by the CV
+   bisection inside an ESS bracket, and the MIS weights (skipped at t ==
+   0, where the first-iteration values of :227-236 are set instead of
+   running the reweight on an empty history);
 2. at beta == 0, the warm-up branch (:195-207): fresh prior draws;
 3. otherwise trim the weights and keep the top-`train_max_points` samples
    by weight (:113-129); with clustering, fit the hierarchical Gaussian
-   mixture on them and label them with it (:131-161), then fit one
-   Student-t mode per cluster (:162-164), else one global mode
-   (:165-167); resample, labelling the walkers with the fitted model, and
-   run the adaptive MCMC;
-4. commit the active set to the history.
+   mixture on them when the cadence asks for it (every iteration with
+   `cluster_every == 1`; else when `iteration % cluster_every == 0` or the
+   carried model is still the unfitted placeholder, :149-160), label them
+   with the model, then fit one Student-t mode per cluster (:162-164),
+   else one global mode (:165-167); resample, labelling the walkers with
+   the model, and run the adaptive MCMC;
+4. commit the active set, blob rows included, to the history.
 
 Every draw comes from the draws object passed in. Each stage runs inside
 a `record_function` range ("ps/reweight", "ps/cluster", "ps/fit",
@@ -67,8 +70,9 @@ def make_iteration(
 ) -> Callable:
     """Build `iteration(draws, hist, cur, model) -> (hist, cur, model)`;
     `model` is the ClusterModel carried from the last fit (the one-cluster
-    placeholder before it). The caller grows the history so that
-    capacity > hist.t."""
+    placeholder, `fitted=False`, before it). `log_likelihood_batch` returns
+    (logl, blobs or None). The caller grows the history so that capacity >
+    hist.t."""
     cfg = config
     N, d = cfg.n_particles, cfg.n_dim
     p_mask, r_mask, s_mask = make_boundary_masks(d, cfg.periodic, cfg.reflective, device=cfg.device)
@@ -85,6 +89,8 @@ def make_iteration(
         n_candidates=cfg.n_candidates,
     )
     ess_target = cfg.ess_ratio * N
+    dynamic = cfg.volume_variation is not None
+    cv_target = cfg.volume_variation or 0.0
     # The clusterer's settings (fused.py:79-83): 2 d points per child (4 d
     # when n_max_clusters caps K), at most k_max - 1 split rounds, and the
     # k-means++ uniforms of the fixed fit key.
@@ -93,7 +99,7 @@ def make_iteration(
     max_rounds = max(min(round_cap, cfg.k_max - 1), 0)
     uniforms = fit_uniforms(cfg.k_max, device=cfg.device) if cfg.clustering else None
 
-    def fit_clusters(u_fit, w_fit, keep_fit) -> Tuple[ClusterModel, torch.Tensor]:
+    def fit_clusters(u_fit, w_fit, keep_fit) -> ClusterModel:
         model, _, _ = hgm_fit(
             u_fit, w_fit, keep_fit,
             min_points=min_points,
@@ -105,14 +111,16 @@ def make_iteration(
             leaf_fit_points=cfg.leaf_fit_points or None,
             uniforms=uniforms,
         )
-        return model, cluster_predict(model, u_fit)
+        return model
 
     def mutate_branch(draws, hist: History, cur: Current, weights, model):
         with record_function("ps/fit"):
             u_fit, w_fit, keep_fit = select_fit_points(hist, weights, cfg.train_max_points)
         if cfg.clustering:
             with record_function("ps/cluster"):
-                model, labels = fit_clusters(u_fit, w_fit, keep_fit)
+                if not model.fitted or cur.iteration % cfg.cluster_every == 0:
+                    model = fit_clusters(u_fit, w_fit, keep_fit)
+                labels = cluster_predict(model, u_fit)
             with record_function("ps/fit"):
                 modes = fit_mode_statistics(
                     u_fit, w_fit, labels, k_max=cfg.k_max, dof_fallback=DOF_FALLBACK
@@ -121,13 +129,13 @@ def make_iteration(
             with record_function("ps/fit"):
                 modes = fit_global_mode(u_fit, w_fit, dof_fallback=DOF_FALLBACK)
         with record_function("ps/resample"):
-            u, x, logl, assignments = resample(
+            u, x, logl, blobs, assignments = resample(
                 draws.resample(N, cfg.resample), hist, weights, N, method=cfg.resample,
                 cluster_model=model if cfg.clustering else None,
             )
         with record_function("ps/mutate"):
-            res = mcmc(draws, u, x, logl, assignments, cur.beta, modes)
-        cur.u, cur.x, cur.logl = res.u, res.x, res.logl
+            res = mcmc(draws, u, x, logl, assignments, cur.beta, modes, blobs=blobs)
+        cur.u, cur.x, cur.logl, cur.blobs = res.u, res.x, res.logl, res.blobs
         cur.assignments = assignments
         cur.efficiency = res.efficiency.to(cfg.dtype)
         cur.acceptance = res.acceptance.to(cfg.dtype)
@@ -138,7 +146,7 @@ def make_iteration(
     def warmup_branch(draws, cur: Current) -> None:
         u_draw, patch_uniforms = draws.warmup(N, d)
         wr = warmup(u_draw, patch_uniforms, log_likelihood_batch, prior_transform_batch)
-        cur.u, cur.x, cur.logl = wr.u, wr.x, wr.logl
+        cur.u, cur.x, cur.logl, cur.blobs = wr.u, wr.x, wr.logl, wr.blobs
         cur.assignments = torch.zeros((N,), dtype=torch.int32, device=cfg.device)
         cur.logz = cur.logz + wr.logz_correction
         cur.calls += 1  # one full-batch sweep
@@ -157,7 +165,8 @@ def make_iteration(
             weights = None
         else:
             with record_function("ps/reweight"):
-                rw = reweight(hist, cur.beta, ess_target)
+                rw = reweight(hist, cur.beta, ess_target, cv_target=cv_target,
+                              dynamic=dynamic)
             cur.beta = rw.beta.to(cfg.dtype)
             cur.logz = rw.logz.to(cfg.dtype)
             cur.ess = rw.ess.to(cfg.dtype)

@@ -13,6 +13,7 @@ thresholds. Semantics kept:
 - `n_candidates` i.i.d. candidates per walker, the first in-bounds one
   taken by a where-chain, alpha = 0 for walkers with none (:168-219);
 - tempered Metropolis alpha = min(1, exp(beta dlogl + factor)), NaN -> 0;
+  the accepted walkers take the proposal's blob rows too (:341-342);
 - per-cluster Robbins-Monro adaptation of sigma toward 0.234, clipped to
   [0, min(2.38/sqrt(d), 0.99)] for tpCN (:355-380);
 - the adaptive stop n_steps d (0.234/acc)(sigma_0/sigma)^2 clamped to
@@ -38,6 +39,7 @@ class MCMCResult(NamedTuple):
     u: torch.Tensor
     x: torch.Tensor
     logl: torch.Tensor
+    blobs: Optional[torch.Tensor]  # (N, B) or None
     efficiency: torch.Tensor
     acceptance: torch.Tensor
     steps: int
@@ -64,6 +66,7 @@ class ChainState:
     u: torch.Tensor
     x: torch.Tensor
     logl: torch.Tensor
+    blobs: Optional[torch.Tensor]  # (N, B) or None
     sigmas: torch.Tensor  # (K,)
     iteration: int
     alpha_mean: torch.Tensor
@@ -79,7 +82,7 @@ def _quadratic(diff: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
 class MCMCKernel:
     """Adaptive mutation (mcmc.py:138-433).
 
-    log_likelihood_batch: x (N, d) -> logl (N,)
+    log_likelihood_batch: x (N, d) -> (logl (N,), blobs (N, B) or None)
     prior_transform_batch: u (N, d) -> x (N, d)
     """
 
@@ -137,10 +140,10 @@ class MCMCKernel:
             gamma_shape=(self.n_dim + dof) / 2.0 if self.is_tpcn else None,
         )
 
-    def initial_state(self, u, x, logl, k_max: int) -> ChainState:
+    def initial_state(self, u, x, logl, k_max: int, blobs=None) -> ChainState:
         sigma = self.sigma_cap if self.is_tpcn else self.sigma_0
         return ChainState(
-            u=u, x=x, logl=logl,
+            u=u, x=x, logl=logl, blobs=blobs,
             sigmas=torch.full((k_max,), sigma, dtype=u.dtype, device=u.device),
             iteration=0,
             alpha_mean=torch.zeros((), dtype=u.dtype, device=u.device),
@@ -188,7 +191,8 @@ class MCMCKernel:
 
         u_prime, valid = self._propose(w, s.u, diff, sigma_w, scale_w, z)
         x_prime = self.prior_transform_batch(u_prime)
-        logl_prime = self.log_likelihood_batch(x_prime).to(dtype)
+        logl_prime, blobs_prime = self.log_likelihood_batch(x_prime)
+        logl_prime = logl_prime.to(dtype)
 
         if self.is_tpcn:
             dot_p = _quadratic(u_prime - w.mu, w.inv)
@@ -205,6 +209,9 @@ class MCMCKernel:
         u = torch.where(accept[:, None], u_prime, s.u)
         x = torch.where(accept[:, None], x_prime, s.x)
         logl = torch.where(accept, logl_prime, s.logl)
+        blobs = s.blobs
+        if blobs is not None:
+            blobs = torch.where(accept[:, None], blobs_prime, blobs)
 
         # Per-cluster Robbins-Monro adaptation toward 0.234.
         alpha_k = torch.sum(w.onehot * alpha[:, None], dim=0)
@@ -227,15 +234,17 @@ class MCMCKernel:
         n_final = torch.clamp(n_adaptive, self.n_steps_min, self.n_steps_cap)
         done = float(iteration) >= n_final
         return ChainState(
-            u=u, x=x, logl=logl, sigmas=sigmas, iteration=iteration,
+            u=u, x=x, logl=logl, blobs=blobs, sigmas=sigmas, iteration=iteration,
             alpha_mean=mean_alpha, done=done,
         )
 
     # ------------------------------------------------------------------
-    def __call__(self, draws, u, x, logl, assignments, beta, modes: ModeStatistics) -> MCMCResult:
+    def __call__(
+        self, draws, u, x, logl, assignments, beta, modes: ModeStatistics, blobs=None
+    ) -> MCMCResult:
         """Run the adaptive chain to its stop rule, drawing from `draws`."""
         w = self.prepare(assignments, beta, modes)
-        s = self.initial_state(u, x, logl, modes.k_max)
+        s = self.initial_state(u, x, logl, modes.k_max, blobs)
         n, d = u.shape
         while True:
             z, g, u_acc = draws.mcmc_step(self.n_candidates, n, d, w.gamma_shape)
@@ -247,7 +256,7 @@ class MCMCKernel:
             torch.clamp(torch.sum(k_mask), min=1)
         )
         return MCMCResult(
-            u=s.u, x=s.x, logl=s.logl,
+            u=s.u, x=s.x, logl=s.logl, blobs=s.blobs,
             efficiency=mean_sigma / self.sigma_0,
             acceptance=s.alpha_mean,
             steps=s.iteration,

@@ -45,8 +45,30 @@ def multinomial_resample(uniforms: torch.Tensor, weights: torch.Tensor) -> torch
     return _invert_cdf(w, uniforms.to(w.dtype))
 
 
+SCAN_ROW = 1024
+
+
+def cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum of a 1-D tensor, the same bits on every call.
+
+    `torch.cumsum` of one long CUDA vector combines its tiles in the order
+    they finish, so its float sums change in the last bits from call to
+    call, and a resampling uniform near a CDF edge then picks another
+    particle. Here the vector is scanned as rows of `SCAN_ROW`, each in a
+    fixed order, and every row adds the total of the rows before it."""
+    n = x.shape[0]
+    if n <= SCAN_ROW:
+        return torch.cumsum(x, dim=0)
+    rows = -(-n // SCAN_ROW)
+    within = torch.cumsum(
+        torch.nn.functional.pad(x, (0, rows * SCAN_ROW - n)).reshape(rows, SCAN_ROW), dim=1
+    )
+    before = torch.cat([torch.zeros_like(within[:1, -1]), cumsum(within[:-1, -1])])
+    return (within + before[:, None]).reshape(-1)[:n]
+
+
 def _invert_cdf(w: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    cdf = torch.cumsum(w, dim=0)
+    cdf = cumsum(w)
     cdf[-1] = 1.0  # guard against rounding shortfall
     idx = torch.searchsorted(cdf, positions, right=False)  # side="left"
     return torch.clamp(idx, 0, w.shape[0] - 1)
@@ -89,8 +111,8 @@ def trim_weights_mask(
     thresholds = w_sorted[lo] * (1.0 - frac) + w_sorted[hi] * frac  # (bins,)
 
     finite = torch.isfinite(w_sorted)
-    cum_w = torch.cumsum(torch.where(finite, w_sorted, zero), dim=0)
-    cum_w2 = torch.cumsum(torch.where(finite, w_sorted * w_sorted, zero), dim=0)
+    cum_w = cumsum(torch.where(finite, w_sorted, zero))
+    cum_w2 = cumsum(torch.where(finite, w_sorted * w_sorted, zero))
     total_w = cum_w[n - 1]
     total_w2 = cum_w2[n - 1]
     cut = torch.searchsorted(w_sorted, thresholds, right=False)  # (bins,)

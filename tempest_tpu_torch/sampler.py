@@ -3,17 +3,25 @@
 Counterpart of tempest_tpu/sampler.py: the same constructor keywords
 (:27-69) without the TPU-only knobs (`on_device_dispatch_budget_s`,
 `donate_state`, `fused`; ROADMAP.md queue 1, item 12), plus `device`. The
-model functions are torch functions on (N, d) batches (`vectorize=True`).
+model functions are per-point torch functions of one (d,) point by default
+(`vectorize=False`, mapped with `torch.func.vmap`; see
+`utils/wrappers.py` for what such a function may do), torch functions of
+(N, d) batches with `vectorize=True`, or Python functions of one numpy
+point with `host_likelihood=True`.
 
 The default `device="cuda"` needs a GPU: without one, construction raises
 from PyTorch; nothing moves to the CPU unless `device="cpu"` is asked for.
+A pickled sampler keeps its device: unpickled where that device is
+missing, it raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 from typing import Optional, Union
 
+from . import interop
 from .config import SamplerConfig
 from .core import SamplerCore
 
@@ -157,8 +165,22 @@ class Sampler:
         )
 
     def evidence(self, n_bootstrap: int = 0):
-        """(logz, logz_err); logz_err is None, as in the reference."""
+        """(logz, logz_err). logz_err is None, as in the reference, unless
+        n_bootstrap > 0 (e.g. 256) asks for the iteration-block bootstrap
+        error over the MIS history (state.bootstrap_logz_err)."""
         return self._core.compute_evidence(n_bootstrap=n_bootstrap)
+
+    def save_state(self, path: Union[str, Path]):
+        """Write the run's state to `path` (utils/checkpoint.py)."""
+        self._core.save_sampler_state(Path(path))
+
+    def load_state(self, path: Union[str, Path]):
+        """Continue from a state file of this package or of tempest_tpu."""
+        self._core.load_sampler_state(Path(path))
+
+    def close(self):
+        """End the worker processes of `pool=<int>`, if any were started."""
+        self._core.close()
 
     def results(self) -> dict:
         """Full per-iteration history plus the final log-weights."""
@@ -167,6 +189,34 @@ class Sampler:
     def reset(self, random_state=None):
         """Clear the state for a fresh run."""
         self._core.reset(random_state=random_state)
+
+    # ------------------------------------------------------------------
+    # Pickling (sampler.py:200-260): the mesh and the pool are dropped;
+    # tensors travel as numpy arrays and go back onto the configured
+    # device, with the draw state and the carried cluster model, so the
+    # unpickled sampler continues the same stream.
+    def __getstate__(self):
+        core = self._core
+        sch = core.blob_schema
+        return {
+            "config": dataclasses.replace(core.config, mesh=None, pool=None),
+            "hist": interop.history_to_numpy(core.hist),
+            "cur": interop.current_to_numpy(core.cur),
+            "draws": core.draws.get_state(),
+            "model": interop.cluster_model_to_numpy(core.cluster_model),
+            "n_total": core.n_total,
+            "blob_store": sch.store if sch is not None and sch.is_object else None,
+        }
+
+    def __setstate__(self, state):
+        self._core = core = SamplerCore(state["config"])
+        core.hist = interop.history_from_numpy(state["hist"], core.device)
+        core.cur = interop.current_from_numpy(state["cur"], core.device)
+        core.draws.set_state(state["draws"])
+        core.cluster_model = interop.cluster_model_from_numpy(state["model"], core.device)
+        core.n_total = state["n_total"]
+        if state["blob_store"] is not None:
+            core.blob_schema.store = state["blob_store"]
 
     # ------------------------------------------------------------------
     @property

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,6 +44,7 @@ class History:
     steps: torch.Tensor  # (T_max,) int32
     calls: torch.Tensor  # (T_max,) int32 cumulative likelihood-call sweeps
     t: int  # number of committed iterations
+    blobs: Optional[torch.Tensor] = None  # (B, T_max, N) blob rows, or None
 
     @property
     def capacity(self) -> int:
@@ -87,12 +88,20 @@ class Current:
     steps: int
     calls: int  # cumulative likelihood-call sweeps (see History.calls)
     iteration: int
+    blobs: Optional[torch.Tensor] = None  # (N, B) blob rows, or None
 
 
 def make_history(
-    capacity: int, n_particles: int, n_dim: int, dtype=torch.float32, device=None
+    capacity: int,
+    n_particles: int,
+    n_dim: int,
+    dtype=torch.float32,
+    device=None,
+    blob_size: Optional[int] = None,
+    blobs_dtype=None,
 ) -> History:
-    """Allocate an empty history buffer (state.py:151-179)."""
+    """Allocate an empty history buffer (state.py:151-179), with (B, T_max,
+    N) blob rows of `blobs_dtype` (default `dtype`) when `blob_size` is set."""
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -114,10 +123,19 @@ def make_history(
         steps=torch.zeros(capacity, dtype=torch.int32, device=device),
         calls=torch.zeros(capacity, dtype=torch.int32, device=device),
         t=0,
+        blobs=None if blob_size is None else torch.zeros(
+            (blob_size, capacity, n_particles), dtype=blobs_dtype or dtype, device=device),
     )
 
 
-def make_current(n_particles: int, n_dim: int, dtype=torch.float32, device=None) -> Current:
+def make_current(
+    n_particles: int,
+    n_dim: int,
+    dtype=torch.float32,
+    device=None,
+    blob_size: Optional[int] = None,
+    blobs_dtype=None,
+) -> Current:
     """An empty active set (state.py:232-258)."""
 
     def scalar():
@@ -137,6 +155,8 @@ def make_current(n_particles: int, n_dim: int, dtype=torch.float32, device=None)
         steps=0,
         calls=0,
         iteration=0,
+        blobs=None if blob_size is None else torch.zeros(
+            (n_particles, blob_size), dtype=blobs_dtype or dtype, device=device),
     )
 
 
@@ -166,20 +186,24 @@ def grow_history(hist: History, new_capacity: int) -> History:
         steps=pad(hist.steps, 0),
         calls=pad(hist.calls, 0),
         t=hist.t,
+        blobs=None if hist.blobs is None else pad(hist.blobs, 0, dim=1),
     )
 
 
 def gather_history(
     hist: History, t_idx: torch.Tensor, n_idx: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(u, x, logl) rows for sample coordinates (t, n); u/x come back as
-    (k, d) (state.py:121-148)."""
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """(u, x, logl, blobs) rows for sample coordinates (t, n); u/x come back
+    as (k, d), blobs as (k, B) or None (state.py:121-148)."""
     s_idx = t_idx * hist.n_particles + n_idx
     d = hist.n_dim
     u = hist.u.reshape(d, -1)[:, s_idx].T
     x = hist.x.reshape(d, -1)[:, s_idx].T
     logl = hist.logl.reshape(-1)[s_idx]
-    return u, x, logl
+    blobs = None
+    if hist.blobs is not None:
+        blobs = hist.blobs.reshape(hist.blobs.shape[0], -1)[:, s_idx].T
+    return u, x, logl, blobs
 
 
 def _masked_term(beta, logl: torch.Tensor, logz) -> torch.Tensor:
@@ -216,6 +240,8 @@ def commit(hist: History, cur: Current) -> History:
     hist.u[:, t] = cur.u.T
     hist.x[:, t] = cur.x.T
     hist.logl[t] = cur.logl
+    if hist.blobs is not None:
+        hist.blobs[:, t] = cur.blobs.T
     hist.ess[t] = cur.ess
     hist.cv[t] = cur.cv
     hist.acceptance[t] = cur.acceptance
@@ -252,6 +278,14 @@ def mis_denominator_exact(hist: History) -> torch.Tensor:
     return torch.stack(rows)
 
 
+def rebuild_mis_c(hist: History) -> History:
+    """Recompute the accumulator from scratch, in place (state.py:366-371):
+    for checkpoints written before it existed."""
+    c = mis_denominator_exact(hist) + math.log(max(hist.t, 1))
+    hist.mis_c = torch.where(hist.iter_mask()[:, None], c, torch.full_like(c, _NEG_INF))
+    return hist
+
+
 def logw_from_denominator(
     hist: History, denom: torch.Tensor, beta_final, normalize: bool = True
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -272,6 +306,28 @@ def logw_from_denominator(
     if normalize:
         logw = logw - logsumexp(logw)
     return logw, logz_new
+
+
+def bootstrap_logz_err(hist: History, uniforms: torch.Tensor, beta_final=1.0) -> torch.Tensor:
+    """Iteration-block bootstrap standard error of the MIS logZ
+    (state.py:403-437).
+
+    With L_t = logsumexp_n(logw[t, :]), logZ = logsumexp_t(L_t) - log(N t);
+    each of the n_bootstrap replicates draws t blocks with replacement and
+    the error is the std of the replicate logZs. `uniforms` (n_bootstrap,
+    T_max) pick the blocks: index min(floor(u t), t - 1); slots j >= t are
+    masked out of each replicate.
+    """
+    logw, _ = logw_from_denominator(hist, mis_denominator(hist), beta_final, normalize=False)
+    L = logsumexp(logw, dim=1)  # (T_max,), -inf where invalid
+    t = max(hist.t, 1)
+    idx = torch.clamp((uniforms * t).to(torch.int32), max=t - 1)
+    draws = L[idx.long()]  # (B, T_max)
+    in_run = torch.arange(hist.capacity, device=L.device)[None, :] < t
+    draws = torch.where(in_run, draws, torch.full_like(draws, _NEG_INF))
+    logz_b = logsumexp(draws, dim=1) - math.log(float(t * hist.n_particles))
+    mean = torch.mean(logz_b)
+    return torch.sqrt(torch.mean((logz_b - mean) ** 2))
 
 
 def compute_logw_and_logz(

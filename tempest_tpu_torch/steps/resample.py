@@ -25,8 +25,9 @@ def resample(
     n_particles: int,
     method: str = "mult",
     cluster_model: Optional[ClusterModel] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(u, x, logl, assignments) of the new active set.
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """(u, x, logl, blobs, assignments) of the new active set; blobs is None
+    when the history has none.
 
     `weights` are the normalized (T_max, N) MIS weights; masked slots carry
     zero weight and are never selected. With `cluster_model` the walkers
@@ -40,9 +41,9 @@ def resample(
         idx = systematic_resample(uniforms, n_particles, w_flat)
     else:
         raise ValueError(f"Unknown resample method {method}")
-    u, x, logl = gather_history(hist, idx // N, idx % N)
+    u, x, logl, blobs = gather_history(hist, idx // N, idx % N)
     if cluster_model is not None:
         assignments = cluster_predict(cluster_model, u)
     else:
         assignments = torch.zeros((n_particles,), dtype=torch.int32, device=u.device)
-    return u, x, logl, assignments
+    return u, x, logl, blobs, assignments

@@ -1,0 +1,162 @@
+"""Checkpoint and resume: the sampler state as one npz file.
+
+Counterpart of tempest_tpu/utils/checkpoint.py `save_checkpoint` /
+`load_checkpoint` (:42-187), in the same file format, so the port reads
+the JAX package's files (the JAX loader needs an `rng_key`, which the
+port's files do not hold):
+
+- `np.savez` of the history and current-state leaves under `hist.<field>`
+  and `cur.<field>`, blob rows included (History (d, T, N) layout), plus a
+  `__meta__` JSON: format version 2, the caller's `meta`, `has_blobs`,
+  `calls_units` ("sweeps") and `has_blob_store`; object-blob payloads as
+  the pickled object array `blob_store`, loaded with pickle allowed only
+  when the file declares it;
+- the write goes to `<path>.temp`, is flushed and fsynced, then renamed
+  over `path`, so a reader never sees half a file.
+
+Draw state. The port cannot continue JAX's threefry key, nor JAX the
+port's generator, so each package keeps its own under names of its own.
+The port writes `"rng": "torch"` into the meta and its whole draw state
+(`Draws.get_state`: the generator state, and for `HardwareDraws` the
+Philox key and counter) under `draws.<name>`, and the carried cluster
+model under `model.<field>`. A generator's state belongs to its device
+type (a CUDA generator's is its seed and offset), so a file resumes on the
+device type it was written on; loading it elsewhere raises from PyTorch.
+A file the JAX package wrote has `rng_key`
+instead: the port then re-seeds its draws with `seed_from_key_words` of
+those words (documented in `draws.py`) and refits the cluster model, and
+the resumed run agrees with JAX statistically, as every whole run does.
+
+Files of format 1 load too: their (T, N, d) coordinate buffers are moved
+to (d, T, N), a missing `mis_c` accumulator is rebuilt, and raw call
+counts become sweeps. Every tensor is loaded onto the given device. The
+per-host sharded checkpoints (:213-407) wait for `parallel/` (ROADMAP.md
+queue 1, item 11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from pathlib import Path
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from ..cluster import ClusterModel
+from ..interop import CLUSTER_FIELDS, CURRENT_COUNTERS, CURRENT_FIELDS, HISTORY_FIELDS
+from ..state import Current, History, rebuild_mis_c
+from .host import fetch
+
+FORMAT_VERSION = 2  # v2: coordinates (d, T, N), blobs (B, T, N); v1: (T, N, d)
+
+
+@dataclasses.dataclass
+class Checkpoint:
+    """What a checkpoint file holds, loaded onto a device."""
+
+    hist: History
+    cur: Current
+    meta: dict
+    blob_store: Optional[list]  # object-blob payloads, or None
+    draws: Optional[Dict[str, np.ndarray]]  # the port's draw state, or None
+    rng_key: Optional[np.ndarray]  # a JAX file's threefry key words, or None
+    model: Optional[ClusterModel]  # the carried cluster model, or None
+
+
+def save_checkpoint(
+    path: Union[str, Path],
+    hist: History,
+    cur: Current,
+    draw_state: Dict[str, np.ndarray],
+    meta: Optional[dict] = None,
+    blob_store: Optional[list] = None,
+    model: Optional[ClusterModel] = None,
+) -> None:
+    """Write the sampler state to `path`, atomically."""
+    path = Path(path)
+    tmp = path.with_suffix(path.suffix + ".temp")
+    arrays = {f"hist.{k}": fetch(getattr(hist, k)) for k in HISTORY_FIELDS}
+    arrays["hist.t"] = np.asarray(hist.t, dtype=np.int32)
+    arrays.update({f"cur.{k}": fetch(getattr(cur, k)) for k in CURRENT_FIELDS})
+    arrays.update({f"cur.{k}": np.asarray(getattr(cur, k), dtype=np.int32)
+                   for k in CURRENT_COUNTERS})
+    if hist.blobs is not None:
+        arrays["hist.blobs"] = fetch(hist.blobs)
+        arrays["cur.blobs"] = fetch(cur.blobs)
+    arrays.update({f"draws.{k}": np.asarray(v) for k, v in draw_state.items()})
+    if model is not None:
+        arrays.update({f"model.{k}": fetch(getattr(model, k)) for k in CLUSTER_FIELDS})
+        arrays["model.normalize"] = np.asarray(model.normalize)
+        arrays["model.fitted"] = np.asarray(model.fitted)
+    payload = {
+        "format_version": FORMAT_VERSION,
+        "meta": meta or {},
+        "has_blobs": hist.blobs is not None,
+        "calls_units": "sweeps",  # 1 sweep = n_particles likelihood calls
+        "has_blob_store": blob_store is not None,
+        "rng": "torch",
+    }
+    if blob_store is not None:
+        store = np.empty((len(blob_store),), dtype=object)
+        store[:] = blob_store
+        arrays["blob_store"] = store
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(tmp, "wb") as f:
+        np.savez(f, __meta__=json.dumps(payload), **arrays)
+        f.flush()
+        os.fsync(f.fileno())
+    os.rename(tmp, path)
+
+
+def load_checkpoint(path: Union[str, Path], device) -> Checkpoint:
+    """Read a checkpoint of either package onto `device`."""
+    path = Path(path)
+    with np.load(path, allow_pickle=False) as probe:
+        payload = json.loads(str(probe["__meta__"]))
+    allow_pickle = bool(payload.get("has_blob_store", False))
+    with np.load(path, allow_pickle=allow_pickle) as data:
+        legacy_layout = payload.get("format_version", 1) < 2
+
+        def get(name):
+            return torch.from_numpy(np.array(data[name], copy=True)).to(device)
+
+        def get_tdn(name):
+            """A history coordinate buffer, moved from v1's (T, N, B)."""
+            arr = get(name)
+            return torch.movedim(arr, -1, 0).contiguous() if legacy_layout else arr
+
+        has_blobs = bool(payload["has_blobs"])
+        fields = {k: get(f"hist.{k}") for k in HISTORY_FIELDS if k not in ("u", "x", "mis_c")}
+        fields["u"], fields["x"] = get_tdn("hist.u"), get_tdn("hist.x")
+        rebuild = "hist.mis_c" not in data  # the accumulator came after format 1
+        fields["mis_c"] = (torch.full_like(fields["logl"], float("-inf")) if rebuild
+                           else get("hist.mis_c"))
+        hist = History(**fields, t=int(data["hist.t"]),
+                       blobs=get_tdn("hist.blobs") if has_blobs else None)
+        cur = Current(
+            **{k: get(f"cur.{k}") for k in CURRENT_FIELDS},
+            **{k: int(data[f"cur.{k}"]) for k in CURRENT_COUNTERS},
+            blobs=get("cur.blobs") if has_blobs else None,
+        )
+        if rebuild:
+            hist = rebuild_mis_c(hist)
+        if payload.get("calls_units") != "sweeps":  # raw call counts
+            n = cur.u.shape[0]
+            hist.calls = hist.calls // n
+            cur.calls = cur.calls // n
+
+        draws = {k[len("draws."):]: np.array(data[k]) for k in data.files
+                 if k.startswith("draws.")} or None
+        rng_key = np.array(data["rng_key"]) if "rng_key" in data else None
+        model = None
+        if "model.centers" in data:
+            model = ClusterModel(**{k: get(f"model.{k}") for k in CLUSTER_FIELDS},
+                                 normalize=bool(data["model.normalize"]),
+                                 fitted=bool(data["model.fitted"]))
+        store = list(data["blob_store"]) if allow_pickle and "blob_store" in data else None
+        return Checkpoint(hist=hist, cur=cur, meta=payload["meta"], blob_store=store,
+                          draws=draws, rng_key=rng_key, model=model)

@@ -29,7 +29,7 @@ import torch
 
 from tempest_tpu_torch import Sampler
 from tempest_tpu_torch.config import ESS_TOLERANCE, METRIC_ATOL
-from tempest_tpu_torch.ops import cuda_prng, cuda_reweight, philox
+from tempest_tpu_torch.ops import cuda_prng, cuda_reweight, philox, tools
 from tempest_tpu_torch.ops.tools import ess_from_logw, logsumexp
 from tempest_tpu_torch.state import commit, make_current, make_history, mis_denominator
 
@@ -250,3 +250,33 @@ def test_sampler_runs_hardware_prng_through_the_kernel(cuda_device):
     assert cuda_prng.LAUNCHES["normal"] == before["normal"]
     assert s.beta >= 1.0 - 1e-4
     assert abs(s.evidence()[0] - (-4 * math.log(20.0) + 2 * math.log(2 * math.pi))) < 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [65536, 196608, 1048576])
+def test_cumsum_same_bits_on_every_call(cuda_device, n):
+    # torch.cumsum of one long CUDA vector is not: the resampling CDF of a
+    # 192 x 1024 history moved between calls, and with it a seeded run.
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.rand(n, generator=g, device=cuda_device)
+    first = tools.cumsum(x)
+    for _ in range(20):
+        assert torch.equal(tools.cumsum(x), first)
+    want = torch.cumsum(x.double(), dim=0)
+    assert float(torch.max(torch.abs(first.double() - want) / want)) < 1e-6
+
+
+@pytest.mark.cuda
+def test_seeded_run_repeats_on_the_card(cuda_device):
+    def loglike(x):
+        return -0.5 * torch.sum(x * x, dim=-1)
+
+    runs = []
+    for _ in range(2):
+        s = Sampler(lambda u: 20.0 * u - 10.0, loglike, n_dim=4, n_particles=512,
+                    vectorize=True, clustering=False, volume_variation=1.0, random_state=3,
+                    history_capacity=256, device=cuda_device)
+        s.run(n_total=2048)
+        runs.append(s.results())
+    assert runs[0]["beta"].tobytes() == runs[1]["beta"].tobytes()
+    assert runs[0]["logz"].tobytes() == runs[1]["logz"].tobytes()

@@ -43,6 +43,10 @@ SUBMODULES = [
     "tempest_tpu_torch.steps.resample",
     "tempest_tpu_torch.steps.reweight",
     "tempest_tpu_torch.student",
+    "tempest_tpu_torch.utils.blobs",
+    "tempest_tpu_torch.utils.checkpoint",
+    "tempest_tpu_torch.utils.host",
+    "tempest_tpu_torch.utils.progress",
     "tempest_tpu_torch.utils.threefry",
     "tempest_tpu_torch.utils.wrappers",
 ]
@@ -128,15 +132,11 @@ def test_defaults_match_jax():
     assert p.get_target_metric() == j.get_target_metric()
 
 
+# The options still refused. Explicit ids keep each case's name stable as
+# options leave this list.
 @pytest.mark.parametrize("kw,item", [
-    (dict(volume_variation=1.0), "queue 1, item 11"),
-    (dict(blob_size=2), "queue 1, item 11"),
-    (dict(host_likelihood=True), "queue 1, item 11"),
-    (dict(pool=2), "queue 1, item 11"),
-    (dict(mesh=object()), "queue 1, item 11"),
-    (dict(dtype=torch.float64), "queue 1, item 11"),
-    (dict(cluster_every=2), "queue 1, item 11"),
-    (dict(vectorize=False), "queue 1, item 11"),
+    pytest.param(dict(mesh=object()), "queue 1, item 11", id="kw4-queue 1, item 11"),
+    pytest.param(dict(dtype=torch.float64), "queue 1, item 11", id="kw5-queue 1, item 11"),
 ])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -183,5 +183,7 @@ def test_sampler_properties_and_single_iterations():
     assert res["beta"].shape == (6,) and res["u"].shape == (6, 16, 3)
     s.reset(random_state=3)
     assert s.state.hist.t == 0 and s.state.cur.iteration == 0
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        s.evidence(n_bootstrap=8)
+    for _ in range(3):
+        s.sample()
+    logz, err = s.evidence(n_bootstrap=8)
+    assert math.isfinite(logz) and math.isfinite(err) and err >= 0.0

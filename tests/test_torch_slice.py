@@ -104,7 +104,7 @@ def test_one_iteration_value_for_value():
 
     cfg = SamplerConfig(prior_transform=_prior, log_likelihood=_loglike_t, n_dim=D4,
                         n_particles=N4, vectorize=True, clustering=False, device="cpu")
-    iteration = make_iteration(cfg, _loglike_t, _prior)
+    iteration = make_iteration(cfg, lambda x: (_loglike_t(x), None), _prior)
     th, tc, _ = iteration(JaxIterationDraws(it_key), th, tc, single_cluster_model(D4, 1))
 
     assert th.t == int(core.hist.t) and tc.iteration == out_j["iter"]
@@ -147,3 +147,127 @@ def test_10d_gaussian_end_to_end(seed):
 
     xs, ws, _ = s.posterior(resample=True)
     assert xs.shape == x.shape and np.allclose(ws, 1.0 / len(ws))
+
+
+# ---------------------------------------------------------------------------
+# Blobs, the refit cadence and the bootstrap error, value for value
+# ---------------------------------------------------------------------------
+def _blob_loglike_j(x):
+    return -0.5 * jnp.sum(x * x), jnp.sum(x), x[0]
+
+
+def _blob_loglike_t(x):
+    return -0.5 * torch.sum(x * x), torch.sum(x), x[0]
+
+
+def _state_fields(core):
+    hist = {k: np.array(getattr(core.hist, k)) for k in interop.HISTORY_FIELDS + ("t", "blobs")
+            if getattr(core.hist, k) is not None}
+    cur = {k: np.array(getattr(core.cur, k))
+           for k in interop.CURRENT_FIELDS + interop.CURRENT_COUNTERS + ("blobs",)
+           if getattr(core.cur, k) is not None}
+    return hist, cur
+
+
+def test_one_iteration_with_blobs_value_for_value():
+    """Per-point functions (the default call form) with two blob values:
+    the blob rows follow resampling and the MCMC accept as in JAX (blobs
+    atol 1e-4, as the particles)."""
+    js = JaxSampler(_prior, _blob_loglike_j, n_dim=D4, n_particles=N4, clustering=False,
+                    random_state=1, history_capacity=16)
+    while js.state.cur.beta == 0.0 or int(js.state.hist.t) < 4:
+        js.sample()
+    core = js.state
+    fields_h, fields_c = _state_fields(core)
+    it_key = jax.random.split(core.key)[1]
+    out_j = js.sample()
+
+    s = Sampler(_prior, _blob_loglike_t, n_dim=D4, n_particles=N4, clustering=False,
+                device="cpu")
+    assert s.state.blob_schema.width == 2 and not s.vectorize
+    iteration = make_iteration(s.state.config, s.state._loglike_batch, s.state._prior_batch)
+    th = interop.history_from_numpy(fields_h, "cpu")
+    tc = interop.current_from_numpy(fields_c, "cpu")
+    th, tc, _ = iteration(JaxIterationDraws(it_key), th, tc, single_cluster_model(D4, 1))
+
+    assert abs(float(tc.beta) - out_j["beta"]) < 1e-5 and tc.steps == out_j["steps"]
+    np.testing.assert_allclose(tc.u.numpy(), out_j["u"], atol=1e-4)
+    np.testing.assert_allclose(tc.blobs.numpy(), np.asarray(core.cur.blobs), atol=1e-4)
+    np.testing.assert_allclose(tc.blobs.numpy(), out_j["blobs"], atol=1e-4)
+    np.testing.assert_allclose(th.blobs.numpy(), np.asarray(core.hist.blobs), atol=1e-4)
+    np.testing.assert_allclose(tc.blobs[:, 0].numpy(), tc.x.sum(dim=1).numpy(), atol=1e-5)
+
+
+D_BI, N_BI = 4, 128
+NORM_BI = -0.5 * D_BI * math.log(2 * math.pi * 0.25)
+
+
+def _bimodal_j(x):
+    a = NORM_BI - 0.5 * jnp.sum((x - 3.0) ** 2, axis=-1) / 0.25
+    b = NORM_BI - 0.5 * jnp.sum((x + 3.0) ** 2, axis=-1) / 0.25
+    return jnp.logaddexp(a, b) - jnp.log(2.0)
+
+
+def _bimodal_t(x):
+    a = NORM_BI - 0.5 * torch.sum((x - 3.0) ** 2, dim=-1) / 0.25
+    b = NORM_BI - 0.5 * torch.sum((x + 3.0) ** 2, dim=-1) / 0.25
+    return torch.logaddexp(a, b) - math.log(2.0)
+
+
+@pytest.mark.parametrize("refit", [False, True])
+def test_one_iteration_cluster_every_3_value_for_value(refit):
+    """cluster_every=3: off the cadence the iteration labels with the model
+    carried from the last fit; on it, it refits (fused.py:149-160). Model,
+    labels and particles as in tests/test_torch_clustered_slice.py."""
+    js = JaxSampler(_prior, _bimodal_j, n_dim=D_BI, n_particles=N_BI, vectorize=True,
+                    clustering=True, k_max=4, cluster_every=3, random_state=0,
+                    history_capacity=16)
+    core = js.state
+    while (int(core._fused_model.n_clusters()) < 2 or int(core.hist.t) < 8
+           or ((int(core.cur.iteration) + 1) % 3 == 0) != refit):
+        js.sample()
+    fields_h, fields_c = _state_fields(core)
+    model_fields = {k: np.array(getattr(core._fused_model, k)) for k in interop.CLUSTER_FIELDS}
+    model_fields.update(normalize=core._fused_model.normalize, fitted=bool(core._fused_fitted))
+    carried = interop.cluster_model_from_numpy(model_fields, "cpu")
+    it_key = jax.random.split(core.key)[1]
+    out_j = js.sample()
+    model_j = core._fused_model
+
+    cfg = SamplerConfig(prior_transform=_prior, log_likelihood=_bimodal_t, n_dim=D_BI,
+                        n_particles=N_BI, vectorize=True, clustering=True, k_max=4,
+                        cluster_every=3, device="cpu")
+    iteration = make_iteration(cfg, lambda x: (_bimodal_t(x), None), _prior)
+    th = interop.history_from_numpy(fields_h, "cpu")
+    tc = interop.current_from_numpy(fields_c, "cpu")
+    th, tc, model_t = iteration(JaxIterationDraws(it_key), th, tc, carried)
+
+    assert (model_t is carried) == (not refit) and model_t.fitted
+    for name in ("centers", "covariances", "weights"):
+        want = np.asarray(getattr(model_j, name))
+        np.testing.assert_allclose(getattr(model_t, name).numpy(), want, rtol=1e-3,
+                                   atol=1e-4 * np.abs(want).max(), err_msg=name)
+    np.testing.assert_array_equal(tc.assignments.numpy(), out_j["assignments"])
+    assert abs(float(tc.beta) - out_j["beta"]) < 1e-5
+    assert abs(float(tc.logz) - out_j["logz"]) < 1e-5
+    np.testing.assert_allclose(tc.u.numpy(), out_j["u"], atol=1e-4)
+
+
+def test_bootstrap_logz_err_on_jax_uniforms():
+    """The block bootstrap fed the JAX uniforms of its key: equal to 1e-5."""
+    from tempest_tpu.state import bootstrap_logz_err as jax_bootstrap
+
+    from tempest_tpu_torch.state import bootstrap_logz_err
+
+    js = JaxSampler(_prior, _loglike_j, n_dim=D4, n_particles=N4, vectorize=True,
+                    clustering=False, random_state=2, history_capacity=16)
+    for _ in range(9):
+        js.sample()
+    hist = js.state.hist
+    key = jax.random.PRNGKey(9)
+    want = float(jax_bootstrap(hist, key, n_bootstrap=64))
+    uniforms = np.array(jax.random.uniform(key, (64, hist.capacity)))
+    th = interop.history_from_numpy(
+        {k: np.array(getattr(hist, k)) for k in interop.HISTORY_FIELDS + ("t",)}, "cpu")
+    got = float(bootstrap_logz_err(th, torch.from_numpy(uniforms)))
+    assert want > 0.0 and abs(got - want) < 1e-5

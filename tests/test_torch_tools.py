@@ -4,7 +4,8 @@ Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: rtol 1e-5 for float32 reductions whose summation order differs;
 exact for the boundary ops (elementwise, same formulas); and at least 99 %
 equal indices for the resamplers, because a cumsum taken in another order
-can move a uniform across a CDF edge.
+can move a uniform across a CDF edge. The port's row-blocked `cumsum`
+against a float64 cumsum: rtol 1e-6.
 """
 
 import jax
@@ -86,6 +87,19 @@ def test_resamplers_fed_jax_uniforms(seed):
     idx_t = tt.systematic_resample(torch.from_numpy(u0), n, torch.from_numpy(w)).numpy()
     assert np.mean(idx_t == idx_j) >= 0.99
     assert np.all(w[idx_t] > 0)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1024, 1025, 4097, 70000, 1100000])
+def test_cumsum_rows(n):
+    # The row scan against a float64 cumsum, relative 1e-6; up to one row
+    # it is torch.cumsum itself.
+    x = np.random.default_rng(n).random(n).astype(np.float32)
+    got = tt.cumsum(torch.from_numpy(x)).numpy()
+    want = np.cumsum(x.astype(np.float64))
+    assert got.shape == (n,) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    if n <= tt.SCAN_ROW:
+        np.testing.assert_array_equal(got, torch.cumsum(torch.from_numpy(x), 0).numpy())
 
 
 def test_volume_variation_dtn():
