@@ -16,7 +16,13 @@ lines and a failure exits non-zero:
     last S held on chip, 393,216; slices streamed from L2: 393,217 and
     B's 1,048,576), two launches giving the same bits, and its times; at
     S = 65,536 and 393,216 both routes through the C entry, giving the same
-    bits, their device times in turns (one pass and a bisection);
+    bits, their device times in turns (one pass and a bisection); then its
+    float64 instantiation at S = 65,536, a ragged S, 196,608 (the last held
+    on chip), 196,609 (the first streamed) and 1,048,576: beta within 1e-12
+    (relative) of the plain version's with the same probes, stay and jump
+    exact, two launches giving the same bits, and its times in turns with
+    the float32 instantiation on the same histories; the bounds count the
+    instructions of exp from the SASS of a probe compiled in phase 2;
  4. the three PRNG kernels against their plain versions on one key and call
     index (mutation draws at (8, 1024, 10), a ragged (8, 1000, 10) and the
     largest fused shape (8, 6553, 10); normal and bits at 2^20 and at B's
@@ -27,7 +33,8 @@ lines and a failure exits non-zero:
  5. the canonical problem unclustered (paired 10-D Rosenbrock, U(-10, 10)
     prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42;
  6. A: the canonical problem at the reference defaults, clustered
-    (k_max=16), hardware_prng=False, seeds 42-44 after a warm-up;
+    (k_max=16), hardware_prng=False, seeds 42 and 43 after a warm-up (seed
+    44 is left out, to keep the whole script near half its time limit);
  7. A again with hardware_prng=True, seed 42: every MCMC step draws through
     the mutation-draws kernel;
  8. B: the large-ensemble hardware_prng configuration of
@@ -54,7 +61,15 @@ lines and a failure exits non-zero:
     unclustered, volume_variation=1.0), seed 42, with logZ inside the anchor
     taken from the JAX package; probes per reweight;
 13. the refit cadence, C with cluster_every=3, and a host likelihood: the
-    10-D Gaussian as a numpy per-point function with host_likelihood=True.
+    10-D Gaussian as a numpy per-point function with host_likelihood=True;
+14. float64: A at dtype=torch.float64 with hardware_prng=True, seed 42 (one
+    float64 ESS launch per reweight and no PRNG launch: the flag does not
+    apply to float64, as in JAX), its wall beside phase 6's seed 42; B at
+    float64 through its first four mutation iterations, and the float64 ESS
+    kernel at its S = 1,048,576 against the plain version; the 4-D Gaussian
+    of tests/test_float64.py with its bars; the mixture facades on the card
+    (GaussianMixture of each covariance type on two blobs,
+    HierarchicalGaussianMixture splitting them, predict_proba summing to 1).
 
 Every path phase sets the kernels' launch counts to 0 just before it
 drives the path and reads them just after. The last three lines are the
@@ -68,7 +83,7 @@ mode under torch.profiler, prints each stage's share and writes the tables
 (by stage range and by kernel) to DIR. `--kernels-only` runs phases 1-4
 and prints their table without driving the paths; with `--package-root
 DIR` it imports `tempest_tpu_torch` from DIR (for instance a `git archive`
-of another commit that has `cuda_reweight.plan_launch`), so two versions
+of another commit whose ESS kernel has its float64 entry), so two versions
 of the kernels can be timed on one card in turns, each in its own process.
 """
 
@@ -104,6 +119,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from tempest_tpu_torch import Sampler  # noqa: E402
+from tempest_tpu_torch.cluster import (  # noqa: E402
+    GaussianMixture,
+    HierarchicalGaussianMixture,
+)
 from tempest_tpu_torch.config import (  # noqa: E402
     ESS_TOLERANCE,
     METRIC_ATOL,
@@ -119,6 +138,7 @@ from tempest_tpu_torch.state import (  # noqa: E402
     make_current,
     make_history,
     mis_denominator,
+    mis_denominator_exact,
 )
 
 N_DIM, N_PARTICLES, N_TOTAL, CAPACITY = 10, 1024, 8192, 64
@@ -135,6 +155,10 @@ CLUSTERED_LOGZ = (-34.98, 1.0)
 # sigma 0.2759 (scripts/rosenbrock10_cv_anchor.py; PERF.md section 2).
 CV_LOGZ = (-51.3169, 1.0)
 GAUSSIAN_LOGZ = (-N_DIM * math.log(20.0), 0.5)  # analytic; tests/test_end_to_end.py
+# tests/test_float64.py: the 4-D Gaussian, logZ within 0.35 of -4 log 20 and
+# the MIS accumulator within 1e-9 of its exact rebuild.
+GAUSSIAN4_LOGZ, MIS_F64_TOL = (-4 * math.log(20.0), 0.35), 1e-9
+BETA_F64_RTOL = 1e-12  # the float64 kernel against its plain version
 BETA_TOL = 2e-3  # the Pallas-vs-XLA drift from summation order (tests/test_pallas.py)
 # A bisection's beta matches the plain version's when both took the same
 # probes and end this close (relative), or when the kernel's beta meets the
@@ -152,13 +176,16 @@ B_PARTICLES, B_CAPACITY, B_MUTATIONS = 131072, 8, 4
 HBM_BYTES_PER_S = 3.35e12
 SM_CLOCKS_PER_S = 132 * 1.98e9
 ISSUE_PER_SM_CLOCK, INT32_PER_SM_CLOCK = 128, 64
+# FP64 outside the tensor cores: 34 TFLOP/s (the data sheet), 64 lanes an SM
+# and clock, half the float32 rate.
+FP64_PER_SM_CLOCK = 64
 # Instruction counts for the bounds, as (32-bit integer, float32), estimated
 # low. A Philox4x32-10 block: 10 rounds of 2 wide 32x32 products and 2
 # three-input xors, 2 key additions in 9 of them. A word to (0, 1]: a shift
 # and an or, then one subtraction. CUDA's precise float32 functions as
 # sequences of about this many instructions:
 PHILOX_INT, UNIT = 58, (2, 1)
-LOGF, SQRTF, SINCOSF, COSF, POWF, EXPF, DIVF = 18, 7, 28, 20, 40, 8, 8
+LOGF, SQRTF, SINCOSF, COSF, POWF, DIVF = 18, 7, 28, 20, 40, 8
 # 4 normals from one block: 4 unit maps, 2 x (log, sqrt, sincos, 4 products).
 NORMAL_BLOCK = (PHILOX_INT + 4 * UNIT[0], 4 * UNIT[1] + 2 * (LOGF + SQRTF + SINCOSF + 4))
 # One Marsaglia-Tsang round: its block, 3 unit maps, a cos-only normal, the
@@ -168,8 +195,12 @@ MT_ROUND = (PHILOX_INT + 3 * UNIT[0], 3 * UNIT[1] + 3 * LOGF + SQRTF + COSF + 17
 # set-up (sqrt, a division), the boost (a division, a power) and 6 more ops.
 WALKER_EXTRA = (PHILOX_INT + 2 * UNIT[0], 2 * UNIT[1] + SQRTF + 2 * DIVF + POWF + 6)
 # The ESS kernel, per sample and probe: the finite tests, beta * logl - Bm,
-# one exp, the running max and the two sums; the loop's index.
-ESS_SAMPLE_PROBE = (2, EXPF + 6)
+# one exp, the running max and the two sums; the loop's index. The exp's own
+# instructions are counted from the SASS of a probe built in phase 2
+# (`sass_exp_counts`) for float32 and float64; ESS_SAMPLE_PROBE then holds
+# (32-bit integer, float32, float64) instructions for each.
+ESS_SAMPLE_OTHER = (2, 6)
+ESS_SAMPLE_PROBE = {}
 
 
 def fail(msg: str) -> None:
@@ -234,12 +265,14 @@ def bimodal(x):
 # ---------------------------------------------------------------------------
 def reset_counts() -> None:
     cuda_reweight.LAUNCHES = 0
+    cuda_reweight.LAUNCHES_F64 = 0
     for name in cuda_prng.LAUNCHES:
         cuda_prng.LAUNCHES[name] = 0
 
 
 def counts() -> dict:
-    return {"ess_bisect": cuda_reweight.LAUNCHES, **cuda_prng.LAUNCHES}
+    return {"ess_bisect": cuda_reweight.LAUNCHES, "ess_bisect_f64": cuda_reweight.LAUNCHES_F64,
+            **cuda_prng.LAUNCHES}
 
 
 def diff(after: dict, before: dict) -> dict:
@@ -356,18 +389,94 @@ def call_split(name: str, fn, library, entry: str, kernel: str, rounds: int = 5,
     return out
 
 
-def bound(n_bytes: float, n_int: float, n_f32: float):
-    """(least ms, what bounds it) for the bytes moved and the 32-bit integer
-    and float32 instructions issued, over the whole card."""
+def bound(n_bytes: float, n_int: float, n_f32: float, n_f64: float = 0.0):
+    """(least ms, what bounds it) for the bytes moved and the 32-bit integer,
+    float32 and float64 instructions issued, over the whole card."""
     t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
-    sm_clocks = max(n_int / INT32_PER_SM_CLOCK, (n_int + n_f32) / ISSUE_PER_SM_CLOCK)
+    sm_clocks = max(n_int / INT32_PER_SM_CLOCK, n_f64 / FP64_PER_SM_CLOCK,
+                    (n_int + n_f32 + n_f64) / ISSUE_PER_SM_CLOCK)
     t_ops = 1e3 * sm_clocks / SM_CLOCKS_PER_S
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def work(*terms):
-    """(integer, float32) instruction totals of (count, (int, f32)) terms."""
-    return tuple(sum(n * per[i] for n, per in terms) for i in (0, 1))
+    """(integer, float32, float64) instruction totals of (count, (int, f32[,
+    f64])) terms."""
+    return tuple(sum(n * (tuple(per) + (0, 0))[i] for n, per in terms) for i in (0, 1, 2))
+
+
+# ---------------------------------------------------------------------------
+# The instructions of exp, from the SASS
+# ---------------------------------------------------------------------------
+SASS_PROBE = r'''
+#define I (blockIdx.x * blockDim.x + threadIdx.x)
+extern "C" __global__ void copy_f32(const float* x, float* y) { y[I] = x[I]; }
+extern "C" __global__ void exp_f32(const float* x, float* y) { y[I] = expf(x[I]); }
+extern "C" __global__ void copy_f64(const double* x, double* y) { y[I] = x[I]; }
+extern "C" __global__ void exp_f64(const double* x, double* y) { y[I] = exp(x[I]); }
+'''
+# Moves of constants (hoisted out of a loop), uniform-datapath, control and
+# memory instructions: not counted as a sample's arithmetic.
+_SASS_SKIP = ("MOV", "IMAD.MOV", "UMOV", "HFMA2.MMA", "S2R", "S2UR", "LDC", "ULDC", "LDG", "STG",
+              "EXIT", "BRA", "NOP", "BSSY", "BSYNC")
+
+
+def _sass_class(op: str) -> int:
+    """0: 32-bit integer, 1: float32 (with MUFU), 2: float64 pipe."""
+    if op[0] == "D" or op.startswith(("F2F.F64", "I2F.F64", "F2I.F64", "MUFU.RCP64", "MUFU.RSQ64")):
+        return 2
+    if op.startswith(("F", "MUFU", "HFMA", "HADD", "HMUL")):
+        return 1
+    return 0
+
+
+def _sass_functions(text: str) -> dict:
+    """name -> opcodes of each function of a `cuobjdump -sass` listing,
+    predicated instructions kept with their guard."""
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            out[name] = []
+        elif name and line.strip().startswith("/*") and "*/" in line:
+            body = line.split("*/", 1)[1].split(";")[0].strip()
+            if body:
+                out[name].append(body)
+    return out
+
+
+def _fast_path(instrs: list) -> list:
+    """The straight-line path of a probe: up to its first branch, then on
+    from where the branches join (BSYNC); the rarely taken block between
+    them (exp's overflow and underflow scaling) is left out."""
+    for i, ins in enumerate(instrs):
+        if " BRA" in f" {ins}" and ins.startswith("@"):
+            join = next(j for j in range(i, len(instrs)) if instrs[j].startswith("BSYNC"))
+            return instrs[:i] + instrs[join:]
+    return instrs
+
+
+def _counts(instrs: list) -> list:
+    c = [0, 0, 0]
+    for ins in _fast_path(instrs):
+        op = ins.split()[0]
+        if op.startswith("@"):
+            continue
+        if op.startswith(_SASS_SKIP) or op.startswith("U"):
+            continue
+        c[_sass_class(op)] += 1
+    return c
+
+
+def sass_exp_counts(sass: str) -> dict:
+    """(int, f32, f64) instructions of one exp in float32 and float64: the
+    exp probe's arithmetic less the copy probe's, from their SASS."""
+    fns = _sass_functions(sass)
+    out = {}
+    for t in ("f32", "f64"):
+        e, c = _counts(fns[f"exp_{t}"]), _counts(fns[f"copy_{t}"])
+        out[t] = tuple(max(a - b, 0) for a, b in zip(e, c))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -386,17 +495,39 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """Both kernel libraries, and beside them the SASS probe whose exp
+    counts set ESS_SAMPLE_PROBE."""
     t0 = time.perf_counter()
+    nvcc = _build._nvcc()
+    tmp = tempfile.mkdtemp(prefix="sass_probe_")
+    src, cubin = os.path.join(tmp, "probe.cu"), os.path.join(tmp, "probe.cubin")
+    with open(src, "w") as f:
+        f.write(SASS_PROBE)
+    probe = subprocess.Popen([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                              "-o", cubin, src], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
     libs = (cuda_reweight.LIBRARY, cuda_prng.LIBRARY)
     paths = _build.build_all(libs)
     for lib in libs:
         _build.load(lib)
+    _, err = probe.communicate()
+    check(probe.returncode == 0, f"SASS probe build failed: {err}")
+    dump = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
+                          capture_output=True, text=True, timeout=120)
+    check(dump.returncode == 0, f"cuobjdump failed: {dump.stderr}")
+    exp = sass_exp_counts(dump.stdout)
+    for t, (i, f, d) in exp.items():
+        ESS_SAMPLE_PROBE[t] = (ESS_SAMPLE_OTHER[0] + i, f + (ESS_SAMPLE_OTHER[1] if t == "f32" else 0),
+                               d + (ESS_SAMPLE_OTHER[1] if t == "f64" else 0))
     names = " ".join(p.name for p in paths.values())
     print(f"build: {names} in {time.perf_counter() - t0:.3f} s (one nvcc per source, in parallel)",
           flush=True)
+    print(f"SASS of exp (32-bit integer, float32, float64 instructions of its straight-line path, "
+          f"sm_90a): float32 {exp['f32']}, float64 {exp['f64']}; the ESS kernel per sample and "
+          f"probe: {ESS_SAMPLE_PROBE}", flush=True)
 
 
-def synthetic_history(device, n_particles, capacity, t_fill, seed):
+def synthetic_history(device, n_particles, capacity, t_fill, seed, dtype=torch.float32):
     """A mid-run history: t_fill of `capacity` slots filled along the ESS
     ladder (target 2N) of a narrow 10-D Gaussian (sd 0.05) under the
     U(-10, 10) prior. Each iteration's particles are exact draws from the
@@ -404,23 +535,25 @@ def synthetic_history(device, n_particles, capacity, t_fill, seed):
     logZ the estimate at that beta, as the sampler commits them."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    hist = make_history(capacity, n_particles, N_DIM, device=device)
-    cur = make_current(n_particles, N_DIM, device=device)
+    hist = make_history(capacity, n_particles, N_DIM, dtype=dtype, device=device)
+    cur = make_current(n_particles, N_DIM, dtype=dtype, device=device)
     sd = 0.05
     for t in range(t_fill):
         if t > 0:
             denom = mis_denominator(hist)
             bm = torch.where(hist.sample_mask(), denom, torch.full_like(denom, float("inf")))
-            scal = torch.stack([cur.beta, torch.tensor(2.0 * n_particles, device=device)])
+            scal = torch.stack([cur.beta, torch.tensor(2.0 * n_particles, dtype=dtype,
+                                                       device=device)])
             beta, _ = cuda_reweight.ess_bisect_beta_reference(
                 hist.logl.reshape(-1), bm.reshape(-1), scal)
             cur.beta = beta[0]
             cur.logz = logw_from_denominator(hist, denom, cur.beta)[1]
         beta = float(cur.beta)
+        shape = (n_particles, N_DIM)
         if beta == 0.0:
-            x = 20.0 * torch.rand((n_particles, N_DIM), generator=g, device=device) - 10.0
+            x = 20.0 * torch.rand(shape, generator=g, dtype=dtype, device=device) - 10.0
         else:
-            x = sd / math.sqrt(beta) * torch.randn((n_particles, N_DIM), generator=g, device=device)
+            x = sd / math.sqrt(beta) * torch.randn(shape, generator=g, dtype=dtype, device=device)
             x = x.clamp(-10.0, 10.0)
         cur.logl = -0.5 * torch.sum(x * x, dim=-1) / sd**2
         commit(hist, cur)
@@ -455,8 +588,8 @@ def check_beta(what: str, logl, bm, bp: float, target: float, bk: float, pk: int
           f"{what}: kernel {bk} ({pk} probes) vs plain {br} ({pr} probes), beta_prev {bp}")
 
 
-def _route(S: int) -> str:
-    plan = cuda_reweight.plan_launch(S)
+def _route(S: int, dtype=torch.float32) -> str:
+    plan = cuda_reweight.plan_launch(S, dtype)
     where = "shared memory" if plan.resident else "streamed from L2"
     return f"cluster {plan.cluster} x slice {plan.slice}, {where}"
 
@@ -581,7 +714,7 @@ def phase_ess_kernel(device) -> dict:
                 logl, bm, scal)}, calls=TIMED_CALLS if S <= 65536 else 10))
             dev = device_ms(kernel, "ess_bisect")
             # logl and Bm read once, scal read, beta and the probe count written.
-            b_ms, b_by = bound(8 * S + 16, *work((S * probes, ESS_SAMPLE_PROBE)))
+            b_ms, b_by = bound(8 * S + 16, *work((S * probes, ESS_SAMPLE_PROBE["f32"])))
             shapes[S] = dict(probes=probes, route=_route(S), ms=t["kernel"], device_ms=dev,
                              plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by)
             print(f"ess kernel timing S={S} ({label}, {probes} probes, {_route(S)}): kernel call "
@@ -594,6 +727,94 @@ def phase_ess_kernel(device) -> dict:
     row["max_abs_err"] = max_err
     row["shapes"] = shapes
     row["routes"] = routes
+    return row
+
+
+# (label, n_particles, capacity, t_fill, the S prefixes checked, the S timed)
+ESS_SHAPES_F64 = (
+    ("canonical", 1024, 64, 40, (65536,), 65536),
+    ("ragged", 1000, 61, 33, (61000,), None),
+    ("float64 on-chip boundary", 24577, 8, 8, (196608, 196609), 196609),
+    ("B", 131072, 8, 8, (1048576,), 1048576),
+)
+
+
+def check_beta_f64(what: str, bk: float, pk: int, br: float, pr: int) -> None:
+    """The float64 kernel's (beta, probes) against the plain version's: the
+    same probes; stay and jump exact, a bisection within BETA_F64_RTOL."""
+    ok = bk == br if pr == 2 else abs(bk - br) <= BETA_F64_RTOL * abs(br)
+    check(pk == pr and ok, f"{what}: float64 kernel {bk!r} ({pk} probes) vs plain {br!r} "
+          f"({pr} probes)")
+
+
+def phase_ess_kernel_f64(device) -> dict:
+    """The float64 instantiation against its plain version on both routes,
+    the same bits on a second launch, and its times in turns with the
+    float32 instantiation on the same history cast to float32."""
+    f64 = torch.float64
+    max_err, row, shapes = 0.0, None, {}
+    for label, n_particles, capacity, t_fill, prefixes, timed in ESS_SHAPES_F64:
+        hist = synthetic_history(device, n_particles, capacity, t_fill, seed=capacity, dtype=f64)
+        _, logl_all, bm_all = kernel_inputs(hist)
+        beta_prev = float(hist.beta[t_fill // 2])
+        for S in prefixes:
+            logl, bm = logl_all[:S], bm_all[:S]
+            route = _route(S, f64)
+            ess_cur, ess_one = ess_of(logl, bm, beta_prev), ess_of(logl, bm, 1.0)
+            check(ess_cur > ess_one, f"float64 S={S}: synthetic ladder gives ESS {ess_cur} <= "
+                  f"{ess_one}")
+            cases = [("stay", beta_prev, 1.5 * ess_cur), ("jump", beta_prev, 0.5 * ess_one),
+                     ("bisect", beta_prev, math.sqrt(ess_cur * ess_one)),
+                     ("bisect", 0.0, 2.0 * n_particles), ("bisect", beta_prev, 0.9 * ess_cur)]
+            for kind, bp, target in cases:
+                scal = torch.tensor([bp, target], dtype=f64, device=device)
+                beta_k, probes_k = cuda_reweight.ess_bisect_beta(logl, bm, scal)
+                again, _ = cuda_reweight.ess_bisect_beta(logl, bm, scal)
+                beta_r, probes_r = cuda_reweight.ess_bisect_beta_reference(logl, bm, scal)
+                torch.cuda.synchronize()
+                bk, br, pk, pr = beta_k.item(), beta_r.item(), probes_k.item(), probes_r.item()
+                check(beta_k.dtype == f64 and torch.equal(beta_k.view(torch.int64),
+                                                          again.view(torch.int64)),
+                      f"float64 S={S} {kind}: two launches differ")
+                check((pr > 2) == (kind == "bisect"), f"float64 S={S} {kind}: the plain version "
+                      f"took {pr} probes")
+                check_beta_f64(f"float64 S={S} {kind}", bk, pk, br, pr)
+                max_err = max(max_err, abs(bk - br))
+                print(f"ess kernel float64 S={S} [{route}] {kind}: beta_prev={bp:.6g} "
+                      f"target={target:.6g} kernel={bk:.15f} ({pk} probes) plain={br:.15f} "
+                      f"({pr} probes)", flush=True)
+            if S != timed:
+                continue
+            scal = torch.tensor([beta_prev, math.sqrt(ess_cur * ess_one)], dtype=f64,
+                                device=device)
+            l32, b32, s32 = logl.float(), bm.float(), scal.float()
+            probes = int(cuda_reweight.ess_bisect_beta_reference(logl, bm, scal)[1].item())
+            probes32 = int(cuda_reweight.ess_bisect_beta(l32, b32, s32)[1].item())
+            fns = {"f64": lambda: cuda_reweight.ess_bisect_beta(logl, bm, scal),
+                   "f32": lambda: cuda_reweight.ess_bisect_beta(l32, b32, s32)}
+            t = timed_in_turns(fns)
+            t.update(timed_in_turns({"plain": lambda: cuda_reweight.ess_bisect_beta_reference(
+                logl, bm, scal)}, calls=TIMED_CALLS if S <= 65536 else 10))
+            dev = {"f64": [], "f32": []}
+            for k in ("f64", "f32", "f32", "f64"):
+                dev[k].append(device_ms(fns[k], "ess_bisect"))
+            # logl and Bm read once, scal read, beta and the probe count written.
+            b_ms, b_by = bound(16 * S + 28, *work((S * probes, ESS_SAMPLE_PROBE["f64"])))
+            shapes[S] = dict(probes=probes, route=route, ms=t["f64"], device_ms=min(dev["f64"]),
+                             device_ms_turns=dev["f64"], plain_ms=t["plain"], bound_ms=b_ms,
+                             bound_by=b_by, f32_probes=probes32, f32_ms=t["f32"],
+                             f32_device_ms=min(dev["f32"]), f32_device_ms_turns=dev["f32"])
+            print(f"ess kernel float64 timing S={S} ({label}, {probes} probes, {route}): call "
+                  f"{t['f64']:.4f} ms, device {dev['f64'][0]:.4f} / {dev['f64'][1]:.4f} ms; "
+                  f"float32 instantiation on the same history cast ({probes32} probes): call "
+                  f"{t['f32']:.4f} ms, device {dev['f32'][0]:.4f} / {dev['f32'][1]:.4f} ms "
+                  f"(device in turns f64, f32, f32, f64); plain {t['plain']:.4f} ms; bound "
+                  f"{b_ms:.5f} ms ({b_by})", flush=True)
+            if S == CAPACITY * N_PARTICLES:
+                row = dict(shapes[S], library_ms=None)
+    check(row is not None, "no float64 timing at S = 65,536")
+    row["max_abs_err"] = max_err
+    row["shapes"] = shapes
     return row
 
 
@@ -831,10 +1052,10 @@ def launch_floor(device) -> dict:
 # ---------------------------------------------------------------------------
 # Phases 5-10: the paths
 # ---------------------------------------------------------------------------
-def canonical_sampler(device, seed, clustering, hardware_prng=False):
+def canonical_sampler(device, seed, clustering, hardware_prng=False, dtype=torch.float32):
     return Sampler(prior_transform, rosenbrock, n_dim=N_DIM, n_particles=N_PARTICLES,
                    vectorize=True, clustering=clustering, hardware_prng=hardware_prng,
-                   history_capacity=CAPACITY, random_state=seed, device=device)
+                   history_capacity=CAPACITY, random_state=seed, dtype=dtype, device=device)
 
 
 def mcmc_steps(s) -> int:
@@ -843,8 +1064,16 @@ def mcmc_steps(s) -> int:
     return int(res["steps"][res["beta"] > 0].sum())
 
 
-def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band) -> dict:
-    s = canonical_sampler(device, 7, clustering, hardware_prng)
+def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
+                  dtype=torch.float32) -> dict:
+    """Seeds of A (or the unclustered problem) after a warm-up: each in the
+    band, one launch of the ESS kernel of its dtype per reweight, and the
+    mutation-draws kernel once per MCMC step where it applies
+    (hardware_prng with float32); no other kernel."""
+    s = canonical_sampler(device, 7, clustering, hardware_prng, dtype)
+    ess_key, other = ("ess_bisect_f64", "ess_bisect") if dtype == torch.float64 else (
+        "ess_bisect", "ess_bisect_f64")
+    draws_kernel = hardware_prng and dtype == torch.float32
     for _ in range(8):  # warm-up: allocator, libraries, kernels, a clustered fit
         s.sample()
     reset_counts()
@@ -872,15 +1101,15 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band) -> 
         check(ess >= N_TOTAL, f"{name} seed {seed}: posterior ESS {ess} < {N_TOTAL}")
         check(abs(logz - logz_band[0]) <= logz_band[1],
               f"{name} seed {seed}: logZ {logz} outside {logz_band[0]} +/- {logz_band[1]}")
-        check(launched["ess_bisect"] == iters - 1,
-              f"{name} seed {seed}: {launched['ess_bisect']} ESS launches for {iters - 1} "
-              "reweights at t >= 1")
-        if hardware_prng:
+        check(launched[ess_key] == iters - 1 and launched[other] == 0,
+              f"{name} seed {seed}: {launched[ess_key]} {ess_key} launches for {iters - 1} "
+              f"reweights at t >= 1, {launched[other]} {other}")
+        if draws_kernel:
             check(launched["mutation_draws"] == steps,
                   f"{name} seed {seed}: {launched['mutation_draws']} mutation-draws launches "
                   f"for {steps} MCMC steps")
         check(launched["normal"] == 0 and launched["bits"] == 0
-              and (hardware_prng or launched["mutation_draws"] == 0),
+              and (draws_kernel or launched["mutation_draws"] == 0),
               f"{name} seed {seed}: unexpected PRNG launches {launched}")
     total = counts()
     print(f"{name}: mean wall {sum(walls) / len(walls):.3f} s, mean eff/s "
@@ -888,15 +1117,19 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band) -> 
     return total, dict(zip(seeds, walls))
 
 
-def phase_large_ensemble(device) -> dict:
-    """B: the first four mutation iterations at N = 131,072."""
+def phase_large_ensemble(device, dtype=torch.float32) -> dict:
+    """B: the first four mutation iterations at N = 131,072; in float64 no
+    PRNG kernel runs (hardware_prng does not apply) and the ESS kernel is
+    the float64 one."""
+    f64 = dtype == torch.float64
+    name = "B float64" if f64 else "B"
     s = Sampler(prior_transform, half_square, n_dim=N_DIM, n_particles=B_PARTICLES,
                 vectorize=True, clustering=False, hardware_prng=True,
-                history_capacity=B_CAPACITY, random_state=42, device=device)
+                history_capacity=B_CAPACITY, random_state=42, dtype=dtype, device=device)
     reset_counts()
     betas, mutations, iters = [], 0, 0
     while mutations < B_MUTATIONS:
-        check(iters < B_CAPACITY, f"B: {iters} iterations and only {mutations} mutations")
+        check(iters < B_CAPACITY, f"{name}: {iters} iterations and only {mutations} mutations")
         before = counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -905,52 +1138,62 @@ def phase_large_ensemble(device) -> dict:
         wall = time.perf_counter() - t0
         iters += 1
         launched = diff(counts(), before)
-        print(f"B iteration {out['iter']}: {wall:.3f} s beta={out['beta']:.6g} "
+        print(f"{name} iteration {out['iter']}: {wall:.3f} s beta={out['beta']:.6g} "
               f"steps={out['steps']} acceptance={out['acceptance']:.4f} launches={launched}",
               flush=True)
         if out["beta"] > 0.0:
             mutations += 1
             steps = out["steps"]
-            check(launched["normal"] == 7 * steps and launched["bits"] == 7 * steps
-                  and launched["mutation_draws"] == 0,
-                  f"B: launches {launched} for {steps} MCMC steps (want 7 + 7 per step)")
-            check(out["acceptance"] > 0.1, f"B: acceptance {out['acceptance']}")
-            check(not betas or out["beta"] > betas[-1], f"B: beta did not rise: {betas}")
+            if f64:
+                check(launched["normal"] == launched["bits"] == launched["mutation_draws"] == 0,
+                      f"{name}: PRNG launches {launched} (hardware_prng does not apply)")
+            else:
+                check(launched["normal"] == 7 * steps and launched["bits"] == 7 * steps
+                      and launched["mutation_draws"] == 0,
+                      f"B: launches {launched} for {steps} MCMC steps (want 7 + 7 per step)")
+            check(out["acceptance"] > 0.1, f"{name}: acceptance {out['acceptance']}")
+            check(not betas or out["beta"] > betas[-1], f"{name}: beta did not rise: {betas}")
             betas.append(out["beta"])
     total = counts()
+    errs = {}
 
-    # The normal kernel at this path's R*N*d (several grid-stride passes per
-    # thread) against its plain version.
-    z_shape = (N_PROPOSAL_CANDIDATES, B_PARTICLES, N_DIM)
-    n_z = math.prod(z_shape)
-    key = philox.key_from_seed(2024)
-    z = cuda_prng.hw_normal(key, 20, z_shape, device).reshape(-1)
-    err_n = float(torch.max(torch.abs(z - philox.normal(key, 20, n_z, device))))
-    print(f"B: normal kernel at n={n_z}: max|dz|={err_n:.3g} against its plain version",
-          flush=True)
-    check(err_n <= DRAW_TOL, f"B: normal kernel differs from plain by {err_n} at n={n_z}")
+    if not f64:
+        # The normal kernel at this path's R*N*d (several grid-stride passes
+        # per thread) against its plain version.
+        z_shape = (N_PROPOSAL_CANDIDATES, B_PARTICLES, N_DIM)
+        n_z = math.prod(z_shape)
+        key = philox.key_from_seed(2024)
+        z = cuda_prng.hw_normal(key, 20, z_shape, device).reshape(-1)
+        err_n = float(torch.max(torch.abs(z - philox.normal(key, 20, n_z, device))))
+        print(f"B: normal kernel at n={n_z}: max|dz|={err_n:.3g} against its plain version",
+              flush=True)
+        check(err_n <= DRAW_TOL, f"B: normal kernel differs from plain by {err_n} at n={n_z}")
+        errs["normal"] = err_n
 
     # The ESS kernel at the S this history reached, against its plain version.
     hist = s.state.hist
     _, logl, bm = kernel_inputs(hist)
     S = logl.numel()
     beta_prev = float(s.state.cur.beta)
-    scal = torch.tensor([beta_prev, 2.0 * B_PARTICLES], device=device)
+    scal = torch.tensor([beta_prev, 2.0 * B_PARTICLES], dtype=dtype, device=device)
     beta_k, probes_k = cuda_reweight.ess_bisect_beta(logl, bm, scal)
     beta_r, probes_r = cuda_reweight.ess_bisect_beta_reference(logl, bm, scal)
     bk, br, probes = beta_k.item(), beta_r.item(), int(probes_k.item())
-    err_b = abs(bk - br)
-    print(f"B: ESS kernel at S={S}: beta_prev={beta_prev:.6g} kernel={bk:.7f} ({probes} probes) "
-          f"plain={br:.7f} ({probes_r.item()} probes)", flush=True)
-    check_beta(f"B: ESS kernel at S={S}", logl, bm, beta_prev, 2.0 * B_PARTICLES, bk, probes, br,
-               int(probes_r.item()))
+    print(f"{name}: ESS kernel at S={S} [{_route(S, dtype)}]: beta_prev={beta_prev:.6g} "
+          f"kernel={bk!r} ({probes} probes) plain={br!r} ({probes_r.item()} probes)", flush=True)
+    if f64:
+        check_beta_f64(f"{name}: ESS kernel at S={S}", bk, probes, br, int(probes_r.item()))
+    else:
+        check_beta(f"B: ESS kernel at S={S}", logl, bm, beta_prev, 2.0 * B_PARTICLES, bk, probes,
+                   br, int(probes_r.item()))
+    errs["ess_bisect_f64" if f64 else "ess_bisect"] = abs(bk - br)
     t = timed_in_turns({
         "kernel": lambda: cuda_reweight.ess_bisect_beta(logl, bm, scal),
         "plain": lambda: cuda_reweight.ess_bisect_beta_reference(logl, bm, scal),
     }, calls=10)
-    print(f"B: ESS kernel at S={S} (t={hist.t}, {probes} probes): kernel {t['kernel']:.4f} ms, "
+    print(f"{name}: ESS kernel at S={S} (t={hist.t}, {probes} probes): kernel {t['kernel']:.4f} ms, "
           f"plain {t['plain']:.4f} ms (median of 10); launches {total}", flush=True)
-    return total, {"normal": err_n, "ess_bisect": err_b}
+    return total, errs
 
 
 def phase_bimodal(device) -> dict:
@@ -1197,6 +1440,92 @@ def phase_cadence_and_host(device) -> dict:
     return {"cadence": cadence, "host": host}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: float64 and the mixture facades
+# ---------------------------------------------------------------------------
+def gaussian4(x):
+    return -0.5 * torch.sum(x * x, dim=-1) - 0.5 * 4 * math.log(2 * math.pi)
+
+
+def phase_float64_gaussian(device) -> dict:
+    """tests/test_float64.py's run on the card: the 4-D Gaussian in float64."""
+    s = Sampler(prior_transform, gaussian4, n_dim=4, n_particles=256, vectorize=True,
+                clustering=False, random_state=1, dtype=torch.float64, device=device)
+    reset_counts()
+    s.run(n_total=1024, progress=False)
+    launched = counts()
+    hist = s.state.hist
+    valid = hist.sample_mask()
+    mis_err = float(torch.max(torch.abs(mis_denominator(hist) - mis_denominator_exact(hist))[valid]))
+    logz = s.evidence()[0]
+    print(f"float64 4-D Gaussian: logz={logz:.6f} (analytic {GAUSSIAN4_LOGZ[0]:.6f}) "
+          f"beta={s.beta:.6f} iters={hist.t} MIS accumulator max error {mis_err:.3g} "
+          f"dtype={hist.logl.dtype} launches={launched}", flush=True)
+    check(hist.logl.dtype == torch.float64 and s.beta > 0.99, "float64 Gaussian: dtype or beta")
+    check(abs(logz - GAUSSIAN4_LOGZ[0]) < GAUSSIAN4_LOGZ[1], f"float64 Gaussian: logZ {logz}")
+    check(mis_err < MIS_F64_TOL, f"float64 Gaussian: MIS accumulator error {mis_err}")
+    check(launched["ess_bisect_f64"] == hist.t - 1 and launched["ess_bisect"] == 0,
+          f"float64 Gaussian: launches {launched} for {hist.t - 1} reweights")
+    return launched
+
+
+def two_blobs(n=200, sep=4.0, seed=0, d=2):
+    rng = np.random.default_rng(seed)
+    return np.concatenate([rng.standard_normal((n, d)) * 0.3,
+                           rng.standard_normal((n, d)) * 0.3 + sep])
+
+
+def phase_facades(device) -> dict:
+    """GaussianMixture of each covariance type on two blobs (n_init 1 and 4),
+    one in float64, and HierarchicalGaussianMixture splitting them, on the
+    card; the facades are plain PyTorch (no kernel, as JAX runs them in XLA)."""
+    reset_counts()
+    X = two_blobs(seed=11)
+    t0 = time.perf_counter()
+    for ctype in ("full", "tied", "diag", "spherical"):
+        for n_init in (1, 4):
+            g = GaussianMixture(n_components=2, covariance_type=ctype, n_init=n_init,
+                                random_state=1, device=device).fit(X)
+            labels = g.predict(X)
+            means = np.sort(g.means_[:, 0])
+            print(f"GaussianMixture {ctype} n_init={n_init}: means {means.round(4).tolist()} "
+                  f"weights {g.weights_.round(4).tolist()} n_iter={g.n_iter_} bic={g.bic(X):.4f}",
+                  flush=True)
+            check(isinstance(g.covariances_, np.ndarray) and g.covariances_.shape == (2, 2, 2),
+                  f"GaussianMixture {ctype}: covariances {type(g.covariances_)}")
+            check(np.allclose(means, [0.0, 4.0], atol=0.3) and g.converged_,
+                  f"GaussianMixture {ctype}: means {means}")
+            check(len(set(labels[:200])) == 1 and len(set(labels[200:])) == 1
+                  and labels[0] != labels[-1], f"GaussianMixture {ctype}: labels do not separate")
+    g = GaussianMixture(n_components=2, random_state=1, device=device, dtype=torch.float64).fit(X)
+    check(g.means_.dtype == np.float64 and np.allclose(np.sort(g.means_[:, 0]), [0.0, 4.0],
+                                                       atol=0.3), "GaussianMixture float64")
+    Xh = two_blobs(seed=12, sep=8.0)
+    h = HierarchicalGaussianMixture(k_max=8, device=device).fit(Xh)
+    proba = h.predict_proba(Xh)
+    err = float(np.max(np.abs(proba.sum(axis=1) - 1.0)))
+    wall = time.perf_counter() - t0
+    print(f"HierarchicalGaussianMixture: K={h.n_clusters_} predict_proba {proba.shape}, max "
+          f"|sum - 1| {err:.3g}; facades wall {wall:.3f} s, launches {counts()}", flush=True)
+    check(h.n_clusters_ == 2 and proba.shape == (400, 2) and err < 1e-4,
+          f"HierarchicalGaussianMixture: K={h.n_clusters_}, proba {proba.shape}, err {err}")
+    check(abs(h.labels_[:200].mean() - h.labels_[200:].mean()) > 0.9, "HGM labels")
+    return counts()
+
+
+def phase_float64(device, walls32: dict) -> dict:
+    """14: A and B in float64, the 4-D Gaussian, the facades."""
+    paths = {}
+    paths["A_float64"], walls = run_canonical(
+        device, "A float64 hardware_prng", SEEDS[:1], True, True, CLUSTERED_LOGZ, torch.float64)
+    print(f"A seed {SEEDS[0]}: float64 wall {walls[SEEDS[0]]:.3f} s against float32 (phase 6) "
+          f"{walls32[SEEDS[0]]:.3f} s in this run", flush=True)
+    paths["B_float64"], errs = phase_large_ensemble(device, torch.float64)
+    paths["gaussian4_float64"] = phase_float64_gaussian(device)
+    paths["facades"] = phase_facades(device)
+    return paths, errs
+
+
 def profile_iterations(s, name: str, out_dir: str) -> None:
     """Profile iterations 21-25 of sampler `s`: each stage's host time and
     share of the wall, the device's self time and idle share; the tables
@@ -1244,9 +1573,14 @@ def phase_profile(device, out_dir: str) -> None:
                 random_state=SEEDS[0], device=device), "dynamic_rosenbrock10_cv", out_dir)
 
 
-SOURCES = {"ess_bisect": "tempest_tpu_torch/csrc/ess_bisect.cu"}
+SOURCES = {"ess_bisect": "tempest_tpu_torch/csrc/ess_bisect.cu",
+           "ess_bisect_f64": "tempest_tpu_torch/csrc/ess_bisect.cu"}
+KERNELS = ("ess_bisect", "ess_bisect_f64", "mutation_draws", "normal", "bits")
 REPLACES = {
     "ess_bisect": "tempest_tpu/ops/pallas_reweight.py:55",
+    # JAX gates its Pallas kernel to float32 (pallas_reweight.py:42-44) and
+    # runs XLA's float64 bisection; the port's float64 kernel stands for both.
+    "ess_bisect_f64": "tempest_tpu/ops/pallas_reweight.py:55",
     "mutation_draws": "tempest_tpu/ops/pallas_prng.py:159",
     "normal": "tempest_tpu/ops/pallas_prng.py:83",
     "bits": "tempest_tpu/ops/pallas_prng.py:108",
@@ -1255,7 +1589,7 @@ REPLACES = {
 
 def kernel_table(rows: dict, launches: dict, floor: dict, split: dict, paths=None) -> list:
     table = []
-    for name in ("ess_bisect", "mutation_draws", "normal", "bits"):
+    for name in KERNELS:
         row = rows[name]
         table.append({
             "name": name, "route": "cuda",
@@ -1265,7 +1599,7 @@ def kernel_table(rows: dict, launches: dict, floor: dict, split: dict, paths=Non
                                    "library_ms")},
             **{k: row[k] for k in ("device_ms", "library_device_ms", "gamma_flips",
                                    "shapes", "routes") if k in row},
-            "launch_floor_ms": floor["device_ms"], "call_split": split[name],
+            "launch_floor_ms": floor["device_ms"], "call_split": split.get(name),
             "launches_by_path": {p: n[name] for p, n in (paths or {}).items()},
         })
     return table
@@ -1291,7 +1625,7 @@ def main() -> None:
     print(f"package: {os.path.dirname(os.path.dirname(os.path.abspath(cuda_reweight.__file__)))}",
           flush=True)
     phase_build()
-    rows = {"ess_bisect": phase_ess_kernel(device)}
+    rows = {"ess_bisect": phase_ess_kernel(device), "ess_bisect_f64": phase_ess_kernel_f64(device)}
     rows.update(phase_prng_kernels(device))
     floor = launch_floor(device)
     split = phase_call_split(device)
@@ -1301,7 +1635,8 @@ def main() -> None:
         return
     paths = {}
     run_canonical(device, "canonical unclustered", SEEDS[:1], False, False, UNCLUSTERED_LOGZ)
-    paths["A"], walls = run_canonical(device, "A clustered", SEEDS, True, False, CLUSTERED_LOGZ)
+    paths["A"], walls = run_canonical(device, "A clustered", SEEDS[:2], True, False,
+                                      CLUSTERED_LOGZ)
     paths["A_hardware_prng"], _ = run_canonical(device, "A clustered hardware_prng", SEEDS[:1],
                                                 True, True, CLUSTERED_LOGZ)
     paths["B"], large_errs = phase_large_ensemble(device)
@@ -1315,10 +1650,15 @@ def main() -> None:
     paths["dynamic"] = dynamic["launches"]
     for name, n in phase_cadence_and_host(device).items():
         paths[name] = n
+    f64_paths, f64_errs = phase_float64(device, walls)
+    paths.update(f64_paths)
+    for name, err in f64_errs.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     if args.profile:
         phase_profile(device, args.profile)
 
     launches = {"ess_bisect": paths["A"]["ess_bisect"],
+                "ess_bisect_f64": paths["A_float64"]["ess_bisect_f64"],
                 "mutation_draws": paths["A_hardware_prng"]["mutation_draws"],
                 "normal": paths["B"]["normal"], "bits": paths["B"]["bits"]}
     for name, n in launches.items():

@@ -6,9 +6,11 @@ Persistent Sampling (Karamanis & Seljak 2025, arXiv:2407.20722): the
 adaptive ESS temperature ladder with persistent multiple-importance-
 sampling reweighting over all past particles, hierarchical BIC-gated
 Gaussian-mixture clustering with one Student-t preconditioner per
-cluster, tpCN or RWM mutation, and evidence estimation. The ESS bisection
-and the `hardware_prng=True` draws run as hand-written CUDA kernels on
-the GPU (`ops/cuda_reweight.py`, `ops/cuda_prng.py`).
+cluster, tpCN or RWM mutation, and evidence estimation, in float32 or
+float64. The ESS bisection (in both dtypes) and the `hardware_prng=True`
+draws run as hand-written CUDA kernels on the GPU (`ops/cuda_reweight.py`,
+`ops/cuda_prng.py`). The weighted Gaussian-mixture classes are
+`cluster.GaussianMixture` and `cluster.HierarchicalGaussianMixture`.
 
 This package imports `torch` and never `jax`.
 """

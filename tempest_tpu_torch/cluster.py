@@ -1,30 +1,41 @@
 """Weighted Gaussian-mixture EM and hierarchical BIC-gated clustering.
 
-Counterpart of tempest_tpu/cluster.py for the covariance type "full", the
-one the sampler uses (tempest_tpu/fused.py:141); the other types wait for
-the `GaussianMixture` facades (ROADMAP queue 1, item 11). The parts:
+Counterpart of tempest_tpu/cluster.py, with its four covariance types
+("full", "tied", "diag", "spherical") and best-of-`n_init` EM restarts:
 
 - `_log_gauss` (:49-74) with the identity fallback where the Cholesky
   factor is not finite (`cholesky_ex`'s info, never a `try`);
 - the k-means++ start `_kmeanspp_init` (:77-120), which takes its uniforms
   as an argument;
-- `_m_step`, `_e_step`, `_mixture_scores` and `_gmm_fit_scores`
-  (:123-280), the K = 1 closed forms and `_bic_from_lik` (:309-400);
-- `ClusterModel`, `single_cluster_model`, `_predict_scores` and
-  `cluster_predict` (:553-664);
+- `_m_step` for every type (:123-151; "tied" normalised by the total
+  responsibility mass, as JAX deviates from the reference there, and
+  every type stored as full (K, d, d) matrices), `_e_step`,
+  `_mixture_scores`, `_gmm_fit_scores` with its restarts (:197-280), the
+  K = 1 closed forms and `_bic_from_lik` with the per-type parameter
+  counts (:309-400);
+- the public `gmm_fit`, `gmm_predict`, `gmm_bic` (:283-306, :403-445),
+  `cluster_predict` and `cluster_predict_proba` (:648-674);
+- `ClusterModel`, `single_cluster_model`, `_predict_scores` (:553-645);
 - `_split_round` (:678-804), `hgm_fit` with the `split_all` doubling
-  prefix (:814-984) and `_final_refit` (:988-1021).
+  prefix (:814-984) and `_final_refit` (:988-1021);
+- the facades `GaussianMixture` (:448-546) and
+  `HierarchicalGaussianMixture` (:1024-1137), whose results are numpy
+  arrays, as in JAX.
 
-JAX vmaps the leaf fits; here every function takes a leading batch axis B
-of leaves. The vmapped EM `while_loop` becomes a Python loop over the whole
-batch with a `done` flag per leaf: a leaf that is done (or at `max_iter`)
-keeps its parameters while the others iterate, as under vmap; the loop
-reads one boolean from the device per EM iteration. The split rounds read
-the leaf count once per round.
+JAX vmaps the leaf fits and the restarts; here every function takes a
+leading batch axis B of leaves, and the n_init restarts of each leaf are
+laid out on that same axis (B * n_init fits) before the best lower bound
+of each leaf is taken. The vmapped EM `while_loop` becomes a Python loop
+over the whole batch with a `done` flag per fit: a fit that is done (or at
+`max_iter`) keeps its parameters while the others iterate, as under vmap;
+the loop reads one boolean from the device per EM iteration. The split
+rounds read the leaf count once per round.
 
-The clustering's only randomness is two k-means++ uniforms per leaf slot,
-from the fixed fit key; `fit_uniforms` computes them as `jax.random` does,
-so with the same data the fit agrees with JAX value for value.
+A fit's only randomness is one k-means++ uniform per component and start,
+from its key; `utils/threefry.py` computes them as `jax.random` does, in
+the dtype of the data (a float64 uniform takes 64 random bits, as JAX's
+does under x64), so with the same data the fits agree with JAX value for
+value.
 """
 
 from __future__ import annotations
@@ -33,14 +44,17 @@ import dataclasses
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from .ops.tools import logsumexp
 from .utils import threefry
 
 _EPS = 1e-10
 _LOG2PI = math.log(2.0 * math.pi)
 _REG_COVAR = 1e-6
 FIT_SEED = 42  # tempest_tpu/fused.py:134, the reference's np.random.seed(42)
+COVARIANCE_TYPES = ("full", "tied", "diag", "spherical")
 
 
 class GMMParams(NamedTuple):
@@ -51,13 +65,22 @@ class GMMParams(NamedTuple):
     n_iter: torch.Tensor  # (B,) int32
 
 
-def fit_uniforms(k_max: int, seed: int = FIT_SEED, device=None) -> torch.Tensor:
-    """(k_max, 2) float32 k-means++ uniforms of leaf slots 0..k_max-1:
-    uniform(split(split(PRNGKey(seed), k_max)[i], 2)[j]) (cluster.py:86,
-    :738; one EM start per leaf)."""
+def _uniform_bits(dtype) -> int:
+    return 64 if dtype == torch.float64 else 32
+
+
+def fit_uniforms(
+    k_max: int, seed: int = FIT_SEED, device=None, dtype=torch.float32, n_init: int = 1
+) -> torch.Tensor:
+    """The k-means++ uniforms of leaf slots 0..k_max-1 in `dtype`: with one
+    EM start, (k_max, 2) = uniform(split(split(PRNGKey(seed), k_max)[i],
+    2)[j]) (cluster.py:86, :738); with n_init > 1, (k_max, n_init, 2), start
+    r of leaf i from split(leaf_i, n_init)[r] (:274)."""
+    bits = _uniform_bits(dtype)
     leaves = threefry.split(threefry.prng_key(seed), k_max)
-    vals = [[threefry.uniform(k) for k in threefry.split(leaf, 2)] for leaf in leaves]
-    return torch.tensor(vals, dtype=torch.float32, device=device)
+    vals = [threefry.kmeanspp_uniforms(leaf, n_init, 2, bits) for leaf in leaves]
+    out = torch.tensor(vals, dtype=dtype, device=device)  # (k_max, n_init, 2)
+    return out[:, 0] if n_init <= 1 else out
 
 
 # ---------------------------------------------------------------------------
@@ -125,16 +148,31 @@ def _kmeanspp_init(X, sample_weight, n_components: int, uniforms) -> torch.Tenso
     return resp / torch.clamp(torch.sum(resp, dim=2, keepdim=True), min=_EPS)
 
 
-def _m_step(X, resp, sample_weight):
-    """Weighted M-step, full covariances (cluster.py:123-133, 151).
-    X (B, n, d), resp (B, n, K), sample_weight (B, n)."""
+def _m_step(X, resp, sample_weight, covariance_type: str = "full"):
+    """Weighted M-step (cluster.py:123-151), covariances as full (B, K, d, d)
+    matrices of every type. X (B, n, d), resp (B, n, K), sample_weight (B, n)."""
+    d = X.shape[-1]
     wresp = resp * sample_weight[..., None]  # (B, n, K)
     nk = torch.sum(wresp, dim=1)  # (B, K)
     pi = nk / torch.clamp(torch.sum(nk, dim=1, keepdim=True), min=_EPS)
     means = (wresp.transpose(1, 2) @ X) / (nk[..., None] + _EPS)
     diff = X[:, :, None, :] - means[:, None, :, :]  # (B, n, K, d)
-    covs = torch.einsum("bnk,bnki,bnkj->bkij", wresp, diff, diff)
-    return pi, means, covs / (nk[..., None, None] + _EPS)
+    if covariance_type == "full":
+        covs = torch.einsum("bnk,bnki,bnkj->bkij", wresp, diff, diff)
+        return pi, means, covs / (nk[..., None, None] + _EPS)
+    if covariance_type == "tied":
+        # JAX's deviation from the reference (:135-142): the pooled scatter
+        # over the total responsibility mass.
+        tied = torch.einsum("bnk,bnki,bnkj->bij", wresp, diff, diff)
+        tied = tied / torch.clamp(torch.sum(nk, dim=1), min=_EPS)[:, None, None]
+        return pi, means, tied[:, None].expand(-1, means.shape[1], d, d)
+    if covariance_type == "diag":
+        var = torch.einsum("bnk,bnki->bki", wresp, diff * diff) / (nk[..., None] + _EPS)
+        return pi, means, torch.diag_embed(var)
+    if covariance_type == "spherical":
+        s = torch.einsum("bnk,bnki->bk", wresp, diff * diff) / (nk * d + _EPS)
+        return pi, means, s[..., None, None] * torch.eye(d, dtype=X.dtype, device=X.device)
+    raise ValueError(f"Unknown covariance_type {covariance_type}")
 
 
 def _mixture_scores(X, pi, means, covs, reg_covar: float):
@@ -167,18 +205,42 @@ def _gmm_fit_scores(
     max_iter: int = 1000,
     tol: float = 1e-3,
     reg_covar: float = _REG_COVAR,
+    covariance_type: str = "full",
 ):
-    """Weighted EM with one start per leaf (cluster.py:197-270, n_init=1).
+    """Weighted EM of each leaf, best of its starts (cluster.py:197-280).
 
+    `uniforms` are (B, K) for one start per leaf, or (B, n_init, K) for
+    n_init starts; the starts run as B * n_init fits of one batch, and each
+    leaf keeps the start with the best lower bound,
+    argmax(nan_to_num(lb, nan=-inf)) as JAX takes it.
     Returns (params, log_probs (B, K, n), lik (B, n)) at the final
     parameters. Convergence compares the bound at the current parameters
-    with the previous one; a converged leaf keeps its pre-M-step
-    parameters (PARITY.md deviation 5), as in JAX.
+    with the previous one; a converged fit keeps its pre-M-step parameters
+    (PARITY.md deviation 5), as in JAX.
     """
+    if uniforms.dim() == 3:
+        B, starts, n, d = X.shape[0], uniforms.shape[1], X.shape[1], X.shape[2]
+        if starts > 1:
+            fit = _gmm_fit_scores(
+                X[:, None].expand(B, starts, n, d).reshape(B * starts, n, d),
+                sample_weight[:, None].expand(B, starts, n).reshape(B * starts, n),
+                n_components, uniforms.reshape(B * starts, -1), max_iter, tol, reg_covar,
+                covariance_type,
+            )
+            # jnp.nan_to_num(lb, nan=-inf) also maps -inf to the lowest float
+            lb = fit[0].lower_bound.reshape(B, starts)
+            best = torch.argmax(torch.nan_to_num(lb, nan=torch.finfo(lb.dtype).min), dim=1)
+            rows = torch.arange(B, device=X.device)
+
+            def pick(a):
+                return a.reshape((B, starts) + a.shape[1:])[rows, best]
+
+            return GMMParams(*(pick(a) for a in fit[0])), pick(fit[1]), pick(fit[2])
+        uniforms = uniforms[:, 0]
     B = X.shape[0]
     sw = _normalized(sample_weight)
     resp = _kmeanspp_init(X, sw, n_components, uniforms)
-    pi, means, covs = _m_step(X, resp, sw)
+    pi, means, covs = _m_step(X, resp, sw, covariance_type)
     lb = torch.full((B,), float("-inf"), dtype=X.dtype, device=X.device)
     n_iter = torch.zeros((B,), dtype=torch.int32, device=X.device)
     done = torch.zeros((B,), dtype=torch.bool, device=X.device)
@@ -188,7 +250,7 @@ def _gmm_fit_scores(
             break
         resp, new_lb = _e_step(X, pi, means, covs, reg_covar, sw)
         new_done = (new_lb - lb) < tol
-        pi2, means2, covs2 = _m_step(X, resp, sw)
+        pi2, means2, covs2 = _m_step(X, resp, sw, covariance_type)
         keep = new_done | ~active
         pi = torch.where(keep[:, None], pi, pi2)
         means = torch.where(keep[:, None, None], means, means2)
@@ -201,31 +263,103 @@ def _gmm_fit_scores(
     return GMMParams(pi, means, covs, final_lb, n_iter), log_probs, lik
 
 
-def _single_component_params(X, sample_weight) -> GMMParams:
+def _single_component_params(X, sample_weight, covariance_type: str = "full") -> GMMParams:
     """K = 1 closed-form M-step without the density pass (cluster.py:349-370);
     lower_bound is 0 and must not be read."""
     B, n, _ = X.shape
     resp = torch.ones((B, n, 1), dtype=X.dtype, device=X.device)
-    pi, means, covs = _m_step(X, resp, _normalized(sample_weight))
+    pi, means, covs = _m_step(X, resp, _normalized(sample_weight), covariance_type)
     zeros = torch.zeros((B,), dtype=X.dtype, device=X.device)
     return GMMParams(pi, means, covs, zeros, torch.ones((B,), dtype=torch.int32, device=X.device))
 
 
-def _single_component_fit_scores(X, sample_weight, reg_covar: float = _REG_COVAR):
+def _single_component_fit_scores(
+    X, sample_weight, reg_covar: float = _REG_COVAR, covariance_type: str = "full"
+):
     """Exact K = 1 fit and its per-point likelihood (B, n) (cluster.py:309-337)."""
-    p = _single_component_params(X, sample_weight)
+    p = _single_component_params(X, sample_weight, covariance_type)
     _, lik = _mixture_scores(X, p.weights, p.means, p.covariances, reg_covar)
     lb = torch.sum(_normalized(sample_weight) * torch.log(lik + _EPS), dim=1)
     return p._replace(lower_bound=lb), lik
 
 
-def _bic_from_lik(lik, mask, n_components: int, n_features: int) -> torch.Tensor:
-    """BIC from a per-point mixture likelihood, full covariances
-    (cluster.py:373-400). lik, mask: (B, n)."""
+def _n_parameters(n_components: int, n_features: int, covariance_type: str) -> float:
+    """Free parameters of a mixture of this type (cluster.py:386-397)."""
     d, K = n_features, n_components
-    n_parameters = (K - 1) + K * d + K * d * (d + 1) / 2
+    cov_params = {
+        "full": K * d * (d + 1) / 2,
+        "tied": d * (d + 1) / 2,
+        "diag": K * d,
+        "spherical": K,
+    }
+    if covariance_type not in cov_params:
+        raise ValueError(f"Unknown covariance_type {covariance_type}")
+    return (K - 1) + K * d + cov_params[covariance_type]
+
+
+def _bic_from_lik(
+    lik, mask, n_components: int, n_features: int, covariance_type: str = "full"
+) -> torch.Tensor:
+    """BIC from a per-point mixture likelihood (cluster.py:373-400).
+    lik, mask: (B, n)."""
+    n_parameters = _n_parameters(n_components, n_features, covariance_type)
     n_leaf = torch.sum(mask, dim=-1).to(lik.dtype)
     ll = torch.sum(torch.where(mask, torch.log(lik + _EPS), torch.zeros_like(lik)), dim=-1)
+    return -2.0 * ll + n_parameters * torch.log(torch.clamp(n_leaf, min=1.0))
+
+
+# ---------------------------------------------------------------------------
+# The public mixture functions, on one (n, d) data set
+# ---------------------------------------------------------------------------
+def gmm_fit(
+    key: threefry.Key,
+    X: torch.Tensor,
+    sample_weight: torch.Tensor,
+    n_components: int,
+    covariance_type: str = "full",
+    max_iter: int = 1000,
+    tol: float = 1e-3,
+    reg_covar: float = _REG_COVAR,
+    n_init: int = 1,
+) -> GMMParams:
+    """Fit a weighted GMM by EM; zero-weight samples are ignored
+    (cluster.py:283-306). `key` is a JAX key's two words
+    (`threefry.prng_key(seed)`); n_init > 1 keeps the best of that many
+    starts. Returns unbatched parameters (K,), (K, d), (K, d, d)."""
+    uniforms = threefry.kmeanspp_uniforms(key, n_init, n_components, _uniform_bits(X.dtype))
+    u = torch.tensor([uniforms], dtype=X.dtype, device=X.device)  # (1, starts, K)
+    p, _, _ = _gmm_fit_scores(X[None], sample_weight.to(X.dtype)[None], n_components, u,
+                              max_iter, tol, reg_covar, covariance_type)
+    return GMMParams(*(a[0] for a in p))
+
+
+def gmm_predict(params: GMMParams, X: torch.Tensor, reg_covar: float = _REG_COVAR) -> torch.Tensor:
+    """Hard labels (n,) int32 by max posterior (cluster.py:403-409)."""
+    log_probs = _log_gauss(X[None], params.means, params.covariances, reg_covar)  # (K, n)
+    scores = torch.log(params.weights + _EPS)[:, None] + log_probs
+    return torch.argmax(scores, dim=0).to(torch.int32)
+
+
+def gmm_bic(
+    params: GMMParams,
+    X: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    covariance_type: str = "full",
+    reg_covar: float = _REG_COVAR,
+) -> torch.Tensor:
+    """BIC with the per-type parameter counts, on the rows of `mask` with
+    uniform weights (cluster.py:412-445)."""
+    n, d = X.shape
+    n_parameters = _n_parameters(params.means.shape[0], d, covariance_type)
+    if mask is None:
+        n_leaf = torch.tensor(float(n), dtype=X.dtype, device=X.device)
+        uw = torch.full((n,), 1.0 / n, dtype=X.dtype, device=X.device)
+    else:
+        n_leaf = torch.sum(mask).to(X.dtype)
+        uw = torch.where(mask, 1.0 / torch.clamp(n_leaf, min=1.0), torch.zeros_like(n_leaf))
+    _, lik = _mixture_scores(X[None], params.weights[None], params.means[None],
+                             params.covariances[None], reg_covar)
+    ll = torch.sum(uw * torch.log(lik[0] + _EPS)) * n_leaf
     return -2.0 * ll + n_parameters * torch.log(torch.clamp(n_leaf, min=1.0))
 
 
@@ -313,6 +447,12 @@ def cluster_predict(model: ClusterModel, X: torch.Tensor) -> torch.Tensor:
     return torch.where(bad, nearest, best).to(torch.int32)
 
 
+def cluster_predict_proba(model: ClusterModel, X: torch.Tensor) -> torch.Tensor:
+    """Mixture posterior probabilities (n, K_max) (cluster.py:667-671)."""
+    scores, _, _ = _predict_scores(model, X)
+    return torch.exp(scores - logsumexp(scores, dim=0, keepdim=True)).T
+
+
 # ---------------------------------------------------------------------------
 # Hierarchical (bisecting) clustering with the BIC gate
 # ---------------------------------------------------------------------------
@@ -333,11 +473,13 @@ def _split_round(
     k_max: int,
     n_sub: Optional[int] = None,
     k_slots: Optional[int] = None,
+    covariance_type: str = "full",
 ) -> Dict[str, torch.Tensor]:
     """The K = 1 against K = 2 split test of every leaf slot < k_slots
-    (cluster.py:678-804). `uniforms` (k_max, 2) are the leaves' k-means++
-    draws; `n_sub` caps each leaf's EM set to its top members by weight,
-    while the BIC gate and the child labels use the full membership."""
+    (cluster.py:678-804). `uniforms` (k_max, 2), or (k_max, n_init, 2), are
+    the leaves' k-means++ draws (`fit_uniforms`); `n_sub` caps each leaf's
+    EM set to its top members by weight, while the BIC gate and the child
+    labels use the full membership."""
     n, d = Xw.shape
     k_slots = k_max if k_slots is None else k_slots
     dtype, dev = Xw.dtype, Xw.device
@@ -359,14 +501,15 @@ def _split_round(
     if n_sub is not None and n_sub < n:
         w_sub, sub_idx = _top_k_rows(leaf_w, n_sub)
         X_sub = Xw[sub_idx]  # (k_slots, n_sub, d)
-        p1 = _single_component_params(X_sub, w_sub)
-        p2 = _gmm_fit_scores(X_sub, w_sub, 2, u)[0]
+        p1 = _single_component_params(X_sub, w_sub, covariance_type)
+        p2 = _gmm_fit_scores(X_sub, w_sub, 2, u, covariance_type=covariance_type)[0]
         _, lik1 = _mixture_scores(X_all, p1.weights, p1.means, p1.covariances, _REG_COVAR)
         scores2, lik2 = _mixture_scores(X_all, p2.weights, p2.means, p2.covariances, _REG_COVAR)
     else:
-        p1, lik1 = _single_component_fit_scores(X_all, leaf_w)
-        p2, scores2, lik2 = _gmm_fit_scores(X_all, leaf_w, 2, u)
-    improvement = _bic_from_lik(lik1, members, 1, d) - _bic_from_lik(lik2, members, 2, d)
+        p1, lik1 = _single_component_fit_scores(X_all, leaf_w, covariance_type=covariance_type)
+        p2, scores2, lik2 = _gmm_fit_scores(X_all, leaf_w, 2, u, covariance_type=covariance_type)
+    improvement = (_bic_from_lik(lik1, members, 1, d, covariance_type)
+                   - _bic_from_lik(lik2, members, 2, d, covariance_type))
 
     # Hard assignment by max posterior, from the fit's scores (cluster.py:784-790)
     child = torch.argmax(torch.log(p2.weights + _EPS)[:, :, None] + scores2, dim=1)
@@ -387,12 +530,12 @@ def _split_round(
     }
 
 
-def _final_refit(Xw, sample_weight, labels, k_max: int):
+def _final_refit(Xw, sample_weight, labels, k_max: int, covariance_type: str = "full"):
     """Per-leaf K = 1 refits for centers and covariances (cluster.py:987-1021)."""
     n, d = Xw.shape
     members = labels[None, :] == torch.arange(k_max, device=Xw.device)[:, None]
     leaf_w = torch.where(members, sample_weight[None, :], torch.zeros_like(sample_weight[None, :]))
-    p = _single_component_params(Xw.expand(k_max, n, d), leaf_w)
+    p = _single_component_params(Xw.expand(k_max, n, d), leaf_w, covariance_type)
     n_members = torch.sum(members, dim=1)
     # Tiny leaves (< d members): plain mean and the identity covariance.
     mean_small = torch.sum(
@@ -418,20 +561,23 @@ def hgm_fit(
     split_all: bool = False,
     leaf_fit_points: Optional[int] = None,
     uniforms: Optional[torch.Tensor] = None,
+    covariance_type: str = "full",
+    n_init: int = 1,
 ) -> Tuple[ClusterModel, torch.Tensor, int]:
-    """The whole hierarchical fit, covariance type "full" (cluster.py:814-984).
+    """The whole hierarchical fit (cluster.py:814-984).
 
     Each round tests every leaf for a K = 2 split and splits the best
     eligible one (or, with `split_all`, every eligible one, with the
     doubling prefix of leaf-slot widths 1, 2, 4, ...), until nothing is
     eligible, k_max leaves exist or `max_rounds` rounds ran. `uniforms`
-    (k_max, 2) default to those of the fixed fit key (`fit_uniforms`).
+    (k_max, 2), or (k_max, n_init, 2), default to those of the fixed fit
+    key with `n_init` starts (`fit_uniforms` in X's dtype).
     Returns (model, labels (n,) int32 with -1 on masked rows, n_leaves).
     """
     n, d = X.shape
     dtype, dev = X.dtype, X.device
     if uniforms is None:
-        uniforms = fit_uniforms(k_max, device=dev)
+        uniforms = fit_uniforms(k_max, device=dev, dtype=dtype, n_init=n_init)
     uniforms = uniforms.to(device=dev, dtype=dtype)
     sw = torch.where(mask, sample_weight, torch.zeros_like(sample_weight))
 
@@ -451,7 +597,7 @@ def hgm_fit(
     def round_step(labels, n_leaves, k_slots):
         out = _split_round(
             uniforms, Xw, sw, labels, n_leaves, min_points, threshold_modifier, k_max,
-            leaf_fit_points, k_slots,
+            leaf_fit_points, k_slots, covariance_type,
         )
         if split_all:
             # Every eligible leaf splits; new slots in leaf-id order, and
@@ -487,7 +633,7 @@ def hgm_fit(
             labels, n_leaves, go = round_step(labels, n_leaves, k_max)
             rounds += 1
 
-    centers, covs, cweights = _final_refit(Xw, sw, labels, k_max)
+    centers, covs, cweights = _final_refit(Xw, sw, labels, k_max, covariance_type)
     k_mask = torch.arange(k_max, device=dev) < n_leaves
     eye = torch.eye(d, dtype=dtype, device=dev)
     chol_inv, logdet = _chol_inv_logdet(torch.where(k_mask[:, None, None], covs, eye), _REG_COVAR)
@@ -507,3 +653,205 @@ def hgm_fit(
         normalize=normalize,
     )
     return model, labels, n_leaves
+
+
+# ---------------------------------------------------------------------------
+# The public facades (cluster.py:448-546, 1024-1137)
+# ---------------------------------------------------------------------------
+def _as_tensor(X, dtype, device) -> torch.Tensor:
+    """X on `device`: a floating torch tensor keeps its dtype, anything else
+    becomes float32 (as `jnp.asarray` does without x64); `dtype`, when
+    given, applies to both."""
+    if isinstance(X, torch.Tensor):
+        return X.to(device=device, dtype=dtype or (X.dtype if X.is_floating_point() else torch.float32))
+    return torch.as_tensor(np.asarray(X), dtype=dtype or torch.float32, device=device)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+class GaussianMixture:
+    """Weighted-GMM facade over `gmm_fit`/`gmm_predict`/`gmm_bic`
+    (cluster.py:448-546): the JAX class's keywords, defaults, fitted
+    attributes (`weights_`, `means_`, `covariances_`, `converged_`,
+    `n_iter_`, `lower_bound_`, numpy arrays and Python numbers) and
+    messages. `covariances_` are full (K, d, d) matrices of every type, and
+    `bic()` counts the type's free parameters, as in JAX.
+
+    The port's own keywords: `device` (default "cuda", as the Sampler's),
+    and `dtype` (default None: a floating torch tensor keeps its dtype, a
+    numpy array becomes float32; `torch.float64` fits in double).
+    """
+
+    def __init__(
+        self,
+        n_components: int = 1,
+        covariance_type: str = "full",
+        max_iter: int = 1000,
+        n_init: int = 1,
+        tol: float = 1e-3,
+        reg_covar: float = 1e-6,
+        random_state: Optional[int] = None,
+        device="cuda",
+        dtype=None,
+    ):
+        if covariance_type not in COVARIANCE_TYPES:
+            raise ValueError(
+                "covariance_type must be one of 'full', 'tied', 'diag', "
+                f"'spherical'; got {covariance_type!r}"
+            )
+        self.n_components = int(n_components)
+        self.covariance_type = covariance_type
+        self.max_iter = int(max_iter)
+        self.n_init = int(n_init)
+        self.tol = float(tol)
+        self.reg_covar = float(reg_covar)
+        self.random_state = random_state
+        self.device = torch.device(device)
+        self.dtype = dtype
+
+        self.weights_ = None
+        self.means_ = None
+        self.covariances_ = None
+        self.converged_ = False
+        self.n_iter_ = 0
+        self.lower_bound_ = None
+        self._params: Optional[GMMParams] = None
+
+    def fit(self, X, sample_weight=None) -> "GaussianMixture":
+        """Fit the weighted GMM; returns self."""
+        X = _as_tensor(X, self.dtype, self.device)
+        if sample_weight is None:
+            sample_weight = torch.ones((X.shape[0],), dtype=X.dtype, device=X.device)
+        else:
+            sample_weight = _as_tensor(sample_weight, X.dtype, X.device)
+        key = threefry.prng_key(0 if self.random_state is None else self.random_state)
+        params = gmm_fit(key, X, sample_weight, self.n_components,
+                         covariance_type=self.covariance_type, max_iter=self.max_iter,
+                         tol=self.tol, reg_covar=self.reg_covar, n_init=self.n_init)
+        self._params = params
+        self.weights_ = _numpy(params.weights)
+        self.means_ = _numpy(params.means)
+        self.covariances_ = _numpy(params.covariances)
+        self.n_iter_ = int(params.n_iter)
+        self.converged_ = self.n_iter_ < self.max_iter
+        self.lower_bound_ = float(params.lower_bound)
+        return self
+
+    def _require_fitted(self):
+        if self._params is None:
+            raise ValueError("GaussianMixture is not fitted; call fit() first.")
+
+    def _data(self, X) -> torch.Tensor:
+        return _as_tensor(X, self._params.means.dtype, self.device)
+
+    def predict(self, X) -> np.ndarray:
+        """Hard labels by max posterior."""
+        self._require_fitted()
+        return _numpy(gmm_predict(self._params, self._data(X), reg_covar=self.reg_covar))
+
+    def bic(self, X) -> float:
+        """BIC with per-type free-parameter counts."""
+        self._require_fitted()
+        return float(gmm_bic(self._params, self._data(X), covariance_type=self.covariance_type,
+                             reg_covar=self.reg_covar))
+
+
+class HierarchicalGaussianMixture:
+    """Top-down bisecting clusterer over `hgm_fit` (cluster.py:1024-1137):
+    the JAX class's keywords, defaults, messages, `labels_`, `n_clusters_`,
+    `predict`, `predict_proba` and `_bic_tolerance`; results are numpy
+    arrays. The leaf fits' k-means++ uniforms come from `PRNGKey(seed)`
+    (`fit_uniforms`). `device` and `dtype` as for `GaussianMixture`.
+    """
+
+    def __init__(
+        self,
+        n_init: int = 1,
+        max_iterations: int = 1000,
+        min_points: Optional[int] = None,
+        threshold_modifier: float = 1.0,
+        covariance_type: str = "full",
+        verbose: bool = False,
+        normalize: bool = False,
+        k_max: int = 16,
+        seed: int = 42,
+        split_all: bool = False,
+        leaf_fit_points: Optional[int] = None,
+        device="cuda",
+        dtype=None,
+    ):
+        if threshold_modifier <= 0:
+            raise ValueError("threshold_modifier must be positive.")
+        self.n_init = n_init
+        self.max_iterations = max_iterations
+        self.min_points = min_points
+        self.threshold_modifier = float(threshold_modifier)
+        self.covariance_type = covariance_type
+        self.verbose = verbose
+        self.normalize = normalize
+        self.k_max = k_max
+        self.seed = seed
+        self.split_all = split_all
+        self.leaf_fit_points = leaf_fit_points
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.model: Optional[ClusterModel] = None
+        self._labels: Optional[torch.Tensor] = None
+        self._n_leaves = 0
+
+    @property
+    def labels_(self) -> Optional[np.ndarray]:
+        return None if self._labels is None else _numpy(self._labels)
+
+    @property
+    def n_clusters_(self) -> int:
+        return int(self._n_leaves)
+
+    @staticmethod
+    def _bic_tolerance(n_features: int, weights: np.ndarray) -> float:
+        """n_params * log(N_eff) gate (cluster.py:1077-1084)."""
+        w = weights / np.sum(weights)
+        n_eff = 1.0 / np.sum(w * w)
+        d = n_features
+        n_params = d + d * (d + 1) / 2 + 1
+        return float(n_params * np.log(n_eff))
+
+    def fit(self, X, sample_weight=None, mask=None) -> "HierarchicalGaussianMixture":
+        """Fit on (n, d) data; `mask` marks the valid rows."""
+        X = _as_tensor(X, self.dtype, self.device)
+        n, d = X.shape
+        if sample_weight is None:
+            sample_weight = torch.ones((n,), dtype=X.dtype, device=X.device)
+        else:
+            sample_weight = _as_tensor(sample_weight, X.dtype, X.device)
+        if mask is None:
+            mask = torch.ones((n,), dtype=torch.bool, device=X.device)
+        elif isinstance(mask, torch.Tensor):
+            mask = mask.to(device=X.device, dtype=torch.bool)
+        else:
+            mask = torch.as_tensor(np.asarray(mask, dtype=bool), device=X.device)
+        min_points = self.min_points if self.min_points is not None else 2 * d
+        self.model, self._labels, self._n_leaves = hgm_fit(
+            X, sample_weight, mask, min_points, self.threshold_modifier, self.k_max,
+            max_rounds=min(self.max_iterations, self.k_max - 1), normalize=self.normalize,
+            split_all=self.split_all, leaf_fit_points=self.leaf_fit_points,
+            uniforms=fit_uniforms(self.k_max, self.seed, X.device, X.dtype, self.n_init),
+            covariance_type=self.covariance_type,
+        )
+        if self.verbose:
+            print(f"HGM fit: {self.n_clusters_} leaves")
+        return self
+
+    def _data(self, X) -> torch.Tensor:
+        if self.model is None:
+            raise ValueError("The model has not been fitted yet.")
+        return _as_tensor(X, self.model.centers.dtype, self.device)
+
+    def predict(self, X) -> np.ndarray:
+        return _numpy(cluster_predict(self.model, self._data(X)))
+
+    def predict_proba(self, X) -> np.ndarray:
+        proba = _numpy(cluster_predict_proba(self.model, self._data(X)))
+        return proba[:, : self.n_clusters_]

@@ -3,12 +3,12 @@
 Counterpart of tempest_tpu/config.py:36-327: the algorithm constants
 (:20-33) are copied as they are, and `SamplerConfig` keeps the same
 keywords, defaults and validation messages. Two fields are new here:
-`dtype` is a torch dtype and `device` names the torch device every tensor
-lives on.
+`dtype` is a torch dtype (float32 or float64) and `device` names the torch
+device every tensor lives on.
 
 Two options are outside the ported slice, the mesh and dtypes other than
-float32; they raise NotImplementedError naming the ROADMAP.md item that
-will bring them. The TPU-only knobs of ROADMAP.md
+float32 and float64; they raise NotImplementedError naming the ROADMAP.md
+item that will bring the mesh. The TPU-only knobs of ROADMAP.md
 queue 1, item 12 (`on_device_dispatch_budget_s`, `donate_state`, `fused`)
 and the mesh axis name are not part of this package.
 """
@@ -106,6 +106,10 @@ class SamplerConfig:
     # None = auto (max(4096, 4*n_particles)); 0 disables subsampling.
     train_max_points: Optional[int] = None
     leaf_fit_points: Optional[int] = None
+    # Draw the MCMC steps' normals and gamma mixture scales with the Philox
+    # kernels of ops/cuda_prng.py instead of the torch generator: a
+    # different, equally valid stream. Ignored (the generator's draws) for
+    # non-float32 dtypes, as in tempest_tpu/config.py:156-163.
     hardware_prng: bool = False
     split_all: bool = True
 
@@ -260,7 +264,8 @@ class SamplerConfig:
         """Refuse, by name, every option this package does not run yet."""
         unported = [
             (self.mesh is not None, "mesh (particle-axis sharding)"),
-            (self.dtype != torch.float32, f"dtype={self.dtype} (only torch.float32)"),
+            (self.dtype not in (torch.float32, torch.float64),
+             f"dtype={self.dtype} (only torch.float32 and torch.float64)"),
         ]
         for bad, what in unported:
             if bad:

@@ -325,13 +325,14 @@ class SamplerCore:
         sch = self.blob_schema
         store = sch.store if sch is not None and sch.is_object else None
         save_checkpoint(Path(path), self.hist, self.cur, self.draws.get_state(), meta,
-                        blob_store=store, model=self.cluster_model)
+                        blob_store=store, model=self.cluster_model,
+                        rng_key=self.draws.key_words())
 
     def load_sampler_state(self, path: Union[str, Path]) -> None:
         """Continue from a file of either package (core.py:771-792): the
         port's own draw state where the file has one, else draws re-seeded
         from the JAX file's key words (draws.seed_from_key_words)."""
-        ck = load_checkpoint(Path(path), self.device)
+        ck = load_checkpoint(Path(path), self.device, self.dtype)
         self.hist, self.cur = ck.hist, ck.cur
         if ck.draws is not None:
             self.draws.set_state(ck.draws)

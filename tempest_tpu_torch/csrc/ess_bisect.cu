@@ -1,5 +1,6 @@
 // ESS-mode temperature bisection for Hopper (sm_90a): the whole bisection in
-// one launch of one thread-block cluster.
+// one launch of one thread-block cluster, in float32 or float64 (the kernel
+// is a template on its scalar type; one C entry each).
 //
 // Replaces: tempest_tpu/ops/pallas_reweight.py `_kernel` (entry
 // `ess_bisect_beta`), which holds logl and the masked MIS denominator Bm in
@@ -10,7 +11,9 @@
 // Stay at beta_prev if ESS(beta_prev) <= target; jump to 1 if
 // ESS(1) >= target; otherwise bisect on [beta_prev, 1] until
 // |ESS - target| < max(0.01 |target|, 0.5), or the bracket is below
-// max(1e-8, 1e-4) * max(|lo|, |hi|, 1e-38), or beta == 1, or 200 probes.
+// max(1e-8, 1e-4) * max(|lo|, |hi|, tiny), or beta == 1, or 200 probes;
+// tiny is 1e-38 in float32 (as the Pallas kernel has it) and DBL_MIN,
+// finfo(float64).tiny, in float64 (tempest_tpu/steps/reweight.py:41-44).
 // A non-finite ESS counts as 1e10. One deliberate difference from the
 // Pallas kernel: x = -inf wherever logl is not finite or Bm = +inf (as in
 // tempest_tpu/state.py:392-394), so unfilled history slots weigh nothing at
@@ -59,8 +62,22 @@
 //    (3 or 7 betas, walked as the serial bisection would) was measured and
 //    not kept: no gain at S = 65,536, 6-12 % at streamed sizes (PERF.md).
 
+//
+// The float64 instantiation (the port's dtype=torch.float64 path, where the
+// JAX package runs XLA's float64 bisection; its Pallas kernel is float32
+// only) is the same design at twice the bytes a sample: 16, so a resident
+// slice holds half as many samples (kSliceBytes / 16 = 12,288, resident up
+// to S = 196,608) and the streamed route reads two 16-byte loads per group
+// of 4. Its arithmetic is heavier than the bytes: exp in double is a
+// software sequence of FP64 fused multiply-adds (no SFU), and FP64 issues at
+// half the FP32 rate, so a pass costs more instructions than in float32;
+// chip_smoke.py bounds it with an FP64 term. The partials (m, s1, s2) are
+// doubles through the shuffles and the distributed shared memory, combined
+// in the same fixed order, so beta stays deterministic.
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -73,44 +90,81 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kCluster = 16;  // CTAs in the cluster, one slice each
 constexpr int kMaxDevices = 64;
-// Samples a CTA holds in shared memory on the resident route (192 KB);
-// tempest_tpu_torch/ops/cuda_reweight.py plans the routes with this number.
+// float32 samples a CTA holds in shared memory on the resident route (192 KB
+// for logl and Bm); tempest_tpu_torch/ops/cuda_reweight.py plans the routes
+// with this number. A float64 slice holds half as many.
 constexpr int64_t kSliceMax = 24576;
+constexpr int64_t kSliceBytes = 8 * kSliceMax;
 
-// tempest_tpu/config.py:20-28
-constexpr float kBetaTolerance = 1e-4f;
-constexpr float kBetaRtol = 1e-8f;
-constexpr float kEssTolerance = 0.01f;
-constexpr float kMetricAtol = 0.5f;
+template <typename T>
+constexpr int64_t slice_max() { return kSliceBytes / (2 * static_cast<int64_t>(sizeof(T))); }
+
+// tempest_tpu/config.py:20-28, in the scalar type of the instantiation.
+template <typename T>
+struct Consts;
+template <>
+struct Consts<float> {
+  static constexpr float kBetaTolerance = 1e-4f;
+  static constexpr float kBetaRtol = 1e-8f;
+  static constexpr float kEssTolerance = 0.01f;
+  static constexpr float kMetricAtol = 0.5f;
+  static constexpr float kNonFiniteMetric = 1e10f;
+  static constexpr float kTiny = 1e-38f;
+};
+template <>
+struct Consts<double> {
+  static constexpr double kBetaTolerance = 1e-4;
+  static constexpr double kBetaRtol = 1e-8;
+  static constexpr double kEssTolerance = 0.01;
+  static constexpr double kMetricAtol = 0.5;
+  static constexpr double kNonFiniteMetric = 1e10;
+  static constexpr double kTiny = DBL_MIN;
+};
 constexpr int kMaxBisectionIterations = 200;
-constexpr float kNonFiniteMetric = 1e10f;
 
-__device__ __forceinline__ bool is_finite(float v) { return fabsf(v) < INFINITY; }  // false for NaN
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double vmax(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float vabs(float a) { return fabsf(a); }
+__device__ __forceinline__ double vabs(double a) { return fabs(a); }
+__device__ __forceinline__ float vexp(float a) { return expf(a); }
+__device__ __forceinline__ double vexp(double a) { return exp(a); }
 
+template <typename T>
+__device__ __forceinline__ bool is_finite(T v) { return vabs(v) < T(INFINITY); }  // false for NaN
+
+template <typename T>
 struct Acc {
-  float m;   // max of x
-  float s1;  // sum exp(x - m)
-  float s2;  // sum exp(2 (x - m))
+  T m;   // max of x
+  T s1;  // sum exp(x - m)
+  T s2;  // sum exp(2 (x - m))
 };
 
-__device__ __forceinline__ Acc empty_acc() { return Acc{-INFINITY, 0.f, 0.f}; }
+template <typename T>
+__device__ __forceinline__ Acc<T> empty_acc() { return Acc<T>{-T(INFINITY), T(0), T(0)}; }
+
+// 4 samples of one array, as held in shared memory (16 bytes in float32,
+// 32 in float64).
+template <typename T>
+struct __align__(16) Quad {
+  T v[4];
+};
 
 // Combines the NB partials of every lane of the warp, for each beta at
-// once; every lane gets the totals. Max first (shuffles of fmaxf), then one
-// rescale per lane, exp(m - M), then plain sums: no exp inside the tree.
-template <int NB>
-__device__ __forceinline__ void warp_combine(Acc (&a)[NB]) {
-  float M[NB];
+// once; every lane gets the totals. Max first (shuffles of the max), then
+// one rescale per lane, exp(m - M), then plain sums: no exp inside the tree.
+template <typename T, int NB>
+__device__ __forceinline__ void warp_combine(Acc<T> (&a)[NB]) {
+  T M[NB];
 #pragma unroll
   for (int k = 0; k < NB; ++k) M[k] = a[k].m;
 #pragma unroll
   for (int offset = 16; offset > 0; offset >>= 1) {
 #pragma unroll
-    for (int k = 0; k < NB; ++k) M[k] = fmaxf(M[k], __shfl_xor_sync(kFullMask, M[k], offset));
+    for (int k = 0; k < NB; ++k) M[k] = vmax(M[k], __shfl_xor_sync(kFullMask, M[k], offset));
   }
 #pragma unroll
   for (int k = 0; k < NB; ++k) {
-    const float c = (a[k].m == -INFINITY) ? 0.f : expf(a[k].m - M[k]);  // M = -inf: all empty
+    const T c = (a[k].m == -T(INFINITY)) ? T(0) : vexp(a[k].m - M[k]);  // M = -inf: all empty
     a[k].m = M[k];
     a[k].s1 *= c;
     a[k].s2 *= c * c;
@@ -126,18 +180,19 @@ __device__ __forceinline__ void warp_combine(Acc (&a)[NB]) {
 }
 
 // Adds 4 values of x to `a`: one max, at most one rescale, then the sums.
-__device__ __forceinline__ void add4(Acc& a, const float x[4]) {
-  const float cm = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
+template <typename T>
+__device__ __forceinline__ void add4(Acc<T>& a, const T x[4]) {
+  const T cm = vmax(vmax(x[0], x[1]), vmax(x[2], x[3]));
   if (cm > a.m) {
-    const float c = (a.m == -INFINITY) ? 0.f : expf(a.m - cm);
+    const T c = (a.m == -T(INFINITY)) ? T(0) : vexp(a.m - cm);
     a.s1 *= c;
     a.s2 *= c * c;
     a.m = cm;
   }
-  if (a.m != -INFINITY) {
+  if (a.m != -T(INFINITY)) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float e = expf(x[j] - a.m);
+      const T e = vexp(x[j] - a.m);
       a.s1 += e;
       a.s2 += e * e;
     }
@@ -145,51 +200,64 @@ __device__ __forceinline__ void add4(Acc& a, const float x[4]) {
 }
 
 // The CTA's slice: samples [begin, end) of the input, `quads` groups of 4.
+template <typename T>
 struct Slice {
-  const float* __restrict__ logl;
-  const float* __restrict__ bm;
+  const T* __restrict__ logl;
+  const T* __restrict__ bm;
   int64_t begin, end;
   int quads;
   bool aligned;  // both pointers 16-byte aligned
 };
 
+// 4 values from 16-byte aligned device memory: one 16-byte load in
+// float32, two in float64.
+__device__ __forceinline__ void load_quad(const float* p, float v[4]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load_quad(const double* p, double v[4]) {
+  const double2 a = __ldg(reinterpret_cast<const double2*>(p));
+  const double2 b = __ldg(reinterpret_cast<const double2*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
 // Group q of the slice, from device memory; samples past the slice end read
 // as dropped (logl 0, Bm +inf), so x = -inf for them.
-__device__ __forceinline__ void load4(const Slice& s, int q, float l[4], float b[4]) {
+template <typename T>
+__device__ __forceinline__ void load4(const Slice<T>& s, int q, T l[4], T b[4]) {
   const int64_t i = s.begin + 4 * static_cast<int64_t>(q);
   if (s.aligned && i + 4 <= s.end) {
-    const float4 l4 = __ldg(reinterpret_cast<const float4*>(s.logl + i));
-    const float4 b4 = __ldg(reinterpret_cast<const float4*>(s.bm + i));
-    l[0] = l4.x; l[1] = l4.y; l[2] = l4.z; l[3] = l4.w;
-    b[0] = b4.x; b[1] = b4.y; b[2] = b4.z; b[3] = b4.w;
+    load_quad(s.logl + i, l);
+    load_quad(s.bm + i, b);
   } else {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const bool in = i + j < s.end;
-      l[j] = in ? s.logl[i + j] : 0.f;
-      b[j] = in ? s.bm[i + j] : INFINITY;
+      l[j] = in ? s.logl[i + j] : T(0);
+      b[j] = in ? s.bm[i + j] : T(INFINITY);
     }
   }
 }
 
 // The mask, applied to raw values: a sample whose logl is not finite or
 // whose Bm is +inf becomes (0, +inf).
-__device__ __forceinline__ void mask4(float l[4], float b[4]) {
+template <typename T>
+__device__ __forceinline__ void mask4(T l[4], T b[4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const bool keep = is_finite(l[j]) && b[j] != INFINITY;
-    l[j] = keep ? l[j] : 0.f;
-    b[j] = keep ? b[j] : INFINITY;
+    const bool keep = is_finite(l[j]) && b[j] != T(INFINITY);
+    l[j] = keep ? l[j] : T(0);
+    b[j] = keep ? b[j] : T(INFINITY);
   }
 }
 
 // Adds one group of 4 masked samples to the partials at each of the NB betas.
-template <int NB>
-__device__ __forceinline__ void add_group(Acc (&acc)[NB], const float (&beta)[NB],
-                                          const float l[4], const float b[4]) {
+template <typename T, int NB>
+__device__ __forceinline__ void add_group(Acc<T> (&acc)[NB], const T (&beta)[NB], const T l[4],
+                                          const T b[4]) {
 #pragma unroll
   for (int k = 0; k < NB; ++k) {
-    float x[4];
+    T x[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) x[j] = beta[k] * l[j] - b[j];  // dropped: 0 - inf
     add4(acc[k], x);
@@ -198,31 +266,35 @@ __device__ __forceinline__ void add_group(Acc (&acc)[NB], const float (&beta)[NB
 
 // One pass: the CTA's partial (m, s1, s2) at each of the NB betas into
 // `mine[0..NB)`. Every thread of the CTA calls it.
-template <int NB, bool kResident>
-__device__ void pass(const Slice& s, const float4* __restrict__ sl, const float4* __restrict__ sb,
-                     const float* betas, Acc (*part)[kWarps], Acc* mine) {
-  Acc acc[NB];
-  float beta[NB];
+template <typename T, int NB, bool kResident>
+__device__ void pass(const Slice<T>& s, const Quad<T>* __restrict__ sl,
+                     const Quad<T>* __restrict__ sb, const T* betas, Acc<T> (*part)[kWarps],
+                     Acc<T>* mine) {
+  Acc<T> acc[NB];
+  T beta[NB];
 #pragma unroll
   for (int k = 0; k < NB; ++k) {
-    acc[k] = empty_acc();
+    acc[k] = empty_acc<T>();
     beta[k] = betas[k];
   }
   for (int q = threadIdx.x; q < s.quads; q += kThreads) {
-    float l[4], b[4];
+    T l[4], b[4];
     if (kResident) {
-      const float4 l4 = sl[q], b4 = sb[q];
-      l[0] = l4.x; l[1] = l4.y; l[2] = l4.z; l[3] = l4.w;
-      b[0] = b4.x; b[1] = b4.y; b[2] = b4.z; b[3] = b4.w;
+      const Quad<T> l4 = sl[q], b4 = sb[q];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        l[j] = l4.v[j];
+        b[j] = b4.v[j];
+      }
     } else {
       load4(s, q, l, b);
       mask4(l, b);
     }
-    add_group<NB>(acc, beta, l, b);
+    add_group<T, NB>(acc, beta, l, b);
   }
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  warp_combine<NB>(acc);
+  warp_combine<T, NB>(acc);
   if (lane == 0) {
 #pragma unroll
     for (int k = 0; k < NB; ++k) part[k][warp] = acc[k];
@@ -231,7 +303,7 @@ __device__ void pass(const Slice& s, const float4* __restrict__ sl, const float4
   if (warp == 0) {
 #pragma unroll
     for (int k = 0; k < NB; ++k) acc[k] = part[k][lane];  // kWarps == 32: one partial per lane
-    warp_combine<NB>(acc);
+    warp_combine<T, NB>(acc);
     if (lane == 0) {
 #pragma unroll
       for (int k = 0; k < NB; ++k) mine[k] = acc[k];
@@ -239,102 +311,110 @@ __device__ void pass(const Slice& s, const float4* __restrict__ sl, const float4
   }
 }
 
-__device__ __forceinline__ float interval_tol(float lo, float hi) {
-  const float scale = fmaxf(fmaxf(fabsf(lo), fabsf(hi)), 1e-38f);
-  return fmaxf(kBetaRtol * scale, kBetaTolerance * scale);
+template <typename T>
+__device__ __forceinline__ T interval_tol(T lo, T hi) {
+  using C = Consts<T>;
+  const T scale = vmax(vmax(vabs(lo), vabs(hi)), C::kTiny);
+  return vmax(C::kBetaRtol * scale, C::kBetaTolerance * scale);
 }
 
 // The bisection's state, held by every CTA (written by its thread 0).
+template <typename T>
 struct Control {
-  float lo, hi, beta;  // beta: the next probe, or the result once stopped
-  int iter;            // bisection probes so far
+  T lo, hi, beta;  // beta: the next probe, or the result once stopped
+  int iter;        // bisection probes so far
   int stop;
-  float first[3];      // the first pass's betas: beta_prev, 1, the first midpoint
+  T first[3];      // the first pass's betas: beta_prev, 1, the first midpoint
 };
 
 // One step of the serial bisection on the ESS at c.beta: the stop rules,
 // the bracket update and the next probe, as tempest_tpu's bisection.
-__device__ __forceinline__ void step(Control& c, float metric, float target) {
-  if (!is_finite(metric)) metric = kNonFiniteMetric;
+template <typename T>
+__device__ __forceinline__ void step(Control<T>& c, T metric, T target) {
+  using C = Consts<T>;
+  if (!is_finite(metric)) metric = C::kNonFiniteMetric;
   const bool metric_conv =
-      fabsf(metric - target) < fmaxf(kEssTolerance * fabsf(target), kMetricAtol);
+      vabs(metric - target) < vmax(C::kEssTolerance * vabs(target), C::kMetricAtol);
   const bool beta_conv = (c.hi - c.lo) < interval_tol(c.lo, c.hi);
-  const bool done = metric_conv || beta_conv || (c.beta == 1.f);
+  const bool done = metric_conv || beta_conv || (c.beta == T(1));
   const bool go_up = metric >= target;  // ESS decreases with beta
   if (!done && go_up) c.lo = c.beta;
   if (!done && !go_up) c.hi = c.beta;
   c.iter += 1;
   c.stop = done || c.iter >= kMaxBisectionIterations;
-  if (!c.stop) c.beta = 0.5f * (c.lo + c.hi);  // else keep the last probe
+  if (!c.stop) c.beta = T(0.5) * (c.lo + c.hi);  // else keep the last probe
 }
 
 // Warp 0 of this CTA: the cluster's combined partials at NB betas, as ESS,
 // read from every CTA's `mine` in rank order.
-template <int NB>
-__device__ void gather(const cg::cluster_group& cluster, Acc* mine, float* ess) {
+template <typename T, int NB>
+__device__ void gather(const cg::cluster_group& cluster, Acc<T>* mine, T* ess) {
   const int lane = threadIdx.x & 31;
   const int ranks = static_cast<int>(cluster.num_blocks());
-  Acc a[NB];
-  const Acc* remote = lane < ranks ? cluster.map_shared_rank(mine, lane) : nullptr;
+  Acc<T> a[NB];
+  const Acc<T>* remote = lane < ranks ? cluster.map_shared_rank(mine, lane) : nullptr;
 #pragma unroll
-  for (int k = 0; k < NB; ++k) a[k] = remote ? remote[k] : empty_acc();
-  warp_combine<NB>(a);
+  for (int k = 0; k < NB; ++k) a[k] = remote ? remote[k] : empty_acc<T>();
+  warp_combine<T, NB>(a);
 #pragma unroll
   for (int k = 0; k < NB; ++k) ess[k] = (a[k].s1 * a[k].s1) / a[k].s2;  // all dropped: 0/0 = NaN
 }
 
-template <bool kResident>
+template <typename T, bool kResident>
 __global__ void __launch_bounds__(kThreads, 1)
-ess_bisect_kernel(const float* __restrict__ logl, const float* __restrict__ bm,
-                  const float* __restrict__ scal, float* __restrict__ beta_out,
+ess_bisect_kernel(const T* __restrict__ logl, const T* __restrict__ bm,
+                  const T* __restrict__ scal, T* __restrict__ beta_out,
                   int32_t* __restrict__ probes_out, int64_t n, int64_t slice) {
   static_assert(kWarps == 32, "the second reduction stage needs one lane per warp");
-  extern __shared__ float4 dyn[];  // resident route: the masked slice
-  __shared__ Acc part[3][kWarps];
-  __shared__ Acc mine[2][3];  // this CTA's partials, by probe parity
-  __shared__ Control ctl;
+  extern __shared__ __align__(16) unsigned char dyn[];  // resident route: the masked slice
+  __shared__ Acc<T> part[3][kWarps];
+  __shared__ Acc<T> mine[2][3];  // this CTA's partials, by probe parity
+  __shared__ Control<T> ctl;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  Slice s;
+  Slice<T> s;
   s.logl = logl;
   s.bm = bm;
   s.begin = min(static_cast<int64_t>(rank) * slice, n);
   s.end = min(s.begin + slice, n);
   s.quads = static_cast<int>(slice / 4);
   s.aligned = ((reinterpret_cast<uintptr_t>(logl) | reinterpret_cast<uintptr_t>(bm)) & 15) == 0;
-  float4* sl = dyn;
-  float4* sb = dyn + s.quads;
+  Quad<T>* sl = reinterpret_cast<Quad<T>*>(dyn);
+  Quad<T>* sb = sl + s.quads;
   if (kResident) {
     for (int q = threadIdx.x; q < s.quads; q += kThreads) {
-      float l[4], b[4];
+      T l[4], b[4];
       load4(s, q, l, b);
       mask4(l, b);
-      sl[q] = make_float4(l[0], l[1], l[2], l[3]);
-      sb[q] = make_float4(b[0], b[1], b[2], b[3]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sl[q].v[j] = l[j];
+        sb[q].v[j] = b[j];
+      }
     }
   }
-  const float beta_prev = scal[0];
-  const float target = scal[1];
+  const T beta_prev = scal[0];
+  const T target = scal[1];
   if (threadIdx.x == 0) {
     ctl.lo = beta_prev;
-    ctl.hi = 1.f;
-    ctl.beta = 0.5f * (beta_prev + 1.f);
+    ctl.hi = T(1);
+    ctl.beta = T(0.5) * (beta_prev + T(1));
     ctl.iter = 0;
     ctl.stop = 0;
     ctl.first[0] = beta_prev;
-    ctl.first[1] = 1.f;
+    ctl.first[1] = T(1);
     ctl.first[2] = ctl.beta;
   }
   __syncthreads();
 
   // Pass 0: beta_prev, 1 and the first midpoint together.
-  float ess_cur = 0.f, ess_one = 0.f;  // read by thread 0 only
-  pass<3, kResident>(s, sl, sb, ctl.first, part, mine[0]);
+  T ess_cur = T(0), ess_one = T(0);  // read by thread 0 only
+  pass<T, 3, kResident>(s, sl, sb, ctl.first, part, mine[0]);
   cluster.sync();
   if (threadIdx.x < 32) {
-    float ess[3];
-    gather<3>(cluster, mine[0], ess);
+    T ess[3];
+    gather<T, 3>(cluster, mine[0], ess);
     if (threadIdx.x == 0) {
       ess_cur = ess[0];
       ess_one = ess[1];
@@ -349,11 +429,11 @@ ess_bisect_kernel(const float* __restrict__ logl, const float* __restrict__ bm,
 
   int parity = 1;
   while (!ctl.stop) {  // CTA-uniform: read after a barrier; cluster-uniform: same decisions
-    pass<1, kResident>(s, sl, sb, &ctl.beta, part, mine[parity]);
+    pass<T, 1, kResident>(s, sl, sb, &ctl.beta, part, mine[parity]);
     cluster.sync();
     if (threadIdx.x < 32) {
-      float ess[1];
-      gather<1>(cluster, mine[parity], ess);
+      T ess[1];
+      gather<T, 1>(cluster, mine[parity], ess);
       if (threadIdx.x == 0) step(ctl, ess[0], target);
     }
     __syncthreads();
@@ -362,11 +442,11 @@ ess_bisect_kernel(const float* __restrict__ logl, const float* __restrict__ bm,
   cluster.sync();  // no CTA exits while another may still read its partials
 
   if (rank == 0 && threadIdx.x == 0) {
-    float beta = ctl.beta;
+    T beta = ctl.beta;
     if (ess_cur <= target) {
       beta = beta_prev;
     } else if (ess_one >= target) {
-      beta = 1.f;
+      beta = T(1);
     }
     beta_out[0] = beta;
     probes_out[0] = 2 + ctl.iter;
@@ -395,7 +475,7 @@ struct ClusterLaunch {
 // Sets the kernel's attributes on the current device and checks that one
 // cluster with the largest shared memory the route takes fits it, once per
 // device; returns the cudaError_t of the first step that fails.
-template <bool kResident>
+template <typename T, bool kResident>
 cudaError_t prepare() {
   static bool checked[kMaxDevices] = {};
   static cudaError_t status[kMaxDevices];
@@ -404,8 +484,8 @@ cudaError_t prepare() {
   if (err != cudaSuccess) return err;
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (checked[device]) return status[device];
-  auto kernel = ess_bisect_kernel<kResident>;
-  const int smem = kResident ? static_cast<int>(8 * kSliceMax) : 0;
+  auto kernel = ess_bisect_kernel<T, kResident>;
+  const int smem = kResident ? static_cast<int>(kSliceBytes) : 0;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess && smem > 0) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -421,38 +501,53 @@ cudaError_t prepare() {
   return err;
 }
 
-template <bool kResident>
-cudaError_t launch(const float* logl, const float* bm, const float* scal, float* beta,
-                   int32_t* probes, int64_t n, int64_t slice, cudaStream_t stream) {
-  cudaError_t err = prepare<kResident>();
+template <typename T, bool kResident>
+cudaError_t launch(const T* logl, const T* bm, const T* scal, T* beta, int32_t* probes, int64_t n,
+                   int64_t slice, cudaStream_t stream) {
+  cudaError_t err = prepare<T, kResident>();
   if (err != cudaSuccess) return err;
-  ClusterLaunch one(kResident ? static_cast<size_t>(8 * slice) : 0, stream);
-  err = cudaLaunchKernelEx(&one.cfg, ess_bisect_kernel<kResident>, logl, bm, scal, beta, probes, n,
-                           slice);
+  ClusterLaunch one(kResident ? static_cast<size_t>(2 * sizeof(T) * slice) : 0, stream);
+  err = cudaLaunchKernelEx(&one.cfg, ess_bisect_kernel<T, kResident>, logl, bm, scal, beta, probes,
+                           n, slice);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T>
+int entry(const void* logl, const void* bm, const void* scal, void* beta, void* probes, int64_t n,
+          int64_t slice, int resident, void* stream) {
+  if (slice <= 0 || slice % 4 != 0 || slice * kCluster < n ||
+      (resident && slice > slice_max<T>())) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* l = static_cast<const T*>(logl);
+  const auto* b = static_cast<const T*>(bm);
+  const auto* sc = static_cast<const T*>(scal);
+  auto* be = static_cast<T*>(beta);
+  auto* pr = static_cast<int32_t*>(probes);
+  auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = resident ? launch<T, true>(l, b, sc, be, pr, n, slice, st)
+                                   : launch<T, false>(l, b, sc, be, pr, n, slice, st);
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// C entry point, loaded with ctypes. logl and bm: (n,) float32; scal: (2,)
-// float32 = (beta_prev, target); beta: (1,) float32 out; probes: (1,) int32
-// out (ESS evaluations). The launch plan comes from the wrapper: `slice`
-// samples per CTA (a multiple of 4, 16 * slice >= n), held in shared memory
-// if `resident` (slice <= 24,576). Launches on `stream` of the current
-// device without synchronising and returns a cudaError_t.
+// C entry points, loaded with ctypes: tempest_ess_bisect in float32,
+// tempest_ess_bisect_f64 in float64. logl and bm: (n,) of the type; scal:
+// (2,) = (beta_prev, target); beta: (1,) out; probes: (1,) int32 out (ESS
+// evaluations). The launch plan comes from the wrapper: `slice` samples per
+// CTA (a multiple of 4, 16 * slice >= n), held in shared memory if
+// `resident` (slice <= 24,576 in float32, 12,288 in float64). Each launches
+// on `stream` of the current device without synchronising and returns a
+// cudaError_t.
 extern "C" int tempest_ess_bisect(const void* logl, const void* bm, const void* scal, void* beta,
                                   void* probes, int64_t n, int64_t slice, int resident,
                                   void* stream) {
-  if (slice <= 0 || slice % 4 != 0 || slice * kCluster < n || (resident && slice > kSliceMax)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto* l = static_cast<const float*>(logl);
-  const auto* b = static_cast<const float*>(bm);
-  const auto* sc = static_cast<const float*>(scal);
-  auto* be = static_cast<float*>(beta);
-  auto* pr = static_cast<int32_t*>(probes);
-  auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = resident ? launch<true>(l, b, sc, be, pr, n, slice, st)
-                                   : launch<false>(l, b, sc, be, pr, n, slice, st);
-  return static_cast<int>(err);
+  return entry<float>(logl, bm, scal, beta, probes, n, slice, resident, stream);
+}
+
+extern "C" int tempest_ess_bisect_f64(const void* logl, const void* bm, const void* scal,
+                                      void* beta, void* probes, int64_t n, int64_t slice,
+                                      int resident, void* stream) {
+  return entry<double>(logl, bm, scal, beta, probes, n, slice, resident, stream);
 }

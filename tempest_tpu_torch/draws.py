@@ -16,7 +16,8 @@ generator its seed and offset, `torch.Generator.get_state`), and for
 `HardwareDraws` also the Philox key and call counter. Restoring it
 continues the stream where it stopped; nothing is re-seeded.
 `seed_from_key_words` is the rule for a file that holds no such state (one
-the JAX package wrote, with a threefry key that torch cannot continue).
+the JAX package wrote, with a threefry key that torch cannot continue), and
+`key_words` its inverse, the key a port file hands the JAX package.
 """
 
 from __future__ import annotations
@@ -77,6 +78,12 @@ class Draws:
     def get_state(self) -> Dict[str, np.ndarray]:
         return {"generator": self.generator.get_state().numpy().copy()}
 
+    def key_words(self) -> np.ndarray:
+        """The run's seed as the two uint32 words of a threefry key
+        (`jax.random.PRNGKey(seed)`)."""
+        seed = self.generator.initial_seed()
+        return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], dtype=np.uint32)
+
     def set_state(self, state: Dict[str, np.ndarray]) -> None:
         self.generator.set_state(torch.from_numpy(np.asarray(state["generator"], np.uint8)))
 
@@ -94,7 +101,10 @@ class HardwareDraws(Draws):
     The key is the seed's two 32-bit words and every kernel call takes the
     next call index, so a reset (a new object) restarts the stream. The
     warm-up and resampling draws, and the draws below the routing
-    thresholds, still come from the generator, as in JAX.
+    thresholds, still come from the generator, as in JAX. So do all the
+    draws of a run in another dtype than float32: the kernels draw float32
+    only, and JAX's `hw_prng_supported` (pallas_prng.py:46-48) sends every
+    other dtype to threefry, so the flag does not apply there.
     """
 
     def __init__(self, seed: int, device, dtype=torch.float32):
@@ -118,6 +128,8 @@ class HardwareDraws(Draws):
         return first
 
     def mcmc_step(self, n_candidates, n, d, gamma_shape):
+        if self.dtype != torch.float32:
+            return super().mcmc_step(n_candidates, n, d, gamma_shape)
         z_shape = (n_candidates, n, d)
         n_z = n_candidates * n * d
         if gamma_shape is not None and n_z <= FUSED_DRAWS_MAX_ELEMS:  # tpCN only

@@ -19,7 +19,7 @@ eagerly:
 4. commit the active set, blob rows included, to the history.
 
 Every draw comes from the draws object passed in. Each stage runs inside
-a `record_function` range ("ps/reweight", "ps/cluster", "ps/fit",
+a `utils.profiling.annotate` range ("ps/reweight", "ps/cluster", "ps/fit",
 "ps/resample", "ps/mutate", "ps/warmup", "ps/commit"), which
 `torch.profiler` reports as the stage's time; without a profiler a range
 costs a few microseconds. The JAX package's `_pin_history_layouts`,
@@ -31,7 +31,6 @@ from __future__ import annotations
 from typing import Callable, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from .cluster import ClusterModel, cluster_predict, fit_uniforms, hgm_fit
 from .config import DOF_FALLBACK, TRIM_BINS, TRIM_ESS, SamplerConfig
@@ -43,6 +42,7 @@ from .state import Current, History, commit
 from .steps.mutate import warmup
 from .steps.resample import resample
 from .steps.reweight import reweight
+from .utils.profiling import annotate
 
 
 def select_fit_points(
@@ -87,6 +87,7 @@ def make_iteration(
         reflective_mask=r_mask,
         strict_mask=s_mask,
         n_candidates=cfg.n_candidates,
+        dtype=cfg.dtype,
     )
     ess_target = cfg.ess_ratio * N
     dynamic = cfg.volume_variation is not None
@@ -97,7 +98,7 @@ def make_iteration(
     min_points = 2 * d if cfg.n_max_clusters is None else 4 * d
     round_cap = 1000 if cfg.n_max_clusters is None else cfg.n_max_clusters - 1
     max_rounds = max(min(round_cap, cfg.k_max - 1), 0)
-    uniforms = fit_uniforms(cfg.k_max, device=cfg.device) if cfg.clustering else None
+    uniforms = fit_uniforms(cfg.k_max, device=cfg.device, dtype=cfg.dtype) if cfg.clustering else None
 
     def fit_clusters(u_fit, w_fit, keep_fit) -> ClusterModel:
         model, _, _ = hgm_fit(
@@ -114,26 +115,26 @@ def make_iteration(
         return model
 
     def mutate_branch(draws, hist: History, cur: Current, weights, model):
-        with record_function("ps/fit"):
+        with annotate("ps/fit"):
             u_fit, w_fit, keep_fit = select_fit_points(hist, weights, cfg.train_max_points)
         if cfg.clustering:
-            with record_function("ps/cluster"):
+            with annotate("ps/cluster"):
                 if not model.fitted or cur.iteration % cfg.cluster_every == 0:
                     model = fit_clusters(u_fit, w_fit, keep_fit)
                 labels = cluster_predict(model, u_fit)
-            with record_function("ps/fit"):
+            with annotate("ps/fit"):
                 modes = fit_mode_statistics(
                     u_fit, w_fit, labels, k_max=cfg.k_max, dof_fallback=DOF_FALLBACK
                 )
         else:
-            with record_function("ps/fit"):
+            with annotate("ps/fit"):
                 modes = fit_global_mode(u_fit, w_fit, dof_fallback=DOF_FALLBACK)
-        with record_function("ps/resample"):
+        with annotate("ps/resample"):
             u, x, logl, blobs, assignments = resample(
                 draws.resample(N, cfg.resample), hist, weights, N, method=cfg.resample,
                 cluster_model=model if cfg.clustering else None,
             )
-        with record_function("ps/mutate"):
+        with annotate("ps/mutate"):
             res = mcmc(draws, u, x, logl, assignments, cur.beta, modes, blobs=blobs)
         cur.u, cur.x, cur.logl, cur.blobs = res.u, res.x, res.logl, res.blobs
         cur.assignments = assignments
@@ -164,7 +165,7 @@ def make_iteration(
             cur.ess = torch.tensor(ess_target, dtype=cfg.dtype, device=cfg.device)
             weights = None
         else:
-            with record_function("ps/reweight"):
+            with annotate("ps/reweight"):
                 rw = reweight(hist, cur.beta, ess_target, cv_target=cv_target,
                               dynamic=dynamic)
             cur.beta = rw.beta.to(cfg.dtype)
@@ -177,11 +178,11 @@ def make_iteration(
         # beta == 0: the target is still the prior — fresh draws instead of
         # fit/resample/MCMC; the carried model stays as it is.
         if bool(cur.beta == 0.0):
-            with record_function("ps/warmup"):
+            with annotate("ps/warmup"):
                 warmup_branch(draws, cur)
         else:
             model = mutate_branch(draws, hist, cur, weights, model)
-        with record_function("ps/commit"):
+        with annotate("ps/commit"):
             return commit(hist, cur), cur, model
 
     return iteration

@@ -98,6 +98,7 @@ class MCMCKernel:
         reflective_mask: Optional[torch.Tensor] = None,
         strict_mask: Optional[torch.Tensor] = None,
         n_candidates: int = 8,
+        dtype=torch.float32,
     ):
         self.log_likelihood_batch = log_likelihood_batch
         self.prior_transform_batch = prior_transform_batch
@@ -113,11 +114,11 @@ class MCMCKernel:
         self.periodic_mask = periodic_mask
         self.reflective_mask = reflective_mask
         self.strict_mask = strict_mask
-        # float32 arithmetic, as the JAX package computes these constants.
-        f32 = torch.float32
-        sqrt_d = torch.sqrt(torch.tensor(float(n_dim), dtype=f32))
-        self.sigma_0 = float(torch.tensor(2.38, dtype=f32) / sqrt_d)
-        self.sigma_cap = min(self.sigma_0, float(torch.tensor(0.99, dtype=f32)))
+        # In the run's dtype, as the JAX package computes these constants in
+        # its default float (float64 under x64).
+        sqrt_d = torch.sqrt(torch.tensor(float(n_dim), dtype=dtype))
+        self.sigma_0 = float(torch.tensor(2.38, dtype=dtype) / sqrt_d)
+        self.sigma_cap = min(self.sigma_0, float(torch.tensor(0.99, dtype=dtype)))
         self.n_steps_min = float(n_steps * n_dim)
         self.n_steps_cap = float(n_max_steps * n_dim)
 

@@ -7,10 +7,14 @@ top of that file), built with nvcc for sm_90a at first use and bound with
 ctypes. It needs a Hopper card: one launch runs the whole bisection on one
 thread-block cluster of `ESS_CLUSTER` = 16 CTAs of 1024 threads (a
 non-portable cluster size), each CTA owning one contiguous slice of the S
-samples, with one cluster barrier per pass and no host sync. `plan_launch`
-picks the route by S alone: while a slice fits `ESS_SLICE_MAX` samples
-(S <= 393,216) each CTA holds its slice in shared memory, loaded and masked
-once; past that every pass streams the slices from L2.
+samples, with one cluster barrier per pass and no host sync. The kernel is
+a template on its scalar type: `tempest_ess_bisect` runs float32 and
+`tempest_ess_bisect_f64` float64 (the port's dtype=torch.float64 path,
+where JAX runs XLA's float64 bisection). `plan_launch` picks the route by S
+and the dtype: while a slice fits the shared memory, `ESS_SLICE_MAX`
+float32 samples or half as many float64 ones (S <= 393,216 or 196,608),
+each CTA holds its slice there, loaded and masked once; past that every
+pass streams the slices from L2.
 
 Both versions compute, for x = beta * logl - Bm,
 
@@ -25,9 +29,9 @@ is not finite or Bm is +inf, as in state.logw_from_denominator
 there at beta = 0, which makes ESS(0) NaN and skips the "stay" rule.
 
 `ess_bisect_beta` picks its route only by the tensors' device: CPU tensors
-go to the plain version, CUDA float32 contiguous tensors to the kernel,
-anything else raises. A failed build, a cluster that does not fit the card
-or a failed launch raises; nothing falls back.
+go to the plain version, contiguous CUDA tensors of float32 or float64 to
+the kernel of their type, anything else raises. A failed build, a cluster
+that does not fit the card or a failed launch raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -47,32 +51,38 @@ from ..config import (
 from . import _build
 from .tools import ess_from_logw, logsumexp
 
+_SIGNATURE = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
 LIBRARY = _build.CudaLibrary(
-    "ess_bisect.cu",
-    {
-        "tempest_ess_bisect": [ctypes.c_void_p] * 5
-        + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
-    },
+    "ess_bisect.cu", {"tempest_ess_bisect": _SIGNATURE, "tempest_ess_bisect_f64": _SIGNATURE}
 )
+ENTRIES = {torch.float32: "tempest_ess_bisect", torch.float64: "tempest_ess_bisect_f64"}
 
-# Kernel launches made by `ess_bisect_beta` in this process.
+# Kernel launches made by `ess_bisect_beta` in this process: float32 and
+# float64 instantiations.
 LAUNCHES = 0
+LAUNCHES_F64 = 0
 
 ESS_CLUSTER = 16  # CTAs in the cluster: csrc kCluster
-ESS_SLICE_MAX = 24576  # samples a CTA holds in shared memory (192 KB): csrc kSliceMax
+ESS_SLICE_MAX = 24576  # float32 samples a CTA holds in shared memory (192 KB): csrc kSliceMax
 
 
 class LaunchPlan(NamedTuple):
     cluster: int  # CTAs, one slice each
     slice: int  # samples per CTA, a multiple of 4
-    resident: bool  # slice held in shared memory, 8 bytes a sample (else streamed from L2)
+    resident: bool  # slice held in shared memory (else streamed from L2)
 
 
-def plan_launch(n: int) -> LaunchPlan:
-    """The launch of the ESS kernel for S = n samples: the route by S only."""
+def slice_max(dtype=torch.float32) -> int:
+    """Samples of `dtype` a CTA holds in shared memory: 192 KB for logl and Bm."""
+    return ESS_SLICE_MAX * 4 // dtype.itemsize
+
+
+def plan_launch(n: int, dtype=torch.float32) -> LaunchPlan:
+    """The launch of the ESS kernel for S = n samples of `dtype`: the route
+    by S and the dtype only."""
     per_cta = -(-n // ESS_CLUSTER)
     slice_ = max(4, -(-per_cta // 4) * 4)
-    return LaunchPlan(ESS_CLUSTER, slice_, slice_ <= ESS_SLICE_MAX)
+    return LaunchPlan(ESS_CLUSTER, slice_, slice_ <= slice_max(dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -91,7 +101,7 @@ def ess_bisect_beta_reference(
 
     logl: (S,) log-likelihoods; bm: (S,) masked MIS denominator (+inf on
     invalid slots); scal: (2,) = (beta_prev, target). Returns the (1,)
-    float32 beta and the (1,) int32 count of ESS evaluations.
+    beta in the inputs' dtype and the (1,) int32 count of ESS evaluations.
     """
     keep = torch.isfinite(logl) & (bm != float("inf"))
     neg_inf = torch.full_like(logl, float("-inf"))
@@ -129,7 +139,7 @@ def ess_bisect_beta_reference(
             else:
                 hi = beta
     return (
-        beta.reshape(1).to(torch.float32),
+        beta.reshape(1).to(logl.dtype),
         torch.full((1,), probes, dtype=torch.int32, device=logl.device),
     )
 
@@ -140,7 +150,8 @@ def ess_bisect_beta_reference(
 def ess_bisect_beta(
     logl: torch.Tensor, bm: torch.Tensor, scal: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Next beta for ESS mode: (beta (1,) f32, ESS evaluations (1,) i32).
+    """Next beta for ESS mode: (beta (1,) of the inputs' dtype, ESS
+    evaluations (1,) i32).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream without a host sync (scal stays on the device).
@@ -154,10 +165,12 @@ def ess_bisect_beta(
         return ess_bisect_beta_reference(logl, bm, scal)
     if device.type != "cuda":
         raise ValueError(f"ess_bisect_beta runs on cpu or cuda tensors, not {device}")
+    if logl.dtype not in ENTRIES:
+        raise ValueError(f"ess_bisect_beta runs float32 or float64 tensors, not {logl.dtype}")
     for name, t in (("logl", logl), ("bm", bm), ("scal", scal)):
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.dim() != 1:
+        if t.dtype != logl.dtype or not t.is_contiguous() or t.dim() != 1:
             raise ValueError(
-                f"{name} must be a contiguous 1-D float32 tensor "
+                f"{name} must be a contiguous 1-D {logl.dtype} tensor "
                 f"(got {t.dtype}, shape {tuple(t.shape)}, contiguous={t.is_contiguous()})"
             )
     if bm.shape != logl.shape or logl.numel() == 0 or scal.numel() != 2:
@@ -169,19 +182,22 @@ def ess_bisect_beta(
 
 
 def _launch(logl, bm, scal):
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_F64
     if logl.device.index != torch.cuda.current_device():  # the C entry launches on the current one
         with torch.cuda.device(logl.device):
             return _launch(logl, bm, scal)
-    lib = _build.load(LIBRARY)
-    plan = plan_launch(logl.numel())
-    beta = torch.empty(1, dtype=torch.float32, device=logl.device)
+    entry = getattr(_build.load(LIBRARY), ENTRIES[logl.dtype])
+    plan = plan_launch(logl.numel(), logl.dtype)
+    beta = torch.empty(1, dtype=logl.dtype, device=logl.device)
     probes = torch.empty(1, dtype=torch.int32, device=logl.device)
-    err = lib.tempest_ess_bisect(
+    err = entry(
         logl.data_ptr(), bm.data_ptr(), scal.data_ptr(), beta.data_ptr(), probes.data_ptr(),
         logl.numel(), plan.slice, int(plan.resident),
         torch.cuda.current_stream(logl.device).cuda_stream,
     )
     _build.check(err, "ess_bisect")
-    LAUNCHES += 1
+    if logl.dtype == torch.float64:
+        LAUNCHES_F64 += 1
+    else:
+        LAUNCHES += 1
     return beta, probes

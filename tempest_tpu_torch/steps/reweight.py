@@ -146,12 +146,9 @@ def reweight(
         beta = _dynamic_beta(hist, denom, beta_prev, ess_target, cv_target)
     else:
         bm = torch.where(hist.sample_mask(), denom, torch.full_like(denom, float("inf")))
-        scal = torch.stack([
-            beta_prev.to(torch.float32),
-            torch.tensor(ess_target, dtype=torch.float32, device=device),
-        ])
+        scal = torch.stack([beta_prev, torch.tensor(ess_target, dtype=dtype, device=device)])
         beta, _ = ess_bisect_beta(hist.logl.reshape(-1), bm.reshape(-1), scal)
-        beta = beta[0].to(dtype)
+        beta = beta[0]
 
     logw, logz = logw_from_denominator(hist, denom, beta)
     weights = torch.exp(logw)  # normalized; masked entries are exp(-inf) = 0

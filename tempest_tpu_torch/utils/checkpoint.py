@@ -1,9 +1,8 @@
 """Checkpoint and resume: the sampler state as one npz file.
 
 Counterpart of tempest_tpu/utils/checkpoint.py `save_checkpoint` /
-`load_checkpoint` (:42-187), in the same file format, so the port reads
-the JAX package's files (the JAX loader needs an `rng_key`, which the
-port's files do not hold):
+`load_checkpoint` (:42-187), in the same file format, so each package
+reads the other's files:
 
 - `np.savez` of the history and current-state leaves under `hist.<field>`
   and `cur.<field>`, blob rows included (History (d, T, N) layout), plus a
@@ -19,7 +18,9 @@ port's generator, so each package keeps its own under names of its own.
 The port writes `"rng": "torch"` into the meta and its whole draw state
 (`Draws.get_state`: the generator state, and for `HardwareDraws` the
 Philox key and counter) under `draws.<name>`, and the carried cluster
-model under `model.<field>`. A generator's state belongs to its device
+model under `model.<field>`. It also writes `rng_key`, the run's seed as
+a threefry key (`Draws.key_words`), so the JAX package loads a port file
+and continues from that key; the port itself reads its own draw state. A generator's state belongs to its device
 type (a CUDA generator's is its seed and offset), so a file resumes on the
 device type it was written on; loading it elsewhere raises from PyTorch.
 A file the JAX package wrote has `rng_key`
@@ -29,7 +30,16 @@ the resumed run agrees with JAX statistically, as every whole run does.
 
 Files of format 1 load too: their (T, N, d) coordinate buffers are moved
 to (d, T, N), a missing `mis_c` accumulator is rebuilt, and raw call
-counts become sweeps. Every tensor is loaded onto the given device. The
+counts become sweeps. Every tensor is loaded onto the given device.
+
+Float dtypes. A file holds the state in the dtype of the run that wrote it,
+and the port and JAX write the same arrays, so a JAX x64 file loads into a
+float64 sampler as it is, and a float64 port file into JAX with x64. The
+state of a file in another float dtype than the sampler's (not the blob
+rows, whose dtype is the schema's) is cast to the sampler's: JAX without
+x64 casts a float64 file down to float32 the same way (`jnp.asarray`).
+JAX with x64 keeps a float32 file's arrays in float32 and runs on at mixed
+precision; the port casts them up, so a run stays in one dtype. The
 per-host sharded checkpoints (:213-407) wait for `parallel/` (ROADMAP.md
 queue 1, item 11).
 """
@@ -74,8 +84,10 @@ def save_checkpoint(
     meta: Optional[dict] = None,
     blob_store: Optional[list] = None,
     model: Optional[ClusterModel] = None,
+    rng_key: Optional[np.ndarray] = None,
 ) -> None:
-    """Write the sampler state to `path`, atomically."""
+    """Write the sampler state to `path`, atomically; `rng_key` (two
+    uint32 words) is the key the JAX package continues from."""
     path = Path(path)
     tmp = path.with_suffix(path.suffix + ".temp")
     arrays = {f"hist.{k}": fetch(getattr(hist, k)) for k in HISTORY_FIELDS}
@@ -87,6 +99,8 @@ def save_checkpoint(
         arrays["hist.blobs"] = fetch(hist.blobs)
         arrays["cur.blobs"] = fetch(cur.blobs)
     arrays.update({f"draws.{k}": np.asarray(v) for k, v in draw_state.items()})
+    if rng_key is not None:
+        arrays["rng_key"] = np.asarray(rng_key, dtype=np.uint32)
     if model is not None:
         arrays.update({f"model.{k}": fetch(getattr(model, k)) for k in CLUSTER_FIELDS})
         arrays["model.normalize"] = np.asarray(model.normalize)
@@ -112,8 +126,9 @@ def save_checkpoint(
     os.rename(tmp, path)
 
 
-def load_checkpoint(path: Union[str, Path], device) -> Checkpoint:
-    """Read a checkpoint of either package onto `device`."""
+def load_checkpoint(path: Union[str, Path], device, dtype=None) -> Checkpoint:
+    """Read a checkpoint of either package onto `device`, its float state
+    in `dtype` (default: the file's)."""
     path = Path(path)
     with np.load(path, allow_pickle=False) as probe:
         payload = json.loads(str(probe["__meta__"]))
@@ -121,12 +136,15 @@ def load_checkpoint(path: Union[str, Path], device) -> Checkpoint:
     with np.load(path, allow_pickle=allow_pickle) as data:
         legacy_layout = payload.get("format_version", 1) < 2
 
-        def get(name):
-            return torch.from_numpy(np.array(data[name], copy=True)).to(device)
+        def get(name, cast=True):
+            arr = torch.from_numpy(np.array(data[name], copy=True)).to(device)
+            if cast and dtype is not None and arr.is_floating_point():
+                arr = arr.to(dtype)
+            return arr
 
-        def get_tdn(name):
+        def get_tdn(name, cast=True):
             """A history coordinate buffer, moved from v1's (T, N, B)."""
-            arr = get(name)
+            arr = get(name, cast)
             return torch.movedim(arr, -1, 0).contiguous() if legacy_layout else arr
 
         has_blobs = bool(payload["has_blobs"])
@@ -136,11 +154,11 @@ def load_checkpoint(path: Union[str, Path], device) -> Checkpoint:
         fields["mis_c"] = (torch.full_like(fields["logl"], float("-inf")) if rebuild
                            else get("hist.mis_c"))
         hist = History(**fields, t=int(data["hist.t"]),
-                       blobs=get_tdn("hist.blobs") if has_blobs else None)
+                       blobs=get_tdn("hist.blobs", cast=False) if has_blobs else None)
         cur = Current(
             **{k: get(f"cur.{k}") for k in CURRENT_FIELDS},
             **{k: int(data[f"cur.{k}"]) for k in CURRENT_COUNTERS},
-            blobs=get("cur.blobs") if has_blobs else None,
+            blobs=get("cur.blobs", cast=False) if has_blobs else None,
         )
         if rebuild:
             hist = rebuild_mis_c(hist)

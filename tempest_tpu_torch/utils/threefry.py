@@ -1,17 +1,23 @@
 """The few `jax.random` values the port needs bit for bit, in plain Python.
 
 The JAX package seeds its hierarchical clustering with the fixed key
-`PRNGKey(42)` (tempest_tpu/fused.py:133-134). With one EM start per leaf,
-the only randomness of a fit is two k-means++ uniforms per leaf slot:
-`uniform(split(split(PRNGKey(42), k_max)[i], 2)[j], ())`. This module
-reproduces them with integer arithmetic, so the port's fit agrees with
-JAX value for value: Threefry-2x32 with 20 rounds (Salmon et al. 2011, as
-jax._src.prng.threefry2x32), `split` and `uniform` as JAX computes them
-with `jax_threefry_partitionable` on (the default of JAX 0.5 and later).
+`PRNGKey(42)` (tempest_tpu/fused.py:133-134), and the mixture facades with
+`key(random_state)` (tempest_tpu/cluster.py:504, :1110). The only
+randomness of a fit is one k-means++ uniform per component and EM start:
+`uniform(split(start_key, K)[k], ())` (cluster.py:83-98), where a start's
+key is the fit key itself with one start and `split(key, n_init)[i]` with
+more (:272-274). This module reproduces them with integer arithmetic, so
+the port's fits agree with JAX value for value: Threefry-2x32 with 20
+rounds (Salmon et al. 2011, as jax._src.prng.threefry2x32), `split` and
+`uniform` as JAX computes them with `jax_threefry_partitionable` on (the
+default of JAX 0.5 and later). A float64 uniform (JAX with x64, whose
+default float is float64) is made from 64 random bits, the float32 one
+from 32.
 """
 
 from __future__ import annotations
 
+import struct
 from typing import List, Tuple
 
 _MASK = 0xFFFFFFFF
@@ -47,11 +53,26 @@ def split(key: Key, num: int) -> List[Key]:
     return [threefry2x32(key, (i >> 32, i & _MASK)) for i in range(num)]
 
 
-def uniform(key: Key) -> float:
-    """`jax.random.uniform(key, ())` in float32: the mantissa of [1, 2) from
-    the xor of the two words of block 0, minus 1."""
-    import numpy as np
-
+def uniform(key: Key, bits: int = 32) -> float:
+    """`jax.random.uniform(key, ())` of a float of `bits` bits, 32 or 64: the
+    mantissa of a float in [1, 2) from the random bits of block 0, minus 1
+    (exact in that float). 32 bits are the xor of the block's two words; 64
+    are the first word above the second (jax._src.prng, partitionable)."""
     b0, b1 = threefry2x32(key, (0, 0))
-    bits = np.uint32(((b0 ^ b1) >> 9) | 0x3F800000)
-    return float(bits.view(np.float32) - np.float32(1.0))
+    if bits == 32:
+        one_two = struct.unpack("<f", struct.pack("<I", ((b0 ^ b1) >> 9) | 0x3F800000))[0]
+    elif bits == 64:
+        word = (b0 << 32) | b1
+        one_two = struct.unpack("<d", struct.pack("<Q", (word >> 12) | 0x3FF0000000000000))[0]
+    else:
+        raise ValueError(f"uniform takes 32 or 64 bits, not {bits}")
+    return one_two - 1.0
+
+
+def kmeanspp_uniforms(key: Key, n_init: int, n_components: int, bits: int = 32):
+    """(n_init, n_components) k-means++ uniforms of one fit:
+    `uniform(split(start_key_i, K)[k])` (cluster.py:83-98), where the start
+    key is the fit key itself for one start and `split(key, n_init)[i]` for
+    more (:272-274)."""
+    starts = [key] if n_init <= 1 else split(key, n_init)
+    return [[uniform(k, bits) for k in split(start, n_components)] for start in starts]

@@ -13,7 +13,10 @@ bisections that sum in different orders (tests/test_pallas.py:53-54).
 Stay and jump are exact, with 2 probes, and two launches on the same
 inputs give the same bits. Both routes of its
 launch plan are held to it: slices in shared memory (S <= 393,216) and
-slices streamed from L2 (S >= 393,217). The PRNG kernels
+slices streamed from L2 (S >= 393,217). Its float64 instantiation must
+take the plain version's probes and end within 1e-12 (relative) of its
+beta, on both routes (S <= 196,608 held, S >= 196,609 streamed); a float64
+run launches it once per reweight and no PRNG kernel. The PRNG kernels
 and their plain versions (ops/philox.py) on the card and on one key and
 call index, at the tolerances of chip_smoke.py's kernel phase: bits
 exactly equal, normals and uniforms within 1e-5 absolute, gamma draws
@@ -60,17 +63,18 @@ def _assert_beta_matches(logl, bm, scal, got, want):
     assert abs(bk - br) < 2e-3 and (close or stops), (bk, br, pr)
 
 
-def _synthetic(device, cap, N, t_fill, seed):
+def _synthetic(device, cap, N, t_fill, seed, dtype=torch.float32):
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    h = make_history(cap, N, 2, device=device)
-    c = make_current(N, 2, device=device)
+    h = make_history(cap, N, 2, dtype=dtype, device=device)
+    c = make_current(N, 2, dtype=dtype, device=device)
     for t in range(t_fill):
-        c.logl = -torch.exp(1.0 + 2.0 * torch.randn(N, generator=g, device=device))
-        c.beta = torch.tensor(0.0 if t < 2 else 0.01 * t, device=device)
-        c.logz = torch.tensor(-0.2 * t, device=device)
+        c.logl = -torch.exp(1.0 + 2.0 * torch.randn(N, generator=g, device=device, dtype=dtype))
+        c.beta = torch.tensor(0.0 if t < 2 else 0.01 * t, device=device, dtype=dtype)
+        c.logz = torch.tensor(-0.2 * t, device=device, dtype=dtype)
         commit(h, c)
-    bm = torch.where(h.sample_mask(), mis_denominator(h), torch.tensor(float("inf"), device=device))
+    inf = torch.tensor(float("inf"), device=device, dtype=dtype)
+    bm = torch.where(h.sample_mask(), mis_denominator(h), inf)
     return h.logl.reshape(-1).contiguous(), bm.reshape(-1).contiguous()
 
 
@@ -152,11 +156,72 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     logl, bm = _synthetic(cuda_device, 4, 32, 3, seed=1)
     scal = torch.tensor([0.0, 64.0], device=cuda_device)
     with pytest.raises(ValueError):
-        cuda_reweight.ess_bisect_beta(logl.double(), bm.double(), scal.double())
+        cuda_reweight.ess_bisect_beta(logl.half(), bm.half(), scal.half())
+    with pytest.raises(ValueError):  # one dtype for all three
+        cuda_reweight.ess_bisect_beta(logl.double(), bm.double(), scal)
     with pytest.raises(ValueError):
         cuda_reweight.ess_bisect_beta(logl[::2], bm[::2], scal)
     with pytest.raises(ValueError):
         cuda_reweight.ess_bisect_beta(logl, bm.cpu(), scal)
+
+
+ON_CHIP_MAX_F64 = cuda_reweight.ESS_CLUSTER * cuda_reweight.slice_max(torch.float64)  # 196,608
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "cap,N,t_fill,S",
+    [
+        (64, 1024, 40, None),  # the canonical S = 65,536
+        (7, 1000, 5, None),  # ragged
+        (8, 24576, 8, ON_CHIP_MAX_F64),  # the last float64 S held on chip
+        (8, 24577, 8, ON_CHIP_MAX_F64 + 1),  # the first streamed
+        (8, 131072, 8, None),  # B's S = 1,048,576
+    ],
+)
+def test_float64_kernel_matches_plain_version(cuda_device, cap, N, t_fill, S):
+    logl, bm = _synthetic(cuda_device, cap, N, t_fill, seed=cap, dtype=torch.float64)
+    if S is not None:
+        logl, bm = logl[:S], bm[:S]
+    assert cuda_reweight.plan_launch(logl.numel(), torch.float64).resident == (
+        logl.numel() <= ON_CHIP_MAX_F64)
+    before = cuda_reweight.LAUNCHES_F64
+    bp = 0.01 * (t_fill - 1)
+    cur, one = _ess(logl, bm, bp), _ess(logl, bm, 1.0)
+    cases = [(bp, 1.5 * cur), (bp, 0.5 * one), (bp, (cur * one) ** 0.5), (0.0, 2.0 * N)]
+    kinds = set()
+    for beta_prev, target in cases:
+        scal = torch.tensor([beta_prev, target], device=cuda_device, dtype=torch.float64)
+        beta_k, probes_k = cuda_reweight.ess_bisect_beta(logl, bm, scal)
+        again, _ = cuda_reweight.ess_bisect_beta(logl, bm, scal)
+        beta_r, probes_r = cuda_reweight.ess_bisect_beta_reference(logl, bm, scal)
+        torch.cuda.synchronize()
+        assert beta_k.dtype == torch.float64
+        assert torch.equal(beta_k.view(torch.int64), again.view(torch.int64))  # same bits
+        bk, br = beta_k.item(), beta_r.item()
+        assert probes_k.item() == probes_r.item(), (bk, br)
+        assert abs(bk - br) <= 1e-12 * abs(br), (bk, br)
+        kinds.add("bisect" if probes_r.item() > 2 else ("stay" if br == bp else "jump"))
+    assert kinds == {"stay", "jump", "bisect"}
+    assert cuda_reweight.LAUNCHES_F64 == before + 2 * len(cases)
+
+
+@pytest.mark.cuda
+def test_float64_sampler_runs_through_the_double_kernel(cuda_device):
+    def loglike(x):
+        return -0.5 * torch.sum(x * x, dim=-1)
+
+    s = Sampler(lambda u: 20.0 * u - 10.0, loglike, n_dim=4, n_particles=256, vectorize=True,
+                random_state=1, history_capacity=32, dtype=torch.float64, hardware_prng=True,
+                device=cuda_device)
+    before = (cuda_reweight.LAUNCHES, cuda_reweight.LAUNCHES_F64, dict(cuda_prng.LAUNCHES))
+    s.run(n_total=1024)
+    assert s.state.hist.logl.dtype == torch.float64
+    assert cuda_reweight.LAUNCHES == before[0]
+    assert cuda_reweight.LAUNCHES_F64 - before[1] == s.state.hist.t - 1
+    assert cuda_prng.LAUNCHES == before[2]
+    assert s.beta >= 1.0 - 1e-4
+    assert abs(s.evidence()[0] - (-4 * math.log(20.0) + 2 * math.log(2 * math.pi))) < 0.5
 
 
 @pytest.mark.cuda

@@ -3,9 +3,11 @@
 - Each `CudaLibrary`'s ctypes signature table matches the `extern "C"`
   declarations of its source under tempest_tpu_torch/csrc/: the same
   names, and per argument the ctypes type of the C type.
-- `cuda_reweight.plan_launch` picks the ESS kernel's route by S alone:
-  slices held in shared memory up to 16 x 24,576 = 393,216 samples,
-  streamed from L2 past that; its two constants are the kernel's.
+- `cuda_reweight.plan_launch` picks the ESS kernel's route by S and the
+  dtype: slices held in shared memory up to 16 x 24,576 = 393,216 float32
+  samples, or 16 x 12,288 = 196,608 float64 ones, streamed from L2 past
+  that; its two constants are the kernel's, and each dtype names its C
+  entry.
 - The inputs of the GPU test of the mutation-draws kernel reach the later
   Marsaglia-Tsang rounds that the kernel spreads over lanes.
 """
@@ -87,6 +89,37 @@ def test_ess_route_changes_once():
     """Held on chip up to the boundary, streamed past it, nowhere else."""
     sizes = range(ON_CHIP - 64, ON_CHIP + 65)
     assert [cuda_reweight.plan_launch(S).resident for S in sizes] == [S <= ON_CHIP for S in sizes]
+
+
+ON_CHIP_F64 = cuda_reweight.ESS_CLUSTER * cuda_reweight.slice_max(torch.float64)
+
+
+def test_each_dtype_names_its_entry():
+    assert cuda_reweight.ENTRIES == {torch.float32: "tempest_ess_bisect",
+                                     torch.float64: "tempest_ess_bisect_f64"}
+    assert set(cuda_reweight.ENTRIES.values()) == set(cuda_reweight.LIBRARY.functions)
+
+
+@pytest.mark.parametrize(
+    "S,slice_,resident",
+    [
+        (65536, 4096, True),  # A's history
+        (ON_CHIP_F64, 12288, True),  # the last float64 S held on chip
+        (ON_CHIP_F64 + 1, 12292, False),  # the first streamed
+        (1 << 20, 65536, False),  # B
+    ],
+)
+def test_ess_launch_plan_float64(S, slice_, resident):
+    plan = cuda_reweight.plan_launch(S, torch.float64)
+    assert ON_CHIP_F64 == 196608
+    assert (plan.cluster, plan.slice, plan.resident) == (16, slice_, resident)
+    assert 16 * cuda_reweight.slice_max(torch.float64) == 8 * cuda_reweight.ESS_SLICE_MAX
+
+
+def test_ess_route_changes_once_float64():
+    sizes = range(ON_CHIP_F64 - 64, ON_CHIP_F64 + 65)
+    assert ([cuda_reweight.plan_launch(S, torch.float64).resident for S in sizes]
+            == [S <= ON_CHIP_F64 for S in sizes])
 
 
 @pytest.mark.parametrize("N", [1024, 1000, 6553])

@@ -46,6 +46,7 @@ SUBMODULES = [
     "tempest_tpu_torch.utils.blobs",
     "tempest_tpu_torch.utils.checkpoint",
     "tempest_tpu_torch.utils.host",
+    "tempest_tpu_torch.utils.profiling",
     "tempest_tpu_torch.utils.progress",
     "tempest_tpu_torch.utils.threefry",
     "tempest_tpu_torch.utils.wrappers",
@@ -136,11 +137,16 @@ def test_defaults_match_jax():
 # options leave this list.
 @pytest.mark.parametrize("kw,item", [
     pytest.param(dict(mesh=object()), "queue 1, item 11", id="kw4-queue 1, item 11"),
-    pytest.param(dict(dtype=torch.float64), "queue 1, item 11", id="kw5-queue 1, item 11"),
+    pytest.param(dict(dtype=torch.float16), "queue 1, item 11", id="kw5-queue 1, item 11"),
 ])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _config(SamplerConfig, device="cpu", **kw)
+
+
+def test_float64_is_accepted():
+    """float64 runs (tempest_tpu with x64); only the mesh and other dtypes raise."""
+    assert _config(SamplerConfig, device="cpu", dtype=torch.float64).dtype == torch.float64
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(hardware_prng=True), dict(n_max_clusters=3)])
@@ -187,3 +193,21 @@ def test_sampler_properties_and_single_iterations():
         s.sample()
     logz, err = s.evidence(n_bootstrap=8)
     assert math.isfinite(logz) and math.isfinite(err) and err >= 0.0
+
+
+def test_profiling_trace_and_annotate(tmp_path):
+    """utils.profiling: `trace` writes a Chrome trace of the block, and the
+    iteration's stage ranges, made by `annotate`, appear in it."""
+    from tempest_tpu_torch import Sampler
+    from tempest_tpu_torch.utils import profiling
+
+    with profiling.maybe_trace(None) as nothing:
+        assert nothing is None
+    s = Sampler(prior, loglike, n_dim=3, n_particles=16, vectorize=True, clustering=False,
+                random_state=3, device="cpu")
+    with profiling.maybe_trace(str(tmp_path)) as prof:
+        with profiling.annotate("user/block"):
+            s.sample()
+    keys = {e.key for e in prof.key_averages()}
+    assert {"user/block", "ps/warmup", "ps/commit"} <= keys
+    assert "ps/warmup" in (tmp_path / "trace.json").read_text()
