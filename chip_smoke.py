@@ -69,7 +69,20 @@ lines and a failure exits non-zero:
     kernel at its S = 1,048,576 against the plain version; the 4-D Gaussian
     of tests/test_float64.py with its bars; the mixture facades on the card
     (GaussianMixture of each covariance type on two blobs,
-    HierarchicalGaussianMixture splitting them, predict_proba summing to 1).
+    HierarchicalGaussianMixture splitting them, predict_proba summing to 1);
+15. the particle mesh at world size 1 over NCCL (`parallel.distributed.
+    initialize` on a free local port): `sharded_resample` on A's history
+    shape against the unsharded resampler ("mult" and "syst", the same
+    rows), `sharded_select_fit_points` against the unsharded selection on
+    the whole history (the same rows and keep mask) and its candidate
+    branch at m = 4096 (the heaviest samples, renormalized); A with
+    `mesh=make_particle_mesh()` and `save_every=10`, seed 42: logZ in the
+    band, beta = 1, and no ESS-kernel launch, since a mesh bisects by
+    reductions as JAX bypasses its kernel under one; its wall beside phase
+    6's seed 42; a mesh sampler resumed from the iteration-20 file runs the
+    two iterations after it as the run that went on did; `posterior()` and
+    `evidence(n_bootstrap=256)` through the gathers. The process group is
+    destroyed at the end of the phase, whatever happens in it.
 
 Every path phase sets the kernels' launch counts to 0 just before it
 drives the path and reads them just after. The last three lines are the
@@ -94,6 +107,7 @@ import json
 import math
 import os
 import pickle
+import socket
 import subprocess
 import sys
 import tempfile
@@ -128,8 +142,18 @@ from tempest_tpu_torch.config import (  # noqa: E402
     METRIC_ATOL,
     N_PROPOSAL_CANDIDATES,
 )
+from tempest_tpu_torch.iteration import select_fit_points  # noqa: E402
 from tempest_tpu_torch.ops import _build, cuda_prng, cuda_reweight, philox  # noqa: E402
 from tempest_tpu_torch.ops.tools import ess_from_logw  # noqa: E402
+from tempest_tpu_torch.parallel import make_particle_mesh  # noqa: E402
+from tempest_tpu_torch.parallel.collective import (  # noqa: E402
+    positions,
+    sharded_resample,
+    sharded_select_fit_points,
+)
+from tempest_tpu_torch.parallel.distributed import initialize  # noqa: E402
+from tempest_tpu_torch.parallel.mesh import particle_group  # noqa: E402
+from tempest_tpu_torch.steps.resample import resample as resample_step  # noqa: E402
 from tempest_tpu_torch.steps import reweight as reweight_step  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from tempest_tpu_torch.state import (  # noqa: E402
@@ -1526,6 +1550,106 @@ def phase_float64(device, walls32: dict) -> dict:
     return paths, errs
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the particle mesh
+# ---------------------------------------------------------------------------
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_collectives(device, group) -> None:
+    """The two collectives at world size 1 on a history of A's shape (N =
+    1024, 64 slots, 30 filled), against the unsharded routes."""
+    hist = synthetic_history(device, N_PARTICLES, CAPACITY, 30, seed=15)
+    g = torch.Generator(device=device)
+    g.manual_seed(15)
+    hist.u.copy_(torch.rand(hist.u.shape, generator=g, device=device))
+    hist.x.copy_(20.0 * hist.u - 10.0)
+    logw, _ = logw_from_denominator(hist, mis_denominator(hist), 1.0)
+    weights = torch.exp(logw)
+    for method in ("mult", "syst"):
+        uniforms = torch.rand((N_PARTICLES,) if method == "mult" else (), generator=g,
+                              device=device)
+        got = sharded_resample(positions(uniforms, N_PARTICLES, method), hist, weights, group)
+        want = resample_step(uniforms, hist, weights, N_PARTICLES, method=method)
+        rows = int(torch.sum(torch.all(got[0] == want[0], dim=1)))
+        same = all(bool(torch.equal(a, b)) for a, b in zip(got[:3], want[:3]))
+        print(f"mesh sharded_resample {method}: {rows} of {N_PARTICLES} rows equal to the "
+              f"unsharded resampler's", flush=True)
+        check(same, f"mesh sharded_resample {method}: {N_PARTICLES - rows} rows differ")
+    S = CAPACITY * N_PARTICLES
+    u_fit, w_fit, keep = sharded_select_fit_points(hist.u, weights, hist.t, S, group)
+    u_want, w_want, keep_want = select_fit_points(hist, weights, S)
+    w_err = float(torch.max(torch.abs(w_fit - w_want)))
+    print(f"mesh sharded_select_fit_points m = S = {S}: rows equal "
+          f"{bool(torch.equal(u_fit, u_want))}, keep equal {bool(torch.equal(keep, keep_want))}, "
+          f"max |w - w_unsharded| {w_err:.3g}", flush=True)
+    check(torch.equal(u_fit, u_want) and torch.equal(keep, keep_want) and w_err <= 1e-6,
+          "mesh sharded_select_fit_points: not the unsharded selection")
+    m = 4096
+    u_fit, w_fit, keep = sharded_select_fit_points(hist.u, weights, hist.t, m, group)
+    top = torch.topk(weights.reshape(-1), m).values
+    err = float(torch.max(torch.abs(w_fit * torch.sum(top) - top)))
+    print(f"mesh sharded_select_fit_points m = {m} (candidate branch): weights sum "
+          f"{float(torch.sum(w_fit)):.7f}, max |w - top-m| {err:.3g}", flush=True)
+    check(u_fit.shape == (m, N_DIM) and abs(float(torch.sum(w_fit)) - 1.0) < 1e-5
+          and err <= 1e-6 * float(top[0]), "mesh sharded_select_fit_points: candidate branch")
+
+
+def phase_mesh(device, walls32: dict) -> dict:
+    """15: A on a particle mesh of one rank, over NCCL."""
+    import torch.distributed as dist
+
+    initialize(f"127.0.0.1:{free_port()}", 1, 0, device=device.type, timeout=300)
+    try:
+        mesh = make_particle_mesh(device=device.type)
+        mesh_collectives(device, particle_group(mesh))
+        with tempfile.TemporaryDirectory() as tmp:
+            s = Sampler(prior_transform, rosenbrock, n_dim=N_DIM, n_particles=N_PARTICLES,
+                        vectorize=True, history_capacity=CAPACITY, random_state=SEEDS[0],
+                        output_dir=tmp, device=device, mesh=mesh)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.run(n_total=N_TOTAL, progress=False, save_every=10)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = counts()
+            ess = check_run(f"A mesh (world size 1, seed {SEEDS[0]})", s, CLUSTERED_LOGZ,
+                            launched)
+            print(f"A mesh seed {SEEDS[0]}: wall={wall:.3f} s eff/s={ess / wall:.1f} "
+                  f"clusters={int(s.state.cluster_model.n_clusters())}; phase 6 seed "
+                  f"{SEEDS[0]} without a mesh: {walls32[SEEDS[0]]:.3f} s", flush=True)
+            check(all(n == 0 for n in launched.values()),
+                  f"A mesh: kernel launches {launched}; a mesh runs no ESS kernel")
+
+            resumed = Sampler(prior_transform, rosenbrock, n_dim=N_DIM,
+                              n_particles=N_PARTICLES, vectorize=True,
+                              history_capacity=CAPACITY, random_state=SEEDS[1],
+                              device=device, mesh=mesh)
+            resumed.load_state(os.path.join(tmp, "ps_20.state"))
+            for _ in range(2):
+                resumed.sample()
+            check_same_stream("mesh resume from ps_20.state", iteration_rows(s, 20),
+                              iteration_rows(resumed, 20))
+
+        x, w, logl = s.posterior()
+        logz, logz_err = s.evidence(n_bootstrap=256)
+        mean = np.average(x, axis=0, weights=w)
+        print(f"A mesh posterior: {len(x)} samples of {s.state.hist.t * N_PARTICLES}, weights "
+              f"sum {w.sum():.6f}, mean[:3] {mean[:3].round(4).tolist()}; evidence "
+              f"{logz:.4f} +/- {logz_err:.5f} (bootstrap)", flush=True)
+        check(x.shape[1] == N_DIM and np.all(np.isfinite(x)) and np.all(np.isfinite(logl))
+              and abs(w.sum() - 1.0) < 1e-6, "A mesh posterior")
+        check(logz == s.logz and math.isfinite(logz_err) and logz_err > 0.0,
+              f"A mesh evidence {logz} +/- {logz_err}")
+        return launched
+    finally:
+        dist.destroy_process_group()
+
+
 def profile_iterations(s, name: str, out_dir: str) -> None:
     """Profile iterations 21-25 of sampler `s`: each stage's host time and
     share of the wall, the device's self time and idle share; the tables
@@ -1654,6 +1778,7 @@ def main() -> None:
     paths.update(f64_paths)
     for name, err in f64_errs.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    paths["A_mesh"] = phase_mesh(device, walls)
     if args.profile:
         phase_profile(device, args.profile)
 

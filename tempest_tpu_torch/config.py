@@ -6,11 +6,13 @@ keywords, defaults and validation messages. Two fields are new here:
 `dtype` is a torch dtype (float32 or float64) and `device` names the torch
 device every tensor lives on.
 
-Two options are outside the ported slice, the mesh and dtypes other than
-float32 and float64; they raise NotImplementedError naming the ROADMAP.md
-item that will bring the mesh. The TPU-only knobs of ROADMAP.md
-queue 1, item 12 (`on_device_dispatch_budget_s`, `donate_state`, `fused`)
-and the mesh axis name are not part of this package.
+`mesh` is a 1-D `torch.distributed.device_mesh.DeviceMesh` from
+`parallel.make_particle_mesh`, of the device type of `device`, and
+`particle_axis` names its dimension, as in JAX; with a CUDA mesh the
+sampler runs on the rank's own card. Dtypes other than float32 and float64
+raise NotImplementedError naming the ROADMAP.md item. The TPU-only knobs
+of ROADMAP.md queue 1, item 12 (`on_device_dispatch_budget_s`,
+`donate_state`, `fused`) are not part of this package.
 """
 
 from __future__ import annotations
@@ -98,7 +100,8 @@ class SamplerConfig:
     dtype: Any = torch.float32
     device: Any = "cuda"
     host_likelihood: bool = False
-    mesh: Any = None
+    mesh: Any = None  # a DeviceMesh over the particle axis; None = one device
+    particle_axis: str = "particles"  # the mesh dimension name of the particle axis
     history_capacity: int = DEFAULT_HISTORY_CAPACITY
     auto_capacity: bool = True
     k_max: int = DEFAULT_K_MAX
@@ -152,11 +155,13 @@ class SamplerConfig:
 
         self.validate()
         self._check_ported()
+        self._check_mesh()
 
         if self.pool is not None and not self.host_likelihood:
             warnings.warn(
-                "pool is ignored for torch likelihoods: they run batched on the "
-                "device. It IS honored together with host_likelihood=True.",
+                "pool is ignored for torch likelihoods: parallelism comes from "
+                "sharding the particle axis over the device mesh (pass mesh=...). "
+                "It IS honored together with host_likelihood=True.",
                 UserWarning,
                 stacklevel=2,
             )
@@ -261,15 +266,34 @@ class SamplerConfig:
             raise ValueError(f"Invalid SamplerConfig ({len(problems)} problem(s)):\n{listing}")
 
     def _check_ported(self) -> None:
-        """Refuse, by name, every option this package does not run yet."""
-        unported = [
-            (self.mesh is not None, "mesh (particle-axis sharding)"),
-            (self.dtype not in (torch.float32, torch.float64),
-             f"dtype={self.dtype} (only torch.float32 and torch.float64)"),
-        ]
-        for bad, what in unported:
-            if bad:
-                raise not_ported(what, "queue 1, item 11")
+        """Refuse, by name, every option this package does not run."""
+        if self.dtype not in (torch.float32, torch.float64):
+            raise not_ported(f"dtype={self.dtype} (only torch.float32 and torch.float64)",
+                             "queue 1, item 11")
+
+    def _check_mesh(self) -> None:
+        """A mesh must be a 1-D DeviceMesh over `particle_axis`, of the
+        device type the sampler runs on; a CUDA sampler then runs on the
+        rank's current card."""
+        if self.mesh is None:
+            return
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not isinstance(self.mesh, DeviceMesh):
+            raise TypeError(
+                "mesh must be a torch.distributed.device_mesh.DeviceMesh from "
+                "tempest_tpu_torch.parallel.make_particle_mesh(), got "
+                f"{type(self.mesh).__name__}")
+        if self.mesh.ndim != 1 or self.mesh.mesh_dim_names != (self.particle_axis,):
+            raise ValueError(
+                f"mesh must be 1-D with the dimension {self.particle_axis!r}, got "
+                f"dimensions {self.mesh.mesh_dim_names}")
+        if self.mesh.device_type != self.device.type:
+            raise ValueError(
+                f"mesh of device type {self.mesh.device_type!r} for a sampler on {self.device}")
+        if self.device.type == "cuda" and self.device.index is None:
+            object.__setattr__(self, "device",
+                               torch.device("cuda", torch.cuda.current_device()))
 
     def get_target_metric(self) -> float:
         """Target metric: CV in dynamic mode, else ess_ratio * n_particles."""

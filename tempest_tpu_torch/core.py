@@ -12,6 +12,16 @@ cluster model is carried from iteration to iteration in `cluster_model`
 `on_device=False`: there is one code path, so `save_every` works on every
 path. The dispatch-budget chunking of the TPU whole-run program is not
 ported (ROADMAP.md queue 1, item 12).
+
+With a particle mesh (`config.mesh`, parallel/) each rank holds its block
+of the particle axis (core.py:158-165, :222-272): N must divide by the
+ranks; the history and the active set are made and grown on the block; the
+draws are a `draws.BlockDraws`. The posterior, the results and the current
+dict gather the blocks (`utils.host.fetch`), so every rank returns the
+values of the whole run in the order of a run on one device. A run of more
+than one rank saves sharded checkpoints (a directory, as JAX's multi-process
+runs do); a sharded file loads only into a sampler with a mesh, a
+single file into either, each rank taking its block.
 """
 
 from __future__ import annotations
@@ -21,12 +31,14 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .cluster import ClusterModel, single_cluster_model
 from .config import SamplerConfig
-from .draws import Draws, HardwareDraws, seed_from_key_words
+from .draws import BlockDraws, Draws, HardwareDraws, seed_from_key_words
 from .iteration import make_iteration
-from .ops.tools import ess_from_logw, systematic_resample, trim_weights_mask
+from .ops.tools import ess_from_logw_psum, systematic_resample, trim_weights_mask
+from .parallel.mesh import particle_group, shard_current, shard_history
 from .state import (
     Current,
     History,
@@ -36,7 +48,12 @@ from .state import (
     make_current,
     make_history,
 )
-from .utils.checkpoint import load_checkpoint, save_checkpoint
+from .utils.checkpoint import (
+    load_checkpoint,
+    load_checkpoint_sharded,
+    save_checkpoint,
+    save_checkpoint_sharded,
+)
 from .utils.host import fetch
 from .utils.progress import ProgressBar
 from .utils.wrappers import (
@@ -57,6 +74,18 @@ class SamplerCore:
         self.n_particles = cfg.n_particles
         self.dtype = cfg.dtype
         self.device = cfg.device
+        self.group = None
+        self.world, self.rank = 1, 0
+        if cfg.mesh is not None:
+            self.group = particle_group(cfg.mesh, cfg.particle_axis)
+            self.world = dist.get_world_size(self.group)
+            self.rank = dist.get_rank(self.group)
+            if cfg.n_particles % self.world != 0:
+                raise ValueError(
+                    f"n_particles ({cfg.n_particles}) must be divisible by the "
+                    f"mesh size ({self.world}) to shard the particle axis."
+                )
+        self.n_local = cfg.n_particles // self.world
 
         wrapped = FunctionWrapper(
             cfg.log_likelihood, cfg.log_likelihood_args, cfg.log_likelihood_kwargs
@@ -72,6 +101,9 @@ class SamplerCore:
             vectorize=cfg.vectorize,
         )
         self.blob_size = None if self.blob_schema is None else self.blob_schema.width
+        if self.world > 1 and self.blob_schema is not None and self.blob_schema.is_object:
+            raise ValueError("object blobs are stored per process; a mesh of more than one "
+                             "rank runs numeric blobs only")
         self._blobs_dtype = None if self.blob_schema is None else self.blob_schema.device_dtype
         # The host map of host_likelihood=True (a spawned pool for pool=<int>).
         self.pool_map = make_pool_map(cfg.pool) if cfg.host_likelihood else None
@@ -98,20 +130,21 @@ class SamplerCore:
         self.draws = self._make_draws(seed)
         self.cluster_model: ClusterModel = self._placeholder_model()
         self.hist: History = make_history(
-            cfg.history_capacity, cfg.n_particles, cfg.n_dim, dtype=cfg.dtype,
+            cfg.history_capacity, self.n_local, cfg.n_dim, dtype=cfg.dtype,
             device=self.device, blob_size=self.blob_size, blobs_dtype=self._blobs_dtype,
         )
         self.cur: Current = make_current(
-            cfg.n_particles, cfg.n_dim, dtype=cfg.dtype, device=self.device,
+            self.n_local, cfg.n_dim, dtype=cfg.dtype, device=self.device,
             blob_size=self.blob_size, blobs_dtype=self._blobs_dtype,
         )
         self.n_total: Optional[int] = None
         self.logz_err = None
         self.t0 = 0
 
-    def _make_draws(self, seed: int) -> Draws:
-        draws = HardwareDraws if self.config.hardware_prng else Draws
-        return draws(seed, self.device, self.dtype)
+    def _make_draws(self, seed: int):
+        draws = (HardwareDraws if self.config.hardware_prng else Draws)(
+            seed, self.device, self.dtype)
+        return draws if self.group is None else BlockDraws(draws, self.rank, self.world)
 
     def _placeholder_model(self) -> ClusterModel:
         cfg = self.config
@@ -172,7 +205,7 @@ class SamplerCore:
             self._step(save_every, t0)
 
         # Final evidence at beta = 1 over the whole history.
-        _, logz = compute_logw_and_logz(self.hist, 1.0)
+        _, logz = compute_logw_and_logz(self.hist, 1.0, group=self.group)
         self.cur.logz = logz.to(self.dtype)
         self.logz_err = None
         cfg = self.config
@@ -183,11 +216,16 @@ class SamplerCore:
 
     def posterior_ess(self) -> float:
         """ESS of the MIS weights of the whole history at beta = 1."""
-        logw, _ = compute_logw_and_logz(self.hist, 1.0)
-        return float(ess_from_logw(logw))
+        logw, _ = compute_logw_and_logz(self.hist, 1.0, group=self.group)
+        return float(ess_from_logw_psum(logw, self.group))
+
+    def _fetch(self, t: torch.Tensor, dim: Optional[int] = None) -> np.ndarray:
+        """`t` as numpy; under a mesh gathered along the particle dimension `dim`."""
+        return fetch(t, self.group, dim)
 
     def _not_termination(self) -> bool:
-        """Continue while 1 - beta >= 1e-4 or the posterior ESS < n_total."""
+        """Continue while 1 - beta >= 1e-4 or the posterior ESS < n_total.
+        Under a mesh both read values that are the same on every rank."""
         if self.hist.t == 0:
             return True
         if 1.0 - float(self.cur.beta) >= 1e-4:
@@ -237,16 +275,16 @@ class SamplerCore:
     ):
         """(x, weights, logl[, blobs][, logw]) as numpy arrays
         (core.py:636-702); blobs only when the run has them."""
-        logw, _ = compute_logw_and_logz(self.hist, 1.0)
-        valid = fetch(self.hist.sample_mask()).reshape(-1)
-        logw_np = fetch(logw).reshape(-1)
+        logw, _ = compute_logw_and_logz(self.hist, 1.0, group=self.group)
+        valid = self._fetch(self.hist.sample_mask(), 1).reshape(-1)
+        logw_np = self._fetch(logw, 1).reshape(-1)
 
         def snd(arr):  # (B, T, N) -> (S, B), t-major sample order
-            a = np.moveaxis(fetch(arr), 0, -1)
+            a = np.moveaxis(self._fetch(arr, 2), 0, -1)
             return a.reshape(-1, a.shape[-1])
 
         x = snd(self.hist.x)
-        logl = fetch(self.hist.logl).reshape(-1)
+        logl = self._fetch(self.hist.logl, 1).reshape(-1)
         blobs = None if self.hist.blobs is None else snd(self.hist.blobs)
 
         weights = np.exp(logw_np - np.max(logw_np[valid]))
@@ -288,18 +326,19 @@ class SamplerCore:
         error, whose uniforms come from the run's draws."""
         if n_bootstrap > 0 and self.hist.t > 0:
             uniforms = self.draws.bootstrap(int(n_bootstrap), self.hist.capacity)
-            return float(self.cur.logz), float(bootstrap_logz_err(self.hist, uniforms))
+            return float(self.cur.logz), float(
+                bootstrap_logz_err(self.hist, uniforms, group=self.group))
         return float(self.cur.logz), self.logz_err
 
     def compute_results(self) -> dict:
         """The full per-iteration history (core.py:719-746)."""
         h = self.hist
         t = h.t
-        logw, _ = compute_logw_and_logz(h, 1.0)
+        logw, _ = compute_logw_and_logz(h, 1.0, group=self.group)
         out = {
-            "u": np.moveaxis(fetch(h.u[:, :t]), 0, -1),
-            "x": np.moveaxis(fetch(h.x[:, :t]), 0, -1),
-            "logl": fetch(h.logl[:t]),
+            "u": np.moveaxis(self._fetch(h.u[:, :t], 2), 0, -1),
+            "x": np.moveaxis(self._fetch(h.x[:, :t], 2), 0, -1),
+            "logl": self._fetch(h.logl[:t], 1),
             "beta": fetch(h.beta[:t]),
             "logz": fetch(h.logz[:t]),
             "ess": fetch(h.ess[:t]),
@@ -311,17 +350,24 @@ class SamplerCore:
             "iter": np.arange(1, t + 1),
         }
         if h.blobs is not None:
-            b = np.moveaxis(fetch(h.blobs[:, :t]), 0, -1)  # (t, N, B)
+            b = np.moveaxis(self._fetch(h.blobs[:, :t], 2), 0, -1)  # (t, N, B)
             un = self.blob_schema.unpack(b.reshape(t * self.n_particles, -1))
             out["blobs"] = un.reshape((t, self.n_particles) + un.shape[1:])
-        out["logw"] = fetch(logw).reshape(-1)[fetch(h.sample_mask()).reshape(-1)]
+        out["logw"] = self._fetch(logw, 1).reshape(-1)[
+            self._fetch(h.sample_mask(), 1).reshape(-1)]
         return out
 
     # ------------------------------------------------------------------
     def save_sampler_state(self, path: Union[str, Path]) -> None:
         """Write the state, draw state and carried model to `path`
-        (core.py:749-769; utils/checkpoint.py)."""
+        (core.py:749-769; utils/checkpoint.py): a sharded directory when the
+        mesh has more than one rank (every rank calls this), else one file."""
         meta = {"n_total": self.n_total, "random_state": self.config.random_state, "version": 1}
+        if self.world > 1:
+            save_checkpoint_sharded(Path(path), self.hist, self.cur, self.draws.get_state(),
+                                    self.group, meta, model=self.cluster_model,
+                                    rng_key=self.draws.key_words())
+            return
         sch = self.blob_schema
         store = sch.store if sch is not None and sch.is_object else None
         save_checkpoint(Path(path), self.hist, self.cur, self.draws.get_state(), meta,
@@ -331,8 +377,21 @@ class SamplerCore:
     def load_sampler_state(self, path: Union[str, Path]) -> None:
         """Continue from a file of either package (core.py:771-792): the
         port's own draw state where the file has one, else draws re-seeded
-        from the JAX file's key words (draws.seed_from_key_words)."""
-        ck = load_checkpoint(Path(path), self.device, self.dtype)
+        from the JAX file's key words (draws.seed_from_key_words). Under a
+        mesh each rank takes its block, of a sharded directory or a file."""
+        path = Path(path)
+        if path.is_dir():
+            if self.group is None:
+                raise ValueError(
+                    f"{path} is a per-host sharded checkpoint; construct the "
+                    "Sampler with the same (or a compatible) mesh to load it."
+                )
+            ck = load_checkpoint_sharded(path, self.device, self.dtype, self.group)
+        else:
+            ck = load_checkpoint(path, self.device, self.dtype)
+            if self.group is not None:
+                ck.hist = shard_history(ck.hist, self.config.mesh, self.config.particle_axis)
+                ck.cur = shard_current(ck.cur, self.config.mesh, self.config.particle_axis)
         self.hist, self.cur = ck.hist, ck.cur
         if ck.draws is not None:
             self.draws.set_state(ck.draws)
@@ -348,11 +407,11 @@ class SamplerCore:
     def get_current_dict(self) -> dict:
         c = self.cur
         return {
-            "u": fetch(c.u),
-            "x": fetch(c.x),
-            "logl": fetch(c.logl),
-            "blobs": None if c.blobs is None else self.blob_schema.unpack(fetch(c.blobs)),
-            "assignments": fetch(c.assignments),
+            "u": self._fetch(c.u, 0),
+            "x": self._fetch(c.x, 0),
+            "logl": self._fetch(c.logl, 0),
+            "blobs": None if c.blobs is None else self.blob_schema.unpack(self._fetch(c.blobs, 0)),
+            "assignments": self._fetch(c.assignments, 0),
             "beta": float(c.beta),
             "logz": float(c.logz),
             "ess": float(c.ess),

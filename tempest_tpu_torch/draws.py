@@ -18,6 +18,12 @@ continues the stream where it stopped; nothing is re-seeded.
 `seed_from_key_words` is the rule for a file that holds no such state (one
 the JAX package wrote, with a threefry key that torch cannot continue), and
 `key_words` its inverse, the key a port file hands the JAX package.
+
+Under a particle mesh every rank seeds its draws alike and draws the
+global arrays; `BlockDraws` keeps the rank's block of the per-walker ones.
+So W ranks draw what one device draws, and a sharded run follows the
+unsharded one up to the rounding of reductions, as JAX's logical threefry
+arrays make it do there. The draw state is then replicated.
 """
 
 from __future__ import annotations
@@ -145,3 +151,47 @@ class HardwareDraws(Draws):
         else:
             z = torch.randn(z_shape, generator=self.generator, dtype=self.dtype, device=self.device)
         return z, g, self._uniform((n,))
+
+
+class BlockDraws:
+    """The rank's block of each global draw, under a particle mesh.
+
+    `draws` (a `Draws` or `HardwareDraws`, seeded alike on every rank)
+    draws the arrays of the whole run; this object hands on the warm-up's
+    prior draw and the MCMC steps' normals, gamma draws and acceptance
+    uniforms for walkers [rank n, (rank + 1) n), where n is the rank's
+    block width. The warm-up's patch uniforms, the resampling uniforms and
+    the bootstrap's are global, as the collectives that use them need.
+    """
+
+    def __init__(self, draws: Draws, rank: int, world: int):
+        self.draws, self.rank, self.world = draws, rank, world
+
+    def _block(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        n = t.shape[dim] // self.world
+        return t.narrow(dim, self.rank * n, n)
+
+    def warmup(self, n: int, d: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`n` is the global N."""
+        u, patch = self.draws.warmup(n, d)
+        return self._block(u), patch
+
+    def resample(self, n: int, method: str) -> torch.Tensor:
+        return self.draws.resample(n, method)
+
+    def mcmc_step(self, n_candidates, n, d, gamma_shape):
+        """`n` is the rank's block width; `gamma_shape` the global (N,) shapes."""
+        z, g, u = self.draws.mcmc_step(n_candidates, n * self.world, d, gamma_shape)
+        return self._block(z, 1), None if g is None else self._block(g), self._block(u)
+
+    def bootstrap(self, n_bootstrap: int, t_max: int) -> torch.Tensor:
+        return self.draws.bootstrap(n_bootstrap, t_max)
+
+    def get_state(self) -> Dict[str, np.ndarray]:
+        return self.draws.get_state()
+
+    def set_state(self, state: Dict[str, np.ndarray]) -> None:
+        self.draws.set_state(state)
+
+    def key_words(self) -> np.ndarray:
+        return self.draws.key_words()

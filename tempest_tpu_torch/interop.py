@@ -6,6 +6,11 @@ into this package's dataclasses, and back. It imports no jax: callers
 pass `np.array(jax_value)` for each field. The arrays are copied, because
 numpy views of JAX arrays are read-only and `torch.from_numpy` warns on
 them.
+
+A JAX state is global. Given a particle mesh, `history_from_numpy` and
+`current_from_numpy` return this rank's block of it
+(`parallel.mesh.shard_history`); given the mesh's group, the `_to_numpy`
+functions gather the blocks back into the global state.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch
 from .cluster import ClusterModel
 from .modes import ModeStatistics
 from .state import Current, History
+from .utils.host import fetch_tree
 
 HISTORY_FIELDS = (
     "u", "x", "logl", "mis_c", "beta", "logz", "ess", "cv",
@@ -47,38 +53,54 @@ def _blobs(fields: Mapping[str, np.ndarray], device):
     return None if value is None else _tensor(value, device)
 
 
-def history_from_numpy(fields: Mapping[str, np.ndarray], device) -> History:
+def history_from_numpy(fields: Mapping[str, np.ndarray], device, mesh=None,
+                       axis_name: str = "particles") -> History:
     """History from the JAX History's fields (HISTORY_FIELDS, `t` and,
-    optionally, `blobs`)."""
-    return History(
+    optionally, `blobs`); this rank's block of it given a particle mesh."""
+    hist = History(
         **{k: _tensor(fields[k], device) for k in HISTORY_FIELDS}, t=int(fields["t"]),
         blobs=_blobs(fields, device),
     )
+    if mesh is None:
+        return hist
+    from .parallel.mesh import shard_history
+
+    return shard_history(hist, mesh, axis_name)
 
 
-def history_to_numpy(hist: History) -> Dict[str, np.ndarray]:
-    out = {k: getattr(hist, k).detach().cpu().numpy().copy() for k in HISTORY_FIELDS}
+def history_to_numpy(hist: History, group=None) -> Dict[str, np.ndarray]:
+    """The History's fields as numpy, gathered over `group` under a mesh."""
+    tree = fetch_tree(hist, group)
+    out = {k: tree[k] for k in HISTORY_FIELDS}
     out["t"] = np.int32(hist.t)
     if hist.blobs is not None:
-        out["blobs"] = hist.blobs.detach().cpu().numpy().copy()
+        out["blobs"] = tree["blobs"]
     return out
 
 
-def current_from_numpy(fields: Mapping[str, np.ndarray], device) -> Current:
+def current_from_numpy(fields: Mapping[str, np.ndarray], device, mesh=None,
+                       axis_name: str = "particles") -> Current:
     """Current from the JAX Current's fields (CURRENT_FIELDS, CURRENT_COUNTERS
-    and, optionally, `blobs`)."""
-    return Current(
+    and, optionally, `blobs`); this rank's block of it given a particle mesh."""
+    cur = Current(
         **{k: _tensor(fields[k], device) for k in CURRENT_FIELDS},
         **{k: int(fields[k]) for k in CURRENT_COUNTERS},
         blobs=_blobs(fields, device),
     )
+    if mesh is None:
+        return cur
+    from .parallel.mesh import shard_current
+
+    return shard_current(cur, mesh, axis_name)
 
 
-def current_to_numpy(cur: Current) -> Dict[str, np.ndarray]:
-    out = {k: getattr(cur, k).detach().cpu().numpy().copy() for k in CURRENT_FIELDS}
+def current_to_numpy(cur: Current, group=None) -> Dict[str, np.ndarray]:
+    """The Current's fields as numpy, gathered over `group` under a mesh."""
+    tree = fetch_tree(cur, group)
+    out = {k: tree[k] for k in CURRENT_FIELDS}
     out.update({k: np.int32(getattr(cur, k)) for k in CURRENT_COUNTERS})
     if cur.blobs is not None:
-        out["blobs"] = cur.blobs.detach().cpu().numpy().copy()
+        out["blobs"] = tree["blobs"]
     return out
 
 

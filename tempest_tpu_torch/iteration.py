@@ -22,8 +22,17 @@ Every draw comes from the draws object passed in. Each stage runs inside
 a `utils.profiling.annotate` range ("ps/reweight", "ps/cluster", "ps/fit",
 "ps/resample", "ps/mutate", "ps/warmup", "ps/commit"), which
 `torch.profiler` reports as the stage's time; without a profiler a range
-costs a few microseconds. The JAX package's `_pin_history_layouts`,
-donation and sharding have no counterpart here.
+costs a few microseconds. The JAX package's `_pin_history_layouts` and
+donation have no counterpart here.
+
+Under a particle mesh (`config.mesh`) the history, the active set and the
+weights are this rank's blocks (parallel/mesh.py) and the draws a
+`draws.BlockDraws`. The stages then reduce over the ranks: the reweight,
+the fit points (`sharded_select_fit_points`, fused.py:102-112, replicated
+on every rank), the resampling (fused.py:168-177), the warm-up patch and
+the MCMC sums. The cluster and mode fits run on the replicated fit points
+on every rank, and rank 0's results are broadcast, so every rank carries
+the same model whatever the rounding of its fits.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ from .mcmc import MCMCKernel
 from .modes import fit_global_mode, fit_mode_statistics
 from .ops.boundary import make_boundary_masks
 from .ops.tools import trim_weights_mask
+from .parallel.collective import broadcast_from_first, sharded_select_fit_points
+from .parallel.mesh import particle_group
 from .state import Current, History, commit
 from .steps.mutate import warmup
 from .steps.resample import resample
@@ -75,6 +86,7 @@ def make_iteration(
     hist.t."""
     cfg = config
     N, d = cfg.n_particles, cfg.n_dim
+    group = None if cfg.mesh is None else particle_group(cfg.mesh, cfg.particle_axis)
     p_mask, r_mask, s_mask = make_boundary_masks(d, cfg.periodic, cfg.reflective, device=cfg.device)
     mcmc = MCMCKernel(
         log_likelihood_batch,
@@ -88,6 +100,7 @@ def make_iteration(
         strict_mask=s_mask,
         n_candidates=cfg.n_candidates,
         dtype=cfg.dtype,
+        group=group,
     )
     ess_target = cfg.ess_ratio * N
     dynamic = cfg.volume_variation is not None
@@ -114,25 +127,35 @@ def make_iteration(
         )
         return model
 
+    def fit_points(hist: History, weights):
+        if group is None:
+            return select_fit_points(hist, weights, cfg.train_max_points)
+        S = hist.capacity * N
+        return sharded_select_fit_points(
+            hist.u, weights, hist.t, min(cfg.train_max_points or S, S), group)
+
+    def replicated(fitted):
+        return fitted if group is None else broadcast_from_first(fitted, group)
+
     def mutate_branch(draws, hist: History, cur: Current, weights, model):
         with annotate("ps/fit"):
-            u_fit, w_fit, keep_fit = select_fit_points(hist, weights, cfg.train_max_points)
+            u_fit, w_fit, keep_fit = fit_points(hist, weights)
         if cfg.clustering:
             with annotate("ps/cluster"):
                 if not model.fitted or cur.iteration % cfg.cluster_every == 0:
-                    model = fit_clusters(u_fit, w_fit, keep_fit)
+                    model = replicated(fit_clusters(u_fit, w_fit, keep_fit))
                 labels = cluster_predict(model, u_fit)
             with annotate("ps/fit"):
-                modes = fit_mode_statistics(
+                modes = replicated(fit_mode_statistics(
                     u_fit, w_fit, labels, k_max=cfg.k_max, dof_fallback=DOF_FALLBACK
-                )
+                ))
         else:
             with annotate("ps/fit"):
-                modes = fit_global_mode(u_fit, w_fit, dof_fallback=DOF_FALLBACK)
+                modes = replicated(fit_global_mode(u_fit, w_fit, dof_fallback=DOF_FALLBACK))
         with annotate("ps/resample"):
             u, x, logl, blobs, assignments = resample(
                 draws.resample(N, cfg.resample), hist, weights, N, method=cfg.resample,
-                cluster_model=model if cfg.clustering else None,
+                cluster_model=model if cfg.clustering else None, group=group,
             )
         with annotate("ps/mutate"):
             res = mcmc(draws, u, x, logl, assignments, cur.beta, modes, blobs=blobs)
@@ -146,9 +169,9 @@ def make_iteration(
 
     def warmup_branch(draws, cur: Current) -> None:
         u_draw, patch_uniforms = draws.warmup(N, d)
-        wr = warmup(u_draw, patch_uniforms, log_likelihood_batch, prior_transform_batch)
+        wr = warmup(u_draw, patch_uniforms, log_likelihood_batch, prior_transform_batch, group)
         cur.u, cur.x, cur.logl, cur.blobs = wr.u, wr.x, wr.logl, wr.blobs
-        cur.assignments = torch.zeros((N,), dtype=torch.int32, device=cfg.device)
+        cur.assignments = torch.zeros((wr.u.shape[0],), dtype=torch.int32, device=cfg.device)
         cur.logz = cur.logz + wr.logz_correction
         cur.calls += 1  # one full-batch sweep
         cur.steps = 1
@@ -167,7 +190,7 @@ def make_iteration(
         else:
             with annotate("ps/reweight"):
                 rw = reweight(hist, cur.beta, ess_target, cv_target=cv_target,
-                              dynamic=dynamic)
+                              dynamic=dynamic, group=group)
             cur.beta = rw.beta.to(cfg.dtype)
             cur.logz = rw.logz.to(cfg.dtype)
             cur.ess = rw.ess.to(cfg.dtype)

@@ -22,6 +22,14 @@ thresholds. Semantics kept:
 `MCMCKernel.step` is the pure step on explicit draws; `MCMCKernel.__call__`
 loops it, taking draws from a `Draws` or `HardwareDraws` object. The JAX `lax.while_loop`
 becomes a Python loop whose stop test reads one boolean per step.
+
+Under a particle mesh (`group`) each rank mutates its block of walkers.
+The cluster counts are summed over the ranks once per mutation, and each
+step's acceptance sums in one `all_reduce` (mcmc.py:218-229, :256), so the
+step sizes and the stop test are the same on every rank. The draws are
+global (draws.BlockDraws keeps the rank's block), so the walkers'
+gamma shapes are gathered over the ranks: `Walkers.gamma_shape` is then
+the global (N,) vector.
 """
 
 from __future__ import annotations
@@ -30,9 +38,12 @@ import dataclasses
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from .modes import ModeStatistics
 from .ops.boundary import apply_boundary_conditions, check_bounds
+from .ops.tools import _psum
+from .parallel.mesh import all_gather
 
 
 class MCMCResult(NamedTuple):
@@ -57,8 +68,8 @@ class Walkers:
     chol: torch.Tensor  # (N, d, d) gathered Cholesky factors
     inv: torch.Tensor  # (N, d, d) gathered inverse covariances
     onehot: torch.Tensor  # (N, K)
-    count_k: torch.Tensor  # (K,)
-    gamma_shape: Optional[torch.Tensor]  # (N,) tpCN only
+    count_k: torch.Tensor  # (K,) over all ranks
+    gamma_shape: Optional[torch.Tensor]  # (N,) tpCN only; global under a mesh
 
 
 @dataclasses.dataclass
@@ -99,7 +110,10 @@ class MCMCKernel:
         strict_mask: Optional[torch.Tensor] = None,
         n_candidates: int = 8,
         dtype=torch.float32,
+        group=None,
     ):
+        self.group = group
+        self.world = 1 if group is None else dist.get_world_size(group)
         self.log_likelihood_batch = log_likelihood_batch
         self.prior_transform_batch = prior_transform_batch
         self.n_dim = n_dim
@@ -129,6 +143,10 @@ class MCMCKernel:
         dtype = modes.means.dtype
         onehot = (assignments[:, None] == torch.arange(k_max, device=assignments.device)).to(dtype)
         dof = modes.degrees_of_freedom[assignments]
+        gamma_shape = None
+        if self.is_tpcn:
+            dof_all = dof if self.group is None else all_gather(dof, self.group, 0)
+            gamma_shape = (self.n_dim + dof_all) / 2.0
         return Walkers(
             assignments=assignments,
             beta=torch.as_tensor(beta, dtype=dtype, device=assignments.device),
@@ -137,8 +155,8 @@ class MCMCKernel:
             chol=modes.chol_covariances[assignments],
             inv=modes.inv_covariances[assignments],
             onehot=onehot,
-            count_k=torch.sum(onehot, dim=0),
-            gamma_shape=(self.n_dim + dof) / 2.0 if self.is_tpcn else None,
+            count_k=_psum(torch.sum(onehot, dim=0), self.group),
+            gamma_shape=gamma_shape,
         )
 
     def initial_state(self, u, x, logl, k_max: int, blobs=None) -> ChainState:
@@ -176,8 +194,7 @@ class MCMCKernel:
     def step(self, w: Walkers, s: ChainState, z, g, u_acc) -> ChainState:
         """One Metropolis step on explicit draws: z (R, N, d) normals, g (N,)
         unit gamma(w.gamma_shape) draws (tpCN; ignored for RWM), u_acc (N,)
-        acceptance uniforms."""
-        n_walkers = s.u.shape[0]
+        acceptance uniforms; under a mesh, this rank's blocks of them."""
         dtype = s.u.dtype
         iteration = s.iteration + 1
         sigmas = s.sigmas
@@ -214,10 +231,16 @@ class MCMCKernel:
         if blobs is not None:
             blobs = torch.where(accept[:, None], blobs_prime, blobs)
 
-        # Per-cluster Robbins-Monro adaptation toward 0.234.
-        alpha_k = torch.sum(w.onehot * alpha[:, None], dim=0)
-        mean_accept = torch.sum(accept.to(dtype)) / n_walkers
-        mean_alpha = torch.sum(alpha) / n_walkers
+        # Per-cluster Robbins-Monro adaptation toward 0.234, on sums over
+        # every walker (one reduction over the ranks under a mesh).
+        k_max = w.onehot.shape[1]
+        sums = _psum(torch.cat([torch.sum(w.onehot * alpha[:, None], dim=0),
+                                torch.stack([torch.sum(accept.to(dtype)), torch.sum(alpha)])]),
+                     self.group)
+        n_walkers = s.u.shape[0] * self.world
+        alpha_k = sums[:k_max]
+        mean_accept = sums[k_max] / n_walkers
+        mean_alpha = sums[k_max + 1] / n_walkers
         mean_acc_k = alpha_k / torch.clamp(w.count_k, min=1.0)
         rate = 1.0 / (float(iteration) + 1.0)
         new_sigmas = sigmas + rate * (mean_acc_k - 0.234)

@@ -4,6 +4,12 @@ Counterpart of tempest_tpu/ops/tools.py. Every function keeps the JAX
 function's shapes and mask semantics; the resamplers take their uniforms
 as an argument instead of a PRNG key, so a test can feed both packages the
 same numbers.
+
+The reductions over the particle axis take `group`, the process group of a
+particle mesh (tempest_tpu_torch/parallel/), where JAX's take `axis_name`:
+with a group each rank reduces its own block and an `all_reduce` combines
+the ranks, so every rank holds the same result; with `group=None` the
+plain function runs.
 """
 
 from __future__ import annotations
@@ -11,6 +17,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 def logsumexp(logx: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
@@ -25,10 +32,79 @@ def logsumexp(logx: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tens
     return out if keepdim else out.squeeze(dim)
 
 
+def effective_sample_size(
+    weights: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """ESS = 1 / sum(w_norm^2) of (possibly unnormalized) weights; `mask`
+    zeroes invalid slots first (tools.py:31-41)."""
+    w = weights
+    if mask is not None:
+        w = torch.where(mask, w, torch.zeros_like(w))
+    w = w / torch.sum(w)
+    return 1.0 / torch.sum(w * w)
+
+
 def ess_from_logw(logw: torch.Tensor) -> torch.Tensor:
     """ESS directly from (unnormalized) log-weights; -inf entries contribute 0
     (tools.py:44-48)."""
     return torch.exp(2.0 * logsumexp(logw) - logsumexp(2.0 * logw))
+
+
+def compute_ess(logw: torch.Tensor) -> torch.Tensor:
+    """Normalized ESS fraction in (0, 1] of a 1-D log-weight vector
+    (tools.py:51-53)."""
+    return ess_from_logw(logw) / logw.shape[0]
+
+
+def increment_logz(logw: torch.Tensor) -> torch.Tensor:
+    """logsumexp of log-weights (tools.py:56-58)."""
+    return logsumexp(logw)
+
+
+def _all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
+    """`x` reduced over the ranks of `group` (a new tensor; `x` untouched)."""
+    y = x.detach().reshape(-1).clone()
+    dist.all_reduce(y, op=op, group=group)
+    return y.reshape(x.shape)
+
+
+def _psum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the ranks of `group`; `x` itself without one (tools.py:243-244)."""
+    return x if group is None else _all_reduce(x, dist.ReduceOp.SUM, group)
+
+
+def _pmax(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _all_reduce(x, dist.ReduceOp.MAX, group)
+
+
+def logsumexp_psum(logx: torch.Tensor, group=None) -> torch.Tensor:
+    """Logsumexp over all of `logx` and over the ranks of `group`
+    (tools.py:166-180): a MAX then a SUM reduction; all -inf gives -inf."""
+    if group is None:
+        return logsumexp(logx)
+    m = _pmax(torch.amax(logx), group)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    s = _psum(torch.sum(torch.exp(logx - m_safe)), group)
+    return torch.where(torch.isfinite(m), m_safe + torch.log(s), m)
+
+
+def ess_from_logw_psum(logw: torch.Tensor, group=None) -> torch.Tensor:
+    """ESS from log-weights over the ranks of `group` (tools.py:183-187).
+
+    With a group the two logsumexps share one MAX reduction (the maximum of
+    2 logw is twice that of logw, and doubling is exact) and one SUM of both
+    partial sums, so a probe costs two collectives instead of four."""
+    if group is None:
+        return ess_from_logw(logw)
+    m = _pmax(torch.amax(logw), group)
+    finite = torch.isfinite(m)
+    m_safe = torch.where(finite, m, torch.zeros_like(m))
+    shifted = logw - m_safe
+    s = _psum(torch.stack([torch.sum(torch.exp(shifted)), torch.sum(torch.exp(2.0 * shifted))]),
+              group)
+    lse1 = torch.where(finite, m_safe + torch.log(s[0]), m)
+    lse2 = torch.where(finite, 2.0 * m_safe + torch.log(s[1]), 2.0 * m)
+    return torch.exp(2.0 * lse1 - lse2)
 
 
 def systematic_resample(u0: torch.Tensor, size: int, weights: torch.Tensor) -> torch.Tensor:
@@ -49,22 +125,26 @@ SCAN_ROW = 1024
 
 
 def cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive cumulative sum of a 1-D tensor, the same bits on every call.
+    """Inclusive cumulative sum along the last dimension, the same bits on
+    every call.
 
     `torch.cumsum` of one long CUDA vector combines its tiles in the order
     they finish, so its float sums change in the last bits from call to
     call, and a resampling uniform near a CDF edge then picks another
-    particle. Here the vector is scanned as rows of `SCAN_ROW`, each in a
+    particle. Here each vector is scanned as rows of `SCAN_ROW`, each in a
     fixed order, and every row adds the total of the rows before it."""
-    n = x.shape[0]
+    n = x.shape[-1]
     if n <= SCAN_ROW:
-        return torch.cumsum(x, dim=0)
+        return torch.cumsum(x, dim=-1)
     rows = -(-n // SCAN_ROW)
+    lead = x.shape[:-1]
     within = torch.cumsum(
-        torch.nn.functional.pad(x, (0, rows * SCAN_ROW - n)).reshape(rows, SCAN_ROW), dim=1
+        torch.nn.functional.pad(x, (0, rows * SCAN_ROW - n)).reshape(*lead, rows, SCAN_ROW),
+        dim=-1,
     )
-    before = torch.cat([torch.zeros_like(within[:1, -1]), cumsum(within[:-1, -1])])
-    return (within + before[:, None]).reshape(-1)[:n]
+    before = torch.cat([torch.zeros_like(within[..., :1, -1]), cumsum(within[..., :-1, -1])],
+                       dim=-1)
+    return (within + before[..., None]).reshape(*lead, -1)[..., :n]
 
 
 def _invert_cdf(w: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -133,22 +213,24 @@ def trim_weights_mask(
 
 
 def volume_variation_dtn(
-    u: torch.Tensor, w: torch.Tensor, mask: Optional[torch.Tensor] = None
+    u: torch.Tensor, w: torch.Tensor, mask: Optional[torch.Tensor] = None, group=None
 ) -> torch.Tensor:
     """Influence-function CV of the confidence-ellipsoid volume over the
-    (d, T, N) history layout (tools.py:190-240, unsharded)."""
+    (d, T, N) history layout (tools.py:190-240); with `group`, over the
+    ranks' blocks of the particle axis, each reduction local and then
+    summed over the ranks (at most (d, d) values)."""
     d = u.shape[0]
     zero = torch.zeros((), dtype=u.dtype, device=u.device)
     if mask is not None:
         w = torch.where(mask, w, zero)
-    w = w / torch.sum(w)
+    w = w / _psum(torch.sum(w), group)
 
-    mean = torch.einsum("dtn,tn->d", u, w)
+    mean = _psum(torch.einsum("dtn,tn->d", u, w), group)
     uc = u - mean[:, None, None]
     if mask is not None:
         uc = torch.where(mask[None], uc, zero)
     flat = uc.reshape(d, -1)
-    cov = (flat * w.reshape(1, -1)) @ flat.T  # (d, d)
+    cov = _psum((flat * w.reshape(1, -1)) @ flat.T, group)  # (d, d)
 
     eigvals = torch.linalg.eigvalsh(cov)
     tol = torch.amax(torch.abs(eigvals)) * d * torch.finfo(u.dtype).eps
@@ -160,8 +242,46 @@ def volume_variation_dtn(
     cov_inv = torch.linalg.inv_ex(cov).inverse
     d2 = torch.sum((cov_inv.T @ flat) * flat, dim=0).reshape(w.shape)
     deviation = torch.clamp(d2 - d, -1e6, 1e6)
-    cv = 0.5 * torch.sqrt(torch.sum(w * w * deviation * deviation))
+    cv = 0.5 * torch.sqrt(_psum(torch.sum(w * w * deviation * deviation), group))
 
     n_valid = torch.sum(mask) if mask is not None else torch.tensor(w.numel(), device=u.device)
+    n_valid = _psum(n_valid, group)
+    bad = (~torch.isfinite(cv)) | (n_valid < d + 1) | (~torch.all(torch.isfinite(cov_inv)))
+    return torch.where(bad, torch.full_like(cv, 1e10), cv)
+
+
+def volume_variation(
+    x: torch.Tensor, w: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Influence-function CV of the confidence-ellipsoid volume of (n, d)
+    samples (tools.py:247-287): 0.5 sqrt(sum_i w_i^2 (d_i^2 - d)^2) with the
+    Mahalanobis distances under the weighted covariance; 1e10 for too few
+    samples or a singular or non-finite covariance."""
+    n, d = x.shape
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if w is None:
+        w = torch.ones((n,), dtype=x.dtype, device=x.device)
+    if mask is not None:
+        w = torch.where(mask, w, zero)
+    w = w / torch.sum(w)
+
+    mean = torch.sum(x * w[:, None], dim=0)
+    xc = x - mean
+    if mask is not None:
+        xc = torch.where(mask[:, None], xc, zero)
+    cov = xc.T @ (xc * w[:, None])
+
+    eigvals = torch.linalg.eigvalsh(cov)
+    tol = torch.amax(torch.abs(eigvals)) * d * torch.finfo(x.dtype).eps
+    rank = torch.sum(eigvals > tol)
+    reg = 1e-6 * torch.trace(cov)
+    cov = torch.where(rank < d, cov + torch.eye(d, dtype=x.dtype, device=x.device) * reg, cov)
+
+    cov_inv = torch.linalg.inv_ex(cov).inverse
+    d2 = torch.sum((xc @ cov_inv) * xc, dim=1)
+    deviation = torch.clamp(d2 - d, -1e6, 1e6)
+    cv = 0.5 * torch.sqrt(torch.sum(w * w * deviation * deviation))
+
+    n_valid = torch.sum(mask) if mask is not None else n
     bad = (~torch.isfinite(cv)) | (n_valid < d + 1) | (~torch.all(torch.isfinite(cov_inv)))
     return torch.where(bad, torch.full_like(cv, 1e10), cv)

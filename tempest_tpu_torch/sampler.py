@@ -2,7 +2,10 @@
 
 Counterpart of tempest_tpu/sampler.py: the same constructor keywords
 (:27-69) without the TPU-only knobs (`on_device_dispatch_budget_s`,
-`donate_state`, `fused`; ROADMAP.md queue 1, item 12), plus `device`. The
+`donate_state`, `fused`; ROADMAP.md queue 1, item 12), plus `device`; its
+extras are dtype, device, host_likelihood, mesh (a particle mesh from
+`parallel.make_particle_mesh`, one rank per device), k_max and
+history_capacity. The
 model functions are per-point torch functions of one (d,) point by default
 (`vectorize=False`, mapped with `torch.func.vmap`; see
 `utils/wrappers.py` for what such a function may do), torch functions of
@@ -13,6 +16,9 @@ The default `device="cuda"` needs a GPU: without one, construction raises
 from PyTorch; nothing moves to the CPU unless `device="cpu"` is asked for.
 A pickled sampler keeps its device: unpickled where that device is
 missing, it raises.
+
+Under a mesh every rank constructs the same Sampler and calls the same
+methods in the same order: most of them hold collectives.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from .core import SamplerCore
 
 
 class Sampler:
-    """Persistent Sampling on one torch device."""
+    """Persistent Sampling on one torch device, or on a particle mesh."""
 
     def __init__(
         self,
@@ -192,16 +198,17 @@ class Sampler:
 
     # ------------------------------------------------------------------
     # Pickling (sampler.py:200-260): the mesh and the pool are dropped;
-    # tensors travel as numpy arrays and go back onto the configured
-    # device, with the draw state and the carried cluster model, so the
-    # unpickled sampler continues the same stream.
+    # tensors travel as numpy arrays, gathered from every rank under a mesh
+    # (a collective), and go back onto the configured device, with the draw
+    # state and the carried cluster model, so the unpickled sampler
+    # continues the same stream on one device.
     def __getstate__(self):
         core = self._core
         sch = core.blob_schema
         return {
             "config": dataclasses.replace(core.config, mesh=None, pool=None),
-            "hist": interop.history_to_numpy(core.hist),
-            "cur": interop.current_to_numpy(core.cur),
+            "hist": interop.history_to_numpy(core.hist, core.group),
+            "cur": interop.current_to_numpy(core.cur, core.group),
             "draws": core.draws.get_state(),
             "model": interop.cluster_model_to_numpy(core.cluster_model),
             "n_total": core.n_total,

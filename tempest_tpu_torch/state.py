@@ -9,6 +9,11 @@ Unlike the immutable JAX pytrees, `History` is updated in place: `commit`
 writes iteration slot `t` with `index_copy_`-style slice assignment and
 advances the Python integer `t`. Nothing else holds a reference to the
 buffers, so no caller sees a half-written history.
+
+Under a particle mesh each rank holds its block of the particle axis
+(parallel/mesh.py), so `n_particles` is the block's width. `commit` and the
+MIS accumulator are per sample and stay local; the functions that reduce
+over samples take the mesh's `group` and count the global N.
 """
 
 from __future__ import annotations
@@ -18,8 +23,9 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
-from .ops.tools import logsumexp
+from .ops.tools import logsumexp, logsumexp_psum, _pmax, _psum
 
 _NEG_INF = float("-inf")
 
@@ -286,29 +292,41 @@ def rebuild_mis_c(hist: History) -> History:
     return hist
 
 
-def logw_from_denominator(
-    hist: History, denom: torch.Tensor, beta_final, normalize: bool = True
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Log-weights (T_max, N) and logZ at `beta_final` (state.py:374-400).
+def global_particles(hist: History, group=None) -> int:
+    """The run's N: the block's width times the ranks of `group`."""
+    return hist.n_particles * (1 if group is None else dist.get_world_size(group))
 
-    logw_s = beta_final * logl_s - B_s;  logz = logsumexp_s(logw_s) - log(t*N).
-    Non-finite logl and invalid slots get exactly zero weight.
-    """
-    N = hist.n_particles
+
+def masked_logw(hist: History, denom: torch.Tensor, beta_final) -> torch.Tensor:
+    """Unnormalized log-weights beta_final * logl_s - B_s; non-finite logl
+    and invalid slots get -inf, exactly zero weight."""
     beta_final = torch.as_tensor(beta_final, dtype=hist.logl.dtype, device=hist.logl.device)
     keep = hist.sample_mask() & torch.isfinite(hist.logl)
     logw = beta_final * hist.logl - denom
-    logw = torch.where(keep, logw, torch.full_like(logw, _NEG_INF))
+    return torch.where(keep, logw, torch.full_like(logw, _NEG_INF))
+
+
+def logw_from_denominator(
+    hist: History, denom: torch.Tensor, beta_final, normalize: bool = True, group=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Log-weights (T_max, N) and logZ at `beta_final` (state.py:374-400).
+
+    logw_s = beta_final * logl_s - B_s;  logz = logsumexp_s(logw_s) - log(t*N),
+    the logsumexp over every rank of `group` and N the global count.
+    """
+    logw = masked_logw(hist, denom, beta_final)
+    lse = logsumexp_psum(logw, group)
     if hist.t > 0:
-        logz_new = logsumexp(logw) - math.log(hist.t * N)
+        logz_new = lse - math.log(hist.t * global_particles(hist, group))
     else:
         logz_new = torch.full((), _NEG_INF, dtype=logw.dtype, device=logw.device)
     if normalize:
-        logw = logw - logsumexp(logw)
+        logw = logw - lse
     return logw, logz_new
 
 
-def bootstrap_logz_err(hist: History, uniforms: torch.Tensor, beta_final=1.0) -> torch.Tensor:
+def bootstrap_logz_err(hist: History, uniforms: torch.Tensor, beta_final=1.0,
+                       group=None) -> torch.Tensor:
     """Iteration-block bootstrap standard error of the MIS logZ
     (state.py:403-437).
 
@@ -316,23 +334,30 @@ def bootstrap_logz_err(hist: History, uniforms: torch.Tensor, beta_final=1.0) ->
     each of the n_bootstrap replicates draws t blocks with replacement and
     the error is the std of the replicate logZs. `uniforms` (n_bootstrap,
     T_max) pick the blocks: index min(floor(u t), t - 1); slots j >= t are
-    masked out of each replicate.
+    masked out of each replicate. Under a mesh each L_t is reduced over the
+    ranks of `group` (a MAX and a SUM of T_max values), so the replicates
+    are the same on every rank.
     """
-    logw, _ = logw_from_denominator(hist, mis_denominator(hist), beta_final, normalize=False)
+    logw = masked_logw(hist, mis_denominator(hist), beta_final)
     L = logsumexp(logw, dim=1)  # (T_max,), -inf where invalid
+    if group is not None:
+        m = _pmax(L, group)
+        m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        s = _psum(torch.exp(L - m_safe), group)
+        L = torch.where(torch.isfinite(m), m_safe + torch.log(s), m)
     t = max(hist.t, 1)
     idx = torch.clamp((uniforms * t).to(torch.int32), max=t - 1)
     draws = L[idx.long()]  # (B, T_max)
     in_run = torch.arange(hist.capacity, device=L.device)[None, :] < t
     draws = torch.where(in_run, draws, torch.full_like(draws, _NEG_INF))
-    logz_b = logsumexp(draws, dim=1) - math.log(float(t * hist.n_particles))
+    logz_b = logsumexp(draws, dim=1) - math.log(float(t * global_particles(hist, group)))
     mean = torch.mean(logz_b)
     return torch.sqrt(torch.mean((logz_b - mean) ** 2))
 
 
 def compute_logw_and_logz(
-    hist: History, beta_final, normalize: bool = True
+    hist: History, beta_final, normalize: bool = True, group=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Importance log-weights for all historical samples at `beta_final`
     and the evidence estimate (state.py:440-456)."""
-    return logw_from_denominator(hist, mis_denominator(hist), beta_final, normalize)
+    return logw_from_denominator(hist, mis_denominator(hist), beta_final, normalize, group)

@@ -6,6 +6,11 @@ blobs included, by uniform picks among the finite ones, and logZ gains
 log(n_finite / N).
 The uniforms come in as arguments: `u_draw` (N, d) for the prior draw and
 `patch_uniforms` (N,) for the multinomial pick of replacements.
+
+Under a particle mesh (`group`) `u_draw` is this rank's block of the global
+draw and `patch_uniforms` are global: the count of finite particles is
+summed over the ranks, and the replacements are picked from the global set
+by the claim and reduce-scatter of the sharded resampler.
 """
 
 from __future__ import annotations
@@ -14,7 +19,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..ops.tools import multinomial_resample
+from ..ops.tools import _psum, multinomial_resample
+from ..parallel.collective import gather_rows
 
 
 class WarmupResult(NamedTuple):
@@ -30,6 +36,7 @@ def warmup(
     patch_uniforms: torch.Tensor,
     log_likelihood_batch: Callable,
     prior_transform_batch: Callable,
+    group=None,
 ) -> WarmupResult:
     """Evaluate the prior draw `u_draw` and patch infinite log-likelihoods.
     `log_likelihood_batch` returns (logl, blobs or None)."""
@@ -41,6 +48,8 @@ def warmup(
     logl = logl.to(dtype)
 
     inf_mask = torch.isinf(logl)
+    if group is not None:
+        return _sharded_patch(u, x, logl, blobs, inf_mask, patch_uniforms, group)
     n_finite = torch.sum(~inf_mask)
     any_inf = torch.any(inf_mask)
     can_patch = any_inf & (n_finite > 0)
@@ -57,5 +66,29 @@ def warmup(
         blobs = torch.where(sel[:, None], blobs[repl], blobs)
 
     frac = n_finite.to(dtype) / n_particles
+    logz_corr = torch.where(any_inf, torch.log(frac), torch.zeros((), dtype=dtype, device=u.device))
+    return WarmupResult(u=u, x=x, logl=logl, blobs=blobs, logz_correction=logz_corr)
+
+
+def _sharded_patch(u, x, logl, blobs, inf_mask, patch_uniforms, group) -> WarmupResult:
+    """The patch over the ranks' blocks. Whether to patch is read from the
+    summed count, the same on every rank, so all ranks take the branch."""
+    dtype = u.dtype
+    n_global = patch_uniforms.shape[0]
+    n_finite = _psum(torch.sum(~inf_mask), group)
+    any_inf = n_finite < n_global
+    if bool(any_inf & (n_finite > 0)):
+        p = torch.where(inf_mask, torch.zeros_like(logl), torch.ones_like(logl))
+        p = p / n_finite.to(dtype)
+        arrays = [u.T[:, None], x.T[:, None], logl[None, None]]
+        if blobs is not None:
+            arrays.append(blobs.T[:, None])
+        rows = gather_rows(patch_uniforms, p[None], arrays, group)
+        u = torch.where(inf_mask[:, None], rows[0], u)
+        x = torch.where(inf_mask[:, None], rows[1], x)
+        logl = torch.where(inf_mask, rows[2][:, 0], logl)
+        if blobs is not None:
+            blobs = torch.where(inf_mask[:, None], rows[3], blobs)
+    frac = n_finite.to(dtype) / n_global
     logz_corr = torch.where(any_inf, torch.log(frac), torch.zeros((), dtype=dtype, device=u.device))
     return WarmupResult(u=u, x=x, logl=logl, blobs=blobs, logz_correction=logz_corr)

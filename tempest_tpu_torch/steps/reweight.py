@@ -4,7 +4,10 @@ Counterpart of tempest_tpu/steps/reweight.py. Two modes, as there:
 
 - ESS mode (:195-224): the bisection is `ops.cuda_reweight.ess_bisect_beta`,
   the CUDA kernel for a history on the GPU, its plain version for a
-  history on the CPU.
+  history on the CPU. Under a particle mesh (`group`) JAX bypasses its
+  kernel (tempest_tpu/fused.py:225) and bisects in XLA
+  (`_find_beta_bisection`, :122-166); so does the port, at any world size:
+  `_sharded_ess_beta` reduces each probe's ESS over the ranks.
 - Dynamic mode (`volume_variation`, :225-241): an ESS bracket
   (`_find_ess_bracket`, :73-119), then a bisection on the volume-variation
   CV inside it (`_find_beta_bisection`, :122-166), with the boundary rules
@@ -15,7 +18,9 @@ Counterpart of tempest_tpu/steps/reweight.py. Two modes, as there:
   probes in this process.
 
 Both end with the final weights, ESS, CV and logZ at the chosen beta
-(:243-248).
+(:243-248). Under a mesh every reduction goes over the ranks' blocks, and
+each host decision reads a reduced value, the same on every rank, so the
+ranks take the same probes and reach the same beta.
 """
 
 from __future__ import annotations
@@ -29,11 +34,12 @@ from ..config import (
     BETA_TOLERANCE,
     ESS_TOLERANCE,
     MAX_BISECTION_ITERATIONS,
+    METRIC_ATOL,
     METRIC_ATOL_CV,
 )
 from ..ops.cuda_reweight import ess_bisect_beta
-from ..ops.tools import ess_from_logw, volume_variation_dtn
-from ..state import History, logw_from_denominator, mis_denominator
+from ..ops.tools import ess_from_logw_psum, volume_variation_dtn
+from ..state import History, logw_from_denominator, masked_logw, mis_denominator
 
 # Dynamic-mode reweights and their probes (ESS evaluations of the bracket
 # search, CV evaluations of the boundary tests and the bisection).
@@ -96,7 +102,44 @@ def _find_cv_bisection(cv_at: Callable, lo, hi, target):
     return beta
 
 
-def _dynamic_beta(hist: History, denom, beta_prev, ess_target: float, cv_target: float):
+def _sharded_ess_beta(hist: History, denom, beta_prev, ess_target: float, group):
+    """The next beta in ESS mode under a mesh: XLA's bisection of
+    tempest_tpu/steps/reweight.py:195-224 and :122-166. Stay when
+    ESS(beta_prev) <= target, jump to 1 when ESS(1) >= target, else bisect
+    [beta_prev, 1] until |ESS - target| < max(ESS_TOLERANCE target,
+    METRIC_ATOL), the interval is below tolerance or beta is 1; non-finite
+    ESS counts as 1e10; at most 200 probes. Each probe reduces its ESS over
+    the ranks (two collectives)."""
+    dtype, device = hist.logl.dtype, hist.logl.device
+    one = torch.ones((), dtype=dtype, device=device)
+    target = torch.tensor(ess_target, dtype=dtype, device=device)
+
+    def ess_at(beta):  # ESS does not depend on the normalization
+        return ess_from_logw_psum(masked_logw(hist, denom, beta), group)
+
+    if bool(ess_at(beta_prev) <= target):
+        return beta_prev
+    if bool(ess_at(one) >= target):
+        return one
+    atol = max(ESS_TOLERANCE * abs(float(ess_target)), METRIC_ATOL)
+    lo, hi = beta_prev, one
+    beta = 0.5 * (lo + hi)
+    for _ in range(MAX_BISECTION_ITERATIONS):
+        beta = 0.5 * (lo + hi)
+        metric = ess_at(beta)
+        metric = torch.where(torch.isfinite(metric), metric, torch.full_like(metric, 1e10))
+        done = ((metric - target).abs() < atol) | ((hi - lo) < _interval_tol(lo, hi)) | (beta == 1.0)
+        if bool(done):
+            break
+        if bool(metric >= target):
+            lo = beta
+        else:
+            hi = beta
+    return beta
+
+
+def _dynamic_beta(hist: History, denom, beta_prev, ess_target: float, cv_target: float,
+                  group=None):
     """The next beta in dynamic mode (reweight.py:225-241)."""
     dtype, device = hist.logl.dtype, hist.logl.device
     mask = hist.sample_mask()
@@ -107,12 +150,12 @@ def _dynamic_beta(hist: History, denom, beta_prev, ess_target: float, cv_target:
 
     def ess_at(beta):
         PROBES["ess_bracket"] += 1
-        return ess_from_logw(logw_from_denominator(hist, denom, beta)[0])
+        return ess_from_logw_psum(logw_from_denominator(hist, denom, beta, group=group)[0], group)
 
     def cv_at(beta):
         PROBES["cv"] += 1
-        logw, _ = logw_from_denominator(hist, denom, beta)
-        return volume_variation_dtn(hist.u, torch.exp(logw), mask=mask)
+        logw, _ = logw_from_denominator(hist, denom, beta, group=group)
+        return volume_variation_dtn(hist.u, torch.exp(logw), mask=mask, group=group)
 
     beta_low, beta_high = _find_ess_bracket(ess_at, beta_prev, target, one)
     if bool(beta_low == beta_high):  # no crossing
@@ -132,26 +175,30 @@ def reweight(
     ess_target: float,
     cv_target: float = 0.0,
     dynamic: bool = False,
+    group=None,
 ) -> ReweightResult:
     """Select the next beta and compute the MIS weights.
 
     The beta-independent denominator is computed once (O(S)); in ESS mode
     invalid slots enter the kernel with Bm = +inf, so they weigh nothing.
-    `hist.t` must be at least 1.
+    `hist.t` must be at least 1. With `group` (a particle mesh) `hist` is
+    this rank's block and the weights come back as its block.
     """
     dtype, device = hist.logl.dtype, hist.logl.device
     denom = mis_denominator(hist)
     beta_prev = torch.as_tensor(beta_prev, dtype=dtype, device=device).reshape(())
     if dynamic:
-        beta = _dynamic_beta(hist, denom, beta_prev, ess_target, cv_target)
+        beta = _dynamic_beta(hist, denom, beta_prev, ess_target, cv_target, group)
+    elif group is not None:
+        beta = _sharded_ess_beta(hist, denom, beta_prev, ess_target, group)
     else:
         bm = torch.where(hist.sample_mask(), denom, torch.full_like(denom, float("inf")))
         scal = torch.stack([beta_prev, torch.tensor(ess_target, dtype=dtype, device=device)])
         beta, _ = ess_bisect_beta(hist.logl.reshape(-1), bm.reshape(-1), scal)
         beta = beta[0]
 
-    logw, logz = logw_from_denominator(hist, denom, beta)
+    logw, logz = logw_from_denominator(hist, denom, beta, group=group)
     weights = torch.exp(logw)  # normalized; masked entries are exp(-inf) = 0
-    ess = ess_from_logw(logw)
-    cv = volume_variation_dtn(hist.u, weights, mask=hist.sample_mask())
+    ess = ess_from_logw_psum(logw, group)
+    cv = volume_variation_dtn(hist.u, weights, mask=hist.sample_mask(), group=group)
     return ReweightResult(beta=beta, weights=weights, ess=ess, cv=cv, logz=logz)

@@ -1,7 +1,8 @@
 """Weighted multivariate Student-t fit by EM.
 
-Counterpart of tempest_tpu/student.py: `fit_mvstud_weighted` (:248-326)
-with the weighted-median start (:220-244), the 16-way log-space
+Counterpart of tempest_tpu/student.py: the unweighted `fit_mvstud`
+(:164-217) and `fit_mvstud_weighted` (:248-326) with the weighted-median
+start (:220-244), the 16-way log-space
 multisection for nu (`_opt_nu`, :137-160) on the cancellation-free
 stationarity equation (:65-103), and the `_nu_converged` exit (:106-134).
 
@@ -81,6 +82,54 @@ def _opt_nu(delta: torch.Tensor, dim: int, wbar) -> torch.Tensor:
         lo, hi = grid[count], grid[count + 1]
     nu = torch.exp(0.5 * (lo + hi))
     return torch.where(is_inf, torch.full_like(nu, float("inf")), nu)
+
+
+def fit_mvstud(
+    data: torch.Tensor, tolerance: float = 1e-6, max_iter: int = 100
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Multivariate Student-t EM on unweighted data (n, dim) -> (mu, Sigma,
+    nu) (student.py:164-217); nu == +inf signals the Gaussian limit.
+
+    It starts from the per-dimension median as `jnp.median` takes it, the
+    mean of the two middle values for even n (`torch.median` would return
+    the lower one), and from the biased covariance plus diag(var) / n."""
+    n, dim = data.shape
+    dtype, device = data.dtype, data.device
+    mu = torch.quantile(data, 0.5, dim=0)
+    xc = data - torch.mean(data, dim=0)
+    Sigma = (xc.T @ xc) / n + torch.diag(torch.var(data, dim=0, correction=0)) / n
+    nu = torch.tensor(20.0, dtype=dtype, device=device)
+    last_nu = torch.zeros((), dtype=dtype, device=device)
+    hit_inf = torch.zeros((), dtype=torch.bool, device=device)
+    eye = torch.eye(dim, dtype=dtype, device=device)
+    ones = torch.ones((n, 1), dtype=dtype, device=device)
+
+    for _ in range(max_iter):
+        if bool(_nu_converged(nu, last_nu, tolerance) | hit_inf):  # one sync per iteration
+            break
+        Sigma, L = regularized_cholesky(Sigma)
+        diffs = data - mu
+        sol = diffs @ torch.linalg.solve_triangular(L, eye, upper=False).T
+        delta = torch.sum(sol * sol, dim=1)
+
+        nu_new = _opt_nu(delta, dim, 1.0 / n)
+        now_inf = ~torch.isfinite(nu_new)
+
+        w = (nu_new + dim) / (nu_new + delta)
+        Sigma_new = (diffs.T * w) @ diffs / n
+        # Numerator and denominator as columns of one reduction, summed in
+        # one order, as XLA sums both: a constant column then gives its
+        # value exactly, as in JAX.
+        sums = torch.sum(w[:, None] * torch.cat([data, ones], dim=1), dim=0)
+        mu_new = sums[:dim] / sums[dim]
+
+        # On the Gaussian-limit exit the current (mu, Sigma) are returned.
+        mu = torch.where(now_inf, mu, mu_new)
+        Sigma = torch.where(now_inf, Sigma, Sigma_new)
+        last_nu, nu, hit_inf = nu, nu_new, now_inf
+
+    Sigma, _ = regularized_cholesky(Sigma)
+    return mu, Sigma, nu
 
 
 def _weighted_median_presorted(

@@ -1,0 +1,383 @@
+"""The port's Sampler over a particle mesh, its two-process drills and its
+sharded checkpoints, against tempest_tpu.
+
+The ranks are processes on the CPU over gloo, started and read by
+tests/test_torch_parallel.py's `launch` and `spawn`, each running this
+file as a script (`python tests/test_torch_distributed.py <mode> <rank>
+<world> <store> <workdir> [args]`) that imports no JAX; every collective
+times out after 60 s and every rank is killed after 120 s.
+
+1. tests/test_parallel.py's five cases on the port at W ranks: a run end to
+   end (logZ within 0.5 of -4 log 20, beta = 1, the history local on
+   N/W), the same run as `mesh=None` (the same t, the beta ladder within
+   1e-3, logZ within 0.05), clustering, the divisibility error, and
+   capacity growth from two slots; plus the mesh's own checks and a
+   pickle taken under the mesh, which runs on as the sharded run does
+   (the other paths' agreement is in tests/test_torch_parallel.py). The
+   agreement holds where the sharded fit-point selection is exact:
+   every rank's candidates cover its block of the history (m >= S/W), as
+   on JAX's own 8-device test mesh, so `train_max_points` is raised to
+   S/W at W = 2. Below that the selection skips the weight trim, JAX's
+   documented deviation (tempest_tpu/parallel/collective.py:180-189); that
+   run is held to the same t and logZ within 0.05, not to the ladder.
+2. tests/test_distributed.py's two drills at W = 2: a clustered annealing
+   whose two ranks report the identical logZ and t, then a sharded
+   checkpoint (each rank writes only its half) loaded into a fresh sampler;
+   and a run whose ranks are SIGKILLed after a mid-run sharded checkpoint
+   and resumed by a fresh pair of processes, which must end with the t and
+   the logZ of the uninterrupted run, bit for bit.
+3. Sharded checkpoints across the packages: a file JAX's
+   `save_checkpoint_sharded` wrote in one process on an 8-device mesh (one
+   shard) loads into a W = 2 port run, value for value, and the run goes
+   on to beta = 1; the drill's W = 2 port file loads in JAX's
+   `load_checkpoint_sharded` on an 8-device mesh, value for value.
+"""
+
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from test_torch_parallel import (
+    _build,
+    _exact_fit_points,
+    _run_row,
+    _same_on_every_rank,
+    by_case,
+    launch,
+    report,
+    spawn,
+    worker_main,
+)
+
+REPO = Path(__file__).resolve().parents[1]
+D = 4
+ANALYTIC_LOGZ = -D * math.log(20.0)
+HISTORY_LEAVES = ("u", "x", "logl", "mis_c", "beta", "logz", "ess", "cv", "acceptance",
+                  "efficiency", "steps", "calls")
+
+
+def _prior(u):
+    return 20.0 * u - 10.0
+
+
+def _w_sampler(mesh, rank, world, workdir, cases):
+    import pickle
+
+    from tempest_tpu_torch.parallel import make_particle_mesh
+
+    cases = cases.split(",")
+    if "e2e" in cases:
+        s = _build(mesh, 11)
+        s.run(n_total=512, progress=False)
+        x, w, _ = s.posterior()
+        res = s.results()
+        report({"case": "e2e", **_run_row(s), "evidence": s.evidence()[0],
+                "posterior": [len(x), float(np.average(x[:, 0], weights=w))],
+                "results_u": list(res["u"].shape), "logz_err": s.evidence(n_bootstrap=64)[1]})
+    if "agree" in cases:
+        s = _build(mesh, 5, train_max_points=_exact_fit_points(world))
+        s.run(n_total=512, progress=False)
+        report({"case": "agree", **_run_row(s)})
+    if "agree_candidates" in cases:
+        s = _build(mesh, 5)
+        s.run(n_total=512, progress=False)
+        report({"case": "agree_candidates", **_run_row(s)})
+    if "clustering" in cases:
+        s = _build(mesh, 2, clustering=True)
+        s.run(n_total=512, progress=False)
+        report({"case": "clustering", **_run_row(s),
+                "clusters": int(s.state.cluster_model.n_clusters())})
+    if "divisible" in cases:
+        try:
+            _build(mesh, 0, n_particles=101)
+            report({"case": "divisible", "error": None})
+        except ValueError as e:
+            report({"case": "divisible", "error": str(e)})
+    if "growth" in cases:
+        s = _build(mesh, 0, n_particles=64, history_capacity=2)
+        s.run(n_total=256, progress=False)
+        report({"case": "growth", **_run_row(s)})
+    if "checks" in cases:
+        errors = []
+        for bad in (lambda: make_particle_mesh(n_devices=world + 1, device="cpu"),
+                    lambda: _build(mesh, 0, device="cuda")):
+            try:
+                bad()
+                errors.append(None)
+            except ValueError as e:
+                errors.append(str(e))
+        report({"case": "checks", "errors": errors})
+    if "pickle" in cases:
+        s = _build(mesh, 5, clustering=True)
+        for _ in range(8):
+            s.sample()
+        alone = pickle.loads(pickle.dumps(s))  # gathers; then one device, no mesh
+        rows = [(s.sample(), alone.sample()) for _ in range(2)]
+        report({"case": "pickle", "mesh": alone.state.config.mesh is None,
+                "alone_n": alone.state.hist.u.shape[2],
+                "rows": [[a["beta"], b["beta"], a["logz"], b["logz"]] for a, b in rows],
+                "u": float(np.max(np.abs(rows[-1][0]["u"] - rows[-1][1]["u"])))})
+
+
+
+
+def _drill_sampler(mesh, seed):
+    """tests/distributed_worker.py's sampler. The capacity is pinned, so the
+    full, interrupted and resumed runs hold buffers of one shape."""
+    return _build(mesh, seed, clustering=True, history_capacity=64)
+
+
+def _gathered(s, path, rank):
+    """The global history of sampler `s`, gathered over its mesh (every rank
+    calls this), written to `path` by rank 0."""
+    from tempest_tpu_torch import interop
+
+    fields = interop.history_to_numpy(s.state.hist, s.state.group)
+    if rank == 0:
+        np.savez(path, **{k: fields[k] for k in HISTORY_LEAVES + ("t",)})
+
+
+def _w_anneal(mesh, rank, world, workdir):
+    s = _drill_sampler(mesh, 7)
+    s.run(n_total=512, progress=False)
+    ckpt = workdir / "mp.state"
+    s.save_state(ckpt)
+    shard = np.load(ckpt / f"shard_{rank}" / "hist.u.npy", mmap_mode="r")
+    _gathered(s, workdir / "mp_state.npz", rank)
+    # A fresh sampler of another seed takes the whole run from the file.
+    s2 = _build(mesh, 0, clustering=True)
+    s2.load_state(ckpt)
+    x, w, _ = s2.posterior()
+    # tempest_tpu's own sharded file: the run continues from it to the end.
+    s3 = _build(mesh, 123)
+    s3.load_state(workdir / "jax.state")
+    _gathered(s3, workdir / "jax_loaded.npz", rank)
+    loaded_t = s3.state.hist.t
+    s3.run(n_total=512, progress=False)
+    report({"logz": round(s.logz, 10), "t": s.state.hist.t, "beta": s.beta,
+            "shard_shape": list(shard.shape), "global_shape": [D, 64, 256],
+            "is_dir": ckpt.is_dir(), "loaded_t": s2.state.hist.t, "loaded_logz": s2.logz,
+            "loaded_local_n": s2.state.hist.u.shape[2],
+            "mean0": float(np.average(x[:, 0], weights=w)),
+            "jax_loaded_t": loaded_t, "jax_run_beta": s3.beta, "jax_run_logz": s3.logz})
+
+
+def _w_drill(mesh, rank, world, workdir, mode):
+    ckpt = workdir / "mid.state"
+    if mode == "interrupt":
+        # Save at t = 6, signal through a flag file, and sample on until the
+        # parent kills this process.
+        s = _drill_sampler(mesh, 7)
+        for _ in range(100):
+            s.sample()
+            if s.state.hist.t == 6:
+                s.save_state(ckpt)
+                (workdir / f"saved_{rank}.flag").touch()
+        return
+    s = _drill_sampler(mesh, 123 if mode == "resume" else 7)  # state from the file
+    s.run(n_total=512, progress=False, resume_state_path=ckpt if mode == "resume" else None)
+    x, w, _ = s.posterior()
+    report({"beta": s.beta, "logz": round(s.logz, 10), "t": s.state.hist.t,
+            "mean0": float(np.average(x[:, 0], weights=w))})
+
+
+@pytest.fixture(scope="module")
+def sampler_runs(tmp_path_factory):
+    """world -> {case: [each rank's row]}: the W = 2 ranks run every case,
+    the W = 4 ones the end-to-end run and the agreement."""
+    cases = {2: "e2e,agree,agree_candidates,clustering,divisible,growth,checks,pickle",
+             4: "e2e,agree"}
+    runs = {}
+
+    def get(world):
+        if world not in runs:
+            runs[world] = by_case(spawn(__file__, "sampler", world,
+                                        tmp_path_factory.mktemp(f"s{world}"), cases[world]))
+        return runs[world]
+
+    return get
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mesh_run_end_to_end(sampler_runs, world):
+    r = _same_on_every_rank(sampler_runs(world)["e2e"])
+    assert abs(r["logz"] - ANALYTIC_LOGZ) < 0.5 and r["evidence"] == r["logz"]
+    assert r["beta"] == 1.0
+    # The history stayed sharded: each rank holds N / W particles.
+    assert r["local_n"] == r["local_logl"] == r["local_cur"] == 256 // world
+    # posterior() and results() gather the whole run on every rank.
+    assert r["results_u"] == [r["t"], 256, D] and r["posterior"][0] > 256
+    assert abs(r["posterior"][1]) < 0.5 and 0.0 < r["logz_err"] < 0.5
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mesh_matches_single_device(sampler_runs, world):
+    r = _same_on_every_rank(sampler_runs(world)["agree"])
+    s1 = _build(None, 5, train_max_points=_exact_fit_points(world))
+    s1.run(n_total=512, progress=False)
+    assert r["capacity"] * 256 // world <= _exact_fit_points(world)  # the exact selection
+    assert abs(s1.logz - r["logz"]) < 0.05
+    assert s1.state.hist.t == r["t"]
+    np.testing.assert_allclose(s1.state.hist.beta[: r["t"]].numpy(), r["betas"], atol=1e-3)
+
+
+def test_mesh_without_the_trim_stays_close(sampler_runs):
+    """At W = 2 with the default train_max_points each rank's top-m does not
+    cover its block, and the sharded selection skips the weight trim, as
+    JAX's does: the run keeps the ladder's length and logZ."""
+    r = _same_on_every_rank(sampler_runs(2)["agree_candidates"])
+    assert r["capacity"] * 256 // 2 > 4096  # the candidate branch
+    s1 = _build(None, 5)
+    s1.run(n_total=512, progress=False)
+    assert r["beta"] == 1.0 and s1.state.hist.t == r["t"]
+    assert abs(s1.logz - r["logz"]) < 0.05
+
+
+def test_mesh_with_clustering(sampler_runs):
+    r = _same_on_every_rank(sampler_runs(2)["clustering"])
+    assert r["beta"] == 1.0
+    assert abs(r["logz"] - ANALYTIC_LOGZ) < 0.5
+
+
+def test_mesh_divisibility_validated(sampler_runs):
+    r = _same_on_every_rank(sampler_runs(2)["divisible"])
+    assert r["error"] is not None and "divisible" in r["error"]
+
+
+def test_capacity_growth_preserves_sharding(sampler_runs):
+    r = _same_on_every_rank(sampler_runs(2)["growth"])
+    assert r["t"] > 2 and r["capacity"] > 2  # growth happened
+    assert r["local_n"] == r["local_cur"] == 32
+    assert abs(r["logz"] - ANALYTIC_LOGZ) < 0.5
+
+
+def test_mesh_checks(sampler_runs):
+    r = _same_on_every_rank(sampler_runs(2)["checks"])
+    assert "world size" in r["errors"][0]
+    assert "device type" in r["errors"][1]
+
+
+def test_pickle_under_mesh_runs_on_one_device(sampler_runs):
+    """Pickling gathers the blocks and drops the mesh; the unpickled sampler
+    runs on alone, on the same draws, as the sharded one does."""
+    r = _same_on_every_rank(sampler_runs(2)["pickle"])
+    assert r["mesh"] and r["alone_n"] == 256
+    for beta_s, beta_a, logz_s, logz_a in r["rows"]:
+        assert abs(beta_s - beta_a) <= 1e-5 * beta_s and abs(logz_s - logz_a) < 1e-4
+    assert r["u"] < 1e-3
+
+
+
+
+def _jax_gaussian(x):
+    import jax.numpy as jnp
+
+    return -0.5 * jnp.sum(x * x, axis=-1) - 0.5 * D * jnp.log(2 * jnp.pi)
+
+
+@pytest.fixture(scope="module")
+def anneal(tmp_path_factory):
+    """The drill's annealing at W = 2, with a sharded file of tempest_tpu's
+    (one process, 8 devices, 9 iterations) for the ranks to load."""
+    from tempest_tpu import Sampler as JaxSampler
+    from tempest_tpu.parallel.mesh import make_particle_mesh as jax_mesh
+    from tempest_tpu.utils.checkpoint import save_checkpoint_sharded
+
+    workdir = tmp_path_factory.mktemp("anneal")
+    js = JaxSampler(_prior, _jax_gaussian, n_dim=D, n_particles=256, vectorize=True,
+                    clustering=False, random_state=3, mesh=jax_mesh(8), history_capacity=32)
+    for _ in range(9):
+        js.sample()
+    save_checkpoint_sharded(workdir / "jax.state", js.state.hist, js.state.cur, js.state.key,
+                            {"n_total": 512})
+    jax_hist = {k: np.asarray(getattr(js.state.hist, k)) for k in HISTORY_LEAVES + ("t",)}
+    rows = spawn(__file__, "anneal", 2, workdir)
+    return workdir, [r[-1] for r in rows], jax_hist
+
+
+def test_two_process_annealing_and_checkpoint(anneal):
+    _, (r0, r1), _ = anneal
+    # Both ranks run one program on replicated decisions: identical evidence.
+    assert r0["logz"] == r1["logz"] and r0["t"] == r1["t"]
+    assert r0["beta"] == r1["beta"] == 1.0
+    assert abs(r0["logz"] - ANALYTIC_LOGZ) < 0.5
+    assert r0["mean0"] == r1["mean0"] and abs(r0["mean0"]) < 0.5
+    # The file is sharded: each rank wrote exactly its half of hist.u.
+    assert r0["is_dir"] and r0["shard_shape"] == r1["shard_shape"] == [D, 64, 128]
+    for r in (r0, r1):
+        assert r["loaded_t"] == r0["t"] and abs(r["loaded_logz"] - r0["logz"]) < 1e-6
+        assert r["loaded_local_n"] == 128
+
+
+def test_jax_sharded_checkpoint_loads_in_port(anneal):
+    workdir, rows, jax_hist = anneal
+    with np.load(workdir / "jax_loaded.npz") as got:
+        for k in HISTORY_LEAVES + ("t",):
+            np.testing.assert_array_equal(got[k], jax_hist[k], err_msg=k)
+    for r in rows:
+        assert r["jax_loaded_t"] == int(jax_hist["t"]) == 9
+        assert r["jax_run_beta"] == 1.0 and abs(r["jax_run_logz"] - ANALYTIC_LOGZ) < 0.5
+
+
+def test_port_sharded_checkpoint_loads_in_jax(anneal):
+    from tempest_tpu.parallel.mesh import make_particle_mesh as jax_mesh
+    from tempest_tpu.utils.checkpoint import load_checkpoint_sharded
+
+    workdir, _, _ = anneal
+    hist, cur, key, meta = load_checkpoint_sharded(workdir / "mp.state", jax_mesh(8))
+    assert meta["n_total"] == 512 and np.asarray(key).shape == (2,)
+    assert cur.u.shape == (256, D) and not hist.u.sharding.is_fully_replicated
+    with np.load(workdir / "mp_state.npz") as want:
+        for k in HISTORY_LEAVES + ("t",):
+            np.testing.assert_array_equal(np.asarray(getattr(hist, k)), want[k], err_msg=k)
+
+
+def test_two_process_midrun_kill_and_resume(tmp_path):
+    """A mid-run sharded checkpoint, both ranks SIGKILLed while they sample
+    on, and a fresh pair of processes (another seed) resumes: the end is
+    the uninterrupted run's, bit for bit."""
+    full = [r[-1] for r in spawn(__file__, "drill", 2, tmp_path / "full", "full")]
+
+    procs = launch(__file__, "drill", 2, tmp_path, "interrupt")
+    flags = [tmp_path / "saved_0.flag", tmp_path / "saved_1.flag"]
+    deadline = time.time() + 120
+    try:
+        while not all(f.exists() for f in flags):
+            for i, p in enumerate(procs):
+                assert p.poll() is None, f"interrupt rank {i} exited:\n{p.stdout.read()[-4000:]}"
+            assert time.time() < deadline, "the checkpoint flags never appeared"
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait(timeout=60)
+    ckpt = tmp_path / "mid.state"
+    assert (ckpt / "meta.json").exists()
+    assert (ckpt / "shard_0").is_dir() and (ckpt / "shard_1").is_dir()
+
+    resumed = [r[-1] for r in spawn(__file__, "drill", 2, tmp_path, "resume")]
+    for rf, rr in zip(full, resumed):
+        assert rr["beta"] == 1.0
+        assert rr["t"] == rf["t"]
+        assert rr["logz"] == rf["logz"]
+        assert abs(rr["mean0"] - rf["mean0"]) < 1e-6
+
+
+def test_workers_import_no_jax():
+    """A rank imports both test files, the port and torch, never JAX."""
+    code = ("import sys; sys.path.insert(0, 'tests'); "
+            "import test_torch_distributed, test_torch_parallel; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tempest_tpu')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+if __name__ == "__main__":
+    worker_main({"sampler": _w_sampler, "anneal": _w_anneal, "drill": _w_drill})

@@ -22,6 +22,10 @@ writes what it computed to an npz that a module-scoped fixture reads:
 4. State files both ways: the JAX x64 file loads into a float64 port
    sampler value for value and runs on; a float64 port file loads into the
    JAX x64 sampler value for value, and JAX runs an iteration from it.
+5. Dynamic (CV) mode in float64: XLA's `reweight(dynamic=True,
+   use_pallas=False)` on the histories of tests/test_torch_dynamic.py's
+   CASES, made in float64; the port's float64 reweight must reach the
+   same beta, bit for bit.
 
 In the test process (port only): the 4-D Gaussian of tests/test_float64.py
 with its bars (|logZ + 4 log 20| < 0.35, the MIS accumulator within 1e-9 of
@@ -43,7 +47,9 @@ from tempest_tpu_torch import Sampler, interop
 from tempest_tpu_torch.cluster import fit_uniforms
 from tempest_tpu_torch.ops.cuda_reweight import ess_bisect_beta, ess_bisect_beta_reference
 from tempest_tpu_torch.state import mis_denominator, mis_denominator_exact
+from tempest_tpu_torch.steps.reweight import reweight
 from tempest_tpu_torch.utils import threefry
+from test_torch_dynamic import CASES as DYNAMIC_CASES
 
 torch.set_num_threads(1)
 
@@ -196,6 +202,36 @@ _SCRIPT = textwrap.dedent(
     nxt = js.sample()
     out["pl.next_beta"], out["pl.next_logz"] = nxt["beta"], nxt["logz"]
     out["pl.next_dtype"] = str(js.state.hist.logl.dtype)
+
+    # 5. dynamic mode in float64 on the histories of test_torch_dynamic.py
+    from tempest_tpu.state import commit, make_current, make_history
+    from tempest_tpu.ops.tools import ess_from_logw
+    from tempest_tpu.state import logw_from_denominator
+    sys.path.insert(0, "tests")
+    from test_torch_dynamic import CASES, CAP, D as DD, N as DN
+
+    for i, (fill, seed, contract, ess_mult, cv_target) in enumerate(CASES):
+        rng = np.random.default_rng(seed)
+        hist = make_history(CAP, DN, DD, dtype=jnp.float64)
+        cur = make_current(DN, DD, dtype=jnp.float64)
+        for t in range(fill):
+            width = 1.0 / (1.0 + t) if contract else 4.0
+            u = np.clip(0.5 + width * rng.normal(0, 0.25, (DN, DD)), 0.0, 1.0)
+            logl = -0.5 * np.sum(((u - 0.5) / 0.05) ** 2, axis=1)
+            cur = cur.replace(u=jnp.asarray(u), x=jnp.asarray(u), logl=jnp.asarray(logl),
+                              beta=jnp.asarray(0.002 * t * t, jnp.float64),
+                              logz=jnp.asarray(-0.3 * t, jnp.float64))
+            hist = commit(hist, cur)
+        beta_prev = float(hist.beta[fill - 1])
+        denom = mis_denominator(hist)
+        ess_at = lambda b: float(ess_from_logw(logw_from_denominator(hist, denom, b)[0]))
+        target = (0.5 * ess_at(1.0) if ess_mult == "jump" else ess_mult * ess_at(beta_prev))
+        rw = jax_reweight(hist, jnp.asarray(beta_prev, jnp.float64), target,
+                          cv_target=cv_target, dynamic=True, use_pallas=False)
+        out.update({f"dyn{i}.{k}": np.array(getattr(hist, k))
+                    for k in interop.HISTORY_FIELDS + ("t",)})
+        out[f"dyn{i}.args"] = np.array([beta_prev, target, cv_target])
+        out[f"dyn{i}.want"] = np.array(rw.beta)
     np.savez(out_path, **out)
     """
 )
@@ -247,6 +283,20 @@ def test_bisection_against_xla_float64(jax_x64, case):
     assert abs(float(beta) - want_beta) <= 1e-12 * abs(want_beta)
     again = ess_bisect_beta_reference(hist.logl.reshape(-1), bm.reshape(-1), scal)
     assert float(again[0]) == float(beta)
+
+
+@pytest.mark.parametrize("case", range(len(DYNAMIC_CASES)))
+def test_dynamic_reweight_against_xla_float64(jax_x64, case):
+    fields = {k.split(".", 1)[1]: v for k, v in jax_x64.items()
+              if k.startswith(f"dyn{case}.")}
+    beta_prev, target, cv_target = fields.pop("args").tolist()
+    want = float(fields.pop("want"))
+    hist = interop.history_from_numpy(fields, "cpu")
+    assert hist.logl.dtype == torch.float64
+    got = reweight(hist, torch.tensor(beta_prev, dtype=torch.float64), target,
+                   cv_target=cv_target, dynamic=True)
+    assert got.beta.dtype == torch.float64
+    assert float(got.beta) == want
 
 
 def _close(got, want, what):

@@ -37,6 +37,10 @@ SUBMODULES = [
     "tempest_tpu_torch.ops.cuda_reweight",
     "tempest_tpu_torch.ops.philox",
     "tempest_tpu_torch.ops.tools",
+    "tempest_tpu_torch.parallel",
+    "tempest_tpu_torch.parallel.collective",
+    "tempest_tpu_torch.parallel.distributed",
+    "tempest_tpu_torch.parallel.mesh",
     "tempest_tpu_torch.sampler",
     "tempest_tpu_torch.state",
     "tempest_tpu_torch.steps.mutate",
@@ -133,19 +137,23 @@ def test_defaults_match_jax():
     assert p.get_target_metric() == j.get_target_metric()
 
 
-# The options still refused. Explicit ids keep each case's name stable as
-# options leave this list.
-@pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(mesh=object()), "queue 1, item 11", id="kw4-queue 1, item 11"),
-    pytest.param(dict(dtype=torch.float16), "queue 1, item 11", id="kw5-queue 1, item 11"),
+# The options refused. Explicit ids keep each case's name stable as options
+# leave this list: the mesh is ported, and `kw4` now holds that a mesh that
+# is no DeviceMesh raises a TypeError naming make_particle_mesh.
+@pytest.mark.parametrize("kw,error,match", [
+    pytest.param(dict(mesh=object()), TypeError, "make_particle_mesh",
+                 id="kw4-queue 1, item 11"),
+    pytest.param(dict(dtype=torch.float16), NotImplementedError, "queue 1, item 11",
+                 id="kw5-queue 1, item 11"),
 ])
-def test_unported_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_options_raise(kw, error, match):
+    with pytest.raises(error, match=match):
         _config(SamplerConfig, device="cpu", **kw)
 
 
 def test_float64_is_accepted():
-    """float64 runs (tempest_tpu with x64); only the mesh and other dtypes raise."""
+    """float64 runs (tempest_tpu with x64); other dtypes than float32 and
+    float64 raise."""
     assert _config(SamplerConfig, device="cpu", dtype=torch.float64).dtype == torch.float64
 
 
