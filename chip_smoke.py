@@ -10,7 +10,10 @@ PyTorch version on the card, then drives the port through
 lines and a failure exits non-zero:
 
  1. the card: `nvidia-smi` name and power limit;
- 2. build every kernel;
+ 2. build every kernel, and the gamma kernel's other layouts from the same
+    source (`-DTEMPEST_GAMMA_LAYOUT`); each library's ptxas report
+    (`-Xptxas -v`): every kernel's registers and spill bytes, and a spill in
+    any kernel fails;
  3. the ESS-bisection kernel against its plain version on both routes of
     its launch plan (slices in shared memory: S = 65,536, a ragged S and the
     last S held on chip, 393,216; slices streamed from L2: 393,217 and
@@ -23,13 +26,19 @@ lines and a failure exits non-zero:
     exact, two launches giving the same bits, and its times in turns with
     the float32 instantiation on the same histories; the bounds count the
     instructions of exp from the SASS of a probe compiled in phase 2;
- 4. the three PRNG kernels against their plain versions on one key and call
+ 4. the four PRNG kernels against their plain versions on one key and call
     index (mutation draws at (8, 1024, 10), a ragged (8, 1000, 10) and the
     largest fused shape (8, 6553, 10); normal and bits at 2^20 and at B's
-    shapes), their moments, their device and host-timed call times beside
-    their plain versions' and the PyTorch generator's, the launch floor,
-    and one synchronized call of each kernel split into wrapper, launch,
-    device and sync time;
+    shapes, the bits through the public `hw_uniform`, whose launches the
+    bits row counts; the gamma draws at n = 1, 3, 5, 1000, 131,072,
+    131,075 and 262,144 for alpha 0.02, 0.5, 0.7, 1.5, 7.5, 50 and all six
+    in turn, one gamma launch and no other a call, on call indices that
+    cross 2^32), their moments, their device and host-timed call times
+    beside their plain versions' and the PyTorch generator's (the gamma
+    kernel's bound counts the Marsaglia-Tsang rounds these draws need), the
+    gamma kernel's three layouts in turns at n = 2^17 and 2^18, the launch
+    floor, and one synchronized call of each kernel split into wrapper,
+    launch, device and sync time;
  5. the canonical problem unclustered (paired 10-D Rosenbrock, U(-10, 10)
     prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42;
  6. A: the canonical problem at the reference defaults, clustered
@@ -40,9 +49,14 @@ lines and a failure exits non-zero:
  8. B: the large-ensemble hardware_prng configuration of
     benchmarks/results/hw_prng_e2e.json (10-D Gaussian, n_particles=131072,
     history_capacity=8, unclustered) through its first four mutation
-    iterations: the normal and bits kernels, 7 + 7 launches per MCMC step;
-    then the normal kernel at its R*N*d and the ESS kernel at the S reached,
-    each against its plain version;
+    iterations: one normal and one gamma launch per MCMC step, no bits
+    launch; then the normal kernel at its R*N*d and the ESS kernel at the S
+    reached, each against its plain version; then B again with its gamma
+    draws composed as before the gamma kernel (6 normal and 7 bits launches
+    and Marsaglia-Tsang in PyTorch, from the public `hw_normal` and
+    `hw_uniform`), twice, and B with the kernel once more (kernel, composed,
+    composed, kernel): the walls of each iteration side by side, beta within
+    1e-4 (relative) of the first run's;
  9. C: the 10-D bimodal mixture of tests/test_multimodal.py, clustered;
 10. the 10-D Gaussian of tests/test_end_to_end.py;
 11. the reference surface on A's problem, seed 42: the reference's default
@@ -65,8 +79,9 @@ lines and a failure exits non-zero:
 14. float64: A at dtype=torch.float64 with hardware_prng=True, seed 42 (one
     float64 ESS launch per reweight and no PRNG launch: the flag does not
     apply to float64, as in JAX), its wall beside phase 6's seed 42; B at
-    float64 through its first four mutation iterations, and the float64 ESS
-    kernel at its S = 1,048,576 against the plain version; the 4-D Gaussian
+    float64 through its first four mutation iterations (no launch of any of
+    the four PRNG kernels), and the float64 ESS kernel at its S = 1,048,576
+    against the plain version; the 4-D Gaussian
     of tests/test_float64.py with its bars; the mixture facades on the card
     (GaussianMixture of each covariance type on two blobs,
     HierarchicalGaussianMixture splitting them, predict_proba summing to 1);
@@ -107,6 +122,7 @@ import json
 import math
 import os
 import pickle
+import re
 import socket
 import subprocess
 import sys
@@ -218,6 +234,15 @@ MT_ROUND = (PHILOX_INT + 3 * UNIT[0], 3 * UNIT[1] + 3 * LOGF + SQRTF + COSF + 17
 # Per walker besides its rounds: the boost/accept block and 2 unit maps, the
 # set-up (sqrt, a division), the boost (a division, a power) and 6 more ops.
 WALKER_EXTRA = (PHILOX_INT + 2 * UNIT[0], 2 * UNIT[1] + SQRTF + 2 * DIVF + POWF + 6)
+# The gamma kernel (hw_gamma), counted on the rounds the draws need: a Philox
+# block; a Box-Muller pair (2 unit maps, log, sqrt, sincos, 4 products); a
+# walker's test in one round (its uniform's map, two logs, the cube and about
+# 12 sums, products, compares and selects); a walker's set-up (a sqrt, a
+# division, 4 ops); the boost of alpha < 1 (a map, a division, a power).
+GAMMA_PAIR = (2 * UNIT[0], 2 * UNIT[1] + LOGF + SQRTF + SINCOSF + 4)
+GAMMA_TEST = (UNIT[0], UNIT[1] + 2 * LOGF + 14)
+GAMMA_SETUP = (0, SQRTF + DIVF + 4)
+GAMMA_BOOST = (UNIT[0], UNIT[1] + DIVF + POWF + 2)
 # The ESS kernel, per sample and probe: the finite tests, beta * logl - Bm,
 # one exp, the running max and the two sums; the loop's index. The exp's own
 # instructions are counted from the SASS of a probe built in phase 2
@@ -518,9 +543,74 @@ def phase_device() -> str:
     return torch.cuda.get_device_name(0)
 
 
-def phase_build() -> None:
-    """Both kernel libraries, and beside them the SASS probe whose exp
-    counts set ESS_SAMPLE_PROBE."""
+# The layouts of the gamma kernel (csrc/prng_draws.cu, TEMPEST_GAMMA_LAYOUT).
+GAMMA_LAYOUTS = {0: "one thread a Philox block", 1: "eight lanes a Philox block",
+                 2: "one thread a walker"}
+
+
+def gamma_layouts() -> tuple:
+    """(the layout tempest_gamma launches, {other layout: its library}): the
+    same source built with -DTEMPEST_GAMMA_LAYOUT set to each layout it
+    does not launch by default, for phase 4's comparison."""
+    text = (_build.CSRC / cuda_prng.LIBRARY.source).read_text()
+    default = int(re.search(r"#define TEMPEST_GAMMA_LAYOUT (\d+)", text).group(1))
+    others = {
+        k: _build.CudaLibrary(
+            cuda_prng.LIBRARY.source,
+            {"tempest_gamma": cuda_prng.LIBRARY.functions["tempest_gamma"]},
+            extra_flags=cuda_prng.LIBRARY.extra_flags + (f"-DTEMPEST_GAMMA_LAYOUT={k}",))
+        for k in GAMMA_LAYOUTS if k != default}
+    return default, others
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_PROPS = re.compile(r"Function properties for (\S+)")
+_PTXAS_FRAME = re.compile(
+    r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(text: str) -> dict:
+    """function -> {registers, stack, spill_stores, spill_loads} from the
+    `-Xptxas -v` lines of one compile (a function nvcc did not inline has
+    a frame and no register count)."""
+    out, entry, props = {}, None, None
+    for line in text.splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            entry = m.group(1)
+            out.setdefault(entry, {})
+        elif m := _PTXAS_PROPS.search(line):
+            props = m.group(1)
+            out.setdefault(props, {})
+        elif (m := _PTXAS_FRAME.search(line)) and props:
+            out[props].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        elif (m := _PTXAS_REGS.search(line)) and entry:
+            out[entry]["registers"] = int(m.group(1))
+    return out
+
+
+def _short_names(nvcc: str, names: list) -> dict:
+    """mangled -> `kernel<args>`, by cu++filt where the toolkit has it."""
+    def short(d):
+        d = re.sub(r"^void ", "", d.replace("(bool)1", "true").replace("(bool)0", "false"))
+        return re.sub(r"(<unnamed>|\(anonymous namespace\))::", "", d).split("(")[0]
+
+    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    if not names or not os.path.exists(filt):
+        return {n: n for n in names}
+    out = subprocess.run([filt, *names], capture_output=True, text=True, timeout=60)
+    lines = out.stdout.splitlines() if out.returncode == 0 else []
+    if len(lines) != len(names):
+        return {n: n for n in names}
+    shorts = {n: short(d) for n, d in zip(names, lines)}
+    return shorts if len(set(shorts.values())) == len(shorts) else {n: n for n in names}
+
+
+def phase_build() -> dict:
+    """Both kernel libraries and the gamma kernel's other layouts; beside
+    them each one's ptxas report (a spill in any kernel fails) and the SASS
+    probe whose exp counts set ESS_SAMPLE_PROBE. Returns the reports."""
     t0 = time.perf_counter()
     nvcc = _build._nvcc()
     tmp = tempfile.mkdtemp(prefix="sass_probe_")
@@ -530,7 +620,15 @@ def phase_build() -> None:
     probe = subprocess.Popen([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
                               "-o", cubin, src], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                              text=True)
-    libs = (cuda_reweight.LIBRARY, cuda_prng.LIBRARY)
+    gamma_default, gamma_others = gamma_layouts()
+    libs = (cuda_reweight.LIBRARY, cuda_prng.LIBRARY, *gamma_others.values())
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    ptxas = []
+    for i, lib in enumerate(libs):  # the same compiles as the libraries', to cubins, verbose
+        cmd = [nvcc, *flags, *lib.extra_flags, "-Xptxas", "-v", "-cubin",
+               "-o", os.path.join(tmp, f"ptxas_{i}.cubin"), str(_build.CSRC / lib.source)]
+        ptxas.append((lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                            text=True)))
     paths = _build.build_all(libs)
     for lib in libs:
         _build.load(lib)
@@ -544,11 +642,29 @@ def phase_build() -> None:
         ESS_SAMPLE_PROBE[t] = (ESS_SAMPLE_OTHER[0] + i, f + (ESS_SAMPLE_OTHER[1] if t == "f32" else 0),
                                d + (ESS_SAMPLE_OTHER[1] if t == "f64" else 0))
     names = " ".join(p.name for p in paths.values())
-    print(f"build: {names} in {time.perf_counter() - t0:.3f} s (one nvcc per source, in parallel)",
-          flush=True)
+    print(f"build: {names} in {time.perf_counter() - t0:.3f} s (one nvcc per source and flags, in "
+          f"parallel); tempest_gamma launches layout {gamma_default}, the others built with "
+          f"{', '.join(lib.extra_flags[-1] for lib in gamma_others.values())}", flush=True)
     print(f"SASS of exp (32-bit integer, float32, float64 instructions of its straight-line path, "
           f"sm_90a): float32 {exp['f32']}, float64 {exp['f64']}; the ESS kernel per sample and "
           f"probe: {ESS_SAMPLE_PROBE}", flush=True)
+    reports, spilled = {}, []
+    for lib, proc in ptxas:
+        out, err = proc.communicate()
+        check(proc.returncode == 0, f"ptxas report of {lib.source} {lib.extra_flags} failed: {err}")
+        report = ptxas_report(out + err)
+        check(len(report) > 0, f"no ptxas report for {lib.source} {lib.extra_flags}")
+        short = _short_names(nvcc, list(report))
+        label = " ".join((lib.source, *(f for f in lib.extra_flags if f.startswith("-D"))))
+        reports[label] = {short[k]: v for k, v in report.items()}
+        for name, r in reports[label].items():
+            print(f"ptxas {label}: {name}: {r.get('registers', '-')} registers, stack "
+                  f"{r.get('stack', 0)} bytes, spill stores {r.get('spill_stores', 0)} bytes, "
+                  f"spill loads {r.get('spill_loads', 0)} bytes", flush=True)
+            if r.get("spill_stores", 0) or r.get("spill_loads", 0):
+                spilled.append(f"{label}: {name}")
+    check(not spilled, f"register spills in {spilled}")
+    return reports
 
 
 def synthetic_history(device, n_particles, capacity, t_fill, seed, dtype=torch.float32):
@@ -615,7 +731,7 @@ def check_beta(what: str, logl, bm, bp: float, target: float, bk: float, pk: int
 def _route(S: int, dtype=torch.float32) -> str:
     plan = cuda_reweight.plan_launch(S, dtype)
     where = "shared memory" if plan.resident else "streamed from L2"
-    return f"cluster {plan.cluster} x slice {plan.slice}, {where}"
+    return f"cluster {plan.cluster} x {plan.threads} threads x slice {plan.slice}, {where}"
 
 
 def forced_route(logl, bm, scal, resident: bool):
@@ -870,7 +986,16 @@ def _later_rounds_decide(key, counter, alpha) -> int:
 # the fused route takes (R N d <= 2^19, tempest_tpu_torch/draws.py).
 MUTATION_SHAPES = ((8, 1024, 10), (8, 1000, 10), (8, 6553, 10))
 B_NORMALS = N_PROPOSAL_CANDIDATES * B_PARTICLES * N_DIM  # B's hw_normal: 10,485,760
-B_GAMMA = B_PARTICLES  # B's hw_gamma: 6 normal and 7 bits launches of 131,072
+B_GAMMA = B_PARTICLES  # B's hw_gamma: one gamma launch of 131,072 walkers
+# The gamma draws' checks: sizes (ragged blocks, B's N, B's N + 3 and 2^18),
+# shapes, and a call index whose 13 calls cross 2^32 (the counter's high word).
+GAMMA_SIZES = (1, 3, 5, 1000, B_GAMMA, B_GAMMA + 3, 1 << 18)
+GAMMA_ALPHAS = (0.02, 0.5, 0.7, 1.5, 7.5, 50.0)
+GAMMA_COUNTER = (1 << 32) - 5
+GAMMA_TIMED = (B_GAMMA, 1 << 18)
+# The shape the gamma row is timed at: a tpCN walker's (d + nu) / 2 for
+# d = 10 and nu = 5; every tpCN shape is >= d / 2, so B never boosts.
+GAMMA_TIMED_ALPHA = 7.5
 
 
 def phase_prng_kernels(device) -> dict:
@@ -959,15 +1084,22 @@ def phase_prng_kernels(device) -> dict:
     n = 1 << 20
     z = cuda_prng.hw_normal(key, 2, (n,), device)
     err_n = float(torch.max(torch.abs(z - philox.normal(key, 2, n, device))))
+    # The bits kernel's path: the public hw_uniform, which no Sampler path
+    # calls now that hw_gamma is one kernel; its launches label the bits row.
+    before = counts()
+    u = cuda_prng.hw_uniform(key, 3, (n,), device)
+    uniform_launches = diff(counts(), before)
     b = cuda_prng.hw_bits(key, 3, (n,), device)
     bits_equal = bool(torch.equal(b, philox.bits(key, 3, n, device)))
-    u = philox.unit_open_closed(b)
+    check(torch.equal(u, philox.unit_open_closed(b)) and uniform_launches["bits"] == 1
+          and sum(uniform_launches.values()) == 1, f"hw_uniform: launches {uniform_launches}")
     zm, zv, zk = _moments(z)
     tail = float((z.abs() > 3).double().mean())
     um, uv, _ = _moments(u)
     print(f"normal n={n}: max|dz|={err_n:.3g} mean={zm:.5f} var={zv:.5f} kurt={zk:.4f} "
-          f"P(|z|>3)={tail:.5f}; bits n={n}: equal={bits_equal}, uniform min={float(u.min()):.3g} "
-          f"max={float(u.max())} mean={um:.5f} var={uv:.5f}", flush=True)
+          f"P(|z|>3)={tail:.5f}; bits n={n}: equal={bits_equal}, hw_uniform launches "
+          f"{uniform_launches}, uniform min={float(u.min()):.3g} max={float(u.max())} "
+          f"mean={um:.5f} var={uv:.5f}", flush=True)
     check(err_n <= DRAW_TOL, f"normal kernel differs from plain by {err_n}")
     check(bits_equal, "bits kernel differs from plain")
     check(abs(zm) < 0.005 and abs(zv - 1.0) < 0.01 and abs(zk - 3.0) < 0.05
@@ -1013,27 +1145,144 @@ def phase_prng_kernels(device) -> dict:
                 k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                      "device_ms", "library_device_ms")},
             shapes={str(k): v for k, v in shapes.items()})
+    rows["bits"]["hw_uniform_launches"] = uniform_launches["bits"]
+    rows["gamma"] = phase_gamma_kernel(device, key)
+    return rows
 
-    # --- hw_gamma (13 launches) at 2^18 ---------------------------------------------
+
+def mixed_alpha(device, n: int) -> torch.Tensor:
+    """n walkers' shapes, the six of GAMMA_ALPHAS in turn."""
+    return torch.tensor(GAMMA_ALPHAS, device=device).repeat(-(-n // 6))[:n].contiguous()
+
+
+def gamma_cases(device, n: int):
+    """(label, alpha) of n walkers: each of GAMMA_ALPHAS, then all six in turn."""
+    for a in GAMMA_ALPHAS:
+        yield f"alpha={a}", torch.full((n,), a, device=device)
+    yield "mixed", mixed_alpha(device, n)
+
+
+def gamma_rounds(key, counter: int, alpha: torch.Tensor) -> torch.Tensor:
+    """The Marsaglia-Tsang rounds each walker of hw_gamma needs on these
+    draws (from the plain version's words): its first accepted round + 1,
+    or all six."""
+    n, dev = alpha.numel(), alpha.device
+    zc, uc, _ = philox.gamma_counters(counter)
+    _, d, c = philox.mt_setup(alpha.reshape(-1))
+    need = torch.full((n,), philox.MT_ROUNDS, dtype=torch.int64, device=dev)
+    undecided = torch.ones(n, dtype=torch.bool, device=dev)
+    for r in range(philox.MT_ROUNDS):
+        z = philox.normal(key, zc[r], n, dev)
+        u = philox.unit_open_closed(philox.bits(key, uc[r], n, dev))
+        ok, _ = philox.mt_accept(z, u, d, c)
+        need = torch.where(undecided & ok, r + 1, need)
+        undecided &= ~ok
+    return need
+
+
+def gamma_bound(key, counter: int, alpha: torch.Tensor):
+    """((least ms, what bounds it), mean rounds a walker) of hw_gamma on
+    these draws: alpha read and g written once; per block of 4 walkers two
+    Philox blocks a round it runs (as long as one of its walkers is
+    undecided), per pair of walkers a Box-Muller pair a round, per walker a
+    test a round it needs, its set-up, and where alpha < 1 the boost (and
+    one Philox block for each block with such a walker)."""
+    n = alpha.numel()
+    need = gamma_rounds(key, counter, alpha)
+    pad = (-n) % 4
+    flat = alpha.reshape(-1)
+    blocks = torch.nn.functional.pad(need, (0, pad)).reshape(-1, 4)
+    boosted = torch.nn.functional.pad(flat < 1.0, (0, pad)).reshape(-1, 4)
+    philox_blocks = 2 * int(blocks.amax(dim=1).sum()) + int(boosted.any(dim=1).sum())
+    pairs = int(blocks.reshape(-1, 2).amax(dim=1).sum())
+    ops = work((philox_blocks, (PHILOX_INT, 0)), (pairs, GAMMA_PAIR), (int(need.sum()), GAMMA_TEST),
+               (n, GAMMA_SETUP), (int(boosted.sum()), GAMMA_BOOST))
+    return bound(8 * n, *ops), float(need.double().mean())
+
+
+def phase_gamma_kernel(device, key) -> dict:
+    """tempest_gamma against philox.gamma at GAMMA_SIZES for every case of
+    gamma_cases, one gamma launch and no other PRNG launch a call; moments
+    at 2^18; times at B's N and 2^18 beside the plain version and
+    torch._standard_gamma; the kernel's three layouts in turns."""
+    max_err, max_flips = 0.0, 0
+    for n in GAMMA_SIZES:
+        summary = []
+        for label, alpha in gamma_cases(device, n):
+            before = counts()
+            g = cuda_prng.hw_gamma(key, GAMMA_COUNTER, alpha)
+            launched = diff(counts(), before)
+            want = philox.gamma(key, GAMMA_COUNTER, alpha)
+            torch.cuda.synchronize()
+            check(launched["gamma"] == 1 and sum(launched.values()) == 1,
+                  f"hw_gamma n={n} {label}: launches {launched}, want one gamma launch")
+            check(g.shape == alpha.shape and bool(torch.all(torch.isfinite(g) & (g >= 0))),
+                  f"hw_gamma n={n} {label}: shape {tuple(g.shape)} or values")
+            flips = _gamma_flips(g, want)
+            agree = torch.abs(g - want) <= DRAW_TOL * torch.abs(want)
+            err = float(torch.max(torch.abs(g - want)[agree])) if bool(agree.any()) else 0.0
+            check(flips <= max(1, MAX_FLIP_SHARE * n), f"hw_gamma n={n} {label}: {flips} flips")
+            max_err, max_flips = max(max_err, err), max(max_flips, flips)
+            summary.append(f"{label} {flips}/{err:.3g}")
+        print(f"gamma kernel n={n} against philox.gamma (counter {GAMMA_COUNTER}; flips / "
+              f"max|dg| elsewhere): {', '.join(summary)}", flush=True)
+
     n = 1 << 18
     for a in (0.5, 1.5, 7.5, 50.0):
-        alpha = torch.full((n,), a, device=device)
-        g = cuda_prng.hw_gamma(key, 10, alpha)
-        flips = _gamma_flips(g, philox.gamma(key, 10, alpha))
+        g = cuda_prng.hw_gamma(key, 10, torch.full((n,), a, device=device))
         gm, gv = float(g.double().mean()), float(g.double().var())
-        print(f"hw_gamma alpha={a} n={n}: flips={flips} mean={gm:.4f} var={gv:.4f}", flush=True)
-        check(flips <= MAX_FLIP_SHARE * n, f"hw_gamma alpha={a}: {flips} flips")
+        print(f"gamma kernel moments alpha={a} n={n}: mean={gm:.4f} var={gv:.4f}", flush=True)
         check(float(g.min()) > 0.0 and abs(gm - a) < 5 * math.sqrt(a / n) + 0.01
               and abs(gv - a) < 0.05 * a + 0.02, f"hw_gamma alpha={a} moments")
-    t = timed_in_turns({
-        "kernels": lambda: cuda_prng.hw_gamma(key, 10, alpha),
-        "plain": lambda: philox.gamma(key, 10, alpha),
-        "library": lambda: torch._standard_gamma(alpha),
-    })
-    print(f"hw_gamma n={n} (13 launches) {t['kernels']:.4f} ms plain {t['plain']:.4f} ms "
-          f"torch._standard_gamma {t['library']:.4f} ms (median of {TIMED_CALLS}, synchronized, "
-          "in turns)", flush=True)
-    return rows
+
+    default, others = gamma_layouts()
+    entries = {default: _build.load(cuda_prng.LIBRARY).tempest_gamma,
+               **{k: _build.load(lib).tempest_gamma for k, lib in others.items()}}
+    shapes, layouts = {}, {}
+    for n in GAMMA_TIMED:
+        alpha = torch.full((n,), GAMMA_TIMED_ALPHA, device=device)
+        fns = {"kernel": lambda: cuda_prng.hw_gamma(key, 10, alpha),
+               "library": lambda: torch._standard_gamma(alpha)}
+        t = timed_in_turns(fns)
+        t.update(timed_in_turns({"plain": lambda: philox.gamma(key, 10, alpha)}, calls=10))
+        dev = {"kernel": device_ms(fns["kernel"], "gamma_"),
+               "library": device_ms(fns["library"])}
+        (b_ms, b_by), mean_rounds = gamma_bound(key, 10, alpha)
+        shapes[n] = dict(ms=t["kernel"], device_ms=dev["kernel"], plain_ms=t["plain"],
+                         library_ms=t["library"], library_device_ms=dev["library"],
+                         bound_ms=b_ms, bound_by=b_by, mean_rounds=mean_rounds)
+        print(f"gamma timing n={n} alpha={GAMMA_TIMED_ALPHA}: kernel call {t['kernel']:.4f} ms "
+              f"device {dev['kernel']:.4f} ms; torch._standard_gamma call {t['library']:.4f} ms "
+              f"device {dev['library']:.4f} ms; plain {t['plain']:.4f} ms; bound {b_ms:.6f} ms "
+              f"({b_by}; {mean_rounds:.4f} rounds a walker)", flush=True)
+        # The layouts through their C entries, on the same draws, in turns.
+        for label, a_case in (("alpha=7.5", alpha), ("mixed", mixed_alpha(device, n))):
+            outs = {k: torch.empty_like(a_case) for k in entries}
+
+            def entry_call(k, a_case=a_case):
+                return lambda: _build.check(entries[k](
+                    a_case.data_ptr(), outs[k].data_ptr(), a_case.numel(), key[0], key[1], 10,
+                    torch.cuda.current_stream().cuda_stream), "gamma")
+
+            fns = {k: entry_call(k) for k in entries}
+            for fn in fns.values():
+                fn()
+            torch.cuda.synchronize()
+            check(all(torch.equal(outs[default], outs[k]) for k in entries),
+                  f"gamma layouts differ at n={n} {label}")
+            order = sorted(entries, key=lambda k: k != default)  # the launched layout first
+            times = {k: [] for k in entries}
+            for k in order + order[::-1]:
+                times[k].append(device_ms(fns[k], "gamma_"))
+            layouts[f"{n} {label}"] = {f"layout {k}": times[k] for k in order}
+            print(f"gamma layouts n={n} {label} (device ms per launch, in turns "
+                  f"{' '.join(map(str, order + order[::-1]))}; the same draws): " + "; ".join(
+                      f"layout {k} ({GAMMA_LAYOUTS[k]}{', launched' if k == default else ''}) "
+                      f"{times[k][0]:.4f} {times[k][1]:.4f}" for k in order), flush=True)
+    row = dict(shapes[B_GAMMA], max_abs_err=max_err, gamma_flips=max_flips,
+               shapes={str(k): v for k, v in shapes.items()}, layouts=layouts,
+               layout_launched=default)
+    return row
 
 
 def phase_call_split(device) -> dict:
@@ -1044,6 +1293,7 @@ def phase_call_split(device) -> dict:
     scal = torch.tensor([float(hist.beta[20]), 1.1 * N_PARTICLES], device=device)
     R, N, d = MUTATION_SHAPES[0]
     alpha = torch.full((N,), 2.5, device=device)
+    alpha_b = torch.full((B_GAMMA,), GAMMA_TIMED_ALPHA, device=device)
     return {
         "ess_bisect": call_split(
             "ess_bisect S=65536", lambda: cuda_reweight.ess_bisect_beta(logl, bm, scal),
@@ -1058,6 +1308,9 @@ def phase_call_split(device) -> dict:
         "bits": call_split(
             f"bits n={B_GAMMA}", lambda: cuda_prng.hw_bits(key, 3, (B_GAMMA,), device),
             cuda_prng.LIBRARY, "tempest_bits", "bits_kernel"),
+        "gamma": call_split(
+            f"gamma n={B_GAMMA}", lambda: cuda_prng.hw_gamma(key, 10, alpha_b),
+            cuda_prng.LIBRARY, "tempest_gamma", "gamma_"),
     }
 
 
@@ -1132,7 +1385,7 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
             check(launched["mutation_draws"] == steps,
                   f"{name} seed {seed}: {launched['mutation_draws']} mutation-draws launches "
                   f"for {steps} MCMC steps")
-        check(launched["normal"] == 0 and launched["bits"] == 0
+        check(launched["normal"] == 0 and launched["bits"] == 0 and launched["gamma"] == 0
               and (draws_kernel or launched["mutation_draws"] == 0),
               f"{name} seed {seed}: unexpected PRNG launches {launched}")
     total = counts()
@@ -1141,43 +1394,58 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
     return total, dict(zip(seeds, walls))
 
 
-def phase_large_ensemble(device, dtype=torch.float32) -> dict:
-    """B: the first four mutation iterations at N = 131,072; in float64 no
-    PRNG kernel runs (hardware_prng does not apply) and the ESS kernel is
-    the float64 one."""
-    f64 = dtype == torch.float64
-    name = "B float64" if f64 else "B"
+def run_b(device, dtype, name: str) -> list:
+    """B's iterations up to its B_MUTATIONS-th mutation, from a fresh sampler:
+    per iteration its number, wall, beta, MCMC steps, acceptance and kernel
+    launches; the counts are set to 0 first. Returns (sampler, rows)."""
     s = Sampler(prior_transform, half_square, n_dim=N_DIM, n_particles=B_PARTICLES,
                 vectorize=True, clustering=False, hardware_prng=True,
                 history_capacity=B_CAPACITY, random_state=42, dtype=dtype, device=device)
     reset_counts()
-    betas, mutations, iters = [], 0, 0
+    rows, mutations = [], 0
     while mutations < B_MUTATIONS:
-        check(iters < B_CAPACITY, f"{name}: {iters} iterations and only {mutations} mutations")
+        check(len(rows) < B_CAPACITY, f"{name}: {len(rows)} iterations and only {mutations} "
+              "mutations")
         before = counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = s.sample()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        iters += 1
         launched = diff(counts(), before)
         print(f"{name} iteration {out['iter']}: {wall:.3f} s beta={out['beta']:.6g} "
               f"steps={out['steps']} acceptance={out['acceptance']:.4f} launches={launched}",
               flush=True)
-        if out["beta"] > 0.0:
-            mutations += 1
-            steps = out["steps"]
-            if f64:
-                check(launched["normal"] == launched["bits"] == launched["mutation_draws"] == 0,
-                      f"{name}: PRNG launches {launched} (hardware_prng does not apply)")
-            else:
-                check(launched["normal"] == 7 * steps and launched["bits"] == 7 * steps
-                      and launched["mutation_draws"] == 0,
-                      f"B: launches {launched} for {steps} MCMC steps (want 7 + 7 per step)")
-            check(out["acceptance"] > 0.1, f"{name}: acceptance {out['acceptance']}")
-            check(not betas or out["beta"] > betas[-1], f"{name}: beta did not rise: {betas}")
-            betas.append(out["beta"])
+        rows.append(dict(iter=int(out["iter"]), wall=wall, beta=float(out["beta"]),
+                         steps=int(out["steps"]), acceptance=float(out["acceptance"]),
+                         launches=launched))
+        mutations += out["beta"] > 0.0
+    return s, rows
+
+
+def phase_large_ensemble(device, dtype=torch.float32) -> dict:
+    """B: the first four mutation iterations at N = 131,072; in float64 no
+    PRNG kernel runs (hardware_prng does not apply) and the ESS kernel is
+    the float64 one."""
+    f64 = dtype == torch.float64
+    name = "B float64" if f64 else "B"
+    s, rows = run_b(device, dtype, name)
+    betas = []
+    for row in rows:
+        if row["beta"] == 0.0:
+            continue
+        launched, steps = row["launches"], row["steps"]
+        if f64:
+            check(all(launched[k] == 0 for k in cuda_prng.LAUNCHES),
+                  f"{name}: PRNG launches {launched} (hardware_prng does not apply)")
+        else:
+            check(launched["normal"] == steps and launched["gamma"] == steps
+                  and launched["bits"] == 0 and launched["mutation_draws"] == 0,
+                  f"B: launches {launched} for {steps} MCMC steps (want 1 normal + 1 gamma a "
+                  "step)")
+        check(row["acceptance"] > 0.1, f"{name}: acceptance {row['acceptance']}")
+        check(not betas or row["beta"] > betas[-1], f"{name}: beta did not rise: {betas}")
+        betas.append(row["beta"])
     total = counts()
     errs = {}
 
@@ -1217,7 +1485,54 @@ def phase_large_ensemble(device, dtype=torch.float32) -> dict:
     }, calls=10)
     print(f"{name}: ESS kernel at S={S} (t={hist.t}, {probes} probes): kernel {t['kernel']:.4f} ms, "
           f"plain {t['plain']:.4f} ms (median of 10); launches {total}", flush=True)
-    return total, errs
+    return total, errs, rows
+
+
+def composed_gamma(key, counter: int, alpha: torch.Tensor) -> torch.Tensor:
+    """hw_gamma as the port drew it before the gamma kernel: 6 normal and 7
+    bits launches through the public entries and Marsaglia-Tsang in PyTorch
+    elementwise ops, on the same call indices."""
+    zc, uc, bc = philox.gamma_counters(counter)
+    shape, dev = alpha.shape, alpha.device
+    normals = [cuda_prng.hw_normal(key, c, shape, dev) for c in zc]
+    uniforms = [cuda_prng.hw_uniform(key, c, shape, dev) for c in uc]
+    boost = cuda_prng.hw_uniform(key, bc, shape, dev)
+    return philox.marsaglia_tsang(alpha, normals, uniforms, boost)
+
+
+def phase_large_ensemble_composed(device, rows: list) -> dict:
+    """B again with its gamma draws composed, twice, then with the kernel
+    once more: in turns kernel (phase 8's run), composed, composed, kernel.
+    Each iteration's walls side by side; beta within 1e-4 (relative) of
+    phase 8's run."""
+    kernel_gamma = cuda_prng.hw_gamma
+    runs = {"kernel": [rows], "composed": []}
+    for route in ("composed", "composed", "kernel"):
+        cuda_prng.hw_gamma = composed_gamma if route == "composed" else kernel_gamma
+        try:
+            runs[route].append(run_b(device, torch.float32, f"B {route} gamma")[1])
+        finally:
+            cuda_prng.hw_gamma = kernel_gamma
+    walls = {}
+    for i, row in enumerate(rows):
+        for route in ("kernel", "composed"):
+            for other in runs[route]:
+                check(other[i]["iter"] == row["iter"] and abs(other[i]["beta"] - row["beta"])
+                      <= 1e-4 * abs(row["beta"]), f"B {route} gamma iteration {other[i]['iter']}: "
+                      f"beta {other[i]['beta']!r} against {row['beta']!r}")
+                launched, steps = other[i]["launches"], other[i]["steps"]
+                if route == "composed" and other[i]["beta"] > 0.0:
+                    check(launched["normal"] == 7 * steps and launched["bits"] == 7 * steps
+                          and launched["gamma"] == 0, f"B composed gamma: launches {launched} "
+                          f"for {steps} MCMC steps (want 7 + 7 a step)")
+        w = walls[row["iter"]] = {route: [run[i]["wall"] for run in runs[route]]
+                                  for route in ("kernel", "composed")}
+        betas = [run[i]["beta"] for route in ("kernel", "composed") for run in runs[route]]
+        print(f"B iteration {row['iter']} ({row['steps']} MCMC steps) walls in turns: one gamma "
+              f"kernel {w['kernel'][0]:.4f} s, composed {w['composed'][0]:.4f} s, composed "
+              f"{w['composed'][1]:.4f} s, kernel {w['kernel'][1]:.4f} s; beta (kernel, kernel, "
+              f"composed, composed) {' '.join(repr(b) for b in betas)}", flush=True)
+    return walls
 
 
 def phase_bimodal(device) -> dict:
@@ -1544,7 +1859,7 @@ def phase_float64(device, walls32: dict) -> dict:
         device, "A float64 hardware_prng", SEEDS[:1], True, True, CLUSTERED_LOGZ, torch.float64)
     print(f"A seed {SEEDS[0]}: float64 wall {walls[SEEDS[0]]:.3f} s against float32 (phase 6) "
           f"{walls32[SEEDS[0]]:.3f} s in this run", flush=True)
-    paths["B_float64"], errs = phase_large_ensemble(device, torch.float64)
+    paths["B_float64"], errs, _ = phase_large_ensemble(device, torch.float64)
     paths["gaussian4_float64"] = phase_float64_gaussian(device)
     paths["facades"] = phase_facades(device)
     return paths, errs
@@ -1699,7 +2014,7 @@ def phase_profile(device, out_dir: str) -> None:
 
 SOURCES = {"ess_bisect": "tempest_tpu_torch/csrc/ess_bisect.cu",
            "ess_bisect_f64": "tempest_tpu_torch/csrc/ess_bisect.cu"}
-KERNELS = ("ess_bisect", "ess_bisect_f64", "mutation_draws", "normal", "bits")
+KERNELS = ("ess_bisect", "ess_bisect_f64", "mutation_draws", "normal", "bits", "gamma")
 REPLACES = {
     "ess_bisect": "tempest_tpu/ops/pallas_reweight.py:55",
     # JAX gates its Pallas kernel to float32 (pallas_reweight.py:42-44) and
@@ -1708,6 +2023,17 @@ REPLACES = {
     "mutation_draws": "tempest_tpu/ops/pallas_prng.py:159",
     "normal": "tempest_tpu/ops/pallas_prng.py:83",
     "bits": "tempest_tpu/ops/pallas_prng.py:108",
+    # hw_gamma reaches pallas_call (:126) through 13 normal and bits calls.
+    "gamma": "tempest_tpu/ops/pallas_prng.py:275",
+}
+# Where each kernel's `launches` were counted.
+LAUNCHES_ON = {
+    "ess_bisect": "A (phase 6, seeds 42 and 43)",
+    "ess_bisect_f64": "A in float64 (phase 14)",
+    "mutation_draws": "A with hardware_prng (phase 7)",
+    "normal": "B (phase 8)",
+    "bits": "phase 4: the public hw_uniform (no Sampler path draws raw bits)",
+    "gamma": "B (phase 8)",
 }
 
 
@@ -1721,8 +2047,9 @@ def kernel_table(rows: dict, launches: dict, floor: dict, split: dict, paths=Non
             "replaces": REPLACES[name], "launches": launches.get(name),
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")},
+            "launches_on": LAUNCHES_ON[name] if launches else None,
             **{k: row[k] for k in ("device_ms", "library_device_ms", "gamma_flips",
-                                   "shapes", "routes") if k in row},
+                                   "shapes", "routes", "layouts", "layout_launched") if k in row},
             "launch_floor_ms": floor["device_ms"], "call_split": split.get(name),
             "launches_by_path": {p: n[name] for p, n in (paths or {}).items()},
         })
@@ -1748,13 +2075,14 @@ def main() -> None:
     kind = phase_device()
     print(f"package: {os.path.dirname(os.path.dirname(os.path.abspath(cuda_reweight.__file__)))}",
           flush=True)
-    phase_build()
+    ptxas = phase_build()
     rows = {"ess_bisect": phase_ess_kernel(device), "ess_bisect_f64": phase_ess_kernel_f64(device)}
     rows.update(phase_prng_kernels(device))
     floor = launch_floor(device)
     split = phase_call_split(device)
     if args.kernels_only:
         print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(f"ptxas: {json.dumps(ptxas)}", flush=True)
         print(json.dumps({"kernels": kernel_table(rows, {}, floor, split)}), flush=True)
         return
     paths = {}
@@ -1763,9 +2091,10 @@ def main() -> None:
                                       CLUSTERED_LOGZ)
     paths["A_hardware_prng"], _ = run_canonical(device, "A clustered hardware_prng", SEEDS[:1],
                                                 True, True, CLUSTERED_LOGZ)
-    paths["B"], large_errs = phase_large_ensemble(device)
+    paths["B"], large_errs, b_rows = phase_large_ensemble(device)
     for name, err in large_errs.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    b_walls = phase_large_ensemble_composed(device, b_rows)
     paths["C"] = phase_bimodal(device)
     paths["gaussian"] = phase_gaussian(device)
     for name, n in phase_reference_surface(device, walls[SEEDS[0]]).items():
@@ -1785,12 +2114,15 @@ def main() -> None:
     launches = {"ess_bisect": paths["A"]["ess_bisect"],
                 "ess_bisect_f64": paths["A_float64"]["ess_bisect_f64"],
                 "mutation_draws": paths["A_hardware_prng"]["mutation_draws"],
-                "normal": paths["B"]["normal"], "bits": paths["B"]["bits"]}
+                "normal": paths["B"]["normal"], "bits": rows["bits"]["hw_uniform_launches"],
+                "gamma": paths["B"]["gamma"]}
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on its path")
     print(f"launches by path: {json.dumps(paths)}", flush=True)
     print(f"dynamic probes: {json.dumps(dynamic['probes'])}", flush=True)
+    print(f"B walls by iteration (s; kernel, composed gamma): {json.dumps(b_walls)}", flush=True)
     print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"ptxas: {json.dumps(ptxas)}", flush=True)
     print(json.dumps({"kernels": kernel_table(rows, launches, floor, split, paths)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

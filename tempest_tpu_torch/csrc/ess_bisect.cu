@@ -74,6 +74,16 @@
 // chip_smoke.py bounds it with an FP64 term. The partials (m, s1, s2) are
 // doubles through the shuffles and the distributed shared memory, combined
 // in the same fixed order, so beta stays deterministic.
+//
+// CTA shape by type (Cta<T>). 1024 threads leave a thread 64 of the SM's
+// 65,536 registers. The float32 state fits (48); the double one does not:
+// at 1024 threads ptxas spilled 172-236 bytes a thread to local memory
+// (chip_smoke.py phase 2 reads ptxas's report and fails on any spill). So
+// the float64 CTA has kThreadsF64 = 512 threads, 128 registers each; its 16
+// warps' partials fill half of warp 0's lanes in the second reduction
+// stage, the other half empty partials that add nothing, in a fixed order
+// as before. The slices are the same, each thread walking twice the groups
+// of 4.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -85,8 +95,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreadsF32 = 1024;  // threads a CTA in float32
+constexpr int kThreadsF64 = 512;   // and in float64: 128 registers a thread, no spill
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kCluster = 16;  // CTAs in the cluster, one slice each
 constexpr int kMaxDevices = 64;
@@ -98,6 +108,14 @@ constexpr int64_t kSliceBytes = 8 * kSliceMax;
 
 template <typename T>
 constexpr int64_t slice_max() { return kSliceBytes / (2 * static_cast<int64_t>(sizeof(T))); }
+
+// The CTA of the instantiation for T.
+template <typename T>
+struct Cta {
+  static constexpr int kThreads = sizeof(T) == sizeof(float) ? kThreadsF32 : kThreadsF64;
+  static constexpr int kWarps = kThreads / 32;
+  static_assert(kWarps <= 32, "the second reduction stage takes one warp's partial per lane");
+};
 
 // tempest_tpu/config.py:20-28, in the scalar type of the instantiation.
 template <typename T>
@@ -268,8 +286,9 @@ __device__ __forceinline__ void add_group(Acc<T> (&acc)[NB], const T (&beta)[NB]
 // `mine[0..NB)`. Every thread of the CTA calls it.
 template <typename T, int NB, bool kResident>
 __device__ void pass(const Slice<T>& s, const Quad<T>* __restrict__ sl,
-                     const Quad<T>* __restrict__ sb, const T* betas, Acc<T> (*part)[kWarps],
-                     Acc<T>* mine) {
+                     const Quad<T>* __restrict__ sb, const T* betas,
+                     Acc<T> (*part)[Cta<T>::kWarps], Acc<T>* mine) {
+  constexpr int kThreads = Cta<T>::kThreads;
   Acc<T> acc[NB];
   T beta[NB];
 #pragma unroll
@@ -302,7 +321,13 @@ __device__ void pass(const Slice<T>& s, const Quad<T>* __restrict__ sl,
   __syncthreads();
   if (warp == 0) {
 #pragma unroll
-    for (int k = 0; k < NB; ++k) acc[k] = part[k][lane];  // kWarps == 32: one partial per lane
+    for (int k = 0; k < NB; ++k) {
+      if constexpr (Cta<T>::kWarps == 32) {
+        acc[k] = part[k][lane];  // one partial per lane
+      } else {
+        acc[k] = lane < Cta<T>::kWarps ? part[k][lane] : empty_acc<T>();
+      }
+    }
     warp_combine<T, NB>(acc);
     if (lane == 0) {
 #pragma unroll
@@ -361,13 +386,13 @@ __device__ void gather(const cg::cluster_group& cluster, Acc<T>* mine, T* ess) {
 }
 
 template <typename T, bool kResident>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cta<T>::kThreads, 1)
 ess_bisect_kernel(const T* __restrict__ logl, const T* __restrict__ bm,
                   const T* __restrict__ scal, T* __restrict__ beta_out,
                   int32_t* __restrict__ probes_out, int64_t n, int64_t slice) {
-  static_assert(kWarps == 32, "the second reduction stage needs one lane per warp");
+  constexpr int kThreads = Cta<T>::kThreads;
   extern __shared__ __align__(16) unsigned char dyn[];  // resident route: the masked slice
-  __shared__ Acc<T> part[3][kWarps];
+  __shared__ Acc<T> part[3][Cta<T>::kWarps];
   __shared__ Acc<T> mine[2][3];  // this CTA's partials, by probe parity
   __shared__ Control<T> ctl;
 
@@ -453,18 +478,19 @@ ess_bisect_kernel(const T* __restrict__ logl, const T* __restrict__ bm,
   }
 }
 
-// One cluster of kCluster CTAs with `smem` bytes of dynamic shared memory each.
+// One cluster of kCluster CTAs of `threads` threads with `smem` bytes of
+// dynamic shared memory each.
 struct ClusterLaunch {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
 
-  ClusterLaunch(size_t smem, cudaStream_t stream) : cfg() {
+  ClusterLaunch(int threads, size_t smem, cudaStream_t stream) : cfg() {
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = kCluster;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.gridDim = dim3(kCluster);
-    cfg.blockDim = dim3(kThreads);
+    cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cfg.attrs = attr;
@@ -491,7 +517,7 @@ cudaError_t prepare() {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   }
   if (err == cudaSuccess) {
-    ClusterLaunch one(smem, nullptr);
+    ClusterLaunch one(Cta<T>::kThreads, smem, nullptr);
     int clusters = 0;
     err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &one.cfg);
     if (err == cudaSuccess && clusters < 1) err = cudaErrorLaunchOutOfResources;
@@ -506,7 +532,8 @@ cudaError_t launch(const T* logl, const T* bm, const T* scal, T* beta, int32_t* 
                    int64_t slice, cudaStream_t stream) {
   cudaError_t err = prepare<T, kResident>();
   if (err != cudaSuccess) return err;
-  ClusterLaunch one(kResident ? static_cast<size_t>(2 * sizeof(T) * slice) : 0, stream);
+  ClusterLaunch one(Cta<T>::kThreads, kResident ? static_cast<size_t>(2 * sizeof(T) * slice) : 0,
+                    stream);
   err = cudaLaunchKernelEx(&one.cfg, ess_bisect_kernel<T, kResident>, logl, bm, scal, beta, probes,
                            n, slice);
   return err != cudaSuccess ? err : cudaGetLastError();

@@ -1,9 +1,11 @@
-// Counter-based draw kernels for Hopper (sm_90a): normals, raw bits, and all
-// draws of one tpCN step in one launch.
+// Counter-based draw kernels for Hopper (sm_90a): normals, raw bits, gamma
+// draws, and all draws of one tpCN step in one launch.
 //
 // Replaces the Pallas hardware-PRNG kernels of tempest_tpu/ops/pallas_prng.py:
 //   tempest_normal          <- `_normal_kernel` (:83; entry hw_normal)
-//   tempest_bits            <- `_bits_kernel` (:108; entries hw_uniform, hw_gamma)
+//   tempest_bits            <- `_bits_kernel` (:108; entry hw_uniform)
+//   tempest_gamma           <- `hw_gamma` (:275), which composes 6 `_normal_kernel`
+//                              and 7 `_bits_kernel` calls with elementwise XLA ops
 //   tempest_mutation_draws  <- `_mutation_draws_kernel` (:159; entry hw_mutation_draws)
 // The TPU kernels seed the TPU's hardware generator. Hopper has none, so every
 // word here comes from Philox4x32-10 (Random123), written out by hand with
@@ -14,6 +16,10 @@
 //   under the key (k0, k1) and yields 4 words;
 //   normals: block i -> elements 4i..4i+3, paired Box-Muller on words (0,1), (2,3);
 //   bits: block i -> elements 4i..4i+3, the words themselves;
+//   gamma draws (calls counter .. counter + 12, as philox.gamma): walker
+//   4i + j's round r takes normal j of block i of call counter + 2r and
+//   word j of block i of call counter + 2r + 1, its boost word j of block i
+//   of call counter + 12, all on stream 0;
 //   mutation draws: proposal normals as above on stream 0; walker n's
 //   Marsaglia-Tsang round r on stream 1+r, words (u1, u2, u_accept), one
 //   cos-only normal per round; its boost and Metropolis uniforms from words 0
@@ -53,6 +59,40 @@
 // words and float32 operations in the same order as before, so the kernel
 // still equals philox.mutation_draws. The wrapper hands one buffer for z,
 // g and u, so a call allocates once.
+//
+// The gamma kernel replaces 13 launches and about 60 elementwise PyTorch
+// kernels, each of which wrote its (N,) intermediate to device memory, by
+// one launch that reads alpha and writes g (8 bytes a walker) and keeps
+// every normal, uniform and test in registers. On the large-ensemble route
+// (N >= 2^16; N = 2^17 in B) that is N / 4 Philox blocks, 32,768 at 2^17,
+// an eighth of the card's resident threads: latency decides, not
+// throughput. Three layouts, all here, all exact:
+//  (0) one thread a Philox block (4 walkers) loops over the rounds until
+//      its four walkers are decided, then draws the boost block if one of
+//      them has alpha < 1. A walker stops at its first accepted round; the
+//      later ones cannot change its value. Most walkers accept in round 0
+//      (about 98 % at alpha = 5), so a warp of 128 walkers runs 2-3 rounds.
+//  (1) eight lanes a Philox block, as the mutation-draws kernel: lanes 0-5
+//      run round r each (two Philox blocks, two Box-Muller pairs, four
+//      tests), lane 6 the boost block; one ballot per walker picks its
+//      first accepted round. Every round runs, 8x the threads of (0).
+//  (2) one thread a walker: each of a block's four threads encrypts the
+//      block's two Philox blocks a round and keeps its own normal and
+//      uniform, so Philox is done 4x over, but a round is about half the
+//      instructions of (0)'s, a warp waits for 32 walkers instead of 128,
+//      and 4x the threads hide the latency.
+// tempest_gamma launches the layout TEMPEST_GAMMA_LAYOUT names (default
+// below); chip_smoke.py phase 4 builds the source again with each other
+// one and times all three on one card in turns, at N = 2^17 and 2^18.
+// Device time a launch on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py
+// phase 4), alpha = 7.5 / the six test shapes in turn:
+//   N = 2^17: (0) 0.0040 / 0.0056 ms, (1) 0.0093 / 0.0135-0.0138, (2) 0.0047 / 0.0065-0.0067;
+//   N = 2^18: (0) 0.0048 / 0.0071-0.0074, (1) 0.0172-0.0174 / 0.0260-0.0265,
+//             (2) 0.0076-0.0077 / 0.0109-0.0110.
+// So (0) is launched: at alpha = 7.5 a walker needs 1.004 rounds on average,
+// (1) runs six, and (2) encrypts each Philox block four times over. (0) is
+// 7.7x its bound at 2^17 (0.00052 ms, the instructions of the rounds these
+// draws need); torch._standard_gamma took 0.0033 ms there, 0.0051 at 2^18.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,6 +110,14 @@ constexpr uint32_t kStreamNormal = 0, kStreamBits = 0;
 constexpr uint32_t kStreamGammaRound0 = 1;  // rounds on 1..6, boost/accept on 7
 constexpr int kLanesPerWalker = 8;          // 6 rounds, boost/accept, one idle
 constexpr unsigned kFullMask = 0xffffffffu;
+// hw_gamma: rounds r on calls counter + 2r (normals) and counter + 2r + 1
+// (uniforms), the boost on counter + 12; philox.GAMMA_CALLS in all.
+constexpr uint32_t kGammaBoostCall = 2 * kMtRounds;
+constexpr int kLanesPerGammaBlock = 8;  // layout (1): 6 rounds, the boost, one idle
+
+#ifndef TEMPEST_GAMMA_LAYOUT
+#define TEMPEST_GAMMA_LAYOUT 0
+#endif
 
 struct Call {
   uint32_t k0, k1, ctr_lo, ctr_hi;
@@ -92,6 +140,13 @@ __device__ __forceinline__ uint4 philox(uint32_t index, uint32_t stream, const C
     c3 = lo0;
   }
   return make_uint4(c0, c1, c2, c3);
+}
+
+// The call `k` indices after `call` (the wrapper checks that counter + 12
+// fits 64 bits).
+__device__ __forceinline__ Call call_plus(const Call& call, uint32_t k) {
+  const uint64_t c = ((static_cast<uint64_t>(call.ctr_hi) << 32) | call.ctr_lo) + k;
+  return Call{call.k0, call.k1, static_cast<uint32_t>(c), static_cast<uint32_t>(c >> 32)};
 }
 
 __device__ __forceinline__ float unit_open_closed(uint32_t w) {
@@ -147,6 +202,33 @@ bits_kernel(uint32_t* __restrict__ out, int64_t total, Call call) {
   }
 }
 
+// Marsaglia-Tsang for gamma(alpha, 1), as philox.marsaglia_tsang: alpha < 1
+// is boosted to alpha + 1, then d = a_eff - 1/3, c = 1 / sqrt(9 d).
+struct MtShape {
+  float d, c;
+  bool boost;
+};
+
+__device__ __forceinline__ MtShape mt_shape(float a) {
+  const bool boost = a < 1.0f;
+  const float a_eff = boost ? a + 1.0f : a;
+  const float d = a_eff - 1.0f / 3.0f;
+  return MtShape{d, 1.0f / sqrtf(9.0f * d), boost};
+}
+
+// One round on normal z and uniform u: accepted or not, and the proposal d v.
+__device__ __forceinline__ bool mt_accept(const MtShape& s, float z, float u, float& proposal) {
+  const float one_cz = 1.0f + s.c * z;
+  const float v = one_cz * one_cz * one_cz;
+  proposal = s.d * v;
+  return (v > 0.0f) && (logf(u) < 0.5f * z * z + s.d - s.d * v + s.d * logf(fmaxf(v, 1e-30f)));
+}
+
+// The boost factor of alpha < 1: gamma(alpha) = gamma(alpha + 1) U^(1 / alpha).
+__device__ __forceinline__ float mt_boost(float a, uint32_t w) {
+  return powf(unit_open_closed(w), 1.0f / fmaxf(a, 1e-12f));
+}
+
 // gamma(alpha, 1) by Marsaglia-Tsang, as pallas_prng.py:185-214: six rounds,
 // the first accepted one wins, a draw no round accepts keeps d; alpha < 1 is
 // boosted as gamma(alpha + 1) * U^(1/alpha).
@@ -177,30 +259,178 @@ mutation_draws_kernel(const float* __restrict__ alpha, float* __restrict__ z,
   const int first_lane = lane - r;
 
   const float a = alpha[n];
-  const bool boost = a < 1.0f;
-  const float a_eff = boost ? a + 1.0f : a;
-  const float d = a_eff - 1.0f / 3.0f;
-  const float c = 1.0f / sqrtf(9.0f * d);
+  const MtShape s = mt_shape(a);
   const uint4 w = philox(static_cast<uint32_t>(n), kStreamGammaRound0 + r, call);  // r = 6: stream 7
   bool ok = false;
   float proposal = 0.0f;
   if (r < kMtRounds) {
     const float zn = sqrtf(-2.0f * logf(unit_open_closed(w.x))) *
                      cosf(kTwoPi * unit_open_closed(w.y));
-    const float one_cz = 1.0f + c * zn;
-    const float v = one_cz * one_cz * one_cz;
-    ok = (v > 0.0f) && (logf(unit_open_closed(w.z)) <
-                        0.5f * zn * zn + d - d * v + d * logf(fmaxf(v, 1e-30f)));
-    proposal = d * v;
+    ok = mt_accept(s, zn, unit_open_closed(w.z), proposal);
   }
   const unsigned votes = (__ballot_sync(active, ok) >> first_lane) & ((1u << kMtRounds) - 1u);
   const int winner = votes ? __ffs(static_cast<int>(votes)) - 1 : 0;  // the first accepted round
   const float won = __shfl_sync(active, proposal, first_lane + winner);
   if (r == kMtRounds) {
-    const float res = votes ? won : d;
-    const float scale = powf(unit_open_closed(w.x), 1.0f / fmaxf(a, 1e-12f));
-    g[n] = res * (boost ? scale : 1.0f);
+    const float res = votes ? won : s.d;
+    g[n] = res * (s.boost ? mt_boost(a, w.x) : 1.0f);
     u_acc[n] = unit_open_closed(w.y);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// hw_gamma: gamma(alpha, 1) for n walkers in one launch.
+// ---------------------------------------------------------------------------
+
+// Round r of walkers 4i..4i+3: normal j of block i of call counter + 2r
+// (paired Box-Muller) and word j of block i of call counter + 2r + 1. Bit j
+// of the result: walker 4i + j accepts, with proposal prop[j].
+__device__ __forceinline__ unsigned gamma_round(uint32_t i, int r, const Call& call,
+                                                const MtShape (&s)[4], float (&prop)[4]) {
+  const uint4 wz = philox(i, kStreamNormal, call_plus(call, 2 * r));
+  const uint4 wu = philox(i, kStreamBits, call_plus(call, 2 * r + 1));
+  const float2 za = box_muller(wz.x, wz.y);
+  const float2 zb = box_muller(wz.z, wz.w);
+  const float z[4] = {za.x, za.y, zb.x, zb.y};
+  const uint32_t u[4] = {wu.x, wu.y, wu.z, wu.w};
+  unsigned ok = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    ok |= static_cast<unsigned>(mt_accept(s[j], z[j], unit_open_closed(u[j]), prop[j])) << j;
+  }
+  return ok;
+}
+
+// alpha of walkers 4i..4i+3 by scalar loads (alpha may start anywhere a
+// float may); walkers past n read 1 and are never written.
+__device__ __forceinline__ int gamma_load(const float* __restrict__ alpha, int64_t n, int64_t i,
+                                          float (&a)[4], MtShape (&s)[4]) {
+  const int64_t base = 4 * i;
+  const int valid = static_cast<int>(n - base < 4 ? n - base : 4);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    a[j] = j < valid ? alpha[base + j] : 1.0f;
+    s[j] = mt_shape(a[j]);
+  }
+  return valid;
+}
+
+// g of walkers 4i..4i+3: the accepted value (or d), boosted where alpha < 1
+// by word j of block i of call counter + 12 (`wb`, read only then).
+__device__ __forceinline__ void gamma_store(float* __restrict__ g, int64_t i, int valid,
+                                            const float (&a)[4], const MtShape (&s)[4],
+                                            const float (&res)[4], const uint4& wb) {
+  const uint32_t w[4] = {wb.x, wb.y, wb.z, wb.w};
+  float out[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) out[j] = res[j] * (s[j].boost ? mt_boost(a[j], w[j]) : 1.0f);
+  if (valid == 4) {  // g is 16-byte aligned: the wrapper allocates it
+    reinterpret_cast<float4*>(g)[i] = make_float4(out[0], out[1], out[2], out[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j < valid) g[4 * i + j] = out[j];
+    }
+  }
+}
+
+// The boost words of block i (call counter + 12), encrypted only when one of
+// its walkers has alpha < 1.
+__device__ __forceinline__ uint4 gamma_boost_words(uint32_t i, const Call& call,
+                                                   const MtShape (&s)[4], int valid) {
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) any |= j < valid && s[j].boost;
+  return any ? philox(i, kStreamBits, call_plus(call, kGammaBoostCall)) : make_uint4(0, 0, 0, 0);
+}
+
+// Layout (0): one thread a Philox block, rounds in series until its walkers
+// are decided; a grid-stride loop over the N / 4 blocks.
+__global__ void __launch_bounds__(kThreads)
+gamma_serial_kernel(const float* __restrict__ alpha, float* __restrict__ g, int64_t n, Call call) {
+  const int64_t n_blocks = (n + 3) / 4;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n_blocks;
+       i += stride) {
+    float a[4], res[4];
+    MtShape s[4];
+    const int valid = gamma_load(alpha, n, i, a, s);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) res[j] = s[j].d;  // kept where no round accepts
+    unsigned open = (1u << valid) - 1u;
+    for (int r = 0; r < kMtRounds && open; ++r) {
+      float prop[4];
+      const unsigned take = gamma_round(static_cast<uint32_t>(i), r, call, s, prop) & open;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) res[j] = (take >> j) & 1u ? prop[j] : res[j];
+      open &= ~take;
+    }
+    const uint4 wb = gamma_boost_words(static_cast<uint32_t>(i), call, s, valid);
+    gamma_store(g, i, valid, a, s, res, wb);
+  }
+}
+
+// Layout (1): eight lanes a Philox block. Lane r < 6 runs round r for the
+// block's four walkers, lane 6 draws the boost block; for each walker a
+// ballot over the group picks the first accepted round, and lane 6 takes
+// its proposal by a shuffle and writes the four draws.
+__global__ void __launch_bounds__(kThreads)
+gamma_lanes_kernel(const float* __restrict__ alpha, float* __restrict__ g, int64_t n, Call call) {
+  const int64_t n_blocks = (n + 3) / 4;
+  const int64_t i =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kLanesPerGammaBlock;
+  // Groups are whole: 8 | 32, so a group's lanes are all active or all not.
+  const unsigned active = __ballot_sync(kFullMask, i < n_blocks);
+  if (i >= n_blocks) return;
+  const int lane = threadIdx.x & 31;
+  const int r = lane & (kLanesPerGammaBlock - 1);  // round, or kMtRounds: the boost
+  const int first_lane = lane - r;
+  float a[4], prop[4] = {0.0f, 0.0f, 0.0f, 0.0f}, res[4];
+  MtShape s[4];
+  const int valid = gamma_load(alpha, n, i, a, s);
+  unsigned ok = 0;
+  if (r < kMtRounds) ok = gamma_round(static_cast<uint32_t>(i), r, call, s, prop);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const unsigned votes =
+        (__ballot_sync(active, (ok >> j) & 1u) >> first_lane) & ((1u << kMtRounds) - 1u);
+    const int winner = votes ? __ffs(static_cast<int>(votes)) - 1 : 0;  // the first accepted round
+    const float won = __shfl_sync(active, prop[j], first_lane + winner);
+    res[j] = votes ? won : s[j].d;
+  }
+  if (r == kMtRounds) {
+    const uint4 wb = gamma_boost_words(static_cast<uint32_t>(i), call, s, valid);
+    gamma_store(g, i, valid, a, s, res, wb);
+  }
+}
+
+// Layout (2): one thread a walker; walker 4i + j takes normal j and word j
+// of block i. A grid-stride loop over the N walkers.
+__global__ void __launch_bounds__(kThreads)
+gamma_walker_kernel(const float* __restrict__ alpha, float* __restrict__ g, int64_t n, Call call) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t w = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; w < n; w += stride) {
+    const uint32_t i = static_cast<uint32_t>(w >> 2);
+    const int j = static_cast<int>(w & 3);
+    const float a = alpha[w];
+    const MtShape s = mt_shape(a);
+    float res = s.d;  // kept where no round accepts
+    for (int r = 0; r < kMtRounds; ++r) {
+      const uint4 wz = philox(i, kStreamNormal, call_plus(call, 2 * r));
+      const float2 pair = j < 2 ? box_muller(wz.x, wz.y) : box_muller(wz.z, wz.w);
+      const uint4 wu = philox(i, kStreamBits, call_plus(call, 2 * r + 1));
+      const uint32_t u = j == 0 ? wu.x : j == 1 ? wu.y : j == 2 ? wu.z : wu.w;
+      float proposal;
+      if (mt_accept(s, (j & 1) ? pair.y : pair.x, unit_open_closed(u), proposal)) {
+        res = proposal;
+        break;
+      }
+    }
+    if (s.boost) {
+      const uint4 wb = philox(i, kStreamBits, call_plus(call, kGammaBoostCall));
+      res *= mt_boost(a, j == 0 ? wb.x : j == 1 ? wb.y : j == 2 ? wb.z : wb.w);
+    }
+    g[w] = res;
   }
 }
 
@@ -232,6 +462,27 @@ extern "C" int tempest_bits(void* out, int64_t total, uint32_t k0, uint32_t k1, 
                             void* stream) {
   bits_kernel<<<grid_for((total + 3) / 4), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(out), total, make_call(k0, k1, counter));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// alpha: (n,) float32 gamma shapes in, contiguous; out: (n,) float32, 16-byte
+// aligned, the gamma(alpha, 1) draws of calls counter .. counter + 12.
+extern "C" int tempest_gamma(const void* alpha, void* out, int64_t n, uint32_t k0, uint32_t k1,
+                             uint64_t counter, void* stream) {
+  const int64_t n_blocks = (n + 3) / 4;
+  const auto* a = static_cast<const float*>(alpha);
+  auto* g = static_cast<float*>(out);
+  const Call call = make_call(k0, k1, counter);
+  const auto st = static_cast<cudaStream_t>(stream);
+#if TEMPEST_GAMMA_LAYOUT == 0
+  gamma_serial_kernel<<<grid_for(n_blocks), kThreads, 0, st>>>(a, g, n, call);
+#elif TEMPEST_GAMMA_LAYOUT == 1
+  const int64_t ctas = (kLanesPerGammaBlock * n_blocks + kThreads - 1) / kThreads;
+  if (ctas > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  gamma_lanes_kernel<<<static_cast<int>(ctas), kThreads, 0, st>>>(a, g, n, call);
+#else
+  gamma_walker_kernel<<<grid_for(n), kThreads, 0, st>>>(a, g, n, call);
+#endif
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,4 @@
-"""The hardware-PRNG draws: three CUDA kernels and their plain versions.
+"""The hardware-PRNG draws: four CUDA kernels and their plain versions.
 
 Counterpart of tempest_tpu/ops/pallas_prng.py: `hw_mutation_draws`,
 `hw_normal`, `hw_uniform` and `hw_gamma`. The kernels are in
@@ -9,9 +9,11 @@ kernel and its plain version give the same words.
 
 A call takes the run's key (two 32-bit words) and a call index `counter`
 (host integers, so no launch syncs the host) and draws what JAX would draw
-from a fresh key. `hw_gamma` composes 13 launches of the normal and bits
-kernels, as the JAX function composes its Pallas calls (pallas_prng.py:
-293-306): it uses call indices counter .. counter + 12.
+from a fresh key. `hw_gamma` is one launch of the gamma kernel, where the
+JAX function composes 13 Pallas calls with elementwise XLA ops
+(pallas_prng.py:293-306); it draws the words of call indices counter ..
+counter + 12 in the layout of `philox.gamma`, its plain version, so a run
+that resumes from a file written before keeps its stream.
 
 `hw_mutation_draws` launches one grid: CTAs of 256 threads, the first
 ceil(8 N / 256) for the walkers (8 lanes each: six Marsaglia-Tsang rounds
@@ -48,6 +50,8 @@ LIBRARY = _build.CudaLibrary(
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32,
             ctypes.c_uint32, ctypes.c_uint64, ctypes.c_void_p,
         ],
+        "tempest_gamma": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
+                          ctypes.c_uint32, ctypes.c_uint64, ctypes.c_void_p],
     },
     # No FMA contraction: the plain version's separate elementwise ops round
     # every product, and the kernel must round the same way.
@@ -55,7 +59,7 @@ LIBRARY = _build.CudaLibrary(
 )
 
 # Kernel launches made in this process, by kernel.
-LAUNCHES = {"mutation_draws": 0, "normal": 0, "bits": 0}
+LAUNCHES = {"mutation_draws": 0, "normal": 0, "bits": 0, "gamma": 0}
 
 _MAX_BLOCKS = 1 << 32  # the block index is one 32-bit counter word
 _functions = {}  # C entry points by name, looked up once
@@ -140,14 +144,30 @@ def hw_uniform(key: Key, counter: int, shape, device) -> torch.Tensor:
 
 
 def hw_gamma(key: Key, counter: int, alpha: torch.Tensor) -> torch.Tensor:
-    """gamma(alpha, 1) draws, Marsaglia-Tsang over 6 normal and 7 bits
-    launches (call indices counter .. counter + 12)."""
-    _route(alpha.device, "hw_gamma")
-    zc, uc, bc = philox.gamma_counters(counter)
-    shape, dev = alpha.shape, alpha.device
-    normals = [hw_normal(key, c, shape, dev) for c in zc]
-    uniforms = [hw_uniform(key, c, shape, dev) for c in uc]
-    return philox.marsaglia_tsang(alpha, normals, uniforms, hw_uniform(key, bc, shape, dev))
+    """gamma(alpha, 1) draws of alpha's shape, float32, by Marsaglia-Tsang
+    in one launch on the words of call indices counter .. counter + 12."""
+    _check_call(key, counter, alpha.numel())
+    last = int(counter) + philox.GAMMA_CALLS - 1
+    if last >= 1 << 64:
+        raise ValueError(f"hw_gamma uses call indices {counter} .. {last}: past 2^64 - 1")
+    if not _route(alpha.device, "hw_gamma"):
+        return philox.gamma(key, counter, alpha)
+    if _elsewhere(alpha.device):
+        with torch.cuda.device(alpha.device):
+            return hw_gamma(key, counter, alpha)
+    if alpha.dtype != torch.float32 or not alpha.is_contiguous():
+        raise ValueError(
+            f"alpha must be a contiguous float32 tensor (got {alpha.dtype}, "
+            f"contiguous={alpha.is_contiguous()})"
+        )
+    out = torch.empty(alpha.shape, dtype=torch.float32, device=alpha.device)
+    n = alpha.numel()
+    if n:
+        err = _function("tempest_gamma")(
+            alpha.data_ptr(), out.data_ptr(), n, key[0], key[1], counter, _stream(alpha.device))
+        _build.check(err, "gamma")
+        LAUNCHES["gamma"] += 1
+    return out
 
 
 def hw_mutation_draws(

@@ -5,10 +5,11 @@ Counterpart of tempest_tpu/ops/pallas_reweight.py, whose Pallas kernel
 bisection is the CUDA kernel in `csrc/ess_bisect.cu` (design note at the
 top of that file), built with nvcc for sm_90a at first use and bound with
 ctypes. It needs a Hopper card: one launch runs the whole bisection on one
-thread-block cluster of `ESS_CLUSTER` = 16 CTAs of 1024 threads (a
-non-portable cluster size), each CTA owning one contiguous slice of the S
-samples, with one cluster barrier per pass and no host sync. The kernel is
-a template on its scalar type: `tempest_ess_bisect` runs float32 and
+thread-block cluster of `ESS_CLUSTER` = 16 CTAs (a non-portable cluster
+size) of `ESS_THREADS[dtype]` threads, 1024 in float32 and 512 in float64
+(whose state needs 128 registers a thread), each CTA owning one contiguous
+slice of the S samples, with one cluster barrier per pass and no host
+sync. The kernel is a template on its scalar type: `tempest_ess_bisect` runs float32 and
 `tempest_ess_bisect_f64` float64 (the port's dtype=torch.float64 path,
 where JAX runs XLA's float64 bisection). `plan_launch` picks the route by S
 and the dtype: while a slice fits the shared memory, `ESS_SLICE_MAX`
@@ -64,12 +65,16 @@ LAUNCHES_F64 = 0
 
 ESS_CLUSTER = 16  # CTAs in the cluster: csrc kCluster
 ESS_SLICE_MAX = 24576  # float32 samples a CTA holds in shared memory (192 KB): csrc kSliceMax
+# Threads a CTA, by dtype: csrc kThreadsF32, kThreadsF64 (the kernel sets its
+# own; the plan reports them).
+ESS_THREADS = {torch.float32: 1024, torch.float64: 512}
 
 
 class LaunchPlan(NamedTuple):
     cluster: int  # CTAs, one slice each
     slice: int  # samples per CTA, a multiple of 4
     resident: bool  # slice held in shared memory (else streamed from L2)
+    threads: int  # threads a CTA
 
 
 def slice_max(dtype=torch.float32) -> int:
@@ -82,7 +87,7 @@ def plan_launch(n: int, dtype=torch.float32) -> LaunchPlan:
     by S and the dtype only."""
     per_cta = -(-n // ESS_CLUSTER)
     slice_ = max(4, -(-per_cta // 4) * 4)
-    return LaunchPlan(ESS_CLUSTER, slice_, slice_ <= slice_max(dtype))
+    return LaunchPlan(ESS_CLUSTER, slice_, slice_ <= slice_max(dtype), ESS_THREADS[dtype])
 
 
 # ---------------------------------------------------------------------------

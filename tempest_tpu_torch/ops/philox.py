@@ -16,6 +16,11 @@ Block `i` of sub-stream `s` of that call encrypts the counter words
 - normals (stream 0): block i gives elements 4i..4i+3 by paired
   Box-Muller, (r cos t, r sin t) from words (0, 1) and from words (2, 3);
 - bits (stream 0): block i gives elements 4i..4i+3, the words themselves;
+- gamma draws (`gamma`, the plain version of the gamma kernel): walker
+  4i + j's Marsaglia-Tsang round r takes normal j of block i of call
+  counter + 2r and word j of block i of call counter + 2r + 1, its boost
+  word j of block i of call counter + 12, all on stream 0; the first
+  accepted round wins (`gamma_counters`);
 - mutation draws: the (R, N, d) proposal normals as above on stream 0;
   walker n's Marsaglia-Tsang round r (0..5) on stream 1 + r from words
   (0, 1, 2) = (normal u1, normal u2, acceptance u), cos-only as in
@@ -125,6 +130,28 @@ def bits(key: Key, counter: int, total: int, device) -> torch.Tensor:
     return as_int32_bits(words.reshape(-1)[:total])
 
 
+def mt_setup(alpha: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(boost, d, c) of Marsaglia-Tsang for gamma(alpha, 1): alpha < 1 is
+    boosted to alpha + 1, d = a_eff - 1/3 and c = 1 / sqrt(9 d)."""
+    boost = alpha < 1.0
+    a_eff = torch.where(boost, alpha + 1.0, alpha)
+    d = a_eff - 1.0 / 3.0
+    return boost, d, 1.0 / torch.sqrt(9.0 * d)
+
+
+def mt_accept(
+    z: torch.Tensor, u: torch.Tensor, d: torch.Tensor, c: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One Marsaglia-Tsang round on normals z and uniforms u: (accepted,
+    the proposal d v)."""
+    one_cz = 1.0 + c * z
+    v = one_cz * one_cz * one_cz
+    ok = (v > 0.0) & (
+        torch.log(u) < 0.5 * z * z + d - d * v + d * torch.log(torch.clamp(v, min=1e-30))
+    )
+    return ok, d * v
+
+
 def marsaglia_tsang(
     alpha: torch.Tensor,
     normals: Sequence[torch.Tensor],
@@ -137,19 +164,12 @@ def marsaglia_tsang(
     accepted round wins, and a draw no round accepts keeps d = a_eff - 1/3.
     alpha < 1 is boosted: gamma(a) = gamma(a + 1) * U^(1/a).
     """
-    boost = alpha < 1.0
-    a_eff = torch.where(boost, alpha + 1.0, alpha)
-    d = a_eff - 1.0 / 3.0
-    c = 1.0 / torch.sqrt(9.0 * d)
+    boost, d, c = mt_setup(alpha)
     res = d
     accepted = torch.zeros_like(boost)
     for z, u in zip(normals, uniforms):
-        one_cz = 1.0 + c * z
-        v = one_cz * one_cz * one_cz
-        ok = (v > 0.0) & (
-            torch.log(u) < 0.5 * z * z + d - d * v + d * torch.log(torch.clamp(v, min=1e-30))
-        )
-        res = torch.where(ok & ~accepted, d * v, res)
+        ok, proposal = mt_accept(z, u, d, c)
+        res = torch.where(ok & ~accepted, proposal, res)
         accepted = accepted | ok
     scale = boost_uniform ** (1.0 / torch.clamp(alpha, min=1e-12))
     return res * torch.where(boost, scale, torch.ones_like(scale))
@@ -166,8 +186,10 @@ def gamma_counters(counter: int) -> Tuple[Tuple[int, ...], Tuple[int, ...], int]
 
 
 def gamma(key: Key, counter: int, alpha: torch.Tensor) -> torch.Tensor:
-    """The plain version of `hw_gamma`: Marsaglia-Tsang on `normal` and
-    `bits` draws of calls counter .. counter + 12."""
+    """The plain version of the gamma kernel (`cuda_prng.hw_gamma`):
+    Marsaglia-Tsang on `normal` and `bits` draws of calls counter ..
+    counter + 12. It evaluates every round; the kernel stops a walker at its
+    first accepted round, which gives the same value."""
     n, dev = alpha.numel(), alpha.device
     zc, uc, bc = gamma_counters(counter)
     normals = [normal(key, c, n, dev).reshape(alpha.shape) for c in zc]

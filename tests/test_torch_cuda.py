@@ -20,9 +20,10 @@ run launches it once per reweight and no PRNG kernel. The PRNG kernels
 and their plain versions (ops/philox.py) on the card and on one key and
 call index, at the tolerances of chip_smoke.py's kernel phase: bits
 exactly equal, normals and uniforms within 1e-5 absolute, gamma draws
-within 1e-5 relative except at most 1e-4 of them (a Marsaglia-Tsang test
-that falls within float rounding of its bound may go the other way when
-a math function's last bit differs).
+within 1e-5 relative except at most max(1, 1e-4 n) of them (a
+Marsaglia-Tsang test that falls within float rounding of its bound may go
+the other way when a math function's last bit differs). `hw_gamma` is one
+launch of the gamma kernel and no normal or bits launch.
 """
 
 import math
@@ -263,19 +264,48 @@ def test_normal_and_bits_kernels_match_plain(cuda_device, total):
     assert cuda_prng.LAUNCHES["bits"] == before["bits"] + 2
 
 
+GAMMA_ALPHAS = (0.02, 0.5, 0.7, 1.5, 7.5, 50.0)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("a", [0.5, 1.5, 7.5, 50.0])
-def test_gamma_matches_plain(cuda_device, a):
-    n = 1 << 18
-    alpha = torch.full((n,), a, device=cuda_device)
+# Ragged blocks of 4, B's N (2^17), B's N + 3 and 2^18; each alpha, and all
+# six in turn. The 13 call indices cross 2^32, the counter's high word.
+@pytest.mark.parametrize("n", [1, 3, 5, 1000, 131072, 131075, 262144])
+@pytest.mark.parametrize("a", GAMMA_ALPHAS + ("mixed",))
+def test_gamma_matches_plain(cuda_device, n, a):
+    if a == "mixed":
+        alpha = torch.tensor(GAMMA_ALPHAS, device=cuda_device).repeat(-(-n // 6))[:n].contiguous()
+    else:
+        alpha = torch.full((n,), a, device=cuda_device)
+    counter = (1 << 32) - 5
     before = dict(cuda_prng.LAUNCHES)
-    g = cuda_prng.hw_gamma(KEY, 10, alpha)
-    want = philox.gamma(KEY, 10, alpha)
+    g = cuda_prng.hw_gamma(KEY, counter, alpha)
+    after = dict(cuda_prng.LAUNCHES)
+    want = philox.gamma(KEY, counter, alpha)
     torch.cuda.synchronize()
-    assert cuda_prng.LAUNCHES["normal"] - before["normal"] == philox.MT_ROUNDS
-    assert cuda_prng.LAUNCHES["bits"] - before["bits"] == philox.MT_ROUNDS + 1
-    assert _gamma_mismatches(g, want) <= 1e-4 * n
-    assert float(g.min()) > 0.0 and abs(float(g.mean()) - a) < 5 * (a / n) ** 0.5 + 0.01
+    assert {k: after[k] - before[k] for k in after} == {
+        "mutation_draws": 0, "normal": 0, "bits": 0, "gamma": 1}
+    assert g.shape == alpha.shape and g.dtype == torch.float32
+    assert bool(torch.all(torch.isfinite(g) & (g >= 0.0)))  # U^(1/0.02) may underflow to 0
+    assert _gamma_mismatches(g, want) <= max(1, 1e-4 * n)
+    if n >= 131072 and a in (0.5, 1.5, 7.5, 50.0):
+        assert float(g.min()) > 0.0 and abs(float(g.mean()) - a) < 5 * (a / n) ** 0.5 + 0.01
+
+
+@pytest.mark.cuda
+def test_gamma_rejects_what_it_does_not_take(cuda_device):
+    alpha = torch.full((1001,), 2.5, device=cuda_device)
+    for bad in (alpha.double(), alpha[::2], alpha.reshape(7, 143).t()):
+        with pytest.raises(ValueError):
+            cuda_prng.hw_gamma(KEY, 0, bad)
+    with pytest.raises(ValueError):  # call indices past 2^64 - 1
+        cuda_prng.hw_gamma(KEY, (1 << 64) - philox.GAMMA_CALLS + 1, alpha)
+    # A contiguous view that starts one float in: alpha is read by scalar loads.
+    view = alpha[1:]
+    got = cuda_prng.hw_gamma(KEY, 3, view)
+    want = philox.gamma(KEY, 3, view)
+    torch.cuda.synchronize()
+    assert _gamma_mismatches(got, want) <= 1
 
 
 @pytest.mark.cuda

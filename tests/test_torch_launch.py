@@ -6,8 +6,8 @@
 - `cuda_reweight.plan_launch` picks the ESS kernel's route by S and the
   dtype: slices held in shared memory up to 16 x 24,576 = 393,216 float32
   samples, or 16 x 12,288 = 196,608 float64 ones, streamed from L2 past
-  that; its two constants are the kernel's, and each dtype names its C
-  entry.
+  that, on CTAs of 1024 threads in float32 and 512 in float64; its
+  constants are the kernel's, and each dtype names its C entry.
 - The inputs of the GPU test of the mutation-draws kernel reach the later
   Marsaglia-Tsang rounds that the kernel spreads over lanes.
 """
@@ -69,18 +69,22 @@ ON_CHIP = cuda_reweight.ESS_CLUSTER * cuda_reweight.ESS_SLICE_MAX
 def test_ess_launch_plan(S, slice_, resident):
     plan = cuda_reweight.plan_launch(S)
     assert ON_CHIP == 393216
-    assert plan.cluster == 16
+    assert plan.cluster == 16 and plan.threads == 1024
     assert (plan.slice, plan.resident) == (slice_, resident)
     assert plan.slice % 4 == 0 and plan.cluster * plan.slice >= S
     assert 8 * cuda_reweight.ESS_SLICE_MAX <= 227 * 1024 - 4096  # an SM's shared memory
 
 
-@pytest.mark.parametrize("name,value", [("kCluster", cuda_reweight.ESS_CLUSTER),
-                                         ("kSliceMax", cuda_reweight.ESS_SLICE_MAX)])
+@pytest.mark.parametrize("name,value", [
+    ("kCluster", cuda_reweight.ESS_CLUSTER),
+    ("kSliceMax", cuda_reweight.ESS_SLICE_MAX),
+    ("kThreadsF32", cuda_reweight.ESS_THREADS[torch.float32]),
+    ("kThreadsF64", cuda_reweight.ESS_THREADS[torch.float64]),
+])
 def test_ess_plan_constants_match_the_source(name, value):
-    """The plan's cluster size and slice capacity are the kernel's: the C
-    entry refuses a resident slice past kSliceMax and sizes its grid by
-    kCluster."""
+    """The plan's cluster size, slice capacity and CTA widths are the
+    kernel's: the C entry refuses a resident slice past kSliceMax, sizes its
+    grid by kCluster and its CTAs by kThreadsF32 / kThreadsF64."""
     text = (_build.CSRC / cuda_reweight.LIBRARY.source).read_text()
     assert re.findall(rf"constexpr \w+ {name} = (\d+);", text) == [str(value)]
 
@@ -112,7 +116,7 @@ def test_each_dtype_names_its_entry():
 def test_ess_launch_plan_float64(S, slice_, resident):
     plan = cuda_reweight.plan_launch(S, torch.float64)
     assert ON_CHIP_F64 == 196608
-    assert (plan.cluster, plan.slice, plan.resident) == (16, slice_, resident)
+    assert (plan.cluster, plan.slice, plan.resident, plan.threads) == (16, slice_, resident, 512)
     assert 16 * cuda_reweight.slice_max(torch.float64) == 8 * cuda_reweight.ESS_SLICE_MAX
 
 

@@ -6,9 +6,14 @@ ops/cuda_prng.py, draws.HardwareDraws) against tempest_tpu.ops.pallas_prng.
 - Marsaglia-Tsang against JAX `hw_gamma` fed the same normals and
   uniforms (its `hw_normal`/`hw_uniform` replaced by tables), rtol 1e-6:
   the same float32 operations, so at most the last bit of log differs.
+- The counter layout of the gamma draws, which the gamma kernel keeps word
+  for word: walkers rebuilt one at a time from scalar Philox counters and a
+  scalar first-accept-and-stop Marsaglia-Tsang in numpy float32 give
+  `philox.gamma`'s values.
 - Moments of the plain draws at CPU sizes with the tolerances of
   tests/test_tpu_smoke.py:181-243 (about 5 sigma).
-- The routing of `HardwareDraws`, as tempest_tpu/mcmc.py routes.
+- The routing of `HardwareDraws`, as tempest_tpu/mcmc.py routes, and the
+  call indices each route takes.
 """
 
 import jax
@@ -81,6 +86,84 @@ def test_marsaglia_tsang_against_jax_hw_gamma(monkeypatch):
     np.testing.assert_allclose(philox.gamma(KEY, 7, alpha).numpy(), want, rtol=1e-6)
 
 
+F32 = np.float32
+
+
+def _scalar_words(block, call):
+    """The four words of one Philox block of stream 0 of call `call`."""
+    t = [torch.tensor([v], dtype=torch.int64)
+         for v in (block, 0, call & philox.MASK32, call >> 32)]
+    return [int(w) for w in philox.philox4x32(*t, KEY)]
+
+
+def _scalar_unit(w):
+    return F32(2.0) - np.array([0x3F800000 | (w >> 9)], np.uint32).view(np.float32)[0]
+
+
+def _scalar_gamma(a, j, counter):
+    """Walker j's gamma draw, one scalar at a time: round r's normal is
+    Box-Muller on words (0, 1) or (2, 3) of block j // 4 of call counter + 2r
+    (cos for even j, sin for odd), its uniform word j % 4 of call
+    counter + 2r + 1; the first accepted round ends the loop. Returns the
+    draw before the boost, the round that decided it (None: no round did)
+    and the boost factor (1 for alpha >= 1)."""
+    a = F32(a)
+    boost = a < F32(1.0)
+    d = (a + F32(1.0) if boost else a) - F32(1.0 / 3.0)
+    c = F32(1.0) / np.sqrt(F32(9.0) * d)
+    res, decided = d, None
+    for r in range(philox.MT_ROUNDS):
+        w = _scalar_words(j // 4, counter + 2 * r)
+        pair = (j % 4) // 2
+        radius = np.sqrt(F32(-2.0) * np.log(_scalar_unit(w[2 * pair])))
+        theta = F32(philox.TWO_PI) * _scalar_unit(w[2 * pair + 1])
+        z = radius * (np.cos(theta) if j % 2 == 0 else np.sin(theta))
+        u = _scalar_unit(_scalar_words(j // 4, counter + 2 * r + 1)[j % 4])
+        one_cz = F32(1.0) + c * z
+        v = one_cz * one_cz * one_cz
+        if v > 0 and np.log(u) < F32(0.5) * z * z + d - d * v + d * np.log(max(v, F32(1e-30))):
+            res, decided = d * v, r
+            break
+    scale = F32(1.0)
+    if boost:
+        u_boost = _scalar_unit(_scalar_words(j // 4, counter + 2 * philox.MT_ROUNDS)[j % 4])
+        scale = np.power(u_boost, F32(1.0) / max(a, F32(1e-12)))
+    return res, decided, scale
+
+
+def test_gamma_counter_layout():
+    """`philox.gamma` (every round evaluated, the first accepted one taken)
+    against walkers rebuilt one at a time and stopped at their first
+    accepted round: the first two blocks (j % 4 = 0..3), walkers that a
+    later round decides, and the ragged last block. The call indices cross
+    2^32, so the counter's high word changes within one call. A draw equals
+    the scalar one exactly; with alpha < 1 the boost factor U^(1/alpha) is
+    compared to 2 ulp, the last bits of numpy's powf and of PyTorch's
+    vectorized pow, and the draw before it exactly, through alpha + 1."""
+    n, counter = 1003, (1 << 32) - 5  # 250 whole blocks and one of 3
+    alpha_np = np.array([0.02, 0.5, 0.7, 1.5, 7.5, 50.0] * (n // 6 + 1), np.float32)[:n]
+    alpha = torch.from_numpy(alpha_np)
+    want = philox.gamma(KEY, counter, alpha).numpy()
+    unboosted = philox.gamma(KEY, counter, alpha + 1.0).numpy()  # alpha + 1 is a_eff
+    # Walkers some later round decides, found on the whole vector.
+    _, d, c = philox.mt_setup(alpha)
+    zc, uc, _ = philox.gamma_counters(counter)
+    z0 = philox.normal(KEY, zc[0], n, "cpu")
+    u0 = philox.unit_open_closed(philox.bits(KEY, uc[0], n, "cpu"))
+    later = torch.nonzero(~philox.mt_accept(z0, u0, d, c)[0]).reshape(-1).tolist()
+    walkers = list(range(8)) + later[:6] + [n - 3, n - 2, n - 1]
+    decided = set()
+    for j in walkers:
+        res, r, scale = _scalar_gamma(alpha_np[j], j, counter)
+        decided.add(r)
+        if alpha_np[j] >= 1.0:
+            assert want[j] == res, (j, r)
+        else:
+            assert unboosted[j] == res, (j, r)
+            assert abs(want[j] - res * scale) <= 2 * np.spacing(want[j]), (j, r)
+    assert {0, 1} <= decided  # the early exit is exercised
+
+
 def test_normal_and_uniform_moments():
     n = 1 << 20
     z = cuda_prng.hw_normal(KEY, 0, (n,), "cpu").double().numpy()
@@ -141,6 +224,19 @@ def test_wrappers_route_by_device():
         cuda_prng.hw_mutation_draws(KEY, 0, alpha, (2, 15, 3))
 
 
+def test_hw_gamma_call_indices_fit_64_bits():
+    """A call uses indices counter .. counter + 12: the last one must fit."""
+    alpha = torch.full((8,), 2.5)
+    with pytest.raises(ValueError):
+        cuda_prng.hw_gamma(KEY, (1 << 64) - philox.GAMMA_CALLS + 1, alpha)
+    with pytest.raises(ValueError):
+        cuda_prng.hw_gamma(KEY, -1, alpha)
+    last = (1 << 64) - philox.GAMMA_CALLS  # counter + 12 = 2^64 - 1
+    assert torch.equal(cuda_prng.hw_gamma(KEY, last, alpha), philox.gamma(KEY, last, alpha))
+    with pytest.raises(ValueError):  # neither a CPU nor a CUDA tensor
+        cuda_prng.hw_gamma(KEY, 0, alpha.to("meta"))
+
+
 def _step(hw, n, gamma_shape, R=2, d=3):
     return hw.mcmc_step(R, n, d, gamma_shape)
 
@@ -178,3 +274,28 @@ def test_hardware_draws_large_route(monkeypatch):
     # One walker short of the gamma threshold: g from the generator.
     z, g, u = _step(hw, n - 1, torch.full((n - 1,), 2.5))
     assert hw.counter == philox.GAMMA_CALLS + 1 and g.shape == (n - 1,)
+
+
+def test_hardware_draws_gamma_takes_gamma_calls(monkeypatch):
+    """On the large route every MCMC step takes GAMMA_CALLS = 13 call indices
+    for its gamma draws and one for its normals, as before the gamma draws
+    became one kernel, so a checkpointed `philox_counter` resumes the same
+    stream."""
+    monkeypatch.setattr(draws_mod, "FUSED_DRAWS_MAX_ELEMS", 0)
+    monkeypatch.setattr(draws_mod, "HW_NORMAL_MIN_ELEMS", 2 * 64 * 3)
+    monkeypatch.setattr(draws_mod, "HW_GAMMA_MIN_WALKERS", 64)
+    assert philox.GAMMA_CALLS == 2 * philox.MT_ROUNDS + 1 == 13
+    n = 64
+    alpha = torch.linspace(0.3, 9.0, n)
+    hw = draws_mod.HardwareDraws(11, "cpu")
+    for step in range(3):
+        first = step * (philox.GAMMA_CALLS + 1)
+        assert hw.counter == first
+        _, g, _ = _step(hw, n, alpha)
+        assert torch.equal(g, philox.gamma(hw.key, first, alpha))
+    state = hw.get_state()
+    resumed = draws_mod.HardwareDraws(0, "cpu")
+    resumed.set_state(state)
+    z, g, _ = _step(resumed, n, alpha)
+    assert resumed.counter == int(state["philox_counter"]) + philox.GAMMA_CALLS + 1
+    assert torch.equal(g, philox.gamma(hw.key, 3 * (philox.GAMMA_CALLS + 1), alpha))
