@@ -10,10 +10,9 @@ PyTorch version on the card, then drives the port through
 lines and a failure exits non-zero:
 
  1. the card: `nvidia-smi` name and power limit;
- 2. build every kernel, and the gamma kernel's other layouts from the same
-    source (`-DTEMPEST_GAMMA_LAYOUT`); each library's ptxas report
-    (`-Xptxas -v`): every kernel's registers and spill bytes, and a spill in
-    any kernel fails;
+ 2. build every kernel; each library's ptxas report (`-Xptxas -v`):
+    every kernel's registers and spill bytes, and a spill in any kernel
+    fails;
  3. the ESS-bisection kernel against its plain version on both routes of
     its launch plan (slices in shared memory: S = 65,536, a ragged S and the
     last S held on chip, 393,216; slices streamed from L2: 393,217 and
@@ -30,15 +29,14 @@ lines and a failure exits non-zero:
     index (mutation draws at (8, 1024, 10), a ragged (8, 1000, 10) and the
     largest fused shape (8, 6553, 10); normal and bits at 2^20 and at B's
     shapes, the bits through the public `hw_uniform`, whose launches the
-    bits row counts; the gamma draws at n = 1, 3, 5, 1000, 131,072,
-    131,075 and 262,144 for alpha 0.02, 0.5, 0.7, 1.5, 7.5, 50 and all six
-    in turn, one gamma launch and no other a call, on call indices that
-    cross 2^32), their moments, their device and host-timed call times
-    beside their plain versions' and the PyTorch generator's (the gamma
-    kernel's bound counts the Marsaglia-Tsang rounds these draws need), the
-    gamma kernel's three layouts in turns at n = 2^17 and 2^18, the launch
-    floor, and one synchronized call of each kernel split into wrapper,
-    launch, device and sync time;
+    bits row gives as `hw_uniform_launches`; the gamma draws at n = 1, 3,
+    5, 1000, 131,072, 131,075 and 262,144 for alpha 0.02, 0.5, 0.7, 1.5,
+    7.5, 50 and all six in turn, one gamma launch and no other a call, on
+    call indices that cross 2^32), their moments, their device and
+    host-timed call times beside their plain versions' and the PyTorch
+    generator's (the gamma kernel's bound counts the Marsaglia-Tsang
+    rounds these draws need), the launch floor, and one synchronized call
+    of each kernel split into wrapper, launch, device and sync time;
  5. the canonical problem unclustered (paired 10-D Rosenbrock, U(-10, 10)
     prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42;
  6. A: the canonical problem at the reference defaults, clustered
@@ -100,7 +98,11 @@ lines and a failure exits non-zero:
     destroyed at the end of the phase, whatever happens in it.
 
 Every path phase sets the kernels' launch counts to 0 just before it
-drives the path and reads them just after. The last three lines are the
+drives the path and reads them just after. A kernel's `launches` in the
+table is its count on one path (`launches_on`), and must be above 0; the
+bits kernel is on no Sampler path (its one caller there, hw_gamma, is the
+gamma kernel now), so its `launches` is B's 0, every path must count 0 for
+it, and its row says why (`off_path`). The last three lines are the
 total wall, the kernel table and {"ok": true, "device": {...}}.
 
 Without a GPU, or without the rest of the repository beside it, the
@@ -543,26 +545,6 @@ def phase_device() -> str:
     return torch.cuda.get_device_name(0)
 
 
-# The layouts of the gamma kernel (csrc/prng_draws.cu, TEMPEST_GAMMA_LAYOUT).
-GAMMA_LAYOUTS = {0: "one thread a Philox block", 1: "eight lanes a Philox block",
-                 2: "one thread a walker"}
-
-
-def gamma_layouts() -> tuple:
-    """(the layout tempest_gamma launches, {other layout: its library}): the
-    same source built with -DTEMPEST_GAMMA_LAYOUT set to each layout it
-    does not launch by default, for phase 4's comparison."""
-    text = (_build.CSRC / cuda_prng.LIBRARY.source).read_text()
-    default = int(re.search(r"#define TEMPEST_GAMMA_LAYOUT (\d+)", text).group(1))
-    others = {
-        k: _build.CudaLibrary(
-            cuda_prng.LIBRARY.source,
-            {"tempest_gamma": cuda_prng.LIBRARY.functions["tempest_gamma"]},
-            extra_flags=cuda_prng.LIBRARY.extra_flags + (f"-DTEMPEST_GAMMA_LAYOUT={k}",))
-        for k in GAMMA_LAYOUTS if k != default}
-    return default, others
-
-
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _PTXAS_PROPS = re.compile(r"Function properties for (\S+)")
 _PTXAS_FRAME = re.compile(
@@ -608,9 +590,9 @@ def _short_names(nvcc: str, names: list) -> dict:
 
 
 def phase_build() -> dict:
-    """Both kernel libraries and the gamma kernel's other layouts; beside
-    them each one's ptxas report (a spill in any kernel fails) and the SASS
-    probe whose exp counts set ESS_SAMPLE_PROBE. Returns the reports."""
+    """Both kernel libraries; beside them each one's ptxas report (a spill
+    in any kernel fails) and the SASS probe whose exp counts set
+    ESS_SAMPLE_PROBE. Returns the reports."""
     t0 = time.perf_counter()
     nvcc = _build._nvcc()
     tmp = tempfile.mkdtemp(prefix="sass_probe_")
@@ -620,8 +602,7 @@ def phase_build() -> dict:
     probe = subprocess.Popen([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
                               "-o", cubin, src], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                              text=True)
-    gamma_default, gamma_others = gamma_layouts()
-    libs = (cuda_reweight.LIBRARY, cuda_prng.LIBRARY, *gamma_others.values())
+    libs = (cuda_reweight.LIBRARY, cuda_prng.LIBRARY)
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     ptxas = []
     for i, lib in enumerate(libs):  # the same compiles as the libraries', to cubins, verbose
@@ -642,20 +623,19 @@ def phase_build() -> dict:
         ESS_SAMPLE_PROBE[t] = (ESS_SAMPLE_OTHER[0] + i, f + (ESS_SAMPLE_OTHER[1] if t == "f32" else 0),
                                d + (ESS_SAMPLE_OTHER[1] if t == "f64" else 0))
     names = " ".join(p.name for p in paths.values())
-    print(f"build: {names} in {time.perf_counter() - t0:.3f} s (one nvcc per source and flags, in "
-          f"parallel); tempest_gamma launches layout {gamma_default}, the others built with "
-          f"{', '.join(lib.extra_flags[-1] for lib in gamma_others.values())}", flush=True)
+    print(f"build: {names} in {time.perf_counter() - t0:.3f} s (one nvcc per source, in parallel)",
+          flush=True)
     print(f"SASS of exp (32-bit integer, float32, float64 instructions of its straight-line path, "
           f"sm_90a): float32 {exp['f32']}, float64 {exp['f64']}; the ESS kernel per sample and "
           f"probe: {ESS_SAMPLE_PROBE}", flush=True)
     reports, spilled = {}, []
     for lib, proc in ptxas:
         out, err = proc.communicate()
-        check(proc.returncode == 0, f"ptxas report of {lib.source} {lib.extra_flags} failed: {err}")
+        check(proc.returncode == 0, f"ptxas report of {lib.source} failed: {err}")
         report = ptxas_report(out + err)
-        check(len(report) > 0, f"no ptxas report for {lib.source} {lib.extra_flags}")
+        check(len(report) > 0, f"no ptxas report for {lib.source}")
         short = _short_names(nvcc, list(report))
-        label = " ".join((lib.source, *(f for f in lib.extra_flags if f.startswith("-D"))))
+        label = lib.source
         reports[label] = {short[k]: v for k, v in report.items()}
         for name, r in reports[label].items():
             print(f"ptxas {label}: {name}: {r.get('registers', '-')} registers, stack "
@@ -1204,7 +1184,7 @@ def phase_gamma_kernel(device, key) -> dict:
     """tempest_gamma against philox.gamma at GAMMA_SIZES for every case of
     gamma_cases, one gamma launch and no other PRNG launch a call; moments
     at 2^18; times at B's N and 2^18 beside the plain version and
-    torch._standard_gamma; the kernel's three layouts in turns."""
+    torch._standard_gamma."""
     max_err, max_flips = 0.0, 0
     for n in GAMMA_SIZES:
         summary = []
@@ -1235,10 +1215,7 @@ def phase_gamma_kernel(device, key) -> dict:
         check(float(g.min()) > 0.0 and abs(gm - a) < 5 * math.sqrt(a / n) + 0.01
               and abs(gv - a) < 0.05 * a + 0.02, f"hw_gamma alpha={a} moments")
 
-    default, others = gamma_layouts()
-    entries = {default: _build.load(cuda_prng.LIBRARY).tempest_gamma,
-               **{k: _build.load(lib).tempest_gamma for k, lib in others.items()}}
-    shapes, layouts = {}, {}
+    shapes = {}
     for n in GAMMA_TIMED:
         alpha = torch.full((n,), GAMMA_TIMED_ALPHA, device=device)
         fns = {"kernel": lambda: cuda_prng.hw_gamma(key, 10, alpha),
@@ -1255,33 +1232,8 @@ def phase_gamma_kernel(device, key) -> dict:
               f"device {dev['kernel']:.4f} ms; torch._standard_gamma call {t['library']:.4f} ms "
               f"device {dev['library']:.4f} ms; plain {t['plain']:.4f} ms; bound {b_ms:.6f} ms "
               f"({b_by}; {mean_rounds:.4f} rounds a walker)", flush=True)
-        # The layouts through their C entries, on the same draws, in turns.
-        for label, a_case in (("alpha=7.5", alpha), ("mixed", mixed_alpha(device, n))):
-            outs = {k: torch.empty_like(a_case) for k in entries}
-
-            def entry_call(k, a_case=a_case):
-                return lambda: _build.check(entries[k](
-                    a_case.data_ptr(), outs[k].data_ptr(), a_case.numel(), key[0], key[1], 10,
-                    torch.cuda.current_stream().cuda_stream), "gamma")
-
-            fns = {k: entry_call(k) for k in entries}
-            for fn in fns.values():
-                fn()
-            torch.cuda.synchronize()
-            check(all(torch.equal(outs[default], outs[k]) for k in entries),
-                  f"gamma layouts differ at n={n} {label}")
-            order = sorted(entries, key=lambda k: k != default)  # the launched layout first
-            times = {k: [] for k in entries}
-            for k in order + order[::-1]:
-                times[k].append(device_ms(fns[k], "gamma_"))
-            layouts[f"{n} {label}"] = {f"layout {k}": times[k] for k in order}
-            print(f"gamma layouts n={n} {label} (device ms per launch, in turns "
-                  f"{' '.join(map(str, order + order[::-1]))}; the same draws): " + "; ".join(
-                      f"layout {k} ({GAMMA_LAYOUTS[k]}{', launched' if k == default else ''}) "
-                      f"{times[k][0]:.4f} {times[k][1]:.4f}" for k in order), flush=True)
     row = dict(shapes[B_GAMMA], max_abs_err=max_err, gamma_flips=max_flips,
-               shapes={str(k): v for k, v in shapes.items()}, layouts=layouts,
-               layout_launched=default)
+               shapes={str(k): v for k, v in shapes.items()})
     return row
 
 
@@ -2032,8 +1984,15 @@ LAUNCHES_ON = {
     "ess_bisect_f64": "A in float64 (phase 14)",
     "mutation_draws": "A with hardware_prng (phase 7)",
     "normal": "B (phase 8)",
-    "bits": "phase 4: the public hw_uniform (no Sampler path draws raw bits)",
+    "bits": "B (phase 8)",
     "gamma": "B (phase 8)",
+}
+# Kernels that no Sampler path launches, and why: each must count 0 on every
+# path, and phase 4 still holds it against its plain version.
+OFF_PATH = {
+    "bits": "hw_gamma, the only Sampler caller of _bits_kernel (through hw_uniform), is one "
+            "tempest_gamma launch here; tempest_bits serves the public hw_uniform/hw_bits, "
+            "whose phase-4 launches are hw_uniform_launches",
 }
 
 
@@ -2048,8 +2007,9 @@ def kernel_table(rows: dict, launches: dict, floor: dict, split: dict, paths=Non
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")},
             "launches_on": LAUNCHES_ON[name] if launches else None,
+            **({"off_path": OFF_PATH[name]} if name in OFF_PATH else {}),
             **{k: row[k] for k in ("device_ms", "library_device_ms", "gamma_flips",
-                                   "shapes", "routes", "layouts", "layout_launched") if k in row},
+                                   "hw_uniform_launches", "shapes", "routes") if k in row},
             "launch_floor_ms": floor["device_ms"], "call_split": split.get(name),
             "launches_by_path": {p: n[name] for p, n in (paths or {}).items()},
         })
@@ -2114,10 +2074,14 @@ def main() -> None:
     launches = {"ess_bisect": paths["A"]["ess_bisect"],
                 "ess_bisect_f64": paths["A_float64"]["ess_bisect_f64"],
                 "mutation_draws": paths["A_hardware_prng"]["mutation_draws"],
-                "normal": paths["B"]["normal"], "bits": rows["bits"]["hw_uniform_launches"],
+                "normal": paths["B"]["normal"], "bits": paths["B"]["bits"],
                 "gamma": paths["B"]["gamma"]}
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on its path")
+        if name in OFF_PATH:
+            on = {p: c[name] for p, c in paths.items() if c[name]}
+            check(not on, f"kernel {name} has no Sampler path but was launched on {on}")
+        else:
+            check(n > 0, f"kernel {name} was not launched on its path")
     print(f"launches by path: {json.dumps(paths)}", flush=True)
     print(f"dynamic probes: {json.dumps(dynamic['probes'])}", flush=True)
     print(f"B walls by iteration (s; kernel, composed gamma): {json.dumps(b_walls)}", flush=True)

@@ -66,7 +66,9 @@
 // every normal, uniform and test in registers. On the large-ensemble route
 // (N >= 2^16; N = 2^17 in B) that is N / 4 Philox blocks, 32,768 at 2^17,
 // an eighth of the card's resident threads: latency decides, not
-// throughput. Three layouts, all here, all exact:
+// throughput. Three exact layouts were written and timed on one card in
+// turns (chip_smoke.py phase 4 of this kernel's first version), at N = 2^17
+// and 2^18:
 //  (0) one thread a Philox block (4 walkers) loops over the rounds until
 //      its four walkers are decided, then draws the boost block if one of
 //      them has alpha < 1. A walker stops at its first accepted round; the
@@ -81,18 +83,16 @@
 //      uniform, so Philox is done 4x over, but a round is about half the
 //      instructions of (0)'s, a warp waits for 32 walkers instead of 128,
 //      and 4x the threads hide the latency.
-// tempest_gamma launches the layout TEMPEST_GAMMA_LAYOUT names (default
-// below); chip_smoke.py phase 4 builds the source again with each other
-// one and times all three on one card in turns, at N = 2^17 and 2^18.
-// Device time a launch on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py
-// phase 4), alpha = 7.5 / the six test shapes in turn:
+// Device time a launch on an NVIDIA H100 80GB HBM3 at 700 W, alpha = 7.5 /
+// the six test shapes in turn:
 //   N = 2^17: (0) 0.0040 / 0.0056 ms, (1) 0.0093 / 0.0135-0.0138, (2) 0.0047 / 0.0065-0.0067;
 //   N = 2^18: (0) 0.0048 / 0.0071-0.0074, (1) 0.0172-0.0174 / 0.0260-0.0265,
 //             (2) 0.0076-0.0077 / 0.0109-0.0110.
-// So (0) is launched: at alpha = 7.5 a walker needs 1.004 rounds on average,
-// (1) runs six, and (2) encrypts each Philox block four times over. (0) is
-// 7.7x its bound at 2^17 (0.00052 ms, the instructions of the rounds these
-// draws need); torch._standard_gamma took 0.0033 ms there, 0.0051 at 2^18.
+// So only (0) is kept: at alpha = 7.5 a walker needs 1.004 rounds on
+// average, (1) runs six, and (2) encrypts each Philox block four times over.
+// (0) is 7.7x its bound at 2^17 (0.00052 ms, the instructions of the rounds
+// these draws need); torch._standard_gamma took 0.0033 ms there, 0.0051 at
+// 2^18.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -113,11 +113,6 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // hw_gamma: rounds r on calls counter + 2r (normals) and counter + 2r + 1
 // (uniforms), the boost on counter + 12; philox.GAMMA_CALLS in all.
 constexpr uint32_t kGammaBoostCall = 2 * kMtRounds;
-constexpr int kLanesPerGammaBlock = 8;  // layout (1): 6 rounds, the boost, one idle
-
-#ifndef TEMPEST_GAMMA_LAYOUT
-#define TEMPEST_GAMMA_LAYOUT 0
-#endif
 
 struct Call {
   uint32_t k0, k1, ctr_lo, ctr_hi;
@@ -344,8 +339,8 @@ __device__ __forceinline__ uint4 gamma_boost_words(uint32_t i, const Call& call,
   return any ? philox(i, kStreamBits, call_plus(call, kGammaBoostCall)) : make_uint4(0, 0, 0, 0);
 }
 
-// Layout (0): one thread a Philox block, rounds in series until its walkers
-// are decided; a grid-stride loop over the N / 4 blocks.
+// One thread a Philox block, rounds in series until its walkers are decided;
+// a grid-stride loop over the N / 4 blocks.
 __global__ void __launch_bounds__(kThreads)
 gamma_serial_kernel(const float* __restrict__ alpha, float* __restrict__ g, int64_t n, Call call) {
   const int64_t n_blocks = (n + 3) / 4;
@@ -367,70 +362,6 @@ gamma_serial_kernel(const float* __restrict__ alpha, float* __restrict__ g, int6
     }
     const uint4 wb = gamma_boost_words(static_cast<uint32_t>(i), call, s, valid);
     gamma_store(g, i, valid, a, s, res, wb);
-  }
-}
-
-// Layout (1): eight lanes a Philox block. Lane r < 6 runs round r for the
-// block's four walkers, lane 6 draws the boost block; for each walker a
-// ballot over the group picks the first accepted round, and lane 6 takes
-// its proposal by a shuffle and writes the four draws.
-__global__ void __launch_bounds__(kThreads)
-gamma_lanes_kernel(const float* __restrict__ alpha, float* __restrict__ g, int64_t n, Call call) {
-  const int64_t n_blocks = (n + 3) / 4;
-  const int64_t i =
-      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kLanesPerGammaBlock;
-  // Groups are whole: 8 | 32, so a group's lanes are all active or all not.
-  const unsigned active = __ballot_sync(kFullMask, i < n_blocks);
-  if (i >= n_blocks) return;
-  const int lane = threadIdx.x & 31;
-  const int r = lane & (kLanesPerGammaBlock - 1);  // round, or kMtRounds: the boost
-  const int first_lane = lane - r;
-  float a[4], prop[4] = {0.0f, 0.0f, 0.0f, 0.0f}, res[4];
-  MtShape s[4];
-  const int valid = gamma_load(alpha, n, i, a, s);
-  unsigned ok = 0;
-  if (r < kMtRounds) ok = gamma_round(static_cast<uint32_t>(i), r, call, s, prop);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const unsigned votes =
-        (__ballot_sync(active, (ok >> j) & 1u) >> first_lane) & ((1u << kMtRounds) - 1u);
-    const int winner = votes ? __ffs(static_cast<int>(votes)) - 1 : 0;  // the first accepted round
-    const float won = __shfl_sync(active, prop[j], first_lane + winner);
-    res[j] = votes ? won : s[j].d;
-  }
-  if (r == kMtRounds) {
-    const uint4 wb = gamma_boost_words(static_cast<uint32_t>(i), call, s, valid);
-    gamma_store(g, i, valid, a, s, res, wb);
-  }
-}
-
-// Layout (2): one thread a walker; walker 4i + j takes normal j and word j
-// of block i. A grid-stride loop over the N walkers.
-__global__ void __launch_bounds__(kThreads)
-gamma_walker_kernel(const float* __restrict__ alpha, float* __restrict__ g, int64_t n, Call call) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t w = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; w < n; w += stride) {
-    const uint32_t i = static_cast<uint32_t>(w >> 2);
-    const int j = static_cast<int>(w & 3);
-    const float a = alpha[w];
-    const MtShape s = mt_shape(a);
-    float res = s.d;  // kept where no round accepts
-    for (int r = 0; r < kMtRounds; ++r) {
-      const uint4 wz = philox(i, kStreamNormal, call_plus(call, 2 * r));
-      const float2 pair = j < 2 ? box_muller(wz.x, wz.y) : box_muller(wz.z, wz.w);
-      const uint4 wu = philox(i, kStreamBits, call_plus(call, 2 * r + 1));
-      const uint32_t u = j == 0 ? wu.x : j == 1 ? wu.y : j == 2 ? wu.z : wu.w;
-      float proposal;
-      if (mt_accept(s, (j & 1) ? pair.y : pair.x, unit_open_closed(u), proposal)) {
-        res = proposal;
-        break;
-      }
-    }
-    if (s.boost) {
-      const uint4 wb = philox(i, kStreamBits, call_plus(call, kGammaBoostCall));
-      res *= mt_boost(a, j == 0 ? wb.x : j == 1 ? wb.y : j == 2 ? wb.z : wb.w);
-    }
-    g[w] = res;
   }
 }
 
@@ -474,15 +405,7 @@ extern "C" int tempest_gamma(const void* alpha, void* out, int64_t n, uint32_t k
   auto* g = static_cast<float*>(out);
   const Call call = make_call(k0, k1, counter);
   const auto st = static_cast<cudaStream_t>(stream);
-#if TEMPEST_GAMMA_LAYOUT == 0
   gamma_serial_kernel<<<grid_for(n_blocks), kThreads, 0, st>>>(a, g, n, call);
-#elif TEMPEST_GAMMA_LAYOUT == 1
-  const int64_t ctas = (kLanesPerGammaBlock * n_blocks + kThreads - 1) / kThreads;
-  if (ctas > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  gamma_lanes_kernel<<<static_cast<int>(ctas), kThreads, 0, st>>>(a, g, n, call);
-#else
-  gamma_walker_kernel<<<grid_for(n), kThreads, 0, st>>>(a, g, n, call);
-#endif
   return static_cast<int>(cudaGetLastError());
 }
 

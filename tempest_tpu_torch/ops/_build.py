@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}  # by CudaLibrary.key
+_loaded: Dict[str, ctypes.CDLL] = {}
 
 
 @dataclass(frozen=True)
@@ -44,11 +44,6 @@ class CudaLibrary:
     @property
     def stem(self) -> str:
         return Path(self.source).stem
-
-    @property
-    def key(self) -> Tuple[str, Tuple[str, ...]]:
-        """One source built with other flags is another library."""
-        return self.source, self.extra_flags
 
     def path(self) -> Path:
         """The library built from the current source with these flags."""
@@ -72,13 +67,12 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build_all(libraries: Iterable[CudaLibrary]) -> Dict[Tuple[str, Tuple[str, ...]], Path]:
-    """Compile every library not built yet, one nvcc each, all at once;
-    returns each library's path by its key."""
+def build_all(libraries: Iterable[CudaLibrary]) -> Dict[str, Path]:
+    """Compile every library not built yet, one nvcc each, all at once."""
     todo, done = [], {}
     for lib in libraries:
         out = lib.path()
-        done[lib.key] = out
+        done[lib.source] = out
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -99,14 +93,14 @@ def build_all(libraries: Iterable[CudaLibrary]) -> Dict[Tuple[str, Tuple[str, ..
 
 def load(lib: CudaLibrary) -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C signatures."""
-    if lib.key not in _loaded:
-        handle = ctypes.CDLL(str(build_all([lib])[lib.key]))
+    if lib.source not in _loaded:
+        handle = ctypes.CDLL(str(build_all([lib])[lib.source]))
         for name, argtypes in lib.functions.items():
             fn = getattr(handle, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-        _loaded[lib.key] = handle
-    return _loaded[lib.key]
+        _loaded[lib.source] = handle
+    return _loaded[lib.source]
 
 
 def check(err: int, what: str) -> None:
