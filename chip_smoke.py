@@ -38,10 +38,23 @@ lines and a failure exits non-zero:
     rounds these draws need), the launch floor, and one synchronized call
     of each kernel split into wrapper, launch, device and sync time;
  5. the canonical problem unclustered (paired 10-D Rosenbrock, U(-10, 10)
-    prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42;
+    prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42,
+    with `run(on_device=True)`: its loops replayed as CUDA graphs;
  6. A: the canonical problem at the reference defaults, clustered
-    (k_max=16), hardware_prng=False, seeds 42 and 43 after a warm-up (seed
-    44 is left out, to keep the whole script near half its time limit);
+    (k_max=16), hardware_prng=False, seeds 42 and 43 after a warm-up, with
+    `run(on_device=False)`: the fused iteration without graphs (seed 44 is
+    left out, to keep the whole script near half its time limit);
+ 6b. A fused: A's seed 43 with `run(on_device=True)`, which captures the
+    graphs, then seed 42 on them: the beta ladder, logZ, steps and calls of
+    each equal bit for bit to phase 6's run of its seed, logZ in the clustered band, the ESS
+    kernel's launches equal to phase 6's; the wall per iteration of both,
+    and the graph captures and replays per loop; then iterations 21-25 of
+    seed 42 in each mode under torch.profiler: the device idle share and
+    the blocking host reads per iteration, counted from the CUDA runtime
+    calls that block the host (cudaStreamSynchronize, cudaEventSynchronize,
+    cudaDeviceSynchronize, a synchronous cudaMemcpy), at most one a loop
+    chunk plus four an iteration, and fewer than 150; then iterations 26-30
+    traced on the device only (no host ops recorded): wall and idle share;
  7. A again with hardware_prng=True, seed 42: every MCMC step draws through
     the mutation-draws kernel;
  8. B: the large-ensemble hardware_prng configuration of
@@ -49,12 +62,7 @@ lines and a failure exits non-zero:
     history_capacity=8, unclustered) through its first four mutation
     iterations: one normal and one gamma launch per MCMC step, no bits
     launch; then the normal kernel at its R*N*d and the ESS kernel at the S
-    reached, each against its plain version; then B again with its gamma
-    draws composed as before the gamma kernel (6 normal and 7 bits launches
-    and Marsaglia-Tsang in PyTorch, from the public `hw_normal` and
-    `hw_uniform`), twice, and B with the kernel once more (kernel, composed,
-    composed, kernel): the walls of each iteration side by side, beta within
-    1e-4 (relative) of the first run's;
+    reached, each against its plain version;
  9. C: the 10-D bimodal mixture of tests/test_multimodal.py, clustered;
 10. the 10-D Gaussian of tests/test_end_to_end.py;
 11. the reference surface on A's problem, seed 42: the reference's default
@@ -74,9 +82,10 @@ lines and a failure exits non-zero:
     taken from the JAX package; probes per reweight;
 13. the refit cadence, C with cluster_every=3, and a host likelihood: the
     10-D Gaussian as a numpy per-point function with host_likelihood=True;
-14. float64: A at dtype=torch.float64 with hardware_prng=True, seed 42 (one
+14. float64: A at dtype=torch.float64 with hardware_prng=True, seed 42, with
+    `run(on_device=True)`, its MCMC chunks replayed as graphs (one
     float64 ESS launch per reweight and no PRNG launch: the flag does not
-    apply to float64, as in JAX), its wall beside phase 6's seed 42; B at
+    apply to float64, as in JAX), its wall beside phases 6 and 6b's seed 42; B at
     float64 through its first four mutation iterations (no launch of any of
     the four PRNG kernels), and the float64 ESS kernel at its S = 1,048,576
     against the plain version; the 4-D Gaussian
@@ -1294,11 +1303,12 @@ def mcmc_steps(s) -> int:
 
 
 def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
-                  dtype=torch.float32) -> dict:
+                  dtype=torch.float32, on_device=False, runs=None) -> dict:
     """Seeds of A (or the unclustered problem) after a warm-up: each in the
     band, one launch of the ESS kernel of its dtype per reweight, and the
     mutation-draws kernel once per MCMC step where it applies
-    (hardware_prng with float32); no other kernel."""
+    (hardware_prng with float32); no other kernel. `runs`, if given,
+    receives each seed's results, wall and launches."""
     s = canonical_sampler(device, 7, clustering, hardware_prng, dtype)
     ess_key, other = ("ess_bisect_f64", "ess_bisect") if dtype == torch.float64 else (
         "ess_bisect", "ess_bisect_f64")
@@ -1312,10 +1322,13 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
         before = counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        s.run(n_total=N_TOTAL, progress=False, on_device=True)
+        s.run(n_total=N_TOTAL, progress=False, on_device=on_device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = diff(counts(), before)
+        if runs is not None:
+            runs[seed] = dict(results=s.results(), logz=s.evidence()[0], wall=wall,
+                              launches=launched, iters=s.state.hist.t)
         ess = s.state.posterior_ess()
         logz, _ = s.evidence()
         iters = s.state.hist.t
@@ -1344,6 +1357,148 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
     print(f"{name}: mean wall {sum(walls) / len(walls):.3f} s, mean eff/s "
           f"{sum(effs) / len(effs):.1f}, launches {total}", flush=True)
     return total, dict(zip(seeds, walls))
+
+
+# CUDA runtime calls that block the host until the device has caught up.
+BLOCKING_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize",
+                  "cudaMemcpy", "cudaMemcpy2D")
+# A steady iteration of A: at most one read a loop chunk plus this many (beta,
+# and the CV's eigvalsh: cuSOLVER's own sync and its error check), and fewer
+# than MAX_READS in all.
+READS_BESIDE_CHUNKS, MAX_READS = 4, 150
+
+
+def loop_stats(s) -> dict:
+    """The fused loops' counters of sampler `s`, by loop."""
+    return {k: dict(v) for k, v in sorted(s.state._iteration.loops.stats.items())}
+
+
+def _under(event, name: str) -> bool:
+    """Whether a profiler event ran inside the range `name`."""
+    parent = event.cpu_parent
+    while parent is not None:
+        if parent.name == name:
+            return True
+        parent = parent.cpu_parent
+    return False
+
+
+def steady_window(device, graphs: bool, first: int = 21, n: int = 5) -> dict:
+    """Iterations first..first+n-1 of A's seed 42 in one mode, under
+    torch.profiler with host and device activities: wall per iteration,
+    device busy time and idle share, blocking host reads (BLOCKING_CALLS)
+    per iteration, and the loops' chunk reads in the window; then the next
+    n iterations traced on the device only (no host ops recorded)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    s = canonical_sampler(device, SEEDS[0], clustering=True)
+    core = s.state
+    core.n_total = N_TOTAL
+    core._pregrow_capacity()
+    loops = core._iteration.loops
+    loops.graphs = graphs
+    try:
+        for _ in range(first - 1):
+            core._step(None, 0)
+        torch.cuda.synchronize()
+        before = {k: dict(v) for k, v in loops.stats.items()}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with record_function("steady"):
+                for _ in range(n):
+                    core._step(None, 0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        reads = {k: v.get("reads", 0) - before.get(k, {}).get("reads", 0)
+                 for k, v in loops.stats.items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof_device:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                core._step(None, 0)
+            torch.cuda.synchronize()
+            wall_device = time.perf_counter() - t0
+    finally:
+        loops.graphs = False
+    # The blocking calls the iterations made: those inside the "steady" range
+    # (not the window's closing synchronize, nor the profiler's own).
+    blocking = {}
+    for e in prof.events():
+        if e.name in BLOCKING_CALLS and _under(e, "steady"):
+            blocking[e.name] = blocking.get(e.name, 0) + 1
+    events = prof.key_averages()
+    device_ms = sum(_self_device_us(e) for e in events
+                    if e.device_type == DeviceType.CUDA and not e.key.startswith("ps/")) / 1e3
+    device_only_ms = sum(_self_device_us(e) for e in prof_device.key_averages()
+                         if e.device_type == DeviceType.CUDA) / 1e3
+    chunk_reads = sum(v for k, v in reads.items() if k != "beta")
+    return dict(graphs=graphs, wall_per_iter=wall / n, device_ms_per_iter=device_ms / n,
+                idle=1.0 - device_ms / (1e3 * wall),
+                device_only=dict(wall_per_iter=wall_device / n, device_ms_per_iter=device_only_ms / n,
+                                 idle=1.0 - device_only_ms / (1e3 * wall_device)),
+                blocking_per_iter=sum(blocking.values()) / n, blocking=blocking,
+                chunk_reads_per_iter=chunk_reads / n, reads=reads)
+
+
+def phase_fused(device, ref: dict) -> dict:
+    """6b: A's seed 42 with run(on_device=True) against phase 6's seed 42,
+    then both modes' steady iterations under the profiler."""
+    s = canonical_sampler(device, SEEDS[1], clustering=True)
+    s.run(n_total=N_TOTAL, progress=False, on_device=True)  # warm-up: captures the graphs
+    warm = loop_stats(s)
+    # The run that captured its graphs repeats phase 6's seed 43 too.
+    for name in ("beta", "logz", "steps", "calls"):
+        check(s.results()[name].tobytes() == ref[SEEDS[1]]["results"][name].tobytes(),
+              f"A fused seed {SEEDS[1]} (capturing): {name} differs from on_device=False")
+    s.reset(random_state=SEEDS[0])
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.run(n_total=N_TOTAL, progress=False, on_device=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    res, logz, iters = s.results(), s.evidence()[0], s.state.hist.t
+    eager = ref[SEEDS[0]]
+    stats = loop_stats(s)
+    timed = {k: {c: v.get(c, 0) - warm.get(k, {}).get(c, 0) for c in v} for k, v in stats.items()}
+    print(f"A fused seed {SEEDS[0]}: wall={wall:.3f} s iters={iters} "
+          f"({1e3 * wall / iters:.1f} ms an iteration; on_device=False "
+          f"{eager['wall']:.3f} s, {1e3 * eager['wall'] / eager['iters']:.1f} ms) logz={logz!r} "
+          f"(on_device=False {eager['logz']!r}) beta={s.beta} launches={launched}", flush=True)
+    print(f"A fused loops in the timed run (captures, replays, reads): {json.dumps(timed)}; "
+          f"in the warm-up run: {json.dumps(warm)}", flush=True)
+    for name in ("beta", "logz", "steps", "calls"):
+        check(res[name].tobytes() == eager["results"][name].tobytes(),
+              f"A fused: {name} differs from on_device=False: {res[name].tolist()} against "
+              f"{eager['results'][name].tolist()}")
+    check(logz == eager["logz"], f"A fused: logZ {logz!r} against {eager['logz']!r}")
+    check(abs(logz - CLUSTERED_LOGZ[0]) <= CLUSTERED_LOGZ[1],
+          f"A fused: logZ {logz} outside {CLUSTERED_LOGZ[0]} +/- {CLUSTERED_LOGZ[1]}")
+    check(launched == eager["launches"],
+          f"A fused: launches {launched} against on_device=False {eager['launches']}")
+    check(all(v.get("captures", 0) == 0 for v in timed.values()),
+          f"A fused: the timed run recaptured: {timed}")
+    check(timed["mcmc"]["replays"] > 0 and timed["mode_em"]["replays"] > 0,
+          f"A fused: no replays {timed}")
+
+    windows = {}
+    for graphs in (False, True):
+        w = windows["on_device=True" if graphs else "on_device=False"] = steady_window(device,
+                                                                                       graphs)
+        print(f"A seed {SEEDS[0]} iterations 21-25 under the profiler, "
+              f"{'graphs' if graphs else 'no graphs'}: {1e3 * w['wall_per_iter']:.1f} ms an "
+              f"iteration, device {w['device_ms_per_iter']:.1f} ms (idle "
+              f"{100 * w['idle']:.1f} %), blocking host reads {w['blocking_per_iter']:.1f} an "
+              f"iteration {w['blocking']}, loop chunk reads {w['chunk_reads_per_iter']:.1f} an "
+              f"iteration {w['reads']}; iterations 26-30 with device activities only: "
+              f"{1e3 * w['device_only']['wall_per_iter']:.1f} ms an iteration, device "
+              f"{w['device_only']['device_ms_per_iter']:.1f} ms (idle "
+              f"{100 * w['device_only']['idle']:.1f} %)", flush=True)
+        check(w["blocking_per_iter"] <= w["chunk_reads_per_iter"] + READS_BESIDE_CHUNKS
+              and w["blocking_per_iter"] < MAX_READS,
+              f"A {'graphs' if graphs else 'no graphs'}: {w['blocking_per_iter']} blocking reads "
+              f"an iteration for {w['chunk_reads_per_iter']} chunk reads")
+    return dict(launches=launched, wall=wall, iters=iters, loops=timed, windows=windows)
 
 
 def run_b(device, dtype, name: str) -> list:
@@ -1438,53 +1593,6 @@ def phase_large_ensemble(device, dtype=torch.float32) -> dict:
     print(f"{name}: ESS kernel at S={S} (t={hist.t}, {probes} probes): kernel {t['kernel']:.4f} ms, "
           f"plain {t['plain']:.4f} ms (median of 10); launches {total}", flush=True)
     return total, errs, rows
-
-
-def composed_gamma(key, counter: int, alpha: torch.Tensor) -> torch.Tensor:
-    """hw_gamma as the port drew it before the gamma kernel: 6 normal and 7
-    bits launches through the public entries and Marsaglia-Tsang in PyTorch
-    elementwise ops, on the same call indices."""
-    zc, uc, bc = philox.gamma_counters(counter)
-    shape, dev = alpha.shape, alpha.device
-    normals = [cuda_prng.hw_normal(key, c, shape, dev) for c in zc]
-    uniforms = [cuda_prng.hw_uniform(key, c, shape, dev) for c in uc]
-    boost = cuda_prng.hw_uniform(key, bc, shape, dev)
-    return philox.marsaglia_tsang(alpha, normals, uniforms, boost)
-
-
-def phase_large_ensemble_composed(device, rows: list) -> dict:
-    """B again with its gamma draws composed, twice, then with the kernel
-    once more: in turns kernel (phase 8's run), composed, composed, kernel.
-    Each iteration's walls side by side; beta within 1e-4 (relative) of
-    phase 8's run."""
-    kernel_gamma = cuda_prng.hw_gamma
-    runs = {"kernel": [rows], "composed": []}
-    for route in ("composed", "composed", "kernel"):
-        cuda_prng.hw_gamma = composed_gamma if route == "composed" else kernel_gamma
-        try:
-            runs[route].append(run_b(device, torch.float32, f"B {route} gamma")[1])
-        finally:
-            cuda_prng.hw_gamma = kernel_gamma
-    walls = {}
-    for i, row in enumerate(rows):
-        for route in ("kernel", "composed"):
-            for other in runs[route]:
-                check(other[i]["iter"] == row["iter"] and abs(other[i]["beta"] - row["beta"])
-                      <= 1e-4 * abs(row["beta"]), f"B {route} gamma iteration {other[i]['iter']}: "
-                      f"beta {other[i]['beta']!r} against {row['beta']!r}")
-                launched, steps = other[i]["launches"], other[i]["steps"]
-                if route == "composed" and other[i]["beta"] > 0.0:
-                    check(launched["normal"] == 7 * steps and launched["bits"] == 7 * steps
-                          and launched["gamma"] == 0, f"B composed gamma: launches {launched} "
-                          f"for {steps} MCMC steps (want 7 + 7 a step)")
-        w = walls[row["iter"]] = {route: [run[i]["wall"] for run in runs[route]]
-                                  for route in ("kernel", "composed")}
-        betas = [run[i]["beta"] for route in ("kernel", "composed") for run in runs[route]]
-        print(f"B iteration {row['iter']} ({row['steps']} MCMC steps) walls in turns: one gamma "
-              f"kernel {w['kernel'][0]:.4f} s, composed {w['composed'][0]:.4f} s, composed "
-              f"{w['composed'][1]:.4f} s, kernel {w['kernel'][1]:.4f} s; beta (kernel, kernel, "
-              f"composed, composed) {' '.join(repr(b) for b in betas)}", flush=True)
-    return walls
 
 
 def phase_bimodal(device) -> dict:
@@ -1804,13 +1912,16 @@ def phase_facades(device) -> dict:
     return counts()
 
 
-def phase_float64(device, walls32: dict) -> dict:
-    """14: A and B in float64, the 4-D Gaussian, the facades."""
+def phase_float64(device, walls32: dict, fused_wall: float) -> dict:
+    """14: A and B in float64, the 4-D Gaussian, the facades; `fused_wall`
+    is phase 6b's float32 seed 42 with on_device=True."""
     paths = {}
     paths["A_float64"], walls = run_canonical(
-        device, "A float64 hardware_prng", SEEDS[:1], True, True, CLUSTERED_LOGZ, torch.float64)
-    print(f"A seed {SEEDS[0]}: float64 wall {walls[SEEDS[0]]:.3f} s against float32 (phase 6) "
-          f"{walls32[SEEDS[0]]:.3f} s in this run", flush=True)
+        device, "A float64 hardware_prng", SEEDS[:1], True, True, CLUSTERED_LOGZ, torch.float64,
+        on_device=True)
+    print(f"A seed {SEEDS[0]}: float64 wall {walls[SEEDS[0]]:.3f} s (on_device=True) against "
+          f"float32 {fused_wall:.3f} s (phase 6b, on_device=True) and {walls32[SEEDS[0]]:.3f} s "
+          f"(phase 6, on_device=False) in this run", flush=True)
     paths["B_float64"], errs, _ = phase_large_ensemble(device, torch.float64)
     paths["gaussian4_float64"] = phase_float64_gaussian(device)
     paths["facades"] = phase_facades(device)
@@ -1980,7 +2091,8 @@ REPLACES = {
 }
 # Where each kernel's `launches` were counted.
 LAUNCHES_ON = {
-    "ess_bisect": "A (phase 6, seeds 42 and 43)",
+    "ess_bisect": "A (phase 6, seeds 42 and 43; phase 6b's seed 42 with its loops replayed "
+                  "as graphs launches it as often as phase 6's seed 42)",
     "ess_bisect_f64": "A in float64 (phase 14)",
     "mutation_draws": "A with hardware_prng (phase 7)",
     "normal": "B (phase 8)",
@@ -2046,15 +2158,19 @@ def main() -> None:
         print(json.dumps({"kernels": kernel_table(rows, {}, floor, split)}), flush=True)
         return
     paths = {}
-    run_canonical(device, "canonical unclustered", SEEDS[:1], False, False, UNCLUSTERED_LOGZ)
+    paths["unclustered_fused"], _ = run_canonical(device, "canonical unclustered fused",
+                                                  SEEDS[:1], False, False, UNCLUSTERED_LOGZ,
+                                                  on_device=True)
+    eager = {}
     paths["A"], walls = run_canonical(device, "A clustered", SEEDS[:2], True, False,
-                                      CLUSTERED_LOGZ)
+                                      CLUSTERED_LOGZ, runs=eager)
+    fused = phase_fused(device, eager)
+    paths["A_fused"] = fused["launches"]
     paths["A_hardware_prng"], _ = run_canonical(device, "A clustered hardware_prng", SEEDS[:1],
                                                 True, True, CLUSTERED_LOGZ)
     paths["B"], large_errs, b_rows = phase_large_ensemble(device)
     for name, err in large_errs.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
-    b_walls = phase_large_ensemble_composed(device, b_rows)
     paths["C"] = phase_bimodal(device)
     paths["gaussian"] = phase_gaussian(device)
     for name, n in phase_reference_surface(device, walls[SEEDS[0]]).items():
@@ -2063,7 +2179,7 @@ def main() -> None:
     paths["dynamic"] = dynamic["launches"]
     for name, n in phase_cadence_and_host(device).items():
         paths[name] = n
-    f64_paths, f64_errs = phase_float64(device, walls)
+    f64_paths, f64_errs = phase_float64(device, walls, fused["wall"])
     paths.update(f64_paths)
     for name, err in f64_errs.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
@@ -2084,7 +2200,10 @@ def main() -> None:
             check(n > 0, f"kernel {name} was not launched on its path")
     print(f"launches by path: {json.dumps(paths)}", flush=True)
     print(f"dynamic probes: {json.dumps(dynamic['probes'])}", flush=True)
-    print(f"B walls by iteration (s; kernel, composed gamma): {json.dumps(b_walls)}", flush=True)
+    print(f"A fused: {json.dumps({k: fused[k] for k in ('wall', 'iters', 'loops', 'windows')})}",
+          flush=True)
+    print(f"B walls by iteration (s): {json.dumps({r['iter']: r['wall'] for r in b_rows})}",
+          flush=True)
     print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"ptxas: {json.dumps(ptxas)}", flush=True)
     print(json.dumps({"kernels": kernel_table(rows, launches, floor, split, paths)}), flush=True)

@@ -11,7 +11,7 @@ Counterpart of tempest_tpu/cluster.py, with its four covariance types
   responsibility mass, as JAX deviates from the reference there, and
   every type stored as full (K, d, d) matrices), `_e_step`,
   `_mixture_scores`, `_gmm_fit_scores` with its restarts (:197-280), the
-  K = 1 closed forms and `_bic_from_lik` with the per-type parameter
+  K = 1 closed form and `_bic_from_lik` with the per-type parameter
   counts (:309-400);
 - the public `gmm_fit`, `gmm_predict`, `gmm_bic` (:283-306, :403-445),
   `cluster_predict` and `cluster_predict_proba` (:648-674);
@@ -25,11 +25,14 @@ Counterpart of tempest_tpu/cluster.py, with its four covariance types
 JAX vmaps the leaf fits and the restarts; here every function takes a
 leading batch axis B of leaves, and the n_init restarts of each leaf are
 laid out on that same axis (B * n_init fits) before the best lower bound
-of each leaf is taken. The vmapped EM `while_loop` becomes a Python loop
-over the whole batch with a `done` flag per fit: a fit that is done (or at
-`max_iter`) keeps its parameters while the others iterate, as under vmap;
-the loop reads one boolean from the device per EM iteration. The split
-rounds read the leaf count once per round.
+of each leaf is taken. The vmapped EM `while_loop` (:256) becomes the
+device loop "gmm_em" (`loops.run_loop`) over the whole batch with a `done`
+flag per fit: a fit that is done (or at `max_iter`) keeps its parameters
+while the others iterate, as under vmap, and the loop reads `any(active)`
+once a chunk of EM iterations. A split round (:943-948) carries the leaf
+count and `go` as device tensors; its stretch before the EM ("split_head")
+and after it ("split_tail") are each one graph replay when graphs are on,
+and the host reads `go` and the leaf count once a round.
 
 A fit's only randomness is one k-means++ uniform per component and start,
 from its key; `utils/threefry.py` computes them as `jax.random` does, in
@@ -41,12 +44,14 @@ value.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .loops import Loops, run_loop
 from .ops.tools import logsumexp
 from .utils import threefry
 
@@ -197,6 +202,82 @@ def _normalized(sample_weight):
     return sample_weight / torch.clamp(torch.sum(sample_weight, dim=1, keepdim=True), min=_EPS)
 
 
+def _gmm_start(X, sample_weight, n_components: int, uniforms, max_iter: int,
+               covariance_type: str = "full"):
+    """The batch of fits (the n_init starts of each leaf laid out on the
+    batch axis) and their EM carry at the k-means++ start: (X (B', n, d),
+    normalized weights (B', n), carry)."""
+    if uniforms.dim() == 3:
+        B, starts, n, d = X.shape[0], uniforms.shape[1], X.shape[1], X.shape[2]
+        X = X[:, None].expand(B, starts, n, d).reshape(B * starts, n, d)
+        sample_weight = sample_weight[:, None].expand(B, starts, n).reshape(B * starts, n)
+        uniforms = uniforms.reshape(B * starts, -1)
+    B = X.shape[0]
+    sw = _normalized(sample_weight)
+    resp = _kmeanspp_init(X, sw, n_components, uniforms)
+    pi, means, covs = _m_step(X, resp, sw, covariance_type)
+    carry = dict(
+        pi=pi, means=means, covs=covs,
+        lb=torch.full((B,), float("-inf"), dtype=X.dtype, device=X.device),
+        n_iter=torch.zeros((B,), dtype=torch.int32, device=X.device),
+        done=torch.zeros((B,), dtype=torch.bool, device=X.device),
+        go=torch.full((), max_iter > 0, dtype=torch.bool, device=X.device),
+    )
+    return X, sw, carry
+
+
+def _gmm_em_body(c, k, covariance_type: str, reg_covar: float):
+    """One EM iteration of every fit still active; a fit that is done (or
+    at max_iter) keeps its parameters, as under vmap (cluster.py:243-262)."""
+    X, sw = k["X"], k["sw"]
+    active = ~c["done"] & (c["n_iter"] < k["max_iter"])
+    resp, new_lb = _e_step(X, c["pi"], c["means"], c["covs"], reg_covar, sw)
+    new_done = (new_lb - c["lb"]) < k["tol"]
+    pi2, means2, covs2 = _m_step(X, resp, sw, covariance_type)
+    keep = new_done | ~active
+    done = torch.where(active, new_done, c["done"])
+    n_iter = c["n_iter"] + active.to(torch.int32)
+    return dict(
+        pi=torch.where(keep[:, None], c["pi"], pi2),
+        means=torch.where(keep[:, None, None], c["means"], means2),
+        covs=torch.where(keep[:, None, None, None], c["covs"], covs2),
+        lb=torch.where(keep, c["lb"], new_lb),
+        n_iter=n_iter, done=done,
+        go=torch.any(~done & (n_iter < k["max_iter"])),
+    )
+
+
+def _gmm_em(X, sw, carry, max_iter: int, tol: float, reg_covar: float, covariance_type: str,
+            loops: Optional[Loops]):
+    """The EM loop (cluster.py:256), "gmm_em": run until no fit is active."""
+    consts = dict(X=X, sw=sw, tol=torch.full((), tol, dtype=X.dtype, device=X.device),
+                  max_iter=torch.full((), max_iter, dtype=torch.int32, device=X.device))
+    body = functools.partial(_gmm_em_body, covariance_type=covariance_type, reg_covar=reg_covar)
+    return run_loop(loops, "gmm_em", body, carry, consts, static=(covariance_type, reg_covar))
+
+
+def _gmm_finish(X, sw, carry, B: int, reg_covar: float):
+    """(params, log_probs (B, K, n), lik (B, n)) at the final parameters; with
+    several starts a leaf keeps the best lower bound,
+    argmax(nan_to_num(lb, nan=-inf)) as JAX takes it."""
+    pi, means, covs = carry["pi"], carry["means"], carry["covs"]
+    log_probs, lik = _mixture_scores(X, pi, means, covs, reg_covar)
+    final_lb = torch.sum(sw * torch.log(lik + _EPS), dim=1)
+    fit = GMMParams(pi, means, covs, final_lb, carry["n_iter"]), log_probs, lik
+    starts = X.shape[0] // B
+    if starts == 1:
+        return fit
+    # jnp.nan_to_num(lb, nan=-inf) also maps -inf to the lowest float
+    lb = final_lb.reshape(B, starts)
+    best = torch.argmax(torch.nan_to_num(lb, nan=torch.finfo(lb.dtype).min), dim=1)
+    rows = torch.arange(B, device=X.device)
+
+    def pick(a):
+        return a.reshape((B, starts) + a.shape[1:])[rows, best]
+
+    return GMMParams(*(pick(a) for a in fit[0])), pick(log_probs), pick(lik)
+
+
 def _gmm_fit_scores(
     X,
     sample_weight,
@@ -206,61 +287,23 @@ def _gmm_fit_scores(
     tol: float = 1e-3,
     reg_covar: float = _REG_COVAR,
     covariance_type: str = "full",
+    loops: Optional[Loops] = None,
 ):
     """Weighted EM of each leaf, best of its starts (cluster.py:197-280).
 
     `uniforms` are (B, K) for one start per leaf, or (B, n_init, K) for
     n_init starts; the starts run as B * n_init fits of one batch, and each
-    leaf keeps the start with the best lower bound,
-    argmax(nan_to_num(lb, nan=-inf)) as JAX takes it.
+    leaf keeps the start with the best lower bound.
     Returns (params, log_probs (B, K, n), lik (B, n)) at the final
     parameters. Convergence compares the bound at the current parameters
     with the previous one; a converged fit keeps its pre-M-step parameters
     (PARITY.md deviation 5), as in JAX.
     """
-    if uniforms.dim() == 3:
-        B, starts, n, d = X.shape[0], uniforms.shape[1], X.shape[1], X.shape[2]
-        if starts > 1:
-            fit = _gmm_fit_scores(
-                X[:, None].expand(B, starts, n, d).reshape(B * starts, n, d),
-                sample_weight[:, None].expand(B, starts, n).reshape(B * starts, n),
-                n_components, uniforms.reshape(B * starts, -1), max_iter, tol, reg_covar,
-                covariance_type,
-            )
-            # jnp.nan_to_num(lb, nan=-inf) also maps -inf to the lowest float
-            lb = fit[0].lower_bound.reshape(B, starts)
-            best = torch.argmax(torch.nan_to_num(lb, nan=torch.finfo(lb.dtype).min), dim=1)
-            rows = torch.arange(B, device=X.device)
-
-            def pick(a):
-                return a.reshape((B, starts) + a.shape[1:])[rows, best]
-
-            return GMMParams(*(pick(a) for a in fit[0])), pick(fit[1]), pick(fit[2])
-        uniforms = uniforms[:, 0]
     B = X.shape[0]
-    sw = _normalized(sample_weight)
-    resp = _kmeanspp_init(X, sw, n_components, uniforms)
-    pi, means, covs = _m_step(X, resp, sw, covariance_type)
-    lb = torch.full((B,), float("-inf"), dtype=X.dtype, device=X.device)
-    n_iter = torch.zeros((B,), dtype=torch.int32, device=X.device)
-    done = torch.zeros((B,), dtype=torch.bool, device=X.device)
-    while True:
-        active = ~done & (n_iter < max_iter)
-        if not bool(torch.any(active)):  # one host sync per EM iteration
-            break
-        resp, new_lb = _e_step(X, pi, means, covs, reg_covar, sw)
-        new_done = (new_lb - lb) < tol
-        pi2, means2, covs2 = _m_step(X, resp, sw, covariance_type)
-        keep = new_done | ~active
-        pi = torch.where(keep[:, None], pi, pi2)
-        means = torch.where(keep[:, None, None], means, means2)
-        covs = torch.where(keep[:, None, None, None], covs, covs2)
-        lb = torch.where(keep, lb, new_lb)
-        n_iter = n_iter + active.to(torch.int32)
-        done = torch.where(active, new_done, done)
-    log_probs, lik = _mixture_scores(X, pi, means, covs, reg_covar)
-    final_lb = torch.sum(sw * torch.log(lik + _EPS), dim=1)
-    return GMMParams(pi, means, covs, final_lb, n_iter), log_probs, lik
+    Xb, sw, carry = _gmm_start(X, sample_weight, n_components, uniforms, max_iter,
+                               covariance_type)
+    carry = _gmm_em(Xb, sw, carry, max_iter, tol, reg_covar, covariance_type, loops)
+    return _gmm_finish(Xb, sw, carry, B, reg_covar)
 
 
 def _single_component_params(X, sample_weight, covariance_type: str = "full") -> GMMParams:
@@ -271,16 +314,6 @@ def _single_component_params(X, sample_weight, covariance_type: str = "full") ->
     pi, means, covs = _m_step(X, resp, _normalized(sample_weight), covariance_type)
     zeros = torch.zeros((B,), dtype=X.dtype, device=X.device)
     return GMMParams(pi, means, covs, zeros, torch.ones((B,), dtype=torch.int32, device=X.device))
-
-
-def _single_component_fit_scores(
-    X, sample_weight, reg_covar: float = _REG_COVAR, covariance_type: str = "full"
-):
-    """Exact K = 1 fit and its per-point likelihood (B, n) (cluster.py:309-337)."""
-    p = _single_component_params(X, sample_weight, covariance_type)
-    _, lik = _mixture_scores(X, p.weights, p.means, p.covariances, reg_covar)
-    lb = torch.sum(_normalized(sample_weight) * torch.log(lik + _EPS), dim=1)
-    return p._replace(lower_bound=lb), lik
 
 
 def _n_parameters(n_components: int, n_features: int, covariance_type: str) -> float:
@@ -462,30 +495,36 @@ def _top_k_rows(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     return vals[:, :k], idx[:, :k]
 
 
-def _split_round(
-    uniforms: torch.Tensor,
-    Xw: torch.Tensor,
-    sample_weight: torch.Tensor,
-    labels: torch.Tensor,
-    n_leaves: int,
-    min_points: int,
-    threshold_modifier: float,
-    k_max: int,
-    n_sub: Optional[int] = None,
-    k_slots: Optional[int] = None,
-    covariance_type: str = "full",
-) -> Dict[str, torch.Tensor]:
-    """The K = 1 against K = 2 split test of every leaf slot < k_slots
-    (cluster.py:678-804). `uniforms` (k_max, 2), or (k_max, n_init, 2), are
-    the leaves' k-means++ draws (`fit_uniforms`); `n_sub` caps each leaf's
-    EM set to its top members by weight, while the BIC gate and the child
-    labels use the full membership."""
+_EM_KEYS = ("pi", "means", "covs", "lb", "n_iter", "done", "go")
+
+
+def _round_head(k, k_slots: int, n_sub: Optional[int], covariance_type: str):
+    """A split round up to its EM (cluster.py:700-760): each leaf slot's
+    members and weights, its EM set (the top `n_sub` members by weight when
+    `n_sub` caps it), the K = 1 fit and the K = 2 fits' start."""
+    Xw, sw, labels = k["Xw"], k["sw"], k["labels"]
     n, d = Xw.shape
-    k_slots = k_max if k_slots is None else k_slots
-    dtype, dev = Xw.dtype, Xw.device
-    leaf_ids = torch.arange(k_slots, device=dev)
+    leaf_ids = torch.arange(k_slots, device=Xw.device)
     members = labels[None, :] == leaf_ids[:, None]  # (k_slots, n)
-    leaf_w = torch.where(members, sample_weight[None, :], torch.zeros((), dtype=dtype, device=dev))
+    leaf_w = torch.where(members, sw[None, :], torch.zeros_like(sw[None, :]))
+    if n_sub is not None and n_sub < n:
+        w_fit, sub_idx = _top_k_rows(leaf_w, n_sub)
+        X_fit = Xw[sub_idx]  # (k_slots, n_sub, d)
+    else:
+        X_fit, w_fit = Xw.expand(k_slots, n, d), leaf_w
+    p1 = _single_component_params(X_fit, w_fit, covariance_type)
+    Xb, swb, carry = _gmm_start(X_fit, w_fit, 2, k["uniforms"][:k_slots], 1000, covariance_type)
+    return dict(members=members, leaf_w=leaf_w, p1_weights=p1.weights, p1_means=p1.means,
+                p1_covs=p1.covariances, Xb=Xb, swb=swb, **carry)
+
+
+def _round_tail(k, k_slots: int, min_points: int, threshold_modifier: float,
+                covariance_type: str) -> Dict[str, torch.Tensor]:
+    """A split round after its EM (cluster.py:760-804): the BIC test of every
+    leaf slot on its full membership, the children and the eligibility."""
+    Xw, members, leaf_w = k["Xw"], k["members"], k["leaf_w"]
+    n, d = Xw.shape
+    dtype, dev = Xw.dtype, Xw.device
     w_tot = torch.sum(leaf_w, dim=1)
     n_members = torch.sum(members, dim=1)
 
@@ -493,21 +532,13 @@ def _split_round(
     w_norm = leaf_w / torch.clamp(w_tot, min=_EPS)[:, None]
     n_eff = 1.0 / torch.clamp(torch.sum(w_norm**2, dim=1), min=_EPS)
     n_params = d + d * (d + 1) / 2 + 1
-    modifier = torch.tensor(threshold_modifier, dtype=dtype, device=dev)
+    modifier = torch.full((), threshold_modifier, dtype=dtype, device=dev)
     thresholds = modifier * n_params * torch.log(torch.clamp(n_eff, min=1.0))
 
-    u = uniforms[:k_slots]
     X_all = Xw.expand(k_slots, n, d)
-    if n_sub is not None and n_sub < n:
-        w_sub, sub_idx = _top_k_rows(leaf_w, n_sub)
-        X_sub = Xw[sub_idx]  # (k_slots, n_sub, d)
-        p1 = _single_component_params(X_sub, w_sub, covariance_type)
-        p2 = _gmm_fit_scores(X_sub, w_sub, 2, u, covariance_type=covariance_type)[0]
-        _, lik1 = _mixture_scores(X_all, p1.weights, p1.means, p1.covariances, _REG_COVAR)
-        scores2, lik2 = _mixture_scores(X_all, p2.weights, p2.means, p2.covariances, _REG_COVAR)
-    else:
-        p1, lik1 = _single_component_fit_scores(X_all, leaf_w, covariance_type=covariance_type)
-        p2, scores2, lik2 = _gmm_fit_scores(X_all, leaf_w, 2, u, covariance_type=covariance_type)
+    p2 = _gmm_finish(k["Xb"], k["swb"], k, k_slots, _REG_COVAR)[0]
+    _, lik1 = _mixture_scores(X_all, k["p1_weights"], k["p1_means"], k["p1_covs"], _REG_COVAR)
+    scores2, lik2 = _mixture_scores(X_all, p2.weights, p2.means, p2.covariances, _REG_COVAR)
     improvement = (_bic_from_lik(lik1, members, 1, d, covariance_type)
                    - _bic_from_lik(lik2, members, 2, d, covariance_type))
 
@@ -516,7 +547,7 @@ def _split_round(
     c0 = torch.sum(members & (child == 0), dim=1)
     c1 = torch.sum(members & (child == 1), dim=1)
     eligible = (
-        (leaf_ids < n_leaves)
+        (torch.arange(k_slots, device=dev) < k["n_leaves"])
         & (n_members >= min_points)
         & (w_tot > 0.0)
         & (improvement > thresholds)
@@ -528,6 +559,81 @@ def _split_round(
         "child": child.to(torch.int8),
         "eligible": eligible,
     }
+
+
+def _split_round(
+    uniforms: torch.Tensor,
+    Xw: torch.Tensor,
+    sample_weight: torch.Tensor,
+    labels: torch.Tensor,
+    n_leaves,
+    min_points: int,
+    threshold_modifier: float,
+    k_max: int,
+    n_sub: Optional[int] = None,
+    k_slots: Optional[int] = None,
+    covariance_type: str = "full",
+    loops: Optional[Loops] = None,
+    go=True,
+    split_all: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """One split round: the K = 1 against K = 2 test of every leaf slot <
+    k_slots (cluster.py:678-804), then its splits (`_round_step`).
+    `uniforms` (k_max, 2), or (k_max, n_init, 2), are the leaves' k-means++
+    draws (`fit_uniforms`); `n_sub` caps each leaf's EM set to its top
+    members by weight, while the BIC gate and the child labels use the full
+    membership. `loops` runs the head ("split_head"), the EM loop and the
+    tail ("split_tail"). Returns the test's improvement, child and
+    eligible per slot, and labels, n_leaves and go after the round; a round
+    entered with `go` False changes nothing."""
+    dev = Xw.device
+    k_slots = k_max if k_slots is None else k_slots
+    loops = loops or Loops(dev)
+    static = (k_slots, n_sub, covariance_type)
+    head = loops.once("split_head", functools.partial(
+        _round_head, k_slots=k_slots, n_sub=n_sub, covariance_type=covariance_type),
+        dict(Xw=Xw, sw=sample_weight, labels=labels, uniforms=uniforms), static)
+    em = _gmm_em(head["Xb"], head["swb"], {e: head[e] for e in _EM_KEYS}, 1000, 1e-3,
+                 _REG_COVAR, covariance_type, loops)
+    inputs = {k: head[k] for k in ("members", "leaf_w", "p1_weights", "p1_means", "p1_covs",
+                                   "Xb", "swb")}
+    inputs.update({e: em[e] for e in ("pi", "means", "covs", "n_iter")}, Xw=Xw, labels=labels,
+                  n_leaves=torch.as_tensor(n_leaves, dtype=torch.int32, device=dev),
+                  go=torch.as_tensor(go, dtype=torch.bool, device=dev))
+    return loops.once("split_tail", functools.partial(
+        _round_step, k_slots=k_slots, k_max=k_max, min_points=min_points,
+        threshold_modifier=threshold_modifier, covariance_type=covariance_type,
+        split_all=split_all), inputs, static + (k_max, min_points, threshold_modifier,
+                                                 split_all))
+
+
+def _round_step(k, k_slots: int, k_max: int, min_points: int, threshold_modifier: float,
+                covariance_type: str, split_all: bool) -> Dict[str, torch.Tensor]:
+    """The round's tail and its splits, on device counts (cluster.py:880-948):
+    the tail's outputs, and labels, n_leaves and go after the round. A
+    round entered with go False changes nothing."""
+    out = _round_tail(k, k_slots, min_points, threshold_modifier, covariance_type)
+    labels, n_leaves, go = k["labels"], k["n_leaves"], k["go"]
+    elig = out["eligible"] & go
+    n = labels.shape[0]
+    if split_all:
+        # Every eligible leaf splits; new slots in leaf-id order, and those
+        # that would pass k_max wait for the next round.
+        rank = torch.cumsum(elig.to(torch.int32), dim=0, dtype=torch.int32) - 1
+        new_ids = n_leaves + rank
+        can = elig & (new_ids < k_max)
+        safe = torch.clamp(labels, 0, k_slots - 1).long()
+        sample_child = out["child"].to(torch.int32)[safe, torch.arange(n, device=labels.device)]
+        move = (labels >= 0) & (labels < k_slots) & can[safe] & (sample_child == 1)
+        n_split = torch.sum(can, dtype=torch.int32)
+        return dict(out, labels=torch.where(move, new_ids[safe], labels).to(torch.int32),
+                    n_leaves=n_leaves + n_split, go=n_split > 0)
+    # Child 0 keeps the parent's slot, child 1 takes the next free one.
+    split = torch.any(elig)
+    leaf = torch.argmax(out["improvement"]).reshape(1)  # indexing with a 0-d tensor syncs
+    moved = (labels == leaf) & (out["child"].index_select(0, leaf)[0].to(torch.int32) == 1) & split
+    return dict(out, labels=torch.where(moved, n_leaves, labels).to(torch.int32),
+                n_leaves=n_leaves + split.to(torch.int32), go=split)
 
 
 def _final_refit(Xw, sample_weight, labels, k_max: int, covariance_type: str = "full"):
@@ -563,6 +669,7 @@ def hgm_fit(
     uniforms: Optional[torch.Tensor] = None,
     covariance_type: str = "full",
     n_init: int = 1,
+    loops: Optional[Loops] = None,
 ) -> Tuple[ClusterModel, torch.Tensor, int]:
     """The whole hierarchical fit (cluster.py:814-984).
 
@@ -571,7 +678,9 @@ def hgm_fit(
     doubling prefix of leaf-slot widths 1, 2, 4, ...), until nothing is
     eligible, k_max leaves exist or `max_rounds` rounds ran. `uniforms`
     (k_max, 2), or (k_max, n_init, 2), default to those of the fixed fit
-    key with `n_init` starts (`fit_uniforms` in X's dtype).
+    key with `n_init` starts (`fit_uniforms` in X's dtype). The leaf
+    count and `go` stay on the device through a round; `loops` runs each
+    round's head, its EM loop and its tail, and reads them once a round.
     Returns (model, labels (n,) int32 with -1 on masked rows, n_leaves).
     """
     n, d = X.shape
@@ -591,47 +700,33 @@ def hgm_fit(
         data_max = torch.ones((d,), dtype=dtype, device=dev)
         Xw = X
 
+    loops = loops or Loops(dev)
     labels = torch.where(mask, 0, -1).to(torch.int32)
+    n_leaves_t = torch.ones((), dtype=torch.int32, device=dev)
+    go_t = torch.ones((), dtype=torch.bool, device=dev)
     n_leaves, go, rounds = 1, True, 0
 
-    def round_step(labels, n_leaves, k_slots):
-        out = _split_round(
-            uniforms, Xw, sw, labels, n_leaves, min_points, threshold_modifier, k_max,
-            leaf_fit_points, k_slots, covariance_type,
-        )
-        if split_all:
-            # Every eligible leaf splits; new slots in leaf-id order, and
-            # those that would pass k_max wait for the next round.
-            elig = out["eligible"]
-            rank = torch.cumsum(elig.to(torch.int32), dim=0, dtype=torch.int32) - 1
-            new_ids = n_leaves + rank
-            can = elig & (new_ids < k_max)
-            safe = torch.clamp(labels, 0, k_slots - 1).long()
-            sample_child = out["child"].to(torch.int32)[safe, torch.arange(n, device=dev)]
-            move = (labels >= 0) & (labels < k_slots) & can[safe] & (sample_child == 1)
-            labels = torch.where(move, new_ids[safe], labels)
-            n_split = int(torch.sum(can))  # one host sync per round
-            return labels, n_leaves + n_split, n_split > 0
-        if not bool(torch.any(out["eligible"])):
-            return labels, n_leaves, False
-        # Child 0 keeps the parent's slot, child 1 takes the next free one.
-        leaf = torch.argmax(out["improvement"])
-        child_row = out["child"][leaf].to(torch.int32)
-        moved = (labels == leaf) & (child_row == 1)
-        return torch.where(moved, n_leaves, labels).to(torch.int32), n_leaves + 1, True
+    def round_step(k_slots):
+        """One round, then one read of go and the leaf count ("split_round")."""
+        nonlocal labels, n_leaves_t, go_t, n_leaves, go, rounds
+        out = _split_round(uniforms, Xw, sw, labels, n_leaves_t, min_points, threshold_modifier,
+                           k_max, leaf_fit_points, k_slots, covariance_type, loops, go_t,
+                           split_all)
+        labels, n_leaves_t, go_t = out["labels"], out["n_leaves"], out["go"]
+        go_h, n_h = loops.read("split_round", go_t, n_leaves_t)
+        go, n_leaves = bool(go_h), int(n_h)
+        rounds += 1
 
     n_prefix = 0
     if split_all:
         # Round r holds at most 2^r leaves, so it tests only 2^r slots.
         while (1 << n_prefix) < k_max and n_prefix < max_rounds:
             if go and n_leaves < k_max:
-                labels, n_leaves, go = round_step(labels, n_leaves, 1 << n_prefix)
-                rounds += 1
+                round_step(1 << n_prefix)
             n_prefix += 1
     if max_rounds > n_prefix or not split_all:
         while go and n_leaves < k_max and rounds < max_rounds:
-            labels, n_leaves, go = round_step(labels, n_leaves, k_max)
-            rounds += 1
+            round_step(k_max)
 
     centers, covs, cweights = _final_refit(Xw, sw, labels, k_max, covariance_type)
     k_mask = torch.arange(k_max, device=dev) < n_leaves

@@ -8,10 +8,20 @@ logZ at beta = 1, and the posterior (with blobs), evidence (with the
 block-bootstrap error), results and state-file extraction. The fitted
 cluster model is carried from iteration to iteration in `cluster_model`
 (in JAX, `_fused_model` and `_fused_fitted`), and saved with the state.
-`run(on_device=True)` is accepted and runs the same eager loop as
-`on_device=False`: there is one code path, so `save_every` works on every
-path. The dispatch-budget chunking of the TPU whole-run program is not
-ported (ROADMAP.md queue 1, item 12).
+
+A configuration of `fused.fused_route` (one device, ESS mode, the
+generator's draws, no host likelihood) runs the fused iteration
+(`fused.py`) for `run()` and `sample()` alike, as JAX runs its fused
+iteration for both: its loops in chunks, one host read a chunk. Every
+route anneals in the one loop of `run_sampling`, whose termination test
+takes the beta the iteration read (`iteration.beta`).
+`run(on_device=True)` on the fused route on a CUDA device, without
+`save_every` (which keeps the host loop, core.py:309), turns the loops'
+CUDA graphs on (`loops.Loops.graphs`): each loop chunk is replayed as a
+graph, with the same results as `on_device=False`. The first draws object
+is kept for the sampler's life and reseeded in place, as the graphs hold
+its generator. The dispatch-budget chunking of the TPU whole-run program
+is not ported (ROADMAP.md queue 1, item 12).
 
 With a particle mesh (`config.mesh`, parallel/) each rank holds its block
 of the particle axis (core.py:158-165, :222-272): N must divide by the
@@ -36,6 +46,7 @@ import torch.distributed as dist
 from .cluster import ClusterModel, single_cluster_model
 from .config import SamplerConfig
 from .draws import BlockDraws, Draws, HardwareDraws, seed_from_key_words
+from .fused import fused_route, make_fused_iteration
 from .iteration import make_iteration
 from .ops.tools import ess_from_logw_psum, systematic_resample, trim_weights_mask
 from .parallel.mesh import particle_group, shard_current, shard_history
@@ -117,7 +128,10 @@ class SamplerCore:
             schema=self.blob_schema,
             pool_map=self.pool_map,
         )
-        self._iteration = make_iteration(cfg, self._loglike_batch, self._prior_batch)
+        self.fused = fused_route(cfg)
+        build = make_fused_iteration if self.fused else make_iteration
+        self._iteration = build(cfg, self._loglike_batch, self._prior_batch)
+        self.draws = None
         self.pbar: Optional[ProgressBar] = None
         self.reset()
 
@@ -142,8 +156,14 @@ class SamplerCore:
         self.t0 = 0
 
     def _make_draws(self, seed: int):
+        """The draws of seed `seed`: made once, then reseeded in place, as
+        the loops' graphs hold their generator."""
+        if self.draws is not None:
+            self.draws.reseed(seed)
+            return self.draws
         draws = (HardwareDraws if self.config.hardware_prng else Draws)(
             seed, self.device, self.dtype)
+        self._iteration.loops.generators = [draws.generator]
         return draws if self.group is None else BlockDraws(draws, self.rank, self.world)
 
     def _placeholder_model(self) -> ClusterModel:
@@ -201,8 +221,15 @@ class SamplerCore:
                 ESS=int(self.config.ess_ratio * self.n_particles), logZ=float(self.cur.logz),
                 logL=0.0, acc=0.0, steps=0, eff=0.0, K=1,
             ))
-        while self._not_termination():
-            self._step(save_every, t0)
+        loops = self._iteration.loops
+        loops.graphs = self.fused and on_device and save_every is None
+        try:
+            beta = None  # read once, where a resumed run starts
+            while self._not_termination(beta):
+                self._step(save_every, t0)
+                beta = self._iteration.beta
+        finally:
+            loops.graphs = False
 
         # Final evidence at beta = 1 over the whole history.
         _, logz = compute_logw_and_logz(self.hist, 1.0, group=self.group)
@@ -223,12 +250,13 @@ class SamplerCore:
         """`t` as numpy; under a mesh gathered along the particle dimension `dim`."""
         return fetch(t, self.group, dim)
 
-    def _not_termination(self) -> bool:
-        """Continue while 1 - beta >= 1e-4 or the posterior ESS < n_total.
-        Under a mesh both read values that are the same on every rank."""
+    def _not_termination(self, beta: Optional[float] = None) -> bool:
+        """Continue while 1 - beta >= 1e-4 or the posterior ESS < n_total;
+        `beta` is the current beta where the host has it already. Under a
+        mesh both read values that are the same on every rank."""
         if self.hist.t == 0:
             return True
-        if 1.0 - float(self.cur.beta) >= 1e-4:
+        if 1.0 - (float(self.cur.beta) if beta is None else beta) >= 1e-4:
             return True
         return self.posterior_ess() < (self.n_total or 0)
 

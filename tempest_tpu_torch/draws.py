@@ -44,12 +44,23 @@ HW_GAMMA_MIN_WALKERS = 1 << 16  # tempest_tpu/mcmc.py:52, 306
 
 
 class Draws:
-    """The draws of one run, from a seeded generator on `device`."""
+    """The draws of one run, from a seeded generator on `device`.
+
+    `graph_safe`: every draw comes from `generator` through PyTorch's
+    Philox kernels, so a CUDA graph that registers the generator replays
+    the draws of its capture's eager run from the current offset."""
+
+    graph_safe = True
 
     def __init__(self, seed: int, device, dtype=torch.float32):
         self.device = torch.device(device)
         self.dtype = dtype
         self.generator = torch.Generator(device=self.device)
+        self.reseed(seed)
+
+    def reseed(self, seed: int) -> None:
+        """Start the stream of `seed` again, on the same generator object
+        (which CUDA graphs may hold)."""
         self.generator.manual_seed(int(seed))
 
     def _uniform(self, shape) -> torch.Tensor:
@@ -84,6 +95,21 @@ class Draws:
     def get_state(self) -> Dict[str, np.ndarray]:
         return {"generator": self.generator.get_state().numpy().copy()}
 
+    def tell(self):
+        """The generator's position: its Philox offset on a CUDA device
+        (advanced alike by every MCMC step of one shape), its whole state
+        on the CPU."""
+        if self.device.type == "cuda":
+            return self.generator.get_offset()
+        return self.generator.get_state()
+
+    def seek(self, position) -> None:
+        """Put the generator back to a position from `tell`."""
+        if self.device.type == "cuda":
+            self.generator.set_offset(position)
+        else:
+            self.generator.set_state(position)
+
     def key_words(self) -> np.ndarray:
         """The run's seed as the two uint32 words of a threefry key
         (`jax.random.PRNGKey(seed)`)."""
@@ -105,7 +131,7 @@ class HardwareDraws(Draws):
     """`hardware_prng=True`: MCMC-step draws from the Philox kernels.
 
     The key is the seed's two 32-bit words and every kernel call takes the
-    next call index, so a reset (a new object) restarts the stream. The
+    next call index, so a reset (`reseed`) restarts the stream. The
     warm-up and resampling draws, and the draws below the routing
     thresholds, still come from the generator, as in JAX. So do all the
     draws of a run in another dtype than float32: the kernels draw float32
@@ -113,10 +139,23 @@ class HardwareDraws(Draws):
     other dtype to threefry, so the flag does not apply there.
     """
 
-    def __init__(self, seed: int, device, dtype=torch.float32):
-        super().__init__(seed, device, dtype)
+    @property
+    def graph_safe(self) -> bool:
+        """Only where the flag does not apply: the kernels' call counter is
+        a host integer, which a graph would freeze."""
+        return self.dtype != torch.float32
+
+    def reseed(self, seed: int) -> None:
+        super().reseed(seed)
         self.key = philox.key_from_seed(seed)
         self.counter = 0
+
+    def tell(self):
+        return super().tell(), self.counter
+
+    def seek(self, position) -> None:
+        super().seek(position[0])
+        self.counter = position[1]
 
     def get_state(self) -> Dict[str, np.ndarray]:
         return {**super().get_state(), "philox_key": np.array(self.key, dtype=np.uint32),
@@ -175,6 +214,9 @@ class BlockDraws:
         """`n` is the global N."""
         u, patch = self.draws.warmup(n, d)
         return self._block(u), patch
+
+    def reseed(self, seed: int) -> None:
+        self.draws.reseed(seed)
 
     def resample(self, n: int, method: str) -> torch.Tensor:
         return self.draws.resample(n, method)

@@ -18,9 +18,14 @@ eagerly:
    the model, and run the adaptive MCMC;
 4. commit the active set, blob rows included, to the history.
 
-Every draw comes from the draws object passed in. Each stage runs inside
-a `utils.profiling.annotate` range ("ps/reweight", "ps/cluster", "ps/fit",
-"ps/resample", "ps/mutate", "ps/warmup", "ps/commit"), which
+Every draw comes from the draws object passed in. The iteration's loops
+(the mode EM, the GMM EM, the split rounds, the MCMC steps) run through
+`loops` (`loops.Loops`): by default each reads its exit after every body;
+`fused.py` hands in chunked, optionally graphed loops. Between the loops
+the stages run straight through on the device; the one host read outside
+them is beta, for the warm-up branch (`iteration.beta` keeps it). Each
+stage runs inside a `utils.profiling.annotate` range ("ps/reweight",
+"ps/cluster", "ps/fit", "ps/resample", "ps/mutate", "ps/warmup", "ps/commit"), which
 `torch.profiler` reports as the stage's time; without a profiler a range
 costs a few microseconds. The JAX package's `_pin_history_layouts` and
 donation have no counterpart here.
@@ -37,12 +42,13 @@ the same model whatever the rounding of its fits.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from .cluster import ClusterModel, cluster_predict, fit_uniforms, hgm_fit
 from .config import DOF_FALLBACK, TRIM_BINS, TRIM_ESS, SamplerConfig
+from .loops import Loops
 from .mcmc import MCMCKernel
 from .modes import fit_global_mode, fit_mode_statistics
 from .ops.boundary import make_boundary_masks
@@ -77,14 +83,17 @@ def select_fit_points(
 
 
 def make_iteration(
-    config: SamplerConfig, log_likelihood_batch: Callable, prior_transform_batch: Callable
+    config: SamplerConfig, log_likelihood_batch: Callable, prior_transform_batch: Callable,
+    loops: Optional[Loops] = None,
 ) -> Callable:
     """Build `iteration(draws, hist, cur, model) -> (hist, cur, model)`;
     `model` is the ClusterModel carried from the last fit (the one-cluster
     placeholder, `fitted=False`, before it). `log_likelihood_batch` returns
     (logl, blobs or None). The caller grows the history so that capacity >
-    hist.t."""
+    hist.t. `iteration.loops` runs the loops; after a call, `iteration.beta`
+    is the iteration's beta on the host."""
     cfg = config
+    loops = loops or Loops(cfg.device)
     N, d = cfg.n_particles, cfg.n_dim
     group = None if cfg.mesh is None else particle_group(cfg.mesh, cfg.particle_axis)
     p_mask, r_mask, s_mask = make_boundary_masks(d, cfg.periodic, cfg.reflective, device=cfg.device)
@@ -124,6 +133,7 @@ def make_iteration(
             split_all=cfg.split_all,
             leaf_fit_points=cfg.leaf_fit_points or None,
             uniforms=uniforms,
+            loops=loops,
         )
         return model
 
@@ -147,18 +157,20 @@ def make_iteration(
                 labels = cluster_predict(model, u_fit)
             with annotate("ps/fit"):
                 modes = replicated(fit_mode_statistics(
-                    u_fit, w_fit, labels, k_max=cfg.k_max, dof_fallback=DOF_FALLBACK
+                    u_fit, w_fit, labels, k_max=cfg.k_max, dof_fallback=DOF_FALLBACK,
+                    loops=loops,
                 ))
         else:
             with annotate("ps/fit"):
-                modes = replicated(fit_global_mode(u_fit, w_fit, dof_fallback=DOF_FALLBACK))
+                modes = replicated(fit_global_mode(u_fit, w_fit, dof_fallback=DOF_FALLBACK,
+                                                   loops=loops))
         with annotate("ps/resample"):
             u, x, logl, blobs, assignments = resample(
                 draws.resample(N, cfg.resample), hist, weights, N, method=cfg.resample,
                 cluster_model=model if cfg.clustering else None, group=group,
             )
         with annotate("ps/mutate"):
-            res = mcmc(draws, u, x, logl, assignments, cur.beta, modes, blobs=blobs)
+            res = mcmc(draws, u, x, logl, assignments, cur.beta, modes, blobs=blobs, loops=loops)
         cur.u, cur.x, cur.logl, cur.blobs = res.u, res.x, res.logl, res.blobs
         cur.assignments = assignments
         cur.efficiency = res.efficiency.to(cfg.dtype)
@@ -185,13 +197,15 @@ def make_iteration(
             # Nothing committed yet: the first-iteration values.
             zero = torch.zeros((), dtype=cfg.dtype, device=cfg.device)
             cur.beta, cur.cv = zero, zero.clone()
-            cur.ess = torch.tensor(ess_target, dtype=cfg.dtype, device=cfg.device)
+            cur.ess = torch.full((), ess_target, dtype=cfg.dtype, device=cfg.device)
             weights = None
+            iteration.beta = 0.0
         else:
             with annotate("ps/reweight"):
                 rw = reweight(hist, cur.beta, ess_target, cv_target=cv_target,
                               dynamic=dynamic, group=group)
-            cur.beta = rw.beta.to(cfg.dtype)
+                cur.beta = rw.beta.to(cfg.dtype)
+                iteration.beta = loops.read("beta", cur.beta)[0]
             cur.logz = rw.logz.to(cfg.dtype)
             cur.ess = rw.ess.to(cfg.dtype)
             cur.cv = rw.cv.to(cfg.dtype)
@@ -200,7 +214,7 @@ def make_iteration(
 
         # beta == 0: the target is still the prior — fresh draws instead of
         # fit/resample/MCMC; the carried model stays as it is.
-        if bool(cur.beta == 0.0):
+        if iteration.beta == 0.0:
             with annotate("ps/warmup"):
                 warmup_branch(draws, cur)
         else:
@@ -208,4 +222,5 @@ def make_iteration(
         with annotate("ps/commit"):
             return commit(hist, cur), cur, model
 
+    iteration.loops, iteration.beta = loops, None
     return iteration

@@ -19,9 +19,23 @@ thresholds. Semantics kept:
 - the adaptive stop n_steps d (0.234/acc)(sigma_0/sigma)^2 clamped to
   [n_steps d, n_max_steps d] (:382-392).
 
-`MCMCKernel.step` is the pure step on explicit draws; `MCMCKernel.__call__`
-loops it, taking draws from a `Draws` or `HardwareDraws` object. The JAX `lax.while_loop`
-becomes a Python loop whose stop test reads one boolean per step.
+`MCMCKernel.step` is the pure step on explicit draws; a walker, the
+sigmas and the step count stay as they are once the chain is done, as the
+JAX `lax.while_loop` (:417) stops there. The step index is a device
+tensor, so `rate = 1/(iteration + 1)` and the stop test are computed on the
+device. `MCMCKernel.__call__` loops the step as the device loop "mcmc"
+(`loops.Loops`), taking draws from a `Draws` or `HardwareDraws` object:
+with a chunk length of 1 it reads the stop flag after every step; with a
+longer one its first chunk is the `n_steps d` steps the clamp always runs,
+and each later chunk runs that many steps before one read. A chunk that
+runs past the stop consumes draws the next stage must not see: the draws
+object is put back (`Draws.seek`) where the last real step left it, from
+its position before each step (an eager chunk), or its generator's Philox
+offset before and after a replay, which every step advances alike
+(graph-safe draws keep all their state there: `HardwareDraws` in float64
+leaves its kernel counter alone). A draws object without `tell`/`seek` (a
+test's one-iteration source) is not put back. `steps` and `n_call_sweeps`
+count the real steps only.
 
 Under a particle mesh (`group`) each rank mutates its block of walkers.
 The cluster counts are summed over the ranks once per mutation, and each
@@ -40,6 +54,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.distributed as dist
 
+from .loops import Loops
 from .modes import ModeStatistics
 from .ops.boundary import apply_boundary_conditions, check_bounds
 from .ops.tools import _psum
@@ -79,9 +94,15 @@ class ChainState:
     logl: torch.Tensor
     blobs: Optional[torch.Tensor]  # (N, B) or None
     sigmas: torch.Tensor  # (K,)
-    iteration: int
+    iteration: torch.Tensor  # () int32: the real steps so far
     alpha_mean: torch.Tensor
     done: torch.Tensor  # () bool
+
+
+def _tensors(obj) -> dict:
+    """A dataclass's tensor fields (None left out), by name."""
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)
+            if getattr(obj, f.name) is not None}
 
 
 def _quadratic(diff: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
@@ -138,7 +159,11 @@ class MCMCKernel:
 
     # ------------------------------------------------------------------
     def prepare(self, assignments, beta, modes: ModeStatistics) -> Walkers:
-        """Gather the per-walker mode quantities once per mutation."""
+        """Gather the per-walker mode quantities once per mutation (and move
+        the boundary masks to the walkers' device, outside any capture)."""
+        dev = assignments.device
+        self.periodic_mask, self.reflective_mask, self.strict_mask = (
+            m.to(dev) for m in (self.periodic_mask, self.reflective_mask, self.strict_mask))
         k_max = modes.k_max
         dtype = modes.means.dtype
         onehot = (assignments[:, None] == torch.arange(k_max, device=assignments.device)).to(dtype)
@@ -164,7 +189,7 @@ class MCMCKernel:
         return ChainState(
             u=u, x=x, logl=logl, blobs=blobs,
             sigmas=torch.full((k_max,), sigma, dtype=u.dtype, device=u.device),
-            iteration=0,
+            iteration=torch.zeros((), dtype=torch.int32, device=u.device),
             alpha_mean=torch.zeros((), dtype=u.dtype, device=u.device),
             done=torch.zeros((), dtype=torch.bool, device=u.device),
         )
@@ -194,8 +219,10 @@ class MCMCKernel:
     def step(self, w: Walkers, s: ChainState, z, g, u_acc) -> ChainState:
         """One Metropolis step on explicit draws: z (R, N, d) normals, g (N,)
         unit gamma(w.gamma_shape) draws (tpCN; ignored for RWM), u_acc (N,)
-        acceptance uniforms; under a mesh, this rank's blocks of them."""
+        acceptance uniforms; under a mesh, this rank's blocks of them. A
+        chain that is done stays as it is."""
         dtype = s.u.dtype
+        active = ~s.done
         iteration = s.iteration + 1
         sigmas = s.sigmas
         sigma_w = sigmas[w.assignments]
@@ -223,7 +250,7 @@ class MCMCKernel:
         alpha = torch.nan_to_num(torch.clamp(alpha, max=1.0), nan=0.0)
         alpha = torch.where(valid, alpha, torch.zeros_like(alpha))
 
-        accept = u_acc < alpha
+        accept = (u_acc < alpha) & active
         u = torch.where(accept[:, None], u_prime, s.u)
         x = torch.where(accept[:, None], x_prime, s.x)
         logl = torch.where(accept, logl_prime, s.logl)
@@ -242,11 +269,11 @@ class MCMCKernel:
         mean_accept = sums[k_max] / n_walkers
         mean_alpha = sums[k_max + 1] / n_walkers
         mean_acc_k = alpha_k / torch.clamp(w.count_k, min=1.0)
-        rate = 1.0 / (float(iteration) + 1.0)
+        rate = 1.0 / (iteration.to(dtype) + 1.0)
         new_sigmas = sigmas + rate * (mean_acc_k - 0.234)
         if self.is_tpcn:
             new_sigmas = torch.clamp(new_sigmas, 0.0, self.sigma_cap)
-        sigmas = torch.where(w.count_k > 0, new_sigmas, sigmas)
+        sigmas = torch.where((w.count_k > 0) & active, new_sigmas, sigmas)
 
         # Adaptive termination: population-weighted sigma over non-empty clusters.
         w_sigma = torch.sum(w.count_k * sigmas) / torch.clamp(torch.sum(w.count_k), min=1.0)
@@ -256,25 +283,63 @@ class MCMCKernel:
             * (self.sigma_0 / torch.clamp(w_sigma, min=1e-6)) ** 2
         )
         n_final = torch.clamp(n_adaptive, self.n_steps_min, self.n_steps_cap)
-        done = float(iteration) >= n_final
         return ChainState(
-            u=u, x=x, logl=logl, blobs=blobs, sigmas=sigmas, iteration=iteration,
-            alpha_mean=mean_alpha, done=done,
+            u=u, x=x, logl=logl, blobs=blobs, sigmas=sigmas,
+            iteration=torch.where(active, iteration, s.iteration),
+            alpha_mean=torch.where(active, mean_alpha, s.alpha_mean),
+            done=s.done | (iteration.to(dtype) >= n_final),
         )
 
     # ------------------------------------------------------------------
     def __call__(
-        self, draws, u, x, logl, assignments, beta, modes: ModeStatistics, blobs=None
+        self, draws, u, x, logl, assignments, beta, modes: ModeStatistics, blobs=None,
+        loops: Optional[Loops] = None,
     ) -> MCMCResult:
-        """Run the adaptive chain to its stop rule, drawing from `draws`."""
+        """Run the adaptive chain to its stop rule, drawing from `draws`;
+        `loops` runs the step loop (default: a read after every step)."""
         w = self.prepare(assignments, beta, modes)
         s = self.initial_state(u, x, logl, modes.k_max, blobs)
         n, d = u.shape
+        loops = loops or Loops(u.device)
+        if loops.graphed and not (getattr(draws, "graph_safe", False)
+                                  and draws.generator in loops.generators):
+            raise ValueError("a graphed MCMC loop needs graph-safe draws (draws.Draws) whose "
+                             "generator is registered with its Loops (Loops.generators)")
+
+        def body(c, k):
+            z, g, u_acc = draws.mcmc_step(self.n_candidates, n, d, k.get("gamma_shape"))
+            state = ChainState(**dict(c, blobs=c.get("blobs")))
+            return _tensors(self.step(Walkers(**dict(k, gamma_shape=k.get("gamma_shape"))),
+                                      state, z, g, u_acc))
+
+        run = loops.start("mcmc", body, _tensors(s), _tensors(w), static=(id(draws),))
+        chunk = loops.chunk("mcmc")
+        length = int(self.n_steps_min) if chunk > 1 else 1
+        if run.graphed:  # a replay moves only the generator's Philox offset
+            gen = draws.generator
+            tell, seek = gen.get_offset, gen.set_offset
+        else:
+            tell, seek = getattr(draws, "tell", None), getattr(draws, "seek", None)
+        positions = []  # the draws' position before each step run
         while True:
-            z, g, u_acc = draws.mcmc_step(self.n_candidates, n, d, w.gamma_shape)
-            s = self.step(w, s, z, g, u_acc)
-            if bool(s.done):  # one host sync per step
+            if tell is None:
+                run.advance(length)
+            elif run.graphed:  # every step advances the offset alike
+                p0 = tell()
+                run.advance(length)
+                per_step = (tell() - p0) // length
+                positions += [p0 + j * per_step for j in range(length)]
+            else:
+                run.advance(length, before_body=lambda: positions.append(tell()))
+            done, steps = run.read("done", "iteration")
+            if done:
                 break
+            length = chunk
+        steps = int(steps)
+        if steps < len(positions):  # the chunk ran past the stop
+            seek(positions[steps])
+        out = run.result()
+        s = ChainState(**dict(out, blobs=out.get("blobs")))
         k_mask = modes.k_mask
         mean_sigma = torch.sum(torch.where(k_mask, s.sigmas, torch.zeros_like(s.sigmas))) / (
             torch.clamp(torch.sum(k_mask), min=1)
@@ -283,6 +348,6 @@ class MCMCKernel:
             u=s.u, x=s.x, logl=s.logl, blobs=s.blobs,
             efficiency=mean_sigma / self.sigma_0,
             acceptance=s.alpha_mean,
-            steps=s.iteration,
-            n_call_sweeps=s.iteration,
+            steps=steps,
+            n_call_sweeps=steps,
         )

@@ -2,8 +2,12 @@
 
 Counterpart of tempest_tpu/modes.py: per-mode means, covariances and
 degrees of freedom with their Cholesky factors and inverses, padded to
-K_max modes with a `k_mask`. The JAX `vmap` over modes becomes a Python
-loop over the K_max slots (one slot on the unclustered path).
+K_max modes with a `k_mask`. The JAX `vmap` over modes (:141-147) becomes
+one batched EM over the (K_max, n) weight matrix
+(`student.fit_mvstud_weighted_modes`), with the weighted-median presort
+shared; each mode stops at its own exit. The inverse covariances are two
+triangular solves on the Cholesky factor, which a CUDA graph can capture
+(torch's `cholesky_solve` of a batch runs MAGMA, which syncs the host).
 """
 
 from __future__ import annotations
@@ -13,7 +17,8 @@ from typing import Optional
 
 import torch
 
-from .student import fit_mvstud_weighted, regularized_cholesky, sort_columns
+from .loops import Loops
+from .student import fit_mvstud_weighted_modes, regularized_cholesky, sort_columns
 
 
 @dataclasses.dataclass
@@ -42,7 +47,8 @@ def _decompose(cov: torch.Tensor):
     fails (modes.py:46-59); cov is (K, d, d)."""
     cov2, L = regularized_cholesky(cov)
     eye = torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device).expand_as(cov)
-    inv = torch.cholesky_solve(eye, L, upper=False)
+    L_inv = torch.linalg.solve_triangular(L, eye, upper=False)
+    inv = torch.linalg.solve_triangular(L.transpose(-1, -2), L_inv, upper=True)
     return cov2, L, inv
 
 
@@ -85,53 +91,48 @@ def identity_mode_statistics(
     )
 
 
-def _fit_one_mode(u, w_cluster, dof_fallback, sort_cache):
-    """Weighted Student-t fit of one mode; an empty mode gets identity
-    statistics (modes.py:103-123)."""
-    d = u.shape[1]
-    empty = torch.sum(w_cluster) <= 0.0
-    mean, cov, dof = fit_mvstud_weighted(u, w_cluster, sort_cache=sort_cache)
-    fallback = torch.full_like(dof, dof_fallback)
-    dof = torch.where(torch.isfinite(dof), dof, fallback)
-    mean = torch.where(empty, torch.zeros_like(mean), mean)
-    cov = torch.where(empty, torch.eye(d, dtype=cov.dtype, device=cov.device), cov)
-    dof = torch.where(empty, fallback, dof)
-    return mean, cov, dof, ~empty
-
-
 def fit_mode_statistics(
     u: torch.Tensor,
     weights: torch.Tensor,
     labels: torch.Tensor,
     k_max: int,
     dof_fallback: float = 1e6,
+    loops: Optional[Loops] = None,
 ) -> ModeStatistics:
-    """Per-mode weighted Student-t fits (modes.py:126-156).
+    """Per-mode weighted Student-t fits (modes.py:103-156), batched over
+    the k_max modes; an empty mode gets identity statistics.
 
     `weights` must already be masked; `labels` assigns each sample to a
     mode in [0, k_max). Deterministic: the weighted EM draws nothing.
+    `loops` runs the EM loop (`student.fit_mvstud_weighted_modes`).
     """
-    sort_cache = sort_columns(u)
-    fits = [
-        _fit_one_mode(u, torch.where(labels == k, weights, torch.zeros_like(weights)),
-                      dof_fallback, sort_cache)
-        for k in range(k_max)
-    ]
-    means, covs, dofs, mask = (torch.stack(parts) for parts in zip(*fits))
-    covs, chols, invs = _decompose(covs)
+    onehot = labels[None, :] == torch.arange(k_max, device=labels.device)[:, None]
+    w_k = torch.where(onehot, weights[None, :], torch.zeros_like(weights[None, :]))  # (k_max, n)
+    d = u.shape[1]
+    empty = torch.sum(w_k, dim=1) <= 0.0
+    means, covs, dofs = fit_mvstud_weighted_modes(u, w_k, sort_cache=sort_columns(u),
+                                                  loops=loops)
+    fallback = torch.full_like(dofs, dof_fallback)
+    dofs = torch.where(torch.isfinite(dofs) & ~empty, dofs, fallback)
+    means = torch.where(empty[:, None], torch.zeros_like(means), means)
+    eye = torch.eye(d, dtype=covs.dtype, device=covs.device)
+    covs, chols, invs = _decompose(torch.where(empty[:, None, None], eye, covs))
     return ModeStatistics(
         means=means,
         covariances=covs,
         degrees_of_freedom=dofs,
         inv_covariances=invs,
         chol_covariances=chols,
-        k_mask=mask,
+        k_mask=~empty,
     )
 
 
 def fit_global_mode(
-    u: torch.Tensor, weights: torch.Tensor, dof_fallback: float = 1e6
+    u: torch.Tensor, weights: torch.Tensor, dof_fallback: float = 1e6,
+    loops: Optional[Loops] = None,
 ) -> ModeStatistics:
-    """One global weighted Student-t fit (modes.py:159-168)."""
+    """One global weighted Student-t fit (modes.py:159-168): the same
+    function with k_max = 1."""
     labels = torch.zeros(u.shape[0], dtype=torch.int32, device=u.device)
-    return fit_mode_statistics(u, weights, labels, k_max=1, dof_fallback=dof_fallback)
+    return fit_mode_statistics(u, weights, labels, k_max=1, dof_fallback=dof_fallback,
+                               loops=loops)

@@ -149,7 +149,7 @@ def cumsum(x: torch.Tensor) -> torch.Tensor:
 
 def _invert_cdf(w: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     cdf = cumsum(w)
-    cdf[-1] = 1.0  # guard against rounding shortfall
+    cdf[-1:].fill_(1.0)  # guard against rounding shortfall (a fill: no host copy)
     idx = torch.searchsorted(cdf, positions, right=False)  # side="left"
     return torch.clamp(idx, 0, w.shape[0] - 1)
 
@@ -205,7 +205,8 @@ def trim_weights_mask(
 
     bin_ids = torch.arange(bins, device=w.device)
     best = torch.amax(torch.where(ok, bin_ids, torch.full_like(bin_ids, -1)))
-    threshold = thresholds[torch.clamp(best, min=0)]  # bin 0 keeps everything
+    # bin 0 keeps everything; a 1-element index, as a 0-d one would sync the host
+    threshold = thresholds.index_select(0, torch.clamp(best, min=0).reshape(1))
 
     keep = mask & (w >= threshold)
     w_keep = torch.where(keep, w, zero)

@@ -138,7 +138,11 @@ class Sampler:
         on_device: bool = False,
     ):
         """Run until beta reaches 1 and the posterior ESS reaches n_total.
-        `on_device` is accepted for API parity; both values run the same loop."""
+
+        With `on_device=True` on a CUDA device (and no `save_every`), the
+        loops of each iteration replay as CUDA graphs (fused.py); the
+        results are those of `on_device=False`. A likelihood that reads the
+        host cannot be captured: it raises, and runs with on_device=False."""
         return self._core.run_sampling(
             n_total=n_total,
             progress=progress,

@@ -252,8 +252,9 @@ def commit(hist: History, cur: Current) -> History:
     hist.cv[t] = cur.cv
     hist.acceptance[t] = cur.acceptance
     hist.efficiency[t] = cur.efficiency
-    hist.steps[t] = cur.steps
-    hist.calls[t] = cur.calls
+    # Host counters go in by fill: assigning a Python number copies from the host.
+    hist.steps[t:t + 1].fill_(cur.steps)
+    hist.calls[t:t + 1].fill_(cur.calls)
     hist.t = t + 1
     return hist
 

@@ -193,7 +193,7 @@ def reweight(
         beta = _sharded_ess_beta(hist, denom, beta_prev, ess_target, group)
     else:
         bm = torch.where(hist.sample_mask(), denom, torch.full_like(denom, float("inf")))
-        scal = torch.stack([beta_prev, torch.tensor(ess_target, dtype=dtype, device=device)])
+        scal = torch.stack([beta_prev, torch.full((), ess_target, dtype=dtype, device=device)])
         beta, _ = ess_bisect_beta(hist.logl.reshape(-1), bm.reshape(-1), scal)
         beta = beta[0]
 

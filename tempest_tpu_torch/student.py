@@ -6,11 +6,17 @@ start (:220-244), the 16-way log-space
 multisection for nu (`_opt_nu`, :137-160) on the cancellation-free
 stationarity equation (:65-103), and the `_nu_converged` exit (:106-134).
 
-The JAX `lax.while_loop` becomes a Python loop whose exit test reads one
-boolean per EM iteration from the device. A covariance that is not
-positive definite is detected through `cholesky_ex`'s `info` (torch's
-`cholesky` raises where jnp's returns NaN) and gets the same
-max(1e-6, 1e-6 |trace|) diagonal floor.
+`fit_mvstud_weighted_modes` fits K weightings of the same points at once,
+as `jax.vmap` of `fit_mvstud_weighted` does (tempest_tpu/modes.py:141-147):
+one batched EM whose `lax.while_loop` (student.py:295) becomes a device
+loop (`loops.run_loop`, "mode_em") with a done flag per weighting. A
+weighting stops at its own exit (converged, Gaussian limit or `max_iter`
+iterations) and its (mu, Sigma, nu) are frozen from then on; the loop's
+predicate, "any weighting active", is read once a chunk. The unweighted
+`fit_mvstud` keeps a Python loop that reads one boolean per EM iteration.
+A covariance that is not positive definite is detected through
+`cholesky_ex`'s `info` (torch's `cholesky` raises where jnp's returns
+NaN) and gets the same max(1e-6, 1e-6 |trace|) diagonal floor.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from .loops import Loops, run_loop
 
 _REG_FLOOR = 1e-6
 _NU_LOG_LO = -69.0  # log(1e-30)
@@ -51,10 +59,14 @@ def _log_minus_digamma(x: torch.Tensor) -> torch.Tensor:
 
 
 def _nu_objective(log_nu: torch.Tensor, delta: torch.Tensor, dim: int, wbar) -> torch.Tensor:
-    """The nu M-step's stationarity function at each of `log_nu` (student.py:80-103)."""
+    """The nu M-step's stationarity function (student.py:80-103) at each of
+    `log_nu` (..., M), for squared distances `delta` (..., n) under the
+    weights `wbar` ((..., n), or one number for equal weights)."""
     nu = torch.exp(log_nu)[..., None]
-    e = (dim - delta) / (nu + delta)  # w = 1 + e
-    data_term = torch.sum(wbar * (torch.log1p(e) - e), dim=-1)
+    dl = delta[..., None, :]
+    e = (dim - dl) / (nu + dl)  # w = 1 + e
+    wb = wbar[..., None, :] if torch.is_tensor(wbar) else wbar
+    data_term = torch.sum(wb * (torch.log1p(e) - e), dim=-1)
     nu = nu[..., 0]
     return _log_minus_digamma(nu / 2.0) - _log_minus_digamma((nu + dim) / 2.0) + data_term
 
@@ -68,18 +80,19 @@ def _nu_converged(nu: torch.Tensor, last_nu: torch.Tensor, tolerance: float) -> 
 
 
 def _opt_nu(delta: torch.Tensor, dim: int, wbar) -> torch.Tensor:
-    """Root of the stationarity function in log nu; +inf for the Gaussian limit."""
-    dtype, device = delta.dtype, delta.device
-    hi0 = torch.tensor(_NU_LOG_HI, dtype=dtype, device=device)
-    is_inf = _nu_objective(hi0, delta, dim, wbar) >= 0.0
+    """Root of the stationarity function in log nu for each leading index of
+    `delta` (..., n); +inf for the Gaussian limit."""
+    dtype, device, lead = delta.dtype, delta.device, delta.shape[:-1]
+    hi = torch.full(lead, _NU_LOG_HI, dtype=dtype, device=device)
+    is_inf = _nu_objective(hi[..., None], delta, dim, wbar)[..., 0] >= 0.0
     fracs = torch.arange(1, _NU_SPLIT, dtype=dtype, device=device) / _NU_SPLIT  # (15,)
-    lo = torch.tensor(_NU_LOG_LO, dtype=dtype, device=device)
-    hi = hi0
+    lo = torch.full(lead, _NU_LOG_LO, dtype=dtype, device=device)
     for _ in range(_NU_PASSES):
-        mids = lo + (hi - lo) * fracs  # ascending
-        count = torch.sum(_nu_objective(mids, delta, dim, wbar) > 0.0)
-        grid = torch.cat([lo[None], mids, hi[None]])  # (17,)
-        lo, hi = grid[count], grid[count + 1]
+        mids = lo[..., None] + (hi - lo)[..., None] * fracs  # ascending
+        count = torch.sum(_nu_objective(mids, delta, dim, wbar) > 0.0, dim=-1)
+        grid = torch.cat([lo[..., None], mids, hi[..., None]], dim=-1)  # (..., 17)
+        lo = torch.gather(grid, -1, count[..., None])[..., 0]
+        hi = torch.gather(grid, -1, count[..., None] + 1)[..., 0]
     nu = torch.exp(0.5 * (lo + hi))
     return torch.where(is_inf, torch.full_like(nu, float("inf")), nu)
 
@@ -135,10 +148,11 @@ def fit_mvstud(
 def _weighted_median_presorted(
     d_sorted: torch.Tensor, order: torch.Tensor, wbar: torch.Tensor
 ) -> torch.Tensor:
-    """Per-dimension weighted median given the stable column sort of the data."""
-    cum = torch.cumsum(wbar[order], dim=0)  # (n, d)
-    idx = torch.argmax((cum >= 0.5 - 1e-7).to(torch.int8), dim=0)  # first True
-    return torch.gather(d_sorted, 0, idx[None, :])[0]
+    """Per-dimension weighted median given the stable column sort of the
+    data (n, d), for weights (n,) or one row of weights each (K, n)."""
+    cum = torch.cumsum(wbar[..., order], dim=-2)  # (..., n, d), along the points
+    idx = torch.argmax((cum >= 0.5 - 1e-7).to(torch.int8), dim=-2)  # first True
+    return torch.gather(d_sorted.expand(cum.shape), -2, idx.unsqueeze(-2)).squeeze(-2)
 
 
 def sort_columns(data: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -147,12 +161,91 @@ def sort_columns(data: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.gather(data, 0, order), order
 
 
+def _em_body(c, k):
+    """One EM iteration of every weighting still active (student.py:300-324);
+    the others keep their values."""
+    dim = k["data"].shape[1]
+    active = c["active"]
+    Sigma, L = regularized_cholesky(c["Sigma"])
+    diffs = k["data"] - c["mu"][:, None, :]  # (K, n, dim)
+    L_inv = torch.linalg.solve_triangular(L, k["eye"].expand_as(L), upper=False)
+    sol = diffs @ L_inv.transpose(-1, -2)
+    delta = torch.sum(sol * sol, dim=-1)  # (K, n)
+
+    nu_new = _opt_nu(delta, dim, k["wbar"])
+    now_inf = ~torch.isfinite(nu_new)
+
+    g = (nu_new[:, None] + dim) / (nu_new[:, None] + delta)  # E-step scale
+    wg = k["wbar"] * g
+    Sigma_new = (diffs.transpose(-1, -2) * wg[:, None, :]) @ diffs
+    mu_new = torch.sum(wg[..., None] * k["data"], dim=1) / torch.sum(wg, dim=1)[:, None]
+
+    # On the Gaussian-limit exit the current (mu, Sigma) are kept.
+    step = active & ~now_inf
+    mu = torch.where(step[:, None], mu_new, c["mu"])
+    Sigma = torch.where(step[:, None, None], Sigma_new, torch.where(active[:, None, None], Sigma,
+                                                                      c["Sigma"]))
+    last_nu = torch.where(active, c["nu"], c["last_nu"])
+    nu = torch.where(active, nu_new, c["nu"])
+    i = c["i"] + active.to(torch.int32)
+    hit_inf = torch.where(active, now_inf, c["hit_inf"])
+    active = ~_nu_converged(nu, last_nu, k["tolerance"]) & (i < k["max_iter"]) & ~hit_inf
+    return dict(mu=mu, Sigma=Sigma, nu=nu, last_nu=last_nu, i=i, hit_inf=hit_inf, active=active,
+                go=torch.any(active))
+
+
+def fit_mvstud_weighted_modes(
+    data: torch.Tensor,
+    weights: torch.Tensor,
+    tolerance: float = 1e-6,
+    max_iter: int = 100,
+    sort_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    loops: Optional[Loops] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Weighted multivariate Student-t EM of the points `data` (n, dim)
+    under each row of `weights` (K, n): (mu (K, dim), Sigma (K, dim, dim),
+    nu (K,)); nu == +inf signals the Gaussian limit. `sort_cache` is
+    `sort_columns(data)`; `loops` runs the EM loop (default: a read after
+    every EM iteration, no graph)."""
+    weights = weights.to(data.dtype)
+    n, dim = data.shape
+    dtype, device = data.dtype, data.device
+
+    total = torch.sum(weights, dim=1, keepdim=True)
+    wbar = weights / torch.where(total > 0, total, torch.ones_like(total))  # (K, n)
+    n_eff = 1.0 / torch.clamp(torch.sum(wbar * wbar, dim=1), min=torch.finfo(dtype).tiny)
+
+    if sort_cache is None:
+        sort_cache = sort_columns(data)
+    mu = _weighted_median_presorted(sort_cache[0], sort_cache[1], wbar)  # (K, dim)
+    wmean = torch.sum(wbar[..., None] * data, dim=1)  # (K, dim)
+    xc = data - wmean[:, None, :]  # (K, n, dim)
+    cov_w = (xc.transpose(-1, -2) * wbar[:, None, :]) @ xc
+    var_w = torch.sum(wbar[..., None] * xc * xc, dim=1)
+    Sigma = cov_w + torch.diag_embed(var_w) / n_eff[:, None, None]
+    K = weights.shape[0]
+    nu = torch.full((K,), 20.0, dtype=dtype, device=device)
+    last_nu = torch.zeros((K,), dtype=dtype, device=device)
+    active = ~_nu_converged(nu, last_nu, tolerance) & (max_iter > 0)
+    carry = dict(mu=mu, Sigma=Sigma, nu=nu, last_nu=last_nu,
+                 i=torch.zeros((K,), dtype=torch.int32, device=device),
+                 hit_inf=torch.zeros((K,), dtype=torch.bool, device=device),
+                 active=active, go=torch.any(active))
+    consts = dict(data=data, wbar=wbar, eye=torch.eye(dim, dtype=dtype, device=device),
+                  tolerance=torch.full((), tolerance, dtype=dtype, device=device),
+                  max_iter=torch.full((), max_iter, dtype=torch.int32, device=device))
+    out = run_loop(loops, "mode_em", _em_body, carry, consts)
+    Sigma, _ = regularized_cholesky(out["Sigma"])
+    return out["mu"], Sigma, out["nu"]
+
+
 def fit_mvstud_weighted(
     data: torch.Tensor,
     weights: torch.Tensor,
     tolerance: float = 1e-6,
     max_iter: int = 100,
     sort_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    loops: Optional[Loops] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Weighted multivariate Student-t EM: data (n, dim), weights (n,).
 
@@ -160,48 +253,6 @@ def fit_mvstud_weighted(
     `sort_cache` is `sort_columns(data)`, for callers that fit several
     weightings of the same points.
     """
-    weights = weights.to(data.dtype)
-    n, dim = data.shape
-    dtype = data.dtype
-
-    total = torch.sum(weights)
-    wbar = weights / torch.where(total > 0, total, torch.ones_like(total))
-    n_eff = 1.0 / torch.clamp(torch.sum(wbar * wbar), min=torch.finfo(dtype).tiny)
-
-    if sort_cache is None:
-        sort_cache = sort_columns(data)
-    mu = _weighted_median_presorted(sort_cache[0], sort_cache[1], wbar)
-    wmean = torch.sum(wbar[:, None] * data, dim=0)
-    xc = data - wmean
-    cov_w = (xc.T * wbar) @ xc
-    var_w = torch.sum(wbar[:, None] * xc * xc, dim=0)
-    Sigma = cov_w + torch.diag(var_w) / n_eff
-    nu = torch.tensor(20.0, dtype=dtype, device=data.device)
-    last_nu = torch.zeros((), dtype=dtype, device=data.device)
-    hit_inf = torch.zeros((), dtype=torch.bool, device=data.device)
-    eye = torch.eye(dim, dtype=dtype, device=data.device)
-
-    for _ in range(max_iter):
-        if bool(_nu_converged(nu, last_nu, tolerance) | hit_inf):  # one sync per iteration
-            break
-        Sigma, L = regularized_cholesky(Sigma)
-        diffs = data - mu
-        L_inv = torch.linalg.solve_triangular(L, eye, upper=False)
-        sol = diffs @ L_inv.T
-        delta = torch.sum(sol * sol, dim=1)
-
-        nu_new = _opt_nu(delta, dim, wbar)
-        now_inf = ~torch.isfinite(nu_new)
-
-        g = (nu_new + dim) / (nu_new + delta)  # E-step scale
-        wg = wbar * g
-        Sigma_new = (diffs.T * wg) @ diffs
-        mu_new = torch.sum(wg[:, None] * data, dim=0) / torch.sum(wg)
-
-        # On the Gaussian-limit exit the current (mu, Sigma) are returned.
-        mu = torch.where(now_inf, mu, mu_new)
-        Sigma = torch.where(now_inf, Sigma, Sigma_new)
-        last_nu, nu, hit_inf = nu, nu_new, now_inf
-
-    Sigma, _ = regularized_cholesky(Sigma)
-    return mu, Sigma, nu
+    mu, Sigma, nu = fit_mvstud_weighted_modes(data, weights[None], tolerance, max_iter,
+                                              sort_cache, loops)
+    return mu[0], Sigma[0], nu[0]

@@ -24,15 +24,32 @@ within 1e-5 relative except at most max(1, 1e-4 n) of them (a
 Marsaglia-Tsang test that falls within float rounding of its bound may go
 the other way when a math function's last bit differs). `hw_gamma` is one
 launch of the gamma kernel and no normal or bits launch.
+
+The fused route's loops (loops.py, fused.py): a replayed CUDA graph of each
+loop chunk (the mode EM, the GMM EM and the split rounds' head and tail, the
+MCMC steps) gives the eager chunk's values bit for bit and draws the eager
+step's numbers; the ESS kernel captures, and each replay counts its launch;
+`run(on_device=True)` repeats `on_device=False` bit for bit; a likelihood
+that reads the host fails its capture with an error naming on_device=False.
 """
 
 import math
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import pytest
 import torch
 
 from tempest_tpu_torch import Sampler
+from tempest_tpu_torch import cluster as tc
+from tempest_tpu_torch import modes as tm
 from tempest_tpu_torch.config import ESS_TOLERANCE, METRIC_ATOL
+from tempest_tpu_torch.draws import Draws
+from tempest_tpu_torch.fused import CHUNKS
+from tempest_tpu_torch.loops import Loops
+from tempest_tpu_torch.mcmc import MCMCKernel
 from tempest_tpu_torch.ops import cuda_prng, cuda_reweight, philox, tools
 from tempest_tpu_torch.ops.tools import ess_from_logw, logsumexp
 from tempest_tpu_torch.state import commit, make_current, make_history, mis_denominator
@@ -375,3 +392,218 @@ def test_seeded_run_repeats_on_the_card(cuda_device):
         runs.append(s.results())
     assert runs[0]["beta"].tobytes() == runs[1]["beta"].tobytes()
     assert runs[0]["logz"].tobytes() == runs[1]["logz"].tobytes()
+
+
+# ---------------------------------------------------------------------------
+# The fused route's loops as CUDA graphs
+# ---------------------------------------------------------------------------
+def _loops(device, graphs, generators=()):
+    return Loops(device, CHUNKS, graphs=graphs, generators=list(generators))
+
+
+def _points(device, seed, n=4096, d=10, k=3):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    centers = 4.0 * torch.randn(k, d, generator=g, device=device)
+    labels = torch.randint(0, k, (n,), generator=g, device=device, dtype=torch.int32)
+    x = centers[labels] + torch.randn(n, d, generator=g, device=device) / torch.sqrt(
+        torch.rand(n, 1, generator=g, device=device) + 0.2)
+    return x, torch.rand(n, generator=g, device=device) + 0.1, labels
+
+
+@pytest.mark.cuda
+def test_graphed_mode_fits_equal_eager(cuda_device):
+    graphed = _loops(cuda_device, True)
+    for seed in (1, 2):  # the second call replays the first call's graphs
+        x, w, labels = _points(cuda_device, seed)
+        want = tm.fit_mode_statistics(x, w, labels, k_max=8, loops=_loops(cuda_device, False))
+        got = tm.fit_mode_statistics(x, w, labels, k_max=8, loops=graphed)
+        for name in ("means", "covariances", "degrees_of_freedom", "inv_covariances",
+                     "chol_covariances", "k_mask"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), (seed, name)
+    stats = graphed.stats["mode_em"]
+    assert stats["captures"] == 1 and stats["replays"] == stats["chunks"] >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_all", [True, False])
+def test_graphed_split_rounds_equal_eager(cuda_device, split_all):
+    graphed = _loops(cuda_device, True)
+    for seed in (3, 4):
+        x, w, _ = _points(cuda_device, seed, n=8192)
+        mask = torch.ones(x.shape[0], dtype=torch.bool, device=cuda_device)
+        args = dict(min_points=20, threshold_modifier=1.0, k_max=16, max_rounds=15,
+                    normalize=True, split_all=split_all, leaf_fit_points=2048)
+        model_e, labels_e, n_e = tc.hgm_fit(x, w, mask, loops=_loops(cuda_device, False), **args)
+        model_g, labels_g, n_g = tc.hgm_fit(x, w, mask, loops=graphed, **args)
+        assert n_g == n_e >= 2 and torch.equal(labels_g, labels_e)
+        for name in ("centers", "covariances", "weights", "k_mask", "chol_inv", "logdet"):
+            assert torch.equal(getattr(model_g, name), getattr(model_e, name)), (seed, name)
+    for name in ("gmm_em", "split_head", "split_tail"):
+        assert graphed.stats[name]["captures"] >= 1 and graphed.stats[name]["replays"] >= 2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["tpcn", "rwm"])
+def test_graphed_mcmc_equals_eager(cuda_device, method):
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(7)
+    n, d = 1024, 10
+    u = 0.5 + 0.02 * torch.randn(n, d, generator=g, device=cuda_device)
+    modes = tm.make_mode_statistics(torch.full((d,), 0.5, device=cuda_device),
+                                    1e-2 * torch.eye(d, device=cuda_device),
+                                    torch.tensor(6.0, device=cuda_device))
+
+    def loglike(x):  # proposals wider than the target: the chain runs past n_steps d
+        return -8.0 * torch.sum(x * x, dim=-1)
+
+    kernel = MCMCKernel(lambda x: (loglike(x), None), lambda v: 20.0 * v - 10.0, d,
+                        method=method)
+    x = 20.0 * u - 10.0
+    assign = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+    beta = torch.tensor(0.3, device=cuda_device)
+    draws = Draws(11, cuda_device)
+    graphed = _loops(cuda_device, True, [draws.generator])
+    for _ in range(2):  # the second run replays the first run's graphs
+        start = draws.tell()
+        want = kernel(draws, u, x, loglike(x), assign, beta, modes,
+                      loops=_loops(cuda_device, False))
+        end = draws.tell()
+        draws.seek(start)
+        got = kernel(draws, u, x, loglike(x), assign, beta, modes, loops=graphed)
+        assert draws.tell() == end
+        assert got.steps == want.steps > kernel.n_steps_min
+        for name in ("u", "x", "logl", "efficiency", "acceptance"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert graphed.stats["mcmc"]["captures"] >= 2  # the first chunk and a later one
+
+
+@pytest.mark.cuda
+def test_graphed_draws_are_the_eager_steps_draws(cuda_device):
+    draws = Draws(13, cuda_device)
+    shape = torch.full((1024,), 7.5, device=cuda_device)
+
+    def body(c, k):
+        z, g, u = draws.mcmc_step(8, 1024, 10, k["shape"])
+        return dict(z=z, g=g, u=u, go=c["go"])
+
+    carry = dict(z=torch.zeros(8, 1024, 10, device=cuda_device),
+                 g=torch.zeros(1024, device=cuda_device), u=torch.zeros(1024, device=cuda_device),
+                 go=torch.ones((), dtype=torch.bool, device=cuda_device))
+    start = draws.tell()
+    eager = [draws.mcmc_step(8, 1024, 10, shape) for _ in range(3)]
+    step = (draws.tell() - start) // 3
+    draws.seek(start)
+    run = _loops(cuda_device, True, [draws.generator]).start("draws", body, carry,
+                                                               dict(shape=shape))
+    for i, (z, g, u) in enumerate(eager):
+        run.advance(1)
+        assert draws.tell() == start + (i + 1) * step
+        assert torch.equal(run.carry["z"], z) and torch.equal(run.carry["g"], g)
+        assert torch.equal(run.carry["u"], u)
+
+
+@pytest.mark.cuda
+def test_ess_kernel_captures_and_counts_replays(cuda_device):
+    logl, bm = _synthetic(cuda_device, 64, 1024, 20, seed=5)
+    scal = torch.tensor([0.05, 2048.0], device=cuda_device)
+    want = cuda_reweight.ess_bisect_beta(logl, bm, scal)
+    loops = _loops(cuda_device, True)
+
+    def bisect(k):
+        beta, probes = cuda_reweight.ess_bisect_beta(k["logl"], k["bm"], k["scal"])
+        return dict(beta=beta, probes=probes)
+
+    before = cuda_reweight.LAUNCHES
+    for _ in range(3):
+        got = loops.once("ess", bisect, dict(logl=logl, bm=bm, scal=scal))
+        assert torch.equal(got["beta"], want[0]) and torch.equal(got["probes"], want[1])
+    assert cuda_reweight.LAUNCHES - before == 3  # the replays; not the capture or its warm-up
+    assert loops.stats["ess"]["captures"] == 1 and loops.stats["ess"]["replays"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    dict(clustering=True), dict(clustering=False),
+    # The fused route in float64, where hardware_prng does not apply: its
+    # graphed MCMC chunks put the draws back by the generator's offset.
+    dict(clustering=True, hardware_prng=True, dtype=torch.float64),
+], ids=["clustered", "unclustered", "float64-hardware_prng"])
+def test_run_on_device_repeats_on_device_false(cuda_device, extra):
+    def loglike(x):  # paired 4-D Rosenbrock: chains run past their first chunk
+        return -torch.sum(100.0 * (x[..., 1::2] - x[..., ::2] ** 2) ** 2
+                          + (1.0 - x[..., ::2]) ** 2, dim=-1)
+
+    runs, launches = [], []
+    for on_device in (False, True):
+        s = Sampler(lambda u: 20.0 * u - 10.0, loglike, n_dim=4, n_particles=256,
+                    vectorize=True, k_max=4, random_state=2, history_capacity=32,
+                    device=cuda_device, **extra)
+        before = cuda_reweight.LAUNCHES + cuda_reweight.LAUNCHES_F64
+        s.run(n_total=1024, progress=False, on_device=on_device)
+        launches.append(cuda_reweight.LAUNCHES + cuda_reweight.LAUNCHES_F64 - before)
+        runs.append(s)
+    (off, on), (r_off, r_on) = runs, (runs[0].results(), runs[1].results())
+    for name in ("beta", "logz", "steps", "calls"):
+        assert r_on[name].tobytes() == r_off[name].tobytes(), name
+    assert on.evidence()[0] == off.evidence()[0] and launches[0] == launches[1] > 0
+    assert r_on["steps"].max() > 4  # past the first chunk (n_steps d = 4 steps)
+    assert (on.state.draws.get_state()["generator"].tobytes()
+            == off.state.draws.get_state()["generator"].tobytes())
+    stats = on.state._iteration.loops.stats
+    assert stats["mcmc"]["replays"] > 0 and off.state._iteration.loops.stats["mcmc"]["replays"] == 0
+
+
+@pytest.mark.cuda
+def test_per_point_likelihood_with_blobs_captures(cuda_device):
+    """The reference's default call form, a per-point function mapped by
+    torch.func.vmap, with blobs: its MCMC steps replay as graphs too."""
+    def loglike(x):
+        return -0.5 * torch.sum(x * x), torch.sum(x * x)
+
+    runs = []
+    for on_device in (False, True):
+        s = Sampler(lambda u: 20.0 * u - 10.0, loglike, n_dim=4, n_particles=256, k_max=4,
+                    random_state=2, history_capacity=32, device=cuda_device)
+        s.run(n_total=1024, progress=False, on_device=on_device)
+        runs.append(s)
+    assert runs[0].results()["logz"].tobytes() == runs[1].results()["logz"].tobytes()
+    assert runs[1].state._iteration.loops.stats["mcmc"]["replays"] > 0
+    _, _, _, r2 = runs[1].posterior(return_blobs=True)
+    x = runs[1].posterior()[0]
+    assert torch.allclose(torch.as_tensor(r2).reshape(-1), torch.as_tensor(x * x).sum(1),
+                          rtol=1e-5)
+
+
+_HOST_READ_RUN = textwrap.dedent("""
+    import torch
+    from tempest_tpu_torch import Sampler
+    from tempest_tpu_torch.loops import CaptureError
+
+    def loglike(x):
+        scale = 1.0 + 0.0 * float(x.abs().max().item())  # a host read
+        return -0.5 * scale * torch.sum(x * x, dim=-1)
+
+    s = Sampler(lambda u: 20.0 * u - 10.0, loglike, n_dim=2, n_particles=128, vectorize=True,
+                clustering=False, random_state=1, history_capacity=32, device="cuda")
+    s.run(n_total=256, progress=False, on_device=False)
+    print("EAGER_OK", s.beta)
+    s.reset(random_state=1)
+    try:
+        s.run(n_total=256, progress=False, on_device=True)
+    except CaptureError as exc:
+        print("CAPTURE_ERROR", exc)
+    else:
+        print("NO_ERROR")
+""")
+
+
+@pytest.mark.cuda
+def test_capture_of_a_host_read_raises(cuda_device):
+    # A failed capture leaves the process's CUDA libraries in an uncertain
+    # state, so it runs in a process of its own.
+    proc = subprocess.run([sys.executable, "-c", _HOST_READ_RUN], capture_output=True, text=True,
+                          timeout=300, cwd=Path(__file__).resolve().parents[1])
+    assert "EAGER_OK 1.0" in proc.stdout, proc.stdout + proc.stderr[-3000:]
+    assert "CAPTURE_ERROR" in proc.stdout, proc.stdout + proc.stderr[-3000:]
+    assert "'mcmc' loop" in proc.stdout and "on_device=False" in proc.stdout, proc.stdout

@@ -1,0 +1,302 @@
+"""The fused route of tempest_tpu_torch (fused.py, loops.py) on the CPU.
+
+1. The mode fits batched over the k_max modes against
+   `tempest_tpu.modes.fit_mode_statistics` (k_max = 8, two modes empty,
+   the others stopping at different EM iterations), at the tolerances of
+   tests/test_torch_student_modes.py: means rtol 1e-3, covariances rtol
+   1e-3 with atol 1e-3 of the largest entry, 1/nu within 1e-3.
+2. `hgm_fit` with its rounds on device counts and chunked EM loops against
+   JAX on tests/test_torch_cluster.py's cases and tolerances.
+3. The MCMC loop in chunks of 1, 3 and 8 steps against the loop that reads
+   after every step: the walkers, log-likelihoods, efficiency, acceptance
+   and step count identical, and the generator left where the per-step
+   loop leaves it.
+4. One fused iteration against the JAX package's fused iteration on that
+   iteration's own JAX draws (tests/test_torch_clustered_slice.py's case
+   and tolerances).
+5. `Sampler.run(on_device=True)` against `on_device=False` from one seed:
+   the ladder and logZ identical (tests/test_sampler.py:86 asks 0.6 of
+   JAX's two loops, which are bit-exact replicas as these must be).
+6. No loop body reads the host: a whole fused iteration with
+   `Tensor.__bool__`, `.item()`, `.tolist()`, `__int__` and `__float__`
+   raising everywhere but in `Loops.read`.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_cluster import DATA, _jax_hgm, t
+from test_torch_clustered_slice import D, N, _bimodal_j, _bimodal_t, _prior
+from test_torch_slice import JaxIterationDraws
+
+from tempest_tpu import Sampler as JaxSampler
+from tempest_tpu import modes as jm
+from tempest_tpu_torch import Sampler, interop, student
+from tempest_tpu_torch import cluster as tc
+from tempest_tpu_torch import modes as tm
+from tempest_tpu_torch.cluster import single_cluster_model
+from tempest_tpu_torch.config import SamplerConfig
+from tempest_tpu_torch.draws import Draws
+from tempest_tpu_torch.fused import CHUNKS, fused_route, make_fused_iteration
+from tempest_tpu_torch.loops import Loops
+from tempest_tpu_torch.mcmc import MCMCKernel
+
+torch.set_num_threads(1)
+
+
+def _modes_data(seed=0, n=3000, d=3):
+    """Points of six Student-t clusters of different tails (one Gaussian),
+    labelled 0, 1, 2, 4, 5, 7 of k_max = 8: modes 3 and 6 are empty."""
+    rng = np.random.default_rng(seed)
+    labels = rng.choice([0, 1, 2, 4, 5, 7], size=n)
+    dofs = {0: 3.0, 1: 6.0, 2: None, 4: 15.0, 5: 2.5, 7: 40.0}
+    x = np.empty((n, d), np.float32)
+    for k, dof in dofs.items():
+        m = labels == k
+        z = rng.normal(size=(m.sum(), d))
+        if dof is not None:
+            z = z / np.sqrt(rng.chisquare(dof, size=(m.sum(), 1)) / dof)
+        x[m] = (k + 0.3 * k * z).astype(np.float32)
+    w = rng.exponential(size=n).astype(np.float32)
+    return x, w, labels.astype(np.int32)
+
+
+def test_batched_mode_fits_match_jax():
+    x, w, labels = _modes_data()
+    mj = jm.fit_mode_statistics(jnp.asarray(x), jnp.asarray(w), jnp.asarray(labels), k_max=8,
+                                dof_fallback=1e6)
+    loops = Loops("cpu", CHUNKS)
+    mt = tm.fit_mode_statistics(t(x), t(w), t(labels), k_max=8, dof_fallback=1e6, loops=loops)
+    assert mt.k_mask.tolist() == np.asarray(mj.k_mask).tolist()
+    assert mt.k_mask.tolist() == [True, True, True, False, True, True, False, True]
+    np.testing.assert_allclose(mt.means.numpy(), np.asarray(mj.means), rtol=1e-3, atol=1e-6)
+    cov_j = np.asarray(mj.covariances)
+    np.testing.assert_allclose(mt.covariances.numpy(), cov_j, rtol=1e-3,
+                               atol=1e-3 * np.abs(cov_j).max())
+    inv_t = 1.0 / mt.degrees_of_freedom.numpy()
+    inv_j = 1.0 / np.asarray(mj.degrees_of_freedom)
+    np.testing.assert_allclose(inv_t, inv_j, atol=1e-3)
+
+    # The modes stop at different EM iterations: fitted alone, each runs
+    # its own count; batched, the loop runs as long as the slowest.
+    iters = []
+    for k in range(8):
+        alone = Loops("cpu")
+        student.fit_mvstud_weighted(t(x), t(np.where(labels == k, w, 0.0)), loops=alone)
+        iters.append(alone.stats["mode_em"]["bodies"])
+    real = [n for k, n in enumerate(iters) if k not in (3, 6)]
+    assert len(set(real)) > 2, iters
+    chunk = CHUNKS["mode_em"]
+    assert loops.stats["mode_em"]["bodies"] == chunk * -(-max(iters) // chunk)
+    assert loops.stats["mode_em"]["reads"] == -(-max(iters) // chunk)
+
+
+@pytest.mark.parametrize("split_all,leaf_fit_points", [(True, 256), (False, None)])
+@pytest.mark.parametrize("data", sorted(DATA))
+def test_hgm_fit_device_rounds_match_jax(data, split_all, leaf_fit_points):
+    X, w, mask = DATA[data]()
+    k_max = 4
+    model_j, labels_j, n_j = _jax_hgm(X, w, mask, k_max, split_all, leaf_fit_points)
+    loops = Loops("cpu", CHUNKS)
+    model_t, labels_t, n_t = tc.hgm_fit(
+        t(X), t(w), t(mask), min_points=4, threshold_modifier=1.0, k_max=k_max,
+        max_rounds=k_max - 1, normalize=True, split_all=split_all,
+        leaf_fit_points=leaf_fit_points, loops=loops,
+    )
+    assert n_t == int(n_j)
+    np.testing.assert_array_equal(labels_t.numpy(), np.asarray(labels_j))
+    assert model_t.k_mask.tolist() == np.asarray(model_j.k_mask).tolist()
+    for name in ("centers", "covariances", "weights", "chol_inv", "logdet"):
+        want = np.asarray(getattr(model_j, name))
+        np.testing.assert_allclose(getattr(model_t, name).numpy(), want, rtol=1e-3,
+                                   atol=1e-4 * np.abs(want).max(), err_msg=name)
+    # One read a round, and one a chunk of each round's EM loop.
+    rounds = loops.stats["split_round"]["reads"]
+    assert rounds >= 1 and loops.stats["gmm_em"]["reads"] >= rounds
+
+
+def _chain_problem(seed=3, n=64, d=2):
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(0.45, 0.55, size=(n, d)).astype(np.float32)
+    modes = tm.make_mode_statistics(torch.zeros(d), 0.002 * torch.eye(d), torch.tensor(5.0))
+    return torch.from_numpy(u), modes
+
+
+# Likelihood sharpness by kernel: tpCN runs 33 steps on this problem and
+# RWM 7, past the 4 steps of the first chunk.
+SHARP = {"tpcn": 1.0, "rwm": 16.0}
+
+
+def _chain_kernel(method):
+    def loglike(x):
+        return -0.5 * SHARP[method] * torch.sum(x * x, dim=-1)
+
+    return MCMCKernel(lambda x: (loglike(x), None), _prior, 2, method=method, n_steps=2,
+                      n_max_steps=20), loglike
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+@pytest.mark.parametrize("method", ["tpcn", "rwm"])
+def test_chunked_mcmc_equals_per_step_loop(chunk, method):
+    u, modes = _chain_problem()
+    kernel, loglike = _chain_kernel(method)
+    assign = torch.zeros(u.shape[0], dtype=torch.int32)
+    x = _prior(u)
+
+    def run(loops):
+        draws = Draws(5, "cpu")
+        res = kernel(draws, u, x, loglike(x), assign, torch.tensor(0.4), modes, loops=loops)
+        return res, draws.generator.get_state()
+
+    want, state_want = run(None)
+    loops = Loops("cpu", {"mcmc": chunk})
+    got, state_got = run(loops)
+    assert got.steps == got.n_call_sweeps == want.steps > kernel.n_steps_min
+    for name in ("u", "x", "logl", "efficiency", "acceptance"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert torch.equal(state_got, state_want)
+    first = int(kernel.n_steps_min) if chunk > 1 else 1
+    bodies = first + chunk * -(-(want.steps - first) // chunk)
+    assert loops.stats["mcmc"]["bodies"] == bodies
+    assert loops.stats["mcmc"]["reads"] == 1 + (bodies - first) // chunk
+
+
+def test_chunked_mcmc_runs_past_the_stop():
+    """Chunks of 3 and 8 tpCN steps run past the stop on this problem, so
+    the equality above includes putting the draws back."""
+    u, modes = _chain_problem()
+    kernel, loglike = _chain_kernel("tpcn")
+    x = _prior(u)
+    res = kernel(Draws(5, "cpu"), u, x, loglike(x), torch.zeros(u.shape[0], dtype=torch.int32),
+                 torch.tensor(0.4), modes)
+    assert all((res.steps - kernel.n_steps_min) % chunk for chunk in (3, 8)), res.steps
+
+
+def test_one_fused_iteration_matches_jax():
+    js = JaxSampler(_prior, _bimodal_j, n_dim=D, n_particles=N, vectorize=True,
+                    clustering=True, k_max=4, random_state=0, history_capacity=16)
+    core = js.state
+    while int(core._fused_model.n_clusters()) < 2 or int(core.hist.t) < 9:
+        js.sample()
+    fields_h = {k: np.array(getattr(core.hist, k)) for k in interop.HISTORY_FIELDS + ("t",)}
+    fields_c = {k: np.array(getattr(core.cur, k))
+                for k in interop.CURRENT_FIELDS + interop.CURRENT_COUNTERS}
+    it_key = jax.random.split(core.key)[1]  # what core._next_key() hands the iteration
+    out_j = js.sample()
+    model_j = core._fused_model
+
+    cfg = SamplerConfig(prior_transform=_prior, log_likelihood=_bimodal_t, n_dim=D,
+                        n_particles=N, vectorize=True, clustering=True, k_max=4, device="cpu")
+    assert fused_route(cfg)
+    iteration = make_fused_iteration(cfg, lambda x: (_bimodal_t(x), None), _prior)
+    th = interop.history_from_numpy(fields_h, "cpu")
+    tc_ = interop.current_from_numpy(fields_c, "cpu")
+    placeholder = single_cluster_model(D, 4, normalize=True)
+    th, tc_, model_t = iteration(JaxIterationDraws(it_key), th, tc_, placeholder)
+
+    assert int(model_t.n_clusters()) == int(model_j.n_clusters()) >= 2
+    for name in ("centers", "covariances", "weights"):
+        want = np.asarray(getattr(model_j, name))
+        np.testing.assert_allclose(getattr(model_t, name).numpy(), want, rtol=1e-3,
+                                   atol=1e-4 * np.abs(want).max(), err_msg=name)
+    np.testing.assert_array_equal(tc_.assignments.numpy(), out_j["assignments"])
+    assert th.t == int(core.hist.t) and tc_.iteration == out_j["iter"]
+    assert iteration.beta == float(tc_.beta)
+    assert abs(float(tc_.beta) - out_j["beta"]) < 1e-5
+    assert abs(float(tc_.logz) - out_j["logz"]) < 1e-5
+    assert tc_.steps == out_j["steps"] and tc_.calls * N == out_j["calls"]
+    np.testing.assert_allclose(tc_.u.numpy(), out_j["u"], atol=1e-4)
+    np.testing.assert_allclose(tc_.logl.numpy(), out_j["logl"], atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(float(tc_.acceptance), out_j["acceptance"], atol=1e-4)
+    for name in ("mode_em", "gmm_em", "split_round", "mcmc", "beta"):
+        assert iteration.loops.stats[name]["reads"] > 0, name
+
+
+@pytest.mark.parametrize("extra,fused", [
+    ({}, True),
+    ({"clustering": False, "cluster_every": 3}, True),
+    ({"dtype": torch.float64, "hardware_prng": True}, True),  # the flag does not apply
+    ({"hardware_prng": True}, False),  # host Philox counters
+    ({"volume_variation": 1.0}, False),
+    ({"host_likelihood": True}, False),
+])
+def test_fused_route_by_configuration(extra, fused):
+    cfg = SamplerConfig(prior_transform=_prior, log_likelihood=_bimodal_t, n_dim=D,
+                        n_particles=N, vectorize=True, device="cpu", **extra)
+    assert fused_route(cfg) == fused
+    s = Sampler(_prior, _bimodal_t, n_dim=D, n_particles=N, vectorize=True, device="cpu",
+                **extra)
+    assert s.state.fused == fused
+
+
+def _sampler(clustering, seed=3):
+    return Sampler(_prior, _bimodal_t, n_dim=D, n_particles=N, vectorize=True, k_max=4,
+                   clustering=clustering, random_state=seed, history_capacity=32, device="cpu")
+
+
+@pytest.mark.parametrize("clustering", [True, False])
+def test_run_on_device_equals_host_loop(clustering):
+    runs = []
+    for on_device in (False, True):
+        s = _sampler(clustering)
+        s.run(n_total=512, progress=False, on_device=on_device)
+        runs.append(s)
+    off, on = runs
+    res_off, res_on = off.results(), on.results()
+    assert off.state.hist.t == on.state.hist.t
+    np.testing.assert_array_equal(res_on["beta"], res_off["beta"])
+    np.testing.assert_array_equal(res_on["logz"], res_off["logz"])
+    np.testing.assert_array_equal(res_on["steps"], res_off["steps"])
+    np.testing.assert_array_equal(res_on["calls"], res_off["calls"])
+    assert on.evidence()[0] == off.evidence()[0] and on.beta == 1.0
+    assert abs(on.evidence()[0] - (-D * np.log(20.0))) < 0.6
+
+
+READS = ("__bool__", "item", "tolist", "__int__", "__float__")
+
+
+def test_loop_bodies_read_nothing(monkeypatch):
+    """Every loop body and straight-line stretch between two loops of a whole
+    fused iteration runs with the host reads of a tensor raising."""
+    s = _sampler(True, seed=4)
+    core = s.state
+    while int(core.cluster_model.n_clusters()) < 2 or core.hist.t < 6:
+        s.sample()
+    saved = {name: getattr(torch.Tensor, name) for name in READS}
+
+    def refuse(name):
+        def read(*args, **kwargs):
+            raise AssertionError(f"host read Tensor.{name} in a loop body")
+        return read
+
+    def patch(on):
+        for name in READS:
+            setattr(torch.Tensor, name, refuse(name) if on else saved[name])
+
+    ran = set()
+
+    def guarded(name, fn):
+        def run(*args):
+            ran.add(name)
+            patch(True)
+            try:
+                return fn(*args)
+            finally:
+                patch(False)
+        return run
+
+    plain_start, plain_once = Loops.start, Loops.once
+    monkeypatch.setattr(Loops, "start", lambda self, name, body, *a, **k: plain_start(
+        self, name, guarded(name, body), *a, **k))
+    monkeypatch.setattr(Loops, "once", lambda self, name, fn, *a, **k: plain_once(
+        self, name, guarded(name, fn), *a, **k))
+    try:
+        core.hist, core.cur, core.cluster_model = core._iteration(
+            core.draws, core.hist, core.cur, core.cluster_model)
+        assert ran == {"mode_em", "gmm_em", "split_head", "split_tail", "mcmc"}, ran
+        with pytest.raises(AssertionError, match="host read"):
+            guarded("check", lambda: bool(torch.ones(1) > 0))()
+    finally:
+        patch(False)
