@@ -32,11 +32,14 @@ lines and a failure exits non-zero:
     bits row gives as `hw_uniform_launches`; the gamma draws at n = 1, 3,
     5, 1000, 131,072, 131,075 and 262,144 for alpha 0.02, 0.5, 0.7, 1.5,
     7.5, 50 and all six in turn, one gamma launch and no other a call, on
-    call indices that cross 2^32), their moments, their device and
-    host-timed call times beside their plain versions' and the PyTorch
-    generator's (the gamma kernel's bound counts the Marsaglia-Tsang
-    rounds these draws need), the launch floor, and one synchronized call
-    of each kernel split into wrapper, launch, device and sync time;
+    call indices that cross 2^32; flips and draws not equal bit for bit),
+    their moments, their device and host-timed call times beside their
+    plain versions' and the PyTorch generator's (the gamma kernel's bound
+    counts the Marsaglia-Tsang rounds these draws need), the launch floor,
+    and one synchronized call of each kernel split into wrapper, launch,
+    device and sync time, through the public functions and, for the three
+    kernels a draws object launches, through its call counter's words
+    (`cuda_prng.PhiloxCounter`);
  5. the canonical problem unclustered (paired 10-D Rosenbrock, U(-10, 10)
     prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42,
     with `run(on_device=True)`: its loops replayed as CUDA graphs;
@@ -55,14 +58,23 @@ lines and a failure exits non-zero:
     cudaDeviceSynchronize, a synchronous cudaMemcpy), at most one a loop
     chunk plus four an iteration, and fewer than 150; then iterations 26-30
     traced on the device only (no host ops recorded): wall and idle share;
- 7. A again with hardware_prng=True, seed 42: every MCMC step draws through
-    the mutation-draws kernel;
+ 7. A again with hardware_prng=True, seed 42, with run(on_device=False) and
+    then run(on_device=True) on a sampler whose seed-43 run captured the
+    graphs: every MCMC step body draws through the mutation-draws kernel
+    (by graph replays with on_device=True); the ladder, logZ, steps,
+    calls, launches and the draws' final state (call counter, host mirror
+    and device words) equal bit for bit; the wall per iteration of both;
+    then iterations 21-25 in each mode under torch.profiler, held to 6b's
+    rule on blocking host reads;
  8. B: the large-ensemble hardware_prng configuration of
     benchmarks/results/hw_prng_e2e.json (10-D Gaussian, n_particles=131072,
     history_capacity=8, unclustered) through its first four mutation
-    iterations: one normal and one gamma launch per MCMC step, no bits
-    launch; then the normal kernel at its R*N*d and the ESS kernel at the S
-    reached, each against its plain version;
+    iterations, eagerly and with the loops' CUDA graphs (one pass captures
+    them, a second is timed): the same values, launches and call counter
+    in each iteration bit for bit, one normal and one gamma launch per
+    MCMC step body (by replays when graphed), no bits launch, and seconds
+    per mutation iteration of each; then the normal kernel at its R*N*d
+    and the ESS kernel at the S reached, each against its plain version;
  9. C: the 10-D bimodal mixture of tests/test_multimodal.py, clustered;
 10. the 10-D Gaussian of tests/test_end_to_end.py;
 11. the reference surface on A's problem, seed 42: the reference's default
@@ -1194,7 +1206,7 @@ def phase_gamma_kernel(device, key) -> dict:
     gamma_cases, one gamma launch and no other PRNG launch a call; moments
     at 2^18; times at B's N and 2^18 beside the plain version and
     torch._standard_gamma."""
-    max_err, max_flips = 0.0, 0
+    max_err, max_flips, unequal = 0.0, 0, 0
     for n in GAMMA_SIZES:
         summary = []
         for label, alpha in gamma_cases(device, n):
@@ -1211,10 +1223,12 @@ def phase_gamma_kernel(device, key) -> dict:
             agree = torch.abs(g - want) <= DRAW_TOL * torch.abs(want)
             err = float(torch.max(torch.abs(g - want)[agree])) if bool(agree.any()) else 0.0
             check(flips <= max(1, MAX_FLIP_SHARE * n), f"hw_gamma n={n} {label}: {flips} flips")
-            max_err, max_flips = max(max_err, err), max(max_flips, flips)
-            summary.append(f"{label} {flips}/{err:.3g}")
+            bits = int(torch.sum(g != want))  # draws whose float32 bits differ at all
+            max_err, max_flips, unequal = max(max_err, err), max(max_flips, flips), unequal + bits
+            summary.append(f"{label} {flips}/{err:.3g}/{bits}")
         print(f"gamma kernel n={n} against philox.gamma (counter {GAMMA_COUNTER}; flips / "
-              f"max|dg| elsewhere): {', '.join(summary)}", flush=True)
+              f"max|dg| elsewhere / draws not equal bit for bit): {', '.join(summary)}",
+              flush=True)
 
     n = 1 << 18
     for a in (0.5, 1.5, 7.5, 50.0):
@@ -1242,7 +1256,7 @@ def phase_gamma_kernel(device, key) -> dict:
               f"device {dev['library']:.4f} ms; plain {t['plain']:.4f} ms; bound {b_ms:.6f} ms "
               f"({b_by}; {mean_rounds:.4f} rounds a walker)", flush=True)
     row = dict(shapes[B_GAMMA], max_abs_err=max_err, gamma_flips=max_flips,
-               shapes={str(k): v for k, v in shapes.items()})
+               gamma_bits_unequal=unequal, shapes={str(k): v for k, v in shapes.items()})
     return row
 
 
@@ -1255,7 +1269,23 @@ def phase_call_split(device) -> dict:
     R, N, d = MUTATION_SHAPES[0]
     alpha = torch.full((N,), 2.5, device=device)
     alpha_b = torch.full((B_GAMMA,), GAMMA_TIMED_ALPHA, device=device)
-    return {
+    split = {}
+    if hasattr(cuda_prng, "PhiloxCounter"):  # a draws object's launches: the call counter's words
+        words = cuda_prng.PhiloxCounter(key, device)
+        split.update({
+            "mutation_draws_counter": call_split(
+                "mutation_draws 8x1024x10 (call counter)",
+                lambda: words.mutation_draws(0, alpha, (R, N, d)), cuda_prng.LIBRARY,
+                "tempest_mutation_draws", "mutation_draws_kernel"),
+            "normal_counter": call_split(
+                f"normal n={B_GAMMA} (call counter)",
+                lambda: words.normal(13, (B_GAMMA,)), cuda_prng.LIBRARY,
+                "tempest_normal", "normal_kernel"),
+            "gamma_counter": call_split(
+                f"gamma n={B_GAMMA} (call counter)", lambda: words.gamma(0, alpha_b),
+                cuda_prng.LIBRARY, "tempest_gamma", "gamma_"),
+        })
+    return {**split,
         "ess_bisect": call_split(
             "ess_bisect S=65536", lambda: cuda_reweight.ess_bisect_beta(logl, bm, scal),
             cuda_reweight.LIBRARY, "tempest_ess_bisect", "ess_bisect"),
@@ -1302,6 +1332,13 @@ def mcmc_steps(s) -> int:
     return int(res["steps"][res["beta"] > 0].sum())
 
 
+def mcmc_bodies(s) -> int:
+    """MCMC step bodies run in the sampler's life: its steps, and on the
+    fused route the steps a chunk ran past the stop (whose draws are put
+    back); a draws kernel launches once a body."""
+    return int(s.state._iteration.loops.stats["mcmc"]["bodies"])
+
+
 def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
                   dtype=torch.float32, on_device=False, runs=None) -> dict:
     """Seeds of A (or the unclustered problem) after a warm-up: each in the
@@ -1320,15 +1357,18 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
     for seed in seeds:
         s.reset(random_state=seed)
         before = counts()
+        bodies = mcmc_bodies(s)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s.run(n_total=N_TOTAL, progress=False, on_device=on_device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = diff(counts(), before)
+        bodies = mcmc_bodies(s) - bodies
         if runs is not None:
             runs[seed] = dict(results=s.results(), logz=s.evidence()[0], wall=wall,
-                              launches=launched, iters=s.state.hist.t)
+                              launches=launched, iters=s.state.hist.t, bodies=bodies,
+                              draws=s.state.draws.get_state())
         ess = s.state.posterior_ess()
         logz, _ = s.evidence()
         iters = s.state.hist.t
@@ -1338,7 +1378,7 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
         effs.append(ess / wall)
         print(f"{name} seed {seed}: wall={wall:.3f} s ess={ess:.1f} eff/s={ess / wall:.1f} "
               f"iters={iters} clusters={k} logz={logz:.4f} beta={s.beta:.6f} calls={s.calls} "
-              f"mcmc_steps={steps} launches={launched}", flush=True)
+              f"mcmc_steps={steps} mcmc_bodies={bodies} launches={launched}", flush=True)
         check(s.beta >= 1.0 - 1e-4, f"{name} seed {seed}: beta {s.beta} < 1 - 1e-4")
         check(ess >= N_TOTAL, f"{name} seed {seed}: posterior ESS {ess} < {N_TOTAL}")
         check(abs(logz - logz_band[0]) <= logz_band[1],
@@ -1346,10 +1386,10 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
         check(launched[ess_key] == iters - 1 and launched[other] == 0,
               f"{name} seed {seed}: {launched[ess_key]} {ess_key} launches for {iters - 1} "
               f"reweights at t >= 1, {launched[other]} {other}")
-        if draws_kernel:
-            check(launched["mutation_draws"] == steps,
+        if draws_kernel:  # a launch a step run (a chunk runs past the stop)
+            check(launched["mutation_draws"] == bodies >= steps,
                   f"{name} seed {seed}: {launched['mutation_draws']} mutation-draws launches "
-                  f"for {steps} MCMC steps")
+                  f"for {bodies} MCMC bodies ({steps} steps)")
         check(launched["normal"] == 0 and launched["bits"] == 0 and launched["gamma"] == 0
               and (draws_kernel or launched["mutation_draws"] == 0),
               f"{name} seed {seed}: unexpected PRNG launches {launched}")
@@ -1383,15 +1423,18 @@ def _under(event, name: str) -> bool:
     return False
 
 
-def steady_window(device, graphs: bool, first: int = 21, n: int = 5) -> dict:
-    """Iterations first..first+n-1 of A's seed 42 in one mode, under
-    torch.profiler with host and device activities: wall per iteration,
-    device busy time and idle share, blocking host reads (BLOCKING_CALLS)
-    per iteration, and the loops' chunk reads in the window; then the next
-    n iterations traced on the device only (no host ops recorded)."""
+def steady_window(s, graphs: bool, first: int = 21, n: int = 5,
+                  device_only: bool = True) -> dict:
+    """Iterations first..first+n-1 of sampler `s` (A, reset to seed 42) in
+    one mode, under torch.profiler with host and device activities: wall
+    per iteration, device busy time and idle share, blocking host reads
+    (BLOCKING_CALLS) per iteration, and the loops' chunk reads in the
+    window; then, if `device_only`, the next n iterations traced on the
+    device only (no host ops recorded). A sampler whose graphs were
+    captured replays them."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    s = canonical_sampler(device, SEEDS[0], clustering=True)
+    s.reset(random_state=SEEDS[0])
     core = s.state
     core.n_total = N_TOTAL
     core._pregrow_capacity()
@@ -1411,12 +1454,13 @@ def steady_window(device, graphs: bool, first: int = 21, n: int = 5) -> dict:
             wall = time.perf_counter() - t0
         reads = {k: v.get("reads", 0) - before.get(k, {}).get("reads", 0)
                  for k, v in loops.stats.items()}
-        with profile(activities=[ProfilerActivity.CUDA]) as prof_device:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                core._step(None, 0)
-            torch.cuda.synchronize()
-            wall_device = time.perf_counter() - t0
+        if device_only:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof_device:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    core._step(None, 0)
+                torch.cuda.synchronize()
+                wall_device = time.perf_counter() - t0
     finally:
         loops.graphs = False
     # The blocking calls the iterations made: those inside the "steady" range
@@ -1428,15 +1472,18 @@ def steady_window(device, graphs: bool, first: int = 21, n: int = 5) -> dict:
     events = prof.key_averages()
     device_ms = sum(_self_device_us(e) for e in events
                     if e.device_type == DeviceType.CUDA and not e.key.startswith("ps/")) / 1e3
-    device_only_ms = sum(_self_device_us(e) for e in prof_device.key_averages()
-                         if e.device_type == DeviceType.CUDA) / 1e3
     chunk_reads = sum(v for k, v in reads.items() if k != "beta")
-    return dict(graphs=graphs, wall_per_iter=wall / n, device_ms_per_iter=device_ms / n,
-                idle=1.0 - device_ms / (1e3 * wall),
-                device_only=dict(wall_per_iter=wall_device / n, device_ms_per_iter=device_only_ms / n,
-                                 idle=1.0 - device_only_ms / (1e3 * wall_device)),
-                blocking_per_iter=sum(blocking.values()) / n, blocking=blocking,
-                chunk_reads_per_iter=chunk_reads / n, reads=reads)
+    out = dict(graphs=graphs, first=first, n=n, wall_per_iter=wall / n,
+               device_ms_per_iter=device_ms / n, idle=1.0 - device_ms / (1e3 * wall),
+               blocking_per_iter=sum(blocking.values()) / n, blocking=blocking,
+               chunk_reads_per_iter=chunk_reads / n, reads=reads)
+    if device_only:
+        device_only_ms = sum(_self_device_us(e) for e in prof_device.key_averages()
+                             if e.device_type == DeviceType.CUDA) / 1e3
+        out["device_only"] = dict(wall_per_iter=wall_device / n,
+                                  device_ms_per_iter=device_only_ms / n,
+                                  idle=1.0 - device_only_ms / (1e3 * wall_device))
+    return out
 
 
 def phase_fused(device, ref: dict) -> dict:
@@ -1481,75 +1528,214 @@ def phase_fused(device, ref: dict) -> dict:
     check(timed["mcmc"]["replays"] > 0 and timed["mode_em"]["replays"] > 0,
           f"A fused: no replays {timed}")
 
+    return dict(launches=launched, wall=wall, iters=iters, loops=timed,
+                windows=steady_windows(s, "A"))
+
+
+def steady_windows(s, name: str, n: int = 5, device_only: bool = True) -> dict:
+    """Iterations 21 to 20 + n of A's seed 42 on sampler `s` in each mode
+    under the profiler; at most one blocking host read a loop chunk plus
+    READS_BESIDE_CHUNKS an iteration, and fewer than MAX_READS."""
     windows = {}
     for graphs in (False, True):
-        w = windows["on_device=True" if graphs else "on_device=False"] = steady_window(device,
-                                                                                       graphs)
-        print(f"A seed {SEEDS[0]} iterations 21-25 under the profiler, "
+        w = windows["on_device=True" if graphs else "on_device=False"] = steady_window(
+            s, graphs, n=n, device_only=device_only)
+        trace = ""
+        if device_only:
+            trace = (f"; iterations {21 + n}-{20 + 2 * n} with device activities only: "
+                     f"{1e3 * w['device_only']['wall_per_iter']:.1f} ms an iteration, device "
+                     f"{w['device_only']['device_ms_per_iter']:.1f} ms (idle "
+                     f"{100 * w['device_only']['idle']:.1f} %)")
+        print(f"{name} seed {SEEDS[0]} iterations 21-{20 + n} under the profiler, "
               f"{'graphs' if graphs else 'no graphs'}: {1e3 * w['wall_per_iter']:.1f} ms an "
               f"iteration, device {w['device_ms_per_iter']:.1f} ms (idle "
               f"{100 * w['idle']:.1f} %), blocking host reads {w['blocking_per_iter']:.1f} an "
               f"iteration {w['blocking']}, loop chunk reads {w['chunk_reads_per_iter']:.1f} an "
-              f"iteration {w['reads']}; iterations 26-30 with device activities only: "
-              f"{1e3 * w['device_only']['wall_per_iter']:.1f} ms an iteration, device "
-              f"{w['device_only']['device_ms_per_iter']:.1f} ms (idle "
-              f"{100 * w['device_only']['idle']:.1f} %)", flush=True)
+              f"iteration {w['reads']}{trace}", flush=True)
         check(w["blocking_per_iter"] <= w["chunk_reads_per_iter"] + READS_BESIDE_CHUNKS
               and w["blocking_per_iter"] < MAX_READS,
-              f"A {'graphs' if graphs else 'no graphs'}: {w['blocking_per_iter']} blocking reads "
-              f"an iteration for {w['chunk_reads_per_iter']} chunk reads")
-    return dict(launches=launched, wall=wall, iters=iters, loops=timed, windows=windows)
+              f"{name} {'graphs' if graphs else 'no graphs'}: {w['blocking_per_iter']} blocking "
+              f"reads an iteration for {w['chunk_reads_per_iter']} chunk reads")
+    return windows
 
 
-def run_b(device, dtype, name: str) -> list:
-    """B's iterations up to its B_MUTATIONS-th mutation, from a fresh sampler:
-    per iteration its number, wall, beta, MCMC steps, acceptance and kernel
-    launches; the counts are set to 0 first. Returns (sampler, rows)."""
-    s = Sampler(prior_transform, half_square, n_dim=N_DIM, n_particles=B_PARTICLES,
-                vectorize=True, clustering=False, hardware_prng=True,
-                history_capacity=B_CAPACITY, random_state=42, dtype=dtype, device=device)
+def phase_hardware_prng(device) -> dict:
+    """7: A with hardware_prng=True, seed 42, with run(on_device=False), then
+    with run(on_device=True) on a sampler whose seed-43 run captured the
+    graphs: the ladder, logZ, steps, calls, launches and the draws' final
+    state (generator, Philox key and call counter, host mirror and device
+    words) equal bit for bit; one mutation-draws launch a step body in
+    both; then the steady windows of both modes."""
+    eager = {}
+    launches, walls = run_canonical(device, "A clustered hardware_prng", SEEDS[:1], True, True,
+                                    CLUSTERED_LOGZ, runs=eager)
+    eager = eager[SEEDS[0]]
+    s = canonical_sampler(device, SEEDS[1], clustering=True, hardware_prng=True)
+    s.run(n_total=N_TOTAL, progress=False, on_device=True)  # warm-up: captures the graphs
+    warm = loop_stats(s)
+    s.reset(random_state=SEEDS[0])
+    reset_counts()
+    bodies = mcmc_bodies(s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.run(n_total=N_TOTAL, progress=False, on_device=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched, bodies = counts(), mcmc_bodies(s) - bodies
+    res, logz, iters = s.results(), s.evidence()[0], s.state.hist.t
+    stats = loop_stats(s)
+    timed = {k: {c: v.get(c, 0) - warm.get(k, {}).get(c, 0) for c in v} for k, v in stats.items()}
+    draws = s.state.draws
+    words = draws.calls.read()
+    print(f"A hardware_prng fused seed {SEEDS[0]}: wall={wall:.3f} s iters={iters} "
+          f"({1e3 * wall / iters:.1f} ms an iteration; on_device=False {eager['wall']:.3f} s, "
+          f"{1e3 * eager['wall'] / eager['iters']:.1f} ms) logz={logz!r} (on_device=False "
+          f"{eager['logz']!r}) mcmc_bodies={bodies} (on_device=False {eager['bodies']}) "
+          f"launches={launched}; call counter {draws.counter}, device words {words}", flush=True)
+    print(f"A hardware_prng fused loops in the timed run: {json.dumps(timed)}", flush=True)
+    for name in ("beta", "logz", "steps", "calls"):
+        check(res[name].tobytes() == eager["results"][name].tobytes(),
+              f"A hardware_prng fused: {name} differs from on_device=False")
+    check(logz == eager["logz"] and abs(logz - CLUSTERED_LOGZ[0]) <= CLUSTERED_LOGZ[1],
+          f"A hardware_prng fused: logZ {logz!r} against {eager['logz']!r}")
+    check(launched == eager["launches"] and bodies == eager["bodies"]
+          and launched["mutation_draws"] == bodies,
+          f"A hardware_prng fused: launches {launched} ({bodies} bodies) against "
+          f"on_device=False {eager['launches']} ({eager['bodies']} bodies)")
+    state = draws.get_state()
+    check(all(state[k].tobytes() == eager["draws"][k].tobytes() for k in eager["draws"])
+          and words == (draws.counter, draws.key),
+          f"A hardware_prng fused: final draw state {state['philox_counter']} / words {words} "
+          f"against on_device=False {eager['draws']['philox_counter']}")
+    check(timed["mcmc"].get("replays", 0) > 0 and all(
+        v.get("captures", 0) == 0 for v in timed.values()),
+          f"A hardware_prng fused: replays and captures {timed}")
+    # Three iterations, host and device traced, on this sampler's graphs:
+    # the profiler's own cost keeps the window short.
+    windows = steady_windows(s, "A hardware_prng", n=3, device_only=False)
+    return dict(launches=launches, launches_fused=launched, wall=wall, wall_eager=eager["wall"],
+                iters=iters, iters_eager=eager["iters"], loops=timed, windows=windows)
+
+
+def run_b(device, dtype, name: str, graphs: bool = False, s=None):
+    """B's iterations up to its B_MUTATIONS-th mutation, from a fresh sampler
+    (or `s`, reset to seed 42), with the loops' CUDA graphs on if `graphs`
+    (what run(on_device=True) turns on, core.py:225): per iteration its
+    number, wall, beta, logZ, MCMC steps and step bodies, acceptance, kernel
+    launches and the call counter after it; the counts are set to 0 first.
+    Returns (sampler, rows)."""
+    if s is None:
+        s = Sampler(prior_transform, half_square, n_dim=N_DIM, n_particles=B_PARTICLES,
+                    vectorize=True, clustering=False, hardware_prng=True,
+                    history_capacity=B_CAPACITY, random_state=42, dtype=dtype, device=device)
+    else:
+        s.reset(random_state=42)
+    loops = s.state._iteration.loops
     reset_counts()
     rows, mutations = [], 0
-    while mutations < B_MUTATIONS:
-        check(len(rows) < B_CAPACITY, f"{name}: {len(rows)} iterations and only {mutations} "
-              "mutations")
-        before = counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = s.sample()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launched = diff(counts(), before)
-        print(f"{name} iteration {out['iter']}: {wall:.3f} s beta={out['beta']:.6g} "
-              f"steps={out['steps']} acceptance={out['acceptance']:.4f} launches={launched}",
-              flush=True)
-        rows.append(dict(iter=int(out["iter"]), wall=wall, beta=float(out["beta"]),
-                         steps=int(out["steps"]), acceptance=float(out["acceptance"]),
-                         launches=launched))
-        mutations += out["beta"] > 0.0
+    loops.graphs = graphs
+    try:
+        while mutations < B_MUTATIONS:
+            check(len(rows) < B_CAPACITY, f"{name}: {len(rows)} iterations and only {mutations} "
+                  "mutations")
+            before, bodies = counts(), mcmc_bodies(s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = s.sample()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched, bodies = diff(counts(), before), mcmc_bodies(s) - bodies
+            print(f"{name} iteration {out['iter']}: {wall:.3f} s beta={out['beta']:.6g} "
+                  f"steps={out['steps']} bodies={bodies} acceptance={out['acceptance']:.4f} "
+                  f"launches={launched}", flush=True)
+            rows.append(dict(iter=int(out["iter"]), wall=wall, beta=out["beta"], logz=out["logz"],
+                             steps=int(out["steps"]), bodies=bodies,
+                             acceptance=out["acceptance"], launches=launched,
+                             counter=getattr(s.state.draws, "counter", None)))
+            mutations += out["beta"] > 0.0
+    finally:
+        loops.graphs = False
     return s, rows
 
 
+def profile_b(s, n_before: int) -> None:
+    """B's last mutation iteration, graphed, under torch.profiler after the
+    ones before it: wall, device time and idle share, and the host ops and
+    device kernels that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s.reset(random_state=42)
+    loops = s.state._iteration.loops
+    loops.graphs = True
+    try:
+        for _ in range(n_before):
+            s.sample()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = s.sample()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        loops.graphs = False
+    events = prof.key_averages()
+    dev = [(e.key, _self_device_us(e) / 1e3) for e in events
+           if e.device_type == DeviceType.CUDA and not e.key.startswith("ps/")]
+    device_ms = sum(ms for _, ms in dev)
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3) for e in events
+                   if e.device_type == DeviceType.CPU and not e.key.startswith("ps/")),
+                  key=lambda kv: -kv[1])[:8]
+    stages = sorted(((e.key, e.cpu_time_total / 1e3) for e in events if e.key.startswith("ps/")),
+                    key=lambda kv: -kv[1])
+    top = sorted(dev, key=lambda kv: -kv[1])[:6]
+    print(f"B graphed iteration {out['iter']} under the profiler: {1e3 * wall:.1f} ms, device "
+          f"{device_ms:.1f} ms (idle {100 * (1 - device_ms / (1e3 * wall)):.1f} %); stages "
+          f"{', '.join(f'{k} {v:.1f} ms' for k, v in stages)}; host self time "
+          f"{', '.join(f'{k} {v:.1f} ms' for k, v in host)}; device "
+          f"{', '.join(f'{k[:60]} {v:.2f} ms' for k, v in top)}", flush=True)
+
+
 def phase_large_ensemble(device, dtype=torch.float32) -> dict:
-    """B: the first four mutation iterations at N = 131,072; in float64 no
-    PRNG kernel runs (hardware_prng does not apply) and the ESS kernel is
-    the float64 one."""
+    """B: the first four mutation iterations at N = 131,072; in float32
+    eagerly and with the loops' CUDA graphs (a first pass captures them, a
+    second is timed), the same values and launches bit for bit, one normal
+    and one gamma launch a step body; in float64 no PRNG kernel runs
+    (hardware_prng does not apply) and the ESS kernel is the float64 one."""
     f64 = dtype == torch.float64
     name = "B float64" if f64 else "B"
     s, rows = run_b(device, dtype, name)
+    graphed = None
+    if not f64:
+        g, _ = run_b(device, dtype, "B graphed (capturing)", graphs=True)
+        g, graphed = run_b(device, dtype, "B graphed", graphs=True, s=g)
+        for a, b in zip(rows, graphed):
+            for k in ("iter", "beta", "logz", "steps", "bodies", "acceptance", "launches",
+                      "counter"):
+                check(a[k] == b[k], f"B graphed iteration {a['iter']}: {k} {b[k]!r} against "
+                      f"eager {a[k]!r}")
+        check(len(rows) == len(graphed), f"B graphed: {len(graphed)} iterations, {len(rows)} eager")
+        check(g.state.draws.calls.read() == (g.state.draws.counter, g.state.draws.key),
+              "B graphed: the call counter's device words and host mirror differ")
+        profile_b(g, len(graphed) - 1)
+        mut = [(a["wall"], b["wall"]) for a, b in zip(rows, graphed) if a["beta"] > 0.0]
+        print(f"B seconds a mutation iteration, eager / graphed: "
+              f"{', '.join(f'{a:.4f} / {b:.4f}' for a, b in mut)}; mean "
+              f"{sum(a for a, _ in mut) / len(mut):.4f} / {sum(b for _, b in mut) / len(mut):.4f}",
+              flush=True)
     betas = []
     for row in rows:
         if row["beta"] == 0.0:
             continue
-        launched, steps = row["launches"], row["steps"]
+        launched, bodies = row["launches"], row["bodies"]
         if f64:
             check(all(launched[k] == 0 for k in cuda_prng.LAUNCHES),
                   f"{name}: PRNG launches {launched} (hardware_prng does not apply)")
         else:
-            check(launched["normal"] == steps and launched["gamma"] == steps
-                  and launched["bits"] == 0 and launched["mutation_draws"] == 0,
-                  f"B: launches {launched} for {steps} MCMC steps (want 1 normal + 1 gamma a "
-                  "step)")
+            check(launched["normal"] == bodies and launched["gamma"] == bodies
+                  and bodies >= row["steps"] and launched["bits"] == 0
+                  and launched["mutation_draws"] == 0,
+                  f"B: launches {launched} for {bodies} MCMC step bodies (want 1 normal + 1 "
+                  "gamma a body)")
         check(row["acceptance"] > 0.1, f"{name}: acceptance {row['acceptance']}")
         check(not betas or row["beta"] > betas[-1], f"{name}: beta did not rise: {betas}")
         betas.append(row["beta"])
@@ -1592,7 +1778,7 @@ def phase_large_ensemble(device, dtype=torch.float32) -> dict:
     }, calls=10)
     print(f"{name}: ESS kernel at S={S} (t={hist.t}, {probes} probes): kernel {t['kernel']:.4f} ms, "
           f"plain {t['plain']:.4f} ms (median of 10); launches {total}", flush=True)
-    return total, errs, rows
+    return total, errs, dict(eager=rows, graphed=graphed)
 
 
 def phase_bimodal(device) -> dict:
@@ -2094,10 +2280,11 @@ LAUNCHES_ON = {
     "ess_bisect": "A (phase 6, seeds 42 and 43; phase 6b's seed 42 with its loops replayed "
                   "as graphs launches it as often as phase 6's seed 42)",
     "ess_bisect_f64": "A in float64 (phase 14)",
-    "mutation_draws": "A with hardware_prng (phase 7)",
-    "normal": "B (phase 8)",
+    "mutation_draws": "A with hardware_prng (phase 7, on_device=False; its on_device=True run "
+                      "launches it as often, by graph replays)",
+    "normal": "B (phase 8, eagerly; its graphed pass launches it as often, by replays)",
     "bits": "B (phase 8)",
-    "gamma": "B (phase 8)",
+    "gamma": "B (phase 8, eagerly; its graphed pass launches it as often, by replays)",
 }
 # Kernels that no Sampler path launches, and why: each must count 0 on every
 # path, and phase 4 still holds it against its plain version.
@@ -2121,8 +2308,11 @@ def kernel_table(rows: dict, launches: dict, floor: dict, split: dict, paths=Non
             "launches_on": LAUNCHES_ON[name] if launches else None,
             **({"off_path": OFF_PATH[name]} if name in OFF_PATH else {}),
             **{k: row[k] for k in ("device_ms", "library_device_ms", "gamma_flips",
-                                   "hw_uniform_launches", "shapes", "routes") if k in row},
+                                   "gamma_bits_unequal", "hw_uniform_launches", "shapes",
+                                   "routes") if k in row},
             "launch_floor_ms": floor["device_ms"], "call_split": split.get(name),
+            **({"call_split_counter": split[f"{name}_counter"]}
+               if f"{name}_counter" in split else {}),
             "launches_by_path": {p: n[name] for p, n in (paths or {}).items()},
         })
     return table
@@ -2144,11 +2334,16 @@ def main() -> None:
     device = torch.device("cuda")
     t_start = time.perf_counter()
 
+    def stamp(what: str) -> None:
+        print(f"[{time.perf_counter() - t_start:.1f} s] {what}", flush=True)
+
     kind = phase_device()
     print(f"package: {os.path.dirname(os.path.dirname(os.path.abspath(cuda_reweight.__file__)))}",
           flush=True)
     ptxas = phase_build()
+    stamp("phase 3: the ESS kernel")
     rows = {"ess_bisect": phase_ess_kernel(device), "ess_bisect_f64": phase_ess_kernel_f64(device)}
+    stamp("phase 4: the PRNG kernels")
     rows.update(phase_prng_kernels(device))
     floor = launch_floor(device)
     split = phase_call_split(device)
@@ -2158,31 +2353,42 @@ def main() -> None:
         print(json.dumps({"kernels": kernel_table(rows, {}, floor, split)}), flush=True)
         return
     paths = {}
+    stamp("phase 5: canonical unclustered")
     paths["unclustered_fused"], _ = run_canonical(device, "canonical unclustered fused",
                                                   SEEDS[:1], False, False, UNCLUSTERED_LOGZ,
                                                   on_device=True)
     eager = {}
+    stamp("phase 6: A")
     paths["A"], walls = run_canonical(device, "A clustered", SEEDS[:2], True, False,
                                       CLUSTERED_LOGZ, runs=eager)
+    stamp("phase 6b: A fused")
     fused = phase_fused(device, eager)
     paths["A_fused"] = fused["launches"]
-    paths["A_hardware_prng"], _ = run_canonical(device, "A clustered hardware_prng", SEEDS[:1],
-                                                True, True, CLUSTERED_LOGZ)
+    stamp("phase 7: A with hardware_prng")
+    hw = phase_hardware_prng(device)
+    paths["A_hardware_prng"], paths["A_hardware_prng_fused"] = hw["launches"], hw["launches_fused"]
+    stamp("phase 8: B")
     paths["B"], large_errs, b_rows = phase_large_ensemble(device)
     for name, err in large_errs.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    stamp("phases 9-10: C, the Gaussian")
     paths["C"] = phase_bimodal(device)
     paths["gaussian"] = phase_gaussian(device)
+    stamp("phase 11: the reference surface")
     for name, n in phase_reference_surface(device, walls[SEEDS[0]]).items():
         paths[f"reference_surface_{name}"] = n
+    stamp("phase 12: dynamic mode")
     dynamic = phase_dynamic(device)
     paths["dynamic"] = dynamic["launches"]
+    stamp("phase 13: cadence and a host likelihood")
     for name, n in phase_cadence_and_host(device).items():
         paths[name] = n
+    stamp("phase 14: float64")
     f64_paths, f64_errs = phase_float64(device, walls, fused["wall"])
     paths.update(f64_paths)
     for name, err in f64_errs.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    stamp("phase 15: the mesh")
     paths["A_mesh"] = phase_mesh(device, walls)
     if args.profile:
         phase_profile(device, args.profile)
@@ -2202,8 +2408,11 @@ def main() -> None:
     print(f"dynamic probes: {json.dumps(dynamic['probes'])}", flush=True)
     print(f"A fused: {json.dumps({k: fused[k] for k in ('wall', 'iters', 'loops', 'windows')})}",
           flush=True)
-    print(f"B walls by iteration (s): {json.dumps({r['iter']: r['wall'] for r in b_rows})}",
-          flush=True)
+    print("A hardware_prng: " + json.dumps({k: hw[k] for k in (
+        "wall", "wall_eager", "iters", "iters_eager", "loops", "windows")}), flush=True)
+    print("B walls by iteration (s), eager / graphed: " + json.dumps(
+        {r["iter"]: [r["wall"], g["wall"]] for r, g in zip(b_rows["eager"], b_rows["graphed"])}),
+        flush=True)
     print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"ptxas: {json.dumps(ptxas)}", flush=True)
     print(json.dumps({"kernels": kernel_table(rows, launches, floor, split, paths)}), flush=True)

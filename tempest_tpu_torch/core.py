@@ -9,8 +9,8 @@ block-bootstrap error), results and state-file extraction. The fitted
 cluster model is carried from iteration to iteration in `cluster_model`
 (in JAX, `_fused_model` and `_fused_fitted`), and saved with the state.
 
-A configuration of `fused.fused_route` (one device, ESS mode, the
-generator's draws, no host likelihood) runs the fused iteration
+A configuration of `fused.fused_route` (one device, ESS mode, no host
+likelihood) runs the fused iteration
 (`fused.py`) for `run()` and `sample()` alike, as JAX runs its fused
 iteration for both: its loops in chunks, one host read a chunk. Every
 route anneals in the one loop of `run_sampling`, whose termination test
@@ -20,8 +20,9 @@ takes the beta the iteration read (`iteration.beta`).
 CUDA graphs on (`loops.Loops.graphs`): each loop chunk is replayed as a
 graph, with the same results as `on_device=False`. The first draws object
 is kept for the sampler's life and reseeded in place, as the graphs hold
-its generator. The dispatch-budget chunking of the TPU whole-run program
-is not ported (ROADMAP.md queue 1, item 12).
+its generator (and, with `hardware_prng`, its call counter's words). The
+dispatch-budget chunking of the TPU whole-run program is not ported
+(ROADMAP.md queue 1, item 12).
 
 With a particle mesh (`config.mesh`, parallel/) each rank holds its block
 of the particle axis (core.py:158-165, :222-272): N must divide by the
@@ -157,13 +158,15 @@ class SamplerCore:
 
     def _make_draws(self, seed: int):
         """The draws of seed `seed`: made once, then reseeded in place, as
-        the loops' graphs hold their generator."""
+        the loops' graphs hold their generator and call counter."""
         if self.draws is not None:
             self.draws.reseed(seed)
             return self.draws
         draws = (HardwareDraws if self.config.hardware_prng else Draws)(
             seed, self.device, self.dtype)
-        self._iteration.loops.generators = [draws.generator]
+        loops = self._iteration.loops
+        loops.generators = [draws.generator]
+        loops.counters = [draws.calls] if isinstance(draws, HardwareDraws) else []
         return draws if self.group is None else BlockDraws(draws, self.rank, self.world)
 
     def _placeholder_model(self) -> ClusterModel:

@@ -47,8 +47,10 @@ class Draws:
     """The draws of one run, from a seeded generator on `device`.
 
     `graph_safe`: every draw comes from `generator` through PyTorch's
-    Philox kernels, so a CUDA graph that registers the generator replays
-    the draws of its capture's eager run from the current offset."""
+    Philox kernels (and, for `HardwareDraws`, from kernels that read their
+    call counter on the device), so a CUDA graph that registers the
+    generator (and the counter, `loops.Loops.counters`) replays the draws
+    of its capture's eager run from the current position."""
 
     graph_safe = True
 
@@ -131,31 +133,46 @@ class HardwareDraws(Draws):
     """`hardware_prng=True`: MCMC-step draws from the Philox kernels.
 
     The key is the seed's two 32-bit words and every kernel call takes the
-    next call index, so a reset (`reseed`) restarts the stream. The
-    warm-up and resampling draws, and the draws below the routing
-    thresholds, still come from the generator, as in JAX. So do all the
-    draws of a run in another dtype than float32: the kernels draw float32
-    only, and JAX's `hw_prng_supported` (pallas_prng.py:46-48) sends every
-    other dtype to threefry, so the flag does not apply there.
+    next call index, so a reset (`reseed`) restarts the stream. The key and
+    the call counter are a `cuda_prng.PhiloxCounter`: two words on the
+    sampler's device that the kernels read, and their host mirror (`key`,
+    `counter`), which `tell`, `seek` and `get_state` read. A step launches
+    on the words and adds its calls to them on the stream, so its launches
+    replay in a CUDA graph (`graph_safe`); a graph's replay does not run
+    this object's Python, so the loop that replays it advances the mirror
+    (`loops.Loops.counters`). The warm-up and resampling draws, and the
+    draws below the routing thresholds, still come from the generator, as
+    in JAX. So do all the draws of a run in another dtype than float32: the
+    kernels draw float32 only, and JAX's `hw_prng_supported`
+    (pallas_prng.py:46-48) sends every other dtype to threefry, so the flag
+    does not apply there.
     """
 
-    @property
-    def graph_safe(self) -> bool:
-        """Only where the flag does not apply: the kernels' call counter is
-        a host integer, which a graph would freeze."""
-        return self.dtype != torch.float32
+    calls: Optional[cuda_prng.PhiloxCounter] = None
 
     def reseed(self, seed: int) -> None:
         super().reseed(seed)
-        self.key = philox.key_from_seed(seed)
-        self.counter = 0
+        key = philox.key_from_seed(seed)
+        if self.calls is None:
+            self.calls = cuda_prng.PhiloxCounter(key, self.device)
+        else:  # the same words, which CUDA graphs may hold
+            self.calls.set_key(key)
+            self.calls.seek(0)
+
+    @property
+    def key(self) -> philox.Key:
+        return self.calls.key
+
+    @property
+    def counter(self) -> int:
+        return self.calls.counter
 
     def tell(self):
-        return super().tell(), self.counter
+        return super().tell(), self.calls.counter
 
     def seek(self, position) -> None:
         super().seek(position[0])
-        self.counter = position[1]
+        self.calls.seek(position[1])
 
     def get_state(self) -> Dict[str, np.ndarray]:
         return {**super().get_state(), "philox_key": np.array(self.key, dtype=np.uint32),
@@ -164,31 +181,33 @@ class HardwareDraws(Draws):
     def set_state(self, state: Dict[str, np.ndarray]) -> None:
         super().set_state(state)
         if "philox_key" in state:  # absent from a file written by plain Draws
-            self.key = tuple(int(w) for w in state["philox_key"])
-            self.counter = int(state["philox_counter"])
-
-    def _calls(self, n: int) -> int:
-        first = self.counter
-        self.counter += n
-        return first
+            self.calls.set_key(tuple(int(w) for w in state["philox_key"]))
+            self.calls.seek(int(state["philox_counter"]))
 
     def mcmc_step(self, n_candidates, n, d, gamma_shape):
         if self.dtype != torch.float32:
             return super().mcmc_step(n_candidates, n, d, gamma_shape)
         z_shape = (n_candidates, n, d)
         n_z = n_candidates * n * d
+        calls = self.calls
         if gamma_shape is not None and n_z <= FUSED_DRAWS_MAX_ELEMS:  # tpCN only
-            return cuda_prng.hw_mutation_draws(self.key, self._calls(1), gamma_shape, z_shape)
+            out = calls.mutation_draws(0, gamma_shape, z_shape)
+            calls.advance(1)
+            return out
+        used = 0
         g = None
         if gamma_shape is not None:
             if n >= HW_GAMMA_MIN_WALKERS:
-                g = cuda_prng.hw_gamma(self.key, self._calls(philox.GAMMA_CALLS), gamma_shape)
+                g = calls.gamma(used, gamma_shape)
+                used += philox.GAMMA_CALLS
             else:
                 g = torch._standard_gamma(gamma_shape, generator=self.generator)
         if n_z >= HW_NORMAL_MIN_ELEMS:
-            z = cuda_prng.hw_normal(self.key, self._calls(1), z_shape, self.device)
+            z = calls.normal(used, z_shape)
+            used += 1
         else:
             z = torch.randn(z_shape, generator=self.generator, dtype=self.dtype, device=self.device)
+        calls.advance(used)
         return z, g, self._uniform((n,))
 
 

@@ -18,16 +18,18 @@ the device with its termination test there (:411-426). Here:
   loop chunk (the mode EM, the GMM EM, each split round's head and tail,
   the MCMC steps with the likelihood inside) is captured once per shape as
   a CUDA graph and replayed from static buffers updated in place
-  (`loops.py`); the draws' generator is registered with each graph. A
+  (`loops.py`); the draws' generator is registered with each graph, and
+  the hardware-PRNG call counter with the loops (`Loops.counters`). A
   capture that fails raises `loops.CaptureError`. Without graphs
   (`on_device=False`, `sample()`, or the CPU) the same chunks run eagerly,
   so the two give the same results, as in JAX.
 
-The fused route covers one device and the generator's draws in ESS mode,
-with or without clustering, at any `cluster_every`, in float32 or float64
-(`fused_route`). A mesh, dynamic mode, `hardware_prng=True` in float32
-(whose Philox counters are host integers) and `host_likelihood=True` keep
-the eager route of `iteration.py`, whose loops read after every body. The
+The fused route covers one device in ESS mode, with or without
+clustering, at any `cluster_every`, in float32 or float64, with the
+generator's draws or `hardware_prng=True` (whose kernels read their call
+counter from the device, `draws.HardwareDraws`; `fused_route`). A mesh,
+dynamic mode and `host_likelihood=True` keep the eager route of
+`iteration.py`, whose loops read after every body. The
 TPU-only parts of the JAX module are not ported: the layout pins
 (:253-292), donation (:295-312) and the relay watchdog's dispatch budget
 (core.py:366-463).
@@ -36,8 +38,6 @@ TPU-only parts of the JAX module are not ported: the layout pins
 from __future__ import annotations
 
 from typing import Callable
-
-import torch
 
 from .config import SamplerConfig
 from .iteration import make_iteration
@@ -51,8 +51,7 @@ CHUNKS = {"mode_em": 4, "gmm_em": 4, "mcmc": 8}
 def fused_route(config: SamplerConfig) -> bool:
     """Whether `config` runs the fused iteration."""
     cfg = config
-    return (cfg.mesh is None and cfg.volume_variation is None and not cfg.host_likelihood
-            and not (cfg.hardware_prng and cfg.dtype == torch.float32))
+    return cfg.mesh is None and cfg.volume_variation is None and not cfg.host_likelihood
 
 
 def make_fused_iteration(

@@ -19,11 +19,15 @@ runs each chunk as a `torch.cuda.CUDAGraph`:
   the carry (so the next entry may overwrite the buffers);
 - a chunk of a given length is captured once, after one warm-up run of
   its bodies on the capture stream whose effects are undone (the
-  registered generators' Philox offsets and the kernels' launch counts
-  are put back), and replayed from then on;
+  registered generators' Philox offsets, the registered call counters and
+  the kernels' launch counts are put back), and replayed from then on;
 - the generators in `generators` are registered with every graph, so a
   replay draws what the eager bodies draw from the same offset and
   advances the offset as they would;
+- `counters` holds the call counters of the hardware-PRNG kernels
+  (`cuda_prng.PhiloxCounter`), whose device words the captured bodies
+  read and advance; a capture leaves each where it was, and every replay
+  advances its host mirror by what the capture's bodies advanced it;
 - a capture counts no kernel launch; every replay adds the launches its
   capture made (`launch_counts`), so a kernel's count stays its true
   number of launches;
@@ -72,27 +76,32 @@ def _signature(tensors: Tensors) -> tuple:
 
 
 class _Graph:
-    """One captured chunk and the kernel launches its capture made;
-    `outputs` holds the tensors a straight-line stretch returns."""
+    """One captured chunk, the kernel launches its capture made and the
+    calls (counter, n) it draws; `outputs` holds the tensors a
+    straight-line stretch returns."""
 
-    def __init__(self, graph: torch.cuda.CUDAGraph, launches: Dict[str, int]):
-        self.graph, self.launches = graph, launches
+    def __init__(self, graph: torch.cuda.CUDAGraph, launches: Dict[str, int], calls: list):
+        self.graph, self.launches, self.calls = graph, launches, calls
         self.outputs: Tensors = {}
 
     def replay(self) -> None:
         self.graph.replay()
         _add_launches(self.launches)
+        for counter, n in self.calls:  # the mirrors of what the replay drew
+            counter.counter += n
 
 
 class Loops:
     """The loops of one sampler: chunk lengths, reads, and the graph cache."""
 
     def __init__(self, device, chunks: Optional[Dict[str, int]] = None, graphs: bool = False,
-                 generators: Optional[List[torch.Generator]] = None):
+                 generators: Optional[List[torch.Generator]] = None,
+                 counters: Optional[list] = None):
         self.device = torch.device(device)
         self.chunks = dict(chunks or {})
         self.graphs = graphs
         self.generators = list(generators or [])
+        self.counters = list(counters or [])
         self.stats: Dict[str, Counter] = defaultdict(Counter)
         self._statics: Dict[tuple, tuple] = {}
         self._graphs: Dict[tuple, _Graph] = {}
@@ -189,6 +198,7 @@ class Loops:
             self._stream = torch.cuda.Stream(self.device)
         stream, current = self._stream, torch.cuda.current_stream(self.device)
         offsets = [g.get_offset() for g in self.generators]
+        calls = [c.counter for c in self.counters]
         before = launch_counts()
         # Warm-up: libraries and workspaces meet the capture stream eagerly.
         stream.wait_stream(current)
@@ -198,6 +208,8 @@ class Loops:
         _add_launches({k: v - before[k] for k, v in launch_counts().items()}, -1)
         for g, offset in zip(self.generators, offsets):
             g.set_offset(offset)
+        for c, n in zip(self.counters, calls):
+            c.seek(n)
 
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:
@@ -218,8 +230,11 @@ class Loops:
         current.wait_stream(stream)
         captured = {k: v - before[k] for k, v in launch_counts().items()}
         _add_launches(captured, -1)
+        drawn = [(c, c.counter - n) for c, n in zip(self.counters, calls)]
+        for c, n in zip(self.counters, calls):  # the capture ran nothing on the device
+            c.counter = n
         self.stats[name]["captures"] += 1
-        return _Graph(graph, captured)
+        return _Graph(graph, captured, [(c, k) for c, k in drawn if k])
 
     def _end_failed_capture(self, graph) -> None:
         try:

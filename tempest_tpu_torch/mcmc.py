@@ -30,10 +30,12 @@ longer one its first chunk is the `n_steps d` steps the clamp always runs,
 and each later chunk runs that many steps before one read. A chunk that
 runs past the stop consumes draws the next stage must not see: the draws
 object is put back (`Draws.seek`) where the last real step left it, from
-its position before each step (an eager chunk), or its generator's Philox
-offset before and after a replay, which every step advances alike
-(graph-safe draws keep all their state there: `HardwareDraws` in float64
-leaves its kernel counter alone). A draws object without `tell`/`seek` (a
+its position before each step (an eager chunk), or from its position
+before and after a replay, which every step of one shape advances alike:
+the generator's Philox offset and, for `HardwareDraws`, its call counter
+(1 call a step on the mutation-draws route, 13 + 1 on the gamma and
+normal route, 0 below the thresholds), whose host mirror the replay
+advanced (`loops.Loops.counters`). A draws object without `tell`/`seek` (a
 test's one-iteration source) is not put back. `steps` and `n_call_sweeps`
 count the real steps only.
 
@@ -103,6 +105,15 @@ def _tensors(obj) -> dict:
     """A dataclass's tensor fields (None left out), by name."""
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)
             if getattr(obj, f.name) is not None}
+
+
+def _interpolate(p0, p1, j: int, length: int):
+    """The position before step j of `length` steps that moved the draws
+    from p0 to p1: integers, or tuples of them (HardwareDraws' generator
+    offset and call counter)."""
+    if isinstance(p0, tuple):
+        return tuple(_interpolate(a, b, j, length) for a, b in zip(p0, p1))
+    return p0 + j * ((p1 - p0) // length)
 
 
 def _quadratic(diff: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
@@ -301,10 +312,12 @@ class MCMCKernel:
         s = self.initial_state(u, x, logl, modes.k_max, blobs)
         n, d = u.shape
         loops = loops or Loops(u.device)
-        if loops.graphed and not (getattr(draws, "graph_safe", False)
-                                  and draws.generator in loops.generators):
+        if loops.graphed and not (
+                getattr(draws, "graph_safe", False) and draws.generator in loops.generators
+                and (getattr(draws, "calls", None) is None or draws.calls in loops.counters)):
             raise ValueError("a graphed MCMC loop needs graph-safe draws (draws.Draws) whose "
-                             "generator is registered with its Loops (Loops.generators)")
+                             "generator (Loops.generators) and call counter (Loops.counters, "
+                             "HardwareDraws) are registered with its Loops")
 
         def body(c, k):
             z, g, u_acc = draws.mcmc_step(self.n_candidates, n, d, k.get("gamma_shape"))
@@ -315,20 +328,15 @@ class MCMCKernel:
         run = loops.start("mcmc", body, _tensors(s), _tensors(w), static=(id(draws),))
         chunk = loops.chunk("mcmc")
         length = int(self.n_steps_min) if chunk > 1 else 1
-        if run.graphed:  # a replay moves only the generator's Philox offset
-            gen = draws.generator
-            tell, seek = gen.get_offset, gen.set_offset
-        else:
-            tell, seek = getattr(draws, "tell", None), getattr(draws, "seek", None)
+        tell, seek = getattr(draws, "tell", None), getattr(draws, "seek", None)
         positions = []  # the draws' position before each step run
         while True:
             if tell is None:
                 run.advance(length)
-            elif run.graphed:  # every step advances the offset alike
+            elif run.graphed:  # every step advances each part of the position alike
                 p0 = tell()
                 run.advance(length)
-                per_step = (tell() - p0) // length
-                positions += [p0 + j * per_step for j in range(length)]
+                positions += [_interpolate(p0, tell(), j, length) for j in range(length)]
             else:
                 run.advance(length, before_body=lambda: positions.append(tell()))
             done, steps = run.read("done", "iteration")

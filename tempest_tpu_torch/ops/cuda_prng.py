@@ -7,31 +7,34 @@ nvcc for sm_90a at first use and bound with ctypes; the plain versions are
 in `ops/philox.py`, with the same Philox4x32-10 counter layout, so a
 kernel and its plain version give the same words.
 
-A call takes the run's key (two 32-bit words) and a call index `counter`
-(host integers, so no launch syncs the host) and draws what JAX would draw
-from a fresh key. `hw_gamma` is one launch of the gamma kernel, where the
-JAX function composes 13 Pallas calls with elementwise XLA ops
+A public call takes the run's key (two 32-bit words) and a call index
+`counter` (host integers, so no launch syncs the host) and draws what JAX
+would draw from a fresh key. `hw_gamma` is one launch of the gamma kernel,
+where the JAX function composes 13 Pallas calls with elementwise XLA ops
 (pallas_prng.py:293-306); it draws the words of call indices counter ..
 counter + 12 in the layout of `philox.gamma`, its plain version, so a run
 that resumes from a file written before keeps its stream.
 
-`hw_mutation_draws` launches one grid: CTAs of 256 threads, the first
-ceil(8 N / 256) for the walkers (8 lanes each: six Marsaglia-Tsang rounds
-side by side, the boost/accept block, one idle lane), the rest for the
-R N d proposal normals (4 a thread). Its outputs are views of one buffer,
-and its launch path is short: the C function is looked up once, the stream
-is read without a device switch (the wrappers switch only for a device
-other than the current one), and only the dtype, contiguity and 32-bit
-index checks stay.
+`PhiloxCounter` is the call counter of a draws object
+(`draws.HardwareDraws`): its key and call index live in two 64-bit words
+on the device, which the normal, gamma and mutation-draws kernels read, and
+in a host mirror. A step launches on the words and then adds its calls to
+them on the stream, so no launch takes a host integer that a CUDA graph
+would freeze, and a replayed graph draws the next calls. What is constant
+per counter (the checked key words, the device index, the words' address)
+is resolved once; a launch checks only its tensors and the 2^64 bound of
+the mirror. The C entries switch to the tensors' device themselves.
 
 Dispatch is by device only, as in `ops/cuda_reweight.py`: a CPU tensor
-takes the plain version, a CUDA float32 tensor the kernel, anything else
-raises. `LAUNCHES` counts each kernel's launches in this process.
+takes the plain version (given the mirror, for a counter), a CUDA float32
+tensor the kernel, anything else raises. `LAUNCHES` counts each kernel's
+launches in this process.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
@@ -39,19 +42,19 @@ import torch
 from . import _build, philox
 from .philox import Key
 
+_P, _I64, _U32, _U64, _INT = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint64,
+                              ctypes.c_int)
 LIBRARY = _build.CudaLibrary(
     "prng_draws.cu",
     {
-        "tempest_normal": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
-                           ctypes.c_uint64, ctypes.c_void_p],
-        "tempest_bits": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
-                         ctypes.c_uint64, ctypes.c_void_p],
-        "tempest_mutation_draws": [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32,
-            ctypes.c_uint32, ctypes.c_uint64, ctypes.c_void_p,
-        ],
-        "tempest_gamma": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
-                          ctypes.c_uint32, ctypes.c_uint64, ctypes.c_void_p],
+        # (out, total, k0, k1, counter, state, device, stream)
+        "tempest_normal": [_P, _I64, _U32, _U32, _U64, _P, _INT, _P],
+        # (out, total, k0, k1, counter, device, stream)
+        "tempest_bits": [_P, _I64, _U32, _U32, _U64, _INT, _P],
+        # (alpha, out, n_z, n_walkers, k0, k1, counter, state, device, stream)
+        "tempest_mutation_draws": [_P, _P, _I64, _I64, _U32, _U32, _U64, _P, _INT, _P],
+        # (alpha, out, n, k0, k1, counter, state, device, stream)
+        "tempest_gamma": [_P, _P, _I64, _U32, _U32, _U64, _P, _INT, _P],
     },
     # No FMA contraction: the plain version's separate elementwise ops round
     # every product, and the kernel must round the same way.
@@ -74,13 +77,31 @@ def _route(device: torch.device, what: str) -> bool:
     return True
 
 
-def _check_call(key: Key, counter: int, total: int) -> None:
-    if not all(0 <= int(k) <= philox.MASK32 for k in key):
+def _check_key(key: Key) -> Tuple[int, int]:
+    k0, k1 = (int(k) for k in key)
+    if not (0 <= k0 <= philox.MASK32 and 0 <= k1 <= philox.MASK32):
         raise ValueError(f"key words must be 32-bit unsigned, got {key}")
-    if not 0 <= int(counter) < (1 << 64):
-        raise ValueError(f"counter must be a 64-bit unsigned index, got {counter}")
-    if -(-total // 4) > _MAX_BLOCKS:
+    return k0, k1
+
+
+def _check_calls(counter: int, calls: int, what: str) -> None:
+    """Call indices counter .. counter + calls - 1 must fit 64 bits."""
+    if not 0 <= counter or counter + calls > 1 << 64:
+        raise ValueError(f"{what} uses call indices {counter} .. {counter + calls - 1}: a call "
+                         "index is a 64-bit unsigned integer")
+
+
+def _check_total(total: int) -> None:
+    if total > 4 * _MAX_BLOCKS:
         raise ValueError(f"{total} draws exceed one call's 2^32 blocks of 4")
+
+
+def _check_alpha(alpha: torch.Tensor) -> None:
+    if alpha.dtype != torch.float32 or not alpha.is_contiguous():
+        raise ValueError(
+            f"alpha must be a contiguous float32 tensor (got {alpha.dtype}, "
+            f"contiguous={alpha.is_contiguous()})"
+        )
 
 
 def _function(name: str):
@@ -90,50 +111,94 @@ def _function(name: str):
     return fn
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def _stream(index: int) -> int:
+    """The current stream of CUDA device `index` (a capture's stream inside
+    a capture)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
-def _elsewhere(device: torch.device) -> bool:
-    """True for a CUDA device other than the current one: the C entries
-    launch on the current device, so the wrapper switches to it first."""
-    return device.index is not None and device.index != torch.cuda.current_device()
+def _index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None else device.index
 
 
+# ---------------------------------------------------------------------------
+# Launches: k0, k1 and counter from the host, or from `state` (its address,
+# 0 for none) on the device.
+# ---------------------------------------------------------------------------
+def _normal(shape, device: torch.device, index: int, k0, k1, counter, state) -> torch.Tensor:
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    total = out.numel()
+    if total:
+        _build.check(_function("tempest_normal")(
+            out.data_ptr(), total, k0, k1, counter, state, index, _stream(index)), "normal")
+        LAUNCHES["normal"] += 1
+    return out
+
+
+def _gamma(alpha: torch.Tensor, index: int, k0, k1, counter, state) -> torch.Tensor:
+    _check_alpha(alpha)
+    out = torch.empty(alpha.shape, dtype=torch.float32, device=alpha.device)
+    n = alpha.numel()
+    if n:
+        _build.check(_function("tempest_gamma")(
+            alpha.data_ptr(), out.data_ptr(), n, k0, k1, counter, state, index, _stream(index)),
+            "gamma")
+        LAUNCHES["gamma"] += 1
+    return out
+
+
+def _mutation_draws(alpha: torch.Tensor, z_shape, index: int, k0, k1, counter, state):
+    _check_alpha(alpha)
+    R, N, d = z_shape
+    n_z = R * N * d
+    out = torch.empty(n_z + 2 * N, dtype=torch.float32, device=alpha.device)
+    z, g, u = out.split((n_z, N, N))
+    if N:
+        _build.check(_function("tempest_mutation_draws")(
+            alpha.data_ptr(), out.data_ptr(), n_z, N, k0, k1, counter, state, index,
+            _stream(index)), "mutation_draws")
+        LAUNCHES["mutation_draws"] += 1
+    return z.view(z_shape), g, u
+
+
+def _check_mutation_shapes(alpha: torch.Tensor, z_shape) -> None:
+    R, N, d = z_shape
+    if alpha.dim() != 1 or alpha.shape[0] != N:
+        raise ValueError(f"alpha must have shape ({N},), got {tuple(alpha.shape)}")
+    _check_total(R * N * d)
+    if N > _MAX_BLOCKS:  # the walker index is one 32-bit counter word
+        raise ValueError(f"{N} walkers exceed the 2^32 a call can index")
+
+
+# ---------------------------------------------------------------------------
+# The public functions: a host key and call index
+# ---------------------------------------------------------------------------
 def hw_normal(key: Key, counter: int, shape, device) -> torch.Tensor:
     """Standard normals of `shape`, float32, by paired Box-Muller."""
     device = torch.device(device)
     total = int(torch.Size(shape).numel())
-    _check_call(key, counter, total)
+    k0, k1 = _check_key(key)
+    _check_calls(int(counter), 1, "hw_normal")
+    _check_total(total)
     if not _route(device, "hw_normal"):
         return philox.normal(key, counter, total, device).reshape(shape)
-    if _elsewhere(device):
-        with torch.cuda.device(device):
-            return hw_normal(key, counter, shape, device)
-    out = torch.empty(shape, dtype=torch.float32, device=device)
-    if total:
-        err = _function("tempest_normal")(
-            out.data_ptr(), total, key[0], key[1], counter, _stream(device))
-        _build.check(err, "normal")
-        LAUNCHES["normal"] += 1
-    return out
+    return _normal(shape, device, _index(device), k0, k1, counter, None)
 
 
 def hw_bits(key: Key, counter: int, shape, device) -> torch.Tensor:
     """Raw 32-bit words of `shape` as int32 bit patterns."""
     device = torch.device(device)
     total = int(torch.Size(shape).numel())
-    _check_call(key, counter, total)
+    k0, k1 = _check_key(key)
+    _check_calls(int(counter), 1, "hw_bits")
+    _check_total(total)
     if not _route(device, "hw_bits"):
         return philox.bits(key, counter, total, device).reshape(shape)
-    if _elsewhere(device):
-        with torch.cuda.device(device):
-            return hw_bits(key, counter, shape, device)
     out = torch.empty(shape, dtype=torch.int32, device=device)
     if total:
-        err = _function("tempest_bits")(
-            out.data_ptr(), total, key[0], key[1], counter, _stream(device))
-        _build.check(err, "bits")
+        index = _index(device)
+        _build.check(_function("tempest_bits")(
+            out.data_ptr(), total, k0, k1, counter, index, _stream(index)), "bits")
         LAUNCHES["bits"] += 1
     return out
 
@@ -146,28 +211,12 @@ def hw_uniform(key: Key, counter: int, shape, device) -> torch.Tensor:
 def hw_gamma(key: Key, counter: int, alpha: torch.Tensor) -> torch.Tensor:
     """gamma(alpha, 1) draws of alpha's shape, float32, by Marsaglia-Tsang
     in one launch on the words of call indices counter .. counter + 12."""
-    _check_call(key, counter, alpha.numel())
-    last = int(counter) + philox.GAMMA_CALLS - 1
-    if last >= 1 << 64:
-        raise ValueError(f"hw_gamma uses call indices {counter} .. {last}: past 2^64 - 1")
+    k0, k1 = _check_key(key)
+    _check_calls(int(counter), philox.GAMMA_CALLS, "hw_gamma")
+    _check_total(alpha.numel())
     if not _route(alpha.device, "hw_gamma"):
         return philox.gamma(key, counter, alpha)
-    if _elsewhere(alpha.device):
-        with torch.cuda.device(alpha.device):
-            return hw_gamma(key, counter, alpha)
-    if alpha.dtype != torch.float32 or not alpha.is_contiguous():
-        raise ValueError(
-            f"alpha must be a contiguous float32 tensor (got {alpha.dtype}, "
-            f"contiguous={alpha.is_contiguous()})"
-        )
-    out = torch.empty(alpha.shape, dtype=torch.float32, device=alpha.device)
-    n = alpha.numel()
-    if n:
-        err = _function("tempest_gamma")(
-            alpha.data_ptr(), out.data_ptr(), n, key[0], key[1], counter, _stream(alpha.device))
-        _build.check(err, "gamma")
-        LAUNCHES["gamma"] += 1
-    return out
+    return _gamma(alpha, _index(alpha.device), k0, k1, counter, None)
 
 
 def hw_mutation_draws(
@@ -175,30 +224,97 @@ def hw_mutation_draws(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(z (R, N, d), g (N,), acceptance uniforms (N,)) for one tpCN step in
     one launch; alpha (N,) are the gamma shapes."""
-    R, N, d = z_shape
-    if alpha.dim() != 1 or alpha.shape[0] != N:
-        raise ValueError(f"alpha must have shape ({N},), got {tuple(alpha.shape)}")
-    n_z = R * N * d
-    _check_call(key, counter, n_z)
-    if N > _MAX_BLOCKS:  # the walker index is one 32-bit counter word
-        raise ValueError(f"{N} walkers exceed the 2^32 a call can index")
+    _check_mutation_shapes(alpha, z_shape)
+    k0, k1 = _check_key(key)
+    _check_calls(int(counter), 1, "hw_mutation_draws")
     if not _route(alpha.device, "hw_mutation_draws"):
         return philox.mutation_draws(key, counter, alpha, z_shape)
-    if _elsewhere(alpha.device):
-        with torch.cuda.device(alpha.device):
-            return hw_mutation_draws(key, counter, alpha, z_shape)
-    if alpha.dtype != torch.float32 or not alpha.is_contiguous():
-        raise ValueError(
-            f"alpha must be a contiguous float32 tensor (got {alpha.dtype}, "
-            f"contiguous={alpha.is_contiguous()})"
-        )
-    out = torch.empty(n_z + 2 * N, dtype=torch.float32, device=alpha.device)
-    z, g, u = out.split((n_z, N, N))
-    if N:
-        err = _function("tempest_mutation_draws")(
-            alpha.data_ptr(), out.data_ptr(), n_z, N, key[0], key[1], counter,
-            _stream(alpha.device),
-        )
-        _build.check(err, "mutation_draws")
-        LAUNCHES["mutation_draws"] += 1
-    return z.view(z_shape), g, u
+    return _mutation_draws(alpha, z_shape, _index(alpha.device), k0, k1, counter, None)
+
+
+# ---------------------------------------------------------------------------
+# The call counter of a draws object
+# ---------------------------------------------------------------------------
+def _as_int64(word: int) -> int:
+    """A 64-bit unsigned word as the int64 with the same bits."""
+    return word - (1 << 64) if word >= 1 << 63 else word
+
+
+class PhiloxCounter:
+    """A key and a 64-bit call counter on `device`, mirrored on the host.
+
+    `state` holds two int64 words, the call counter and the key (k0 | k1 <<
+    32); `key` and `counter` are their host mirror. `normal`, `gamma` and
+    `mutation_draws` draw calls counter + offset on, as the public
+    functions with that call index would; on a CUDA device the kernels
+    read the index and key from `state`, on the CPU the plain versions are
+    given the mirror. `advance(calls)` moves both past a step's calls, the
+    device word by an add on the stream. `seek` and `set_key` write the
+    words outside any capture.
+    """
+
+    def __init__(self, key: Key, device, counter: int = 0):
+        self.device = torch.device(device)
+        self.state = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self._word = self.state[:1]
+        self._cuda = _route(self.device, "PhiloxCounter")
+        self._index = self.state.device.index if self._cuda else -1
+        self._state_ptr = self.state.data_ptr() if self._cuda else None
+        self.set_key(key)
+        self.seek(counter)
+
+    def set_key(self, key: Key) -> None:
+        k0, k1 = _check_key(key)
+        self.key = (k0, k1)
+        self.state[1:].fill_(_as_int64(k0 | k1 << 32))
+
+    def seek(self, counter: int) -> None:
+        """Set the call counter (host mirror and device word) to `counter`."""
+        counter = int(counter)
+        _check_calls(counter, 0, "PhiloxCounter")
+        self.counter = counter
+        self._word.fill_(_as_int64(counter))
+
+    def advance(self, calls: int) -> None:
+        """Count `calls` more call indices as used, on the host and the device."""
+        if calls:
+            self.counter += calls
+            self._word.add_(calls)
+
+    def _first(self, offset: int, calls: int, what: str) -> int:
+        first = self.counter + offset
+        _check_calls(first, calls, what)
+        return first
+
+    def _check_device(self, alpha: torch.Tensor) -> None:
+        if alpha.device != self.state.device:
+            raise ValueError(f"alpha on {alpha.device}, the call counter on {self.state.device}")
+
+    def normal(self, offset: int, shape) -> torch.Tensor:
+        first = self._first(offset, 1, "normal")
+        total = math.prod(shape)
+        _check_total(total)
+        if not self._cuda:
+            return philox.normal(self.key, first, total, self.device).reshape(shape)
+        return _normal(shape, self.device, self._index, 0, 0, offset, self._state_ptr)
+
+    def gamma(self, offset: int, alpha: torch.Tensor) -> torch.Tensor:
+        first = self._first(offset, philox.GAMMA_CALLS, "gamma")
+        self._check_device(alpha)
+        _check_total(alpha.numel())
+        if not self._cuda:
+            return philox.gamma(self.key, first, alpha)
+        return _gamma(alpha, self._index, 0, 0, offset, self._state_ptr)
+
+    def mutation_draws(self, offset: int, alpha: torch.Tensor, z_shape):
+        _check_mutation_shapes(alpha, z_shape)
+        self._check_device(alpha)
+        first = self._first(offset, 1, "mutation_draws")
+        if not self._cuda:
+            return philox.mutation_draws(self.key, first, alpha, z_shape)
+        return _mutation_draws(alpha, z_shape, self._index, 0, 0, offset, self._state_ptr)
+
+    def read(self) -> Tuple[int, Key]:
+        """(call counter, key) as `state` holds them: a host read, for checks."""
+        c, k = (int(v) & (2**64 - 1) for v in self.state.tolist())
+        return c, (k & philox.MASK32, k >> 32)

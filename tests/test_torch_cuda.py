@@ -31,6 +31,12 @@ MCMC steps) gives the eager chunk's values bit for bit and draws the eager
 step's numbers; the ESS kernel captures, and each replay counts its launch;
 `run(on_device=True)` repeats `on_device=False` bit for bit; a likelihood
 that reads the host fails its capture with an error naming on_device=False.
+With `hardware_prng=True` in float32 the PRNG kernels read their call
+counter from the device (`cuda_prng.PhiloxCounter`): on each of the three
+routes of `HardwareDraws` (thresholds lowered) a graphed MCMC loop and a
+graphed run repeat the eager ones bit for bit, with the same kernel
+launches and the same final call counter on the host and on the device,
+and a capture leaves the counter where it was.
 """
 
 import math
@@ -44,9 +50,10 @@ import torch
 
 from tempest_tpu_torch import Sampler
 from tempest_tpu_torch import cluster as tc
+from tempest_tpu_torch import draws as draws_mod
 from tempest_tpu_torch import modes as tm
 from tempest_tpu_torch.config import ESS_TOLERANCE, METRIC_ATOL
-from tempest_tpu_torch.draws import Draws
+from tempest_tpu_torch.draws import Draws, HardwareDraws
 from tempest_tpu_torch.fused import CHUNKS
 from tempest_tpu_torch.loops import Loops
 from tempest_tpu_torch.mcmc import MCMCKernel
@@ -397,8 +404,20 @@ def test_seeded_run_repeats_on_the_card(cuda_device):
 # ---------------------------------------------------------------------------
 # The fused route's loops as CUDA graphs
 # ---------------------------------------------------------------------------
-def _loops(device, graphs, generators=()):
-    return Loops(device, CHUNKS, graphs=graphs, generators=list(generators))
+def _loops(device, graphs, generators=(), counters=()):
+    return Loops(device, CHUNKS, graphs=graphs, generators=list(generators),
+                 counters=list(counters))
+
+
+# HardwareDraws' routes at N walkers and R N d normals, by threshold:
+# "mutation" the mutation-draws kernel (tpCN), "large" the gamma and normal
+# kernels, "below" the generator alone.
+def _hw_route(monkeypatch, route, n, n_z):
+    values = {"mutation": (1 << 19, 1 << 16, 1 << 20), "large": (0, n, n_z),
+              "below": (0, n + 1, n_z + 1)}[route]
+    for name, value in zip(("FUSED_DRAWS_MAX_ELEMS", "HW_GAMMA_MIN_WALKERS",
+                            "HW_NORMAL_MIN_ELEMS"), values):
+        monkeypatch.setattr(draws_mod, name, value)
 
 
 def _points(device, seed, n=4096, d=10, k=3):
@@ -573,6 +592,129 @@ def test_per_point_likelihood_with_blobs_captures(cuda_device):
     x = runs[1].posterior()[0]
     assert torch.allclose(torch.as_tensor(r2).reshape(-1), torch.as_tensor(x * x).sum(1),
                           rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["mutation", "large", "below"])
+def test_graphed_hardware_prng_mcmc_equals_eager(cuda_device, route, monkeypatch):
+    n, d = 1024, 10
+    _hw_route(monkeypatch, route, n, 8 * n * d)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(7)
+    u = 0.5 + 0.02 * torch.randn(n, d, generator=g, device=cuda_device)
+    modes = tm.make_mode_statistics(torch.full((d,), 0.5, device=cuda_device),
+                                    1e-2 * torch.eye(d, device=cuda_device),
+                                    torch.tensor(6.0, device=cuda_device))
+
+    def loglike(x):  # proposals wider than the target: the chain runs past n_steps d
+        return -8.0 * torch.sum(x * x, dim=-1)
+
+    kernel = MCMCKernel(lambda x: (loglike(x), None), lambda v: 20.0 * v - 10.0, d)
+    x = 20.0 * u - 10.0
+    assign = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+    beta = torch.tensor(0.3, device=cuda_device)
+    draws = HardwareDraws(11, cuda_device)
+    graphed = _loops(cuda_device, True, [draws.generator], [draws.calls])
+    per_step = {"mutation": 1, "large": philox.GAMMA_CALLS + 1, "below": 0}[route]
+    for _ in range(2):  # the second run replays the first run's graphs
+        start = draws.tell()
+        before = dict(cuda_prng.LAUNCHES)
+        want = kernel(draws, u, x, loglike(x), assign, beta, modes,
+                      loops=_loops(cuda_device, False))
+        eager = {k: v - before[k] for k, v in cuda_prng.LAUNCHES.items()}
+        end = draws.tell()
+        draws.seek(start)
+        before = dict(cuda_prng.LAUNCHES)
+        got = kernel(draws, u, x, loglike(x), assign, beta, modes, loops=graphed)
+        replayed = {k: v - before[k] for k, v in cuda_prng.LAUNCHES.items()}
+        assert draws.tell() == end and draws.calls.read() == (end[1], draws.key)
+        assert end[1] - start[1] == per_step * want.steps
+        assert replayed == eager
+        assert got.steps == want.steps > kernel.n_steps_min
+        for name in ("u", "x", "logl", "efficiency", "acceptance"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert graphed.stats["mcmc"]["captures"] >= 2 and graphed.stats["mcmc"]["replays"] >= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["mutation", "large"])
+def test_capture_leaves_the_call_counter(cuda_device, route, monkeypatch):
+    n, d = 1024, 10
+    _hw_route(monkeypatch, route, n, 8 * n * d)
+    draws = HardwareDraws(13, cuda_device)
+    draws.calls.seek(1 << 32)  # the counter's high word in use
+    shape = torch.full((n,), 7.5, device=cuda_device)
+
+    def body(c, k):
+        z, g, u = draws.mcmc_step(8, n, d, k["shape"])
+        return dict(z=z, g=g, u=u, go=c["go"])
+
+    start = draws.tell()
+    eager = [draws.mcmc_step(8, n, d, shape) for _ in range(2)]
+    per_step = (draws.counter - start[1]) // 2
+    assert per_step == {"mutation": 1, "large": philox.GAMMA_CALLS + 1}[route]
+    draws.seek(start)
+    carry = dict(z=torch.zeros(8, n, d, device=cuda_device), g=torch.zeros(n, device=cuda_device),
+                 u=torch.zeros(n, device=cuda_device),
+                 go=torch.ones((), dtype=torch.bool, device=cuda_device))
+    loops = _loops(cuda_device, True, [draws.generator], [draws.calls])
+    run = loops.start("draws", body, carry, dict(shape=shape))
+    launches = dict(cuda_prng.LAUNCHES)
+    loops._graph(run._key, body, run.carry, run.consts, 1)  # capture only
+    torch.cuda.synchronize()
+    assert draws.tell() == start and draws.calls.read() == (start[1], draws.key)
+    assert cuda_prng.LAUNCHES == launches
+    for i, (z, g, u) in enumerate(eager):
+        run.advance(1)  # a replay of the captured step
+        assert draws.tell()[1] == start[1] + (i + 1) * per_step
+        assert draws.calls.read() == (draws.counter, draws.key)
+        assert torch.equal(run.carry["z"], z) and torch.equal(run.carry["u"], u)
+        assert torch.equal(run.carry["g"], g)
+    kernel = "mutation_draws" if route == "mutation" else "gamma"
+    assert cuda_prng.LAUNCHES[kernel] == launches[kernel] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["mutation", "large", "below"])
+def test_hardware_prng_run_on_device_repeats_on_device_false(cuda_device, route, monkeypatch):
+    """A whole float32 hardware_prng run (N = 256, d = 4, R N d = 8,192) on
+    each route, with and without graphs: the same results, launches and
+    call counter."""
+    _hw_route(monkeypatch, route, 256, 8 * 256 * 4)
+
+    def loglike(x):  # paired 4-D Rosenbrock: chains run past their first chunk
+        return -torch.sum(100.0 * (x[..., 1::2] - x[..., ::2] ** 2) ** 2
+                          + (1.0 - x[..., ::2]) ** 2, dim=-1)
+
+    runs, launches = [], []
+    for on_device in (False, True):
+        s = Sampler(lambda u: 20.0 * u - 10.0, loglike, n_dim=4, n_particles=256,
+                    vectorize=True, k_max=4, random_state=2, history_capacity=32,
+                    hardware_prng=True, device=cuda_device)
+        assert s.state.fused
+        before = {**cuda_prng.LAUNCHES, "ess": cuda_reweight.LAUNCHES}
+        s.run(n_total=1024, progress=False, on_device=on_device)
+        after = {**cuda_prng.LAUNCHES, "ess": cuda_reweight.LAUNCHES}
+        launches.append({k: v - before[k] for k, v in after.items()})
+        runs.append(s)
+    (off, on), (r_off, r_on) = runs, (runs[0].results(), runs[1].results())
+    for name in ("beta", "logz", "steps", "calls"):
+        assert r_on[name].tobytes() == r_off[name].tobytes(), name
+    assert on.evidence()[0] == off.evidence()[0] and launches[0] == launches[1]
+    # One launch a step run: the real steps and those a chunk ran past the
+    # stop (whose draws are put back), in both modes.
+    bodies = [x.state._iteration.loops.stats["mcmc"]["bodies"] for x in (off, on)]
+    assert bodies[0] == bodies[1] >= int(r_on["steps"][r_on["beta"] > 0].sum())
+    kernel = {"mutation": "mutation_draws", "large": "gamma", "below": None}[route]
+    if kernel:
+        assert launches[1][kernel] == bodies[1]
+    else:
+        assert all(launches[1][k] == 0 for k in cuda_prng.LAUNCHES)
+    s_on, s_off = on.state.draws.get_state(), off.state.draws.get_state()
+    assert all(s_on[k].tobytes() == s_off[k].tobytes() for k in s_off)
+    assert on.state.draws.calls.read() == (off.state.draws.counter, off.state.draws.key)
+    stats = on.state._iteration.loops.stats
+    assert stats["mcmc"]["replays"] > 0 and r_on["steps"].max() > 4
 
 
 _HOST_READ_RUN = textwrap.dedent("""

@@ -10,7 +10,10 @@
 3. The MCMC loop in chunks of 1, 3 and 8 steps against the loop that reads
    after every step: the walkers, log-likelihoods, efficiency, acceptance
    and step count identical, and the generator left where the per-step
-   loop leaves it.
+   loop leaves it; with the generator's draws and with `HardwareDraws` on
+   each of its three routes (the thresholds lowered so that N = 64 reaches
+   them), whose call counter (host mirror and device word) must end where
+   the per-step loop leaves it too.
 4. One fused iteration against the JAX package's fused iteration on that
    iteration's own JAX draws (tests/test_torch_clustered_slice.py's case
    and tolerances).
@@ -20,6 +23,12 @@
 6. No loop body reads the host: a whole fused iteration with
    `Tensor.__bool__`, `.item()`, `.tolist()`, `__int__` and `__float__`
    raising everywhere but in `Loops.read`.
+7. `hardware_prng=True` in float32 on the fused route: a whole run equal
+   bit for bit to the same run on the eager iteration (`iteration.py`
+   with a read after every body), on the mutation-draws route and on the
+   gamma-and-normal route; and a state file written by the eager route
+   (`philox_key`, `philox_counter`) loads into the fused route and
+   continues as the eager run does.
 """
 
 import jax
@@ -35,10 +44,12 @@ from tempest_tpu import Sampler as JaxSampler
 from tempest_tpu import modes as jm
 from tempest_tpu_torch import Sampler, interop, student
 from tempest_tpu_torch import cluster as tc
+from tempest_tpu_torch import core as core_mod
+from tempest_tpu_torch import draws as draws_mod
 from tempest_tpu_torch import modes as tm
 from tempest_tpu_torch.cluster import single_cluster_model
 from tempest_tpu_torch.config import SamplerConfig
-from tempest_tpu_torch.draws import Draws
+from tempest_tpu_torch.draws import Draws, HardwareDraws
 from tempest_tpu_torch.fused import CHUNKS, fused_route, make_fused_iteration
 from tempest_tpu_torch.loops import Loops
 from tempest_tpu_torch.mcmc import MCMCKernel
@@ -128,6 +139,38 @@ def _chain_problem(seed=3, n=64, d=2):
 # RWM 7, past the 4 steps of the first chunk.
 SHARP = {"tpcn": 1.0, "rwm": 16.0}
 
+# The draws of the chain tests: the generator's, or HardwareDraws on one of
+# its routes at N = 64, R = 8, d = 2 (R N d = 1,024), by threshold:
+# "mutation" the mutation-draws kernel (tpCN; 1 call a step), "large" the
+# gamma kernel (tpCN) and the normal kernel (13 + 1 calls a step, 1 for
+# RWM), "below" the generator alone (0 calls).
+ROUTES = {
+    "mutation": dict(FUSED_DRAWS_MAX_ELEMS=1 << 19),
+    "large": dict(FUSED_DRAWS_MAX_ELEMS=0, HW_GAMMA_MIN_WALKERS=64, HW_NORMAL_MIN_ELEMS=1024),
+    "below": dict(FUSED_DRAWS_MAX_ELEMS=0, HW_GAMMA_MIN_WALKERS=65, HW_NORMAL_MIN_ELEMS=1025),
+}
+
+
+def _route_draws(monkeypatch, route):
+    """A factory of the draws of `route` (None: the generator's)."""
+    if route is None:
+        return Draws
+    for name, value in ROUTES[route].items():
+        monkeypatch.setattr(draws_mod, name, value)
+    return HardwareDraws
+
+
+def _draws_position(draws):
+    """Everything a draws object's stream continues from, device words included."""
+    pos = [draws.generator.get_state()]
+    if isinstance(draws, HardwareDraws):
+        pos += [draws.counter, draws.key, draws.calls.read()]
+    return pos
+
+
+def _same_position(a, b) -> bool:
+    return torch.equal(a[0], b[0]) and a[1:] == b[1:]
+
 
 def _chain_kernel(method):
     def loglike(x):
@@ -137,18 +180,20 @@ def _chain_kernel(method):
                       n_max_steps=20), loglike
 
 
+@pytest.mark.parametrize("route", [None, "mutation", "large", "below"])
 @pytest.mark.parametrize("chunk", [1, 3, 8])
 @pytest.mark.parametrize("method", ["tpcn", "rwm"])
-def test_chunked_mcmc_equals_per_step_loop(chunk, method):
+def test_chunked_mcmc_equals_per_step_loop(chunk, method, route, monkeypatch):
     u, modes = _chain_problem()
     kernel, loglike = _chain_kernel(method)
     assign = torch.zeros(u.shape[0], dtype=torch.int32)
     x = _prior(u)
+    make = _route_draws(monkeypatch, route)
 
     def run(loops):
-        draws = Draws(5, "cpu")
+        draws = make(5, "cpu")
         res = kernel(draws, u, x, loglike(x), assign, torch.tensor(0.4), modes, loops=loops)
-        return res, draws.generator.get_state()
+        return res, _draws_position(draws)
 
     want, state_want = run(None)
     loops = Loops("cpu", {"mcmc": chunk})
@@ -156,22 +201,32 @@ def test_chunked_mcmc_equals_per_step_loop(chunk, method):
     assert got.steps == got.n_call_sweeps == want.steps > kernel.n_steps_min
     for name in ("u", "x", "logl", "efficiency", "acceptance"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
-    assert torch.equal(state_got, state_want)
+    assert _same_position(state_got, state_want)
+    if route is not None:  # the calls of the real steps, and the words agree
+        per_step = {"mutation": {"tpcn": 1, "rwm": 0}, "large": {"tpcn": 14, "rwm": 1},
+                    "below": {"tpcn": 0, "rwm": 0}}[route][method]
+        assert state_got[1] == per_step * want.steps
+        assert state_got[3] == (state_got[1], state_got[2])
     first = int(kernel.n_steps_min) if chunk > 1 else 1
     bodies = first + chunk * -(-(want.steps - first) // chunk)
     assert loops.stats["mcmc"]["bodies"] == bodies
     assert loops.stats["mcmc"]["reads"] == 1 + (bodies - first) // chunk
 
 
-def test_chunked_mcmc_runs_past_the_stop():
-    """Chunks of 3 and 8 tpCN steps run past the stop on this problem, so
+@pytest.mark.parametrize("route", [None, "mutation", "large", "below"])
+def test_chunked_mcmc_runs_past_the_stop(route, monkeypatch):
+    """Chunks of 3 and 8 tpCN steps run past the stop on this problem with
+    the generator's draws, and chunks of 8 (the fused route's) with each
+    HardwareDraws route (31 steps on "large", which chunks of 3 end on), so
     the equality above includes putting the draws back."""
     u, modes = _chain_problem()
     kernel, loglike = _chain_kernel("tpcn")
     x = _prior(u)
-    res = kernel(Draws(5, "cpu"), u, x, loglike(x), torch.zeros(u.shape[0], dtype=torch.int32),
+    draws = _route_draws(monkeypatch, route)(5, "cpu")
+    res = kernel(draws, u, x, loglike(x), torch.zeros(u.shape[0], dtype=torch.int32),
                  torch.tensor(0.4), modes)
-    assert all((res.steps - kernel.n_steps_min) % chunk for chunk in (3, 8)), res.steps
+    chunks = (3, 8) if route is None else (8,)
+    assert all((res.steps - kernel.n_steps_min) % chunk for chunk in chunks), res.steps
 
 
 def test_one_fused_iteration_matches_jax():
@@ -218,7 +273,9 @@ def test_one_fused_iteration_matches_jax():
     ({}, True),
     ({"clustering": False, "cluster_every": 3}, True),
     ({"dtype": torch.float64, "hardware_prng": True}, True),  # the flag does not apply
-    ({"hardware_prng": True}, False),  # host Philox counters
+    # The kernels read their call counter from the device (HardwareDraws),
+    # so a graph replays their launches: float32 joins the fused route.
+    ({"hardware_prng": True}, True),
     ({"volume_variation": 1.0}, False),
     ({"host_likelihood": True}, False),
 ])
@@ -300,3 +357,72 @@ def test_loop_bodies_read_nothing(monkeypatch):
             guarded("check", lambda: bool(torch.ones(1) > 0))()
     finally:
         patch(False)
+
+
+def _hw_sampler(seed=3, **extra):
+    return Sampler(_prior, _bimodal_t, n_dim=D, n_particles=N, vectorize=True, k_max=4,
+                   clustering=False, hardware_prng=True, random_state=seed,
+                   history_capacity=32, device="cpu", **extra)
+
+
+def _eager_route(monkeypatch):
+    """Samplers made inside take the eager iteration of iteration.py."""
+    monkeypatch.setattr(core_mod, "fused_route", lambda config: False)
+
+
+@pytest.mark.parametrize("route", ["mutation", "large"])
+def test_hardware_prng_fused_run_equals_eager_iteration(route, monkeypatch):
+    """N = 128, R = 8, d = 4: the mutation-draws kernel's route by default;
+    with the thresholds at N and R N d, the gamma and normal kernels'."""
+    if route == "large":
+        monkeypatch.setattr(draws_mod, "FUSED_DRAWS_MAX_ELEMS", 0)
+        monkeypatch.setattr(draws_mod, "HW_GAMMA_MIN_WALKERS", N)
+        monkeypatch.setattr(draws_mod, "HW_NORMAL_MIN_ELEMS", 8 * N * D)
+    fused = _hw_sampler()
+    fused.run(n_total=512, progress=False)
+    with monkeypatch.context() as m:
+        _eager_route(m)
+        eager = _hw_sampler()
+    assert fused.state.fused and not eager.state.fused
+    eager.run(n_total=512, progress=False)
+    r_f, r_e = fused.results(), eager.results()
+    for name in ("beta", "logz", "steps", "calls"):
+        assert r_f[name].tobytes() == r_e[name].tobytes(), name
+    assert fused.evidence()[0] == eager.evidence()[0] and fused.beta == 1.0
+    calls = {"mutation": 1, "large": 14}[route]
+    assert fused.state.draws.counter == eager.state.draws.counter == calls * int(
+        r_f["steps"][r_f["beta"] > 0].sum())
+    s_f, s_e = fused.state.draws.get_state(), eager.state.draws.get_state()
+    assert all(np.array_equal(s_f[k], s_e[k]) for k in s_e) and set(s_f) == set(s_e)
+    assert fused.state.draws.calls.read() == (fused.state.draws.counter, fused.state.draws.key)
+    # The fused route read its MCMC loop once a chunk; the eager one once a step.
+    reads = {s: x.state._iteration.loops.stats["mcmc"]["reads"] for s, x in (("f", fused),
+                                                                           ("e", eager))}
+    assert reads["f"] < reads["e"]
+
+
+def test_hardware_prng_state_file_of_the_eager_route_continues_fused(tmp_path, monkeypatch):
+    """A file the eager route wrote (draws.philox_key and philox_counter, as
+    before the fused route took the flag) loads into a fused sampler, which
+    runs the next iterations as the eager run did."""
+    with monkeypatch.context() as m:
+        _eager_route(m)
+        eager = _hw_sampler(output_dir=str(tmp_path))
+    eager.run(n_total=512, progress=False, save_every=5)
+    path = tmp_path / "ps_10.state"
+    with np.load(path) as f:
+        assert {"draws.philox_key", "draws.philox_counter"} <= set(f.files)
+        counter = int(f["draws.philox_counter"])
+    assert counter > 0
+    fused = _hw_sampler(seed=9)
+    assert fused.state.fused
+    fused.load_state(path)
+    assert fused.state.draws.counter == counter
+    assert fused.state.draws.calls.read() == (counter, eager.state.draws.key)
+    for _ in range(3):
+        fused.sample()
+    assert fused.state.hist.t == 13 and eager.state.hist.t > 13
+    r_f, r_e = fused.results(), eager.results()
+    for name in ("beta", "logz", "steps", "calls"):
+        assert r_f[name].tobytes() == r_e[name][:13].tobytes(), name
+    assert fused.state.draws.calls.read()[0] == fused.state.draws.counter > counter

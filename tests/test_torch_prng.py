@@ -13,7 +13,9 @@ ops/cuda_prng.py, draws.HardwareDraws) against tempest_tpu.ops.pallas_prng.
 - Moments of the plain draws at CPU sizes with the tolerances of
   tests/test_tpu_smoke.py:181-243 (about 5 sigma).
 - The routing of `HardwareDraws`, as tempest_tpu/mcmc.py routes, and the
-  call indices each route takes.
+  call indices each route takes; its call counter's device words (which
+  the kernels read) and host mirror agree through steps, `tell`/`seek`,
+  `get_state`/`set_state` and `reseed`, which keep the same words.
 """
 
 import jax
@@ -299,3 +301,43 @@ def test_hardware_draws_gamma_takes_gamma_calls(monkeypatch):
     z, g, _ = _step(resumed, n, alpha)
     assert resumed.counter == int(state["philox_counter"]) + philox.GAMMA_CALLS + 1
     assert torch.equal(g, philox.gamma(hw.key, 3 * (philox.GAMMA_CALLS + 1), alpha))
+
+
+def test_hardware_draws_mirror_and_device_words_agree(monkeypatch):
+    monkeypatch.setattr(draws_mod, "FUSED_DRAWS_MAX_ELEMS", 0)
+    monkeypatch.setattr(draws_mod, "HW_NORMAL_MIN_ELEMS", 2 * 64 * 3)
+    monkeypatch.setattr(draws_mod, "HW_GAMMA_MIN_WALKERS", 64)
+    n = 64
+    alpha = torch.linspace(0.3, 9.0, n)
+    hw = draws_mod.HardwareDraws(7, "cpu")
+    words = hw.calls.state
+    assert hw.calls.read() == (0, hw.key) == (0, philox.key_from_seed(7))
+    _step(hw, n, alpha)
+    position = hw.tell()
+    assert position[1] == philox.GAMMA_CALLS + 1 and hw.calls.read() == (position[1], hw.key)
+    z, g, _ = _step(hw, n, alpha)
+    assert hw.calls.read() == (2 * (philox.GAMMA_CALLS + 1), hw.key)
+    hw.seek(position)
+    assert hw.counter == position[1] and hw.calls.read() == (position[1], hw.key)
+    z2, g2, _ = _step(hw, n, alpha)  # the same draws again
+    assert torch.equal(z, z2) and torch.equal(g, g2)
+    state = hw.get_state()
+    assert int(state["philox_counter"]) == hw.counter
+    other = draws_mod.HardwareDraws(0, "cpu")
+    other.set_state(state)
+    assert other.calls.read() == (hw.counter, hw.key) and other.key == hw.key
+    # A key whose high word has its top bit set, and a counter past 2^63.
+    big = draws_mod.HardwareDraws((1 << 63) + 5, "cpu")
+    big.calls.seek((1 << 63) + 3)
+    assert big.calls.read() == ((1 << 63) + 3, philox.key_from_seed((1 << 63) + 5))
+    _, g_big, _ = _step(big, n, alpha)
+    assert torch.equal(g_big, philox.gamma(big.key, (1 << 63) + 3, alpha))
+    assert big.calls.read()[0] == (1 << 63) + 3 + philox.GAMMA_CALLS + 1
+    # reseed restarts the stream on the same words (CUDA graphs hold them).
+    hw.reseed(11)
+    assert hw.calls.state is words and hw.calls.read() == (0, philox.key_from_seed(11))
+    with pytest.raises(ValueError):  # shapes on another device than the counter's words
+        hw.calls.gamma(0, alpha.to("meta"))
+    with pytest.raises(ValueError):  # every call index must fit 64 bits
+        hw.calls.seek((1 << 64) - philox.GAMMA_CALLS)
+        _step(hw, n, alpha)
