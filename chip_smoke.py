@@ -1,7 +1,8 @@
 """Smoke test of tempest_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--parent DIR]
     python3 chip_smoke.py --kernels-only [--package-root DIR]
+    python3 chip_smoke.py --a-only [--package-root DIR]
 
 Builds every CUDA kernel of the port from the sources in this checkout
 (one nvcc per source, started together), holds each against its plain
@@ -10,7 +11,8 @@ PyTorch version on the card, then drives the port through
 lines and a failure exits non-zero:
 
  1. the card: `nvidia-smi` name and power limit;
- 2. build every kernel; each library's ptxas report (`-Xptxas -v`):
+ 2. build every kernel (the ESS bisection, the PRNG kernels and the
+    eigenvalue kernel); each library's ptxas report (`-Xptxas -v`):
     every kernel's registers and spill bytes, and a spill in any kernel
     fails;
  3. the ESS-bisection kernel against its plain version on both routes of
@@ -40,6 +42,13 @@ lines and a failure exits non-zero:
     device and sync time, through the public functions and, for the three
     kernels a draws object launches, through its call counter's words
     (`cuda_prng.PhiloxCounter`);
+ 4b. the eigenvalue kernel (csrc/sym_eigvals.cu, which replaces XLA's
+    eigvalsh of the CV, not a Pallas kernel) against torch.linalg.eigvalsh
+    of the float64 copy on SPD, indefinite, rank-deficient and diagonal
+    matrices at d = 1, 3, 10, 100 and 240 (past shared memory) in float32
+    and float64, within 16 d eps max|lambda|, two launches the same bits;
+    its call and device times at d = 10 and 100 (one matrix) beside
+    torch.linalg.eigvalsh's;
  5. the canonical problem unclustered (paired 10-D Rosenbrock, U(-10, 10)
     prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42,
     with `run(on_device=True)`: its loops replayed as CUDA graphs;
@@ -51,20 +60,22 @@ lines and a failure exits non-zero:
     graphs, then seed 42 on them: the beta ladder, logZ, steps and calls of
     each equal bit for bit to phase 6's run of its seed, logZ in the clustered band, the ESS
     kernel's launches equal to phase 6's; the wall per iteration of both,
-    and the graph captures and replays per loop; then iterations 21-25 of
+    and the graph captures and replays per loop; then iterations 21-23 of
     seed 42 in each mode under torch.profiler: the device idle share and
     the blocking host reads per iteration, counted from the CUDA runtime
     calls that block the host (cudaStreamSynchronize, cudaEventSynchronize,
     cudaDeviceSynchronize, a synchronous cudaMemcpy), at most one a loop
-    chunk plus four an iteration, and fewer than 150; then iterations 26-30
-    traced on the device only (no host ops recorded): wall and idle share;
+    chunk plus two an iteration (beta and the termination test), fewer
+    than 150, and no torch.linalg.eigvalsh operator (the CV's eigenvalues
+    are the kernel's); then iterations 24-26 traced on the device only (no
+    host ops recorded): wall and idle share;
  7. A again with hardware_prng=True, seed 42, with run(on_device=False) and
     then run(on_device=True) on a sampler whose seed-43 run captured the
     graphs: every MCMC step body draws through the mutation-draws kernel
     (by graph replays with on_device=True); the ladder, logZ, steps,
     calls, launches and the draws' final state (call counter, host mirror
     and device words) equal bit for bit; the wall per iteration of both;
-    then iterations 21-25 in each mode under torch.profiler, held to 6b's
+    then iterations 21-23 in each mode under torch.profiler, held to 6b's
     rule on blocking host reads;
  8. B: the large-ensemble hardware_prng configuration of
     benchmarks/results/hw_prng_e2e.json (10-D Gaussian, n_particles=131072,
@@ -90,8 +101,12 @@ lines and a failure exits non-zero:
     the iteration-20 file, must agree;
 12. dynamic (CV) mode: benchmarks/suite.py's `rosenbrock10_cv` (chained
     10-D Rosenbrock, n_particles=1024, n_total=8192, history_capacity=192,
-    unclustered, volume_variation=1.0), seed 42, with logZ inside the anchor
-    taken from the JAX package; probes per reweight;
+    unclustered, volume_variation=1.0), seed 42, on the fused route with
+    run(on_device=False) and with run(on_device=True) on a sampler whose
+    seed-43 run captured the graphs of its ESS bracket and CV bisection:
+    bit for bit, logZ inside the anchor taken from the JAX package, no
+    ESS-kernel launch; walls, probes and loop reads per reweight; then
+    iterations 21-23 in each mode under the profiler, held to 6b's rule;
 13. the refit cadence, C with cluster_every=3, and a host likelihood: the
     10-D Gaussian as a numpy per-point function with host_likelihood=True;
 14. float64: A at dtype=torch.float64 with hardware_prng=True, seed 42, with
@@ -110,13 +125,21 @@ lines and a failure exits non-zero:
     rows), `sharded_select_fit_points` against the unsharded selection on
     the whole history (the same rows and keep mask) and its candidate
     branch at m = 4096 (the heaviest samples, renormalized); A with
-    `mesh=make_particle_mesh()` and `save_every=10`, seed 42: logZ in the
-    band, beta = 1, and no ESS-kernel launch, since a mesh bisects by
+    `mesh=make_particle_mesh()` and `save_every=10`, seed 42 (checkpoints
+    keep on_device=False): logZ in the band, beta = 1, one eigenvalue
+    launch a reweight and no ESS-kernel launch, since a mesh bisects by
     reductions as JAX bypasses its kernel under one; its wall beside phase
     6's seed 42; a mesh sampler resumed from the iteration-20 file runs the
     two iterations after it as the run that went on did; `posterior()` and
-    `evidence(n_bootstrap=256)` through the gathers. The process group is
-    destroyed at the end of the phase, whatever happens in it.
+    `evidence(n_bootstrap=256)` through the gathers; A under the mesh with
+    run(on_device=True) on a sampler whose seed-43 run captured the graphs
+    (the sharded ESS bisection and the MCMC steps with their NCCL
+    collectives inside): bit for bit with the save_every run, and its
+    steady windows in each mode held to 6b's rule; then A under the mesh
+    with hardware_prng=True, on_device=False and True: bit for bit, one
+    mutation-draws launch a step body, the call counter's device words
+    equal to its host mirror. The process group is destroyed at the end
+    of the phase, whatever happens in it.
 
 Every path phase sets the kernels' launch counts to 0 just before it
 drives the path and reads them just after. A kernel's `launches` in the
@@ -136,6 +159,11 @@ and prints their table without driving the paths; with `--package-root
 DIR` it imports `tempest_tpu_torch` from DIR (for instance a `git archive`
 of another commit whose ESS kernel has its float64 entry), so two versions
 of the kernels can be timed on one card in turns, each in its own process.
+`--a-only [--package-root DIR]` runs phases 1-2 and A's seed 42
+(on_device=False) and prints its logZ, iterations, steps and ladder
+digest; `--parent DIR` makes the full run start that in a process of its
+own on DIR's package after phase 6 and fail unless the logZ and the
+iteration count equal phase 6's seed 42.
 """
 
 from __future__ import annotations
@@ -183,6 +211,11 @@ from tempest_tpu_torch.config import (  # noqa: E402
 )
 from tempest_tpu_torch.iteration import select_fit_points  # noqa: E402
 from tempest_tpu_torch.ops import _build, cuda_prng, cuda_reweight, philox  # noqa: E402
+
+try:  # the eigenvalue kernel; absent from a package older than it (--package-root)
+    from tempest_tpu_torch.ops import cuda_linalg  # noqa: E402
+except ImportError:
+    cuda_linalg = None
 from tempest_tpu_torch.ops.tools import ess_from_logw  # noqa: E402
 from tempest_tpu_torch.parallel import make_particle_mesh  # noqa: E402
 from tempest_tpu_torch.parallel.collective import (  # noqa: E402
@@ -338,13 +371,16 @@ def bimodal(x):
 def reset_counts() -> None:
     cuda_reweight.LAUNCHES = 0
     cuda_reweight.LAUNCHES_F64 = 0
+    if cuda_linalg is not None:
+        cuda_linalg.LAUNCHES = 0
     for name in cuda_prng.LAUNCHES:
         cuda_prng.LAUNCHES[name] = 0
 
 
 def counts() -> dict:
+    eig = {} if cuda_linalg is None else {"sym_eigvals": cuda_linalg.LAUNCHES}
     return {"ess_bisect": cuda_reweight.LAUNCHES, "ess_bisect_f64": cuda_reweight.LAUNCHES_F64,
-            **cuda_prng.LAUNCHES}
+            **eig, **cuda_prng.LAUNCHES}
 
 
 def diff(after: dict, before: dict) -> dict:
@@ -611,7 +647,7 @@ def _short_names(nvcc: str, names: list) -> dict:
 
 
 def phase_build() -> dict:
-    """Both kernel libraries; beside them each one's ptxas report (a spill
+    """Every kernel library; beside them each one's ptxas report (a spill
     in any kernel fails) and the SASS probe whose exp counts set
     ESS_SAMPLE_PROBE. Returns the reports."""
     t0 = time.perf_counter()
@@ -623,7 +659,8 @@ def phase_build() -> dict:
     probe = subprocess.Popen([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
                               "-o", cubin, src], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                              text=True)
-    libs = (cuda_reweight.LIBRARY, cuda_prng.LIBRARY)
+    libs = (cuda_reweight.LIBRARY, cuda_prng.LIBRARY) + (
+        () if cuda_linalg is None else (cuda_linalg.LIBRARY,))
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     ptxas = []
     for i, lib in enumerate(libs):  # the same compiles as the libraries', to cubins, verbose
@@ -1260,6 +1297,110 @@ def phase_gamma_kernel(device, key) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 4b: the eigenvalue kernel (no Pallas counterpart: XLA's eigvalsh)
+# ---------------------------------------------------------------------------
+EIG_KINDS = ("spd", "indefinite", "rank_deficient", "diagonal")
+# d = 10 is the CV's covariance on the paths (one matrix a call); d = 100 the
+# tests' largest held in shared memory; 240 is past it (global workspace).
+EIG_CHECKED, EIG_TIMED = (1, 3, 10, 100, 240), (10, 100)
+
+
+def symmetric_batch(device, batch: int, d: int, kind: str, dtype, seed: int = 0):
+    """(batch, d, d) symmetric matrices: SPD, indefinite, rank-deficient
+    (rank d // 2) or diagonal."""
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed + d)
+    x = torch.randn(batch, d, d, generator=g, dtype=torch.float64)
+    if kind == "spd":
+        a = x @ x.transpose(1, 2) / d + 0.1 * torch.eye(d, dtype=torch.float64)
+    elif kind == "indefinite":
+        a = x + x.transpose(1, 2)
+    elif kind == "rank_deficient":
+        y = x[:, :, : max(d // 2, 1)]
+        a = y @ y.transpose(1, 2)
+    else:
+        a = torch.diag_embed(torch.randn(batch, d, generator=g, dtype=torch.float64))
+    return a.to(device=device, dtype=dtype)
+
+
+def eig_bound(d: int, batch: int, sweeps: int, dtype):
+    """(least ms, what bounds it) of `sweeps` Jacobi sweeps summed over the
+    batch: the matrices read once and the eigenvalues written once; a
+    sweep's instructions, (m - 1) rounds of m/2 rotations (about 30 each:
+    a division, a square root, a hypot) and their row and column updates
+    (a product and a fused multiply-add for each of 4 m entries), and the
+    off-diagonal sum (m^2 fused multiply-adds)."""
+    m = d + (d & 1)
+    per_sweep = (m - 1) * (m // 2) * (8 * m + 30) + m * m
+    ops = sweeps * per_sweep
+    size = torch.tensor([], dtype=dtype).element_size()
+    n_bytes = batch * (d * d + d) * size
+    return bound(n_bytes, 0, ops if dtype == torch.float32 else 0,
+                 ops if dtype == torch.float64 else 0)
+
+
+def phase_eig_kernel(device) -> dict:
+    """tempest_sym_eigvals against its plain version (torch.linalg.eigvalsh
+    of the float64 copy, the CPU route's function) on SPD, indefinite,
+    rank-deficient and diagonal matrices at EIG_CHECKED in float32 and
+    float64: |dlambda| <= 16 d eps max|lambda| (Jacobi's backward error
+    against LAPACK's), ascending, two launches the same bits; then at
+    EIG_TIMED, one matrix a call, its synchronized call and device time
+    beside torch.linalg.eigvalsh on the card in float64 (the plain version
+    the kernel is held to) and in float32 (the library call)."""
+    max_err, shapes = 0.0, {}
+    for dtype in (torch.float32, torch.float64):
+        eps = torch.finfo(dtype).eps
+        for d in EIG_CHECKED:
+            worst = 0.0
+            for kind in EIG_KINDS:
+                a = symmetric_batch(device, 4, d, kind, dtype)
+                got, sweeps = cuda_linalg._launch(a, sweeps=True)
+                again = cuda_linalg.eigvalsh(a)
+                want = torch.linalg.eigvalsh(a.double())
+                torch.cuda.synchronize()
+                scale = want.abs().amax(dim=1, keepdim=True)
+                err = (got.double() - want).abs()
+                ratio = float((err / (d * eps * torch.clamp(scale, min=1e-300))).max())
+                worst = max(worst, ratio)
+                if dtype == torch.float32:
+                    max_err = max(max_err, float(err.max()))
+                check(torch.equal(got, again), f"sym_eigvals d={d} {kind} {dtype}: two launches "
+                      "differ")
+                check(bool(torch.all(torch.diff(got, dim=1) >= 0)),
+                      f"sym_eigvals d={d} {kind} {dtype}: not ascending")
+                check(ratio <= 16.0, f"sym_eigvals d={d} {kind} {dtype}: |dlambda| = {ratio:.3g} "
+                      "d eps max|lambda|, above 16")
+                check(int(sweeps.max()) < 30, f"sym_eigvals d={d} {kind}: {int(sweeps.max())} "
+                      "sweeps (the cap)")
+            route = "shared" if cuda_linalg.plan_launch(d, dtype).resident else "global"
+            print(f"sym_eigvals {str(dtype)[6:]} d={d} [{route}]: max |dlambda| = {worst:.3f} "
+                  f"d eps max|lambda| over {len(EIG_KINDS)} kinds x 4 matrices (bar 16)",
+                  flush=True)
+    for d in EIG_TIMED:
+        a = symmetric_batch(device, 1, d, "spd", torch.float32, seed=7)
+        a64 = a.double()
+        _, sweeps = cuda_linalg._launch(a, sweeps=True)
+        sweeps = int(sweeps.item())
+        kernel = lambda: cuda_linalg.eigvalsh(a)  # noqa: E731
+        t = timed_in_turns({"kernel": kernel, "plain": lambda: torch.linalg.eigvalsh(a64),
+                            "library": lambda: torch.linalg.eigvalsh(a)})
+        dev = device_ms(kernel, "sym_eigvals")
+        lib_dev = device_ms(lambda: torch.linalg.eigvalsh(a))
+        b_ms, b_by = eig_bound(d, 1, sweeps, torch.float32)
+        shapes[d] = dict(sweeps=sweeps, ms=t["kernel"], device_ms=dev, plain_ms=t["plain"],
+                         library_ms=t["library"], library_device_ms=lib_dev, bound_ms=b_ms,
+                         bound_by=b_by)
+        print(f"sym_eigvals timing d={d} (one float32 matrix, {sweeps} sweeps): kernel call "
+              f"{t['kernel']:.4f} ms device {dev:.4f} ms; plain (torch.linalg.eigvalsh, "
+              f"float64 copy) {t['plain']:.4f} ms; library (torch.linalg.eigvalsh, float32) call "
+              f"{t['library']:.4f} ms device {lib_dev:.4f} ms; bound {b_ms:.6f} ms ({b_by}) "
+              f"(calls: median of {TIMED_CALLS} synchronized calls in turns)", flush=True)
+    row = dict(shapes[10], max_abs_err=max_err, shapes=shapes)
+    return row
+
+
 def phase_call_split(device) -> dict:
     """One synchronized call of each kernel split into its parts."""
     key = philox.key_from_seed(2024)
@@ -1393,6 +1534,9 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
         check(launched["normal"] == 0 and launched["bits"] == 0 and launched["gamma"] == 0
               and (draws_kernel or launched["mutation_draws"] == 0),
               f"{name} seed {seed}: unexpected PRNG launches {launched}")
+        check(cuda_linalg is None or launched["sym_eigvals"] == iters - 1,
+              f"{name} seed {seed}: {launched.get('sym_eigvals')} eigenvalue launches for "
+              f"{iters - 1} reweights (one CV each)")
     total = counts()
     print(f"{name}: mean wall {sum(walls) / len(walls):.3f} s, mean eff/s "
           f"{sum(effs) / len(effs):.1f}, launches {total}", flush=True)
@@ -1402,10 +1546,13 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
 # CUDA runtime calls that block the host until the device has caught up.
 BLOCKING_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize",
                   "cudaMemcpy", "cudaMemcpy2D")
-# A steady iteration of A: at most one read a loop chunk plus this many (beta,
-# and the CV's eigvalsh: cuSOLVER's own sync and its error check), and fewer
-# than MAX_READS in all.
-READS_BESIDE_CHUNKS, MAX_READS = 4, 150
+# A steady fused iteration: at most one read a loop chunk plus this many (beta
+# and the termination test; the CV's eigenvalues are the kernel's, which reads
+# nothing, where torch.linalg.eigvalsh made two reads: cuSOLVER's own sync and
+# its error check), and fewer than MAX_READS in all.
+READS_BESIDE_CHUNKS, MAX_READS = 2, 150
+# torch.linalg.eigvalsh's operators: none may run in a fused iteration.
+EIGH_OPS = ("aten::linalg_eigh", "aten::_linalg_eigh", "aten::linalg_eigvalsh")
 
 
 def loop_stats(s) -> dict:
@@ -1465,18 +1612,24 @@ def steady_window(s, graphs: bool, first: int = 21, n: int = 5,
         loops.graphs = False
     # The blocking calls the iterations made: those inside the "steady" range
     # (not the window's closing synchronize, nor the profiler's own).
-    blocking = {}
+    blocking, eigh = {}, 0
     for e in prof.events():
         if e.name in BLOCKING_CALLS and _under(e, "steady"):
             blocking[e.name] = blocking.get(e.name, 0) + 1
+        eigh += e.name in EIGH_OPS and _under(e, "steady")
     events = prof.key_averages()
     device_ms = sum(_self_device_us(e) for e in events
                     if e.device_type == DeviceType.CUDA and not e.key.startswith("ps/")) / 1e3
+    stages = {}  # host ms an iteration in each stage range (its reads included)
+    for e in events:
+        if e.key.startswith("ps/"):
+            stages[e.key] = max(stages.get(e.key, 0.0), e.cpu_time_total / 1e3 / n)
     chunk_reads = sum(v for k, v in reads.items() if k != "beta")
     out = dict(graphs=graphs, first=first, n=n, wall_per_iter=wall / n,
                device_ms_per_iter=device_ms / n, idle=1.0 - device_ms / (1e3 * wall),
                blocking_per_iter=sum(blocking.values()) / n, blocking=blocking,
-               chunk_reads_per_iter=chunk_reads / n, reads=reads)
+               chunk_reads_per_iter=chunk_reads / n, reads=reads, eigh_ops=eigh,
+               stages_ms=stages)
     if device_only:
         device_only_ms = sum(_self_device_us(e) for e in prof_device.key_averages()
                              if e.device_type == DeviceType.CUDA) / 1e3
@@ -1532,7 +1685,7 @@ def phase_fused(device, ref: dict) -> dict:
                 windows=steady_windows(s, "A"))
 
 
-def steady_windows(s, name: str, n: int = 5, device_only: bool = True) -> dict:
+def steady_windows(s, name: str, n: int = 3, device_only: bool = True) -> dict:
     """Iterations 21 to 20 + n of A's seed 42 on sampler `s` in each mode
     under the profiler; at most one blocking host read a loop chunk plus
     READS_BESIDE_CHUNKS an iteration, and fewer than MAX_READS."""
@@ -1551,11 +1704,15 @@ def steady_windows(s, name: str, n: int = 5, device_only: bool = True) -> dict:
               f"iteration, device {w['device_ms_per_iter']:.1f} ms (idle "
               f"{100 * w['idle']:.1f} %), blocking host reads {w['blocking_per_iter']:.1f} an "
               f"iteration {w['blocking']}, loop chunk reads {w['chunk_reads_per_iter']:.1f} an "
-              f"iteration {w['reads']}{trace}", flush=True)
+              f"iteration {w['reads']}, eigvalsh operators {w['eigh_ops']}; stage ms an "
+              f"iteration {json.dumps({k: round(v, 3) for k, v in w['stages_ms'].items()})}"
+              f"{trace}", flush=True)
         check(w["blocking_per_iter"] <= w["chunk_reads_per_iter"] + READS_BESIDE_CHUNKS
               and w["blocking_per_iter"] < MAX_READS,
               f"{name} {'graphs' if graphs else 'no graphs'}: {w['blocking_per_iter']} blocking "
               f"reads an iteration for {w['chunk_reads_per_iter']} chunk reads")
+        check(cuda_linalg is None or w["eigh_ops"] == 0,
+              f"{name}: {w['eigh_ops']} torch.linalg.eigvalsh operators in the window")
     return windows
 
 
@@ -1965,29 +2122,78 @@ def phase_reference_surface(device, vectorized_wall: float) -> dict:
     return out
 
 
+def dynamic_sampler(device, seed):
+    return Sampler(prior_transform, rosenbrock_chained, n_dim=N_DIM, n_particles=N_PARTICLES,
+                   vectorize=True, clustering=False, history_capacity=192, volume_variation=1.0,
+                   random_state=seed, device=device)
+
+
 def phase_dynamic(device) -> dict:
-    """12: dynamic (CV) mode on rosenbrock10_cv."""
-    s = Sampler(prior_transform, rosenbrock_chained, n_dim=N_DIM, n_particles=N_PARTICLES,
-                vectorize=True, clustering=False, history_capacity=192, volume_variation=1.0,
-                random_state=SEEDS[0], device=device)
-    reset_counts()
-    before = dict(reweight_step.PROBES)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    s.run(n_total=N_TOTAL, progress=False)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    probes = {k: reweight_step.PROBES[k] - before[k] for k in before}
-    launched = counts()
-    ess = check_run("dynamic rosenbrock10_cv", s, CV_LOGZ, launched)
-    n = max(probes["reweights"], 1)
-    print(f"dynamic: {s.state.hist.t} iterations, {probes['reweights']} dynamic reweights, "
-          f"{probes['ess_bracket'] / n:.2f} ESS-bracket and {probes['cv'] / n:.2f} CV probes per "
-          f"reweight (one host sync each); wall={wall:.3f} s eff/s={ess / wall:.1f}", flush=True)
-    check(probes["reweights"] == s.state.hist.t - 1,
-          f"dynamic: {probes['reweights']} dynamic reweights for {s.state.hist.t - 1}")
-    check(launched["ess_bisect"] == 0, "dynamic: the ESS kernel ran in dynamic mode")
-    return {"launches": launched, "probes": probes, "wall_s": wall}
+    """12: dynamic (CV) mode on rosenbrock10_cv, seed 42, with
+    run(on_device=False) and then run(on_device=True) on a sampler whose
+    seed-43 run captured the graphs: bit for bit, logZ in the anchor, no
+    ESS-kernel launch, the eigenvalue kernel's launches equal; walls,
+    probes and reads per reweight; then iterations 21-23 in each mode
+    under the profiler, held to at most one blocking read a loop chunk
+    plus READS_BESIDE_CHUNKS an iteration."""
+    runs = {}
+    for on_device in (False, True):
+        s = dynamic_sampler(device, SEEDS[1] if on_device else SEEDS[0])
+        check(s.state.fused, "dynamic: not on the fused route")
+        if on_device:
+            s.run(n_total=N_TOTAL, progress=False, on_device=True)  # captures the graphs
+            s.reset(random_state=SEEDS[0])
+        warm = loop_stats(s)
+        reset_counts()
+        before = dict(reweight_step.PROBES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run(n_total=N_TOTAL, progress=False, on_device=on_device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        probes = {k: reweight_step.PROBES[k] - before[k] for k in before}
+        launched = counts()
+        stats = loop_stats(s)
+        timed = {k: {c: v.get(c, 0) - warm.get(k, {}).get(c, 0) for c in v}
+                 for k, v in stats.items()}
+        name = f"dynamic rosenbrock10_cv on_device={on_device}"
+        ess = check_run(name, s, CV_LOGZ, launched)
+        iters = s.state.hist.t
+        n = max(probes["reweights"], 1)
+        reads = {k: v.get("reads", 0) / n for k, v in timed.items() if k in (
+            "ess_bracket", "cv_bisect")}
+        print(f"{name}: wall={wall:.3f} s ({1e3 * wall / iters:.1f} ms an iteration) "
+              f"eff/s={ess / wall:.1f}; {iters} iterations, {probes['reweights']} dynamic "
+              f"reweights, {probes['ess_bracket'] / n:.2f} ESS-bracket and {probes['cv'] / n:.2f} "
+              f"CV probes per reweight, loop reads per reweight {reads}; loops {json.dumps(timed)}",
+              flush=True)
+        check(probes["reweights"] == iters - 1,
+              f"dynamic: {probes['reweights']} dynamic reweights for {iters - 1}")
+        check(launched["ess_bisect"] == 0, "dynamic: the ESS kernel ran in dynamic mode")
+        check(launched["sym_eigvals"] >= probes["cv"] + iters - 1,
+              f"dynamic: {launched['sym_eigvals']} eigenvalue launches for {probes['cv']} CV "
+              f"probes and {iters - 1} final CVs")
+        runs[on_device] = dict(results=s.results(), logz=s.evidence()[0], wall=wall,
+                               launches=launched, probes=probes, loops=timed, iters=iters,
+                               sampler=s)
+    eager, fused = runs[False], runs[True]
+    for name in ("beta", "logz", "ess", "cv", "steps", "calls"):
+        check(fused["results"][name].tobytes() == eager["results"][name].tobytes(),
+              f"dynamic: {name} with on_device=True differs from on_device=False")
+    check(fused["logz"] == eager["logz"] and fused["launches"] == eager["launches"]
+          and fused["probes"] == eager["probes"],
+          f"dynamic: logZ {fused['logz']!r} / {eager['logz']!r}, launches "
+          f"{fused['launches']} / {eager['launches']}, probes {fused['probes']} / "
+          f"{eager['probes']}")
+    check(fused["loops"]["ess_bracket"].get("replays", 0) > 0
+          and all(v.get("captures", 0) == 0 for v in fused["loops"].values()),
+          f"dynamic on_device=True: replays and captures {fused['loops']}")
+    windows = steady_windows(fused["sampler"], "dynamic", n=3, device_only=False)
+    return {"launches": eager["launches"], "probes": eager["probes"],
+            "wall_s": {"on_device=False": eager["wall"], "on_device=True": fused["wall"]},
+            "iters": eager["iters"], "loops": {"on_device=False": eager["loops"],
+                                               "on_device=True": fused["loops"]},
+            "windows": windows}
 
 
 def phase_cadence_and_host(device) -> dict:
@@ -2162,8 +2368,69 @@ def mesh_collectives(device, group) -> None:
           and err <= 1e-6 * float(top[0]), "mesh sharded_select_fit_points: candidate branch")
 
 
+def mesh_sampler(device, mesh, seed, hardware_prng=False, **kw):
+    return Sampler(prior_transform, rosenbrock, n_dim=N_DIM, n_particles=N_PARTICLES,
+                   vectorize=True, history_capacity=CAPACITY, random_state=seed, device=device,
+                   mesh=mesh, hardware_prng=hardware_prng, **kw)
+
+
+def mesh_run(s, name: str, **run_kw) -> dict:
+    """One timed run of mesh sampler `s`: its results, wall, launches, MCMC
+    bodies and draw state; logZ in the clustered band, no ESS-kernel
+    launch (a mesh bisects by reductions, as JAX bypasses its kernel under
+    one) and one eigenvalue launch a reweight."""
+    warm, bodies = loop_stats(s), mcmc_bodies(s)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.run(n_total=N_TOTAL, progress=False, **run_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    iters = s.state.hist.t
+    check_run(name, s, CLUSTERED_LOGZ, launched)
+    check(launched["ess_bisect"] == 0 and launched["ess_bisect_f64"] == 0
+          and launched["sym_eigvals"] == iters - 1,
+          f"{name}: launches {launched}; a mesh runs no ESS kernel, and one CV a reweight")
+    timed = {k: {c: v.get(c, 0) - warm.get(k, {}).get(c, 0) for c in v}
+             for k, v in loop_stats(s).items()}
+    return dict(results=s.results(), logz=s.evidence()[0], wall=wall, launches=launched,
+                bodies=mcmc_bodies(s) - bodies, iters=iters, loops=timed,
+                draws=s.state.draws.get_state())
+
+
+def check_mesh_pair(name: str, eager: dict, fused: dict, hardware_prng: bool) -> None:
+    """on_device=True against on_device=False, bit for bit."""
+    for key in ("beta", "logz", "steps", "calls"):
+        check(fused["results"][key].tobytes() == eager["results"][key].tobytes(),
+              f"{name}: {key} with on_device=True differs from on_device=False")
+    check(fused["logz"] == eager["logz"] and fused["launches"] == eager["launches"]
+          and fused["bodies"] == eager["bodies"],
+          f"{name}: logZ {fused['logz']!r} / {eager['logz']!r}, launches {fused['launches']} / "
+          f"{eager['launches']}, bodies {fused['bodies']} / {eager['bodies']}")
+    check(all(fused["draws"][k].tobytes() == eager["draws"][k].tobytes() for k in eager["draws"]),
+          f"{name}: the final draw state differs")
+    check(fused["loops"]["ess_sharded"].get("replays", 0) > 0
+          and fused["loops"]["mcmc"].get("replays", 0) > 0,
+          f"{name}: no replays {fused['loops']}")
+    if hardware_prng:
+        check(eager["launches"]["mutation_draws"] == eager["bodies"] > 0,
+              f"{name}: {eager['launches']['mutation_draws']} mutation-draws launches for "
+              f"{eager['bodies']} MCMC bodies")
+    print(f"{name} seed {SEEDS[0]}: on_device=False {eager['wall']:.3f} s "
+          f"({1e3 * eager['wall'] / eager['iters']:.1f} ms an iteration), on_device=True "
+          f"{fused['wall']:.3f} s ({1e3 * fused['wall'] / fused['iters']:.1f} ms), bit for bit; "
+          f"logz={fused['logz']!r} iters={fused['iters']} launches={fused['launches']} "
+          f"mcmc_bodies={fused['bodies']}; loops with graphs {json.dumps(fused['loops'])}",
+          flush=True)
+
+
 def phase_mesh(device, walls32: dict) -> dict:
-    """15: A on a particle mesh of one rank, over NCCL."""
+    """15: A on a particle mesh of one rank, over NCCL: the collectives; A
+    with save_every=10 (on_device=False: checkpoints keep the host loop)
+    and with on_device=True on a sampler whose seed-43 run captured the
+    graphs, bit for bit; the resume and the gathers; the steady windows;
+    then A with hardware_prng both ways."""
     import torch.distributed as dist
 
     initialize(f"127.0.0.1:{free_port()}", 1, 0, device=device.type, timeout=300)
@@ -2171,28 +2438,13 @@ def phase_mesh(device, walls32: dict) -> dict:
         mesh = make_particle_mesh(device=device.type)
         mesh_collectives(device, particle_group(mesh))
         with tempfile.TemporaryDirectory() as tmp:
-            s = Sampler(prior_transform, rosenbrock, n_dim=N_DIM, n_particles=N_PARTICLES,
-                        vectorize=True, history_capacity=CAPACITY, random_state=SEEDS[0],
-                        output_dir=tmp, device=device, mesh=mesh)
-            reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            s.run(n_total=N_TOTAL, progress=False, save_every=10)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launched = counts()
-            ess = check_run(f"A mesh (world size 1, seed {SEEDS[0]})", s, CLUSTERED_LOGZ,
-                            launched)
-            print(f"A mesh seed {SEEDS[0]}: wall={wall:.3f} s eff/s={ess / wall:.1f} "
-                  f"clusters={int(s.state.cluster_model.n_clusters())}; phase 6 seed "
-                  f"{SEEDS[0]} without a mesh: {walls32[SEEDS[0]]:.3f} s", flush=True)
-            check(all(n == 0 for n in launched.values()),
-                  f"A mesh: kernel launches {launched}; a mesh runs no ESS kernel")
-
-            resumed = Sampler(prior_transform, rosenbrock, n_dim=N_DIM,
-                              n_particles=N_PARTICLES, vectorize=True,
-                              history_capacity=CAPACITY, random_state=SEEDS[1],
-                              device=device, mesh=mesh)
+            s = mesh_sampler(device, mesh, SEEDS[0], output_dir=tmp)
+            check(s.state.fused, "A mesh: not on the fused route")
+            eager = mesh_run(s, f"A mesh (world size 1, seed {SEEDS[0]}, save_every=10)",
+                             save_every=10)
+            print(f"A mesh seed {SEEDS[0]}: phase 6 seed {SEEDS[0]} without a mesh: "
+                  f"{walls32[SEEDS[0]]:.3f} s", flush=True)
+            resumed = mesh_sampler(device, mesh, SEEDS[1])
             resumed.load_state(os.path.join(tmp, "ps_20.state"))
             for _ in range(2):
                 resumed.sample()
@@ -2209,7 +2461,36 @@ def phase_mesh(device, walls32: dict) -> dict:
               and abs(w.sum() - 1.0) < 1e-6, "A mesh posterior")
         check(logz == s.logz and math.isfinite(logz_err) and logz_err > 0.0,
               f"A mesh evidence {logz} +/- {logz_err}")
-        return launched
+
+        g = mesh_sampler(device, mesh, SEEDS[1])
+        g.run(n_total=N_TOTAL, progress=False, on_device=True)  # captures the graphs
+        g.reset(random_state=SEEDS[0])
+        fused = mesh_run(g, f"A mesh (world size 1, seed {SEEDS[0]}, on_device=True)",
+                         on_device=True)
+        check(all(v.get("captures", 0) == 0 for v in fused["loops"].values()),
+              f"A mesh on_device=True recaptured: {fused['loops']}")
+        check_mesh_pair("A mesh", eager, fused, False)
+        windows = steady_windows(g, "A mesh", n=3, device_only=False)
+
+        hw = {}
+        for on_device in (False, True):
+            h = mesh_sampler(device, mesh, SEEDS[0], hardware_prng=True)
+            hw[on_device] = mesh_run(
+                h, f"A mesh hardware_prng (seed {SEEDS[0]}, on_device={on_device})",
+                on_device=on_device)
+            if on_device:
+                calls = h.state.draws.calls
+                check(calls.read() == (calls.counter, calls.key),
+                      f"A mesh hardware_prng: device words {calls.read()} against the host "
+                      f"mirror {(calls.counter, calls.key)}")
+        check_mesh_pair("A mesh hardware_prng", hw[False], hw[True], True)
+        print(f"A mesh hardware_prng: call counter {int(hw[True]['draws']['philox_counter'])} "
+              f"after {hw[True]['bodies']} MCMC bodies", flush=True)
+        return {"launches": eager["launches"], "launches_hardware_prng": hw[False]["launches"],
+                "walls": {"on_device=False": eager["wall"], "on_device=True": fused["wall"],
+                          "hardware_prng on_device=False": hw[False]["wall"],
+                          "hardware_prng on_device=True": hw[True]["wall"]},
+                "iters": eager["iters"], "loops": fused["loops"], "windows": windows}
     finally:
         dist.destroy_process_group()
 
@@ -2255,15 +2536,19 @@ def phase_profile(device, out_dir: str) -> None:
     profile_iterations(canonical_sampler(device, SEEDS[0], clustering=True),
                        "canonical_clustered", out_dir)
     profile_iterations(per_point_sampler(device), "reference_surface", out_dir)
-    profile_iterations(
-        Sampler(prior_transform, rosenbrock_chained, n_dim=N_DIM, n_particles=N_PARTICLES,
-                vectorize=True, clustering=False, history_capacity=192, volume_variation=1.0,
-                random_state=SEEDS[0], device=device), "dynamic_rosenbrock10_cv", out_dir)
+    profile_iterations(dynamic_sampler(device, SEEDS[0]), "dynamic_rosenbrock10_cv", out_dir)
 
 
 SOURCES = {"ess_bisect": "tempest_tpu_torch/csrc/ess_bisect.cu",
-           "ess_bisect_f64": "tempest_tpu_torch/csrc/ess_bisect.cu"}
-KERNELS = ("ess_bisect", "ess_bisect_f64", "mutation_draws", "normal", "bits", "gamma")
+           "ess_bisect_f64": "tempest_tpu_torch/csrc/ess_bisect.cu",
+           "sym_eigvals": "tempest_tpu_torch/csrc/sym_eigvals.cu"}
+KERNELS = ("ess_bisect", "ess_bisect_f64", "mutation_draws", "normal", "bits", "gamma",
+           "sym_eigvals")
+# Kernels of the port that replace no Pallas kernel, and what they replace.
+NO_PALLAS = {
+    "sym_eigvals": "XLA's jnp.linalg.eigvalsh of volume_variation_dtn (tools.py:214; also :274); "
+                   "torch.linalg.eigvalsh reads the host, so the CV loop could not be captured",
+}
 REPLACES = {
     "ess_bisect": "tempest_tpu/ops/pallas_reweight.py:55",
     # JAX gates its Pallas kernel to float32 (pallas_reweight.py:42-44) and
@@ -2274,6 +2559,7 @@ REPLACES = {
     "bits": "tempest_tpu/ops/pallas_prng.py:108",
     # hw_gamma reaches pallas_call (:126) through 13 normal and bits calls.
     "gamma": "tempest_tpu/ops/pallas_prng.py:275",
+    "sym_eigvals": "tempest_tpu/ops/tools.py:214",
 }
 # Where each kernel's `launches` were counted.
 LAUNCHES_ON = {
@@ -2285,6 +2571,8 @@ LAUNCHES_ON = {
     "normal": "B (phase 8, eagerly; its graphed pass launches it as often, by replays)",
     "bits": "B (phase 8)",
     "gamma": "B (phase 8, eagerly; its graphed pass launches it as often, by replays)",
+    "sym_eigvals": "A (phase 6, seeds 42 and 43: the CV of each reweight); dynamic mode "
+                   "(phase 12) launches it for every CV probe as well",
 }
 # Kernels that no Sampler path launches, and why: each must count 0 on every
 # path, and phase 4 still holds it against its plain version.
@@ -2298,6 +2586,8 @@ OFF_PATH = {
 def kernel_table(rows: dict, launches: dict, floor: dict, split: dict, paths=None) -> list:
     table = []
     for name in KERNELS:
+        if name not in rows:  # a package older than the kernel (--package-root)
+            continue
         row = rows[name]
         table.append({
             "name": name, "route": "cuda",
@@ -2307,7 +2597,8 @@ def kernel_table(rows: dict, launches: dict, floor: dict, split: dict, paths=Non
                                    "library_ms")},
             "launches_on": LAUNCHES_ON[name] if launches else None,
             **({"off_path": OFF_PATH[name]} if name in OFF_PATH else {}),
-            **{k: row[k] for k in ("device_ms", "library_device_ms", "gamma_flips",
+            **({"no_pallas_counterpart": NO_PALLAS[name]} if name in NO_PALLAS else {}),
+            **{k: row[k] for k in ("device_ms", "library_device_ms", "gamma_flips", "sweeps",
                                    "gamma_bits_unequal", "hw_uniform_launches", "shapes",
                                    "routes") if k in row},
             "launch_floor_ms": floor["device_ms"], "call_split": split.get(name),
@@ -2318,6 +2609,33 @@ def kernel_table(rows: dict, launches: dict, floor: dict, split: dict, paths=Non
     return table
 
 
+def a_summary(run: dict) -> dict:
+    """A run's logZ, iterations, MCMC steps and ladder digest."""
+    import hashlib
+
+    res = run["results"]
+    return {"logz": run["logz"], "iters": run["iters"], "steps": int(res["steps"].sum()),
+            "beta_sha256": hashlib.sha256(res["beta"].tobytes()).hexdigest()}
+
+
+def parent_a(parent: str, ours: dict) -> None:
+    """A's seed 42 in the package of checkout `parent` (this script with
+    --a-only --package-root, in a process of its own) against phase 6's:
+    the same logZ and iteration count."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--a-only",
+                           "--package-root", parent], capture_output=True, text=True,
+                          timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("A_SEED42 ")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"parent A run failed ({proc.returncode}): {proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    theirs, mine = json.loads(lines[0][len("A_SEED42 "):]), a_summary(ours)
+    print(f"A seed {SEEDS[0]} in the parent's package ({parent}): {json.dumps(theirs)}; here: "
+          f"{json.dumps(mine)}", flush=True)
+    check(theirs["logz"] == mine["logz"] and theirs["iters"] == mine["iters"],
+          f"A seed {SEEDS[0]}: logZ / iterations {mine['logz']!r} / {mine['iters']} against the "
+          f"parent's {theirs['logz']!r} / {theirs['iters']}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -2325,10 +2643,17 @@ def main() -> None:
     parser.add_argument("--kernels-only", action="store_true",
                         help="run phases 1-4 only and print their table (no result line)")
     parser.add_argument("--package-root", metavar="DIR",
-                        help="import tempest_tpu_torch from DIR (with --kernels-only)")
+                        help="import tempest_tpu_torch from DIR (with --kernels-only or --a-only)")
+    parser.add_argument("--a-only", action="store_true",
+                        help="run phases 1-2 and A's seed 42 only; print its ladder (no result "
+                             "line)")
+    parser.add_argument("--parent", metavar="DIR",
+                        help="a checkout of another commit: its package's A seed 42 (--a-only, "
+                             "in a process of its own) must give phase 6's logZ and iterations")
     args = parser.parse_args()
-    if args.package_root and not args.kernels_only:
-        fail("--package-root times another version's kernels: use it with --kernels-only")
+    if args.package_root and not (args.kernels_only or args.a_only):
+        fail("--package-root runs another version's package: use it with --kernels-only or "
+             "--a-only")
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs only on an NVIDIA GPU")
     device = torch.device("cuda")
@@ -2341,10 +2666,18 @@ def main() -> None:
     print(f"package: {os.path.dirname(os.path.dirname(os.path.abspath(cuda_reweight.__file__)))}",
           flush=True)
     ptxas = phase_build()
+    if args.a_only:
+        runs = {}
+        run_canonical(device, "A clustered", SEEDS[:1], True, False, CLUSTERED_LOGZ, runs=runs)
+        print("A_SEED42 " + json.dumps(a_summary(runs[SEEDS[0]])), flush=True)
+        return
     stamp("phase 3: the ESS kernel")
     rows = {"ess_bisect": phase_ess_kernel(device), "ess_bisect_f64": phase_ess_kernel_f64(device)}
     stamp("phase 4: the PRNG kernels")
     rows.update(phase_prng_kernels(device))
+    stamp("phase 4b: the eigenvalue kernel")
+    if cuda_linalg is not None:
+        rows["sym_eigvals"] = phase_eig_kernel(device)
     floor = launch_floor(device)
     split = phase_call_split(device)
     if args.kernels_only:
@@ -2361,6 +2694,8 @@ def main() -> None:
     stamp("phase 6: A")
     paths["A"], walls = run_canonical(device, "A clustered", SEEDS[:2], True, False,
                                       CLUSTERED_LOGZ, runs=eager)
+    if args.parent:
+        parent_a(args.parent, eager[SEEDS[0]])
     stamp("phase 6b: A fused")
     fused = phase_fused(device, eager)
     paths["A_fused"] = fused["launches"]
@@ -2389,7 +2724,9 @@ def main() -> None:
     for name, err in f64_errs.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     stamp("phase 15: the mesh")
-    paths["A_mesh"] = phase_mesh(device, walls)
+    mesh = phase_mesh(device, walls)
+    paths["A_mesh"], paths["A_mesh_hardware_prng"] = mesh["launches"], mesh[
+        "launches_hardware_prng"]
     if args.profile:
         phase_profile(device, args.profile)
 
@@ -2397,7 +2734,7 @@ def main() -> None:
                 "ess_bisect_f64": paths["A_float64"]["ess_bisect_f64"],
                 "mutation_draws": paths["A_hardware_prng"]["mutation_draws"],
                 "normal": paths["B"]["normal"], "bits": paths["B"]["bits"],
-                "gamma": paths["B"]["gamma"]}
+                "gamma": paths["B"]["gamma"], "sym_eigvals": paths["A"]["sym_eigvals"]}
     for name, n in launches.items():
         if name in OFF_PATH:
             on = {p: c[name] for p, c in paths.items() if c[name]}
@@ -2405,7 +2742,10 @@ def main() -> None:
         else:
             check(n > 0, f"kernel {name} was not launched on its path")
     print(f"launches by path: {json.dumps(paths)}", flush=True)
-    print(f"dynamic probes: {json.dumps(dynamic['probes'])}", flush=True)
+    keys = ("probes", "wall_s", "iters", "loops", "windows")
+    print(f"dynamic: {json.dumps({k: dynamic[k] for k in keys})}", flush=True)
+    print(f"A mesh: {json.dumps({k: mesh[k] for k in ('walls', 'iters', 'loops', 'windows')})}",
+          flush=True)
     print(f"A fused: {json.dumps({k: fused[k] for k in ('wall', 'iters', 'loops', 'windows')})}",
           flush=True)
     print("A hardware_prng: " + json.dumps({k: hw[k] for k in (

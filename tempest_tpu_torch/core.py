@@ -9,16 +9,17 @@ block-bootstrap error), results and state-file extraction. The fitted
 cluster model is carried from iteration to iteration in `cluster_model`
 (in JAX, `_fused_model` and `_fused_fitted`), and saved with the state.
 
-A configuration of `fused.fused_route` (one device, ESS mode, no host
-likelihood) runs the fused iteration
-(`fused.py`) for `run()` and `sample()` alike, as JAX runs its fused
-iteration for both: its loops in chunks, one host read a chunk. Every
-route anneals in the one loop of `run_sampling`, whose termination test
-takes the beta the iteration read (`iteration.beta`).
+A configuration of `fused.fused_route` (every one without a host
+likelihood: one device or a mesh, ESS or dynamic mode) runs the fused
+iteration (`fused.py`) for `run()` and `sample()` alike, as JAX runs its
+fused iteration for both: its loops in chunks, one host read a chunk.
+Every route anneals in the one loop of `run_sampling`, whose termination
+test takes the beta the iteration read (`iteration.beta`).
 `run(on_device=True)` on the fused route on a CUDA device, without
-`save_every` (which keeps the host loop, core.py:309), turns the loops'
-CUDA graphs on (`loops.Loops.graphs`): each loop chunk is replayed as a
-graph, with the same results as `on_device=False`. The first draws object
+`save_every` (which keeps the host loop, core.py:309, and under a mesh
+its sharded checkpoints), turns the loops' CUDA graphs on
+(`loops.Loops.graphs`): each loop chunk is replayed as a graph, with the
+same results as `on_device=False`. The first draws object
 is kept for the sampler's life and reseeded in place, as the graphs hold
 its generator (and, with `hardware_prng`, its call counter's words). The
 dispatch-budget chunking of the TPU whole-run program is not ported

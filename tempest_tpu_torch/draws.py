@@ -220,10 +220,35 @@ class BlockDraws:
     uniforms for walkers [rank n, (rank + 1) n), where n is the rank's
     block width. The warm-up's patch uniforms, the resampling uniforms and
     the bootstrap's are global, as the collectives that use them need.
+    `graph_safe`, `generator`, `calls`, `tell` and `seek` are the wrapped
+    draws': every rank draws the global arrays, so the position is global
+    and the same on every rank.
     """
 
     def __init__(self, draws: Draws, rank: int, world: int):
         self.draws, self.rank, self.world = draws, rank, world
+
+    @property
+    def graph_safe(self) -> bool:
+        return getattr(self.draws, "graph_safe", False)
+
+    @property
+    def generator(self) -> Optional[torch.Generator]:
+        return getattr(self.draws, "generator", None)
+
+    @property
+    def calls(self) -> Optional[cuda_prng.PhiloxCounter]:
+        return getattr(self.draws, "calls", None)
+
+    @property
+    def tell(self):
+        """The wrapped draws' `tell` (None for a source without one, which
+        the MCMC loop then does not put back)."""
+        return getattr(self.draws, "tell", None)
+
+    @property
+    def seek(self):
+        return getattr(self.draws, "seek", None)
 
     def _block(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         n = t.shape[dim] // self.world

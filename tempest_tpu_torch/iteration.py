@@ -19,8 +19,9 @@ eagerly:
 4. commit the active set, blob rows included, to the history.
 
 Every draw comes from the draws object passed in. The iteration's loops
-(the mode EM, the GMM EM, the split rounds, the MCMC steps) run through
-`loops` (`loops.Loops`): by default each reads its exit after every body;
+(the bisections of the reweight under a mesh or in dynamic mode, the mode
+EM, the GMM EM, the split rounds, the MCMC steps) run through `loops`
+(`loops.Loops`): by default each reads its exit after every body;
 `fused.py` hands in chunked, optionally graphed loops. Between the loops
 the stages run straight through on the device; the one host read outside
 them is beta, for the warm-up branch (`iteration.beta` keeps it). Each
@@ -203,7 +204,7 @@ def make_iteration(
         else:
             with annotate("ps/reweight"):
                 rw = reweight(hist, cur.beta, ess_target, cv_target=cv_target,
-                              dynamic=dynamic, group=group)
+                              dynamic=dynamic, group=group, loops=loops)
                 cur.beta = rw.beta.to(cfg.dtype)
                 iteration.beta = loops.read("beta", cur.beta)[0]
             cur.logz = rw.logz.to(cfg.dtype)

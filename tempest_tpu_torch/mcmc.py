@@ -45,7 +45,10 @@ step's acceptance sums in one `all_reduce` (mcmc.py:218-229, :256), so the
 step sizes and the stop test are the same on every rank. The draws are
 global (draws.BlockDraws keeps the rank's block), so the walkers'
 gamma shapes are gathered over the ranks: `Walkers.gamma_shape` is then
-the global (N,) vector.
+the global (N,) vector. The gather and the cluster counts run before the
+loop; the step's `all_reduce` runs inside each chunk (captured with the
+chunk on CUDA), and every rank reads the same reduced stop flag, so the
+ranks run the same bodies and put the global draws back alike.
 """
 
 from __future__ import annotations
@@ -315,9 +318,10 @@ class MCMCKernel:
         if loops.graphed and not (
                 getattr(draws, "graph_safe", False) and draws.generator in loops.generators
                 and (getattr(draws, "calls", None) is None or draws.calls in loops.counters)):
-            raise ValueError("a graphed MCMC loop needs graph-safe draws (draws.Draws) whose "
-                             "generator (Loops.generators) and call counter (Loops.counters, "
-                             "HardwareDraws) are registered with its Loops")
+            raise ValueError("a graphed MCMC loop needs graph-safe draws (draws.Draws, or a "
+                             "draws.BlockDraws of them) whose generator (Loops.generators) and "
+                             "call counter (Loops.counters, HardwareDraws) are registered with "
+                             "its Loops")
 
         def body(c, k):
             z, g, u_acc = draws.mcmc_step(self.n_candidates, n, d, k.get("gamma_shape"))

@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from .cuda_linalg import eigvalsh
+
 
 def logsumexp(logx: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
     """Numerically-stable logsumexp robust to all -inf inputs (tools.py:21-28)."""
@@ -233,7 +235,7 @@ def volume_variation_dtn(
     flat = uc.reshape(d, -1)
     cov = _psum((flat * w.reshape(1, -1)) @ flat.T, group)  # (d, d)
 
-    eigvals = torch.linalg.eigvalsh(cov)
+    eigvals = eigvalsh(cov)
     tol = torch.amax(torch.abs(eigvals)) * d * torch.finfo(u.dtype).eps
     rank = torch.sum(eigvals > tol)
     reg = 1e-6 * torch.trace(cov)
@@ -272,7 +274,7 @@ def volume_variation(
         xc = torch.where(mask[:, None], xc, zero)
     cov = xc.T @ (xc * w[:, None])
 
-    eigvals = torch.linalg.eigvalsh(cov)
+    eigvals = eigvalsh(cov)
     tol = torch.amax(torch.abs(eigvals)) * d * torch.finfo(x.dtype).eps
     rank = torch.sum(eigvals > tol)
     reg = 1e-6 * torch.trace(cov)

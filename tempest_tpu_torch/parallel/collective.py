@@ -71,7 +71,8 @@ def _claim(cdf, prev, total, pos) -> Tuple[torch.Tensor, torch.Tensor]:
     (collective.py:84-98). Positions are clamped into (0, total], the
     counterpart of the unsharded guard cdf[-1] = 1."""
     size = cdf.shape[0]
-    p = torch.clamp(pos.to(cdf.dtype), min=torch.finfo(cdf.dtype).tiny, max=total)
+    # The upper clamp is a tensor op: clamp(max=<0-d tensor>) reads it on the host.
+    p = torch.minimum(torch.clamp(pos.to(cdf.dtype), min=torch.finfo(cdf.dtype).tiny), total)
     li = torch.searchsorted(cdf, p, right=False)
     li_c = torch.clamp(li, 0, size - 1)
     claimed = (li < size) & (prev[li_c] < p) & (cdf[li_c] >= p)

@@ -12,20 +12,34 @@ Counterpart of tempest_tpu/steps/reweight.py. Two modes, as there:
   (`_find_ess_bracket`, :73-119), then a bisection on the volume-variation
   CV inside it (`_find_beta_bisection`, :122-166), with the boundary rules
   of :234-241. JAX runs no Pallas kernel in this mode, so neither does the
-  port: plain PyTorch on the history's device. Every probe evaluates ESS or
-  `volume_variation_dtn` over the whole masked history and reads one
-  boolean on the host. `PROBES` counts the dynamic reweights and their
-  probes in this process.
+  port; the CV's eigenvalues come from `ops.cuda_linalg.eigvalsh`, the
+  port's kernel for a CUDA tensor, which reads nothing on the host.
+
+The three bisections (the bracket, the CV bisection and the sharded ESS
+bisection) are device loops of `loops.Loops`, as JAX's `lax.while_loop`s:
+the carry is (lo, hi, beta, i, done) with JAX's rules; the stay, jump and
+CV boundary tests are `torch.where`s and the loop's initial `done`; a body
+that runs past `done` changes nothing. Each loop runs its bodies in chunks
+(`fused.CHUNKS`: "ess_bracket", "cv_bisect", "ess_sharded"; one body a
+chunk by default) and reads `done` once a chunk, so a run with
+`on_device=True` replays the chunks as CUDA graphs. Every body is a
+function of the loop's constants alone (the history's logl, denominator,
+masks and, for the CV, its points), so the results do not depend on the
+chunk length. The CV loop reads its boundary rules first (most reweights
+end there) and runs only when they leave a bisection. `PROBES` counts the
+reweights and the probes of each kind in this process, from the carry's
+`i` at the loop's last read.
 
 Both end with the final weights, ESS, CV and logZ at the chosen beta
-(:243-248). Under a mesh every reduction goes over the ranks' blocks, and
-each host decision reads a reduced value, the same on every rank, so the
-ranks take the same probes and reach the same beta.
+(:243-248). Under a mesh every reduction goes over the ranks' blocks, a
+body's ESS or CV reductions are its collectives, and each read is of a
+reduced value, the same on every rank, so the ranks run the same bodies
+and reach the same beta.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,13 +51,18 @@ from ..config import (
     METRIC_ATOL,
     METRIC_ATOL_CV,
 )
+from ..loops import Loops
 from ..ops.cuda_reweight import ess_bisect_beta
-from ..ops.tools import ess_from_logw_psum, volume_variation_dtn
-from ..state import History, logw_from_denominator, masked_logw, mis_denominator
+from ..ops.tools import ess_from_logw_psum, logsumexp_psum, volume_variation_dtn
+from ..state import History, logw_from_denominator, mis_denominator
 
-# Dynamic-mode reweights and their probes (ESS evaluations of the bracket
-# search, CV evaluations of the boundary tests and the bisection).
-PROBES = {"reweights": 0, "ess_bracket": 0, "cv": 0}
+Tensors = Dict[str, torch.Tensor]
+
+# Dynamic-mode reweights and the probes of each bisection: ESS evaluations
+# of the bracket search (ESS(beta_prev) and ESS(1) included), CV
+# evaluations of the boundary tests and the bisection, and the ESS
+# evaluations of the sharded ESS-mode bisection.
+PROBES = {"reweights": 0, "ess_bracket": 0, "cv": 0, "ess_sharded": 0}
 
 
 class ReweightResult(NamedTuple):
@@ -60,113 +79,185 @@ def _interval_tol(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     return torch.maximum(BETA_RTOL * scale, BETA_TOLERANCE * scale)
 
 
-def _find_ess_bracket(ess_at: Callable, beta_prev, target, one):
-    """[beta_low, beta_high] where ESS crosses the target (reweight.py:73-119):
-    both beta_prev when ESS(beta_prev) <= target, both 1 when ESS(1) >=
-    target, else bisected down to the interval tolerance."""
-    ess_cur, ess_one = ess_at(beta_prev), ess_at(one)
-    if bool(ess_cur > target) and bool(ess_one >= target):
-        return one, one
-    if bool(ess_cur <= target) or bool(ess_one >= target):
-        return beta_prev, beta_prev
-    lo, hi = beta_prev, one
-    for _ in range(MAX_BISECTION_ITERATIONS):
-        if not bool((hi - lo) > _interval_tol(lo, hi)):
-            break
+# ---------------------------------------------------------------------------
+# Probes: functions of the loop constants `k` (logl, denom, keep; u and mask
+# for the CV), as `state.logw_from_denominator` computes them.
+# ---------------------------------------------------------------------------
+def _logw(k: Tensors, beta: torch.Tensor, group, normalize: bool) -> torch.Tensor:
+    logw = beta * k["logl"] - k["denom"]
+    logw = torch.where(k["keep"], logw, torch.full_like(logw, float("-inf")))
+    return logw - logsumexp_psum(logw, group) if normalize else logw
+
+
+def _ess(k: Tensors, beta: torch.Tensor, group) -> torch.Tensor:
+    """ESS of the normalized weights (dynamic mode's `ess_at`)."""
+    return ess_from_logw_psum(_logw(k, beta, group, True), group)
+
+
+def _ess_unnormalized(k: Tensors, beta: torch.Tensor, group) -> torch.Tensor:
+    """ESS of the unnormalized weights (the sharded ESS-mode bisection's)."""
+    return ess_from_logw_psum(_logw(k, beta, group, False), group)
+
+
+def _cv(k: Tensors, beta: torch.Tensor, group) -> torch.Tensor:
+    w = torch.exp(_logw(k, beta, group, True))
+    return volume_variation_dtn(k["u"], w, mask=k["mask"], group=group)
+
+
+def _consts(hist: History, denom: torch.Tensor, target: float, atol_floor: float) -> Tensors:
+    dtype, device = hist.logl.dtype, hist.logl.device
+    mask = hist.sample_mask()
+    target_t = torch.full((), target, dtype=dtype, device=device)  # a fill: no host copy
+    return {"logl": hist.logl, "denom": denom, "keep": mask & torch.isfinite(hist.logl),
+            "mask": mask, "target": target_t,
+            "atol": torch.clamp(ESS_TOLERANCE * target_t.abs(), min=atol_floor)}
+
+
+# ---------------------------------------------------------------------------
+# Loop bodies
+# ---------------------------------------------------------------------------
+def _bracket_open(lo, hi, i) -> torch.Tensor:
+    """The bracket loop's condition (reweight.py:90-94)."""
+    return ((hi - lo) > _interval_tol(lo, hi)) & (i < MAX_BISECTION_ITERATIONS)
+
+
+def _bracket_body(group) -> Callable[[Tensors, Tensors], Tensors]:
+    """One probe of the ESS bracket (reweight.py:96-102): the midpoint's
+    ESS at or above the target moves lo up, else hi down."""
+
+    def body(c: Tensors, k: Tensors) -> Tensors:
+        lo, hi, go = c["lo"], c["hi"], ~c["done"]
         mid = 0.5 * (lo + hi)
-        if bool(ess_at(mid) >= target):
-            lo = mid
-        else:
-            hi = mid
-    return lo, hi
+        up = _ess(k, mid, group) >= k["target"]
+        lo = torch.where(go & up, mid, lo)
+        hi = torch.where(go & ~up, mid, hi)
+        i = c["i"] + go.to(c["i"].dtype)
+        return {"lo": lo, "hi": hi, "i": i, "done": ~_bracket_open(lo, hi, i)}
+
+    return body
 
 
-def _find_cv_bisection(cv_at: Callable, lo, hi, target):
-    """Bisection of beta on CV in [lo, hi] (reweight.py:122-166, dynamic):
-    stop when |CV - target| < max(ESS_TOLERANCE |target|, METRIC_ATOL_CV),
-    the interval is below tolerance or beta is 1; CV rises with beta;
-    non-finite CV counts as 1e10; at most 200 probes."""
-    atol = torch.clamp(ESS_TOLERANCE * target.abs(), min=METRIC_ATOL_CV)
-    beta = 0.5 * (lo + hi)
-    for _ in range(MAX_BISECTION_ITERATIONS):
+def _metric_body(metric_at: Callable, group, dynamic: bool) -> Callable[[Tensors, Tensors], Tensors]:
+    """One probe of the metric bisection (reweight.py:122-166): converged
+    when |metric - target| < the dual tolerance (`k["atol"]`), the
+    interval is below tolerance or beta is 1; a non-finite metric counts
+    as 1e10; CV rises with beta (dynamic), ESS falls; 200 probes at most."""
+
+    def body(c: Tensors, k: Tensors) -> Tensors:
+        lo, hi, go = c["lo"], c["hi"], ~c["done"]
         beta = 0.5 * (lo + hi)
-        metric = cv_at(beta)
+        metric = metric_at(k, beta, group)
         metric = torch.where(torch.isfinite(metric), metric, torch.full_like(metric, 1e10))
-        converged = (metric - target).abs() < atol
-        if bool(converged | ((hi - lo) < _interval_tol(lo, hi)) | (beta == 1.0)):
-            break
-        if bool(metric < target):
-            lo = beta
-        else:
-            hi = beta
-    return beta
+        target = k["target"]
+        conv = (((metric - target).abs() < k["atol"]) | ((hi - lo) < _interval_tol(lo, hi))
+                | (beta == 1.0))
+        up = metric < target if dynamic else metric >= target
+        lo = torch.where(go & ~conv & up, beta, lo)
+        hi = torch.where(go & ~conv & ~up, beta, hi)
+        i = c["i"] + go.to(c["i"].dtype)
+        done = c["done"] | conv | (i >= MAX_BISECTION_ITERATIONS)
+        return {"lo": lo, "hi": hi, "beta": torch.where(go, beta, c["beta"]), "i": i,
+                "done": done}
+
+    return body
 
 
-def _sharded_ess_beta(hist: History, denom, beta_prev, ess_target: float, group):
+def _run(loops: Loops, name: str, body, carry: Tensors, consts: Tensors, group,
+         *keys: str) -> Tuple[Tensors, List[float]]:
+    """Chunks of loop `name` until its `done` reads True: the carry and the
+    last read of (done, i, *keys)."""
+    run = loops.start(name, body, carry, consts, static=(id(group),))
+    while True:
+        run.advance(loops.chunk(name))
+        values = run.read("done", "i", *keys)
+        if values[0]:
+            return run.result(), values
+
+
+def _metric_carry(lo, hi, done) -> Tensors:
+    return {"lo": lo, "hi": hi, "beta": 0.5 * (lo + hi),
+            "i": torch.zeros((), dtype=torch.int32, device=lo.device), "done": done}
+
+
+# ---------------------------------------------------------------------------
+# The three bisections
+# ---------------------------------------------------------------------------
+def _find_ess_bracket(hist: History, denom, beta_prev, ess_target: float, group=None,
+                      loops: Optional[Loops] = None):
+    """(beta_low, beta_high, crossing) where ESS crosses the target
+    (reweight.py:73-119): both beta_prev when ESS(beta_prev) <= target,
+    both 1 when ESS(1) >= target as well (the jump), else [beta_prev, 1]
+    bisected down to the interval tolerance; `crossing` (a host bool) is
+    beta_low != beta_high."""
+    loops = loops or Loops(hist.logl.device)
+    k = _consts(hist, denom, ess_target, METRIC_ATOL)
+    one = torch.ones_like(beta_prev)
+    target = k["target"]
+    ess_cur, ess_one = _ess(k, beta_prev, group), _ess(k, one, group)
+    stay = (ess_cur <= target) | (ess_one >= target)
+    edge = torch.where((ess_cur > target) & (ess_one >= target), one, beta_prev)
+    lo = torch.where(stay, edge, beta_prev)
+    hi = torch.where(stay, edge, one)
+    i = torch.zeros((), dtype=torch.int32, device=lo.device)
+    out, (_, n, lo_h, hi_h) = _run(loops, "ess_bracket", _bracket_body(group),
+                                   {"lo": lo, "hi": hi, "i": i, "done": ~_bracket_open(lo, hi, i)},
+                                   k, group, "lo", "hi")
+    PROBES["ess_bracket"] += 2 + int(n)
+    return out["lo"], out["hi"], lo_h != hi_h
+
+
+def _find_cv_beta(hist: History, denom, beta_prev, beta_high, cv_target: float, group=None,
+                  loops: Optional[Loops] = None) -> torch.Tensor:
+    """The beta of the CV target in [beta_prev, beta_high] (reweight.py:
+    226-241): beta_high when the target is at or above CV(beta_high),
+    beta_prev when at or below CV(beta_prev), else the CV bisection."""
+    loops = loops or Loops(hist.logl.device)
+    k = _consts(hist, denom, cv_target, METRIC_ATOL_CV)
+    k["u"] = hist.u
+    goal = k["target"]
+    take_high = goal >= _cv(k, beta_high, group)
+    stay = goal <= _cv(k, beta_prev, group)
+    PROBES["cv"] += 2
+    # Most reweights end on a boundary rule: one read of it, counted as the
+    # loop's, costs what the first chunk's read would and runs no probe.
+    if loops.read("cv_bisect", take_high | stay)[0]:
+        return torch.where(take_high, beta_high, beta_prev)
+    out, (_, n) = _run(loops, "cv_bisect", _metric_body(_cv, group, dynamic=True),
+                       _metric_carry(beta_prev, beta_high, take_high | stay), k, group)
+    PROBES["cv"] += int(n)
+    return torch.where(take_high, beta_high, torch.where(stay, beta_prev, out["beta"]))
+
+
+def _sharded_ess_beta(hist: History, denom, beta_prev, ess_target: float, group,
+                      loops: Optional[Loops] = None) -> torch.Tensor:
     """The next beta in ESS mode under a mesh: XLA's bisection of
     tempest_tpu/steps/reweight.py:195-224 and :122-166. Stay when
     ESS(beta_prev) <= target, jump to 1 when ESS(1) >= target, else bisect
-    [beta_prev, 1] until |ESS - target| < max(ESS_TOLERANCE target,
-    METRIC_ATOL), the interval is below tolerance or beta is 1; non-finite
-    ESS counts as 1e10; at most 200 probes. Each probe reduces its ESS over
-    the ranks (two collectives)."""
-    dtype, device = hist.logl.dtype, hist.logl.device
-    one = torch.ones((), dtype=dtype, device=device)
-    target = torch.tensor(ess_target, dtype=dtype, device=device)
-
-    def ess_at(beta):  # ESS does not depend on the normalization
-        return ess_from_logw_psum(masked_logw(hist, denom, beta), group)
-
-    if bool(ess_at(beta_prev) <= target):
-        return beta_prev
-    if bool(ess_at(one) >= target):
-        return one
-    atol = max(ESS_TOLERANCE * abs(float(ess_target)), METRIC_ATOL)
-    lo, hi = beta_prev, one
-    beta = 0.5 * (lo + hi)
-    for _ in range(MAX_BISECTION_ITERATIONS):
-        beta = 0.5 * (lo + hi)
-        metric = ess_at(beta)
-        metric = torch.where(torch.isfinite(metric), metric, torch.full_like(metric, 1e10))
-        done = ((metric - target).abs() < atol) | ((hi - lo) < _interval_tol(lo, hi)) | (beta == 1.0)
-        if bool(done):
-            break
-        if bool(metric >= target):
-            lo = beta
-        else:
-            hi = beta
-    return beta
+    [beta_prev, 1] on the ESS with the dual tolerance max(ESS_TOLERANCE
+    target, METRIC_ATOL). Each probe reduces its ESS over the ranks (two
+    collectives)."""
+    loops = loops or Loops(hist.logl.device)
+    k = _consts(hist, denom, ess_target, METRIC_ATOL)
+    one = torch.ones_like(beta_prev)
+    stay = _ess_unnormalized(k, beta_prev, group) <= k["target"]
+    jump = _ess_unnormalized(k, one, group) >= k["target"]
+    out, (_, n) = _run(loops, "ess_sharded",
+                       _metric_body(_ess_unnormalized, group, dynamic=False),
+                       _metric_carry(beta_prev, one, stay | jump), k, group)
+    PROBES["ess_sharded"] += 2 + int(n)
+    return torch.where(stay, beta_prev, torch.where(jump, one, out["beta"]))
 
 
 def _dynamic_beta(hist: History, denom, beta_prev, ess_target: float, cv_target: float,
-                  group=None):
-    """The next beta in dynamic mode (reweight.py:225-241)."""
-    dtype, device = hist.logl.dtype, hist.logl.device
-    mask = hist.sample_mask()
-    one = torch.ones((), dtype=dtype, device=device)
-    target = torch.tensor(ess_target, dtype=dtype, device=device)
-    cv_goal = torch.tensor(cv_target, dtype=dtype, device=device)
+                  group=None, loops: Optional[Loops] = None) -> torch.Tensor:
+    """The next beta in dynamic mode (reweight.py:225-241): without an ESS
+    crossing beta_low; else the CV rules inside the bracket."""
     PROBES["reweights"] += 1
-
-    def ess_at(beta):
-        PROBES["ess_bracket"] += 1
-        return ess_from_logw_psum(logw_from_denominator(hist, denom, beta, group=group)[0], group)
-
-    def cv_at(beta):
-        PROBES["cv"] += 1
-        logw, _ = logw_from_denominator(hist, denom, beta, group=group)
-        return volume_variation_dtn(hist.u, torch.exp(logw), mask=mask, group=group)
-
-    beta_low, beta_high = _find_ess_bracket(ess_at, beta_prev, target, one)
-    if bool(beta_low == beta_high):  # no crossing
+    beta_low, beta_high, crossing = _find_ess_bracket(hist, denom, beta_prev, ess_target, group,
+                                                      loops)
+    if not crossing:
         return beta_low
-    # Target above CV(beta_high) -> beta_high; at or below CV(beta_prev) ->
-    # stay; else bisect between them.
-    if bool(cv_goal >= cv_at(beta_high)):
-        return beta_high
-    if bool(cv_goal <= cv_at(beta_prev)):
-        return beta_prev
-    return _find_cv_bisection(cv_at, beta_prev, beta_high, cv_goal)
+    return _find_cv_beta(hist, denom, beta_prev, beta_high, cv_target, group, loops)
 
 
 def reweight(
@@ -176,21 +267,23 @@ def reweight(
     cv_target: float = 0.0,
     dynamic: bool = False,
     group=None,
+    loops: Optional[Loops] = None,
 ) -> ReweightResult:
     """Select the next beta and compute the MIS weights.
 
     The beta-independent denominator is computed once (O(S)); in ESS mode
     invalid slots enter the kernel with Bm = +inf, so they weigh nothing.
     `hist.t` must be at least 1. With `group` (a particle mesh) `hist` is
-    this rank's block and the weights come back as its block.
+    this rank's block and the weights come back as its block. `loops` runs
+    the bisection loops (default: a read after every probe).
     """
     dtype, device = hist.logl.dtype, hist.logl.device
     denom = mis_denominator(hist)
     beta_prev = torch.as_tensor(beta_prev, dtype=dtype, device=device).reshape(())
     if dynamic:
-        beta = _dynamic_beta(hist, denom, beta_prev, ess_target, cv_target, group)
+        beta = _dynamic_beta(hist, denom, beta_prev, ess_target, cv_target, group, loops)
     elif group is not None:
-        beta = _sharded_ess_beta(hist, denom, beta_prev, ess_target, group)
+        beta = _sharded_ess_beta(hist, denom, beta_prev, ess_target, group, loops)
     else:
         bm = torch.where(hist.sample_mask(), denom, torch.full_like(denom, float("inf")))
         scal = torch.stack([beta_prev, torch.full((), ess_target, dtype=dtype, device=device)])

@@ -37,8 +37,18 @@ routes of `HardwareDraws` (thresholds lowered) a graphed MCMC loop and a
 graphed run repeat the eager ones bit for bit, with the same kernel
 launches and the same final call counter on the host and on the device,
 and a capture leaves the counter where it was.
+
+The eigenvalue kernel (`ops.cuda_linalg`, csrc/sym_eigvals.cu) against
+torch.linalg.eigvalsh of the float64 copy at d = 1, 2, 3, 10, 64, 100 and
+240 (past shared memory: the global-workspace route), on SPD, indefinite,
+rank-deficient and diagonal matrices in float32 and float64, within
+16 d eps max|lambda|; the CV's rank decision equal; a launch captured in a
+graph replays to the eager values. Dynamic mode and a mesh of one rank
+over NCCL (in a process of its own) repeat `on_device=False` bit for bit
+with `on_device=True`.
 """
 
+import json
 import math
 import subprocess
 import sys
@@ -749,3 +759,195 @@ def test_capture_of_a_host_read_raises(cuda_device):
     assert "EAGER_OK 1.0" in proc.stdout, proc.stdout + proc.stderr[-3000:]
     assert "CAPTURE_ERROR" in proc.stdout, proc.stdout + proc.stderr[-3000:]
     assert "'mcmc' loop" in proc.stdout and "on_device=False" in proc.stdout, proc.stdout
+
+
+# ---------------------------------------------------------------------------
+# The eigenvalue kernel (csrc/sym_eigvals.cu) and the loops it lets capture
+# ---------------------------------------------------------------------------
+def _symmetric(device, batch, d, kind, dtype, seed=0):
+    """(batch, d, d) symmetric matrices: SPD, indefinite, rank-deficient
+    (rank d // 2) or diagonal."""
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed + d)
+    x = torch.randn(batch, d, d, generator=g, dtype=torch.float64)
+    if kind == "spd":
+        a = x @ x.transpose(1, 2) / d + 0.1 * torch.eye(d, dtype=torch.float64)
+    elif kind == "indefinite":
+        a = x + x.transpose(1, 2)
+    elif kind == "rank_deficient":
+        y = x[:, :, : max(d // 2, 1)]
+        a = y @ y.transpose(1, 2)
+    else:
+        a = torch.diag_embed(torch.randn(batch, d, generator=g, dtype=torch.float64))
+    return a.to(device=device, dtype=dtype)
+
+
+EIG_KINDS = ("spd", "indefinite", "rank_deficient", "diagonal")
+# d = 240 is past what a CTA's shared memory holds in both types: the
+# global-workspace route.
+EIG_DIMS = (1, 2, 3, 10, 64, 100, 240)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", EIG_KINDS)
+@pytest.mark.parametrize("d", EIG_DIMS)
+def test_sym_eigvals_matches_eigvalsh(cuda_device, d, kind, dtype):
+    """Against torch.linalg.eigvalsh of the float64 copy: |dlambda| <= 16 d
+    eps max|lambda|. Jacobi's computed eigenvalues are those of A + E with
+    ||E|| a small multiple of eps ||A|| a sweep (5-10 sweeps), and
+    ||A||_2 = max|lambda|; LAPACK's backward error is of the same order,
+    so 16 d eps bounds both with room at every d tested."""
+    from tempest_tpu_torch.ops import cuda_linalg
+
+    assert cuda_linalg.plan_launch(d, dtype).resident == (d != 240)
+    a = _symmetric(cuda_device, 3, d, kind, dtype)
+    before = cuda_linalg.LAUNCHES
+    got, sweeps = cuda_linalg._launch(a, sweeps=True)
+    again = cuda_linalg.eigvalsh(a)
+    torch.cuda.synchronize()
+    assert cuda_linalg.LAUNCHES == before + 2
+    want = torch.linalg.eigvalsh(a.double().cpu())
+    scale = want.abs().amax(dim=1, keepdim=True)
+    err = (got.double().cpu() - want).abs()
+    assert got.dtype == dtype and got.shape == (3, d)
+    assert torch.all(err <= 16 * d * torch.finfo(dtype).eps * scale), float(err.max())
+    assert torch.equal(got, again)  # a launch repeats its bits
+    assert torch.all(torch.diff(got, dim=1) >= 0)
+    assert int(sweeps.max()) < 30 and (kind != "diagonal" or int(sweeps.max()) == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", EIG_KINDS)
+def test_sym_eigvals_keeps_the_cv_rank_decision(cuda_device, kind, dtype):
+    """volume_variation_dtn's rank test, eigvals > max|eigvals| d eps, takes
+    the same decision (rank < d or not) on the kernel's eigenvalues as on
+    torch.linalg.eigvalsh's, at the CV's d = 10."""
+    from tempest_tpu_torch.ops import cuda_linalg
+
+    d = 10
+    a = _symmetric(cuda_device, 8, d, kind, dtype, seed=3)
+
+    def short_rank(eig):
+        tol = eig.abs().amax(dim=1, keepdim=True) * d * torch.finfo(dtype).eps
+        return (eig > tol).sum(dim=1) < d
+
+    assert torch.equal(short_rank(cuda_linalg.eigvalsh(a)), short_rank(torch.linalg.eigvalsh(a)))
+
+
+@pytest.mark.cuda
+def test_sym_eigvals_nonfinite_and_refusals(cuda_device):
+    from tempest_tpu_torch.ops import cuda_linalg
+
+    a = _symmetric(cuda_device, 2, 5, "spd", torch.float32)
+    a[1, 3, 2] = float("nan")
+    got = cuda_linalg.eigvalsh(a)
+    assert torch.all(torch.isfinite(got[0])) and torch.all(torch.isnan(got[1]))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        cuda_linalg.eigvalsh(a.half())
+    with pytest.raises(ValueError, match="d, d"):
+        cuda_linalg.eigvalsh(torch.zeros(3, 4, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_sym_eigvals_replays_in_a_graph(cuda_device):
+    """A launch captured in a CUDA graph replays to the eager values on new
+    inputs written into its static buffer."""
+    from tempest_tpu_torch.ops import cuda_linalg
+
+    static = _symmetric(cuda_device, 4, 10, "spd", torch.float32)
+    cuda_linalg.eigvalsh(static)  # build, load and opt in before the capture
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        out = cuda_linalg.eigvalsh(static)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    for seed in (5, 6):
+        new = _symmetric(cuda_device, 4, 10, "indefinite", torch.float32, seed=seed)
+        static.copy_(new)
+        graph.replay()
+        assert torch.equal(out, cuda_linalg.eigvalsh(new))
+
+
+@pytest.mark.cuda
+def test_dynamic_run_on_device_repeats_on_device_false(cuda_device):
+    """Dynamic mode on the fused route: its ESS bracket and CV bisection
+    replayed as graphs repeat the eager chunks bit for bit; the CV's
+    eigenvalues come from the kernel, never torch.linalg.eigvalsh."""
+    from tempest_tpu_torch.ops import cuda_linalg
+
+    def loglike(x):  # chained 4-D Rosenbrock
+        return -torch.sum(100.0 * (x[..., 1:] - x[..., :-1] ** 2) ** 2
+                          + (1.0 - x[..., :-1]) ** 2, dim=-1)
+
+    runs, launches = [], []
+    for on_device in (False, True):
+        s = Sampler(lambda u: 20.0 * u - 10.0, loglike, n_dim=4, n_particles=256,
+                    vectorize=True, clustering=False, volume_variation=1.0, random_state=2,
+                    history_capacity=64, device=cuda_device)
+        assert s.state.fused
+        before = cuda_linalg.LAUNCHES
+        s.run(n_total=1024, progress=False, on_device=on_device)
+        launches.append(cuda_linalg.LAUNCHES - before)
+        runs.append(s)
+    (off, on), (r_off, r_on) = runs, (runs[0].results(), runs[1].results())
+    for name in ("beta", "logz", "ess", "cv", "steps", "calls"):
+        assert r_on[name].tobytes() == r_off[name].tobytes(), name
+    assert on.beta == 1.0 and launches[0] == launches[1] > 0
+    stats = on.state._iteration.loops.stats
+    assert stats["ess_bracket"]["replays"] > 0 and stats["mcmc"]["replays"] > 0
+
+
+_MESH_RUN = textwrap.dedent("""
+    import json, socket
+    import torch
+    import torch.distributed as dist
+    from tempest_tpu_torch import Sampler
+    from tempest_tpu_torch.parallel import make_particle_mesh
+    from tempest_tpu_torch.parallel.distributed import initialize
+
+    def loglike(x):
+        return -torch.sum(100.0 * (x[..., 1::2] - x[..., ::2] ** 2) ** 2
+                          + (1.0 - x[..., ::2]) ** 2, dim=-1)
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    initialize(f"127.0.0.1:{port}", 1, 0, device="cuda", timeout=120)
+    try:
+        mesh = make_particle_mesh(device="cuda")
+        rows = []
+        for on_device in (False, True):
+            s = Sampler(lambda u: 20.0 * u - 10.0, loglike, n_dim=4, n_particles=256,
+                        vectorize=True, k_max=4, random_state=2, history_capacity=32,
+                        device="cuda", mesh=mesh)
+            s.run(n_total=1024, progress=False, on_device=on_device)
+            r = s.results()
+            stats = s.state._iteration.loops.stats
+            rows.append({k: r[k].tobytes().hex() for k in ("beta", "logz", "steps")}
+                        | {"fused": s.state.fused, "beta1": s.beta,
+                           "replays": stats["ess_sharded"]["replays"]})
+        print("MESH " + json.dumps(rows))
+    finally:
+        dist.destroy_process_group()
+""")
+
+
+@pytest.mark.cuda
+def test_mesh_run_on_device_repeats_on_device_false(cuda_device):
+    """A particle mesh of one rank over NCCL (in a process of its own): the
+    sharded ESS bisection and the MCMC steps, their collectives captured
+    with the chunks, replay bit for bit."""
+    proc = subprocess.run([sys.executable, "-c", _MESH_RUN], capture_output=True, text=True,
+                          timeout=600, cwd=Path(__file__).resolve().parents[1])
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("MESH ")]
+    assert proc.returncode == 0 and line, proc.stdout + proc.stderr[-3000:]
+    off, on = json.loads(line[0][5:])
+    assert off["fused"] and on["fused"] and on["beta1"] == 1.0
+    for k in ("beta", "logz", "steps"):
+        assert on[k] == off[k], k
+    assert on["replays"] > 0 and off["replays"] == 0

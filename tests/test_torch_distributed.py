@@ -17,7 +17,9 @@ times out after 60 s and every rank is killed after 120 s.
    agreement holds where the sharded fit-point selection is exact:
    every rank's candidates cover its block of the history (m >= S/W), as
    on JAX's own 8-device test mesh, so `train_max_points` is raised to
-   S/W at W = 2. Below that the selection skips the weight trim, JAX's
+   S/W at W = 2. At W = 2 the fused route (every loop in chunks, the
+   sharded ESS bisection among them) repeats the eager iteration, whose
+   loops read after every body, bit for bit; dynamic mode runs to beta = 1. Below that the selection skips the weight trim, JAX's
    documented deviation (tempest_tpu/parallel/collective.py:180-189); that
    run is held to the same t and logZ within 0.05, not to the ladder.
 2. tests/test_distributed.py's two drills at W = 2: a clustered annealing
@@ -112,6 +114,31 @@ def _w_sampler(mesh, rank, world, workdir, cases):
             except ValueError as e:
                 errors.append(str(e))
         report({"case": "checks", "errors": errors})
+    if "fused" in cases:
+        # The fused route (loops in chunks) against the eager iteration,
+        # whose loops read after every body: one run, bit for bit.
+        from tempest_tpu_torch import core
+
+        rows = []
+        for fused in (True, False):
+            route = core.fused_route
+            if not fused:
+                core.fused_route = lambda config: False
+            try:
+                s = _build(mesh, 3, clustering=True)
+            finally:
+                core.fused_route = route
+            s.run(n_total=512, progress=False)
+            res = s.results()
+            rows.append({"fused": s.state.fused, "logz": s.logz, "t": s.state.hist.t,
+                         **{f"{k}_bits": res[k].tobytes().hex() for k in ("beta", "logz", "steps")},
+                         "reads": dict(s.state._iteration.loops.stats["ess_sharded"])})
+        report({"case": "fused", "runs": rows})
+    if "dynamic" in cases:
+        s = _build(mesh, 4, volume_variation=1.0)
+        s.run(n_total=512, progress=False)
+        report({"case": "dynamic", **_run_row(s), "fused": s.state.fused,
+                "cv_reads": s.state._iteration.loops.stats["ess_bracket"]["reads"]})
     if "pickle" in cases:
         s = _build(mesh, 5, clustering=True)
         for _ in range(8):
@@ -190,7 +217,8 @@ def _w_drill(mesh, rank, world, workdir, mode):
 def sampler_runs(tmp_path_factory):
     """world -> {case: [each rank's row]}: the W = 2 ranks run every case,
     the W = 4 ones the end-to-end run and the agreement."""
-    cases = {2: "e2e,agree,agree_candidates,clustering,divisible,growth,checks,pickle",
+    cases = {2: "e2e,agree,agree_candidates,clustering,divisible,growth,checks,pickle,fused,"
+                "dynamic",
              4: "e2e,agree"}
     runs = {}
 
@@ -272,6 +300,23 @@ def test_pickle_under_mesh_runs_on_one_device(sampler_runs):
     assert r["u"] < 1e-3
 
 
+
+
+def test_fused_mesh_run_equals_per_body_iteration(sampler_runs):
+    """At W = 2 the fused route (the sharded ESS bisection, the fits and
+    the MCMC steps in chunks) repeats the eager iteration bit for bit."""
+    fused, eager = _same_on_every_rank(sampler_runs(2)["fused"])["runs"]
+    assert fused["fused"] and not eager["fused"]
+    for k in ("beta_bits", "logz_bits", "steps_bits", "t"):
+        assert fused[k] == eager[k], k
+    assert fused["logz"] == eager["logz"] and abs(fused["logz"] - ANALYTIC_LOGZ) < 0.5
+    assert fused["reads"]["reads"] < eager["reads"]["reads"]
+
+
+def test_dynamic_mode_under_the_mesh(sampler_runs):
+    r = _same_on_every_rank(sampler_runs(2)["dynamic"])
+    assert r["fused"] and r["beta"] == 1.0 and r["cv_reads"] > 0
+    assert abs(r["logz"] - ANALYTIC_LOGZ) < 0.5
 
 
 def _jax_gaussian(x):

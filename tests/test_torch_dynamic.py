@@ -25,6 +25,7 @@ import torch
 from tempest_tpu.state import commit, make_current, make_history
 from tempest_tpu.steps.reweight import reweight as jax_reweight
 from tempest_tpu_torch import Sampler, interop
+from tempest_tpu_torch.loops import Loops
 from tempest_tpu_torch.ops.tools import ess_from_logw
 from tempest_tpu_torch.state import logw_from_denominator, mis_denominator
 from tempest_tpu_torch.steps import reweight as rw_mod
@@ -98,10 +99,7 @@ def test_dynamic_reweight_equals_jax(fill, seed, contract, ess_mult, cv_target):
 
 
 def _outcome(th, beta_prev, target, beta):
-    one = torch.ones(())
-    lo, hi = rw_mod._find_ess_bracket(
-        lambda b: torch.tensor(port_ess(th, b)), torch.tensor(beta_prev), torch.tensor(target),
-        one)
+    lo, hi, _ = rw_mod._find_ess_bracket(th, mis_denominator(th), torch.tensor(beta_prev), target)
     if float(lo) == float(hi):
         return "jump" if float(lo) == 1.0 else "no crossing"
     if beta == float(hi):
@@ -117,6 +115,30 @@ def test_cases_cover_every_boundary_rule():
         _, th, beta_prev, target, _, got = _run_case(*case)
         seen.add(_outcome(th, beta_prev, target, float(got.beta)))
     assert seen == {"jump", "no crossing", "beta_high", "stay", "bisect"}, seen
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+@pytest.mark.parametrize("fill,seed,contract,ess_mult,cv_target", CASES)
+def test_loop_bisections_equal_jax(fill, seed, contract, ess_mult, cv_target, chunk):
+    """The bracket and the CV bisection as device loops in chunks of 1, 3
+    and 8 bodies: JAX's values at test_dynamic_reweight_equals_jax's
+    tolerances, the per-probe loop's beta bit for bit, and one read a
+    chunk (the CV loop reads its boundary rules once first)."""
+    hist, th, beta_prev, target, want, _ = _run_case(fill, seed, contract, ess_mult, cv_target)
+    loops = Loops("cpu", {"ess_bracket": chunk, "cv_bisect": chunk})
+    got = reweight(th, torch.tensor(beta_prev), target, cv_target=cv_target, dynamic=True,
+                   loops=loops)
+    per_probe = reweight(th, torch.tensor(beta_prev), target, cv_target=cv_target, dynamic=True)
+    bj = float(want.beta)
+    assert abs(float(got.beta) - bj) <= 1e-5 * max(abs(bj), 1e-30)
+    assert torch.equal(got.beta, per_probe.beta)
+    np.testing.assert_allclose(float(got.ess), float(want.ess), rtol=1e-5)
+    np.testing.assert_allclose(float(got.logz), float(want.logz), atol=1e-5)
+    np.testing.assert_allclose(float(got.cv), float(want.cv), rtol=1e-4)
+    bracket, cv = loops.stats["ess_bracket"], loops.stats["cv_bisect"]
+    assert bracket["reads"] >= 1 and bracket["bodies"] == chunk * bracket["reads"]
+    if cv["reads"]:  # one read of the boundary rules, then one a chunk
+        assert cv["bodies"] == chunk * (cv["reads"] - 1)
 
 
 def test_probes_are_counted():

@@ -25,7 +25,8 @@ writes what it computed to an npz that a module-scoped fixture reads:
 5. Dynamic (CV) mode in float64: XLA's `reweight(dynamic=True,
    use_pallas=False)` on the histories of tests/test_torch_dynamic.py's
    CASES, made in float64; the port's float64 reweight must reach the
-   same beta, bit for bit.
+   same beta, bit for bit, with its bisections as device loops in chunks
+   of 1, 3 and 8 bodies too.
 
 In the test process (port only): the 4-D Gaussian of tests/test_float64.py
 with its bars (|logZ + 4 log 20| < 0.35, the MIS accumulator within 1e-9 of
@@ -45,6 +46,7 @@ import torch
 
 from tempest_tpu_torch import Sampler, interop
 from tempest_tpu_torch.cluster import fit_uniforms
+from tempest_tpu_torch.loops import Loops
 from tempest_tpu_torch.ops.cuda_reweight import ess_bisect_beta, ess_bisect_beta_reference
 from tempest_tpu_torch.state import mis_denominator, mis_denominator_exact
 from tempest_tpu_torch.steps.reweight import reweight
@@ -297,6 +299,24 @@ def test_dynamic_reweight_against_xla_float64(jax_x64, case):
                    cv_target=cv_target, dynamic=True)
     assert got.beta.dtype == torch.float64
     assert float(got.beta) == want
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+@pytest.mark.parametrize("case", range(len(DYNAMIC_CASES)))
+def test_dynamic_loop_bisections_against_xla_float64(jax_x64, case, chunk):
+    """The bracket and the CV bisection as device loops in chunks of 1, 3
+    and 8 bodies reach XLA's float64 beta bit for bit."""
+    fields = {k.split(".", 1)[1]: v for k, v in jax_x64.items()
+              if k.startswith(f"dyn{case}.")}
+    beta_prev, target, cv_target = fields.pop("args").tolist()
+    want = float(fields.pop("want"))
+    hist = interop.history_from_numpy(fields, "cpu")
+    loops = Loops("cpu", {"ess_bracket": chunk, "cv_bisect": chunk})
+    got = reweight(hist, torch.tensor(beta_prev, dtype=torch.float64), target,
+                   cv_target=cv_target, dynamic=True, loops=loops)
+    assert got.beta.dtype == torch.float64
+    assert float(got.beta) == want
+    assert loops.stats["ess_bracket"]["reads"] >= 1
 
 
 def _close(got, want, what):

@@ -29,6 +29,11 @@
    gamma-and-normal route; and a state file written by the eager route
    (`philox_key`, `philox_counter`) loads into the fused route and
    continues as the eager run does.
+8. Dynamic mode and the mesh on the fused route: a dynamic run with
+   `on_device=True` and False equal bit for bit to the eager iteration
+   whose loops read after every body; the ESS bisection under a mesh of
+   one rank (gloo, in this process) as a device loop in chunks of 1, 3
+   and 8 against JAX's XLA bisection; `draws.BlockDraws`' position.
 """
 
 import jax
@@ -39,6 +44,7 @@ import torch
 from test_torch_cluster import DATA, _jax_hgm, t
 from test_torch_clustered_slice import D, N, _bimodal_j, _bimodal_t, _prior
 from test_torch_slice import JaxIterationDraws
+import test_torch_dynamic as dyn
 
 from tempest_tpu import Sampler as JaxSampler
 from tempest_tpu import modes as jm
@@ -53,6 +59,7 @@ from tempest_tpu_torch.draws import Draws, HardwareDraws
 from tempest_tpu_torch.fused import CHUNKS, fused_route, make_fused_iteration
 from tempest_tpu_torch.loops import Loops
 from tempest_tpu_torch.mcmc import MCMCKernel
+from tempest_tpu_torch.steps.reweight import reweight
 
 torch.set_num_threads(1)
 
@@ -276,10 +283,15 @@ def test_one_fused_iteration_matches_jax():
     # The kernels read their call counter from the device (HardwareDraws),
     # so a graph replays their launches: float32 joins the fused route.
     ({"hardware_prng": True}, True),
-    ({"volume_variation": 1.0}, False),
+    # The bisections of dynamic mode and of the mesh are device loops.
+    ({"volume_variation": 1.0}, True),
+    ({"mesh": "gloo"}, True),
+    ({"mesh": "gloo", "volume_variation": 1.0}, True),
     ({"host_likelihood": True}, False),
 ])
-def test_fused_route_by_configuration(extra, fused):
+def test_fused_route_by_configuration(extra, fused, request):
+    if "mesh" in extra:
+        extra = dict(extra, mesh=request.getfixturevalue("gloo_mesh"))
     cfg = SamplerConfig(prior_transform=_prior, log_likelihood=_bimodal_t, n_dim=D,
                         n_particles=N, vectorize=True, device="cpu", **extra)
     assert fused_route(cfg) == fused
@@ -288,9 +300,26 @@ def test_fused_route_by_configuration(extra, fused):
     assert s.state.fused == fused
 
 
-def _sampler(clustering, seed=3):
+@pytest.fixture(scope="module")
+def gloo_mesh(tmp_path_factory):
+    """A particle mesh of one rank over gloo, in this process."""
+    import torch.distributed as dist
+
+    from tempest_tpu_torch.parallel import make_particle_mesh
+    from tempest_tpu_torch.parallel.distributed import initialize
+
+    initialize(f"file://{tmp_path_factory.mktemp('gloo') / 'store'}", 1, 0, device="cpu",
+               timeout=60)
+    try:
+        yield make_particle_mesh(device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def _sampler(clustering, seed=3, **extra):
     return Sampler(_prior, _bimodal_t, n_dim=D, n_particles=N, vectorize=True, k_max=4,
-                   clustering=clustering, random_state=seed, history_capacity=32, device="cpu")
+                   clustering=clustering, random_state=seed, history_capacity=32, device="cpu",
+                   **extra)
 
 
 @pytest.mark.parametrize("clustering", [True, False])
@@ -314,9 +343,11 @@ def test_run_on_device_equals_host_loop(clustering):
 READS = ("__bool__", "item", "tolist", "__int__", "__float__")
 
 
-def test_loop_bodies_read_nothing(monkeypatch):
+def test_loop_bodies_read_nothing(monkeypatch, gloo_mesh):
     """Every loop body and straight-line stretch between two loops of a whole
-    fused iteration runs with the host reads of a tensor raising."""
+    fused iteration runs with the host reads of a tensor raising: the
+    clustered iteration's loops; dynamic mode's ESS bracket and CV
+    bisection; the ESS bisection under a mesh."""
     s = _sampler(True, seed=4)
     core = s.state
     while int(core.cluster_model.n_clusters()) < 2 or core.hist.t < 6:
@@ -349,14 +380,145 @@ def test_loop_bodies_read_nothing(monkeypatch):
         self, name, guarded(name, body), *a, **k))
     monkeypatch.setattr(Loops, "once", lambda self, name, fn, *a, **k: plain_once(
         self, name, guarded(name, fn), *a, **k))
-    try:
+    def iterate(core):
         core.hist, core.cur, core.cluster_model = core._iteration(
             core.draws, core.hist, core.cur, core.cluster_model)
+
+    try:
+        iterate(core)
         assert ran == {"mode_em", "gmm_em", "split_head", "split_tail", "mcmc"}, ran
         with pytest.raises(AssertionError, match="host read"):
             guarded("check", lambda: bool(torch.ones(1) > 0))()
+        # Dynamic mode on a history of test_torch_dynamic.py whose reweight
+        # bisects on the CV; the ESS bisection in a mesh run's iterations.
+        ran.clear()
+        th = dyn.to_port(dyn.build_history(5, 1, contract=False))
+        beta_prev = float(th.beta[4])
+        reweight(th, torch.tensor(beta_prev), 0.5 * dyn.port_ess(th, beta_prev), cv_target=0.09,
+                 dynamic=True, loops=Loops("cpu", CHUNKS))
+        assert ran == {"ess_bracket", "cv_bisect"}, ran
+        mesh_run = _sampler(False, seed=4, mesh=gloo_mesh).state
+        ran.clear()
+        for _ in range(3):
+            iterate(mesh_run)
+        assert "ess_sharded" in ran, ran
     finally:
         patch(False)
+
+
+def _dynamic_sampler(seed=3, **extra):
+    return _sampler(False, seed=seed, volume_variation=0.3, **extra)
+
+
+def test_dynamic_run_on_device_equals_per_probe_iteration(monkeypatch):
+    """Dynamic mode on the fused route with run(on_device=True) and False,
+    and on the eager iteration whose loops read after every body: the same
+    results bit for bit; the fused route reads its bisections once a chunk."""
+    runs = []
+    for on_device in (False, True):
+        s = _dynamic_sampler()
+        assert s.state.fused
+        s.run(n_total=512, progress=False, on_device=on_device)
+        runs.append(s)
+    with monkeypatch.context() as m:
+        _eager_route(m)
+        eager = _dynamic_sampler()
+    assert not eager.state.fused
+    eager.run(n_total=512, progress=False)
+    runs.append(eager)
+    results = [x.results() for x in runs]
+    for r in results[1:]:
+        for name in ("beta", "logz", "ess", "cv", "steps", "calls"):
+            assert r[name].tobytes() == results[0][name].tobytes(), name
+    assert runs[0].beta == 1.0 and len({x.evidence()[0] for x in runs}) == 1
+    fused, per_body = (x.state._iteration.loops.stats for x in (runs[0], eager))
+    bracket = "ess_bracket"
+    assert per_body[bracket]["reads"] == per_body[bracket]["bodies"] > 0
+    assert fused[bracket]["bodies"] == CHUNKS[bracket] * fused[bracket]["reads"]
+    assert fused[bracket]["reads"] < per_body[bracket]["reads"]
+    # The CV loop reads its boundary rules once, then runs only to bisect.
+    assert per_body["cv_bisect"]["reads"] >= per_body["cv_bisect"]["bodies"]
+    assert fused["cv_bisect"]["reads"] <= per_body["cv_bisect"]["reads"]
+    assert fused["cv_bisect"]["bodies"] % CHUNKS["cv_bisect"] == 0
+
+
+def _jax_ess_history(seed, spread, fill=4, N_=64, D_=2):
+    from test_torch_reweight import build_history
+
+    return build_history(fill, N=N_, D=D_, seed=seed, spread=spread)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+@pytest.mark.parametrize("seed,spread,beta_prev,target", [
+    (0, 2.0, 0.1, 128.0), (1, 8.0, 0.3, 128.0), (2, 0.5, 0.0, 128.0), (3, 4.0, 0.9, 128.0),
+    (5, 12.0, 0.5, 1e9),  # stay
+    (6, 0.01, 0.2, 16.0),  # jump
+])
+def test_sharded_ess_loop_equals_jax(gloo_mesh, seed, spread, beta_prev, target, chunk):
+    """The ESS bisection under a mesh (one rank over gloo), as a device loop
+    in chunks of 1, 3 and 8 bodies, against JAX's XLA bisection
+    (`reweight(use_pallas=False)`): beta within 1e-5 (relative) and ESS,
+    logZ at test_torch_dynamic.py's tolerances; stay and jump exact; every
+    chunk length gives the per-probe loop's beta bit for bit."""
+    from tempest_tpu.steps.reweight import reweight as jax_reweight
+    from tempest_tpu_torch.parallel.mesh import particle_group
+    from tempest_tpu_torch.steps.reweight import reweight as port_reweight
+    from test_torch_reweight import to_port
+
+    hist = _jax_ess_history(seed, spread)
+    th = to_port(hist)
+    group = particle_group(gloo_mesh)
+    want = jax_reweight(hist, jnp.asarray(beta_prev, jnp.float32), target, use_pallas=False)
+    loops = Loops("cpu", {"ess_sharded": chunk})
+    got = port_reweight(th, torch.tensor(beta_prev), target, group=group, loops=loops)
+    per_probe = port_reweight(th, torch.tensor(beta_prev), target, group=group)
+    bj = float(want.beta)
+    if bj in (beta_prev, 1.0):
+        assert float(got.beta) == bj
+    assert abs(float(got.beta) - bj) <= 1e-5 * max(abs(bj), 1e-30)
+    assert torch.equal(got.beta, per_probe.beta)
+    np.testing.assert_allclose(float(got.ess), float(want.ess), rtol=1e-5)
+    np.testing.assert_allclose(float(got.logz), float(want.logz), atol=1e-5)
+    stats = loops.stats["ess_sharded"]
+    assert stats["reads"] >= 1 and stats["bodies"] == chunk * stats["reads"]
+
+
+def test_sharded_ess_cases_cover_stay_jump_and_bisect(gloo_mesh):
+    from tempest_tpu_torch.parallel.mesh import particle_group
+    from tempest_tpu_torch.steps.reweight import reweight as port_reweight
+    from test_torch_reweight import to_port
+
+    seen = set()
+    for seed, spread, beta_prev, target in ((0, 2.0, 0.1, 128.0), (5, 12.0, 0.5, 1e9),
+                                            (6, 0.01, 0.2, 16.0)):
+        th = to_port(_jax_ess_history(seed, spread))
+        beta = float(port_reweight(th, torch.tensor(beta_prev), target,
+                                   group=particle_group(gloo_mesh)).beta)
+        seen.add("stay" if beta == beta_prev else "jump" if beta == 1.0 else "bisect")
+    assert seen == {"stay", "jump", "bisect"}
+
+
+@pytest.mark.parametrize("hardware", [False, True])
+def test_block_draws_tell_seek_round_trip(hardware):
+    """A BlockDraws is graph-safe as its draws are: its position is theirs
+    (global), and seeking back repeats the rank's block of a step."""
+    from tempest_tpu_torch.draws import BlockDraws
+
+    inner = (HardwareDraws if hardware else Draws)(7, "cpu")
+    block = BlockDraws(inner, 1, 2)
+    assert block.graph_safe and block.generator is inner.generator
+    assert block.calls is (inner.calls if hardware else None)
+    gamma_shape = torch.full((64,), 3.0)
+    block.mcmc_step(8, 32, 2, gamma_shape)
+    p = block.tell()
+    first = block.mcmc_step(8, 32, 2, gamma_shape)
+    moved = block.tell()
+    assert moved[1] == p[1] + 1 if hardware else not torch.equal(moved, p)
+    block.seek(p)
+    again = block.mcmc_step(8, 32, 2, gamma_shape)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    assert first[0].shape == (8, 32, 2) and first[1].shape == (32,)
 
 
 def _hw_sampler(seed=3, **extra):

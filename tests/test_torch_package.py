@@ -27,12 +27,15 @@ SUBMODULES = [
     "tempest_tpu_torch.config",
     "tempest_tpu_torch.core",
     "tempest_tpu_torch.draws",
+    "tempest_tpu_torch.fused",
     "tempest_tpu_torch.interop",
     "tempest_tpu_torch.iteration",
+    "tempest_tpu_torch.loops",
     "tempest_tpu_torch.mcmc",
     "tempest_tpu_torch.modes",
     "tempest_tpu_torch.ops._build",
     "tempest_tpu_torch.ops.boundary",
+    "tempest_tpu_torch.ops.cuda_linalg",
     "tempest_tpu_torch.ops.cuda_prng",
     "tempest_tpu_torch.ops.cuda_reweight",
     "tempest_tpu_torch.ops.philox",

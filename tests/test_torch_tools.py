@@ -5,7 +5,10 @@ Tolerances: rtol 1e-5 for float32 reductions whose summation order differs;
 exact for the boundary ops (elementwise, same formulas); and at least 99 %
 equal indices for the resamplers, because a cumsum taken in another order
 can move a uniform across a CDF edge. The port's row-blocked `cumsum`
-against a float64 cumsum: rtol 1e-6.
+against a float64 cumsum: rtol 1e-6. `ops.cuda_linalg.eigvalsh` on the CPU
+is `torch.linalg.eigvalsh` bit for bit, within 16 d eps max|lambda| of
+XLA's float32 `jnp.linalg.eigvalsh` (two LAPACK-style solvers' rounding),
+and raises on any device but cpu and cuda.
 """
 
 import jax
@@ -17,6 +20,7 @@ import torch
 from tempest_tpu.ops import boundary as jb
 from tempest_tpu.ops import tools as jt
 from tempest_tpu_torch.ops import boundary as tb
+from tempest_tpu_torch.ops import cuda_linalg
 from tempest_tpu_torch.ops import tools as tt
 
 torch.set_num_threads(1)
@@ -116,6 +120,50 @@ def test_volume_variation_dtn():
     few[0, :2] = True
     assert float(tt.volume_variation_dtn(torch.from_numpy(u), torch.from_numpy(w),
                                          mask=torch.from_numpy(few))) == 1e10
+
+
+def _symmetric(rng, batch, d, kind):
+    """(batch, d, d) symmetric matrices: SPD, indefinite, rank-deficient
+    (rank d // 2, an exact zero eigenvalue) or diagonal."""
+    x = rng.normal(size=(batch, d, d))
+    if kind == "spd":
+        return x @ np.swapaxes(x, 1, 2) / d + 0.1 * np.eye(d)
+    if kind == "indefinite":
+        return x + np.swapaxes(x, 1, 2)
+    if kind == "rank_deficient":
+        y = x[:, :, : max(d // 2, 1)]
+        return y @ np.swapaxes(y, 1, 2)
+    return np.stack([np.diag(rng.normal(size=d)) for _ in range(batch)])
+
+
+@pytest.mark.parametrize("kind", ["spd", "indefinite", "rank_deficient", "diagonal"])
+@pytest.mark.parametrize("d", [1, 3, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_eigvalsh_plain_route(dtype, d, kind):
+    a = torch.from_numpy(_symmetric(np.random.default_rng(d), 3, d, kind)).to(dtype)
+    got = cuda_linalg.eigvalsh(a)
+    assert got.dtype == dtype and got.shape == (3, d)
+    assert torch.equal(got, torch.linalg.eigvalsh(a))
+    if dtype == torch.float32:
+        want = np.asarray(jnp.linalg.eigvalsh(jnp.asarray(a.numpy())))
+        scale = np.abs(want).max(axis=1, keepdims=True)
+        assert np.all(np.abs(got.numpy() - want) <= 16 * d * np.finfo(np.float32).eps * scale)
+
+
+def test_eigvalsh_refuses_other_devices():
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        cuda_linalg.eigvalsh(torch.empty(2, 3, 3, device="meta"))
+
+
+def test_eigvalsh_launch_plan():
+    """Each matrix in shared memory up to d = 238 in float32 and 168 in
+    float64 (227 KB a CTA), a global workspace past that."""
+    for dtype, last in ((torch.float32, 238), (torch.float64, 168)):
+        assert cuda_linalg.plan_launch(last, dtype).resident
+        assert cuda_linalg.plan_launch(last - 1, dtype).resident
+        assert not cuda_linalg.plan_launch(last + 1, dtype).resident
+        assert cuda_linalg.plan_launch(last, dtype).smem <= cuda_linalg.SMEM_MAX
+    assert cuda_linalg.plan_launch(10).m == cuda_linalg.plan_launch(9).m == 10
 
 
 def test_boundary_ops_exact():
