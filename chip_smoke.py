@@ -47,18 +47,20 @@ lines and a failure exits non-zero:
     of the float64 copy on SPD, indefinite, rank-deficient and diagonal
     matrices at d = 1, 3, 10, 100 and 240 (past shared memory) in float32
     and float64, within 16 d eps max|lambda|, two launches the same bits;
-    its call and device times at d = 10 and 100 (one matrix) beside
-    torch.linalg.eigvalsh's;
+    its call and device times at d = 10, 50 and 100 (one matrix) beside
+    torch.linalg.eigvalsh's, and its bound (4/3 d^3 flops and the matrix
+    read once) over the card and over one SM;
  5. the canonical problem unclustered (paired 10-D Rosenbrock, U(-10, 10)
     prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42,
     with `run(on_device=True)`: its loops replayed as CUDA graphs;
  6. A: the canonical problem at the reference defaults, clustered
-    (k_max=16), hardware_prng=False, seeds 42 and 43 after a warm-up, with
-    `run(on_device=False)`: the fused iteration without graphs (seed 44 is
-    left out, to keep the whole script near half its time limit);
- 6b. A fused: A's seed 43 with `run(on_device=True)`, which captures the
-    graphs, then seed 42 on them: the beta ladder, logZ, steps and calls of
-    each equal bit for bit to phase 6's run of its seed, logZ in the clustered band, the ESS
+    (k_max=16), hardware_prng=False, seed 42 after a warm-up, with
+    `run(on_device=False)`: the fused iteration without graphs (seeds 43
+    and 44 are left out, to keep the whole script near half its time
+    limit);
+ 6b. A fused: A's seed 42 with `run(on_device=True)`, which captures the
+    graphs, then seed 42 again on them: the beta ladder, logZ, steps and
+    calls of each equal bit for bit to phase 6's run, logZ in the clustered band, the ESS
     kernel's launches equal to phase 6's; the wall per iteration of both,
     and the graph captures and replays per loop; then iterations 21-23 of
     seed 42 in each mode under torch.profiler: the device idle share and
@@ -139,7 +141,20 @@ lines and a failure exits non-zero:
     with hardware_prng=True, on_device=False and True: bit for bit, one
     mutation-draws launch a step body, the call counter's device words
     equal to its host mirror. The process group is destroyed at the end
-    of the phase, whatever happens in it.
+    of the phase, whatever happens in it, after its mesh and samplers;
+16. rosenbrock100: benchmarks/suite.py's 100-D configuration (chained
+    Rosenbrock, U(-10, 10), n_particles=2048, n_total=4096,
+    history_capacity=256, unclustered) at full width, seed 42, with
+    run(on_device=True) on a sampler whose seed-43 run captured the
+    graphs: beta 1, posterior ESS >= 4096, logZ inside the anchor of
+    scripts/rosenbrock100_anchor.py (the JAX package on the CPU, seeds
+    42-46), one eigenvalue launch (d = 100) and one ESS launch a reweight,
+    each ESS launch on the streamed route at S = 524,288; the first 30
+    iterations equal bit for bit to a fresh seed-42 sampler's sample()
+    calls; wall, ms and MCMC steps an iteration; iterations 21-23 graphed
+    under the profiler, held to 6b's rule, with the device busy share and
+    the device ms an iteration of the eigenvalue kernel, the ESS kernel
+    and the top five other kernels.
 
 Every path phase sets the kernels' launch counts to 0 just before it
 drives the path and reads them just after. A kernel's `launches` in the
@@ -250,6 +265,14 @@ CLUSTERED_LOGZ = (-34.98, 1.0)
 # -51.0069 / -51.5353 / -51.4085, mean -51.3169 +/- max(3 sigma, 1.0) with
 # sigma 0.2759 (scripts/rosenbrock10_cv_anchor.py; PERF.md section 2).
 CV_LOGZ = (-51.3169, 1.0)
+# rosenbrock100 (benchmarks/suite.py:183-196): the chained 100-D Rosenbrock,
+# N = 2048, n_total = 4096, history_capacity = 256, unclustered. Its band:
+# tempest_tpu on the CPU, seeds 42-46, logZ -559.5646 / -558.8826 / -559.3115 /
+# -559.2223 / -558.2244, mean -559.0411 +/- max(3 sigma, 1.0) with sigma
+# 0.5177 (scripts/rosenbrock100_anchor.py; PERF.md section 2).
+R100_DIM, R100_PARTICLES, R100_TOTAL, R100_CAPACITY = 100, 2048, 4096, 256
+R100_LOGZ = (-559.0411, 1.5532)
+R100_EAGER = 30  # iterations compared with sample(): a whole eager run costs the time limit
 GAUSSIAN_LOGZ = (-N_DIM * math.log(20.0), 0.5)  # analytic; tests/test_end_to_end.py
 # tests/test_float64.py: the 4-D Gaussian, logZ within 0.35 of -4 log 20 and
 # the MIS accumulator within 1e-9 of its exact rebuild.
@@ -270,7 +293,8 @@ B_PARTICLES, B_CAPACITY, B_MUTATIONS = 131072, 8, 4
 # clock (4 schedulers x 32 lanes; with an FMA as two flops, the data sheet's
 # 67 TFLOP/s float32), of which at most 64 can be 32-bit integer ones.
 HBM_BYTES_PER_S = 3.35e12
-SM_CLOCKS_PER_S = 132 * 1.98e9
+N_SMS = 132
+SM_CLOCKS_PER_S = N_SMS * 1.98e9
 ISSUE_PER_SM_CLOCK, INT32_PER_SM_CLOCK = 128, 64
 # FP64 outside the tensor cores: 34 TFLOP/s (the data sheet), 64 lanes an SM
 # and clock, half the float32 rate.
@@ -1301,9 +1325,10 @@ def phase_gamma_kernel(device, key) -> dict:
 # Phase 4b: the eigenvalue kernel (no Pallas counterpart: XLA's eigvalsh)
 # ---------------------------------------------------------------------------
 EIG_KINDS = ("spd", "indefinite", "rank_deficient", "diagonal")
-# d = 10 is the CV's covariance on the paths (one matrix a call); d = 100 the
-# tests' largest held in shared memory; 240 is past it (global workspace).
-EIG_CHECKED, EIG_TIMED = (1, 3, 10, 100, 240), (10, 100)
+# d = 10 is the CV's covariance on the 10-D paths (one matrix a call), 100
+# the rosenbrock100 path's (phase 16), 50 between; 240 is past what shared
+# memory holds (global workspace).
+EIG_CHECKED, EIG_TIMED = (1, 3, 10, 100, 240), (10, 50, 100)
 
 
 def symmetric_batch(device, batch: int, d: int, kind: str, dtype, seed: int = 0):
@@ -1324,39 +1349,41 @@ def symmetric_batch(device, batch: int, d: int, kind: str, dtype, seed: int = 0)
     return a.to(device=device, dtype=dtype)
 
 
-def eig_bound(d: int, batch: int, sweeps: int, dtype):
-    """(least ms, what bounds it) of `sweeps` Jacobi sweeps summed over the
-    batch: the matrices read once and the eigenvalues written once; a
-    sweep's instructions, (m - 1) rounds of m/2 rotations (about 30 each:
-    a division, a square root, a hypot) and their row and column updates
-    (a product and a fused multiply-add for each of 4 m entries), and the
-    off-diagonal sum (m^2 fused multiply-adds)."""
-    m = d + (d & 1)
-    per_sweep = (m - 1) * (m // 2) * (8 * m + 30) + m * m
-    ops = sweeps * per_sweep
+def eig_bound(d: int, batch: int, dtype, one_sm: bool = False):
+    """(least ms, what bounds it) of the eigenvalues of `batch` (d, d)
+    matrices, from the least work of the computation, whatever the
+    algorithm: the reduction to tridiagonal form, 4/3 d^3 flops (2/3 d^3
+    fused multiply-adds), each matrix read once and its eigenvalues written
+    once. Over the whole card, or with `one_sm` at one SM's issue rate (one
+    matrix runs on one SM; the bytes still at the card's rate)."""
+    fma = batch * 2.0 * d ** 3 / 3.0 * (N_SMS if one_sm else 1)
     size = torch.tensor([], dtype=dtype).element_size()
     n_bytes = batch * (d * d + d) * size
-    return bound(n_bytes, 0, ops if dtype == torch.float32 else 0,
-                 ops if dtype == torch.float64 else 0)
+    return bound(n_bytes, 0, fma if dtype == torch.float32 else 0,
+                 fma if dtype == torch.float64 else 0)
 
 
 def phase_eig_kernel(device) -> dict:
     """tempest_sym_eigvals against its plain version (torch.linalg.eigvalsh
     of the float64 copy, the CPU route's function) on SPD, indefinite,
     rank-deficient and diagonal matrices at EIG_CHECKED in float32 and
-    float64: |dlambda| <= 16 d eps max|lambda| (Jacobi's backward error
+    float64: |dlambda| <= 16 d eps max|lambda| (the kernel's backward error
     against LAPACK's), ascending, two launches the same bits; then at
     EIG_TIMED, one matrix a call, its synchronized call and device time
     beside torch.linalg.eigvalsh on the card in float64 (the plain version
-    the kernel is held to) and in float32 (the library call)."""
+    the kernel is held to) and in float32 (the library call), and its bound
+    over the card and over one SM. The kernel's second output is the
+    multisection rounds of each matrix's slowest eigenvalue (the sweeps of
+    an older, Jacobi kernel under --package-root)."""
     max_err, shapes = 0.0, {}
+    cap = getattr(cuda_linalg, "MAX_ROUNDS", 30)
     for dtype in (torch.float32, torch.float64):
         eps = torch.finfo(dtype).eps
         for d in EIG_CHECKED:
             worst = 0.0
             for kind in EIG_KINDS:
                 a = symmetric_batch(device, 4, d, kind, dtype)
-                got, sweeps = cuda_linalg._launch(a, sweeps=True)
+                got, rounds = cuda_linalg._launch(a, True)
                 again = cuda_linalg.eigvalsh(a)
                 want = torch.linalg.eigvalsh(a.double())
                 torch.cuda.synchronize()
@@ -1372,8 +1399,8 @@ def phase_eig_kernel(device) -> dict:
                       f"sym_eigvals d={d} {kind} {dtype}: not ascending")
                 check(ratio <= 16.0, f"sym_eigvals d={d} {kind} {dtype}: |dlambda| = {ratio:.3g} "
                       "d eps max|lambda|, above 16")
-                check(int(sweeps.max()) < 30, f"sym_eigvals d={d} {kind}: {int(sweeps.max())} "
-                      "sweeps (the cap)")
+                check(int(rounds.max()) < cap, f"sym_eigvals d={d} {kind}: {int(rounds.max())} "
+                      f"rounds (the cap, {cap})")
             route = "shared" if cuda_linalg.plan_launch(d, dtype).resident else "global"
             print(f"sym_eigvals {str(dtype)[6:]} d={d} [{route}]: max |dlambda| = {worst:.3f} "
                   f"d eps max|lambda| over {len(EIG_KINDS)} kinds x 4 matrices (bar 16)",
@@ -1381,24 +1408,26 @@ def phase_eig_kernel(device) -> dict:
     for d in EIG_TIMED:
         a = symmetric_batch(device, 1, d, "spd", torch.float32, seed=7)
         a64 = a.double()
-        _, sweeps = cuda_linalg._launch(a, sweeps=True)
-        sweeps = int(sweeps.item())
+        _, rounds = cuda_linalg._launch(a, True)
+        rounds = int(rounds.item())
         kernel = lambda: cuda_linalg.eigvalsh(a)  # noqa: E731
         t = timed_in_turns({"kernel": kernel, "plain": lambda: torch.linalg.eigvalsh(a64),
                             "library": lambda: torch.linalg.eigvalsh(a)})
         dev = device_ms(kernel, "sym_eigvals")
         lib_dev = device_ms(lambda: torch.linalg.eigvalsh(a))
-        b_ms, b_by = eig_bound(d, 1, sweeps, torch.float32)
-        shapes[d] = dict(sweeps=sweeps, ms=t["kernel"], device_ms=dev, plain_ms=t["plain"],
+        b_ms, b_by = eig_bound(d, 1, torch.float32)
+        sm_ms, sm_by = eig_bound(d, 1, torch.float32, one_sm=True)
+        shapes[d] = dict(rounds=rounds, ms=t["kernel"], device_ms=dev, plain_ms=t["plain"],
                          library_ms=t["library"], library_device_ms=lib_dev, bound_ms=b_ms,
-                         bound_by=b_by)
-        print(f"sym_eigvals timing d={d} (one float32 matrix, {sweeps} sweeps): kernel call "
+                         bound_by=b_by, bound_sm_ms=sm_ms, bound_sm_by=sm_by)
+        print(f"sym_eigvals timing d={d} (one float32 matrix, {rounds} rounds): kernel call "
               f"{t['kernel']:.4f} ms device {dev:.4f} ms; plain (torch.linalg.eigvalsh, "
               f"float64 copy) {t['plain']:.4f} ms; library (torch.linalg.eigvalsh, float32) call "
-              f"{t['library']:.4f} ms device {lib_dev:.4f} ms; bound {b_ms:.6f} ms ({b_by}) "
-              f"(calls: median of {TIMED_CALLS} synchronized calls in turns)", flush=True)
-    row = dict(shapes[10], max_abs_err=max_err, shapes=shapes)
-    return row
+              f"{t['library']:.4f} ms device {lib_dev:.4f} ms; bound {b_ms:.6f} ms ({b_by}) over "
+              f"the card, {sm_ms:.6f} ms ({sm_by}) on one SM (calls: median of {TIMED_CALLS} "
+              f"synchronized calls in turns)", flush=True)
+    # The row: d = 100, the rosenbrock100 path's matrix (phase 16).
+    return dict(shapes[EIG_TIMED[-1]], max_abs_err=max_err, shapes=shapes)
 
 
 def phase_call_split(device) -> dict:
@@ -1551,6 +1580,9 @@ BLOCKING_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSy
 # nothing, where torch.linalg.eigvalsh made two reads: cuSOLVER's own sync and
 # its error check), and fewer than MAX_READS in all.
 READS_BESIDE_CHUNKS, MAX_READS = 2, 150
+# The kernels a window reports, (device ms, launches) an iteration: the
+# TOP_KERNELS by time, and the ESS and eigenvalue kernels.
+TOP_KERNELS = 8
 # torch.linalg.eigvalsh's operators: none may run in a fused iteration.
 EIGH_OPS = ("aten::linalg_eigh", "aten::_linalg_eigh", "aten::linalg_eigvalsh")
 
@@ -1571,19 +1603,19 @@ def _under(event, name: str) -> bool:
 
 
 def steady_window(s, graphs: bool, first: int = 21, n: int = 5,
-                  device_only: bool = True) -> dict:
+                  device_only: bool = True, n_total: int = N_TOTAL) -> dict:
     """Iterations first..first+n-1 of sampler `s` (A, reset to seed 42) in
     one mode, under torch.profiler with host and device activities: wall
     per iteration, device busy time and idle share, blocking host reads
-    (BLOCKING_CALLS) per iteration, and the loops' chunk reads in the
-    window; then, if `device_only`, the next n iterations traced on the
-    device only (no host ops recorded). A sampler whose graphs were
-    captured replays them."""
+    (BLOCKING_CALLS) per iteration, the loops' chunk reads in the window,
+    and the device ms an iteration of each kernel; then, if `device_only`,
+    the next n iterations traced on the device only (no host ops
+    recorded). A sampler whose graphs were captured replays them."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     s.reset(random_state=SEEDS[0])
     core = s.state
-    core.n_total = N_TOTAL
+    core.n_total = n_total
     core._pregrow_capacity()
     loops = core._iteration.loops
     loops.graphs = graphs
@@ -1625,11 +1657,16 @@ def steady_window(s, graphs: bool, first: int = 21, n: int = 5,
         if e.key.startswith("ps/"):
             stages[e.key] = max(stages.get(e.key, 0.0), e.cpu_time_total / 1e3 / n)
     chunk_reads = sum(v for k, v in reads.items() if k != "beta")
+    kernels = {e.key: (_self_device_us(e) / 1e3 / n, e.count / n) for e in events
+               if e.device_type == DeviceType.CUDA and not e.key.startswith("ps/")
+               and _self_device_us(e) > 0}
     out = dict(graphs=graphs, first=first, n=n, wall_per_iter=wall / n,
                device_ms_per_iter=device_ms / n, idle=1.0 - device_ms / (1e3 * wall),
                blocking_per_iter=sum(blocking.values()) / n, blocking=blocking,
                chunk_reads_per_iter=chunk_reads / n, reads=reads, eigh_ops=eigh,
-               stages_ms=stages)
+               stages_ms=stages, kernels={
+                   k: v for i, (k, v) in enumerate(sorted(kernels.items(), key=lambda kv: -kv[1][0]))
+                   if i < TOP_KERNELS or "sym_eigvals" in k or "ess_bisect" in k})
     if device_only:
         device_only_ms = sum(_self_device_us(e) for e in prof_device.key_averages()
                              if e.device_type == DeviceType.CUDA) / 1e3
@@ -1642,13 +1679,13 @@ def steady_window(s, graphs: bool, first: int = 21, n: int = 5,
 def phase_fused(device, ref: dict) -> dict:
     """6b: A's seed 42 with run(on_device=True) against phase 6's seed 42,
     then both modes' steady iterations under the profiler."""
-    s = canonical_sampler(device, SEEDS[1], clustering=True)
+    s = canonical_sampler(device, SEEDS[0], clustering=True)
     s.run(n_total=N_TOTAL, progress=False, on_device=True)  # warm-up: captures the graphs
     warm = loop_stats(s)
-    # The run that captured its graphs repeats phase 6's seed 43 too.
+    # The run that captured its graphs repeats phase 6's seed 42 too.
     for name in ("beta", "logz", "steps", "calls"):
-        check(s.results()[name].tobytes() == ref[SEEDS[1]]["results"][name].tobytes(),
-              f"A fused seed {SEEDS[1]} (capturing): {name} differs from on_device=False")
+        check(s.results()[name].tobytes() == ref[SEEDS[0]]["results"][name].tobytes(),
+              f"A fused seed {SEEDS[0]} (capturing): {name} differs from on_device=False")
     s.reset(random_state=SEEDS[0])
     reset_counts()
     torch.cuda.synchronize()
@@ -1707,13 +1744,20 @@ def steady_windows(s, name: str, n: int = 3, device_only: bool = True) -> dict:
               f"iteration {w['reads']}, eigvalsh operators {w['eigh_ops']}; stage ms an "
               f"iteration {json.dumps({k: round(v, 3) for k, v in w['stages_ms'].items()})}"
               f"{trace}", flush=True)
-        check(w["blocking_per_iter"] <= w["chunk_reads_per_iter"] + READS_BESIDE_CHUNKS
-              and w["blocking_per_iter"] < MAX_READS,
-              f"{name} {'graphs' if graphs else 'no graphs'}: {w['blocking_per_iter']} blocking "
-              f"reads an iteration for {w['chunk_reads_per_iter']} chunk reads")
-        check(cuda_linalg is None or w["eigh_ops"] == 0,
-              f"{name}: {w['eigh_ops']} torch.linalg.eigvalsh operators in the window")
+        check_window(f"{name} {'graphs' if graphs else 'no graphs'}", w)
     return windows
+
+
+def check_window(name: str, w: dict) -> None:
+    """6b's rule: at most one blocking host read a loop chunk plus
+    READS_BESIDE_CHUNKS an iteration, fewer than MAX_READS, and no
+    torch.linalg.eigvalsh operator."""
+    check(w["blocking_per_iter"] <= w["chunk_reads_per_iter"] + READS_BESIDE_CHUNKS
+          and w["blocking_per_iter"] < MAX_READS,
+          f"{name}: {w['blocking_per_iter']} blocking reads an iteration for "
+          f"{w['chunk_reads_per_iter']} chunk reads")
+    check(cuda_linalg is None or w["eigh_ops"] == 0,
+          f"{name}: {w['eigh_ops']} torch.linalg.eigvalsh operators in the window")
 
 
 def phase_hardware_prng(device) -> dict:
@@ -2431,68 +2475,198 @@ def phase_mesh(device, walls32: dict) -> dict:
     and with on_device=True on a sampler whose seed-43 run captured the
     graphs, bit for bit; the resume and the gathers; the steady windows;
     then A with hardware_prng both ways."""
+    import gc
+
     import torch.distributed as dist
 
     initialize(f"127.0.0.1:{free_port()}", 1, 0, device=device.type, timeout=300)
     try:
-        mesh = make_particle_mesh(device=device.type)
-        mesh_collectives(device, particle_group(mesh))
-        with tempfile.TemporaryDirectory() as tmp:
-            s = mesh_sampler(device, mesh, SEEDS[0], output_dir=tmp)
-            check(s.state.fused, "A mesh: not on the fused route")
-            eager = mesh_run(s, f"A mesh (world size 1, seed {SEEDS[0]}, save_every=10)",
-                             save_every=10)
-            print(f"A mesh seed {SEEDS[0]}: phase 6 seed {SEEDS[0]} without a mesh: "
-                  f"{walls32[SEEDS[0]]:.3f} s", flush=True)
-            resumed = mesh_sampler(device, mesh, SEEDS[1])
-            resumed.load_state(os.path.join(tmp, "ps_20.state"))
-            for _ in range(2):
-                resumed.sample()
-            check_same_stream("mesh resume from ps_20.state", iteration_rows(s, 20),
-                              iteration_rows(resumed, 20))
-
-        x, w, logl = s.posterior()
-        logz, logz_err = s.evidence(n_bootstrap=256)
-        mean = np.average(x, axis=0, weights=w)
-        print(f"A mesh posterior: {len(x)} samples of {s.state.hist.t * N_PARTICLES}, weights "
-              f"sum {w.sum():.6f}, mean[:3] {mean[:3].round(4).tolist()}; evidence "
-              f"{logz:.4f} +/- {logz_err:.5f} (bootstrap)", flush=True)
-        check(x.shape[1] == N_DIM and np.all(np.isfinite(x)) and np.all(np.isfinite(logl))
-              and abs(w.sum() - 1.0) < 1e-6, "A mesh posterior")
-        check(logz == s.logz and math.isfinite(logz_err) and logz_err > 0.0,
-              f"A mesh evidence {logz} +/- {logz_err}")
-
-        g = mesh_sampler(device, mesh, SEEDS[1])
-        g.run(n_total=N_TOTAL, progress=False, on_device=True)  # captures the graphs
-        g.reset(random_state=SEEDS[0])
-        fused = mesh_run(g, f"A mesh (world size 1, seed {SEEDS[0]}, on_device=True)",
-                         on_device=True)
-        check(all(v.get("captures", 0) == 0 for v in fused["loops"].values()),
-              f"A mesh on_device=True recaptured: {fused['loops']}")
-        check_mesh_pair("A mesh", eager, fused, False)
-        windows = steady_windows(g, "A mesh", n=3, device_only=False)
-
-        hw = {}
-        for on_device in (False, True):
-            h = mesh_sampler(device, mesh, SEEDS[0], hardware_prng=True)
-            hw[on_device] = mesh_run(
-                h, f"A mesh hardware_prng (seed {SEEDS[0]}, on_device={on_device})",
-                on_device=on_device)
-            if on_device:
-                calls = h.state.draws.calls
-                check(calls.read() == (calls.counter, calls.key),
-                      f"A mesh hardware_prng: device words {calls.read()} against the host "
-                      f"mirror {(calls.counter, calls.key)}")
-        check_mesh_pair("A mesh hardware_prng", hw[False], hw[True], True)
-        print(f"A mesh hardware_prng: call counter {int(hw[True]['draws']['philox_counter'])} "
-              f"after {hw[True]['bodies']} MCMC bodies", flush=True)
-        return {"launches": eager["launches"], "launches_hardware_prng": hw[False]["launches"],
-                "walls": {"on_device=False": eager["wall"], "on_device=True": fused["wall"],
-                          "hardware_prng on_device=False": hw[False]["wall"],
-                          "hardware_prng on_device=True": hw[True]["wall"]},
-                "iters": eager["iters"], "loops": fused["loops"], "windows": windows}
+        return _mesh_runs(device, walls32)
     finally:
+        gc.collect()  # the mesh and its samplers go while the group is up
         dist.destroy_process_group()
+
+
+def _mesh_runs(device, walls32: dict) -> dict:
+    """phase_mesh's runs, inside the process group."""
+    mesh = make_particle_mesh(device=device.type)
+    mesh_collectives(device, particle_group(mesh))
+    with tempfile.TemporaryDirectory() as tmp:
+        s = mesh_sampler(device, mesh, SEEDS[0], output_dir=tmp)
+        check(s.state.fused, "A mesh: not on the fused route")
+        eager = mesh_run(s, f"A mesh (world size 1, seed {SEEDS[0]}, save_every=10)",
+                         save_every=10)
+        print(f"A mesh seed {SEEDS[0]}: phase 6 seed {SEEDS[0]} without a mesh: "
+              f"{walls32[SEEDS[0]]:.3f} s", flush=True)
+        resumed = mesh_sampler(device, mesh, SEEDS[1])
+        resumed.load_state(os.path.join(tmp, "ps_20.state"))
+        for _ in range(2):
+            resumed.sample()
+        check_same_stream("mesh resume from ps_20.state", iteration_rows(s, 20),
+                          iteration_rows(resumed, 20))
+
+    x, w, logl = s.posterior()
+    logz, logz_err = s.evidence(n_bootstrap=256)
+    mean = np.average(x, axis=0, weights=w)
+    print(f"A mesh posterior: {len(x)} samples of {s.state.hist.t * N_PARTICLES}, weights "
+          f"sum {w.sum():.6f}, mean[:3] {mean[:3].round(4).tolist()}; evidence "
+          f"{logz:.4f} +/- {logz_err:.5f} (bootstrap)", flush=True)
+    check(x.shape[1] == N_DIM and np.all(np.isfinite(x)) and np.all(np.isfinite(logl))
+          and abs(w.sum() - 1.0) < 1e-6, "A mesh posterior")
+    check(logz == s.logz and math.isfinite(logz_err) and logz_err > 0.0,
+          f"A mesh evidence {logz} +/- {logz_err}")
+
+    g = mesh_sampler(device, mesh, SEEDS[1])
+    g.run(n_total=N_TOTAL, progress=False, on_device=True)  # captures the graphs
+    g.reset(random_state=SEEDS[0])
+    fused = mesh_run(g, f"A mesh (world size 1, seed {SEEDS[0]}, on_device=True)",
+                     on_device=True)
+    check(all(v.get("captures", 0) == 0 for v in fused["loops"].values()),
+          f"A mesh on_device=True recaptured: {fused['loops']}")
+    check_mesh_pair("A mesh", eager, fused, False)
+    windows = steady_windows(g, "A mesh", n=3, device_only=False)
+
+    hw = {}
+    for on_device in (False, True):
+        h = mesh_sampler(device, mesh, SEEDS[0], hardware_prng=True)
+        hw[on_device] = mesh_run(
+            h, f"A mesh hardware_prng (seed {SEEDS[0]}, on_device={on_device})",
+            on_device=on_device)
+        if on_device:
+            calls = h.state.draws.calls
+            check(calls.read() == (calls.counter, calls.key),
+                  f"A mesh hardware_prng: device words {calls.read()} against the host "
+                  f"mirror {(calls.counter, calls.key)}")
+    check_mesh_pair("A mesh hardware_prng", hw[False], hw[True], True)
+    print(f"A mesh hardware_prng: call counter {int(hw[True]['draws']['philox_counter'])} "
+          f"after {hw[True]['bodies']} MCMC bodies", flush=True)
+    return {"launches": eager["launches"], "launches_hardware_prng": hw[False]["launches"],
+            "walls": {"on_device=False": eager["wall"], "on_device=True": fused["wall"],
+                      "hardware_prng on_device=False": hw[False]["wall"],
+                      "hardware_prng on_device=True": hw[True]["wall"]},
+            "iters": eager["iters"], "loops": fused["loops"], "windows": windows}
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: rosenbrock100
+# ---------------------------------------------------------------------------
+def rosenbrock100_sampler(device, seed):
+    """benchmarks/suite.py:183-196, every other default on."""
+    return Sampler(prior_transform, rosenbrock_chained, n_dim=R100_DIM,
+                   n_particles=R100_PARTICLES, vectorize=True, clustering=False,
+                   history_capacity=R100_CAPACITY, random_state=seed, device=device)
+
+
+def _kernel_ms(window: dict, part: str) -> tuple:
+    """(device ms, launches) an iteration of the window's kernels whose name
+    holds `part`."""
+    rows = [v for k, v in window["kernels"].items() if part in k]
+    return sum(r[0] for r in rows), sum(r[1] for r in rows)
+
+
+def phase_rosenbrock100(device) -> dict:
+    """16: the JAX suite's 100-D Rosenbrock at full width, seed 42, with
+    run(on_device=True) on a sampler whose seed-43 run captured the graphs:
+    beta 1, posterior ESS >= n_total, logZ in the anchor taken from the
+    JAX package, one eigenvalue launch (d = 100) and one ESS launch
+    (S = 524,288, the streamed route) a reweight; its first R100_EAGER
+    iterations equal bit for bit to a fresh seed-42 sampler's sample()
+    calls (on_device=False); then iterations 21-23 graphed under the
+    profiler, held to 6b's rule, and the device ms an iteration of the
+    eigenvalue kernel, the ESS kernel and the top other kernels."""
+    s = rosenbrock100_sampler(device, SEEDS[1])
+    check(s.state.fused, "rosenbrock100: not on the fused route")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.run(n_total=R100_TOTAL, progress=False, on_device=True)  # captures the graphs
+    torch.cuda.synchronize()
+    capture_wall = time.perf_counter() - t0
+    warm = loop_stats(s)
+    s.reset(random_state=SEEDS[0])
+    sizes, plan = [], cuda_reweight.plan_launch
+
+    def recording_plan(n, dtype=torch.float32):  # the S of every eager ESS launch
+        sizes.append(n)
+        return plan(n, dtype)
+
+    reset_counts()
+    cuda_reweight.plan_launch = recording_plan
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run(n_total=R100_TOTAL, progress=False, on_device=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        cuda_reweight.plan_launch = plan
+    launched = counts()
+    res, logz, iters = s.results(), s.evidence()[0], s.state.hist.t
+    ess, steps = s.state.posterior_ess(), mcmc_steps(s)
+    stats = loop_stats(s)
+    timed = {k: {c: v.get(c, 0) - warm.get(k, {}).get(c, 0) for c in v} for k, v in stats.items()}
+    name = f"rosenbrock100 seed {SEEDS[0]} on_device=True"
+    print(f"{name}: wall={wall:.3f} s ({1e3 * wall / iters:.1f} ms an iteration; the capturing "
+          f"seed-{SEEDS[1]} run {capture_wall:.3f} s) iters={iters} logz={logz:.4f} "
+          f"beta={s.beta} ess={ess:.1f} calls={s.calls} mcmc_steps={steps} "
+          f"({steps / iters:.2f} an iteration) launches={launched}; ESS launch sizes "
+          f"{sorted(set(sizes))}; loops {json.dumps(timed)}", flush=True)
+    check(s.beta >= 1.0 - 1e-4, f"{name}: beta {s.beta} < 1 - 1e-4")
+    check(ess >= R100_TOTAL, f"{name}: posterior ESS {ess} < {R100_TOTAL}")
+    check(abs(logz - R100_LOGZ[0]) <= R100_LOGZ[1],
+          f"{name}: logZ {logz} outside {R100_LOGZ[0]} +/- {R100_LOGZ[1]}")
+    check(launched["sym_eigvals"] == iters - 1,
+          f"{name}: {launched['sym_eigvals']} eigenvalue launches for {iters - 1} reweights")
+    streamed = R100_CAPACITY * R100_PARTICLES
+    check(launched["ess_bisect"] == iters - 1 > 0 and sizes and set(sizes) == {streamed}
+          and not plan(streamed).resident,
+          f"{name}: {launched['ess_bisect']} ESS launches for {iters - 1} reweights, sizes "
+          f"{sorted(set(sizes))}: each must take the streamed route at S = {streamed}")
+    check(all(launched[k] == 0 for k in ("ess_bisect_f64", "mutation_draws", "normal", "bits",
+                                         "gamma")), f"{name}: unexpected launches {launched}")
+    check(all(v.get("captures", 0) == 0 for v in timed.values())
+          and timed["mcmc"].get("replays", 0) > 0, f"{name}: captures and replays {timed}")
+
+    # The first R100_EAGER iterations, eagerly: the same bits.
+    e = rosenbrock100_sampler(device, SEEDS[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(R100_EAGER):
+        e.sample()
+    torch.cuda.synchronize()
+    eager_wall = time.perf_counter() - t0
+    eres = e.results()
+    for key in ("beta", "logz", "steps", "calls"):
+        check(res[key][:R100_EAGER].tobytes() == eres[key][:R100_EAGER].tobytes(),
+              f"rosenbrock100: {key} of the first {R100_EAGER} iterations differs between "
+              f"on_device=True and sample(): {res[key][:R100_EAGER].tolist()} against "
+              f"{eres[key][:R100_EAGER].tolist()}")
+    print(f"rosenbrock100: the first {R100_EAGER} iterations of sample() (on_device=False, "
+          f"{eager_wall:.3f} s, {1e3 * eager_wall / R100_EAGER:.1f} ms an iteration) equal the "
+          f"graphed run's bit for bit (beta, logZ, steps, calls)", flush=True)
+
+    w = steady_window(s, True, n=3, device_only=False, n_total=R100_TOTAL)
+    check_window("rosenbrock100 graphs", w)
+    eig_ms, eig_n = _kernel_ms(w, "sym_eigvals")
+    ess_ms, ess_n = _kernel_ms(w, "ess_bisect")
+    others = {k: v for k, v in w["kernels"].items()
+              if "sym_eigvals" not in k and "ess_bisect" not in k}
+    top = dict(list(others.items())[:5])
+    print(f"rosenbrock100 seed {SEEDS[0]} iterations 21-23 under the profiler, graphs: "
+          f"{1e3 * w['wall_per_iter']:.1f} ms an iteration, device {w['device_ms_per_iter']:.3f} ms "
+          f"(busy {100 * (1 - w['idle']):.1f} %, idle {100 * w['idle']:.1f} %), blocking host "
+          f"reads {w['blocking_per_iter']:.1f} an iteration {w['blocking']}, loop chunk reads "
+          f"{w['chunk_reads_per_iter']:.1f} {w['reads']}, eigvalsh operators {w['eigh_ops']}; "
+          f"device ms an iteration: sym_eigvals {eig_ms:.4f} ({eig_n:.2f} launches), ess_bisect "
+          f"{ess_ms:.4f} ({ess_n:.2f} launches), top five others "
+          f"{json.dumps({k[:90]: [round(v[0], 4), v[1]] for k, v in top.items()})}; stage ms an "
+          f"iteration {json.dumps({k: round(v, 3) for k, v in w['stages_ms'].items()})}",
+          flush=True)
+    return {"launches": launched, "wall": wall, "capture_wall": capture_wall, "iters": iters,
+            "logz": logz, "ess": ess, "steps_per_iter": steps / iters, "eager_wall": eager_wall,
+            "window": {k: w[k] for k in ("wall_per_iter", "device_ms_per_iter", "idle",
+                                         "blocking_per_iter", "chunk_reads_per_iter")},
+            "sym_eigvals_ms": eig_ms, "ess_bisect_ms": ess_ms, "ess_launch_sizes": sorted(set(sizes)),
+            "top_kernels": top}
 
 
 def profile_iterations(s, name: str, out_dir: str) -> None:
@@ -2563,16 +2737,17 @@ REPLACES = {
 }
 # Where each kernel's `launches` were counted.
 LAUNCHES_ON = {
-    "ess_bisect": "A (phase 6, seeds 42 and 43; phase 6b's seed 42 with its loops replayed "
-                  "as graphs launches it as often as phase 6's seed 42)",
+    "ess_bisect": "A (phase 6, seed 42; phase 6b's seed 42 with its loops replayed as graphs "
+                  "launches it as often)",
     "ess_bisect_f64": "A in float64 (phase 14)",
     "mutation_draws": "A with hardware_prng (phase 7, on_device=False; its on_device=True run "
                       "launches it as often, by graph replays)",
     "normal": "B (phase 8, eagerly; its graphed pass launches it as often, by replays)",
     "bits": "B (phase 8)",
     "gamma": "B (phase 8, eagerly; its graphed pass launches it as often, by replays)",
-    "sym_eigvals": "A (phase 6, seeds 42 and 43: the CV of each reweight); dynamic mode "
-                   "(phase 12) launches it for every CV probe as well",
+    "sym_eigvals": "rosenbrock100 (phase 16, seed 42: the CV of each reweight at d = 100); "
+                   "A (phase 6) launches it once a reweight at d = 10, dynamic mode (phase 12) "
+                   "for every CV probe as well",
 }
 # Kernels that no Sampler path launches, and why: each must count 0 on every
 # path, and phase 4 still holds it against its plain version.
@@ -2598,9 +2773,10 @@ def kernel_table(rows: dict, launches: dict, floor: dict, split: dict, paths=Non
             "launches_on": LAUNCHES_ON[name] if launches else None,
             **({"off_path": OFF_PATH[name]} if name in OFF_PATH else {}),
             **({"no_pallas_counterpart": NO_PALLAS[name]} if name in NO_PALLAS else {}),
-            **{k: row[k] for k in ("device_ms", "library_device_ms", "gamma_flips", "sweeps",
+            **{k: row[k] for k in ("device_ms", "library_device_ms", "gamma_flips", "rounds",
+                                   "bound_sm_ms", "bound_sm_by",
                                    "gamma_bits_unequal", "hw_uniform_launches", "shapes",
-                                   "routes") if k in row},
+                                   "routes", "on_rosenbrock100") if k in row},
             "launch_floor_ms": floor["device_ms"], "call_split": split.get(name),
             **({"call_split_counter": split[f"{name}_counter"]}
                if f"{name}_counter" in split else {}),
@@ -2692,7 +2868,7 @@ def main() -> None:
                                                   on_device=True)
     eager = {}
     stamp("phase 6: A")
-    paths["A"], walls = run_canonical(device, "A clustered", SEEDS[:2], True, False,
+    paths["A"], walls = run_canonical(device, "A clustered", SEEDS[:1], True, False,
                                       CLUSTERED_LOGZ, runs=eager)
     if args.parent:
         parent_a(args.parent, eager[SEEDS[0]])
@@ -2727,6 +2903,16 @@ def main() -> None:
     mesh = phase_mesh(device, walls)
     paths["A_mesh"], paths["A_mesh_hardware_prng"] = mesh["launches"], mesh[
         "launches_hardware_prng"]
+    stamp("phase 16: rosenbrock100")
+    r100 = phase_rosenbrock100(device)
+    paths["rosenbrock100"] = r100["launches"]
+    rows["ess_bisect"]["on_rosenbrock100"] = {
+        "S": r100["ess_launch_sizes"], "launches": r100["launches"]["ess_bisect"],
+        "device_ms": r100["ess_bisect_ms"]}
+    rows["sym_eigvals"]["on_rosenbrock100"] = {
+        "d": R100_DIM, "launches": r100["launches"]["sym_eigvals"],
+        "device_ms": r100["sym_eigvals_ms"]}
+    stamp("phase 16 done")
     if args.profile:
         phase_profile(device, args.profile)
 
@@ -2734,7 +2920,7 @@ def main() -> None:
                 "ess_bisect_f64": paths["A_float64"]["ess_bisect_f64"],
                 "mutation_draws": paths["A_hardware_prng"]["mutation_draws"],
                 "normal": paths["B"]["normal"], "bits": paths["B"]["bits"],
-                "gamma": paths["B"]["gamma"], "sym_eigvals": paths["A"]["sym_eigvals"]}
+                "gamma": paths["B"]["gamma"], "sym_eigvals": paths["rosenbrock100"]["sym_eigvals"]}
     for name, n in launches.items():
         if name in OFF_PATH:
             on = {p: c[name] for p, c in paths.items() if c[name]}
@@ -2748,6 +2934,7 @@ def main() -> None:
           flush=True)
     print(f"A fused: {json.dumps({k: fused[k] for k in ('wall', 'iters', 'loops', 'windows')})}",
           flush=True)
+    print(f"rosenbrock100: {json.dumps(r100)}", flush=True)
     print("A hardware_prng: " + json.dumps({k: hw[k] for k in (
         "wall", "wall_eager", "iters", "iters_eager", "loops", "windows")}), flush=True)
     print("B walls by iteration (s), eager / graphed: " + json.dumps(

@@ -1,47 +1,60 @@
 // Eigenvalues of a batch of symmetric matrices for Hopper (sm_90a): one CTA
-// a matrix, parallel cyclic Jacobi, in float32 or float64 (a template on the
-// scalar type; one C entry each).
+// a matrix, Householder tridiagonalization in shared memory, then Sturm-count
+// multisection, in float32 or float64 (a template on the scalar type; one C
+// entry each).
 //
 // Replaces: XLA's `jnp.linalg.eigvalsh` in tempest_tpu/ops/tools.py:214
 // (`volume_variation_dtn`) and :274 (`volume_variation`). It is not a Pallas
 // kernel: the JAX package leaves this to XLA. The port needs its own because
 // `torch.linalg.eigvalsh` on a CUDA tensor checks LAPACK's `info` on the host
-// (a blocking read), which a CUDA graph cannot capture, and the CV of dynamic
-// mode is evaluated inside the bisection loop that the fused route replays as
-// a graph. Callers use the eigenvalues only for the rank test
+// (a blocking read), which a CUDA graph cannot capture, and the CV is
+// evaluated in every reweight, inside the loops that the fused route replays
+// as graphs. Callers use the eigenvalues only for the rank test
 // `eigvals > max|eigvals| d eps`.
 //
 // What it computes: the ascending eigenvalues of each (d, d) matrix, read
 // from its lower triangle (as torch.linalg.eigvalsh reads UPLO="L"). A matrix
 // with a non-finite entry gives NaN eigenvalues (no host check, no error).
 //
-// What bounds it on this card: at the caller's d = 10 and a batch of one,
-// neither bytes (440) nor operations (about 10^5 flops) but the launch and
-// the chain of the sweeps: each rotation round depends on the last, and one
-// matrix lives on one SM. The launch floor (about 1 us of device time) is the
-// practical bound there.
+// What bounds it on this card: one matrix lives on one SM, so neither the
+// card's bytes nor its issue rate but one SM's latency through a chain of
+// dependent steps. The least work is the reduction to tridiagonal form,
+// about 4/3 d^3 flops, and reading the matrix once: at d = 100, 0.00002 ms
+// over the whole card and 0.0026 ms at one SM's float32 issue rate. This
+// kernel takes 0.2642 ms there and 0.0158-0.0160 ms at d = 10 (device time, one
+// float32 matrix, NVIDIA H100 80GB HBM3 at 700 W, scripts/eig_designs.py),
+// about 2.5 us a Householder step.
 //
-// What this design does about it, and why Jacobi: a d <= 128 matrix fits one
-// SM's shared memory (64 KB in float32, 128 KB in float64), so every sweep
-// reads and writes shared memory only, and the convergence test runs on the
-// device. Jacobi needs no tridiagonal reduction and no shift strategy (the
-// LAPACK route: Householder steps of sequential matrix-vector products, then
-// QR or divide and conquer), only rotations that are independent within a
-// round: the round-robin (tournament) order pairs the m = d rounded up to
-// even indices into m/2 disjoint pairs per round, m - 1 rounds a sweep, so a
-// round is one step for the whole CTA: (1) each pair's rotation (c, s) from
-// a_pp, a_qq, a_pq (Golub and Van Loan's symmetric Schur step, written
-// with one division that cannot overflow); (2) the rows p, q of every
-// pair, J^T A; (3) the columns, (J^T A) J, with a_pq = a_qp = 0 written
-// exactly; a barrier after each (a CTA has a thread for each of a step's
-// m^2 / 2 updates, up to 1024). Disjoint rotations commute, so the round is
-// the product of its rotations. The matrix is scaled by a power of two first
-// (exact), so its squares neither underflow nor overflow. Before each sweep
-// the CTA sums the off-diagonal squares and stops when
-// off(A) <= eps ||A||_F, at most kMaxSweeps = 30 sweeps (quadratic
-// convergence takes 5-10 at d <= 128). The sums and maxima are in a fixed
-// order, so a launch repeats its bits. At the end each thread ranks its
-// diagonal entries among all (ties by index) and writes them sorted.
+// What this design does about it (LAPACK's sytd2 + stebz, laid out for one
+// CTA): the matrix, scaled by a power of two (exact) so that no square
+// underflows or overflows, stays in shared memory, kept exactly symmetric.
+// Step k of the d - 2 Householder steps takes two barriers: (1) every warp
+// computes the reflector (v, tau) from row k itself, with a warp reduction
+// (the same sums in the same order in every warp, so no barrier and no
+// shared copy); (2) p = tau A22 v, eight lanes a row and four rows a warp,
+// into shared memory; barrier; (3) every warp forms w = p - (tau/2)(p.v) v;
+// (4) A22 -= v w^T + w v^T, a warp a row and a lane a column, each update
+// summed as two rounded products so that a_ij and a_ji stay equal; barrier.
+// At d = 100 that is 196 barriers where the parallel cyclic Jacobi this
+// replaced took 2,673 (9 sweeps of 99 rounds, 3 barriers a round, 50
+// of its 1024 threads computing rotations while the rest waited).
+// Then each eigenvalue of the tridiagonal matrix comes from Sturm counts
+// with no barrier: a group of g lanes of one warp (g = 8 at d = 10 and 100)
+// evaluates g points of the eigenvalue's interval, a ballot picks the
+// subinterval, and the interval shrinks (g + 1)-fold a round from the
+// Gershgorin bounds down to 2 eps ||T|| (8 rounds in float32, 17 in float64
+// at g = 8). The error is LAPACK syevd's class, a few d eps ||A|| absolute,
+// which is what the rank test was written against. A rank sort writes the
+// values in order (ties by index). Sums and maxima go in a fixed order and
+// nothing is atomic, so a launch repeats its bits.
+//
+// The design it was weighed against, Jacobi with a round made one phase (a
+// thread applies J_k^T A_kl J_l to a 2x2 block for each pair of pairs, the
+// rotations computed by every thread from a read-only copy, one barrier a
+// round), took 0.0265 ms at d = 10 and 1.974 ms at d = 100 in the same
+// timing, slower than this kernel at both sizes (and than
+// torch.linalg.eigvalsh's 1.361 ms at d = 100); its source is in
+// scripts/eig_designs.py.
 //
 // Above what shared memory holds (the wrapper's plan: d > 238 in float32,
 // d > 168 in float64) the matrix lives in a global workspace the wrapper
@@ -59,17 +72,21 @@ namespace {
 
 constexpr int kMaxDevices = 64;
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxSweeps = 30;
+// A cap on the multisection rounds of one eigenvalue (float64 at one lane a
+// group, the least, needs about 55).
+constexpr int kMaxRounds = 80;
 // The shared memory a block of sm_90 may opt into: 227 KB.
 constexpr size_t kSmemMax = 232448;
+constexpr unsigned kFull = 0xffffffffu;
 
-// Per type: eps; the |a_pq| below which no rotation is made (its square
-// would underflow; the matrix is scaled to entries below 1, so such an
-// entry is far below eps ||A||_F); exact powers of two from the exponent
-// bits; square root, reciprocal square root and reciprocal, from the
-// hardware's approximations and Newton steps: CUDA's IEEE division and
-// square root call a slow-path subroutine that costs the kernel a stack
-// frame (ptxas reported 4-16 bytes of spills with them).
+// Per type: eps; a floor for the reflector's norm and for the Sturm pivots
+// (the matrix is scaled to entries below 1, so both are far below
+// eps ||A||); exact powers of two from the exponent bits; square root,
+// reciprocal square root and division from the hardware's approximations
+// and Newton steps: CUDA's IEEE division and square root call a slow-path
+// subroutine that costs the kernel a stack frame (ptxas reported 4-16 bytes
+// of spills with them); the product and sum of two products rounded apart
+// (no contraction), so that the update of a_ij and a_ji is the same number.
 template <typename T>
 struct Num;
 template <>
@@ -80,8 +97,8 @@ struct Num<float> {
   // e with |a| < 2^e, for finite a > 0 (a subnormal a gives e = -126).
   static __device__ int exponent(float a) { return ((__float_as_int(a) >> 23) & 0xff) - 126; }
   static __device__ float pow2(int k) { return __int_as_float((k + 127) << 23); }
-  // For a, b normal and positive: the approximate hardware reciprocal
-  // (square root) and one Newton step.
+  // For a, b normal: the approximate hardware reciprocal (square root) and
+  // one Newton step.
   static __device__ float rsqrt(float a) {
     const float y = rsqrtf(a);
     return y * (1.5f - 0.5f * a * y * y);
@@ -90,6 +107,12 @@ struct Num<float> {
   static __device__ float div(float a, float b) {
     const float y = __fdividef(1.0f, b);
     return a * (y * (2.0f - b * y));
+  }
+  // The Sturm recurrence's a / b, |b| >= tiny: the hardware reciprocal
+  // (about 1 ulp), on the recurrence's critical path.
+  static __device__ float quick_div(float a, float b) { return __fdividef(a, b); }
+  static __device__ float sym2(float a, float b, float c, float e) {
+    return __fadd_rn(__fmul_rn(a, b), __fmul_rn(c, e));
   }
 };
 template <>
@@ -113,14 +136,21 @@ struct Num<double> {
     return y * pow2(-k);
   }
   static __device__ double sqrt(double a) { return a * rsqrt(a); }
-  // For b > 0 normal: b = s 2^k with s in [0.5, 1), a float seed of 1/s,
-  // three Newton steps, exact rescaling.
+  // For |b| normal: b = s 2^k with |s| in [0.5, 1), a float seed of 1/s,
+  // Newton steps (2^-22 -> 2^-44 -> 2^-88: two reach double precision),
+  // exact rescaling.
+  template <int kSteps = 3>
   static __device__ double div(double a, double b) {
     const int k = exponent(b);
     const double s = b * pow2(-k);
     double y = static_cast<double>(__fdividef(1.0f, static_cast<float>(s)));
-    for (int i = 0; i < 3; ++i) y = y * (2.0 - s * y);
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) y = y * (2.0 - s * y);
     return a * (y * pow2(-k));
+  }
+  static __device__ double quick_div(double a, double b) { return div<2>(a, b); }
+  static __device__ double sym2(double a, double b, double c, double e) {
+    return __dadd_rn(__dmul_rn(a, b), __dmul_rn(c, e));
   }
 };
 
@@ -135,12 +165,24 @@ struct Max {
   template <typename T>
   __device__ T operator()(T a, T b) const { return a > b ? a : b; }
 };
+struct Min {
+  template <typename T>
+  __device__ T operator()(T a, T b) const { return a < b ? a : b; }
+};
+
+// The reduction of v over the lanes of an aligned group of `width` lanes
+// (a power of two up to 32), the same bits in every lane of the group.
+template <typename T, typename Op>
+__device__ __forceinline__ T group_reduce(T v, int width, Op op) {
+  for (int o = width >> 1; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
 
 // The reduction of v over the CTA, the same value in every thread: warps by
 // shuffles, then every thread combines the warp partials in warp order.
 template <typename T, typename Op>
 __device__ T block_reduce(T v, T* red, Op op) {
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  v = group_reduce(v, 32, op);
   __syncthreads();  // the last reduction's readers are done with red
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
@@ -149,137 +191,206 @@ __device__ T block_reduce(T v, T* red, Op op) {
   return r;
 }
 
-// The shared memory of one CTA: [A: m * ld if resident][red: 32][c, s: m/2
-// each][p, q: m/2 ints each].
+// The shared memory of one CTA: [A: m * ld if resident][diagonal, off-
+// diagonal, p: m each][red: 32], with m = d rounded up to even and the row
+// pitch ld = m + 1 (the wrapper's plan mirrors this).
 template <typename T>
 size_t smem_bytes(int d, bool resident) {
-  const size_t m = d + (d & 1), ld = m + 1, half = m / 2;
-  return (resident ? m * ld * sizeof(T) : 0) + (32 + 2 * half) * sizeof(T) + 2 * half * sizeof(int);
+  const size_t m = d + (d & 1), ld = m + 1;
+  return (resident ? m * ld * sizeof(T) : 0) + (3 * m + 32) * sizeof(T);
+}
+
+// The threads of a CTA for d: four rows of the matrix-vector product a warp,
+// so that one pass covers the trailing block; 1 to 32 warps.
+int threads_for(int d) {
+  int warps = (d - 1 + 3) / 4;
+  warps = warps < 1 ? 1 : (warps > 32 ? 32 : warps);
+  return 32 * warps;
+}
+
+// The number of eigenvalues of the tridiagonal (dg, e) below x: the
+// negative pivots of T - x I = L D L^T (Sturm), a pivot below pivmin in
+// magnitude taken as -pivmin.
+template <typename T>
+__device__ __forceinline__ int sturm_count(const T* dg, const T* e, int n, T x, T pivmin) {
+  T q = dg[0] - x;
+  if (my_fabs(q) < pivmin) q = -pivmin;
+  int count = q < 0;
+  for (int i = 1; i < n; ++i) {
+    const T ei = e[i - 1];
+    q = (dg[i] - x) - Num<T>::quick_div(ei * ei, q);
+    if (my_fabs(q) < pivmin) q = -pivmin;
+    count += q < 0;
+  }
+  return count;
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
     sym_eigvals_kernel(const T* __restrict__ in, T* __restrict__ out, T* __restrict__ work,
-                       int32_t* __restrict__ sweeps_out, int d, int resident) {
+                       int32_t* __restrict__ rounds_out, int d, int resident) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int m = d + (d & 1), ld = m + 1, half = m / 2;
+  const int n = d, m = d + (d & 1), ld = m + 1;
   const int64_t b = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, warps = nt >> 5;
   T* shared = reinterpret_cast<T*>(smem);
   T* A = resident ? shared : work + b * static_cast<int64_t>(m) * ld;
-  T* red = resident ? shared + static_cast<size_t>(m) * ld : shared;
-  T* cs = red + 32;
-  T* sn = cs + half;
-  int* P = reinterpret_cast<int*>(sn + half);
-  int* Q = P + half;
+  T* dg = resident ? shared + static_cast<size_t>(m) * ld : shared;
+  T* e = dg + m;
+  T* p = e + m;  // the product A22 v, then the eigenvalues
+  T* red = p + m;
   const T* a = in + b * static_cast<int64_t>(d) * d;
 
-  // Load the lower triangle, mirrored; the padding row and column are 0.
+  // Load the lower triangle, a warp a row and a lane a column (coalesced),
+  // and mirror it.
   T amax = 0;
   int bad = 0;
-  for (int idx = tid; idx < m * m; idx += nt) {
-    const int i = idx / m, j = idx - i * m;
-    T v = 0;
-    if (i < d && j < d) v = i >= j ? a[i * d + j] : a[j * d + i];
-    bad |= !isfinite(v);
-    amax = Max()(amax, my_fabs(v));
-    A[i * ld + j] = v;
+  for (int i = warp; i < n; i += warps) {
+    for (int j = lane; j <= i; j += 32) {
+      const T v = a[static_cast<int64_t>(i) * d + j];
+      bad |= !isfinite(v);
+      amax = Max()(amax, my_fabs(v));
+      A[i * ld + j] = v;
+      A[j * ld + i] = v;
+    }
   }
   bad = __syncthreads_or(bad);
   if (bad) {
     for (int i = tid; i < d; i += nt) out[b * d + i] = static_cast<T>(CUDART_NAN_F);
-    if (sweeps_out != nullptr && tid == 0) sweeps_out[b] = 0;
+    if (rounds_out != nullptr && tid == 0) rounds_out[b] = 0;
     return;
   }
   amax = block_reduce(amax, red, Max());
 
   // Scale by 2^-e so that the largest entry is in [0.5, 1) (e clamped to
-  // the normal range): exact.
-  int e = amax > 0 ? Num<T>::exponent(amax) : 0;
-  e = e < -Num<T>::kEmax ? -Num<T>::kEmax : (e > Num<T>::kEmax ? Num<T>::kEmax : e);
-  const T down = Num<T>::pow2(-e), up = Num<T>::pow2(e);
-  T norm2 = 0;
-  for (int idx = tid; idx < m * m; idx += nt) {
-    const int i = idx / m, j = idx - i * m;
-    const T v = A[i * ld + j] * down;
-    A[i * ld + j] = v;
-    norm2 += v * v;
-  }
-  norm2 = block_reduce(norm2, red, Sum());
-  const T eps = Num<T>::eps();
-  const T tol2 = eps * eps * norm2;
+  // the normal range): exact, and a_ij = a_ji still.
+  int ex = amax > 0 ? Num<T>::exponent(amax) : 0;
+  ex = ex < -Num<T>::kEmax ? -Num<T>::kEmax : (ex > Num<T>::kEmax ? Num<T>::kEmax : ex);
+  const T down = Num<T>::pow2(-ex), up = Num<T>::pow2(ex);
+  for (int i = warp; i < n; i += warps)
+    for (int j = lane; j < n; j += 32) A[i * ld + j] *= down;
+  __syncthreads();
 
-  int sweep = 0;
-  for (; sweep < kMaxSweeps; ++sweep) {
-    T off2 = 0;
-    for (int idx = tid; idx < m * m; idx += nt) {
-      const int i = idx / m, j = idx - i * m;
-      if (i != j) off2 += A[i * ld + j] * A[i * ld + j];
+  // Householder steps k = 0 .. n - 3: Q_k^T A Q_k zeroes column k below the
+  // subdiagonal (LAPACK's dsytd2, lower). Row k equals column k, and neither
+  // changes after step k.
+  const int sub = lane >> 3, l8 = lane & 7;
+  for (int k = 0; k + 2 < n; ++k) {
+    const T* rk = A + k * ld;
+    // (1) The reflector, in every warp: v = (1, x / (alpha - beta)),
+    // tau = (beta - alpha) / beta, beta = -sign(alpha) ||(alpha, x)||.
+    const T alpha = rk[k + 1];
+    T sig = 0;
+    for (int j = k + 2 + lane; j < n; j += 32) sig += rk[j] * rk[j];
+    sig = group_reduce(sig, 32, Sum());
+    T beta = alpha, tau = 0, scale = 0;
+    if (sig > Num<T>::tiny()) {  // else H = I: |x| is far below eps ||A||
+      const T norm = Num<T>::sqrt(alpha * alpha + sig);
+      beta = alpha >= 0 ? -norm : norm;
+      tau = Num<T>::div(beta - alpha, beta);
+      scale = Num<T>::div(T(1), alpha - beta);
     }
-    off2 = block_reduce(off2, red, Sum());
-    if (!(off2 > tol2)) break;
-    for (int r = 0; r < m - 1; ++r) {
-      // (1) The rotations of the round's pairs: positions k and m - 1 - k of
-      // the tournament, index 0 fixed and the others shifted by r.
-      for (int k = tid; k < half; k += nt) {
-        int p = k == 0 ? 0 : (k - 1 + r) % (m - 1) + 1;
-        int q = (m - 2 - k + r) % (m - 1) + 1;
-        if (p > q) {
-          const int t = p;
-          p = q;
-          q = t;
-        }
-        // tau = (a_qq - a_pp) / g with g = 2 a_pq, and t = sign(tau) /
-        // (|tau| + sqrt(1 + tau^2)) = sign(tau) |g| / (|diff| + sqrt(diff^2 +
-        // g^2)): one division, no overflow for entries of the scaled matrix.
-        const T g = 2 * A[p * ld + q], diff = A[q * ld + q] - A[p * ld + p];
-        T c = 1, s = 0;
-        if (my_fabs(g) > Num<T>::tiny()) {
-          T t = Num<T>::div(my_fabs(g), my_fabs(diff) + Num<T>::sqrt(diff * diff + g * g));
-          if ((diff < 0 && g > 0) || (diff > 0 && g < 0)) t = -t;
-          c = Num<T>::rsqrt(1 + t * t);
-          s = t * c;
-        }
-        cs[k] = c;
-        sn[k] = s;
-        P[k] = p;
-        Q[k] = q;
-      }
-      __syncthreads();
-      // (2) Rows p and q of every pair: J^T A.
-      for (int idx = tid; idx < half * m; idx += nt) {
-        const int k = idx / m, j = idx - k * m;
-        const int p = P[k], q = Q[k];
-        const T c = cs[k], s = sn[k];
-        const T apj = A[p * ld + j], aqj = A[q * ld + j];
-        A[p * ld + j] = c * apj - s * aqj;
-        A[q * ld + j] = s * apj + c * aqj;
-      }
-      __syncthreads();
-      // (3) Columns p and q of every pair: (J^T A) J, a_pq = a_qp = 0.
-      for (int idx = tid; idx < half * m; idx += nt) {
-        const int k = idx / m, i = idx - k * m;
-        const int p = P[k], q = Q[k];
-        const T c = cs[k], s = sn[k];
-        const T aip = A[i * ld + p], aiq = A[i * ld + q];
-        A[i * ld + p] = i == q ? T(0) : c * aip - s * aiq;
-        A[i * ld + q] = i == p ? T(0) : s * aip + c * aiq;
-      }
-      __syncthreads();
+    if (tid == 0) {
+      dg[k] = rk[k];
+      e[k] = beta;
     }
+    if (tau == 0) continue;  // the same decision in every thread; A unchanged
+    // (2) p = tau A22 v: eight lanes a row, four rows a warp.
+    for (int base = k + 1 + 4 * warp; base < n; base += 4 * warps) {
+      const int i = base + sub;
+      T s = 0;
+      if (i < n) {
+        const T* ri = A + i * ld;
+        for (int j = k + 1 + l8; j < n; j += 8) s += ri[j] * (j == k + 1 ? T(1) : rk[j] * scale);
+      }
+      s = group_reduce(s, 8, Sum());
+      if (i < n && l8 == 0) p[i] = tau * s;
+    }
+    __syncthreads();
+    // (3) w = p + c v with c = -(tau / 2) (p . v), in every warp.
+    T pv = 0;
+    for (int j = k + 1 + lane; j < n; j += 32) pv += p[j] * (j == k + 1 ? T(1) : rk[j] * scale);
+    const T c = T(-0.5) * tau * group_reduce(pv, 32, Sum());
+    // (4) A22 -= v w^T + w v^T: a warp a row, a lane a column.
+    for (int i = k + 1 + warp; i < n; i += warps) {
+      const T vi = i == k + 1 ? T(1) : rk[i] * scale;
+      const T wi = p[i] + c * vi;
+      T* ri = A + i * ld;
+      for (int j = k + 1 + lane; j < n; j += 32) {
+        const T vj = j == k + 1 ? T(1) : rk[j] * scale;
+        const T wj = p[j] + c * vj;
+        ri[j] -= Num<T>::sym2(vi, wj, wi, vj);
+      }
+    }
+    __syncthreads();
   }
+  if (tid == 0) {
+    if (n >= 2) {
+      dg[n - 2] = A[(n - 2) * ld + n - 2];
+      e[n - 2] = A[(n - 2) * ld + n - 1];
+    }
+    dg[n - 1] = A[(n - 1) * ld + n - 1];
+  }
+  __syncthreads();
 
-  // The diagonal, scaled back, ranked (ties by index) and written in order.
-  for (int i = tid; i < d; i += nt) {
-    const T v = A[i * ld + i];
+  // Multisection: groups of g lanes (a power of two, g n <= threads where it
+  // can), one eigenvalue a group; each round the g points lo + (l + 1) h,
+  // h = (hi - lo) / (g + 1), are counted, and the interval shrinks to the
+  // one between the last point with at most `target` eigenvalues below it
+  // and the next.
+  int g = 32;
+  while (g > 1 && g * n > nt) g >>= 1;
+  const int gl = lane & (g - 1), gbase = lane & ~(g - 1);
+  const unsigned gmask = g == 32 ? kFull : ((1u << g) - 1u) << gbase;
+  // The Gershgorin interval, in every group.
+  T lo0 = 0, hi0 = 0;
+  for (int i = gl; i < n; i += g) {
+    const T r = (i > 0 ? my_fabs(e[i - 1]) : T(0)) + (i + 1 < n ? my_fabs(e[i]) : T(0));
+    lo0 = i == gl ? dg[i] - r : Min()(lo0, dg[i] - r);
+    hi0 = i == gl ? dg[i] + r : Max()(hi0, dg[i] + r);
+  }
+  if (gl >= n) lo0 = hi0 = dg[0];
+  lo0 = group_reduce(lo0, g, Min());
+  hi0 = group_reduce(hi0, g, Max());
+  const T eps = Num<T>::eps(), pivmin = Num<T>::tiny();
+  const T tnorm = Max()(my_fabs(lo0), my_fabs(hi0));
+  const T widen = T(2.1) * eps * tnorm * n + T(4.2) * pivmin;
+  lo0 -= widen;
+  hi0 += widen;
+  const T tol = T(2) * eps * tnorm + pivmin;
+  const T step = Num<T>::div(T(1), T(g + 1));
+  int rounds = 0;
+  for (int first = 0; first < n; first += nt / g) {
+    const int idx = first + tid / g;
+    const int target = idx < n ? idx : n - 1;
+    T lo = lo0, hi = hi0;
+    int r = 0;
+    for (; r < kMaxRounds && __any_sync(kFull, hi - lo > tol); ++r) {
+      const T x = lo + T(gl + 1) * ((hi - lo) * step);
+      const int below = __popc(__ballot_sync(kFull, sturm_count(dg, e, n, x, pivmin) <= target)
+                               & gmask);
+      const T xlo = __shfl_sync(kFull, x, gbase + (below > 0 ? below - 1 : 0));
+      const T xhi = __shfl_sync(kFull, x, gbase + (below < g ? below : g - 1));
+      if (below > 0) lo = xlo;
+      if (below < g) hi = xhi;
+    }
+    rounds = r > rounds ? r : rounds;
+    if (idx < n && gl == 0) p[idx] = T(0.5) * (lo + hi);
+  }
+  const T max_rounds = block_reduce(static_cast<T>(rounds), red, Max());  // its barrier orders p
+
+  // Each value ranked (ties by index), scaled back and written in order.
+  for (int i = tid; i < n; i += nt) {
+    const T v = p[i];
     int rank = 0;
-    for (int j = 0; j < d; ++j) {
-      const T w = A[j * ld + j];
+    for (int j = 0; j < n; ++j) {
+      const T w = p[j];
       rank += (w < v) || (w == v && j < i);
     }
     out[b * d + rank] = v * up;
   }
-  if (sweeps_out != nullptr && tid == 0) sweeps_out[b] = sweep;
+  if (rounds_out != nullptr && tid == 0) rounds_out[b] = static_cast<int32_t>(max_rounds);
 }
 
 // Opts the kernel into the largest shared memory once per device; returns
@@ -302,7 +413,7 @@ cudaError_t prepare() {
 }
 
 template <typename T>
-int entry(const void* a, void* w, void* work, void* sweeps, int64_t batch, int d, int resident,
+int entry(const void* a, void* w, void* work, void* rounds, int64_t batch, int d, int resident,
           void* stream) {
   if (batch < 0 || batch > 0x7fffffff || d < 1 || (!resident && work == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -312,13 +423,10 @@ int entry(const void* a, void* w, void* work, void* sweeps, int64_t batch, int d
   if (batch == 0) return static_cast<int>(cudaSuccess);
   cudaError_t err = prepare<T>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int m = d + (d & 1);
-  int threads = ((m / 2) * m + 31) / 32 * 32;
-  threads = threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads : threads);
-  sym_eigvals_kernel<T><<<static_cast<unsigned>(batch), threads, smem,
+  sym_eigvals_kernel<T><<<static_cast<unsigned>(batch), threads_for(d), smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(a), static_cast<T*>(w), static_cast<T*>(work),
-      static_cast<int32_t*>(sweeps), d, resident);
+      static_cast<int32_t*>(rounds), d, resident);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -328,16 +436,16 @@ int entry(const void* a, void* w, void* work, void* sweeps, int64_t batch, int d
 // tempest_sym_eigvals_f64 in float64. a: (batch, d, d) contiguous, of which
 // the lower triangle is read; w: (batch, d) out, ascending; work: (batch, m,
 // m + 1) of the type with m = d rounded up to even, used when `resident` is
-// 0 (else may be null); sweeps: (batch,) int32 out, the Jacobi sweeps each
-// matrix took, or null. `resident` holds each matrix in shared memory (the
-// wrapper's plan). Each launches on `stream` of the current device without
-// synchronising and returns a cudaError_t.
-extern "C" int tempest_sym_eigvals(const void* a, void* w, void* work, void* sweeps,
+// 0 (else may be null); rounds: (batch,) int32 out, the multisection rounds
+// of each matrix's slowest eigenvalue, or null. `resident` holds each matrix
+// in shared memory (the wrapper's plan). Each launches on `stream` of the
+// current device without synchronising and returns a cudaError_t.
+extern "C" int tempest_sym_eigvals(const void* a, void* w, void* work, void* rounds,
                                    int64_t batch, int d, int resident, void* stream) {
-  return entry<float>(a, w, work, sweeps, batch, d, resident, stream);
+  return entry<float>(a, w, work, rounds, batch, d, resident, stream);
 }
 
-extern "C" int tempest_sym_eigvals_f64(const void* a, void* w, void* work, void* sweeps,
+extern "C" int tempest_sym_eigvals_f64(const void* a, void* w, void* work, void* rounds,
                                        int64_t batch, int d, int resident, void* stream) {
-  return entry<double>(a, w, work, sweeps, batch, d, resident, stream);
+  return entry<double>(a, w, work, rounds, batch, d, resident, stream);
 }

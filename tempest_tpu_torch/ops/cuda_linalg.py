@@ -8,8 +8,9 @@ for a rank test. The JAX package leaves this to XLA's `jnp.linalg.eigvalsh`
 a blocking read that a CUDA graph cannot capture, and dynamic mode
 evaluates the CV inside the bisection loop that the fused route replays as
 a graph. So a CUDA tensor goes to `csrc/sym_eigvals.cu` (design note at
-the top of that file): cyclic Jacobi, one CTA a matrix, the matrix in
-shared memory while it fits (`plan_launch`), no host read.
+the top of that file): Householder tridiagonalization and Sturm-count
+multisection, one CTA a matrix, the matrix in shared memory while it fits
+(`plan_launch`), no host read.
 
 `eigvalsh` picks its route only by the tensor's device: a CPU tensor goes
 to `torch.linalg.eigvalsh`, the plain version (so the CPU route stays
@@ -37,21 +38,23 @@ ENTRIES = {torch.float32: "tempest_sym_eigvals", torch.float64: "tempest_sym_eig
 LAUNCHES = 0
 
 SMEM_MAX = 232448  # the shared memory a CTA may opt into on sm_90: csrc kSmemMax
+MAX_ROUNDS = 80  # the cap on an eigenvalue's multisection rounds: csrc kMaxRounds
 
 
 class LaunchPlan(NamedTuple):
-    m: int  # d rounded up to even: the padded matrix is (m, m + 1)
+    m: int  # d rounded up to even: the matrix is held with a row pitch of m + 1
     resident: bool  # each matrix held in shared memory (else a global workspace)
     smem: int  # dynamic shared memory a CTA, bytes
 
 
 def plan_launch(d: int, dtype=torch.float32) -> LaunchPlan:
-    """The launch for (d, d) matrices of `dtype`: resident while the padded
-    matrix, the reduction scratch and the round's rotations fit a CTA's
-    shared memory (d <= 238 in float32, d <= 168 in float64)."""
+    """The launch for (d, d) matrices of `dtype`: resident while the matrix
+    (m rows of pitch m + 1), the tridiagonal, the product A v and the
+    reduction scratch fit a CTA's shared memory (d <= 238 in float32,
+    d <= 168 in float64); csrc `smem_bytes`."""
     m = d + (d & 1)
     size = dtype.itemsize
-    extra = (32 + m) * size + m * 4
+    extra = (3 * m + 32) * size
     resident = m * (m + 1) * size + extra <= SMEM_MAX
     return LaunchPlan(m, resident, m * (m + 1) * size + extra if resident else extra)
 
@@ -74,12 +77,13 @@ def eigvalsh(a: torch.Tensor) -> torch.Tensor:
     return _launch(a)[0]
 
 
-def _launch(a: torch.Tensor, sweeps: bool = False):
-    """(eigenvalues, the sweeps each matrix took as int32 or None)."""
+def _launch(a: torch.Tensor, rounds: bool = False):
+    """(eigenvalues, the multisection rounds of each matrix's slowest
+    eigenvalue as int32, or None)."""
     global LAUNCHES
     if a.device.index != torch.cuda.current_device():  # the C entry launches on the current one
         with torch.cuda.device(a.device):
-            return _launch(a, sweeps)
+            return _launch(a, rounds)
     d = a.shape[-1]
     batch = a.reshape(-1, d, d).contiguous()
     plan = plan_launch(d, a.dtype)
@@ -87,13 +91,13 @@ def _launch(a: torch.Tensor, sweeps: bool = False):
     work: Optional[torch.Tensor] = None
     if not plan.resident:
         work = torch.empty((batch.shape[0], plan.m, plan.m + 1), dtype=a.dtype, device=a.device)
-    n_sweeps = torch.empty(batch.shape[0], dtype=torch.int32, device=a.device) if sweeps else None
+    n_rounds = torch.empty(batch.shape[0], dtype=torch.int32, device=a.device) if rounds else None
     if batch.shape[0] == 0:
-        return out.reshape(a.shape[:-1]), n_sweeps
+        return out.reshape(a.shape[:-1]), n_rounds
     entry = getattr(_build.load(LIBRARY), ENTRIES[a.dtype])
     err = entry(batch.data_ptr(), out.data_ptr(), None if work is None else work.data_ptr(),
-                None if n_sweeps is None else n_sweeps.data_ptr(), batch.shape[0], d,
+                None if n_rounds is None else n_rounds.data_ptr(), batch.shape[0], d,
                 int(plan.resident), torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "sym_eigvals")
     LAUNCHES += 1
-    return out.reshape(a.shape[:-1]), n_sweeps
+    return out.reshape(a.shape[:-1]), n_rounds

@@ -39,11 +39,12 @@ launches and the same final call counter on the host and on the device,
 and a capture leaves the counter where it was.
 
 The eigenvalue kernel (`ops.cuda_linalg`, csrc/sym_eigvals.cu) against
-torch.linalg.eigvalsh of the float64 copy at d = 1, 2, 3, 10, 64, 100 and
-240 (past shared memory: the global-workspace route), on SPD, indefinite,
-rank-deficient and diagonal matrices in float32 and float64, within
-16 d eps max|lambda|; the CV's rank decision equal; a launch captured in a
-graph replays to the eager values. Dynamic mode and a mesh of one rank
+torch.linalg.eigvalsh of the float64 copy at d = 1 to 240 (each side of
+the last d held in shared memory in either type: past it, the
+global-workspace route), on SPD, indefinite, rank-deficient and diagonal
+matrices in float32 and float64, within 16 d eps max|lambda|; the CV's
+rank decision equal; NaN out for a non-finite matrix; a launch captured in
+a graph replays to the eager launch's bits. Dynamic mode and a mesh of one rank
 over NCCL (in a process of its own) repeat `on_device=False` bit for bit
 with `on_device=True`.
 """
@@ -783,9 +784,11 @@ def _symmetric(device, batch, d, kind, dtype, seed=0):
 
 
 EIG_KINDS = ("spd", "indefinite", "rank_deficient", "diagonal")
-# d = 240 is past what a CTA's shared memory holds in both types: the
-# global-workspace route.
-EIG_DIMS = (1, 2, 3, 10, 64, 100, 240)
+# The CV's d = 10 and the rosenbrock100 path's 100; 64 and 128 fill whole
+# warps; 168 / 169 and 238 / 239 are the last d held in shared memory and
+# the first past it (the global-workspace route) in float64 and float32.
+EIG_DIMS = (1, 2, 3, 10, 50, 64, 100, 128, 168, 169, 238, 239, 240)
+EIG_LAST_RESIDENT = {torch.float32: 238, torch.float64: 168}
 
 
 @pytest.mark.cuda
@@ -794,16 +797,17 @@ EIG_DIMS = (1, 2, 3, 10, 64, 100, 240)
 @pytest.mark.parametrize("d", EIG_DIMS)
 def test_sym_eigvals_matches_eigvalsh(cuda_device, d, kind, dtype):
     """Against torch.linalg.eigvalsh of the float64 copy: |dlambda| <= 16 d
-    eps max|lambda|. Jacobi's computed eigenvalues are those of A + E with
-    ||E|| a small multiple of eps ||A|| a sweep (5-10 sweeps), and
-    ||A||_2 = max|lambda|; LAPACK's backward error is of the same order,
-    so 16 d eps bounds both with room at every d tested."""
+    eps max|lambda|. The Householder reduction's computed tridiagonal is
+    that of A + E with ||E|| a small multiple of d eps ||A||, and the
+    multisection brackets each of its eigenvalues within 2 eps ||T||;
+    ||A||_2 = max|lambda|, and LAPACK's backward error is of the same
+    order, so 16 d eps bounds both with room at every d tested."""
     from tempest_tpu_torch.ops import cuda_linalg
 
-    assert cuda_linalg.plan_launch(d, dtype).resident == (d != 240)
+    assert cuda_linalg.plan_launch(d, dtype).resident == (d <= EIG_LAST_RESIDENT[dtype])
     a = _symmetric(cuda_device, 3, d, kind, dtype)
     before = cuda_linalg.LAUNCHES
-    got, sweeps = cuda_linalg._launch(a, sweeps=True)
+    got, rounds = cuda_linalg._launch(a, rounds=True)
     again = cuda_linalg.eigvalsh(a)
     torch.cuda.synchronize()
     assert cuda_linalg.LAUNCHES == before + 2
@@ -814,7 +818,7 @@ def test_sym_eigvals_matches_eigvalsh(cuda_device, d, kind, dtype):
     assert torch.all(err <= 16 * d * torch.finfo(dtype).eps * scale), float(err.max())
     assert torch.equal(got, again)  # a launch repeats its bits
     assert torch.all(torch.diff(got, dim=1) >= 0)
-    assert int(sweeps.max()) < 30 and (kind != "diagonal" or int(sweeps.max()) == 0)
+    assert 0 < int(rounds.min()) and int(rounds.max()) < cuda_linalg.MAX_ROUNDS
 
 
 @pytest.mark.cuda
@@ -837,13 +841,18 @@ def test_sym_eigvals_keeps_the_cv_rank_decision(cuda_device, kind, dtype):
 
 
 @pytest.mark.cuda
-def test_sym_eigvals_nonfinite_and_refusals(cuda_device):
+@pytest.mark.parametrize("d", [5, 100, 240])
+def test_sym_eigvals_nonfinite_and_refusals(cuda_device, d):
+    """A matrix with a NaN or an infinity in its lower triangle gives NaN
+    eigenvalues, its neighbours in the batch their own."""
     from tempest_tpu_torch.ops import cuda_linalg
 
-    a = _symmetric(cuda_device, 2, 5, "spd", torch.float32)
-    a[1, 3, 2] = float("nan")
+    a = _symmetric(cuda_device, 3, d, "spd", torch.float32)
+    a[1, d - 1, d // 2] = float("nan")
+    a[2, d - 1, 0] = float("inf")
     got = cuda_linalg.eigvalsh(a)
-    assert torch.all(torch.isfinite(got[0])) and torch.all(torch.isnan(got[1]))
+    assert torch.equal(got[0], cuda_linalg.eigvalsh(a[:1])[0])
+    assert torch.all(torch.isfinite(got[0])) and torch.all(torch.isnan(got[1:]))
     with pytest.raises(ValueError, match="float32 or float64"):
         cuda_linalg.eigvalsh(a.half())
     with pytest.raises(ValueError, match="d, d"):
@@ -851,12 +860,14 @@ def test_sym_eigvals_nonfinite_and_refusals(cuda_device):
 
 
 @pytest.mark.cuda
-def test_sym_eigvals_replays_in_a_graph(cuda_device):
-    """A launch captured in a CUDA graph replays to the eager values on new
-    inputs written into its static buffer."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [10, 100, 240])
+def test_sym_eigvals_replays_in_a_graph(cuda_device, d, dtype):
+    """A launch captured in a CUDA graph replays to the eager launch's bits
+    on new inputs written into its static buffer."""
     from tempest_tpu_torch.ops import cuda_linalg
 
-    static = _symmetric(cuda_device, 4, 10, "spd", torch.float32)
+    static = _symmetric(cuda_device, 4, d, "spd", dtype)
     cuda_linalg.eigvalsh(static)  # build, load and opt in before the capture
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
@@ -867,7 +878,7 @@ def test_sym_eigvals_replays_in_a_graph(cuda_device):
         graph.capture_end()
     torch.cuda.current_stream().wait_stream(stream)
     for seed in (5, 6):
-        new = _symmetric(cuda_device, 4, 10, "indefinite", torch.float32, seed=seed)
+        new = _symmetric(cuda_device, 4, d, "indefinite", dtype, seed=seed)
         static.copy_(new)
         graph.replay()
         assert torch.equal(out, cuda_linalg.eigvalsh(new))

@@ -194,6 +194,27 @@ def _w_anneal(mesh, rank, world, workdir):
             "jax_loaded_t": loaded_t, "jax_run_beta": s3.beta, "jax_run_logz": s3.logz})
 
 
+def _w_teardown(mesh, rank, world, workdir):
+    """A sampler on the mesh, left in a reference cycle; reports the
+    DeviceMeshes still alive when the worker destroys the group."""
+    import gc
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    s = _build(mesh, 1)
+    for _ in range(3):
+        s.sample()
+    s.cycle = s
+    destroy = dist.destroy_process_group
+
+    def counted():
+        report({"live_meshes": sum(isinstance(o, DeviceMesh) for o in gc.get_objects())})
+        destroy()
+
+    dist.destroy_process_group = counted
+
+
 def _w_drill(mesh, rank, world, workdir, mode):
     ckpt = workdir / "mid.state"
     if mode == "interrupt":
@@ -413,6 +434,16 @@ def test_two_process_midrun_kill_and_resume(tmp_path):
         assert abs(rr["mean0"] - rf["mean0"]) < 1e-6
 
 
+def test_ranks_free_the_mesh_before_destroying_the_group(tmp_path):
+    """The cause of the two-rank fixture's intermittent failures: a rank
+    whose DeviceMesh outlives destroy_process_group() is now and then
+    aborted by PyTorch at exit (-6), after its work and its results. The
+    worker frees every mesh, a sampler in a reference cycle included,
+    before it destroys the group, and exits 0."""
+    rows = spawn(__file__, "teardown", 2, tmp_path)
+    assert [r[-1]["live_meshes"] for r in rows] == [0, 0]
+
+
 def test_workers_import_no_jax():
     """A rank imports both test files, the port and torch, never JAX."""
     code = ("import sys; sys.path.insert(0, 'tests'); "
@@ -425,4 +456,5 @@ def test_workers_import_no_jax():
 
 
 if __name__ == "__main__":
-    worker_main({"sampler": _w_sampler, "anneal": _w_anneal, "drill": _w_drill})
+    worker_main({"sampler": _w_sampler, "anneal": _w_anneal, "drill": _w_drill,
+                 "teardown": _w_teardown})

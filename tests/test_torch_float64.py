@@ -234,6 +234,14 @@ _SCRIPT = textwrap.dedent(
                     for k in interop.HISTORY_FIELDS + ("t",)})
         out[f"dyn{i}.args"] = np.array([beta_prev, target, cv_target])
         out[f"dyn{i}.want"] = np.array(rw.beta)
+
+    # 6. the CV at d = 100 (tests/test_torch_tools.py's inputs)
+    from tempest_tpu.ops.tools import volume_variation_dtn
+    from test_torch_tools import cv100_inputs
+
+    u, w, mask = cv100_inputs()
+    out["cv100"] = np.array(volume_variation_dtn(jnp.asarray(u), jnp.asarray(w),
+                                                 mask=jnp.asarray(mask)))
     np.savez(out_path, **out)
     """
 )
@@ -250,6 +258,18 @@ def jax_x64(tmp_path_factory):
         out = {k: data[k] for k in data.files}
     out["jax_file"] = paths[1]
     return out
+
+
+def test_volume_variation_dtn_at_d100_float64(jax_x64):
+    """The CV at d = 100 in float64 against JAX's under x64: rtol 1e-12."""
+    from tempest_tpu_torch.ops.tools import volume_variation_dtn
+    from test_torch_tools import cv100_inputs
+
+    u, w, mask = (torch.from_numpy(a) for a in cv100_inputs())
+    got = volume_variation_dtn(u, w, mask=mask)
+    want = float(jax_x64["cv100"])
+    assert got.dtype == torch.float64 and want < 1e10
+    assert abs(float(got) - want) <= 1e-12 * want
 
 
 @pytest.mark.parametrize("bits", [32, 64])

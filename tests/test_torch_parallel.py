@@ -41,11 +41,15 @@ with this file's `launch`, `collect` and `worker_main`.
 """
 
 import functools
+import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -151,21 +155,52 @@ def launch(script, mode, world, workdir, *args):
 
 
 def collect(procs, label):
-    """Each rank's RESULT lines, parsed. Fails with the rank's output if any
-    rank fails; kills every rank still alive after RUN_TIMEOUT."""
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=RUN_TIMEOUT)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for rank, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"{label} rank {rank} of {len(procs)} failed:\n{out[-4000:]}"
+    """Each rank's RESULT lines, parsed. Every rank has RUN_TIMEOUT seconds
+    from this call, on one deadline, and is killed if alive past it. If any
+    rank fails, the error gives every rank's exit code, its seconds, what
+    ended it (the kill at RUN_TIMEOUT, a collective's INIT_TIMEOUT, or its
+    own error) and the last 4,000 characters of each failed rank's output."""
+    start = time.monotonic()
+    outs, seconds = [""] * len(procs), [0.0] * len(procs)
+
+    def wait(i, p):  # a reader each, so that no rank blocks on a full pipe
+        outs[i] = p.communicate()[0]
+        seconds[i] = time.monotonic() - start
+
+    readers = [threading.Thread(target=wait, args=(i, p), daemon=True)
+               for i, p in enumerate(procs)]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join(max(0.0, start + RUN_TIMEOUT - time.monotonic()))
+    killed = [p.poll() is None for p in procs]
+    for p, k in zip(procs, killed):
+        if k:
+            p.kill()
+    for r in readers:
+        r.join()
+    if any(p.returncode != 0 for p in procs):
+        lines = [f"{label}: a rank of {len(procs)} failed"]
+        for rank, (p, out) in enumerate(zip(procs, outs)):
+            lines.append(f"rank {rank}: exit code {p.returncode} after {seconds[rank]:.1f} s, "
+                         f"{_ending(killed[rank], p.returncode, out)}")
+        for rank, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                lines.append(f"--- rank {rank}'s output, last 4,000 characters:\n{out[-4000:]}")
+        pytest.fail("\n".join(lines), pytrace=False)
     return [[json.loads(line[len("RESULT "):]) for line in out.splitlines()
              if line.startswith("RESULT ")] for out in outs]
+
+
+def _ending(killed: bool, returncode: int, out: str) -> str:
+    """What ended a rank, from its exit code and output."""
+    if killed:
+        return f"killed at RUN_TIMEOUT = {RUN_TIMEOUT} s"
+    if returncode == 0:
+        return "ran to its end"
+    if re.search(r"[Tt]imed? ?out", out):
+        return f"a collective or the store timed out (INIT_TIMEOUT = {INIT_TIMEOUT} s)"
+    return "its own error"
 
 
 def spawn(script, mode, world, workdir, *args):
@@ -186,12 +221,22 @@ def worker_main(modes: dict) -> None:
 
     mode, rank, world, store, workdir, *args = sys.argv[1:]
     torch.set_num_threads(1)
+    start = time.monotonic()
     initialize(f"file://{store}", int(world), int(rank), device="cpu", timeout=INIT_TIMEOUT)
+    joined = time.monotonic()
     try:
         modes[mode](make_particle_mesh(device="cpu"), int(rank), int(world), Path(workdir),
                     *args)
     finally:
+        # Free the mode's mesh and samplers (often in reference cycles) while
+        # the group is up: a DeviceMesh over gloo left to the interpreter's
+        # teardown now and then aborts the rank after its work is done, exit
+        # code -6 (scripts/mesh_teardown_stress.py).
+        gc.collect()
         dist.destroy_process_group()
+        # The rank's own times, for a failure's report.
+        print(f"RANK_SECONDS join {joined - start:.2f} run {time.monotonic() - joined:.2f}",
+              flush=True)
 
 
 def _t(a) -> torch.Tensor:

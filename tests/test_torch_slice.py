@@ -1,6 +1,7 @@
 """The port's whole unclustered slice against tempest_tpu.
 
 1. One iteration, value for value: the JAX sampler runs a 4-D Gaussian
+   (N = 128), and a 100-D one (N = 256, the rosenbrock100 path's width),
    past its warm-up; its state goes through `interop` into the port, which
    runs the next iteration on the JAX iteration's own draws (the resample
    uniforms from k_res and the MCMC key chain from k_mut, fused.py:89).
@@ -69,7 +70,17 @@ def _loglike_t(x):
 
 
 def test_one_iteration_value_for_value():
-    js = JaxSampler(_prior, _loglike_j, n_dim=D4, n_particles=N4, vectorize=True,
+    _one_iteration(D4, N4)
+
+
+def test_one_iteration_value_for_value_at_d100():
+    """The rosenbrock100 path's width: d = 100 (the CV's eigenvalues, the
+    100 x 100 mode covariance), at N = 256 and the same tolerances."""
+    _one_iteration(100, 256)
+
+
+def _one_iteration(d, n):
+    js = JaxSampler(_prior, _loglike_j, n_dim=d, n_particles=n, vectorize=True,
                     clustering=False, random_state=0, history_capacity=16)
     while js.state.cur.beta == 0.0 or int(js.state.hist.t) < 5:
         js.sample()
@@ -81,11 +92,11 @@ def test_one_iteration_value_for_value():
     it_key = jax.random.split(core.key)[1]  # what core._next_key() hands the iteration
 
     # What JAX computes in that iteration, stage by stage ...
-    target = 2.0 * N4
+    target = 2.0 * n
     rw_j = jax_reweight(hist_j, cur_j.beta, target, use_pallas=False)
     _, w_trim = jax_trim(rw_j.weights.reshape(-1), mask=hist_j.sample_mask().reshape(-1),
                          ess=TRIM_ESS, bins=TRIM_BINS)
-    modes_j = jax_fit_global_mode(hist_j.u.reshape(D4, -1).T, w_trim, dof_fallback=1e6)
+    modes_j = jax_fit_global_mode(hist_j.u.reshape(d, -1).T, w_trim, dof_fallback=1e6)
     # ... and as one iteration.
     out_j = js.sample()
 
@@ -102,15 +113,15 @@ def test_one_iteration_value_for_value():
     assert abs(1 / float(modes_t.degrees_of_freedom[0])
                - 1 / float(modes_j.degrees_of_freedom[0])) < 1e-3
 
-    cfg = SamplerConfig(prior_transform=_prior, log_likelihood=_loglike_t, n_dim=D4,
-                        n_particles=N4, vectorize=True, clustering=False, device="cpu")
+    cfg = SamplerConfig(prior_transform=_prior, log_likelihood=_loglike_t, n_dim=d,
+                        n_particles=n, vectorize=True, clustering=False, device="cpu")
     iteration = make_iteration(cfg, lambda x: (_loglike_t(x), None), _prior)
-    th, tc, _ = iteration(JaxIterationDraws(it_key), th, tc, single_cluster_model(D4, 1))
+    th, tc, _ = iteration(JaxIterationDraws(it_key), th, tc, single_cluster_model(d, 1))
 
     assert th.t == int(core.hist.t) and tc.iteration == out_j["iter"]
     assert abs(float(tc.beta) - out_j["beta"]) < 1e-5
     assert abs(float(tc.logz) - out_j["logz"]) < 1e-5
-    assert tc.steps == out_j["steps"] and tc.calls * N4 == out_j["calls"]
+    assert tc.steps == out_j["steps"] and tc.calls * n == out_j["calls"]
     np.testing.assert_allclose(tc.u.numpy(), out_j["u"], atol=1e-4)
     np.testing.assert_allclose(tc.logl.numpy(), out_j["logl"], atol=1e-4, rtol=1e-5)
     np.testing.assert_allclose(float(tc.acceptance), out_j["acceptance"], atol=1e-4)

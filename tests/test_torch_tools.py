@@ -122,6 +122,29 @@ def test_volume_variation_dtn():
                                          mask=torch.from_numpy(few))) == 1e10
 
 
+def cv100_inputs(seed=5):
+    """The CV at the rosenbrock100 path's d = 100: a (100, 8, 256) history
+    of uniforms with the first 6 slots filled (1,536 samples), exponential
+    weights."""
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(size=(100, 8, 256))
+    w = rng.exponential(size=(8, 256))
+    mask = np.broadcast_to((np.arange(8) < 6)[:, None], (8, 256)).copy()
+    return u, w, mask
+
+
+def test_volume_variation_dtn_at_d100():
+    """float32, on the CPU route (LAPACK's eigenvalues, then the rank test,
+    an inverse and the Mahalanobis distances): rtol 1e-5. Under x64 it is
+    held to 1e-12 in tests/test_torch_float64.py."""
+    u, w, mask = (a.astype(np.float32) if a.dtype != bool else a for a in cv100_inputs())
+    cv_j = float(jt.volume_variation_dtn(jnp.asarray(u), jnp.asarray(w), mask=jnp.asarray(mask)))
+    cv_t = float(tt.volume_variation_dtn(torch.from_numpy(u), torch.from_numpy(w),
+                                         mask=torch.from_numpy(mask)))
+    assert cv_j < 1e10
+    np.testing.assert_allclose(cv_t, cv_j, rtol=1e-5)
+
+
 def _symmetric(rng, batch, d, kind):
     """(batch, d, d) symmetric matrices: SPD, indefinite, rank-deficient
     (rank d // 2, an exact zero eigenvalue) or diagonal."""
