@@ -11,8 +11,9 @@ PyTorch version on the card, then drives the port through
 lines and a failure exits non-zero:
 
  1. the card: `nvidia-smi` name and power limit;
- 2. build every kernel (the ESS bisection, the PRNG kernels and the
-    eigenvalue kernel); each library's ptxas report (`-Xptxas -v`):
+ 2. build every kernel (the ESS bisection and its bracket mode, the PRNG
+    kernels, the eigenvalue kernel and the weighted median); each
+    library's ptxas report (`-Xptxas -v`):
     every kernel's registers and spill bytes, and a spill in any kernel
     fails;
  3. the ESS-bisection kernel against its plain version on both routes of
@@ -27,6 +28,16 @@ lines and a failure exits non-zero:
     exact, two launches giving the same bits, and its times in turns with
     the float32 instantiation on the same histories; the bounds count the
     instructions of exp from the SASS of a probe compiled in phase 2;
+ 3b. the ESS kernel's bracket mode (dynamic mode's ESS bracket) against
+    its plain version, the "ess_bracket" loop on the same CUDA tensors, at
+    S = 196,608 (dynamic mode's, held on chip: its 1024 x 192 history with
+    48 rows filled and the rest masked, and a history all filled), 524,288
+    and 1,048,576 (streamed), float32 and float64, on stay, jump and three
+    bisections each: the same probes, stay and jump exact, in float64 each
+    end within 1e-12 (relative), in float32 the same ends or else the
+    plain ESS at the first midpoint decided the other way within 1e-5 of
+    the target, the ends within 2e-3; two launches the same bits; its
+    times on the 1024 x 192 history;
  4. the four PRNG kernels against their plain versions on one key and call
     index (mutation draws at (8, 1024, 10), a ragged (8, 1000, 10) and the
     largest fused shape (8, 6553, 10); normal and bits at 2^20 and at B's
@@ -50,6 +61,16 @@ lines and a failure exits non-zero:
     its call and device times at d = 10, 50 and 100 (one matrix) beside
     torch.linalg.eigvalsh's, and its bound (4/3 d^3 flops and the matrix
     read once) over the card and over one SM;
+ 4c. the weighted-median kernel (csrc/weighted_median.cu, which replaces
+    torch.cumsum, argmax and gather, not a Pallas kernel): first that
+    torch.cumsum along the points adds serially in float32 on this card
+    (against numpy); then the kernel against its plain version bit for bit
+    at A's (16, 4096, 10), B's (1, 524,288, 10) and rosenbrock100's
+    (1, 8192, 100) (K, n, d) and ragged shapes with all-zero rows, in
+    float32 and float64; its call and device times at the three shapes in
+    turns with the plain version and the library call (torch.cumsum and
+    argmax of the gathered weights), beside its chain bound (the longest
+    column's adds at 4 cycles) and its byte bound;
  5. the canonical problem unclustered (paired 10-D Rosenbrock, U(-10, 10)
     prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42,
     with `run(on_device=True)`: its loops replayed as CUDA graphs;
@@ -105,10 +126,12 @@ lines and a failure exits non-zero:
     10-D Rosenbrock, n_particles=1024, n_total=8192, history_capacity=192,
     unclustered, volume_variation=1.0), seed 42, on the fused route with
     run(on_device=False) and with run(on_device=True) on a sampler whose
-    seed-43 run captured the graphs of its ESS bracket and CV bisection:
-    bit for bit, logZ inside the anchor taken from the JAX package, no
-    ESS-kernel launch; walls, probes and loop reads per reweight; then
-    iterations 21-23 in each mode under the profiler, held to 6b's rule;
+    seed-43 run captured the graphs of its CV bisection and MCMC steps:
+    bit for bit, logZ inside the anchor taken from the JAX package, one
+    launch of the ESS kernel's bracket mode a reweight (no "ess_bracket"
+    loop body on the card), no ESS-mode launch; walls, probes and loop
+    reads per reweight; then iterations 21-23 in each mode under the
+    profiler, held to 6b's rule;
 13. the refit cadence, C with cluster_every=3, and a host likelihood: the
     10-D Gaussian as a numpy per-point function with host_likelihood=True;
 14. float64: A at dtype=torch.float64 with hardware_prng=True, seed 42, with
@@ -157,7 +180,9 @@ lines and a failure exits non-zero:
     and the top five other kernels.
 
 Every path phase sets the kernels' launch counts to 0 just before it
-drives the path and reads them just after. A kernel's `launches` in the
+drives the path and reads them just after. Each run of A (phases 5, 6,
+6b's reference, 14) and each B iteration launches the weighted-median
+kernel once a mode fit (fits counted by wrapping modes.py's). A kernel's `launches` in the
 table is its count on one path (`launches_on`), and must be above 0; the
 bits kernel is on no Sampler path (its one caller there, hw_gamma, is the
 gamma kernel now), so its `launches` is B's 0, every path must count 0 for
@@ -231,6 +256,11 @@ try:  # the eigenvalue kernel; absent from a package older than it (--package-ro
     from tempest_tpu_torch.ops import cuda_linalg  # noqa: E402
 except ImportError:
     cuda_linalg = None
+try:  # the weighted-median kernel and the ESS bracket mode; likewise
+    from tempest_tpu_torch.ops import cuda_median  # noqa: E402
+except ImportError:
+    cuda_median = None
+from tempest_tpu_torch import modes as modes_module  # noqa: E402
 from tempest_tpu_torch.ops.tools import ess_from_logw  # noqa: E402
 from tempest_tpu_torch.parallel import make_particle_mesh  # noqa: E402
 from tempest_tpu_torch.parallel.collective import (  # noqa: E402
@@ -397,14 +427,39 @@ def reset_counts() -> None:
     cuda_reweight.LAUNCHES_F64 = 0
     if cuda_linalg is not None:
         cuda_linalg.LAUNCHES = 0
+    if cuda_median is not None:
+        cuda_median.LAUNCHES = 0
+        cuda_reweight.BRACKET_LAUNCHES = 0
     for name in cuda_prng.LAUNCHES:
         cuda_prng.LAUNCHES[name] = 0
 
 
 def counts() -> dict:
     eig = {} if cuda_linalg is None else {"sym_eigvals": cuda_linalg.LAUNCHES}
+    median = {} if cuda_median is None else {"weighted_median": cuda_median.LAUNCHES,
+                                             "ess_bracket": cuda_reweight.BRACKET_LAUNCHES}
     return {"ess_bisect": cuda_reweight.LAUNCHES, "ess_bisect_f64": cuda_reweight.LAUNCHES_F64,
-            **eig, **cuda_prng.LAUNCHES}
+            **eig, **median, **cuda_prng.LAUNCHES}
+
+
+# Weighted Student-t fits (`student.fit_mvstud_weighted_modes`, each of K
+# weightings at once) run by the Sampler paths in this process: each starts
+# from one weighted-median launch.
+MODE_FITS = 0
+
+
+def _count_mode_fits() -> None:
+    """Wrap the mode fit the Sampler paths call (modes.py) with MODE_FITS."""
+    fit = modes_module.fit_mvstud_weighted_modes
+
+    def counted(*args, **kwargs):
+        global MODE_FITS
+        MODE_FITS += 1
+        return fit(*args, **kwargs)
+
+    modes_module.fit_mvstud_weighted_modes = counted
+
+
 
 
 def diff(after: dict, before: dict) -> dict:
@@ -441,22 +496,25 @@ def _self_device_us(event) -> float:
 
 def device_ms(fn, kernel=None, calls: int = 20) -> float:
     """Device time per call of fn, from torch.profiler's device records (no
-    host overhead): the kernels whose name contains `kernel`, or every
-    device record of the call when `kernel` is None (a library call)."""
+    host overhead): the kernels whose name contains `kernel`, each call
+    launching one at least, or every device record of the call when
+    `kernel` is None (a library call)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then records no device activity
+    for _ in range(3):  # the profiler now and then records no or not all device activity
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = sum(_self_device_us(e) for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key))
-        if us > 0.0:
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key)]
+        us = sum(_self_device_us(e) for e in rows)
+        if us > 0.0 and (kernel is None or sum(e.count for e in rows) >= calls):
             return us / 1e3 / calls
-    fail(f"no device time recorded for {kernel or 'the library call'} in 3 profiles")
+    fail(f"no device time recorded for each of {calls} calls of {kernel or 'the library call'} "
+         "in 3 profiles")
 
 
 class _TimedFn:
@@ -684,7 +742,8 @@ def phase_build() -> dict:
                               "-o", cubin, src], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                              text=True)
     libs = (cuda_reweight.LIBRARY, cuda_prng.LIBRARY) + (
-        () if cuda_linalg is None else (cuda_linalg.LIBRARY,))
+        () if cuda_linalg is None else (cuda_linalg.LIBRARY,)) + (
+        () if cuda_median is None else (cuda_median.LIBRARY,))
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     ptxas = []
     for i, lib in enumerate(libs):  # the same compiles as the libraries', to cubins, verbose
@@ -1430,6 +1489,246 @@ def phase_eig_kernel(device) -> dict:
     return dict(shapes[EIG_TIMED[-1]], max_abs_err=max_err, shapes=shapes)
 
 
+# ---------------------------------------------------------------------------
+# Phase 4c: the weighted-median kernel (no Pallas counterpart: XLA's cumsum)
+# ---------------------------------------------------------------------------
+# (K, n, d) of the mode fits on the paths: A's clustered fit, B's
+# fit_global_mode (n = train_max_points = 4 N), rosenbrock100's.
+MEDIAN_SHAPES = {"A": (16, 4096, 10), "B": (1, 524288, 10), "rosenbrock100": (1, 8192, 100)}
+# Further shapes checked: ragged tiles, one point, rows all zero.
+MEDIAN_EXTRA = ((3, 257, 4, (1,)), (5, 4097, 3, (0, 4)), (2, 1, 1, ()), (4, 10000, 7, (0, 1, 2, 3)))
+# The latency of a dependent add (cycles), for the chain's bound: FADD about
+# 4 on Hopper; DADD taken as 8 (estimated).
+ADD_LATENCY = {torch.float32: 4, torch.float64: 8}
+
+
+def median_inputs(device, K, n, d, dtype, seed, zero_rows=()):
+    """(d_sorted, order, wbar) as a fit makes them: the stable column sort of
+    the points (sort_columns), exponential weights with a tenth of them
+    zero, each row normalized; the rows in `zero_rows` all zero."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, d, generator=g, dtype=torch.float64)
+    w = torch.empty(K, n, dtype=torch.float64).exponential_(generator=g)
+    w[torch.rand(K, n, generator=g) < 0.1] = 0.0
+    for k in zero_rows:
+        w[k] = 0.0
+    x, w = x.to(device=device, dtype=dtype), w.to(device=device, dtype=dtype)
+    total = w.sum(dim=1, keepdim=True)
+    wbar = w / torch.where(total > 0, total, torch.ones_like(total))
+    order = torch.argsort(x, dim=0, stable=True).contiguous()
+    return torch.gather(x, 0, order).contiguous(), order, wbar
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def cumsum_accumulation(device) -> dict:
+    """How torch.cumsum along the points (dim -2 of (K, n, d)) adds on this
+    card, the plain version's scan: each column against numpy's serial
+    float32 sum and its float64-accumulated sum rounded to float32."""
+    out = {}
+    for label in ("A", "B"):
+        K, n, d = MEDIAN_SHAPES[label]
+        g = torch.Generator().manual_seed(11)
+        x = torch.rand((K, n, d), generator=g) * (2.0 / n)
+        card = torch.cumsum(x.to(device), dim=-2).cpu().numpy()
+        xn = x.numpy()
+        serial = np.cumsum(xn, axis=1, dtype=np.float32)
+        wide = np.cumsum(xn.astype(np.float64), axis=1).astype(np.float32)
+        out[label] = {"unequal_to_float32_serial": int((card != serial).sum()),
+                      "unequal_to_float64_accumulated": int((card != wide).sum())}
+    print(f"torch.cumsum(dim=-2) on the card, float32, entries unequal to numpy's serial float32 "
+          f"sum / its float64-accumulated sum: {json.dumps(out)}", flush=True)
+    check(all(v["unequal_to_float32_serial"] == 0 for v in out.values()),
+          f"torch.cumsum on the card is not the serial float32 sum: {out}")
+    return out
+
+
+def median_bound(K, n, d, dtype, crossings) -> dict:
+    """The least time of the median at these inputs: the bytes (order read
+    once, the K n d gathered weights, the K d medians read and written) at
+    3.35 TB/s, and the chain: the longest column's adds up to its crossing
+    (all n for a column that does not cross), each waiting for the last,
+    at one dependent add per ADD_LATENCY cycles of the boost clock."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    n_bytes = 8 * n * d + size * (K * n * d + 2 * K * d)
+    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    chain_ms = 1e3 * crossings * ADD_LATENCY[dtype] / (SM_CLOCKS_PER_S / N_SMS)
+    return {"bytes_bound_ms": bytes_ms, "chain_bound_ms": chain_ms,
+            "bound_ms": max(bytes_ms, chain_ms),
+            "bound_by": "operations" if chain_ms >= bytes_ms else "bytes"}
+
+
+def phase_median_kernel(device) -> dict:
+    """tempest_weighted_median (_f64) against its plain version, bit for bit,
+    at MEDIAN_SHAPES and MEDIAN_EXTRA in float32 and float64, two launches
+    the same bits; at MEDIAN_SHAPES in float32, its call and device time in
+    turns with the plain version and the library call (torch.cumsum and
+    argmax of the gathered weights, the gather done before), beside its
+    bounds."""
+    accumulation = cumsum_accumulation(device)
+    cases = [(label, *shape, ()) for label, shape in MEDIAN_SHAPES.items()] + [
+        ("extra", *shape) for shape in MEDIAN_EXTRA]
+    for dtype in (torch.float32, torch.float64):
+        for label, K, n, d, zero_rows in cases:
+            ds, order, wbar = median_inputs(device, K, n, d, dtype, seed=n + d,
+                                            zero_rows=zero_rows)
+            got = cuda_median.weighted_median_presorted(ds, order, wbar)
+            again = cuda_median.weighted_median_presorted(ds, order, wbar)
+            want = cuda_median.weighted_median_presorted_reference(ds, order, wbar)
+            torch.cuda.synchronize()
+            check(torch.equal(_bits(got), _bits(want)) and torch.equal(_bits(got), _bits(again)),
+                  f"weighted_median {label} {(K, n, d)} {dtype}: the kernel's medians are not the "
+                  "plain version's bits")
+            check(all(torch.equal(got[k], ds[0]) for k in zero_rows),
+                  f"weighted_median {(K, n, d)}: an all-zero row is not d_sorted[0]")
+    print("weighted_median: the kernel equals its plain version bit for bit (max|dmu| = 0) at "
+          f"{[c[1:4] for c in cases]} in float32 and float64 (rows all zero: d_sorted[0]); two "
+          "launches the same bits", flush=True)
+    shapes = {}
+    thr = torch.tensor(cuda_median.THRESHOLD, dtype=torch.float32).item()
+    for label, (K, n, d) in MEDIAN_SHAPES.items():
+        ds, order, wbar = median_inputs(device, K, n, d, torch.float32, seed=n + d)
+        gathered = wbar[..., order]
+        crossed = torch.cumsum(gathered, dim=-2) >= thr
+        # The adds a column runs: up to its crossing, or all n where none.
+        adds = torch.where(crossed.any(dim=-2), torch.argmax(crossed.to(torch.int8), dim=-2) + 1,
+                           torch.full_like(crossed[..., 0, :], n, dtype=torch.int64))
+        longest = int(adds.max())
+        kernel = lambda: cuda_median.weighted_median_presorted(ds, order, wbar)  # noqa: E731
+        t = timed_in_turns({
+            "kernel": kernel,
+            "plain": lambda: cuda_median.weighted_median_presorted_reference(ds, order, wbar),
+            "library": lambda: torch.argmax(
+                (torch.cumsum(gathered, dim=-2) >= thr).to(torch.int8), dim=-2)},
+            calls=TIMED_CALLS if n <= 8192 else 5)
+        dev = []
+        for _ in range(2):  # in turns with the library call's device time
+            dev.append(device_ms(kernel, "weighted_median", calls=10))
+            lib = device_ms(lambda: torch.cumsum(gathered, dim=-2), calls=3)
+        b = median_bound(K, n, d, torch.float32, longest)
+        shapes[label] = dict(K=K, n=n, d=d, longest_chain=longest, ms=t["kernel"],
+                             device_ms=min(dev), device_ms_turns=dev, plain_ms=t["plain"],
+                             library_ms=t["library"], library_device_ms=lib, **b)
+        print(f"weighted_median timing {label} (K, n, d) = {(K, n, d)}, longest chain {longest} "
+              f"adds: kernel call {t['kernel']:.4f} ms device {dev[0]:.4f} / {dev[1]:.4f} ms; "
+              f"plain {t['plain']:.4f} ms; library (torch.cumsum + argmax) call "
+              f"{t['library']:.4f} ms, its cumsum's device time {lib:.4f} ms; bound "
+              f"{b['bound_ms']:.5f} ms ({b['bound_by']}: chain {b['chain_bound_ms']:.5f}, bytes "
+              f"{b['bytes_bound_ms']:.5f}) (calls: medians of synchronized calls in turns)",
+              flush=True)
+    # The row: B's fit, the path the kernel was written for.
+    return dict(shapes["B"], max_abs_err=0.0, shapes=shapes, cumsum_accumulation=accumulation)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: the ESS kernel's bracket mode (dynamic mode's ESS bracket)
+# ---------------------------------------------------------------------------
+# (label, n_particles, capacity, t_fill): dynamic mode's history as its
+# path has it, 1024 x 192 with most rows masked (Bm = inf), timed; 48 rows
+# filled, where the path fills up to 56, since at 48 this ladder's beta is
+# 0.71 and ESS(1) still lies below the targets of a bisection; the same
+# S = 196,608 all filled (both held on chip in both types); then streamed
+# sizes in both types.
+BRACKET_SHAPES = (("dynamic", 1024, 192, 48), ("dynamic full", 24576, 8, 8),
+                  ("streamed", 65536, 8, 8), ("B", 131072, 8, 8))
+BRACKET_TIMED = "dynamic"
+BRACKET_ESS_RTOL = 1e-5  # a decision that differs: the plain ESS this close to the target
+
+
+def check_bracket(what: str, logl, bm, scal, got, want) -> float:
+    """The bracket mode's ((lo, hi), probes) against the plain version's:
+    the same probes; stay and jump exact; in float64 each end within
+    BETA_F64_RTOL; in float32 the same ends, or else the plain ESS at the
+    first midpoint decided the other way within BETA_ESS_RTOL of the
+    target, and the ends always within BETA_TOL. Returns max|d end|."""
+    (bk, pk), (br, pr) = got, want
+    pk, pr = int(pk.item()), int(pr.item())
+    (lo_k, hi_k), (lo_r, hi_r) = bk.tolist(), br.tolist()
+    err = max(abs(lo_k - lo_r), abs(hi_k - hi_r))
+    msg = f"{what}: kernel ({lo_k!r}, {hi_k!r}) {pk} probes, plain ({lo_r!r}, {hi_r!r}) {pr}"
+    check(pk == pr, msg)
+    if pr == 2 or err == 0.0:
+        check(err == 0.0, msg)
+        return err
+    if bk.dtype == torch.float64:
+        check(abs(lo_k - lo_r) <= BETA_F64_RTOL * abs(lo_r)
+              and abs(hi_k - hi_r) <= BETA_F64_RTOL * abs(hi_r), msg)
+        return err
+    check(err < BETA_TOL, msg)
+    target = float(scal[1])
+    lo, hi = scal[0].cpu(), torch.ones((), dtype=bk.dtype)
+    for _ in range(pr - 2):
+        mid = 0.5 * (lo + hi)
+        up_k, up_r = lo_k >= float(mid), lo_r >= float(mid)
+        if up_k != up_r:
+            off = abs(ess_of(logl, bm, float(mid)) - target)
+            check(off <= BRACKET_ESS_RTOL * abs(target), f"{msg}; decided the other way at "
+                  f"{float(mid)!r}, whose plain ESS is {off:.3g} from the target")
+            return err
+        lo, hi = (mid, hi) if up_r else (lo, mid)
+    fail(f"{msg}: the brackets differ with no decision taken the other way")
+
+
+def phase_bracket_kernel(device) -> dict:
+    """tempest_ess_bracket (_f64) against its plain version, the
+    "ess_bracket" loop on the same CUDA tensors, at BRACKET_SHAPES in
+    float32 and float64 (stay, jump and three bisections each), two launches
+    the same bits; its times on dynamic mode's history in float32."""
+    plain = reweight_step.ess_bracket_loop
+    max_err, row = 0.0, None
+    for dtype in (torch.float32, torch.float64):
+        for label, n_particles, capacity, t_fill in BRACKET_SHAPES:
+            hist = synthetic_history(device, n_particles, capacity, t_fill, seed=capacity,
+                                     dtype=dtype)
+            _, logl, bm = kernel_inputs(hist)
+            S = logl.numel()
+            beta_prev = float(hist.beta[t_fill // 2])
+            ess_cur, ess_one = ess_of(logl, bm, beta_prev), ess_of(logl, bm, 1.0)
+            cases = [("stay", beta_prev, 1.5 * ess_cur), ("jump", beta_prev, 0.5 * ess_one),
+                     ("bisect", beta_prev, math.sqrt(ess_cur * ess_one)),
+                     ("bisect", 0.0, 2.0 * n_particles), ("bisect", beta_prev, 0.9 * ess_cur)]
+            for kind, bp, target in cases:
+                scal = torch.tensor([bp, target], dtype=dtype, device=device)
+                got = cuda_reweight.ess_bracket(logl, bm, scal)
+                again = cuda_reweight.ess_bracket(logl, bm, scal)
+                want = plain(logl, bm, scal)
+                torch.cuda.synchronize()
+                check(torch.equal(_bits(got[0]), _bits(again[0])),
+                      f"ess_bracket S={S} {kind}: two launches differ")
+                check((int(want[1].item()) > 2) == (kind == "bisect"),
+                      f"ess_bracket S={S} {kind}: the plain version took {int(want[1].item())} "
+                      "probes")
+                err = check_bracket(f"ess_bracket {str(dtype)[6:]} S={S} {kind}", logl, bm, scal,
+                                    got, want)
+                if dtype == torch.float32:
+                    max_err = max(max_err, err)
+                print(f"ess bracket {str(dtype)[6:]} S={S} [{_route(S, dtype)}] {kind}: "
+                      f"beta_prev={bp:.6g} target={target:.6g} kernel={got[0].tolist()} "
+                      f"({int(got[1].item())} probes) plain={want[0].tolist()} "
+                      f"({int(want[1].item())} probes)", flush=True)
+            if label != BRACKET_TIMED or dtype != torch.float32:
+                continue
+            scal = torch.tensor([beta_prev, math.sqrt(ess_cur * ess_one)], device=device)
+            probes = int(plain(logl, bm, scal)[1].item())
+            kernel = lambda: cuda_reweight.ess_bracket(logl, bm, scal)  # noqa: E731
+            t = timed_in_turns({"kernel": kernel})
+            t.update(timed_in_turns({"plain": lambda: plain(logl, bm, scal)}, calls=10))
+            dev = device_ms(kernel, "ess_bracket_kernel")
+            # logl and Bm read once, scal read, (lo, hi) and the probe count written.
+            b_ms, b_by = bound(8 * S + 20, *work((S * probes, ESS_SAMPLE_PROBE["f32"])))
+            row = dict(S=S, filled=f"{t_fill} of {capacity} rows", probes=probes,
+                       launch_plan=_route(S), ms=t["kernel"], device_ms=dev,
+                       plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            print(f"ess bracket timing S={S} ({label}, {probes} probes, {_route(S)}): kernel call "
+                  f"{t['kernel']:.4f} ms device {dev:.4f} ms; plain {t['plain']:.4f} ms; bound "
+                  f"{b_ms:.5f} ms ({b_by})", flush=True)
+    check(row is not None, f"no bracket timing on the {BRACKET_TIMED!r} history")
+    row["max_abs_err"] = max_err
+    return row
+
+
 def phase_call_split(device) -> dict:
     """One synchronized call of each kernel split into its parts."""
     key = philox.key_from_seed(2024)
@@ -1526,14 +1825,14 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
     walls, effs = [], []
     for seed in seeds:
         s.reset(random_state=seed)
-        before = counts()
+        before, fits = counts(), MODE_FITS
         bodies = mcmc_bodies(s)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s.run(n_total=N_TOTAL, progress=False, on_device=on_device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launched = diff(counts(), before)
+        launched, fits = diff(counts(), before), MODE_FITS - fits
         bodies = mcmc_bodies(s) - bodies
         if runs is not None:
             runs[seed] = dict(results=s.results(), logz=s.evidence()[0], wall=wall,
@@ -1548,7 +1847,11 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
         effs.append(ess / wall)
         print(f"{name} seed {seed}: wall={wall:.3f} s ess={ess:.1f} eff/s={ess / wall:.1f} "
               f"iters={iters} clusters={k} logz={logz:.4f} beta={s.beta:.6f} calls={s.calls} "
-              f"mcmc_steps={steps} mcmc_bodies={bodies} launches={launched}", flush=True)
+              f"mcmc_steps={steps} mcmc_bodies={bodies} mode_fits={fits} launches={launched}",
+              flush=True)
+        check(cuda_median is None or launched["weighted_median"] == fits > 0,
+              f"{name} seed {seed}: {launched.get('weighted_median')} weighted-median launches "
+              f"for {fits} mode fits")
         check(s.beta >= 1.0 - 1e-4, f"{name} seed {seed}: beta {s.beta} < 1 - 1e-4")
         check(ess >= N_TOTAL, f"{name} seed {seed}: posterior ESS {ess} < {N_TOTAL}")
         check(abs(logz - logz_band[0]) <= logz_band[1],
@@ -1666,7 +1969,8 @@ def steady_window(s, graphs: bool, first: int = 21, n: int = 5,
                chunk_reads_per_iter=chunk_reads / n, reads=reads, eigh_ops=eigh,
                stages_ms=stages, kernels={
                    k: v for i, (k, v) in enumerate(sorted(kernels.items(), key=lambda kv: -kv[1][0]))
-                   if i < TOP_KERNELS or "sym_eigvals" in k or "ess_bisect" in k})
+                   if i < TOP_KERNELS or any(p in k for p in ("sym_eigvals", "ess_bisect",
+                                                              "ess_bracket"))})
     if device_only:
         device_only_ms = sum(_self_device_us(e) for e in prof_device.key_averages()
                              if e.device_type == DeviceType.CUDA) / 1e3
@@ -1839,19 +2143,20 @@ def run_b(device, dtype, name: str, graphs: bool = False, s=None):
         while mutations < B_MUTATIONS:
             check(len(rows) < B_CAPACITY, f"{name}: {len(rows)} iterations and only {mutations} "
                   "mutations")
-            before, bodies = counts(), mcmc_bodies(s)
+            before, bodies, fits = counts(), mcmc_bodies(s), MODE_FITS
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = s.sample()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launched, bodies = diff(counts(), before), mcmc_bodies(s) - bodies
+            fits = MODE_FITS - fits
             print(f"{name} iteration {out['iter']}: {wall:.3f} s beta={out['beta']:.6g} "
                   f"steps={out['steps']} bodies={bodies} acceptance={out['acceptance']:.4f} "
-                  f"launches={launched}", flush=True)
+                  f"mode_fits={fits} launches={launched}", flush=True)
             rows.append(dict(iter=int(out["iter"]), wall=wall, beta=out["beta"], logz=out["logz"],
                              steps=int(out["steps"]), bodies=bodies,
-                             acceptance=out["acceptance"], launches=launched,
+                             acceptance=out["acceptance"], launches=launched, fits=fits,
                              counter=getattr(s.state.draws, "counter", None)))
             mutations += out["beta"] > 0.0
     finally:
@@ -1889,11 +2194,16 @@ def profile_b(s, n_before: int) -> None:
     stages = sorted(((e.key, e.cpu_time_total / 1e3) for e in events if e.key.startswith("ps/")),
                     key=lambda kv: -kv[1])
     top = sorted(dev, key=lambda kv: -kv[1])[:6]
+    median_ms = sum(ms for k, ms in dev if "weighted_median" in k)
+    scan_ms = sum(ms for k, ms in dev if "scan_outer_dim" in k)
     print(f"B graphed iteration {out['iter']} under the profiler: {1e3 * wall:.1f} ms, device "
           f"{device_ms:.1f} ms (idle {100 * (1 - device_ms / (1e3 * wall)):.1f} %); stages "
           f"{', '.join(f'{k} {v:.1f} ms' for k, v in stages)}; host self time "
           f"{', '.join(f'{k} {v:.1f} ms' for k, v in host)}; device "
-          f"{', '.join(f'{k[:60]} {v:.2f} ms' for k, v in top)}", flush=True)
+          f"{', '.join(f'{k[:60]} {v:.2f} ms' for k, v in top)}; weighted_median kernel "
+          f"{median_ms:.4f} ms, torch.cumsum's outer-dimension scan {scan_ms:.4f} ms", flush=True)
+    return {"wall_ms": 1e3 * wall, "device_ms": device_ms, "weighted_median_ms": median_ms,
+            "scan_outer_dim_ms": scan_ms}
 
 
 def phase_large_ensemble(device, dtype=torch.float32) -> dict:
@@ -1905,19 +2215,20 @@ def phase_large_ensemble(device, dtype=torch.float32) -> dict:
     f64 = dtype == torch.float64
     name = "B float64" if f64 else "B"
     s, rows = run_b(device, dtype, name)
+    total = counts()  # the eager run's: run_b set the counts to 0 before it
     graphed = None
     if not f64:
         g, _ = run_b(device, dtype, "B graphed (capturing)", graphs=True)
         g, graphed = run_b(device, dtype, "B graphed", graphs=True, s=g)
         for a, b in zip(rows, graphed):
             for k in ("iter", "beta", "logz", "steps", "bodies", "acceptance", "launches",
-                      "counter"):
+                      "fits", "counter"):
                 check(a[k] == b[k], f"B graphed iteration {a['iter']}: {k} {b[k]!r} against "
                       f"eager {a[k]!r}")
         check(len(rows) == len(graphed), f"B graphed: {len(graphed)} iterations, {len(rows)} eager")
         check(g.state.draws.calls.read() == (g.state.draws.counter, g.state.draws.key),
               "B graphed: the call counter's device words and host mirror differ")
-        profile_b(g, len(graphed) - 1)
+        profiled = profile_b(g, len(graphed) - 1)
         mut = [(a["wall"], b["wall"]) for a, b in zip(rows, graphed) if a["beta"] > 0.0]
         print(f"B seconds a mutation iteration, eager / graphed: "
               f"{', '.join(f'{a:.4f} / {b:.4f}' for a, b in mut)}; mean "
@@ -1937,10 +2248,12 @@ def phase_large_ensemble(device, dtype=torch.float32) -> dict:
                   and launched["mutation_draws"] == 0,
                   f"B: launches {launched} for {bodies} MCMC step bodies (want 1 normal + 1 "
                   "gamma a body)")
+        check(cuda_median is None or row["launches"]["weighted_median"] == row["fits"],
+              f"{name} iteration {row['iter']}: {row['launches'].get('weighted_median')} "
+              f"weighted-median launches for {row['fits']} mode fits")
         check(row["acceptance"] > 0.1, f"{name}: acceptance {row['acceptance']}")
         check(not betas or row["beta"] > betas[-1], f"{name}: beta did not rise: {betas}")
         betas.append(row["beta"])
-    total = counts()
     errs = {}
 
     if not f64:
@@ -1979,7 +2292,7 @@ def phase_large_ensemble(device, dtype=torch.float32) -> dict:
     }, calls=10)
     print(f"{name}: ESS kernel at S={S} (t={hist.t}, {probes} probes): kernel {t['kernel']:.4f} ms, "
           f"plain {t['plain']:.4f} ms (median of 10); launches {total}", flush=True)
-    return total, errs, dict(eager=rows, graphed=graphed)
+    return total, errs, dict(eager=rows, graphed=graphed, profiled=None if f64 else profiled)
 
 
 def phase_bimodal(device) -> dict:
@@ -2176,7 +2489,8 @@ def phase_dynamic(device) -> dict:
     """12: dynamic (CV) mode on rosenbrock10_cv, seed 42, with
     run(on_device=False) and then run(on_device=True) on a sampler whose
     seed-43 run captured the graphs: bit for bit, logZ in the anchor, no
-    ESS-kernel launch, the eigenvalue kernel's launches equal; walls,
+    ESS-mode launch, one bracket-mode launch a reweight and no
+    "ess_bracket" loop body, the eigenvalue kernel's launches equal; walls,
     probes and reads per reweight; then iterations 21-23 in each mode
     under the profiler, held to at most one blocking read a loop chunk
     plus READS_BESIDE_CHUNKS an iteration."""
@@ -2205,7 +2519,7 @@ def phase_dynamic(device) -> dict:
         iters = s.state.hist.t
         n = max(probes["reweights"], 1)
         reads = {k: v.get("reads", 0) / n for k, v in timed.items() if k in (
-            "ess_bracket", "cv_bisect")}
+            "ess_bracket", "cv_bisect")}  # the bracket: one read of the kernel's words
         print(f"{name}: wall={wall:.3f} s ({1e3 * wall / iters:.1f} ms an iteration) "
               f"eff/s={ess / wall:.1f}; {iters} iterations, {probes['reweights']} dynamic "
               f"reweights, {probes['ess_bracket'] / n:.2f} ESS-bracket and {probes['cv'] / n:.2f} "
@@ -2213,7 +2527,12 @@ def phase_dynamic(device) -> dict:
               flush=True)
         check(probes["reweights"] == iters - 1,
               f"dynamic: {probes['reweights']} dynamic reweights for {iters - 1}")
-        check(launched["ess_bisect"] == 0, "dynamic: the ESS kernel ran in dynamic mode")
+        check(launched["ess_bisect"] == 0, "dynamic: the ESS-mode kernel ran in dynamic mode")
+        check(cuda_median is None or launched["ess_bracket"] == probes["reweights"],
+              f"dynamic: {launched.get('ess_bracket')} bracket launches for "
+              f"{probes['reweights']} dynamic reweights")
+        check(cuda_median is None or timed.get("ess_bracket", {}).get("bodies", 0) == 0,
+              f"dynamic: the 'ess_bracket' loop ran bodies on the card: {timed.get('ess_bracket')}")
         check(launched["sym_eigvals"] >= probes["cv"] + iters - 1,
               f"dynamic: {launched['sym_eigvals']} eigenvalue launches for {probes['cv']} CV "
               f"probes and {iters - 1} final CVs")
@@ -2229,7 +2548,7 @@ def phase_dynamic(device) -> dict:
           f"dynamic: logZ {fused['logz']!r} / {eager['logz']!r}, launches "
           f"{fused['launches']} / {eager['launches']}, probes {fused['probes']} / "
           f"{eager['probes']}")
-    check(fused["loops"]["ess_bracket"].get("replays", 0) > 0
+    check(fused["loops"]["mcmc"].get("replays", 0) > 0
           and all(v.get("captures", 0) == 0 for v in fused["loops"].values()),
           f"dynamic on_device=True: replays and captures {fused['loops']}")
     windows = steady_windows(fused["sampler"], "dynamic", n=3, device_only=False)
@@ -2715,13 +3034,22 @@ def phase_profile(device, out_dir: str) -> None:
 
 SOURCES = {"ess_bisect": "tempest_tpu_torch/csrc/ess_bisect.cu",
            "ess_bisect_f64": "tempest_tpu_torch/csrc/ess_bisect.cu",
-           "sym_eigvals": "tempest_tpu_torch/csrc/sym_eigvals.cu"}
-KERNELS = ("ess_bisect", "ess_bisect_f64", "mutation_draws", "normal", "bits", "gamma",
-           "sym_eigvals")
+           "ess_bracket": "tempest_tpu_torch/csrc/ess_bisect.cu",
+           "sym_eigvals": "tempest_tpu_torch/csrc/sym_eigvals.cu",
+           "weighted_median": "tempest_tpu_torch/csrc/weighted_median.cu"}
+KERNELS = ("ess_bisect", "ess_bisect_f64", "ess_bracket", "mutation_draws", "normal", "bits",
+           "gamma", "sym_eigvals", "weighted_median")
 # Kernels of the port that replace no Pallas kernel, and what they replace.
 NO_PALLAS = {
     "sym_eigvals": "XLA's jnp.linalg.eigvalsh of volume_variation_dtn (tools.py:214; also :274); "
                    "torch.linalg.eigvalsh reads the host, so the CV loop could not be captured",
+    "ess_bracket": "XLA's _find_ess_bracket (tempest_tpu/steps/reweight.py:73-119), dynamic "
+                   "mode's ESS bracket: the bracket mode of the ported Pallas ESS kernel "
+                   "(pallas_reweight.py:55), whose plain version is a device loop of about ten "
+                   "small kernels a probe",
+    "weighted_median": "XLA's cumsum, argmax and gather of _weighted_median_presorted "
+                       "(tempest_tpu/student.py:220-231); CUDA's torch.cumsum scans each column "
+                       "in one thread that waits for every gathered load",
 }
 REPLACES = {
     "ess_bisect": "tempest_tpu/ops/pallas_reweight.py:55",
@@ -2734,6 +3062,8 @@ REPLACES = {
     # hw_gamma reaches pallas_call (:126) through 13 normal and bits calls.
     "gamma": "tempest_tpu/ops/pallas_prng.py:275",
     "sym_eigvals": "tempest_tpu/ops/tools.py:214",
+    "ess_bracket": "tempest_tpu/steps/reweight.py:73",
+    "weighted_median": "tempest_tpu/student.py:220",
 }
 # Where each kernel's `launches` were counted.
 LAUNCHES_ON = {
@@ -2742,12 +3072,19 @@ LAUNCHES_ON = {
     "ess_bisect_f64": "A in float64 (phase 14)",
     "mutation_draws": "A with hardware_prng (phase 7, on_device=False; its on_device=True run "
                       "launches it as often, by graph replays)",
-    "normal": "B (phase 8, eagerly; its graphed pass launches it as often, by replays)",
-    "bits": "B (phase 8)",
-    "gamma": "B (phase 8, eagerly; its graphed pass launches it as often, by replays)",
+    "normal": "B (phase 8, its eager run, the counts set to 0 just before it; its graphed run "
+              "launches it as often, by replays)",
+    "bits": "B (phase 8, its eager run)",
+    "gamma": "B (phase 8, its eager run, the counts set to 0 just before it; its graphed run "
+             "launches it as often, by replays)",
     "sym_eigvals": "rosenbrock100 (phase 16, seed 42: the CV of each reweight at d = 100); "
                    "A (phase 6) launches it once a reweight at d = 10, dynamic mode (phase 12) "
                    "for every CV probe as well",
+    "ess_bracket": "dynamic mode (phase 12, seed 42, on_device=False: one a reweight; its "
+                   "on_device=True run launches it as often)",
+    "weighted_median": "B (phase 8, its eager run, the counts set to 0 just before it: one a "
+                       "mode fit, fit_global_mode at n = 524,288; its graphed run launches it as "
+                       "often); A (phase 6) once a clustered fit",
 }
 # Kernels that no Sampler path launches, and why: each must count 0 on every
 # path, and phase 4 still holds it against its plain version.
@@ -2774,9 +3111,11 @@ def kernel_table(rows: dict, launches: dict, floor: dict, split: dict, paths=Non
             **({"off_path": OFF_PATH[name]} if name in OFF_PATH else {}),
             **({"no_pallas_counterpart": NO_PALLAS[name]} if name in NO_PALLAS else {}),
             **{k: row[k] for k in ("device_ms", "library_device_ms", "gamma_flips", "rounds",
-                                   "bound_sm_ms", "bound_sm_by",
+                                   "bound_sm_ms", "bound_sm_by", "chain_bound_ms",
+                                   "bytes_bound_ms", "longest_chain", "device_ms_turns",
+                                   "cumsum_accumulation", "S", "filled", "probes", "launch_plan",
                                    "gamma_bits_unequal", "hw_uniform_launches", "shapes",
-                                   "routes", "on_rosenbrock100") if k in row},
+                                   "routes", "on_rosenbrock100", "on_path") if k in row},
             "launch_floor_ms": floor["device_ms"], "call_split": split.get(name),
             **({"call_split_counter": split[f"{name}_counter"]}
                if f"{name}_counter" in split else {}),
@@ -2841,6 +3180,7 @@ def main() -> None:
     kind = phase_device()
     print(f"package: {os.path.dirname(os.path.dirname(os.path.abspath(cuda_reweight.__file__)))}",
           flush=True)
+    _count_mode_fits()
     ptxas = phase_build()
     if args.a_only:
         runs = {}
@@ -2849,11 +3189,17 @@ def main() -> None:
         return
     stamp("phase 3: the ESS kernel")
     rows = {"ess_bisect": phase_ess_kernel(device), "ess_bisect_f64": phase_ess_kernel_f64(device)}
+    if cuda_median is not None:
+        stamp("phase 3b: the ESS kernel's bracket mode")
+        rows["ess_bracket"] = phase_bracket_kernel(device)
     stamp("phase 4: the PRNG kernels")
     rows.update(phase_prng_kernels(device))
     stamp("phase 4b: the eigenvalue kernel")
     if cuda_linalg is not None:
         rows["sym_eigvals"] = phase_eig_kernel(device)
+    if cuda_median is not None:
+        stamp("phase 4c: the weighted-median kernel")
+        rows["weighted_median"] = phase_median_kernel(device)
     floor = launch_floor(device)
     split = phase_call_split(device)
     if args.kernels_only:
@@ -2882,6 +3228,8 @@ def main() -> None:
     paths["B"], large_errs, b_rows = phase_large_ensemble(device)
     for name, err in large_errs.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    if "weighted_median" in rows:
+        rows["weighted_median"]["on_path"] = {"B graphed iteration": b_rows["profiled"]}
     stamp("phases 9-10: C, the Gaussian")
     paths["C"] = phase_bimodal(device)
     paths["gaussian"] = phase_gaussian(device)
@@ -2891,6 +3239,13 @@ def main() -> None:
     stamp("phase 12: dynamic mode")
     dynamic = phase_dynamic(device)
     paths["dynamic"] = dynamic["launches"]
+    if "ess_bracket" in rows:
+        graphed = dynamic["windows"]["on_device=True"]
+        on_path = _kernel_ms(graphed, "ess_bracket_kernel")
+        check(on_path[1] > 0, f"dynamic graphed window: no bracket kernel recorded {on_path}")
+        rows["ess_bracket"]["on_path"] = {
+            "dynamic graphed window, device ms and launches an iteration": on_path,
+            "ps/reweight host ms an iteration": graphed["stages_ms"].get("ps/reweight")}
     stamp("phase 13: cadence and a host likelihood")
     for name, n in phase_cadence_and_host(device).items():
         paths[name] = n
@@ -2918,9 +3273,11 @@ def main() -> None:
 
     launches = {"ess_bisect": paths["A"]["ess_bisect"],
                 "ess_bisect_f64": paths["A_float64"]["ess_bisect_f64"],
+                "ess_bracket": paths["dynamic"]["ess_bracket"],
                 "mutation_draws": paths["A_hardware_prng"]["mutation_draws"],
                 "normal": paths["B"]["normal"], "bits": paths["B"]["bits"],
-                "gamma": paths["B"]["gamma"], "sym_eigvals": paths["rosenbrock100"]["sym_eigvals"]}
+                "gamma": paths["B"]["gamma"], "sym_eigvals": paths["rosenbrock100"]["sym_eigvals"],
+                "weighted_median": paths["B"]["weighted_median"]}
     for name, n in launches.items():
         if name in OFF_PATH:
             on = {p: c[name] for p, c in paths.items() if c[name]}

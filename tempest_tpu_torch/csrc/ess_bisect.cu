@@ -75,6 +75,24 @@
 // doubles through the shuffles and the distributed shared memory, combined
 // in the same fixed order, so beta stays deterministic.
 //
+// The bracket mode (ess_bracket_kernel, the shared body with kBracket; C
+// entries tempest_ess_bracket and tempest_ess_bracket_f64) runs dynamic mode's ESS bracket search, XLA's
+// `_find_ess_bracket` (tempest_tpu/steps/reweight.py:73-119; the port's
+// plain version is the "ess_bracket" device loop of steps/reweight.py), in
+// the same launch shape: the same passes, partials and decisions through
+// distributed shared memory. Only the stop rule and the output differ. Stay
+// (lo = hi = beta_prev) when ESS(beta_prev) <= target; jump (lo = hi = 1)
+// when ESS(beta_prev) > target and ESS(1) >= target; else bisect [beta_prev,
+// 1], an ESS at or above the target moving lo up to the midpoint and
+// anything else bringing hi down, while hi - lo is above the interval
+// tolerance (with finfo's tiny, as steps/reweight.py has it) and fewer than
+// 200 probes ran; no ESS-tolerance stop. It writes (lo, hi) and the probe
+// count (2 + the bisection's probes) to device words, and reads beta_prev
+// and the target from device words, so a CUDA graph can hold the launch. It
+// computes ESS as s1^2 / s2, where the plain version normalises first (exp(2
+// lse(w) - lse(2 w)) of w = logw - lse(logw)): a midpoint whose ESS lies
+// within rounding of the target may be decided the other way.
+//
 // CTA shape by type (Cta<T>). 1024 threads leave a thread 64 of the SM's
 // 65,536 registers. The float32 state fits (48); the double one does not:
 // at 1024 threads ptxas spilled 172-236 bytes a thread to local memory
@@ -128,6 +146,7 @@ struct Consts<float> {
   static constexpr float kMetricAtol = 0.5f;
   static constexpr float kNonFiniteMetric = 1e10f;
   static constexpr float kTiny = 1e-38f;
+  static constexpr float kFinfoTiny = FLT_MIN;  // the bracket's, as steps/reweight.py has it
 };
 template <>
 struct Consts<double> {
@@ -137,6 +156,7 @@ struct Consts<double> {
   static constexpr double kMetricAtol = 0.5;
   static constexpr double kNonFiniteMetric = 1e10;
   static constexpr double kTiny = DBL_MIN;
+  static constexpr double kFinfoTiny = DBL_MIN;
 };
 constexpr int kMaxBisectionIterations = 200;
 
@@ -337,9 +357,9 @@ __device__ void pass(const Slice<T>& s, const Quad<T>* __restrict__ sl,
 }
 
 template <typename T>
-__device__ __forceinline__ T interval_tol(T lo, T hi) {
+__device__ __forceinline__ T interval_tol(T lo, T hi, T tiny = Consts<T>::kTiny) {
   using C = Consts<T>;
-  const T scale = vmax(vmax(vabs(lo), vabs(hi)), C::kTiny);
+  const T scale = vmax(vmax(vabs(lo), vabs(hi)), tiny);
   return vmax(C::kBetaRtol * scale, C::kBetaTolerance * scale);
 }
 
@@ -370,6 +390,30 @@ __device__ __forceinline__ void step(Control<T>& c, T metric, T target) {
   if (!c.stop) c.beta = T(0.5) * (c.lo + c.hi);  // else keep the last probe
 }
 
+// The bracket's loop condition (steps/reweight.py `_bracket_open`): the
+// interval above its tolerance (finfo's tiny as the floor of its scale) and
+// fewer than 200 probes.
+template <typename T>
+__device__ __forceinline__ bool bracket_open(const Control<T>& c) {
+  return (c.hi - c.lo) > interval_tol(c.lo, c.hi, Consts<T>::kFinfoTiny) &&
+         c.iter < kMaxBisectionIterations;
+}
+
+// One probe of the ESS bracket on the ESS at c.beta, the midpoint: an ESS
+// at or above the target moves lo up, anything else (NaN included) brings
+// hi down; it stops on the interval tolerance and the probe cap alone.
+template <typename T>
+__device__ __forceinline__ void bracket_step(Control<T>& c, T ess, T target) {
+  if (ess >= target) {
+    c.lo = c.beta;
+  } else {
+    c.hi = c.beta;
+  }
+  c.iter += 1;
+  c.stop = !bracket_open(c);
+  if (!c.stop) c.beta = T(0.5) * (c.lo + c.hi);
+}
+
 // Warp 0 of this CTA: the cluster's combined partials at NB betas, as ESS,
 // read from every CTA's `mine` in rank order.
 template <typename T, int NB>
@@ -385,11 +429,13 @@ __device__ void gather(const cg::cluster_group& cluster, Acc<T>* mine, T* ess) {
   for (int k = 0; k < NB; ++k) ess[k] = (a[k].s1 * a[k].s1) / a[k].s2;  // all dropped: 0/0 = NaN
 }
 
-template <typename T, bool kResident>
-__global__ void __launch_bounds__(Cta<T>::kThreads, 1)
-ess_bisect_kernel(const T* __restrict__ logl, const T* __restrict__ bm,
-                  const T* __restrict__ scal, T* __restrict__ beta_out,
-                  int32_t* __restrict__ probes_out, int64_t n, int64_t slice) {
+// The body of both kernels. kBracket: the bracket mode (out holds lo and
+// hi), else the ESS-mode bisection (out holds beta).
+template <typename T, bool kResident, bool kBracket>
+__device__ __forceinline__ void ess_search(const T* __restrict__ logl, const T* __restrict__ bm,
+                                           const T* __restrict__ scal, T* __restrict__ out,
+                                           int32_t* __restrict__ probes_out, int64_t n,
+                                           int64_t slice) {
   constexpr int kThreads = Cta<T>::kThreads;
   extern __shared__ __align__(16) unsigned char dyn[];  // resident route: the masked slice
   __shared__ Acc<T> part[3][Cta<T>::kWarps];
@@ -445,6 +491,9 @@ ess_bisect_kernel(const T* __restrict__ logl, const T* __restrict__ bm,
       ess_one = ess[1];
       if (ess_cur <= target || ess_one >= target) {
         ctl.stop = 1;
+      } else if (kBracket) {
+        ctl.stop = !bracket_open(ctl);  // an interval already below tolerance: no probe
+        if (!ctl.stop) bracket_step(ctl, ess[2], target);
       } else {
         step(ctl, ess[2], target);
       }
@@ -459,7 +508,13 @@ ess_bisect_kernel(const T* __restrict__ logl, const T* __restrict__ bm,
     if (threadIdx.x < 32) {
       T ess[1];
       gather<T, 1>(cluster, mine[parity], ess);
-      if (threadIdx.x == 0) step(ctl, ess[0], target);
+      if (threadIdx.x == 0) {
+        if (kBracket) {
+          bracket_step(ctl, ess[0], target);
+        } else {
+          step(ctl, ess[0], target);
+        }
+      }
     }
     __syncthreads();
     parity ^= 1;
@@ -467,15 +522,51 @@ ess_bisect_kernel(const T* __restrict__ logl, const T* __restrict__ bm,
   cluster.sync();  // no CTA exits while another may still read its partials
 
   if (rank == 0 && threadIdx.x == 0) {
-    T beta = ctl.beta;
-    if (ess_cur <= target) {
-      beta = beta_prev;
-    } else if (ess_one >= target) {
-      beta = T(1);
+    if (kBracket) {
+      // Stay, or the jump when ESS(beta_prev) > target too (a NaN ESS at
+      // beta_prev stays): both ends at the edge, as _find_ess_bracket has it.
+      T lo = ctl.lo, hi = ctl.hi;
+      if (ess_cur <= target || ess_one >= target) {
+        lo = hi = (ess_cur > target && ess_one >= target) ? T(1) : beta_prev;
+      }
+      out[0] = lo;
+      out[1] = hi;
+    } else {
+      T beta = ctl.beta;
+      if (ess_cur <= target) {
+        beta = beta_prev;
+      } else if (ess_one >= target) {
+        beta = T(1);
+      }
+      out[0] = beta;
     }
-    beta_out[0] = beta;
     probes_out[0] = 2 + ctl.iter;
   }
+}
+
+// The two modes under their own names, so a profile tells them apart.
+template <typename T, bool kResident>
+__global__ void __launch_bounds__(Cta<T>::kThreads, 1)
+ess_bisect_kernel(const T* __restrict__ logl, const T* __restrict__ bm,
+                  const T* __restrict__ scal, T* __restrict__ beta,
+                  int32_t* __restrict__ probes, int64_t n, int64_t slice) {
+  ess_search<T, kResident, false>(logl, bm, scal, beta, probes, n, slice);
+}
+
+template <typename T, bool kResident>
+__global__ void __launch_bounds__(Cta<T>::kThreads, 1)
+ess_bracket_kernel(const T* __restrict__ logl, const T* __restrict__ bm,
+                   const T* __restrict__ scal, T* __restrict__ bracket,
+                   int32_t* __restrict__ probes, int64_t n, int64_t slice) {
+  ess_search<T, kResident, true>(logl, bm, scal, bracket, probes, n, slice);
+}
+
+template <typename T>
+using KernelFn = void (*)(const T*, const T*, const T*, T*, int32_t*, int64_t, int64_t);
+
+template <typename T, bool kResident, bool kBracket>
+KernelFn<T> kernel_of() {
+  return kBracket ? ess_bracket_kernel<T, kResident> : ess_bisect_kernel<T, kResident>;
 }
 
 // One cluster of kCluster CTAs of `threads` threads with `smem` bytes of
@@ -501,7 +592,7 @@ struct ClusterLaunch {
 // Sets the kernel's attributes on the current device and checks that one
 // cluster with the largest shared memory the route takes fits it, once per
 // device; returns the cudaError_t of the first step that fails.
-template <typename T, bool kResident>
+template <typename T, bool kResident, bool kBracket>
 cudaError_t prepare() {
   static bool checked[kMaxDevices] = {};
   static cudaError_t status[kMaxDevices];
@@ -510,7 +601,7 @@ cudaError_t prepare() {
   if (err != cudaSuccess) return err;
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (checked[device]) return status[device];
-  auto kernel = ess_bisect_kernel<T, kResident>;
+  const KernelFn<T> kernel = kernel_of<T, kResident, kBracket>();
   const int smem = kResident ? static_cast<int>(kSliceBytes) : 0;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess && smem > 0) {
@@ -527,19 +618,19 @@ cudaError_t prepare() {
   return err;
 }
 
-template <typename T, bool kResident>
-cudaError_t launch(const T* logl, const T* bm, const T* scal, T* beta, int32_t* probes, int64_t n,
+template <typename T, bool kResident, bool kBracket>
+cudaError_t launch(const T* logl, const T* bm, const T* scal, T* out, int32_t* probes, int64_t n,
                    int64_t slice, cudaStream_t stream) {
-  cudaError_t err = prepare<T, kResident>();
+  cudaError_t err = prepare<T, kResident, kBracket>();
   if (err != cudaSuccess) return err;
   ClusterLaunch one(Cta<T>::kThreads, kResident ? static_cast<size_t>(2 * sizeof(T) * slice) : 0,
                     stream);
-  err = cudaLaunchKernelEx(&one.cfg, ess_bisect_kernel<T, kResident>, logl, bm, scal, beta, probes,
-                           n, slice);
+  err = cudaLaunchKernelEx(&one.cfg, kernel_of<T, kResident, kBracket>(), logl, bm, scal, out,
+                           probes, n, slice);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kBracket>
 int entry(const void* logl, const void* bm, const void* scal, void* beta, void* probes, int64_t n,
           int64_t slice, int resident, void* stream) {
   if (slice <= 0 || slice % 4 != 0 || slice * kCluster < n ||
@@ -552,8 +643,8 @@ int entry(const void* logl, const void* bm, const void* scal, void* beta, void* 
   auto* be = static_cast<T*>(beta);
   auto* pr = static_cast<int32_t*>(probes);
   auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = resident ? launch<T, true>(l, b, sc, be, pr, n, slice, st)
-                                   : launch<T, false>(l, b, sc, be, pr, n, slice, st);
+  const cudaError_t err = resident ? launch<T, true, kBracket>(l, b, sc, be, pr, n, slice, st)
+                                   : launch<T, false, kBracket>(l, b, sc, be, pr, n, slice, st);
   return static_cast<int>(err);
 }
 
@@ -570,11 +661,27 @@ int entry(const void* logl, const void* bm, const void* scal, void* beta, void* 
 extern "C" int tempest_ess_bisect(const void* logl, const void* bm, const void* scal, void* beta,
                                   void* probes, int64_t n, int64_t slice, int resident,
                                   void* stream) {
-  return entry<float>(logl, bm, scal, beta, probes, n, slice, resident, stream);
+  return entry<float, false>(logl, bm, scal, beta, probes, n, slice, resident, stream);
 }
 
 extern "C" int tempest_ess_bisect_f64(const void* logl, const void* bm, const void* scal,
                                       void* beta, void* probes, int64_t n, int64_t slice,
                                       int resident, void* stream) {
-  return entry<double>(logl, bm, scal, beta, probes, n, slice, resident, stream);
+  return entry<double, false>(logl, bm, scal, beta, probes, n, slice, resident, stream);
+}
+
+// The bracket mode, tempest_ess_bracket in float32 and tempest_ess_bracket_f64
+// in float64: the same arguments, but `bracket` is (2,) out, (lo, hi), and
+// `probes` counts the ESS evaluations of the bracket search (2 + its
+// bisection probes).
+extern "C" int tempest_ess_bracket(const void* logl, const void* bm, const void* scal,
+                                   void* bracket, void* probes, int64_t n, int64_t slice,
+                                   int resident, void* stream) {
+  return entry<float, true>(logl, bm, scal, bracket, probes, n, slice, resident, stream);
+}
+
+extern "C" int tempest_ess_bracket_f64(const void* logl, const void* bm, const void* scal,
+                                       void* bracket, void* probes, int64_t n, int64_t slice,
+                                       int resident, void* stream) {
+  return entry<double, true>(logl, bm, scal, bracket, probes, n, slice, resident, stream);
 }

@@ -48,7 +48,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from .ops import cuda_linalg, cuda_prng, cuda_reweight
+from .ops import cuda_linalg, cuda_median, cuda_prng, cuda_reweight
 
 Tensors = Dict[str, torch.Tensor]
 Body = Callable[[Tensors, Tensors], Tensors]
@@ -61,13 +61,16 @@ class CaptureError(RuntimeError):
 def launch_counts() -> Dict[str, int]:
     """Every kernel's launch count in this process, by kernel."""
     return {"ess_bisect": cuda_reweight.LAUNCHES, "ess_bisect_f64": cuda_reweight.LAUNCHES_F64,
-            "sym_eigvals": cuda_linalg.LAUNCHES, **cuda_prng.LAUNCHES}
+            "ess_bracket": cuda_reweight.BRACKET_LAUNCHES, "sym_eigvals": cuda_linalg.LAUNCHES,
+            "weighted_median": cuda_median.LAUNCHES, **cuda_prng.LAUNCHES}
 
 
 def _add_launches(delta: Dict[str, int], sign: int = 1) -> None:
     cuda_reweight.LAUNCHES += sign * delta["ess_bisect"]
     cuda_reweight.LAUNCHES_F64 += sign * delta["ess_bisect_f64"]
+    cuda_reweight.BRACKET_LAUNCHES += sign * delta["ess_bracket"]
     cuda_linalg.LAUNCHES += sign * delta["sym_eigvals"]
+    cuda_median.LAUNCHES += sign * delta["weighted_median"]
     for name in cuda_prng.LAUNCHES:
         cuda_prng.LAUNCHES[name] += sign * delta[name]
 

@@ -29,10 +29,20 @@ is not finite or Bm is +inf, as in state.logw_from_denominator
 (tempest_tpu/state.py:392-394). The Pallas kernel computes 0 * -inf = NaN
 there at beta = 0, which makes ESS(0) NaN and skips the "stay" rule.
 
-`ess_bisect_beta` picks its route only by the tensors' device: CPU tensors
-go to the plain version, contiguous CUDA tensors of float32 or float64 to
-the kernel of their type, anything else raises. A failed build, a cluster
-that does not fit the card or a failed launch raises; nothing falls back.
+The same kernel has a bracket mode for dynamic mode, `ess_bracket` (C
+entries `tempest_ess_bracket`, `tempest_ess_bracket_f64`): the bracket
+search of tempest_tpu/steps/reweight.py:73-119 (stay, jump, or [beta_prev,
+1] bisected on the interval tolerance alone). It returns (lo, hi) and its
+probe count. Its plain version is the "ess_bracket" device loop that
+dynamic mode runs on the CPU and under a mesh
+(`steps.reweight.ess_bracket_loop`), so the bracket's rules have one
+PyTorch implementation.
+
+`ess_bisect_beta` and `ess_bracket` pick their route only by the tensors'
+device: CPU tensors go to the plain version, contiguous CUDA tensors of
+float32 or float64 to the kernel of their type, anything else raises. A
+failed build, a cluster that does not fit the card or a failed launch
+raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -53,15 +63,17 @@ from . import _build
 from .tools import ess_from_logw, logsumexp
 
 _SIGNATURE = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-LIBRARY = _build.CudaLibrary(
-    "ess_bisect.cu", {"tempest_ess_bisect": _SIGNATURE, "tempest_ess_bisect_f64": _SIGNATURE}
-)
 ENTRIES = {torch.float32: "tempest_ess_bisect", torch.float64: "tempest_ess_bisect_f64"}
+BRACKET_ENTRIES = {torch.float32: "tempest_ess_bracket", torch.float64: "tempest_ess_bracket_f64"}
+LIBRARY = _build.CudaLibrary(
+    "ess_bisect.cu", {name: _SIGNATURE for name in (*ENTRIES.values(), *BRACKET_ENTRIES.values())}
+)
 
 # Kernel launches made by `ess_bisect_beta` in this process: float32 and
-# float64 instantiations.
+# float64 instantiations; and by `ess_bracket` (both types).
 LAUNCHES = 0
 LAUNCHES_F64 = 0
+BRACKET_LAUNCHES = 0
 
 ESS_CLUSTER = 16  # CTAs in the cluster: csrc kCluster
 ESS_SLICE_MAX = 24576  # float32 samples a CTA holds in shared memory (192 KB): csrc kSliceMax
@@ -161,17 +173,42 @@ def ess_bisect_beta(
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream without a host sync (scal stays on the device).
     """
+    if _route("ess_bisect_beta", logl, bm, scal) == "cpu":
+        return ess_bisect_beta_reference(logl, bm, scal)
+    return _launch(logl, bm, scal, bracket=False)
+
+
+def ess_bracket(
+    logl: torch.Tensor, bm: torch.Tensor, scal: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic mode's ESS bracket: ((lo, hi) (2,) of the inputs' dtype, ESS
+    evaluations (1,) i32), as `steps.reweight.ess_bracket_loop`.
+
+    CPU tensors take that plain version; CUDA tensors launch the kernel's
+    bracket mode on the current stream without a host sync (scal stays on
+    the device).
+    """
+    if _route("ess_bracket", logl, bm, scal) == "cpu":
+        from ..steps.reweight import ess_bracket_loop  # steps.reweight imports this module
+
+        return ess_bracket_loop(logl, bm, scal)
+    return _launch(logl, bm, scal, bracket=True)
+
+
+def _route(what: str, logl, bm, scal) -> str:
+    """The device type the inputs take, after the checks; raises on what
+    neither route takes."""
     device = logl.device
     if bm.device != device or scal.device != device:
         raise ValueError(
             f"logl, bm and scal must share one device (got {device}, {bm.device}, {scal.device})"
         )
     if device.type == "cpu":
-        return ess_bisect_beta_reference(logl, bm, scal)
+        return "cpu"
     if device.type != "cuda":
-        raise ValueError(f"ess_bisect_beta runs on cpu or cuda tensors, not {device}")
+        raise ValueError(f"{what} runs on cpu or cuda tensors, not {device}")
     if logl.dtype not in ENTRIES:
-        raise ValueError(f"ess_bisect_beta runs float32 or float64 tensors, not {logl.dtype}")
+        raise ValueError(f"{what} runs float32 or float64 tensors, not {logl.dtype}")
     for name, t in (("logl", logl), ("bm", bm), ("scal", scal)):
         if t.dtype != logl.dtype or not t.is_contiguous() or t.dim() != 1:
             raise ValueError(
@@ -183,26 +220,28 @@ def ess_bisect_beta(
             f"need logl and bm of one shape (S,) with S > 0 and scal of shape (2,); "
             f"got {tuple(logl.shape)}, {tuple(bm.shape)}, {tuple(scal.shape)}"
         )
-    return _launch(logl, bm, scal)
+    return "cuda"
 
 
-def _launch(logl, bm, scal):
-    global LAUNCHES, LAUNCHES_F64
+def _launch(logl, bm, scal, bracket: bool):
+    global LAUNCHES, LAUNCHES_F64, BRACKET_LAUNCHES
     if logl.device.index != torch.cuda.current_device():  # the C entry launches on the current one
         with torch.cuda.device(logl.device):
-            return _launch(logl, bm, scal)
-    entry = getattr(_build.load(LIBRARY), ENTRIES[logl.dtype])
+            return _launch(logl, bm, scal, bracket)
+    entry = getattr(_build.load(LIBRARY), (BRACKET_ENTRIES if bracket else ENTRIES)[logl.dtype])
     plan = plan_launch(logl.numel(), logl.dtype)
-    beta = torch.empty(1, dtype=logl.dtype, device=logl.device)
+    out = torch.empty(2 if bracket else 1, dtype=logl.dtype, device=logl.device)
     probes = torch.empty(1, dtype=torch.int32, device=logl.device)
     err = entry(
-        logl.data_ptr(), bm.data_ptr(), scal.data_ptr(), beta.data_ptr(), probes.data_ptr(),
+        logl.data_ptr(), bm.data_ptr(), scal.data_ptr(), out.data_ptr(), probes.data_ptr(),
         logl.numel(), plan.slice, int(plan.resident),
         torch.cuda.current_stream(logl.device).cuda_stream,
     )
-    _build.check(err, "ess_bisect")
-    if logl.dtype == torch.float64:
+    _build.check(err, "ess_bracket" if bracket else "ess_bisect")
+    if bracket:
+        BRACKET_LAUNCHES += 1
+    elif logl.dtype == torch.float64:
         LAUNCHES_F64 += 1
     else:
         LAUNCHES += 1
-    return beta, probes
+    return out, probes

@@ -11,12 +11,15 @@ Counterpart of tempest_tpu/steps/reweight.py. Two modes, as there:
 - Dynamic mode (`volume_variation`, :225-241): an ESS bracket
   (`_find_ess_bracket`, :73-119), then a bisection on the volume-variation
   CV inside it (`_find_beta_bisection`, :122-166), with the boundary rules
-  of :234-241. JAX runs no Pallas kernel in this mode, so neither does the
-  port; the CV's eigenvalues come from `ops.cuda_linalg.eigvalsh`, the
-  port's kernel for a CUDA tensor, which reads nothing on the host.
+  of :234-241. JAX runs no Pallas kernel in this mode. The port's bracket
+  on a GPU outside a mesh is one launch of the ESS kernel's bracket mode
+  (`ops.cuda_reweight.ess_bracket`) and one read of its result; the CV's
+  eigenvalues come from `ops.cuda_linalg.eigvalsh`, the port's kernel for
+  a CUDA tensor, which reads nothing on the host.
 
-The three bisections (the bracket, the CV bisection and the sharded ESS
-bisection) are device loops of `loops.Loops`, as JAX's `lax.while_loop`s:
+The three bisections (the bracket on the CPU or under a mesh, the CV
+bisection and the sharded ESS bisection) are device loops of
+`loops.Loops`, as JAX's `lax.while_loop`s:
 the carry is (lo, hi, beta, i, done) with JAX's rules; the stay, jump and
 CV boundary tests are `torch.where`s and the loop's initial `done`; a body
 that runs past `done` changes nothing. Each loop runs its bodies in chunks
@@ -52,7 +55,7 @@ from ..config import (
     METRIC_ATOL_CV,
 )
 from ..loops import Loops
-from ..ops.cuda_reweight import ess_bisect_beta
+from ..ops.cuda_reweight import ess_bisect_beta, ess_bracket
 from ..ops.tools import ess_from_logw_psum, logsumexp_psum, volume_variation_dtn
 from ..state import History, logw_from_denominator, mis_denominator
 
@@ -188,11 +191,29 @@ def _find_ess_bracket(hist: History, denom, beta_prev, ess_target: float, group=
     (reweight.py:73-119): both beta_prev when ESS(beta_prev) <= target,
     both 1 when ESS(1) >= target as well (the jump), else [beta_prev, 1]
     bisected down to the interval tolerance; `crossing` (a host bool) is
-    beta_low != beta_high."""
+    beta_low != beta_high. A history on a GPU outside a mesh takes one
+    launch of the ESS kernel's bracket mode and one read of its (lo, hi)
+    and probe count; elsewhere the "ess_bracket" loop runs."""
     loops = loops or Loops(hist.logl.device)
     k = _consts(hist, denom, ess_target, METRIC_ATOL)
-    one = torch.ones_like(beta_prev)
+    if group is None and hist.logl.device.type == "cuda":
+        bm = torch.where(k["mask"], denom, torch.full_like(denom, float("inf")))
+        bracket, probes = ess_bracket(hist.logl.reshape(-1), bm.reshape(-1),
+                                      torch.stack([beta_prev, k["target"]]))
+        lo_h, hi_h, n = loops.read("ess_bracket", bracket, probes)
+        PROBES["ess_bracket"] += int(n)
+        return bracket[0], bracket[1], lo_h != hi_h
+    lo, hi, lo_h, hi_h, n = _bracket_search(k, beta_prev, group, loops)
+    PROBES["ess_bracket"] += n
+    return lo, hi, lo_h != hi_h
+
+
+def _bracket_search(k: Tensors, beta_prev, group, loops: Loops):
+    """Stay, jump or the "ess_bracket" loop on the constants `k`: the
+    bracket (lo, hi), its last read (lo, hi) on the host and the ESS
+    evaluations it made."""
     target = k["target"]
+    one = torch.ones_like(beta_prev)
     ess_cur, ess_one = _ess(k, beta_prev, group), _ess(k, one, group)
     stay = (ess_cur <= target) | (ess_one >= target)
     edge = torch.where((ess_cur > target) & (ess_one >= target), one, beta_prev)
@@ -202,8 +223,22 @@ def _find_ess_bracket(hist: History, denom, beta_prev, ess_target: float, group=
     out, (_, n, lo_h, hi_h) = _run(loops, "ess_bracket", _bracket_body(group),
                                    {"lo": lo, "hi": hi, "i": i, "done": ~_bracket_open(lo, hi, i)},
                                    k, group, "lo", "hi")
-    PROBES["ess_bracket"] += 2 + int(n)
-    return out["lo"], out["hi"], lo_h != hi_h
+    return out["lo"], out["hi"], lo_h, hi_h, 2 + int(n)
+
+
+def ess_bracket_loop(logl: torch.Tensor, bm: torch.Tensor, scal: torch.Tensor,
+                     loops: Optional[Loops] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic mode's ESS bracket by the "ess_bracket" loop: the plain
+    version of the ESS kernel's bracket mode (`ops.cuda_reweight.
+    ess_bracket`), on its inputs. logl: log-likelihoods and bm: the MIS
+    denominator, +inf on the slots left out, of one shape; scal: (2,) =
+    (beta_prev, target). Returns the (2,) bracket (lo, hi) in the inputs'
+    dtype and the (1,) int32 count of ESS evaluations."""
+    loops = loops or Loops(logl.device)
+    k = {"logl": logl, "denom": bm, "keep": torch.isfinite(logl) & (bm != float("inf")),
+         "target": scal[1]}
+    lo, hi, _, _, n = _bracket_search(k, scal[0], None, loops)
+    return torch.stack([lo, hi]), torch.full((1,), n, dtype=torch.int32, device=logl.device)
 
 
 def _find_cv_beta(hist: History, denom, beta_prev, beta_high, cv_target: float, group=None,

@@ -26,6 +26,9 @@ from typing import Optional, Tuple
 import torch
 
 from .loops import Loops, run_loop
+# The weighted-median start (student.py:220-231): the kernel of
+# `ops.cuda_median` on CUDA tensors, its plain version on CPU ones.
+from .ops.cuda_median import weighted_median_presorted as _weighted_median_presorted
 
 _REG_FLOOR = 1e-6
 _NU_LOG_LO = -69.0  # log(1e-30)
@@ -145,20 +148,12 @@ def fit_mvstud(
     return mu, Sigma, nu
 
 
-def _weighted_median_presorted(
-    d_sorted: torch.Tensor, order: torch.Tensor, wbar: torch.Tensor
-) -> torch.Tensor:
-    """Per-dimension weighted median given the stable column sort of the
-    data (n, d), for weights (n,) or one row of weights each (K, n)."""
-    cum = torch.cumsum(wbar[..., order], dim=-2)  # (..., n, d), along the points
-    idx = torch.argmax((cum >= 0.5 - 1e-7).to(torch.int8), dim=-2)  # first True
-    return torch.gather(d_sorted.expand(cum.shape), -2, idx.unsqueeze(-2)).squeeze(-2)
-
-
 def sort_columns(data: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sorted data, order) per column; a stable sort, like jnp.argsort."""
-    order = torch.argsort(data, dim=0, stable=True)
-    return torch.gather(data, 0, order), order
+    """(sorted data, order) per column, both contiguous (the median kernel
+    takes no other layout; argsort follows the layout of a strided `data`);
+    a stable sort, like jnp.argsort."""
+    order = torch.argsort(data, dim=0, stable=True).contiguous()
+    return torch.gather(data, 0, order).contiguous(), order
 
 
 def _em_body(c, k):

@@ -46,7 +46,24 @@ matrices in float32 and float64, within 16 d eps max|lambda|; the CV's
 rank decision equal; NaN out for a non-finite matrix; a launch captured in
 a graph replays to the eager launch's bits. Dynamic mode and a mesh of one rank
 over NCCL (in a process of its own) repeat `on_device=False` bit for bit
-with `on_device=True`.
+with `on_device=True`; dynamic mode's ESS bracket is one launch of the ESS
+kernel's bracket mode a reweight.
+
+The weighted-median kernel (`ops.cuda_median`, csrc/weighted_median.cu)
+equals its plain version (torch.cumsum's serial sums, the first crossing,
+a gather) bit for bit, in float32 and float64, at A's (16, 4096, 10), B's
+(1, 524,288, 10) and rosenbrock100's (1, 8192, 100) shapes and on ragged
+shapes with all-zero rows (which give d_sorted[0]); a fit launches it once.
+The bracket mode of the ESS kernel (`cuda_reweight.ess_bracket`) against
+its plain version, the "ess_bracket" loop (`steps.reweight.ess_bracket_loop`)
+on the same CUDA tensors, on the histories of tests/test_torch_dynamic.py
+and at S = 196,608 (held on chip: dynamic mode's 1024 x 192 history with 48
+rows filled, and one all filled), 524,288 and 1,048,576 (streamed): the same
+probes; stay and jump exact; in float64 each end within 1e-12 (relative);
+in float32 the same ends, or else the plain ESS at the first midpoint
+decided the other way within 1e-5 (relative) of the target (the kernel's
+s1^2 / s2 rounds otherwise than the plain version's normalised ESS), and
+the ends always within 2e-3.
 """
 
 import json
@@ -71,6 +88,7 @@ from tempest_tpu_torch.mcmc import MCMCKernel
 from tempest_tpu_torch.ops import cuda_prng, cuda_reweight, philox, tools
 from tempest_tpu_torch.ops.tools import ess_from_logw, logsumexp
 from tempest_tpu_torch.state import commit, make_current, make_history, mis_denominator
+from tempest_tpu_torch.steps import reweight as rw_mod
 
 
 @pytest.fixture
@@ -886,31 +904,36 @@ def test_sym_eigvals_replays_in_a_graph(cuda_device, d, dtype):
 
 @pytest.mark.cuda
 def test_dynamic_run_on_device_repeats_on_device_false(cuda_device):
-    """Dynamic mode on the fused route: its ESS bracket and CV bisection
-    replayed as graphs repeat the eager chunks bit for bit; the CV's
-    eigenvalues come from the kernel, never torch.linalg.eigvalsh."""
+    """Dynamic mode on the fused route: graphed, it repeats the eager run
+    bit for bit; its ESS bracket is one launch of the ESS kernel's bracket
+    mode a reweight (no "ess_bracket" loop body, no ESS-mode launch); the
+    CV's eigenvalues come from the kernel, never torch.linalg.eigvalsh."""
     from tempest_tpu_torch.ops import cuda_linalg
 
     def loglike(x):  # chained 4-D Rosenbrock
         return -torch.sum(100.0 * (x[..., 1:] - x[..., :-1] ** 2) ** 2
                           + (1.0 - x[..., :-1]) ** 2, dim=-1)
 
-    runs, launches = [], []
+    runs, launches, brackets = [], [], []
     for on_device in (False, True):
         s = Sampler(lambda u: 20.0 * u - 10.0, loglike, n_dim=4, n_particles=256,
                     vectorize=True, clustering=False, volume_variation=1.0, random_state=2,
                     history_capacity=64, device=cuda_device)
         assert s.state.fused
-        before = cuda_linalg.LAUNCHES
+        before = (cuda_linalg.LAUNCHES, cuda_reweight.BRACKET_LAUNCHES, cuda_reweight.LAUNCHES,
+                  rw_mod.PROBES["reweights"])
         s.run(n_total=1024, progress=False, on_device=on_device)
-        launches.append(cuda_linalg.LAUNCHES - before)
+        launches.append(cuda_linalg.LAUNCHES - before[0])
+        brackets.append(cuda_reweight.BRACKET_LAUNCHES - before[1])
+        assert cuda_reweight.LAUNCHES == before[2]
+        assert brackets[-1] == rw_mod.PROBES["reweights"] - before[3] == s.state.hist.t - 1 > 0
         runs.append(s)
     (off, on), (r_off, r_on) = runs, (runs[0].results(), runs[1].results())
     for name in ("beta", "logz", "ess", "cv", "steps", "calls"):
         assert r_on[name].tobytes() == r_off[name].tobytes(), name
-    assert on.beta == 1.0 and launches[0] == launches[1] > 0
+    assert on.beta == 1.0 and launches[0] == launches[1] > 0 and brackets[0] == brackets[1]
     stats = on.state._iteration.loops.stats
-    assert stats["ess_bracket"]["replays"] > 0 and stats["mcmc"]["replays"] > 0
+    assert stats["ess_bracket"]["bodies"] == 0 and stats["mcmc"]["replays"] > 0
 
 
 _MESH_RUN = textwrap.dedent("""
@@ -962,3 +985,272 @@ def test_mesh_run_on_device_repeats_on_device_false(cuda_device):
     for k in ("beta", "logz", "steps"):
         assert on[k] == off[k], k
     assert on["replays"] > 0 and off["replays"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The weighted-median kernel (ops/cuda_median.py, csrc/weighted_median.cu)
+# ---------------------------------------------------------------------------
+def _median_inputs(device, K, n, d, dtype, seed, zero_rows=(), ties=False):
+    """(d_sorted, order, wbar) as a fit makes them: the stable column sort of
+    the points, exponential weights with a tenth of them zero, each row
+    normalized; the rows in `zero_rows` all zero."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, d, generator=g, dtype=torch.float64)
+    if ties:
+        x = torch.round(4.0 * x)
+    w = torch.empty(K, n, dtype=torch.float64).exponential_(generator=g)
+    w[torch.rand(K, n, generator=g) < 0.1] = 0.0
+    for k in zero_rows:
+        w[k] = 0.0
+    x, w = x.to(device=device, dtype=dtype), w.to(device=device, dtype=dtype)
+    total = w.sum(dim=1, keepdim=True)
+    wbar = w / torch.where(total > 0, total, torch.ones_like(total))
+    order = torch.argsort(x, dim=0, stable=True)
+    return torch.gather(x, 0, order), order, wbar
+
+
+def _same_bits(a, b):
+    view = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K,n,d,zero_rows", [
+    (16, 4096, 10, (3, 15)),  # A's clustered fit, two empty modes
+    (1, 524288, 10, ()),  # B's fit_global_mode
+    (1, 8192, 100, ()),  # rosenbrock100
+    (3, 257, 4, (1,)),  # ragged: a partial tile
+    (5, 4097, 3, (0, 4)),  # one past a float32 tile
+    (2, 1, 1, ()),  # one point
+    (4, 10000, 7, (0, 1, 2, 3)),  # every row empty
+])
+def test_weighted_median_kernel_equals_plain_bit_for_bit(cuda_device, dtype, K, n, d, zero_rows):
+    """The kernel gives the plain version's bits (torch.cumsum's serial
+    sums in the working type), two launches the same; an all-zero row
+    gives d_sorted[0]."""
+    from tempest_tpu_torch.ops import cuda_median
+
+    d_sorted, order, wbar = _median_inputs(cuda_device, K, n, d, dtype, seed=n + d,
+                                           zero_rows=zero_rows)
+    before = cuda_median.LAUNCHES
+    got = cuda_median.weighted_median_presorted(d_sorted, order, wbar)
+    again = cuda_median.weighted_median_presorted(d_sorted, order, wbar)
+    want = cuda_median.weighted_median_presorted_reference(d_sorted, order, wbar)
+    torch.cuda.synchronize()
+    assert cuda_median.LAUNCHES == before + 2
+    assert _same_bits(got, want) and _same_bits(got, again)
+    for k in zero_rows:
+        assert torch.equal(got[k], d_sorted[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_weighted_median_kernel_edges(cuda_device, dtype):
+    """Ties in the data; weights (n,) for one row; a row whose running sum
+    lands exactly on the threshold rounded to the type; rows whose sum never
+    reaches it (index 0)."""
+    from tempest_tpu_torch.ops import cuda_median
+
+    d_sorted, order, wbar = _median_inputs(cuda_device, 4, 3000, 5, dtype, seed=9, ties=True)
+    thr = torch.tensor(cuda_median.THRESHOLD, dtype=dtype).item()
+    n = wbar.shape[1]
+    exact = torch.zeros(n, dtype=dtype, device=cuda_device)
+    exact[order[7, 0]] = thr  # the 8th point of column 0 brings the sum to thr exactly
+    exact[order[9, 0]] = 1.0 - thr
+    wbar = torch.cat([wbar, exact[None], 0.3 * wbar[:1]])  # the last row sums to 0.3
+    got = cuda_median.weighted_median_presorted(d_sorted, order, wbar)
+    want = cuda_median.weighted_median_presorted_reference(d_sorted, order, wbar)
+    one = cuda_median.weighted_median_presorted(d_sorted, order, wbar[0])
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+    assert got[4, 0] == d_sorted[7, 0] and torch.equal(got[5], d_sorted[0])
+    assert _same_bits(one, want[0])
+
+
+@pytest.mark.cuda
+def test_weighted_median_kernel_rejects_what_it_does_not_take(cuda_device):
+    from tempest_tpu_torch.ops import cuda_median
+
+    d_sorted, order, wbar = _median_inputs(cuda_device, 2, 100, 3, torch.float32, seed=1)
+    f = cuda_median.weighted_median_presorted
+    for args in [(d_sorted.half(), order, wbar.half()),  # a type it does not run
+                 (d_sorted, order, wbar.double()),  # one type for data and weights
+                 (d_sorted, order.int(), wbar),  # int64 order
+                 (d_sorted.t().contiguous().t(), order, wbar),  # not contiguous
+                 (d_sorted, order, wbar[:, :50]),  # n differs
+                 (d_sorted, order.cpu(), wbar)]:  # two devices
+        with pytest.raises(ValueError):
+            f(*args)
+
+
+@pytest.mark.cuda
+def test_fits_launch_the_median_kernel_once_a_fit(cuda_device):
+    """`fit_mvstud_weighted_modes` on the card: one median launch, and the
+    median it starts from is the plain version's."""
+    from tempest_tpu_torch import student
+    from tempest_tpu_torch.ops import cuda_median
+
+    d_sorted, order, wbar = _median_inputs(cuda_device, 4, 2048, 5, torch.float32, seed=3)
+    data = torch.empty_like(d_sorted).scatter_(0, order, d_sorted)
+    before = cuda_median.LAUNCHES
+    student.fit_mvstud_weighted_modes(data, wbar, sort_cache=(d_sorted, order))
+    assert cuda_median.LAUNCHES == before + 1
+
+
+# ---------------------------------------------------------------------------
+# The bracket mode of the ESS kernel (dynamic mode's ESS bracket)
+# ---------------------------------------------------------------------------
+# tests/test_torch_dynamic.py's CASES (fill, seed, contract, ESS target as a
+# multiple of ESS(beta_prev) or "jump"), without their CV targets; that file
+# imports JAX, this one does not.
+DYNAMIC_CASES = [(3, 0, True, 0.6), (5, 1, True, 0.5), (5, 1, True, 1.5), (7, 2, True, 0.3),
+                 (7, 2, True, 0.8), (7, 2, True, "jump"), (2, 3, True, 0.7), (3, 0, False, 0.6),
+                 (5, 1, False, 0.5), (7, 2, False, 0.3), (2, 3, False, 0.7)]
+
+
+def _dynamic_history(device, fill, seed, contract, dtype):
+    """tests/test_torch_dynamic.py's `build_history`, committed by the port:
+    (logl, bm) of a (8, 64) history in 3-D."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, dim, cap = 64, 3, 8
+    hist, cur = make_history(cap, n, dim, dtype=dtype, device=device), make_current(
+        n, dim, dtype=dtype, device=device)
+    np_type = np.float64 if dtype == torch.float64 else np.float32
+    for t in range(fill):
+        width = 1.0 / (1.0 + t) if contract else 4.0
+        u = np.clip(0.5 + width * rng.normal(0, 0.25, (n, dim)), 0.0, 1.0).astype(np_type)
+        cur.u = cur.x = torch.from_numpy(u).to(device)
+        cur.logl = torch.from_numpy((-0.5 * np.sum(((u - 0.5) / 0.05) ** 2, axis=1))
+                                    .astype(np_type)).to(device)
+        cur.beta = torch.tensor(0.002 * t * t, dtype=dtype, device=device)
+        cur.logz = torch.tensor(-0.3 * t, dtype=dtype, device=device)
+        commit(hist, cur)
+    inf = torch.tensor(float("inf"), device=device, dtype=dtype)
+    bm = torch.where(hist.sample_mask(), mis_denominator(hist), inf)
+    return hist.logl.reshape(-1).contiguous(), bm.reshape(-1).contiguous(), float(
+        hist.beta[fill - 1])
+
+
+def _assert_bracket_matches(logl, bm, scal, got, want):
+    """The bracket mode's ((lo, hi), probes) against the plain version's:
+    the same probes; stay and jump exact; in float64 each end within 1e-12
+    (relative); in float32 the same ends, or else the plain ESS at the first
+    midpoint decided the other way within 1e-5 (relative) of the target,
+    and the ends always within 2e-3."""
+    (bk, pk), (br, pr) = got, want
+    assert pk.item() == pr.item(), (bk.tolist(), br.tolist(), pk.item(), pr.item())
+    (lo_k, hi_k), (lo_r, hi_r) = bk.tolist(), br.tolist()
+    if pr.item() == 2 or torch.equal(bk, br):
+        assert torch.equal(bk, br), (bk.tolist(), br.tolist())
+        return
+    if bk.dtype == torch.float64:
+        assert abs(lo_k - lo_r) <= 1e-12 * abs(lo_r) and abs(hi_k - hi_r) <= 1e-12 * abs(hi_r)
+        return
+    assert abs(lo_k - lo_r) < 2e-3 and abs(hi_k - hi_r) < 2e-3, (bk.tolist(), br.tolist())
+    target = scal[1].item()
+    lo, hi = scal[0].cpu(), torch.ones((), dtype=bk.dtype)
+    for _ in range(pr.item() - 2):
+        mid = 0.5 * (lo + hi)
+        up_k, up_r = lo_k >= mid.item(), lo_r >= mid.item()
+        if up_k != up_r:
+            assert abs(_ess(logl, bm, mid.item()) - target) <= 1e-5 * abs(target), mid.item()
+            return
+        lo, hi = (mid, hi) if up_r else (lo, mid)
+    raise AssertionError(f"brackets {bk.tolist()} and {br.tolist()} differ with no decision "
+                         "taken the other way")
+
+
+def _bracket_cases(logl, bm, bp, n):
+    cur, one = _ess(logl, bm, bp), _ess(logl, bm, 1.0)
+    return [(bp, 1.5 * cur), (bp, 0.5 * one), (bp, (cur * one) ** 0.5), (0.0, 2.0 * n),
+            (bp, 0.9 * cur)]
+
+
+def _check_bracket_cases(device, logl, bm, cases, dtype, kinds):
+    for beta_prev, target in cases:
+        scal = torch.tensor([beta_prev, target], device=device, dtype=dtype)
+        got = cuda_reweight.ess_bracket(logl, bm, scal)
+        again = cuda_reweight.ess_bracket(logl, bm, scal)
+        want = rw_mod.ess_bracket_loop(logl, bm, scal)
+        torch.cuda.synchronize()
+        assert got[0].dtype == dtype and got[0].shape == (2,)
+        assert _same_bits(got[0], again[0]) and torch.equal(got[1], again[1])
+        _assert_bracket_matches(logl, bm, scal, got, want)
+        lo, hi = want[0].tolist()
+        kinds.add("bisect" if want[1].item() > 2 else ("jump" if lo == 1.0 else "stay"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bracket_kernel_on_the_dynamic_histories(cuda_device, dtype):
+    """The bracket mode against its plain version on the histories of
+    tests/test_torch_dynamic.py, at their targets and at a bracket's
+    stay, jump and bisection targets."""
+    kinds = set()
+    before = cuda_reweight.BRACKET_LAUNCHES
+    launches = 0
+    for fill, seed, contract, ess_mult in DYNAMIC_CASES:
+        logl, bm, bp = _dynamic_history(cuda_device, fill, seed, contract, dtype)
+        cur, one = _ess(logl, bm, bp), _ess(logl, bm, 1.0)
+        target = 0.5 * one if ess_mult == "jump" else ess_mult * cur
+        cases = [(bp, target)] + _bracket_cases(logl, bm, bp, 64)
+        _check_bracket_cases(cuda_device, logl, bm, cases, dtype, kinds)
+        launches += 2 * len(cases)
+    assert kinds == {"stay", "jump", "bisect"}
+    assert cuda_reweight.BRACKET_LAUNCHES == before + launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cap,N,t_fill,S,beta_prev", [
+    # dynamic mode's history, most rows masked, from its last row's beta; held on chip
+    (192, 1024, 48, 196608, 0.47),
+    (8, 24576, 8, 196608, 0.07),  # the same S all filled
+    (8, 65536, 8, 524288, 0.07),  # streamed in both types
+    (8, 131072, 8, 1048576, 0.07),  # B's
+])
+def test_bracket_kernel_matches_plain_version(cuda_device, dtype, cap, N, t_fill, S, beta_prev):
+    logl, bm = _synthetic(cuda_device, cap, N, t_fill, seed=N, dtype=dtype)
+    assert logl.numel() == S
+    assert cuda_reweight.plan_launch(S, dtype).resident == (S <= ON_CHIP_MAX_F64 or (
+        dtype == torch.float32 and S <= ON_CHIP_MAX))
+    kinds = set()
+    _check_bracket_cases(cuda_device, logl, bm, _bracket_cases(logl, bm, beta_prev, N), dtype,
+                         kinds)
+    assert kinds == {"stay", "jump", "bisect"}
+
+
+@pytest.mark.cuda
+def test_bracket_kernel_rejects_what_it_does_not_take(cuda_device):
+    logl, bm = _synthetic(cuda_device, 4, 32, 3, seed=1)
+    scal = torch.tensor([0.0, 64.0], device=cuda_device)
+    for args in [(logl.half(), bm.half(), scal.half()), (logl.double(), bm.double(), scal),
+                 (logl[::2], bm[::2], scal), (logl, bm.cpu(), scal)]:
+        with pytest.raises(ValueError):
+            cuda_reweight.ess_bracket(*args)
+
+
+@pytest.mark.cuda
+def test_bracket_kernel_captures(cuda_device):
+    """A launch captured in a CUDA graph reads beta_prev and the target from
+    its device words at every replay."""
+    logl, bm = _synthetic(cuda_device, 8, 4096, 6, seed=5)
+    scal = torch.tensor([0.0, 3000.0], device=cuda_device)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        cuda_reweight.ess_bracket(logl, bm, scal)  # warm-up: the build and the attributes
+        with torch.cuda.graph(graph, stream=stream):
+            out, probes = cuda_reweight.ess_bracket(logl, bm, scal)
+    torch.cuda.current_stream().wait_stream(stream)
+    for target in (3000.0, 1500.0, 8000.0):
+        scal.copy_(torch.tensor([0.04, target], device=cuda_device))
+        graph.replay()
+        want = cuda_reweight.ess_bracket(logl, bm, scal)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want[0]) and torch.equal(probes, want[1])

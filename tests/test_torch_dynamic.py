@@ -11,7 +11,11 @@
    1e-5 relative, logZ 1e-5 absolute, CV 1e-4 relative; the largest
    differences found were 0 for beta (the same float32 decisions) and
    below 1e-6 for ESS, logZ and CV.
-2. Whole runs on the CPU: the checks of tests/test_dynamic.py on the
+2. The ESS bracket alone: the plain route of the ESS kernel's bracket
+   mode (`ops.cuda_reweight.ess_bracket` on CPU tensors) equals the
+   "ess_bracket" loop bit for bit, probes included, and JAX's
+   `_find_ess_bracket` within 1e-5 (relative), on the same histories.
+3. Whole runs on the CPU: the checks of tests/test_dynamic.py on the
    port, with per-point likelihoods (the default call form).
 """
 
@@ -23,9 +27,12 @@ import pytest
 import torch
 
 from tempest_tpu.state import commit, make_current, make_history
+from tempest_tpu.state import mis_denominator as jax_mis_denominator
+from tempest_tpu.steps.reweight import _find_ess_bracket, _make_metric_fns
 from tempest_tpu.steps.reweight import reweight as jax_reweight
 from tempest_tpu_torch import Sampler, interop
 from tempest_tpu_torch.loops import Loops
+from tempest_tpu_torch.ops.cuda_reweight import ess_bracket
 from tempest_tpu_torch.ops.tools import ess_from_logw
 from tempest_tpu_torch.state import logw_from_denominator, mis_denominator
 from tempest_tpu_torch.steps import reweight as rw_mod
@@ -139,6 +146,28 @@ def test_loop_bisections_equal_jax(fill, seed, contract, ess_mult, cv_target, ch
     assert bracket["reads"] >= 1 and bracket["bodies"] == chunk * bracket["reads"]
     if cv["reads"]:  # one read of the boundary rules, then one a chunk
         assert cv["bodies"] == chunk * (cv["reads"] - 1)
+
+
+@pytest.mark.parametrize("fill,seed,contract,ess_mult,cv_target", CASES)
+def test_bracket_plain_route_equals_loop_and_jax(fill, seed, contract, ess_mult, cv_target):
+    """The plain route of the ESS kernel's bracket mode (`ess_bracket` on
+    CPU tensors) against the "ess_bracket" loop of `_find_ess_bracket`, bit
+    for bit with its probes, and against JAX's `_find_ess_bracket` within
+    1e-5 (relative)."""
+    hist, th, beta_prev, target, _, _ = _run_case(fill, seed, contract, ess_mult, cv_target)
+    denom = mis_denominator(th)
+    bm = torch.where(th.sample_mask(), denom, torch.full_like(denom, float("inf")))
+    scal = torch.tensor([beta_prev, target], dtype=torch.float32)
+    got, probes = ess_bracket(th.logl.reshape(-1), bm.reshape(-1), scal)
+    before = rw_mod.PROBES["ess_bracket"]
+    lo, hi, crossing = rw_mod._find_ess_bracket(th, denom, torch.tensor(beta_prev), target)
+    assert torch.equal(got, torch.stack([lo, hi])) and got.dtype == torch.float32
+    assert int(probes) == rw_mod.PROBES["ess_bracket"] - before
+    assert crossing == (float(lo) != float(hi))
+    ess_at = _make_metric_fns(hist, False, jax_mis_denominator(hist))[0]
+    want = np.array(_find_ess_bracket(ess_at, jnp.asarray(beta_prev, jnp.float32),
+                                      jnp.asarray(target, jnp.float32), jnp.float32))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=0)
 
 
 def test_probes_are_counted():

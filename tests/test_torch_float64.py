@@ -26,7 +26,9 @@ writes what it computed to an npz that a module-scoped fixture reads:
    use_pallas=False)` on the histories of tests/test_torch_dynamic.py's
    CASES, made in float64; the port's float64 reweight must reach the
    same beta, bit for bit, with its bisections as device loops in chunks
-   of 1, 3 and 8 bodies too.
+   of 1, 3 and 8 bodies too; and XLA's `_find_ess_bracket` alone: the
+   plain route of the ESS kernel's bracket mode must reach it within 1e-12
+   (relative) and equal the port's "ess_bracket" loop bit for bit.
 
 In the test process (port only): the 4-D Gaussian of tests/test_float64.py
 with its bars (|logZ + 4 log 20| < 0.35, the MIS accumulator within 1e-9 of
@@ -47,8 +49,13 @@ import torch
 from tempest_tpu_torch import Sampler, interop
 from tempest_tpu_torch.cluster import fit_uniforms
 from tempest_tpu_torch.loops import Loops
-from tempest_tpu_torch.ops.cuda_reweight import ess_bisect_beta, ess_bisect_beta_reference
+from tempest_tpu_torch.ops.cuda_reweight import (
+    ess_bisect_beta,
+    ess_bisect_beta_reference,
+    ess_bracket,
+)
 from tempest_tpu_torch.state import mis_denominator, mis_denominator_exact
+from tempest_tpu_torch.steps import reweight as rw_mod
 from tempest_tpu_torch.steps.reweight import reweight
 from tempest_tpu_torch.utils import threefry
 from test_torch_dynamic import CASES as DYNAMIC_CASES
@@ -75,7 +82,7 @@ _SCRIPT = textwrap.dedent(
 
     from tempest_tpu import Sampler as JaxSampler
     from tempest_tpu.state import mis_denominator
-    from tempest_tpu.steps.reweight import _find_beta_bisection, _make_metric_fns
+    from tempest_tpu.steps.reweight import _find_beta_bisection, _find_ess_bracket, _make_metric_fns
     from tempest_tpu.steps.reweight import reweight as jax_reweight
     from tempest_tpu_torch import Sampler, interop
     from tempest_tpu_torch.cluster import single_cluster_model
@@ -234,6 +241,9 @@ _SCRIPT = textwrap.dedent(
                     for k in interop.HISTORY_FIELDS + ("t",)})
         out[f"dyn{i}.args"] = np.array([beta_prev, target, cv_target])
         out[f"dyn{i}.want"] = np.array(rw.beta)
+        out[f"dyn{i}.bracket"] = np.array(_find_ess_bracket(
+            _make_metric_fns(hist, False, denom)[0], jnp.asarray(beta_prev, jnp.float64),
+            jnp.asarray(target, jnp.float64), jnp.float64))
 
     # 6. the CV at d = 100 (tests/test_torch_tools.py's inputs)
     from tempest_tpu.ops.tools import volume_variation_dtn
@@ -337,6 +347,29 @@ def test_dynamic_loop_bisections_against_xla_float64(jax_x64, case, chunk):
     assert got.beta.dtype == torch.float64
     assert float(got.beta) == want
     assert loops.stats["ess_bracket"]["reads"] >= 1
+
+
+@pytest.mark.parametrize("case", range(len(DYNAMIC_CASES)))
+def test_bracket_plain_route_against_xla_float64(jax_x64, case):
+    """The plain route of the ESS kernel's bracket mode in float64: the
+    "ess_bracket" loop's bracket and probes bit for bit, and XLA's float64
+    `_find_ess_bracket` within 1e-12 (relative)."""
+    fields = {k.split(".", 1)[1]: v for k, v in jax_x64.items()
+              if k.startswith(f"dyn{case}.")}
+    beta_prev, target, _ = fields.pop("args").tolist()
+    want = fields.pop("bracket")
+    fields.pop("want")
+    hist = interop.history_from_numpy(fields, "cpu")
+    denom = mis_denominator(hist)
+    bm = torch.where(hist.sample_mask(), denom, torch.full_like(denom, float("inf")))
+    got, probes = ess_bracket(hist.logl.reshape(-1), bm.reshape(-1),
+                              torch.tensor([beta_prev, target], dtype=torch.float64))
+    before = rw_mod.PROBES["ess_bracket"]
+    lo, hi, _ = rw_mod._find_ess_bracket(hist, denom, torch.tensor(beta_prev, dtype=torch.float64),
+                                         target)
+    assert got.dtype == torch.float64 and torch.equal(got, torch.stack([lo, hi]))
+    assert int(probes) == rw_mod.PROBES["ess_bracket"] - before
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=0)
 
 
 def _close(got, want, what):

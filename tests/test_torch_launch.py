@@ -18,7 +18,7 @@ import re
 import pytest
 import torch
 
-from tempest_tpu_torch.ops import _build, cuda_prng, cuda_reweight, philox
+from tempest_tpu_torch.ops import _build, cuda_median, cuda_prng, cuda_reweight, philox
 
 C_TYPES = {
     "const void*": ctypes.c_void_p,
@@ -27,6 +27,7 @@ C_TYPES = {
     "int": ctypes.c_int,
     "uint32_t": ctypes.c_uint32,
     "uint64_t": ctypes.c_uint64,
+    "double": ctypes.c_double,
 }
 
 
@@ -43,8 +44,8 @@ def _declarations(source: str) -> dict:
     return out
 
 
-@pytest.mark.parametrize("library", [cuda_reweight.LIBRARY, cuda_prng.LIBRARY],
-                         ids=lambda lib: lib.source)
+@pytest.mark.parametrize("library", [cuda_reweight.LIBRARY, cuda_prng.LIBRARY,
+                                     cuda_median.LIBRARY], ids=lambda lib: lib.source)
 def test_signature_table_matches_the_source(library):
     declared = _declarations(library.source)
     assert set(declared) == set(library.functions)
@@ -99,9 +100,15 @@ ON_CHIP_F64 = cuda_reweight.ESS_CLUSTER * cuda_reweight.slice_max(torch.float64)
 
 
 def test_each_dtype_names_its_entry():
+    """Each dtype names its C entry in each mode: the ESS-mode bisection and
+    the bracket mode of one source; the weighted median's."""
     assert cuda_reweight.ENTRIES == {torch.float32: "tempest_ess_bisect",
                                      torch.float64: "tempest_ess_bisect_f64"}
-    assert set(cuda_reweight.ENTRIES.values()) == set(cuda_reweight.LIBRARY.functions)
+    assert cuda_reweight.BRACKET_ENTRIES == {torch.float32: "tempest_ess_bracket",
+                                             torch.float64: "tempest_ess_bracket_f64"}
+    assert (set(cuda_reweight.ENTRIES.values()) | set(cuda_reweight.BRACKET_ENTRIES.values())
+            == set(cuda_reweight.LIBRARY.functions))
+    assert set(cuda_median.ENTRIES.values()) == set(cuda_median.LIBRARY.functions)
 
 
 @pytest.mark.parametrize(
