@@ -25,14 +25,16 @@ Counterpart of tempest_tpu/cluster.py, with its four covariance types
 JAX vmaps the leaf fits and the restarts; here every function takes a
 leading batch axis B of leaves, and the n_init restarts of each leaf are
 laid out on that same axis (B * n_init fits) before the best lower bound
-of each leaf is taken. The vmapped EM `while_loop` (:256) becomes the
-device loop "gmm_em" (`loops.run_loop`) over the whole batch with a `done`
-flag per fit: a fit that is done (or at `max_iter`) keeps its parameters
-while the others iterate, as under vmap, and the loop reads `any(active)`
-once a chunk of EM iterations. A split round (:943-948) carries the leaf
-count and `go` as device tensors; its stretch before the EM ("split_head")
-and after it ("split_tail") are each one graph replay when graphs are on,
-and the host reads `go` and the leaf count once a round.
+of each leaf is taken. The vmapped EM `while_loop` (:256) becomes, on CPU
+tensors, the device loop "gmm_em" (`loops.run_loop`) over the whole batch
+with a `done` flag per fit: a fit that is done (or at `max_iter`) keeps its
+parameters while the others iterate, as under vmap, and the loop reads
+`any(active)` once a chunk of EM iterations. On CUDA tensors the whole
+loop is one launch of a kernel (`ops.cuda_em.gmm_em`) that reads nothing.
+A split round (:943-948) carries the leaf count and `go` as device
+tensors; its stretch before the EM ("split_head"), the EM and the stretch
+after it ("split_tail") are each one graph replay when graphs are on, and
+the host reads `go` and the leaf count once a round.
 
 A fit's only randomness is one k-means++ uniform per component and start,
 from its key; `utils/threefry.py` computes them as `jax.random` does, in
@@ -52,6 +54,7 @@ import numpy as np
 import torch
 
 from .loops import Loops, run_loop
+from .ops import cuda_em
 from .ops.tools import logsumexp
 from .utils import threefry
 
@@ -247,13 +250,38 @@ def _gmm_em_body(c, k, covariance_type: str, reg_covar: float):
     )
 
 
+def _gmm_em_kernel(k, covariance_type: str, reg_covar: float):
+    """The "gmm_em" loop as one launch of `ops.cuda_em.gmm_em`."""
+    carry = {e: k[e].contiguous() for e in ("pi", "means", "covs", "lb", "n_iter", "done")}
+    return cuda_em.gmm_em(k["X"].contiguous(), k["sw"].contiguous(), carry, k["tol"],
+                          k["max_iter"], reg_covar, covariance_type)
+
+
+def _gmm_consts(X, max_iter: int, tol: float, **tensors):
+    return dict(tensors, X=X, tol=torch.full((), tol, dtype=X.dtype, device=X.device),
+                max_iter=torch.full((), max_iter, dtype=torch.int32, device=X.device))
+
+
+def _gmm_em_plain(X, sw, carry, max_iter: int, tol: float, reg_covar: float,
+                  covariance_type: str, loops: Optional[Loops]):
+    """The plain "gmm_em" loop: a read a chunk of bodies. The CPU route, and
+    on the card the kernel's yardstick."""
+    body = functools.partial(_gmm_em_body, covariance_type=covariance_type, reg_covar=reg_covar)
+    return run_loop(loops, "gmm_em", body, carry, _gmm_consts(X, max_iter, tol, sw=sw),
+                    static=(covariance_type, reg_covar))
+
+
 def _gmm_em(X, sw, carry, max_iter: int, tol: float, reg_covar: float, covariance_type: str,
             loops: Optional[Loops]):
-    """The EM loop (cluster.py:256), "gmm_em": run until no fit is active."""
-    consts = dict(X=X, sw=sw, tol=torch.full((), tol, dtype=X.dtype, device=X.device),
-                  max_iter=torch.full((), max_iter, dtype=torch.int32, device=X.device))
-    body = functools.partial(_gmm_em_body, covariance_type=covariance_type, reg_covar=reg_covar)
-    return run_loop(loops, "gmm_em", body, carry, consts, static=(covariance_type, reg_covar))
+    """The EM loop (cluster.py:256), "gmm_em", run until no fit is active: on
+    CPU tensors the plain loop, on CUDA tensors one launch of the kernel
+    (`ops.cuda_em`; through `loops.once`, a graph replay when graphs are
+    on), which reads nothing."""
+    if not cuda_em.kernel_route(X, sw):
+        return _gmm_em_plain(X, sw, carry, max_iter, tol, reg_covar, covariance_type, loops)
+    fn = functools.partial(_gmm_em_kernel, covariance_type=covariance_type, reg_covar=reg_covar)
+    inputs = _gmm_consts(X, max_iter, tol, sw=sw, **{e: v for e, v in carry.items() if e != "go"})
+    return (loops or Loops(X.device)).once("gmm_em", fn, inputs, (covariance_type, reg_covar))
 
 
 def _gmm_finish(X, sw, carry, B: int, reg_covar: float):

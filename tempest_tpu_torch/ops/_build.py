@@ -1,10 +1,11 @@
 """Build and load the port's CUDA sources.
 
 Each source under `csrc/` is compiled by nvcc for sm_90a into its own
-shared library with a plain C interface, named by a hash of the source and
-its flags, in the `.gitignore`d `build/tempest_tpu_torch/`, and loaded with
-ctypes. A build happens at first use (or all at once through `build_all`,
-one nvcc per source, started together); a failed build raises.
+shared library with a plain C interface, named by a hash of the source,
+the headers it includes and its flags, in the `.gitignore`d
+`build/tempest_tpu_torch/`, and loaded with ctypes. A build happens at
+first use (or all at once through `build_all`, one nvcc per source,
+started together); a failed build raises.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ class CudaLibrary:
     source: str  # file name under csrc/
     functions: Mapping[str, Sequence[type]]
     extra_flags: Tuple[str, ...] = ()
+    headers: Tuple[str, ...] = ()  # files under csrc/ the source includes
 
     @property
     def stem(self) -> str:
@@ -49,7 +51,8 @@ class CudaLibrary:
         """The library built from the current source with these flags."""
         flags = NVCC_FLAGS + self.extra_flags
         h = hashlib.sha256(" ".join(flags).encode())
-        h.update((CSRC / self.source).read_bytes())
+        for name in (self.source, *self.headers):
+            h.update((CSRC / name).read_bytes())
         return BUILD_DIR / f"lib{self.stem}_{h.hexdigest()[:16]}.so"
 
     def _command(self, out: Path) -> list:

@@ -8,11 +8,13 @@ stationarity equation (:65-103), and the `_nu_converged` exit (:106-134).
 
 `fit_mvstud_weighted_modes` fits K weightings of the same points at once,
 as `jax.vmap` of `fit_mvstud_weighted` does (tempest_tpu/modes.py:141-147):
-one batched EM whose `lax.while_loop` (student.py:295) becomes a device
-loop (`loops.run_loop`, "mode_em") with a done flag per weighting. A
-weighting stops at its own exit (converged, Gaussian limit or `max_iter`
-iterations) and its (mu, Sigma, nu) are frozen from then on; the loop's
-predicate, "any weighting active", is read once a chunk. The unweighted
+one batched EM whose `lax.while_loop` (student.py:323) becomes, on CPU
+tensors, a device loop (`loops.run_loop`, "mode_em") with a done flag per
+weighting. A weighting stops at its own exit (converged, Gaussian limit or
+`max_iter` iterations) and its (mu, Sigma, nu) are frozen from then on;
+the loop's predicate, "any weighting active", is read once a chunk. On
+CUDA tensors the whole loop is one launch of a kernel
+(`ops.cuda_em.mvstud_em`) that reads nothing. The unweighted
 `fit_mvstud` keeps a Python loop that reads one boolean per EM iteration.
 A covariance that is not positive definite is detected through
 `cholesky_ex`'s `info` (torch's `cholesky` raises where jnp's returns
@@ -26,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from .loops import Loops, run_loop
+from .ops import cuda_em
 # The weighted-median start (student.py:220-231): the kernel of
 # `ops.cuda_median` on CUDA tensors, its plain version on CPU ones.
 from .ops.cuda_median import weighted_median_presorted as _weighted_median_presorted
@@ -189,19 +192,11 @@ def _em_body(c, k):
                 go=torch.any(active))
 
 
-def fit_mvstud_weighted_modes(
-    data: torch.Tensor,
-    weights: torch.Tensor,
-    tolerance: float = 1e-6,
-    max_iter: int = 100,
-    sort_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-    loops: Optional[Loops] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Weighted multivariate Student-t EM of the points `data` (n, dim)
-    under each row of `weights` (K, n): (mu (K, dim), Sigma (K, dim, dim),
-    nu (K,)); nu == +inf signals the Gaussian limit. `sort_cache` is
-    `sort_columns(data)`; `loops` runs the EM loop (default: a read after
-    every EM iteration, no graph)."""
+def _mode_start(data: torch.Tensor, weights: torch.Tensor, tolerance: float, max_iter: int,
+                sort_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """The carry and constants of the weighted EM loop at its start
+    (student.py:276-297): the weighted-median location, the weighted
+    covariance plus diag(var) / n_eff, nu = 20."""
     weights = weights.to(data.dtype)
     n, dim = data.shape
     dtype, device = data.dtype, data.device
@@ -229,7 +224,51 @@ def fit_mvstud_weighted_modes(
     consts = dict(data=data, wbar=wbar, eye=torch.eye(dim, dtype=dtype, device=device),
                   tolerance=torch.full((), tolerance, dtype=dtype, device=device),
                   max_iter=torch.full((), max_iter, dtype=torch.int32, device=device))
-    out = run_loop(loops, "mode_em", _em_body, carry, consts)
+    return carry, consts
+
+
+def _mode_em_kernel(k):
+    """The "mode_em" loop as one launch of `ops.cuda_em.mvstud_em`."""
+    carry = {e: k[e].contiguous() for e in ("mu", "Sigma", "nu", "last_nu", "i", "hit_inf",
+                                             "active")}
+    return cuda_em.mvstud_em(k["data"].contiguous(), k["wbar"].contiguous(), carry,
+                             k["tolerance"], k["max_iter"])
+
+
+def _mode_em_plain(carry, consts, loops: Optional[Loops]):
+    """The plain "mode_em" loop: a read a chunk of bodies. The CPU route, and
+    on the card the kernel's yardstick."""
+    return run_loop(loops, "mode_em", _em_body, carry, consts)
+
+
+def _mode_em(carry, consts, loops: Optional[Loops]):
+    """The EM loop (student.py:323), "mode_em", run until no weighting is
+    active: on CPU tensors the plain loop, on CUDA tensors one launch of the
+    kernel (`ops.cuda_em`; through `loops.once`, a graph replay when graphs
+    are on), which reads nothing."""
+    data = consts["data"]
+    if not cuda_em.kernel_route(data, consts["wbar"]):
+        return _mode_em_plain(carry, consts, loops)
+    inputs = {e: v for e, v in carry.items() if e != "go"}
+    inputs.update({e: consts[e] for e in ("data", "wbar", "tolerance", "max_iter")})
+    return (loops or Loops(data.device)).once("mode_em", _mode_em_kernel, inputs)
+
+
+def fit_mvstud_weighted_modes(
+    data: torch.Tensor,
+    weights: torch.Tensor,
+    tolerance: float = 1e-6,
+    max_iter: int = 100,
+    sort_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    loops: Optional[Loops] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Weighted multivariate Student-t EM of the points `data` (n, dim)
+    under each row of `weights` (K, n): (mu (K, dim), Sigma (K, dim, dim),
+    nu (K,)); nu == +inf signals the Gaussian limit. `sort_cache` is
+    `sort_columns(data)`; `loops` runs the EM loop (default: a read after
+    every EM iteration, no graph)."""
+    carry, consts = _mode_start(data, weights, tolerance, max_iter, sort_cache)
+    out = _mode_em(carry, consts, loops)
     Sigma, _ = regularized_cholesky(out["Sigma"])
     return out["mu"], Sigma, out["nu"]
 

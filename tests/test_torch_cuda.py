@@ -64,6 +64,21 @@ in float32 the same ends, or else the plain ESS at the first midpoint
 decided the other way within 1e-5 (relative) of the target (the kernel's
 s1^2 / s2 rounds otherwise than the plain version's normalised ESS), and
 the ends always within 2e-3.
+
+The EM kernels (`ops.cuda_em`, csrc/gmm_em.cu and csrc/mvstud_em.cu)
+against their plain loops, the "gmm_em" and "mode_em" device loops on the
+same CUDA tensors, by chip_smoke.py's rule (stated above its EM_STEP_RTOL;
+each kernel iteration against one plain body from the kernel's state, then
+the whole fit): the GMM EM at
+A's leaf fits, every covariance type, K = 1, 2 and 16, a leaf with all-zero
+weights, an indefinite start (the sqrt(reg) I factor) and an exit at
+max_iter; the Student-t EM at A's, the unclustered paths', B's and
+rosenbrock100's (K, n, d), a mode with all-zero weights, a singular start
+(the diagonal floor), an exit at max_iter and the Gaussian-limit exit; in
+float32 and float64; the CTA size of 256 threads, which the launch plan
+takes in float32 only, in float64 from sources edited to take it always;
+one launch a loop, two launches the same bits, and a graph replay equal to
+an eager launch, counted as a launch, with no read.
 """
 
 import json
@@ -469,8 +484,8 @@ def test_graphed_mode_fits_equal_eager(cuda_device):
         for name in ("means", "covariances", "degrees_of_freedom", "inv_covariances",
                      "chol_covariances", "k_mask"):
             assert torch.equal(getattr(got, name), getattr(want, name)), (seed, name)
-    stats = graphed.stats["mode_em"]
-    assert stats["captures"] == 1 and stats["replays"] == stats["chunks"] >= 2
+    stats = graphed.stats["mode_em"]  # one kernel launch a fit, as one replay, no read
+    assert stats["captures"] == 1 and stats["replays"] == 2 and stats["reads"] == 0
 
 
 @pytest.mark.cuda
@@ -1254,3 +1269,196 @@ def test_bracket_kernel_captures(cuda_device):
         want = cuda_reweight.ess_bracket(logl, bm, scal)
         torch.cuda.synchronize()
         assert torch.equal(out, want[0]) and torch.equal(probes, want[1])
+
+
+# ---------------------------------------------------------------------------
+# The EM kernels (ops/cuda_em.py; csrc/gmm_em.cu, csrc/mvstud_em.cu)
+# ---------------------------------------------------------------------------
+# Each kernel against its plain loop ("gmm_em": cluster._gmm_em_plain;
+# "mode_em": student._mode_em_plain) on the same CUDA tensors from the same
+# start, by chip_smoke.py's rule (stated, with the measured readings behind
+# its limits, above its EM_STEP_RTOL): step by step, each of the kernel's
+# iterations against one plain body from the kernel's state before it, and
+# the whole fit against the plain loop's (float64 within 1e-9, float32
+# within 2e-3 normwise, with the same counts), a fit that parts allowed
+# only where the plain loop parts from itself when only the order of its
+# sums changes, or at an exit decided within 16 ulps. The data are made
+# from a seed at the paths' shapes.
+import numpy as np  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402
+from tempest_tpu_torch import student as ts  # noqa: E402
+from tempest_tpu_torch.ops import _build, cuda_em  # noqa: E402
+
+
+def _mixture_points(rng, n, d, k):
+    centers = 4.0 * rng.normal(size=(k, d))
+    labels = rng.integers(0, k, size=n)
+    scale = 1.0 / np.sqrt(rng.uniform(size=(n, 1)) + 0.2)
+    return centers[labels] + rng.normal(size=(n, d)) * scale
+
+
+def _gmm_start(device, B, n, d, K, cov, dtype, seed, zero_leaf=False, indefinite=False,
+               max_iter=1000):
+    rng = np.random.default_rng(seed)
+    X = np.stack([_mixture_points(rng, n, d, 3) for _ in range(B)])
+    w = rng.uniform(0.1, 1.0, size=(B, n))
+    if zero_leaf:
+        w[-1] = 0.0
+    u = rng.uniform(size=(B, K))
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    Xb, sw, carry = tc._gmm_start(t(X), t(w), K, t(u), max_iter, cov)
+    if indefinite:  # the sqrt(reg) I factor where Cholesky fails
+        carry["covs"] = carry["covs"].clone()
+        carry["covs"][0, -1] = -torch.eye(d, dtype=dtype, device=device)
+    return Xb, sw, carry
+
+
+def _run_gmm(Xb, sw, carry, cov, max_iter=1000):
+    return tc._gmm_em(Xb, sw, carry, max_iter, 1e-3, 1e-6, cov, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,d,K,cov", [
+    (16, 2048, 10, 2, "full"),  # A's leaf fits: 16 leaf slots, leaf_fit_points, K = 2
+    (1, 2048, 10, 2, "full"),
+    (4, 2048, 10, 2, "tied"),
+    (4, 2048, 10, 2, "diag"),
+    (4, 2048, 10, 2, "spherical"),
+    (2, 2048, 10, 1, "full"),
+    (2, 4096, 10, 16, "full"),
+    (2, 1000, 3, 16, "spherical"),
+])
+def test_gmm_em_kernel_matches_plain_loop(cuda_device, dtype, B, n, d, K, cov):
+    Xb, sw, carry = _gmm_start(cuda_device, B, n, d, K, cov, dtype, seed=B * 100 + K)
+    cs.em_gmm_case((B, n, d, K, cov), Xb, sw, carry, cov)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["zero_leaf", "indefinite", "max_iter"])
+def test_gmm_em_kernel_edge_cases(cuda_device, dtype, case):
+    max_iter = 3 if case == "max_iter" else 1000
+    Xb, sw, carry = _gmm_start(cuda_device, 4, 2048, 10, 2, "full", dtype, seed=7,
+                               zero_leaf=case == "zero_leaf", indefinite=case == "indefinite",
+                               max_iter=max_iter)
+    report = cs.em_gmm_case(case, Xb, sw, carry, "full", max_iter)
+    if case == "max_iter":
+        got = _run_gmm(Xb, sw, carry, "full", max_iter)
+        assert bool((got["n_iter"] == 3).all()) and not bool(got["done"].any())
+    assert not report["parted"], report["parted"]
+
+
+def _mode_start(device, K, n, d, dtype, seed, zero_mode=False, singular=False, gaussian=False,
+                max_iter=100):
+    rng = np.random.default_rng(seed)
+    if gaussian:
+        data = rng.normal(size=(n, d))
+    else:
+        data = rng.standard_t(4.0, size=(n, d)) * rng.uniform(0.5, 2.0, size=d)
+        data[:, 1:] += 0.3 * data[:, :-1]
+    labels = rng.integers(0, K, size=n)
+    w = rng.uniform(0.05, 1.0, size=(K, n)) * (labels[None] == np.arange(K)[:, None])
+    if zero_mode:
+        w[-1] = 0.0
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    carry, consts = ts._mode_start(t(data), t(w), 1e-6, max_iter)
+    if singular:  # the max(1e-6, 1e-6 |trace|) floor where Cholesky fails
+        carry["Sigma"] = carry["Sigma"].clone()
+        carry["Sigma"][0] = 0.0
+    return carry, consts
+
+
+def _run_modes(carry, consts):
+    return ts._mode_em(carry, consts, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K,n,d", [
+    (16, 4096, 10),  # A's clustered fit: k_max modes of 4 N fit points
+    (1, 4096, 10),  # the unclustered and dynamic paths' global fit
+    (1, 524288, 10),  # B's global fit
+    (1, 8192, 100),  # rosenbrock100's
+])
+def test_mvstud_em_kernel_matches_plain_loop(cuda_device, dtype, K, n, d):
+    carry, consts = _mode_start(cuda_device, K, n, d, dtype, seed=K + d)
+    cs.em_mode_case((K, n, d), carry, consts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["zero_mode", "singular", "max_iter", "gaussian"])
+def test_mvstud_em_kernel_edge_cases(cuda_device, dtype, case):
+    max_iter = 3 if case == "max_iter" else 100
+    carry, consts = _mode_start(cuda_device, 4, 4096, 10, dtype, seed=11,
+                                zero_mode=case == "zero_mode", singular=case == "singular",
+                                gaussian=case == "gaussian", max_iter=max_iter)
+    report = cs.em_mode_case(case, carry, consts)
+    if case == "max_iter":
+        assert report["iterations"] == [3] * 4
+    if case == "gaussian":  # the Gaussian-limit exit: nu = +inf, mu and Sigma kept
+        assert report["gaussian_limit"] > 0
+    assert not report["parted"], report["parted"]
+
+
+@pytest.mark.cuda
+def test_em_kernels_small_cta_in_float64(cuda_device, tmp_path, monkeypatch):
+    """The 256-thread CTA plan, which the launch plan takes in float32 past
+    64 CTAs only, held by the float64 rule: sources whose plan always takes
+    256 threads (scripts/em_designs.py's edit of em_common.cuh)."""
+    src = tmp_path / "csrc"
+    import shutil
+    shutil.copytree(_build.CSRC, src)
+    header = (src / "em_common.cuh").read_text()
+    rule = "return elem == 4 && ctas > 64 ? kSmallCta : kLargeCta;"
+    assert rule in header
+    (src / "em_common.cuh").write_text(header.replace(rule, "return kSmallCta;"))
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "_loaded", {})
+    assert cuda_em.plan(cuda_em.MVSTUD_LIBRARY, 16, 4096, 10, 8)["threads"] == 256
+    assert cuda_em.plan(cuda_em.GMM_LIBRARY, 16, 2048, 10, 2, 0, 8)["threads"] == 256
+    Xb, sw, carry = _gmm_start(cuda_device, 16, 2048, 10, 2, "full", torch.float64, seed=5)
+    cs.em_gmm_case("256 threads", Xb, sw, carry, "full")
+    for K, n, d in ((16, 4096, 10), (1, 8192, 100)):
+        carry, consts = _mode_start(cuda_device, K, n, d, torch.float64, seed=K + d)
+        cs.em_mode_case(f"256 threads {(K, n, d)}", carry, consts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_em_kernels_repeat_their_bits(cuda_device, dtype):
+    Xb, sw, carry = _gmm_start(cuda_device, 16, 2048, 10, 2, "full", dtype, seed=5)
+    a, b = _run_gmm(Xb, sw, carry, "full"), _run_gmm(Xb, sw, carry, "full")
+    for k in ("pi", "means", "covs", "lb", "n_iter", "done"):
+        assert torch.equal(a[k], b[k]), k
+    mc, mk = _mode_start(cuda_device, 16, 4096, 10, dtype, seed=6)
+    a, b = _run_modes(mc, mk), _run_modes(mc, mk)
+    for k in ("mu", "Sigma", "nu", "last_nu", "i", "hit_inf", "active"):
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_em_kernels_replay_in_graphs(cuda_device, dtype):
+    graphed = _loops(cuda_device, True)
+    for seed in (1, 2):  # the second call replays the first call's graphs
+        Xb, sw, carry = _gmm_start(cuda_device, 16, 2048, 10, 2, "full", dtype, seed=seed)
+        want = _run_gmm(Xb, sw, carry, "full")
+        before = cuda_em.LAUNCHES["gmm_em"]
+        got = tc._gmm_em(Xb, sw, carry, 1000, 1e-3, 1e-6, "full", graphed)
+        assert cuda_em.LAUNCHES["gmm_em"] == before + 1  # the replay counts its launch
+        for k in ("pi", "means", "covs", "lb", "n_iter", "done"):
+            assert torch.equal(got[k], want[k]), (seed, k)
+        mc, mk = _mode_start(cuda_device, 16, 4096, 10, dtype, seed=seed)
+        want = _run_modes(mc, mk)
+        before = cuda_em.LAUNCHES["mvstud_em"]
+        got = ts._mode_em(mc, mk, graphed)
+        assert cuda_em.LAUNCHES["mvstud_em"] == before + 1
+        for k in ("mu", "Sigma", "nu", "last_nu", "i", "hit_inf", "active"):
+            assert torch.equal(got[k], want[k]), (seed, k)
+    for name in ("gmm_em", "mode_em"):
+        stats = graphed.stats[name]
+        assert stats["captures"] == 1 and stats["replays"] == 2 and stats["reads"] == 0, name
