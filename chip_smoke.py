@@ -237,11 +237,13 @@ import math
 import os
 import pickle
 import re
+import shutil
 import socket
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 
 
@@ -604,6 +606,49 @@ def device_ms(fn, kernel=None, calls: int = 20) -> float:
           f"over {calls} calls, host gaps included: {a.elapsed_time(b) / calls:.4f} ms a call",
           flush=True)
     return float("nan")
+
+
+def profile_warmup() -> None:
+    """The warm-up a profile opens with (device_ms's): its sleeps take the
+    device records a profile loses first."""
+    for _ in range(PROFILE_WARMUP_LAUNCHES):
+        torch.cuda._sleep(100)
+    torch.cuda._sleep(PROFILE_WARMUP_CYCLES)
+    torch.cuda.synchronize()
+
+
+_SLEEP_KERNEL = []
+
+
+def sleep_kernel() -> str:
+    """The name of torch.cuda._sleep's device record (read once, early in
+    the process, when a profile loses nothing)."""
+    if not _SLEEP_KERNEL:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+        check(len(names) == 1, f"torch.cuda._sleep's device records: {names}")
+        _SLEEP_KERNEL.append(names.pop())
+    return _SLEEP_KERNEL[0]
+
+
+def device_rows(prof) -> dict:
+    """(device ms, records) by name of a profile that opened with
+    profile_warmup: its kernels, copies and fills, not the warm-up's sleeps
+    nor the ranges (record_function)."""
+    skip = sleep_kernel()
+    rows = {}
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA or e.name == skip or e.name.startswith("ps/")
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        ms, c = rows.get(e.name, (0.0, 0))
+        rows[e.name] = (ms + e.time_range.elapsed_us() / 1e3, c + 1)
+    return rows
 
 
 def json_line(obj) -> str:
@@ -1839,7 +1884,7 @@ extern "C" int reduction_rounds_launch(void* rows, int cluster, int rounds, void
 
 
 def em_reduction_us(device) -> dict:
-    """Microseconds of one cluster reduction at cluster sizes 1-16: the
+    """Microseconds of one cluster reduction at each cluster size 1-16: the
     probe's time at 1,001 rounds less its time at 1, over 1,000."""
     import ctypes
 
@@ -1854,7 +1899,7 @@ def em_reduction_us(device) -> dict:
     rows = torch.zeros(128, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     out = {}
-    for c in (1, 2, 4, 8, 16):
+    for c in range(1, 17):  # every cluster size a launch plan may take
         def run(rounds):
             check(fn(rows.data_ptr(), c, rounds, stream) == 0, f"reduction probe at C = {c}")
         times = {}
@@ -1912,6 +1957,20 @@ def _em_normwise(a, b):
     s = torch.where(fb, b.abs(), torch.zeros_like(b)).amax(dim=1)
     out = torch.where(s > 0, d / torch.where(s > 0, s, torch.ones_like(s)), d)
     return torch.where(same, out, torch.full_like(out, float("inf")))
+
+
+def _em_bits_differ(a, b):
+    """Per leading index: whether a and b differ in any bit (NaN equal to
+    the same NaN)."""
+    def bits(t):
+        return t.view({8: torch.int64, 4: torch.int32}[t.element_size()]) \
+            if t.is_floating_point() else t
+    return (bits(a) != bits(b)).reshape(a.shape[0], -1).any(dim=1)
+
+
+def _em_same_bits(a: dict, b: dict, keys) -> bool:
+    """Whether two carries hold the same bits (NaN included)."""
+    return not any(bool(_em_bits_differ(a[e], b[e]).any()) for e in keys)
 
 
 def _em_on(tensors: dict, device) -> dict:
@@ -2105,7 +2164,7 @@ def em_gmm_steps(what, k, carry, got) -> dict:
         _em_fail_if(kj["n_iter"] != prev["n_iter"] + active.int(), f"{what} step {j}",
                     "iterated a fit the loop stops, or stopped one it runs")
         for e in EM_GMM_CARRY:
-            _em_fail_if(~active & (_em_normwise(kj[e], prev[e]) != 0), f"{what} step {j}",
+            _em_fail_if(~active & _em_bits_differ(kj[e], prev[e]), f"{what} step {j}",
                         f"a stopped fit's {e} moved")
         flip = active & (kj["done"] != pj["done"])
         if bool(flip.any()):
@@ -2120,7 +2179,7 @@ def em_gmm_steps(what, k, carry, got) -> dict:
                                            lambda: routes.spread(pj, EM_GMM_PARAMS),
                                            active & ~flip))
         prev = kj
-    _em_fail_if(torch.stack([_em_normwise(prev[e], got[e]) != 0 for e in EM_GMM_CARRY]).any(0),
+    _em_fail_if(torch.stack([_em_bits_differ(prev[e], got[e]) for e in EM_GMM_CARRY]).any(0),
                 what, "the full launch differs from the launch cut at its last iteration")
     return dict(steps=J, step_err=worst, step_flips=flips)
 
@@ -2151,7 +2210,7 @@ def em_mode_steps(what, k, carry, got) -> dict:
                       for i in torch.nonzero(turned).flatten().tolist()]
         for e in EM_MODE_CARRY:
             if e != "active":
-                _em_fail_if(~went & ~c["active"] & (_em_normwise(kj[e], prev[e]) != 0),
+                _em_fail_if(~went & ~c["active"] & _em_bits_differ(kj[e], prev[e]),
                             f"{what} step {j}", f"a stopped mode's {e} moved")
         both = went & c["active"]
         # A mode whose Sigma a Cholesky factorization is not sure to take:
@@ -2178,7 +2237,7 @@ def em_mode_steps(what, k, carry, got) -> dict:
                                            lambda: routes.spread(pj, EM_MODE_PARAMS),
                                            both & ~parted & ~near))
         prev = kj
-    _em_fail_if(torch.stack([_em_normwise(prev[e], got[e]) != 0 for e in EM_MODE_CARRY
+    _em_fail_if(torch.stack([_em_bits_differ(prev[e], got[e]) for e in EM_MODE_CARRY
                              if e != "active"]).any(0),
                 what, "the full launch differs from the launch cut at its last iteration")
     return dict(steps=J, step_err=worst, step_flips=flips, cholesky_near_tie=tied)
@@ -2245,7 +2304,7 @@ def em_gmm_case(what, Xb, sw, carry, cov, max_iter: int = EM_MAX_ITER) -> dict:
     got = cluster_module._gmm_em(Xb, sw, carry, max_iter, EM_TOL, EM_REG, cov, None)
     again = cluster_module._gmm_em(Xb, sw, carry, max_iter, EM_TOL, EM_REG, cov, None)
     check(cuda_em.LAUNCHES["gmm_em"] == before + 2, f"{what}: not one launch a loop")
-    check(all(torch.equal(got[e], again[e]) for e in EM_GMM_CARRY), f"{what}: two launches differ")
+    check(_em_same_bits(got, again, EM_GMM_CARRY), f"{what}: two launches differ")
     want = cluster_module._gmm_em_plain(Xb, sw, carry, max_iter, EM_TOL, EM_REG, cov, None)
     k = dict(X=Xb.contiguous(), sw=sw.contiguous(), cov=cov,
              tol=torch.full((), EM_TOL, dtype=dtype, device=Xb.device))
@@ -2284,7 +2343,7 @@ def em_mode_case(what, carry, consts) -> dict:
     got = student_module._mode_em(carry, consts, None)
     again = student_module._mode_em(carry, consts, None)
     check(cuda_em.LAUNCHES["mvstud_em"] == before + 2, f"{what}: not one launch a loop")
-    check(all(torch.equal(got[e], again[e]) for e in EM_MODE_CARRY), f"{what}: two launches differ")
+    check(_em_same_bits(got, again, EM_MODE_CARRY), f"{what}: two launches differ")
     want = student_module._mode_em_plain(carry, consts, None)
     k = dict(consts, data=consts["data"].contiguous(), wbar=consts["wbar"].contiguous())
     steps = em_mode_steps(what, k, carry, got)
@@ -2357,6 +2416,87 @@ def em_mode_work(K, n, d, iters_total, elem=4):
     return n_bytes, per_point * n * iters_total
 
 
+# The phases of an EM iteration the kernels' clock64 stamps split it into
+# (csrc/em_stamps.cuh).
+EM_PHASES = {"gmm_em": ("factorization", "E-step", "first sums", "first reduction",
+                        "scatter sums", "second reduction", "rest"),
+             "mvstud_em": ("factorization", "distances", "stationarity terms",
+                           "their 6 reductions", "M-step sums", "M-step reduction", "rest")}
+
+
+EM_STAMP_BLOCKS = 1024  # csrc/em_stamps.cuh kStampBlocks
+
+
+def sm_cycles_per_us() -> float:
+    """The SM clock under load: cycles of torch.cuda._sleep over its time."""
+    torch.cuda._sleep(PROFILE_WARMUP_CYCLES)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(PROFILE_WARMUP_CYCLES)
+    b.record()
+    torch.cuda.synchronize()
+    return PROFILE_WARMUP_CYCLES / (a.elapsed_time(b) * 1e3)
+
+
+def em_stamped_csrc(out_dir: str) -> str:
+    """A copy of this package's csrc/ that builds with EM_STAMPS defined."""
+    out = os.path.join(out_dir, "csrc_stamped")
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(_build.CSRC, out)
+    header = os.path.join(out, "em_common.cuh")
+    with open(header) as f:
+        text = f.read()
+    with open(header, "w") as f:
+        f.write("#define EM_STAMPS 1\n" + text)
+    return out
+
+
+def em_split(cases, csrc) -> dict:
+    """The split of an EM iteration by the kernels' clock64 stamps: each case
+    (label, kind, run) launched once on the sources in `csrc` (built with
+    EM_STAMPS), the cycles the launch's first CTA spent in each phase
+    (EM_PHASES) over its iterations, in microseconds at the SM clock
+    (sm_cycles_per_us). The first CTA serves the first fit: its iterations,
+    not the launch's slowest fit's."""
+    import ctypes
+
+    rate = sm_cycles_per_us()
+    saved, loaded = _build.CSRC, dict(_build._loaded)
+    _build.CSRC = Path(csrc)
+    _build._loaded.clear()
+    rows = {}
+    try:
+        for label, kind, run in cases:
+            lib = _build.load(cuda_em.GMM_LIBRARY if kind == "gmm_em" else cuda_em.MVSTUD_LIBRARY)
+            lib.tempest_em_stamps.argtypes = [ctypes.c_void_p]
+            run()
+            phases = len(EM_PHASES[kind])
+            out = (ctypes.c_int64 * (phases + 1 + 2 * EM_STAMP_BLOCKS))()
+            _build.check(lib.tempest_em_stamps(ctypes.addressof(out)), "tempest_em_stamps")
+            iters = int(out[phases])
+            us = {p: out[i] / max(iters, 1) / rate for i, p in enumerate(EM_PHASES[kind])}
+            ns = np.array(out[phases + 1:], dtype=np.int64).reshape(-1, 2)
+            ns = ns[(ns[:, 0] > 0) & (ns[:, 1] >= ns[:, 0])]
+            ctas = {}
+            if len(ns):
+                start, span = (ns[:, 0] - ns[:, 0].min()) / 1e3, (ns[:, 1] - ns[:, 0]) / 1e3
+                ctas = dict(ctas=len(ns), start_us_max=float(start.max()),
+                            late=int((start > 5.0).sum()), loop_us_min=float(span.min()),
+                            loop_us_median=float(np.median(span)), loop_us_max=float(span.max()),
+                            end_us_max=float((start + span).max()))
+            rows[label] = dict(iterations=iters, us_an_iteration=us,
+                               us_total=sum(us.values()), sm_cycles_per_us=rate, ctas=ctas)
+            print(f"split {label}: {iters} iterations of its first fit; us an iteration "
+                  f"{json.dumps({k: round(v, 3) for k, v in us.items()})}, "
+                  f"{sum(us.values()):.3f} in all (SM clock {rate:.1f} cycles a us); its CTAs' "
+                  f"loops (us from the first start): {json.dumps(ctas)}", flush=True)
+    finally:
+        _build.CSRC = saved
+        _build._loaded.clear()
+        _build._loaded.update(loaded)
+    return rows
+
+
 def em_timing(name, kernel, plain, n_bytes, n_ops, chain_ms, calls, f64=False) -> dict:
     """A kernel's call and device ms in turns with its plain loop, and its
     bounds (its instructions float64 ones if `f64`)."""
@@ -2421,13 +2561,13 @@ def phase_em_kernels(device) -> dict:
         iters = out["n_iter"]
         n_bytes, n_ops = em_gmm_work(B, n, d, K, int(iters.sum()), elem)
         C = cuda_em.plan(cuda_em.GMM_LIBRARY, B, n, d, K, cuda_em.COVARIANCE_CODES[cov], elem)
-        chain = int(iters.max()) * EM_REDUCTIONS["gmm_em"] * red_us[C["cluster"]] / 1e3
+        chain = int(iters.max()) * EM_REDUCTIONS["gmm_em"] * em_reduction(red_us, C) / 1e3
         t = em_timing("gmm_em",
                       lambda: cluster_module._gmm_em(Xb, sw, carry, 1000, 1e-3, 1e-6, cov, None),
                       lambda: cluster_module._gmm_em_plain(Xb, sw, carry, 1000, 1e-3, 1e-6, cov,
                                                            Loops(device, {"gmm_em": 4})),
                       n_bytes, n_ops, chain, calls=11, f64=elem == 8)
-        timings[f"gmm_em {label}"] = dict(t, B=B, n=n, d=d, K=K, cluster=C["cluster"],
+        timings[f"gmm_em {label}"] = dict(t, B=B, n=n, d=d, K=K, **em_occupancy(C, B),
                                           n_iter_max=int(iters.max()), n_iter_sum=int(iters.sum()))
     mode_inputs = {"A run": a_inputs["mode"][0]}
     for label, (K, n, d) in EM_MODE_SHAPES.items():
@@ -2442,27 +2582,62 @@ def phase_em_kernels(device) -> dict:
         iters = out["i"]
         n_bytes, n_ops = em_mode_work(K, n, d, int(iters.sum()), elem)
         C = cuda_em.plan(cuda_em.MVSTUD_LIBRARY, K, n, d, elem)
-        chain = int(iters.max()) * EM_REDUCTIONS["mvstud_em"] * red_us[C["cluster"]] / 1e3
+        chain = int(iters.max()) * EM_REDUCTIONS["mvstud_em"] * em_reduction(red_us, C) / 1e3
         t = em_timing("mvstud_em", lambda: student_module._mode_em(carry, consts, None),
                       lambda: student_module._mode_em_plain(carry, consts,
                                                             Loops(device, {"mode_em": 4})),
                       n_bytes, n_ops, chain, calls=5 if n > 100000 else 11, f64=elem == 8)
-        timings[f"mvstud_em {label}"] = dict(t, K=K, n=n, d=d, cluster=C["cluster"],
+        timings[f"mvstud_em {label}"] = dict(t, K=K, n=n, d=d, **em_occupancy(C, K),
                                              iterations_max=int(iters.max()),
                                              iterations_sum=int(iters.sum()))
     for label, t in timings.items():
         print(f"{label}: kernel call {t['ms']:.4f} ms, device {t['device_ms_turns'][0]:.4f} / "
               f"{t['device_ms_turns'][1]:.4f} ms; plain loop (chunks of 4) {t['plain_ms']:.4f} "
               f"ms; bound {t['bound_ms']:.5f} ms ({t['bound_by']}), reduction chain "
-              f"{t['chain_bound_ms']:.4f} ms; {json.dumps({k: v for k, v in t.items() if k in ('B', 'K', 'n', 'd', 'cluster', 'n_iter_max', 'n_iter_sum', 'iterations_max', 'iterations_sum')})}",
+              f"{t['chain_bound_ms']:.4f} ms; "
+              f"{json.dumps({k: v for k, v in t.items() if k in EM_SHOWN})}",
               flush=True)
+    # The split of an EM iteration at A's and B's shapes (and the others').
+    cases = [(f"gmm_em {label}", "gmm_em",
+              lambda g=g: cluster_module._gmm_em(g[0], g[1], g[2], 1000, 1e-3, 1e-6, g[3], None))
+             for label, g in gmm_inputs.items()]
+    cases += [(f"mvstud_em {label}", "mvstud_em",
+               lambda m=m: student_module._mode_em(m[0], m[1], None))
+              for label, m in mode_inputs.items()]
+    split = {}  # a package older than the stamps (--package-root) has no split
+    if (Path(_build.CSRC) / "em_stamps.cuh").exists():
+        split = em_split(cases, em_stamped_csrc(tempfile.mkdtemp(prefix="em_stamps_")))
     for kind in ("gmm_em", "mvstud_em"):
         row = timings[f"{kind} A run"]
         rows[kind] = dict(row, max_abs_err=max(r["max_abs_err"] for r in report[kind].values()),
                           shapes={k[len(kind) + 1:]: v for k, v in timings.items()
                                   if k.startswith(kind)},
-                          checks=report[kind], reduction_us=red_us)
+                          checks=report[kind], reduction_us=red_us,
+                          split={k: v for k, v in split.items() if k.startswith(kind)})
     return rows
+
+
+# The plan and occupancy fields phase 4d prints beside each time.
+EM_SHOWN = ("B", "K", "n", "d", "ctas", "grid", "threads", "sms", "n_iter_max", "n_iter_sum",
+            "iterations_max", "iterations_sum")
+
+
+def em_reduction(red_us: dict, plan: dict) -> float:
+    """A fit reduction's latency (us) for the chain bound: the probed cluster
+    reduction at the plan's cluster size; for a fit over the grid, whose
+    barrier is one in global memory, the probed cluster of 16's, as no
+    faster."""
+    return red_us[16 if plan.get("grid") else plan["cluster"]]
+
+
+def em_occupancy(plan: dict, fits: int) -> dict:
+    """A launch's CTAs, route, threads a CTA and the SMs it occupies: all
+    its CTAs' while they are fewer than the SMs (the block scheduler spreads
+    them), else every SM."""
+    ctas = plan.get("ctas", plan["cluster"]) * fits  # a package older than the grid route
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    return dict(ctas=ctas, grid=bool(plan.get("grid")), threads=plan["threads"],
+                sms=min(ctas, sms))
 
 
 # ---------------------------------------------------------------------------
@@ -2769,22 +2944,33 @@ def steady_window(s, graphs: bool, first: int = 21, n: int = 5,
     core._pregrow_capacity()
     loops = core._iteration.loops
     loops.graphs = graphs
+    em_iters, mode_em = [], student_module._mode_em
     try:
         for _ in range(first - 1):
             core._step(None, 0)
         torch.cuda.synchronize()
         before = {k: dict(v) for k, v in loops.stats.items()}
+        if cuda_em is not None:  # each mode EM launch's EM iterations, read after the window
+            def counted(carry, consts, loops_):
+                out = mode_em(carry, consts, loops_)
+                em_iters.append((carry["i"].clone(), out["i"].clone()))
+                return out
+
+            student_module._mode_em = counted
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profile_warmup()
             t0 = time.perf_counter()
             with record_function("steady"):
                 for _ in range(n):
                     core._step(None, 0)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        student_module._mode_em = mode_em
         reads = {k: v.get("reads", 0) - before.get(k, {}).get("reads", 0)
                  for k, v in loops.stats.items()}
         if device_only:
             with profile(activities=[ProfilerActivity.CUDA]) as prof_device:
+                profile_warmup()
                 t0 = time.perf_counter()
                 for _ in range(n):
                     core._step(None, 0)
@@ -2792,6 +2978,7 @@ def steady_window(s, graphs: bool, first: int = 21, n: int = 5,
                 wall_device = time.perf_counter() - t0
     finally:
         loops.graphs = False
+        student_module._mode_em = mode_em
     # The blocking calls the iterations made: those inside the "steady" range
     # (not the window's closing synchronize, nor the profiler's own).
     blocking, eigh = {}, 0
@@ -2800,16 +2987,14 @@ def steady_window(s, graphs: bool, first: int = 21, n: int = 5,
             blocking[e.name] = blocking.get(e.name, 0) + 1
         eigh += e.name in EIGH_OPS and _under(e, "steady")
     events = prof.key_averages()
-    device_ms = sum(_self_device_us(e) for e in events
-                    if e.device_type == DeviceType.CUDA and not e.key.startswith("ps/")) / 1e3
+    rows = device_rows(prof)
+    device_ms = sum(ms for ms, _ in rows.values())
     stages = {}  # host ms an iteration in each stage range (its reads included)
     for e in events:
         if e.key.startswith("ps/"):
             stages[e.key] = max(stages.get(e.key, 0.0), e.cpu_time_total / 1e3 / n)
     chunk_reads = sum(v for k, v in reads.items() if k != "beta")
-    kernels = {e.key: (_self_device_us(e) / 1e3 / n, e.count / n) for e in events
-               if e.device_type == DeviceType.CUDA and not e.key.startswith("ps/")
-               and _self_device_us(e) > 0}
+    kernels = {k: (ms / n, c / n) for k, (ms, c) in rows.items() if ms > 0}
     out = dict(graphs=graphs, first=first, n=n, wall_per_iter=wall / n,
                device_ms_per_iter=device_ms / n, idle=1.0 - device_ms / (1e3 * wall),
                blocking_per_iter=sum(blocking.values()) / n, blocking=blocking,
@@ -2817,10 +3002,10 @@ def steady_window(s, graphs: bool, first: int = 21, n: int = 5,
                stages_ms=stages, kernels={
                    k: v for i, (k, v) in enumerate(sorted(kernels.items(), key=lambda kv: -kv[1][0]))
                    if i < TOP_KERNELS or any(p in k for p in ("sym_eigvals", "ess_bisect",
-                                                              "ess_bracket"))})
+                                                              "ess_bracket"))},
+               mode_em_iterations=[int((b - a).max()) for a, b in em_iters])
     if device_only:
-        device_only_ms = sum(_self_device_us(e) for e in prof_device.key_averages()
-                             if e.device_type == DeviceType.CUDA) / 1e3
+        device_only_ms = sum(ms for ms, _ in device_rows(prof_device).values())
         out["device_only"] = dict(wall_per_iter=wall_device / n,
                                   device_ms_per_iter=device_only_ms / n,
                                   idle=1.0 - device_only_ms / (1e3 * wall_device))
@@ -2895,6 +3080,11 @@ def steady_windows(s, name: str, n: int = 3, device_only: bool = True) -> dict:
               f"iteration {w['reads']}, eigvalsh operators {w['eigh_ops']}; stage ms an "
               f"iteration {json.dumps({k: round(v, 3) for k, v in w['stages_ms'].items()})}"
               f"{trace}", flush=True)
+        if cuda_em is not None:
+            em_ms, em_n = _kernel_ms(w, "mvstud_em_kernel")
+            print(f"{name} {'graphs' if graphs else 'no graphs'}: mode EM kernel {em_ms:.4f} ms "
+                  f"and {em_n:.2f} launches an iteration in the window, EM iterations a launch "
+                  f"{w['mode_em_iterations']}", flush=True)
         check_window(f"{name} {'graphs' if graphs else 'no graphs'}", w)
     return windows
 
@@ -3017,27 +3207,49 @@ def run_b(device, dtype, name: str, graphs: bool = False, s=None):
 def profile_b(s, n_before: int) -> None:
     """B's last mutation iteration, graphed, under torch.profiler after the
     ones before it: wall, device time and idle share, and the host ops and
-    device kernels that take the most time."""
+    device kernels that take the most time. The mode EM's graph replays are
+    also timed by CUDA events around `loops.once` (the replay with its
+    carry's copies), beside the profile's record of the kernel, and the
+    device time and idle share restated with the events' time in its
+    place."""
     from torch.profiler import ProfilerActivity, profile
 
     s.reset(random_state=42)
     loops = s.state._iteration.loops
     loops.graphs = True
+    replays = []  # (start, end) events around each mode EM replay
+    once = loops.once
+
+    def timed_once(name, fn, inputs, static=()):
+        if name != "mode_em":
+            return once(name, fn, inputs, static)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = once(name, fn, inputs, static)
+        b.record()
+        replays.append((a, b))
+        return out
+
     try:
         for _ in range(n_before):
             s.sample()
         torch.cuda.synchronize()
+        loops.once = timed_once
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profile_warmup()
             t0 = time.perf_counter()
             out = s.sample()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
         loops.graphs = False
+        del loops.once  # the class's method again
     events = prof.key_averages()
-    dev = [(e.key, _self_device_us(e) / 1e3) for e in events
-           if e.device_type == DeviceType.CUDA and not e.key.startswith("ps/")]
+    dev = [(k, ms) for k, (ms, _) in device_rows(prof).items()]
     device_ms = sum(ms for _, ms in dev)
+    mode_em_ms = sum(a.elapsed_time(b) for a, b in replays)
+    profiled_mode_em_ms = sum(ms for k, ms in dev if "mvstud_em" in k)
+    restated_ms = device_ms - profiled_mode_em_ms + mode_em_ms
     host = sorted(((e.key, e.self_cpu_time_total / 1e3) for e in events
                    if e.device_type == DeviceType.CPU and not e.key.startswith("ps/")),
                   key=lambda kv: -kv[1])[:8]
@@ -3052,8 +3264,14 @@ def profile_b(s, n_before: int) -> None:
           f"{', '.join(f'{k} {v:.1f} ms' for k, v in host)}; device "
           f"{', '.join(f'{k[:60]} {v:.2f} ms' for k, v in top)}; weighted_median kernel "
           f"{median_ms:.4f} ms, torch.cumsum's outer-dimension scan {scan_ms:.4f} ms", flush=True)
+    print(f"B graphed iteration {out['iter']}: the mode EM's {len(replays)} graph replays "
+          f"{mode_em_ms:.4f} ms by CUDA events (the profile recorded {profiled_mode_em_ms:.4f} ms "
+          f"of mvstud_em); device time with the events' {restated_ms:.1f} ms (idle "
+          f"{100 * (1 - restated_ms / (1e3 * wall)):.1f} %)", flush=True)
     return {"wall_ms": 1e3 * wall, "device_ms": device_ms, "weighted_median_ms": median_ms,
-            "scan_outer_dim_ms": scan_ms}
+            "scan_outer_dim_ms": scan_ms, "mode_em_replays": len(replays),
+            "mode_em_ms": mode_em_ms, "profiled_mode_em_ms": profiled_mode_em_ms,
+            "device_ms_with_mode_em_events": restated_ms}
 
 
 def phase_large_ensemble(device, dtype=torch.float32) -> dict:
@@ -4046,6 +4264,7 @@ def main() -> None:
     kind = phase_device()
     print(f"package: {os.path.dirname(os.path.dirname(os.path.abspath(cuda_reweight.__file__)))}",
           flush=True)
+    sleep_kernel()  # read while a profile loses nothing (the path windows' warm-up)
     _count_mode_fits()
     ptxas = phase_build()
     if args.a_only:

@@ -52,6 +52,7 @@ def one(root: str) -> dict:
     import chip_smoke as cs
 
     device = torch.device("cuda")
+    cs.sleep_kernel()  # the profiles' warm-up names it while a profile loses nothing
     out = {"root": root, "package": os.path.dirname(os.path.dirname(cs.cuda_reweight.__file__))}
     g, _ = cs.run_b(device, torch.float32, "B graphed (capturing)", graphs=True)
     g, rows = cs.run_b(device, torch.float32, "B graphed", graphs=True, s=g)

@@ -37,38 +37,48 @@
 // points are few and the operations where they are many. An EM iteration
 // is seven sums over all the points, each needing the one before (the
 // bound test at log 1e6, the five multisection passes, the M-step), so it
-// costs at least seven cluster reductions (about 1 us each on an H100),
-// times the iterations the data needs. The multisection evaluates log1p
-// and a division at 76 values of nu a point and iteration (B's n =
-// 524,288: 40 M of each an iteration); the scatter costs d^2 n flops
-// (rosenbrock100: 82 M an iteration). Measured, an iteration takes about
-// 90 us at A's modes and 2 ms at B's fit, far above both (PERF.md): the
-// CTAs issue below the SMs' rate, and at K = 1 few SMs take part.
+// costs at least seven fit reductions (about 1 us each on an H100), times
+// the iterations the data needs. The multisection evaluates log1p and a
+// division at 76 values of nu a point and iteration (B's n = 524,288: 40 M
+// of each an iteration, which CUDA's precise log1pf and division make
+// instruction-bound); the scatter costs d^2 n flops (rosenbrock100: 82 M an
+// iteration).
 //
-// What this design does about it:
-//  - One cluster of C CTAs a weighting (em::cluster_for: at most 512 points
-//    a CTA, C <= 16); CTA r owns a contiguous slice of the points; CTAs of
-//    512 threads, but 256 in float32 where the weightings fill the card
-//    (em::cta_for). The distances (em::mahalanobis_chunk, a group of
-//    threads a point at large d) go to a global scratch (K, n) that each
-//    CTA writes and re-reads for its own slice, once a pass.
-//  - Every CTA factors Sigma itself (a CTA-parallel Cholesky, then one
-//    thread a column of L^-1) from its own copy of the parameters, in shared
-//    memory where they fit and in a global work area otherwise.
-//  - A multisection pass sums all 15 midpoints' data terms in one pass over
-//    the points and one cluster reduction (em::cluster_sum), each in a fixed
-//    order; every CTA then counts the same signs.
-//  - At K = 1 (B, rosenbrock100, the unclustered paths) one cluster of at
-//    most 16 CTAs leaves at least 116 of the card's 132 SMs idle. The
-//    kernel takes CTAs of 512 threads there, but at B's n = 524,288 the 16
-//    SMs' issue rate still bounds it: about 2 ms an EM iteration against
-//    its seven reductions' 11 us (PERF.md). Spreading a mode over several
-//    clusters would need a grid-wide reduction.
+// What this design does about it (em_common.cuh has the shared parts):
+//  - A weighting's G CTAs (em_common.cuh, "The launch's geometry"): a
+//    cluster of up to 16 where a launch has several weightings, as large as
+//    keeps all its clusters resident at once (A's 16 modes: 16 x 6 = 96
+//    CTAs on an H100); a launch of one weighting of more than 2,048 points
+//    (B, rosenbrock100, the unclustered and dynamic paths) takes the grid,
+//    up to one CTA an SM (B: 132 CTAs), launched cooperatively, its
+//    reductions closed by the grid's barrier. CTA r loads its slice of the
+//    points and of wbar into shared memory once a launch, its points of
+//    nonzero weight first (a clustered fit's mode weights about 1/K of
+//    them; the sums run over those, the others only get their distances,
+//    which say where the plain loop's sums turn NaN), and keeps each
+//    point's distance there between the passes (then its wg). Where they
+//    do not fit, the points are read from global memory (of phase 4d's
+//    shapes: B's in float64, 350 KB a CTA, and rosenbrock100's in float64,
+//    beside the 200 KB of its factors), and the distances go to a global
+//    scratch (K, n) (none of phase 4d's shapes).
+//  - One warp factors Sigma and inverts the factor at d <= 32, the retry
+//    with the floor included, with no CTA barrier (em::warp_cholesky,
+//    em::warp_inverse); past 32 the CTA factors in panels.
+//  - The bound test's terms are added in the distances' pass; a
+//    multisection pass sums all 15 midpoints' terms in one pass over the
+//    resident distances, warp shuffles and one barrier for the CTA's 15
+//    sums (em::cta_sum), and one fit reduction (em::fit_sum); warp 0
+//    counts the signs. The M-step's sums run over the resident points, a
+//    few lanes an entry (em::entry_sums). Each sum keeps a fixed order.
 //  - max_iter and the tolerance are device words, so a CUDA graph can hold
 //    the launch.
 // Nothing is atomic: a launch repeats its bits.
 
+#include <map>
+#include <tuple>
+
 #include "em_common.cuh"
+#include "em_stamps.cuh"
 
 namespace {
 
@@ -86,10 +96,12 @@ struct Limits;
 template <>
 struct Limits<float> {
   static constexpr double eps = 1.1920928955078125e-07;
+  static constexpr double max = 3.4028234663852886e+38;
 };
 template <>
 struct Limits<double> {
   static constexpr double eps = 2.220446049250313e-16;
+  static constexpr double max = 1.7976931348623157e+308;
 };
 
 template <typename T>
@@ -105,39 +117,32 @@ struct MvArgs {
   uint8_t* active;   // (K,)
   const T* tol;      // device word
   const int32_t* max_iter;  // device word
-  T* delta;          // (K, n) scratch
-  T* part;           // (2, K C, emax) scratch
-  T* work;           // (K C, work_elems) global work area, or null: in shared memory
+  T* delta;          // (K, n) scratch, or null: in shared memory
+  T* part;           // (2, K, G + 1, emax) scratch
+  T* work;           // (K G, work_elems) global work area, or null: in shared memory
   int64_t n;
-  int d, C, P1, P2;
+  int d, G, points;  // points: a CTA's at most
+  bool x_smem, grid;  // grid: the fit's CTAs are the cooperative grid
 };
 
-// Sizes and offsets (in elements of the type) of a CTA's work area and its
-// staging buffer; the host plans with the same struct.
+// Sizes and offsets (in elements of the type) of a CTA's work area; the
+// host plans with the same struct. Sigma and its factors are packed lower
+// triangles.
 struct MvLayout {
-  int64_t mu, sigma, l, linv, mine, tot, elems, e, emax, stage;
+  int64_t td, mu, sigma, l, li, mine, tot, elems, e, emax;
 
-  __host__ __device__ MvLayout(int64_t d, int64_t P1, int64_t P2) {
-    e = 1 + d + d * (d + 1) / 2;  // sum wg, sum wg x, the scatter
+  __host__ __device__ explicit MvLayout(int64_t d) {
+    td = d * (d + 1) / 2;
+    e = 1 + d + td;  // sum wg, sum wg x, the scatter
     emax = e > kSplit - 1 ? e : kSplit - 1;
     mu = 0;
     sigma = mu + d;
-    l = sigma + d * d;
-    linv = l + d * d;
-    mine = linv + d * d;
+    l = sigma + td;
+    li = l + td;
+    mine = li + td;
     tot = mine + emax;
     elems = tot + emax;
-    const int64_t s1 = 2 * d * P1, s2 = P2 * (2 * d + 1);
-    stage = s1 > s2 ? s1 : s2;
   }
-};
-
-template <typename T>
-struct MvHeader {
-  T nu, last_nu, reg, lo, hi;
-  T mids[kSplit - 1], nus[kSplit - 1];  // a multisection pass's log nu and nu
-  int flag, it, hit_inf, active, is_inf;
-  int positive[kSplit - 1];  // the stationarity function's sign at each midpoint
 };
 
 // digamma(x) for x > 0, as ATen's calc_digamma takes it: the recurrence up
@@ -165,13 +170,16 @@ __device__ T digamma(T x) {
   return em_log(x) - (T(0.5) / x) - y + result;
 }
 
-// log(x) - digamma(x), by its asymptotic series beyond x = 20.
+// log(x) - digamma(x), by its asymptotic series beyond x = 20, each
+// operation rounded as `_log_minus_digamma` rounds it on the card: 0.5 inv +
+// (1/12) inv inv - (1/120) pow(inv, 4).
 template <typename T>
 __device__ T log_minus_digamma(T x) {
   if (x > T(20)) {
     const T inv = T(1) / x;
-    const T inv2 = inv * inv;
-    return T(0.5) * inv + T(1.0 / 12.0) * inv2 - T(1.0 / 120.0) * (inv2 * inv2);
+    const T second = mul_rn(mul_rn(T(1.0 / 12.0), inv), inv);
+    const T fourth = mul_rn(T(1.0 / 120.0), em_pow(inv, T(4)));
+    return add_rn(mul_rn(T(0.5), inv), second) - fourth;
   }
   return em_log(x) - digamma(x);
 }
@@ -182,273 +190,389 @@ __device__ __forceinline__ T nu_objective(T nu, int d, T data) {
   return (log_minus_digamma(nu / T(2)) - log_minus_digamma((nu + static_cast<T>(d)) / T(2))) + data;
 }
 
-// This thread's sums of wbar (log1p(e) - e), e = (d - delta) / (nu_j + delta),
-// over its points of [begin, end), two points a step (their loads in flight
-// together), at each of the M values nus[j].
-template <typename T, int M>
-__device__ __forceinline__ void data_terms(const T* nus, const T* delta, const T* wbar,
-                                           int64_t begin, int64_t end, T dim, T (&acc)[M]) {
-  const int64_t nt = blockDim.x;
-#pragma unroll
-  for (int j = 0; j < M; ++j) acc[j] = T(0);
-  int64_t p = begin + threadIdx.x;
-  for (; p + nt < end; p += 2 * nt) {
-    const T dl0 = delta[p], dl1 = delta[p + nt];
-    const T wb0 = __ldg(wbar + p), wb1 = __ldg(wbar + p + nt);
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      const T nu = nus[j];
-      const T e0 = (dim - dl0) / (nu + dl0);
-      const T e1 = (dim - dl1) / (nu + dl1);
-      acc[j] += wb0 * (em_log1p(e0) - e0);
-      acc[j] += wb1 * (em_log1p(e1) - e1);
-    }
-  }
-  if (p < end) {
-    const T dl = delta[p], wb = __ldg(wbar + p);
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      const T e = (dim - dl) / (nus[j] + dl);
-      acc[j] += wb * (em_log1p(e) - e);
-    }
-  }
+// Whether e = (d - delta) / (nu + delta) may round to -1 in the type for
+// some delta <= dmax: e = -1 + (d + nu) / (nu + delta) is taken within
+// about 1.5 eps, so it cannot where (d + nu) / (nu + dmax) > 4 eps.
+template <typename T>
+__device__ __forceinline__ bool rounds_to_minus_one(T dim, T nu, T dmax) {
+  return static_cast<double>(dim) + nu <= 4.0 * Limits<T>::eps * (static_cast<double>(nu) + dmax);
 }
 
-// Rows of the M-step: x - mu (d), x (d), wg.
+// The multisection's midpoint j of [lo, hi] in log nu, rounded as `_opt_nu`
+// rounds lo + (hi - lo) x fraction (a fused multiply-add moves the grid by
+// an ulp, and with it the cells that decide nu and the exit).
 template <typename T>
-struct StageM {
-  const T* data;
-  const T* wbar;
-  const T* delta;
-  const T* mu;
-  T nu;
-  int d;
-  __device__ void operator()(int64_t p0, int np, T* buf) const {
-    const int width = 2 * d + 1;
-    for (int idx = threadIdx.x; idx < np * width; idx += blockDim.x) {
-      const int p = idx / width, c = idx - p * width;
-      const int64_t q = p0 + p;
-      if (c < d) {
-        buf[idx] = __ldg(data + q * d + c) - mu[c];
-      } else if (c < 2 * d) {
-        buf[idx] = __ldg(data + q * d + (c - d));
-      } else {
-        const T g = (nu + static_cast<T>(d)) / (nu + delta[q]);
-        buf[idx] = __ldg(wbar + q) * g;
-      }
-    }
-  }
-};
-
-struct MEntries {  // sum wg, sum wg x_i, then sum wg (x - mu)_i (x - mu)_j, j <= i
-  int d;
-  __device__ Entry operator()(int e) const {
-    if (e == 0) return Entry{0, -1, -1, 0};
-    if (e <= d) return Entry{0, d + e - 1, -1, 0};
-    int i, j;
-    tri_index(e - 1 - d, i, j);
-    return Entry{0, i, j, 0};
-  }
-};
+__device__ __forceinline__ T midpoint(T lo, T hi, int j) {
+  return add_rn(lo, mul_rn(hi - lo, static_cast<T>(j + 1) / static_cast<T>(kSplit)));
+}
 
 template <typename T>
 __device__ void mvstud_em_body(const MvArgs<T>& a, unsigned char* smem) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int C = a.C, d = a.d, P1 = a.P1;
-  const int t = threadIdx.x, nt = blockDim.x;
-  const int mode = blockIdx.x / C;
-  const MvLayout lay(d, P1, a.P2);
-  MvHeader<T>& h = *reinterpret_cast<MvHeader<T>*>(smem);
-  T* red = reinterpret_cast<T*>(smem + kHeaderBytes);  // (kSplit - 1) nt
-  T* stage = red + (kSplit - 1) * nt;
-  T* w = a.work ? a.work + static_cast<int64_t>(blockIdx.x) * lay.elems : stage + lay.stage;
+  const int G = a.G, d = a.d;
+  const int t = threadIdx.x, nt = blockDim.x, lane = t & 31, warp = t >> 5, nw = nt >> 5;
+  const int mode = blockIdx.x / G, rank = blockIdx.x % G;
+  const FitSync sync{a.grid};
+  const MvLayout lay(d);
+  const int td = static_cast<int>(lay.td);
+  int* flag = reinterpret_cast<int*>(smem);
+  int* count = flag + 1;
+  int* regged = flag + 2;  // the floor was added since the launch began
+  Acc* red = reinterpret_cast<Acc*>(smem + kHeaderBytes);
+  T* next = reinterpret_cast<T*>(red + kRed * 32);
+  T* w = a.work ? a.work + static_cast<int64_t>(blockIdx.x) * lay.elems : next;
+  if (!a.work) next += lay.elems;
   T* mu = w + lay.mu;
   T* Sigma = w + lay.sigma;
   T* L = w + lay.l;
-  T* Linv = w + lay.linv;
+  T* Li = w + lay.li;
   T* mine = w + lay.mine;
   T* tot = w + lay.tot;
 
   const int64_t n = a.n;
-  const T* data = a.data;
-  const T* wbar = a.wbar + static_cast<int64_t>(mode) * n;
-  T* delta = a.delta + static_cast<int64_t>(mode) * n;
-  const int64_t buf_elems = static_cast<int64_t>(gridDim.x) * lay.emax;
-  T* rows = a.part + static_cast<int64_t>(mode) * C * lay.emax;
-  const int64_t begin = n * rank / C, end = n * (rank + 1) / C;
-  const int DD = d * d;
+  const int64_t begin = n * rank / G, end = n * (rank + 1) / G;
+  int np = static_cast<int>(end - begin);
+  const T* Xg = a.data + begin * d;
+  const T* wbg = a.wbar + static_cast<int64_t>(mode) * n + begin;
+  const T* wb = wbg;
+  T* ws = next;  // the weights in shared memory
+  T* dl;         // (np,): the distances, then wg
+  if (a.delta) {
+    dl = a.delta + static_cast<int64_t>(mode) * n + begin;
+  } else {
+    wb = ws;
+    dl = ws + a.points;
+    next = dl + a.points;
+  }
+  const T* xs = Xg;
+  int ld = d;
+  if (a.x_smem) {
+    ld = smem_stride(d);
+    xs = next;
+  }
+  // Where the points and their distances fit in shared memory, a CTA holds
+  // its points of nonzero weight first, in their order, and its points of
+  // zero weight after them (a mode of a clustered fit weights about 1/K of
+  // the points): distances are taken for all np_x, the stationarity sums
+  // and the M-step run over the first np only. A point of zero weight adds
+  // 0 x (log1p(e) - e) to a stationarity sum of the plain loop: an exact
+  // zero, but NaN where e rounds to -1 (a distance past about (d + nu) /
+  // eps) or the distance is not finite. Its M-step terms 0 x g (x - mu)
+  // stay exact zeros (g = (nu + d) / (nu + delta) is finite, or 0) unless
+  // the distance is NaN. So each thread notes the largest finite distance
+  // of its zero-weight points and whether one was not finite, and makes a
+  // sum NaN where the plain loop's is. A CTA whose zero-weight points hold a
+  // coordinate that is not finite or past a quarter of the type's largest
+  // value (where x - mu may overflow) keeps all its points in the sums.
+  int np_x = np;
+  bool held = false;  // the points held in that order
+  if (!a.delta && a.x_smem) {
+    if (warp == 0) {
+      bool far = false;
+      for (int p = lane; p < np; p += 32) {
+        if (wbg[p] != T(0)) continue;
+        for (int j = 0; j < d; ++j) {
+          const T x = Xg[static_cast<int64_t>(p) * d + j];
+          far = far || !(em_abs(x) <= static_cast<T>(0.25 * Limits<T>::max));
+        }
+      }
+      far = __any_sync(kFull, far);
+      int placed = 0, kept = 0;
+      for (int side = 0; side < 2 && !far; ++side) {  // nonzero weights, then zero
+        for (int c0 = 0; c0 < np; c0 += 32) {
+          const int p = c0 + lane;
+          const T wp = p < np ? wbg[p] : T(0);
+          const bool take = p < np && (wp != T(0)) == (side == 0);
+          const unsigned m = __ballot_sync(kFull, take);
+          if (take) {
+            const int q = placed + __popc(m & ((1u << lane) - 1u));
+            ws[q] = wp;
+            for (int j = 0; j < d; ++j) next[q * ld + j] = Xg[static_cast<int64_t>(p) * d + j];
+          }
+          placed += __popc(m);
+        }
+        if (side == 0) kept = placed;
+      }
+      if (lane == 0) *count = far ? -1 : kept;
+    }
+    __syncthreads();
+    held = *count >= 0;
+    if (held) np = *count;
+  }
+  if (!held) {
+    if (!a.delta) {
+      for (int p = t; p < np; p += nt) ws[p] = wbg[p];
+    }
+    if (a.x_smem) {
+      for (int idx = t; idx < np * d; idx += nt) {
+        const int p = idx / d, j = idx - p * d;
+        next[p * ld + j] = Xg[idx];
+      }
+    }
+  }
 
   for (int i = t; i < d; i += nt) mu[i] = a.mu[mode * d + i];
-  for (int i = t; i < DD; i += nt) Sigma[i] = a.Sigma[static_cast<int64_t>(mode) * DD + i];
-  if (t == 0) {
-    h.nu = a.nu[mode];
-    h.last_nu = a.last_nu[mode];
-    h.it = a.it[mode];
-    h.hit_inf = a.hit_inf[mode] != 0;
-    h.active = a.active[mode] != 0;
+  for (int q = t; q < td; q += nt) {
+    int i, j;
+    tri_index(q, i, j);
+    Sigma[q] = a.Sigma[static_cast<int64_t>(mode) * d * d + i * d + j];
   }
+  if (t == 0) *regged = 0;
+  T nu = a.nu[mode], last_nu = a.last_nu[mode];
+  int it = a.it[mode];
+  bool hit_inf = a.hit_inf[mode] != 0, active = a.active[mode] != 0, stepped = false;
   const T tol = *a.tol;
   const int max_iter = *a.max_iter;
   const T dim = static_cast<T>(d);
+  const T nu_hi = em_exp(static_cast<T>(kNuLogHi));
+  const T reg_floor = static_cast<T>(kRegFloor);
+  const int64_t block = static_cast<int64_t>(G + 1) * lay.emax;
+  T* rows0 = a.part + static_cast<int64_t>(mode) * block;
+  const int64_t parity_stride = static_cast<int64_t>(gridDim.x / G) * block;
   __syncthreads();
 
+  Stamps st;
+  st.start();
   int parity = 0;
-  while (h.active) {  // CTA- and cluster-uniform
-    // regularized_cholesky: the floor on the diagonal where Cholesky fails.
-    for (int q = t; q < DD; q += nt) L[q] = Sigma[q];
+  while (active) {  // CTA- and fit-uniform
+    st.iteration();
+    // regularized_cholesky, then L^-1.
+    if (d <= 32) {
+      if (warp == 0) {  // one warp, no CTA barrier
+        if (lane < d) {
+          for (int j = 0; j <= lane; ++j) L[tri(lane, j)] = Sigma[tri(lane, j)];
+        }
+        __syncwarp();
+        if (!warp_cholesky(L, 0, d)) {
+          const T tr = warp_sum(lane < d ? Sigma[tri(lane, lane)] : T(0));
+          const T rg = clamp_min(reg_floor * em_abs(tr), reg_floor);
+          if (lane < d) {
+            Sigma[tri(lane, lane)] += rg;
+            for (int j = 0; j <= lane; ++j) L[tri(lane, j)] = Sigma[tri(lane, j)];
+          }
+          __syncwarp();
+          warp_cholesky(L, 0, d);
+          if (lane == 0) *regged = 1;
+        }
+        warp_inverse(L, Li, d);
+      }
+    } else {
+      for (int q = t; q < td; q += nt) L[q] = Sigma[q];
+      __syncthreads();
+      if (!cta_cholesky(L, d, flag)) {
+        if (warp == 0) {
+          T tr = T(0);
+          for (int i = lane; i < d; i += 32) tr += Sigma[tri(i, i)];
+          const T rg = clamp_min(reg_floor * em_abs(warp_sum(tr)), reg_floor);
+          for (int i = lane; i < d; i += 32) Sigma[tri(i, i)] += rg;
+          if (lane == 0) *regged = 1;
+        }
+        __syncthreads();
+        for (int q = t; q < td; q += nt) L[q] = Sigma[q];
+        __syncthreads();
+        cta_cholesky(L, d, flag);
+      }
+      cta_inverse(L, Li, d);
+    }
     __syncthreads();
-    if (!cholesky(L, d, &h.flag)) {
-      if (t == 0) {
-        T tr = T(0);
-        for (int i = 0; i < d; ++i) tr += Sigma[i * d + i];
-        h.reg = clamp_min(static_cast<T>(kRegFloor) * em_abs(tr), static_cast<T>(kRegFloor));
-      }
-      __syncthreads();
-      for (int i = t; i < d; i += nt) Sigma[i * d + i] += h.reg;
-      __syncthreads();
-      for (int q = t; q < DD; q += nt) L[q] = Sigma[q];
-      __syncthreads();
-      cholesky(L, d, &h.flag);
-    }
-    tri_inverse(L, Linv, d);
+    st.mark(0);
 
-    // The squared distances of this CTA's points.
-    T* xs = stage;            // [d][P1]
-    T* dif = stage + d * P1;  // [d][P1]
-    for (int64_t p0 = begin; p0 < end; p0 += P1) {
-      const int np = static_cast<int>(end - p0 < P1 ? end - p0 : P1);
-      for (int idx = t; idx < np * d; idx += nt) {
-        const int p = idx / d, j = idx - p * d;
-        xs[j * P1 + p] = __ldg(data + (p0 + p) * d + j);
+    // The distances, and their terms of the Gaussian-limit test at log 1e6.
+    Acc acc_hi = 0.0;
+    T far_max = T(-1);     // the largest finite distance of this thread's zero-weight points
+    bool far_bad = false;  // one of them not finite: every stationarity sum is NaN
+    bool far_nan = false;  // NaN: the M-step's sums too
+    const int g = lanes_a_point(np_x, d), q = t & (g - 1), per_round = nt / g;
+    for (int base = 0; base < np_x; base += per_round) {
+      const int p = base + t / g;
+      const bool valid = p < np_x;
+      const T m = mahalanobis(Li, mu, xs + static_cast<int64_t>(valid ? p : 0) * ld, d, q, g,
+                              valid);
+      if (valid && q == 0) {
+        dl[p] = m;
+        const T e = (dim - m) / (nu_hi + m);
+        if (p < np) {
+          acc_hi += static_cast<Acc>(wb[p] * (em_log1p(e) - e));
+        } else {
+          if (em_finite(m)) {
+            far_max = m > far_max ? m : far_max;
+          } else {
+            far_bad = true;
+            far_nan = far_nan || m != m;
+          }
+          if (!em_finite(m) || e == T(-1)) acc_hi = NAN;
+        }
       }
-      __syncthreads();
-      mahalanobis_chunk(Linv, mu, d, xs, dif, P1, np, red, delta + p0);
     }
-
-    // _opt_nu: the Gaussian-limit test at log 1e6, then the multisection.
-    // Thread 0 keeps the bracket; threads j < 15 evaluate the midpoints.
+    st.mark(1);
     {
-      const T nu_hi[1] = {em_exp(static_cast<T>(kNuLogHi))};
-      T acc[1];
-      data_terms<T, 1>(nu_hi, delta, wbar, begin, end, dim, acc);
-      cta_sum<T, 1>(acc, red);
-      if (t == 0) mine[0] = red[0];
-      __syncthreads();
-      cluster_sum(cluster, rows + parity * buf_elems, lay.emax, rank, C, 1, mine, tot);
-      parity ^= 1;
-      if (t == 0) {
-        h.is_inf = nu_objective(nu_hi[0], d, tot[0]) >= T(0);
-        h.lo = static_cast<T>(kNuLogLo);
-        h.hi = static_cast<T>(kNuLogHi);
-      }
-      __syncthreads();
+      Acc v[2] = {acc_hi, far_nan ? static_cast<Acc>(NAN) : 0.0};
+      cta_sum<2>(v, red, mine);
     }
+    st.mark(2);
+    fit_sum(sync, rows0 + parity * parity_stride, lay.emax, rank, G, 2, mine, tot);
+    parity ^= 1;
+    st.mark(3);
+    const bool m_nan = tot[1] != tot[1];
+    const bool is_inf = nu_objective(nu_hi, d, tot[0]) >= T(0);
+
+    // _opt_nu's multisection: the 15 midpoints' terms in one pass a pass.
+    T lo = static_cast<T>(kNuLogLo), hi = static_cast<T>(kNuLogHi);
     for (int pass = 0; pass < kPasses; ++pass) {
-      if (t < kSplit - 1) {
-        const T m = h.lo + (h.hi - h.lo) * (static_cast<T>(t + 1) / static_cast<T>(kSplit));
-        h.mids[t] = m;
-        h.nus[t] = em_exp(m);
+      T nus[kSplit - 1];
+      Acc acc[kSplit - 1];
+#pragma unroll
+      for (int j = 0; j < kSplit - 1; ++j) {
+        nus[j] = em_exp(midpoint(lo, hi, j));
+        acc[j] = 0.0;
       }
-      __syncthreads();
-      T acc[kSplit - 1];
-      data_terms<T, kSplit - 1>(h.nus, delta, wbar, begin, end, dim, acc);
-      cta_sum<T, kSplit - 1>(acc, red);
-      for (int j = t; j < kSplit - 1; j += nt) mine[j] = red[j * nt];
-      __syncthreads();
-      cluster_sum(cluster, rows + parity * buf_elems, lay.emax, rank, C, kSplit - 1, mine, tot);
+      for (int p = t; p < np; p += nt) {
+        const T dp = dl[p], wp = wb[p];
+#pragma unroll
+        for (int j = 0; j < kSplit - 1; ++j) {
+          const T e = (dim - dp) / (nus[j] + dp);
+          acc[j] += static_cast<Acc>(wp * (em_log1p(e) - e));
+        }
+      }
+      if (far_bad) {
+#pragma unroll
+        for (int j = 0; j < kSplit - 1; ++j) acc[j] = NAN;
+      } else if (far_max >= T(0) && rounds_to_minus_one(dim, nus[0], far_max)) {
+        // A zero-weight point's e may round to -1 at the lowest midpoints.
+        for (int base = 0; base < np_x; base += per_round) {
+          const int p = base + t / g;
+          if (q != 0 || p < np || p >= np_x) continue;
+          const T dp = dl[p];
+#pragma unroll
+          for (int j = 0; j < kSplit - 1; ++j) {
+            if (rounds_to_minus_one(dim, nus[j], far_max) &&
+                (dim - dp) / (nus[j] + dp) == T(-1)) {
+              acc[j] = NAN;
+            }
+          }
+        }
+      }
+      cta_sum<kSplit - 1>(acc, red, mine);
+      st.mark(2);
+      fit_sum(sync, rows0 + parity * parity_stride, lay.emax, rank, G, kSplit - 1, mine, tot);
       parity ^= 1;
-      if (t < kSplit - 1) h.positive[t] = nu_objective(h.nus[t], d, tot[t]) > T(0);
-      __syncthreads();
-      if (t == 0) {
-        int count = 0;
-        for (int j = 0; j < kSplit - 1; ++j) count += h.positive[j];
-        const T lo = count == 0 ? h.lo : h.mids[count - 1];
-        const T hi = count == kSplit - 1 ? h.hi : h.mids[count];
-        h.lo = lo;
-        h.hi = hi;
+      st.mark(3);
+      if (warp == 0) {
+        const bool positive =
+            lane < kSplit - 1 && nu_objective(em_exp(midpoint(lo, hi, lane)), d, tot[lane]) > T(0);
+        const unsigned b = __ballot_sync(kFull, positive);
+        if (lane == 0) *count = __popc(b);
       }
       __syncthreads();
+      const int c = *count;
+      const T nlo = c == 0 ? lo : midpoint(lo, hi, c - 1);
+      const T nhi = c == kSplit - 1 ? hi : midpoint(lo, hi, c);
+      lo = nlo;
+      hi = nhi;
+      st.mark(6);
     }
-    const T nu_new = h.is_inf ? static_cast<T>(INFINITY) : em_exp(T(0.5) * (h.lo + h.hi));
+    const T nu_new = is_inf ? static_cast<T>(INFINITY) : em_exp(T(0.5) * (lo + hi));
     const bool now_inf = !em_finite(nu_new);
 
     // The M-step, unless at the Gaussian limit (mu and the regularized
     // Sigma stay).
     if (!now_inf) {
-      weighted_sums(StageM<T>{data, wbar, delta, mu, nu_new, d}, MEntries{d},
-                    static_cast<int>(lay.e), begin, end, 2 * d + 1, 2 * d, a.P2, stage, red, mine);
-      cluster_sum(cluster, rows + parity * buf_elems, lay.emax, rank, C,
-                  static_cast<int>(lay.e), mine, tot);
-      parity ^= 1;
-      for (int i = t; i < d; i += nt) mu[i] = tot[1 + i] / tot[0];
-      for (int q = t; q < DD; q += nt) {
-        const int i = q / d, j = q % d;
-        Sigma[q] = tot[1 + d + (i >= j ? tri_entry(i, j) : tri_entry(j, i))];
+      for (int p = t; p < np; p += nt) dl[p] = wb[p] * ((nu_new + dim) / (nu_new + dl[p]));
+      __syncthreads();
+      const int E = static_cast<int>(lay.e);
+      entry_sums<T>(
+          [&](int e) {
+            int i = -1, j = -1;
+            if (e > d) tri_index(e - 1 - d, i, j);
+            const int xi = e >= 1 && e <= d ? e - 1 : -1;
+            return [=](int p) {
+              const T wg = dl[p];
+              const T* x = xs + static_cast<int64_t>(p) * ld;
+              if (i >= 0) return wg * (x[i] - mu[i]) * (x[j] - mu[j]);
+              return xi >= 0 ? wg * x[xi] : wg;
+            };
+          },
+          E, np, mine);
+      if (m_nan) {  // a zero-weight point's distance is NaN, so is its plain wg
+        __syncthreads();
+        for (int e = t; e < E; e += nt) mine[e] = static_cast<T>(NAN);
       }
+      st.mark(4);
+      fit_sum(sync, rows0 + parity * parity_stride, lay.emax, rank, G, E, mine, tot);
+      parity ^= 1;
+      st.mark(5);
+      for (int i = t; i < d; i += nt) mu[i] = tot[1 + i] / tot[0];
+      for (int q = t; q < td; q += nt) Sigma[q] = tot[1 + d + q];
+      stepped = true;
+      __syncthreads();
     }
-    if (t == 0) {
-      const T last = h.nu;
-      h.last_nu = last;
-      h.nu = nu_new;
-      h.it += 1;
-      h.hit_inf = now_inf;
-      const T tol_abs = tol * clamp_min(em_abs(nu_new), T(1));
-      const T inv_tol = static_cast<T>(1000.0 * Limits<T>::eps);
-      const T safe_last = last == T(0) ? static_cast<T>(INFINITY) : last;
-      const bool converged = em_abs(last - nu_new) <= tol_abs ||
-                             em_abs(T(1) / safe_last - T(1) / nu_new) <= inv_tol;
-      h.active = !converged && h.it < max_iter && !now_inf;
-    }
-    __syncthreads();
+    const T last = nu;
+    last_nu = last;
+    nu = nu_new;
+    it += 1;
+    hit_inf = now_inf;
+    const T tol_abs = tol * clamp_min(em_abs(nu_new), T(1));
+    const T inv_tol = static_cast<T>(1000.0 * Limits<T>::eps);
+    const T safe_last = last == T(0) ? static_cast<T>(INFINITY) : last;
+    const bool converged = em_abs(last - nu_new) <= tol_abs ||
+                           em_abs(T(1) / safe_last - T(1) / nu_new) <= inv_tol;
+    active = !converged && it < max_iter && !now_inf;
+    st.mark(6);
   }
+  st.finish();
 
   if (rank == 0) {
     for (int i = t; i < d; i += nt) a.mu[mode * d + i] = mu[i];
-    for (int i = t; i < DD; i += nt) a.Sigma[static_cast<int64_t>(mode) * DD + i] = Sigma[i];
+    T* out = a.Sigma + static_cast<int64_t>(mode) * d * d;
+    if (stepped) {  // the M-step's symmetric Sigma, with any floor since
+      for (int q = t; q < d * d; q += nt) {
+        const int i = q / d, j = q % d;
+        out[q] = Sigma[i >= j ? tri(i, j) : tri(j, i)];
+      }
+    } else if (*regged) {  // the carry's Sigma with the floor: its diagonal
+      for (int i = t; i < d; i += nt) out[i * d + i] = Sigma[tri(i, i)];
+    }
     if (t == 0) {
-      a.nu[mode] = h.nu;
-      a.last_nu[mode] = h.last_nu;
-      a.it[mode] = h.it;
-      a.hit_inf[mode] = static_cast<uint8_t>(h.hit_inf);
-      a.active[mode] = static_cast<uint8_t>(h.active);
+      a.nu[mode] = nu;
+      a.last_nu[mode] = last_nu;
+      a.it[mode] = it;
+      a.hit_inf[mode] = static_cast<uint8_t>(hit_inf);
+      a.active[mode] = static_cast<uint8_t>(active);
     }
   }
 }
 
-template <typename T, int kThreads>
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) mvstud_em_kernel(MvArgs<T> a) {
   extern __shared__ __align__(16) unsigned char em_dynamic_smem[];
   mvstud_em_body<T>(a, em_dynamic_smem);
 }
 
-// The launch plan of K weightings of n points: cluster size, shared memory
-// bytes, where the work area lives and the scratch sizes (elements).
+// The launch plan of K weightings of n points (tempest_mvstud_em_plan's
+// fields).
 struct MvPlan {
-  int64_t C, smem, work_in_smem, work_elems, emax, P1, P2, delta, part, work_global, threads;
+  int64_t ctas, cluster, grid, threads, smem, work_in_smem, work_elems, x_resident,
+      points_resident, points, emax, scratch, part, work_global;
 };
 
-MvPlan mvstud_plan(int64_t K, int64_t n, int64_t d, int64_t elem) {
+// The plan with G = ctas CTAs a weighting.
+MvPlan mvstud_plan_at(int64_t K, int64_t n, int64_t d, int64_t elem, int64_t ctas, bool grid) {
   MvPlan p;
-  p.C = cluster_for(n);
-  p.threads = cta_for(K * p.C, elem);
-  const int threads = static_cast<int>(p.threads);
-  const int64_t red = (kSplit - 1) * threads * elem;
-  const MvLayout fixed(d, 1, 1);
-  const int64_t work_bytes = fixed.elems * elem;
-  int64_t room = kMaxSmem - kHeaderBytes - red - work_bytes;
-  p.work_in_smem = room >= 32 * (2 * d + 1) * elem && room >= 2 * 32 * d * elem;
-  if (!p.work_in_smem) room = kMaxSmem - kHeaderBytes - red;
-  const int64_t budget = room < kStageBytes ? room : kStageBytes;
-  p.P1 = stage_rows(2 * d, elem, budget, threads);
-  p.P2 = stage_rows(2 * d + 1, elem, budget, 128);
-  const MvLayout lay(d, p.P1, p.P2);
+  p.ctas = ctas;
+  p.grid = grid;
+  p.cluster = grid ? 1 : ctas;
+  p.points = (n + ctas - 1) / ctas;
+  p.threads = kThreads;
+  const MvLayout lay(d);
+  const SmemPlan s = smem_plan(elem, lay.elems, 2, p.points, smem_stride(static_cast<int>(d)));
+  p.smem = s.bytes;
+  p.work_in_smem = s.work;
   p.work_elems = lay.elems;
+  p.x_resident = s.x;
+  p.points_resident = s.points;
   p.emax = lay.emax;
-  p.smem = kHeaderBytes + red + lay.stage * elem + (p.work_in_smem ? lay.elems * elem : 0);
-  p.delta = K * n;
-  p.part = 2 * K * p.C * lay.emax;
-  p.work_global = p.work_in_smem ? 0 : K * p.C * lay.elems;
+  p.scratch = s.points ? 0 : K * n;
+  p.part = 2 * K * (ctas + 1) * lay.emax;
+  p.work_global = s.work ? 0 : K * ctas * lay.elems;
   return p;
 }
 
@@ -461,28 +585,60 @@ cudaError_t prepare() {
   if (err != cudaSuccess) return err;
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!done[device]) {
-    status[device] = allow_cluster_and_smem(mvstud_em_kernel<T, kSmallCta>);
-    if (status[device] == cudaSuccess) {
-      status[device] = allow_cluster_and_smem(mvstud_em_kernel<T, kLargeCta>);
-    }
+    status[device] = allow_cluster_and_smem(mvstud_em_kernel<T>);
     done[device] = true;
   }
   return status[device];
 }
 
+// The plan: the grid for one large weighting, else the largest cluster
+// whose clusters are all resident at once (em_common.cuh's geometry).
+template <typename T>
+MvPlan mvstud_plan_for(int64_t K, int64_t n, int64_t d, int sms) {
+  if (grid_route(K, n)) return mvstud_plan_at(K, n, d, sizeof(T), grid_ctas(n, sms), true);
+  for (int64_t c = largest_cluster(K, n, sms); c > 1; --c) {
+    const MvPlan p = mvstud_plan_at(K, n, d, sizeof(T), c, false);
+    if (resident_clusters(mvstud_em_kernel<T>, static_cast<int>(c), kThreads, p.smem) >= K) {
+      return p;
+    }
+  }
+  return mvstud_plan_at(K, n, d, sizeof(T), 1, false);
+}
+
+// mvstud_plan_for, once a shape and device (its occupancy queries cost host
+// time).
+template <typename T>
+MvPlan mvstud_plan(int64_t K, int64_t n, int64_t d, int sms) {
+  static std::map<std::tuple<int, int64_t, int64_t, int64_t>, MvPlan> cache;
+  int device = 0;
+  cudaGetDevice(&device);
+  const auto key = std::make_tuple(device, K, n, d);
+  const auto it = cache.find(key);
+  if (it != cache.end()) return it->second;
+  const MvPlan p = mvstud_plan_for<T>(K, n, d, sms);
+  cache.emplace(key, p);
+  return p;
+}
+
+bool valid_shape(int64_t K, int64_t n, int64_t d) {
+  return K > 0 && n > 0 && d > 0 && K * 16 <= 0x7fffffff && d * (d + 1) / 2 <= 0x7fffffff &&
+         n <= 0x7fffffffLL * 16;
+}
+
 template <typename T>
 int entry(const void* data, const void* wbar, void* mu, void* Sigma, void* nu, void* last_nu,
           void* it, void* hit_inf, void* active, const void* tol, const void* max_iter,
-          void* delta, void* part, void* work, int64_t K, int64_t n, int64_t d, void* stream) {
-  if (K <= 0 || n <= 0 || d <= 0 || K * 16 > 0x7fffffff) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const MvPlan p = mvstud_plan(K, n, d, sizeof(T));
-  if (p.smem > kMaxSmem || (!p.work_in_smem && work == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+          void* delta, void* part, void* work, int64_t K, int64_t n, int64_t d,
+          void* stream) {
+  const int sms = device_sms();
+  if (!valid_shape(K, n, d) || sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = prepare<T>();
   if (err != cudaSuccess) return static_cast<int>(err);
+  const MvPlan p = mvstud_plan<T>(K, n, d, sms);
+  if (p.smem > kMaxSmem || (p.work_global && work == nullptr) ||
+      (p.scratch && delta == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   MvArgs<T> a;
   a.data = static_cast<const T*>(data);
   a.wbar = static_cast<const T*>(wbar);
@@ -495,19 +651,19 @@ int entry(const void* data, const void* wbar, void* mu, void* Sigma, void* nu, v
   a.active = static_cast<uint8_t*>(active);
   a.tol = static_cast<const T*>(tol);
   a.max_iter = static_cast<const int32_t*>(max_iter);
-  a.delta = static_cast<T*>(delta);
+  a.delta = p.scratch ? static_cast<T*>(delta) : nullptr;
   a.part = static_cast<T*>(part);
-  a.work = p.work_in_smem ? nullptr : static_cast<T*>(work);
+  a.work = p.work_global ? static_cast<T*>(work) : nullptr;
+  a.grid = p.grid != 0;
   a.n = n;
   a.d = static_cast<int>(d);
-  a.C = static_cast<int>(p.C);
-  a.P1 = static_cast<int>(p.P1);
-  a.P2 = static_cast<int>(p.P2);
+  a.G = static_cast<int>(p.ctas);
+  a.points = static_cast<int>(p.points);
+  a.x_smem = p.x_resident != 0;
   const int threads = static_cast<int>(p.threads);
-  ClusterLaunch launch(K * p.C, a.C, threads, p.smem, static_cast<cudaStream_t>(stream));
-  err = cudaLaunchKernelEx(&launch.cfg,
-                           threads == kLargeCta ? mvstud_em_kernel<T, kLargeCta>
-                                                : mvstud_em_kernel<T, kSmallCta>, a);
+  FitLaunch launch(K * p.ctas, static_cast<int>(p.cluster), p.grid != 0, threads, p.smem,
+                   static_cast<cudaStream_t>(stream));
+  err = cudaLaunchKernelEx(&launch.cfg, mvstud_em_kernel<T>, a);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -516,20 +672,23 @@ int entry(const void* data, const void* wbar, void* mu, void* Sigma, void* nu, v
 // C entry points, loaded with ctypes.
 //
 // tempest_mvstud_em_plan: the plan of K weightings of n points in d
-// dimensions with elements of elem bytes, into out[0, 11): cluster size,
-// shared memory bytes, whether the work area is in shared memory, its
-// elements a CTA, the partials a CTA, the staging rows P1 and P2, the
-// elements of the three scratch buffers (distances, partials, global work
-// area; 0 when in shared memory) and the CTA's threads. Host only.
+// dimensions with elements of elem bytes, on the current device (whose
+// occupancy query sizes the clusters), into out[0, 14), the fields of
+// tempest_gmm_em_plan (gmm_em.cu), the per-point scratch holding the
+// distances. Host only.
 extern "C" int tempest_mvstud_em_plan(int64_t K, int64_t n, int64_t d, int64_t elem,
                                       int64_t* out) {
-  if (K <= 0 || n <= 0 || d <= 0 || (elem != 4 && elem != 8)) {
+  const int sms = device_sms();
+  if (!valid_shape(K, n, d) || (elem != 4 && elem != 8) || sms <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const MvPlan p = mvstud_plan(K, n, d, elem);
-  const int64_t v[11] = {p.C, p.smem, p.work_in_smem, p.work_elems, p.emax, p.P1,
-                         p.P2, p.delta, p.part, p.work_global, p.threads};
-  for (int i = 0; i < 11; ++i) out[i] = v[i];
+  const cudaError_t err = elem == 4 ? prepare<float>() : prepare<double>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const MvPlan p = elem == 4 ? mvstud_plan<float>(K, n, d, sms) : mvstud_plan<double>(K, n, d, sms);
+  const int64_t v[14] = {p.ctas, p.cluster, p.grid, p.threads, p.smem,
+                         p.work_in_smem, p.work_elems, p.x_resident, p.points_resident, p.points,
+                         p.emax, p.scratch, p.part, p.work_global};
+  for (int i = 0; i < 14; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -537,9 +696,9 @@ extern "C" int tempest_mvstud_em_plan(int64_t K, int64_t n, int64_t d, int64_t e
 // d) and wbar (K, n) of the type; the carry mu (K, d), Sigma (K, d, d), nu
 // and last_nu (K,) of the type, i (K,) int32, hit_inf and active (K,) bool,
 // updated in place; tol (the type) and max_iter (int32) device words; the
-// scratch buffers of the plan's sizes (work may be null when the plan keeps
-// it in shared memory). Each launches on `stream` of the current device
-// without synchronising and returns a cudaError_t.
+// scratch buffers of the plan's sizes (delta and work may be null where
+// the plan has none). Each launches on `stream` of the
+// current device without synchronising and returns a cudaError_t.
 extern "C" int tempest_mvstud_em(const void* data, const void* wbar, void* mu, void* Sigma,
                                  void* nu, void* last_nu, void* it, void* hit_inf, void* active,
                                  const void* tol, const void* max_iter, void* delta, void* part,
@@ -551,8 +710,8 @@ extern "C" int tempest_mvstud_em(const void* data, const void* wbar, void* mu, v
 extern "C" int tempest_mvstud_em_f64(const void* data, const void* wbar, void* mu, void* Sigma,
                                      void* nu, void* last_nu, void* it, void* hit_inf,
                                      void* active, const void* tol, const void* max_iter,
-                                     void* delta, void* part, void* work, int64_t K, int64_t n,
-                                     int64_t d, void* stream) {
+                                     void* delta, void* part, void* work, int64_t K,
+                                     int64_t n, int64_t d, void* stream) {
   return entry<double>(data, wbar, mu, Sigma, nu, last_nu, it, hit_inf, active, tol, max_iter,
                        delta, part, work, K, n, d, stream);
 }

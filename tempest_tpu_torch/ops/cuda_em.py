@@ -39,17 +39,18 @@ Tensors = Dict[str, torch.Tensor]
 _PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
 _GMM_SIGNATURE = [_PTR] * 13 + [_I64] * 5 + [ctypes.c_double, _PTR]
 _MVSTUD_SIGNATURE = [_PTR] * 14 + [_I64] * 3 + [_PTR]
+_HEADERS = ("em_common.cuh", "em_stamps.cuh")
 GMM_LIBRARY = _build.CudaLibrary(
     "gmm_em.cu",
     {"tempest_gmm_em": _GMM_SIGNATURE, "tempest_gmm_em_f64": _GMM_SIGNATURE,
      "tempest_gmm_em_plan": [_I64] * 6 + [_PTR]},
-    headers=("em_common.cuh",),
+    headers=_HEADERS,
 )
 MVSTUD_LIBRARY = _build.CudaLibrary(
     "mvstud_em.cu",
     {"tempest_mvstud_em": _MVSTUD_SIGNATURE, "tempest_mvstud_em_f64": _MVSTUD_SIGNATURE,
      "tempest_mvstud_em_plan": [_I64] * 4 + [_PTR]},
-    headers=("em_common.cuh",),
+    headers=_HEADERS,
 )
 GMM_ENTRIES = {torch.float32: "tempest_gmm_em", torch.float64: "tempest_gmm_em_f64"}
 MVSTUD_ENTRIES = {torch.float32: "tempest_mvstud_em", torch.float64: "tempest_mvstud_em_f64"}
@@ -58,9 +59,16 @@ COVARIANCE_CODES = {"full": 0, "tied": 1, "diag": 2, "spherical": 3}
 # Kernel launches in this process, by kernel (both types each).
 LAUNCHES = {"gmm_em": 0, "mvstud_em": 0}
 
-# The plan's fields (csrc `tempest_gmm_em_plan`, `tempest_mvstud_em_plan`).
-PLAN_FIELDS = ("cluster", "smem", "work_in_smem", "work_elems", "emax", "P1", "P2",
-               "scratch", "part", "work_global", "threads")
+# The plan's fields (csrc `tempest_gmm_em_plan`, `tempest_mvstud_em_plan`):
+# CTAs a fit, the cluster size (1 where one fit takes the grid), whether it
+# does (a cooperative launch), threads a CTA, shared memory bytes, whether
+# the work area, the points and their per-point values lie in shared memory,
+# the work area's elements, a CTA's points at most, the partials a CTA and
+# reduction, then the scratch buffers' elements: per-point values, partials,
+# global work area.
+PLAN_FIELDS = ("ctas", "cluster", "grid", "threads", "smem", "work_in_smem", "work_elems",
+               "x_resident", "points_resident", "points", "emax", "scratch", "part",
+               "work_global")
 
 
 def kernel_route(*tensors: torch.Tensor) -> bool:
@@ -102,11 +110,12 @@ def plan(library: _build.CudaLibrary, *args: int) -> Dict[str, int]:
 
 
 def _scratch(p: Dict[str, int], dtype, device):
-    """The scratch buffers of a plan: per-point values, partials, work area."""
-    per_point = torch.empty(p["scratch"], dtype=dtype, device=device)
-    part = torch.empty(p["part"], dtype=dtype, device=device)
-    work = torch.empty(p["work_global"], dtype=dtype, device=device) if p["work_global"] else None
-    return per_point, part, work
+    """The scratch buffers of a plan: per-point values, partials and work
+    area; None where the plan has none."""
+    def empty(key):
+        return torch.empty(p[key], dtype=dtype, device=device) if p[key] else None
+
+    return empty("scratch"), empty("part"), empty("work_global")
 
 
 def _ptr(t) -> int:
@@ -148,7 +157,7 @@ def gmm_em(X: torch.Tensor, sw: torch.Tensor, carry: Tensors, tol: torch.Tensor,
     entry = getattr(_build.load(GMM_LIBRARY), GMM_ENTRIES[f])
     err = entry(X.data_ptr(), sw.data_ptr(), *(out[k].data_ptr() for k in
                                                ("pi", "means", "covs", "lb", "n_iter", "done")),
-                tol.data_ptr(), max_iter.data_ptr(), wresp.data_ptr(), part.data_ptr(),
+                tol.data_ptr(), max_iter.data_ptr(), _ptr(wresp), part.data_ptr(),
                 _ptr(work), B, n, d, K, cov, float(reg_covar),
                 torch.cuda.current_stream(X.device).cuda_stream)
     _build.check(err, "gmm_em")
@@ -188,7 +197,7 @@ def mvstud_em(data: torch.Tensor, wbar: torch.Tensor, carry: Tensors, tol: torch
     out = {k: carry[k].clone() for k in keys}
     entry = getattr(_build.load(MVSTUD_LIBRARY), MVSTUD_ENTRIES[f])
     err = entry(data.data_ptr(), wbar.data_ptr(), *(out[k].data_ptr() for k in keys),
-                tol.data_ptr(), max_iter.data_ptr(), delta.data_ptr(), part.data_ptr(),
+                tol.data_ptr(), max_iter.data_ptr(), _ptr(delta), part.data_ptr(),
                 _ptr(work), K, n, d, torch.cuda.current_stream(data.device).cuda_stream)
     _build.check(err, "mvstud_em")
     LAUNCHES["mvstud_em"] += 1

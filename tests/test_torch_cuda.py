@@ -1330,6 +1330,14 @@ def _run_gmm(Xb, sw, carry, cov, max_iter=1000):
     (2, 2048, 10, 1, "full"),
     (2, 4096, 10, 16, "full"),
     (2, 1000, 3, 16, "spherical"),
+    (1, 524288, 10, 2, "full"),  # one fit over the grid at B's n
+    (1, 5003, 10, 2, "diag"),  # over the grid, n not a multiple of a CTA's points
+    (2, 100, 10, 2, "full"),  # fewer points than a CTA's threads
+    (2, 2048, 24, 2, "full"),  # a warp's factorization in shared memory, 16 < d <= 32
+    (2, 2048, 33, 2, "full"),  # the CTA's panel factorization, d > 32
+    (1, 4096, 100, 2, "full"),
+    (2, 262144, 4, 2, "tied"),  # points past shared memory (and, in float64, their values)
+    (2, 4096, 64, 16, "diag"),  # the global work area
 ])
 def test_gmm_em_kernel_matches_plain_loop(cuda_device, dtype, B, n, d, K, cov):
     Xb, sw, carry = _gmm_start(cuda_device, B, n, d, K, cov, dtype, seed=B * 100 + K)
@@ -1352,7 +1360,7 @@ def test_gmm_em_kernel_edge_cases(cuda_device, dtype, case):
 
 
 def _mode_start(device, K, n, d, dtype, seed, zero_mode=False, singular=False, gaussian=False,
-                max_iter=100):
+                far=False, max_iter=100):
     rng = np.random.default_rng(seed)
     if gaussian:
         data = rng.normal(size=(n, d))
@@ -1363,6 +1371,9 @@ def _mode_start(device, K, n, d, dtype, seed, zero_mode=False, singular=False, g
     w = rng.uniform(0.05, 1.0, size=(K, n)) * (labels[None] == np.arange(K)[:, None])
     if zero_mode:
         w[-1] = 0.0
+    if far:  # a point of zero weight whose squared norm overflows the type
+        data[7] = 1e19 if dtype == torch.float32 else 1e160
+        w[:, 7] = 0.0
     t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
     carry, consts = ts._mode_start(t(data), t(w), 1e-6, max_iter)
     if singular:  # the max(1e-6, 1e-6 |trace|) floor where Cholesky fails
@@ -1380,8 +1391,13 @@ def _run_modes(carry, consts):
 @pytest.mark.parametrize("K,n,d", [
     (16, 4096, 10),  # A's clustered fit: k_max modes of 4 N fit points
     (1, 4096, 10),  # the unclustered and dynamic paths' global fit
-    (1, 524288, 10),  # B's global fit
-    (1, 8192, 100),  # rosenbrock100's
+    (1, 524288, 10),  # B's global fit: over the grid
+    (1, 8192, 100),  # rosenbrock100's: over the grid, d > 32
+    (4, 4096, 20),  # a warp's factorization in shared memory, 16 < d <= 32
+    (4, 2048, 33),  # the CTA's panel factorization in clusters
+    (1, 5003, 10),  # over the grid, n not a multiple of a CTA's points
+    (2, 100, 5),  # fewer points than a CTA's threads
+    (2, 262144, 4),  # points past shared memory (and, in float64, their distances)
 ])
 def test_mvstud_em_kernel_matches_plain_loop(cuda_device, dtype, K, n, d):
     carry, consts = _mode_start(cuda_device, K, n, d, dtype, seed=K + d)
@@ -1390,39 +1406,47 @@ def test_mvstud_em_kernel_matches_plain_loop(cuda_device, dtype, K, n, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("case", ["zero_mode", "singular", "max_iter", "gaussian"])
+@pytest.mark.parametrize("case", ["zero_mode", "singular", "max_iter", "gaussian",
+                                  "singular d = 40", "singular over the grid", "far",
+                                  "far over the grid"])
 def test_mvstud_em_kernel_edge_cases(cuda_device, dtype, case):
+    """Edge cases; "singular" makes a mode's first Cholesky fail, so the
+    floor is added and the factorization retried (a warp's at d <= 32, the
+    CTA's panels past it), in clusters and over the grid. "far" adds a
+    point of zero weight whose distance overflows: the plain loop's
+    stationarity sums turn NaN (0 x NaN), so its dof falls to the bracket's
+    bottom; the kernel, whose sums run over the points of nonzero weight,
+    must do the same from the other points' distances."""
     max_iter = 3 if case == "max_iter" else 100
-    carry, consts = _mode_start(cuda_device, 4, 4096, 10, dtype, seed=11,
-                                zero_mode=case == "zero_mode", singular=case == "singular",
-                                gaussian=case == "gaussian", max_iter=max_iter)
+    K, n, d = {"singular d = 40": (2, 4096, 40), "singular over the grid": (1, 8192, 10),
+               "far over the grid": (1, 8192, 10)}.get(case, (4, 4096, 10))
+    carry, consts = _mode_start(cuda_device, K, n, d, dtype, seed=11,
+                                zero_mode=case == "zero_mode", singular=case.startswith("singular"),
+                                gaussian=case == "gaussian", far=case.startswith("far"),
+                                max_iter=max_iter)
     report = cs.em_mode_case(case, carry, consts)
+    if case.startswith("far"):  # the overflow happened, and the held points route took it
+        assert cuda_em.plan(cuda_em.MVSTUD_LIBRARY, K, n, d, consts["data"].element_size())[
+            "x_resident"]
+        assert bool((ts._mode_em_plain(carry, consts, None)["nu"] < 1e-20).all())
     if case == "max_iter":
-        assert report["iterations"] == [3] * 4
+        assert report["iterations"] == [3] * K
     if case == "gaussian":  # the Gaussian-limit exit: nu = +inf, mu and Sigma kept
         assert report["gaussian_limit"] > 0
     assert not report["parted"], report["parted"]
 
 
 @pytest.mark.cuda
-def test_em_kernels_small_cta_in_float64(cuda_device, tmp_path, monkeypatch):
-    """The 256-thread CTA plan, which the launch plan takes in float32 past
-    64 CTAs only, held by the float64 rule: sources whose plan always takes
-    256 threads (scripts/em_designs.py's edit of em_common.cuh)."""
-    src = tmp_path / "csrc"
-    import shutil
-    shutil.copytree(_build.CSRC, src)
-    header = (src / "em_common.cuh").read_text()
-    rule = "return elem == 4 && ctas > 64 ? kSmallCta : kLargeCta;"
-    assert rule in header
-    (src / "em_common.cuh").write_text(header.replace(rule, "return kSmallCta;"))
-    monkeypatch.setattr(_build, "CSRC", src)
-    monkeypatch.setattr(_build, "_loaded", {})
-    assert cuda_em.plan(cuda_em.MVSTUD_LIBRARY, 16, 4096, 10, 8)["threads"] == 256
+def test_em_kernels_small_cta_in_float64(cuda_device):
+    """The one CTA size, 256 threads (em_common.cuh kThreads: at 384 or 512
+    threads both kernels spill), held by the float64 rule at A's, B's and
+    rosenbrock100's shapes, in every route of the plan."""
+    for args in ((16, 4096, 10, 8), (1, 8192, 100, 8), (1, 524288, 10, 8), (1, 524288, 10, 4)):
+        assert cuda_em.plan(cuda_em.MVSTUD_LIBRARY, *args)["threads"] == 256, args
     assert cuda_em.plan(cuda_em.GMM_LIBRARY, 16, 2048, 10, 2, 0, 8)["threads"] == 256
     Xb, sw, carry = _gmm_start(cuda_device, 16, 2048, 10, 2, "full", torch.float64, seed=5)
     cs.em_gmm_case("256 threads", Xb, sw, carry, "full")
-    for K, n, d in ((16, 4096, 10), (1, 8192, 100)):
+    for K, n, d in ((16, 4096, 10), (1, 8192, 100), (1, 524288, 10)):
         carry, consts = _mode_start(cuda_device, K, n, d, torch.float64, seed=K + d)
         cs.em_mode_case(f"256 threads {(K, n, d)}", carry, consts)
 
@@ -1462,3 +1486,53 @@ def test_em_kernels_replay_in_graphs(cuda_device, dtype):
     for name in ("gmm_em", "mode_em"):
         stats = graphed.stats[name]
         assert stats["captures"] == 1 and stats["replays"] == 2 and stats["reads"] == 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_em_grid_launches(cuda_device, dtype):
+    """A fit over the grid (a cooperative launch, more than 64 of the card's
+    SMs at B's n): two launches give the same bits, and a CUDA graph's
+    replays give the eager launch's."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    elem = torch.tensor([], dtype=dtype).element_size()
+    p = cuda_em.plan(cuda_em.MVSTUD_LIBRARY, 1, 524288, 10, elem)
+    assert p["grid"] == 1 and p["cluster"] == 1 and p["ctas"] == min(sms, 524288 // 128) > 64
+    p = cuda_em.plan(cuda_em.GMM_LIBRARY, 1, 524288, 10, 2, 0, elem)
+    assert p["grid"] == 1 and p["ctas"] > 64
+    graphed = _loops(cuda_device, True)
+    for seed in (1, 2):  # the second call replays the first call's graphs
+        mc, mk = _mode_start(cuda_device, 1, 524288, 10, dtype, seed=seed)
+        want = _run_modes(mc, mk)
+        again = _run_modes(mc, mk)
+        got = ts._mode_em(mc, mk, graphed)
+        for k in ("mu", "Sigma", "nu", "last_nu", "i", "hit_inf", "active"):
+            assert torch.equal(again[k], want[k]), (seed, k)
+            assert torch.equal(got[k], want[k]), (seed, k)
+        Xb, sw, carry = _gmm_start(cuda_device, 1, 524288, 10, 2, "full", dtype, seed=seed)
+        want = _run_gmm(Xb, sw, carry, "full")
+        again = _run_gmm(Xb, sw, carry, "full")
+        got = tc._gmm_em(Xb, sw, carry, 1000, 1e-3, 1e-6, "full", graphed)
+        for k in ("pi", "means", "covs", "lb", "n_iter", "done"):
+            assert torch.equal(again[k], want[k]), (seed, k)
+            assert torch.equal(got[k], want[k]), (seed, k)
+    for name in ("gmm_em", "mode_em"):
+        stats = graphed.stats[name]
+        assert stats["captures"] == 1 and stats["replays"] == 2 and stats["reads"] == 0, name
+
+
+@pytest.mark.cuda
+def test_em_plans_fill_the_card(cuda_device):
+    """A's largest GMM round (16 fits) and A's 16 modes take most of the
+    SMs; a fit's points and per-point values stay in shared memory at A's,
+    B's (float32) and rosenbrock100's shapes."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    p = cuda_em.plan(cuda_em.GMM_LIBRARY, 16, 2048, 10, 2, 0, 4)
+    assert p["grid"] == 0 and 16 * p["ctas"] > sms // 2 and 16 * p["ctas"] <= sms
+    p = cuda_em.plan(cuda_em.MVSTUD_LIBRARY, 16, 4096, 10, 4)
+    assert p["grid"] == 0 and 16 * p["ctas"] > sms // 2
+    for args in ((16, 4096, 10, 4), (1, 524288, 10, 4), (1, 8192, 100, 4), (16, 4096, 10, 8)):
+        p = cuda_em.plan(cuda_em.MVSTUD_LIBRARY, *args)
+        assert p["points_resident"] and p["x_resident"] and p["scratch"] == 0, args
+    p = cuda_em.plan(cuda_em.GMM_LIBRARY, 16, 2048, 10, 2, 0, 8)
+    assert p["points_resident"] and p["x_resident"] and p["scratch"] == 0

@@ -205,12 +205,45 @@ def test_c_entries_match_their_signatures(library):
 
 
 def test_build_name_follows_the_header(tmp_path, monkeypatch):
-    for name in ("gmm_em.cu", "em_common.cuh"):
+    for name in ("gmm_em.cu", *cuda_em.GMM_LIBRARY.headers):
         (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     first = cuda_em.GMM_LIBRARY.path()
     (tmp_path / "em_common.cuh").write_text((tmp_path / "em_common.cuh").read_text() + "\n")
     assert cuda_em.GMM_LIBRARY.path() != first
+
+
+@pytest.mark.parametrize("source", ["gmm_em.cu", "mvstud_em.cu"])
+def test_plan_fields_match_the_c_plans(source):
+    """The C plan entry writes PLAN_FIELDS' fields, in their order."""
+    text = (_build.CSRC / source).read_text()
+    m = re.search(r"const int64_t v\[(\d+)\] = \{([^}]*)\};", text)
+    assert m, source
+    names = [re.sub(r"^p\.", "", v.strip()) for v in m.group(2).split(",")]
+    assert int(m.group(1)) == len(names) == len(cuda_em.PLAN_FIELDS)
+    assert tuple(names) == cuda_em.PLAN_FIELDS
+    assert f"for (int i = 0; i < {len(names)}; ++i) out[i] = v[i];" in text
+
+
+def test_scratch_follows_the_plan():
+    """Buffers of the plan's sizes, none where a size is 0."""
+    plan = dict.fromkeys(cuda_em.PLAN_FIELDS, 0)
+    plan.update(scratch=0, part=12, work_global=0)
+    per_point, part, work = cuda_em._scratch(plan, torch.float64, "cpu")
+    assert per_point is None and work is None
+    assert part.shape == (12,) and part.dtype == torch.float64
+    plan.update(scratch=5, work_global=7)
+    per_point, part, work = cuda_em._scratch(plan, torch.float32, "cpu")
+    assert per_point.shape == (5,) and work.shape == (7,) and per_point.dtype == torch.float32
+    assert cuda_em._ptr(None) is None
+
+
+def test_em_libraries_export_the_stamps():
+    """Both EM sources carry the clock64 stamps' readout (csrc/em_stamps.cuh)."""
+    text = (_build.CSRC / "em_stamps.cuh").read_text()
+    assert 'extern "C" int tempest_em_stamps(int64_t* out)' in text
+    for library in (cuda_em.GMM_LIBRARY, cuda_em.MVSTUD_LIBRARY):
+        assert "em_stamps.cuh" in library.headers
 
 
 def test_launch_counts_cover_the_em_kernels():
