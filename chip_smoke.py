@@ -91,6 +91,14 @@ lines and a failure exits non-zero:
     (bytes at 3.35 TB/s, instructions at the issue rate) and its reduction
     chain (the longest fit's iterations times its cluster reductions an
     iteration times the probe's latency);
+ 4e. the kernel that sets a CUDA-graph conditional node's flag
+    (csrc/graph_cond.cu, which stands for XLA's lax.cond and while_loop of
+    the cluster fit's rounds, not a Pallas kernel): a graph of A's 15 IF
+    nodes on go & (n_leaves < 16) runs its bodies exactly where the host's
+    read of go and the leaf count (its plain version, the eager fit's
+    decision) decides to, at every (go, n_leaves) tried; its device time a
+    launch, a replay's call time a node untaken and taken, against one
+    plain decision's call time, beside its bound;
  5. the canonical problem unclustered (paired 10-D Rosenbrock, U(-10, 10)
     prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42,
     with `run(on_device=True)`: its loops replayed as CUDA graphs;
@@ -111,8 +119,12 @@ lines and a failure exits non-zero:
     cudaDeviceSynchronize, a synchronous cudaMemcpy), at most one a loop
     chunk plus two an iteration (beta and the termination test), fewer
     than 150, no torch.linalg.eigvalsh operator (the CV's eigenvalues
-    are the kernel's) and no EM chunk read; then iterations 24-26 traced on
-    the device only (no host ops recorded): wall and idle share;
+    are the kernel's) and no EM chunk read; graphed, no split-round read,
+    no replay of a round's head or tail of its own and one replay of the
+    "hgm_fit" stretch an iteration (the cluster fit, its rounds CUDA-graph
+    conditional nodes), whose graph's node count and capture seconds are
+    printed; each window's `ps/cluster` host ms; then iterations 24-26
+    traced on the device only (no host ops recorded): wall and idle share;
  7. A again with hardware_prng=True, seed 42, with run(on_device=False) and
     then run(on_device=True) on a sampler whose seed-43 run captured the
     graphs: every MCMC step body draws through the mutation-draws kernel
@@ -130,7 +142,9 @@ lines and a failure exits non-zero:
     MCMC step body (by replays when graphed), no bits launch, and seconds
     per mutation iteration of each; then the normal kernel at its R*N*d
     and the ESS kernel at the S reached, each against its plain version;
- 9. C: the 10-D bimodal mixture of tests/test_multimodal.py, clustered;
+ 9. C: the 10-D bimodal mixture of tests/test_multimodal.py, clustered,
+    with run(on_device=False) and then True: bit for bit, launches
+    included, its fits replayed as the "hgm_fit" stretch;
 10. the 10-D Gaussian of tests/test_end_to_end.py;
 11. the reference surface on A's problem, seed 42: the reference's default
     call form (per-point torch functions, `vectorize` left False) with a
@@ -153,10 +167,12 @@ lines and a failure exits non-zero:
     loop body on the card), no ESS-mode launch; walls, probes and loop
     reads per reweight; then iterations 21-23 in each mode under the
     profiler, held to 6b's rule;
-13. the refit cadence, C with cluster_every=3, and a host likelihood: the
-    10-D Gaussian as a numpy per-point function with host_likelihood=True;
+13. the refit cadence, C with cluster_every=3 (on_device=False and True,
+    bit for bit, as C), and a host likelihood: the 10-D Gaussian as a
+    numpy per-point function with host_likelihood=True;
 14. float64: A at dtype=torch.float64 with hardware_prng=True, seed 42, with
-    `run(on_device=True)`, its MCMC chunks replayed as graphs (one
+    `run(on_device=False)` and `run(on_device=True)`, bit for bit, its
+    loops and cluster fits replayed as graphs (one
     float64 ESS launch per reweight and no PRNG launch: the flag does not
     apply to float64, as in JAX), its wall beside phases 6 and 6b's seed 42; B at
     float64 through its first four mutation iterations (no launch of any of
@@ -289,7 +305,13 @@ try:  # the EM kernels; likewise
     from tempest_tpu_torch.ops import cuda_em  # noqa: E402
 except ImportError:
     cuda_em = None
+try:  # the conditional nodes of the graphed cluster fit; likewise
+    from tempest_tpu_torch.ops import cuda_graphs  # noqa: E402
+except ImportError:
+    cuda_graphs = None
 from tempest_tpu_torch import cluster as cluster_module  # noqa: E402
+from tempest_tpu_torch import iteration as iteration_module  # noqa: E402
+from tempest_tpu_torch import loops as loops_module  # noqa: E402
 from tempest_tpu_torch import student as student_module  # noqa: E402
 from tempest_tpu_torch.loops import Loops  # noqa: E402
 from tempest_tpu_torch import modes as modes_module  # noqa: E402
@@ -454,7 +476,23 @@ def bimodal(x):
 # ---------------------------------------------------------------------------
 # Launch counts and timing
 # ---------------------------------------------------------------------------
+def cond_launches() -> int:
+    """The conditional nodes' flag-kernel launches since the counts were
+    set to 0 (kept apart from counts(), which the on_device=False runs
+    must equal: they decide on the host)."""
+    return 0 if cuda_graphs is None else cuda_graphs.LAUNCHES
+
+
+def settle() -> None:
+    """Count the launches of the graphs' conditional bodies (a package
+    older than them has none)."""
+    getattr(loops_module, "settle_launches", lambda: None)()
+
+
 def reset_counts() -> None:
+    settle()
+    if cuda_graphs is not None:
+        cuda_graphs.LAUNCHES = 0
     cuda_reweight.LAUNCHES = 0
     cuda_reweight.LAUNCHES_F64 = 0
     if cuda_linalg is not None:
@@ -469,6 +507,7 @@ def reset_counts() -> None:
 
 
 def counts() -> dict:
+    settle()
     eig = {} if cuda_linalg is None else {"sym_eigvals": cuda_linalg.LAUNCHES}
     median = {} if cuda_median is None else {"weighted_median": cuda_median.LAUNCHES,
                                              "ess_bracket": cuda_reweight.BRACKET_LAUNCHES}
@@ -508,11 +547,12 @@ def _count_mode_fits() -> None:
 def check_em_launches(what: str, launched: dict, mode_fits: int, gmm_fits: int,
                       loops: dict) -> None:
     """On the card every EM loop is one kernel launch and reads nothing: one
-    mvstud_em launch a mode fit, one gmm_em launch a GMM EM loop, and no
-    "mode_em" or "gmm_em" chunk read."""
+    mvstud_em launch a mode fit, one gmm_em launch a GMM EM loop (`gmm_fits`,
+    None where they are not counted), and no "mode_em" or "gmm_em" chunk
+    read."""
     if cuda_em is None:
         return
-    check(launched["mvstud_em"] == mode_fits and launched["gmm_em"] == gmm_fits,
+    check(launched["mvstud_em"] == mode_fits and gmm_fits in (None, launched["gmm_em"]),
           f"{what}: {launched['mvstud_em']} mvstud_em launches for {mode_fits} mode fits, "
           f"{launched['gmm_em']} gmm_em launches for {gmm_fits} GMM EM loops")
     reads = {k: loops.get(k, {}).get("reads", 0) for k in ("mode_em", "gmm_em")}
@@ -891,7 +931,8 @@ def phase_build() -> dict:
     libs = (cuda_reweight.LIBRARY, cuda_prng.LIBRARY) + (
         () if cuda_linalg is None else (cuda_linalg.LIBRARY,)) + (
         () if cuda_median is None else (cuda_median.LIBRARY,)) + (
-        () if cuda_em is None else (cuda_em.GMM_LIBRARY, cuda_em.MVSTUD_LIBRARY))
+        () if cuda_em is None else (cuda_em.GMM_LIBRARY, cuda_em.MVSTUD_LIBRARY)) + (
+        () if cuda_graphs is None else (cuda_graphs.LIBRARY,))
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     ptxas = []
     for i, lib in enumerate(libs):  # the same compiles as the libraries', to cubins, verbose
@@ -1771,6 +1812,75 @@ def phase_median_kernel(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4e: the conditional nodes' flag kernel (no Pallas counterpart)
+# ---------------------------------------------------------------------------
+# A's cluster fit: k_max = 16 leaves, min(max_rounds, k_max - 1) = 15
+# possible split rounds, an IF node each.
+COND_K_MAX, COND_NODES = 16, 15
+
+
+def cond_graph(device, go, n_leaves, ran) -> torch.cuda.CUDAGraph:
+    """A graph of COND_NODES IF nodes, each on go & (n_leaves < COND_K_MAX)
+    as the fit's rounds make them, each body adding one to `ran`."""
+    side, body = torch.cuda.Stream(device), torch.cuda.Stream(device)
+    pool = cuda_graphs.body_pool(body)
+    graph = torch.cuda.CUDAGraph()
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        for _ in range(COND_NODES):
+            with cuda_graphs.if_body(go & (n_leaves < COND_K_MAX), pool, body):
+                ran.add_(1)
+        graph.capture_end()
+    torch.cuda.current_stream(device).wait_stream(side)
+    return graph
+
+
+def phase_cond_kernel(device) -> dict:
+    """4e: the kernel that sets a conditional node's flag
+    (csrc/graph_cond.cu, set_conditional, through ops/cuda_graphs.if_body)
+    against its plain version, the host's read of go and the leaf count
+    deciding each round as the fit's eager route does (Loops.read): a
+    graph of A's 15 nodes replayed on every (go, n_leaves) the rounds meet
+    must run its bodies exactly where the host decides to (max_abs_err:
+    the largest difference in bodies run); its device time a launch (the
+    profile's), a replay's call time a node with every node untaken and
+    with every node taken, against one plain decision's call time, beside
+    its bound (the predicate's 5 bytes read once)."""
+    go = torch.zeros((), dtype=torch.bool, device=device)
+    n_leaves = torch.zeros((), dtype=torch.int32, device=device)
+    ran = torch.zeros((), dtype=torch.int64, device=device)
+    graph = cond_graph(device, go, n_leaves, ran)
+    loops, err = Loops(device), 0
+    for g in (True, False):
+        for n in (1, 2, 8, COND_K_MAX - 1, COND_K_MAX):
+            go.fill_(g)
+            n_leaves.fill_(n)
+            ran.zero_()
+            graph.replay()
+            go_h, n_h = loops.read("plain", go, n_leaves)
+            err = max(err, abs(int(ran.item()) - (COND_NODES if go_h and n_h < COND_K_MAX else 0)))
+    check(err == 0, f"set_conditional: the nodes ran bodies where the host decided otherwise "
+                    f"({err})")
+    go.fill_(True)
+    n_leaves.fill_(COND_K_MAX)  # every node untaken, as the fit's spare rounds
+    untaken = timed_in_turns({"replay": graph.replay})["replay"] / COND_NODES
+    dev = device_ms(graph.replay, "set_conditional", calls=10) / COND_NODES
+    n_leaves.fill_(1)  # every node taken
+    taken = timed_in_turns({"replay": graph.replay})["replay"] / COND_NODES
+    plain = timed_in_turns({"read": lambda: loops.read("plain", go, n_leaves)})["read"]
+    bound = 1e3 * 5 / HBM_BYTES_PER_S
+    print(f"set_conditional: {COND_NODES} IF nodes on go & (n_leaves < {COND_K_MAX}) run their "
+          f"bodies where the host's read decides to, at every (go, n_leaves) tried "
+          f"(max_abs_err {err}); device {dev:.5f} ms a launch; a replay's call {untaken:.5f} ms "
+          f"a node untaken, {taken:.5f} ms taken (a body of one add); the plain decision (one "
+          f"blocking read) {plain:.5f} ms; bound {bound:.3g} ms (bytes)", flush=True)
+    return dict(max_abs_err=float(err), ms=untaken, plain_ms=plain, bound_ms=bound,
+                bound_by="bytes", library_ms=None, device_ms=dev, taken_ms=taken,
+                nodes=COND_NODES)
+
+
+# ---------------------------------------------------------------------------
 # Phase 4d: the EM kernels (no Pallas counterpart: XLA's while_loops)
 # ---------------------------------------------------------------------------
 # The GMM EM's fits (B, n, d, K): A's leaf fits (16 leaf slots,
@@ -2364,16 +2474,22 @@ def em_mode_case(what, carry, consts) -> dict:
 
 
 def a_fit_inputs(device, iteration: int = 21) -> dict:
-    """The inputs of every GMM EM loop and of the Student-t EM loop of A's
+    """The inputs of every GMM EM loop, of the Student-t EM loop and of the
+    cluster fit ("hgm": x, w, mask and hgm_fit's other arguments) of A's
     seed 42 (on_device=False) at `iteration`, on the card."""
     s = canonical_sampler(device, SEEDS[0], clustering=True)
     s.reset(random_state=SEEDS[0])
     core = s.state
     core.n_total = N_TOTAL
     core._pregrow_capacity()
-    got = {"gmm": [], "mode": []}
+    got = {"gmm": [], "mode": [], "hgm": []}
     gmm_em, mode_em = cluster_module._gmm_em, student_module._mode_em
+    hgm_fit = iteration_module.hgm_fit
     copy = lambda c: {k: v.clone() for k, v in c.items()}  # noqa: E731
+
+    def hgm(x, w, mask, loops=None, **kwargs):
+        got["hgm"].append((x.clone(), w.clone(), mask.clone(), kwargs))
+        return hgm_fit(x, w, mask, loops=loops, **kwargs)
 
     def gmm(X, sw, carry, max_iter, tol, reg, cov, loops):
         got["gmm"].append((X.clone(), sw.clone(), copy(carry), cov))
@@ -2386,10 +2502,12 @@ def a_fit_inputs(device, iteration: int = 21) -> dict:
     for _ in range(iteration - 1):
         core._step(None, 0)
     cluster_module._gmm_em, student_module._mode_em = gmm, mode
+    iteration_module.hgm_fit = hgm
     try:
         core._step(None, 0)
     finally:
         cluster_module._gmm_em, student_module._mode_em = gmm_em, mode_em
+        iteration_module.hgm_fit = hgm_fit
     return got
 
 
@@ -2858,7 +2976,7 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
         if runs is not None:
             runs[seed] = dict(results=s.results(), logz=s.evidence()[0], wall=wall,
                               launches=launched, iters=s.state.hist.t, bodies=bodies,
-                              draws=s.state.draws.get_state())
+                              draws=s.state.draws.get_state(), loops=loops_run)
         ess = s.state.posterior_ess()
         logz, _ = s.evidence()
         iters = s.state.hist.t
@@ -2870,7 +2988,9 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
               f"iters={iters} clusters={k} logz={logz:.4f} beta={s.beta:.6f} calls={s.calls} "
               f"mcmc_steps={steps} mcmc_bodies={bodies} mode_fits={fits} gmm_em_loops={gmm_fits} "
               f"launches={launched}", flush=True)
-        check_em_launches(f"{name} seed {seed}", launched, fits, gmm_fits, loops_run)
+        # graphed, the GMM EM loops run inside the fit's replays, uncounted
+        check_em_launches(f"{name} seed {seed}", launched, fits,
+                          None if on_device else gmm_fits, loops_run)
         check(cuda_median is None or launched["weighted_median"] == fits > 0,
               f"{name} seed {seed}: {launched.get('weighted_median')} weighted-median launches "
               f"for {fits} mode fits")
@@ -2966,8 +3086,8 @@ def steady_window(s, graphs: bool, first: int = 21, n: int = 5,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         student_module._mode_em = mode_em
-        reads = {k: v.get("reads", 0) - before.get(k, {}).get("reads", 0)
-                 for k, v in loops.stats.items()}
+        reads, replays = ({k: v.get(c, 0) - before.get(k, {}).get(c, 0)
+                           for k, v in loops.stats.items()} for c in ("reads", "replays"))
         if device_only:
             with profile(activities=[ProfilerActivity.CUDA]) as prof_device:
                 profile_warmup()
@@ -2998,8 +3118,8 @@ def steady_window(s, graphs: bool, first: int = 21, n: int = 5,
     out = dict(graphs=graphs, first=first, n=n, wall_per_iter=wall / n,
                device_ms_per_iter=device_ms / n, idle=1.0 - device_ms / (1e3 * wall),
                blocking_per_iter=sum(blocking.values()) / n, blocking=blocking,
-               chunk_reads_per_iter=chunk_reads / n, reads=reads, eigh_ops=eigh,
-               stages_ms=stages, kernels={
+               chunk_reads_per_iter=chunk_reads / n, reads=reads, replays=replays,
+               clustered=core.config.clustering, eigh_ops=eigh, stages_ms=stages, kernels={
                    k: v for i, (k, v) in enumerate(sorted(kernels.items(), key=lambda kv: -kv[1][0]))
                    if i < TOP_KERNELS or any(p in k for p in ("sym_eigvals", "ess_bisect",
                                                               "ess_bracket"))},
@@ -3018,6 +3138,10 @@ def phase_fused(device, ref: dict) -> dict:
     s = canonical_sampler(device, SEEDS[0], clustering=True)
     s.run(n_total=N_TOTAL, progress=False, on_device=True)  # warm-up: captures the graphs
     warm = loop_stats(s)
+    fit_graphs = [dict(nodes=g.nodes, capture_s=g.capture_s)
+                  for g in s.state._iteration.loops.graphs_of("hgm_fit")]
+    print(f"A fused: the hgm_fit stretch's graphs (top-level nodes, nodes in the conditional "
+          f"bodies; seconds of capture and instantiation): {json.dumps(fit_graphs)}", flush=True)
     # The run that captured its graphs repeats phase 6's seed 42 too.
     for name in ("beta", "logz", "steps", "calls"):
         check(s.results()[name].tobytes() == ref[SEEDS[0]]["results"][name].tobytes(),
@@ -3030,6 +3154,7 @@ def phase_fused(device, ref: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = counts()
+    set_conditional = cond_launches()
     res, logz, iters = s.results(), s.evidence()[0], s.state.hist.t
     eager = ref[SEEDS[0]]
     stats = loop_stats(s)
@@ -3053,9 +3178,41 @@ def phase_fused(device, ref: dict) -> dict:
           f"A fused: the timed run recaptured: {timed}")
     check(timed["mcmc"]["replays"] > 0 and timed["mode_em"]["replays"] > 0,
           f"A fused: no replays {timed}")
+    check_fit_replays("A fused", timed)
+    check(set_conditional == COND_NODES * timed["hgm_fit"]["replays"],
+          f"A fused: {set_conditional} set_conditional launches for "
+          f"{timed['hgm_fit']['replays']} fit replays of {COND_NODES} nodes")
 
-    return dict(launches=launched, wall=wall, iters=iters, loops=timed,
+    return dict(launches=launched, wall=wall, iters=iters, loops=timed, fit_graphs=fit_graphs,
+                set_conditional=set_conditional,
                 windows=steady_windows(s, "A"))
+
+
+def check_fit_replays(name: str, loops: dict) -> None:
+    """A graphed clustered run fits its clusters as replays of the
+    "hgm_fit" stretch: no split-round read, no round head or tail replayed
+    on its own."""
+    split = {"split_round reads": loops.get("split_round", {}).get("reads", 0),
+             **{f"{k} replays": loops.get(k, {}).get("replays", 0)
+                for k in ("split_head", "split_tail")}}
+    check(loops.get("hgm_fit", {}).get("replays", 0) > 0 and not any(split.values()),
+          f"{name}: {loops.get('hgm_fit')} hgm_fit stretch, {split}")
+
+
+def check_graphed_pair(name: str, eager, graphed, eager_launches: dict,
+                       graphed_launches: dict) -> None:
+    """Sampler `graphed` (run(on_device=True)) against `eager` (False): the
+    ladder, logZ, steps, calls and kernel launches bit for bit, and its
+    cluster fits replayed as one stretch each."""
+    for key in ("beta", "logz", "steps", "calls"):
+        check(graphed.results()[key].tobytes() == eager.results()[key].tobytes(),
+              f"{name}: {key} with on_device=True differs from on_device=False")
+    check(graphed_launches == eager_launches,
+          f"{name}: launches {graphed_launches} with on_device=True, {eager_launches} False")
+    check_fit_replays(f"{name} on_device=True", loop_stats(graphed))
+    print(f"{name}: on_device=True equals on_device=False bit for bit (logz "
+          f"{graphed.evidence()[0]!r}, {graphed.state.hist.t} iterations); loops "
+          f"{json.dumps(loop_stats(graphed))}", flush=True)
 
 
 def steady_windows(s, name: str, n: int = 3, device_only: bool = True) -> dict:
@@ -3077,8 +3234,11 @@ def steady_windows(s, name: str, n: int = 3, device_only: bool = True) -> dict:
               f"iteration, device {w['device_ms_per_iter']:.1f} ms (idle "
               f"{100 * w['idle']:.1f} %), blocking host reads {w['blocking_per_iter']:.1f} an "
               f"iteration {w['blocking']}, loop chunk reads {w['chunk_reads_per_iter']:.1f} an "
-              f"iteration {w['reads']}, eigvalsh operators {w['eigh_ops']}; stage ms an "
-              f"iteration {json.dumps({k: round(v, 3) for k, v in w['stages_ms'].items()})}"
+              f"iteration {w['reads']}, eigvalsh operators {w['eigh_ops']}; ps/cluster "
+              f"{w['stages_ms'].get('ps/cluster', 0.0):.3f} host ms and "
+              f"{w['replays'].get('hgm_fit', 0) / w['n']:.1f} hgm_fit replays an iteration; "
+              f"stage ms an iteration "
+              f"{json.dumps({k: round(v, 3) for k, v in w['stages_ms'].items()})}"
               f"{trace}", flush=True)
         if cuda_em is not None:
             em_ms, em_n = _kernel_ms(w, "mvstud_em_kernel")
@@ -3102,6 +3262,15 @@ def check_window(name: str, w: dict) -> None:
     em_reads = {k: w["reads"].get(k, 0) for k in ("mode_em", "gmm_em")}
     check(cuda_em is None or not any(em_reads.values()),
           f"{name}: EM chunk reads in the window {em_reads}")
+    if w["graphs"] and hasattr(loops_module.Loops, "when"):
+        # The graphed fit is one replay of the "hgm_fit" stretch an
+        # iteration (A fits every iteration): no split-round read, and no
+        # replay of a round's head or tail of its own.
+        split = {"split_round reads": w["reads"].get("split_round", 0),
+                 **{f"{k} replays": w["replays"].get(k, 0) for k in ("split_head", "split_tail")}}
+        hgm = w["replays"].get("hgm_fit", 0)
+        check(not any(split.values()) and hgm == (w["n"] if w["clustered"] else 0),
+              f"{name}: {split}, {hgm} hgm_fit replays in {w['n']} graphed iterations")
 
 
 def phase_hardware_prng(device) -> dict:
@@ -3363,10 +3532,16 @@ def phase_large_ensemble(device, dtype=torch.float32) -> dict:
     return total, errs, dict(eager=rows, graphed=graphed, profiled=None if f64 else profiled)
 
 
+def c_sampler(device, **kw):
+    return Sampler(prior_transform, bimodal, n_dim=N_DIM, n_particles=256, vectorize=True,
+                   clustering=True, k_max=8, history_capacity=64, random_state=4,
+                   device=device, **kw)
+
+
 def phase_bimodal(device) -> dict:
-    """C: tests/test_multimodal.py's 10-D mixture, clustered, on the card."""
-    s = Sampler(prior_transform, bimodal, n_dim=N_DIM, n_particles=256, vectorize=True,
-                clustering=True, k_max=8, history_capacity=64, random_state=4, device=device)
+    """C: tests/test_multimodal.py's 10-D mixture, clustered, on the card;
+    then with run(on_device=True), bit for bit."""
+    s = c_sampler(device)
     reset_counts()
     t0 = time.perf_counter()
     s.run(n_total=512, progress=False)
@@ -3383,7 +3558,12 @@ def phase_bimodal(device) -> dict:
     check(0.3 < mass < 0.7, f"bimodal: mass {mass}")
     check(abs(logz - analytic) < 0.5, f"bimodal: logZ {logz} vs {analytic}")
     check(cuda_reweight.LAUNCHES > 0, "bimodal: no ESS kernel launch")
-    return counts()
+    eager = counts()
+    g = c_sampler(device)
+    reset_counts()
+    g.run(n_total=512, progress=False, on_device=True)
+    check_graphed_pair("bimodal (C)", s, g, eager, counts())
+    return eager
 
 
 def phase_gaussian(device) -> dict:
@@ -3628,13 +3808,16 @@ def phase_dynamic(device) -> dict:
 
 
 def phase_cadence_and_host(device) -> dict:
-    """13: C with cluster_every=3, and the 10-D Gaussian as a host likelihood."""
-    s = Sampler(prior_transform, bimodal, n_dim=N_DIM, n_particles=256, vectorize=True,
-                clustering=True, k_max=8, cluster_every=3, history_capacity=64, random_state=4,
-                device=device)
+    """13: C with cluster_every=3 (with run(on_device=False) and True, bit
+    for bit), and the 10-D Gaussian as a host likelihood."""
+    s = c_sampler(device, cluster_every=3)
     reset_counts()
     s.run(n_total=512, progress=False)
     cadence = counts()
+    g = c_sampler(device, cluster_every=3)
+    reset_counts()
+    g.run(n_total=512, progress=False, on_device=True)
+    check_graphed_pair("cadence (C, cluster_every=3)", s, g, cadence, counts())
     k = int(s.state.cluster_model.n_clusters())
     x, w, _ = s.posterior()
     mass = float(np.sum(w[x[:, 0] > 0]))
@@ -3738,10 +3921,22 @@ def phase_facades(device) -> dict:
 def phase_float64(device, walls32: dict, fused_wall: float) -> dict:
     """14: A and B in float64, the 4-D Gaussian, the facades; `fused_wall`
     is phase 6b's float32 seed 42 with on_device=True."""
-    paths = {}
-    paths["A_float64"], walls = run_canonical(
-        device, "A float64 hardware_prng", SEEDS[:1], True, True, CLUSTERED_LOGZ, torch.float64,
-        on_device=True)
+    paths, runs = {}, {}
+    for on_device in (False, True):
+        runs[on_device] = {}
+        paths["A_float64"], walls = run_canonical(
+            device, f"A float64 hardware_prng on_device={on_device}", SEEDS[:1], True, True,
+            CLUSTERED_LOGZ, torch.float64, on_device=on_device, runs=runs[on_device])
+    eager, graphed = (runs[k][SEEDS[0]] for k in (False, True))
+    for key in ("beta", "logz", "steps", "calls"):
+        check(graphed["results"][key].tobytes() == eager["results"][key].tobytes(),
+              f"A float64: {key} with on_device=True differs from on_device=False")
+    check(graphed["launches"] == eager["launches"] and graphed["logz"] == eager["logz"],
+          f"A float64: launches {graphed['launches']} / {eager['launches']}, logZ "
+          f"{graphed['logz']!r} / {eager['logz']!r}")
+    check_fit_replays("A float64 on_device=True", graphed["loops"])
+    print(f"A float64 seed {SEEDS[0]}: on_device=True equals on_device=False bit for bit "
+          f"({eager['wall']:.3f} s eagerly)", flush=True)
     print(f"A seed {SEEDS[0]}: float64 wall {walls[SEEDS[0]]:.3f} s (on_device=True) against "
           f"float32 {fused_wall:.3f} s (phase 6b, on_device=True) and {walls32[SEEDS[0]]:.3f} s "
           f"(phase 6, on_device=False) in this run", flush=True)
@@ -4106,9 +4301,10 @@ SOURCES = {"ess_bisect": "tempest_tpu_torch/csrc/ess_bisect.cu",
            "sym_eigvals": "tempest_tpu_torch/csrc/sym_eigvals.cu",
            "weighted_median": "tempest_tpu_torch/csrc/weighted_median.cu",
            "gmm_em": "tempest_tpu_torch/csrc/gmm_em.cu",
-           "mvstud_em": "tempest_tpu_torch/csrc/mvstud_em.cu"}
+           "mvstud_em": "tempest_tpu_torch/csrc/mvstud_em.cu",
+           "set_conditional": "tempest_tpu_torch/csrc/graph_cond.cu"}
 KERNELS = ("ess_bisect", "ess_bisect_f64", "ess_bracket", "mutation_draws", "normal", "bits",
-           "gamma", "sym_eigvals", "weighted_median", "gmm_em", "mvstud_em")
+           "gamma", "sym_eigvals", "weighted_median", "gmm_em", "mvstud_em", "set_conditional")
 # Kernels of the port that replace no Pallas kernel, and what they replace.
 NO_PALLAS = {
     "sym_eigvals": "XLA's jnp.linalg.eigvalsh of volume_variation_dtn (tools.py:214; also :274); "
@@ -4126,6 +4322,10 @@ NO_PALLAS = {
     "mvstud_em": "the weighted Student-t EM lax.while_loop (tempest_tpu/student.py:323, "
                  "vmapped by modes.py:145), which XLA runs on the device without a host read; "
                  "its plain version is the \"mode_em\" device loop",
+    "set_conditional": "XLA's lax.cond and lax.while_loop of the cluster fit's split rounds "
+                       "(tempest_tpu/cluster.py:928-950): the flag of a CUDA-graph conditional "
+                       "node, set on the device at each replay; its plain version is the "
+                       "host's read of go and the leaf count after each round",
 }
 REPLACES = {
     "ess_bisect": "tempest_tpu/ops/pallas_reweight.py:55",
@@ -4142,6 +4342,7 @@ REPLACES = {
     "weighted_median": "tempest_tpu/student.py:220",
     "gmm_em": "tempest_tpu/cluster.py:256",
     "mvstud_em": "tempest_tpu/student.py:323",
+    "set_conditional": "tempest_tpu/cluster.py:933",
 }
 # Where each kernel's `launches` were counted.
 LAUNCHES_ON = {
@@ -4167,6 +4368,9 @@ LAUNCHES_ON = {
               "6b's run launches it as often, by graph replays)",
     "mvstud_em": "A (phase 6, seed 42: one a mode fit, the 16 modes at once; phase 6b's run "
                  "launches it as often, by graph replays); every other path once a mode fit",
+    "set_conditional": "A fused (phase 6b's timed seed 42, on_device=True: 15 a cluster fit, "
+                       "one a possible split round, by graph replays); the on_device=False "
+                       "runs decide on the host and launch none",
 }
 # Kernels that no Sampler path launches, and why: each must count 0 on every
 # path, and phase 4 still holds it against its plain version.
@@ -4288,6 +4492,9 @@ def main() -> None:
     if cuda_em is not None:
         stamp("phase 4d: the EM kernels")
         rows.update(phase_em_kernels(device))
+    if cuda_graphs is not None:
+        stamp("phase 4e: the conditional nodes' flag kernel")
+        rows["set_conditional"] = phase_cond_kernel(device)
     floor = launch_floor(device)
     split = phase_call_split(device)
     if args.kernels_only:
@@ -4308,7 +4515,7 @@ def main() -> None:
         parent_a(args.parent, eager[SEEDS[0]])
     stamp("phase 6b: A fused")
     fused = phase_fused(device, eager)
-    paths["A_fused"] = fused["launches"]
+    paths["A_fused"] = dict(fused["launches"], set_conditional=fused["set_conditional"])
     stamp("phase 7: A with hardware_prng")
     hw = phase_hardware_prng(device)
     paths["A_hardware_prng"], paths["A_hardware_prng_fused"] = hw["launches"], hw["launches_fused"]
@@ -4366,7 +4573,8 @@ def main() -> None:
                 "normal": paths["B"]["normal"], "bits": paths["B"]["bits"],
                 "gamma": paths["B"]["gamma"], "sym_eigvals": paths["rosenbrock100"]["sym_eigvals"],
                 "weighted_median": paths["B"]["weighted_median"],
-                "gmm_em": paths["A"]["gmm_em"], "mvstud_em": paths["A"]["mvstud_em"]}
+                "gmm_em": paths["A"]["gmm_em"], "mvstud_em": paths["A"]["mvstud_em"],
+                "set_conditional": paths["A_fused"]["set_conditional"]}
     for name, n in launches.items():
         if name in OFF_PATH:
             on = {p: c[name] for p, c in paths.items() if c[name]}
@@ -4378,7 +4586,7 @@ def main() -> None:
     print(f"dynamic: {json.dumps({k: dynamic[k] for k in keys})}", flush=True)
     print(f"A mesh: {json.dumps({k: mesh[k] for k in ('walls', 'iters', 'loops', 'windows')})}",
           flush=True)
-    print(f"A fused: {json.dumps({k: fused[k] for k in ('wall', 'iters', 'loops', 'windows')})}",
+    print(f"A fused: {json.dumps({k: fused[k] for k in ('wall', 'iters', 'loops', 'fit_graphs', 'windows')})}",
           flush=True)
     print(f"rosenbrock100: {json.dumps(r100)}", flush=True)
     print("A hardware_prng: " + json.dumps({k: hw[k] for k in (

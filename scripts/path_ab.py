@@ -22,7 +22,11 @@ both versions run the same drive). One process:
   run(on_device=True) after a capturing seed-43 run, then with
   run(on_device=False): wall, iterations, logZ; then iterations 21-23 in
   each mode under the profiler: wall, device ms, idle share, blocking host
-  reads and each loop's chunk reads an iteration, and the stages' host ms;
+  reads, each loop's chunk reads and graph replays an iteration, and the
+  stages' host ms;
+- C and the cadence cell (phases 9 and 13, C with cluster_every=3): seed 4
+  with run(on_device=True) after a capturing run, then with
+  run(on_device=False): wall, iterations, logZ;
 - rosenbrock100 (phase 16): seed 42 with run(on_device=True) after a
   capturing seed-43 run: wall, iterations, logZ; then iterations 21-23
   graphed under the profiler: wall, device ms, blocking host reads and
@@ -93,7 +97,22 @@ def one(root: str) -> dict:
             "ms_per_iter": 1e3 * w["wall_per_iter"], "device_ms_per_iter": w["device_ms_per_iter"],
             "idle": w["idle"], "blocking_per_iter": w["blocking_per_iter"],
             "chunk_reads_per_iter": {k: v / w["n"] for k, v in w["reads"].items()},
+            "replays_per_iter": {k: v / w["n"] for k, v in w["replays"].items() if v},
             "stages_ms": w["stages_ms"]}
+
+    for name, kw in (("C", {}), ("cadence", {"cluster_every": 3})):
+        c = cs.c_sampler(device, **kw)
+        c.run(n_total=512, progress=False, on_device=True)  # captures the graphs
+        out[name] = {}
+        for on_device in (True, False):
+            c.reset(random_state=4)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c.run(n_total=512, progress=False, on_device=on_device)
+            torch.cuda.synchronize()
+            out[name][f"on_device={on_device}"] = {
+                "wall_s": time.perf_counter() - t0, "iters": c.state.hist.t,
+                "logz": c.evidence()[0]}
 
     r = cs.rosenbrock100_sampler(device, cs.SEEDS[1])
     r.run(n_total=cs.R100_TOTAL, progress=False, on_device=True)  # captures the graphs
@@ -143,7 +162,8 @@ def main() -> None:
               f"{d['iters']} iterations, logZ {d['logz']!r}; window {d['window_ms_per_iter']:.1f} "
               f"ms an iteration, device {d['device_ms_per_iter']:.2f} ms, blocking reads "
               f"{d['blocking_per_iter']:.1f}, ps/reweight {d['reweight_host_ms']:.2f} ms; "
-              f"A {json.dumps(r['A'])}; rosenbrock100 {json.dumps(r['rosenbrock100'])}",
+              f"A {json.dumps(r['A'])}; C {json.dumps(r['C'])}; cadence "
+              f"{json.dumps(r['cadence'])}; rosenbrock100 {json.dumps(r['rosenbrock100'])}",
               flush=True)
     print(json.dumps({"path_ab": results}), flush=True)
     sys.exit(0 if ok else 1)

@@ -32,9 +32,12 @@ parameters while the others iterate, as under vmap, and the loop reads
 `any(active)` once a chunk of EM iterations. On CUDA tensors the whole
 loop is one launch of a kernel (`ops.cuda_em.gmm_em`) that reads nothing.
 A split round (:943-948) carries the leaf count and `go` as device
-tensors; its stretch before the EM ("split_head"), the EM and the stretch
-after it ("split_tail") are each one graph replay when graphs are on, and
-the host reads `go` and the leaf count once a round.
+tensors: its stretch before the EM ("split_head"), the EM and the stretch
+after it ("split_tail"). Without graphs the host reads `go` and the leaf
+count once a round and stops; with graphs on, the whole fit is one
+stretch ("hgm_fit") whose every possible round is a CUDA-graph conditional
+node (`loops.Loops.when`), replayed with no read, as JAX runs the fit as
+one device program. Both give the same bits.
 
 A fit's only randomness is one k-means++ uniform per component and start,
 from its key; `utils/threefry.py` computes them as `jax.random` does, in
@@ -48,7 +51,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -457,6 +460,11 @@ class ClusterModel:
         return torch.sum(self.k_mask)
 
 
+# The tensor fields of a ClusterModel, in the JAX model's order.
+MODEL_TENSORS = ("centers", "covariances", "weights", "k_mask", "data_min", "data_max",
+                 "chol_inv", "logdet")
+
+
 def single_cluster_model(
     n_dim: int, k_max: int, dtype=torch.float32, normalize: bool = False, device=None
 ) -> ClusterModel:
@@ -683,6 +691,88 @@ def _final_refit(Xw, sample_weight, labels, k_max: int, covariance_type: str = "
     return centers, covs, cweights
 
 
+def _round_widths(k_max: int, max_rounds: int, split_all: bool) -> List[int]:
+    """The leaf-slot width of each round JAX's fit may run, in order
+    (cluster.py:914-950): with `split_all` the doubling prefix 1, 2, 4, ...
+    (each < k_max, at most `max_rounds`), then k_max until `max_rounds`
+    rounds in all. A skipped round changes nothing, so every later one is
+    skipped too: the rounds that run are the first few widths."""
+    widths: List[int] = []
+    if split_all:
+        # Round r holds at most 2^r leaves, so it tests only 2^r slots.
+        while (1 << len(widths)) < k_max and len(widths) < max_rounds:
+            widths.append(1 << len(widths))
+    return widths + [k_max] * (max_rounds - len(widths))
+
+
+def _hgm_fit(k, min_points: int, threshold_modifier: float, k_max: int, max_rounds: int,
+             normalize: bool, split_all: bool, leaf_fit_points: Optional[int],
+             covariance_type: str, loops: Loops) -> Dict[str, torch.Tensor]:
+    """`hgm_fit` on X, sample_weight, mask and uniforms: the model's
+    tensors, labels and n_leaves. Inside a stretch (`loops.inside`) each
+    round runs under `loops.when` and nothing is read; else the host reads
+    go and the leaf count after each round ("split_round") and stops."""
+    X, mask, uniforms = k["X"], k["mask"], k["uniforms"]
+    n, d = X.shape
+    dtype, dev = X.dtype, X.device
+    sw = torch.where(mask, k["sample_weight"], torch.zeros_like(k["sample_weight"]))
+
+    if normalize:  # bounds over valid rows (cluster.py:849-854)
+        inf = torch.full_like(X, float("inf"))
+        data_min = torch.amin(torch.where(mask[:, None], X, inf), dim=0)
+        data_max = torch.amax(torch.where(mask[:, None], X, -inf), dim=0)
+        Xw = (X - data_min) / (data_max - data_min + _EPS)
+    else:
+        data_min = torch.zeros((d,), dtype=dtype, device=dev)
+        data_max = torch.ones((d,), dtype=dtype, device=dev)
+        Xw = X
+
+    state = dict(labels=torch.where(mask, 0, -1).to(torch.int32),
+                 n_leaves=torch.ones((), dtype=torch.int32, device=dev),
+                 go=torch.ones((), dtype=torch.bool, device=dev))
+
+    def round_body(s, k_slots):
+        out = _split_round(uniforms, Xw, sw, s["labels"], s["n_leaves"], min_points,
+                           threshold_modifier, k_max, leaf_fit_points, k_slots, covariance_type,
+                           loops, s["go"], split_all)
+        return {e: out[e] for e in state}
+
+    widths = _round_widths(k_max, max_rounds, split_all)
+    if loops.inside:
+        # Every round that runs splits at least one leaf or sets go False,
+        # so before round R the tree holds at least R leaves, and a round
+        # runs only while there are fewer than k_max: at most
+        # min(max_rounds, k_max - 1) rounds, each a conditional body.
+        for k_slots in widths[:max(min(max_rounds, k_max - 1), 0)]:
+            pred = state["go"] & (state["n_leaves"] < k_max)
+            state = loops.when(pred, functools.partial(round_body, k_slots=k_slots), state)
+    else:
+        go, n_leaves = True, 1
+        for k_slots in widths:
+            if not (go and n_leaves < k_max):
+                break
+            state = round_body(state, k_slots)
+            go_h, n_h = loops.read("split_round", state["go"], state["n_leaves"])
+            go, n_leaves = bool(go_h), int(n_h)
+
+    labels = state["labels"]
+    centers, covs, cweights = _final_refit(Xw, sw, labels, k_max, covariance_type)
+    k_mask = torch.arange(k_max, device=dev) < state["n_leaves"]
+    eye = torch.eye(d, dtype=dtype, device=dev)
+    chol_inv, logdet = _chol_inv_logdet(torch.where(k_mask[:, None, None], covs, eye), _REG_COVAR)
+    if normalize:
+        scale = data_max - data_min + _EPS
+        centers = centers * scale[None, :] + data_min[None, :]
+        covs = covs * (scale[:, None] * scale[None, :])[None]
+    return dict(
+        centers=torch.where(k_mask[:, None], centers, torch.zeros_like(centers)),
+        covariances=torch.where(k_mask[:, None, None], covs, eye),
+        weights=torch.where(k_mask, cweights, torch.zeros_like(cweights)),
+        k_mask=k_mask, data_min=data_min, data_max=data_max, chol_inv=chol_inv, logdet=logdet,
+        labels=labels, n_leaves=state["n_leaves"],
+    )
+
+
 def hgm_fit(
     X: torch.Tensor,
     sample_weight: torch.Tensor,
@@ -698,7 +788,7 @@ def hgm_fit(
     covariance_type: str = "full",
     n_init: int = 1,
     loops: Optional[Loops] = None,
-) -> Tuple[ClusterModel, torch.Tensor, int]:
+) -> Tuple[ClusterModel, torch.Tensor, torch.Tensor]:
     """The whole hierarchical fit (cluster.py:814-984).
 
     Each round tests every leaf for a K = 2 split and splits the best
@@ -707,75 +797,33 @@ def hgm_fit(
     eligible, k_max leaves exist or `max_rounds` rounds ran. `uniforms`
     (k_max, 2), or (k_max, n_init, 2), default to those of the fixed fit
     key with `n_init` starts (`fit_uniforms` in X's dtype). The leaf
-    count and `go` stay on the device through a round; `loops` runs each
-    round's head, its EM loop and its tail, and reads them once a round.
-    Returns (model, labels (n,) int32 with -1 on masked rows, n_leaves).
+    count and `go` stay on the device. With graphs on (`loops.graphed`),
+    the whole fit is one stretch, "hgm_fit": captured once per shape and
+    settings and replayed, each possible round a conditional node, as
+    JAX runs it as one device program with no host read; else `loops`
+    runs each round's head, its EM loop and its tail, and the host reads
+    go and the leaf count once a round. Both give the same bits.
+    Returns (model, labels (n,) int32 with -1 on masked rows, n_leaves, a
+    0-d int32 tensor).
     """
-    n, d = X.shape
     dtype, dev = X.dtype, X.device
     if uniforms is None:
         uniforms = fit_uniforms(k_max, device=dev, dtype=dtype, n_init=n_init)
-    uniforms = uniforms.to(device=dev, dtype=dtype)
-    sw = torch.where(mask, sample_weight, torch.zeros_like(sample_weight))
-
-    if normalize:  # bounds over valid rows (cluster.py:849-854)
-        inf = torch.full_like(X, float("inf"))
-        data_min = torch.amin(torch.where(mask[:, None], X, inf), dim=0)
-        data_max = torch.amax(torch.where(mask[:, None], X, -inf), dim=0)
-        Xw = (X - data_min) / (data_max - data_min + _EPS)
-    else:
-        data_min = torch.zeros((d,), dtype=dtype, device=dev)
-        data_max = torch.ones((d,), dtype=dtype, device=dev)
-        Xw = X
-
     loops = loops or Loops(dev)
-    labels = torch.where(mask, 0, -1).to(torch.int32)
-    n_leaves_t = torch.ones((), dtype=torch.int32, device=dev)
-    go_t = torch.ones((), dtype=torch.bool, device=dev)
-    n_leaves, go, rounds = 1, True, 0
-
-    def round_step(k_slots):
-        """One round, then one read of go and the leaf count ("split_round")."""
-        nonlocal labels, n_leaves_t, go_t, n_leaves, go, rounds
-        out = _split_round(uniforms, Xw, sw, labels, n_leaves_t, min_points, threshold_modifier,
-                           k_max, leaf_fit_points, k_slots, covariance_type, loops, go_t,
-                           split_all)
-        labels, n_leaves_t, go_t = out["labels"], out["n_leaves"], out["go"]
-        go_h, n_h = loops.read("split_round", go_t, n_leaves_t)
-        go, n_leaves = bool(go_h), int(n_h)
-        rounds += 1
-
-    n_prefix = 0
-    if split_all:
-        # Round r holds at most 2^r leaves, so it tests only 2^r slots.
-        while (1 << n_prefix) < k_max and n_prefix < max_rounds:
-            if go and n_leaves < k_max:
-                round_step(1 << n_prefix)
-            n_prefix += 1
-    if max_rounds > n_prefix or not split_all:
-        while go and n_leaves < k_max and rounds < max_rounds:
-            round_step(k_max)
-
-    centers, covs, cweights = _final_refit(Xw, sw, labels, k_max, covariance_type)
-    k_mask = torch.arange(k_max, device=dev) < n_leaves
-    eye = torch.eye(d, dtype=dtype, device=dev)
-    chol_inv, logdet = _chol_inv_logdet(torch.where(k_mask[:, None, None], covs, eye), _REG_COVAR)
-    if normalize:
-        scale = data_max - data_min + _EPS
-        centers = centers * scale[None, :] + data_min[None, :]
-        covs = covs * (scale[:, None] * scale[None, :])[None]
-    model = ClusterModel(
-        centers=torch.where(k_mask[:, None], centers, torch.zeros_like(centers)),
-        covariances=torch.where(k_mask[:, None, None], covs, eye),
-        weights=torch.where(k_mask, cweights, torch.zeros_like(cweights)),
-        k_mask=k_mask,
-        data_min=data_min,
-        data_max=data_max,
-        chol_inv=chol_inv,
-        logdet=logdet,
-        normalize=normalize,
-    )
-    return model, labels, n_leaves
+    fit = functools.partial(
+        _hgm_fit, min_points=min_points, threshold_modifier=threshold_modifier, k_max=k_max,
+        max_rounds=max_rounds, normalize=normalize, split_all=split_all,
+        leaf_fit_points=leaf_fit_points, covariance_type=covariance_type, loops=loops)
+    inputs = dict(X=X, sample_weight=sample_weight, mask=mask,
+                  uniforms=uniforms.to(device=dev, dtype=dtype))
+    if loops.graphed:
+        out = loops.once("hgm_fit", fit, inputs, (min_points, threshold_modifier, k_max,
+                                                   max_rounds, normalize, split_all,
+                                                   leaf_fit_points, covariance_type))
+    else:
+        out = fit(inputs)
+    model = ClusterModel(**{f: out[f] for f in MODEL_TENSORS}, normalize=normalize)
+    return model, out["labels"], out["n_leaves"]
 
 
 # ---------------------------------------------------------------------------
@@ -922,7 +970,7 @@ class HierarchicalGaussianMixture:
         self.dtype = dtype
         self.model: Optional[ClusterModel] = None
         self._labels: Optional[torch.Tensor] = None
-        self._n_leaves = 0
+        self._n_leaves: Optional[torch.Tensor] = None
 
     @property
     def labels_(self) -> Optional[np.ndarray]:
@@ -930,7 +978,7 @@ class HierarchicalGaussianMixture:
 
     @property
     def n_clusters_(self) -> int:
-        return int(self._n_leaves)
+        return 0 if self._n_leaves is None else int(self._n_leaves)
 
     @staticmethod
     def _bic_tolerance(n_features: int, weights: np.ndarray) -> float:

@@ -20,6 +20,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from .cluster import MODEL_TENSORS as CLUSTER_FIELDS
 from .cluster import ClusterModel
 from .modes import ModeStatistics
 from .state import Current, History
@@ -34,10 +35,6 @@ CURRENT_FIELDS = (
     "acceptance", "efficiency",
 )
 CURRENT_COUNTERS = ("steps", "calls", "iteration")
-CLUSTER_FIELDS = (
-    "centers", "covariances", "weights", "k_mask", "data_min", "data_max",
-    "chol_inv", "logdet",
-)
 MODE_FIELDS = (
     "means", "covariances", "degrees_of_freedom", "inv_covariances",
     "chol_covariances", "k_mask",

@@ -22,9 +22,12 @@ Every draw comes from the draws object passed in. The iteration's loops
 (the bisections of the reweight under a mesh or in dynamic mode, the mode
 EM, the GMM EM, the split rounds, the MCMC steps) run through `loops`
 (`loops.Loops`): by default each reads its exit after every body;
-`fused.py` hands in chunked, optionally graphed loops. Between the loops
-the stages run straight through on the device; the one host read outside
-them is beta, for the warm-up branch (`iteration.beta` keeps it). Each
+`fused.py` hands in chunked, optionally graphed loops. With graphs on, a
+cluster fit and the fit points' labels are one replay of the "hgm_fit"
+stretch, its split rounds conditional nodes that read nothing
+(`cluster.hgm_fit`). Between the loops the stages run straight through
+on the device; the one host read outside them is beta, for the warm-up
+branch (`iteration.beta` keeps it). Each
 stage runs inside a `utils.profiling.annotate` range ("ps/reweight",
 "ps/cluster", "ps/fit", "ps/resample", "ps/mutate", "ps/warmup", "ps/commit"), which
 `torch.profiler` reports as the stage's time; without a profiler a range
@@ -47,7 +50,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from .cluster import ClusterModel, cluster_predict, fit_uniforms, hgm_fit
+from .cluster import MODEL_TENSORS, ClusterModel, cluster_predict, fit_uniforms, hgm_fit
 from .config import DOF_FALLBACK, TRIM_BINS, TRIM_ESS, SamplerConfig
 from .loops import Loops
 from .mcmc import MCMCKernel
@@ -123,9 +126,11 @@ def make_iteration(
     max_rounds = max(min(round_cap, cfg.k_max - 1), 0)
     uniforms = fit_uniforms(cfg.k_max, device=cfg.device, dtype=cfg.dtype) if cfg.clustering else None
 
-    def fit_clusters(u_fit, w_fit, keep_fit) -> ClusterModel:
+    def fit_clusters(k):
+        """The cluster fit on the fit points and their labels by the new
+        model: on the graphed route one replay of the "hgm_fit" stretch."""
         model, _, _ = hgm_fit(
-            u_fit, w_fit, keep_fit,
+            k["u_fit"], k["w_fit"], k["keep_fit"],
             min_points=min_points,
             threshold_modifier=cfg.split_threshold,
             k_max=cfg.k_max,
@@ -136,7 +141,9 @@ def make_iteration(
             uniforms=uniforms,
             loops=loops,
         )
-        return model
+        model = replicated(model)
+        return dict({f: getattr(model, f) for f in MODEL_TENSORS},
+                    labels=cluster_predict(model, k["u_fit"]))
 
     def fit_points(hist: History, weights):
         if group is None:
@@ -154,8 +161,13 @@ def make_iteration(
         if cfg.clustering:
             with annotate("ps/cluster"):
                 if not model.fitted or cur.iteration % cfg.cluster_every == 0:
-                    model = replicated(fit_clusters(u_fit, w_fit, keep_fit))
-                labels = cluster_predict(model, u_fit)
+                    points = dict(u_fit=u_fit, w_fit=w_fit, keep_fit=keep_fit)
+                    fit = (loops.once("hgm_fit", fit_clusters, points) if loops.graphed
+                           else fit_clusters(points))
+                    labels = fit.pop("labels")
+                    model = ClusterModel(**fit, normalize=cfg.normalize)
+                else:
+                    labels = cluster_predict(model, u_fit)
             with annotate("ps/fit"):
                 modes = replicated(fit_mode_statistics(
                     u_fit, w_fit, labels, k_max=cfg.k_max, dof_fallback=DOF_FALLBACK,

@@ -31,6 +31,18 @@ runs each chunk as a `torch.cuda.CUDAGraph`:
 - a capture counts no kernel launch; every replay adds the launches its
   capture made (`launch_counts`), so a kernel's count stays its true
   number of launches;
+- inside a straight-line stretch (`once`), `when` runs a body only where a
+  0-d device bool is true: captured, it is a CUDA-graph conditional IF
+  node (`ops.cuda_graphs`, the node `torch.cond` makes under a graph in
+  later PyTorch releases), so a replay decides on the device and reads
+  nothing. A replay skips the launches of an untaken node: each node's
+  body adds one to a device word of its graph, and `launch_counts`
+  (`settle_launches`) reads the words, the one read of the counting, only
+  when the counts are asked for. A `once` inside a stretch runs inline,
+  with no capture of its own; the stretch's warm-up runs every
+  conditional body and keeps its results where the predicate holds
+  (`torch.where`), so each body meets its libraries and kernel builds
+  before the capture;
 - a capture that fails (a body that reads the host, such as a likelihood
   calling `.item()`) raises `CaptureError` naming the cause and
   `on_device=False`; nothing falls back to eager execution.
@@ -43,12 +55,15 @@ the chunks, bodies, reads, captures and replays.
 
 from __future__ import annotations
 
+import contextlib
+import time
+import weakref
 from collections import Counter, defaultdict
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
 
-from .ops import cuda_em, cuda_linalg, cuda_median, cuda_prng, cuda_reweight
+from .ops import cuda_em, cuda_graphs, cuda_linalg, cuda_median, cuda_prng, cuda_reweight
 
 Tensors = Dict[str, torch.Tensor]
 Body = Callable[[Tensors, Tensors], Tensors]
@@ -58,11 +73,34 @@ class CaptureError(RuntimeError):
     """A loop chunk could not be captured as a CUDA graph."""
 
 
-def launch_counts() -> Dict[str, int]:
-    """Every kernel's launch count in this process, by kernel."""
+def _counts() -> Dict[str, int]:
     return {"ess_bisect": cuda_reweight.LAUNCHES, "ess_bisect_f64": cuda_reweight.LAUNCHES_F64,
             "ess_bracket": cuda_reweight.BRACKET_LAUNCHES, "sym_eigvals": cuda_linalg.LAUNCHES,
-            "weighted_median": cuda_median.LAUNCHES, **cuda_em.LAUNCHES, **cuda_prng.LAUNCHES}
+            "weighted_median": cuda_median.LAUNCHES, "set_conditional": cuda_graphs.LAUNCHES,
+            **cuda_em.LAUNCHES, **cuda_prng.LAUNCHES}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launch count in this process, by kernel, the
+    conditional bodies' launches of past replays included."""
+    settle_launches()
+    return _counts()
+
+
+# Graphs whose replays ran conditional bodies not yet counted.
+_UNSETTLED: "weakref.WeakSet[_Graph]" = weakref.WeakSet()
+
+
+def settle_launches() -> None:
+    """Add to the kernels' counts the launches of the conditional bodies
+    that graph replays ran, from each graph's device words (one read a
+    graph replayed since the last call), and set the words to 0."""
+    for graph in list(_UNSETTLED):
+        words, launches = graph.branches
+        for taken, delta in zip(words.tolist(), launches):
+            _add_launches({k: taken * v for k, v in delta.items()})
+        words.zero_()
+    _UNSETTLED.clear()
 
 
 def _add_launches(delta: Dict[str, int], sign: int = 1) -> None:
@@ -71,6 +109,7 @@ def _add_launches(delta: Dict[str, int], sign: int = 1) -> None:
     cuda_reweight.BRACKET_LAUNCHES += sign * delta["ess_bracket"]
     cuda_linalg.LAUNCHES += sign * delta["sym_eigvals"]
     cuda_median.LAUNCHES += sign * delta["weighted_median"]
+    cuda_graphs.LAUNCHES += sign * delta["set_conditional"]
     for counts in (cuda_em.LAUNCHES, cuda_prng.LAUNCHES):
         for name in counts:
             counts[name] += sign * delta[name]
@@ -81,17 +120,27 @@ def _signature(tensors: Tensors) -> tuple:
 
 
 class _Graph:
-    """One captured chunk, the kernel launches its capture made and the
-    calls (counter, n) it draws; `outputs` holds the tensors a
-    straight-line stretch returns."""
+    """One captured chunk, the kernel launches its capture made outside
+    conditional nodes and the calls (counter, n) it draws; `outputs` holds
+    the tensors a straight-line stretch returns; `branches`, where it has
+    conditional nodes, their device words (one int64 each, the bodies run
+    since the last `settle_launches`) and each body's launches."""
 
-    def __init__(self, graph: torch.cuda.CUDAGraph, launches: Dict[str, int], calls: list):
+    def __init__(self, graph: torch.cuda.CUDAGraph, launches: Dict[str, int], calls: list,
+                 branches: Optional[tuple] = None):
         self.graph, self.launches, self.calls = graph, launches, calls
+        self.branches = branches
         self.outputs: Tensors = {}
+        # (top-level nodes, nodes in conditional bodies) where it has any,
+        # and the seconds its capture and instantiation took
+        self.nodes: Optional[tuple] = None
+        self.capture_s = 0.0
 
     def replay(self) -> None:
         self.graph.replay()
         _add_launches(self.launches)
+        if self.branches is not None:
+            _UNSETTLED.add(self)
         for counter, n in self.calls:  # the mirrors of what the replay drew
             counter.counter += n
 
@@ -113,6 +162,15 @@ class Loops:
         self._pinned: Optional[torch.Tensor] = None
         self._event = None
         self._stream = None
+        # Inside a stretch: None, "warm-up" or "capture"; the conditional
+        # bodies met, and during a capture their words and launches.
+        self._stretch: Optional[str] = None
+        self._branch_count = 0
+        self._words: Optional[torch.Tensor] = None
+        self._branches: List[Dict[str, int]] = []
+        self._body_nodes = 0
+        self._pool = None
+        self._body_stream = None
 
     def chunk(self, name: str) -> int:
         """The bodies a chunk of loop `name` runs between its reads."""
@@ -148,8 +206,9 @@ class Loops:
     def once(self, name: str, fn: Callable[[Tensors], Tensors], inputs: Tensors,
              static: tuple = ()) -> Tensors:
         """`fn(inputs) -> outputs`, the straight-line stretch `name` between
-        two loops, as one graph replay when graphs are on."""
-        if not self.graphed:
+        two loops, as one graph replay when graphs are on; inline inside
+        another stretch."""
+        if not self.graphed or self._stretch is not None:
             return fn(inputs)
         key, inputs_s, _ = self._bind(name, inputs, {}, static)
         gkey = key + ("once",)
@@ -162,7 +221,63 @@ class Loops:
         self.stats[name]["replays"] += 1
         return {k: v.clone() for k, v in graph.outputs.items()}
 
+    def graphs_of(self, name: str) -> List[_Graph]:
+        """The graphs captured for loop or stretch `name`."""
+        return [g for key, g in self._graphs.items() if key[0] == name]
+
+    @property
+    def inside(self) -> bool:
+        """Whether a stretch is being warmed up or captured: its
+        conditional bodies then decide on the device (`when`)."""
+        return self._stretch is not None
+
+    @contextlib.contextmanager
+    def stretch(self, mode: str = "warm-up") -> Iterator[None]:
+        """Run the code inside as the body of a stretch: nested stretches
+        inline; `when` in "warm-up" runs every conditional body and selects
+        on the device, in "capture" (inside a graph capture) makes
+        conditional nodes."""
+        saved, self._stretch = self._stretch, mode
+        try:
+            yield
+        finally:
+            self._stretch = saved
+
+    def when(self, pred: torch.Tensor, body: Callable[[Tensors], Tensors],
+             state: Tensors) -> Tensors:
+        """`body(state)` where the 0-d bool `pred` is true, else `state`;
+        the body returns tensors of `state`'s keys, shapes and dtypes and
+        must not draw from the registered counters. Inside a stretch's
+        capture it is a conditional IF node whose body copies its results
+        into `state`'s tensors; else (a stretch's warm-up) the body runs and
+        `pred` picks its results or `state` on the device. Outside a
+        stretch, the caller decides on the host from its own read."""
+        if self._stretch == "capture":
+            return self._if_node(pred, body, state)
+        self._branch_count += 1
+        new = body(state)
+        return {k: torch.where(pred, new[k], v) for k, v in state.items()}
+
     # -- graphs ------------------------------------------------------------
+    def _if_node(self, pred: torch.Tensor, body: Callable[[Tensors], Tensors],
+                 state: Tensors) -> Tensors:
+        i = len(self._branches)
+        if self._words is None or i >= self._words.numel():
+            raise RuntimeError("a stretch met more conditional bodies in its capture than in "
+                               "its warm-up")
+        calls = [c.counter for c in self.counters]
+        with cuda_graphs.if_body(pred, self._pool, self._body_stream) as nodes:
+            before = _counts()  # after the node's flag kernel, which every replay runs
+            new = body(state)
+            for k, v in state.items():
+                v.copy_(new[k])
+            self._words[i:i + 1].add_(1)
+        if [c.counter for c in self.counters] != calls:
+            raise RuntimeError("a conditional body drew from a call counter")
+        self._branches.append({k: v - before[k] for k, v in _counts().items()})
+        self._body_nodes += nodes[0]
+        return state
+
     def _bind(self, name: str, carry: Tensors, consts: Tensors, static: tuple):
         """The static buffers of loop `name` at these shapes, filled."""
         key = (name, _signature(carry), _signature(consts), static)
@@ -204,53 +319,80 @@ class Loops:
         stream, current = self._stream, torch.cuda.current_stream(self.device)
         offsets = [g.get_offset() for g in self.generators]
         calls = [c.counter for c in self.counters]
-        before = launch_counts()
-        # Warm-up: libraries and workspaces meet the capture stream eagerly.
+        before = _counts()
+        # Warm-up: libraries and workspaces meet the capture stream eagerly,
+        # every conditional body included.
+        self._branch_count = 0
         stream.wait_stream(current)
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream), self.stretch("warm-up"):
             work()
         current.wait_stream(stream)
-        _add_launches({k: v - before[k] for k, v in launch_counts().items()}, -1)
+        _add_launches({k: v - before[k] for k, v in _counts().items()}, -1)
         for g, offset in zip(self.generators, offsets):
             g.set_offset(offset)
         for c, n in zip(self.counters, calls):
             c.seek(n)
 
+        # The conditional bodies' launch words and memory pool.
+        words = torch.zeros(self._branch_count, dtype=torch.int64, device=self.device)
+        self._words, self._branches, self._body_nodes = words, [], 0
+        pool = None
+        if self._branch_count:
+            if self._body_stream is None:
+                self._body_stream = torch.cuda.Stream(self.device)
+            try:
+                pool = cuda_graphs.body_pool(self._body_stream)
+            except RuntimeError as exc:
+                raise self._capture_error(name, exc) from exc
+        self._pool = pool
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             graph.register_generator_state(g)
         stream.wait_stream(current)
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream), self.stretch("capture"):
             graph.capture_begin()
+            t0 = time.perf_counter()
             try:
                 commit(work())
+                nodes = (cuda_graphs.capture_nodes(stream), self._body_nodes) if pool else None
             except Exception as exc:
-                self._end_failed_capture(graph)
+                self._end_failed_capture(graph, pool)
                 raise self._capture_error(name, exc) from exc
             try:
                 graph.capture_end()
             except Exception as exc:
-                self._repair_generators(stream)
+                self._repair_generators(stream, pool)
                 raise self._capture_error(name, exc) from exc
         current.wait_stream(stream)
-        captured = {k: v - before[k] for k, v in launch_counts().items()}
+        branches, self._words, self._branches = self._branches, None, []
+        captured = {k: v - before[k] for k, v in _counts().items()}
         _add_launches(captured, -1)
+        for delta in branches:  # a replay counts these from the words
+            captured = {k: v - delta[k] for k, v in captured.items()}
         drawn = [(c, c.counter - n) for c, n in zip(self.counters, calls)]
         for c, n in zip(self.counters, calls):  # the capture ran nothing on the device
             c.counter = n
         self.stats[name]["captures"] += 1
-        return _Graph(graph, captured, [(c, k) for c, k in drawn if k])
+        out = _Graph(graph, captured, [(c, k) for c, k in drawn if k],
+                     (words, branches) if branches else None)
+        out.nodes, out.capture_s = nodes, time.perf_counter() - t0
+        if pool is not None:  # the bodies' memory lives as long as the graph
+            weakref.finalize(out, cuda_graphs.release_pool, self.device, pool).atexit = False
+        return out
 
-    def _end_failed_capture(self, graph) -> None:
+    def _end_failed_capture(self, graph, pool) -> None:
         try:
             graph.capture_end()
         except Exception:  # the capture is already invalid; its own error is reported
             pass
-        self._repair_generators(torch.cuda.current_stream(self.device))
+        self._repair_generators(torch.cuda.current_stream(self.device), pool)
 
-    def _repair_generators(self, stream) -> None:
+    def _repair_generators(self, stream, pool) -> None:
         """A capture that fails leaves its generators in capture mode; one
-        small capture that succeeds takes them out of it."""
+        small capture that succeeds takes them out of it. The failed
+        capture's body pool goes back."""
+        if pool is not None:
+            cuda_graphs.release_pool(self.device, pool)
         try:
             fix = torch.cuda.CUDAGraph()
             for g in self.generators:
@@ -268,8 +410,9 @@ class Loops:
             f"capturing the {name!r} loop as a CUDA graph failed: {type(exc).__name__}: {exc}\n"
             "Everything a loop body runs (in the MCMC steps, the likelihood and the prior "
             "transform) must stay on the device: no .item(), bool(tensor), .tolist(), "
-            ".cpu() or host copies. Run with run(on_device=False), which runs the same "
-            "loops without CUDA graphs.")
+            ".cpu() or host copies. The cluster fit's split rounds are CUDA-graph conditional "
+            "nodes (ops.cuda_graphs), which need CUDA 12.4 or later. Run with "
+            "run(on_device=False), which runs the same loops without CUDA graphs.")
 
 
 class LoopRun:

@@ -17,6 +17,7 @@ import torch
 from tempest_tpu import cluster as jc
 from tempest_tpu_torch import cluster as tc
 from tempest_tpu_torch import interop
+from tempest_tpu_torch.loops import Loops
 
 torch.set_num_threads(1)
 
@@ -40,6 +41,17 @@ def unimodal(seed=1, n=600):
     X = rng.normal([1.0, -2.0], [1.0, 0.5], size=(n, D)).astype(np.float32)
     w = rng.uniform(0.5, 1.5, size=n).astype(np.float32)
     return X, w, np.ones(n, dtype=bool)
+
+
+def blobs(seed=2, n=600, k=4, spread=6.0):
+    """k tight blobs `spread` apart on a square grid: every leaf that holds
+    two or more of them splits."""
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(np.sqrt(k)))
+    centers = spread * np.array([(i % side, i // side) for i in range(k)], dtype=np.float64)
+    X = (centers[rng.integers(0, k, size=n)] + rng.normal(0.0, 0.3, size=(n, D)))
+    w = rng.uniform(0.5, 1.5, size=n).astype(np.float32)
+    return X.astype(np.float32), w, np.ones(n, dtype=bool)
 
 
 DATA = {"bimodal": bimodal, "unimodal": unimodal}
@@ -143,12 +155,26 @@ def test_split_round(data, n_sub):
     np.testing.assert_allclose(out_t["improvement"].numpy(), imp_j, rtol=1e-3)
 
 
-def _jax_hgm(X, w, mask, k_max, split_all, leaf_fit_points, normalize=True):
+def _jax_hgm(X, w, mask, k_max, split_all, leaf_fit_points, normalize=True, max_rounds=None):
     return jc.hgm_fit(
         jax.random.PRNGKey(42), jnp.asarray(X), jnp.asarray(w), jnp.asarray(mask),
         jnp.asarray(2 * D, jnp.int32), jnp.asarray(1.0, jnp.float32), k_max, "full",
-        k_max - 1, normalize, 1, split_all, leaf_fit_points,
+        k_max - 1 if max_rounds is None else max_rounds, normalize, 1, split_all,
+        leaf_fit_points,
     )
+
+
+def _assert_hgm_agrees(port, jax_fit):
+    """The port's (model, labels, n_leaves) against JAX's: every decision
+    equal, the fitted values at rtol 1e-3."""
+    (model_t, labels_t, n_t), (model_j, labels_j, n_j) = port, jax_fit
+    assert n_t.dtype == torch.int32 and n_t.dim() == 0 and int(n_t) == int(n_j)
+    np.testing.assert_array_equal(labels_t.numpy(), np.asarray(labels_j))
+    assert model_t.k_mask.tolist() == np.asarray(model_j.k_mask).tolist()
+    for name in ("centers", "covariances", "weights", "chol_inv", "logdet"):
+        want = np.asarray(getattr(model_j, name))
+        np.testing.assert_allclose(getattr(model_t, name).numpy(), want, rtol=1e-3,
+                                   atol=1e-4 * np.abs(want).max(), err_msg=name)
 
 
 @pytest.mark.parametrize("split_all,leaf_fit_points", [(True, 256), (False, None)])
@@ -157,19 +183,61 @@ def test_hgm_fit(data, split_all, leaf_fit_points):
     X, w, mask = DATA[data]()
     k_max = 4
     model_j, labels_j, n_j = _jax_hgm(X, w, mask, k_max, split_all, leaf_fit_points)
-    model_t, labels_t, n_t = tc.hgm_fit(
+    port = tc.hgm_fit(
         t(X), t(w), t(mask), min_points=2 * D, threshold_modifier=1.0, k_max=k_max,
         max_rounds=k_max - 1, normalize=True, split_all=split_all,
         leaf_fit_points=leaf_fit_points,
     )
-    assert n_t == int(n_j)
-    assert (n_t >= 2) == (data == "bimodal")
-    np.testing.assert_array_equal(labels_t.numpy(), np.asarray(labels_j))
-    assert model_t.k_mask.tolist() == np.asarray(model_j.k_mask).tolist()
-    for name in ("centers", "covariances", "weights", "chol_inv", "logdet"):
-        want = np.asarray(getattr(model_j, name))
-        np.testing.assert_allclose(getattr(model_t, name).numpy(), want, rtol=1e-3,
-                                   atol=1e-4 * np.abs(want).max(), err_msg=name)
+    _assert_hgm_agrees(port, (model_j, labels_j, n_j))
+    assert (int(port[2]) >= 2) == (data == "bimodal")
+
+
+# The edge cases of the round schedule: (data, k_max, max_rounds, split_all,
+# the leaf count and the rounds the port's host loop runs).
+HGM_EDGES = {
+    # one Gaussian: nothing is eligible in the first round
+    "nothing_eligible": (unimodal, 4, 3, True, 1, 1),
+    # four blobs, k_max 4: the second prefix round (width 2) fills it
+    "k_max_in_prefix": (blobs, 4, 3, True, 4, 2),
+    # one split a round, stopped by max_rounds = 2 < k_max - 1
+    "max_rounds": (blobs, 8, 2, False, 3, 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HGM_EDGES))
+def test_hgm_fit_round_schedule_edges(case):
+    data, k_max, max_rounds, split_all, leaves, rounds = HGM_EDGES[case]
+    X, w, mask = data()
+    loops = Loops("cpu")
+    port = tc.hgm_fit(t(X), t(w), t(mask), min_points=2 * D, threshold_modifier=1.0,
+                      k_max=k_max, max_rounds=max_rounds, normalize=True, split_all=split_all,
+                      loops=loops)
+    _assert_hgm_agrees(port, _jax_hgm(X, w, mask, k_max, split_all, None,
+                                      max_rounds=max_rounds))
+    assert int(port[2]) == leaves and loops.stats["split_round"]["reads"] == rounds
+
+
+@pytest.mark.parametrize("k_max,max_rounds,split_all", [(8, 1000, True), (8, 1000, False),
+                                                        (6, 3, True), (16, 15, True)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hgm_fit_rounds_within_their_bound(seed, k_max, max_rounds, split_all):
+    """Every round splits a leaf or ends the fit, so the host loop runs at
+    most min(max_rounds, k_max - 1) rounds: the conditional rounds of the
+    one-stretch fit. That fit, decided on the device (a stretch's warm-up
+    runs every round and selects), gives the host loop's bits with no read."""
+    X, w, mask = blobs(seed, n=800, k=12 + seed, spread=5.0)
+    args = dict(min_points=2 * D, threshold_modifier=1.0, k_max=k_max,
+                max_rounds=max_rounds, normalize=True, split_all=split_all)
+    host = Loops("cpu")
+    model_h, labels_h, n_h = tc.hgm_fit(t(X), t(w), t(mask), loops=host, **args)
+    assert 1 <= host.stats["split_round"]["reads"] <= min(max_rounds, k_max - 1)
+    device = Loops("cpu")
+    with device.stretch():
+        model_d, labels_d, n_d = tc.hgm_fit(t(X), t(w), t(mask), loops=device, **args)
+    assert device.stats["split_round"]["reads"] == 0
+    assert torch.equal(n_d, n_h) and torch.equal(labels_d, labels_h)
+    for name in tc.MODEL_TENSORS:
+        assert torch.equal(getattr(model_d, name), getattr(model_h, name)), name
 
 
 def test_cluster_predict_on_a_jax_model():

@@ -98,7 +98,7 @@ from tempest_tpu_torch import modes as tm
 from tempest_tpu_torch.config import ESS_TOLERANCE, METRIC_ATOL
 from tempest_tpu_torch.draws import Draws, HardwareDraws
 from tempest_tpu_torch.fused import CHUNKS
-from tempest_tpu_torch.loops import Loops
+from tempest_tpu_torch.loops import Loops, launch_counts
 from tempest_tpu_torch.mcmc import MCMCKernel
 from tempest_tpu_torch.ops import cuda_prng, cuda_reweight, philox, tools
 from tempest_tpu_torch.ops.tools import ess_from_logw, logsumexp
@@ -488,22 +488,97 @@ def test_graphed_mode_fits_equal_eager(cuda_device):
     assert stats["captures"] == 1 and stats["replays"] == 2 and stats["reads"] == 0
 
 
+def _hgm_graphed_equals_eager(device, inputs, **args):
+    """`hgm_fit` on each (x, w, mask) of `inputs` (one shape) eagerly and on
+    one graphed `Loops`: the same labels, leaf count and model bit for bit,
+    the same GMM EM launches; graphed, one capture of the whole fit and one
+    replay a call, no split-round read and no head or tail replay of its
+    own. Returns the eager runs' leaf counts and split rounds."""
+    graphed, rounds = _loops(device, True), []
+    for x, w, mask in inputs:
+        eager = _loops(device, False)
+        before = launch_counts()["gmm_em"]
+        model_e, labels_e, n_e = tc.hgm_fit(x, w, mask, loops=eager, **args)
+        launches_e = launch_counts()["gmm_em"] - before
+        model_g, labels_g, n_g = tc.hgm_fit(x, w, mask, loops=graphed, **args)
+        assert launch_counts()["gmm_em"] - before - launches_e == launches_e
+        assert n_g.dtype == n_e.dtype == torch.int32 and n_g.dim() == 0
+        assert torch.equal(n_g, n_e) and torch.equal(labels_g, labels_e)
+        for name in tc.MODEL_TENSORS:
+            assert torch.equal(getattr(model_g, name), getattr(model_e, name)), name
+        rounds.append((int(n_e), eager.stats["split_round"]["reads"]))
+        assert rounds[-1][1] <= max(min(args["max_rounds"], args["k_max"] - 1), 0)
+    stats = graphed.stats
+    assert stats["hgm_fit"]["captures"] == 1 and stats["hgm_fit"]["replays"] == len(inputs)
+    assert stats["split_round"]["reads"] == 0 and stats["gmm_em"]["reads"] == 0
+    assert not any(stats[k]["replays"] for k in ("split_head", "split_tail", "gmm_em"))
+    return rounds
+
+
+def _blobs(device, seed, n, d, k, spread, dtype=torch.float32):
+    """n points around k centers `spread` apart (standard normal about each),
+    uniform weights in [0.1, 1.1)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    centers = spread * torch.randn(k, d, generator=g, device=device, dtype=dtype)
+    labels = torch.randint(0, k, (n,), generator=g, device=device)
+    x = centers[labels] + torch.randn(n, d, generator=g, device=device, dtype=dtype)
+    w = torch.rand(n, generator=g, device=device, dtype=dtype) + 0.1
+    return x, w, torch.ones(n, dtype=torch.bool, device=device)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("split_all", [True, False])
 def test_graphed_split_rounds_equal_eager(cuda_device, split_all):
-    graphed = _loops(cuda_device, True)
+    inputs = []
     for seed in (3, 4):
         x, w, _ = _points(cuda_device, seed, n=8192)
-        mask = torch.ones(x.shape[0], dtype=torch.bool, device=cuda_device)
-        args = dict(min_points=20, threshold_modifier=1.0, k_max=16, max_rounds=15,
-                    normalize=True, split_all=split_all, leaf_fit_points=2048)
-        model_e, labels_e, n_e = tc.hgm_fit(x, w, mask, loops=_loops(cuda_device, False), **args)
-        model_g, labels_g, n_g = tc.hgm_fit(x, w, mask, loops=graphed, **args)
-        assert n_g == n_e >= 2 and torch.equal(labels_g, labels_e)
-        for name in ("centers", "covariances", "weights", "k_mask", "chol_inv", "logdet"):
-            assert torch.equal(getattr(model_g, name), getattr(model_e, name)), (seed, name)
-    for name in ("gmm_em", "split_head", "split_tail"):
-        assert graphed.stats[name]["captures"] >= 1 and graphed.stats[name]["replays"] >= 2, name
+        inputs.append((x, w, torch.ones(x.shape[0], dtype=torch.bool, device=cuda_device)))
+    rounds = _hgm_graphed_equals_eager(
+        cuda_device, inputs, min_points=20, threshold_modifier=1.0, k_max=16, max_rounds=15,
+        normalize=True, split_all=split_all, leaf_fit_points=2048)
+    assert all(n >= 2 for n, _ in rounds), rounds
+
+
+# The edge cases of the round schedule, each (blobs: k, spread; hgm_fit's
+# settings; the eager run's leaf count and rounds, where the case fixes them).
+HGM_CASES = {
+    # one Gaussian: no leaf is eligible in the first round
+    "nothing_eligible": (dict(k=1, spread=0.0), dict(k_max=16, max_rounds=15), (1, 1)),
+    # 16 separated blobs, k_max 8: the third prefix round (width 4) fills it
+    "k_max_in_prefix": (dict(k=16, spread=30.0), dict(k_max=8, max_rounds=7), (8, 3)),
+    # one split a round, stopped by max_rounds = 3 < k_max - 1
+    "max_rounds": (dict(k=8, spread=30.0), dict(k_max=16, max_rounds=3, split_all=False),
+                   (4, 3)),
+    "n_init": (dict(k=3, spread=4.0), dict(k_max=16, max_rounds=15, n_init=2), None),
+    "float64": (dict(k=3, spread=4.0, dtype=torch.float64), dict(k_max=16, max_rounds=15),
+                None),
+    # the first round's one fit of 4,096 points takes the cooperative grid
+    "cooperative_grid": (dict(k=3, spread=4.0), dict(k_max=16, max_rounds=15,
+                                                     leaf_fit_points=None), None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(HGM_CASES))
+def test_graphed_hgm_fit_edge_cases(cuda_device, case):
+    blobs, settings, want = HGM_CASES[case]
+    args = dict(min_points=20, threshold_modifier=1.0, normalize=True, split_all=True,
+                leaf_fit_points=2048)
+    args.update(settings)
+    inputs = [_blobs(cuda_device, seed, 4096, 10, **blobs) for seed in (5, 6)]
+    if case == "cooperative_grid":
+        assert cuda_em.plan(cuda_em.GMM_LIBRARY, 1, 4096, 10, 2, 0, 4)["grid"] == 1
+    rounds = _hgm_graphed_equals_eager(cuda_device, inputs, **args)
+    assert want is None or all(r == want for r in rounds), rounds
+
+
+@pytest.mark.cuda
+def test_graphed_hgm_fit_on_a_fit_inputs(cuda_device):
+    """A's own fit of iteration 21 (seed 42), graphed and eager."""
+    x, w, keep, kwargs = cs.a_fit_inputs(cuda_device)["hgm"][0]
+    rounds = _hgm_graphed_equals_eager(cuda_device, [(x, w, keep)], **kwargs)
+    assert rounds[0][0] >= 2, rounds
 
 
 @pytest.mark.cuda
@@ -793,6 +868,44 @@ def test_capture_of_a_host_read_raises(cuda_device):
     assert "EAGER_OK 1.0" in proc.stdout, proc.stdout + proc.stderr[-3000:]
     assert "CAPTURE_ERROR" in proc.stdout, proc.stdout + proc.stderr[-3000:]
     assert "'mcmc' loop" in proc.stdout and "on_device=False" in proc.stdout, proc.stdout
+
+
+_REFUSED_NODE_RUN = textwrap.dedent("""
+    import contextlib
+    import torch
+    from tempest_tpu_torch import Sampler
+    from tempest_tpu_torch.loops import CaptureError
+    from tempest_tpu_torch.ops import cuda_graphs
+
+    @contextlib.contextmanager
+    def refused(pred, pool, stream):
+        raise RuntimeError("conditional node refused by the test")
+        yield
+
+    cuda_graphs.if_body = refused
+    s = Sampler(lambda u: 20.0 * u - 10.0, lambda x: -0.5 * torch.sum(x * x, dim=-1), n_dim=2,
+                n_particles=128, vectorize=True, clustering=True, k_max=4, random_state=1,
+                history_capacity=32, device="cuda")
+    try:
+        s.run(n_total=256, progress=False, on_device=True)
+    except CaptureError as exc:
+        print("CAPTURE_ERROR", exc)
+        print("SPLIT_READS", s.state._iteration.loops.stats["split_round"]["reads"])
+    else:
+        print("NO_ERROR")
+""")
+
+
+@pytest.mark.cuda
+def test_refused_conditional_node_raises(cuda_device):
+    """No fallback: a conditional node that cannot be made fails the capture
+    of the cluster fit with CaptureError naming the cause, and the run
+    reads no split round instead."""
+    proc = subprocess.run([sys.executable, "-c", _REFUSED_NODE_RUN], capture_output=True,
+                          text=True, timeout=300, cwd=Path(__file__).resolve().parents[1])
+    out = proc.stdout + proc.stderr[-3000:]
+    assert "CAPTURE_ERROR" in proc.stdout and "'hgm_fit'" in proc.stdout, out
+    assert "refused by the test" in proc.stdout and "SPLIT_READS 0" in proc.stdout, out
 
 
 # ---------------------------------------------------------------------------

@@ -123,16 +123,17 @@ def test_hgm_fit_device_rounds_match_jax(data, split_all, leaf_fit_points):
         max_rounds=k_max - 1, normalize=True, split_all=split_all,
         leaf_fit_points=leaf_fit_points, loops=loops,
     )
-    assert n_t == int(n_j)
+    assert n_t.dtype == torch.int32 and n_t.dim() == 0 and int(n_t) == int(n_j)
     np.testing.assert_array_equal(labels_t.numpy(), np.asarray(labels_j))
     assert model_t.k_mask.tolist() == np.asarray(model_j.k_mask).tolist()
     for name in ("centers", "covariances", "weights", "chol_inv", "logdet"):
         want = np.asarray(getattr(model_j, name))
         np.testing.assert_allclose(getattr(model_t, name).numpy(), want, rtol=1e-3,
                                    atol=1e-4 * np.abs(want).max(), err_msg=name)
-    # One read a round, and one a chunk of each round's EM loop.
+    # The CPU route's host loop: one read a round, and one a chunk of each
+    # round's EM loop.
     rounds = loops.stats["split_round"]["reads"]
-    assert rounds >= 1 and loops.stats["gmm_em"]["reads"] >= rounds
+    assert 1 <= rounds <= k_max - 1 and loops.stats["gmm_em"]["reads"] >= rounds
 
 
 def _chain_problem(seed=3, n=64, d=2):
@@ -387,6 +388,15 @@ def test_loop_bodies_read_nothing(monkeypatch, gloo_mesh):
     try:
         iterate(core)
         assert ran == {"mode_em", "gmm_em", "split_head", "split_tail", "mcmc"}, ran
+        # The same iteration with its cluster fit decided on the device, as
+        # the graphed route's "hgm_fit" stretch runs it: no split-round read.
+        loops = core._iteration.loops
+        ran.clear()
+        reads = loops.stats["split_round"]["reads"]
+        with loops.stretch():
+            iterate(core)
+        assert ran == {"mode_em", "gmm_em", "split_head", "split_tail", "mcmc"}, ran
+        assert loops.stats["split_round"]["reads"] == reads
         with pytest.raises(AssertionError, match="host read"):
             guarded("check", lambda: bool(torch.ones(1) > 0))()
         # Dynamic mode on a history of test_torch_dynamic.py whose reweight

@@ -3,6 +3,8 @@
 - Each `CudaLibrary`'s ctypes signature table matches the `extern "C"`
   declarations of its source under tempest_tpu_torch/csrc/: the same
   names, and per argument the ctypes type of the C type.
+- The conditional-node helper (`ops/cuda_graphs.if_body`) takes only a
+  0-d CUDA bool.
 - `cuda_reweight.plan_launch` picks the ESS kernel's route by S and the
   dtype: slices held in shared memory up to 16 x 24,576 = 393,216 float32
   samples, or 16 x 12,288 = 196,608 float64 ones, streamed from L2 past
@@ -18,7 +20,8 @@ import re
 import pytest
 import torch
 
-from tempest_tpu_torch.ops import _build, cuda_median, cuda_prng, cuda_reweight, philox
+from tempest_tpu_torch.ops import (_build, cuda_graphs, cuda_median, cuda_prng, cuda_reweight,
+                                   philox)
 
 C_TYPES = {
     "const void*": ctypes.c_void_p,
@@ -45,12 +48,23 @@ def _declarations(source: str) -> dict:
 
 
 @pytest.mark.parametrize("library", [cuda_reweight.LIBRARY, cuda_prng.LIBRARY,
-                                     cuda_median.LIBRARY], ids=lambda lib: lib.source)
+                                     cuda_median.LIBRARY, cuda_graphs.LIBRARY],
+                         ids=lambda lib: lib.source)
 def test_signature_table_matches_the_source(library):
     declared = _declarations(library.source)
     assert set(declared) == set(library.functions)
     for name, argtypes in library.functions.items():
         assert [C_TYPES[t] for t in declared[name]] == list(argtypes), name
+
+
+@pytest.mark.parametrize("pred", [torch.tensor(True), torch.ones((1,), dtype=torch.bool),
+                                  torch.tensor(1)], ids=["cpu", "shape", "dtype"])
+def test_conditional_node_takes_a_0d_cuda_bool(pred):
+    """A conditional node is made only inside a capture on the card; a CPU
+    run decides on the host, and anything but a 0-d CUDA bool raises."""
+    with pytest.raises(ValueError, match="0-d CUDA bool"):
+        with cuda_graphs.if_body(pred, None, None):
+            pass
 
 
 ON_CHIP = cuda_reweight.ESS_CLUSTER * cuda_reweight.ESS_SLICE_MAX
