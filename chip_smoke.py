@@ -42,8 +42,13 @@ lines and a failure exits non-zero:
  4. the four PRNG kernels against their plain versions on one key and call
     index (mutation draws at (8, 1024, 10), a ragged (8, 1000, 10) and the
     largest fused shape (8, 6553, 10); normal and bits at 2^20 and at B's
-    shapes, the bits through the public `hw_uniform`, whose launches the
-    bits row gives as `hw_uniform_launches`; the gamma draws at n = 1, 3,
+    shapes, and the bits kernel's uniform mode through the public
+    `hw_uniform` (one launch, the words of `hw_bits` mapped to (0, 1]) at
+    2^20 and bit for bit against `philox.uniform` at the path's shapes, B's
+    131,072 walkers and rosenbrock100's 2,048; the bits row is timed in
+    that mode, the one on the path, beside `torch.rand`, with the raw
+    words' times (`hw_bits`, `random_`) under `raw_words`; the gamma
+    draws at n = 1, 3,
     5, 1000, 131,072, 131,075 and 262,144 for alpha 0.02, 0.5, 0.7, 1.5,
     7.5, 50 and all six in turn, one gamma launch and no other a call, on
     call indices that cross 2^32; flips and draws not equal bit for bit),
@@ -99,19 +104,28 @@ lines and a failure exits non-zero:
     decision) decides to, at every (go, n_leaves) tried; its device time a
     launch, a replay's call time a node untaken and taken, against one
     plain decision's call time, beside its bound;
+ 4f. what a conditional node costs the device, by CUDA events: a WHILE
+    node (the MCMC chain's) whose body adds one to a counter runs it 0, 1,
+    5 and 1,000 times as asked, and a run of that empty body against the
+    same kernels in a straight graph; A's step body (N = 1024, d = 10,
+    keyed draws) run to its stop by a WHILE node against the same steps in
+    a straight graph; and an untaken IF node (A's 15 in one replay against
+    none);
  5. the canonical problem unclustered (paired 10-D Rosenbrock, U(-10, 10)
     prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42,
     with `run(on_device=True)`: its loops replayed as CUDA graphs;
  6. A: the canonical problem at the reference defaults, clustered
-    (k_max=16), hardware_prng=False, seed 42 after a warm-up, with
-    `run(on_device=False)`: the fused iteration without graphs (seeds 43
-    and 44 are left out, to keep the whole script near half its time
-    limit); one mvstud_em launch a mode fit, one gmm_em launch a GMM EM
-    loop and no "mode_em" or "gmm_em" chunk read (every path holds this);
+    (k_max=16), hardware_prng=False, seeds 42-44 after a warm-up, with
+    `run(on_device=False)`: the fused iteration without graphs, its MCMC
+    chain in the loop form (a read a step) on keyed draws, one
+    mutation-draws launch a step and no chunk of steps; one mvstud_em
+    launch a mode fit, one gmm_em launch a GMM EM loop and no "mode_em" or
+    "gmm_em" chunk read (every path holds this);
  6b. A fused: A's seed 42 with `run(on_device=True)`, which captures the
-    graphs, then seed 42 again on them: the beta ladder, logZ, steps and
-    calls of each equal bit for bit to phase 6's run, logZ in the clustered band, the ESS
-    kernel's launches equal to phase 6's; the wall per iteration of both,
+    graphs, then seeds 42-44 on them: the beta ladder, logZ, steps, calls
+    and launches of each equal bit for bit to phase 6's run of the seed,
+    logZ in the clustered band; one WHILE iteration a step (counted on the
+    device), no MCMC read; the wall per iteration of both,
     and the graph captures and replays per loop; then iterations 21-23 of
     seed 42 in each mode under torch.profiler: the device idle share and
     the blocking host reads per iteration, counted from the CUDA runtime
@@ -119,7 +133,9 @@ lines and a failure exits non-zero:
     cudaDeviceSynchronize, a synchronous cudaMemcpy), at most one a loop
     chunk plus two an iteration (beta and the termination test), fewer
     than 150, no torch.linalg.eigvalsh operator (the CV's eigenvalues
-    are the kernel's) and no EM chunk read; graphed, no split-round read,
+    are the kernel's) and no EM chunk read; graphed, no MCMC read (its
+    WHILE iterations an iteration printed, as in every later window) and at
+    most 1.0 blocking read an iteration (beta), no split-round read,
     no replay of a round's head or tail of its own and one replay of the
     "hgm_fit" stretch an iteration (the cluster fit, its rounds CUDA-graph
     conditional nodes), whose graph's node count and capture seconds are
@@ -127,8 +143,8 @@ lines and a failure exits non-zero:
     traced on the device only (no host ops recorded): wall and idle share;
  7. A again with hardware_prng=True, seed 42, with run(on_device=False) and
     then run(on_device=True) on a sampler whose seed-43 run captured the
-    graphs: every MCMC step body draws through the mutation-draws kernel
-    (by graph replays with on_device=True); the ladder, logZ, steps,
+    graphs: every MCMC step draws through the mutation-draws kernel
+    (in the WHILE node's body with on_device=True); the ladder, logZ, steps,
     calls, launches and the draws' final state (call counter, host mirror
     and device words) equal bit for bit; the wall per iteration of both;
     then iterations 21-23 in each mode under torch.profiler, held to 6b's
@@ -138,9 +154,11 @@ lines and a failure exits non-zero:
     history_capacity=8, unclustered) through its first four mutation
     iterations, eagerly and with the loops' CUDA graphs (one pass captures
     them, a second is timed): the same values, launches and call counter
-    in each iteration bit for bit, one normal and one gamma launch per
-    MCMC step body (by replays when graphed), no bits launch, and seconds
-    per mutation iteration of each; then the normal kernel at its R*N*d
+    in each iteration bit for bit, one normal, one gamma and one uniform
+    (the bits kernel) launch per MCMC step (in the WHILE node's body when
+    graphed), and seconds per mutation iteration of each; the profiled
+    graphed iteration reads no MCMC chunk and runs one WHILE iteration a
+    step; then the normal kernel at its R*N*d
     and the ESS kernel at the S reached, each against its plain version;
  9. C: the 10-D bimodal mixture of tests/test_multimodal.py, clustered,
     with run(on_device=False) and then True: bit for bit, launches
@@ -211,7 +229,8 @@ lines and a failure exits non-zero:
     42-46), one eigenvalue launch (d = 100) and one ESS launch a reweight,
     each ESS launch on the streamed route at S = 524,288; the first 30
     iterations equal bit for bit to a fresh seed-42 sampler's sample()
-    calls; wall, ms and MCMC steps an iteration; iterations 21-23 graphed
+    calls; one gamma, normal and uniform launch an MCMC step; wall, ms and
+    MCMC steps an iteration; iterations 21-23 graphed
     under the profiler, held to 6b's rule, with the device busy share and
     the device ms an iteration of the eigenvalue kernel, the ESS kernel
     and the top five other kernels.
@@ -220,11 +239,9 @@ Every path phase sets the kernels' launch counts to 0 just before it
 drives the path and reads them just after. Each run of A (phases 5, 6,
 6b's reference, 14) and each B iteration launches the weighted-median
 kernel once a mode fit (fits counted by wrapping modes.py's). A kernel's `launches` in the
-table is its count on one path (`launches_on`), and must be above 0; the
-bits kernel is on no Sampler path (its one caller there, hw_gamma, is the
-gamma kernel now), so its `launches` is B's 0, every path must count 0 for
-it, and its row says why (`off_path`). The last three lines are the
-total wall, the kernel table and {"ok": true, "device": {...}}.
+table is its count on one path (`launches_on`), and must be above 0 (the
+bits kernel's is B's uniform mode, one an MCMC step). The last three lines
+are the total wall, the kernel table and {"ok": true, "device": {...}}.
 
 Without a GPU, or without the rest of the repository beside it, the
 script exits non-zero before printing any result. `--profile DIR` also
@@ -312,6 +329,8 @@ except ImportError:
 from tempest_tpu_torch import cluster as cluster_module  # noqa: E402
 from tempest_tpu_torch import iteration as iteration_module  # noqa: E402
 from tempest_tpu_torch import loops as loops_module  # noqa: E402
+from tempest_tpu_torch import mcmc as mcmc_module  # noqa: E402
+from tempest_tpu_torch.draws import Draws  # noqa: E402
 from tempest_tpu_torch import student as student_module  # noqa: E402
 from tempest_tpu_torch.loops import Loops  # noqa: E402
 from tempest_tpu_torch import modes as modes_module  # noqa: E402
@@ -1394,8 +1413,8 @@ def phase_prng_kernels(device) -> dict:
     n = 1 << 20
     z = cuda_prng.hw_normal(key, 2, (n,), device)
     err_n = float(torch.max(torch.abs(z - philox.normal(key, 2, n, device))))
-    # The bits kernel's path: the public hw_uniform, which no Sampler path
-    # calls now that hw_gamma is one kernel; its launches label the bits row.
+    # The bits kernel's uniform mode (hw_uniform, one launch): the keyed
+    # steps' acceptance uniforms past the mutation-draws kernel's size.
     before = counts()
     u = cuda_prng.hw_uniform(key, 3, (n,), device)
     uniform_launches = diff(counts(), before)
@@ -1416,8 +1435,19 @@ def phase_prng_kernels(device) -> dict:
           and abs(tail - 0.0027) < 0.0005, "normal moments")
     check(0.0 < float(u.min()) and float(u.max()) <= 1.0 and abs(um - 0.5) < 0.002
           and abs(uv - 1.0 / 12.0) < 0.001, "uniform moments")
+    # The uniform mode at the shapes of the path: B's walkers (131,072) and
+    # rosenbrock100's (2,048), bit for bit against philox.uniform.
+    uniform_equal = {}
+    for m in (B_GAMMA, R100_PARTICLES):
+        uniform_equal[m] = bool(torch.equal(cuda_prng.hw_uniform(key, 3 + m, (m,), device),
+                                            philox.uniform(key, 3 + m, m, device)))
+        check(uniform_equal[m], f"the bits kernel's uniform mode differs from "
+              f"philox.uniform at n={m}")
+    print(f"bits kernel, uniform mode, against philox.uniform at the path's shapes: "
+          f"{json.dumps(uniform_equal)}", flush=True)
     for name, kernel_name, sizes in (("normal", "normal_kernel", (n, B_NORMALS, B_GAMMA)),
-                                     ("bits", "bits_kernel", (n, B_GAMMA))):
+                                     ("bits", "bits_kernel", (n, B_GAMMA)),
+                                     ("uniform", "bits_kernel", (B_GAMMA, R100_PARTICLES))):
         shapes = {}
         for m in sizes:
             if name == "normal":
@@ -1425,12 +1455,18 @@ def phase_prng_kernels(device) -> dict:
                        "library": lambda m=m: torch.randn(m, device=device),
                        "plain": lambda m=m: philox.normal(key, 2, m, device)}
                 b_ms, b_by = bound(4 * m, *work((-(-m // 4), NORMAL_BLOCK)))
-            else:
+            elif name == "bits":
                 fns = {"kernel": lambda m=m: cuda_prng.hw_bits(key, 3, (m,), device),
                        "library": lambda m=m: torch.empty(
                            m, dtype=torch.int32, device=device).random_(),
                        "plain": lambda m=m: philox.bits(key, 3, m, device)}
                 b_ms, b_by = bound(4 * m, *work((-(-m // 4), (PHILOX_INT, 0))))
+            else:
+                fns = {"kernel": lambda m=m: cuda_prng.hw_uniform(key, 3, (m,), device),
+                       "library": lambda m=m: torch.rand(m, device=device),
+                       "plain": lambda m=m: philox.uniform(key, 3, m, device)}
+                b_ms, b_by = bound(4 * m, *work((-(-m // 4), (PHILOX_INT + 4 * UNIT[0],
+                                                              4 * UNIT[1]))))
             if m != n:
                 got = fns["kernel"]().reshape(-1)
                 want = fns["plain"]()
@@ -1451,11 +1487,20 @@ def phase_prng_kernels(device) -> dict:
                   f"({b_by})", flush=True)
         main = shapes[B_NORMALS if name == "normal" else B_GAMMA]  # the shape on B's path
         rows[name] = dict(max_abs_err=err_n if name == "normal" else (
-            0.0 if bits_equal else float("nan")), **{
+            0.0 if bits_equal and all(uniform_equal.values()) else float("nan")), **{
                 k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                      "device_ms", "library_device_ms")},
             shapes={str(k): v for k, v in shapes.items()})
-    rows["bits"]["hw_uniform_launches"] = uniform_launches["bits"]
+    # The bits row is the uniform mode's, the mode on the path (B,
+    # rosenbrock100), its library call torch.rand; the raw words' mode
+    # (hw_bits, library random_) beside it.
+    raw = rows.pop("bits")
+    rows["bits"] = dict(rows.pop("uniform"), mode="uniform (tempest_uniform, hw_uniform)",
+                        hw_uniform_launches=uniform_launches["bits"],
+                        uniform_equal={str(k): v for k, v in uniform_equal.items()},
+                        raw_words={k: raw[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                       "library_ms", "device_ms",
+                                                       "library_device_ms", "shapes")})
     rows["gamma"] = phase_gamma_kernel(device, key)
     return rows
 
@@ -1878,6 +1923,177 @@ def phase_cond_kernel(device) -> dict:
     return dict(max_abs_err=float(err), ms=untaken, plain_ms=plain, bound_ms=bound,
                 bound_by="bytes", library_ms=None, device_ms=dev, taken_ms=taken,
                 nodes=COND_NODES)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4f: what a conditional node costs the device
+# ---------------------------------------------------------------------------
+WHILE_ITERATIONS = 1000  # runs of the empty body timed in one replay
+
+
+def event_ms(fn, calls: int = 20) -> float:
+    """The median device time of `fn()` between two CUDA events on the
+    current stream (the host enqueues a replay in one launch)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def _captured(device, build) -> torch.cuda.CUDAGraph:
+    """A graph of what `build()` enqueues, captured on a side stream."""
+    side, current = torch.cuda.Stream(device), torch.cuda.current_stream(device)
+    graph = torch.cuda.CUDAGraph()
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        build()
+        graph.capture_end()
+    current.wait_stream(side)
+    return graph
+
+
+def while_cost_empty(device) -> dict:
+    """A WHILE node on i < n whose body adds one to i and sets its flag
+    (two kernels and the flag kernel): device ms a body run, from one
+    replay of WHILE_ITERATIONS runs against one of none, beside a straight
+    graph of the same two kernels WHILE_ITERATIONS times."""
+    i = torch.zeros((), dtype=torch.int32, device=device)
+    n = torch.zeros((), dtype=torch.int32, device=device)
+    flag = torch.zeros((), dtype=torch.bool, device=device)
+    body = torch.cuda.Stream(device)
+    pool = cuda_graphs.body_pool(body)
+    nodes = []
+
+    def build_while():
+        torch.lt(i, n, out=flag)
+        with cuda_graphs.while_body(flag, pool, body) as count:
+            i.add_(1)
+            torch.lt(i, n, out=flag)
+        nodes.extend(count)
+
+    def build_straight():
+        for _ in range(WHILE_ITERATIONS):
+            i.add_(1)
+            torch.lt(i, n, out=flag)
+
+    node, straight = _captured(device, build_while), _captured(device, build_straight)
+
+    def run(graph, runs):
+        i.zero_()
+        n.fill_(runs)
+        graph.replay()
+
+    for runs in (0, 1, 5, WHILE_ITERATIONS):
+        run(node, runs)
+        check(int(i.item()) == runs, f"WHILE node: {int(i.item())} body runs for {runs}")
+    none = event_ms(lambda: run(node, 0))
+    many = event_ms(lambda: run(node, WHILE_ITERATIONS))
+    flat = event_ms(lambda: run(straight, WHILE_ITERATIONS))
+    cuda_graphs.release_pool(device, pool)
+    return dict(body_nodes=nodes[0], empty_replay_ms=none,
+                while_us=1e3 * (many - none) / WHILE_ITERATIONS,
+                straight_us=1e3 * flat / WHILE_ITERATIONS)
+
+
+def while_cost_a_step(device) -> dict:
+    """A's step body (N = 1024, d = 10, R = 8, keyed draws, the MCMC
+    kernel's own body) run to its stop by a WHILE node (`Loops.repeat`)
+    against the same steps as a straight graph (`Loops.start`, one chunk of
+    that many steps): device ms a step of each, from CUDA events around
+    each call, whose carry copies in and out are the same."""
+    n, d = N_PARTICLES, N_DIM
+    g = torch.Generator(device=device)
+    g.manual_seed(7)
+    u = 0.5 + 0.02 * torch.randn(n, d, generator=g, device=device)
+    modes = modes_module.make_mode_statistics(torch.full((d,), 0.5, device=device),
+                                              1e-2 * torch.eye(d, device=device),
+                                              torch.tensor(6.0, device=device))
+    kernel = mcmc_module.MCMCKernel(lambda x: (rosenbrock(x), None), prior_transform, d)
+    x = prior_transform(u)
+    w = kernel.prepare(torch.zeros(n, dtype=torch.int32, device=device),
+                       torch.tensor(0.3, device=device), modes)
+    carry = mcmc_module._tensors(kernel.initial_state(u, x, rosenbrock(x), modes.k_max))
+    consts = mcmc_module._tensors(w)
+    draws = Draws(5, device)
+
+    def body(c, k):
+        st = mcmc_module.ChainState(**dict(c, blobs=None))
+        z, gm, ua = draws.mcmc_step(kernel.n_candidates, n, d, k["gamma_shape"],
+                                    active=kernel.going(st.done, st.iteration))
+        return mcmc_module._tensors(kernel.step(mcmc_module.Walkers(**k), st, z, gm, ua))
+
+    def pred(c):
+        return kernel.going(c["done"], c["iteration"])
+
+    loops = Loops(device, graphs=True, generators=[draws.generator], counters=[draws.calls])
+
+    def chain():  # each call from call index 0: the same draws, the same steps
+        draws.calls.seek(0)
+        return loops.repeat("probe", pred, body, carry, consts)
+
+    def straight():
+        draws.calls.seek(0)
+        run = loops.start("straight", body, carry, consts)
+        run.advance(steps)
+        return run.result()
+
+    steps = int(chain()["iteration"])
+    check(steps > kernel.n_steps_min, f"A step body: {steps} steps")
+    check(torch.equal(straight()["u"], chain()["u"]),
+          "A step body: the straight graph and the WHILE node part")
+    node, flat = event_ms(chain, calls=10), event_ms(straight, calls=10)
+    graph = loops.graphs_of("probe")[0]
+    settle()
+    return dict(steps=steps, while_ms_per_step=node / steps, straight_ms_per_step=flat / steps,
+                while_us=1e3 * (node - flat) / steps, body_nodes=graph.nodes)
+
+
+def if_cost_untaken(device) -> dict:
+    """A graph of A's COND_NODES IF nodes, every one untaken, against the
+    same graph without them (the one add each node's body would run
+    elsewhere): device us a node."""
+    go = torch.zeros((), dtype=torch.bool, device=device)
+    ran = torch.zeros((), dtype=torch.int64, device=device)
+    body = torch.cuda.Stream(device)
+    pool = cuda_graphs.body_pool(body)
+
+    def build_nodes():
+        ran.add_(1)
+        for _ in range(COND_NODES):
+            with cuda_graphs.if_body(go, pool, body):
+                ran.add_(1)
+
+    nodes, bare = _captured(device, build_nodes), _captured(device, lambda: ran.add_(1))
+    with_nodes, without = event_ms(nodes.replay), event_ms(bare.replay)
+    cuda_graphs.release_pool(device, pool)
+    return dict(if_untaken_us=1e3 * (with_nodes - without) / COND_NODES,
+                replay_ms=with_nodes, bare_ms=without)
+
+
+def phase_node_costs(device) -> dict:
+    """4f: the device time of a WHILE iteration, with an empty body and
+    with A's step body, and of an untaken IF node (CUDA events)."""
+    empty, step, untaken = (while_cost_empty(device), while_cost_a_step(device),
+                            if_cost_untaken(device))
+    print(f"conditional nodes: a WHILE iteration of an empty body ({empty['body_nodes']} nodes: "
+          f"an add, a compare, the flag kernel) {empty['while_us']:.3f} us on the device "
+          f"(the same two kernels in a straight graph {empty['straight_us']:.3f} us; a replay "
+          f"of no iteration {empty['empty_replay_ms']:.4f} ms); A's step body (N = "
+          f"{N_PARTICLES}, d = {N_DIM}, {step['steps']} steps, graph nodes "
+          f"{step['body_nodes']}) {step['while_ms_per_step']:.4f} ms a step as a WHILE node, "
+          f"{step['straight_ms_per_step']:.4f} ms in a straight graph: "
+          f"{step['while_us']:.3f} us a step more; an untaken IF node "
+          f"{untaken['if_untaken_us']:.3f} us ({COND_NODES} in a replay "
+          f"{untaken['replay_ms']:.4f} ms, none {untaken['bare_ms']:.4f} ms)", flush=True)
+    return dict(while_empty=empty, while_a_step=step, if_untaken=untaken)
 
 
 # ---------------------------------------------------------------------------
@@ -2938,23 +3154,62 @@ def mcmc_steps(s) -> int:
 
 
 def mcmc_bodies(s) -> int:
-    """MCMC step bodies run in the sampler's life: its steps, and on the
-    fused route the steps a chunk ran past the stop (whose draws are put
-    back); a draws kernel launches once a body."""
-    return int(s.state._iteration.loops.stats["mcmc"]["bodies"])
+    """MCMC step bodies run in the sampler's life: eagerly the chunks' (the
+    steps, and the steps a chunk ran past the stop, which change nothing
+    and on keyed draws draw nothing), graphed on keyed draws the runs of
+    the WHILE node's body, counted on the device (settled first); a draws
+    kernel launches once a body."""
+    settle()
+    stats = s.state._iteration.loops.stats["mcmc"]
+    return int(stats["bodies"] + stats["node_bodies"])
+
+
+def keyed_route(s) -> bool:
+    """Whether sampler `s` runs its MCMC chain on keyed draws (float32 on
+    the card): graphed one WHILE node, eagerly in chunks."""
+    return bool(getattr(s.state.draws, "keyed", False))
+
+
+# The PRNG kernels a keyed MCMC step launches.
+STEP_KERNELS = ("mutation_draws", "normal", "gamma", "bits")
+
+
+def without_past_stop(launched: dict, past: int, bodies: int, name: str) -> dict:
+    """An eager run's launches less those of the `past` MCMC steps its
+    chunks ran past the stop (of its `bodies` step bodies), which a WHILE
+    node does not run: each step kernel launches as often in every body."""
+    out = dict(launched)
+    for k in STEP_KERNELS:
+        if launched.get(k):
+            per = launched[k] // max(bodies, 1)
+            check(per * bodies == launched[k],
+                  f"{name}: {launched[k]} {k} launches for {bodies} MCMC bodies")
+            out[k] -= past * per
+    return out
+
+
+def less_past_stop(s, launched: dict, name: str) -> dict:
+    """`without_past_stop` of fresh sampler `s`'s one run (its loops'
+    counts are the run's)."""
+    stats = s.state._iteration.loops.stats["mcmc"]
+    return without_past_stop(launched, stats["past_stop"], stats["bodies"], name)
 
 
 def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
                   dtype=torch.float32, on_device=False, runs=None) -> dict:
     """Seeds of A (or the unclustered problem) after a warm-up: each in the
     band, one launch of the ESS kernel of its dtype per reweight, and the
-    mutation-draws kernel once per MCMC step where it applies
-    (hardware_prng with float32); no other kernel. `runs`, if given,
-    receives each seed's results, wall and launches."""
+    mutation-draws kernel once per MCMC step body where it applies (float32,
+    with either hardware_prng: the keyed steps; eagerly in chunks, whose
+    steps past the stop are counted apart, graphed one WHILE node that
+    runs the steps alone); no other PRNG kernel. `runs`, if given,
+    receives each seed's results, wall, launches, and launches less those
+    of the steps past the stop (`real_launches`)."""
     s = canonical_sampler(device, 7, clustering, hardware_prng, dtype)
     ess_key, other = ("ess_bisect_f64", "ess_bisect") if dtype == torch.float64 else (
         "ess_bisect", "ess_bisect_f64")
-    draws_kernel = hardware_prng and dtype == torch.float32
+    # float32 steps draw from the mutation-draws kernel whatever the flag
+    draws_kernel = keyed_route(s)
     for _ in range(8):  # warm-up: allocator, libraries, kernels, a clustered fit
         s.sample()
     reset_counts()
@@ -2973,10 +3228,13 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
         loops_run = {k: {c: v.get(c, 0) - loops_before.get(k, {}).get(c, 0) for c in v}
                      for k, v in loop_stats(s).items()}
         bodies = mcmc_bodies(s) - bodies
+        past = loops_run.get("mcmc", {}).get("past_stop", 0)
+        real = without_past_stop(launched, past, bodies, f"{name} seed {seed}")
         if runs is not None:
             runs[seed] = dict(results=s.results(), logz=s.evidence()[0], wall=wall,
-                              launches=launched, iters=s.state.hist.t, bodies=bodies,
-                              draws=s.state.draws.get_state(), loops=loops_run)
+                              launches=launched, real_launches=real, iters=s.state.hist.t,
+                              bodies=bodies, past_stop=past, draws=s.state.draws.get_state(),
+                              loops=loops_run)
         ess = s.state.posterior_ess()
         logz, _ = s.evidence()
         iters = s.state.hist.t
@@ -2986,8 +3244,9 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
         effs.append(ess / wall)
         print(f"{name} seed {seed}: wall={wall:.3f} s ess={ess:.1f} eff/s={ess / wall:.1f} "
               f"iters={iters} clusters={k} logz={logz:.4f} beta={s.beta:.6f} calls={s.calls} "
-              f"mcmc_steps={steps} mcmc_bodies={bodies} mode_fits={fits} gmm_em_loops={gmm_fits} "
-              f"launches={launched}", flush=True)
+              f"mcmc_steps={steps} mcmc_bodies={bodies} (past the stop {past}) "
+              f"mcmc_reads={loops_run.get('mcmc', {}).get('reads', 0)} mode_fits={fits} "
+              f"gmm_em_loops={gmm_fits} launches={launched}", flush=True)
         # graphed, the GMM EM loops run inside the fit's replays, uncounted
         check_em_launches(f"{name} seed {seed}", launched, fits,
                           None if on_device else gmm_fits, loops_run)
@@ -3001,10 +3260,14 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
         check(launched[ess_key] == iters - 1 and launched[other] == 0,
               f"{name} seed {seed}: {launched[ess_key]} {ess_key} launches for {iters - 1} "
               f"reweights at t >= 1, {launched[other]} {other}")
-        if draws_kernel:  # a launch a step run (a chunk runs past the stop)
-            check(launched["mutation_draws"] == bodies >= steps,
+        if draws_kernel:  # a launch a step body; graphed the WHILE node runs the steps alone
+            check(launched["mutation_draws"] == bodies == steps + past
+                  and (past == 0 or not on_device),
                   f"{name} seed {seed}: {launched['mutation_draws']} mutation-draws launches "
-                  f"for {bodies} MCMC bodies ({steps} steps)")
+                  f"for {bodies} MCMC bodies ({steps} steps, {past} past the stop)")
+            check((loops_run.get("mcmc", {}).get("chunks", 0) == 0) == on_device,
+                  f"{name} seed {seed}: the MCMC chain {'ran' if on_device else 'did not run'} "
+                  f"in chunks {loops_run.get('mcmc')}")
         check(launched["normal"] == 0 and launched["bits"] == 0 and launched["gamma"] == 0
               and (draws_kernel or launched["mutation_draws"] == 0),
               f"{name} seed {seed}: unexpected PRNG launches {launched}")
@@ -3033,7 +3296,9 @@ EIGH_OPS = ("aten::linalg_eigh", "aten::_linalg_eigh", "aten::linalg_eigvalsh")
 
 
 def loop_stats(s) -> dict:
-    """The fused loops' counters of sampler `s`, by loop."""
+    """The fused loops' counters of sampler `s`, by loop (the conditional
+    bodies' runs settled first)."""
+    settle()
     return {k: dict(v) for k, v in sorted(s.state._iteration.loops.stats.items())}
 
 
@@ -3069,6 +3334,7 @@ def steady_window(s, graphs: bool, first: int = 21, n: int = 5,
         for _ in range(first - 1):
             core._step(None, 0)
         torch.cuda.synchronize()
+        settle()
         before = {k: dict(v) for k, v in loops.stats.items()}
         if cuda_em is not None:  # each mode EM launch's EM iterations, read after the window
             def counted(carry, consts, loops_):
@@ -3086,8 +3352,10 @@ def steady_window(s, graphs: bool, first: int = 21, n: int = 5,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         student_module._mode_em = mode_em
-        reads, replays = ({k: v.get(c, 0) - before.get(k, {}).get(c, 0)
-                           for k, v in loops.stats.items()} for c in ("reads", "replays"))
+        settle()  # the conditional bodies' runs in the window
+        reads, replays, node_bodies = ({k: v.get(c, 0) - before.get(k, {}).get(c, 0)
+                                        for k, v in loops.stats.items()}
+                                       for c in ("reads", "replays", "node_bodies"))
         if device_only:
             with profile(activities=[ProfilerActivity.CUDA]) as prof_device:
                 profile_warmup()
@@ -3119,6 +3387,9 @@ def steady_window(s, graphs: bool, first: int = 21, n: int = 5,
                device_ms_per_iter=device_ms / n, idle=1.0 - device_ms / (1e3 * wall),
                blocking_per_iter=sum(blocking.values()) / n, blocking=blocking,
                chunk_reads_per_iter=chunk_reads / n, reads=reads, replays=replays,
+               mcmc_route="while" if keyed_route(s) else "chunks",
+               mcmc_reads_per_iter=reads.get("mcmc", 0) / n,
+               while_iterations_per_iter=node_bodies.get("mcmc", 0) / n,
                clustered=core.config.clustering, eigh_ops=eigh, stages_ms=stages, kernels={
                    k: v for i, (k, v) in enumerate(sorted(kernels.items(), key=lambda kv: -kv[1][0]))
                    if i < TOP_KERNELS or any(p in k for p in ("sym_eigvals", "ess_bisect",
@@ -3172,20 +3443,48 @@ def phase_fused(device, ref: dict) -> dict:
     check(logz == eager["logz"], f"A fused: logZ {logz!r} against {eager['logz']!r}")
     check(abs(logz - CLUSTERED_LOGZ[0]) <= CLUSTERED_LOGZ[1],
           f"A fused: logZ {logz} outside {CLUSTERED_LOGZ[0]} +/- {CLUSTERED_LOGZ[1]}")
-    check(launched == eager["launches"],
-          f"A fused: launches {launched} against on_device=False {eager['launches']}")
+    check(launched == eager["real_launches"],
+          f"A fused: launches {launched} against on_device=False {eager['real_launches']} "
+          f"(less its {eager['past_stop']} steps past the stop)")
     check(all(v.get("captures", 0) == 0 for v in timed.values()),
           f"A fused: the timed run recaptured: {timed}")
     check(timed["mcmc"]["replays"] > 0 and timed["mode_em"]["replays"] > 0,
           f"A fused: no replays {timed}")
     check_fit_replays("A fused", timed)
-    check(set_conditional == COND_NODES * timed["hgm_fit"]["replays"],
+    # 15 IF nodes a fit replay, and the WHILE node of the MCMC chain one
+    # flag launch before it and one a run of its body
+    while_runs = timed["mcmc"].get("node_bodies", 0)
+    check(set_conditional == COND_NODES * timed["hgm_fit"]["replays"]
+          + timed["mcmc"]["replays"] + while_runs,
           f"A fused: {set_conditional} set_conditional launches for "
-          f"{timed['hgm_fit']['replays']} fit replays of {COND_NODES} nodes")
+          f"{timed['hgm_fit']['replays']} fit replays of {COND_NODES} nodes and "
+          f"{timed['mcmc']['replays']} chains of {while_runs} WHILE iterations")
+    check(while_runs == int(res["steps"][res["beta"] > 0].sum()) and not timed["mcmc"].get(
+        "reads", 0), f"A fused: {while_runs} WHILE iterations, MCMC loop {timed['mcmc']}")
+    seeds = {SEEDS[0]: wall}
+    for seed in SEEDS[1:]:  # the other seeds on the same graphs, each against its eager run
+        s.reset(random_state=seed)
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run(n_total=N_TOTAL, progress=False, on_device=True)
+        torch.cuda.synchronize()
+        seeds[seed] = time.perf_counter() - t0
+        got, want = s.results(), ref[seed]
+        for name in ("beta", "logz", "steps", "calls"):
+            check(got[name].tobytes() == want["results"][name].tobytes(),
+                  f"A fused seed {seed}: {name} differs from on_device=False")
+        logz_s = s.evidence()[0]
+        check(logz_s == want["logz"] and diff(counts(), before) == want["real_launches"],
+              f"A fused seed {seed}: logZ {logz_s!r} against {want['logz']!r}, launches "
+              f"{diff(counts(), before)} against {want['real_launches']}")
+        print(f"A fused seed {seed}: wall={seeds[seed]:.3f} s logz={logz_s!r}, bit for bit "
+              f"on_device=False's (logZ, steps, calls, launches)", flush=True)
+    print(f"A fused seeds {list(SEEDS)}: walls {json.dumps(seeds)}", flush=True)
 
     return dict(launches=launched, wall=wall, iters=iters, loops=timed, fit_graphs=fit_graphs,
-                set_conditional=set_conditional,
-                windows=steady_windows(s, "A"))
+                set_conditional=set_conditional, seed_walls=seeds,
+                windows=steady_windows(s, "A", graphed_max_blocking=1.0))
 
 
 def check_fit_replays(name: str, loops: dict) -> None:
@@ -3201,12 +3500,14 @@ def check_fit_replays(name: str, loops: dict) -> None:
 
 def check_graphed_pair(name: str, eager, graphed, eager_launches: dict,
                        graphed_launches: dict) -> None:
-    """Sampler `graphed` (run(on_device=True)) against `eager` (False): the
-    ladder, logZ, steps, calls and kernel launches bit for bit, and its
-    cluster fits replayed as one stretch each."""
+    """Sampler `graphed` (run(on_device=True)) against `eager` (False), each
+    fresh and run once: the ladder, logZ, steps, calls and kernel launches
+    (the eager ones less its chunks' steps past the stop) bit for bit, and
+    its cluster fits replayed as one stretch each."""
     for key in ("beta", "logz", "steps", "calls"):
         check(graphed.results()[key].tobytes() == eager.results()[key].tobytes(),
               f"{name}: {key} with on_device=True differs from on_device=False")
+    eager_launches = less_past_stop(eager, eager_launches, name)
     check(graphed_launches == eager_launches,
           f"{name}: launches {graphed_launches} with on_device=True, {eager_launches} False")
     check_fit_replays(f"{name} on_device=True", loop_stats(graphed))
@@ -3215,10 +3516,23 @@ def check_graphed_pair(name: str, eager, graphed, eager_launches: dict,
           f"{json.dumps(loop_stats(graphed))}", flush=True)
 
 
-def steady_windows(s, name: str, n: int = 3, device_only: bool = True) -> dict:
+def window_reads(w: dict) -> str:
+    """A window's MCMC reads, blocking reads and WHILE iterations, each an
+    iteration, and the MCMC route by name."""
+    route = ("one WHILE node" if w["graphs"] else "keyed draws in chunks") if (
+        w["mcmc_route"] == "while") else "the chunked route"
+    return (f"MCMC reads {w['mcmc_reads_per_iter']:.1f}, blocking reads "
+            f"{w['blocking_per_iter']:.1f}, WHILE iterations {w['while_iterations_per_iter']:.1f} "
+            f"an iteration (MCMC on {route})")
+
+
+def steady_windows(s, name: str, n: int = 3, device_only: bool = True,
+                   graphed_max_blocking=None) -> dict:
     """Iterations 21 to 20 + n of A's seed 42 on sampler `s` in each mode
     under the profiler; at most one blocking host read a loop chunk plus
-    READS_BESIDE_CHUNKS an iteration, and fewer than MAX_READS."""
+    READS_BESIDE_CHUNKS an iteration, and fewer than MAX_READS; graphed, no
+    MCMC read on the WHILE route, and at most `graphed_max_blocking`
+    blocking reads an iteration where given."""
     windows = {}
     for graphs in (False, True):
         w = windows["on_device=True" if graphs else "on_device=False"] = steady_window(
@@ -3239,20 +3553,30 @@ def steady_windows(s, name: str, n: int = 3, device_only: bool = True) -> dict:
               f"{w['replays'].get('hgm_fit', 0) / w['n']:.1f} hgm_fit replays an iteration; "
               f"stage ms an iteration "
               f"{json.dumps({k: round(v, 3) for k, v in w['stages_ms'].items()})}"
-              f"{trace}", flush=True)
+              f"{trace}; {window_reads(w)}", flush=True)
         if cuda_em is not None:
             em_ms, em_n = _kernel_ms(w, "mvstud_em_kernel")
             print(f"{name} {'graphs' if graphs else 'no graphs'}: mode EM kernel {em_ms:.4f} ms "
                   f"and {em_n:.2f} launches an iteration in the window, EM iterations a launch "
                   f"{w['mode_em_iterations']}", flush=True)
-        check_window(f"{name} {'graphs' if graphs else 'no graphs'}", w)
+        check_window(f"{name} {'graphs' if graphs else 'no graphs'}", w,
+                     graphed_max_blocking if graphs else None)
     return windows
 
 
-def check_window(name: str, w: dict) -> None:
+def check_window(name: str, w: dict, max_blocking=None) -> None:
     """6b's rule: at most one blocking host read a loop chunk plus
     READS_BESIDE_CHUNKS an iteration, fewer than MAX_READS, and no
-    torch.linalg.eigvalsh operator."""
+    torch.linalg.eigvalsh operator; graphed on the WHILE route, no MCMC
+    read and as many WHILE iterations as steps; at most `max_blocking`
+    blocking reads an iteration where given."""
+    if w["graphs"] and w["mcmc_route"] == "while":
+        check(w["mcmc_reads_per_iter"] == 0 and w["while_iterations_per_iter"] > 0,
+              f"{name}: {window_reads(w)}: a graphed chain reads nothing")
+    if max_blocking is not None:
+        check(w["blocking_per_iter"] <= max_blocking,
+              f"{name}: {w['blocking_per_iter']} blocking reads an iteration, at most "
+              f"{max_blocking} allowed ({w['blocking']})")
     check(w["blocking_per_iter"] <= w["chunk_reads_per_iter"] + READS_BESIDE_CHUNKS
           and w["blocking_per_iter"] < MAX_READS,
           f"{name}: {w['blocking_per_iter']} blocking reads an iteration for "
@@ -3278,7 +3602,8 @@ def phase_hardware_prng(device) -> dict:
     with run(on_device=True) on a sampler whose seed-43 run captured the
     graphs: the ladder, logZ, steps, calls, launches and the draws' final
     state (generator, Philox key and call counter, host mirror and device
-    words) equal bit for bit; one mutation-draws launch a step body in
+    words) equal bit for bit, and the launches, the eager run's less its
+    chunks' steps past the stop; one mutation-draws launch a step body in
     both; then the steady windows of both modes."""
     eager = {}
     launches, walls = run_canonical(device, "A clustered hardware_prng", SEEDS[:1], True, True,
@@ -3312,10 +3637,11 @@ def phase_hardware_prng(device) -> dict:
               f"A hardware_prng fused: {name} differs from on_device=False")
     check(logz == eager["logz"] and abs(logz - CLUSTERED_LOGZ[0]) <= CLUSTERED_LOGZ[1],
           f"A hardware_prng fused: logZ {logz!r} against {eager['logz']!r}")
-    check(launched == eager["launches"] and bodies == eager["bodies"]
+    check(launched == eager["real_launches"] and bodies == eager["bodies"] - eager["past_stop"]
           and launched["mutation_draws"] == bodies,
           f"A hardware_prng fused: launches {launched} ({bodies} bodies) against "
-          f"on_device=False {eager['launches']} ({eager['bodies']} bodies)")
+          f"on_device=False {eager['real_launches']} ({eager['bodies']} bodies, "
+          f"{eager['past_stop']} past the stop)")
     state = draws.get_state()
     check(all(state[k].tobytes() == eager["draws"][k].tobytes() for k in eager["draws"])
           and words == (draws.counter, draws.key),
@@ -3335,8 +3661,10 @@ def run_b(device, dtype, name: str, graphs: bool = False, s=None):
     """B's iterations up to its B_MUTATIONS-th mutation, from a fresh sampler
     (or `s`, reset to seed 42), with the loops' CUDA graphs on if `graphs`
     (what run(on_device=True) turns on, core.py:225): per iteration its
-    number, wall, beta, logZ, MCMC steps and step bodies, acceptance, kernel
-    launches and the call counter after it; the counts are set to 0 first.
+    number, wall, beta, logZ, MCMC steps and step bodies (those past the
+    stop, and the rest: `real_bodies`), acceptance, kernel launches (and
+    those of the real steps) and the call counter after it; the counts are
+    set to 0 first.
     Returns (sampler, rows)."""
     if s is None:
         s = Sampler(prior_transform, half_square, n_dim=N_DIM, n_particles=B_PARTICLES,
@@ -3353,18 +3681,23 @@ def run_b(device, dtype, name: str, graphs: bool = False, s=None):
             check(len(rows) < B_CAPACITY, f"{name}: {len(rows)} iterations and only {mutations} "
                   "mutations")
             before, bodies, fits = counts(), mcmc_bodies(s), MODE_FITS
+            past = loops.stats["mcmc"]["past_stop"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = s.sample()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launched, bodies = diff(counts(), before), mcmc_bodies(s) - bodies
+            past = loops.stats["mcmc"]["past_stop"] - past
             fits = MODE_FITS - fits
             print(f"{name} iteration {out['iter']}: {wall:.3f} s beta={out['beta']:.6g} "
-                  f"steps={out['steps']} bodies={bodies} acceptance={out['acceptance']:.4f} "
-                  f"mode_fits={fits} launches={launched}", flush=True)
+                  f"steps={out['steps']} bodies={bodies} (past the stop {past}) "
+                  f"acceptance={out['acceptance']:.4f} mode_fits={fits} launches={launched}",
+                  flush=True)
             rows.append(dict(iter=int(out["iter"]), wall=wall, beta=out["beta"], logz=out["logz"],
-                             steps=int(out["steps"]), bodies=bodies,
+                             steps=int(out["steps"]), bodies=bodies, past=past,
+                             real_bodies=bodies - past,
+                             real_launches=without_past_stop(launched, past, bodies, name),
                              acceptance=out["acceptance"], launches=launched, fits=fits,
                              counter=getattr(s.state.draws, "counter", None)))
             mutations += out["beta"] > 0.0
@@ -3403,6 +3736,8 @@ def profile_b(s, n_before: int) -> None:
         for _ in range(n_before):
             s.sample()
         torch.cuda.synchronize()
+        settle()
+        before = {k: dict(v) for k, v in loops.stats.items()}
         loops.once = timed_once
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             profile_warmup()
@@ -3413,6 +3748,10 @@ def profile_b(s, n_before: int) -> None:
     finally:
         loops.graphs = False
         del loops.once  # the class's method again
+    settle()
+    mcmc = {c: loops.stats["mcmc"].get(c, 0) - before.get("mcmc", {}).get(c, 0)
+            for c in ("reads", "node_bodies", "chunks")}
+    blocking = sum(1 for e in prof.events() if e.name in BLOCKING_CALLS)
     events = prof.key_averages()
     dev = [(k, ms) for k, (ms, _) in device_rows(prof).items()]
     device_ms = sum(ms for _, ms in dev)
@@ -3432,12 +3771,22 @@ def profile_b(s, n_before: int) -> None:
           f"{', '.join(f'{k} {v:.1f} ms' for k, v in stages)}; host self time "
           f"{', '.join(f'{k} {v:.1f} ms' for k, v in host)}; device "
           f"{', '.join(f'{k[:60]} {v:.2f} ms' for k, v in top)}; weighted_median kernel "
-          f"{median_ms:.4f} ms, torch.cumsum's outer-dimension scan {scan_ms:.4f} ms", flush=True)
+          f"{median_ms:.4f} ms, torch.cumsum's outer-dimension scan {scan_ms:.4f} ms; MCMC "
+          f"reads {mcmc['reads']}, blocking calls {blocking} (the profile's closing "
+          f"synchronize included), WHILE iterations {mcmc['node_bodies']} for "
+          f"{out['steps']} steps, MCMC chunks {mcmc['chunks']} (MCMC on "
+          f"{'one WHILE node' if keyed_route(s) else 'the chunked route'})",
+          flush=True)
+    check(not keyed_route(s) or (mcmc["reads"] == 0 and mcmc["chunks"] == 0
+                                 and mcmc["node_bodies"] == out["steps"]),
+          f"B graphed iteration {out['iter']}: MCMC {mcmc} for {out['steps']} steps")
     print(f"B graphed iteration {out['iter']}: the mode EM's {len(replays)} graph replays "
           f"{mode_em_ms:.4f} ms by CUDA events (the profile recorded {profiled_mode_em_ms:.4f} ms "
           f"of mvstud_em); device time with the events' {restated_ms:.1f} ms (idle "
           f"{100 * (1 - restated_ms / (1e3 * wall)):.1f} %)", flush=True)
     return {"wall_ms": 1e3 * wall, "device_ms": device_ms, "weighted_median_ms": median_ms,
+            "mcmc_reads": mcmc["reads"], "while_iterations": mcmc["node_bodies"],
+            "blocking_calls": blocking, "steps": out["steps"],
             "scan_outer_dim_ms": scan_ms, "mode_em_replays": len(replays),
             "mode_em_ms": mode_em_ms, "profiled_mode_em_ms": profiled_mode_em_ms,
             "device_ms_with_mode_em_events": restated_ms}
@@ -3446,8 +3795,10 @@ def profile_b(s, n_before: int) -> None:
 def phase_large_ensemble(device, dtype=torch.float32) -> dict:
     """B: the first four mutation iterations at N = 131,072; in float32
     eagerly and with the loops' CUDA graphs (a first pass captures them, a
-    second is timed), the same values and launches bit for bit, one normal
-    and one gamma launch a step body; in float64 no PRNG kernel runs
+    second is timed), the same values and launches (the eager chunks' less
+    their steps past the stop) bit for bit, one normal, one gamma and one
+    uniform (the bits kernel's uniform mode) launch a step body, the chain
+    one WHILE node graphed; in float64 no PRNG kernel runs
     (hardware_prng does not apply) and the ESS kernel is the float64 one."""
     f64 = dtype == torch.float64
     name = "B float64" if f64 else "B"
@@ -3458,8 +3809,8 @@ def phase_large_ensemble(device, dtype=torch.float32) -> dict:
         g, _ = run_b(device, dtype, "B graphed (capturing)", graphs=True)
         g, graphed = run_b(device, dtype, "B graphed", graphs=True, s=g)
         for a, b in zip(rows, graphed):
-            for k in ("iter", "beta", "logz", "steps", "bodies", "acceptance", "launches",
-                      "fits", "counter"):
+            for k in ("iter", "beta", "logz", "steps", "real_bodies", "acceptance",
+                      "real_launches", "fits", "counter"):
                 check(a[k] == b[k], f"B graphed iteration {a['iter']}: {k} {b[k]!r} against "
                       f"eager {a[k]!r}")
         check(len(rows) == len(graphed), f"B graphed: {len(graphed)} iterations, {len(rows)} eager")
@@ -3481,10 +3832,10 @@ def phase_large_ensemble(device, dtype=torch.float32) -> dict:
                   f"{name}: PRNG launches {launched} (hardware_prng does not apply)")
         else:
             check(launched["normal"] == bodies and launched["gamma"] == bodies
-                  and bodies >= row["steps"] and launched["bits"] == 0
+                  and launched["bits"] == bodies and bodies == row["steps"] + row["past"]
                   and launched["mutation_draws"] == 0,
-                  f"B: launches {launched} for {bodies} MCMC step bodies (want 1 normal + 1 "
-                  "gamma a body)")
+                  f"B: launches {launched} for {bodies} MCMC step bodies, {row['steps']} steps "
+                  "(want 1 normal + 1 gamma + 1 uniform a step body)")
         check(cuda_median is None or row["launches"]["weighted_median"] == row["fits"],
               f"{name} iteration {row['iter']}: {row['launches'].get('weighted_median')} "
               f"weighted-median launches for {row['fits']} mode fits")
@@ -3791,11 +4142,12 @@ def phase_dynamic(device) -> dict:
     for name in ("beta", "logz", "ess", "cv", "steps", "calls"):
         check(fused["results"][name].tobytes() == eager["results"][name].tobytes(),
               f"dynamic: {name} with on_device=True differs from on_device=False")
-    check(fused["logz"] == eager["logz"] and fused["launches"] == eager["launches"]
+    real = less_past_stop(eager["sampler"], eager["launches"], "dynamic")
+    check(fused["logz"] == eager["logz"] and fused["launches"] == real
           and fused["probes"] == eager["probes"],
           f"dynamic: logZ {fused['logz']!r} / {eager['logz']!r}, launches "
-          f"{fused['launches']} / {eager['launches']}, probes {fused['probes']} / "
-          f"{eager['probes']}")
+          f"{fused['launches']} / {real} (less the eager chunks' steps past the stop), probes "
+          f"{fused['probes']} / {eager['probes']}")
     check(fused["loops"]["mcmc"].get("replays", 0) > 0
           and all(v.get("captures", 0) == 0 for v in fused["loops"].values()),
           f"dynamic on_device=True: replays and captures {fused['loops']}")
@@ -4001,10 +4353,11 @@ def mesh_sampler(device, mesh, seed, hardware_prng=False, **kw):
 
 
 def mesh_run(s, name: str, **run_kw) -> dict:
-    """One timed run of mesh sampler `s`: its results, wall, launches, MCMC
-    bodies and draw state; logZ in the clustered band, no ESS-kernel
-    launch (a mesh bisects by reductions, as JAX bypasses its kernel under
-    one) and one eigenvalue launch a reweight."""
+    """One timed run of mesh sampler `s`: its results, wall, launches (and
+    those less the chunks' steps past the stop), MCMC bodies (and those
+    past the stop) and draw state; logZ in the clustered band, no
+    ESS-kernel launch (a mesh bisects by reductions, as JAX bypasses its
+    kernel under one) and one eigenvalue launch a reweight."""
     warm, bodies = loop_stats(s), mcmc_bodies(s)
     reset_counts()
     torch.cuda.synchronize()
@@ -4020,29 +4373,34 @@ def mesh_run(s, name: str, **run_kw) -> dict:
           f"{name}: launches {launched}; a mesh runs no ESS kernel, and one CV a reweight")
     timed = {k: {c: v.get(c, 0) - warm.get(k, {}).get(c, 0) for c in v}
              for k, v in loop_stats(s).items()}
+    bodies = mcmc_bodies(s) - bodies
+    past = timed.get("mcmc", {}).get("past_stop", 0)
     return dict(results=s.results(), logz=s.evidence()[0], wall=wall, launches=launched,
-                bodies=mcmc_bodies(s) - bodies, iters=iters, loops=timed,
+                real_launches=without_past_stop(launched, past, bodies, name),
+                bodies=bodies, past_stop=past, iters=iters, loops=timed,
                 draws=s.state.draws.get_state())
 
 
-def check_mesh_pair(name: str, eager: dict, fused: dict, hardware_prng: bool) -> None:
-    """on_device=True against on_device=False, bit for bit."""
+def check_mesh_pair(name: str, eager: dict, fused: dict) -> None:
+    """on_device=True against on_device=False, bit for bit (the eager run's
+    launches and bodies less its chunks' steps past the stop)."""
     for key in ("beta", "logz", "steps", "calls"):
         check(fused["results"][key].tobytes() == eager["results"][key].tobytes(),
               f"{name}: {key} with on_device=True differs from on_device=False")
-    check(fused["logz"] == eager["logz"] and fused["launches"] == eager["launches"]
-          and fused["bodies"] == eager["bodies"],
+    check(fused["logz"] == eager["logz"] and fused["launches"] == eager["real_launches"]
+          and fused["bodies"] == eager["bodies"] - eager["past_stop"],
           f"{name}: logZ {fused['logz']!r} / {eager['logz']!r}, launches {fused['launches']} / "
-          f"{eager['launches']}, bodies {fused['bodies']} / {eager['bodies']}")
+          f"{eager['real_launches']}, bodies {fused['bodies']} / {eager['bodies']} "
+          f"({eager['past_stop']} past the stop)")
     check(all(fused["draws"][k].tobytes() == eager["draws"][k].tobytes() for k in eager["draws"]),
           f"{name}: the final draw state differs")
     check(fused["loops"]["ess_sharded"].get("replays", 0) > 0
           and fused["loops"]["mcmc"].get("replays", 0) > 0,
           f"{name}: no replays {fused['loops']}")
-    if hardware_prng:
-        check(eager["launches"]["mutation_draws"] == eager["bodies"] > 0,
-              f"{name}: {eager['launches']['mutation_draws']} mutation-draws launches for "
-              f"{eager['bodies']} MCMC bodies")
+    # float32, either flag: the keyed steps, one mutation-draws launch a step
+    check(eager["launches"]["mutation_draws"] == eager["bodies"] > 0,
+          f"{name}: {eager['launches']['mutation_draws']} mutation-draws launches for "
+          f"{eager['bodies']} MCMC bodies")
     print(f"{name} seed {SEEDS[0]}: on_device=False {eager['wall']:.3f} s "
           f"({1e3 * eager['wall'] / eager['iters']:.1f} ms an iteration), on_device=True "
           f"{fused['wall']:.3f} s ({1e3 * fused['wall'] / fused['iters']:.1f} ms), bit for bit; "
@@ -4105,7 +4463,7 @@ def _mesh_runs(device, walls32: dict) -> dict:
                      on_device=True)
     check(all(v.get("captures", 0) == 0 for v in fused["loops"].values()),
           f"A mesh on_device=True recaptured: {fused['loops']}")
-    check_mesh_pair("A mesh", eager, fused, False)
+    check_mesh_pair("A mesh", eager, fused)
     windows = steady_windows(g, "A mesh", n=3, device_only=False)
 
     hw = {}
@@ -4119,7 +4477,7 @@ def _mesh_runs(device, walls32: dict) -> dict:
             check(calls.read() == (calls.counter, calls.key),
                   f"A mesh hardware_prng: device words {calls.read()} against the host "
                   f"mirror {(calls.counter, calls.key)}")
-    check_mesh_pair("A mesh hardware_prng", hw[False], hw[True], True)
+    check_mesh_pair("A mesh hardware_prng", hw[False], hw[True])
     print(f"A mesh hardware_prng: call counter {int(hw[True]['draws']['philox_counter'])} "
           f"after {hw[True]['bodies']} MCMC bodies", flush=True)
     return {"launches": eager["launches"], "launches_hardware_prng": hw[False]["launches"],
@@ -4203,8 +4561,11 @@ def phase_rosenbrock100(device) -> dict:
           and not plan(streamed).resident,
           f"{name}: {launched['ess_bisect']} ESS launches for {iters - 1} reweights, sizes "
           f"{sorted(set(sizes))}: each must take the streamed route at S = {streamed}")
-    check(all(launched[k] == 0 for k in ("ess_bisect_f64", "mutation_draws", "normal", "bits",
-                                         "gamma")), f"{name}: unexpected launches {launched}")
+    # R N d = 1,638,400 > 2^19: each step draws by the gamma, normal and
+    # uniform kernels (the keyed route), a launch each, no step past the stop
+    check(all(launched[k] == 0 for k in ("ess_bisect_f64", "mutation_draws"))
+          and launched["gamma"] == launched["normal"] == launched["bits"] == steps,
+          f"{name}: launches {launched} for {steps} MCMC steps")
     check(all(v.get("captures", 0) == 0 for v in timed.values())
           and timed["mcmc"].get("replays", 0) > 0, f"{name}: captures and replays {timed}")
 
@@ -4241,12 +4602,14 @@ def phase_rosenbrock100(device) -> dict:
           f"device ms an iteration: sym_eigvals {eig_ms:.4f} ({eig_n:.2f} launches), ess_bisect "
           f"{ess_ms:.4f} ({ess_n:.2f} launches), top five others "
           f"{json.dumps({k[:90]: [round(v[0], 4), v[1]] for k, v in top.items()})}; stage ms an "
-          f"iteration {json.dumps({k: round(v, 3) for k, v in w['stages_ms'].items()})}",
-          flush=True)
+          f"iteration {json.dumps({k: round(v, 3) for k, v in w['stages_ms'].items()})}; "
+          f"{window_reads(w)}", flush=True)
     return {"launches": launched, "wall": wall, "capture_wall": capture_wall, "iters": iters,
             "logz": logz, "ess": ess, "steps_per_iter": steps / iters, "eager_wall": eager_wall,
             "window": {k: w[k] for k in ("wall_per_iter", "device_ms_per_iter", "idle",
-                                         "blocking_per_iter", "chunk_reads_per_iter")},
+                                         "blocking_per_iter", "chunk_reads_per_iter",
+                                         "mcmc_reads_per_iter", "while_iterations_per_iter",
+                                         "mcmc_route")},
             "sym_eigvals_ms": eig_ms, "ess_bisect_ms": ess_ms, "ess_launch_sizes": sorted(set(sizes)),
             "top_kernels": top}
 
@@ -4346,16 +4709,24 @@ REPLACES = {
 }
 # Where each kernel's `launches` were counted.
 LAUNCHES_ON = {
-    "ess_bisect": "A (phase 6, seed 42; phase 6b's seed 42 with its loops replayed as graphs "
-                  "launches it as often)",
+    "ess_bisect": "A (phase 6, seeds 42-44; phase 6b's runs of the same seeds with their loops "
+                  "replayed as graphs launch it as often)",
     "ess_bisect_f64": "A in float64 (phase 14)",
-    "mutation_draws": "A with hardware_prng (phase 7, on_device=False; its on_device=True run "
-                      "launches it as often, by graph replays)",
-    "normal": "B (phase 8, its eager run, the counts set to 0 just before it; its graphed run "
-              "launches it as often, by replays)",
-    "bits": "B (phase 8, its eager run)",
-    "gamma": "B (phase 8, its eager run, the counts set to 0 just before it; its graphed run "
-             "launches it as often, by replays)",
+    "mutation_draws": "A (phase 6, seeds 42-44, on_device=False: one an MCMC step body, the "
+                      "keyed step draws of float32 on the card, the chunks' steps past the stop "
+                      "included; phase 6b's on_device=True runs launch it once a step, in the "
+                      "WHILE node's body); A with hardware_prng (phase 7) as often under its "
+                      "own key",
+    "normal": "B (phase 8, its eager run, the counts set to 0 just before it: one an MCMC "
+              "step body, the chunks' steps past the stop included; its graphed run once a "
+              "step, in the WHILE node's body)",
+    "bits": "B (phase 8, its eager run, the counts set to 0 just before it: the uniform mode, "
+            "one an MCMC step body's acceptance uniforms, the chunks' steps past the stop "
+            "included; its graphed run launches it once a step, in the WHILE node's body); "
+            "rosenbrock100 (phase 16) one a step too",
+    "gamma": "B (phase 8, its eager run, the counts set to 0 just before it: one an MCMC "
+             "step body, the chunks' steps past the stop included; its graphed run once a "
+             "step, in the WHILE node's body)",
     "sym_eigvals": "rosenbrock100 (phase 16, seed 42: the CV of each reweight at d = 100); "
                    "A (phase 6) launches it once a reweight at d = 10, dynamic mode (phase 12) "
                    "for every CV probe as well",
@@ -4369,18 +4740,10 @@ LAUNCHES_ON = {
     "mvstud_em": "A (phase 6, seed 42: one a mode fit, the 16 modes at once; phase 6b's run "
                  "launches it as often, by graph replays); every other path once a mode fit",
     "set_conditional": "A fused (phase 6b's timed seed 42, on_device=True: 15 a cluster fit, "
-                       "one a possible split round, by graph replays); the on_device=False "
-                       "runs decide on the host and launch none",
+                       "one a possible split round, by graph replays; and the MCMC chain's "
+                       "WHILE node one a chain and one a step); the on_device=False runs decide "
+                       "on the host and launch none",
 }
-# Kernels that no Sampler path launches, and why: each must count 0 on every
-# path, and phase 4 still holds it against its plain version.
-OFF_PATH = {
-    "bits": "hw_gamma, the only Sampler caller of _bits_kernel (through hw_uniform), is one "
-            "tempest_gamma launch here; tempest_bits serves the public hw_uniform/hw_bits, "
-            "whose phase-4 launches are hw_uniform_launches",
-}
-
-
 def kernel_table(rows: dict, launches: dict, floor: dict, split: dict, paths=None) -> list:
     table = []
     for name in KERNELS:
@@ -4394,16 +4757,17 @@ def kernel_table(rows: dict, launches: dict, floor: dict, split: dict, paths=Non
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")},
             "launches_on": LAUNCHES_ON[name] if launches else None,
-            **({"off_path": OFF_PATH[name]} if name in OFF_PATH else {}),
             **({"no_pallas_counterpart": NO_PALLAS[name]} if name in NO_PALLAS else {}),
             **{k: row[k] for k in ("device_ms", "library_device_ms", "gamma_flips", "rounds",
                                    "bound_sm_ms", "bound_sm_by", "chain_bound_ms",
                                    "bytes_bound_ms", "longest_chain", "device_ms_turns",
                                    "cumsum_accumulation", "S", "filled", "probes", "launch_plan",
                                    "gamma_bits_unequal", "hw_uniform_launches", "shapes",
+                                   "mode", "uniform_equal", "raw_words",
                                    "routes", "on_rosenbrock100", "on_path", "chain_bound_ms",
                                    "bound_with_chain_ms", "cluster", "n_iter_max",
-                                   "iterations_max", "checks", "reduction_us") if k in row},
+                                   "iterations_max", "checks", "reduction_us",
+                                   "node_costs") if k in row},
             "launch_floor_ms": floor["device_ms"], "call_split": split.get(name),
             **({"call_split_counter": split[f"{name}_counter"]}
                if f"{name}_counter" in split else {}),
@@ -4495,6 +4859,9 @@ def main() -> None:
     if cuda_graphs is not None:
         stamp("phase 4e: the conditional nodes' flag kernel")
         rows["set_conditional"] = phase_cond_kernel(device)
+        if hasattr(cuda_graphs, "while_body"):
+            stamp("phase 4f: what a conditional node costs the device")
+            rows["set_conditional"]["node_costs"] = phase_node_costs(device)
     floor = launch_floor(device)
     split = phase_call_split(device)
     if args.kernels_only:
@@ -4509,7 +4876,7 @@ def main() -> None:
                                                   on_device=True)
     eager = {}
     stamp("phase 6: A")
-    paths["A"], walls = run_canonical(device, "A clustered", SEEDS[:1], True, False,
+    paths["A"], walls = run_canonical(device, "A clustered", SEEDS, True, False,
                                       CLUSTERED_LOGZ, runs=eager)
     if args.parent:
         parent_a(args.parent, eager[SEEDS[0]])
@@ -4569,18 +4936,14 @@ def main() -> None:
     launches = {"ess_bisect": paths["A"]["ess_bisect"],
                 "ess_bisect_f64": paths["A_float64"]["ess_bisect_f64"],
                 "ess_bracket": paths["dynamic"]["ess_bracket"],
-                "mutation_draws": paths["A_hardware_prng"]["mutation_draws"],
+                "mutation_draws": paths["A"]["mutation_draws"],
                 "normal": paths["B"]["normal"], "bits": paths["B"]["bits"],
                 "gamma": paths["B"]["gamma"], "sym_eigvals": paths["rosenbrock100"]["sym_eigvals"],
                 "weighted_median": paths["B"]["weighted_median"],
                 "gmm_em": paths["A"]["gmm_em"], "mvstud_em": paths["A"]["mvstud_em"],
                 "set_conditional": paths["A_fused"]["set_conditional"]}
     for name, n in launches.items():
-        if name in OFF_PATH:
-            on = {p: c[name] for p, c in paths.items() if c[name]}
-            check(not on, f"kernel {name} has no Sampler path but was launched on {on}")
-        else:
-            check(n > 0, f"kernel {name} was not launched on its path")
+        check(n > 0, f"kernel {name} was not launched on its path")
     print(f"launches by path: {json.dumps(paths)}", flush=True)
     keys = ("probes", "wall_s", "iters", "loops", "windows")
     print(f"dynamic: {json.dumps({k: dynamic[k] for k in keys})}", flush=True)

@@ -18,9 +18,14 @@ both versions run the same drive). One process:
   run(on_device=True) after a capturing seed-43 run: wall, iterations,
   logZ; then iterations 21-23 graphed under the profiler: wall, device ms
   and blocking host reads an iteration, and `ps/reweight`'s host ms;
+  every window also gives its MCMC reads and WHILE iterations an
+  iteration, and the MCMC route ("while": one WHILE node graphed;
+  "chunks": chunks of steps, a read each);
 - A (phases 6 and 6b, the canonical clustered problem): seed 42 with
   run(on_device=True) after a capturing seed-43 run, then with
-  run(on_device=False): wall, iterations, logZ; then iterations 21-23 in
+  run(on_device=False), in the fused route's MCMC chunks of 8 and then in
+  chunks of 1 (a read after every step; the same steps and bits): wall,
+  iterations, logZ, MCMC steps; then iterations 21-23 in
   each mode under the profiler: wall, device ms, idle share, blocking host
   reads, each loop's chunk reads and graph replays an iteration, and the
   stages' host ms;
@@ -46,6 +51,11 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _mcmc(w: dict) -> dict:
+    """A window's MCMC route, reads and WHILE iterations an iteration."""
+    return {k: w[k] for k in ("mcmc_route", "mcmc_reads_per_iter", "while_iterations_per_iter")}
 
 
 def one(root: str) -> dict:
@@ -75,22 +85,29 @@ def one(root: str) -> dict:
     w = cs.steady_window(s, True, n=3, device_only=False)  # resets the sampler
     out["dynamic"] = {"wall_s": wall, "iters": iters, "logz": logz,
                       "window_ms_per_iter": 1e3 * w["wall_per_iter"],
-                      "device_ms_per_iter": w["device_ms_per_iter"],
+                      "device_ms_per_iter": w["device_ms_per_iter"], "idle": w["idle"],
                       "blocking_per_iter": w["blocking_per_iter"],
-                      "reweight_host_ms": w["stages_ms"].get("ps/reweight")}
+                      "reweight_host_ms": w["stages_ms"].get("ps/reweight"), **_mcmc(w)}
 
     a = cs.canonical_sampler(device, cs.SEEDS[1], clustering=True)
     a.run(n_total=cs.N_TOTAL, progress=False, on_device=True)  # captures the graphs
     out["A"] = {}
-    for on_device in (True, False):
+    chunks = a.state._iteration.loops.chunks
+    for run in ("on_device=True", "on_device=False", "on_device=False, an MCMC read a step"):
         a.reset(random_state=cs.SEEDS[0])
+        eight = chunks["mcmc"]
+        if run.endswith("a step"):  # the same steps and bits, a read after each
+            chunks["mcmc"] = 1
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        a.run(n_total=cs.N_TOTAL, progress=False, on_device=on_device)
-        torch.cuda.synchronize()
-        out["A"][f"on_device={on_device}"] = {
-            "wall_s": time.perf_counter() - t0, "iters": a.state.hist.t,
-            "logz": a.evidence()[0]}
+        try:
+            a.run(n_total=cs.N_TOTAL, progress=False, on_device=run == "on_device=True")
+            torch.cuda.synchronize()
+        finally:
+            chunks["mcmc"] = eight
+        out["A"][run] = {"wall_s": time.perf_counter() - t0, "iters": a.state.hist.t,
+                         "logz": a.evidence()[0],
+                         "steps": int(a.results()["steps"].sum())}
     for graphs in (True, False):
         w = cs.steady_window(a, graphs, n=3, device_only=False)  # resets the sampler
         out["A"][f"window graphs={graphs}"] = {
@@ -98,7 +115,7 @@ def one(root: str) -> dict:
             "idle": w["idle"], "blocking_per_iter": w["blocking_per_iter"],
             "chunk_reads_per_iter": {k: v / w["n"] for k, v in w["reads"].items()},
             "replays_per_iter": {k: v / w["n"] for k, v in w["replays"].items() if v},
-            "stages_ms": w["stages_ms"]}
+            "stages_ms": w["stages_ms"], **_mcmc(w)}
 
     for name, kw in (("C", {}), ("cadence", {"cluster_every": 3})):
         c = cs.c_sampler(device, **kw)
@@ -128,7 +145,8 @@ def one(root: str) -> dict:
                             "window_ms_per_iter": 1e3 * w["wall_per_iter"],
                             "device_ms_per_iter": w["device_ms_per_iter"],
                             "blocking_per_iter": w["blocking_per_iter"],
-                            "fit_host_ms": w["stages_ms"].get("ps/fit")}
+                            "idle": w["idle"], "fit_host_ms": w["stages_ms"].get("ps/fit"),
+                            **_mcmc(w)}
     return out
 
 
@@ -160,8 +178,10 @@ def main() -> None:
               f"iteration graphed {[round(x, 4) for x in r['B_mutation_s']]}, profiled "
               f"{json.dumps(r['B_profiled'])}; dynamic graphed {d['wall_s']:.3f} s, "
               f"{d['iters']} iterations, logZ {d['logz']!r}; window {d['window_ms_per_iter']:.1f} "
-              f"ms an iteration, device {d['device_ms_per_iter']:.2f} ms, blocking reads "
-              f"{d['blocking_per_iter']:.1f}, ps/reweight {d['reweight_host_ms']:.2f} ms; "
+              f"ms an iteration, device {d['device_ms_per_iter']:.2f} ms, idle "
+              f"{100 * d['idle']:.1f} %, blocking reads {d['blocking_per_iter']:.1f}, MCMC reads "
+              f"{d['mcmc_reads_per_iter']:.1f} ({d['mcmc_route']}), ps/reweight "
+              f"{d['reweight_host_ms']:.2f} ms; "
               f"A {json.dumps(r['A'])}; C {json.dumps(r['C'])}; cadence "
               f"{json.dumps(r['cadence'])}; rosenbrock100 {json.dumps(r['rosenbrock100'])}",
               flush=True)

@@ -21,7 +21,7 @@ its sharded checkpoints), turns the loops' CUDA graphs on
 (`loops.Loops.graphs`): each loop chunk is replayed as a graph, with the
 same results as `on_device=False`. The first draws object
 is kept for the sampler's life and reseeded in place, as the graphs hold
-its generator (and, with `hardware_prng`, its call counter's words). The
+its generator (and, where its steps are keyed, its call counter's words). The
 dispatch-budget chunking of the TPU whole-run program is not ported
 (ROADMAP.md queue 1, item 12).
 
@@ -167,7 +167,7 @@ class SamplerCore:
             seed, self.device, self.dtype)
         loops = self._iteration.loops
         loops.generators = [draws.generator]
-        loops.counters = [draws.calls] if isinstance(draws, HardwareDraws) else []
+        loops.counters = [draws.calls] if draws.calls is not None else []
         return draws if self.group is None else BlockDraws(draws, self.rank, self.world)
 
     def _placeholder_model(self) -> ClusterModel:

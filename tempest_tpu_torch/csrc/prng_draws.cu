@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas hardware-PRNG kernels of tempest_tpu/ops/pallas_prng.py:
 //   tempest_normal          <- `_normal_kernel` (:83; entry hw_normal)
-//   tempest_bits            <- `_bits_kernel` (:108; entry hw_uniform)
+//   tempest_bits            <- `_bits_kernel` (:108; entry hw_uniform), and
+//   tempest_uniform            the same kernel with hw_uniform's map to (0, 1]
 //   tempest_gamma           <- `hw_gamma` (:275), which composes 6 `_normal_kernel`
 //                              and 7 `_bits_kernel` calls with elementwise XLA ops
 //   tempest_mutation_draws  <- `_mutation_draws_kernel` (:159; entry hw_mutation_draws)
@@ -43,8 +44,8 @@
 // registers and writes them as one 16-byte store; nothing but the outputs
 // touches device memory. The key and the call index are launch arguments
 // (the public functions), or two device words that every thread reads
-// (`state`: HardwareDraws' call counter, advanced on the stream, which a
-// CUDA graph replays); no launch syncs the host. Any size: no 128-lane
+// (`state`: the call counter of a draws object's MCMC steps, advanced on
+// the stream, which a CUDA graph replays); no launch syncs the host. Any size: no 128-lane
 // alignment is needed.
 //
 // The mutation-draws kernel, at the sizes its route takes (R N d <= 2^19,
@@ -200,18 +201,30 @@ normal_kernel(float* __restrict__ out, int64_t total, CallArgs args) {
   }
 }
 
+// Words 4i..4i+3 of stream 0, as raw bits (uint32 out) or mapped to (0, 1]
+// (float out: the uniforms of `philox.uniform`, hw_uniform's mapping done in
+// registers).
+__device__ __forceinline__ uint4 as_out(uint4 w, uint32_t*) { return w; }
+__device__ __forceinline__ float4 as_out(uint4 w, float*) {
+  return make_float4(unit_open_closed(w.x), unit_open_closed(w.y), unit_open_closed(w.z),
+                     unit_open_closed(w.w));
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-bits_kernel(uint32_t* __restrict__ out, int64_t total, Call call) {
+bits_kernel(T* __restrict__ out, int64_t total, CallArgs args) {
+  using Vec = decltype(as_out(uint4{}, out));
+  const Call call = resolve(args);
   const int64_t n_blocks = (total + 3) / 4;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n_blocks;
        i += stride) {
-    const uint4 w = philox(static_cast<uint32_t>(i), kStreamBits, call);
+    const Vec w = as_out(philox(static_cast<uint32_t>(i), kStreamBits, call), out);
     const int64_t base = 4 * i;
     if (base + 4 <= total) {
-      reinterpret_cast<uint4*>(out)[i] = w;
+      reinterpret_cast<Vec*>(out)[i] = w;  // 16-byte aligned
     } else {
-      const uint32_t v[4] = {w.x, w.y, w.z, w.w};
+      const T v[4] = {w.x, w.y, w.z, w.w};
       for (int j = 0; base + j < total; ++j) out[base + j] = v[j];
     }
   }
@@ -391,7 +404,7 @@ CallArgs make_args(uint32_t k0, uint32_t k1, uint64_t counter, const void* state
 // bits. `state`: null, and the call index is `counter` and the key (k0,
 // k1); or two 64-bit words in device memory, and the call index is
 // state[0] + counter and the key state[1] = k0 | k1 << 32, read by the
-// kernel (HardwareDraws' call counter, which a CUDA graph replays).
+// kernel (a draws object's call counter, which a CUDA graph replays).
 
 // out: (total,) float32 standard normals.
 extern "C" int tempest_normal(void* out, int64_t total, uint32_t k0, uint32_t k1,
@@ -407,8 +420,18 @@ extern "C" int tempest_bits(void* out, int64_t total, uint32_t k0, uint32_t k1, 
                             int device, void* stream) {
   DeviceGuard guard(device);
   bits_kernel<<<grid_for((total + 3) / 4), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(out), total,
-      Call{k0, k1, static_cast<uint32_t>(counter), static_cast<uint32_t>(counter >> 32)});
+      static_cast<uint32_t*>(out), total, make_args(k0, k1, counter, nullptr));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out: (total,) float32 uniforms in (0, 1], the bits kernel's words mapped
+// in registers (hw_uniform in one launch; the MCMC step's acceptance
+// uniforms, `draws.Draws` on its keyed route).
+extern "C" int tempest_uniform(void* out, int64_t total, uint32_t k0, uint32_t k1,
+                               uint64_t counter, const void* state, int device, void* stream) {
+  DeviceGuard guard(device);
+  bits_kernel<<<grid_for((total + 3) / 4), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), total, make_args(k0, k1, counter, state));
   return static_cast<int>(cudaGetLastError());
 }
 

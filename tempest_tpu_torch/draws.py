@@ -2,19 +2,33 @@
 
 Every stochastic step of the port is a function of explicit draws; the
 loops take those draws from a draws object with four methods (`warmup`,
-`resample`, `mcmc_step`, `bootstrap`). `Draws` takes all of them from one
-seeded `torch.Generator` on the sampler's device. `HardwareDraws`, the source of
-`hardware_prng=True`, routes each MCMC step's draws to the Philox kernels
-of `ops/cuda_prng.py` as tempest_tpu/mcmc.py:187-192 and :272-315 route
-them to the Pallas kernels. A test can hand a loop another object with the
-same methods (for instance one that replays the JAX package's key chain)
-and compare values with `tempest_tpu`, not only distributions.
+`resample`, `mcmc_step`, `bootstrap`). `Draws` takes the warm-up's,
+resampling's and bootstrap's draws from one seeded `torch.Generator` on the
+sampler's device. Its MCMC steps draw there too on the CPU and in float64;
+on a CUDA device in float32 (`keyed`) every draw of a step comes from the
+Philox kernels of `ops/cuda_prng.py`, keyed by a call counter on the device
+(`cuda_prng.PhiloxCounter`), as JAX carries its threefry key in the
+`while_loop`'s carry (tempest_tpu/mcmc.py:289): a step adds its calls to
+the counter's device word times its `active` flag, so a step past the stop
+of its chain draws nothing new, and the loop that runs the steps need not
+put anything back. That lets a CUDA graph run the whole chain as one WHILE
+node (`mcmc.py`), which a generator's host-side Philox offset would not.
+`HardwareDraws`, the source of `hardware_prng=True`, draws its steps from
+the same kernels under another key, `philox.key_from_seed(seed)` where
+`Draws` takes `philox.draws_key(seed)`, so the two flags stay two streams,
+as threefry and the hardware PRNG are in JAX; it is keyed in float32 on
+every device (on the CPU through the kernels' plain versions). A test can
+hand a loop another object with the same methods (for instance one that
+replays the JAX package's key chain) and compare values with `tempest_tpu`,
+not only distributions.
 
 `get_state()` / `set_state()` carry the whole draw state through a
 checkpoint as numpy arrays: the generator's own state (for a CUDA
-generator its seed and offset, `torch.Generator.get_state`), and for
-`HardwareDraws` also the Philox key and call counter. Restoring it
-continues the stream where it stopped; nothing is re-seeded.
+generator its seed and offset, `torch.Generator.get_state`), and the key
+and call counter of the keyed steps (`step_key`, `step_counter` for
+`Draws`; `philox_key`, `philox_counter` for `HardwareDraws`). Restoring it
+continues the stream where it stopped; nothing is re-seeded, and a file
+without the keyed words restarts the keyed stream at counter 0.
 `seed_from_key_words` is the rule for a file that holds no such state (one
 the JAX package wrote, with a threefry key that torch cannot continue), and
 `key_words` its inverse, the key a port file hands the JAX package.
@@ -35,35 +49,62 @@ import torch
 
 from .ops import cuda_prng, philox
 
-# Routing thresholds of the hardware-PRNG path. On the TPU they were a
-# scoped-VMEM budget and launch-cost crossovers; here they only pick the
-# route, as in JAX, until the H100 measures its own (ROADMAP queue 2).
+# The largest R N d of a step the mutation-draws kernel draws (its z block
+# fitted the TPU's scoped VMEM); past it a keyed step takes the gamma, normal
+# and uniform kernels.
 FUSED_DRAWS_MAX_ELEMS = 1 << 19  # tempest_tpu/ops/pallas_prng.py:226, 235
-HW_NORMAL_MIN_ELEMS = 1 << 20  # tempest_tpu/mcmc.py:51, 187
-HW_GAMMA_MIN_WALKERS = 1 << 16  # tempest_tpu/mcmc.py:52, 306
 
 
 class Draws:
-    """The draws of one run, from a seeded generator on `device`.
+    """The draws of one run, from a seeded generator on `device`, and where
+    `keyed` (float32 on a CUDA device; `KEYED_ON_CPU` adds the CPU) the MCMC
+    steps' from the Philox kernels on the call counter `calls`.
 
     `graph_safe`: every draw comes from `generator` through PyTorch's
-    Philox kernels (and, for `HardwareDraws`, from kernels that read their
-    call counter on the device), so a CUDA graph that registers the
-    generator (and the counter, `loops.Loops.counters`) replays the draws
-    of its capture's eager run from the current position."""
+    Philox kernels or from kernels that read their call counter on the
+    device, so a CUDA graph that registers the generator (and the counter,
+    `loops.Loops.counters`) replays the draws of its capture's eager run
+    from the current position."""
 
     graph_safe = True
+    calls: Optional[cuda_prng.PhiloxCounter] = None
+    # The checkpoint names of the keyed steps' key and call counter.
+    STATE_KEYS = ("step_key", "step_counter")
+    KEYED_ON_CPU = False
 
     def __init__(self, seed: int, device, dtype=torch.float32):
         self.device = torch.device(device)
         self.dtype = dtype
+        # The kernels draw float32 only.
+        self.keyed = dtype == torch.float32 and (self.KEYED_ON_CPU or self.device.type == "cuda")
         self.generator = torch.Generator(device=self.device)
         self.reseed(seed)
 
+    def step_key(self, seed: int) -> Optional[philox.Key]:
+        """The key of the keyed steps of seed `seed` (None: not keyed)."""
+        return philox.draws_key(seed) if self.keyed else None
+
     def reseed(self, seed: int) -> None:
         """Start the stream of `seed` again, on the same generator object
-        (which CUDA graphs may hold)."""
+        and call counter words (which CUDA graphs may hold)."""
         self.generator.manual_seed(int(seed))
+        key = self.step_key(seed)
+        if key is None:
+            return
+        if self.calls is None:
+            self.calls = cuda_prng.PhiloxCounter(key, self.device)
+        else:
+            self.calls.set_key(key)
+            self.calls.seek(0)
+
+    @property
+    def key(self) -> philox.Key:
+        return self.calls.key
+
+    @property
+    def counter(self) -> int:
+        """The keyed steps' call counter (a host read of its device word)."""
+        return self.calls.counter
 
     def _uniform(self, shape) -> torch.Tensor:
         return torch.rand(shape, generator=self.generator, dtype=self.dtype, device=self.device)
@@ -77,11 +118,15 @@ class Draws:
         return self._uniform((n,) if method == "mult" else ())
 
     def mcmc_step(
-        self, n_candidates: int, n: int, d: int, gamma_shape: Optional[torch.Tensor]
+        self, n_candidates: int, n: int, d: int, gamma_shape: Optional[torch.Tensor],
+        active: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
         """One MCMC step: (R, n, d) proposal normals, the (n,) unit-scale
         gamma(gamma_shape) mixture draws (tpCN only, else None) and the (n,)
-        acceptance uniforms."""
+        acceptance uniforms. Keyed, the step's calls count only where the 0-d
+        bool `active` holds (always where it is None)."""
+        if self.keyed:
+            return self._keyed_step(n_candidates, n, d, gamma_shape, active)
         g = None
         if gamma_shape is not None:
             g = torch._standard_gamma(gamma_shape, generator=self.generator)
@@ -90,17 +135,40 @@ class Draws:
         )
         return z, g, self._uniform((n,))
 
+    def _keyed_step(self, n_candidates, n, d, gamma_shape, active):
+        """Every draw of a step from the Philox kernels on `calls`: the
+        mutation-draws kernel (one call) for tpCN at R n d <= 2^19, else the
+        gamma kernel (13 calls, tpCN), the normal kernel and the uniform
+        mode of the bits kernel (one call each)."""
+        calls = self.calls
+        z_shape = (n_candidates, n, d)
+        if gamma_shape is not None and n_candidates * n * d <= FUSED_DRAWS_MAX_ELEMS:
+            out, used = calls.mutation_draws(0, gamma_shape, z_shape), 1
+        else:
+            used, g = 0, None
+            if gamma_shape is not None:
+                g, used = calls.gamma(0, gamma_shape), philox.GAMMA_CALLS
+            z = calls.normal(used, z_shape)
+            out, used = (z, g, calls.uniform(used + 1, (n,))), used + 2
+        calls.advance(used, active)
+        return out
+
     def bootstrap(self, n_bootstrap: int, t_max: int) -> torch.Tensor:
         """(n_bootstrap, t_max) uniforms of the block bootstrap of logZ."""
         return self._uniform((n_bootstrap, t_max))
 
     def get_state(self) -> Dict[str, np.ndarray]:
-        return {"generator": self.generator.get_state().numpy().copy()}
+        state = {"generator": self.generator.get_state().numpy().copy()}
+        if self.calls is not None:
+            key, counter = self.STATE_KEYS
+            state[key] = np.array(self.key, dtype=np.uint32)
+            state[counter] = np.array(self.counter, dtype=np.uint64).astype(np.int64)
+        return state
 
     def tell(self):
         """The generator's position: its Philox offset on a CUDA device
         (advanced alike by every MCMC step of one shape), its whole state
-        on the CPU."""
+        on the CPU. The keyed steps do not move it."""
         if self.device.type == "cuda":
             return self.generator.get_offset()
         return self.generator.get_state()
@@ -120,6 +188,14 @@ class Draws:
 
     def set_state(self, state: Dict[str, np.ndarray]) -> None:
         self.generator.set_state(torch.from_numpy(np.asarray(state["generator"], np.uint8)))
+        if self.calls is None:
+            return
+        key, counter = self.STATE_KEYS
+        if key in state:
+            self.calls.set_key(tuple(int(w) for w in state[key]))
+            self.calls.seek(int(np.asarray(state[counter]).astype(np.uint64)))
+        else:  # a file of another source: the keyed stream starts again
+            self.calls.seek(0)
 
 
 def seed_from_key_words(words) -> int:
@@ -132,83 +208,23 @@ def seed_from_key_words(words) -> int:
 class HardwareDraws(Draws):
     """`hardware_prng=True`: MCMC-step draws from the Philox kernels.
 
-    The key is the seed's two 32-bit words and every kernel call takes the
-    next call index, so a reset (`reseed`) restarts the stream. The key and
-    the call counter are a `cuda_prng.PhiloxCounter`: two words on the
-    sampler's device that the kernels read, and their host mirror (`key`,
-    `counter`), which `tell`, `seek` and `get_state` read. A step launches
-    on the words and adds its calls to them on the stream, so its launches
-    replay in a CUDA graph (`graph_safe`); a graph's replay does not run
-    this object's Python, so the loop that replays it advances the mirror
-    (`loops.Loops.counters`). The warm-up and resampling draws, and the
-    draws below the routing thresholds, still come from the generator, as
-    in JAX. So do all the draws of a run in another dtype than float32: the
-    kernels draw float32 only, and JAX's `hw_prng_supported`
-    (pallas_prng.py:46-48) sends every other dtype to threefry, so the flag
-    does not apply there.
+    The key is the seed's two 32-bit words (`philox.key_from_seed`) and
+    every kernel call takes the next call index, so a reset (`reseed`)
+    restarts the stream. The key and the call counter are a
+    `cuda_prng.PhiloxCounter`, made whatever the device and dtype. In
+    float32 a step draws as `Draws`' keyed steps do, on the CPU too (the
+    plain versions). The warm-up and resampling draws come from the
+    generator, as in JAX. So do all the draws of a run in another dtype
+    than float32: the kernels draw float32 only, and JAX's
+    `hw_prng_supported` (pallas_prng.py:46-48) sends every other dtype to
+    threefry, so the flag does not apply there.
     """
 
-    calls: Optional[cuda_prng.PhiloxCounter] = None
+    STATE_KEYS = ("philox_key", "philox_counter")
+    KEYED_ON_CPU = True
 
-    def reseed(self, seed: int) -> None:
-        super().reseed(seed)
-        key = philox.key_from_seed(seed)
-        if self.calls is None:
-            self.calls = cuda_prng.PhiloxCounter(key, self.device)
-        else:  # the same words, which CUDA graphs may hold
-            self.calls.set_key(key)
-            self.calls.seek(0)
-
-    @property
-    def key(self) -> philox.Key:
-        return self.calls.key
-
-    @property
-    def counter(self) -> int:
-        return self.calls.counter
-
-    def tell(self):
-        return super().tell(), self.calls.counter
-
-    def seek(self, position) -> None:
-        super().seek(position[0])
-        self.calls.seek(position[1])
-
-    def get_state(self) -> Dict[str, np.ndarray]:
-        return {**super().get_state(), "philox_key": np.array(self.key, dtype=np.uint32),
-                "philox_counter": np.array(self.counter, dtype=np.int64)}
-
-    def set_state(self, state: Dict[str, np.ndarray]) -> None:
-        super().set_state(state)
-        if "philox_key" in state:  # absent from a file written by plain Draws
-            self.calls.set_key(tuple(int(w) for w in state["philox_key"]))
-            self.calls.seek(int(state["philox_counter"]))
-
-    def mcmc_step(self, n_candidates, n, d, gamma_shape):
-        if self.dtype != torch.float32:
-            return super().mcmc_step(n_candidates, n, d, gamma_shape)
-        z_shape = (n_candidates, n, d)
-        n_z = n_candidates * n * d
-        calls = self.calls
-        if gamma_shape is not None and n_z <= FUSED_DRAWS_MAX_ELEMS:  # tpCN only
-            out = calls.mutation_draws(0, gamma_shape, z_shape)
-            calls.advance(1)
-            return out
-        used = 0
-        g = None
-        if gamma_shape is not None:
-            if n >= HW_GAMMA_MIN_WALKERS:
-                g = calls.gamma(used, gamma_shape)
-                used += philox.GAMMA_CALLS
-            else:
-                g = torch._standard_gamma(gamma_shape, generator=self.generator)
-        if n_z >= HW_NORMAL_MIN_ELEMS:
-            z = calls.normal(used, z_shape)
-            used += 1
-        else:
-            z = torch.randn(z_shape, generator=self.generator, dtype=self.dtype, device=self.device)
-        calls.advance(used)
-        return z, g, self._uniform((n,))
+    def step_key(self, seed: int) -> philox.Key:
+        return philox.key_from_seed(seed)
 
 
 class BlockDraws:
@@ -220,9 +236,9 @@ class BlockDraws:
     uniforms for walkers [rank n, (rank + 1) n), where n is the rank's
     block width. The warm-up's patch uniforms, the resampling uniforms and
     the bootstrap's are global, as the collectives that use them need.
-    `graph_safe`, `generator`, `calls`, `tell` and `seek` are the wrapped
-    draws': every rank draws the global arrays, so the position is global
-    and the same on every rank.
+    `graph_safe`, `keyed`, `generator`, `calls`, `tell` and `seek` are the
+    wrapped draws': every rank draws the global arrays, so the position is
+    global and the same on every rank.
     """
 
     def __init__(self, draws: Draws, rank: int, world: int):
@@ -231,6 +247,10 @@ class BlockDraws:
     @property
     def graph_safe(self) -> bool:
         return getattr(self.draws, "graph_safe", False)
+
+    @property
+    def keyed(self) -> bool:
+        return getattr(self.draws, "keyed", False)
 
     @property
     def generator(self) -> Optional[torch.Generator]:
@@ -265,9 +285,10 @@ class BlockDraws:
     def resample(self, n: int, method: str) -> torch.Tensor:
         return self.draws.resample(n, method)
 
-    def mcmc_step(self, n_candidates, n, d, gamma_shape):
+    def mcmc_step(self, n_candidates, n, d, gamma_shape, active=None):
         """`n` is the rank's block width; `gamma_shape` the global (N,) shapes."""
-        z, g, u = self.draws.mcmc_step(n_candidates, n * self.world, d, gamma_shape)
+        extra = {} if active is None else {"active": active}
+        z, g, u = self.draws.mcmc_step(n_candidates, n * self.world, d, gamma_shape, **extra)
         return self._block(z, 1), None if g is None else self._block(g), self._block(u)
 
     def bootstrap(self, n_bootstrap: int, t_max: int) -> torch.Tensor:

@@ -95,7 +95,7 @@ def current_to_numpy(cur: Current, group=None) -> Dict[str, np.ndarray]:
     """The Current's fields as numpy, gathered over `group` under a mesh."""
     tree = fetch_tree(cur, group)
     out = {k: tree[k] for k in CURRENT_FIELDS}
-    out.update({k: np.int32(getattr(cur, k)) for k in CURRENT_COUNTERS})
+    out.update({k: np.int32(int(getattr(cur, k))) for k in CURRENT_COUNTERS})
     if cur.blobs is not None:
         out["blobs"] = tree["blobs"]
     return out

@@ -24,10 +24,11 @@ runs each chunk as a `torch.cuda.CUDAGraph`:
 - the generators in `generators` are registered with every graph, so a
   replay draws what the eager bodies draw from the same offset and
   advances the offset as they would;
-- `counters` holds the call counters of the hardware-PRNG kernels
+- `counters` holds the call counters of the Philox kernels
   (`cuda_prng.PhiloxCounter`), whose device words the captured bodies
-  read and advance; a capture leaves each where it was, and every replay
-  advances its host mirror by what the capture's bodies advanced it;
+  read and advance; a capture leaves each word where it was, and every
+  replay advances it as the eager bodies would (the host mirror is read
+  from the word only when asked for);
 - a capture counts no kernel launch; every replay adds the launches its
   capture made (`launch_counts`), so a kernel's count stays its true
   number of launches;
@@ -43,6 +44,16 @@ runs each chunk as a `torch.cuda.CUDAGraph`:
   conditional body and keeps its results where the predicate holds
   (`torch.where`), so each body meets its libraries and kernel builds
   before the capture;
+- `repeat` runs a body while a 0-d device bool of its carry holds, as
+  `lax.while_loop` does: captured (a stretch of its own, or inside one), it
+  is a CUDA-graph conditional WHILE node whose body runs on the device for
+  as long as the predicate it recomputes holds, so a replay runs the whole
+  loop and reads nothing; each run of the body adds one to its device word,
+  which counts its launches and its runs (`stats[name]["node_bodies"]`, the
+  runs of every conditional body of stretch `name`).
+  Eagerly (graphs off, the CPU, a stretch's warm-up) it is a Python loop
+  that reads the predicate after every body, so it runs the same bodies and
+  launches the same kernels as the node;
 - a capture that fails (a body that reads the host, such as a likelihood
   calling `.item()`) raises `CaptureError` naming the cause and
   `on_device=False`; nothing falls back to eager execution.
@@ -99,6 +110,7 @@ def settle_launches() -> None:
         words, launches = graph.branches
         for taken, delta in zip(words.tolist(), launches):
             _add_launches({k: taken * v for k, v in delta.items()})
+            graph.stats["node_bodies"] += taken
         words.zero_()
     _UNSETTLED.clear()
 
@@ -120,16 +132,17 @@ def _signature(tensors: Tensors) -> tuple:
 
 
 class _Graph:
-    """One captured chunk, the kernel launches its capture made outside
-    conditional nodes and the calls (counter, n) it draws; `outputs` holds
-    the tensors a straight-line stretch returns; `branches`, where it has
-    conditional nodes, their device words (one int64 each, the bodies run
-    since the last `settle_launches`) and each body's launches."""
+    """One captured chunk and the kernel launches its capture made outside
+    conditional nodes; `outputs` holds the tensors a straight-line stretch
+    returns; `branches`, where it has conditional nodes, their device words
+    (one int64 each, the bodies run since the last `settle_launches`) and
+    each body's launches; `stats`, its loop's or stretch's counters, which
+    count the bodies' runs."""
 
-    def __init__(self, graph: torch.cuda.CUDAGraph, launches: Dict[str, int], calls: list,
-                 branches: Optional[tuple] = None):
-        self.graph, self.launches, self.calls = graph, launches, calls
-        self.branches = branches
+    def __init__(self, graph: torch.cuda.CUDAGraph, launches: Dict[str, int],
+                 branches: Optional[tuple] = None, stats: Optional[Counter] = None):
+        self.graph, self.launches = graph, launches
+        self.branches, self.stats = branches, stats
         self.outputs: Tensors = {}
         # (top-level nodes, nodes in conditional bodies) where it has any,
         # and the seconds its capture and instantiation took
@@ -141,8 +154,6 @@ class _Graph:
         _add_launches(self.launches)
         if self.branches is not None:
             _UNSETTLED.add(self)
-        for counter, n in self.calls:  # the mirrors of what the replay drew
-            counter.counter += n
 
 
 class Loops:
@@ -258,25 +269,101 @@ class Loops:
         new = body(state)
         return {k: torch.where(pred, new[k], v) for k, v in state.items()}
 
+    def repeat(self, name: str, pred: Callable[[Tensors], torch.Tensor], body: Body,
+               carry: Tensors, consts: Tensors, static: tuple = ()) -> Tensors:
+        """The loop `name`, as `lax.while_loop(pred, body, carry)`:
+        `body(carry, consts) -> carry` while the 0-d bool `pred(carry)`
+        holds. The body may draw from the registered counters (the draws
+        advance their device words). With graphs on it is one stretch
+        `name`, replayed: a WHILE node that reads nothing; inside a
+        stretch's capture, the node; otherwise a Python loop that reads
+        the predicate after every body (a stretch's warm-up runs it so on
+        the body stream, once at least, so the body meets its libraries'
+        workspaces there before the capture, its first run under PyTorch's
+        sync check: a body that reads the host raises `CaptureError`)."""
+        if self.graphed and self._stretch is None:
+            def stretch(t: Tensors) -> Tensors:
+                c = {k[2:]: v for k, v in t.items() if k.startswith("c.")}
+                k = {k[2:]: v for k, v in t.items() if k.startswith("k.")}
+                return self.repeat(name, pred, body, c, k)
+
+            inputs = {**{"c." + k: v for k, v in carry.items()},
+                      **{"k." + k: v for k, v in consts.items()}}
+            return self.once(name, stretch, inputs, static)
+        if self._stretch == "capture":
+            return self._while_node(pred, body, carry, consts)
+        c = dict(carry)
+        if self._stretch == "warm-up":
+            self._branch_count += 1
+            current = torch.cuda.current_stream(self.device)
+            self._body_stream.wait_stream(current)
+            with torch.cuda.stream(self._body_stream):
+                go = bool(pred(c))
+                new = self._checked_body(name, body, c, consts)
+                c = new if go else c
+                while go and bool(pred(c)):
+                    c = body(c, consts)
+            current.wait_stream(self._body_stream)
+            return c
+        stats = self.stats[name]
+        while self.read(name, pred(c))[0]:
+            c = body(c, consts)
+            stats["bodies"] += 1
+        return c
+
+    def _checked_body(self, name: str, body: Body, carry: Tensors, consts: Tensors) -> Tensors:
+        """One run of a WHILE node's body with PyTorch's sync check raising:
+        a body that reads the host fails here, before its capture, whose
+        failure half-way would leave the graph's capture unable to end."""
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return body(carry, consts)
+        except RuntimeError as exc:
+            raise self._capture_error(name, exc) from exc
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
     # -- graphs ------------------------------------------------------------
     def _if_node(self, pred: torch.Tensor, body: Callable[[Tensors], Tensors],
                  state: Tensors) -> Tensors:
+        issued = [c.issued for c in self.counters]
+        self._node(cuda_graphs.if_body, pred, lambda: body(state), state)
+        if [c.issued for c in self.counters] != issued:
+            raise RuntimeError("a conditional body drew from a call counter")
+        return state
+
+    def _while_node(self, pred: Callable[[Tensors], torch.Tensor], body: Body,
+                    carry: Tensors, consts: Tensors) -> Tensors:
+        flag = pred(carry)
+
+        def run() -> Tensors:
+            new = body(carry, consts)
+            for k, v in carry.items():
+                v.copy_(new[k])
+            flag.copy_(pred(carry))  # the WHILE node's flag kernel reads it next
+            return {}
+
+        self._node(cuda_graphs.while_body, flag, run, {})
+        return carry
+
+    def _node(self, make, flag: torch.Tensor, work: Callable[[], Tensors],
+              state: Tensors) -> None:
+        """Capture `work()` as the body of a conditional node made by `make`
+        on `flag`, its results copied into `state`'s tensors, and the
+        body's launches and device word (one run, one add) recorded."""
         i = len(self._branches)
         if self._words is None or i >= self._words.numel():
             raise RuntimeError("a stretch met more conditional bodies in its capture than in "
                                "its warm-up")
-        calls = [c.counter for c in self.counters]
-        with cuda_graphs.if_body(pred, self._pool, self._body_stream) as nodes:
+        with make(flag, self._pool, self._body_stream) as nodes:
             before = _counts()  # after the node's flag kernel, which every replay runs
-            new = body(state)
+            new = work()
             for k, v in state.items():
                 v.copy_(new[k])
             self._words[i:i + 1].add_(1)
-        if [c.counter for c in self.counters] != calls:
-            raise RuntimeError("a conditional body drew from a call counter")
         self._branches.append({k: v - before[k] for k, v in _counts().items()})
         self._body_nodes += nodes[0]
-        return state
 
     def _bind(self, name: str, carry: Tensors, consts: Tensors, static: tuple):
         """The static buffers of loop `name` at these shapes, filled."""
@@ -316,9 +403,11 @@ class Loops:
         every static buffer as it was."""
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
+        if self._body_stream is None:
+            self._body_stream = torch.cuda.Stream(self.device)
         stream, current = self._stream, torch.cuda.current_stream(self.device)
         offsets = [g.get_offset() for g in self.generators]
-        calls = [c.counter for c in self.counters]
+        words = [c.state.clone() for c in self.counters]
         before = _counts()
         # Warm-up: libraries and workspaces meet the capture stream eagerly,
         # every conditional body included.
@@ -330,16 +419,14 @@ class Loops:
         _add_launches({k: v - before[k] for k, v in _counts().items()}, -1)
         for g, offset in zip(self.generators, offsets):
             g.set_offset(offset)
-        for c, n in zip(self.counters, calls):
-            c.seek(n)
+        for c, saved in zip(self.counters, words):
+            c.state.copy_(saved)
 
         # The conditional bodies' launch words and memory pool.
         words = torch.zeros(self._branch_count, dtype=torch.int64, device=self.device)
         self._words, self._branches, self._body_nodes = words, [], 0
         pool = None
         if self._branch_count:
-            if self._body_stream is None:
-                self._body_stream = torch.cuda.Stream(self.device)
             try:
                 pool = cuda_graphs.body_pool(self._body_stream)
             except RuntimeError as exc:
@@ -369,12 +456,8 @@ class Loops:
         _add_launches(captured, -1)
         for delta in branches:  # a replay counts these from the words
             captured = {k: v - delta[k] for k, v in captured.items()}
-        drawn = [(c, c.counter - n) for c, n in zip(self.counters, calls)]
-        for c, n in zip(self.counters, calls):  # the capture ran nothing on the device
-            c.counter = n
         self.stats[name]["captures"] += 1
-        out = _Graph(graph, captured, [(c, k) for c, k in drawn if k],
-                     (words, branches) if branches else None)
+        out = _Graph(graph, captured, (words, branches) if branches else None, self.stats[name])
         out.nodes, out.capture_s = nodes, time.perf_counter() - t0
         if pool is not None:  # the bodies' memory lives as long as the graph
             weakref.finalize(out, cuda_graphs.release_pool, self.device, pool).atexit = False

@@ -23,20 +23,34 @@ thresholds. Semantics kept:
 sigmas and the step count stay as they are once the chain is done, as the
 JAX `lax.while_loop` (:417) stops there. The step index is a device
 tensor, so `rate = 1/(iteration + 1)` and the stop test are computed on the
-device. `MCMCKernel.__call__` loops the step as the device loop "mcmc"
-(`loops.Loops`), taking draws from a `Draws` or `HardwareDraws` object:
-with a chunk length of 1 it reads the stop flag after every step; with a
-longer one its first chunk is the `n_steps d` steps the clamp always runs,
-and each later chunk runs that many steps before one read. A chunk that
-runs past the stop consumes draws the next stage must not see: the draws
-object is put back (`Draws.seek`) where the last real step left it, from
-its position before each step (an eager chunk), or from its position
-before and after a replay, which every step of one shape advances alike:
-the generator's Philox offset and, for `HardwareDraws`, its call counter
-(1 call a step on the mutation-draws route, 13 + 1 on the gamma and
-normal route, 0 below the thresholds), whose host mirror the replay
-advanced (`loops.Loops.counters`). A draws object without `tell`/`seek` (a
-test's one-iteration source) is not put back. `steps` and `n_call_sweeps`
+device. `MCMCKernel.__call__` runs the chain while JAX's `cond` holds (:280:
+not done) and, a guard JAX does without while n_final is finite, the step
+count is below the clamp's ceiling `n_max_steps d` (a NaN n_final would
+never stop the chain); a step takes its draws from a `Draws` or
+`HardwareDraws` object. Two routes:
+
+- graphed (`loops.graphed`) on keyed draws (`draws.keyed`: every step draw
+  from the Philox kernels on a call counter in device words that a step
+  advances only while active, as JAX's key rides in the loop's carry), on
+  one device or a mesh: the loop form `loops.Loops.repeat`, one CUDA-graph
+  WHILE node that runs the real steps and reads nothing. `steps` stays a
+  device tensor.
+- otherwise (eager, float64, the CPU, a test's source): the device loop
+  "mcmc" in chunks (`loops.Loops.start`): with a chunk length of 1 it reads
+  the stop flag after every step; with a longer one its first chunk is the
+  `n_steps d` steps the clamp always runs, and each later chunk runs that
+  many steps before one read. A chunk's steps past the stop change no
+  walker; their number is counted in `loops.stats["mcmc"]["past_stop"]`
+  (their kernel launches are the only trace they leave). On keyed draws they
+  draw nothing new either. Generator draws they do consume, which the next
+  stage must not see: the draws object is put back (`Draws.seek`) where the
+  last real step left it, from its position before each step (an eager
+  chunk), or from its position before and after a replay, which every step
+  of one shape advances alike (the generator's Philox offset). A draws
+  object without `tell`/`seek` (a test's one-iteration source) is not put
+  back.
+
+So graphed and eager runs give the same bits. `steps` and `n_call_sweeps`
 count the real steps only.
 
 Under a particle mesh (`group`) each rank mutates its block of walkers.
@@ -46,9 +60,9 @@ step sizes and the stop test are the same on every rank. The draws are
 global (draws.BlockDraws keeps the rank's block), so the walkers'
 gamma shapes are gathered over the ranks: `Walkers.gamma_shape` is then
 the global (N,) vector. The gather and the cluster counts run before the
-loop; the step's `all_reduce` runs inside each chunk (captured with the
-chunk on CUDA), and every rank reads the same reduced stop flag, so the
-ranks run the same bodies and put the global draws back alike.
+loop; the step's `all_reduce` runs inside each body (captured with it on
+CUDA), and every rank reads the same reduced stop flag, so the ranks run
+the same bodies and put the global draws back alike.
 """
 
 from __future__ import annotations
@@ -73,8 +87,8 @@ class MCMCResult(NamedTuple):
     blobs: Optional[torch.Tensor]  # (N, B) or None
     efficiency: torch.Tensor
     acceptance: torch.Tensor
-    steps: int
-    n_call_sweeps: int  # batched likelihood evaluations of all walkers
+    steps: torch.Tensor  # () int32, on the walkers' device
+    n_call_sweeps: torch.Tensor  # batched likelihood evaluations of all walkers
 
 
 @dataclasses.dataclass
@@ -110,12 +124,9 @@ def _tensors(obj) -> dict:
             if getattr(obj, f.name) is not None}
 
 
-def _interpolate(p0, p1, j: int, length: int):
-    """The position before step j of `length` steps that moved the draws
-    from p0 to p1: integers, or tuples of them (HardwareDraws' generator
-    offset and call counter)."""
-    if isinstance(p0, tuple):
-        return tuple(_interpolate(a, b, j, length) for a, b in zip(p0, p1))
+def _interpolate(p0: int, p1: int, j: int, length: int) -> int:
+    """The generator offset before step j of `length` steps that moved it
+    from p0 to p1."""
     return p0 + j * ((p1 - p0) // length)
 
 
@@ -208,6 +219,11 @@ class MCMCKernel:
             done=torch.zeros((), dtype=torch.bool, device=u.device),
         )
 
+    def going(self, done: torch.Tensor, iteration: torch.Tensor) -> torch.Tensor:
+        """Whether the chain takes another step: JAX's `cond`, not done
+        (mcmc.py:280-281), and below the clamp's ceiling."""
+        return ~done & (iteration < self.n_steps_cap)
+
     def _propose(self, w: Walkers, u, diff, sigma_w, scale_w, z):
         """First in-bounds of the R candidates per walker, and whether any was."""
         step = torch.einsum("rnj,nij->rni", z, w.chol)  # z_rn @ L_n^T
@@ -236,7 +252,7 @@ class MCMCKernel:
         acceptance uniforms; under a mesh, this rank's blocks of them. A
         chain that is done stays as it is."""
         dtype = s.u.dtype
-        active = ~s.done
+        active = self.going(s.done, s.iteration)
         iteration = s.iteration + 1
         sigmas = s.sigmas
         sigma_w = sigmas[w.assignments]
@@ -315,42 +331,20 @@ class MCMCKernel:
         s = self.initial_state(u, x, logl, modes.k_max, blobs)
         n, d = u.shape
         loops = loops or Loops(u.device)
+        keyed = getattr(draws, "keyed", False)
         if loops.graphed and not (
                 getattr(draws, "graph_safe", False) and draws.generator in loops.generators
                 and (getattr(draws, "calls", None) is None or draws.calls in loops.counters)):
             raise ValueError("a graphed MCMC loop needs graph-safe draws (draws.Draws, or a "
                              "draws.BlockDraws of them) whose generator (Loops.generators) and "
-                             "call counter (Loops.counters, HardwareDraws) are registered with "
-                             "its Loops")
+                             "call counter (Loops.counters) are registered with its Loops")
 
-        def body(c, k):
-            z, g, u_acc = draws.mcmc_step(self.n_candidates, n, d, k.get("gamma_shape"))
-            state = ChainState(**dict(c, blobs=c.get("blobs")))
-            return _tensors(self.step(Walkers(**dict(k, gamma_shape=k.get("gamma_shape"))),
-                                      state, z, g, u_acc))
-
-        run = loops.start("mcmc", body, _tensors(s), _tensors(w), static=(id(draws),))
-        chunk = loops.chunk("mcmc")
-        length = int(self.n_steps_min) if chunk > 1 else 1
-        tell, seek = getattr(draws, "tell", None), getattr(draws, "seek", None)
-        positions = []  # the draws' position before each step run
-        while True:
-            if tell is None:
-                run.advance(length)
-            elif run.graphed:  # every step advances each part of the position alike
-                p0 = tell()
-                run.advance(length)
-                positions += [_interpolate(p0, tell(), j, length) for j in range(length)]
-            else:
-                run.advance(length, before_body=lambda: positions.append(tell()))
-            done, steps = run.read("done", "iteration")
-            if done:
-                break
-            length = chunk
-        steps = int(steps)
-        if steps < len(positions):  # the chunk ran past the stop
-            seek(positions[steps])
-        out = run.result()
+        body = self.body(draws, n, d, keyed)
+        if keyed and loops.graphed:
+            out = loops.repeat("mcmc", self.pred, body, _tensors(s), _tensors(w),
+                               static=(id(draws),))
+        else:
+            out = self._chunks(loops, draws, body, _tensors(s), _tensors(w), keyed)
         s = ChainState(**dict(out, blobs=out.get("blobs")))
         k_mask = modes.k_mask
         mean_sigma = torch.sum(torch.where(k_mask, s.sigmas, torch.zeros_like(s.sigmas))) / (
@@ -360,6 +354,53 @@ class MCMCKernel:
             u=s.u, x=s.x, logl=s.logl, blobs=s.blobs,
             efficiency=mean_sigma / self.sigma_0,
             acceptance=s.alpha_mean,
-            steps=steps,
-            n_call_sweeps=steps,
+            steps=s.iteration,
+            n_call_sweeps=s.iteration,
         )
+
+    def pred(self, carry) -> torch.Tensor:
+        """The loop's predicate on its carry (`going`)."""
+        return self.going(carry["done"], carry["iteration"])
+
+    def body(self, draws, n: int, d: int, keyed: bool):
+        """The loop body of the chain: one step on `draws`' next draws, on
+        the carry and constants as dicts of tensors (`ChainState`,
+        `Walkers`); a keyed step draws only while the chain goes on."""
+        def body(c, k):
+            state = ChainState(**dict(c, blobs=c.get("blobs")))
+            extra = {"active": self.going(state.done, state.iteration)} if keyed else {}
+            z, g, u_acc = draws.mcmc_step(self.n_candidates, n, d, k.get("gamma_shape"), **extra)
+            return _tensors(self.step(Walkers(**dict(k, gamma_shape=k.get("gamma_shape"))),
+                                      state, z, g, u_acc))
+
+        return body
+
+    def _chunks(self, loops: Loops, draws, body, carry, consts, keyed: bool):
+        """The chain as the chunked loop "mcmc", the draws put back where a
+        chunk ran past the stop (keyed draws need not be)."""
+        run = loops.start("mcmc", body, carry, consts, static=(id(draws),))
+        chunk = loops.chunk("mcmc")
+        length = int(self.n_steps_min) if chunk > 1 else 1
+        tell, seek = (None, None) if keyed else (getattr(draws, "tell", None),
+                                                 getattr(draws, "seek", None))
+        positions = []  # the draws' position before each step run
+        ran = 0
+        while True:
+            ran += length
+            if tell is None:
+                run.advance(length)
+            elif run.graphed:  # every step advances the offset alike
+                p0 = tell()
+                run.advance(length)
+                positions += [_interpolate(p0, tell(), j, length) for j in range(length)]
+            else:
+                run.advance(length, before_body=lambda: positions.append(tell()))
+            done, steps = run.read("done", "iteration")
+            if done or steps >= self.n_steps_cap:
+                break
+            length = chunk
+        steps = int(steps)
+        loops.stats["mcmc"]["past_stop"] += ran - steps
+        if steps < len(positions):  # the chunk ran past the stop
+            seek(positions[steps])
+        return run.result()

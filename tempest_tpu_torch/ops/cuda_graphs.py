@@ -1,25 +1,35 @@
-"""Conditional IF nodes of a CUDA graph, for `loops.Loops.when`.
+"""Conditional IF and WHILE nodes of a CUDA graph, for `loops.Loops`.
 
 JAX runs the hierarchical fit's split rounds as `lax.cond`s and a
-`lax.while_loop` inside one device program (tempest_tpu/cluster.py:928-950).
-A captured CUDA graph expresses such a decision as a conditional IF node:
-its body graph runs at a launch only where a device flag is nonzero, so a
-replay decides on the device and reads nothing. The PyTorch release the
-port runs on has no call that makes one (later ones have
-`CUDAGraph.begin_capture_to_if_node`), so `csrc/graph_cond.cu` makes it
-with the CUDA runtime (`tempest_if_begin`, `tempest_if_end`; design note
-there), built by nvcc at first use and loaded with ctypes (`_build`).
+`lax.while_loop` inside one device program (tempest_tpu/cluster.py:928-950),
+and the adaptive MCMC chain as one `lax.while_loop` (tempest_tpu/mcmc.py:417).
+A captured CUDA graph expresses such decisions as conditional nodes: an IF
+node's body graph runs at a launch only where a device flag is nonzero, a
+WHILE node's body graph runs for as long as its flag, set again at the end
+of each run of the body, stays nonzero; so a replay decides on the device
+and reads nothing. The PyTorch release the port runs on has no call that
+makes one (later ones have `CUDAGraph.begin_capture_to_if_node`), so
+`csrc/graph_cond.cu` makes them with the CUDA runtime (`tempest_cond_begin`,
+`tempest_set_conditional`, `tempest_cond_end`; design note there), built by
+nvcc at first use and loaded with ctypes (`_build`).
 
 `if_body(pred, pool, stream)` captures what runs inside it on `stream` as
 the body of an IF node on the 0-d CUDA bool `pred`, placed after the work
-the current stream has captured so far. The body's allocations go to
+the current stream has captured so far; `while_body(pred, pool, stream)`
+as the body of a WHILE node, entered where `pred` holds and run again
+where the body leaves `pred` true (the body writes its predicate into that
+same tensor). The body's allocations go to
 `pool` (PyTorch's allocator routing, as `torch.cuda.use_mem_pool` does):
 a memory pool of the graph's bodies (`body_pool`), not the graph's own,
 to which PyTorch already routes the capture stream and which it routes
 only once. The pool keeps the bodies' memory for the replays until
 `release_pool`; bodies that run one after another in one graph may share
 it, as a body's temporaries die inside it. A refusal raises, naming
-CUDA's error; nothing falls back.
+CUDA's error; nothing falls back. A body whose capture fails after it
+began (a host read inside it) leaves CUDA unable to end the enclosing
+capture (the process died in cudaStreamEndCapture on an H100 with CUDA
+12.8), so `loops.Loops.repeat` runs its body once with PyTorch's sync
+check on before any capture, and a host read raises there.
 """
 
 from __future__ import annotations
@@ -35,14 +45,16 @@ from . import _build
 _PTR = ctypes.c_void_p
 LIBRARY = _build.CudaLibrary(
     "graph_cond.cu",
-    {"tempest_if_begin": [_PTR] * 3, "tempest_if_end": [_PTR] * 2,
-     "tempest_capture_nodes": [_PTR] * 2,
+    {"tempest_cond_begin": [_PTR, _PTR, _PTR, ctypes.c_int, _PTR],
+     "tempest_set_conditional": [_PTR, ctypes.c_uint64, _PTR],
+     "tempest_cond_end": [_PTR] * 2, "tempest_capture_nodes": [_PTR] * 2,
      "tempest_error_string": [ctypes.c_int, _PTR, ctypes.c_int64]},
 )
 
 # Launches of the one-thread kernel that sets a node's flag (`set_conditional`
-# in the source), one a node a graph launch: a capture counts each node's,
-# and `loops` puts them back and adds them again at every replay, as it
+# in the source): one a node a graph launch, and a WHILE node's one more
+# each time its body runs. A capture counts each; `loops` puts them back and
+# adds them again at every replay (a body's from its device word), as it
 # does for the kernels.
 LAUNCHES = 0
 
@@ -95,34 +107,74 @@ def capture_nodes(stream: torch.cuda.Stream) -> int:
     return n.value
 
 
+_IF, _WHILE = 0, 1
+
+
+def _check_pred(pred: torch.Tensor) -> None:
+    if pred.dtype != torch.bool or pred.dim() != 0 or pred.device.type != "cuda":
+        raise ValueError(f"a conditional node takes a 0-d CUDA bool, not {pred.dtype} "
+                         f"{tuple(pred.shape)} on {pred.device}")
+
+
+@contextlib.contextmanager
+def _cond_body(kind: int, pred: torch.Tensor, pool, stream: torch.cuda.Stream):
+    """Inside a graph capture on the current stream: capture the block's
+    work, on `stream` (made current), as the body of a conditional node of
+    `kind` on `pred`. Yields a record: its "handle", the node's, and at the
+    end its "nodes", the body's node count."""
+    _check_pred(pred)
+    begin, end = _routing()
+    lib = _build.load(LIBRARY)
+    index = _index(pred.device)
+    parent = torch.cuda.current_stream(pred.device)
+    handle = ctypes.c_uint64()
+    _check(lib.tempest_cond_begin(parent.cuda_stream, stream.cuda_stream, pred.data_ptr(), kind,
+                                  ctypes.byref(handle)),
+           "making a CUDA-graph conditional node")
+    record = {"handle": handle.value}
+    global LAUNCHES
+    LAUNCHES += 1
+    n = ctypes.c_int64()
+    try:
+        with torch.cuda.stream(stream):
+            begin(index, pool)
+            try:
+                yield record
+            finally:
+                end(index, pool)
+                torch._C._cuda_releasePool(index, pool)
+    except BaseException:
+        lib.tempest_cond_end(stream.cuda_stream, ctypes.byref(n))
+        raise
+    _check(lib.tempest_cond_end(stream.cuda_stream, ctypes.byref(n)),
+           "capturing a conditional node's body")
+    record["nodes"] = n.value
+
+
 @contextlib.contextmanager
 def if_body(pred: torch.Tensor, pool, stream: torch.cuda.Stream) -> Iterator[List[int]]:
     """Inside a graph capture on the current stream: capture the block's
     work, on `stream` (made current), as the body of an IF node on `pred`.
     The list it yields gets the body's node count at the end."""
-    if pred.dtype != torch.bool or pred.dim() != 0 or pred.device.type != "cuda":
-        raise ValueError(f"a conditional node takes a 0-d CUDA bool, not {pred.dtype} "
-                         f"{tuple(pred.shape)} on {pred.device}")
-    begin, end = _routing()
-    lib = _build.load(LIBRARY)
-    index = _index(pred.device)
-    parent = torch.cuda.current_stream(pred.device)
-    _check(lib.tempest_if_begin(parent.cuda_stream, stream.cuda_stream, pred.data_ptr()),
-           "making a CUDA-graph conditional node")
+    nodes: List[int] = []
+    with _cond_body(_IF, pred, pool, stream) as record:
+        yield nodes
+    nodes.append(record["nodes"])
+
+
+@contextlib.contextmanager
+def while_body(pred: torch.Tensor, pool, stream: torch.cuda.Stream) -> Iterator[List[int]]:
+    """Inside a graph capture on the current stream: capture the block's
+    work, on `stream` (made current), as the body of a WHILE node on `pred`:
+    the body runs where `pred` holds when the node is reached, and again
+    for as long as the block leaves `pred` (the same tensor) true, which
+    a flag kernel captured at the block's end reads. The list it yields
+    gets the body's node count at the end, that kernel included."""
     global LAUNCHES
-    LAUNCHES += 1
-    nodes, n = [], ctypes.c_int64()
-    try:
-        with torch.cuda.stream(stream):
-            begin(index, pool)
-            try:
-                yield nodes
-            finally:
-                end(index, pool)
-                torch._C._cuda_releasePool(index, pool)
-    except BaseException:
-        lib.tempest_if_end(stream.cuda_stream, ctypes.byref(n))
-        raise
-    _check(lib.tempest_if_end(stream.cuda_stream, ctypes.byref(n)),
-           "capturing a conditional node's body")
-    nodes.append(n.value)
+    nodes: List[int] = []
+    with _cond_body(_WHILE, pred, pool, stream) as record:
+        yield nodes
+        _check(_build.load(LIBRARY).tempest_set_conditional(
+            stream.cuda_stream, record["handle"], pred.data_ptr()), "setting a WHILE node's flag")
+        LAUNCHES += 1
+    nodes.append(record["nodes"])

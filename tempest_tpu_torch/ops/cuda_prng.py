@@ -15,15 +15,22 @@ where the JAX function composes 13 Pallas calls with elementwise XLA ops
 counter + 12 in the layout of `philox.gamma`, its plain version, so a run
 that resumes from a file written before keeps its stream.
 
-`PhiloxCounter` is the call counter of a draws object
-(`draws.HardwareDraws`): its key and call index live in two 64-bit words
-on the device, which the normal, gamma and mutation-draws kernels read, and
-in a host mirror. A step launches on the words and then adds its calls to
-them on the stream, so no launch takes a host integer that a CUDA graph
-would freeze, and a replayed graph draws the next calls. What is constant
-per counter (the checked key words, the device index, the words' address)
-is resolved once; a launch checks only its tensors and the 2^64 bound of
-the mirror. The C entries switch to the tensors' device themselves.
+`hw_uniform` is one launch of the bits kernel in its uniform mode
+(`tempest_uniform`), which maps the words to (0, 1] in registers.
+
+`PhiloxCounter` is the call counter of a draws object's MCMC steps
+(`draws.Draws` on its keyed route, `draws.HardwareDraws`): its key and call
+index live in two 64-bit words on the device, which the normal, uniform,
+gamma and mutation-draws kernels read. A step launches on the words and
+then adds its calls to them on the stream, times the step's 0-d `active`
+flag where it has one, so no launch takes a host integer that a CUDA graph
+would freeze, a replayed graph draws the next calls, and a step past the
+stop of its chain draws nothing new. The host mirror `counter` is read from
+the word when asked for (a checkpoint, a test), never by a launch.
+What is constant per counter (the checked key words, the device index, the
+words' address) is resolved once; a launch checks only its tensors (and,
+on the CPU, where the mirror costs nothing, the 2^64 bound of its call
+indices). The C entries switch to the tensors' device themselves.
 
 Dispatch is by device only, as in `ops/cuda_reweight.py`: a CPU tensor
 takes the plain version (given the mirror, for a counter), a CUDA float32
@@ -35,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -51,6 +58,8 @@ LIBRARY = _build.CudaLibrary(
         "tempest_normal": [_P, _I64, _U32, _U32, _U64, _P, _INT, _P],
         # (out, total, k0, k1, counter, device, stream)
         "tempest_bits": [_P, _I64, _U32, _U32, _U64, _INT, _P],
+        # (out, total, k0, k1, counter, state, device, stream)
+        "tempest_uniform": [_P, _I64, _U32, _U32, _U64, _P, _INT, _P],
         # (alpha, out, n_z, n_walkers, k0, k1, counter, state, device, stream)
         "tempest_mutation_draws": [_P, _P, _I64, _I64, _U32, _U32, _U64, _P, _INT, _P],
         # (alpha, out, n, k0, k1, counter, state, device, stream)
@@ -61,7 +70,8 @@ LIBRARY = _build.CudaLibrary(
     extra_flags=("-fmad=false",),
 )
 
-# Kernel launches made in this process, by kernel.
+# Kernel launches made in this process, by kernel ("bits" counts the bits
+# kernel in both modes, raw words and uniforms).
 LAUNCHES = {"mutation_draws": 0, "normal": 0, "bits": 0, "gamma": 0}
 
 _MAX_BLOCKS = 1 << 32  # the block index is one 32-bit counter word
@@ -135,6 +145,16 @@ def _normal(shape, device: torch.device, index: int, k0, k1, counter, state) -> 
     return out
 
 
+def _uniform(shape, device: torch.device, index: int, k0, k1, counter, state) -> torch.Tensor:
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    total = out.numel()
+    if total:
+        _build.check(_function("tempest_uniform")(
+            out.data_ptr(), total, k0, k1, counter, state, index, _stream(index)), "uniform")
+        LAUNCHES["bits"] += 1
+    return out
+
+
 def _gamma(alpha: torch.Tensor, index: int, k0, k1, counter, state) -> torch.Tensor:
     _check_alpha(alpha)
     out = torch.empty(alpha.shape, dtype=torch.float32, device=alpha.device)
@@ -204,8 +224,16 @@ def hw_bits(key: Key, counter: int, shape, device) -> torch.Tensor:
 
 
 def hw_uniform(key: Key, counter: int, shape, device) -> torch.Tensor:
-    """Uniforms in (0, 1] of `shape`: bits kernel plus the unit mapping."""
-    return philox.unit_open_closed(hw_bits(key, counter, shape, device))
+    """Uniforms in (0, 1] of `shape`: the bits kernel's words mapped as
+    `philox.unit_open_closed` maps them, in one launch."""
+    device = torch.device(device)
+    total = int(torch.Size(shape).numel())
+    k0, k1 = _check_key(key)
+    _check_calls(int(counter), 1, "hw_uniform")
+    _check_total(total)
+    if not _route(device, "hw_uniform"):
+        return philox.uniform(key, counter, total, device).reshape(shape)
+    return _uniform(shape, device, _index(device), k0, k1, counter, None)
 
 
 def hw_gamma(key: Key, counter: int, alpha: torch.Tensor) -> torch.Tensor:
@@ -241,16 +269,19 @@ def _as_int64(word: int) -> int:
 
 
 class PhiloxCounter:
-    """A key and a 64-bit call counter on `device`, mirrored on the host.
+    """A key and a 64-bit call counter on `device`.
 
     `state` holds two int64 words, the call counter and the key (k0 | k1 <<
-    32); `key` and `counter` are their host mirror. `normal`, `gamma` and
-    `mutation_draws` draw calls counter + offset on, as the public
-    functions with that call index would; on a CUDA device the kernels
-    read the index and key from `state`, on the CPU the plain versions are
-    given the mirror. `advance(calls)` moves both past a step's calls, the
-    device word by an add on the stream. `seek` and `set_key` write the
-    words outside any capture.
+    32); `key` is the key's host mirror and `counter` the counter's, read
+    from the word when asked for. `normal`, `uniform`, `gamma` and
+    `mutation_draws` draw calls counter + offset on, as the public functions
+    with that call index would; on a CUDA device the kernels read the index
+    and key from `state`, on the CPU the plain versions are given the word's
+    value. `advance(calls, active)` adds a step's calls to the word on the
+    stream, times the 0-d `active` flag where one is given. `seek` and
+    `set_key` write the words outside any capture. `issued` counts the draw
+    calls made through this object (a host count: a captured body that
+    draws shows in it).
     """
 
     def __init__(self, key: Key, device, counter: int = 0):
@@ -260,6 +291,7 @@ class PhiloxCounter:
         self._cuda = _route(self.device, "PhiloxCounter")
         self._index = self.state.device.index if self._cuda else -1
         self._state_ptr = self.state.data_ptr() if self._cuda else None
+        self.issued = 0
         self.set_key(key)
         self.seek(counter)
 
@@ -269,19 +301,26 @@ class PhiloxCounter:
         self.state[1:].fill_(_as_int64(k0 | k1 << 32))
 
     def seek(self, counter: int) -> None:
-        """Set the call counter (host mirror and device word) to `counter`."""
+        """Set the call counter (the device word) to `counter`."""
         counter = int(counter)
         _check_calls(counter, 0, "PhiloxCounter")
-        self.counter = counter
         self._word.fill_(_as_int64(counter))
 
-    def advance(self, calls: int) -> None:
-        """Count `calls` more call indices as used, on the host and the device."""
+    @property
+    def counter(self) -> int:
+        """The call counter, read from the device word (a host read on CUDA)."""
+        return int(self._word.item()) & (2**64 - 1)
+
+    def advance(self, calls: int, active: Optional[torch.Tensor] = None) -> None:
+        """Count `calls` more call indices as used, times `active` (a 0-d
+        bool) where given, on the device word."""
         if calls:
-            self.counter += calls
-            self._word.add_(calls)
+            self._word.add_(calls if active is None else active.to(torch.int64) * calls)
 
     def _first(self, offset: int, calls: int, what: str) -> int:
+        """The first call index of a draw by the plain versions (on the
+        CPU, where reading the word costs no device sync), checked to fit
+        64 bits with its `calls`."""
         first = self.counter + offset
         _check_calls(first, calls, what)
         return first
@@ -291,27 +330,38 @@ class PhiloxCounter:
             raise ValueError(f"alpha on {alpha.device}, the call counter on {self.state.device}")
 
     def normal(self, offset: int, shape) -> torch.Tensor:
-        first = self._first(offset, 1, "normal")
         total = math.prod(shape)
         _check_total(total)
+        self.issued += 1
         if not self._cuda:
-            return philox.normal(self.key, first, total, self.device).reshape(shape)
+            return philox.normal(self.key, self._first(offset, 1, "normal"), total,
+                                 self.device).reshape(shape)
         return _normal(shape, self.device, self._index, 0, 0, offset, self._state_ptr)
 
+    def uniform(self, offset: int, shape) -> torch.Tensor:
+        total = math.prod(shape)
+        _check_total(total)
+        self.issued += 1
+        if not self._cuda:
+            return philox.uniform(self.key, self._first(offset, 1, "uniform"), total,
+                                  self.device).reshape(shape)
+        return _uniform(shape, self.device, self._index, 0, 0, offset, self._state_ptr)
+
     def gamma(self, offset: int, alpha: torch.Tensor) -> torch.Tensor:
-        first = self._first(offset, philox.GAMMA_CALLS, "gamma")
         self._check_device(alpha)
         _check_total(alpha.numel())
+        self.issued += 1
         if not self._cuda:
-            return philox.gamma(self.key, first, alpha)
+            return philox.gamma(self.key, self._first(offset, philox.GAMMA_CALLS, "gamma"), alpha)
         return _gamma(alpha, self._index, 0, 0, offset, self._state_ptr)
 
     def mutation_draws(self, offset: int, alpha: torch.Tensor, z_shape):
         _check_mutation_shapes(alpha, z_shape)
         self._check_device(alpha)
-        first = self._first(offset, 1, "mutation_draws")
+        self.issued += 1
         if not self._cuda:
-            return philox.mutation_draws(self.key, first, alpha, z_shape)
+            return philox.mutation_draws(self.key, self._first(offset, 1, "mutation_draws"),
+                                         alpha, z_shape)
         return _mutation_draws(alpha, z_shape, self._index, 0, 0, offset, self._state_ptr)
 
     def read(self) -> Tuple[int, Key]:

@@ -15,7 +15,8 @@ Block `i` of sub-stream `s` of that call encrypts the counter words
 
 - normals (stream 0): block i gives elements 4i..4i+3 by paired
   Box-Muller, (r cos t, r sin t) from words (0, 1) and from words (2, 3);
-- bits (stream 0): block i gives elements 4i..4i+3, the words themselves;
+- bits (stream 0): block i gives elements 4i..4i+3, the words themselves
+  (uniforms: those words mapped to (0, 1]);
 - gamma draws (`gamma`, the plain version of the gamma kernel): walker
   4i + j's Marsaglia-Tsang round r takes normal j of block i of call
   counter + 2r and word j of block i of call counter + 2r + 1, its boost
@@ -63,6 +64,22 @@ def key_from_seed(seed: int) -> Key:
     if seed < 0:
         raise ValueError(f"seed must be non-negative, got {seed}")
     return seed & MASK32, (seed >> 32) & MASK32
+
+
+# The key of the step draws of `draws.Draws` (hardware_prng off): the seed's
+# words encrypted under this key, so that seed s gives another key there than
+# `key_from_seed(s)` gives `hardware_prng=True` ("DRAW" and "STEP" in ASCII).
+DRAWS_KEY = (0x44524157, 0x53544550)
+
+
+def draws_key(seed: int) -> Key:
+    """The key of the keyed MCMC step draws of a run seeded `seed` with
+    `hardware_prng` off: words 0 and 1 of the Philox block (seed_lo,
+    seed_hi, 0, 0) under `DRAWS_KEY`."""
+    lo, hi = key_from_seed(seed)
+    words = philox4x32(*(torch.tensor([w], dtype=torch.int64) for w in (lo, hi, 0, 0)),
+                       DRAWS_KEY)
+    return int(words[0]), int(words[1])
 
 
 def _mulhilo(m: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -128,6 +145,12 @@ def bits(key: Key, counter: int, total: int, device) -> torch.Tensor:
     """(total,) raw 32-bit words as int32 bit patterns (kernel 4)."""
     words = torch.stack(_blocks(-(-total // 4), STREAM_BITS, counter, key, device), dim=1)
     return as_int32_bits(words.reshape(-1)[:total])
+
+
+def uniform(key: Key, counter: int, total: int, device) -> torch.Tensor:
+    """(total,) float32 uniforms in (0, 1]: the words of `bits` mapped by
+    `unit_open_closed` (the bits kernel's uniform mode)."""
+    return unit_open_closed(bits(key, counter, total, device))
 
 
 def mt_setup(alpha: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -78,7 +78,10 @@ class Current:
     """Active particle set and per-iteration scalars (state.py:212-229).
 
     The float scalars are 0-d tensors on the device, so the loop reads them
-    on the host only where it branches; the counters are Python integers.
+    on the host only where it branches; `iteration` is a Python integer,
+    `steps` and `calls` Python integers or, after an MCMC mutation, 0-d
+    int32 tensors on the device (its step count is never read on the
+    host: `int()` them where they are reported).
     """
 
     u: torch.Tensor  # (N, d)
@@ -91,8 +94,8 @@ class Current:
     cv: torch.Tensor
     acceptance: torch.Tensor
     efficiency: torch.Tensor
-    steps: int
-    calls: int  # cumulative likelihood-call sweeps (see History.calls)
+    steps: Union[int, torch.Tensor]
+    calls: Union[int, torch.Tensor]  # cumulative likelihood-call sweeps (see History.calls)
     iteration: int
     blobs: Optional[torch.Tensor] = None  # (N, B) blob rows, or None
 
@@ -252,7 +255,8 @@ def commit(hist: History, cur: Current) -> History:
     hist.cv[t] = cur.cv
     hist.acceptance[t] = cur.acceptance
     hist.efficiency[t] = cur.efficiency
-    # Host counters go in by fill: assigning a Python number copies from the host.
+    # Counters go in by fill: assigning a Python number copies from the host,
+    # and a 0-d device tensor fills on the device.
     hist.steps[t:t + 1].fill_(cur.steps)
     hist.calls[t:t + 1].fill_(cur.calls)
     hist.t = t + 1

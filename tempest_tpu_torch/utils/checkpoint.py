@@ -95,7 +95,7 @@ def _state_arrays(hist: History, cur: Current) -> Dict[str, np.ndarray]:
     arrays = {f"hist.{k}": fetch(getattr(hist, k)) for k in HISTORY_FIELDS}
     arrays["hist.t"] = np.asarray(hist.t, dtype=np.int32)
     arrays.update({f"cur.{k}": fetch(getattr(cur, k)) for k in CURRENT_FIELDS})
-    arrays.update({f"cur.{k}": np.asarray(getattr(cur, k), dtype=np.int32)
+    arrays.update({f"cur.{k}": np.asarray(int(getattr(cur, k)), dtype=np.int32)
                    for k in CURRENT_COUNTERS})
     if hist.blobs is not None:
         arrays["hist.blobs"] = fetch(hist.blobs)

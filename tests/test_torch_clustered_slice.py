@@ -113,8 +113,6 @@ def test_bimodal_clustered_run():
 def test_hardware_prng_gaussian_run(route, monkeypatch):
     if route == "separate":  # the large-ensemble route, at CPU size
         monkeypatch.setattr(draws_mod, "FUSED_DRAWS_MAX_ELEMS", 0)
-        monkeypatch.setattr(draws_mod, "HW_NORMAL_MIN_ELEMS", 1)
-        monkeypatch.setattr(draws_mod, "HW_GAMMA_MIN_WALKERS", 1)
     s = Sampler(_prior, _gauss_t, n_dim=D, n_particles=N, vectorize=True, clustering=True,
                 hardware_prng=True, k_max=4, random_state=2, history_capacity=32, device="cpu")
     s.run(n_total=512, progress=False)
@@ -122,5 +120,5 @@ def test_hardware_prng_gaussian_run(route, monkeypatch):
     assert abs(s.evidence()[0] - ANALYTIC_LOGZ) < 0.5
     res = s.results()
     steps = int(res["steps"][res["beta"] > 0].sum())  # the MCMC steps; beta = 0 is warm-up
-    per_step = 1 if route == "fused" else philox.GAMMA_CALLS + 1
+    per_step = 1 if route == "fused" else philox.GAMMA_CALLS + 2
     assert s.state.draws.counter == per_step * steps

@@ -31,12 +31,18 @@ MCMC steps) gives the eager chunk's values bit for bit and draws the eager
 step's numbers; the ESS kernel captures, and each replay counts its launch;
 `run(on_device=True)` repeats `on_device=False` bit for bit; a likelihood
 that reads the host fails its capture with an error naming on_device=False.
-With `hardware_prng=True` in float32 the PRNG kernels read their call
-counter from the device (`cuda_prng.PhiloxCounter`): on each of the three
-routes of `HardwareDraws` (thresholds lowered) a graphed MCMC loop and a
+In float32 every MCMC step draw comes from the PRNG kernels, which read
+their call counter from the device (`cuda_prng.PhiloxCounter`), for `Draws`
+and `HardwareDraws` alike, and graphed the chain is one CUDA-graph WHILE
+node (`Loops.repeat`; eagerly chunks): a WHILE node runs its body 0, 1, 5
+and cap times as the eager loop does; the keyed draws and the bits kernel's
+uniform mode equal their plain versions; on each routing of the step's
+draws (the mutation-draws kernel's limit lowered) a graphed MCMC loop and a
 graphed run repeat the eager ones bit for bit, with the same kernel
-launches and the same final call counter on the host and on the device,
-and a capture leaves the counter where it was.
+launches but those of the eager chunks' steps past the stop, the same
+final call counter and no move of the generator's offset; a capture leaves
+the counter where it was; a WHILE node that cannot be made fails the
+capture, with no fallback.
 
 The eigenvalue kernel (`ops.cuda_linalg`, csrc/sym_eigvals.cu) against
 torch.linalg.eigvalsh of the float64 copy at d = 1 to 240 (each side of
@@ -453,15 +459,33 @@ def _loops(device, graphs, generators=(), counters=()):
                  counters=list(counters))
 
 
-# HardwareDraws' routes at N walkers and R N d normals, by threshold:
-# "mutation" the mutation-draws kernel (tpCN), "large" the gamma and normal
-# kernels, "below" the generator alone.
-def _hw_route(monkeypatch, route, n, n_z):
-    values = {"mutation": (1 << 19, 1 << 16, 1 << 20), "large": (0, n, n_z),
-              "below": (0, n + 1, n_z + 1)}[route]
-    for name, value in zip(("FUSED_DRAWS_MAX_ELEMS", "HW_GAMMA_MIN_WALKERS",
-                            "HW_NORMAL_MIN_ELEMS"), values):
-        monkeypatch.setattr(draws_mod, name, value)
+# The keyed steps' routes, by the mutation-draws kernel's size limit:
+# "mutation" that kernel (tpCN), "large" the gamma, normal and uniform
+# kernels (the uniform mode of the bits kernel).
+def _hw_route(monkeypatch, route):
+    monkeypatch.setattr(draws_mod, "FUSED_DRAWS_MAX_ELEMS",
+                        {"mutation": 1 << 19, "large": 0}[route])
+
+
+# The PRNG kernels a keyed step launches, by method and route.
+STEP_LAUNCHES = {("tpcn", "mutation"): {"mutation_draws": 1},
+                 ("tpcn", "large"): {"gamma": 1, "normal": 1, "bits": 1},
+                 ("rwm", "mutation"): {"normal": 1, "bits": 1},
+                 ("rwm", "large"): {"normal": 1, "bits": 1}}
+
+
+def _without_past_stop(launches, loops, per_step):
+    """An eager chain's launch counts less those of the steps its chunks ran
+    past the stop (`stats["mcmc"]["past_stop"]`, per_step launches each),
+    which a WHILE node does not run."""
+    past = loops.stats["mcmc"]["past_stop"]
+    return {k: v - past * per_step.get(k, 0) for k, v in launches.items()}
+
+
+class KeyedDraws(Draws):
+    """`Draws` with its keyed steps on the CPU too (the plain versions)."""
+
+    KEYED_ON_CPU = True
 
 
 def _points(device, seed, n=4096, d=10, k=3):
@@ -581,43 +605,150 @@ def test_graphed_hgm_fit_on_a_fit_inputs(cuda_device):
     assert rounds[0][0] >= 2, rounds
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("method", ["tpcn", "rwm"])
-def test_graphed_mcmc_equals_eager(cuda_device, method):
-    g = torch.Generator(device=cuda_device)
+def _a_chain(device, method="tpcn", n=1024, d=10):
+    """An MCMC chain at A's shapes (N = 1024, d = 10) whose proposals are
+    wider than the target: it runs past n_steps d."""
+    g = torch.Generator(device=device)
     g.manual_seed(7)
-    n, d = 1024, 10
-    u = 0.5 + 0.02 * torch.randn(n, d, generator=g, device=cuda_device)
-    modes = tm.make_mode_statistics(torch.full((d,), 0.5, device=cuda_device),
-                                    1e-2 * torch.eye(d, device=cuda_device),
-                                    torch.tensor(6.0, device=cuda_device))
+    u = 0.5 + 0.02 * torch.randn(n, d, generator=g, device=device)
+    modes = tm.make_mode_statistics(torch.full((d,), 0.5, device=device),
+                                    1e-2 * torch.eye(d, device=device),
+                                    torch.tensor(6.0, device=device))
 
-    def loglike(x):  # proposals wider than the target: the chain runs past n_steps d
+    def loglike(x):
         return -8.0 * torch.sum(x * x, dim=-1)
 
     kernel = MCMCKernel(lambda x: (loglike(x), None), lambda v: 20.0 * v - 10.0, d,
                         method=method)
     x = 20.0 * u - 10.0
-    assign = torch.zeros(n, dtype=torch.int32, device=cuda_device)
-    beta = torch.tensor(0.3, device=cuda_device)
+    return kernel, (u, x, loglike(x), torch.zeros(n, dtype=torch.int32, device=device),
+                    torch.tensor(0.3, device=device), modes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["tpcn", "rwm"])
+def test_graphed_mcmc_equals_eager(cuda_device, method):
+    """At A's shapes the chain on keyed draws is one WHILE node graphed: the
+    eager chunks' values, steps and final call counter bit for bit, and
+    their launches less those of the steps past the stop; the body run once
+    a step (counted on the device), and the generator's offset unmoved by
+    the graphed mutation."""
+    kernel, args = _a_chain(cuda_device, method)
     draws = Draws(11, cuda_device)
-    graphed = _loops(cuda_device, True, [draws.generator])
-    for _ in range(2):  # the second run replays the first run's graphs
-        start = draws.tell()
-        want = kernel(draws, u, x, loglike(x), assign, beta, modes,
-                      loops=_loops(cuda_device, False))
-        end = draws.tell()
-        draws.seek(start)
-        got = kernel(draws, u, x, loglike(x), assign, beta, modes, loops=graphed)
-        assert draws.tell() == end
-        assert got.steps == want.steps > kernel.n_steps_min
+    assert draws.keyed and draws.calls is not None
+    graphed = _loops(cuda_device, True, [draws.generator], [draws.calls])
+    for _ in range(2):  # the second run replays the first run's graph
+        start, offset = draws.counter, draws.generator.get_offset()
+        before = launch_counts()
+        eager_loops = _loops(cuda_device, False)
+        want = kernel(draws, *args, loops=eager_loops)
+        eager = _without_past_stop({k: v - before[k] for k, v in launch_counts().items()},
+                                   eager_loops, STEP_LAUNCHES[method, "mutation"])
+        end = draws.counter
+        draws.calls.seek(start)
+        before, runs = launch_counts(), graphed.stats["mcmc"]["node_bodies"]
+        got = kernel(draws, *args, loops=graphed)
+        replayed = {k: v - before[k] for k, v in launch_counts().items()}
+        assert draws.counter == end == start + int(want.steps) * (1 if method == "tpcn" else 2)
+        assert draws.generator.get_offset() == offset
+        assert torch.equal(got.steps, want.steps) and int(want.steps) > kernel.n_steps_min
         for name in ("u", "x", "logl", "efficiency", "acceptance"):
             assert torch.equal(getattr(got, name), getattr(want, name)), name
-    assert graphed.stats["mcmc"]["captures"] >= 2  # the first chunk and a later one
+        assert {k: v for k, v in replayed.items() if k != "set_conditional"} == {
+            k: v for k, v in eager.items() if k != "set_conditional"}
+        assert graphed.stats["mcmc"]["node_bodies"] - runs == int(want.steps)
+    stats = graphed.stats["mcmc"]
+    assert stats["captures"] == 1 and stats["replays"] == 2 and "reads" not in stats
+
+
+@pytest.mark.cuda
+def test_graphed_mutation_leaves_the_generator_offset(cuda_device):
+    """A graphed mutation of A's shapes in a Sampler draws nothing from the
+    CUDA generator: its Philox offset is the same before and after the
+    MCMC replays, and only the call counter's word moves."""
+    kernel, args = _a_chain(cuda_device)
+    draws = Draws(3, cuda_device)
+    loops = _loops(cuda_device, True, [draws.generator], [draws.calls])
+    kernel(draws, *args, loops=loops)  # captures
+    offset, counter = draws.generator.get_offset(), draws.counter
+    res = kernel(draws, *args, loops=loops)
+    assert draws.generator.get_offset() == offset
+    assert draws.counter == counter + int(res.steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("runs", [0, 1, 5, "cap"])
+def test_while_node_runs_its_body_as_the_eager_loop(cuda_device, runs):
+    """A WHILE node (Loops.repeat, graphed) runs its body 0, 1, 5 and cap
+    times, as the eager loop does: the same carry, its body's launches
+    counted from the device word, and the cap holding where the stop never
+    comes."""
+    cap = 12
+    stop = {0: 0, 1: 1, 5: 5, "cap": 10 ** 6}[runs]
+    want_runs = min(stop, cap)
+    alpha = torch.full((64,), 2.5, device=cuda_device)
+    draws = Draws(1, cuda_device)
+
+    def pred(c):
+        return (c["i"] < c["stop"]) & (c["i"] < cap)
+
+    def body(c, k):
+        z, g, u = draws.mcmc_step(2, 64, 3, k["alpha"], active=pred(c))
+        return dict(i=c["i"] + 1, stop=c["stop"], acc=c["acc"] + g.sum() + u.sum() + z.sum())
+
+    carry = dict(i=torch.zeros((), dtype=torch.int32, device=cuda_device),
+                 stop=torch.full((), stop, dtype=torch.int32, device=cuda_device),
+                 acc=torch.zeros((), device=cuda_device))
+    eager_loops = _loops(cuda_device, False)
+    before = launch_counts()["mutation_draws"]
+    want = eager_loops.repeat("loop", pred, body, carry, dict(alpha=alpha))
+    assert launch_counts()["mutation_draws"] - before == want_runs
+    assert int(want["i"]) == want_runs == draws.counter
+    draws.calls.seek(0)
+    graphed = _loops(cuda_device, True, [draws.generator], [draws.calls])
+    for _ in range(2):
+        draws.calls.seek(0)
+        before = launch_counts()["mutation_draws"]
+        got = graphed.repeat("loop", pred, body, carry, dict(alpha=alpha))
+        assert launch_counts()["mutation_draws"] - before == want_runs
+        assert draws.counter == want_runs
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    assert graphed.stats["loop"]["node_bodies"] == 2 * want_runs
+    assert graphed.stats["loop"]["captures"] == 1 and "reads" not in graphed.stats["loop"]
+
+
+@pytest.mark.cuda
+def test_keyed_draws_match_their_plain_versions(cuda_device, monkeypatch):
+    """A keyed step on the card against the same step on the CPU's plain
+    versions, on both routings (the mutation-draws kernel; gamma, normal
+    and the bits kernel's uniform mode): the same counter, uniforms and
+    normals within 1e-5, gamma draws within 1e-5 relative but for a few
+    flips; and the uniform mode against philox.uniform, exact."""
+    key = philox.draws_key(21)
+    for total in (1, 1001, 131072):
+        got = cuda_prng.hw_uniform(key, 5, (total,), cuda_device)
+        assert torch.equal(got.cpu(), philox.uniform(key, 5, total, "cpu"))
+    n, d = 1024, 10
+    alpha = torch.linspace(0.3, 9.0, n)
+    for route in ("mutation", "large"):
+        if route == "large":
+            monkeypatch.setattr(draws_mod, "FUSED_DRAWS_MAX_ELEMS", 0)
+        card, cpu = Draws(21, cuda_device), KeyedDraws(21, "cpu")
+        for active in (True, False, True):
+            flag = torch.tensor(active)
+            zc, gc, uc = card.mcmc_step(8, n, d, alpha.to(cuda_device), flag.to(cuda_device))
+            zp, gp, up = cpu.mcmc_step(8, n, d, alpha, flag)
+            assert card.counter == cpu.counter
+            assert torch.allclose(zc.cpu(), zp, atol=1e-5, rtol=0)
+            assert torch.allclose(uc.cpu(), up, atol=1e-5, rtol=0)
+            assert _gamma_mismatches(gc.cpu(), gp) <= max(1, int(1e-4 * n))
 
 
 @pytest.mark.cuda
 def test_graphed_draws_are_the_eager_steps_draws(cuda_device):
+    """A chunk of keyed steps replayed from its graph draws what the eager
+    steps drew, from the counter's device word, which each replay advances;
+    the generator's offset moves with neither."""
     draws = Draws(13, cuda_device)
     shape = torch.full((1024,), 7.5, device=cuda_device)
 
@@ -628,15 +759,16 @@ def test_graphed_draws_are_the_eager_steps_draws(cuda_device):
     carry = dict(z=torch.zeros(8, 1024, 10, device=cuda_device),
                  g=torch.zeros(1024, device=cuda_device), u=torch.zeros(1024, device=cuda_device),
                  go=torch.ones((), dtype=torch.bool, device=cuda_device))
-    start = draws.tell()
+    start, offset = draws.counter, draws.tell()
     eager = [draws.mcmc_step(8, 1024, 10, shape) for _ in range(3)]
-    step = (draws.tell() - start) // 3
-    draws.seek(start)
-    run = _loops(cuda_device, True, [draws.generator]).start("draws", body, carry,
-                                                               dict(shape=shape))
+    step = (draws.counter - start) // 3
+    assert step == 1 and draws.tell() == offset
+    draws.calls.seek(start)
+    run = _loops(cuda_device, True, [draws.generator], [draws.calls]).start(
+        "draws", body, carry, dict(shape=shape))
     for i, (z, g, u) in enumerate(eager):
         run.advance(1)
-        assert draws.tell() == start + (i + 1) * step
+        assert draws.counter == start + (i + 1) * step and draws.tell() == offset
         assert torch.equal(run.carry["z"], z) and torch.equal(run.carry["g"], g)
         assert torch.equal(run.carry["u"], u)
 
@@ -714,10 +846,10 @@ def test_per_point_likelihood_with_blobs_captures(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["mutation", "large", "below"])
+@pytest.mark.parametrize("route", ["mutation", "large"])
 def test_graphed_hardware_prng_mcmc_equals_eager(cuda_device, route, monkeypatch):
     n, d = 1024, 10
-    _hw_route(monkeypatch, route, n, 8 * n * d)
+    _hw_route(monkeypatch, route)
     g = torch.Generator(device=cuda_device)
     g.manual_seed(7)
     u = 0.5 + 0.02 * torch.randn(n, d, generator=g, device=cuda_device)
@@ -733,33 +865,39 @@ def test_graphed_hardware_prng_mcmc_equals_eager(cuda_device, route, monkeypatch
     assign = torch.zeros(n, dtype=torch.int32, device=cuda_device)
     beta = torch.tensor(0.3, device=cuda_device)
     draws = HardwareDraws(11, cuda_device)
+    assert draws.keyed
     graphed = _loops(cuda_device, True, [draws.generator], [draws.calls])
-    per_step = {"mutation": 1, "large": philox.GAMMA_CALLS + 1, "below": 0}[route]
+    # Keyed, the size limit routes between the kernels only, never to the
+    # generator.
+    per_step = {"mutation": 1, "large": philox.GAMMA_CALLS + 2}[route]
     for _ in range(2):  # the second run replays the first run's graphs
-        start = draws.tell()
-        before = dict(cuda_prng.LAUNCHES)
-        want = kernel(draws, u, x, loglike(x), assign, beta, modes,
-                      loops=_loops(cuda_device, False))
-        eager = {k: v - before[k] for k, v in cuda_prng.LAUNCHES.items()}
-        end = draws.tell()
-        draws.seek(start)
-        before = dict(cuda_prng.LAUNCHES)
+        start, offset = draws.counter, draws.tell()
+        before = launch_counts()
+        eager_loops = _loops(cuda_device, False)
+        want = kernel(draws, u, x, loglike(x), assign, beta, modes, loops=eager_loops)
+        eager = _without_past_stop(
+            {k: v - before[k] for k, v in launch_counts().items() if k in cuda_prng.LAUNCHES},
+            eager_loops, STEP_LAUNCHES["tpcn", route])
+        end = draws.counter
+        draws.calls.seek(start)
+        before = launch_counts()
         got = kernel(draws, u, x, loglike(x), assign, beta, modes, loops=graphed)
-        replayed = {k: v - before[k] for k, v in cuda_prng.LAUNCHES.items()}
-        assert draws.tell() == end and draws.calls.read() == (end[1], draws.key)
-        assert end[1] - start[1] == per_step * want.steps
-        assert replayed == eager
+        replayed = {k: v - before[k] for k, v in launch_counts().items()
+                    if k in cuda_prng.LAUNCHES}
+        assert draws.counter == end and draws.calls.read() == (end, draws.key)
+        assert end - start == per_step * want.steps and draws.tell() == offset
+        assert eager_loops.stats["mcmc"]["past_stop"] > 0 and replayed == eager
         assert got.steps == want.steps > kernel.n_steps_min
         for name in ("u", "x", "logl", "efficiency", "acceptance"):
             assert torch.equal(getattr(got, name), getattr(want, name)), name
-    assert graphed.stats["mcmc"]["captures"] >= 2 and graphed.stats["mcmc"]["replays"] >= 4
+    assert graphed.stats["mcmc"]["captures"] == 1 and graphed.stats["mcmc"]["replays"] == 2
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("route", ["mutation", "large"])
 def test_capture_leaves_the_call_counter(cuda_device, route, monkeypatch):
     n, d = 1024, 10
-    _hw_route(monkeypatch, route, n, 8 * n * d)
+    _hw_route(monkeypatch, route)
     draws = HardwareDraws(13, cuda_device)
     draws.calls.seek(1 << 32)  # the counter's high word in use
     shape = torch.full((n,), 7.5, device=cuda_device)
@@ -768,11 +906,11 @@ def test_capture_leaves_the_call_counter(cuda_device, route, monkeypatch):
         z, g, u = draws.mcmc_step(8, n, d, k["shape"])
         return dict(z=z, g=g, u=u, go=c["go"])
 
-    start = draws.tell()
+    start, offset = draws.counter, draws.tell()
     eager = [draws.mcmc_step(8, n, d, shape) for _ in range(2)]
-    per_step = (draws.counter - start[1]) // 2
-    assert per_step == {"mutation": 1, "large": philox.GAMMA_CALLS + 1}[route]
-    draws.seek(start)
+    per_step = (draws.counter - start) // 2
+    assert per_step == {"mutation": 1, "large": philox.GAMMA_CALLS + 2}[route]
+    draws.calls.seek(start)
     carry = dict(z=torch.zeros(8, n, d, device=cuda_device), g=torch.zeros(n, device=cuda_device),
                  u=torch.zeros(n, device=cuda_device),
                  go=torch.ones((), dtype=torch.bool, device=cuda_device))
@@ -781,11 +919,11 @@ def test_capture_leaves_the_call_counter(cuda_device, route, monkeypatch):
     launches = dict(cuda_prng.LAUNCHES)
     loops._graph(run._key, body, run.carry, run.consts, 1)  # capture only
     torch.cuda.synchronize()
-    assert draws.tell() == start and draws.calls.read() == (start[1], draws.key)
-    assert cuda_prng.LAUNCHES == launches
+    assert draws.counter == start and draws.calls.read() == (start, draws.key)
+    assert cuda_prng.LAUNCHES == launches and draws.tell() == offset
     for i, (z, g, u) in enumerate(eager):
         run.advance(1)  # a replay of the captured step
-        assert draws.tell()[1] == start[1] + (i + 1) * per_step
+        assert draws.counter == start + (i + 1) * per_step
         assert draws.calls.read() == (draws.counter, draws.key)
         assert torch.equal(run.carry["z"], z) and torch.equal(run.carry["u"], u)
         assert torch.equal(run.carry["g"], g)
@@ -794,12 +932,13 @@ def test_capture_leaves_the_call_counter(cuda_device, route, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["mutation", "large", "below"])
+@pytest.mark.parametrize("route", ["mutation", "large"])
 def test_hardware_prng_run_on_device_repeats_on_device_false(cuda_device, route, monkeypatch):
     """A whole float32 hardware_prng run (N = 256, d = 4, R N d = 8,192) on
-    each route, with and without graphs: the same results, launches and
-    call counter."""
-    _hw_route(monkeypatch, route, 256, 8 * 256 * 4)
+    each route, with and without graphs: the same results and call counter,
+    and the same launches but those of the eager chunks' steps past the
+    stop."""
+    _hw_route(monkeypatch, route)
 
     def loglike(x):  # paired 4-D Rosenbrock: chains run past their first chunk
         return -torch.sum(100.0 * (x[..., 1::2] - x[..., ::2] ** 2) ** 2
@@ -811,24 +950,30 @@ def test_hardware_prng_run_on_device_repeats_on_device_false(cuda_device, route,
                     vectorize=True, k_max=4, random_state=2, history_capacity=32,
                     hardware_prng=True, device=cuda_device)
         assert s.state.fused
-        before = {**cuda_prng.LAUNCHES, "ess": cuda_reweight.LAUNCHES}
+        before = launch_counts()
         s.run(n_total=1024, progress=False, on_device=on_device)
-        after = {**cuda_prng.LAUNCHES, "ess": cuda_reweight.LAUNCHES}
+        after = launch_counts()
         launches.append({k: v - before[k] for k, v in after.items()})
         runs.append(s)
     (off, on), (r_off, r_on) = runs, (runs[0].results(), runs[1].results())
     for name in ("beta", "logz", "steps", "calls"):
         assert r_on[name].tobytes() == r_off[name].tobytes(), name
-    assert on.evidence()[0] == off.evidence()[0] and launches[0] == launches[1]
-    # One launch a step run: the real steps and those a chunk ran past the
-    # stop (whose draws are put back), in both modes.
-    bodies = [x.state._iteration.loops.stats["mcmc"]["bodies"] for x in (off, on)]
-    assert bodies[0] == bodies[1] >= int(r_on["steps"][r_on["beta"] > 0].sum())
-    kernel = {"mutation": "mutation_draws", "large": "gamma", "below": None}[route]
-    if kernel:
-        assert launches[1][kernel] == bodies[1]
-    else:
-        assert all(launches[1][k] == 0 for k in cuda_prng.LAUNCHES)
+    launches[1].pop("set_conditional")  # the graphs' node flags: none eagerly
+    assert launches[0].pop("set_conditional") == 0
+    off_loops = off.state._iteration.loops
+    assert on.evidence()[0] == off.evidence()[0]
+    assert _without_past_stop(launches[0], off_loops, STEP_LAUNCHES["tpcn", route]) == launches[1]
+    # One launch a step body in both modes: the eager chunks run past the
+    # stop (counted apart), and the WHILE node runs its body once a real
+    # step (counted on the device).
+    launch_counts()
+    steps = int(r_on["steps"][r_on["beta"] > 0].sum())
+    past = off_loops.stats["mcmc"]["past_stop"]
+    bodies = [off_loops.stats["mcmc"]["bodies"],
+              on.state._iteration.loops.stats["mcmc"]["node_bodies"]]
+    assert bodies[0] - past == bodies[1] == steps and past > 0
+    kernel = {"mutation": "mutation_draws", "large": "gamma"}[route]
+    assert launches[1][kernel] == bodies[1] and launches[0][kernel] == bodies[0]
     s_on, s_off = on.state.draws.get_state(), off.state.draws.get_state()
     assert all(s_on[k].tobytes() == s_off[k].tobytes() for k in s_off)
     assert on.state.draws.calls.read() == (off.state.draws.counter, off.state.draws.key)
@@ -863,8 +1008,9 @@ _HOST_READ_RUN = textwrap.dedent("""
 def test_capture_of_a_host_read_raises(cuda_device):
     # A failed capture leaves the process's CUDA libraries in an uncertain
     # state, so it runs in a process of its own.
-    proc = subprocess.run([sys.executable, "-c", _HOST_READ_RUN], capture_output=True, text=True,
-                          timeout=300, cwd=Path(__file__).resolve().parents[1])
+    proc = subprocess.run([sys.executable, "-X", "faulthandler", "-c", _HOST_READ_RUN],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=Path(__file__).resolve().parents[1])
     assert "EAGER_OK 1.0" in proc.stdout, proc.stdout + proc.stderr[-3000:]
     assert "CAPTURE_ERROR" in proc.stdout, proc.stdout + proc.stderr[-3000:]
     assert "'mcmc' loop" in proc.stdout and "on_device=False" in proc.stdout, proc.stdout
@@ -894,6 +1040,45 @@ _REFUSED_NODE_RUN = textwrap.dedent("""
     else:
         print("NO_ERROR")
 """)
+
+
+_REFUSED_WHILE_RUN = textwrap.dedent("""
+    import contextlib
+    import torch
+    from tempest_tpu_torch import Sampler
+    from tempest_tpu_torch.loops import CaptureError
+    from tempest_tpu_torch.ops import cuda_graphs
+
+    @contextlib.contextmanager
+    def refused(pred, pool, stream):
+        raise RuntimeError("WHILE node refused by the test")
+        yield
+
+    cuda_graphs.while_body = refused
+    s = Sampler(lambda u: 20.0 * u - 10.0, lambda x: -0.5 * torch.sum(x * x, dim=-1), n_dim=2,
+                n_particles=128, vectorize=True, clustering=False, random_state=1,
+                history_capacity=32, device="cuda")
+    try:
+        s.run(n_total=256, progress=False, on_device=True)
+    except CaptureError as exc:
+        print("CAPTURE_ERROR", exc)
+        print("MCMC_READS", s.state._iteration.loops.stats["mcmc"]["reads"])
+    else:
+        print("NO_ERROR")
+""")
+
+
+@pytest.mark.cuda
+def test_refused_while_node_raises(cuda_device):
+    """No fallback: a WHILE node that cannot be made fails the capture of
+    the MCMC chain with CaptureError naming the cause, and the run neither
+    reads a chunk of steps nor goes back to the generator instead."""
+    proc = subprocess.run([sys.executable, "-X", "faulthandler", "-c", _REFUSED_WHILE_RUN],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=Path(__file__).resolve().parents[1])
+    out = proc.stdout + proc.stderr[-3000:]
+    assert "CAPTURE_ERROR" in proc.stdout and "'mcmc'" in proc.stdout, out
+    assert "refused by the test" in proc.stdout and "MCMC_READS 0" in proc.stdout, out
 
 
 @pytest.mark.cuda

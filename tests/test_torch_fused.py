@@ -147,15 +147,14 @@ def _chain_problem(seed=3, n=64, d=2):
 # RWM 7, past the 4 steps of the first chunk.
 SHARP = {"tpcn": 1.0, "rwm": 16.0}
 
-# The draws of the chain tests: the generator's, or HardwareDraws on one of
-# its routes at N = 64, R = 8, d = 2 (R N d = 1,024), by threshold:
-# "mutation" the mutation-draws kernel (tpCN; 1 call a step), "large" the
-# gamma kernel (tpCN) and the normal kernel (13 + 1 calls a step, 1 for
-# RWM), "below" the generator alone (0 calls).
+# The draws of the chain tests: the generator's, or HardwareDraws (keyed) on
+# one of its routes at N = 64, R = 8, d = 2 (R N d = 1,024), by the
+# mutation-draws kernel's size limit: "mutation" that kernel (tpCN; 1 call a
+# step; RWM the normal and uniform kernels, 2), "large" the gamma, normal and
+# uniform kernels (13 + 1 + 1 calls a step, 2 for RWM).
 ROUTES = {
     "mutation": dict(FUSED_DRAWS_MAX_ELEMS=1 << 19),
-    "large": dict(FUSED_DRAWS_MAX_ELEMS=0, HW_GAMMA_MIN_WALKERS=64, HW_NORMAL_MIN_ELEMS=1024),
-    "below": dict(FUSED_DRAWS_MAX_ELEMS=0, HW_GAMMA_MIN_WALKERS=65, HW_NORMAL_MIN_ELEMS=1025),
+    "large": dict(FUSED_DRAWS_MAX_ELEMS=0),
 }
 
 
@@ -188,8 +187,8 @@ def _chain_kernel(method):
                       n_max_steps=20), loglike
 
 
-@pytest.mark.parametrize("route", [None, "mutation", "large", "below"])
-@pytest.mark.parametrize("chunk", [1, 3, 8])
+@pytest.mark.parametrize("route", [None, "mutation", "large"])
+@pytest.mark.parametrize("chunk", [1, 3, 5, 8])
 @pytest.mark.parametrize("method", ["tpcn", "rwm"])
 def test_chunked_mcmc_equals_per_step_loop(chunk, method, route, monkeypatch):
     u, modes = _chain_problem()
@@ -211,8 +210,8 @@ def test_chunked_mcmc_equals_per_step_loop(chunk, method, route, monkeypatch):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
     assert _same_position(state_got, state_want)
     if route is not None:  # the calls of the real steps, and the words agree
-        per_step = {"mutation": {"tpcn": 1, "rwm": 0}, "large": {"tpcn": 14, "rwm": 1},
-                    "below": {"tpcn": 0, "rwm": 0}}[route][method]
+        per_step = {"mutation": {"tpcn": 1, "rwm": 2}, "large": {"tpcn": 15, "rwm": 2}}[route][
+            method]
         assert state_got[1] == per_step * want.steps
         assert state_got[3] == (state_got[1], state_got[2])
     first = int(kernel.n_steps_min) if chunk > 1 else 1
@@ -221,19 +220,20 @@ def test_chunked_mcmc_equals_per_step_loop(chunk, method, route, monkeypatch):
     assert loops.stats["mcmc"]["reads"] == 1 + (bodies - first) // chunk
 
 
-@pytest.mark.parametrize("route", [None, "mutation", "large", "below"])
+@pytest.mark.parametrize("route", [None, "mutation", "large"])
 def test_chunked_mcmc_runs_past_the_stop(route, monkeypatch):
     """Chunks of 3 and 8 tpCN steps run past the stop on this problem with
-    the generator's draws, and chunks of 8 (the fused route's) with each
-    HardwareDraws route (31 steps on "large", which chunks of 3 end on), so
-    the equality above includes putting the draws back."""
+    the generator's draws, chunks of 8 (the fused route's) on HardwareDraws'
+    "mutation" route, and chunks of 5 on its "large" route (28 steps, which
+    chunks of 3 and 8 end on), so the equality above includes putting the
+    generator back and keyed steps past the stop that draw nothing."""
     u, modes = _chain_problem()
     kernel, loglike = _chain_kernel("tpcn")
     x = _prior(u)
     draws = _route_draws(monkeypatch, route)(5, "cpu")
     res = kernel(draws, u, x, loglike(x), torch.zeros(u.shape[0], dtype=torch.int32),
                  torch.tensor(0.4), modes)
-    chunks = (3, 8) if route is None else (8,)
+    chunks = {None: (3, 8), "mutation": (8,), "large": (5,)}[route]
     assert all((res.steps - kernel.n_steps_min) % chunk for chunk in chunks), res.steps
 
 
@@ -511,20 +511,24 @@ def test_sharded_ess_cases_cover_stay_jump_and_bisect(gloo_mesh):
 @pytest.mark.parametrize("hardware", [False, True])
 def test_block_draws_tell_seek_round_trip(hardware):
     """A BlockDraws is graph-safe as its draws are: its position is theirs
-    (global), and seeking back repeats the rank's block of a step."""
+    (global: the generator's, or the keyed steps' call counter), and
+    seeking back repeats the rank's block of a step."""
     from tempest_tpu_torch.draws import BlockDraws
 
     inner = (HardwareDraws if hardware else Draws)(7, "cpu")
     block = BlockDraws(inner, 1, 2)
     assert block.graph_safe and block.generator is inner.generator
-    assert block.calls is (inner.calls if hardware else None)
+    assert block.calls is (inner.calls if hardware else None) and block.keyed == hardware
     gamma_shape = torch.full((64,), 3.0)
     block.mcmc_step(8, 32, 2, gamma_shape)
-    p = block.tell()
+    p = block.calls.counter if hardware else block.tell()
     first = block.mcmc_step(8, 32, 2, gamma_shape)
-    moved = block.tell()
-    assert moved[1] == p[1] + 1 if hardware else not torch.equal(moved, p)
-    block.seek(p)
+    if hardware:
+        assert block.calls.counter == p + 1
+        block.calls.seek(p)
+    else:
+        assert not torch.equal(block.tell(), p)
+        block.seek(p)
     again = block.mcmc_step(8, 32, 2, gamma_shape)
     for a, b in zip(first, again):
         assert torch.equal(a, b)
@@ -545,11 +549,10 @@ def _eager_route(monkeypatch):
 @pytest.mark.parametrize("route", ["mutation", "large"])
 def test_hardware_prng_fused_run_equals_eager_iteration(route, monkeypatch):
     """N = 128, R = 8, d = 4: the mutation-draws kernel's route by default;
-    with the thresholds at N and R N d, the gamma and normal kernels'."""
+    past the mutation-draws kernel's limit (set to 0), the gamma, normal and
+    uniform kernels'."""
     if route == "large":
         monkeypatch.setattr(draws_mod, "FUSED_DRAWS_MAX_ELEMS", 0)
-        monkeypatch.setattr(draws_mod, "HW_GAMMA_MIN_WALKERS", N)
-        monkeypatch.setattr(draws_mod, "HW_NORMAL_MIN_ELEMS", 8 * N * D)
     fused = _hw_sampler()
     fused.run(n_total=512, progress=False)
     with monkeypatch.context() as m:
@@ -561,7 +564,7 @@ def test_hardware_prng_fused_run_equals_eager_iteration(route, monkeypatch):
     for name in ("beta", "logz", "steps", "calls"):
         assert r_f[name].tobytes() == r_e[name].tobytes(), name
     assert fused.evidence()[0] == eager.evidence()[0] and fused.beta == 1.0
-    calls = {"mutation": 1, "large": 14}[route]
+    calls = {"mutation": 1, "large": 15}[route]
     assert fused.state.draws.counter == eager.state.draws.counter == calls * int(
         r_f["steps"][r_f["beta"] > 0].sum())
     s_f, s_e = fused.state.draws.get_state(), eager.state.draws.get_state()

@@ -244,54 +244,57 @@ def _step(hw, n, gamma_shape, R=2, d=3):
 
 
 def test_hardware_draws_routes_as_jax():
+    """tpCN at R N d <= 2^19 draws as JAX's fused route does, from the
+    mutation-draws kernel (one call index a step); RWM has no such kernel
+    and, keyed, takes the normal and the uniform kernels (two calls)."""
     n = 64
     alpha = torch.full((n,), 2.5)
     hw = draws_mod.HardwareDraws(7, "cpu")
-    assert hw.key == philox.key_from_seed(7)
-    # tpCN at R N d <= 2^19: the mutation-draws kernel, one call index per step.
+    assert hw.key == philox.key_from_seed(7) and hw.keyed
     z, g, u = _step(hw, n, alpha)
     wz, wg, wu = philox.mutation_draws(hw.key, 0, alpha, (2, n, 3))
     assert torch.equal(z, wz) and torch.equal(g, wg) and torch.equal(u, wu)
     assert hw.counter == 1
-    # RWM (no gamma shape) below 2^20 normals: all from the generator.
     z, g, u = _step(hw, n, None)
-    assert g is None and hw.counter == 1
+    assert g is None and hw.counter == 3
+    assert torch.equal(z.reshape(-1), philox.normal(hw.key, 1, 2 * n * 3, "cpu"))
+    assert torch.equal(u, philox.uniform(hw.key, 2, n, "cpu"))
 
 
 def test_hardware_draws_large_route(monkeypatch):
-    """Past the thresholds: z from hw_normal, g from hw_gamma (13 calls), the
-    acceptance uniforms from the generator (shrunk thresholds, same rules)."""
+    """Past the mutation-draws kernel's size: g from hw_gamma (13 calls), z
+    from hw_normal, the acceptance uniforms from hw_uniform (a shrunk
+    threshold, same rule); the generator is not drawn from."""
     monkeypatch.setattr(draws_mod, "FUSED_DRAWS_MAX_ELEMS", 0)
-    monkeypatch.setattr(draws_mod, "HW_NORMAL_MIN_ELEMS", 2 * 64 * 3)
-    monkeypatch.setattr(draws_mod, "HW_GAMMA_MIN_WALKERS", 64)
     n = 64
     alpha = torch.full((n,), 2.5)
     hw = draws_mod.HardwareDraws(7, "cpu")
+    position = hw.generator.get_state()
     z, g, u = _step(hw, n, alpha)
     assert torch.equal(g, philox.gamma(hw.key, 0, alpha))
     assert torch.equal(z.reshape(-1), philox.normal(hw.key, philox.GAMMA_CALLS, 2 * n * 3, "cpu"))
-    assert hw.counter == philox.GAMMA_CALLS + 1
-    ref = torch.Generator().manual_seed(7)
-    assert torch.equal(u, torch.rand((n,), generator=ref))
-    # One walker short of the gamma threshold: g from the generator.
+    assert torch.equal(u, philox.uniform(hw.key, philox.GAMMA_CALLS + 1, n, "cpu"))
+    assert hw.counter == philox.GAMMA_CALLS + 2
+    # Another walker count: the next calls, whatever n.
     z, g, u = _step(hw, n - 1, torch.full((n - 1,), 2.5))
-    assert hw.counter == philox.GAMMA_CALLS + 1 and g.shape == (n - 1,)
+    assert hw.counter == 2 * (philox.GAMMA_CALLS + 2) and g.shape == (n - 1,)
+    assert torch.equal(g, philox.gamma(hw.key, philox.GAMMA_CALLS + 2, g.new_full((n - 1,), 2.5)))
+    assert torch.equal(hw.generator.get_state(), position)
 
 
 def test_hardware_draws_gamma_takes_gamma_calls(monkeypatch):
     """On the large route every MCMC step takes GAMMA_CALLS = 13 call indices
-    for its gamma draws and one for its normals, as before the gamma draws
-    became one kernel, so a checkpointed `philox_counter` resumes the same
-    stream."""
+    for its gamma draws, one for its normals and one for its uniforms, as
+    before the gamma draws became one kernel, so a checkpointed
+    `philox_counter` resumes the same stream."""
     monkeypatch.setattr(draws_mod, "FUSED_DRAWS_MAX_ELEMS", 0)
-    monkeypatch.setattr(draws_mod, "HW_NORMAL_MIN_ELEMS", 2 * 64 * 3)
-    monkeypatch.setattr(draws_mod, "HW_GAMMA_MIN_WALKERS", 64)
     assert philox.GAMMA_CALLS == 2 * philox.MT_ROUNDS + 1 == 13
     n = 64
+    per_step = philox.GAMMA_CALLS + 2
     alpha = torch.linspace(0.3, 9.0, n)
     hw = draws_mod.HardwareDraws(11, "cpu")
     for step in range(3):
-        first = step * (philox.GAMMA_CALLS + 1)
+        first = step * per_step
         assert hw.counter == first
         _, g, _ = _step(hw, n, alpha)
         assert torch.equal(g, philox.gamma(hw.key, first, alpha))
@@ -299,28 +302,31 @@ def test_hardware_draws_gamma_takes_gamma_calls(monkeypatch):
     resumed = draws_mod.HardwareDraws(0, "cpu")
     resumed.set_state(state)
     z, g, _ = _step(resumed, n, alpha)
-    assert resumed.counter == int(state["philox_counter"]) + philox.GAMMA_CALLS + 1
-    assert torch.equal(g, philox.gamma(hw.key, 3 * (philox.GAMMA_CALLS + 1), alpha))
+    assert resumed.counter == int(state["philox_counter"]) + per_step
+    assert torch.equal(g, philox.gamma(hw.key, 3 * per_step, alpha))
 
 
 def test_hardware_draws_mirror_and_device_words_agree(monkeypatch):
     monkeypatch.setattr(draws_mod, "FUSED_DRAWS_MAX_ELEMS", 0)
-    monkeypatch.setattr(draws_mod, "HW_NORMAL_MIN_ELEMS", 2 * 64 * 3)
-    monkeypatch.setattr(draws_mod, "HW_GAMMA_MIN_WALKERS", 64)
     n = 64
+    per_step = philox.GAMMA_CALLS + 2
     alpha = torch.linspace(0.3, 9.0, n)
     hw = draws_mod.HardwareDraws(7, "cpu")
     words = hw.calls.state
     assert hw.calls.read() == (0, hw.key) == (0, philox.key_from_seed(7))
     _step(hw, n, alpha)
-    position = hw.tell()
-    assert position[1] == philox.GAMMA_CALLS + 1 and hw.calls.read() == (position[1], hw.key)
+    position = hw.counter
+    assert position == per_step and hw.calls.read() == (position, hw.key)
     z, g, _ = _step(hw, n, alpha)
-    assert hw.calls.read() == (2 * (philox.GAMMA_CALLS + 1), hw.key)
-    hw.seek(position)
-    assert hw.counter == position[1] and hw.calls.read() == (position[1], hw.key)
+    assert hw.calls.read() == (2 * per_step, hw.key)
+    hw.calls.seek(position)
+    assert hw.counter == position and hw.calls.read() == (position, hw.key)
     z2, g2, _ = _step(hw, n, alpha)  # the same draws again
     assert torch.equal(z, z2) and torch.equal(g, g2)
+    # An inactive step draws and leaves the words.
+    _, g3, _ = hw.mcmc_step(2, n, 3, alpha, active=torch.tensor(False))
+    assert hw.counter == 2 * per_step
+    assert torch.equal(g3, philox.gamma(hw.key, 2 * per_step, alpha))
     state = hw.get_state()
     assert int(state["philox_counter"]) == hw.counter
     other = draws_mod.HardwareDraws(0, "cpu")
@@ -332,7 +338,7 @@ def test_hardware_draws_mirror_and_device_words_agree(monkeypatch):
     assert big.calls.read() == ((1 << 63) + 3, philox.key_from_seed((1 << 63) + 5))
     _, g_big, _ = _step(big, n, alpha)
     assert torch.equal(g_big, philox.gamma(big.key, (1 << 63) + 3, alpha))
-    assert big.calls.read()[0] == (1 << 63) + 3 + philox.GAMMA_CALLS + 1
+    assert big.calls.read()[0] == (1 << 63) + 3 + per_step
     # reseed restarts the stream on the same words (CUDA graphs hold them).
     hw.reseed(11)
     assert hw.calls.state is words and hw.calls.read() == (0, philox.key_from_seed(11))
