@@ -38,7 +38,13 @@ lines and a failure exits non-zero:
     end within 1e-12 (relative), in float32 the same ends or else the
     plain ESS at the first midpoint decided the other way within 1e-5 of
     the target, the ends within 2e-3; two launches the same bits; its
-    times on the 1024 x 192 history;
+    times on the 1024 x 192 history, beside its bound (the bytes read once
+    against each probe's exps on the live samples; the bound counting every
+    sample's is printed too); with --parent DIR, its device time in turns
+    with DIR's kernel (parent, this, this, parent) at every size; and the
+    clock64 split of a probe round by phase from a build with
+    BRACKET_STAMPS (each CTA's load, pass, warp and CTA combines, pushes,
+    wait for the cluster's partials, their combine and the decision);
  4. the four PRNG kernels against their plain versions on one key and call
     index (mutation draws at (8, 1024, 10), a ragged (8, 1000, 10) and the
     largest fused shape (8, 6553, 10); normal and bits at 2^20 and at B's
@@ -72,11 +78,17 @@ lines and a failure exits non-zero:
     torch.cumsum along the points adds serially in float32 on this card
     (against numpy); then the kernel against its plain version bit for bit
     at A's (16, 4096, 10), B's (1, 524,288, 10) and rosenbrock100's
-    (1, 8192, 100) (K, n, d) and ragged shapes with all-zero rows, in
-    float32 and float64; its call and device times at the three shapes in
-    turns with the plain version and the library call (torch.cumsum and
-    argmax of the gathered weights), beside its chain bound (the longest
-    column's adds at 4 cycles) and its byte bound;
+    (1, 8192, 100) (K, n, d), ragged shapes with all-zero rows and A's own
+    fit rows (seed 42, iteration 21: one-hot, most weights zero), in
+    float32 and float64; its call and device times at A's fit rows and the
+    three shapes in turns with the plain version and the library call
+    (torch.cumsum and argmax of the gathered weights), beside its bound
+    (the longest column's nonzero adds up to its crossing at 4 cycles,
+    against the order entries and weights up to the crossings read once);
+    with --parent DIR, its device time in turns with DIR's kernel (parent,
+    this, this, parent); and the clock64 split of a column (the first stage
+    ready, the waits, the adds) from a build with MEDIAN_STAMPS at A's fit
+    rows and B's;
  4d. the EM kernels (csrc/gmm_em.cu and csrc/mvstud_em.cu, which replace
     the port's "gmm_em" and "mode_em" device loops where JAX runs XLA's
     while_loops, not Pallas kernels): each against its plain loop on the
@@ -111,6 +123,12 @@ lines and a failure exits non-zero:
     keyed draws) run to its stop by a WHILE node against the same steps in
     a straight graph; and an untaken IF node (A's 15 in one replay against
     none);
+ 4g. a conditional body that synchronizes past PyTorch's sync check
+    (scripts/capture_abort.py, in a process of its own): the MCMC chain's
+    WHILE body through its likelihood and an IF body each fail their
+    capture with CaptureError naming the loop and on_device=False, the
+    process exits 0 (not by a signal) after a clean clustered run graphed
+    bit for bit with its eager run;
  5. the canonical problem unclustered (paired 10-D Rosenbrock, U(-10, 10)
     prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42,
     with `run(on_device=True)`: its loops replayed as CUDA graphs;
@@ -264,6 +282,7 @@ plain loops, which moves the ladder by rounding).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import functools
 import json
 import math
@@ -934,6 +953,51 @@ def _short_names(nvcc: str, names: list) -> dict:
     return shorts if len(set(shorts.values())) == len(shorts) else {n: n for n in names}
 
 
+# Libraries built beside the package's, one nvcc each, started with phase 2's
+# builds: the median and ESS sources with their clock64 stamps compiled in
+# (MEDIAN_STAMPS, BRACKET_STAMPS), and, with --parent DIR, DIR's sources of
+# those two kernels, timed in turns with this tree's (their C entries are
+# the same).
+EXTRA_DIR = _build.BUILD_DIR.parent / "chip_smoke"
+_EXTRA: dict = {}
+MEDIAN_FUNCTIONS = dict(cuda_median.LIBRARY.functions) if cuda_median is not None else {}
+ESS_FUNCTIONS = dict(cuda_reweight.LIBRARY.functions)
+
+
+def start_extra_builds(parent) -> None:
+    """Start the builds of the stamped sources and, with `parent` (a
+    checkout), of its median and ESS sources, into build/chip_smoke/."""
+    jobs = {"median_stamped": (_build.CSRC, "weighted_median.cu", ("-DMEDIAN_STAMPS",)),
+            "ess_stamped": (_build.CSRC, "ess_bisect.cu", ("-DBRACKET_STAMPS",))}
+    if parent:
+        csrc = Path(parent) / "tempest_tpu_torch" / "csrc"
+        jobs.update({"median_parent": (csrc, "weighted_median.cu", ()),
+                     "ess_parent": (csrc, "ess_bisect.cu", ())})
+    EXTRA_DIR.mkdir(parents=True, exist_ok=True)
+    for name, (csrc, source, flags) in jobs.items():
+        out = EXTRA_DIR / f"lib{name}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(out), str(csrc / source)]
+        _EXTRA[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                         text=True), out)
+
+
+def extra_library(name: str, functions: dict):
+    """The library `start_extra_builds` built as `name`, loaded with these C
+    signatures; None where it was not started."""
+    if name not in _EXTRA:
+        return None
+    handle, out = _EXTRA[name]
+    if isinstance(handle, subprocess.Popen):
+        _, err = handle.communicate()
+        check(handle.returncode == 0, f"nvcc failed for {name}: {err[-3000:]}")
+        handle = ctypes.CDLL(str(out))
+        _EXTRA[name] = (handle, out)
+    for fn, argtypes in functions.items():
+        getattr(handle, fn).argtypes = list(argtypes)
+        getattr(handle, fn).restype = ctypes.c_int
+    return handle
+
+
 def phase_build() -> dict:
     """Every kernel library; beside them each one's ptxas report (a spill
     in any kernel fails) and the SASS probe whose exp counts set
@@ -1057,10 +1121,11 @@ def check_beta(what: str, logl, bm, bp: float, target: float, bk: float, pk: int
           f"{what}: kernel {bk} ({pk} probes) vs plain {br} ({pr} probes), beta_prev {bp}")
 
 
-def _route(S: int, dtype=torch.float32) -> str:
+def _route(S: int, dtype=torch.float32, bracket: bool = False) -> str:
     plan = cuda_reweight.plan_launch(S, dtype)
     where = "shared memory" if plan.resident else "streamed from L2"
-    return f"cluster {plan.cluster} x {plan.threads} threads x slice {plan.slice}, {where}"
+    threads = cuda_reweight.BRACKET_THREADS if bracket and plan.resident else plan.threads
+    return f"cluster {plan.cluster} x {threads} threads x slice {plan.slice}, {where}"
 
 
 def forced_route(logl, bm, scal, resident: bool):
@@ -1732,8 +1797,72 @@ MEDIAN_SHAPES = {"A": (16, 4096, 10), "B": (1, 524288, 10), "rosenbrock100": (1,
 # Further shapes checked: ragged tiles, one point, rows all zero.
 MEDIAN_EXTRA = ((3, 257, 4, (1,)), (5, 4097, 3, (0, 4)), (2, 1, 1, ()), (4, 10000, 7, (0, 1, 2, 3)))
 # The latency of a dependent add (cycles), for the chain's bound: FADD about
-# 4 on Hopper; DADD taken as 8 (estimated).
+# 4 on Hopper; DADD taken as 8 (estimated). Phase 4c also measures it
+# (`add_latency_cycles`) and prints the bound at the measured latency.
 ADD_LATENCY = {torch.float32: 4, torch.float64: 8}
+# One thread adding a value to a sum 64 times a round, clock64 around the
+# rounds: the cycles of a dependent add in each type.
+ADD_LATENCY_PROBE = r"""
+#include <cuda_runtime.h>
+template <typename T>
+__global__ void add_chain(const T* in, T* out, long long* cycles, int reps) {
+  T s = in[0];
+  const T v = in[1];
+  const long long t0 = clock64();
+  for (int r = 0; r < reps; ++r) {
+#pragma unroll
+    for (int k = 0; k < 64; ++k) s = s + v;
+  }
+  const long long t1 = clock64();
+  out[0] = s;
+  cycles[0] = t1 - t0;
+}
+extern "C" int add_chain_launch(const void* in, void* out, void* cycles, int reps, int f64,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f64) {
+    add_chain<double><<<1, 1, 0, st>>>(static_cast<const double*>(in), static_cast<double*>(out),
+                                       static_cast<long long*>(cycles), reps);
+  } else {
+    add_chain<float><<<1, 1, 0, st>>>(static_cast<const float*>(in), static_cast<float*>(out),
+                                      static_cast<long long*>(cycles), reps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def add_latency_cycles(device) -> dict:
+    """Cycles of one dependent add on this card, float32 and float64: the
+    probe's clock64 cycles at 1,001 rounds of 64 adds less those at 1, over
+    64,000."""
+    tmp = tempfile.mkdtemp(prefix="add_probe_")
+    src, lib = os.path.join(tmp, "probe.cu"), os.path.join(tmp, "libprobe.so")
+    with open(src, "w") as f:
+        f.write(ADD_LATENCY_PROBE)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src], check=True,
+                   capture_output=True, timeout=300)
+    fn = ctypes.CDLL(lib).add_chain_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        x = torch.tensor([0.0, 1e-3], dtype=dtype, device=device)
+        y = torch.empty(1, dtype=dtype, device=device)
+        cycles = torch.empty(1, dtype=torch.int64, device=device)
+        spent = {}
+        for reps in (1, 1001):
+            best = None
+            for _ in range(3):
+                check(fn(x.data_ptr(), y.data_ptr(), cycles.data_ptr(), reps,
+                         int(dtype == torch.float64),
+                         torch.cuda.current_stream(device).cuda_stream) == 0, "add probe")
+                torch.cuda.synchronize()
+                best = int(cycles.item()) if best is None else min(best, int(cycles.item()))
+            spent[reps] = best
+        out[dtype] = (spent[1001] - spent[1]) / (1000 * 64)
+    print(f"dependent add latency on this card (one thread, clock64): float32 "
+          f"{out[torch.float32]:.2f} cycles, float64 {out[torch.float64]:.2f} cycles", flush=True)
+    return out
 
 
 def median_inputs(device, K, n, d, dtype, seed, zero_rows=()):
@@ -1779,57 +1908,179 @@ def cumsum_accumulation(device) -> dict:
     return out
 
 
-def median_bound(K, n, d, dtype, crossings) -> dict:
-    """The least time of the median at these inputs: the bytes (order read
-    once, the K n d gathered weights, the K d medians read and written) at
-    3.35 TB/s, and the chain: the longest column's adds up to its crossing
-    (all n for a column that does not cross), each waiting for the last,
-    at one dependent add per ADD_LATENCY cycles of the boost clock."""
+def median_work(d_sorted, order, wbar) -> dict:
+    """What the median must do on these inputs, from the plain version's
+    running sums (torch.cumsum of the gathered weights, as on the path):
+    each column's crossing (its last point added: the first sum >= thr, or
+    the last point where none), its nonzero weights up to the crossing (the
+    chain the kernel adds: a zero leaves the sum as it is), the order
+    entries up to the crossing of each column (read once for the K rows)
+    and the distinct weights they gather."""
+    K, (n, d) = wbar.shape[0], d_sorted.shape
+    thr = torch.tensor(cuda_median.THRESHOLD, dtype=wbar.dtype).item()
+    gathered = wbar[..., order]  # (K, n, d)
+    crossed = torch.cumsum(gathered, dim=-2) >= thr
+    last = torch.where(crossed.any(dim=-2), torch.argmax(crossed.to(torch.int8), dim=-2),
+                       torch.full_like(crossed[..., 0, :], n - 1, dtype=torch.int64))  # (K, d)
+    nonzero = torch.cumsum((gathered != 0).to(torch.int64), dim=-2)  # NaN counts
+    chain = torch.gather(nonzero, -2, last.unsqueeze(-2)).squeeze(-2)  # (K, d)
+    upto = torch.arange(n, device=order.device)[:, None] <= last[:, None, :]  # (K, n, d)
+    need = torch.zeros(K, n, dtype=torch.bool, device=order.device)
+    for k in range(K):
+        need[k, order[upto[k]]] = True
+    return {"longest_chain": int(chain.max()), "chain_adds": int(chain.sum()),
+            "order_entries": int((last.max(dim=0).values + 1).sum()),
+            "weights": int(need.sum()), "longest_crossing": int(last.max()) + 1}
+
+
+def median_bound(K, d, dtype, work: dict, latency=None) -> dict:
+    """The least time of the median at these inputs (`median_work`): the
+    chain, the longest column's nonzero weights up to its crossing each
+    waiting for the last, at one dependent add per ADD_LATENCY cycles of the
+    boost clock, against the bytes, the order entries and weights up to the
+    crossings read once and the K d medians gathered and written, at 3.35
+    TB/s. Zero weights cost the chain nothing (a zero add leaves the sum
+    bit for bit), so they count as bytes only. `latency`: the measured
+    cycles of a dependent add (`add_latency_cycles`), which the bound takes
+    where given; the chain at ADD_LATENCY is reported beside it."""
     size = torch.tensor([], dtype=dtype).element_size()
-    n_bytes = 8 * n * d + size * (K * n * d + 2 * K * d)
+    n_bytes = 8 * work["order_entries"] + size * (work["weights"] + 2 * K * d)
     bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
-    chain_ms = 1e3 * crossings * ADD_LATENCY[dtype] / (SM_CLOCKS_PER_S / N_SMS)
+    per_add_ms = 1e3 / (SM_CLOCKS_PER_S / N_SMS)
+    nominal_ms = work["longest_chain"] * ADD_LATENCY[dtype] * per_add_ms
+    chain_ms = work["longest_chain"] * (latency or ADD_LATENCY[dtype]) * per_add_ms
     return {"bytes_bound_ms": bytes_ms, "chain_bound_ms": chain_ms,
+            "chain_at_nominal_latency_ms": nominal_ms, "add_latency_cycles": latency,
             "bound_ms": max(bytes_ms, chain_ms),
             "bound_by": "operations" if chain_ms >= bytes_ms else "bytes"}
 
 
-def phase_median_kernel(device) -> dict:
+# The weighted median's stamps (csrc/weighted_median.cu, MEDIAN_STAMPS): a
+# column's fields, in order.
+MEDIAN_STAMP_FIELDS = ("start", "first_ready", "wait", "add", "end", "stages", "values",
+                       "gather_enter", "gather_order", "gather_weights", "gather_arrive")
+MEDIAN_STAMP_COLUMNS = 1024
+
+
+def median_split(label: str, lib, ds, order, wbar, rate: float) -> dict:
+    """One launch of the stamped median on these inputs: each column's
+    clock64 marks (the first stage ready, the cycles waiting for stages and
+    adding them, its whole span, the stages and values added; when stage
+    0's gathering warp entered, had its order entries and its weights, and
+    arrived, from the chain thread's start), as the median and the largest
+    over the columns, in microseconds at the SM clock `rate` (cycles a
+    us)."""
+    K, (n, d) = wbar.shape[0], ds.shape
+    mu = torch.empty(K, d, dtype=ds.dtype, device=ds.device)
+    entry = lib.tempest_weighted_median if ds.dtype == torch.float32 else \
+        lib.tempest_weighted_median_f64
+    _build.check(entry(ds.data_ptr(), order.data_ptr(), wbar.data_ptr(), mu.data_ptr(), n, d, K,
+                       cuda_median._THRESHOLDS[ds.dtype], torch.cuda.current_stream().cuda_stream),
+                 "stamped weighted_median")
+    torch.cuda.synchronize()
+    want = cuda_median.weighted_median_presorted_reference(ds, order, wbar)
+    check(torch.equal(_bits(mu), _bits(want)), f"stamped weighted_median {label}: not the plain "
+          "version's bits")
+    out = (ctypes.c_int64 * (MEDIAN_STAMP_COLUMNS * len(MEDIAN_STAMP_FIELDS)))()
+    _build.check(lib.tempest_median_stamps(ctypes.addressof(out)), "tempest_median_stamps")
+    rows = np.array(out, dtype=np.int64).reshape(MEDIAN_STAMP_COLUMNS, -1)[:K * d]
+    f = {name: rows[:, i] for i, name in enumerate(MEDIAN_STAMP_FIELDS)}
+    us = {"first_ready": (f["first_ready"] - f["start"]) / rate, "wait": f["wait"] / rate,
+          "add": f["add"] / rate, "span": (f["end"] - f["start"]) / rate,
+          # stage 0's gathering warp, from the chain thread's start
+          "gather_enter": (f["gather_enter"] - f["start"]) / rate,
+          "gather_order": (f["gather_order"] - f["start"]) / rate,
+          "gather_weights": (f["gather_weights"] - f["start"]) / rate,
+          "gather_arrive": (f["gather_arrive"] - f["start"]) / rate}
+    cycles_a_value = f["add"] / np.maximum(f["values"], 1)
+    slowest = int(np.argmax(f["end"] - f["start"]))
+    split = {"columns": K * d,
+             "median_us": {k: float(np.median(v)) for k, v in us.items()},
+             "max_us": {k: float(v.max()) for k, v in us.items()},
+             "slowest_column": {**{k: float(v[slowest]) for k, v in us.items()},
+                                "stages": int(f["stages"][slowest]),
+                                "values": int(f["values"][slowest])},
+             "values_median": float(np.median(f["values"])), "values_max": int(f["values"].max()),
+             "add_cycles_a_value_median": float(np.median(cycles_a_value[f["values"] > 0]))
+             if (f["values"] > 0).any() else None,
+             "sm_cycles_per_us": rate}
+    print(f"weighted_median stamps {label} (K, n, d) = {(K, n, d)}: {json.dumps(split)}",
+          flush=True)
+    return split
+
+
+def median_parent_fn(lib, ds, order, wbar):
+    """A launch of the parent's median kernel (--parent) on these inputs,
+    through its C entry (the same signature), into a new output."""
+    K, (n, d) = wbar.shape[0], ds.shape
+    entry = lib.tempest_weighted_median if ds.dtype == torch.float32 else \
+        lib.tempest_weighted_median_f64
+
+    def run():
+        mu = torch.empty(K, d, dtype=ds.dtype, device=ds.device)
+        _build.check(entry(ds.data_ptr(), order.data_ptr(), wbar.data_ptr(), mu.data_ptr(), n, d,
+                           K, cuda_median._THRESHOLDS[ds.dtype],
+                           torch.cuda.current_stream().cuda_stream), "parent weighted_median")
+        return mu
+    return run
+
+
+def device_in_turns(fns: dict, kernel: str, calls: int) -> dict:
+    """Device ms a call of each function (torch.profiler, `device_ms`), in
+    turns: in the order given, then back (parent, this, this, parent)."""
+    out = {k: [] for k in fns}
+    for k in [*fns, *reversed(fns)]:
+        out[k].append(device_ms(fns[k], kernel, calls=calls))
+    return out
+
+
+def phase_median_kernel(device, a_rows) -> dict:
     """tempest_weighted_median (_f64) against its plain version, bit for bit,
-    at MEDIAN_SHAPES and MEDIAN_EXTRA in float32 and float64, two launches
-    the same bits; at MEDIAN_SHAPES in float32, its call and device time in
-    turns with the plain version and the library call (torch.cumsum and
-    argmax of the gathered weights, the gather done before), beside its
-    bounds."""
+    at MEDIAN_SHAPES, MEDIAN_EXTRA and A's own fit rows (`a_rows`: the
+    (d_sorted, order, wbar) of A's seed 42 mode fit at iteration 21) in
+    float32 and float64, two launches the same bits; in float32 at A's fit
+    rows, MEDIAN_SHAPES, its call and device time in turns with the plain
+    version and the library call (torch.cumsum and argmax of the gathered
+    weights, the gather done before), beside its bound (`median_bound`);
+    with --parent, its device time in turns with the parent's kernel
+    (parent, this, this, parent); the clock64 split of a column on A's fit
+    rows and B's (the stamped build)."""
     accumulation = cumsum_accumulation(device)
     cases = [(label, *shape, ()) for label, shape in MEDIAN_SHAPES.items()] + [
         ("extra", *shape) for shape in MEDIAN_EXTRA]
+    up = lambda t: t.double() if t.is_floating_point() else t  # noqa: E731
     for dtype in (torch.float32, torch.float64):
-        for label, K, n, d, zero_rows in cases:
-            ds, order, wbar = median_inputs(device, K, n, d, dtype, seed=n + d,
-                                            zero_rows=zero_rows)
+        inputs = [(label, (K, n, d), zero_rows, median_inputs(
+            device, K, n, d, dtype, seed=n + d, zero_rows=zero_rows))
+            for label, K, n, d, zero_rows in cases]
+        rows = a_rows if dtype == torch.float32 else tuple(up(t) for t in a_rows)
+        inputs.append(("A fit rows", (rows[2].shape[0], *rows[0].shape), (), rows))
+        for label, shape, zero_rows, (ds, order, wbar) in inputs:
             got = cuda_median.weighted_median_presorted(ds, order, wbar)
             again = cuda_median.weighted_median_presorted(ds, order, wbar)
             want = cuda_median.weighted_median_presorted_reference(ds, order, wbar)
             torch.cuda.synchronize()
             check(torch.equal(_bits(got), _bits(want)) and torch.equal(_bits(got), _bits(again)),
-                  f"weighted_median {label} {(K, n, d)} {dtype}: the kernel's medians are not the "
+                  f"weighted_median {label} {shape} {dtype}: the kernel's medians are not the "
                   "plain version's bits")
             check(all(torch.equal(got[k], ds[0]) for k in zero_rows),
-                  f"weighted_median {(K, n, d)}: an all-zero row is not d_sorted[0]")
+                  f"weighted_median {shape}: an all-zero row is not d_sorted[0]")
+    ds, order, wbar = a_rows
+    live = int((wbar != 0).any(dim=1).sum())
     print("weighted_median: the kernel equals its plain version bit for bit (max|dmu| = 0) at "
-          f"{[c[1:4] for c in cases]} in float32 and float64 (rows all zero: d_sorted[0]); two "
-          "launches the same bits", flush=True)
+          f"{[c[1:4] for c in cases]} and A's fit rows {(wbar.shape[0], *ds.shape)} ({live} rows "
+          f"with a nonzero weight, {int((wbar != 0).sum())} nonzero weights) in float32 and "
+          "float64 (rows all zero: d_sorted[0]); two launches the same bits", flush=True)
+    timed = {"A": a_rows}
+    timed.update({"A synthetic" if label == "A" else label: median_inputs(
+        device, K, n, d, torch.float32, seed=n + d) for label, (K, n, d) in MEDIAN_SHAPES.items()})
+    parent = extra_library("median_parent", MEDIAN_FUNCTIONS)
+    latency = add_latency_cycles(device)
     shapes = {}
-    thr = torch.tensor(cuda_median.THRESHOLD, dtype=torch.float32).item()
-    for label, (K, n, d) in MEDIAN_SHAPES.items():
-        ds, order, wbar = median_inputs(device, K, n, d, torch.float32, seed=n + d)
+    for label, (ds, order, wbar) in timed.items():
+        (n, d), K = ds.shape, wbar.shape[0]
         gathered = wbar[..., order]
-        crossed = torch.cumsum(gathered, dim=-2) >= thr
-        # The adds a column runs: up to its crossing, or all n where none.
-        adds = torch.where(crossed.any(dim=-2), torch.argmax(crossed.to(torch.int8), dim=-2) + 1,
-                           torch.full_like(crossed[..., 0, :], n, dtype=torch.int64))
-        longest = int(adds.max())
+        thr = torch.tensor(cuda_median.THRESHOLD, dtype=torch.float32).item()
         kernel = lambda: cuda_median.weighted_median_presorted(ds, order, wbar)  # noqa: E731
         t = timed_in_turns({
             "kernel": kernel,
@@ -1841,19 +2092,40 @@ def phase_median_kernel(device) -> dict:
         for _ in range(2):  # in turns with the library call's device time
             dev.append(device_ms(kernel, "weighted_median", calls=10))
             lib = device_ms(lambda: torch.cumsum(gathered, dim=-2), calls=3)
-        b = median_bound(K, n, d, torch.float32, longest)
-        shapes[label] = dict(K=K, n=n, d=d, longest_chain=longest, ms=t["kernel"],
-                             device_ms=min(dev), device_ms_turns=dev, plain_ms=t["plain"],
-                             library_ms=t["library"], library_device_ms=lib, **b)
-        print(f"weighted_median timing {label} (K, n, d) = {(K, n, d)}, longest chain {longest} "
-              f"adds: kernel call {t['kernel']:.4f} ms device {dev[0]:.4f} / {dev[1]:.4f} ms; "
+        work = median_work(ds, order, wbar)
+        b = median_bound(K, d, torch.float32, work, latency[torch.float32])
+        row = dict(K=K, n=n, d=d, **work, ms=t["kernel"], device_ms=min(dev),
+                   device_ms_turns=dev, plain_ms=t["plain"], library_ms=t["library"],
+                   library_device_ms=lib, **b)
+        turns = ""
+        if parent is not None:
+            theirs = median_parent_fn(parent, ds, order, wbar)
+            check(torch.equal(_bits(theirs()), _bits(kernel())), f"weighted_median {label}: the "
+                  "parent's kernel and this one differ")
+            row["in_turns_with_parent"] = device_in_turns(
+                {"parent": theirs, "this": kernel}, "weighted_median", calls=10)
+            turns = f"; in turns (parent, this, this, parent): {row['in_turns_with_parent']}"
+        shapes[label] = row
+        print(f"weighted_median timing {label} (K, n, d) = {(K, n, d)}, longest chain "
+              f"{work['longest_chain']} nonzero adds (crossing at {work['longest_crossing']} "
+              f"points): kernel call {t['kernel']:.4f} ms device {dev[0]:.4f} / {dev[1]:.4f} ms; "
               f"plain {t['plain']:.4f} ms; library (torch.cumsum + argmax) call "
               f"{t['library']:.4f} ms, its cumsum's device time {lib:.4f} ms; bound "
-              f"{b['bound_ms']:.5f} ms ({b['bound_by']}: chain {b['chain_bound_ms']:.5f}, bytes "
-              f"{b['bytes_bound_ms']:.5f}) (calls: medians of synchronized calls in turns)",
+              f"{b['bound_ms']:.5f} ms ({b['bound_by']}: chain {b['chain_bound_ms']:.5f} at the "
+              f"measured {latency[torch.float32]:.2f} cycles an add, "
+              f"{b['chain_at_nominal_latency_ms']:.5f} at {ADD_LATENCY[torch.float32]}; bytes "
+              f"{b['bytes_bound_ms']:.5f}){turns} (calls: medians of synchronized calls in turns)",
               flush=True)
+    stamped = extra_library("median_stamped", {**MEDIAN_FUNCTIONS,
+                                               "tempest_median_stamps": [ctypes.c_void_p]})
+    split = {}
+    if stamped is not None:
+        rate = sm_cycles_per_us()
+        for label in ("A", "B"):
+            split[label] = median_split(label, stamped, *timed[label], rate)
     # The row: B's fit, the path the kernel was written for.
-    return dict(shapes["B"], max_abs_err=0.0, shapes=shapes, cumsum_accumulation=accumulation)
+    return dict(shapes["B"], max_abs_err=0.0, shapes=shapes, cumsum_accumulation=accumulation,
+                stamps=split)
 
 
 # ---------------------------------------------------------------------------
@@ -2094,6 +2366,37 @@ def phase_node_costs(device) -> dict:
           f"{untaken['if_untaken_us']:.3f} us ({COND_NODES} in a replay "
           f"{untaken['replay_ms']:.4f} ms, none {untaken['bare_ms']:.4f} ms)", flush=True)
     return dict(while_empty=empty, while_a_step=step, if_untaken=untaken)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4g: a failed conditional body's capture raises, the process lives on
+# ---------------------------------------------------------------------------
+def phase_capture_abort() -> dict:
+    """scripts/capture_abort.py in a process of its own, for a WHILE body
+    (the MCMC chain's, its likelihood synchronizing) and an IF body that
+    synchronize past PyTorch's sync check: each exits 0, not by a signal,
+    having printed CaptureError naming its loop and on_device=False, then a
+    clean clustered run graphed bit for bit with its eager run."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "capture_abort.py")
+    out = {}
+    for kind, loop in (("while", "mcmc"), ("if", "probe_if")):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-X", "faulthandler", script, kind],
+                              capture_output=True, text=True, timeout=600)
+        text = f"{proc.stdout}{proc.stderr[-3000:]}"
+        check(proc.returncode == 0, f"capture abort ({kind} body): exit code {proc.returncode}"
+              f"{' (a signal)' if proc.returncode < 0 else ''}: {text[-4000:]}")
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith(("CAPTURE_ERROR", "REPLAY_EQUAL"))]
+        check(any(f"capturing the {loop!r} loop" in ln and "on_device=False" in ln
+                  for ln in lines) and any(ln.startswith("REPLAY_EQUAL True") for ln in lines),
+              f"capture abort ({kind} body): {text[-4000:]}")
+        out[kind] = {"exit_code": proc.returncode, "lines": lines,
+                     "seconds": time.perf_counter() - t0}
+        print(f"capture abort, {kind} body syncing past the check: exit code {proc.returncode}; "
+              + " / ".join(ln[:400] for ln in lines), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2690,17 +2993,19 @@ def em_mode_case(what, carry, consts) -> dict:
 
 
 def a_fit_inputs(device, iteration: int = 21) -> dict:
-    """The inputs of every GMM EM loop, of the Student-t EM loop and of the
-    cluster fit ("hgm": x, w, mask and hgm_fit's other arguments) of A's
-    seed 42 (on_device=False) at `iteration`, on the card."""
+    """The inputs of every GMM EM loop, of the Student-t EM loop, of the
+    cluster fit ("hgm": x, w, mask and hgm_fit's other arguments) and of the
+    weighted median ("median": d_sorted, order, wbar) of A's seed 42
+    (on_device=False) at `iteration`, on the card."""
     s = canonical_sampler(device, SEEDS[0], clustering=True)
     s.reset(random_state=SEEDS[0])
     core = s.state
     core.n_total = N_TOTAL
     core._pregrow_capacity()
-    got = {"gmm": [], "mode": [], "hgm": []}
+    got = {"gmm": [], "mode": [], "hgm": [], "median": []}
     gmm_em, mode_em = cluster_module._gmm_em, student_module._mode_em
     hgm_fit = iteration_module.hgm_fit
+    median = student_module._weighted_median_presorted
     copy = lambda c: {k: v.clone() for k, v in c.items()}  # noqa: E731
 
     def hgm(x, w, mask, loops=None, **kwargs):
@@ -2715,15 +3020,19 @@ def a_fit_inputs(device, iteration: int = 21) -> dict:
         got["mode"].append((copy(carry), copy(consts)))
         return mode_em(carry, consts, loops)
 
+    def med(d_sorted, order, wbar):
+        got["median"].append((d_sorted.clone(), order.clone(), wbar.clone()))
+        return median(d_sorted, order, wbar)
+
     for _ in range(iteration - 1):
         core._step(None, 0)
     cluster_module._gmm_em, student_module._mode_em = gmm, mode
-    iteration_module.hgm_fit = hgm
+    iteration_module.hgm_fit, student_module._weighted_median_presorted = hgm, med
     try:
         core._step(None, 0)
     finally:
         cluster_module._gmm_em, student_module._mode_em = gmm_em, mode_em
-        iteration_module.hgm_fit = hgm_fit
+        iteration_module.hgm_fit, student_module._weighted_median_presorted = hgm_fit, median
     return got
 
 
@@ -2842,14 +3151,14 @@ def em_timing(name, kernel, plain, n_bytes, n_ops, chain_ms, calls, f64=False) -
                 bound_with_chain_ms=max(b_ms, chain_ms), library_ms=None)
 
 
-def phase_em_kernels(device) -> dict:
+def phase_em_kernels(device, a_inputs: dict) -> dict:
     """tempest_gmm_em and tempest_mvstud_em (_f64) against their plain loops
     (the "gmm_em" and "mode_em" device loops on the same CUDA tensors) at
     the paths' shapes in float32 and float64, on synthetic fits and on A's
     own fit inputs (seed 42, iteration 21), two launches the same bits; in
     float32 (and at A's and B's shapes in float64) their call and device
     times in turns with the plain loops (chunks of 4, as the fused route
-    runs them), beside their bounds."""
+    runs them), beside their bounds. `a_inputs`: `a_fit_inputs`."""
     red_us = em_reduction_us(device)
     report = {"gmm_em": {}, "mvstud_em": {}}
     for dtype in (torch.float32, torch.float64):
@@ -2862,7 +3171,6 @@ def phase_em_kernels(device) -> dict:
             carry, consts = em_mode_inputs(device, K, n, d, dtype, seed=K + d)
             report["mvstud_em"][f"{label} {(K, n, d)} {tag}"] = em_mode_case(
                 f"mvstud_em {label} {(K, n, d)} {tag}", carry, consts)
-    a_inputs = a_fit_inputs(device)
     check(len(a_inputs["gmm"]) >= 1 and len(a_inputs["mode"]) == 1,
           f"A's iteration 21 ran {len(a_inputs['gmm'])} GMM and {len(a_inputs['mode'])} mode fits")
     up = lambda t: t.double() if t.is_floating_point() else t  # noqa: E731
@@ -3056,7 +3364,7 @@ def phase_bracket_kernel(device) -> dict:
                                     got, want)
                 if dtype == torch.float32:
                     max_err = max(max_err, err)
-                print(f"ess bracket {str(dtype)[6:]} S={S} [{_route(S, dtype)}] {kind}: "
+                print(f"ess bracket {str(dtype)[6:]} S={S} [{_route(S, dtype, True)}] {kind}: "
                       f"beta_prev={bp:.6g} target={target:.6g} kernel={got[0].tolist()} "
                       f"({int(got[1].item())} probes) plain={want[0].tolist()} "
                       f"({int(want[1].item())} probes)", flush=True)
@@ -3068,17 +3376,137 @@ def phase_bracket_kernel(device) -> dict:
             t = timed_in_turns({"kernel": kernel})
             t.update(timed_in_turns({"plain": lambda: plain(logl, bm, scal)}, calls=10))
             dev = device_ms(kernel, "ess_bracket_kernel")
-            # logl and Bm read once, scal read, (lo, hi) and the probe count written.
-            b_ms, b_by = bound(8 * S + 20, *work((S * probes, ESS_SAMPLE_PROBE["f32"])))
-            row = dict(S=S, filled=f"{t_fill} of {capacity} rows", probes=probes,
-                       launch_plan=_route(S), ms=t["kernel"], device_ms=dev,
-                       plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by, library_ms=None)
-            print(f"ess bracket timing S={S} ({label}, {probes} probes, {_route(S)}): kernel call "
-                  f"{t['kernel']:.4f} ms device {dev:.4f} ms; plain {t['plain']:.4f} ms; bound "
-                  f"{b_ms:.5f} ms ({b_by})", flush=True)
+            live = int((torch.isfinite(logl) & (bm != float("inf"))).sum())
+            b_ms, b_by = bracket_bound(S, live, probes)
+            row = dict(S=S, live=live, filled=f"{t_fill} of {capacity} rows", probes=probes,
+                       launch_plan=_route(S, bracket=True), ms=t["kernel"], device_ms=dev,
+                       plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       bound_all_samples_ms=bound(8 * S + 20, *work(
+                           (S * probes, ESS_SAMPLE_PROBE["f32"])))[0])
+            print(f"ess bracket timing S={S} ({label}, {live} live, {probes} probes, "
+                  f"{_route(S, bracket=True)}): kernel call {t['kernel']:.4f} ms device {dev:.4f} "
+                  f"ms; plain "
+                  f"{t['plain']:.4f} ms; bound {b_ms:.5f} ms ({b_by}; counting every sample's "
+                  f"exp {row['bound_all_samples_ms']:.5f})", flush=True)
     check(row is not None, f"no bracket timing on the {BRACKET_TIMED!r} history")
     row["max_abs_err"] = max_err
+    row["in_turns_with_parent"] = bracket_turns(device)
+    row["stamps"] = bracket_split(device)
+    row["bounds"] = bracket_bounds(device)
     return row
+
+
+def bracket_bounds(device) -> dict:
+    """The bracket's bound at every BRACKET_SHAPES size (float32, the
+    bisection target of `bracket_inputs`): its live samples, probes and
+    `bracket_bound`, beside the bound counting every sample's exps."""
+    out = {}
+    for label, *_ in BRACKET_SHAPES:
+        logl, bm, scal = bracket_inputs(device, label)
+        S = logl.numel()
+        probes = int(reweight_step.ess_bracket_loop(logl, bm, scal)[1].item())
+        live = int((torch.isfinite(logl) & (bm != float("inf"))).sum())
+        b_ms, b_by = bracket_bound(S, live, probes)
+        out[label] = dict(S=S, live=live, probes=probes, bound_ms=b_ms, bound_by=b_by,
+                          bound_all_samples_ms=bound(8 * S + 20, *work(
+                              (S * probes, ESS_SAMPLE_PROBE["f32"])))[0])
+    print(f"ess bracket bounds by size (float32): {json.dumps(out)}", flush=True)
+    return out
+
+
+def bracket_bound(S: int, live: int, probes: int):
+    """The least time of the bracket search: logl and Bm read once, scal
+    read, (lo, hi) and the probe count written, against the instructions of
+    each probe on the live samples (a masked sample adds nothing)."""
+    return bound(8 * S + 20, *work((live * probes, ESS_SAMPLE_PROBE["f32"])))
+
+
+def bracket_inputs(device, label: str, dtype=torch.float32):
+    """(logl, bm, scal) of BRACKET_SHAPES' `label` at its bisection target."""
+    _, n_particles, capacity, t_fill = next(c for c in BRACKET_SHAPES if c[0] == label)
+    hist = synthetic_history(device, n_particles, capacity, t_fill, seed=capacity, dtype=dtype)
+    _, logl, bm = kernel_inputs(hist)
+    beta_prev = float(hist.beta[t_fill // 2])
+    target = math.sqrt(ess_of(logl, bm, beta_prev) * ess_of(logl, bm, 1.0))
+    return logl, bm, torch.tensor([beta_prev, target], dtype=dtype, device=device)
+
+
+def bracket_raw(lib, logl, bm, scal):
+    """A launch of a library's bracket entry (the parent's, or the stamped
+    build) on these inputs, as `cuda_reweight.ess_bracket` launches it."""
+    plan = cuda_reweight.plan_launch(logl.numel(), logl.dtype)
+    entry = lib.tempest_ess_bracket if logl.dtype == torch.float32 else lib.tempest_ess_bracket_f64
+
+    def run():
+        out = torch.empty(2, dtype=logl.dtype, device=logl.device)
+        probes = torch.empty(1, dtype=torch.int32, device=logl.device)
+        _build.check(entry(logl.data_ptr(), bm.data_ptr(), scal.data_ptr(), out.data_ptr(),
+                           probes.data_ptr(), logl.numel(), plan.slice, int(plan.resident),
+                           torch.cuda.current_stream().cuda_stream), "ess_bracket")
+        return out, probes
+    return run
+
+
+def bracket_turns(device) -> dict:
+    """With --parent: the bracket's device time in turns with the parent's
+    kernel (parent, this, this, parent) at every BRACKET_SHAPES size, float32,
+    on the same inputs; both held to the plain version first."""
+    parent = extra_library("ess_parent", ESS_FUNCTIONS)
+    if parent is None:
+        return {}
+    out = {}
+    for label, *_ in BRACKET_SHAPES:
+        logl, bm, scal = bracket_inputs(device, label)
+        want = reweight_step.ess_bracket_loop(logl, bm, scal)
+        theirs = bracket_raw(parent, logl, bm, scal)
+        mine = lambda: cuda_reweight.ess_bracket(logl, bm, scal)  # noqa: E731
+        for who, fn in (("parent", theirs), ("this", mine)):
+            check_bracket(f"ess_bracket {who} {label}", logl, bm, scal, fn(), want)
+        out[label] = device_in_turns({"parent": theirs, "this": mine}, "ess_bracket_kernel",
+                                     calls=20)
+        print(f"ess bracket {label} S={logl.numel()} ({int(want[1].item())} probes): device ms "
+              f"in turns (parent, this, this, parent): {json.dumps(out[label])}", flush=True)
+    return out
+
+
+# The bracket's stamps (csrc/ess_bisect.cu, BRACKET_STAMPS): a CTA's fields.
+BRACKET_STAMP_FIELDS = ("load", "pass", "warp", "cta", "push", "wait", "combine_decide", "rounds")
+
+
+def bracket_split(device) -> dict:
+    """One launch of the stamped bracket at every BRACKET_SHAPES size: each
+    CTA's thread 0 clock64 marks by phase (the load and compaction once;
+    then, a round each, its pass, its warp's combine, the CTA's combine, the
+    pushes, the wait for the cluster's partials, their combine and the
+    decision), in microseconds a round at the SM clock, for CTA 0 and as the
+    largest over the CTAs."""
+    lib = extra_library("ess_stamped", {**ESS_FUNCTIONS,
+                                        "tempest_bracket_stamps": [ctypes.c_void_p]})
+    if lib is None:
+        return {}
+    rate = sm_cycles_per_us()
+    out = {}
+    for label, *_ in BRACKET_SHAPES:
+        logl, bm, scal = bracket_inputs(device, label)
+        got = bracket_raw(lib, logl, bm, scal)()
+        torch.cuda.synchronize()
+        check_bracket(f"ess_bracket stamped {label}", logl, bm, scal, got,
+                      reweight_step.ess_bracket_loop(logl, bm, scal))
+        raw = (ctypes.c_int64 * (16 * len(BRACKET_STAMP_FIELDS)))()
+        _build.check(lib.tempest_bracket_stamps(ctypes.addressof(raw)), "tempest_bracket_stamps")
+        rows = np.array(raw, dtype=np.int64).reshape(16, -1)
+        rounds = int(rows[0, -1])
+        per = rows[:, 1:-1] / max(rounds, 1) / rate  # us a round, by CTA
+        out[label] = {"probes": int(got[1].item()), "rounds": rounds,
+                      "load_us": {"cta0": float(rows[0, 0] / rate),
+                                  "max": float(rows[:, 0].max() / rate)},
+                      "us_a_round_cta0": dict(zip(BRACKET_STAMP_FIELDS[1:-1], per[0].tolist())),
+                      "us_a_round_max": dict(zip(BRACKET_STAMP_FIELDS[1:-1],
+                                                 per.max(axis=0).tolist())),
+                      "sm_cycles_per_us": rate}
+        print(f"ess bracket stamps {label} S={logl.numel()}: {json.dumps(out[label])}",
+              flush=True)
+    return out
 
 
 def phase_call_split(device) -> dict:
@@ -4767,7 +5195,11 @@ def kernel_table(rows: dict, launches: dict, floor: dict, split: dict, paths=Non
                                    "routes", "on_rosenbrock100", "on_path", "chain_bound_ms",
                                    "bound_with_chain_ms", "cluster", "n_iter_max",
                                    "iterations_max", "checks", "reduction_us",
-                                   "node_costs") if k in row},
+                                   "node_costs", "capture_abort", "stamps",
+                                   "in_turns_with_parent", "live", "bound_all_samples_ms",
+                                   "longest_crossing", "chain_adds", "bounds",
+                                   "chain_at_nominal_latency_ms", "add_latency_cycles")
+                   if k in row},
             "launch_floor_ms": floor["device_ms"], "call_split": split.get(name),
             **({"call_split_counter": split[f"{name}_counter"]}
                if f"{name}_counter" in split else {}),
@@ -4834,6 +5266,8 @@ def main() -> None:
           flush=True)
     sleep_kernel()  # read while a profile loses nothing (the path windows' warm-up)
     _count_mode_fits()
+    if cuda_median is not None and not args.package_root:
+        start_extra_builds(args.parent)
     ptxas = phase_build()
     if args.a_only:
         runs = {}
@@ -4850,18 +5284,22 @@ def main() -> None:
     stamp("phase 4b: the eigenvalue kernel")
     if cuda_linalg is not None:
         rows["sym_eigvals"] = phase_eig_kernel(device)
+    a_inputs = a_fit_inputs(device) if cuda_em is not None else None
     if cuda_median is not None:
         stamp("phase 4c: the weighted-median kernel")
-        rows["weighted_median"] = phase_median_kernel(device)
+        rows["weighted_median"] = phase_median_kernel(device, a_inputs["median"][0])
     if cuda_em is not None:
         stamp("phase 4d: the EM kernels")
-        rows.update(phase_em_kernels(device))
+        rows.update(phase_em_kernels(device, a_inputs))
     if cuda_graphs is not None:
         stamp("phase 4e: the conditional nodes' flag kernel")
         rows["set_conditional"] = phase_cond_kernel(device)
         if hasattr(cuda_graphs, "while_body"):
             stamp("phase 4f: what a conditional node costs the device")
             rows["set_conditional"]["node_costs"] = phase_node_costs(device)
+        if not args.package_root:
+            stamp("phase 4g: a failed conditional body's capture")
+            rows["set_conditional"]["capture_abort"] = phase_capture_abort()
     floor = launch_floor(device)
     split = phase_call_split(device)
     if args.kernels_only:

@@ -1,0 +1,58 @@
+"""How the capture of a CUDA-graph conditional node's body fails, case by
+case, on one NVIDIA GPU.
+
+    python3 scripts/capture_probe.py
+
+Builds scripts/capture_probe.cu with nvcc (sm_90a) into build/capture_probe/
+and runs each case (IF or WHILE node; a fault inside the body's capture;
+a way of ending the two captures: see the source's head) in a process of
+its own, printing its exit code (-11: killed by SIGSEGV) and every CUDA
+call that did not return cudaSuccess. csrc/graph_cond.cu takes its design
+from this: on CUDA 12.8 every case whose body was captured straight into the
+node's body graph and then failed died when the enclosing capture ended,
+while the "child" cases lived. The last line is one JSON object: each
+case's exit code.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+from tempest_tpu_torch.ops import _build  # noqa: E402
+
+KINDS = ("if", "while")
+FAULTS = ("none", "sync", "pinned", "event", "malloc", "devsync")
+STRATEGIES = ("torch", "destroy", "skipbody", "parentfirst", "child")
+
+
+def main() -> None:
+    out = REPO / "build" / "capture_probe"
+    out.mkdir(parents=True, exist_ok=True)
+    exe = out / "capture_probe"
+    proc = subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O2",
+                           "-o", str(exe), str(REPO / "scripts" / "capture_probe.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        sys.exit(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
+    codes = {}
+    for kind, fault, strategy in itertools.product(KINDS, FAULTS, STRATEGIES):
+        run = subprocess.run([str(exe), kind, fault, strategy], capture_output=True, text=True,
+                             timeout=60)
+        lines = [ln.strip() for ln in run.stdout.splitlines()[1:]
+                 if "-> 0 cudaSuccess" not in ln]
+        codes[f"{kind} {fault} {strategy}"] = run.returncode
+        print(f"{kind} {fault} {strategy}: rc={run.returncode} | " + " | ".join(lines),
+              flush=True)
+    print(json.dumps({"capture_probe": codes}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

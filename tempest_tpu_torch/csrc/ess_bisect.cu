@@ -75,23 +75,70 @@
 // doubles through the shuffles and the distributed shared memory, combined
 // in the same fixed order, so beta stays deterministic.
 //
-// The bracket mode (ess_bracket_kernel, the shared body with kBracket; C
-// entries tempest_ess_bracket and tempest_ess_bracket_f64) runs dynamic mode's ESS bracket search, XLA's
-// `_find_ess_bracket` (tempest_tpu/steps/reweight.py:73-119; the port's
-// plain version is the "ess_bracket" device loop of steps/reweight.py), in
-// the same launch shape: the same passes, partials and decisions through
-// distributed shared memory. Only the stop rule and the output differ. Stay
-// (lo = hi = beta_prev) when ESS(beta_prev) <= target; jump (lo = hi = 1)
-// when ESS(beta_prev) > target and ESS(1) >= target; else bisect [beta_prev,
-// 1], an ESS at or above the target moving lo up to the midpoint and
-// anything else bringing hi down, while hi - lo is above the interval
-// tolerance (with finfo's tiny, as steps/reweight.py has it) and fewer than
-// 200 probes ran; no ESS-tolerance stop. It writes (lo, hi) and the probe
-// count (2 + the bisection's probes) to device words, and reads beta_prev
-// and the target from device words, so a CUDA graph can hold the launch. It
-// computes ESS as s1^2 / s2, where the plain version normalises first (exp(2
-// lse(w) - lse(2 w)) of w = logw - lse(logw)): a midpoint whose ESS lies
-// within rounding of the target may be decided the other way.
+// The bracket mode (ess_bracket_kernel, a body of its own, bracket_search;
+// C entries tempest_ess_bracket and tempest_ess_bracket_f64) runs dynamic
+// mode's ESS bracket search, XLA's `_find_ess_bracket`
+// (tempest_tpu/steps/reweight.py:73-119; the port's plain version is the
+// "ess_bracket" device loop of steps/reweight.py), in one launch of one
+// cluster of kCluster CTAs. Stay (lo = hi = beta_prev) when ESS(beta_prev)
+// <= target; jump (lo = hi = 1) when ESS(beta_prev) > target and ESS(1) >=
+// target; else bisect [beta_prev, 1], an ESS at or above the target moving
+// lo up to the midpoint and anything else bringing hi down, while hi - lo is
+// above the interval tolerance (with finfo's tiny, as steps/reweight.py has
+// it) and fewer than 200 probes ran; no ESS-tolerance stop. It writes (lo,
+// hi) and the probe count (2 + the bisection's probes) to device words, and
+// reads beta_prev and the target from device words, so a CUDA graph can
+// hold the launch. It computes ESS as s1^2 / s2, where the plain version
+// normalises first (exp(2 lse(w) - lse(2 w)) of w = logw - lse(logw)): a
+// midpoint whose ESS lies within rounding of the target may be decided the
+// other way.
+//
+// What bounds the bracket on dynamic mode's history: the latency of a probe.
+// The history is (T_max, N) row-major with its filled rows a prefix, so at
+// 48 of 192 rows a quarter of the S = 196,608 samples live and the rest are
+// masked; the search takes about 16 probes, each one exp a live sample and
+// a combine across the cluster whose result decides the next probe. The
+// design of 63fe4b1 (the bisection's body) gave CTA r the contiguous slice
+// [r L, (r + 1) L): CTAs 0-3 held every live sample, the others spent an exp
+// a probe on masked ones, and each probe passed two CTA barriers and a
+// cluster barrier and read 16 remote partials: about 3 us a probe against a
+// bound of 1.5 us for the whole search. Its own design, kept apart so that
+// the bisection keeps its bits:
+//  - Samples are dealt out by chunks of kChunk = 128 (a warp's load, a quad
+//    a lane): chunk c to CTA c % kCluster, so a live prefix spreads evenly.
+//    On the resident route (S <= kCluster x the slice's maximum) each CTA
+//    loads its chunks once, masked, into shared memory, every load in
+//    flight at once; a pass skips a quad whose four samples are all dropped
+//    (on a history whose live rows are a prefix, whole warps skip
+//    together), so it costs about the live samples' exps: at dynamic's
+//    history under two live quads a thread. Keeping only the live samples
+//    instead (a scan a round of loads) took 7.0 us to load where this takes
+//    3.3 us (the stamps; PERF.md). The streamed route reads the CTA's chunks
+//    from device memory at every pass and masks them there.
+//  - 512 threads a CTA on the resident route (kBracketThreads, 128
+//    registers a thread); the bisection's CTA on the streamed one, for its
+//    loads in flight (`BracketCta`).
+//  - One probe round trip: each warp combines its partials; warp 0 waits at
+//    a named barrier that the other warps only arrive at, combines the
+//    warps', and its lanes r < kCluster push the CTA's partials into CTA
+//    r's inbox with st.async, whose bytes count against that CTA's
+//    mbarrier; thread 0 of each CTA announces the bytes its inbox awaits a
+//    round (arrive.expect_tx). Every warp of every CTA then waits on its
+//    own CTA's mbarrier, combines the kCluster partials of the inbox in rank
+//    order and takes the same decision, held in registers: no cluster
+//    barrier, no remote read and no CTA barrier a probe, and the pushing
+//    lanes do not wait for their writes to land. Inboxes and mbarriers
+//    alternate by probe parity: a CTA pushes round p + 2 only after every
+//    CTA has pushed round p + 1, which each does after all its warps have
+//    read round p.
+//  - The first pass takes beta_prev, 1 and the first midpoint; each later
+//    pass the next midpoint. A pass can take kBracketLevels levels of the
+//    bisection tree below the bracket (2^levels - 1 betas, walked as the
+//    serial search walks them, each node's beta 0.5 (lo + hi) of the bracket
+//    the serial search would hold there, each level a probe); one level was
+//    measured fastest (the constant's note).
+//  - Built with -DBRACKET_STAMPS (chip_smoke.py phase 3b), bracket_stamps.cuh
+//    records each CTA's cycles by phase of a probe round.
 //
 // CTA shape by type (Cta<T>). 1024 threads leave a thread 64 of the SM's
 // 65,536 registers. The float32 state fits (48); the double one does not:
@@ -108,6 +155,10 @@
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
+
+#ifdef BRACKET_STAMPS
+#include "bracket_stamps.cuh"
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -390,30 +441,6 @@ __device__ __forceinline__ void step(Control<T>& c, T metric, T target) {
   if (!c.stop) c.beta = T(0.5) * (c.lo + c.hi);  // else keep the last probe
 }
 
-// The bracket's loop condition (steps/reweight.py `_bracket_open`): the
-// interval above its tolerance (finfo's tiny as the floor of its scale) and
-// fewer than 200 probes.
-template <typename T>
-__device__ __forceinline__ bool bracket_open(const Control<T>& c) {
-  return (c.hi - c.lo) > interval_tol(c.lo, c.hi, Consts<T>::kFinfoTiny) &&
-         c.iter < kMaxBisectionIterations;
-}
-
-// One probe of the ESS bracket on the ESS at c.beta, the midpoint: an ESS
-// at or above the target moves lo up, anything else (NaN included) brings
-// hi down; it stops on the interval tolerance and the probe cap alone.
-template <typename T>
-__device__ __forceinline__ void bracket_step(Control<T>& c, T ess, T target) {
-  if (ess >= target) {
-    c.lo = c.beta;
-  } else {
-    c.hi = c.beta;
-  }
-  c.iter += 1;
-  c.stop = !bracket_open(c);
-  if (!c.stop) c.beta = T(0.5) * (c.lo + c.hi);
-}
-
 // Warp 0 of this CTA: the cluster's combined partials at NB betas, as ESS,
 // read from every CTA's `mine` in rank order.
 template <typename T, int NB>
@@ -429,9 +456,8 @@ __device__ void gather(const cg::cluster_group& cluster, Acc<T>* mine, T* ess) {
   for (int k = 0; k < NB; ++k) ess[k] = (a[k].s1 * a[k].s1) / a[k].s2;  // all dropped: 0/0 = NaN
 }
 
-// The body of both kernels. kBracket: the bracket mode (out holds lo and
-// hi), else the ESS-mode bisection (out holds beta).
-template <typename T, bool kResident, bool kBracket>
+// The ESS-mode bisection (out holds beta).
+template <typename T, bool kResident>
 __device__ __forceinline__ void ess_search(const T* __restrict__ logl, const T* __restrict__ bm,
                                            const T* __restrict__ scal, T* __restrict__ out,
                                            int32_t* __restrict__ probes_out, int64_t n,
@@ -491,9 +517,6 @@ __device__ __forceinline__ void ess_search(const T* __restrict__ logl, const T* 
       ess_one = ess[1];
       if (ess_cur <= target || ess_one >= target) {
         ctl.stop = 1;
-      } else if (kBracket) {
-        ctl.stop = !bracket_open(ctl);  // an interval already below tolerance: no probe
-        if (!ctl.stop) bracket_step(ctl, ess[2], target);
       } else {
         step(ctl, ess[2], target);
       }
@@ -508,13 +531,7 @@ __device__ __forceinline__ void ess_search(const T* __restrict__ logl, const T* 
     if (threadIdx.x < 32) {
       T ess[1];
       gather<T, 1>(cluster, mine[parity], ess);
-      if (threadIdx.x == 0) {
-        if (kBracket) {
-          bracket_step(ctl, ess[0], target);
-        } else {
-          step(ctl, ess[0], target);
-        }
-      }
+      if (threadIdx.x == 0) step(ctl, ess[0], target);
     }
     __syncthreads();
     parity ^= 1;
@@ -522,52 +539,452 @@ __device__ __forceinline__ void ess_search(const T* __restrict__ logl, const T* 
   cluster.sync();  // no CTA exits while another may still read its partials
 
   if (rank == 0 && threadIdx.x == 0) {
-    if (kBracket) {
-      // Stay, or the jump when ESS(beta_prev) > target too (a NaN ESS at
-      // beta_prev stays): both ends at the edge, as _find_ess_bracket has it.
-      T lo = ctl.lo, hi = ctl.hi;
-      if (ess_cur <= target || ess_one >= target) {
-        lo = hi = (ess_cur > target && ess_one >= target) ? T(1) : beta_prev;
-      }
-      out[0] = lo;
-      out[1] = hi;
-    } else {
-      T beta = ctl.beta;
-      if (ess_cur <= target) {
-        beta = beta_prev;
-      } else if (ess_one >= target) {
-        beta = T(1);
-      }
-      out[0] = beta;
+    T beta = ctl.beta;
+    if (ess_cur <= target) {
+      beta = beta_prev;
+    } else if (ess_one >= target) {
+      beta = T(1);
     }
+    out[0] = beta;
     probes_out[0] = 2 + ctl.iter;
   }
 }
 
-// The two modes under their own names, so a profile tells them apart.
 template <typename T, bool kResident>
 __global__ void __launch_bounds__(Cta<T>::kThreads, 1)
 ess_bisect_kernel(const T* __restrict__ logl, const T* __restrict__ bm,
                   const T* __restrict__ scal, T* __restrict__ beta,
                   int32_t* __restrict__ probes, int64_t n, int64_t slice) {
-  ess_search<T, kResident, false>(logl, bm, scal, beta, probes, n, slice);
+  ess_search<T, kResident>(logl, bm, scal, beta, probes, n, slice);
+}
+
+// ---------------------------------------------------------------------------
+// The bracket mode (design note at the top of the file, "The bracket mode").
+// ---------------------------------------------------------------------------
+constexpr int kChunk = 128;  // samples a warp takes at once: a quad a lane
+constexpr int kFirst = 3;    // the first pass's betas: beta_prev, 1 and the first midpoint
+constexpr int kBracketThreads = 512;  // threads a CTA on the resident route
+
+// The CTA by route: kBracketThreads where the samples are held on chip, the
+// bisection's CTA (1024 threads in float32, 512 in float64) where every
+// pass streams them, for as many loads in flight as it has.
+template <typename T, bool kResident>
+struct BracketCta {
+  static constexpr int kThreads = kResident ? kBracketThreads : Cta<T>::kThreads;
+  static constexpr int kWarps = kThreads / 32;
+  static_assert(kWarps <= 32, "warp 0 combines one warp's partial a lane");
+};
+
+// Levels of the bisection tree a later pass evaluates (its betas: kTree).
+// One: at dynamic's history a pass costs about its betas' exps on the live
+// samples, so two levels (3 betas a pass) took 0.0327 ms and three 0.0437
+// against one level's 0.0309, and all filled 0.0832 and 0.1143 against
+// 0.0728 (scripts/kernel_designs.py; PERF.md).
+constexpr int kBracketLevels = 1;
+constexpr int kTree = (1 << kBracketLevels) - 1;
+constexpr int kInbox = kFirst > kTree ? kFirst : kTree;
+
+// The bracket's loop condition (steps/reweight.py `_bracket_open`): the
+// interval above its tolerance (finfo's tiny as the floor of its scale) and
+// fewer than 200 probes.
+template <typename T>
+__device__ __forceinline__ bool bracket_open(T lo, T hi, int iter) {
+  return (hi - lo) > interval_tol(lo, hi, Consts<T>::kFinfoTiny) &&
+         iter < kMaxBisectionIterations;
+}
+
+// Samples [i, i + 4) into l and b, past n dropped (logl 0, Bm +inf), masked.
+template <typename T>
+__device__ __forceinline__ void load_masked(const T* __restrict__ logl, const T* __restrict__ bm,
+                                            int64_t n, bool aligned, int64_t i, T l[4], T b[4]) {
+  if (aligned && i + 4 <= n) {
+    load_quad(logl + i, l);
+    load_quad(bm + i, b);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool in = i + j < n;
+      l[j] = in ? logl[i + j] : T(0);
+      b[j] = in ? bm[i + j] : T(INFINITY);
+    }
+  }
+  mask4(l, b);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The address of `p` (this CTA's shared memory) in the shared memory of CTA
+// `rank` of the cluster.
+__device__ __forceinline__ uint32_t remote_u32(const void* p, unsigned rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  return remote;
+}
+
+// Writes v into CTA `rank`'s shared memory at `dst` (an address of this
+// CTA's layout) without waiting: the write counts its bytes against the
+// transaction count of that CTA's mbarrier at `bar`, which completes its
+// phase once every expected byte has landed (st.async, one way).
+__device__ __forceinline__ void push(float* dst, float v, uint64_t* bar, unsigned rank) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];" ::"r"(
+          remote_u32(dst, rank)),
+      "r"(__float_as_uint(v)), "r"(remote_u32(bar, rank))
+      : "memory");
+}
+__device__ __forceinline__ void push(double* dst, double v, uint64_t* bar, unsigned rank) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];" ::"r"(
+          remote_u32(dst, rank)),
+      "l"(__double_as_longlong(v)), "r"(remote_u32(bar, rank))
+      : "memory");
+}
+
+// This thread's arrival on its CTA's mbarrier, announcing `bytes` more
+// to land in the phase.
+__device__ __forceinline__ void expect_bytes(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{\n\t.reg .b64 state;\n\t"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n\t}" ::"r"(smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Whether this CTA's mbarrier finished its phase of this parity, acquiring
+// what landed in it.
+__device__ __forceinline__ bool arrived(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.b32 %0, 1, 0, p;\n\t}"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+#ifdef BRACKET_STAMPS
+static_assert(kBracketStampCtas == kCluster, "a stamp row a CTA of the cluster");
+#define BRACKET_MARK(field)                        \
+  do {                                             \
+    const long long now_ = clock64();              \
+    stamps[field] += now_ - mark;                  \
+    mark = now_;                                   \
+  } while (0)
+#else
+#define BRACKET_MARK(field) \
+  do {                      \
+  } while (0)
+#endif
+
+// The samples of CTA `rank`, masked, into sl and sb: the chunks rank, rank +
+// kCluster, ... of kChunk samples, quad q of the CTA being lane q % 32 of
+// its chunk q / 32; past n, dropped samples. A thread loads kLoadBatch
+// quads before it stores any, so that many loads are in flight at once (at
+// dynamic's history, 6 quads a thread: one round in float32).
+template <typename T, int kThreads>
+__device__ __forceinline__ void load_chunks(const T* __restrict__ logl, const T* __restrict__ bm,
+                                            int64_t n, bool aligned, int rank, int quads,
+                                            Quad<T>* __restrict__ sl, Quad<T>* __restrict__ sb) {
+  constexpr int kLoadBatch = sizeof(T) == 4 ? 8 : 4;
+  for (int q0 = threadIdx.x; q0 < quads; q0 += kThreads * kLoadBatch) {
+    T l[kLoadBatch][4], b[kLoadBatch][4];
+#pragma unroll
+    for (int u = 0; u < kLoadBatch; ++u) {
+      const int q = q0 + u * kThreads;
+      const int64_t c = rank + static_cast<int64_t>(kCluster) * (q >> 5);
+      load_masked(logl, bm, q < quads ? n : 0, aligned, c * kChunk + 4 * (q & 31), l[u], b[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadBatch; ++u) {
+      const int q = q0 + u * kThreads;
+      if (q < quads) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sl[q].v[j] = l[u][j];
+          sb[q].v[j] = b[u][j];
+        }
+      }
+    }
+  }
+}
+
+// One pass at NB betas: this thread's partials, over its quads held on chip
+// (resident; a quad whose four samples are all dropped adds nothing and is
+// skipped: on a history whose live rows are a prefix whole warps skip
+// together) or over the CTA's chunks read from device memory (streamed).
+template <typename T, int NB, int kThreads, bool kResident>
+__device__ __forceinline__ void bracket_pass(const T* __restrict__ logl, const T* __restrict__ bm,
+                                             int64_t n, bool aligned, int rank,
+                                             const Quad<T>* __restrict__ sl,
+                                             const Quad<T>* __restrict__ sb, int quads,
+                                             const T (&beta)[NB], Acc<T> (&acc)[NB]) {
+#pragma unroll
+  for (int k = 0; k < NB; ++k) acc[k] = empty_acc<T>();
+  if (kResident) {
+    for (int q = threadIdx.x; q < quads; q += kThreads) {
+      const Quad<T> b4 = sb[q];
+      if (b4.v[0] == T(INFINITY) && b4.v[1] == T(INFINITY) && b4.v[2] == T(INFINITY) &&
+          b4.v[3] == T(INFINITY)) {
+        continue;
+      }
+      const Quad<T> l4 = sl[q];
+      add_group<T, NB>(acc, beta, l4.v, b4.v);
+    }
+  } else {
+    constexpr int kWarps = kThreads / 32;
+    const int64_t chunks = (n + kChunk - 1) / kChunk;
+    const int64_t mine = rank + static_cast<int64_t>(kCluster) * (threadIdx.x >> 5);
+    for (int64_t c = mine; c < chunks; c += static_cast<int64_t>(kCluster) * kWarps) {
+      T l[4], b[4];
+      load_masked(logl, bm, n, aligned, c * kChunk + 4 * (threadIdx.x & 31), l, b);
+      add_group<T, NB>(acc, beta, l, b);
+    }
+  }
+}
+
+// The betas of a pass's tree on [lo, hi]: node 0 the midpoint, node i's
+// children 2i + 1 on [lo_i, beta_i] and 2i + 2 on [beta_i, hi_i], each
+// 0.5 * (lo + hi) of its interval, as the serial bisection computes it.
+template <typename T, int kTree>
+__device__ __forceinline__ void tree_betas(T lo, T hi, T (&beta)[kTree]) {
+  T tlo[kTree], thi[kTree];
+  tlo[0] = lo;
+  thi[0] = hi;
+#pragma unroll
+  for (int i = 0; i < kTree; ++i) {
+    beta[i] = T(0.5) * (tlo[i] + thi[i]);
+    if (2 * i + 2 < kTree) {
+      tlo[2 * i + 1] = tlo[i];
+      thi[2 * i + 1] = beta[i];
+      tlo[2 * i + 2] = beta[i];
+      thi[2 * i + 2] = thi[i];
+    }
+  }
+}
+
+// The serial bracket search's probes over the first `kLevels` levels of a
+// tree: from node 0, an ESS at or above the target moves lo up to the
+// node's beta and goes on to its right child, anything else (NaN included)
+// brings hi down and goes left, each a probe; it stops where the bracket
+// closes. Returns whether it did.
+template <int kLevels, typename T>
+__device__ __forceinline__ bool walk(const T* ess, const T* beta, T target, T& lo, T& hi,
+                                     int& iter) {
+  int node = 0;
+#pragma unroll
+  for (int level = 0; level < kLevels; ++level) {
+    // The node's ESS and beta by selects over the level's nodes, so the
+    // arrays stay in registers (no indexing by a value known only at run
+    // time).
+    const int begin = (1 << level) - 1;
+    T e = ess[begin], b = beta[begin];
+#pragma unroll
+    for (int j = begin + 1; j < 2 * begin + 1; ++j) {
+      e = node == j ? ess[j] : e;
+      b = node == j ? beta[j] : b;
+    }
+    if (e >= target) {
+      lo = b;
+      node = 2 * node + 2;
+    } else {
+      hi = b;
+      node = 2 * node + 1;
+    }
+    iter += 1;
+    if (!bracket_open(lo, hi, iter)) return true;
+  }
+  return false;
+}
+
+// The cluster's ESS at NB betas: every CTA's partials, pushed into this
+// CTA's inbox, combined in rank order by every warp alike.
+template <typename T, int NB>
+__device__ __forceinline__ void inbox_ess(const Acc<T> (*box)[kInbox], T (&ess)[NB]) {
+  const int lane = threadIdx.x & 31;
+  Acc<T> a[NB];
+#pragma unroll
+  for (int k = 0; k < NB; ++k) a[k] = lane < kCluster ? box[lane][k] : empty_acc<T>();
+  warp_combine<T, NB>(a);
+#pragma unroll
+  for (int k = 0; k < NB; ++k) ess[k] = (a[k].s1 * a[k].s1) / a[k].s2;  // all dropped: 0/0 = NaN
 }
 
 template <typename T, bool kResident>
-__global__ void __launch_bounds__(Cta<T>::kThreads, 1)
+struct BracketShared {
+  Acc<T> part[kInbox][BracketCta<T, kResident>::kWarps];  // the warps' partials
+  Acc<T> inbox[2][kCluster][kInbox];  // every CTA's partials, by probe parity
+  uint64_t arrivals[2];               // the inbox's mbarriers, by probe parity
+};
+
+// One probe round at NB betas for every thread of every CTA: thread 0
+// announces the bytes its CTA's inbox awaits; the pass; the warp's combine;
+// the CTA's (warp 0, after a named barrier the other warps only arrive at);
+// lanes r < kCluster of warp 0 push the CTA's partials into CTA r's inbox
+// (st.async, counted by that CTA's mbarrier); then every warp waits for its
+// CTA's inbox to fill and combines it in rank order. Gives the ESS at the
+// NB betas, the same in every thread of the cluster.
+template <typename T, int NB, bool kResident>
+__device__ __forceinline__ void probe(BracketShared<T, kResident>& sh, const T* __restrict__ logl,
+                                      const T* __restrict__ bm, int64_t n, bool aligned,
+                                      int rank, const Quad<T>* __restrict__ sl,
+                                      const Quad<T>* __restrict__ sb, int quads, int round,
+                                      const T (&beta)[NB], T (&ess)[NB]
+#ifdef BRACKET_STAMPS
+                                      , long long* stamps, long long& mark
+#endif
+) {
+  constexpr int kThreads = BracketCta<T, kResident>::kThreads;
+  constexpr int kWarps = BracketCta<T, kResident>::kWarps;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int par = round & 1;
+  if (threadIdx.x == 0) {
+    // Round `round - 2`, the last on this barrier, has completed here: this
+    // thread waited for it. Bytes landing before this count against it.
+    expect_bytes(&sh.arrivals[par], kCluster * NB * 3 * static_cast<uint32_t>(sizeof(T)));
+  }
+  Acc<T> acc[NB];
+  bracket_pass<T, NB, kThreads, kResident>(logl, bm, n, aligned, rank, sl, sb, quads, beta, acc);
+  BRACKET_MARK(1);
+  warp_combine<T, NB>(acc);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < NB; ++k) sh.part[k][warp] = acc[k];
+  }
+  BRACKET_MARK(2);
+  if (warp == 0) {
+    asm volatile("bar.sync 1, %0;" ::"r"(kThreads) : "memory");
+#pragma unroll
+    for (int k = 0; k < NB; ++k) acc[k] = lane < kWarps ? sh.part[k][lane] : empty_acc<T>();
+    warp_combine<T, NB>(acc);
+    BRACKET_MARK(3);
+    if (lane < kCluster) {
+      Acc<T>* dst = &sh.inbox[par][rank][0];
+      uint64_t* bar = &sh.arrivals[par];
+      const unsigned to = static_cast<unsigned>(lane);
+#pragma unroll
+      for (int k = 0; k < NB; ++k) {
+        push(&dst[k].m, acc[k].m, bar, to);
+        push(&dst[k].s1, acc[k].s1, bar, to);
+        push(&dst[k].s2, acc[k].s2, bar, to);
+      }
+    }
+    BRACKET_MARK(4);
+  } else {
+    asm volatile("bar.arrive 1, %0;" ::"r"(kThreads) : "memory");
+  }
+  const uint32_t parity = static_cast<uint32_t>((round >> 1) & 1);
+  while (!arrived(&sh.arrivals[par], parity)) {
+  }
+  BRACKET_MARK(5);
+  inbox_ess<T, NB>(sh.inbox[par], ess);
+}
+
+// The bracket search, dynamic mode's (the bracket mode of the design note):
+// writes (lo, hi) and the probe count (2 + its bisection probes).
+template <typename T, bool kResident>
+__device__ __forceinline__ void bracket_search(const T* __restrict__ logl,
+                                               const T* __restrict__ bm,
+                                               const T* __restrict__ scal, T* __restrict__ out,
+                                               int32_t* __restrict__ probes_out, int64_t n) {
+  constexpr int kThreads = BracketCta<T, kResident>::kThreads;
+  extern __shared__ __align__(16) unsigned char dyn[];  // resident route: the CTA's samples
+  __shared__ BracketShared<T, kResident> sh;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(logl) | reinterpret_cast<uintptr_t>(bm)) & 15) == 0;
+#ifdef BRACKET_STAMPS
+  long long stamps[kBracketStampFields] = {};
+  long long mark = clock64();
+#define BRACKET_STAMP_ARGS , stamps, mark
+#else
+#define BRACKET_STAMP_ARGS
+#endif
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(&sh.arrivals[0]))
+                 : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(&sh.arrivals[1]))
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // The CTA's chunks: rank, rank + kCluster, ... (their quads on chip).
+  const int64_t chunks = (n + kChunk - 1) / kChunk;
+  const int quads = static_cast<int>((chunks + kCluster - 1) / kCluster * (kChunk / 4));
+  Quad<T>* sl = reinterpret_cast<Quad<T>*>(dyn);
+  Quad<T>* sb = sl + quads;
+  if (kResident) load_chunks<T, kThreads>(logl, bm, n, aligned, rank, quads, sl, sb);
+  cluster.sync();  // every CTA's barriers made, its samples held
+  BRACKET_MARK(0);
+  const T beta_prev = scal[0];
+  const T target = scal[1];
+
+  // The first pass: beta_prev, 1 and the first midpoint, as the bisection's.
+  T lo = beta_prev, hi = T(1);
+  int iter = 0;
+  const T first[kFirst] = {beta_prev, T(1), T(0.5) * (beta_prev + T(1))};
+  T ess0[kFirst];
+  probe<T, kFirst, kResident>(sh, logl, bm, n, aligned, rank, sl, sb, quads, 0, first,
+                              ess0 BRACKET_STAMP_ARGS);
+  const T ess_cur = ess0[0], ess_one = ess0[1];
+  const bool edge = ess_cur <= target || ess_one >= target;  // stay or jump: no probe
+  bool stop = edge || !bracket_open(lo, hi, iter) || walk<1>(ess0 + 2, first + 2, target, lo,
+                                                             hi, iter);
+  BRACKET_MARK(6);
+  int round = 1;
+  while (!stop) {  // the same decisions in every thread of the cluster
+    T tree[kTree];
+    tree_betas(lo, hi, tree);
+    T ess[kTree];
+    probe<T, kTree, kResident>(sh, logl, bm, n, aligned, rank, sl, sb, quads, round, tree,
+                               ess BRACKET_STAMP_ARGS);
+    stop = walk<kBracketLevels>(ess, tree, target, lo, hi, iter);
+    BRACKET_MARK(6);
+    ++round;
+  }
+#undef BRACKET_STAMP_ARGS
+#ifdef BRACKET_STAMPS
+  if (threadIdx.x == 0) {
+    stamps[7] = round;
+    for (int f = 0; f < kBracketStampFields; ++f) g_bracket_stamps[rank][f] = stamps[f];
+  }
+#endif
+  cluster.sync();  // no CTA exits while another may still write to it
+
+  if (rank == 0 && threadIdx.x == 0) {
+    // Stay, or the jump when ESS(beta_prev) > target too (a NaN ESS at
+    // beta_prev stays): both ends at the edge, as _find_ess_bracket has it.
+    if (edge) lo = hi = (ess_cur > target && ess_one >= target) ? T(1) : beta_prev;
+    out[0] = lo;
+    out[1] = hi;
+    probes_out[0] = 2 + iter;
+  }
+}
+
+template <typename T, bool kResident>
+__global__ void __launch_bounds__(BracketCta<T, kResident>::kThreads, 1)
 ess_bracket_kernel(const T* __restrict__ logl, const T* __restrict__ bm,
                    const T* __restrict__ scal, T* __restrict__ bracket,
                    int32_t* __restrict__ probes, int64_t n, int64_t slice) {
-  ess_search<T, kResident, true>(logl, bm, scal, bracket, probes, n, slice);
+  bracket_search<T, kResident>(logl, bm, scal, bracket, probes, n);
 }
 
 template <typename T>
 using KernelFn = void (*)(const T*, const T*, const T*, T*, int32_t*, int64_t, int64_t);
 
 template <typename T, bool kResident, bool kBracket>
-KernelFn<T> kernel_of() {
-  return kBracket ? ess_bracket_kernel<T, kResident> : ess_bisect_kernel<T, kResident>;
-}
+struct Kernel {
+  static KernelFn<T> fn() {
+    return kBracket ? ess_bracket_kernel<T, kResident> : ess_bisect_kernel<T, kResident>;
+  }
+  static constexpr int kThreads =
+      kBracket ? BracketCta<T, kResident>::kThreads : Cta<T>::kThreads;
+};
 
 // One cluster of kCluster CTAs of `threads` threads with `smem` bytes of
 // dynamic shared memory each.
@@ -601,14 +1018,15 @@ cudaError_t prepare() {
   if (err != cudaSuccess) return err;
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (checked[device]) return status[device];
-  const KernelFn<T> kernel = kernel_of<T, kResident, kBracket>();
+  using K = Kernel<T, kResident, kBracket>;
+  const KernelFn<T> kernel = K::fn();
   const int smem = kResident ? static_cast<int>(kSliceBytes) : 0;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess && smem > 0) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   }
   if (err == cudaSuccess) {
-    ClusterLaunch one(Cta<T>::kThreads, smem, nullptr);
+    ClusterLaunch one(K::kThreads, smem, nullptr);
     int clusters = 0;
     err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &one.cfg);
     if (err == cudaSuccess && clusters < 1) err = cudaErrorLaunchOutOfResources;
@@ -618,15 +1036,27 @@ cudaError_t prepare() {
   return err;
 }
 
+// The dynamic shared memory of a launch: the bisection's slice, or the
+// bracket's chunks (within the slice's maximum when S <= kCluster x it:
+// that maximum is a whole number of chunks).
+template <typename T, bool kResident, bool kBracket>
+size_t launch_smem(int64_t n, int64_t slice) {
+  if (!kResident) return 0;
+  const int64_t samples =
+      kBracket ? ((n + kChunk - 1) / kChunk + kCluster - 1) / kCluster * kChunk : slice;
+  static_assert(kSliceMax % kChunk == 0 && (kSliceMax / 2) % kChunk == 0,
+                "a slice holds whole chunks");
+  return static_cast<size_t>(2 * sizeof(T) * samples);
+}
+
 template <typename T, bool kResident, bool kBracket>
 cudaError_t launch(const T* logl, const T* bm, const T* scal, T* out, int32_t* probes, int64_t n,
                    int64_t slice, cudaStream_t stream) {
   cudaError_t err = prepare<T, kResident, kBracket>();
   if (err != cudaSuccess) return err;
-  ClusterLaunch one(Cta<T>::kThreads, kResident ? static_cast<size_t>(2 * sizeof(T) * slice) : 0,
-                    stream);
-  err = cudaLaunchKernelEx(&one.cfg, kernel_of<T, kResident, kBracket>(), logl, bm, scal, out,
-                           probes, n, slice);
+  using K = Kernel<T, kResident, kBracket>;
+  ClusterLaunch one(K::kThreads, launch_smem<T, kResident, kBracket>(n, slice), stream);
+  err = cudaLaunchKernelEx(&one.cfg, K::fn(), logl, bm, scal, out, probes, n, slice);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -671,9 +1101,10 @@ extern "C" int tempest_ess_bisect_f64(const void* logl, const void* bm, const vo
 }
 
 // The bracket mode, tempest_ess_bracket in float32 and tempest_ess_bracket_f64
-// in float64: the same arguments, but `bracket` is (2,) out, (lo, hi), and
-// `probes` counts the ESS evaluations of the bracket search (2 + its
-// bisection probes).
+// in float64: the same arguments and route (`resident`: the live samples
+// held in shared memory), but `bracket` is (2,) out, (lo, hi), and `probes`
+// counts the ESS evaluations of the bracket search (2 + its bisection
+// probes).
 extern "C" int tempest_ess_bracket(const void* logl, const void* bm, const void* scal,
                                    void* bracket, void* probes, int64_t n, int64_t slice,
                                    int resident, void* stream) {

@@ -11,20 +11,34 @@
 // the release this port runs on has no such call, so
 // `tempest_tpu_torch/ops/cuda_graphs.py` makes them from these C entries:
 //
-//  - tempest_cond_begin(parent, body, pred, kind, &handle): `parent` is
-//    capturing a graph. Creates a conditional handle in that graph, captures
-//    onto `parent` a one-thread kernel that sets the handle from the bool at
-//    `pred` when the graph runs, adds an IF (kind 0) or WHILE (kind 1) node
-//    after the parent's current dependencies, makes the node the parent's
-//    only dependency, starts capturing stream `body` into the node's body
-//    graph, and gives the handle back;
-//  - tempest_set_conditional(stream, handle, pred): captures the same
-//    one-thread kernel onto `stream`: the last node of a WHILE body, which
-//    sets the handle from the predicate the body has just computed, so the
-//    node runs its body once more only where that is true;
-//  - tempest_cond_end(body, &nodes): ends the body's capture and counts its
-//    nodes; tempest_capture_nodes(stream, &nodes) counts the top-level nodes
-//    of the graph a stream is capturing (the graph's size, reported).
+//  - tempest_cond_begin(parent, body, pred, kind, &handle, &body_graph):
+//    `parent` is capturing a graph. Creates a conditional handle in that
+//    graph, captures onto `parent` a one-thread kernel that sets the handle
+//    from the bool at `pred` when the graph runs, adds an IF (kind 0) or WHILE
+//    (kind 1) node after the parent's current dependencies, makes the node
+//    the parent's only dependency, starts a capture of its own on stream
+//    `body`, and gives back the handle and the node's body graph;
+//  - tempest_cond_end(body, body_graph, handle, pred, kind, &nodes): ends
+//    the body's capture and puts what it captured into the node's body graph
+//    as one child graph node; for a WHILE node it adds after that node the
+//    one-thread kernel that sets the handle from the predicate the body has
+//    just computed, so the node runs its body once more only where that is
+//    true; counts the body's nodes;
+//  - tempest_capture_abort(body, parent): ends whatever capture either
+//    stream is in, valid or invalidated, and destroys the graphs that come
+//    back, instantiating nothing (a failed body);
+//  - tempest_capture_nodes(stream, &nodes) counts the top-level nodes of the
+//    graph a stream is capturing (the graph's size, reported).
+//
+// Why the body is captured apart and then added as a child graph: CUDA 12.8
+// lets a stream capture straight into a conditional node's body graph
+// (cudaStreamBeginCaptureToGraph), but when such a capture is invalidated
+// half-way (a synchronizing call inside the body), ending the enclosing
+// capture crashes the process (SIGSEGV in cudaStreamEndCapture, in every
+// order of ending the two captures tried, on an H100 with CUDA 12.8:
+// scripts/capture_probe.py). A body captured as a graph of its own fails
+// alone: its capture ends with an error and no graph, and the enclosing
+// capture then ends, valid or invalidated, without a crash.
 //
 // Whatever is captured on `body` between begin and end runs, at every launch
 // of the graph, only where *pred was true when the node was reached (IF), or
@@ -46,7 +60,7 @@ __global__ void set_conditional(cudaGraphConditionalHandle handle, const bool* p
 }  // namespace
 
 extern "C" int tempest_cond_begin(void* parent_stream, void* body_stream, const void* pred,
-                                  int kind, void* handle_out) {
+                                  int kind, void* handle_out, void* body_graph_out) {
   if (kind != 0 && kind != 1) return cudaErrorInvalidValue;
   cudaStream_t parent = static_cast<cudaStream_t>(parent_stream);
   cudaStreamCaptureStatus status;
@@ -76,29 +90,72 @@ extern "C" int tempest_cond_begin(void* parent_stream, void* body_stream, const 
   err = cudaStreamUpdateCaptureDependencies(parent, &node, 1, cudaStreamSetCaptureDependencies);
   if (err != cudaSuccess) return err;
   *static_cast<uint64_t*>(handle_out) = static_cast<uint64_t>(handle);
-  return cudaStreamBeginCaptureToGraph(static_cast<cudaStream_t>(body_stream),
-                                       params.conditional.phGraph_out[0], nullptr, nullptr, 0,
-                                       cudaStreamCaptureModeThreadLocal);
+  *static_cast<cudaGraph_t*>(body_graph_out) = params.conditional.phGraph_out[0];
+  return cudaStreamBeginCapture(static_cast<cudaStream_t>(body_stream),
+                                cudaStreamCaptureModeThreadLocal);
 }
 
-// Captures onto `stream` the kernel that sets conditional `handle` (from
-// tempest_cond_begin) from the bool at `pred` when the graph runs.
-extern "C" int tempest_set_conditional(void* stream, uint64_t handle, const void* pred) {
-  set_conditional<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<cudaGraphConditionalHandle>(handle), static_cast<const bool*>(pred));
-  return cudaGetLastError();
-}
-
-// Ends the body's capture; the int64 at `nodes` gets the body graph's
-// node count.
-extern "C" int tempest_cond_end(void* body_stream, void* nodes) {
-  cudaGraph_t body;
+// Ends the body's capture and adds what it captured to `body_graph` (from
+// tempest_cond_begin) as a child graph node, then, for a WHILE node (kind
+// 1), the kernel that sets conditional `handle` from the bool at `pred`
+// after it; the int64 at `nodes` gets the body's node count, that kernel
+// included. A capture that failed returns its error and adds nothing.
+extern "C" int tempest_cond_end(void* body_stream, void* body_graph, uint64_t handle,
+                                const void* pred, int kind, void* nodes) {
+  cudaGraph_t body = nullptr;
   cudaError_t err = cudaStreamEndCapture(static_cast<cudaStream_t>(body_stream), &body);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) {
+    if (body != nullptr) cudaGraphDestroy(body);
+    return err;
+  }
   size_t n = 0;
   err = cudaGraphGetNodes(body, nullptr, &n);
+  cudaGraphNode_t child;
+  if (err == cudaSuccess) {
+    err = cudaGraphAddChildGraphNode(&child, static_cast<cudaGraph_t>(body_graph), nullptr, 0,
+                                     body);  // a clone
+  }
+  cudaGraphDestroy(body);
+  if (err != cudaSuccess) return err;
+  if (kind == 1) {
+    cudaGraphConditionalHandle h = static_cast<cudaGraphConditionalHandle>(handle);
+    const bool* p = static_cast<const bool*>(pred);
+    void* args[] = {&h, &p};
+    cudaKernelNodeParams kp = {};
+    kp.func = reinterpret_cast<void*>(set_conditional);
+    kp.gridDim = dim3(1);
+    kp.blockDim = dim3(1);
+    kp.kernelParams = args;
+    cudaGraphNode_t flag;
+    err = cudaGraphAddKernelNode(&flag, static_cast<cudaGraph_t>(body_graph), &child, 1, &kp);
+    if (err != cudaSuccess) return err;
+    n += 1;
+  }
   *static_cast<int64_t*>(nodes) = static_cast<int64_t>(n);
-  return err;
+  return cudaSuccess;
+}
+
+// Ends the capture of each stream that is capturing (`body` may be null),
+// whether its capture is active or invalidated, and destroys any graph that
+// comes back without instantiating it; clears the runtime's last error.
+// Returns the first error other than an invalidated capture's.
+extern "C" int tempest_capture_abort(void* body_stream, void* parent_stream) {
+  cudaError_t first = cudaSuccess;
+  for (void* s : {body_stream, parent_stream}) {
+    if (s == nullptr) continue;
+    cudaStream_t stream = static_cast<cudaStream_t>(s);
+    cudaStreamCaptureStatus status;
+    cudaError_t err = cudaStreamIsCapturing(stream, &status);
+    if (err == cudaSuccess && status != cudaStreamCaptureStatusNone) {
+      cudaGraph_t graph = nullptr;
+      err = cudaStreamEndCapture(stream, &graph);
+      if (graph != nullptr) cudaGraphDestroy(graph);
+      if (err == cudaErrorStreamCaptureInvalidated) err = cudaSuccess;
+    }
+    if (first == cudaSuccess) first = err;
+  }
+  cudaGetLastError();
+  return first;
 }
 
 // The int64 at `nodes` gets the node count of the graph `stream` is

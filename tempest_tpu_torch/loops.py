@@ -55,8 +55,11 @@ runs each chunk as a `torch.cuda.CUDAGraph`:
   that reads the predicate after every body, so it runs the same bodies and
   launches the same kernels as the node;
 - a capture that fails (a body that reads the host, such as a likelihood
-  calling `.item()`) raises `CaptureError` naming the cause and
-  `on_device=False`; nothing falls back to eager execution.
+  calling `.item()`, or synchronizes in a way PyTorch's sync check misses)
+  raises `CaptureError` naming the cause and `on_device=False`, after the
+  capture is abandoned without instantiating anything
+  (`cuda_graphs.abort_capture`), so the process can go on and capture
+  again; nothing falls back to eager execution.
 
 A read copies the values with one non-blocking copy into pinned memory
 and waits on an event: the chunk's one blocking host read. On the CPU
@@ -313,8 +316,9 @@ class Loops:
 
     def _checked_body(self, name: str, body: Body, carry: Tensors, consts: Tensors) -> Tensors:
         """One run of a WHILE node's body with PyTorch's sync check raising:
-        a body that reads the host fails here, before its capture, whose
-        failure half-way would leave the graph's capture unable to end."""
+        a body that reads the host in a way the check sees fails here, before
+        its capture, with PyTorch's own message; one that syncs past the
+        check fails its capture, which is abandoned (`_abort`)."""
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -443,12 +447,12 @@ class Loops:
                 commit(work())
                 nodes = (cuda_graphs.capture_nodes(stream), self._body_nodes) if pool else None
             except Exception as exc:
-                self._end_failed_capture(graph, pool)
+                self._abort(graph, stream, pool)
                 raise self._capture_error(name, exc) from exc
             try:
                 graph.capture_end()
             except Exception as exc:
-                self._repair_generators(stream, pool)
+                self._abort(graph, stream, pool)
                 raise self._capture_error(name, exc) from exc
         current.wait_stream(stream)
         branches, self._words, self._branches = self._branches, None, []
@@ -463,12 +467,15 @@ class Loops:
             weakref.finalize(out, cuda_graphs.release_pool, self.device, pool).atexit = False
         return out
 
-    def _end_failed_capture(self, graph, pool) -> None:
+    def _abort(self, graph, stream, pool) -> None:
+        """Abandon a failed capture on `stream`: its captures ended and their
+        graphs destroyed, nothing instantiated, PyTorch's allocator routing
+        and the graph's pool put back (`cuda_graphs.abort_capture`); then the
+        generators out of capture mode and the body pool released."""
         try:
-            graph.capture_end()
-        except Exception:  # the capture is already invalid; its own error is reported
-            pass
-        self._repair_generators(torch.cuda.current_stream(self.device), pool)
+            cuda_graphs.abort_capture(graph, stream, self._body_stream)
+        finally:
+            self._repair_generators(stream, pool)
 
     def _repair_generators(self, stream, pool) -> None:
         """A capture that fails leaves its generators in capture mode; one

@@ -10,8 +10,10 @@ of each run of the body, stays nonzero; so a replay decides on the device
 and reads nothing. The PyTorch release the port runs on has no call that
 makes one (later ones have `CUDAGraph.begin_capture_to_if_node`), so
 `csrc/graph_cond.cu` makes them with the CUDA runtime (`tempest_cond_begin`,
-`tempest_set_conditional`, `tempest_cond_end`; design note there), built by
-nvcc at first use and loaded with ctypes (`_build`).
+`tempest_cond_end`, `tempest_capture_abort`; design note there), built by
+nvcc at first use and loaded with ctypes (`_build`). A body is captured as a
+graph of its own and put into its node as a child graph once its capture
+has ended well.
 
 `if_body(pred, pool, stream)` captures what runs inside it on `stream` as
 the body of an IF node on the 0-d CUDA bool `pred`, placed after the work
@@ -26,17 +28,25 @@ only once. The pool keeps the bodies' memory for the replays until
 `release_pool`; bodies that run one after another in one graph may share
 it, as a body's temporaries die inside it. A refusal raises, naming
 CUDA's error; nothing falls back. A body whose capture fails after it
-began (a host read inside it) leaves CUDA unable to end the enclosing
-capture (the process died in cudaStreamEndCapture on an H100 with CUDA
-12.8), so `loops.Loops.repeat` runs its body once with PyTorch's sync
-check on before any capture, and a host read raises there.
+began (a synchronizing call inside it, which PyTorch's sync check does not
+always see) raises when its block ends; `abort_capture` then ends the
+enclosing capture without instantiating anything and puts PyTorch's
+allocator routing and the graph's memory pool back, so the process lives
+on (`loops.Loops` does this and raises `CaptureError`). PyTorch 2.11's
+`CUDAGraph` has no call that abandons a capture, so the capture is ended
+under it: the graph object is then left as `capture_end` never ran, which
+its destructor takes as a capture that never ended (it releases nothing
+and destroys no graph). Before that the process died: capturing a body
+straight into its node's graph, CUDA 12.8 crashed in cudaStreamEndCapture
+of the enclosing capture once the body's capture was invalidated
+(`scripts/capture_probe.py`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 import torch
 
@@ -45,9 +55,9 @@ from . import _build
 _PTR = ctypes.c_void_p
 LIBRARY = _build.CudaLibrary(
     "graph_cond.cu",
-    {"tempest_cond_begin": [_PTR, _PTR, _PTR, ctypes.c_int, _PTR],
-     "tempest_set_conditional": [_PTR, ctypes.c_uint64, _PTR],
-     "tempest_cond_end": [_PTR] * 2, "tempest_capture_nodes": [_PTR] * 2,
+    {"tempest_cond_begin": [_PTR, _PTR, _PTR, ctypes.c_int, _PTR, _PTR],
+     "tempest_cond_end": [_PTR, _PTR, ctypes.c_uint64, _PTR, ctypes.c_int, _PTR],
+     "tempest_capture_abort": [_PTR] * 2, "tempest_capture_nodes": [_PTR] * 2,
      "tempest_error_string": [ctypes.c_int, _PTR, ctypes.c_int64]},
 )
 
@@ -121,15 +131,17 @@ def _cond_body(kind: int, pred: torch.Tensor, pool, stream: torch.cuda.Stream):
     """Inside a graph capture on the current stream: capture the block's
     work, on `stream` (made current), as the body of a conditional node of
     `kind` on `pred`. Yields a record: its "handle", the node's, and at the
-    end its "nodes", the body's node count."""
+    end its "nodes", the body's node count. A body whose capture fails
+    raises here with its capture ended; the enclosing capture is the
+    caller's to abort (`abort_capture`)."""
     _check_pred(pred)
     begin, end = _routing()
     lib = _build.load(LIBRARY)
     index = _index(pred.device)
     parent = torch.cuda.current_stream(pred.device)
-    handle = ctypes.c_uint64()
+    handle, graph = ctypes.c_uint64(), ctypes.c_void_p()
     _check(lib.tempest_cond_begin(parent.cuda_stream, stream.cuda_stream, pred.data_ptr(), kind,
-                                  ctypes.byref(handle)),
+                                  ctypes.byref(handle), ctypes.byref(graph)),
            "making a CUDA-graph conditional node")
     record = {"handle": handle.value}
     global LAUNCHES
@@ -144,9 +156,10 @@ def _cond_body(kind: int, pred: torch.Tensor, pool, stream: torch.cuda.Stream):
                 end(index, pool)
                 torch._C._cuda_releasePool(index, pool)
     except BaseException:
-        lib.tempest_cond_end(stream.cuda_stream, ctypes.byref(n))
+        lib.tempest_capture_abort(stream.cuda_stream, None)
         raise
-    _check(lib.tempest_cond_end(stream.cuda_stream, ctypes.byref(n)),
+    _check(lib.tempest_cond_end(stream.cuda_stream, graph, handle, pred.data_ptr(), kind,
+                                ctypes.byref(n)),
            "capturing a conditional node's body")
     record["nodes"] = n.value
 
@@ -168,13 +181,33 @@ def while_body(pred: torch.Tensor, pool, stream: torch.cuda.Stream) -> Iterator[
     work, on `stream` (made current), as the body of a WHILE node on `pred`:
     the body runs where `pred` holds when the node is reached, and again
     for as long as the block leaves `pred` (the same tensor) true, which
-    a flag kernel captured at the block's end reads. The list it yields
+    a flag kernel placed after the block's work reads. The list it yields
     gets the body's node count at the end, that kernel included."""
     global LAUNCHES
     nodes: List[int] = []
     with _cond_body(_WHILE, pred, pool, stream) as record:
         yield nodes
-        _check(_build.load(LIBRARY).tempest_set_conditional(
-            stream.cuda_stream, record["handle"], pred.data_ptr()), "setting a WHILE node's flag")
-        LAUNCHES += 1
+        LAUNCHES += 1  # the flag kernel after the body's work
     nodes.append(record["nodes"])
+
+
+def abort_capture(graph: torch.cuda.CUDAGraph, stream: torch.cuda.Stream,
+                  body_stream: Optional[torch.cuda.Stream] = None) -> None:
+    """Abandon the capture `graph` began on `stream` after a failure (a
+    conditional body's, or any other): end the captures of `body_stream` and
+    `stream` whatever their states and destroy what comes back, instantiate
+    nothing, end PyTorch's routing of `stream`'s allocations to the graph's
+    memory pool and drop the capture's use of that pool. PyTorch's
+    `capture_end` is not called, so dropping `graph` ends nothing twice. The
+    registered generators stay in capture mode: the caller takes them out
+    (`loops.Loops._repair_generators`)."""
+    _check(_build.load(LIBRARY).tempest_capture_abort(
+        None if body_stream is None else body_stream.cuda_stream, stream.cuda_stream),
+        "aborting a CUDA-graph capture")
+    _, end = _routing()
+    index = _index(stream.device)
+    try:
+        end(index, graph.pool())
+    except RuntimeError:  # capture_end ran far enough to end the routing and keep the pool
+        return
+    torch._C._cuda_releasePool(index, graph.pool())

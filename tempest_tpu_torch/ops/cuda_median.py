@@ -10,8 +10,10 @@ column in one thread that waits for every gathered load in turn: at the
 large-ensemble fit's n = 524,288 points it took most of an iteration's
 device time (PERF.md). A CUDA tensor goes to `csrc/weighted_median.cu`
 (design note at the top of that file), which gives the plain version's
-bits, since it adds each column's weights in the same serial order in the
-same type.
+bits: it adds each column's nonzero weights in the same serial order in
+the same type, and a zero weight leaves a running sum bit for bit as it
+was (the argument is in the source; tests/test_torch_median.py checks it
+on the plain version).
 
 `weighted_median_presorted` picks its route only by the tensors' device:
 CPU tensors go to the plain version, contiguous CUDA tensors of float32 or

@@ -29,11 +29,17 @@ is not finite or Bm is +inf, as in state.logw_from_denominator
 (tempest_tpu/state.py:392-394). The Pallas kernel computes 0 * -inf = NaN
 there at beta = 0, which makes ESS(0) NaN and skips the "stay" rule.
 
-The same kernel has a bracket mode for dynamic mode, `ess_bracket` (C
+The same source has a bracket mode for dynamic mode, `ess_bracket` (C
 entries `tempest_ess_bracket`, `tempest_ess_bracket_f64`): the bracket
 search of tempest_tpu/steps/reweight.py:73-119 (stay, jump, or [beta_prev,
 1] bisected on the interval tolerance alone). It returns (lo, hi) and its
-probe count. Its plain version is the "ess_bracket" device loop that
+probe count. It has a body of its own in the same launch shape (one
+cluster of 16 CTAs on the route `plan_launch` picks by S, of
+`BRACKET_THREADS` threads where the samples are held on chip): the
+samples dealt out to the CTAs by chunks of 128, masked quads skipped,
+each probe's partials pushed into every CTA's shared memory with
+`st.async` on an mbarrier instead of a cluster barrier (design note in
+the source). Its plain version is the "ess_bracket" device loop that
 dynamic mode runs on the CPU and under a mesh
 (`steps.reweight.ess_bracket_loop`), so the bracket's rules have one
 PyTorch implementation.
@@ -78,8 +84,10 @@ BRACKET_LAUNCHES = 0
 ESS_CLUSTER = 16  # CTAs in the cluster: csrc kCluster
 ESS_SLICE_MAX = 24576  # float32 samples a CTA holds in shared memory (192 KB): csrc kSliceMax
 # Threads a CTA, by dtype: csrc kThreadsF32, kThreadsF64 (the kernel sets its
-# own; the plan reports them).
+# own; the plan reports them). The bracket mode takes BRACKET_THREADS on the
+# resident route (csrc kBracketThreads) and these on the streamed one.
 ESS_THREADS = {torch.float32: 1024, torch.float64: 512}
+BRACKET_THREADS = 512
 
 
 class LaunchPlan(NamedTuple):
@@ -96,7 +104,8 @@ def slice_max(dtype=torch.float32) -> int:
 
 def plan_launch(n: int, dtype=torch.float32) -> LaunchPlan:
     """The launch of the ESS kernel for S = n samples of `dtype`: the route
-    by S and the dtype only."""
+    by S and the dtype only (the bracket mode's too, whose CTA on the
+    resident route has BRACKET_THREADS)."""
     per_cta = -(-n // ESS_CLUSTER)
     slice_ = max(4, -(-per_cta // 4) * 4)
     return LaunchPlan(ESS_CLUSTER, slice_, slice_ <= slice_max(dtype), ESS_THREADS[dtype])

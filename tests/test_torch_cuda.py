@@ -30,7 +30,10 @@ loop chunk (the mode EM, the GMM EM and the split rounds' head and tail, the
 MCMC steps) gives the eager chunk's values bit for bit and draws the eager
 step's numbers; the ESS kernel captures, and each replay counts its launch;
 `run(on_device=True)` repeats `on_device=False` bit for bit; a likelihood
-that reads the host fails its capture with an error naming on_device=False.
+that reads the host fails its capture with an error naming on_device=False,
+and so does a WHILE or IF body that synchronizes past PyTorch's sync check
+(scripts/capture_abort.py in a child, which then exits 0 after a clean
+graphed run equal to its eager one).
 In float32 every MCMC step draw comes from the PRNG kernels, which read
 their call counter from the device (`cuda_prng.PhiloxCounter`), for `Draws`
 and `HardwareDraws` alike, and graphed the chain is one CUDA-graph WHILE
@@ -58,13 +61,18 @@ kernel's bracket mode a reweight.
 The weighted-median kernel (`ops.cuda_median`, csrc/weighted_median.cu)
 equals its plain version (torch.cumsum's serial sums, the first crossing,
 a gather) bit for bit, in float32 and float64, at A's (16, 4096, 10), B's
-(1, 524,288, 10) and rosenbrock100's (1, 8192, 100) shapes and on ragged
-shapes with all-zero rows (which give d_sorted[0]); a fit launches it once.
+(1, 524,288, 10) and rosenbrock100's (1, 8192, 100) shapes, on ragged
+shapes with all-zero rows (which give d_sorted[0]) and on one-hot rows as
+A's mode fits make them (zeros of both signs, a NaN before and after the
+crossing, a sum landing on the threshold, n off a stage, K d above 132);
+a fit launches it once.
 The bracket mode of the ESS kernel (`cuda_reweight.ess_bracket`) against
 its plain version, the "ess_bracket" loop (`steps.reweight.ess_bracket_loop`)
 on the same CUDA tensors, on the histories of tests/test_torch_dynamic.py
 and at S = 196,608 (held on chip: dynamic mode's 1024 x 192 history with 48
-rows filled, and one all filled), 524,288 and 1,048,576 (streamed): the same
+rows filled, and one all filled), 524,288 and 1,048,576 (streamed), on
+live prefixes shorter than a CTA's share, one live sample, none, and S off
+a multiple of 64: the same
 probes; stay and jump exact; in float64 each end within 1e-12 (relative);
 in float32 the same ends, or else the plain ESS at the first midpoint
 decided the other way within 1e-5 (relative) of the target (the kernel's
@@ -1093,6 +1101,27 @@ def test_refused_conditional_node_raises(cuda_device):
     assert "refused by the test" in proc.stdout and "SPLIT_READS 0" in proc.stdout, out
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,loop", [("while", "mcmc"), ("if", "probe_if")])
+def test_body_syncing_past_the_check_raises_and_the_process_lives(cuda_device, kind, loop):
+    """A conditional body (the MCMC chain's WHILE body through its
+    likelihood; an IF body of a stretch) that calls cudaStreamSynchronize
+    past PyTorch's sync check fails its capture with CaptureError naming the
+    loop and on_device=False, in a child that exits 0, not by a signal; the
+    child then captures and replays a clean clustered run (IF and WHILE
+    nodes) bit for bit with its eager run (scripts/capture_abort.py)."""
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-X", "faulthandler",
+                           str(root / "scripts" / "capture_abort.py"), kind],
+                          capture_output=True, text=True, timeout=600, cwd=root)
+    out = proc.stdout + proc.stderr[-3000:]
+    assert proc.returncode == 0, out
+    error = [ln for ln in proc.stdout.splitlines() if ln.startswith("CAPTURE_ERROR")]
+    assert len(error) == 1 and f"capturing the {loop!r} loop" in error[0], out
+    assert "on_device=False" in error[0], out
+    assert "REPLAY_EQUAL True" in proc.stdout, out
+
+
 # ---------------------------------------------------------------------------
 # The eigenvalue kernel (csrc/sym_eigvals.cu) and the loops it lets capture
 # ---------------------------------------------------------------------------
@@ -1411,6 +1440,90 @@ def test_fits_launch_the_median_kernel_once_a_fit(cuda_device):
     assert cuda_median.LAUNCHES == before + 1
 
 
+def _onehot_rows(device, K, n, d, dtype, seed, live=5):
+    """(d_sorted, order, wbar) as A's mode fits make them: each point's
+    weight in the row of its mode only (modes.py's one-hot of the labels),
+    `live` modes of the K holding points, the other rows all zero; a tenth
+    of the weights zero, half of the zeros -0.0."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, d, generator=g, dtype=torch.float64)
+    labels = torch.randint(0, live, (n,), generator=g)
+    w = torch.empty(n, dtype=torch.float64).exponential_(generator=g)
+    w[torch.rand(n, generator=g) < 0.1] = 0.0
+    onehot = labels[None, :] == torch.arange(K)[:, None]
+    wk = torch.where(onehot, w[None, :], torch.zeros(()))
+    total = wk.sum(dim=1, keepdim=True)
+    wbar = wk / torch.where(total > 0, total, torch.ones_like(total))
+    signed = (wbar == 0) & (torch.rand(K, n, generator=g) < 0.5)
+    wbar = torch.where(signed, torch.full((), -0.0, dtype=torch.float64), wbar)
+    x, wbar = x.to(device=device, dtype=dtype), wbar.to(device=device, dtype=dtype)
+    order = torch.argsort(x, dim=0, stable=True)
+    return torch.gather(x, 0, order), order, wbar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K,n,d,live", [
+    (16, 4096, 10, 5),  # A's clustered fit: 160 columns, past the 132 SMs
+    (16, 4096, 10, 1),  # one live mode
+    (16, 4173, 10, 16),  # n not a multiple of a stage (256 points)
+    (3, 300, 4, 2),  # two stages, the second partial
+    (14, 1, 10, 1),  # one point: 140 columns
+    (4, 2048, 7, 0),  # every row zero (+0.0 and -0.0)
+])
+def test_weighted_median_kernel_on_one_hot_rows(cuda_device, dtype, K, n, d, live):
+    """On rows like A's mode fits (one-hot weights, most of each row zero,
+    zeros of both signs, rows all zero) the kernel, which adds only the
+    nonzero weights, gives the plain version's bits, two launches the same;
+    an all-zero row gives d_sorted[0]."""
+    from tempest_tpu_torch.ops import cuda_median
+
+    d_sorted, order, wbar = _onehot_rows(cuda_device, K, n, d, dtype, seed=K + n + live)
+    got = cuda_median.weighted_median_presorted(d_sorted, order, wbar)
+    again = cuda_median.weighted_median_presorted(d_sorted, order, wbar)
+    want = cuda_median.weighted_median_presorted_reference(d_sorted, order, wbar)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want) and _same_bits(got, again)
+    for k in range(K):
+        if not bool((wbar[k] != 0).any()):
+            assert torch.equal(got[k], d_sorted[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_weighted_median_kernel_nan_and_threshold_on_sparse_rows(cuda_device, dtype):
+    """Sparse rows with a NaN weight before their crossing (the sums are NaN
+    from there on: no crossing, index 0) and after it (the crossing stands),
+    and a row whose nonzero weights bring the sum exactly onto the threshold
+    rounded to the type, then one just below it."""
+    from tempest_tpu_torch.ops import cuda_median
+
+    K, n, d = 6, 1000, 3
+    d_sorted, order, wbar = _onehot_rows(cuda_device, K, n, d, dtype, seed=21, live=4)
+    thr = torch.tensor(cuda_median.THRESHOLD, dtype=dtype).item()
+    col = order[:, 0]
+    nan_at = {0: 10, 1: n - 5}  # rows 0 and 1: a NaN early and late in column 0's order
+    for k, i in nan_at.items():
+        w = wbar[k].clone()
+        w[col[i]] = float("nan")
+        wbar[k] = w
+    exact = torch.zeros(n, dtype=dtype, device=cuda_device)
+    exact[col[300]] = thr  # sparse: only three weights, the sum on thr at the 301st point
+    exact[col[700]] = 0.25
+    exact[col[900]] = 1.0 - thr - 0.25
+    below = exact.clone()
+    below[col[300]] = torch.nextafter(torch.tensor(thr, dtype=dtype),
+                                      torch.zeros((), dtype=dtype)).item()
+    wbar[4], wbar[5] = exact, below
+    got = cuda_median.weighted_median_presorted(d_sorted, order, wbar)
+    want = cuda_median.weighted_median_presorted_reference(d_sorted, order, wbar)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+    assert got[0, 0] == d_sorted[0, 0]  # NaN before the crossing: none, index 0
+    assert got[1, 0] != d_sorted[0, 0]  # NaN after it: the crossing stands
+    assert got[4, 0] == d_sorted[300, 0] and got[5, 0] == d_sorted[700, 0]
+
+
 # ---------------------------------------------------------------------------
 # The bracket mode of the ESS kernel (dynamic mode's ESS bracket)
 # ---------------------------------------------------------------------------
@@ -1567,6 +1680,52 @@ def test_bracket_kernel_captures(cuda_device):
         want = cuda_reweight.ess_bracket(logl, bm, scal)
         torch.cuda.synchronize()
         assert torch.equal(out, want[0]) and torch.equal(probes, want[1])
+
+
+def _prefix_history(device, S, live, dtype, seed=7):
+    """(logl, bm) of S samples of which only the first `live` are live (a
+    history whose filled rows are a prefix), the rest masked (Bm = +inf)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    logl = -torch.exp(1.0 + 2.0 * torch.randn(S, generator=g, device=device, dtype=dtype))
+    bm = torch.randn(S, generator=g, device=device, dtype=dtype)
+    bm[live:] = float("inf")
+    return logl.contiguous(), bm.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("S,live", [
+    (196608, 300),  # a live prefix shorter than one CTA's share (12,288), held on chip
+    (196608 - 37, 49152),  # S not a multiple of 64, a quarter live
+    (524288 + 3, 700),  # streamed, ragged, a short prefix
+])
+def test_bracket_kernel_on_short_live_prefixes(cuda_device, dtype, S, live):
+    """Histories whose live samples are a short prefix: the bracket mode
+    against its plain version, at stay, jump and bisection targets."""
+    logl, bm = _prefix_history(cuda_device, S, live, dtype)
+    kinds = set()
+    _check_bracket_cases(cuda_device, logl, bm, _bracket_cases(logl, bm, 0.3, live), dtype,
+                         kinds)
+    assert kinds == {"stay", "jump", "bisect"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("S", [196608, 1000, 524288 + 3])
+def test_bracket_kernel_with_one_or_no_live_sample(cuda_device, dtype, S):
+    """One live sample (ESS 1 at every beta: stay or jump) and none (ESS is
+    NaN at every beta: every probe brings hi down, as in the plain version):
+    the plain version's brackets and probes exactly."""
+    for live in (1, 0):
+        logl, bm = _prefix_history(cuda_device, S, live, dtype)
+        for beta_prev, target in ((0.3, 2.0), (0.3, 0.5), (0.0, 10.0)):
+            scal = torch.tensor([beta_prev, target], device=cuda_device, dtype=dtype)
+            got = cuda_reweight.ess_bracket(logl, bm, scal)
+            want = rw_mod.ess_bracket_loop(logl, bm, scal)
+            torch.cuda.synchronize()
+            assert torch.equal(got[1], want[1]), (live, beta_prev, target)
+            assert _same_bits(got[0], want[0]), (live, got[0].tolist(), want[0].tolist())
 
 
 # ---------------------------------------------------------------------------
