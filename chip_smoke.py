@@ -51,8 +51,14 @@ lines and a failure exits non-zero:
     shapes, and the bits kernel's uniform mode through the public
     `hw_uniform` (one launch, the words of `hw_bits` mapped to (0, 1]) at
     2^20 and bit for bit against `philox.uniform` at the path's shapes, B's
-    131,072 walkers and rosenbrock100's 2,048; the bits row is timed in
-    that mode, the one on the path, beside `torch.rand`, with the raw
+    131,072 walkers and rosenbrock100's 2,048, and through `Draws` and its
+    call counter's device word as the keyed iterations draw them (the
+    warm-up's prior draw and patch, two calls; a multinomial and a
+    systematic resampling's, one call each) at A's, B's and
+    rosenbrock100's walkers and dimensions, from call 2^32 - 1 (the
+    counter advanced 2, 1 and 1, and not at all under a false guard); the
+    bits row is timed in that mode, the one on the path, beside
+    `torch.rand`, with the raw
     words' times (`hw_bits`, `random_`) under `raw_words`; the gamma
     draws at n = 1, 3,
     5, 1000, 131,072, 131,075 and 262,144 for alpha 0.02, 0.5, 0.7, 1.5,
@@ -123,15 +129,25 @@ lines and a failure exits non-zero:
     keyed draws) run to its stop by a WHILE node against the same steps in
     a straight graph; and an untaken IF node (A's 15 in one replay against
     none);
- 4g. a conditional body that synchronizes past PyTorch's sync check
-    (scripts/capture_abort.py, in a process of its own): the MCMC chain's
-    WHILE body through its likelihood and an IF body each fail their
-    capture with CaptureError naming the loop and on_device=False, the
-    process exits 0 (not by a signal) after a clean clustered run graphed
-    bit for bit with its eager run;
+ 4g. a conditional body that synchronizes or allocates past PyTorch's
+    sync check (scripts/capture_abort.py, in a process of its own; a stream
+    sync, and for the nested bodies also a raw cudaMalloc and
+    cudaDeviceSynchronize): the device run loop's bodies through its
+    likelihood, an IF body and an IF body inside an IF body inside a WHILE
+    body each fail their capture with
+    CaptureError naming the loop and on_device=False, the process exits 0
+    (not by a signal) after a clean clustered run graphed bit for bit with
+    its eager run;
+ 4h. conditional nodes inside conditional bodies through `Loops`: a WHILE
+    node holding an IF node holding two more (the run loop > the mutation >
+    the cadence > a split round) and a WHILE node holding an IF node
+    holding a WHILE node (the run loop > the mutation > the MCMC chain),
+    each body counting its runs: one replay runs every body as often as
+    the host's loop, each node's flag kernel once a run of its parent; the
+    graph's nodes, depth and capture seconds;
  5. the canonical problem unclustered (paired 10-D Rosenbrock, U(-10, 10)
     prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42,
-    with `run(on_device=True)`: its loops replayed as CUDA graphs;
+    with `run(on_device=True)`: the device run loop, one graph replay;
  6. A: the canonical problem at the reference defaults, clustered
     (k_max=16), hardware_prng=False, seeds 42-44 after a warm-up, with
     `run(on_device=False)`: the fused iteration without graphs, its MCMC
@@ -139,34 +155,37 @@ lines and a failure exits non-zero:
     mutation-draws launch a step and no chunk of steps; one mvstud_em
     launch a mode fit, one gmm_em launch a GMM EM loop and no "mode_em" or
     "gmm_em" chunk read (every path holds this);
- 6b. A fused: A's seed 42 with `run(on_device=True)`, which captures the
-    graphs, then seeds 42-44 on them: the beta ladder, logZ, steps, calls
-    and launches of each equal bit for bit to phase 6's run of the seed,
-    logZ in the clustered band; one WHILE iteration a step (counted on the
-    device), no MCMC read; the wall per iteration of both,
-    and the graph captures and replays per loop; then iterations 21-23 of
-    seed 42 in each mode under torch.profiler: the device idle share and
-    the blocking host reads per iteration, counted from the CUDA runtime
-    calls that block the host (cudaStreamSynchronize, cudaEventSynchronize,
+ 6b. A fused: A's seed 42 with `run(on_device=True)`, the device run loop
+    (fused.make_fused_run), which captures its graph (its nodes, nesting
+    depth and capture seconds printed), then seeds 42-44 on it: the beta
+    ladder, logZ, steps, calls and launches of each equal bit for bit to
+    phase 6's run of the seed, logZ in the clustered band, beta 1; one
+    replay and one read (t) a run and no other read, no capture; the run
+    loop's WHILE node a body run an iteration after the first, the MCMC
+    chain's a run a step; the flag kernel's launches as the nodes say; the
+    wall per iteration of both; then iterations 21-23 of seed 42 with
+    on_device=False under torch.profiler: the device idle share and the
+    blocking host reads per iteration, counted from the CUDA runtime calls
+    that block the host (cudaStreamSynchronize, cudaEventSynchronize,
     cudaDeviceSynchronize, a synchronous cudaMemcpy), at most one a loop
     chunk plus two an iteration (beta and the termination test), fewer
-    than 150, no torch.linalg.eigvalsh operator (the CV's eigenvalues
-    are the kernel's) and no EM chunk read; graphed, no MCMC read (its
-    WHILE iterations an iteration printed, as in every later window) and at
-    most 1.0 blocking read an iteration (beta), no split-round read,
-    no replay of a round's head or tail of its own and one replay of the
-    "hgm_fit" stretch an iteration (the cluster fit, its rounds CUDA-graph
-    conditional nodes), whose graph's node count and capture seconds are
-    printed; each window's `ps/cluster` host ms; then iterations 24-26
-    traced on the device only (no host ops recorded): wall and idle share;
+    than 150, no torch.linalg.eigvalsh operator (the CV's eigenvalues are
+    the kernel's) and no EM chunk read, each window's `ps/cluster` host
+    ms, then iterations 24-26 traced on the device only (no host ops
+    recorded): wall and idle share; and a whole graphed run of seed 42
+    under the profiler (`run_window`): wall, device ms and idle share an
+    iteration, one blocking read in the run, the top kernels; with
+    `--parent DIR`, A's graphed seed 42 in DIR's package before and after
+    (parent, this, this, parent);
  7. A again with hardware_prng=True, seed 42, with run(on_device=False) and
-    then run(on_device=True) on a sampler whose seed-43 run captured the
-    graphs: every MCMC step draws through the mutation-draws kernel
-    (in the WHILE node's body with on_device=True); the ladder, logZ, steps,
-    calls, launches and the draws' final state (call counter, host mirror
-    and device words) equal bit for bit; the wall per iteration of both;
-    then iterations 21-23 in each mode under torch.profiler, held to 6b's
-    rule on blocking host reads;
+    then run(on_device=True), the device run loop, on a sampler whose
+    seed-43 run captured its graph: every MCMC step draws through the
+    mutation-draws kernel (in the chain's WHILE node with on_device=True);
+    the ladder, logZ, steps, calls, launches and the draws' final state
+    (call counter, host mirror and device words) equal bit for bit; one
+    replay and one read; the wall per iteration of both; then iterations
+    21-23 eagerly under torch.profiler, held to 6b's rule on blocking host
+    reads, and a whole graphed run, as 6b's;
  8. B: the large-ensemble hardware_prng configuration of
     benchmarks/results/hw_prng_e2e.json (10-D Gaussian, n_particles=131072,
     history_capacity=8, unclustered) through its first four mutation
@@ -241,14 +260,15 @@ lines and a failure exits non-zero:
 16. rosenbrock100: benchmarks/suite.py's 100-D configuration (chained
     Rosenbrock, U(-10, 10), n_particles=2048, n_total=4096,
     history_capacity=256, unclustered) at full width, seed 42, with
-    run(on_device=True) on a sampler whose seed-43 run captured the
-    graphs: beta 1, posterior ESS >= 4096, logZ inside the anchor of
-    scripts/rosenbrock100_anchor.py (the JAX package on the CPU, seeds
-    42-46), one eigenvalue launch (d = 100) and one ESS launch a reweight,
-    each ESS launch on the streamed route at S = 524,288; the first 30
-    iterations equal bit for bit to a fresh seed-42 sampler's sample()
-    calls; one gamma, normal and uniform launch an MCMC step; wall, ms and
-    MCMC steps an iteration; iterations 21-23 graphed
+    run(on_device=True), the device run loop (one replay, one read), on a
+    sampler whose seed-43 run captured its graph: beta 1, posterior ESS >=
+    4096, logZ inside the anchor of scripts/rosenbrock100_anchor.py (the
+    JAX package on the CPU, seeds 42-46), one eigenvalue launch (d = 100)
+    and one ESS launch a reweight, each ESS launch on the streamed route at
+    S = 524,288; the first 30 iterations equal bit for bit to a fresh
+    seed-42 sampler's sample() calls; one gamma, normal and uniform launch
+    an MCMC step; wall, ms and MCMC steps an iteration; iterations 21-23 on
+    the per-iteration graphed route
     under the profiler, held to 6b's rule, with the device busy share and
     the device ms an iteration of the eigenvalue kernel, the ESS kernel
     and the top five other kernels.
@@ -1510,6 +1530,7 @@ def phase_prng_kernels(device) -> dict:
               f"philox.uniform at n={m}")
     print(f"bits kernel, uniform mode, against philox.uniform at the path's shapes: "
           f"{json.dumps(uniform_equal)}", flush=True)
+    keyed = keyed_iteration_uniforms(device)
     for name, kernel_name, sizes in (("normal", "normal_kernel", (n, B_NORMALS, B_GAMMA)),
                                      ("bits", "bits_kernel", (n, B_GAMMA)),
                                      ("uniform", "bits_kernel", (B_GAMMA, R100_PARTICLES))):
@@ -1552,7 +1573,8 @@ def phase_prng_kernels(device) -> dict:
                   f"({b_by})", flush=True)
         main = shapes[B_NORMALS if name == "normal" else B_GAMMA]  # the shape on B's path
         rows[name] = dict(max_abs_err=err_n if name == "normal" else (
-            0.0 if bits_equal and all(uniform_equal.values()) else float("nan")), **{
+            0.0 if bits_equal and all(uniform_equal.values()) and all(keyed.values())
+            else float("nan")), **{
                 k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                      "device_ms", "library_device_ms")},
             shapes={str(k): v for k, v in shapes.items()})
@@ -1563,11 +1585,65 @@ def phase_prng_kernels(device) -> dict:
     rows["bits"] = dict(rows.pop("uniform"), mode="uniform (tempest_uniform, hw_uniform)",
                         hw_uniform_launches=uniform_launches["bits"],
                         uniform_equal={str(k): v for k, v in uniform_equal.items()},
+                        keyed_iteration_uniforms=keyed,
                         raw_words={k: raw[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                        "library_ms", "device_ms",
                                                        "library_device_ms", "shapes")})
     rows["gamma"] = phase_gamma_kernel(device, key)
     return rows
+
+
+# (label, walkers, dimensions) of the keyed iterations' uniforms: A's, B's
+# and rosenbrock100's warm-up and resampling draws.
+KEYED_UNIFORM_SHAPES = (("A", N_PARTICLES, N_DIM), ("B", B_PARTICLES, N_DIM),
+                        ("rosenbrock100", R100_PARTICLES, R100_DIM))
+
+
+def keyed_iteration_uniforms(device) -> dict:
+    """The keyed iterations' uniforms as the main path draws them, through
+    `Draws` and its call counter's device word (the bits kernel's uniform
+    mode reading key and counter from `PhiloxCounter.state`): the warm-up's
+    prior draw (n, d) and patch (n,), two calls; the multinomial
+    resampling's (n,) and a systematic resampling's one uniform, one call
+    each; from a counter at 2^32 - 1, so the calls cross 2^32. Each draw
+    bit for bit against `philox.uniform` at the same call index, the
+    counter advanced 2, 1 and 1, one bits launch a draw and no other
+    launch, and a draw under a false guard (an untaken IF body) leaving the
+    counter where it was. Returns, by shape label, whether all held."""
+    draws = Draws(2024, device)
+    calls, key, first = draws.calls, draws.calls.key, 2**32 - 1
+    out = {}
+    for label, n, d in KEYED_UNIFORM_SHAPES:
+        calls.seek(first)
+        before = counts()
+        u_draw, patch = draws.warmup(n, d)
+        c1 = calls.counter
+        mult = draws.resample(n, "mult")
+        c2 = calls.counter
+        syst = draws.resample(n, "syst")
+        c3 = calls.counter
+        launched = diff(counts(), before)
+        calls.guards.append(torch.zeros((), dtype=torch.bool, device=device))
+        try:
+            draws.warmup(n, d)
+            draws.resample(n, "mult")
+        finally:
+            calls.guards.pop()
+        c4 = calls.counter
+        want = [philox.uniform(key, first, n * d, device).reshape(n, d),
+                philox.uniform(key, first + 1, n, device),
+                philox.uniform(key, first + 2, n, device),
+                philox.uniform(key, first + 3, 1, device).reshape(())]
+        equal = [bool(torch.equal(got, w)) for got, w in zip((u_draw, patch, mult, syst), want)]
+        steps = (c1 - first, c2 - c1, c3 - c2, c4 - c3)
+        out[label] = all(equal) and steps == (2, 1, 1, 0) and launched.get("bits") == 4 \
+            and sum(launched.values()) == 4
+        print(f"keyed iteration uniforms, {label} (n={n}, d={d}) from call {first}: warm-up, "
+              f"patch, mult, syst equal to philox.uniform {equal}; counter steps {steps} "
+              f"(2, 1, 1, and 0 under a false guard); launches {launched}", flush=True)
+        check(out[label], f"keyed iteration uniforms at {label}'s shapes: equal {equal}, "
+              f"counter steps {steps}, launches {launched}")
+    return out
 
 
 def mixed_alpha(device, n: int) -> torch.Tensor:
@@ -2369,32 +2445,131 @@ def phase_node_costs(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4h: conditional nodes inside conditional bodies
+# ---------------------------------------------------------------------------
+# WHILE > IF > IF > IF (the run loop > the mutation > the cadence > a split
+# round) and WHILE > IF > WHILE (the run loop > the mutation > the MCMC
+# chain): a WHILE node of 4 body runs (its counter 3, 2, 1, 0 after each),
+# IF level j taken where the counter is at least j, the inner WHILE node 2
+# runs; each body adds one to its word.
+NESTED_SHAPES = {"while>if>if>if": ([4, 3, 2, 1], 14), "while>if>while": ([4, 3, 6, 0], 18)}
+
+
+def nested_probe(device, shape: str, graphs: bool) -> dict:
+    """One run of `shape` through `Loops` (`repeat`, `when`): graphed, one
+    replay of a stretch whose conditional nodes nest; else the host's loop.
+    The words, each loop's body runs (`node_bodies` graphed, else `bodies`
+    and the reads), and the graph."""
+    loops = Loops(device, graphs=graphs)
+    eye = torch.eye(4, dtype=torch.int64, device=device)
+
+    def level(left, j):
+        def run(s):
+            w = s["words"] + eye[j]
+            if j < 3:
+                w = loops.when(left >= j + 1, level(left, j + 1), {"words": w},
+                               f"L{j + 1}")["words"]
+            return {"words": w}
+        return run
+
+    def inner(s):
+        out = loops.repeat("inner", lambda c: c["n"] > 0,
+                           lambda c, k: {"n": c["n"] - 1, "w": c["w"] + eye[2]},
+                           {"n": torch.full((), 2, dtype=torch.int64, device=device),
+                            "w": s["words"] + eye[1]}, {})
+        return {"words": out["w"]}
+
+    def body(c, k):
+        left = c["left"] - 1
+        taken = level(left, 1) if shape == "while>if>if>if" else inner
+        words = loops.when(left >= 1, taken, {"words": c["words"] + eye[0]}, "L1")["words"]
+        return {"left": left, "words": words}
+
+    def stretch(inputs):
+        return loops.repeat("outer", lambda c: c["left"] > 0, body, dict(inputs), {})
+
+    inputs = {"left": torch.full((), 4, dtype=torch.int64, device=device),
+              "words": torch.zeros(4, dtype=torch.int64, device=device)}
+    reset_counts()
+    out = loops.once("nested", stretch, inputs) if graphs else stretch(inputs)
+    torch.cuda.synchronize()
+    settle()
+    flags = cond_launches()
+    stats = {k: dict(v) for k, v in loops.stats.items()}
+    graph = loops.graphs_of("nested")[0] if graphs else None
+    return dict(words=out["words"].tolist(), stats=stats, set_conditional=flags,
+                nodes=None if graph is None else graph.nodes,
+                depth=None if graph is None else graph.depth,
+                capture_s=None if graph is None else graph.capture_s)
+
+
+def phase_nested_nodes(device) -> dict:
+    """4h: each NESTED_SHAPES shape graphed (one replay, the words and each
+    body's runs counted on the device, the flag kernel's launches) against
+    the host's loop, with the graph's nodes, depth and capture seconds."""
+    out = {}
+    for shape, (want, flags) in NESTED_SHAPES.items():
+        eager, graphed = nested_probe(device, shape, False), nested_probe(device, shape, True)
+        check(eager["words"] == graphed["words"] == want,
+              f"nested nodes {shape}: words {graphed['words']} graphed, {eager['words']} "
+              f"eagerly, want {want}")
+        runs = {k: v.get("node_bodies", 0) for k, v in graphed["stats"].items()
+                if v.get("node_bodies")}
+        host = {k: v.get("bodies", 0) + v.get("reads", 0) for k, v in eager["stats"].items()}
+        check(runs.get("outer") == want[0] and runs.get("L1") == want[1]
+              and graphed["set_conditional"] == flags and graphed["stats"]["nested"].get(
+                  "replays") == 1,
+              f"nested nodes {shape}: body runs {runs}, {graphed['set_conditional']} flag "
+              f"launches (want {flags}), {graphed['stats'].get('nested')}")
+        out[shape] = dict(words=graphed["words"], body_runs=runs, host_reads_and_bodies=host,
+                          set_conditional=graphed["set_conditional"], nodes=graphed["nodes"],
+                          depth=graphed["depth"], capture_s=graphed["capture_s"])
+        print(f"nested nodes {shape}: one replay ran the bodies {json.dumps(runs)} "
+              f"(words {graphed['words']}, the host's loop the same), "
+              f"{graphed['set_conditional']} flag launches, graph nodes (top level, in bodies) "
+              f"{graphed['nodes']}, depth {graphed['depth']}, capture and instantiation "
+              f"{graphed['capture_s']:.4f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 4g: a failed conditional body's capture raises, the process lives on
 # ---------------------------------------------------------------------------
+# (body, fault, the loop its CaptureError names) of scripts/capture_abort.py:
+# the run loop's likelihood (its warm-up IF body and the MCMC WHILE body,
+# nested in the run loop's WHILE body), a stretch's IF body, and an IF body
+# in an IF body in a WHILE body; a stream sync, a raw cudaMalloc, a
+# cudaDeviceSynchronize, each unseen by PyTorch's sync check.
+CAPTURE_ABORT_CASES = (("while", "sync", "run"), ("while", "malloc", "run"),
+                       ("while", "devsync", "run"), ("if", "sync", "probe_if"),
+                       ("nested", "sync", "probe_nested"), ("nested", "malloc", "probe_nested"),
+                       ("nested", "devsync", "probe_nested"))
+
+
 def phase_capture_abort() -> dict:
-    """scripts/capture_abort.py in a process of its own, for a WHILE body
-    (the MCMC chain's, its likelihood synchronizing) and an IF body that
-    synchronize past PyTorch's sync check: each exits 0, not by a signal,
-    having printed CaptureError naming its loop and on_device=False, then a
-    clean clustered run graphed bit for bit with its eager run."""
+    """scripts/capture_abort.py in a process of its own for each of
+    CAPTURE_ABORT_CASES: each exits 0, not by a signal, having printed
+    CaptureError naming its loop and on_device=False, then a clean
+    clustered run graphed bit for bit with its eager run."""
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
                           "capture_abort.py")
     out = {}
-    for kind, loop in (("while", "mcmc"), ("if", "probe_if")):
+    for kind, fault, loop in CAPTURE_ABORT_CASES:
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-X", "faulthandler", script, kind],
+        proc = subprocess.run([sys.executable, "-X", "faulthandler", script, kind, fault],
                               capture_output=True, text=True, timeout=600)
         text = f"{proc.stdout}{proc.stderr[-3000:]}"
-        check(proc.returncode == 0, f"capture abort ({kind} body): exit code {proc.returncode}"
+        case = f"{kind} body, {fault}"
+        check(proc.returncode == 0, f"capture abort ({case}): exit code {proc.returncode}"
               f"{' (a signal)' if proc.returncode < 0 else ''}: {text[-4000:]}")
         lines = [ln for ln in proc.stdout.splitlines()
                  if ln.startswith(("CAPTURE_ERROR", "REPLAY_EQUAL"))]
         check(any(f"capturing the {loop!r} loop" in ln and "on_device=False" in ln
                   for ln in lines) and any(ln.startswith("REPLAY_EQUAL True") for ln in lines),
-              f"capture abort ({kind} body): {text[-4000:]}")
-        out[kind] = {"exit_code": proc.returncode, "lines": lines,
-                     "seconds": time.perf_counter() - t0}
-        print(f"capture abort, {kind} body syncing past the check: exit code {proc.returncode}; "
+              f"capture abort ({case}): {text[-4000:]}")
+        out[f"{kind} {fault}"] = {"exit_code": proc.returncode, "lines": lines,
+                                  "seconds": time.perf_counter() - t0}
+        print(f"capture abort, {case} past the check: exit code {proc.returncode}; "
               + " / ".join(ln[:400] for ln in lines), flush=True)
     return out
 
@@ -3602,16 +3777,36 @@ def keyed_route(s) -> bool:
 STEP_KERNELS = ("mutation_draws", "normal", "gamma", "bits")
 
 
-def without_past_stop(launched: dict, past: int, bodies: int, name: str) -> dict:
+def keyed_uniforms(s) -> bool:
+    """Whether sampler `s` draws its warm-up and resampling uniforms from
+    the bits kernel's uniform mode (keyed float32 draws in a package with
+    the device run loop)."""
+    return keyed_route(s) and hasattr(s.state, "run_route")
+
+
+def iteration_uniforms(s, beta=None) -> int:
+    """The bits kernel's launches for the keyed warm-up and resampling
+    uniforms of sampler `s`'s run (`beta` its iterations' betas, default
+    the whole run's): two a warm-up iteration (beta 0), one a mutation."""
+    if not keyed_uniforms(s):
+        return 0
+    beta = s.results()["beta"] if beta is None else np.asarray(beta)
+    return int((beta > 0).sum()) + 2 * int((beta == 0).sum())
+
+
+def without_past_stop(launched: dict, past: int, bodies: int, name: str,
+                      uniforms: int = 0) -> dict:
     """An eager run's launches less those of the `past` MCMC steps its
     chunks ran past the stop (of its `bodies` step bodies), which a WHILE
-    node does not run: each step kernel launches as often in every body."""
+    node does not run: each step kernel launches as often in every body,
+    the bits kernel `uniforms` times more for the iterations' keyed
+    warm-up and resampling uniforms."""
     out = dict(launched)
     for k in STEP_KERNELS:
-        if launched.get(k):
-            per = launched[k] // max(bodies, 1)
-            check(per * bodies == launched[k],
-                  f"{name}: {launched[k]} {k} launches for {bodies} MCMC bodies")
+        n = launched.get(k, 0) - (uniforms if k == "bits" else 0)
+        if n:
+            per = n // max(bodies, 1)
+            check(per * bodies == n, f"{name}: {n} {k} launches for {bodies} MCMC bodies")
             out[k] -= past * per
     return out
 
@@ -3620,7 +3815,8 @@ def less_past_stop(s, launched: dict, name: str) -> dict:
     """`without_past_stop` of fresh sampler `s`'s one run (its loops'
     counts are the run's)."""
     stats = s.state._iteration.loops.stats["mcmc"]
-    return without_past_stop(launched, stats["past_stop"], stats["bodies"], name)
+    return without_past_stop(launched, stats["past_stop"], stats["bodies"], name,
+                             iteration_uniforms(s))
 
 
 def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
@@ -3653,19 +3849,24 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched, fits, gmm_fits = diff(counts(), before), MODE_FITS - fits, GMM_FITS - gmm_fits
+        if on_device and getattr(s.state, "run_route", False):
+            # the device run loop fits the modes in its replays, once a
+            # mutation, where the host counts none
+            fits = int((s.results()["beta"] > 0).sum())
         loops_run = {k: {c: v.get(c, 0) - loops_before.get(k, {}).get(c, 0) for c in v}
                      for k, v in loop_stats(s).items()}
         bodies = mcmc_bodies(s) - bodies
         past = loops_run.get("mcmc", {}).get("past_stop", 0)
-        real = without_past_stop(launched, past, bodies, f"{name} seed {seed}")
+        uniforms = iteration_uniforms(s)
+        real = without_past_stop(launched, past, bodies, f"{name} seed {seed}", uniforms)
         if runs is not None:
             runs[seed] = dict(results=s.results(), logz=s.evidence()[0], wall=wall,
-                              launches=launched, real_launches=real, iters=s.state.hist.t,
+                              launches=launched, real_launches=real, iters=int(s.state.hist.t),
                               bodies=bodies, past_stop=past, draws=s.state.draws.get_state(),
                               loops=loops_run)
         ess = s.state.posterior_ess()
         logz, _ = s.evidence()
-        iters = s.state.hist.t
+        iters = int(s.state.hist.t)
         steps = mcmc_steps(s)
         k = int(s.state.cluster_model.n_clusters())
         walls.append(wall)
@@ -3696,9 +3897,10 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
             check((loops_run.get("mcmc", {}).get("chunks", 0) == 0) == on_device,
                   f"{name} seed {seed}: the MCMC chain {'ran' if on_device else 'did not run'} "
                   f"in chunks {loops_run.get('mcmc')}")
-        check(launched["normal"] == 0 and launched["bits"] == 0 and launched["gamma"] == 0
+        check(launched["normal"] == 0 and launched["bits"] == uniforms and launched["gamma"] == 0
               and (draws_kernel or launched["mutation_draws"] == 0),
-              f"{name} seed {seed}: unexpected PRNG launches {launched}")
+              f"{name} seed {seed}: unexpected PRNG launches {launched} (the bits kernel "
+              f"{uniforms} for the warm-up and resampling uniforms)")
         check(cuda_linalg is None or launched["sym_eigvals"] == iters - 1,
               f"{name} seed {seed}: {launched.get('sym_eigvals')} eigenvalue launches for "
               f"{iters - 1} reweights (one CV each)")
@@ -3831,99 +4033,180 @@ def steady_window(s, graphs: bool, first: int = 21, n: int = 5,
     return out
 
 
+def run_window(s, name: str, n_total: int = N_TOTAL) -> dict:
+    """A whole run of sampler `s` (reset to seed 42) with run(on_device=True)
+    on the device run loop, whose graph `s` has captured: the wall; by CUDA
+    events the span of each dispatch of the loop on the device (its inputs
+    copied in, one replay, its outputs copied out: the replay's kernels and
+    the gaps between them, not the device's busy time), and that span an
+    iteration of the loop; the share of the run's wall outside the
+    dispatches' spans (the first iteration, which the host runs, and the
+    read after the replay); the loops' reads (one a dispatch, "run") under
+    PyTorch's sync check set to raise (no other host read); the run loop's
+    WHILE iterations and the MCMC chain's. torch.profiler is kept off the
+    replay: its CUDA tracing records no kernel inside a body captured
+    straight into its node (0.39 ms of device time an iteration of A's run
+    loop on an H100), and a profiled replay once ended in an illegal memory
+    access (scripts/run_loop_repeat.py repeats that run); the kernels by
+    name and their busy time come from the eager window, which launches the
+    same ones."""
+    s.reset(random_state=SEEDS[0])
+    core = s.state
+    loops = core._iteration.loops
+    settle()
+    before = {k: dict(v) for k, v in loops.stats.items()}
+    run, spans = core._run, []
+
+    def timed(*args, **kw):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = run(*args, **kw)
+        e1.record()
+        spans.append((e0, e1))
+        return out
+
+    core._run = timed
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        s.run(n_total=n_total, progress=False, on_device=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+        core._run = run
+    settle()
+    delta = {k: {c: v.get(c, 0) - before.get(k, {}).get(c, 0) for c in v}
+             for k, v in loops.stats.items()}
+    iters = int(s.state.hist.t)
+    replay_ms = sum(e0.elapsed_time(e1) for e0, e1 in spans)
+    in_loop = delta.get("run", {}).get("node_bodies", 0)
+    out = dict(graphs=True, route="run loop", iters=iters, wall=wall, wall_per_iter=wall / iters,
+               dispatches=len(spans), replay_ms=replay_ms,
+               replay_ms_per_iter=replay_ms / max(in_loop, 1),
+               outside_replay=1.0 - replay_ms / (1e3 * wall),
+               run_replays=delta.get("run", {}).get("replays", 0),
+               reads={k: v.get("reads", 0) for k, v in delta.items() if v.get("reads")},
+               run_iterations=in_loop,
+               mcmc_while_iterations=delta.get("mcmc", {}).get("node_bodies", 0))
+    print(f"{name} seed {SEEDS[0]}, a whole run on the device run loop: {iters} iterations, "
+          f"{1e3 * out['wall_per_iter']:.2f} ms an iteration of wall; {out['dispatches']} "
+          f"dispatch spanning {replay_ms:.2f} ms on the device by CUDA events, "
+          f"{out['replay_ms_per_iter']:.2f} ms an iteration of the loop ("
+          f"{100 * out['outside_replay']:.1f} % of the run's wall outside the span); "
+          f"{out['run_replays']} replay, loop "
+          f"reads {out['reads']} (no other host read: PyTorch's sync check raised none), "
+          f"run-loop iterations {in_loop}, MCMC WHILE iterations "
+          f"{out['mcmc_while_iterations']}", flush=True)
+    check(out["run_replays"] == 1 == out["dispatches"] and out["reads"] == {"run": 1},
+          f"{name} run loop: {out['run_replays']} replays, loop reads {out['reads']}: one replay "
+          f"and one read a dispatch, none between iterations")
+    check(in_loop == iters - 1,
+          f"{name} run loop: {in_loop} WHILE iterations for {iters} iterations (the first on "
+          f"the per-iteration route)")
+    return out
+
+
 def phase_fused(device, ref: dict) -> dict:
-    """6b: A's seed 42 with run(on_device=True) against phase 6's seed 42,
-    then both modes' steady iterations under the profiler."""
+    """6b: A's seeds 42-44 with run(on_device=True), the device run loop,
+    against phase 6's runs of each seed, after a seed-42 run that captures
+    its graph; then the eager steady window and a whole run under the
+    profiler."""
     s = canonical_sampler(device, SEEDS[0], clustering=True)
-    s.run(n_total=N_TOTAL, progress=False, on_device=True)  # warm-up: captures the graphs
+    s.run(n_total=N_TOTAL, progress=False, on_device=True)  # warm-up: captures the graph
     warm = loop_stats(s)
-    fit_graphs = [dict(nodes=g.nodes, capture_s=g.capture_s)
-                  for g in s.state._iteration.loops.graphs_of("hgm_fit")]
-    print(f"A fused: the hgm_fit stretch's graphs (top-level nodes, nodes in the conditional "
-          f"bodies; seconds of capture and instantiation): {json.dumps(fit_graphs)}", flush=True)
-    # The run that captured its graphs repeats phase 6's seed 42 too.
+    run_graphs = [dict(nodes=g.nodes, depth=g.depth, capture_s=g.capture_s)
+                  for g in s.state._iteration.loops.graphs_of("run")]
+    print(f"A fused: the run loop's graph (top-level nodes, nodes in the conditional bodies; "
+          f"nesting depth; seconds of capture and instantiation): {json.dumps(run_graphs)}",
+          flush=True)
+    check(len(run_graphs) == 1 and run_graphs[0]["depth"] >= 3,
+          f"A fused: the run loop's graphs {run_graphs}")
+    # The run that captured its graph repeats phase 6's seed 42 too.
     for name in ("beta", "logz", "steps", "calls"):
         check(s.results()[name].tobytes() == ref[SEEDS[0]]["results"][name].tobytes(),
               f"A fused seed {SEEDS[0]} (capturing): {name} differs from on_device=False")
-    s.reset(random_state=SEEDS[0])
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    s.run(n_total=N_TOTAL, progress=False, on_device=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launched = counts()
-    set_conditional = cond_launches()
-    res, logz, iters = s.results(), s.evidence()[0], s.state.hist.t
-    eager = ref[SEEDS[0]]
-    stats = loop_stats(s)
-    timed = {k: {c: v.get(c, 0) - warm.get(k, {}).get(c, 0) for c in v} for k, v in stats.items()}
-    print(f"A fused seed {SEEDS[0]}: wall={wall:.3f} s iters={iters} "
-          f"({1e3 * wall / iters:.1f} ms an iteration; on_device=False "
-          f"{eager['wall']:.3f} s, {1e3 * eager['wall'] / eager['iters']:.1f} ms) logz={logz!r} "
-          f"(on_device=False {eager['logz']!r}) beta={s.beta} launches={launched}", flush=True)
-    print(f"A fused loops in the timed run (captures, replays, reads): {json.dumps(timed)}; "
-          f"in the warm-up run: {json.dumps(warm)}", flush=True)
-    for name in ("beta", "logz", "steps", "calls"):
-        check(res[name].tobytes() == eager["results"][name].tobytes(),
-              f"A fused: {name} differs from on_device=False: {res[name].tolist()} against "
-              f"{eager['results'][name].tolist()}")
-    check(logz == eager["logz"], f"A fused: logZ {logz!r} against {eager['logz']!r}")
-    check(abs(logz - CLUSTERED_LOGZ[0]) <= CLUSTERED_LOGZ[1],
-          f"A fused: logZ {logz} outside {CLUSTERED_LOGZ[0]} +/- {CLUSTERED_LOGZ[1]}")
-    check(launched == eager["real_launches"],
-          f"A fused: launches {launched} against on_device=False {eager['real_launches']} "
-          f"(less its {eager['past_stop']} steps past the stop)")
-    check(all(v.get("captures", 0) == 0 for v in timed.values()),
-          f"A fused: the timed run recaptured: {timed}")
-    check(timed["mcmc"]["replays"] > 0 and timed["mode_em"]["replays"] > 0,
-          f"A fused: no replays {timed}")
-    check_fit_replays("A fused", timed)
-    # 15 IF nodes a fit replay, and the WHILE node of the MCMC chain one
-    # flag launch before it and one a run of its body
-    while_runs = timed["mcmc"].get("node_bodies", 0)
-    check(set_conditional == COND_NODES * timed["hgm_fit"]["replays"]
-          + timed["mcmc"]["replays"] + while_runs,
-          f"A fused: {set_conditional} set_conditional launches for "
-          f"{timed['hgm_fit']['replays']} fit replays of {COND_NODES} nodes and "
-          f"{timed['mcmc']['replays']} chains of {while_runs} WHILE iterations")
-    check(while_runs == int(res["steps"][res["beta"] > 0].sum()) and not timed["mcmc"].get(
-        "reads", 0), f"A fused: {while_runs} WHILE iterations, MCMC loop {timed['mcmc']}")
-    seeds = {SEEDS[0]: wall}
-    for seed in SEEDS[1:]:  # the other seeds on the same graphs, each against its eager run
+    seeds, launched, set_conditional, timed = {}, {}, {}, {}
+    for seed in SEEDS:  # each on the same graph, against its eager run
         s.reset(random_state=seed)
-        before = counts()
+        settle()
+        before = loop_stats(s)
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s.run(n_total=N_TOTAL, progress=False, on_device=True)
         torch.cuda.synchronize()
         seeds[seed] = time.perf_counter() - t0
-        got, want = s.results(), ref[seed]
+        launched[seed], set_conditional[seed] = counts(), cond_launches()
+        timed[seed] = {k: {c: v.get(c, 0) - before.get(k, {}).get(c, 0) for c in v}
+                       for k, v in loop_stats(s).items()}
+        res, logz, iters, want = s.results(), s.evidence()[0], int(s.state.hist.t), ref[seed]
+        loops = timed[seed]
+        mutations = int((res["beta"] > 0).sum())
+        steps = int(res["steps"][res["beta"] > 0].sum())
         for name in ("beta", "logz", "steps", "calls"):
-            check(got[name].tobytes() == want["results"][name].tobytes(),
-                  f"A fused seed {seed}: {name} differs from on_device=False")
-        logz_s = s.evidence()[0]
-        check(logz_s == want["logz"] and diff(counts(), before) == want["real_launches"],
-              f"A fused seed {seed}: logZ {logz_s!r} against {want['logz']!r}, launches "
-              f"{diff(counts(), before)} against {want['real_launches']}")
-        print(f"A fused seed {seed}: wall={seeds[seed]:.3f} s logz={logz_s!r}, bit for bit "
-              f"on_device=False's (logZ, steps, calls, launches)", flush=True)
-    print(f"A fused seeds {list(SEEDS)}: walls {json.dumps(seeds)}", flush=True)
-
-    return dict(launches=launched, wall=wall, iters=iters, loops=timed, fit_graphs=fit_graphs,
-                set_conditional=set_conditional, seed_walls=seeds,
-                windows=steady_windows(s, "A", graphed_max_blocking=1.0))
+            check(res[name].tobytes() == want["results"][name].tobytes(),
+                  f"A fused seed {seed}: {name} differs from on_device=False: "
+                  f"{res[name].tolist()} against {want['results'][name].tolist()}")
+        check(logz == want["logz"] and abs(logz - CLUSTERED_LOGZ[0]) <= CLUSTERED_LOGZ[1]
+              and s.beta == 1.0,
+              f"A fused seed {seed}: logZ {logz!r} against {want['logz']!r}, beta {s.beta}")
+        check(launched[seed] == want["real_launches"],
+              f"A fused seed {seed}: launches {launched[seed]} against on_device=False "
+              f"{want['real_launches']} (less its {want['past_stop']} steps past the stop)")
+        # one replay and one read a dispatch, no read between iterations, no capture
+        check(loops["run"].get("replays") == 1 and loops["run"].get("reads") == 1
+              and not any(v.get("reads", 0) for k, v in loops.items() if k != "run")
+              and all(v.get("captures", 0) == 0 for v in loops.values()),
+              f"A fused seed {seed}: loops {loops}")
+        check_fit_replays(f"A fused seed {seed}", loops)
+        # the run loop's WHILE node: a body run an iteration after the first;
+        # the MCMC chain's, a run a step
+        check(loops["run"].get("node_bodies") == iters - 1
+              and loops["mcmc"].get("node_bodies") == steps and not loops["mcmc"].get("reads"),
+              f"A fused seed {seed}: {loops['run']} run loop, {loops['mcmc']} MCMC loop for "
+              f"{iters} iterations and {steps} steps")
+        # flag launches: the run loop's two before it (the WHILE node's and
+        # the termination test's IF node's); each body run its WHILE flag and
+        # the warm-up, mutation and termination IF nodes'; each mutation the
+        # fit's COND_NODES round IF nodes and the chain's WHILE flag before
+        # it; each step one
+        flags = 2 + 4 * (iters - 1) + (COND_NODES + 1) * mutations + steps
+        check(set_conditional[seed] == flags,
+              f"A fused seed {seed}: {set_conditional[seed]} set_conditional launches, "
+              f"{flags} expected ({iters} iterations, {mutations} mutations, {steps} steps)")
+        print(f"A fused seed {seed}: wall={seeds[seed]:.3f} s iters={iters} "
+              f"({1e3 * seeds[seed] / iters:.1f} ms an iteration; on_device=False "
+              f"{want['wall']:.3f} s, {1e3 * want['wall'] / want['iters']:.1f} ms) "
+              f"logz={logz!r}, bit for bit on_device=False's (ladder, logZ, steps, calls, "
+              f"launches); one replay and one read, {loops['run']['node_bodies']} run-loop and "
+              f"{steps} MCMC WHILE iterations, {set_conditional[seed]} flag launches",
+              flush=True)
+    print(f"A fused seeds {list(SEEDS)}: walls {json.dumps(seeds)}; loops of seed "
+          f"{SEEDS[0]}: {json.dumps(timed[SEEDS[0]])}; in the warm-up run: {json.dumps(warm)}",
+          flush=True)
+    windows = steady_windows(s, "A", modes=(False,))
+    windows["on_device=True"] = run_window(s, "A")
+    first = SEEDS[0]
+    return dict(launches=launched[first], wall=seeds[first], iters=int(s.state.hist.t),
+                loops=timed[first], run_graphs=run_graphs, set_conditional=set_conditional[first],
+                seed_walls=seeds, windows=windows)
 
 
 def check_fit_replays(name: str, loops: dict) -> None:
-    """A graphed clustered run fits its clusters as replays of the
-    "hgm_fit" stretch: no split-round read, no round head or tail replayed
-    on its own."""
+    """A graphed clustered run fits its clusters inside replays, of the
+    "hgm_fit" stretch (the per-iteration route) or of the device run loop
+    ("run", whose body holds the fit's IF nodes): no split-round read, no
+    round head or tail replayed on its own."""
     split = {"split_round reads": loops.get("split_round", {}).get("reads", 0),
              **{f"{k} replays": loops.get(k, {}).get("replays", 0)
                 for k in ("split_head", "split_tail")}}
-    check(loops.get("hgm_fit", {}).get("replays", 0) > 0 and not any(split.values()),
-          f"{name}: {loops.get('hgm_fit')} hgm_fit stretch, {split}")
+    replays = sum(loops.get(k, {}).get("replays", 0) for k in ("hgm_fit", "run"))
+    check(replays > 0 and not any(split.values()),
+          f"{name}: {loops.get('hgm_fit')} hgm_fit stretch, {loops.get('run')} run loop, "
+          f"{split}")
 
 
 def check_graphed_pair(name: str, eager, graphed, eager_launches: dict,
@@ -3940,7 +4223,7 @@ def check_graphed_pair(name: str, eager, graphed, eager_launches: dict,
           f"{name}: launches {graphed_launches} with on_device=True, {eager_launches} False")
     check_fit_replays(f"{name} on_device=True", loop_stats(graphed))
     print(f"{name}: on_device=True equals on_device=False bit for bit (logz "
-          f"{graphed.evidence()[0]!r}, {graphed.state.hist.t} iterations); loops "
+          f"{graphed.evidence()[0]!r}, {int(graphed.state.hist.t)} iterations); loops "
           f"{json.dumps(loop_stats(graphed))}", flush=True)
 
 
@@ -3955,14 +4238,15 @@ def window_reads(w: dict) -> str:
 
 
 def steady_windows(s, name: str, n: int = 3, device_only: bool = True,
-                   graphed_max_blocking=None) -> dict:
-    """Iterations 21 to 20 + n of A's seed 42 on sampler `s` in each mode
-    under the profiler; at most one blocking host read a loop chunk plus
-    READS_BESIDE_CHUNKS an iteration, and fewer than MAX_READS; graphed, no
-    MCMC read on the WHILE route, and at most `graphed_max_blocking`
-    blocking reads an iteration where given."""
+                   graphed_max_blocking=None, modes=(False, True)) -> dict:
+    """Iterations 21 to 20 + n of A's seed 42 on sampler `s` in each of
+    `modes` (graphs off, on: the per-iteration route) under the profiler;
+    at most one blocking host read a loop chunk plus READS_BESIDE_CHUNKS an
+    iteration, and fewer than MAX_READS; graphed, no MCMC read on the WHILE
+    route, and at most `graphed_max_blocking` blocking reads an iteration
+    where given."""
     windows = {}
-    for graphs in (False, True):
+    for graphs in modes:
         w = windows["on_device=True" if graphs else "on_device=False"] = steady_window(
             s, graphs, n=n, device_only=device_only)
         trace = ""
@@ -4049,7 +4333,7 @@ def phase_hardware_prng(device) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched, bodies = counts(), mcmc_bodies(s) - bodies
-    res, logz, iters = s.results(), s.evidence()[0], s.state.hist.t
+    res, logz, iters = s.results(), s.evidence()[0], int(s.state.hist.t)
     stats = loop_stats(s)
     timed = {k: {c: v.get(c, 0) - warm.get(k, {}).get(c, 0) for c in v} for k, v in stats.items()}
     draws = s.state.draws
@@ -4075,12 +4359,15 @@ def phase_hardware_prng(device) -> dict:
           and words == (draws.counter, draws.key),
           f"A hardware_prng fused: final draw state {state['philox_counter']} / words {words} "
           f"against on_device=False {eager['draws']['philox_counter']}")
-    check(timed["mcmc"].get("replays", 0) > 0 and all(
-        v.get("captures", 0) == 0 for v in timed.values()),
-          f"A hardware_prng fused: replays and captures {timed}")
-    # Three iterations, host and device traced, on this sampler's graphs:
-    # the profiler's own cost keeps the window short.
-    windows = steady_windows(s, "A hardware_prng", n=3, device_only=False)
+    check(timed["run"].get("replays", 0) == 1 and timed["run"].get("reads", 0) == 1 and all(
+        v.get("captures", 0) == 0 for v in timed.values()) and not any(
+        v.get("reads", 0) for k, v in timed.items() if k != "run"),
+          f"A hardware_prng fused: one replay and one read of the run loop, no capture and "
+          f"no other read: {timed}")
+    # Three iterations eagerly, host and device traced (the profiler's own
+    # cost keeps the window short), and a whole run on this sampler's graph.
+    windows = steady_windows(s, "A hardware_prng", n=3, device_only=False, modes=(False,))
+    windows["on_device=True"] = run_window(s, "A hardware_prng")
     return dict(launches=launches, launches_fused=launched, wall=wall, wall_eager=eager["wall"],
                 iters=iters, iters_eager=eager["iters"], loops=timed, windows=windows)
 
@@ -4125,7 +4412,9 @@ def run_b(device, dtype, name: str, graphs: bool = False, s=None):
             rows.append(dict(iter=int(out["iter"]), wall=wall, beta=out["beta"], logz=out["logz"],
                              steps=int(out["steps"]), bodies=bodies, past=past,
                              real_bodies=bodies - past,
-                             real_launches=without_past_stop(launched, past, bodies, name),
+                             real_launches=without_past_stop(
+                                 launched, past, bodies, name,
+                                 iteration_uniforms(s, [out["beta"]])),
                              acceptance=out["acceptance"], launches=launched, fits=fits,
                              counter=getattr(s.state.draws, "counter", None)))
             mutations += out["beta"] > 0.0
@@ -4259,11 +4548,13 @@ def phase_large_ensemble(device, dtype=torch.float32) -> dict:
             check(all(launched[k] == 0 for k in cuda_prng.LAUNCHES),
                   f"{name}: PRNG launches {launched} (hardware_prng does not apply)")
         else:
+            uniforms = iteration_uniforms(s, [row["beta"]])
             check(launched["normal"] == bodies and launched["gamma"] == bodies
-                  and launched["bits"] == bodies and bodies == row["steps"] + row["past"]
-                  and launched["mutation_draws"] == 0,
+                  and launched["bits"] == bodies + uniforms
+                  and bodies == row["steps"] + row["past"] and launched["mutation_draws"] == 0,
                   f"B: launches {launched} for {bodies} MCMC step bodies, {row['steps']} steps "
-                  "(want 1 normal + 1 gamma + 1 uniform a step body)")
+                  f"(want 1 normal + 1 gamma + 1 uniform a step body, and {uniforms} uniform "
+                  f"for the resampling)")
         check(cuda_median is None or row["launches"]["weighted_median"] == row["fits"],
               f"{name} iteration {row['iter']}: {row['launches'].get('weighted_median')} "
               f"weighted-median launches for {row['fits']} mode fits")
@@ -4306,7 +4597,8 @@ def phase_large_ensemble(device, dtype=torch.float32) -> dict:
         "kernel": lambda: cuda_reweight.ess_bisect_beta(logl, bm, scal),
         "plain": lambda: cuda_reweight.ess_bisect_beta_reference(logl, bm, scal),
     }, calls=10)
-    print(f"{name}: ESS kernel at S={S} (t={hist.t}, {probes} probes): kernel {t['kernel']:.4f} ms, "
+    print(f"{name}: ESS kernel at S={S} (t={int(hist.t)}, {probes} probes): "
+          f"kernel {t['kernel']:.4f} ms, "
           f"plain {t['plain']:.4f} ms (median of 10); launches {total}", flush=True)
     return total, errs, dict(eager=rows, graphed=graphed, profiled=None if f64 else profiled)
 
@@ -4384,7 +4676,7 @@ def check_run(name, s, band, launched) -> float:
     per reweight; returns the posterior ESS."""
     ess = s.state.posterior_ess()
     logz = s.evidence()[0]
-    iters = s.state.hist.t
+    iters = int(s.state.hist.t)
     print(f"{name}: iters={iters} ess={ess:.1f} logz={logz:.4f} beta={s.beta:.6f} "
           f"launches={launched}", flush=True)
     check(s.beta >= 1.0 - 1e-4, f"{name}: beta {s.beta} < 1 - 1e-4")
@@ -4452,9 +4744,9 @@ def phase_reference_surface(device, vectorized_wall: float) -> dict:
         wall = time.perf_counter() - t0
         launched = counts()
         ess = check_run("reference surface run", s, CLUSTERED_LOGZ, launched)
-        check(launched["ess_bisect"] == s.state.hist.t - 1,
+        check(launched["ess_bisect"] == int(s.state.hist.t) - 1,
               f"reference surface: {launched['ess_bisect']} ESS launches for "
-              f"{s.state.hist.t - 1} reweights")
+              f"{int(s.state.hist.t) - 1} reweights")
         out["run"] = launched
         print(f"reference surface (per-point, blobs, save_every=10): wall={wall:.3f} s "
               f"eff/s={ess / wall:.1f}; phase 6 vectorized seed {SEEDS[0]}: "
@@ -4498,11 +4790,11 @@ def phase_reference_surface(device, vectorized_wall: float) -> dict:
         live.load_state(os.path.join(tmp, want[-2]))
         live.sample()
         unpickled = pickle.loads(pickle.dumps(live))
-        check(unpickled.state.hist.t == live.state.hist.t, "pickle: another iteration")
+        check(int(unpickled.state.hist.t) == int(live.state.hist.t), "pickle: another iteration")
         unpickled.run(n_total=N_TOTAL, progress=False)
         out["pickle"] = counts()
-        check_run(f"reference surface from a pickle at iteration {live.state.hist.t}", unpickled,
-                  CLUSTERED_LOGZ, out["pickle"])
+        check_run(f"reference surface from a pickle at iteration {int(live.state.hist.t)}",
+                  unpickled, CLUSTERED_LOGZ, out["pickle"])
     return out
 
 
@@ -4543,7 +4835,7 @@ def phase_dynamic(device) -> dict:
                  for k, v in stats.items()}
         name = f"dynamic rosenbrock10_cv on_device={on_device}"
         ess = check_run(name, s, CV_LOGZ, launched)
-        iters = s.state.hist.t
+        iters = int(s.state.hist.t)
         n = max(probes["reweights"], 1)
         reads = {k: v.get("reads", 0) / n for k, v in timed.items() if k in (
             "ess_bracket", "cv_bisect")}  # the bracket: one read of the kernel's words
@@ -4644,13 +4936,13 @@ def phase_float64_gaussian(device) -> dict:
     mis_err = float(torch.max(torch.abs(mis_denominator(hist) - mis_denominator_exact(hist))[valid]))
     logz = s.evidence()[0]
     print(f"float64 4-D Gaussian: logz={logz:.6f} (analytic {GAUSSIAN4_LOGZ[0]:.6f}) "
-          f"beta={s.beta:.6f} iters={hist.t} MIS accumulator max error {mis_err:.3g} "
+          f"beta={s.beta:.6f} iters={int(hist.t)} MIS accumulator max error {mis_err:.3g} "
           f"dtype={hist.logl.dtype} launches={launched}", flush=True)
     check(hist.logl.dtype == torch.float64 and s.beta > 0.99, "float64 Gaussian: dtype or beta")
     check(abs(logz - GAUSSIAN4_LOGZ[0]) < GAUSSIAN4_LOGZ[1], f"float64 Gaussian: logZ {logz}")
     check(mis_err < MIS_F64_TOL, f"float64 Gaussian: MIS accumulator error {mis_err}")
-    check(launched["ess_bisect_f64"] == hist.t - 1 and launched["ess_bisect"] == 0,
-          f"float64 Gaussian: launches {launched} for {hist.t - 1} reweights")
+    check(launched["ess_bisect_f64"] == int(hist.t) - 1 and launched["ess_bisect"] == 0,
+          f"float64 Gaussian: launches {launched} for {int(hist.t) - 1} reweights")
     return launched
 
 
@@ -4794,7 +5086,7 @@ def mesh_run(s, name: str, **run_kw) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = counts()
-    iters = s.state.hist.t
+    iters = int(s.state.hist.t)
     check_run(name, s, CLUSTERED_LOGZ, launched)
     check(launched["ess_bisect"] == 0 and launched["ess_bisect_f64"] == 0
           and launched["sym_eigvals"] == iters - 1,
@@ -4804,7 +5096,8 @@ def mesh_run(s, name: str, **run_kw) -> dict:
     bodies = mcmc_bodies(s) - bodies
     past = timed.get("mcmc", {}).get("past_stop", 0)
     return dict(results=s.results(), logz=s.evidence()[0], wall=wall, launches=launched,
-                real_launches=without_past_stop(launched, past, bodies, name),
+                real_launches=without_past_stop(launched, past, bodies, name,
+                                                iteration_uniforms(s)),
                 bodies=bodies, past_stop=past, iters=iters, loops=timed,
                 draws=s.state.draws.get_state())
 
@@ -4876,7 +5169,7 @@ def _mesh_runs(device, walls32: dict) -> dict:
     x, w, logl = s.posterior()
     logz, logz_err = s.evidence(n_bootstrap=256)
     mean = np.average(x, axis=0, weights=w)
-    print(f"A mesh posterior: {len(x)} samples of {s.state.hist.t * N_PARTICLES}, weights "
+    print(f"A mesh posterior: {len(x)} samples of {int(s.state.hist.t) * N_PARTICLES}, weights "
           f"sum {w.sum():.6f}, mean[:3] {mean[:3].round(4).tolist()}; evidence "
           f"{logz:.4f} +/- {logz_err:.5f} (bootstrap)", flush=True)
     check(x.shape[1] == N_DIM and np.all(np.isfinite(x)) and np.all(np.isfinite(logl))
@@ -4934,32 +5227,34 @@ def _kernel_ms(window: dict, part: str) -> tuple:
 
 def phase_rosenbrock100(device) -> dict:
     """16: the JAX suite's 100-D Rosenbrock at full width, seed 42, with
-    run(on_device=True) on a sampler whose seed-43 run captured the graphs:
+    run(on_device=True), the device run loop, on a sampler whose seed-43 run
+    captured its graph:
     beta 1, posterior ESS >= n_total, logZ in the anchor taken from the
     JAX package, one eigenvalue launch (d = 100) and one ESS launch
     (S = 524,288, the streamed route) a reweight; its first R100_EAGER
     iterations equal bit for bit to a fresh seed-42 sampler's sample()
-    calls (on_device=False); then iterations 21-23 graphed under the
-    profiler, held to 6b's rule, and the device ms an iteration of the
-    eigenvalue kernel, the ESS kernel and the top other kernels."""
+    calls (on_device=False); then iterations 21-23 on the per-iteration
+    graphed route under the profiler, held to 6b's rule, and the device ms
+    an iteration of the eigenvalue kernel, the ESS kernel and the top other
+    kernels."""
     s = rosenbrock100_sampler(device, SEEDS[1])
-    check(s.state.fused, "rosenbrock100: not on the fused route")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    s.run(n_total=R100_TOTAL, progress=False, on_device=True)  # captures the graphs
-    torch.cuda.synchronize()
-    capture_wall = time.perf_counter() - t0
-    warm = loop_stats(s)
-    s.reset(random_state=SEEDS[0])
+    check(s.state.fused and s.state.run_route, "rosenbrock100: not on the device run loop")
     sizes, plan = [], cuda_reweight.plan_launch
 
-    def recording_plan(n, dtype=torch.float32):  # the S of every eager ESS launch
+    def recording_plan(n, dtype=torch.float32):  # the S of every ESS launch planned
         sizes.append(n)
         return plan(n, dtype)
 
-    reset_counts()
     cuda_reweight.plan_launch = recording_plan
     try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run(n_total=R100_TOTAL, progress=False, on_device=True)  # captures the graph
+        torch.cuda.synchronize()
+        capture_wall = time.perf_counter() - t0
+        warm = loop_stats(s)
+        s.reset(random_state=SEEDS[0])
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s.run(n_total=R100_TOTAL, progress=False, on_device=True)
@@ -4968,7 +5263,7 @@ def phase_rosenbrock100(device) -> dict:
     finally:
         cuda_reweight.plan_launch = plan
     launched = counts()
-    res, logz, iters = s.results(), s.evidence()[0], s.state.hist.t
+    res, logz, iters = s.results(), s.evidence()[0], int(s.state.hist.t)
     ess, steps = s.state.posterior_ess(), mcmc_steps(s)
     stats = loop_stats(s)
     timed = {k: {c: v.get(c, 0) - warm.get(k, {}).get(c, 0) for c in v} for k, v in stats.items()}
@@ -4988,14 +5283,17 @@ def phase_rosenbrock100(device) -> dict:
     check(launched["ess_bisect"] == iters - 1 > 0 and sizes and set(sizes) == {streamed}
           and not plan(streamed).resident,
           f"{name}: {launched['ess_bisect']} ESS launches for {iters - 1} reweights, sizes "
-          f"{sorted(set(sizes))}: each must take the streamed route at S = {streamed}")
+          f"{sorted(set(sizes))} (planned at the run loop's capture): each must take the "
+          f"streamed route at S = {streamed}")
     # R N d = 1,638,400 > 2^19: each step draws by the gamma, normal and
     # uniform kernels (the keyed route), a launch each, no step past the stop
     check(all(launched[k] == 0 for k in ("ess_bisect_f64", "mutation_draws"))
-          and launched["gamma"] == launched["normal"] == launched["bits"] == steps,
+          and launched["gamma"] == launched["normal"] == launched["bits"] - iteration_uniforms(s)
+          == steps,
           f"{name}: launches {launched} for {steps} MCMC steps")
     check(all(v.get("captures", 0) == 0 for v in timed.values())
-          and timed["mcmc"].get("replays", 0) > 0, f"{name}: captures and replays {timed}")
+          and timed["run"].get("replays", 0) == 1 and timed["run"].get("reads", 0) == 1,
+          f"{name}: captures and replays {timed}")
 
     # The first R100_EAGER iterations, eagerly: the same bits.
     e = rosenbrock100_sampler(device, SEEDS[0])
@@ -5114,9 +5412,10 @@ NO_PALLAS = {
                  "vmapped by modes.py:145), which XLA runs on the device without a host read; "
                  "its plain version is the \"mode_em\" device loop",
     "set_conditional": "XLA's lax.cond and lax.while_loop of the cluster fit's split rounds "
-                       "(tempest_tpu/cluster.py:928-950): the flag of a CUDA-graph conditional "
-                       "node, set on the device at each replay; its plain version is the "
-                       "host's read of go and the leaf count after each round",
+                       "(tempest_tpu/cluster.py:928-950), the MCMC chain and the annealing "
+                       "run (tempest_tpu/fused.py:411-433): the flag of a CUDA-graph "
+                       "conditional node, set on the device at each replay; its plain version "
+                       "is the host's read of the predicate",
 }
 REPLACES = {
     "ess_bisect": "tempest_tpu/ops/pallas_reweight.py:55",
@@ -5167,10 +5466,11 @@ LAUNCHES_ON = {
               "6b's run launches it as often, by graph replays)",
     "mvstud_em": "A (phase 6, seed 42: one a mode fit, the 16 modes at once; phase 6b's run "
                  "launches it as often, by graph replays); every other path once a mode fit",
-    "set_conditional": "A fused (phase 6b's timed seed 42, on_device=True: 15 a cluster fit, "
-                       "one a possible split round, by graph replays; and the MCMC chain's "
-                       "WHILE node one a chain and one a step); the on_device=False runs decide "
-                       "on the host and launch none",
+    "set_conditional": "A fused (phase 6b's timed seed 42 on the device run loop: two before "
+                       "the loop, four an iteration in it (its WHILE flag, the warm-up, "
+                       "mutation and termination IF nodes), 16 a mutation (the cluster fit's "
+                       "15 IF nodes, the MCMC chain's WHILE node) and one a step); the "
+                       "on_device=False runs decide on the host and launch none",
 }
 def kernel_table(rows: dict, launches: dict, floor: dict, split: dict, paths=None) -> list:
     table = []
@@ -5217,22 +5517,47 @@ def a_summary(run: dict) -> dict:
             "beta_sha256": hashlib.sha256(res["beta"].tobytes()).hexdigest()}
 
 
-def parent_a(parent: str, ours: dict) -> None:
+def a_graphed(device) -> dict:
+    """A's seed 42 with run(on_device=True), timed after a run that
+    captures its graphs (the device run loop, or a parent's per-iteration
+    graphs): the wall, the iterations and the wall an iteration."""
+    s = canonical_sampler(device, SEEDS[0], clustering=True)
+    s.run(n_total=N_TOTAL, progress=False, on_device=True)
+    s.reset(random_state=SEEDS[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.run(n_total=N_TOTAL, progress=False, on_device=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    iters = int(s.state.hist.t)
+    return {"wall": wall, "iters": iters, "ms_per_iter": 1e3 * wall / iters,
+            "logz": s.evidence()[0]}
+
+
+def parent_a(parent: str, ours=None) -> dict:
     """A's seed 42 in the package of checkout `parent` (this script with
-    --a-only --package-root, in a process of its own), printed beside phase
-    6's."""
+    --a-only --package-root, in a process of its own), printed beside
+    phase 6's run (`ours`, where given), and its graphed wall, which
+    returns."""
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--a-only",
                            "--package-root", parent], capture_output=True, text=True,
                           timeout=900)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("A_SEED42 ")]
-    check(proc.returncode == 0 and len(lines) == 1,
+    graphed = [ln for ln in proc.stdout.splitlines() if ln.startswith("A_SEED42_GRAPHED ")]
+    check(proc.returncode == 0 and len(lines) == 1 and len(graphed) == 1,
           f"parent A run failed ({proc.returncode}): {proc.stdout[-2000:]}{proc.stderr[-3000:]}")
-    theirs, mine = json.loads(lines[0][len("A_SEED42 "):]), a_summary(ours)
-    # Not held equal: the EM kernels sum in another order than the plain
-    # loops the parent runs on the card, so the ladder moves by rounding; the
-    # run's own checks hold it to the band.
-    print(f"A seed {SEEDS[0]} in the parent's package ({parent}): {json.dumps(theirs)}; here: "
-          f"{json.dumps(mine)}; equal: {theirs == mine}", flush=True)
+    theirs = json.loads(lines[0][len("A_SEED42 "):])
+    timed = json.loads(graphed[0][len("A_SEED42_GRAPHED "):])
+    if ours is not None:
+        mine = a_summary(ours)
+        # Not held equal: a parent without keyed resampling and warm-up
+        # draws, or with another EM summation order, takes another ladder;
+        # the run's own checks hold it to the band.
+        print(f"A seed {SEEDS[0]} in the parent's package ({parent}): {json.dumps(theirs)}; "
+              f"here: {json.dumps(mine)}; equal: {theirs == mine}", flush=True)
+    print(f"A seed {SEEDS[0]} graphed in the parent's package ({parent}): {json.dumps(timed)}",
+          flush=True)
+    return timed
 
 
 def main() -> None:
@@ -5273,6 +5598,7 @@ def main() -> None:
         runs = {}
         run_canonical(device, "A clustered", SEEDS[:1], True, False, CLUSTERED_LOGZ, runs=runs)
         print("A_SEED42 " + json.dumps(a_summary(runs[SEEDS[0]])), flush=True)
+        print("A_SEED42_GRAPHED " + json.dumps(a_graphed(device)), flush=True)
         return
     stamp("phase 3: the ESS kernel")
     rows = {"ess_bisect": phase_ess_kernel(device), "ess_bisect_f64": phase_ess_kernel_f64(device)}
@@ -5300,6 +5626,8 @@ def main() -> None:
         if not args.package_root:
             stamp("phase 4g: a failed conditional body's capture")
             rows["set_conditional"]["capture_abort"] = phase_capture_abort()
+            stamp("phase 4h: conditional nodes inside conditional bodies")
+            rows["set_conditional"]["nested"] = phase_nested_nodes(device)
     floor = launch_floor(device)
     split = phase_call_split(device)
     if args.kernels_only:
@@ -5316,10 +5644,20 @@ def main() -> None:
     stamp("phase 6: A")
     paths["A"], walls = run_canonical(device, "A clustered", SEEDS, True, False,
                                       CLUSTERED_LOGZ, runs=eager)
+    turns = []  # A's graphed seed 42, the parent's and this one's, in turns
     if args.parent:
-        parent_a(args.parent, eager[SEEDS[0]])
+        turns.append(("parent", parent_a(args.parent, eager[SEEDS[0]])))
     stamp("phase 6b: A fused")
     fused = phase_fused(device, eager)
+    if args.parent:
+        run = fused["windows"]["on_device=True"]
+        turns += [("this", {"wall": fused["wall"], "iters": fused["iters"],
+                            "ms_per_iter": 1e3 * fused["wall"] / fused["iters"]}),
+                  ("this (profiled)", {"wall": run["wall"], "iters": run["iters"],
+                                       "ms_per_iter": 1e3 * run["wall_per_iter"]}),
+                  ("parent", parent_a(args.parent))]
+        print(f"A seed {SEEDS[0]} graphed in turns (parent, this, this, parent): "
+              f"{json.dumps(turns)}", flush=True)
     paths["A_fused"] = dict(fused["launches"], set_conditional=fused["set_conditional"])
     stamp("phase 7: A with hardware_prng")
     hw = phase_hardware_prng(device)
@@ -5387,8 +5725,8 @@ def main() -> None:
     print(f"dynamic: {json.dumps({k: dynamic[k] for k in keys})}", flush=True)
     print(f"A mesh: {json.dumps({k: mesh[k] for k in ('walls', 'iters', 'loops', 'windows')})}",
           flush=True)
-    print(f"A fused: {json.dumps({k: fused[k] for k in ('wall', 'iters', 'loops', 'fit_graphs', 'windows')})}",
-          flush=True)
+    keys = ("wall", "iters", "loops", "run_graphs", "windows")
+    print(f"A fused: {json.dumps({k: fused[k] for k in keys})}", flush=True)
     print(f"rosenbrock100: {json.dumps(r100)}", flush=True)
     print("A hardware_prng: " + json.dumps({k: hw[k] for k in (
         "wall", "wall_eager", "iters", "iters_eager", "loops", "windows")}), flush=True)

@@ -1,28 +1,38 @@
-"""A conditional body that synchronizes past PyTorch's sync check must fail
-its capture with `CaptureError`, and the process must live on.
+"""A conditional body that synchronizes or allocates past PyTorch's sync
+check must fail its capture with `CaptureError`, and the process must live
+on.
 
-    python3 scripts/capture_abort.py while|if
+    python3 scripts/capture_abort.py while|if|nested [sync|malloc|devsync]
 
 Needs one NVIDIA GPU; run it in a process of its own, as
 tests/test_torch_cuda.py and chip_smoke.py do (a failed capture leaves the
 captures of that process ended, not its CUDA context broken, but the check
-is whether the process survives). The synchronizing call is the CUDA
-runtime's cudaStreamSynchronize on the current stream, called through
-ctypes on the runtime PyTorch loaded: PyTorch's sync check does not see it,
-and inside a capture CUDA refuses it and invalidates the capture.
+is whether the process survives). The faulting call is one of the CUDA
+runtime's, called through ctypes on the runtime PyTorch loaded, which
+PyTorch's sync check does not see and which CUDA refuses inside a capture,
+invalidating it: `sync` (the default) cudaStreamSynchronize on the current
+stream, `malloc` a raw cudaMalloc (freed again where it succeeds, eagerly),
+`devsync` cudaDeviceSynchronize. The last two invalidate every capture of
+the thread, so inside bodies captured straight into their nodes they would
+kill the process: `loops.Loops` captures such a body alone first.
 
 - `while`: a Sampler whose likelihood makes that call runs with
-  `run(on_device=True)`: the MCMC chain's WHILE body (loops.Loops.repeat)
-  captures the likelihood;
+  `run(on_device=True)`: the device run loop's WHILE body (fused.py)
+  captures the likelihood in the warm-up branch's IF body and the MCMC
+  chain's WHILE body (loops.Loops.repeat), nested in it;
 - `if`: a stretch (loops.Loops.once) whose conditional IF body
-  (loops.Loops.when) makes that call.
+  (loops.Loops.when) makes that call;
+- `nested`: a stretch whose WHILE body holds an IF body holding another,
+  the innermost making that call (the bodies that hold nodes are captured
+  straight into their nodes, the innermost as a graph of its own).
 
 Each prints `CAPTURE_ERROR <first line of the error>`. The same process
 then runs a small clustered Sampler, whose cluster fit holds IF nodes and
 whose MCMC chain is a WHILE node, with `run(on_device=False)` and then
 `run(on_device=True)`, and prints `REPLAY_EQUAL <bool> <its loop stats>`:
 the ladder, logZ and steps of the two runs equal bit for bit. Exits 0 when
-the capture failed with CaptureError and the runs agree, 1 otherwise.
+the capture failed with CaptureError and the runs agree (the graphed one
+one replay of the run loop), 1 otherwise.
 """
 
 from __future__ import annotations
@@ -50,11 +60,22 @@ def _cudart() -> ctypes.CDLL:
 
 _RT = _cudart()
 _RT.cudaStreamSynchronize.argtypes = [ctypes.c_void_p]
+_RT.cudaMalloc.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_size_t]
+_RT.cudaFree.argtypes = [ctypes.c_void_p]
+FAULTS = ("sync", "malloc", "devsync")
+FAULT = "sync"
 
 
-def sync_past_the_check() -> None:
-    """cudaStreamSynchronize on the current stream, unseen by PyTorch."""
-    _RT.cudaStreamSynchronize(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+def call_past_the_check() -> None:
+    """The faulting call FAULT, unseen by PyTorch."""
+    if FAULT == "sync":
+        _RT.cudaStreamSynchronize(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    elif FAULT == "malloc":
+        ptr = ctypes.c_void_p()
+        if _RT.cudaMalloc(ctypes.byref(ptr), 256) == 0:
+            _RT.cudaFree(ptr)
+    else:
+        _RT.cudaDeviceSynchronize()
 
 
 def prior(u):
@@ -67,7 +88,7 @@ def loglike(x):
 
 def syncing_loglike(x):
     if x.is_cuda:
-        sync_past_the_check()
+        call_past_the_check()
     return loglike(x)
 
 
@@ -83,13 +104,36 @@ def if_body() -> str:
 
     def stretch(inputs):
         def body(state):
-            sync_past_the_check()
+            call_past_the_check()
             return {"x": state["x"] + 1.0}
 
         return loops.when(inputs["p"], body, {"x": inputs["x"]})
 
     loops.once("probe_if", stretch, {"x": torch.zeros(4, device="cuda"),
                                      "p": torch.ones((), dtype=torch.bool, device="cuda")})
+    return ""
+
+
+def nested_body() -> str:
+    loops = Loops("cuda", graphs=True)
+
+    def stretch(inputs):
+        def inner(state):
+            call_past_the_check()
+            return {"x": state["x"] + 2.0}
+
+        def outer(state):
+            return loops.when(inputs["p"], inner, {"x": state["x"] + 1.0}, "probe_inner")
+
+        def body(c, k):
+            x = loops.when(inputs["p"], outer, {"x": c["x"]}, "probe_outer")["x"]
+            return {"n": c["n"] - 1, "x": x}
+
+        return loops.repeat("probe_nested", lambda c: c["n"] > 0, body,
+                            {"n": torch.full((), 3, device="cuda"), "x": inputs["x"]}, {})
+
+    loops.once("probe_nested", stretch, {"x": torch.zeros(4, device="cuda"),
+                                         "p": torch.ones((), dtype=torch.bool, device="cuda")})
     return ""
 
 
@@ -106,13 +150,16 @@ def clean_runs():
 
 
 def main() -> int:
-    if len(sys.argv) != 2 or sys.argv[1] not in ("while", "if"):
-        sys.exit(__doc__.splitlines()[2].strip())
+    global FAULT
+    if (len(sys.argv) not in (2, 3) or sys.argv[1] not in ("while", "if", "nested")
+            or sys.argv[2:] and sys.argv[2] not in FAULTS):
+        sys.exit(__doc__.splitlines()[4].strip())
+    FAULT = sys.argv[2] if len(sys.argv) == 3 else "sync"
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
     failed = False
     try:
-        (while_body if sys.argv[1] == "while" else if_body)()
+        {"while": while_body, "if": if_body, "nested": nested_body}[sys.argv[1]]()
         print("NO_ERROR", flush=True)
     except CaptureError as exc:
         failed = True
@@ -122,8 +169,8 @@ def main() -> int:
     torch.cuda.synchronize()
     same = eager == graphed
     print("REPLAY_EQUAL", same, {k: dict(v) for k, v in stats.items()
-                                 if k in ("mcmc", "hgm_fit")}, flush=True)
-    return 0 if failed and same and stats["mcmc"]["replays"] > 0 else 1
+                                 if k in ("run", "mcmc", "hgm_fit")}, flush=True)
+    return 0 if failed and same and stats["run"]["replays"] > 0 else 1
 
 
 if __name__ == "__main__":

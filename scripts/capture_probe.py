@@ -1,7 +1,7 @@
 """How the capture of a CUDA-graph conditional node's body fails, case by
 case, on one NVIDIA GPU.
 
-    python3 scripts/capture_probe.py
+    python3 scripts/capture_probe.py [--nested-only]
 
 Builds scripts/capture_probe.cu with nvcc (sm_90a) into build/capture_probe/
 and runs each case (IF or WHILE node; a fault inside the body's capture;
@@ -31,6 +31,20 @@ from tempest_tpu_torch.ops import _build  # noqa: E402
 KINDS = ("if", "while")
 FAULTS = ("none", "sync", "pinned", "event", "malloc", "devsync")
 STRATEGIES = ("torch", "destroy", "skipbody", "parentfirst", "child")
+SHAPES = ("w1i", "w2i", "w3i", "wiw")
+ROUTES = ("child", "tograph", "mixed")
+
+
+def _run(exe: Path, args) -> tuple:
+    run = subprocess.run([str(exe), *args], capture_output=True, text=True, timeout=60)
+    lines = [ln.strip() for ln in run.stdout.splitlines()[1:] if "-> 0 cudaSuccess" not in ln]
+    return run.returncode, lines
+
+
+def _outcome(rc: int, lines) -> str:
+    said = " ".join(lines)
+    words = [w for w in ("NESTED_OK", "NESTED_WRONG", "NESTED_FAILED", "ALIVE") if w in said]
+    return f"rc={rc} " + "+".join(words)
 
 
 def main() -> None:
@@ -42,16 +56,19 @@ def main() -> None:
                           capture_output=True, text=True)
     if proc.returncode != 0:
         sys.exit(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
-    codes = {}
-    for kind, fault, strategy in itertools.product(KINDS, FAULTS, STRATEGIES):
-        run = subprocess.run([str(exe), kind, fault, strategy], capture_output=True, text=True,
-                             timeout=60)
-        lines = [ln.strip() for ln in run.stdout.splitlines()[1:]
-                 if "-> 0 cudaSuccess" not in ln]
-        codes[f"{kind} {fault} {strategy}"] = run.returncode
-        print(f"{kind} {fault} {strategy}: rc={run.returncode} | " + " | ".join(lines),
-              flush=True)
-    print(json.dumps({"capture_probe": codes}), flush=True)
+    codes, nested = {}, {}
+    if "--nested-only" not in sys.argv[1:]:
+        for kind, fault, strategy in itertools.product(KINDS, FAULTS, STRATEGIES):
+            rc, lines = _run(exe, (kind, fault, strategy))
+            codes[f"{kind} {fault} {strategy}"] = rc
+            print(f"{kind} {fault} {strategy}: rc={rc} | " + " | ".join(lines), flush=True)
+    cases = [(shape, route, "none") for shape in SHAPES for route in ROUTES]
+    cases += [(shape, "mixed", fault) for shape in ("w3i", "wiw") for fault in FAULTS[1:]]
+    for shape, route, fault in cases:
+        rc, lines = _run(exe, ("nested", shape, route, fault))
+        nested[f"{shape} {route} {fault}"] = _outcome(rc, lines)
+        print(f"nested {shape} {route} {fault}: rc={rc} | " + " | ".join(lines), flush=True)
+    print(json.dumps({"capture_probe": codes, "nested": nested}), flush=True)
 
 
 if __name__ == "__main__":

@@ -81,7 +81,7 @@ def one(root: str) -> dict:
     s.run(n_total=cs.N_TOTAL, progress=False, on_device=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    iters, logz = s.state.hist.t, s.evidence()[0]
+    iters, logz = int(s.state.hist.t), s.evidence()[0]
     w = cs.steady_window(s, True, n=3, device_only=False)  # resets the sampler
     out["dynamic"] = {"wall_s": wall, "iters": iters, "logz": logz,
                       "window_ms_per_iter": 1e3 * w["wall_per_iter"],
@@ -105,7 +105,7 @@ def one(root: str) -> dict:
             torch.cuda.synchronize()
         finally:
             chunks["mcmc"] = eight
-        out["A"][run] = {"wall_s": time.perf_counter() - t0, "iters": a.state.hist.t,
+        out["A"][run] = {"wall_s": time.perf_counter() - t0, "iters": int(a.state.hist.t),
                          "logz": a.evidence()[0],
                          "steps": int(a.results()["steps"].sum())}
     for graphs in (True, False):
@@ -128,7 +128,7 @@ def one(root: str) -> dict:
             c.run(n_total=512, progress=False, on_device=on_device)
             torch.cuda.synchronize()
             out[name][f"on_device={on_device}"] = {
-                "wall_s": time.perf_counter() - t0, "iters": c.state.hist.t,
+                "wall_s": time.perf_counter() - t0, "iters": int(c.state.hist.t),
                 "logz": c.evidence()[0]}
 
     r = cs.rosenbrock100_sampler(device, cs.SEEDS[1])
@@ -139,7 +139,7 @@ def one(root: str) -> dict:
     r.run(n_total=cs.R100_TOTAL, progress=False, on_device=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    iters, logz = r.state.hist.t, r.evidence()[0]
+    iters, logz = int(r.state.hist.t), r.evidence()[0]
     w = cs.steady_window(r, True, n=3, device_only=False, n_total=cs.R100_TOTAL)
     out["rosenbrock100"] = {"wall_s": wall, "iters": iters, "logz": logz,
                             "window_ms_per_iter": 1e3 * w["wall_per_iter"],

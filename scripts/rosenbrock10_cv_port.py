@@ -57,7 +57,7 @@ def run(seed: int, device) -> dict:
     t0 = time.perf_counter()
     s.run(n_total=8192, progress=False)
     torch.cuda.synchronize()
-    out = dict(seed=seed, logz=s.evidence()[0], iterations=s.state.hist.t,
+    out = dict(seed=seed, logz=s.evidence()[0], iterations=int(s.state.hist.t),
                ess=s.state.posterior_ess(), wall_s=time.perf_counter() - t0)
     print(json.dumps(out), flush=True)
     return out

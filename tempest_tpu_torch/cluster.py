@@ -745,7 +745,8 @@ def _hgm_fit(k, min_points: int, threshold_modifier: float, k_max: int, max_roun
         # min(max_rounds, k_max - 1) rounds, each a conditional body.
         for k_slots in widths[:max(min(max_rounds, k_max - 1), 0)]:
             pred = state["go"] & (state["n_leaves"] < k_max)
-            state = loops.when(pred, functools.partial(round_body, k_slots=k_slots), state)
+            state = loops.when(pred, functools.partial(round_body, k_slots=k_slots), state,
+                               "split_round")
     else:
         go, n_leaves = True, 1
         for k_slots in widths:

@@ -13,15 +13,24 @@ A configuration of `fused.fused_route` (every one without a host
 likelihood: one device or a mesh, ESS or dynamic mode) runs the fused
 iteration (`fused.py`) for `run()` and `sample()` alike, as JAX runs its
 fused iteration for both: its loops in chunks, one host read a chunk.
-Every route anneals in the one loop of `run_sampling`, whose termination
-test takes the beta the iteration read (`iteration.beta`).
-`run(on_device=True)` on the fused route on a CUDA device, without
-`save_every` (which keeps the host loop, core.py:309, and under a mesh
-its sharded checkpoints), turns the loops' CUDA graphs on
-(`loops.Loops.graphs`): each loop chunk is replayed as a graph, with the
-same results as `on_device=False`. The first draws object
-is kept for the sampler's life and reseeded in place, as the graphs hold
-its generator (and, where its steps are keyed, its call counter's words). The
+`run(on_device=True)` without `save_every` (which keeps the host loop,
+core.py:309, and under a mesh its sharded checkpoints) on a configuration
+of `fused.run_route` (one device, ESS mode, float32) runs the annealing
+loop itself on the device, as `_run_on_device` does (core.py:334-464):
+the first iteration on the per-iteration route, then the loop of
+`fused.make_fused_run`, whose predicate is the termination test, until
+it ends or the history fills; the host reads `t` once a dispatch, and
+where the history filled it checks the termination, doubles the capacity
+and enters again. On a CUDA device the loop's CUDA graphs are on
+(`loops.Loops.graphs`), so a dispatch is one graph replay. Every other
+route anneals in the host loop of `run_sampling`, whose termination test
+takes the beta the iteration read (`iteration.beta`) and reads the
+posterior ESS once beta is finished, the run loop's predicate
+(`fused.beta_unfinished`, `fused.ess_below`) evaluated by the host; with
+`on_device=True` on a CUDA device its loop chunks replay as graphs. All
+routes give the same results. The first draws object is kept for the
+sampler's life and reseeded in place, as the graphs hold its generator
+(and, where its draws are keyed, its call counter's words). The
 dispatch-budget chunking of the TPU whole-run program is not ported
 (ROADMAP.md queue 1, item 12).
 
@@ -48,7 +57,8 @@ import torch.distributed as dist
 from .cluster import ClusterModel, single_cluster_model
 from .config import SamplerConfig
 from .draws import BlockDraws, Draws, HardwareDraws, seed_from_key_words
-from .fused import fused_route, make_fused_iteration
+from .fused import (beta_unfinished, ess_below, fused_route, make_fused_iteration,
+                    make_fused_run, run_route)
 from .iteration import make_iteration
 from .ops.tools import ess_from_logw_psum, systematic_resample, trim_weights_mask
 from .parallel.mesh import particle_group, shard_current, shard_history
@@ -133,6 +143,8 @@ class SamplerCore:
         self.fused = fused_route(cfg)
         build = make_fused_iteration if self.fused else make_iteration
         self._iteration = build(cfg, self._loglike_batch, self._prior_batch)
+        self.run_route = run_route(cfg)
+        self._run = make_fused_run(cfg, self._iteration) if self.run_route else None
         self.draws = None
         self.pbar: Optional[ProgressBar] = None
         self.reset()
@@ -194,7 +206,7 @@ class SamplerCore:
             self.hist = grow_history(self.hist, need)
 
     def _ensure_capacity(self) -> None:
-        if self.hist.t >= self.hist.capacity:
+        if self.hist.count() >= self.hist.capacity:
             self.hist = grow_history(self.hist, self.hist.capacity * 2)
 
     # ------------------------------------------------------------------
@@ -228,10 +240,13 @@ class SamplerCore:
         loops = self._iteration.loops
         loops.graphs = self.fused and on_device and save_every is None
         try:
-            beta = None  # read once, where a resumed run starts
-            while self._not_termination(beta):
-                self._step(save_every, t0)
-                beta = self._iteration.beta
+            if self.run_route and on_device and save_every is None:
+                self._run_on_device(t0)
+            else:
+                beta = None  # read once, where a resumed run starts
+                while self._not_termination(beta):
+                    self._step(save_every, t0)
+                    beta = self._iteration.beta
         finally:
             loops.graphs = False
 
@@ -254,15 +269,43 @@ class SamplerCore:
         """`t` as numpy; under a mesh gathered along the particle dimension `dim`."""
         return fetch(t, self.group, dim)
 
+    def _run_on_device(self, t0: int) -> None:
+        """The annealing loop on the device (core.py:334-464): the first
+        iteration on the per-iteration route, then dispatches of the run
+        loop, one read of `t` (with the iteration counter and the model's
+        `fitted` flag) after each; where the history filled before the
+        termination test failed, the test on the host, the capacity doubled
+        and the loop entered again. The progress bar moves once a dispatch."""
+        if self.hist.count() == 0:
+            self._step(None, t0)
+        loops = self._iteration.loops
+        while True:
+            self._ensure_capacity()
+            hist, cur, model = self._run(self.draws, self.hist, self.cur, self.cluster_model,
+                                         self.n_total)
+            t, iteration, fitted = loops.read("run", hist.t, cur.iteration, model.fitted)
+            hist.t_host, cur.iteration, model.fitted = int(t), int(iteration), bool(fitted)
+            self.hist, self.cur, self.cluster_model = hist, cur, model
+            if self.pbar is not None:
+                self.pbar.update_iter(cur.iteration - self.pbar.count)
+            self._update_progress_bar()
+            if hist.t_host < hist.capacity or not self._not_termination():
+                break
+        self._prune_blob_store()
+
     def _not_termination(self, beta: Optional[float] = None) -> bool:
-        """Continue while 1 - beta >= 1e-4 or the posterior ESS < n_total;
-        `beta` is the current beta where the host has it already. Under a
-        mesh both read values that are the same on every rank."""
-        if self.hist.t == 0:
+        """Continue while 1 - beta >= 1e-4 or the posterior ESS < n_total,
+        the run loop's predicate (`fused.beta_unfinished`,
+        `fused.ess_below`) on the host; `beta` is the current beta where the
+        host has it already. Under a mesh both read values that are the same
+        on every rank."""
+        if self.hist.count() == 0:
             return True
-        if 1.0 - (float(self.cur.beta) if beta is None else beta) >= 1e-4:
+        beta = self.cur.beta.cpu() if beta is None else torch.tensor(beta, dtype=self.dtype)
+        if bool(beta_unfinished(beta)):
             return True
-        return self.posterior_ess() < (self.n_total or 0)
+        below = ess_below(self.hist, self.n_total or 0, self.group)
+        return bool(self._iteration.loops.read("termination", below)[0])
 
     def execute_iteration(self, save_every: Optional[int] = None, t0: int = 0) -> dict:
         """One reweight -> fit -> resample -> mutate -> commit iteration
@@ -356,7 +399,7 @@ class SamplerCore:
         """(logz, logz_err) (core.py:704-717): logz_err is None, as in the
         reference, unless n_bootstrap > 0 asks for the block-bootstrap
         error, whose uniforms come from the run's draws."""
-        if n_bootstrap > 0 and self.hist.t > 0:
+        if n_bootstrap > 0 and self.hist.count() > 0:
             uniforms = self.draws.bootstrap(int(n_bootstrap), self.hist.capacity)
             return float(self.cur.logz), float(
                 bootstrap_logz_err(self.hist, uniforms, group=self.group))
@@ -365,7 +408,7 @@ class SamplerCore:
     def compute_results(self) -> dict:
         """The full per-iteration history (core.py:719-746)."""
         h = self.hist
-        t = h.t
+        t = h.count()
         logw, _ = compute_logw_and_logz(h, 1.0, group=self.group)
         out = {
             "u": np.moveaxis(self._fetch(h.u[:, :t], 2), 0, -1),

@@ -11,26 +11,33 @@
 // the release this port runs on has no such call, so
 // `tempest_tpu_torch/ops/cuda_graphs.py` makes them from these C entries:
 //
-//  - tempest_cond_begin(parent, body, pred, kind, &handle, &body_graph):
+//  - tempest_cond_begin(parent, body, pred, kind, route, &handle, &body_graph):
 //    `parent` is capturing a graph. Creates a conditional handle in that
 //    graph, captures onto `parent` a one-thread kernel that sets the handle
 //    from the bool at `pred` when the graph runs, adds an IF (kind 0) or WHILE
 //    (kind 1) node after the parent's current dependencies, makes the node
-//    the parent's only dependency, starts a capture of its own on stream
-//    `body`, and gives back the handle and the node's body graph;
-//  - tempest_cond_end(body, body_graph, handle, pred, kind, &nodes): ends
-//    the body's capture and puts what it captured into the node's body graph
-//    as one child graph node; for a WHILE node it adds after that node the
+//    the parent's only dependency, starts a capture on stream `body` (route
+//    0: a graph of its own; route 1: straight into the node's body graph),
+//    and gives back the handle and the node's body graph;
+//  - tempest_cond_end(body, body_graph, handle, pred, kind, route, &nodes):
+//    ends the body's capture; on route 0 puts what it captured into the
+//    node's body graph as one child graph node; for a WHILE node the
 //    one-thread kernel that sets the handle from the predicate the body has
-//    just computed, so the node runs its body once more only where that is
-//    true; counts the body's nodes;
-//  - tempest_capture_abort(body, parent): ends whatever capture either
-//    stream is in, valid or invalidated, and destroys the graphs that come
-//    back, instantiating nothing (a failed body);
+//    just computed comes last in the body (route 1: captured; route 0: added
+//    after the child node), so the node runs its body once more only where
+//    that is true; counts the body's nodes;
+//  - tempest_capture_abort(stream, destroy): ends whatever capture the
+//    stream is in, valid or invalidated, and destroys the graph that comes
+//    back where `destroy` is set (a graph of its own; a node's body graph
+//    belongs to its node), instantiating nothing (a failed body);
 //  - tempest_capture_nodes(stream, &nodes) counts the top-level nodes of the
-//    graph a stream is capturing (the graph's size, reported).
+//    graph a stream is capturing (the graph's size, reported);
+//  - tempest_capture_begin(stream) and tempest_capture_discard(stream)
+//    capture a body as a graph of its own, outside any other capture, and
+//    destroy what comes back, instantiating nothing: a trial, whose failure
+//    the second returns.
 //
-// Why the body is captured apart and then added as a child graph: CUDA 12.8
+// Why a body is captured apart and then added as a child graph: CUDA 12.8
 // lets a stream capture straight into a conditional node's body graph
 // (cudaStreamBeginCaptureToGraph), but when such a capture is invalidated
 // half-way (a synchronizing call inside the body), ending the enclosing
@@ -38,7 +45,20 @@
 // order of ending the two captures tried, on an H100 with CUDA 12.8:
 // scripts/capture_probe.py). A body captured as a graph of its own fails
 // alone: its capture ends with an error and no graph, and the enclosing
-// capture then ends, valid or invalidated, without a crash.
+// capture then ends, valid or invalidated, without a crash. But a child
+// graph may not hold a conditional node (cudaGraphAddChildGraphNode returns
+// cudaErrorNotSupported: the probe's nested cases), so a body that holds
+// conditional nodes of its own is captured straight into its node's body
+// graph (route 1), and the innermost bodies, which hold none, as graphs of
+// their own (route 0). A stream synchronization, a pinned copy or an event
+// wait in an innermost body then still fails alone; a raw cudaMalloc or
+// cudaDeviceSynchronize there invalidates the enclosing route-1 captures
+// too, and ending those crashes the process (the probe's nested faults).
+// PyTorch's allocator relaxes the capture mode around its own cudaMalloc,
+// and its sync check sees torch.cuda.synchronize(); for the other calls
+// the caller first captures each such innermost body alone, with no other
+// capture open (tempest_capture_begin, tempest_capture_discard), where the
+// fault fails that capture alone, and stops there.
 //
 // Whatever is captured on `body` between begin and end runs, at every launch
 // of the graph, only where *pred was true when the node was reached (IF), or
@@ -60,8 +80,8 @@ __global__ void set_conditional(cudaGraphConditionalHandle handle, const bool* p
 }  // namespace
 
 extern "C" int tempest_cond_begin(void* parent_stream, void* body_stream, const void* pred,
-                                  int kind, void* handle_out, void* body_graph_out) {
-  if (kind != 0 && kind != 1) return cudaErrorInvalidValue;
+                                  int kind, int route, void* handle_out, void* body_graph_out) {
+  if ((kind != 0 && kind != 1) || (route != 0 && route != 1)) return cudaErrorInvalidValue;
   cudaStream_t parent = static_cast<cudaStream_t>(parent_stream);
   cudaStreamCaptureStatus status;
   cudaGraph_t graph;
@@ -90,25 +110,46 @@ extern "C" int tempest_cond_begin(void* parent_stream, void* body_stream, const 
   err = cudaStreamUpdateCaptureDependencies(parent, &node, 1, cudaStreamSetCaptureDependencies);
   if (err != cudaSuccess) return err;
   *static_cast<uint64_t*>(handle_out) = static_cast<uint64_t>(handle);
-  *static_cast<cudaGraph_t*>(body_graph_out) = params.conditional.phGraph_out[0];
-  return cudaStreamBeginCapture(static_cast<cudaStream_t>(body_stream),
-                                cudaStreamCaptureModeThreadLocal);
+  cudaGraph_t body_graph = params.conditional.phGraph_out[0];
+  *static_cast<cudaGraph_t*>(body_graph_out) = body_graph;
+  cudaStream_t body = static_cast<cudaStream_t>(body_stream);
+  if (route == 1) {
+    return cudaStreamBeginCaptureToGraph(body, body_graph, nullptr, nullptr, 0,
+                                         cudaStreamCaptureModeThreadLocal);
+  }
+  return cudaStreamBeginCapture(body, cudaStreamCaptureModeThreadLocal);
 }
 
-// Ends the body's capture and adds what it captured to `body_graph` (from
-// tempest_cond_begin) as a child graph node, then, for a WHILE node (kind
-// 1), the kernel that sets conditional `handle` from the bool at `pred`
-// after it; the int64 at `nodes` gets the body's node count, that kernel
-// included. A capture that failed returns its error and adds nothing.
+// Ends the body's capture (from tempest_cond_begin) and, on route 0, adds
+// what it captured to `body_graph` as a child graph node; for a WHILE node
+// (kind 1) the kernel that sets conditional `handle` from the bool at `pred`
+// comes last in the body. The int64 at `nodes` gets the body's node count,
+// that kernel included. A capture that failed returns its error and adds
+// nothing.
 extern "C" int tempest_cond_end(void* body_stream, void* body_graph, uint64_t handle,
-                                const void* pred, int kind, void* nodes) {
+                                const void* pred, int kind, int route, void* nodes) {
+  cudaStream_t stream = static_cast<cudaStream_t>(body_stream);
+  cudaGraphConditionalHandle h = static_cast<cudaGraphConditionalHandle>(handle);
+  const bool* p = static_cast<const bool*>(pred);
+  size_t n = 0;
+  if (route == 1) {
+    if (kind == 1) set_conditional<<<1, 1, 0, stream>>>(h, p);
+    cudaError_t launch = cudaGetLastError();
+    cudaGraph_t same = nullptr;  // the node's body graph, which the node owns
+    cudaError_t err = cudaStreamEndCapture(stream, &same);
+    if (err == cudaSuccess) err = launch;
+    if (err == cudaSuccess) {
+      err = cudaGraphGetNodes(static_cast<cudaGraph_t>(body_graph), nullptr, &n);
+    }
+    *static_cast<int64_t*>(nodes) = static_cast<int64_t>(n);
+    return err;
+  }
   cudaGraph_t body = nullptr;
-  cudaError_t err = cudaStreamEndCapture(static_cast<cudaStream_t>(body_stream), &body);
+  cudaError_t err = cudaStreamEndCapture(stream, &body);
   if (err != cudaSuccess) {
     if (body != nullptr) cudaGraphDestroy(body);
     return err;
   }
-  size_t n = 0;
   err = cudaGraphGetNodes(body, nullptr, &n);
   cudaGraphNode_t child;
   if (err == cudaSuccess) {
@@ -118,8 +159,6 @@ extern "C" int tempest_cond_end(void* body_stream, void* body_graph, uint64_t ha
   cudaGraphDestroy(body);
   if (err != cudaSuccess) return err;
   if (kind == 1) {
-    cudaGraphConditionalHandle h = static_cast<cudaGraphConditionalHandle>(handle);
-    const bool* p = static_cast<const bool*>(pred);
     void* args[] = {&h, &p};
     cudaKernelNodeParams kp = {};
     kp.func = reinterpret_cast<void*>(set_conditional);
@@ -135,27 +174,41 @@ extern "C" int tempest_cond_end(void* body_stream, void* body_graph, uint64_t ha
   return cudaSuccess;
 }
 
-// Ends the capture of each stream that is capturing (`body` may be null),
-// whether its capture is active or invalidated, and destroys any graph that
-// comes back without instantiating it; clears the runtime's last error.
-// Returns the first error other than an invalidated capture's.
-extern "C" int tempest_capture_abort(void* body_stream, void* parent_stream) {
-  cudaError_t first = cudaSuccess;
-  for (void* s : {body_stream, parent_stream}) {
-    if (s == nullptr) continue;
-    cudaStream_t stream = static_cast<cudaStream_t>(s);
-    cudaStreamCaptureStatus status;
-    cudaError_t err = cudaStreamIsCapturing(stream, &status);
-    if (err == cudaSuccess && status != cudaStreamCaptureStatusNone) {
-      cudaGraph_t graph = nullptr;
-      err = cudaStreamEndCapture(stream, &graph);
-      if (graph != nullptr) cudaGraphDestroy(graph);
-      if (err == cudaErrorStreamCaptureInvalidated) err = cudaSuccess;
-    }
-    if (first == cudaSuccess) first = err;
+// Ends the capture `stream` is in, if any, whether active or invalidated,
+// and destroys the graph that comes back where `destroy` is nonzero, without
+// instantiating it; clears the runtime's last error. Returns the error of
+// ending it unless that is an invalidated capture's.
+extern "C" int tempest_capture_abort(void* stream_ptr, int destroy) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaStreamCaptureStatus status;
+  cudaError_t err = cudaStreamIsCapturing(stream, &status);
+  if (err == cudaSuccess && status != cudaStreamCaptureStatusNone) {
+    cudaGraph_t graph = nullptr;
+    err = cudaStreamEndCapture(stream, &graph);
+    if (graph != nullptr && destroy) cudaGraphDestroy(graph);
+    if (err == cudaErrorStreamCaptureInvalidated) err = cudaSuccess;
   }
   cudaGetLastError();
-  return first;
+  return err;
+}
+
+// Starts a capture of a graph of its own on `stream`, in the mode of a
+// body's (tempest_cond_begin, route 0).
+extern "C" int tempest_capture_begin(void* stream) {
+  return cudaStreamBeginCapture(static_cast<cudaStream_t>(stream),
+                                cudaStreamCaptureModeThreadLocal);
+}
+
+// Ends the capture tempest_capture_begin started on `stream`, destroys the
+// graph that comes back without instantiating it and clears the runtime's
+// last error; returns the error of ending it (an invalidated capture's:
+// something inside it synchronized or allocated).
+extern "C" int tempest_capture_discard(void* stream) {
+  cudaGraph_t graph = nullptr;
+  cudaError_t err = cudaStreamEndCapture(static_cast<cudaStream_t>(stream), &graph);
+  if (graph != nullptr) cudaGraphDestroy(graph);
+  cudaGetLastError();
+  return err;
 }
 
 // The int64 at `nodes` gets the node count of the graph `stream` is

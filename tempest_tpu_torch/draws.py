@@ -2,19 +2,23 @@
 
 Every stochastic step of the port is a function of explicit draws; the
 loops take those draws from a draws object with four methods (`warmup`,
-`resample`, `mcmc_step`, `bootstrap`). `Draws` takes the warm-up's,
-resampling's and bootstrap's draws from one seeded `torch.Generator` on the
-sampler's device. Its MCMC steps draw there too on the CPU and in float64;
-on a CUDA device in float32 (`keyed`) every draw of a step comes from the
-Philox kernels of `ops/cuda_prng.py`, keyed by a call counter on the device
-(`cuda_prng.PhiloxCounter`), as JAX carries its threefry key in the
-`while_loop`'s carry (tempest_tpu/mcmc.py:289): a step adds its calls to
-the counter's device word times its `active` flag, so a step past the stop
-of its chain draws nothing new, and the loop that runs the steps need not
-put anything back. That lets a CUDA graph run the whole chain as one WHILE
-node (`mcmc.py`), which a generator's host-side Philox offset would not.
-`HardwareDraws`, the source of `hardware_prng=True`, draws its steps from
-the same kernels under another key, `philox.key_from_seed(seed)` where
+`resample`, `mcmc_step`, `bootstrap`). `Draws` takes the bootstrap's draws
+from one seeded `torch.Generator` on the sampler's device, and on the CPU
+and in float64 every other draw too. On a CUDA device in float32 (`keyed`)
+every draw of an iteration (the warm-up's prior draw and patch uniforms,
+the resampling uniforms and every draw of an MCMC step) comes from the
+Philox kernels of `ops/cuda_prng.py`, keyed by a call counter on the
+device (`cuda_prng.PhiloxCounter`), as JAX carries its threefry key in the
+`while_loop`'s carry (tempest_tpu/mcmc.py:289, tempest_tpu/fused.py:430):
+a draw adds its calls to the counter's device word, a step times its
+`active` flag, so a step past the stop of its chain draws nothing new and
+the loop that runs the steps need not put anything back; inside a
+conditional body the calls count only where the body runs
+(`PhiloxCounter.guards`). That lets a CUDA graph run the whole chain as one
+WHILE node (`mcmc.py`), and the whole annealing run as one (`fused.py`),
+which a generator's host-side Philox offset, fixed at capture, would not.
+`HardwareDraws`, the source of `hardware_prng=True`, draws from the same
+kernels under another key, `philox.key_from_seed(seed)` where
 `Draws` takes `philox.draws_key(seed)`, so the two flags stay two streams,
 as threefry and the hardware PRNG are in JAX; it is keyed in float32 on
 every device (on the CPU through the kernels' plain versions). A test can
@@ -57,8 +61,9 @@ FUSED_DRAWS_MAX_ELEMS = 1 << 19  # tempest_tpu/ops/pallas_prng.py:226, 235
 
 class Draws:
     """The draws of one run, from a seeded generator on `device`, and where
-    `keyed` (float32 on a CUDA device; `KEYED_ON_CPU` adds the CPU) the MCMC
-    steps' from the Philox kernels on the call counter `calls`.
+    `keyed` (float32 on a CUDA device; `KEYED_ON_CPU` adds the CPU) every
+    draw but the bootstrap's from the Philox kernels on the call counter
+    `calls` (the warm-up's, the resampling's and the MCMC steps').
 
     `graph_safe`: every draw comes from `generator` through PyTorch's
     Philox kernels or from kernels that read their call counter on the
@@ -110,12 +115,23 @@ class Draws:
         return torch.rand(shape, generator=self.generator, dtype=self.dtype, device=self.device)
 
     def warmup(self, n: int, d: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The prior draw (n, d) and the (n,) uniforms of the infinite-logl patch."""
-        return self._uniform((n, d)), self._uniform((n,))
+        """The prior draw (n, d) and the (n,) uniforms of the infinite-logl
+        patch; keyed, two calls of the uniform kernel, in (0, 1]."""
+        if not self.keyed:
+            return self._uniform((n, d)), self._uniform((n,))
+        out = self.calls.uniform(0, (n, d)), self.calls.uniform(1, (n,))
+        self.calls.advance(2)
+        return out
 
     def resample(self, n: int, method: str) -> torch.Tensor:
-        """Uniforms of the resampler: (n,) for "mult", one for "syst"."""
-        return self._uniform((n,) if method == "mult" else ())
+        """Uniforms of the resampler: (n,) for "mult", one for "syst"; keyed,
+        one call of the uniform kernel, in (0, 1]."""
+        shape = (n,) if method == "mult" else ()
+        if not self.keyed:
+            return self._uniform(shape)
+        out = self.calls.uniform(0, shape)
+        self.calls.advance(1)
+        return out
 
     def mcmc_step(
         self, n_candidates: int, n: int, d: int, gamma_shape: Optional[torch.Tensor],
@@ -168,7 +184,7 @@ class Draws:
     def tell(self):
         """The generator's position: its Philox offset on a CUDA device
         (advanced alike by every MCMC step of one shape), its whole state
-        on the CPU. The keyed steps do not move it."""
+        on the CPU. Keyed draws do not move it."""
         if self.device.type == "cuda":
             return self.generator.get_offset()
         return self.generator.get_state()
@@ -212,10 +228,11 @@ class HardwareDraws(Draws):
     every kernel call takes the next call index, so a reset (`reseed`)
     restarts the stream. The key and the call counter are a
     `cuda_prng.PhiloxCounter`, made whatever the device and dtype. In
-    float32 a step draws as `Draws`' keyed steps do, on the CPU too (the
-    plain versions). The warm-up and resampling draws come from the
-    generator, as in JAX. So do all the draws of a run in another dtype
-    than float32: the kernels draw float32 only, and JAX's
+    float32 every draw of an iteration is keyed as `Draws`' are on the
+    card, on the CPU too (the plain versions): the warm-up's and the
+    resampling's too, which JAX takes from threefry, so that a CUDA graph
+    can run the whole annealing loop. The generator draws all of a run in
+    another dtype than float32: the kernels draw float32 only, and JAX's
     `hw_prng_supported` (pallas_prng.py:46-48) sends every other dtype to
     threefry, so the flag does not apply there.
     """

@@ -69,7 +69,7 @@ def history_to_numpy(hist: History, group=None) -> Dict[str, np.ndarray]:
     """The History's fields as numpy, gathered over `group` under a mesh."""
     tree = fetch_tree(hist, group)
     out = {k: tree[k] for k in HISTORY_FIELDS}
-    out["t"] = np.int32(hist.t)
+    out["t"] = np.int32(hist.count())
     if hist.blobs is not None:
         out["blobs"] = tree["blobs"]
     return out

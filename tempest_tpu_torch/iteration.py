@@ -1,7 +1,6 @@
 """One Persistent Sampling iteration.
 
-Counterpart of tempest_tpu/fused.py `_make_iteration_fn` (:38-250), run
-eagerly:
+Counterpart of tempest_tpu/fused.py `_make_iteration_fn` (:38-250):
 
 1. reweight: the next beta by ESS bisection, or in dynamic mode by the CV
    bisection inside an ESS bracket, and the MIS weights (skipped at t ==
@@ -25,14 +24,26 @@ EM, the GMM EM, the split rounds, the MCMC steps) run through `loops`
 `fused.py` hands in chunked, optionally graphed loops. With graphs on, a
 cluster fit and the fit points' labels are one replay of the "hgm_fit"
 stretch, its split rounds conditional nodes that read nothing
-(`cluster.hgm_fit`). Between the loops the stages run straight through
-on the device; the one host read outside them is beta, for the warm-up
-branch (`iteration.beta` keeps it). Each
-stage runs inside a `utils.profiling.annotate` range ("ps/reweight",
-"ps/cluster", "ps/fit", "ps/resample", "ps/mutate", "ps/warmup", "ps/commit"), which
-`torch.profiler` reports as the stage's time; without a profiler a range
-costs a few microseconds. The JAX package's `_pin_history_layouts` and
-donation have no counterpart here.
+(`cluster.hgm_fit`).
+
+The iteration's two decisions, the branch of step 2 (JAX's `lax.cond` at
+:242-245) and the cluster cadence of step 3 (:149-160), are `loops.when`s.
+Called by the host (`iteration(draws, hist, cur, model)`), it reads beta
+once, which decides the branch (`iteration.beta` keeps it) and, with the
+Python `iteration` and `model.fitted`, the cadence; it reads nothing else
+between the loops. Run as the body of the device run loop
+(`fused.make_fused_run`, inside a stretch: `loops.inside`), both are
+decided on the device, on `cur.beta == 0`, the device word of the
+iteration counter and the device flag `model.fitted`: CUDA-graph IF nodes
+that read nothing, around the warm-up's prior draw, the mutation (its
+cluster fit, itself an IF node on the cadence, and its MCMC chain, a
+WHILE node) and the rest. Both give the same bits. The commit writes slot
+`t` through the device word `hist.t` (`state.commit`). Each stage runs
+inside a `utils.profiling.annotate` range ("ps/reweight", "ps/cluster",
+"ps/fit", "ps/resample", "ps/mutate", "ps/warmup", "ps/commit"), which
+`torch.profiler` reports as the stage's time when the host runs it; in the
+device run loop the ranges mark its capture, not its replays. The JAX
+package's `_pin_history_layouts` and donation have no counterpart here.
 
 Under a particle mesh (`config.mesh`) the history, the active set and the
 weights are this rank's blocks (parallel/mesh.py) and the draws a
@@ -155,19 +166,45 @@ def make_iteration(
     def replicated(fitted):
         return fitted if group is None else broadcast_from_first(fitted, group)
 
-    def mutate_branch(draws, hist: History, cur: Current, weights, model):
+    def refit(cur: Current, model: ClusterModel):
+        """Whether to fit the clusters this iteration (fused.py:149-160):
+        True with `cluster_every == 1`; else the cadence or an unfitted
+        model, a Python bool from host values or a 0-d device bool."""
+        if cfg.cluster_every == 1:
+            return True
+        if isinstance(model.fitted, bool) and isinstance(cur.iteration, int):
+            return not model.fitted or cur.iteration % cfg.cluster_every == 0
+        return ~torch.as_tensor(model.fitted, device=cfg.device) | (
+            cur.iteration % cfg.cluster_every == 0)
+
+    def cluster(cur: Current, model: ClusterModel, u_fit, w_fit, keep_fit):
+        """(model, labels of the fit points): the new fit where `refit`
+        holds, else the carried model and its labels."""
+        points = dict(u_fit=u_fit, w_fit=w_fit, keep_fit=keep_fit)
+
+        def fit(_):
+            return loops.once("hgm_fit", fit_clusters, points) if loops.graphed \
+                else fit_clusters(points)
+
+        go = refit(cur, model)
+        if go is True:
+            out = fit(None)
+        else:
+            out = dict({f: getattr(model, f) for f in MODEL_TENSORS},
+                       labels=cluster_predict(model, u_fit))
+            out = loops.when(go, fit, out, "hgm_fit")
+        labels = out.pop("labels")
+        return ClusterModel(**out, normalize=cfg.normalize, fitted=model.fitted), labels
+
+    def mutate_branch(draws, hist: History, cur: Current, weights, s):
+        """The mutation (fused.py:86-190) on the branch state `s`."""
+        model = ClusterModel(**{f: s[f] for f in MODEL_TENSORS}, normalize=cfg.normalize,
+                             fitted=s["fitted"])
         with annotate("ps/fit"):
             u_fit, w_fit, keep_fit = fit_points(hist, weights)
         if cfg.clustering:
             with annotate("ps/cluster"):
-                if not model.fitted or cur.iteration % cfg.cluster_every == 0:
-                    points = dict(u_fit=u_fit, w_fit=w_fit, keep_fit=keep_fit)
-                    fit = (loops.once("hgm_fit", fit_clusters, points) if loops.graphed
-                           else fit_clusters(points))
-                    labels = fit.pop("labels")
-                    model = ClusterModel(**fit, normalize=cfg.normalize)
-                else:
-                    labels = cluster_predict(model, u_fit)
+                model, labels = cluster(cur, model, u_fit, w_fit, keep_fit)
             with annotate("ps/fit"):
                 modes = replicated(fit_mode_statistics(
                     u_fit, w_fit, labels, k_max=cfg.k_max, dof_fallback=DOF_FALLBACK,
@@ -184,41 +221,53 @@ def make_iteration(
             )
         with annotate("ps/mutate"):
             res = mcmc(draws, u, x, logl, assignments, cur.beta, modes, blobs=blobs, loops=loops)
-        cur.u, cur.x, cur.logl, cur.blobs = res.u, res.x, res.logl, res.blobs
-        cur.assignments = assignments
-        cur.efficiency = res.efficiency.to(cfg.dtype)
-        cur.acceptance = res.acceptance.to(cfg.dtype)
-        cur.steps = res.steps
-        cur.calls += res.n_call_sweeps
-        return model
+        out = dict(s, u=res.u, x=res.x, logl=res.logl, assignments=assignments,
+                   efficiency=res.efficiency.to(cfg.dtype),
+                   acceptance=res.acceptance.to(cfg.dtype), steps=res.steps,
+                   calls=s["calls"] + res.n_call_sweeps,
+                   fitted=_true_like(s["fitted"]),
+                   **{f: getattr(model, f) for f in MODEL_TENSORS})
+        if blobs is not None:
+            out["blobs"] = res.blobs
+        return out
 
-    def warmup_branch(draws, cur: Current) -> None:
+    def warmup_branch(draws, s):
+        """The warm-up (fused.py:192-207) on the branch state `s`."""
         u_draw, patch_uniforms = draws.warmup(N, d)
         wr = warmup(u_draw, patch_uniforms, log_likelihood_batch, prior_transform_batch, group)
-        cur.u, cur.x, cur.logl, cur.blobs = wr.u, wr.x, wr.logl, wr.blobs
-        cur.assignments = torch.zeros((wr.u.shape[0],), dtype=torch.int32, device=cfg.device)
-        cur.logz = cur.logz + wr.logz_correction
-        cur.calls += 1  # one full-batch sweep
-        cur.steps = 1
-        cur.acceptance = torch.ones((), dtype=cfg.dtype, device=cfg.device)
-        cur.efficiency = torch.ones((), dtype=cfg.dtype, device=cfg.device)
+        out = dict(s, u=wr.u, x=wr.x, logl=wr.logl,
+                   assignments=torch.zeros((wr.u.shape[0],), dtype=torch.int32,
+                                           device=cfg.device),
+                   logz=s["logz"] + wr.logz_correction,
+                   calls=s["calls"] + 1,  # one full-batch sweep
+                   steps=_like(s["steps"], 1), acceptance=torch.ones_like(s["acceptance"]),
+                   efficiency=torch.ones_like(s["efficiency"]))
+        if wr.blobs is not None:
+            out["blobs"] = wr.blobs
+        return out
 
     def iteration(
         draws, hist: History, cur: Current, model: ClusterModel
     ) -> Tuple[History, Current, ClusterModel]:
-        if hist.t == 0:
+        device = loops.inside  # the body of the device run loop: decide there
+        if hist.t_host == 0:
             # Nothing committed yet: the first-iteration values.
             zero = torch.zeros((), dtype=cfg.dtype, device=cfg.device)
             cur.beta, cur.cv = zero, zero.clone()
             cur.ess = torch.full((), ess_target, dtype=cfg.dtype, device=cfg.device)
             weights = None
+            warm = True
             iteration.beta = 0.0
         else:
             with annotate("ps/reweight"):
                 rw = reweight(hist, cur.beta, ess_target, cv_target=cv_target,
                               dynamic=dynamic, group=group, loops=loops)
                 cur.beta = rw.beta.to(cfg.dtype)
-                iteration.beta = loops.read("beta", cur.beta)[0]
+                if device:
+                    warm = cur.beta == 0.0
+                else:
+                    iteration.beta = loops.read("beta", cur.beta)[0]
+                    warm = iteration.beta == 0.0
             cur.logz = rw.logz.to(cfg.dtype)
             cur.ess = rw.ess.to(cfg.dtype)
             cur.cv = rw.cv.to(cfg.dtype)
@@ -227,13 +276,41 @@ def make_iteration(
 
         # beta == 0: the target is still the prior — fresh draws instead of
         # fit/resample/MCMC; the carried model stays as it is.
-        if iteration.beta == 0.0:
-            with annotate("ps/warmup"):
-                warmup_branch(draws, cur)
-        else:
-            model = mutate_branch(draws, hist, cur, weights, model)
+        s = dict({f: getattr(model, f) for f in MODEL_TENSORS}, fitted=model.fitted,
+                 u=cur.u, x=cur.x, logl=cur.logl, assignments=cur.assignments, logz=cur.logz,
+                 calls=cur.calls, steps=cur.steps, acceptance=cur.acceptance,
+                 efficiency=cur.efficiency)
+        if cur.blobs is not None:
+            s["blobs"] = cur.blobs
+        with annotate("ps/warmup"):
+            s = loops.when(warm, lambda s: warmup_branch(draws, s), s, "warmup")
+        s = loops.when(_not(warm), lambda s: mutate_branch(draws, hist, cur, weights, s), s,
+                       "mutate")
+        cur.u, cur.x, cur.logl, cur.blobs = s["u"], s["x"], s["logl"], s.get("blobs")
+        cur.assignments, cur.logz, cur.calls, cur.steps = (
+            s["assignments"], s["logz"], s["calls"], s["steps"])
+        cur.acceptance, cur.efficiency = s["acceptance"], s["efficiency"]
+        if s["fitted"] is not model.fitted or any(s[f] is not getattr(model, f)
+                                                  for f in MODEL_TENSORS):
+            model = ClusterModel(**{f: s[f] for f in MODEL_TENSORS}, normalize=cfg.normalize,
+                                 fitted=s["fitted"])
         with annotate("ps/commit"):
             return commit(hist, cur), cur, model
 
     iteration.loops, iteration.beta = loops, None
     return iteration
+
+
+def _not(pred):
+    """The negation of a Python bool or a 0-d device bool."""
+    return not pred if isinstance(pred, bool) else ~pred
+
+
+def _true_like(flag):
+    """True, as a Python bool or as a 0-d device bool like `flag`."""
+    return True if isinstance(flag, bool) else torch.ones_like(flag)
+
+
+def _like(value, number: int):
+    """`number` as `value` holds numbers: a Python int or a tensor like it."""
+    return torch.full_like(value, number) if isinstance(value, torch.Tensor) else number

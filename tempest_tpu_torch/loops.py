@@ -39,24 +39,45 @@ runs each chunk as a `torch.cuda.CUDAGraph`:
   nothing. A replay skips the launches of an untaken node: each node's
   body adds one to a device word of its graph, and `launch_counts`
   (`settle_launches`) reads the words, the one read of the counting, only
-  when the counts are asked for. A `once` inside a stretch runs inline,
-  with no capture of its own; the stretch's warm-up runs every
-  conditional body and keeps its results where the predicate holds
-  (`torch.where`), so each body meets its libraries and kernel builds
-  before the capture;
+  when the counts are asked for; a body's launches are its own, those of
+  the nodes nested in it counted by their own words. A `once` inside a
+  stretch runs inline, with no capture of its own; the stretch's warm-up
+  runs every conditional body once, on the body stream of its depth, and
+  keeps its results where the predicate holds (`torch.where`), so each
+  body meets its libraries and kernel builds before the capture. A draw
+  from a registered call counter inside such a body advances the counter
+  times the predicate (`cuda_prng.PhiloxCounter.guards`), as an untaken
+  node draws nothing. Outside a stretch `when` decides on the host, from a
+  read of the predicate or from a Python bool;
+- conditional nodes nest (a WHILE node's body may hold IF and WHILE
+  nodes, up to any depth): each depth captures on a stream and allocates
+  from a pool of its own, a body that holds nodes is captured straight
+  into its node's body graph and an innermost body as a child graph
+  (`cuda_graphs.INTO_NODE`, `CHILD`; the warm-up records which is which);
+  an innermost body nested in another body is also captured once in the
+  warm-up as a graph of its own, outside any other capture, and discarded
+  (`cuda_graphs.alone`), so that a raw cudaMalloc or cudaDeviceSynchronize
+  in it (a likelihood on another CUDA library) fails there alone, not
+  inside captures made straight into their nodes, whose end CUDA would
+  crash on; the run loop calls the likelihood and the prior transform in
+  such bodies only;
 - `repeat` runs a body while a 0-d device bool of its carry holds, as
   `lax.while_loop` does: captured (a stretch of its own, or inside one), it
   is a CUDA-graph conditional WHILE node whose body runs on the device for
   as long as the predicate it recomputes holds, so a replay runs the whole
   loop and reads nothing; each run of the body adds one to its device word,
   which counts its launches and its runs (`stats[name]["node_bodies"]`, the
-  runs of every conditional body of stretch `name`).
-  Eagerly (graphs off, the CPU, a stretch's warm-up) it is a Python loop
-  that reads the predicate after every body, so it runs the same bodies and
-  launches the same kernels as the node;
+  runs of the loop's bodies, wherever its node sits). The body may update
+  the carry's tensors in place (a history slot written through a device
+  index): the node then copies nothing. Eagerly (graphs off, the CPU) it
+  is a Python loop that reads the predicate after every body, so it runs
+  the same bodies and launches the same kernels as the node; a stretch's
+  warm-up runs the body once, on a copy of the carry, so the static
+  buffers stay as they were;
 - a capture that fails (a body that reads the host, such as a likelihood
-  calling `.item()`, or synchronizes in a way PyTorch's sync check misses)
-  raises `CaptureError` naming the cause and `on_device=False`, after the
+  calling `.item()`, or synchronizes or allocates in a way PyTorch's sync
+  check misses) raises `CaptureError` naming the cause and
+  `on_device=False`, after the
   capture is abandoned without instantiating anything
   (`cuda_graphs.abort_capture`), so the process can go on and capture
   again; nothing falls back to eager execution.
@@ -110,10 +131,10 @@ def settle_launches() -> None:
     that graph replays ran, from each graph's device words (one read a
     graph replayed since the last call), and set the words to 0."""
     for graph in list(_UNSETTLED):
-        words, launches = graph.branches
-        for taken, delta in zip(words.tolist(), launches):
+        words, launches, stats = graph.branches
+        for taken, delta, counter in zip(words.tolist(), launches, stats):
             _add_launches({k: taken * v for k, v in delta.items()})
-            graph.stats["node_bodies"] += taken
+            counter["node_bodies"] += taken
         words.zero_()
     _UNSETTLED.clear()
 
@@ -138,18 +159,19 @@ class _Graph:
     """One captured chunk and the kernel launches its capture made outside
     conditional nodes; `outputs` holds the tensors a straight-line stretch
     returns; `branches`, where it has conditional nodes, their device words
-    (one int64 each, the bodies run since the last `settle_launches`) and
-    each body's launches; `stats`, its loop's or stretch's counters, which
-    count the bodies' runs."""
+    (one int64 each, the bodies run since the last `settle_launches`), each
+    body's own launches (those of the nodes nested in it left out) and the
+    counters of the loop each body belongs to (`Loops.stats`)."""
 
     def __init__(self, graph: torch.cuda.CUDAGraph, launches: Dict[str, int],
-                 branches: Optional[tuple] = None, stats: Optional[Counter] = None):
-        self.graph, self.launches = graph, launches
-        self.branches, self.stats = branches, stats
+                 branches: Optional[tuple] = None):
+        self.graph, self.launches, self.branches = graph, launches, branches
         self.outputs: Tensors = {}
         # (top-level nodes, nodes in conditional bodies) where it has any,
-        # and the seconds its capture and instantiation took
+        # the deepest nesting of its nodes, and the seconds its capture and
+        # instantiation took
         self.nodes: Optional[tuple] = None
+        self.depth = 0
         self.capture_s = 0.0
 
     def replay(self) -> None:
@@ -176,15 +198,30 @@ class Loops:
         self._pinned: Optional[torch.Tensor] = None
         self._event = None
         self._stream = None
-        # Inside a stretch: None, "warm-up" or "capture"; the conditional
-        # bodies met, and during a capture their words and launches.
+        # Inside a stretch: None, "warm-up" or "capture". The warm-up records
+        # each conditional body met, in the order the capture meets them:
+        # its loop's name and whether it holds nodes of its own; `_open`
+        # holds the bodies being run, `_depth` their nesting.
         self._stretch: Optional[str] = None
-        self._branch_count = 0
+        self._names: List[str] = []
+        self._holds: List[bool] = []
+        self._open: List[int] = []
+        self._depth = 0
+        self._max_depth = 0
+        # During a capture: the bodies' device words, each body's own
+        # launches, the launches of the nodes inside each open body, the next
+        # body's index, the bodies' node count and a memory pool a depth.
         self._words: Optional[torch.Tensor] = None
-        self._branches: List[Dict[str, int]] = []
+        self._branches: List[Optional[Dict[str, int]]] = []
+        self._nested: List[Dict[str, int]] = []
+        self._next_body = 0
         self._body_nodes = 0
-        self._pool = None
-        self._body_stream = None
+        self._pools: list = []
+        self._body_streams: List[torch.cuda.Stream] = []
+        # During a warm-up: the stretch's name and the pool of its bodies'
+        # trial captures (`_trial`).
+        self._capturing = ""
+        self._trial_pool = None
 
     def chunk(self, name: str) -> int:
         """The bodies a chunk of loop `name` runs between its reads."""
@@ -250,26 +287,34 @@ class Loops:
         """Run the code inside as the body of a stretch: nested stretches
         inline; `when` in "warm-up" runs every conditional body and selects
         on the device, in "capture" (inside a graph capture) makes
-        conditional nodes."""
+        conditional nodes. A warm-up entered from outside any stretch starts
+        the record of the bodies it meets."""
         saved, self._stretch = self._stretch, mode
+        if saved is None and mode == "warm-up":
+            self._names, self._holds, self._open, self._max_depth = [], [], [], 0
         try:
             yield
         finally:
             self._stretch = saved
 
-    def when(self, pred: torch.Tensor, body: Callable[[Tensors], Tensors],
-             state: Tensors) -> Tensors:
-        """`body(state)` where the 0-d bool `pred` is true, else `state`;
-        the body returns tensors of `state`'s keys, shapes and dtypes and
-        must not draw from the registered counters. Inside a stretch's
-        capture it is a conditional IF node whose body copies its results
-        into `state`'s tensors; else (a stretch's warm-up) the body runs and
-        `pred` picks its results or `state` on the device. Outside a
-        stretch, the caller decides on the host from its own read."""
+    def when(self, pred, body: Callable[[Tensors], Tensors], state: Tensors,
+             name: str = "when") -> Tensors:
+        """`body(state)` where `pred` is true, else `state`; the body returns
+        tensors of `state`'s keys, shapes and dtypes. `pred` is a Python bool
+        (decided already) or a 0-d device bool. Inside a stretch's capture it
+        is a conditional IF node whose body writes its results into copies
+        of `state`'s tensors; in a stretch's warm-up the body runs and `pred`
+        picks its results or `state` on the device, a draw from a registered
+        counter inside it advancing the counter times `pred`. Outside a
+        stretch the host decides: it reads `pred` (counted for `name`) and
+        runs the body or not. The body's node runs count for `name`."""
+        if isinstance(pred, bool):
+            return body(state) if pred else state
         if self._stretch == "capture":
-            return self._if_node(pred, body, state)
-        self._branch_count += 1
-        new = body(state)
+            return self._if_node(pred, body, state, name)
+        if self._stretch is None:
+            return body(state) if self.read(name, pred)[0] else state
+        new = self._warm(name, pred, lambda: body(state))
         return {k: torch.where(pred, new[k], v) for k, v in state.items()}
 
     def repeat(self, name: str, pred: Callable[[Tensors], torch.Tensor], body: Body,
@@ -277,13 +322,14 @@ class Loops:
         """The loop `name`, as `lax.while_loop(pred, body, carry)`:
         `body(carry, consts) -> carry` while the 0-d bool `pred(carry)`
         holds. The body may draw from the registered counters (the draws
-        advance their device words). With graphs on it is one stretch
-        `name`, replayed: a WHILE node that reads nothing; inside a
-        stretch's capture, the node; otherwise a Python loop that reads
-        the predicate after every body (a stretch's warm-up runs it so on
-        the body stream, once at least, so the body meets its libraries'
-        workspaces there before the capture, its first run under PyTorch's
-        sync check: a body that reads the host raises `CaptureError`)."""
+        advance their device words) and may update the carry's tensors in
+        place. With graphs on it is one stretch `name`, replayed: a WHILE
+        node that reads nothing; inside a stretch's capture, the node;
+        otherwise a Python loop that reads the predicate after every body. A
+        stretch's warm-up runs the body once, on a copy of the carry and on
+        the body stream of its depth, so the body meets its libraries'
+        workspaces there before the capture, under PyTorch's sync check: a
+        body that reads the host raises `CaptureError`."""
         if self.graphed and self._stretch is None:
             def stretch(t: Tensors) -> Tensors:
                 c = {k[2:]: v for k, v in t.items() if k.startswith("c.")}
@@ -294,35 +340,99 @@ class Loops:
                       **{"k." + k: v for k, v in consts.items()}}
             return self.once(name, stretch, inputs, static)
         if self._stretch == "capture":
-            return self._while_node(pred, body, carry, consts)
-        c = dict(carry)
+            return self._while_node(name, pred, body, carry, consts)
         if self._stretch == "warm-up":
-            self._branch_count += 1
-            current = torch.cuda.current_stream(self.device)
-            self._body_stream.wait_stream(current)
-            with torch.cuda.stream(self._body_stream):
-                go = bool(pred(c))
-                new = self._checked_body(name, body, c, consts)
-                c = new if go else c
-                while go and bool(pred(c)):
-                    c = body(c, consts)
-            current.wait_stream(self._body_stream)
-            return c
+            go = pred(carry)
+
+            def run() -> Tensors:
+                new = self._checked_body(name, body, {k: v.clone() for k, v in carry.items()},
+                                         consts)
+                pred(new)  # the WHILE node's flag, computed at the body's end
+                return new
+
+            new = self._warm(name, go, run)
+            return {k: torch.where(go, new[k], v) for k, v in carry.items()}
+        c = dict(carry)
         stats = self.stats[name]
         while self.read(name, pred(c))[0]:
             c = body(c, consts)
             stats["bodies"] += 1
         return c
 
+    def _warm(self, name: str, pred: torch.Tensor, run: Callable[[], Tensors]) -> Tensors:
+        """`run()` as a conditional body of loop `name` in a stretch's
+        warm-up: on the body stream of its depth, recorded in the order a
+        capture meets it, the registered counters advancing times `pred`.
+        A body nested in another body that holds no node of its own is then
+        captured once more, alone, and discarded (`_trial`): its capture
+        proper will sit inside captures made straight into their nodes,
+        which a raw cudaMalloc or cudaDeviceSynchronize in it would
+        invalidate too, and CUDA kills the process when those end."""
+        i = len(self._holds)
+        if self._open:
+            self._holds[self._open[-1]] = True
+        self._names.append(name)
+        self._holds.append(False)
+        self._open.append(i)
+        self._depth += 1
+        self._max_depth = max(self._max_depth, self._depth)
+        for c in self.counters:
+            c.guards.append(pred)
+        try:
+            if self.device.type != "cuda":
+                return run()
+            stream = self._body_stream(self._depth)
+            current = torch.cuda.current_stream(self.device)
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                out = run()
+                if self._depth > 1 and not self._holds[i]:
+                    self._trial(name, run, stream)
+            current.wait_stream(stream)
+            return out
+        finally:
+            for c in self.counters:
+                c.guards.pop()
+            self._depth -= 1
+            self._open.pop()
+
+    def _trial(self, name: str, run: Callable[[], Tensors], stream) -> None:
+        """Capture `run()`, body `name` of the stretch being warmed up, on
+        `stream` as a graph of its own outside any other capture, and
+        discard it (`cuda_graphs.alone`): a body that synchronizes or
+        allocates past PyTorch's check fails alone here, and raises
+        `CaptureError` naming the stretch."""
+        if self._trial_pool is None:
+            self._trial_pool = cuda_graphs.body_pool(stream)
+        try:
+            with cuda_graphs.alone(self._trial_pool, stream):
+                run()
+        except Exception as exc:
+            cause = RuntimeError(f"its {name!r} body, captured alone: {type(exc).__name__}: {exc}")
+            raise self._capture_error(self._capturing, cause) from exc
+
+    def _body_stream(self, depth: int) -> Optional[torch.cuda.Stream]:
+        """The stream the conditional bodies of nesting `depth` (1 for a
+        stretch's own nodes) run and are captured on."""
+        if self.device.type != "cuda":
+            return None
+        while len(self._body_streams) < depth:
+            self._body_streams.append(torch.cuda.Stream(self.device))
+        return self._body_streams[depth - 1]
+
     def _checked_body(self, name: str, body: Body, carry: Tensors, consts: Tensors) -> Tensors:
         """One run of a WHILE node's body with PyTorch's sync check raising:
         a body that reads the host in a way the check sees fails here, before
         its capture, with PyTorch's own message; one that syncs past the
         check fails its capture, which is abandoned (`_abort`)."""
+        if self.device.type != "cuda":
+            return body(carry, consts)
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
         try:
             return body(carry, consts)
+        except CaptureError:  # a nested body's, named already
+            raise
         except RuntimeError as exc:
             raise self._capture_error(name, exc) from exc
         finally:
@@ -330,43 +440,57 @@ class Loops:
 
     # -- graphs ------------------------------------------------------------
     def _if_node(self, pred: torch.Tensor, body: Callable[[Tensors], Tensors],
-                 state: Tensors) -> Tensors:
-        issued = [c.issued for c in self.counters]
-        self._node(cuda_graphs.if_body, pred, lambda: body(state), state)
-        if [c.issued for c in self.counters] != issued:
-            raise RuntimeError("a conditional body drew from a call counter")
-        return state
+                 state: Tensors, name: str) -> Tensors:
+        out = {k: v.clone() for k, v in state.items()}  # the result where pred is false
+        self._node(cuda_graphs.if_body, pred, lambda: body(state), out, name)
+        return out
 
-    def _while_node(self, pred: Callable[[Tensors], torch.Tensor], body: Body,
+    def _while_node(self, name: str, pred: Callable[[Tensors], torch.Tensor], body: Body,
                     carry: Tensors, consts: Tensors) -> Tensors:
         flag = pred(carry)
 
         def run() -> Tensors:
             new = body(carry, consts)
             for k, v in carry.items():
-                v.copy_(new[k])
+                if new[k] is not v:
+                    v.copy_(new[k])
             flag.copy_(pred(carry))  # the WHILE node's flag kernel reads it next
             return {}
 
-        self._node(cuda_graphs.while_body, flag, run, {})
+        self._node(cuda_graphs.while_body, flag, run, {}, name)
         return carry
 
-    def _node(self, make, flag: torch.Tensor, work: Callable[[], Tensors],
-              state: Tensors) -> None:
+    def _node(self, make, flag: torch.Tensor, work: Callable[[], Tensors], state: Tensors,
+              name: str) -> None:
         """Capture `work()` as the body of a conditional node made by `make`
-        on `flag`, its results copied into `state`'s tensors, and the
-        body's launches and device word (one run, one add) recorded."""
-        i = len(self._branches)
-        if self._words is None or i >= self._words.numel():
-            raise RuntimeError("a stretch met more conditional bodies in its capture than in "
+        on `flag`, its results copied into `state`'s tensors, on the body
+        stream and pool of its depth, straight into the node where the
+        warm-up saw it hold nodes of its own; record the body's own launches
+        and device word (one run, one add)."""
+        i = self._next_body
+        if self._words is None or i >= self._words.numel() or self._names[i] != name:
+            raise RuntimeError("a stretch met other conditional bodies in its capture than in "
                                "its warm-up")
-        with make(flag, self._pool, self._body_stream) as nodes:
-            before = _counts()  # after the node's flag kernel, which every replay runs
-            new = work()
-            for k, v in state.items():
-                v.copy_(new[k])
-            self._words[i:i + 1].add_(1)
-        self._branches.append({k: v - before[k] for k, v in _counts().items()})
+        self._next_body += 1
+        self._depth += 1
+        route = cuda_graphs.INTO_NODE if self._holds[i] else cuda_graphs.CHILD
+        self._nested.append(dict.fromkeys(_counts(), 0))
+        try:
+            with make(flag, self._pools[self._depth - 1], self._body_stream(self._depth),
+                      route) as nodes:
+                before = _counts()  # after the node's flag kernel, which its parent runs
+                new = work()
+                for k, v in state.items():
+                    v.copy_(new[k])
+                self._words[i:i + 1].add_(1)
+        finally:
+            self._depth -= 1
+            nested = self._nested.pop()
+        total = {k: v - before[k] for k, v in _counts().items()}
+        self._branches[i] = {k: v - nested[k] for k, v in total.items()}
+        if self._nested:
+            for k, v in total.items():
+                self._nested[-1][k] += v
         self._body_nodes += nodes[0]
 
     def _bind(self, name: str, carry: Tensors, consts: Tensors, static: tuple):
@@ -407,18 +531,21 @@ class Loops:
         every static buffer as it was."""
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
-        if self._body_stream is None:
-            self._body_stream = torch.cuda.Stream(self.device)
         stream, current = self._stream, torch.cuda.current_stream(self.device)
         offsets = [g.get_offset() for g in self.generators]
         words = [c.state.clone() for c in self.counters]
         before = _counts()
         # Warm-up: libraries and workspaces meet the capture stream eagerly,
-        # every conditional body included.
-        self._branch_count = 0
+        # every conditional body included, each on its depth's stream.
+        self._capturing = name
         stream.wait_stream(current)
-        with torch.cuda.stream(stream), self.stretch("warm-up"):
-            work()
+        try:
+            with torch.cuda.stream(stream), self.stretch("warm-up"):
+                work()
+        finally:
+            if self._trial_pool is not None:
+                cuda_graphs.release_pool(self.device, self._trial_pool)
+                self._trial_pool = None
         current.wait_stream(stream)
         _add_launches({k: v - before[k] for k, v in _counts().items()}, -1)
         for g, offset in zip(self.generators, offsets):
@@ -426,16 +553,19 @@ class Loops:
         for c, saved in zip(self.counters, words):
             c.state.copy_(saved)
 
-        # The conditional bodies' launch words and memory pool.
-        words = torch.zeros(self._branch_count, dtype=torch.int64, device=self.device)
-        self._words, self._branches, self._body_nodes = words, [], 0
-        pool = None
-        if self._branch_count:
-            try:
-                pool = cuda_graphs.body_pool(self._body_stream)
-            except RuntimeError as exc:
-                raise self._capture_error(name, exc) from exc
-        self._pool = pool
+        # The conditional bodies' launch words and memory pools, one a depth.
+        n_bodies = len(self._names)
+        words = torch.zeros(n_bodies, dtype=torch.int64, device=self.device)
+        self._words, self._branches, self._body_nodes = words, [None] * n_bodies, 0
+        self._next_body = 0
+        pools = []
+        try:
+            for depth in range(1, self._max_depth + 1):
+                pools.append(cuda_graphs.body_pool(self._body_stream(depth)))
+        except RuntimeError as exc:
+            self._release(pools)
+            raise self._capture_error(name, exc) from exc
+        self._pools = pools
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             graph.register_generator_state(g)
@@ -445,44 +575,53 @@ class Loops:
             t0 = time.perf_counter()
             try:
                 commit(work())
-                nodes = (cuda_graphs.capture_nodes(stream), self._body_nodes) if pool else None
+                if self._next_body != n_bodies:
+                    raise RuntimeError("a stretch met fewer conditional bodies in its capture "
+                                       "than in its warm-up")
+                nodes = (cuda_graphs.capture_nodes(stream), self._body_nodes) if pools else None
             except Exception as exc:
-                self._abort(graph, stream, pool)
+                self._abort(graph, stream, pools)
                 raise self._capture_error(name, exc) from exc
             try:
                 graph.capture_end()
             except Exception as exc:
-                self._abort(graph, stream, pool)
+                self._abort(graph, stream, pools)
                 raise self._capture_error(name, exc) from exc
         current.wait_stream(stream)
-        branches, self._words, self._branches = self._branches, None, []
+        branches, self._words, self._pools = self._branches, None, []
         captured = {k: v - before[k] for k, v in _counts().items()}
         _add_launches(captured, -1)
         for delta in branches:  # a replay counts these from the words
             captured = {k: v - delta[k] for k, v in captured.items()}
         self.stats[name]["captures"] += 1
-        out = _Graph(graph, captured, (words, branches) if branches else None, self.stats[name])
-        out.nodes, out.capture_s = nodes, time.perf_counter() - t0
-        if pool is not None:  # the bodies' memory lives as long as the graph
-            weakref.finalize(out, cuda_graphs.release_pool, self.device, pool).atexit = False
+        stats = [self.stats[n] for n in self._names]
+        out = _Graph(graph, captured, (words, branches, stats) if branches else None)
+        out.nodes, out.depth, out.capture_s = nodes, self._max_depth, time.perf_counter() - t0
+        if pools:  # the bodies' memory lives as long as the graph
+            weakref.finalize(out, self._release, pools).atexit = False
         return out
 
-    def _abort(self, graph, stream, pool) -> None:
+    def _release(self, pools: list) -> None:
+        for pool in pools:
+            cuda_graphs.release_pool(self.device, pool)
+
+    def _abort(self, graph, stream, pools: list) -> None:
         """Abandon a failed capture on `stream`: its captures ended and their
         graphs destroyed, nothing instantiated, PyTorch's allocator routing
         and the graph's pool put back (`cuda_graphs.abort_capture`); then the
-        generators out of capture mode and the body pool released."""
+        generators out of capture mode and the body pools released."""
+        self._depth, self._nested = 0, []
         try:
-            cuda_graphs.abort_capture(graph, stream, self._body_stream)
+            cuda_graphs.abort_capture(graph, stream, self._body_streams)
         finally:
-            self._repair_generators(stream, pool)
+            self._repair_generators(stream, pools)
 
-    def _repair_generators(self, stream, pool) -> None:
+    def _repair_generators(self, stream, pools: list) -> None:
         """A capture that fails leaves its generators in capture mode; one
         small capture that succeeds takes them out of it. The failed
-        capture's body pool goes back."""
-        if pool is not None:
-            cuda_graphs.release_pool(self.device, pool)
+        capture's body pools go back."""
+        self._release(pools)
+        self._pools = []
         try:
             fix = torch.cuda.CUDAGraph()
             for g in self.generators:

@@ -33,8 +33,9 @@ never stop the chain); a step takes its draws from a `Draws` or
   from the Philox kernels on a call counter in device words that a step
   advances only while active, as JAX's key rides in the loop's carry), on
   one device or a mesh: the loop form `loops.Loops.repeat`, one CUDA-graph
-  WHILE node that runs the real steps and reads nothing. `steps` stays a
-  device tensor.
+  WHILE node that runs the real steps and reads nothing (a stretch of its
+  own, or nested in the mutation's IF node of the device run loop,
+  `fused.make_fused_run`). `steps` stays a device tensor.
 - otherwise (eager, float64, the CPU, a test's source): the device loop
   "mcmc" in chunks (`loops.Loops.start`): with a chunk length of 1 it reads
   the stop flag after every step; with a longer one its first chunk is the

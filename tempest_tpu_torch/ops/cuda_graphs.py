@@ -10,27 +10,32 @@ of each run of the body, stays nonzero; so a replay decides on the device
 and reads nothing. The PyTorch release the port runs on has no call that
 makes one (later ones have `CUDAGraph.begin_capture_to_if_node`), so
 `csrc/graph_cond.cu` makes them with the CUDA runtime (`tempest_cond_begin`,
-`tempest_cond_end`, `tempest_capture_abort`; design note there), built by
-nvcc at first use and loaded with ctypes (`_build`). A body is captured as a
-graph of its own and put into its node as a child graph once its capture
-has ended well.
+`tempest_cond_end`, `tempest_capture_abort`, `tempest_capture_begin`,
+`tempest_capture_discard`; design note there), built by
+nvcc at first use and loaded with ctypes (`_build`). A body that holds no
+conditional node is captured as a graph of its own and put into its node as
+a child graph once its capture has ended well (`CHILD`); one that holds
+nodes of its own is captured straight into its node's body graph
+(`INTO_NODE`), as CUDA refuses a child graph that holds a conditional node.
 
-`if_body(pred, pool, stream)` captures what runs inside it on `stream` as
-the body of an IF node on the 0-d CUDA bool `pred`, placed after the work
-the current stream has captured so far; `while_body(pred, pool, stream)`
-as the body of a WHILE node, entered where `pred` holds and run again
+`if_body(pred, pool, stream, route)` captures what runs inside it on
+`stream` as the body of an IF node on the 0-d CUDA bool `pred`, placed after
+the work the current stream has captured so far; `while_body(pred, pool,
+stream, route)` as the body of a WHILE node, entered where `pred` holds and run again
 where the body leaves `pred` true (the body writes its predicate into that
 same tensor). The body's allocations go to
 `pool` (PyTorch's allocator routing, as `torch.cuda.use_mem_pool` does):
 a memory pool of the graph's bodies (`body_pool`), not the graph's own,
 to which PyTorch already routes the capture stream and which it routes
-only once. The pool keeps the bodies' memory for the replays until
-`release_pool`; bodies that run one after another in one graph may share
-it, as a body's temporaries die inside it. A refusal raises, naming
+only once. A nested body, on a stream of its own, takes a pool of its own
+for the same reason. The pool keeps the bodies' memory for the replays
+until `release_pool`; bodies that run one after another in one graph may
+share it, as a body's temporaries die inside it. A refusal raises, naming
 CUDA's error; nothing falls back. A body whose capture fails after it
 began (a synchronizing call inside it, which PyTorch's sync check does not
-always see) raises when its block ends; `abort_capture` then ends the
-enclosing capture without instantiating anything and puts PyTorch's
+always see) raises when its block ends, its own capture ended (each enclosing body's
+block then ends its capture too, innermost first); `abort_capture` then ends
+the enclosing capture without instantiating anything and puts PyTorch's
 allocator routing and the graph's memory pool back, so the process lives
 on (`loops.Loops` does this and raises `CaptureError`). PyTorch 2.11's
 `CUDAGraph` has no call that abandons a capture, so the capture is ended
@@ -39,14 +44,19 @@ its destructor takes as a capture that never ended (it releases nothing
 and destroys no graph). Before that the process died: capturing a body
 straight into its node's graph, CUDA 12.8 crashed in cudaStreamEndCapture
 of the enclosing capture once the body's capture was invalidated
-(`scripts/capture_probe.py`).
+(`scripts/capture_probe.py`). With nodes nested, a raw cudaMalloc or
+cudaDeviceSynchronize in an innermost body still kills the process, as the
+enclosing bodies captured straight into their nodes are invalidated with it
+(the probe's nested faults; neither comes from PyTorch's own calls), so
+`loops.Loops` first captures each such body alone, outside any other
+capture, and discards it (`alone`): the fault fails that capture alone.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Iterator, List, Optional
+from typing import Iterator, List, Sequence
 
 import torch
 
@@ -55,9 +65,10 @@ from . import _build
 _PTR = ctypes.c_void_p
 LIBRARY = _build.CudaLibrary(
     "graph_cond.cu",
-    {"tempest_cond_begin": [_PTR, _PTR, _PTR, ctypes.c_int, _PTR, _PTR],
-     "tempest_cond_end": [_PTR, _PTR, ctypes.c_uint64, _PTR, ctypes.c_int, _PTR],
-     "tempest_capture_abort": [_PTR] * 2, "tempest_capture_nodes": [_PTR] * 2,
+    {"tempest_cond_begin": [_PTR, _PTR, _PTR, ctypes.c_int, ctypes.c_int, _PTR, _PTR],
+     "tempest_cond_end": [_PTR, _PTR, ctypes.c_uint64, _PTR, ctypes.c_int, ctypes.c_int, _PTR],
+     "tempest_capture_abort": [_PTR, ctypes.c_int], "tempest_capture_nodes": [_PTR] * 2,
+     "tempest_capture_begin": [_PTR], "tempest_capture_discard": [_PTR],
      "tempest_error_string": [ctypes.c_int, _PTR, ctypes.c_int64]},
 )
 
@@ -118,6 +129,10 @@ def capture_nodes(stream: torch.cuda.Stream) -> int:
 
 
 _IF, _WHILE = 0, 1
+# How a body is captured: as a graph of its own, added to its node as a
+# child graph (a body that holds no conditional node), or straight into the
+# node's body graph (one that does).
+CHILD, INTO_NODE = 0, 1
 
 
 def _check_pred(pred: torch.Tensor) -> None:
@@ -127,12 +142,12 @@ def _check_pred(pred: torch.Tensor) -> None:
 
 
 @contextlib.contextmanager
-def _cond_body(kind: int, pred: torch.Tensor, pool, stream: torch.cuda.Stream):
+def _cond_body(kind: int, pred: torch.Tensor, pool, stream: torch.cuda.Stream, route: int):
     """Inside a graph capture on the current stream: capture the block's
     work, on `stream` (made current), as the body of a conditional node of
-    `kind` on `pred`. Yields a record: its "handle", the node's, and at the
-    end its "nodes", the body's node count. A body whose capture fails
-    raises here with its capture ended; the enclosing capture is the
+    `kind` on `pred`, by `route`. Yields a record: its "handle", the node's,
+    and at the end its "nodes", the body's node count. A body whose capture
+    fails raises here with its capture ended; the enclosing capture is the
     caller's to abort (`abort_capture`)."""
     _check_pred(pred)
     begin, end = _routing()
@@ -141,7 +156,7 @@ def _cond_body(kind: int, pred: torch.Tensor, pool, stream: torch.cuda.Stream):
     parent = torch.cuda.current_stream(pred.device)
     handle, graph = ctypes.c_uint64(), ctypes.c_void_p()
     _check(lib.tempest_cond_begin(parent.cuda_stream, stream.cuda_stream, pred.data_ptr(), kind,
-                                  ctypes.byref(handle), ctypes.byref(graph)),
+                                  route, ctypes.byref(handle), ctypes.byref(graph)),
            "making a CUDA-graph conditional node")
     record = {"handle": handle.value}
     global LAUNCHES
@@ -156,54 +171,86 @@ def _cond_body(kind: int, pred: torch.Tensor, pool, stream: torch.cuda.Stream):
                 end(index, pool)
                 torch._C._cuda_releasePool(index, pool)
     except BaseException:
-        lib.tempest_capture_abort(stream.cuda_stream, None)
+        lib.tempest_capture_abort(stream.cuda_stream, int(route == CHILD))
         raise
-    _check(lib.tempest_cond_end(stream.cuda_stream, graph, handle, pred.data_ptr(), kind,
+    _check(lib.tempest_cond_end(stream.cuda_stream, graph, handle, pred.data_ptr(), kind, route,
                                 ctypes.byref(n)),
            "capturing a conditional node's body")
     record["nodes"] = n.value
 
 
 @contextlib.contextmanager
-def if_body(pred: torch.Tensor, pool, stream: torch.cuda.Stream) -> Iterator[List[int]]:
+def if_body(pred: torch.Tensor, pool, stream: torch.cuda.Stream,
+            route: int = CHILD) -> Iterator[List[int]]:
     """Inside a graph capture on the current stream: capture the block's
-    work, on `stream` (made current), as the body of an IF node on `pred`.
-    The list it yields gets the body's node count at the end."""
+    work, on `stream` (made current), as the body of an IF node on `pred`,
+    by `route`. The list it yields gets the body's node count at the end."""
     nodes: List[int] = []
-    with _cond_body(_IF, pred, pool, stream) as record:
+    with _cond_body(_IF, pred, pool, stream, route) as record:
         yield nodes
     nodes.append(record["nodes"])
 
 
 @contextlib.contextmanager
-def while_body(pred: torch.Tensor, pool, stream: torch.cuda.Stream) -> Iterator[List[int]]:
+def while_body(pred: torch.Tensor, pool, stream: torch.cuda.Stream,
+               route: int = CHILD) -> Iterator[List[int]]:
     """Inside a graph capture on the current stream: capture the block's
-    work, on `stream` (made current), as the body of a WHILE node on `pred`:
+    work, on `stream` (made current), by `route`, as the body of a WHILE
+    node on `pred`:
     the body runs where `pred` holds when the node is reached, and again
     for as long as the block leaves `pred` (the same tensor) true, which
     a flag kernel placed after the block's work reads. The list it yields
     gets the body's node count at the end, that kernel included."""
     global LAUNCHES
     nodes: List[int] = []
-    with _cond_body(_WHILE, pred, pool, stream) as record:
+    with _cond_body(_WHILE, pred, pool, stream, route) as record:
         yield nodes
         LAUNCHES += 1  # the flag kernel after the body's work
     nodes.append(record["nodes"])
 
 
+@contextlib.contextmanager
+def alone(pool, stream: torch.cuda.Stream) -> Iterator[None]:
+    """Outside any other capture: capture the block's work on `stream`
+    (made current) as a graph of its own, its allocations routed to `pool`
+    (`body_pool`), and discard the graph, instantiating nothing: a trial of
+    a conditional body. A capture that fails (a synchronizing call or a raw
+    cudaMalloc inside it, which PyTorch's sync check does not see) raises,
+    its capture ended; it fails alone, as no other capture is open."""
+    begin, end = _routing()
+    lib = _build.load(LIBRARY)
+    index = _index(stream.device)
+    _check(lib.tempest_capture_begin(stream.cuda_stream), "beginning a body's capture alone")
+    try:
+        with torch.cuda.stream(stream):
+            begin(index, pool)
+            try:
+                yield
+            finally:
+                end(index, pool)
+                torch._C._cuda_releasePool(index, pool)
+    except BaseException:
+        lib.tempest_capture_abort(stream.cuda_stream, 1)
+        raise
+    _check(lib.tempest_capture_discard(stream.cuda_stream), "capturing a body alone")
+
+
 def abort_capture(graph: torch.cuda.CUDAGraph, stream: torch.cuda.Stream,
-                  body_stream: Optional[torch.cuda.Stream] = None) -> None:
+                  body_streams: Sequence[torch.cuda.Stream] = ()) -> None:
     """Abandon the capture `graph` began on `stream` after a failure (a
-    conditional body's, or any other): end the captures of `body_stream` and
-    `stream` whatever their states and destroy what comes back, instantiate
-    nothing, end PyTorch's routing of `stream`'s allocations to the graph's
-    memory pool and drop the capture's use of that pool. PyTorch's
+    conditional body's, or any other): end the captures of `body_streams`
+    (by depth, the deepest ended first; a failed body has ended its own
+    already) and of `stream` whatever their states, destroy the graph
+    `stream` gives back, instantiate nothing, end PyTorch's routing of
+    `stream`'s allocations to the graph's memory pool and drop the
+    capture's use of that pool. PyTorch's
     `capture_end` is not called, so dropping `graph` ends nothing twice. The
     registered generators stay in capture mode: the caller takes them out
     (`loops.Loops._repair_generators`)."""
-    _check(_build.load(LIBRARY).tempest_capture_abort(
-        None if body_stream is None else body_stream.cuda_stream, stream.cuda_stream),
-        "aborting a CUDA-graph capture")
+    lib = _build.load(LIBRARY)
+    for body in reversed(list(body_streams)):  # a body's graph is its node's
+        _check(lib.tempest_capture_abort(body.cuda_stream, 0), "aborting a body's capture")
+    _check(lib.tempest_capture_abort(stream.cuda_stream, 1), "aborting a CUDA-graph capture")
     _, end = _routing()
     index = _index(stream.device)
     try:

@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -281,7 +281,9 @@ class PhiloxCounter:
     stream, times the 0-d `active` flag where one is given. `seek` and
     `set_key` write the words outside any capture. `issued` counts the draw
     calls made through this object (a host count: a captured body that
-    draws shows in it).
+    draws shows in it). `guards` holds the 0-d bools of the conditional
+    bodies being warmed up around a draw (`loops.Loops.when`): `advance`
+    counts the calls times each, so a body that would not run draws nothing.
     """
 
     def __init__(self, key: Key, device, counter: int = 0):
@@ -292,6 +294,7 @@ class PhiloxCounter:
         self._index = self.state.device.index if self._cuda else -1
         self._state_ptr = self.state.data_ptr() if self._cuda else None
         self.issued = 0
+        self.guards: List[torch.Tensor] = []
         self.set_key(key)
         self.seek(counter)
 
@@ -313,9 +316,12 @@ class PhiloxCounter:
 
     def advance(self, calls: int, active: Optional[torch.Tensor] = None) -> None:
         """Count `calls` more call indices as used, times `active` (a 0-d
-        bool) where given, on the device word."""
-        if calls:
-            self._word.add_(calls if active is None else active.to(torch.int64) * calls)
+        bool) where given and times each of `guards`, on the device word."""
+        if not calls:
+            return
+        for guard in self.guards:
+            active = guard if active is None else active & guard
+        self._word.add_(calls if active is None else active.to(torch.int64) * calls)
 
     def _first(self, offset: int, calls: int, what: str) -> int:
         """The first call index of a draw by the plain versions (on the

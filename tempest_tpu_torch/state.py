@@ -6,9 +6,17 @@ the tests compare like with like: `u`/`x` are (d, T_max, N) and
 computation.
 
 Unlike the immutable JAX pytrees, `History` is updated in place: `commit`
-writes iteration slot `t` with `index_copy_`-style slice assignment and
-advances the Python integer `t`. Nothing else holds a reference to the
-buffers, so no caller sees a half-written history.
+writes iteration slot `t` through a device index (`index_copy_`) and adds
+one to `t`, a 0-d int64 on the history's device, as JAX's donated buffers
+alias the slot it writes (state.py:261-321). No function here reads `t` on
+the host: every mask, slot and count is formed from the device word (JAX's
+row masks over the whole capacity and dynamic index at `t`), so the same
+code runs inside a CUDA-graph loop body that the host never stops.
+`t_host` is the host's mirror of `t` where the host knows it (an eager
+commit advances both; None after a device loop until the caller reads the
+word), for the host's branches: growing the capacity, the first iteration.
+Nothing else holds a reference to the buffers, so no caller sees a
+half-written history.
 
 Under a particle mesh each rank holds its block of the particle axis
 (parallel/mesh.py), so `n_particles` is the block's width. `commit` and the
@@ -19,7 +27,6 @@ over samples take the mesh's `group` and count the global N.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -49,8 +56,22 @@ class History:
     efficiency: torch.Tensor  # (T_max,)
     steps: torch.Tensor  # (T_max,) int32
     calls: torch.Tensor  # (T_max,) int32 cumulative likelihood-call sweeps
-    t: int  # number of committed iterations
+    t: torch.Tensor  # () int64 on the device: the committed iterations
     blobs: Optional[torch.Tensor] = None  # (B, T_max, N) blob rows, or None
+    t_host: Optional[int] = None  # the host's mirror of t, None where unknown
+
+    def __post_init__(self):
+        # A Python int t (a new or loaded history) becomes the device word
+        # and its mirror; a tensor is kept, its mirror as given.
+        if not isinstance(self.t, torch.Tensor):
+            self.t_host = int(self.t)
+            self.t = torch.full((), self.t_host, dtype=torch.int64, device=self.logl.device)
+
+    def count(self) -> int:
+        """The committed iterations on the host: the mirror, else one read."""
+        if self.t_host is None:
+            self.t_host = int(self.t)
+        return self.t_host
 
     @property
     def capacity(self) -> int:
@@ -78,7 +99,8 @@ class Current:
     """Active particle set and per-iteration scalars (state.py:212-229).
 
     The float scalars are 0-d tensors on the device, so the loop reads them
-    on the host only where it branches; `iteration` is a Python integer,
+    on the host only where it branches; `iteration` is a Python integer
+    (a 0-d int64 on the device inside the device run loop, `fused.py`),
     `steps` and `calls` Python integers or, after an MCMC mutation, 0-d
     int32 tensors on the device (its step count is never read on the
     host: `int()` them where they are reported).
@@ -96,7 +118,7 @@ class Current:
     efficiency: torch.Tensor
     steps: Union[int, torch.Tensor]
     calls: Union[int, torch.Tensor]  # cumulative likelihood-call sweeps (see History.calls)
-    iteration: int
+    iteration: Union[int, torch.Tensor]
     blobs: Optional[torch.Tensor] = None  # (N, B) blob rows, or None
 
 
@@ -170,7 +192,8 @@ def make_current(
 
 
 def grow_history(hist: History, new_capacity: int) -> History:
-    """Grow the capacity with contents preserved (state.py:182-209)."""
+    """Grow the capacity with contents preserved (state.py:182-209); `t`
+    stays a device word."""
     cap = hist.capacity
     if new_capacity <= cap:
         raise ValueError(f"new capacity {new_capacity} must exceed {cap}")
@@ -194,8 +217,9 @@ def grow_history(hist: History, new_capacity: int) -> History:
         efficiency=pad(hist.efficiency),
         steps=pad(hist.steps, 0),
         calls=pad(hist.calls, 0),
-        t=hist.t,
+        t=hist.t.clone(),
         blobs=None if hist.blobs is None else pad(hist.blobs, 0, dim=1),
+        t_host=hist.t_host,
     )
 
 
@@ -222,65 +246,79 @@ def _masked_term(beta, logl: torch.Tensor, logz) -> torch.Tensor:
     return torch.where(torch.isfinite(logl), term, torch.full_like(term, _NEG_INF))
 
 
+def _slot(value, like: torch.Tensor) -> torch.Tensor:
+    """`value` (a Python number or a 0-d tensor) as a (1,) tensor of
+    `like`'s dtype and device, made on the device (a fill: no host copy)."""
+    if isinstance(value, torch.Tensor):
+        return value.reshape(1).to(like.dtype)
+    return torch.full((1,), value, dtype=like.dtype, device=like.device)
+
+
 def commit(hist: History, cur: Current) -> History:
     """Append the current state as iteration slot `t`, in place
-    (state.py:261-321).
+    (state.py:261-321), on JAX's masked formulation: no host `t` in any
+    shape, slice or index.
 
-    Also maintains the MIS accumulator: each committed row gains one
-    logaddexp with the new (beta_T, logZ_T) term — O(S) — and the new row
-    is a logsumexp over all T+1 committed temperatures — O(N*T). The
-    caller must ensure capacity > t.
+    Also maintains the MIS accumulator (`_mis_c_after_commit`, :261-294):
+    each committed row (the rows below `t`) gains one logaddexp with the new
+    (beta_T, logZ_T) term, O(S), and row `t` becomes a logsumexp over the
+    temperatures of slots 0..t, O(N T_max). Every slot is written through
+    the device index `t`. The caller must ensure capacity > t (checked
+    where the host mirror knows `t`).
     """
-    t = hist.t
-    if t >= hist.capacity:
+    if hist.t_host is not None and hist.t_host >= hist.capacity:
         raise ValueError(f"history is full (capacity {hist.capacity}); grow it first")
-    beta_T = cur.beta.to(hist.logl.dtype)
-    logz_T = cur.logz.to(hist.logl.dtype)
+    dtype, dev = hist.logl.dtype, hist.logl.device
+    idx = hist.t.reshape(1)
+    beta_T = cur.beta.to(dtype)
+    logz_T = cur.logz.to(dtype)
+    rows = torch.arange(hist.capacity, device=dev)
 
-    # Rows of the committed iterations (slots < t) — rows >= t stay -inf.
-    hist.mis_c[:t] = torch.logaddexp(hist.mis_c[:t], _masked_term(beta_T, hist.logl[:t], logz_T))
+    # Rows of the committed iterations (slots < t); rows >= t stay -inf.
+    term = _masked_term(beta_T, hist.logl, logz_T)
+    hist.mis_c.copy_(torch.where((rows < hist.t)[:, None], torch.logaddexp(hist.mis_c, term),
+                                 hist.mis_c))
 
-    # The new iteration's row over all t' <= t.
-    hist.beta[t] = beta_T
-    hist.logz[t] = logz_T
-    vals = _masked_term(hist.beta[: t + 1, None], cur.logl[None, :], hist.logz[: t + 1, None])
-    hist.mis_c[t] = logsumexp(vals, dim=0)
+    # The new iteration's row over the slots t' <= t.
+    hist.beta.index_copy_(0, idx, beta_T.reshape(1))
+    hist.logz.index_copy_(0, idx, logz_T.reshape(1))
+    vals = _masked_term(hist.beta[:, None], cur.logl[None, :], hist.logz[:, None])
+    vals = torch.where((rows <= hist.t)[:, None], vals, torch.full_like(vals, _NEG_INF))
+    hist.mis_c.index_copy_(0, idx, logsumexp(vals, dim=0)[None])
 
-    hist.u[:, t] = cur.u.T
-    hist.x[:, t] = cur.x.T
-    hist.logl[t] = cur.logl
+    hist.u.index_copy_(1, idx, cur.u.T[:, None].to(dtype))
+    hist.x.index_copy_(1, idx, cur.x.T[:, None].to(dtype))
+    hist.logl.index_copy_(0, idx, cur.logl[None].to(dtype))
     if hist.blobs is not None:
-        hist.blobs[:, t] = cur.blobs.T
-    hist.ess[t] = cur.ess
-    hist.cv[t] = cur.cv
-    hist.acceptance[t] = cur.acceptance
-    hist.efficiency[t] = cur.efficiency
-    # Counters go in by fill: assigning a Python number copies from the host,
-    # and a 0-d device tensor fills on the device.
-    hist.steps[t:t + 1].fill_(cur.steps)
-    hist.calls[t:t + 1].fill_(cur.calls)
-    hist.t = t + 1
+        hist.blobs.index_copy_(1, idx, cur.blobs.T[:, None].to(hist.blobs.dtype))
+    for name in ("ess", "cv", "acceptance", "efficiency", "steps", "calls"):
+        field = getattr(hist, name)
+        field.index_copy_(0, idx, _slot(getattr(cur, name), field))
+    hist.t.add_(1)
+    if hist.t_host is not None:
+        hist.t_host += 1
     return hist
 
 
 # ---------------------------------------------------------------------------
 # The MIS / balance-heuristic weight computation.
 # ---------------------------------------------------------------------------
+def _log_t(hist: History) -> torch.Tensor:
+    """log(max(t, 1)) in the history's dtype, from the device word."""
+    return torch.log(torch.clamp(hist.t, min=1).to(hist.logl.dtype))
+
+
 def mis_denominator(hist: History) -> torch.Tensor:
     """B_s = mis_c_s - log(T), the beta-independent MIS denominator — O(S)
     (state.py:327-338). Shape (T_max, N)."""
-    return hist.mis_c - math.log(max(hist.t, 1))
+    return hist.mis_c - _log_t(hist)
 
 
 def mis_denominator_exact(hist: History) -> torch.Tensor:
     """Full-matrix O(S*T) denominator, the reference formulation
     (state.py:341-363); the ground truth in tests. Shape (T_max, N)."""
     it_mask = hist.iter_mask()
-    log_mix = torch.where(
-        it_mask,
-        torch.full_like(hist.beta, -math.log(max(hist.t, 1))),
-        torch.full_like(hist.beta, _NEG_INF),
-    )
+    log_mix = torch.where(it_mask, -_log_t(hist), torch.full_like(hist.beta, _NEG_INF))
     rows = []
     for logl_row in hist.logl:
         b = logl_row[:, None] * hist.beta[None, :] - hist.logz[None, :] + log_mix[None, :]
@@ -292,7 +330,7 @@ def mis_denominator_exact(hist: History) -> torch.Tensor:
 def rebuild_mis_c(hist: History) -> History:
     """Recompute the accumulator from scratch, in place (state.py:366-371):
     for checkpoints written before it existed."""
-    c = mis_denominator_exact(hist) + math.log(max(hist.t, 1))
+    c = mis_denominator_exact(hist) + _log_t(hist)
     hist.mis_c = torch.where(hist.iter_mask()[:, None], c, torch.full_like(c, _NEG_INF))
     return hist
 
@@ -305,7 +343,9 @@ def global_particles(hist: History, group=None) -> int:
 def masked_logw(hist: History, denom: torch.Tensor, beta_final) -> torch.Tensor:
     """Unnormalized log-weights beta_final * logl_s - B_s; non-finite logl
     and invalid slots get -inf, exactly zero weight."""
-    beta_final = torch.as_tensor(beta_final, dtype=hist.logl.dtype, device=hist.logl.device)
+    dtype, dev = hist.logl.dtype, hist.logl.device
+    beta_final = (beta_final.to(dtype) if isinstance(beta_final, torch.Tensor)
+                  else torch.full((), beta_final, dtype=dtype, device=dev))  # a fill: no copy
     keep = hist.sample_mask() & torch.isfinite(hist.logl)
     logw = beta_final * hist.logl - denom
     return torch.where(keep, logw, torch.full_like(logw, _NEG_INF))
@@ -321,10 +361,9 @@ def logw_from_denominator(
     """
     logw = masked_logw(hist, denom, beta_final)
     lse = logsumexp_psum(logw, group)
-    if hist.t > 0:
-        logz_new = lse - math.log(hist.t * global_particles(hist, group))
-    else:
-        logz_new = torch.full((), _NEG_INF, dtype=logw.dtype, device=logw.device)
+    n_total = (hist.t * global_particles(hist, group)).to(logw.dtype)
+    logz_new = torch.where(hist.t > 0, lse - torch.log(torch.clamp(n_total, min=1.0)),
+                           torch.full_like(lse, _NEG_INF))
     if normalize:
         logw = logw - lse
     return logw, logz_new
@@ -338,8 +377,9 @@ def bootstrap_logz_err(hist: History, uniforms: torch.Tensor, beta_final=1.0,
     With L_t = logsumexp_n(logw[t, :]), logZ = logsumexp_t(L_t) - log(N t);
     each of the n_bootstrap replicates draws t blocks with replacement and
     the error is the std of the replicate logZs. `uniforms` (n_bootstrap,
-    T_max) pick the blocks: index min(floor(u t), t - 1); slots j >= t are
-    masked out of each replicate. Under a mesh each L_t is reduced over the
+    T_max) pick the blocks: index min(floor(u t), t - 1), t at least 1 and
+    read from the device word; slots j >= t are masked out of each
+    replicate. Under a mesh each L_t is reduced over the
     ranks of `group` (a MAX and a SUM of T_max values), so the replicates
     are the same on every rank.
     """
@@ -350,12 +390,13 @@ def bootstrap_logz_err(hist: History, uniforms: torch.Tensor, beta_final=1.0,
         m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
         s = _psum(torch.exp(L - m_safe), group)
         L = torch.where(torch.isfinite(m), m_safe + torch.log(s), m)
-    t = max(hist.t, 1)
-    idx = torch.clamp((uniforms * t).to(torch.int32), max=t - 1)
+    t = torch.clamp(hist.t, min=1)
+    idx = torch.minimum((uniforms * t).to(torch.int32), t - 1)
     draws = L[idx.long()]  # (B, T_max)
     in_run = torch.arange(hist.capacity, device=L.device)[None, :] < t
     draws = torch.where(in_run, draws, torch.full_like(draws, _NEG_INF))
-    logz_b = logsumexp(draws, dim=1) - math.log(float(t * global_particles(hist, group)))
+    n_total = (t * global_particles(hist, group)).to(L.dtype)
+    logz_b = logsumexp(draws, dim=1) - torch.log(n_total)
     mean = torch.mean(logz_b)
     return torch.sqrt(torch.mean((logz_b - mean) ** 2))
 

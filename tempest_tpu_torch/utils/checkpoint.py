@@ -93,7 +93,7 @@ class Checkpoint:
 def _state_arrays(hist: History, cur: Current) -> Dict[str, np.ndarray]:
     """The state leaves under JAX's names (hist.<field>, cur.<field>)."""
     arrays = {f"hist.{k}": fetch(getattr(hist, k)) for k in HISTORY_FIELDS}
-    arrays["hist.t"] = np.asarray(hist.t, dtype=np.int32)
+    arrays["hist.t"] = np.asarray(hist.count(), dtype=np.int32)
     arrays.update({f"cur.{k}": fetch(getattr(cur, k)) for k in CURRENT_FIELDS})
     arrays.update({f"cur.{k}": np.asarray(int(getattr(cur, k)), dtype=np.int32)
                    for k in CURRENT_COUNTERS})
@@ -111,7 +111,7 @@ def _run_arrays(draw_state: Dict[str, np.ndarray], rng_key, model) -> Dict[str, 
     if model is not None:
         arrays.update({f"model.{k}": fetch(getattr(model, k)) for k in CLUSTER_FIELDS})
         arrays["model.normalize"] = np.asarray(model.normalize)
-        arrays["model.fitted"] = np.asarray(model.fitted)
+        arrays["model.fitted"] = np.asarray(bool(model.fitted))
     return arrays
 
 

@@ -6,7 +6,11 @@ writes a Chrome trace into `log_dir` (open it in Perfetto or
 chrome://tracing); `annotate(name)` labels a region, so it shows up as a
 named range in a trace and as its own row of `key_averages()`; the
 iteration's `ps/*` stage ranges are made with it. Without a profiler
-running, a range costs a few microseconds.
+running, a range costs a few microseconds. A range is a host event: inside
+a CUDA graph it is recorded when the graph is captured, not when it is
+replayed, so a profile of the device run loop (`fused.make_fused_run`)
+shows one replay and its kernels by name, and the loops' body runs are
+counted from device words (`loops.Loops.stats[name]["node_bodies"]`).
 """
 
 from __future__ import annotations

@@ -33,9 +33,16 @@ class ProgressBar:
         if self.progress_bar is not None:
             self.progress_bar.set_postfix(ordered_dict=self.info)
 
-    def update_iter(self) -> None:
+    @property
+    def count(self) -> int:
+        """The iterations the bar shows."""
+        return 0 if self.progress_bar is None else int(self.progress_bar.n)
+
+    def update_iter(self, n: int = 1) -> None:
+        """Move the bar `n` iterations on (one dispatch of the device run
+        loop moves it by all the iterations the dispatch ran)."""
         if self.progress_bar is not None:
-            self.progress_bar.update(1)
+            self.progress_bar.update(n)
 
     def close(self) -> None:
         if self.progress_bar is not None:

@@ -119,6 +119,9 @@ def test_hardware_prng_gaussian_run(route, monkeypatch):
     assert s.beta == 1.0
     assert abs(s.evidence()[0] - ANALYTIC_LOGZ) < 0.5
     res = s.results()
-    steps = int(res["steps"][res["beta"] > 0].sum())  # the MCMC steps; beta = 0 is warm-up
+    mutations = res["beta"] > 0  # beta = 0 is warm-up
+    steps = int(res["steps"][mutations].sum())  # the MCMC steps
     per_step = 1 if route == "fused" else philox.GAMMA_CALLS + 2
-    assert s.state.draws.counter == per_step * steps
+    # and the keyed warm-up (2 calls) and resampling (1 call) draws
+    assert s.state.draws.counter == per_step * steps + 2 * int((~mutations).sum()) + int(
+        mutations.sum())

@@ -817,9 +817,10 @@ def test_run_on_device_repeats_on_device_false(cuda_device, extra):
         s = Sampler(lambda u: 20.0 * u - 10.0, loglike, n_dim=4, n_particles=256,
                     vectorize=True, k_max=4, random_state=2, history_capacity=32,
                     device=cuda_device, **extra)
-        before = cuda_reweight.LAUNCHES + cuda_reweight.LAUNCHES_F64
+        before = launch_counts()  # settled: a replay's node bodies counted
         s.run(n_total=1024, progress=False, on_device=on_device)
-        launches.append(cuda_reweight.LAUNCHES + cuda_reweight.LAUNCHES_F64 - before)
+        after = launch_counts()
+        launches.append(sum(after[k] - before[k] for k in ("ess_bisect", "ess_bisect_f64")))
         runs.append(s)
     (off, on), (r_off, r_on) = runs, (runs[0].results(), runs[1].results())
     for name in ("beta", "logz", "steps", "calls"):
@@ -828,14 +829,19 @@ def test_run_on_device_repeats_on_device_false(cuda_device, extra):
     assert r_on["steps"].max() > 4  # past the first chunk (n_steps d = 4 steps)
     assert (on.state.draws.get_state()["generator"].tobytes()
             == off.state.draws.get_state()["generator"].tobytes())
-    stats = on.state._iteration.loops.stats
-    assert stats["mcmc"]["replays"] > 0 and off.state._iteration.loops.stats["mcmc"]["replays"] == 0
+    stats, off_stats = on.state._iteration.loops.stats, off.state._iteration.loops.stats
+    # float32 takes the device run loop (one replay a dispatch), float64 the
+    # per-iteration route (its MCMC chunks replayed)
+    route = "run" if on.state.run_route else "mcmc"
+    assert stats[route]["replays"] > 0 and off_stats["run"]["replays"] == 0
+    assert off_stats["mcmc"]["replays"] == 0
 
 
 @pytest.mark.cuda
 def test_per_point_likelihood_with_blobs_captures(cuda_device):
     """The reference's default call form, a per-point function mapped by
-    torch.func.vmap, with blobs: its MCMC steps replay as graphs too."""
+    torch.func.vmap, with blobs: the device run loop, its MCMC steps
+    inside, replays as a graph too."""
     def loglike(x):
         return -0.5 * torch.sum(x * x), torch.sum(x * x)
 
@@ -846,7 +852,7 @@ def test_per_point_likelihood_with_blobs_captures(cuda_device):
         s.run(n_total=1024, progress=False, on_device=on_device)
         runs.append(s)
     assert runs[0].results()["logz"].tobytes() == runs[1].results()["logz"].tobytes()
-    assert runs[1].state._iteration.loops.stats["mcmc"]["replays"] > 0
+    assert runs[1].state._iteration.loops.stats["run"]["replays"] > 0
     _, _, _, r2 = runs[1].posterior(return_blobs=True)
     x = runs[1].posterior()[0]
     assert torch.allclose(torch.as_tensor(r2).reshape(-1), torch.as_tensor(x * x).sum(1),
@@ -986,7 +992,7 @@ def test_hardware_prng_run_on_device_repeats_on_device_false(cuda_device, route,
     assert all(s_on[k].tobytes() == s_off[k].tobytes() for k in s_off)
     assert on.state.draws.calls.read() == (off.state.draws.counter, off.state.draws.key)
     stats = on.state._iteration.loops.stats
-    assert stats["mcmc"]["replays"] > 0 and r_on["steps"].max() > 4
+    assert stats["run"]["replays"] > 0 and r_on["steps"].max() > 4
 
 
 _HOST_READ_RUN = textwrap.dedent("""
@@ -1021,7 +1027,7 @@ def test_capture_of_a_host_read_raises(cuda_device):
                           cwd=Path(__file__).resolve().parents[1])
     assert "EAGER_OK 1.0" in proc.stdout, proc.stdout + proc.stderr[-3000:]
     assert "CAPTURE_ERROR" in proc.stdout, proc.stdout + proc.stderr[-3000:]
-    assert "'mcmc' loop" in proc.stdout and "on_device=False" in proc.stdout, proc.stdout
+    assert "'run' loop" in proc.stdout and "on_device=False" in proc.stdout, proc.stdout
 
 
 _REFUSED_NODE_RUN = textwrap.dedent("""
@@ -1032,7 +1038,7 @@ _REFUSED_NODE_RUN = textwrap.dedent("""
     from tempest_tpu_torch.ops import cuda_graphs
 
     @contextlib.contextmanager
-    def refused(pred, pool, stream):
+    def refused(pred, pool, stream, route=0):
         raise RuntimeError("conditional node refused by the test")
         yield
 
@@ -1058,7 +1064,7 @@ _REFUSED_WHILE_RUN = textwrap.dedent("""
     from tempest_tpu_torch.ops import cuda_graphs
 
     @contextlib.contextmanager
-    def refused(pred, pool, stream):
+    def refused(pred, pool, stream, route=0):
         raise RuntimeError("WHILE node refused by the test")
         yield
 
@@ -1079,40 +1085,49 @@ _REFUSED_WHILE_RUN = textwrap.dedent("""
 @pytest.mark.cuda
 def test_refused_while_node_raises(cuda_device):
     """No fallback: a WHILE node that cannot be made fails the capture of
-    the MCMC chain with CaptureError naming the cause, and the run neither
-    reads a chunk of steps nor goes back to the generator instead."""
+    the device run loop (the MCMC chain's node nests in it) with
+    CaptureError naming the cause, and the run neither reads a chunk of
+    steps nor goes back to the generator instead."""
     proc = subprocess.run([sys.executable, "-X", "faulthandler", "-c", _REFUSED_WHILE_RUN],
                           capture_output=True, text=True, timeout=300,
                           cwd=Path(__file__).resolve().parents[1])
     out = proc.stdout + proc.stderr[-3000:]
-    assert "CAPTURE_ERROR" in proc.stdout and "'mcmc'" in proc.stdout, out
+    assert "CAPTURE_ERROR" in proc.stdout and "'run'" in proc.stdout, out
     assert "refused by the test" in proc.stdout and "MCMC_READS 0" in proc.stdout, out
 
 
 @pytest.mark.cuda
 def test_refused_conditional_node_raises(cuda_device):
     """No fallback: a conditional node that cannot be made fails the capture
-    of the cluster fit with CaptureError naming the cause, and the run
-    reads no split round instead."""
+    of the device run loop (the cluster fit's nodes nest in it) with
+    CaptureError naming the cause, and the run reads no split round
+    instead."""
     proc = subprocess.run([sys.executable, "-c", _REFUSED_NODE_RUN], capture_output=True,
                           text=True, timeout=300, cwd=Path(__file__).resolve().parents[1])
     out = proc.stdout + proc.stderr[-3000:]
-    assert "CAPTURE_ERROR" in proc.stdout and "'hgm_fit'" in proc.stdout, out
+    assert "CAPTURE_ERROR" in proc.stdout and "'run'" in proc.stdout, out
     assert "refused by the test" in proc.stdout and "SPLIT_READS 0" in proc.stdout, out
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,loop", [("while", "mcmc"), ("if", "probe_if")])
-def test_body_syncing_past_the_check_raises_and_the_process_lives(cuda_device, kind, loop):
-    """A conditional body (the MCMC chain's WHILE body through its
-    likelihood; an IF body of a stretch) that calls cudaStreamSynchronize
-    past PyTorch's sync check fails its capture with CaptureError naming the
-    loop and on_device=False, in a child that exits 0, not by a signal; the
-    child then captures and replays a clean clustered run (IF and WHILE
-    nodes) bit for bit with its eager run (scripts/capture_abort.py)."""
+@pytest.mark.parametrize("kind,fault,loop", [
+    ("while", "sync", "run"), ("while", "malloc", "run"), ("while", "devsync", "run"),
+    ("if", "sync", "probe_if"), ("if", "malloc", "probe_if"),
+    ("nested", "sync", "probe_nested"), ("nested", "malloc", "probe_nested"),
+    ("nested", "devsync", "probe_nested")])
+def test_body_syncing_past_the_check_raises_and_the_process_lives(cuda_device, kind, fault,
+                                                                   loop):
+    """A conditional body (the device run loop's bodies through its
+    likelihood; an IF body of a stretch; an IF body inside an IF body inside
+    a WHILE body) that calls cudaStreamSynchronize, a raw cudaMalloc or
+    cudaDeviceSynchronize past PyTorch's sync check fails its capture with
+    CaptureError naming the loop and on_device=False, in a child that exits
+    0, not by a signal; the child then captures and replays a clean
+    clustered run (IF and WHILE nodes) bit for bit with its eager run
+    (scripts/capture_abort.py)."""
     root = Path(__file__).resolve().parents[1]
     proc = subprocess.run([sys.executable, "-X", "faulthandler",
-                           str(root / "scripts" / "capture_abort.py"), kind],
+                           str(root / "scripts" / "capture_abort.py"), kind, fault],
                           capture_output=True, text=True, timeout=600, cwd=root)
     out = proc.stdout + proc.stderr[-3000:]
     assert proc.returncode == 0, out
@@ -1993,3 +2008,63 @@ def test_em_plans_fill_the_card(cuda_device):
         assert p["points_resident"] and p["x_resident"] and p["scratch"] == 0, args
     p = cuda_em.plan(cuda_em.GMM_LIBRARY, 16, 2048, 10, 2, 0, 8)
     assert p["points_resident"] and p["x_resident"] and p["scratch"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The device run loop (fused.make_fused_run) and nested conditional nodes
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(cs.NESTED_SHAPES))
+def test_nested_conditional_nodes(cuda_device, shape):
+    """WHILE > IF > IF > IF and WHILE > IF > WHILE through `Loops` as one
+    replay (chip_smoke's phase 4h): every body runs as often as the host's
+    loop runs it, each node's flag kernel once a run of its parent."""
+    want, flags = cs.NESTED_SHAPES[shape]
+    eager = cs.nested_probe(cuda_device, shape, False)
+    graphed = cs.nested_probe(cuda_device, shape, True)
+    assert eager["words"] == graphed["words"] == want
+    assert graphed["set_conditional"] == flags and graphed["stats"]["nested"]["replays"] == 1
+    assert graphed["depth"] == (4 if shape == "while>if>if>if" else 3)
+    assert graphed["stats"]["outer"]["node_bodies"] == want[0]
+
+
+@pytest.mark.cuda
+def test_run_loop_on_a_small_a_is_one_replay_and_one_read(cuda_device):
+    """A small A (paired 4-D Rosenbrock, clustered, k_max = 4): run(on_device
+    =True) on the run loop's captured graph is one replay and one read (t)
+    a dispatch, no other read, bit for bit with on_device=False; the run
+    loop's WHILE node runs a body an iteration after the first, the MCMC
+    chain's a body a step."""
+    def loglike(x):
+        return -torch.sum(100.0 * (x[..., 1::2] - x[..., ::2] ** 2) ** 2
+                          + (1.0 - x[..., ::2]) ** 2, dim=-1)
+
+    def sampler():
+        return Sampler(lambda u: 20.0 * u - 10.0, loglike, n_dim=4, n_particles=256,
+                       vectorize=True, k_max=4, random_state=3, history_capacity=32,
+                       device=cuda_device)
+
+    off = sampler()
+    off.run(n_total=1024, progress=False, on_device=False)
+    on = sampler()
+    assert on.state.run_route
+    on.run(n_total=1024, progress=False, on_device=True)  # captures the run loop
+    on.reset(random_state=3)
+    loops = on.state._iteration.loops
+    launch_counts()
+    before = {k: dict(v) for k, v in loops.stats.items()}
+    on.run(n_total=1024, progress=False, on_device=True)
+    launch_counts()
+    delta = {k: {c: n - before.get(k, {}).get(c, 0) for c, n in v.items()}
+             for k, v in loops.stats.items()}
+    r_off, r_on = off.results(), on.results()
+    for name in ("beta", "logz", "steps", "calls", "logl"):
+        assert r_on[name].tobytes() == r_off[name].tobytes(), name
+    assert on.evidence()[0] == off.evidence()[0] and on.beta == 1.0
+    assert delta["run"]["replays"] == 1 and delta["run"]["reads"] == 1
+    assert not any(v.get("reads", 0) for k, v in delta.items() if k != "run"), delta
+    assert not any(v.get("captures", 0) for v in delta.values()), delta
+    iters = int(on.state.hist.t)
+    assert delta["run"]["node_bodies"] == iters - 1
+    assert delta["mcmc"]["node_bodies"] == int(r_on["steps"][r_on["beta"] > 0].sum())
+    assert on.state.draws.calls.read() == (off.state.draws.counter, off.state.draws.key)

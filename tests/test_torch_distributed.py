@@ -130,7 +130,7 @@ def _w_sampler(mesh, rank, world, workdir, cases):
                 core.fused_route = route
             s.run(n_total=512, progress=False)
             res = s.results()
-            rows.append({"fused": s.state.fused, "logz": s.logz, "t": s.state.hist.t,
+            rows.append({"fused": s.state.fused, "logz": s.logz, "t": s.state.hist.count(),
                          **{f"{k}_bits": res[k].tobytes().hex() for k in ("beta", "logz", "steps")},
                          "reads": dict(s.state._iteration.loops.stats["ess_sharded"])})
         report({"case": "fused", "runs": rows})
@@ -184,11 +184,11 @@ def _w_anneal(mesh, rank, world, workdir):
     s3 = _build(mesh, 123)
     s3.load_state(workdir / "jax.state")
     _gathered(s3, workdir / "jax_loaded.npz", rank)
-    loaded_t = s3.state.hist.t
+    loaded_t = s3.state.hist.count()
     s3.run(n_total=512, progress=False)
-    report({"logz": round(s.logz, 10), "t": s.state.hist.t, "beta": s.beta,
+    report({"logz": round(s.logz, 10), "t": s.state.hist.count(), "beta": s.beta,
             "shard_shape": list(shard.shape), "global_shape": [D, 64, 256],
-            "is_dir": ckpt.is_dir(), "loaded_t": s2.state.hist.t, "loaded_logz": s2.logz,
+            "is_dir": ckpt.is_dir(), "loaded_t": s2.state.hist.count(), "loaded_logz": s2.logz,
             "loaded_local_n": s2.state.hist.u.shape[2],
             "mean0": float(np.average(x[:, 0], weights=w)),
             "jax_loaded_t": loaded_t, "jax_run_beta": s3.beta, "jax_run_logz": s3.logz})
@@ -230,7 +230,7 @@ def _w_drill(mesh, rank, world, workdir, mode):
     s = _drill_sampler(mesh, 123 if mode == "resume" else 7)  # state from the file
     s.run(n_total=512, progress=False, resume_state_path=ckpt if mode == "resume" else None)
     x, w, _ = s.posterior()
-    report({"beta": s.beta, "logz": round(s.logz, 10), "t": s.state.hist.t,
+    report({"beta": s.beta, "logz": round(s.logz, 10), "t": s.state.hist.count(),
             "mean0": float(np.average(x[:, 0], weights=w))})
 
 

@@ -56,7 +56,7 @@ from tempest_tpu_torch import modes as tm
 from tempest_tpu_torch.cluster import single_cluster_model
 from tempest_tpu_torch.config import SamplerConfig
 from tempest_tpu_torch.draws import Draws, HardwareDraws
-from tempest_tpu_torch.fused import CHUNKS, fused_route, make_fused_iteration
+from tempest_tpu_torch.fused import CHUNKS, fused_route, make_fused_iteration, run_route
 from tempest_tpu_torch.loops import Loops
 from tempest_tpu_torch.mcmc import MCMCKernel
 from tempest_tpu_torch.steps.reweight import reweight
@@ -299,6 +299,11 @@ def test_fused_route_by_configuration(extra, fused, request):
     s = Sampler(_prior, _bimodal_t, n_dim=D, n_particles=N, vectorize=True, device="cpu",
                 **extra)
     assert s.state.fused == fused
+    # run(on_device=True) takes the device run loop on one device in ESS
+    # mode and float32; the rest keep the per-iteration route
+    runs = (fused and "mesh" not in extra and "volume_variation" not in extra
+            and extra.get("dtype", torch.float32) == torch.float32)
+    assert run_route(cfg) == s.state.run_route == runs
 
 
 @pytest.fixture(scope="module")
@@ -565,8 +570,11 @@ def test_hardware_prng_fused_run_equals_eager_iteration(route, monkeypatch):
         assert r_f[name].tobytes() == r_e[name].tobytes(), name
     assert fused.evidence()[0] == eager.evidence()[0] and fused.beta == 1.0
     calls = {"mutation": 1, "large": 15}[route]
+    # Every MCMC step's calls, and the keyed warm-up (2 calls) and
+    # resampling (1 call) draws of each iteration.
+    mutations = r_f["beta"] > 0
     assert fused.state.draws.counter == eager.state.draws.counter == calls * int(
-        r_f["steps"][r_f["beta"] > 0].sum())
+        r_f["steps"][mutations].sum()) + 2 * int((~mutations).sum()) + int(mutations.sum())
     s_f, s_e = fused.state.draws.get_state(), eager.state.draws.get_state()
     assert all(np.array_equal(s_f[k], s_e[k]) for k in s_e) and set(s_f) == set(s_e)
     assert fused.state.draws.calls.read() == (fused.state.draws.counter, fused.state.draws.key)

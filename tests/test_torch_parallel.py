@@ -113,7 +113,8 @@ def _exact_fit_points(world) -> int:
 
 def _run_row(s) -> dict:
     h = s.state.hist
-    return {"logz": s.logz, "beta": s.beta, "t": h.t, "betas": h.beta[:h.t].tolist(),
+    t = h.count()
+    return {"logz": s.logz, "beta": s.beta, "t": t, "betas": h.beta[:t].tolist(),
             "local_n": h.u.shape[2], "local_logl": h.logl.shape[1],
             "local_cur": s.state.cur.u.shape[0], "capacity": h.capacity}
 
@@ -250,7 +251,8 @@ def _global_history(data, blobs=True):
     hist.u, hist.x, hist.logl = _t(data["u"]), _t(data["x"]), _t(data["logl"])
     if blobs:
         hist.blobs = _t(data["blobs"])
-    hist.t = T_FILL
+    hist.t.fill_(T_FILL)
+    hist.t_host = T_FILL
     return hist
 
 
@@ -341,7 +343,7 @@ def _w_iteration(mesh, rank, world, workdir):
     out = {"u": fetch(tc.u, group, 0), "logl": fetch(tc.logl, group, 0),
            "assignments": fetch(tc.assignments, group, 0), "mis_c": fetch(th.mis_c, group, 1),
            "local_n": tc.u.shape[0], "beta": float(tc.beta), "logz": float(tc.logz),
-           "steps": tc.steps, "calls": tc.calls, "iter": tc.iteration, "t": th.t,
+           "steps": tc.steps, "calls": tc.calls, "iter": tc.iteration, "t": th.count(),
            "acceptance": float(tc.acceptance), "replayed": replay.step,
            "gamma_diff": replay.gamma_diff}
     out.update({f"m.{k}": getattr(model, k).numpy()
