@@ -133,8 +133,9 @@ lines and a failure exits non-zero:
     sync check (scripts/capture_abort.py, in a process of its own; a stream
     sync, and for the nested bodies also a raw cudaMalloc and
     cudaDeviceSynchronize): the device run loop's bodies through its
-    likelihood, an IF body and an IF body inside an IF body inside a WHILE
-    body each fail their capture with
+    likelihood, an IF body, an IF body inside an IF body inside a WHILE
+    body and dynamic mode's CV bisection body (a WHILE body in the CV
+    step's IF body in the run loop's WHILE body) each fail their capture with
     CaptureError naming the loop and on_device=False, the process exits 0
     (not by a signal) after a clean clustered run graphed bit for bit with
     its eager run;
@@ -145,6 +146,10 @@ lines and a failure exits non-zero:
     each body counting its runs: one replay runs every body as often as
     the host's loop, each node's flag kernel once a run of its parent; the
     graph's nodes, depth and capture seconds;
+ 4i. NCCL collectives inside conditional bodies (scripts/capture_probe.py
+    --nccl, each case in a process of its own): an all-reduce over a
+    one-rank NCCL group in a WHILE body, an IF body, WHILE > IF, IF > WHILE
+    and WHILE > IF > WHILE, graphed bit for bit with the host's loop;
  5. the canonical problem unclustered (paired 10-D Rosenbrock, U(-10, 10)
     prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42,
     with `run(on_device=True)`: the device run loop, one graph replay;
@@ -216,12 +221,17 @@ lines and a failure exits non-zero:
     10-D Rosenbrock, n_particles=1024, n_total=8192, history_capacity=192,
     unclustered, volume_variation=1.0), seed 42, on the fused route with
     run(on_device=False) and with run(on_device=True) on a sampler whose
-    seed-43 run captured the graphs of its CV bisection and MCMC steps:
-    bit for bit, logZ inside the anchor taken from the JAX package, one
-    launch of the ESS kernel's bracket mode a reweight (no "ess_bracket"
-    loop body on the card), no ESS-mode launch; walls, probes and loop
-    reads per reweight; then iterations 21-23 in each mode under the
-    profiler, held to 6b's rule;
+    seed-43 run captured the graph of its device run loop (its CV step an
+    IF node holding the CV bisection's WHILE node; nodes and depth
+    printed): bit for bit, logZ inside the anchor taken from the JAX
+    package, the probes equal, one launch of the ESS kernel's bracket mode
+    a reweight (no "ess_bracket" loop body on the card), no ESS-mode
+    launch; one replay and one read a run; walls, probes and loop reads
+    per reweight; then iterations 21-23 on the per-iteration route in each
+    mode under the profiler, held to 6b's rule, and a whole run on the run
+    loop (`run_window`); then a 2-D narrow Gaussian at volume_variation=0.03
+    whose CV steps reach the bisection, on the run loop bit for bit with
+    on_device=False, CV-bisection WHILE bodies run;
 13. the refit cadence, C with cluster_every=3 (on_device=False and True,
     bit for bit, as C), and a host likelihood: the 10-D Gaussian as a
     numpy per-point function with host_likelihood=True;
@@ -249,10 +259,12 @@ lines and a failure exits non-zero:
     6's seed 42; a mesh sampler resumed from the iteration-20 file runs the
     two iterations after it as the run that went on did; `posterior()` and
     `evidence(n_bootstrap=256)` through the gathers; A under the mesh with
-    run(on_device=True) on a sampler whose seed-43 run captured the graphs
-    (the sharded ESS bisection and the MCMC steps with their NCCL
-    collectives inside): bit for bit with the save_every run, and its
-    steady windows in each mode held to 6b's rule; then A under the mesh
+    run(on_device=True), the device run loop, on a sampler whose seed-43
+    run captured its graph (the sharded ESS bisection and the MCMC steps
+    WHILE nodes with their NCCL collectives inside; nodes and depth
+    printed): bit for bit with the save_every run, one replay and one read
+    a run, its steady windows on the per-iteration route in each mode held
+    to 6b's rule and a whole run on the run loop; then A under the mesh
     with hardware_prng=True, on_device=False and True: bit for bit, one
     mutation-draws launch a step body, the call counter's device words
     equal to its host mirror. The process group is destroyed at the end
@@ -2532,18 +2544,41 @@ def phase_nested_nodes(device) -> dict:
     return out
 
 
+def phase_nccl_probe() -> dict:
+    """4i: scripts/capture_probe.py --nccl: an all-reduce over a one-rank
+    NCCL group inside conditional bodies (WHILE, IF, WHILE > IF, IF > WHILE,
+    WHILE > IF > WHILE), each case in a process of its own, graphed against
+    the host's loop: every case NCCL_OK, bit for bit."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "capture_probe.py")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, script, "--nccl"], capture_output=True, text=True,
+                          timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    outcomes = json.loads(lines[-1])["nccl"] if lines else {}
+    print(f"NCCL in conditional bodies (scripts/capture_probe.py --nccl, "
+          f"{time.perf_counter() - t0:.1f} s): {json.dumps(outcomes)}", flush=True)
+    check(proc.returncode == 0 and outcomes and all(
+        v.startswith("NCCL_OK") for v in outcomes.values()),
+          f"NCCL in conditional bodies: exit code {proc.returncode}, {outcomes}: "
+          f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    return outcomes
+
+
 # ---------------------------------------------------------------------------
 # Phase 4g: a failed conditional body's capture raises, the process lives on
 # ---------------------------------------------------------------------------
 # (body, fault, the loop its CaptureError names) of scripts/capture_abort.py:
 # the run loop's likelihood (its warm-up IF body and the MCMC WHILE body,
-# nested in the run loop's WHILE body), a stretch's IF body, and an IF body
-# in an IF body in a WHILE body; a stream sync, a raw cudaMalloc, a
-# cudaDeviceSynchronize, each unseen by PyTorch's sync check.
+# nested in the run loop's WHILE body), a stretch's IF body, an IF body in
+# an IF body in a WHILE body, and dynamic mode's CV bisection body (a WHILE
+# body in the CV step's IF body in the run loop's WHILE body); a stream
+# sync, a raw cudaMalloc, a cudaDeviceSynchronize, each unseen by
+# PyTorch's sync check.
 CAPTURE_ABORT_CASES = (("while", "sync", "run"), ("while", "malloc", "run"),
                        ("while", "devsync", "run"), ("if", "sync", "probe_if"),
                        ("nested", "sync", "probe_nested"), ("nested", "malloc", "probe_nested"),
-                       ("nested", "devsync", "probe_nested"))
+                       ("nested", "devsync", "probe_nested"), ("dynamic", "sync", "run"))
 
 
 def phase_capture_abort() -> dict:
@@ -4806,19 +4841,33 @@ def dynamic_sampler(device, seed):
 
 def phase_dynamic(device) -> dict:
     """12: dynamic (CV) mode on rosenbrock10_cv, seed 42, with
-    run(on_device=False) and then run(on_device=True) on a sampler whose
-    seed-43 run captured the graphs: bit for bit, logZ in the anchor, no
-    ESS-mode launch, one bracket-mode launch a reweight and no
-    "ess_bracket" loop body, the eigenvalue kernel's launches equal; walls,
-    probes and reads per reweight; then iterations 21-23 in each mode
-    under the profiler, held to at most one blocking read a loop chunk
-    plus READS_BESIDE_CHUNKS an iteration."""
-    runs = {}
+    run(on_device=False) and then run(on_device=True), the device run loop,
+    on a sampler whose seed-43 run captured its graph (its nodes and depth
+    printed): bit for bit, logZ in the anchor, no ESS-mode launch, one
+    bracket-mode launch a reweight and no "ess_bracket" loop body, the
+    eigenvalue kernel's launches equal and at least the CV probes plus the
+    final CVs, the probes (device words) equal; on the run loop one replay
+    and one read a run, none between iterations, a WHILE body run an
+    iteration after the first and CV-bisection WHILE bodies, no capture;
+    walls, probes and reads per reweight; then iterations 21-23 on the
+    per-iteration route in each mode under the profiler, held to at most
+    one blocking read a loop chunk plus READS_BESIDE_CHUNKS an iteration,
+    and a whole run on the run loop (`run_window`); last `dynamic_bisection`,
+    a small case whose CV steps reach the bisection on the run loop."""
+    runs, run_graphs = {}, []
     for on_device in (False, True):
         s = dynamic_sampler(device, SEEDS[1] if on_device else SEEDS[0])
         check(s.state.fused, "dynamic: not on the fused route")
+        check(s.state.run_route, "dynamic: not on the device run loop's route")
         if on_device:
-            s.run(n_total=N_TOTAL, progress=False, on_device=True)  # captures the graphs
+            s.run(n_total=N_TOTAL, progress=False, on_device=True)  # captures the graph
+            run_graphs = [dict(nodes=g.nodes, depth=g.depth, capture_s=g.capture_s)
+                          for g in s.state._iteration.loops.graphs_of("run")]
+            print(f"dynamic: the run loop's graph (top-level nodes, nodes in the conditional "
+                  f"bodies; nesting depth; seconds of capture and instantiation): "
+                  f"{json.dumps(run_graphs)}", flush=True)
+            check(len(run_graphs) == 1 and run_graphs[0]["depth"] >= 3,
+                  f"dynamic: the run loop's graphs {run_graphs}")
             s.reset(random_state=SEEDS[0])
         warm = loop_stats(s)
         reset_counts()
@@ -4862,21 +4911,106 @@ def phase_dynamic(device) -> dict:
     for name in ("beta", "logz", "ess", "cv", "steps", "calls"):
         check(fused["results"][name].tobytes() == eager["results"][name].tobytes(),
               f"dynamic: {name} with on_device=True differs from on_device=False")
-    real = less_past_stop(eager["sampler"], eager["launches"], "dynamic")
+    real = less_cv_past_stop(less_past_stop(eager["sampler"], eager["launches"], "dynamic"),
+                             eager["loops"],
+                             fused["loops"].get("cv_bisect", {}).get("node_bodies", 0))
     check(fused["logz"] == eager["logz"] and fused["launches"] == real
           and fused["probes"] == eager["probes"],
           f"dynamic: logZ {fused['logz']!r} / {eager['logz']!r}, launches "
           f"{fused['launches']} / {real} (less the eager chunks' steps past the stop), probes "
           f"{fused['probes']} / {eager['probes']}")
-    check(fused["loops"]["mcmc"].get("replays", 0) > 0
-          and all(v.get("captures", 0) == 0 for v in fused["loops"].values()),
-          f"dynamic on_device=True: replays and captures {fused['loops']}")
+    loops = fused["loops"]
+    # the run loop: one replay and one read, no other read, no capture; a
+    # WHILE body run an iteration after the first; the CV step's IF body
+    # once a crossing (two boundary CVs each, as the eager run's one
+    # boundary read a crossing), the CV bisection's WHILE body once a CV
+    # probe past those
+    crossings = loops.get("cv_step", {}).get("node_bodies", 0)
+    bisection = loops.get("cv_bisect", {}).get("node_bodies", 0)
+    check(loops["run"].get("replays") == 1 and loops["run"].get("reads") == 1
+          and not any(v.get("reads", 0) for k, v in loops.items() if k != "run")
+          and all(v.get("captures", 0) == 0 for v in loops.values())
+          and loops["run"].get("node_bodies") == fused["iters"] - 1
+          and crossings > 0 and bisection == fused["probes"]["cv"] - 2 * crossings
+          and loops["mcmc"].get("node_bodies", 0) > 0,
+          f"dynamic on_device=True, the run loop: {loops}, probes {fused['probes']}")
+    print(f"dynamic seed {SEEDS[0]} on the device run loop: one replay and one read, "
+          f"{loops['run']['node_bodies']} run-loop WHILE bodies, {crossings} CV-step IF "
+          f"bodies (the eager run's boundary reads "
+          f"{eager['loops'].get('cv_bisect', {}).get('reads', 0)}), {bisection} "
+          f"CV-bisection WHILE bodies, {loops['mcmc']['node_bodies']} MCMC WHILE bodies",
+          flush=True)
     windows = steady_windows(fused["sampler"], "dynamic", n=3, device_only=False)
+    windows["run loop"] = run_window(fused["sampler"], "dynamic")
     return {"launches": eager["launches"], "probes": eager["probes"],
             "wall_s": {"on_device=False": eager["wall"], "on_device=True": fused["wall"]},
             "iters": eager["iters"], "loops": {"on_device=False": eager["loops"],
                                                "on_device=True": fused["loops"]},
-            "windows": windows}
+            "run_graphs": run_graphs, "windows": windows,
+            "bisection": dynamic_bisection(device)}
+
+
+def less_cv_past_stop(launches: dict, eager_loops: dict, bisection: int) -> dict:
+    """An eager dynamic run's launches less the eigenvalue launches of its
+    "cv_bisect" chunks' bodies past the loop's end (a chunk of 8 bodies
+    runs its CV probes after `done` too, changing nothing), which a WHILE
+    node does not run: `bisection` is the bisection's real probes."""
+    past = eager_loops.get("cv_bisect", {}).get("bodies", 0) - bisection
+    return dict(launches, sym_eigvals=launches["sym_eigvals"] - past)
+
+
+def narrow_gaussian(x):
+    return -0.5 * torch.sum((x / 0.3) ** 2, dim=-1)
+
+
+def dynamic_bisection(device) -> dict:
+    """12, last: a small dynamic case whose CV steps reach the bisection
+    (rosenbrock10_cv's seed 42 ends every CV step on a boundary rule): a
+    2-D narrow Gaussian, N = 128, volume_variation=0.03, fresh samplers
+    with run(on_device=False) and True (the run loop, captured in that run)
+    for seeds 11, 4 and 5 until one runs CV-bisection bodies: bit for bit,
+    the probes and the launches equal (the eager ones less the chunks'
+    steps past the stop), on the run loop one replay and one read, the CV
+    step's IF body once a crossing and the CV bisection's WHILE body once a
+    bisection probe."""
+    for seed in (11, 4, 5):
+        runs = {}
+        for on_device in (False, True):
+            s = Sampler(lambda u: 8.0 * u - 4.0, narrow_gaussian, n_dim=2, n_particles=128,
+                        vectorize=True, clustering=False, history_capacity=64,
+                        volume_variation=0.03, random_state=seed, device=device)
+            reset_counts()
+            before = dict(reweight_step.PROBES)
+            s.run(n_total=512, progress=False, on_device=on_device)
+            launched = counts()
+            runs[on_device] = dict(results=s.results(), launches=launched, sampler=s,
+                                   probes={k: reweight_step.PROBES[k] - before[k] for k in before},
+                                   loops=loop_stats(s))
+        eager, fused = runs[False], runs[True]
+        name = f"dynamic CV bisection (2-D narrow Gaussian, seed {seed})"
+        for key in ("beta", "logz", "ess", "cv", "steps", "calls"):
+            check(fused["results"][key].tobytes() == eager["results"][key].tobytes(),
+                  f"{name}: {key} with on_device=True differs from on_device=False")
+        loops, probes = fused["loops"], fused["probes"]
+        crossings = loops.get("cv_step", {}).get("node_bodies", 0)
+        bisection = loops.get("cv_bisect", {}).get("node_bodies", 0)
+        real = less_cv_past_stop(less_past_stop(eager["sampler"], eager["launches"], name),
+                                 eager["loops"], bisection)
+        check(fused["launches"] == real and fused["probes"] == eager["probes"],
+              f"{name}: launches {fused['launches']} / {real}, probes {fused['probes']} / "
+              f"{eager['probes']}")
+        check(loops["run"].get("replays") == 1 and loops["run"].get("reads") == 1
+              and not any(v.get("reads", 0) for k, v in loops.items() if k != "run")
+              and bisection == probes["cv"] - 2 * crossings,
+              f"{name}: the run loop {loops}, probes {probes}")
+        print(f"{name}: on the run loop bit for bit with on_device=False, "
+              f"{int(fused['sampler'].state.hist.t)} iterations, {crossings} CV-step IF bodies, "
+              f"{bisection} CV-bisection WHILE bodies, probes {json.dumps(probes)}, eigenvalue "
+              f"launches {fused['launches']['sym_eigvals']}", flush=True)
+        if bisection > 0:
+            return dict(seed=seed, crossings=crossings, bisection_bodies=bisection, probes=probes,
+                        launches=fused["launches"])
+    fail("dynamic CV bisection: no CV-bisection body ran in seeds 11, 4 and 5")
 
 
 def phase_cadence_and_host(device) -> dict:
@@ -5115,9 +5249,17 @@ def check_mesh_pair(name: str, eager: dict, fused: dict) -> None:
           f"({eager['past_stop']} past the stop)")
     check(all(fused["draws"][k].tobytes() == eager["draws"][k].tobytes() for k in eager["draws"]),
           f"{name}: the final draw state differs")
-    check(fused["loops"]["ess_sharded"].get("replays", 0) > 0
-          and fused["loops"]["mcmc"].get("replays", 0) > 0,
-          f"{name}: no replays {fused['loops']}")
+    # the device run loop: a replay and a read (t) a dispatch, no other
+    # read; the sharded ESS bisection and the MCMC chain WHILE nodes in it,
+    # their collectives inside
+    loops = fused["loops"]
+    check(loops["run"].get("replays", 0) >= 1
+          and loops["run"].get("reads") == loops["run"]["replays"]
+          and not any(v.get("reads", 0) for k, v in loops.items() if k != "run")
+          and loops["run"].get("node_bodies") == fused["iters"] - 1
+          and loops["ess_sharded"].get("node_bodies", 0) > 0
+          and loops["mcmc"].get("node_bodies", 0) > 0,
+          f"{name}: the run loop {loops}")
     # float32, either flag: the keyed steps, one mutation-draws launch a step
     check(eager["launches"]["mutation_draws"] == eager["bodies"] > 0,
           f"{name}: {eager['launches']['mutation_draws']} mutation-draws launches for "
@@ -5182,10 +5324,19 @@ def _mesh_runs(device, walls32: dict) -> dict:
     g.reset(random_state=SEEDS[0])
     fused = mesh_run(g, f"A mesh (world size 1, seed {SEEDS[0]}, on_device=True)",
                      on_device=True)
-    check(all(v.get("captures", 0) == 0 for v in fused["loops"].values()),
+    check(all(v.get("captures", 0) == 0 for v in fused["loops"].values())
+          and fused["loops"]["run"].get("replays") == 1,
           f"A mesh on_device=True recaptured: {fused['loops']}")
+    run_graphs = [dict(nodes=gr.nodes, depth=gr.depth, capture_s=gr.capture_s)
+                  for gr in g.state._iteration.loops.graphs_of("run")]
+    print(f"A mesh: the run loop's graph (top-level nodes, nodes in the conditional bodies; "
+          f"nesting depth; seconds of capture and instantiation): {json.dumps(run_graphs)}",
+          flush=True)
+    check(len(run_graphs) == 1 and run_graphs[0]["depth"] >= 3,
+          f"A mesh: the run loop's graphs {run_graphs}")
     check_mesh_pair("A mesh", eager, fused)
     windows = steady_windows(g, "A mesh", n=3, device_only=False)
+    windows["run loop"] = run_window(g, "A mesh")
 
     hw = {}
     for on_device in (False, True):
@@ -5205,7 +5356,8 @@ def _mesh_runs(device, walls32: dict) -> dict:
             "walls": {"on_device=False": eager["wall"], "on_device=True": fused["wall"],
                       "hardware_prng on_device=False": hw[False]["wall"],
                       "hardware_prng on_device=True": hw[True]["wall"]},
-            "iters": eager["iters"], "loops": fused["loops"], "windows": windows}
+            "iters": eager["iters"], "loops": fused["loops"], "run_graphs": run_graphs,
+            "windows": windows}
 
 
 # ---------------------------------------------------------------------------
@@ -5628,6 +5780,8 @@ def main() -> None:
             rows["set_conditional"]["capture_abort"] = phase_capture_abort()
             stamp("phase 4h: conditional nodes inside conditional bodies")
             rows["set_conditional"]["nested"] = phase_nested_nodes(device)
+            stamp("phase 4i: NCCL collectives inside conditional bodies")
+            rows["set_conditional"]["nccl"] = phase_nccl_probe()
     floor = launch_floor(device)
     split = phase_call_split(device)
     if args.kernels_only:
@@ -5721,10 +5875,10 @@ def main() -> None:
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on its path")
     print(f"launches by path: {json.dumps(paths)}", flush=True)
-    keys = ("probes", "wall_s", "iters", "loops", "windows")
+    keys = ("probes", "wall_s", "iters", "loops", "run_graphs", "windows", "bisection")
     print(f"dynamic: {json.dumps({k: dynamic[k] for k in keys})}", flush=True)
-    print(f"A mesh: {json.dumps({k: mesh[k] for k in ('walls', 'iters', 'loops', 'windows')})}",
-          flush=True)
+    keys = ("walls", "iters", "loops", "run_graphs", "windows")
+    print(f"A mesh: {json.dumps({k: mesh[k] for k in keys})}", flush=True)
     keys = ("wall", "iters", "loops", "run_graphs", "windows")
     print(f"A fused: {json.dumps({k: fused[k] for k in keys})}", flush=True)
     print(f"rosenbrock100: {json.dumps(r100)}", flush=True)

@@ -2,7 +2,7 @@
 check must fail its capture with `CaptureError`, and the process must live
 on.
 
-    python3 scripts/capture_abort.py while|if|nested [sync|malloc|devsync]
+    python3 scripts/capture_abort.py while|if|nested|dynamic [sync|malloc|devsync]
 
 Needs one NVIDIA GPU; run it in a process of its own, as
 tests/test_torch_cuda.py and chip_smoke.py do (a failed capture leaves the
@@ -24,7 +24,11 @@ kill the process: `loops.Loops` captures such a body alone first.
   (loops.Loops.when) makes that call;
 - `nested`: a stretch whose WHILE body holds an IF body holding another,
   the innermost making that call (the bodies that hold nodes are captured
-  straight into their nodes, the innermost as a graph of its own).
+  straight into their nodes, the innermost as a graph of its own);
+- `dynamic`: a dynamic-mode Sampler with `run(on_device=True)` whose CV
+  bisection body (`steps.reweight._metric_body`, wrapped here) makes that
+  call: the "cv_bisect" WHILE body, in the CV step's IF body, in the device
+  run loop's WHILE body.
 
 Each prints `CAPTURE_ERROR <first line of the error>`. The same process
 then runs a small clustered Sampler, whose cluster fit holds IF nodes and
@@ -137,6 +141,31 @@ def nested_body() -> str:
     return ""
 
 
+def dynamic_body() -> str:
+    from tempest_tpu_torch.steps import reweight
+
+    metric_body = reweight._metric_body
+
+    def faulting(*args, **kw):
+        body = metric_body(*args, **kw)
+
+        def run(c, k):
+            call_past_the_check()
+            return body(c, k)
+
+        return run
+
+    reweight._metric_body = faulting
+    try:
+        s = Sampler(prior, loglike, n_dim=2, n_particles=128, vectorize=True,
+                    clustering=False, volume_variation=0.05, random_state=1,
+                    history_capacity=32, device="cuda")
+        s.run(n_total=256, progress=False, on_device=True)
+    finally:
+        reweight._metric_body = metric_body
+    return ""
+
+
 def clean_runs():
     out = []
     for on_device in (False, True):
@@ -151,7 +180,7 @@ def clean_runs():
 
 def main() -> int:
     global FAULT
-    if (len(sys.argv) not in (2, 3) or sys.argv[1] not in ("while", "if", "nested")
+    if (len(sys.argv) not in (2, 3) or sys.argv[1] not in ("while", "if", "nested", "dynamic")
             or sys.argv[2:] and sys.argv[2] not in FAULTS):
         sys.exit(__doc__.splitlines()[4].strip())
     FAULT = sys.argv[2] if len(sys.argv) == 3 else "sync"
@@ -159,7 +188,8 @@ def main() -> int:
         sys.exit("needs an NVIDIA GPU")
     failed = False
     try:
-        {"while": while_body, "if": if_body, "nested": nested_body}[sys.argv[1]]()
+        {"while": while_body, "if": if_body, "nested": nested_body,
+         "dynamic": dynamic_body}[sys.argv[1]]()
         print("NO_ERROR", flush=True)
     except CaptureError as exc:
         failed = True

@@ -16,8 +16,9 @@ both versions run the same drive). One process:
   device ms of the weighted-median kernel and of torch.cumsum's scan;
 - dynamic mode (phase 12, rosenbrock10_cv): seed 42 with
   run(on_device=True) after a capturing seed-43 run: wall, iterations,
-  logZ; then iterations 21-23 graphed under the profiler: wall, device ms
-  and blocking host reads an iteration, and `ps/reweight`'s host ms;
+  logZ, the loops' host reads, whether it took the device run loop;
+  then iterations 21-23 graphed under the profiler: wall, device ms and
+  blocking host reads an iteration, and `ps/reweight`'s host ms;
   every window also gives its MCMC reads and WHILE iterations an
   iteration, and the MCMC route ("while": one WHILE node graphed;
   "chunks": chunks of steps, a read each);
@@ -32,6 +33,9 @@ both versions run the same drive). One process:
 - C and the cadence cell (phases 9 and 13, C with cluster_every=3): seed 4
   with run(on_device=True) after a capturing run, then with
   run(on_device=False): wall, iterations, logZ;
+- A on a particle mesh of one rank over NCCL (phase 15): seed 42 with
+  run(on_device=True) after a capturing seed-43 run: wall, iterations,
+  logZ, host reads, whether it took the device run loop;
 - rosenbrock100 (phase 16): seed 42 with run(on_device=True) after a
   capturing seed-43 run: wall, iterations, logZ; then iterations 21-23
   graphed under the profiler: wall, device ms, blocking host reads and
@@ -58,6 +62,42 @@ def _mcmc(w: dict) -> dict:
     return {k: w[k] for k in ("mcmc_route", "mcmc_reads_per_iter", "while_iterations_per_iter")}
 
 
+def timed_run(cs, s, n_total: int) -> tuple:
+    """Sampler `s`'s run(on_device=True): its wall and its loops' host reads."""
+    import torch
+
+    before = sum(v.get("reads", 0) for v in s.state._iteration.loops.stats.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.run(n_total=n_total, progress=False, on_device=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return wall, sum(v.get("reads", 0) for v in s.state._iteration.loops.stats.values()) - before
+
+
+def mesh_a(cs, device) -> dict:
+    """A on a particle mesh of one rank over NCCL (phase 15): seed 42 with
+    run(on_device=True) after a capturing seed-43 run: wall, iterations,
+    logZ, the loops' host reads and whether it took the device run loop."""
+    import gc
+
+    import torch.distributed as dist
+
+    cs.initialize(f"127.0.0.1:{cs.free_port()}", 1, 0, device="cuda", timeout=300)
+    try:
+        m = cs.mesh_sampler(device, cs.make_particle_mesh(device="cuda"), cs.SEEDS[1])
+        m.run(n_total=cs.N_TOTAL, progress=False, on_device=True)  # captures the graphs
+        m.reset(random_state=cs.SEEDS[0])
+        wall, reads = timed_run(cs, m, cs.N_TOTAL)
+        out = {"wall_s": wall, "iters": int(m.state.hist.t), "logz": m.evidence()[0],
+               "reads": reads, "run_loop": "run" in m.state._iteration.loops.stats}
+        del m
+        return out
+    finally:
+        gc.collect()  # the mesh and its sampler go while the group is up
+        dist.destroy_process_group()
+
+
 def one(root: str) -> dict:
     sys.argv = [sys.argv[0], "--package-root", root]  # chip_smoke reads it when imported
     sys.path.insert(0, REPO)
@@ -76,14 +116,11 @@ def one(root: str) -> dict:
     s = cs.dynamic_sampler(device, cs.SEEDS[1])
     s.run(n_total=cs.N_TOTAL, progress=False, on_device=True)  # captures the graphs
     s.reset(random_state=cs.SEEDS[0])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    s.run(n_total=cs.N_TOTAL, progress=False, on_device=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall, reads = timed_run(cs, s, cs.N_TOTAL)
     iters, logz = int(s.state.hist.t), s.evidence()[0]
     w = cs.steady_window(s, True, n=3, device_only=False)  # resets the sampler
-    out["dynamic"] = {"wall_s": wall, "iters": iters, "logz": logz,
+    out["dynamic"] = {"wall_s": wall, "iters": iters, "logz": logz, "reads": reads,
+                      "run_loop": bool(getattr(s.state, "run_route", False)),
                       "window_ms_per_iter": 1e3 * w["wall_per_iter"],
                       "device_ms_per_iter": w["device_ms_per_iter"], "idle": w["idle"],
                       "blocking_per_iter": w["blocking_per_iter"],
@@ -130,6 +167,8 @@ def one(root: str) -> dict:
             out[name][f"on_device={on_device}"] = {
                 "wall_s": time.perf_counter() - t0, "iters": int(c.state.hist.t),
                 "logz": c.evidence()[0]}
+
+    out["A_mesh"] = mesh_a(cs, device)
 
     r = cs.rosenbrock100_sampler(device, cs.SEEDS[1])
     r.run(n_total=cs.R100_TOTAL, progress=False, on_device=True)  # captures the graphs
@@ -182,6 +221,8 @@ def main() -> None:
               f"{100 * d['idle']:.1f} %, blocking reads {d['blocking_per_iter']:.1f}, MCMC reads "
               f"{d['mcmc_reads_per_iter']:.1f} ({d['mcmc_route']}), ps/reweight "
               f"{d['reweight_host_ms']:.2f} ms; "
+              f"dynamic run: reads {d['reads']}, run loop {d['run_loop']}; A mesh "
+              f"{json.dumps(r['A_mesh'])}; "
               f"A {json.dumps(r['A'])}; C {json.dumps(r['C'])}; cadence "
               f"{json.dumps(r['cadence'])}; rosenbrock100 {json.dumps(r['rosenbrock100'])}",
               flush=True)

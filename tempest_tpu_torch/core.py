@@ -15,8 +15,9 @@ iteration (`fused.py`) for `run()` and `sample()` alike, as JAX runs its
 fused iteration for both: its loops in chunks, one host read a chunk.
 `run(on_device=True)` without `save_every` (which keeps the host loop,
 core.py:309, and under a mesh its sharded checkpoints) on a configuration
-of `fused.run_route` (one device, ESS mode, float32) runs the annealing
-loop itself on the device, as `_run_on_device` does (core.py:334-464):
+of `fused.run_route` (float32, one device or a mesh, ESS or dynamic mode)
+runs the annealing loop itself on the device, as `_run_on_device` does
+(core.py:334-464):
 the first iteration on the per-iteration route, then the loop of
 `fused.make_fused_run`, whose predicate is the termination test, until
 it ends or the history fills; the host reads `t` once a dispatch, and
@@ -275,7 +276,11 @@ class SamplerCore:
         loop, one read of `t` (with the iteration counter and the model's
         `fitted` flag) after each; where the history filled before the
         termination test failed, the test on the host, the capacity doubled
-        and the loop entered again. The progress bar moves once a dispatch."""
+        and the loop entered again. The progress bar moves once a dispatch.
+        Under a mesh every rank dispatches its own loop, whose collectives
+        meet the other ranks', and reads the same `t` (the history's slots
+        are shared, its particle axis sharded), so the ranks stop, test and
+        grow their blocks together."""
         if self.hist.count() == 0:
             self._step(None, t0)
         loops = self._iteration.loops

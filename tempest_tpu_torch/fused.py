@@ -8,7 +8,8 @@ the device with its termination test there (:411-426). Here:
 - `make_fused_iteration` is the `iteration.py` pipeline with its loops in
   chunks (`CHUNKS` bodies between two reads of the exit predicate) through
   one `loops.Loops` of the sampler; the loops include the reweight's
-  bisections under a mesh and in dynamic mode (`steps/reweight.py`).
+  bisections under a mesh and in dynamic mode (`steps/reweight.py`), which
+  run in their loop form (a WHILE node each) where the loops are graphed.
   Between the loops the iteration runs straight through on the stream; it
   reads beta once (the warm-up branch, JAX's `lax.cond` at :242) and
   nothing else.
@@ -20,9 +21,12 @@ the device with its termination test there (:411-426). Here:
   history, written in place (`state.commit`), the active set with the
   iteration counter, step and call counts as device words, and the
   carried cluster model with its `fitted` flag. `run_route(config)` says
-  which configurations take it: one device, ESS mode, float32 (where every
-  draw is keyed, `draws.Draws.keyed`), clustered or not at any
-  `cluster_every`, either `hardware_prng`. `SamplerCore.run_sampling`
+  which configurations take it: float32 (where every draw is keyed,
+  `draws.Draws.keyed`), on one device or a particle mesh (the predicate's
+  ESS reduced over the ranks, `run_predicate`'s `group`), in ESS or
+  dynamic mode (the bisections' WHILE nodes, the dynamic boundary rules'
+  IF nodes), clustered or not at any `cluster_every`, either
+  `hardware_prng`. `SamplerCore.run_sampling`
   drives it for `run(on_device=True)` without `save_every`, as
   `_run_on_device` does (tempest_tpu/core.py:334-464): the first iteration
   (t = 0) on the per-iteration route, as `make_fused_run` requires
@@ -32,12 +36,18 @@ the device with its termination test there (:411-426). Here:
 - With `loops.graphs` on (`run(on_device=True)` on a CUDA device) the run
   loop is one CUDA graph whose top level is a WHILE node: its body holds
   the iteration's IF nodes (the warm-up and mutation branches, the cluster
-  cadence, the split rounds, the termination test's ESS) and the MCMC
-  chain's WHILE node, so a dispatch is one replay and the host reads
-  nothing between iterations. A configuration outside the run route
-  replays every loop chunk as a CUDA graph (`loops.py`) between host
-  decisions: each chunk captured once per shape and replayed from static
-  buffers updated in place; the draws' generator is registered with each
+  cadence, the split rounds, the termination test's ESS, dynamic mode's CV
+  step) and the WHILE nodes of the MCMC chain and of the reweight's
+  bisections (the ESS bracket under a mesh, the CV bisection inside the CV
+  step's IF node, the sharded ESS bisection), so a dispatch is one replay
+  and the host reads nothing between iterations; under a mesh the
+  collectives are captured inside those bodies, every rank replaying its
+  own graph and reading the same `t`. A configuration outside the run
+  route (float64, whose chain draws are not keyed) replays its loops as
+  CUDA graphs (`loops.py`) between host decisions: the bisections in their
+  loop form, one replay of a WHILE node each, the other loops in chunks,
+  each chunk captured once per shape, all replayed from static buffers
+  updated in place; the draws' generator is registered with each
   graph, and the call counter with the loops (`Loops.counters`). A capture
   that fails raises `loops.CaptureError`; nothing falls back. Without
   graphs (`on_device=False`, `sample()`, or the CPU) the same loops run
@@ -71,6 +81,7 @@ from .config import SamplerConfig
 from .iteration import make_iteration
 from .loops import Loops
 from .ops.tools import ess_from_logw_psum
+from .parallel.mesh import particle_group
 from .state import Current, History, compute_logw_and_logz
 
 Tensors = Dict[str, torch.Tensor]
@@ -92,11 +103,10 @@ def fused_route(config: SamplerConfig) -> bool:
 
 def run_route(config: SamplerConfig) -> bool:
     """Whether `run(on_device=True)` runs the device run loop: the fused
-    route on one device in ESS mode and float32. Dynamic mode and the mesh
-    keep their bisection loops' reads, float64 its generator's chain draws
-    (ROADMAP.md queue 1, item 20)."""
-    return (fused_route(config) and config.mesh is None and config.volume_variation is None
-            and config.dtype == torch.float32)
+    route in float32, on one device or a particle mesh, in ESS or dynamic
+    mode. Float64 keeps the per-iteration route: its chain draws come from
+    the generator, not keyed (ROADMAP.md queue 1, item 20)."""
+    return fused_route(config) and config.dtype == torch.float32
 
 
 def make_fused_iteration(
@@ -171,14 +181,16 @@ def make_fused_run(config: SamplerConfig, iteration: Callable) -> Callable:
     """The whole annealing run as one loop (fused.py:365-456):
     `run(draws, hist, cur, model, n_total) -> (hist, cur, model)` runs
     `iteration` (`make_fused_iteration`'s) while `run_predicate` holds,
-    from a history with t >= 1; it returns at termination or when the
-    history is full (t == capacity), with `cur.iteration`, `cur.steps`,
+    from a history with t >= 1 (under a mesh, this rank's block; the
+    predicate's ESS reduced over the ranks); it returns at termination or
+    when the history is full (t == capacity), with `cur.iteration`, `cur.steps`,
     `cur.calls` and `model.fitted` device words and `hist.t_host` unknown.
     With `iteration.loops.graphs` on a CUDA device the loop is one replay
     of the "run" stretch (a WHILE node); elsewhere a Python loop that reads
     its predicate after every iteration."""
     loops: Loops = iteration.loops
     normalize = config.normalize
+    group = None if config.mesh is None else particle_group(config.mesh, config.particle_axis)
 
     def run(draws, hist: History, cur: Current, model: ClusterModel,
             n_total: int) -> Tuple[History, Current, ClusterModel]:
@@ -188,7 +200,7 @@ def make_fused_run(config: SamplerConfig, iteration: Callable) -> Callable:
 
         def pred(c: Tensors) -> torch.Tensor:
             h, cu, _ = unpack(c, normalize)
-            return run_predicate(loops, h, cu.beta, c["n_total"])
+            return run_predicate(loops, h, cu.beta, c["n_total"], group)
 
         carry = dict(pack(hist, cur, model), n_total=torch.full(
             (), int(n_total), dtype=torch.int64, device=hist.logl.device))

@@ -37,7 +37,9 @@ decided on the device, on `cur.beta == 0`, the device word of the
 iteration counter and the device flag `model.fitted`: CUDA-graph IF nodes
 that read nothing, around the warm-up's prior draw, the mutation (its
 cluster fit, itself an IF node on the cadence, and its MCMC chain, a
-WHILE node) and the rest. Both give the same bits. The commit writes slot
+WHILE node) and the rest; the reweight then decides on the device too
+(dynamic mode's CV step an IF node, the bisections WHILE nodes,
+`steps/reweight.py`). Both give the same bits. The commit writes slot
 `t` through the device word `hist.t` (`state.commit`). Each stage runs
 inside a `utils.profiling.annotate` range ("ps/reweight", "ps/cluster",
 "ps/fit", "ps/resample", "ps/mutate", "ps/warmup", "ps/commit"), which

@@ -28,7 +28,8 @@ runs each chunk as a `torch.cuda.CUDAGraph`:
   (`cuda_prng.PhiloxCounter`), whose device words the captured bodies
   read and advance; a capture leaves each word where it was, and every
   replay advances it as the eager bodies would (the host mirror is read
-  from the word only when asked for);
+  from the word only when asked for); the words of every `DeviceCounts`
+  (the reweight's probe counts) are treated alike on every `Loops`;
 - a capture counts no kernel launch; every replay adds the launches its
   capture made (`launch_counts`), so a kernel's count stays its true
   number of launches;
@@ -72,8 +73,10 @@ runs each chunk as a `torch.cuda.CUDAGraph`:
   index): the node then copies nothing. Eagerly (graphs off, the CPU) it
   is a Python loop that reads the predicate after every body, so it runs
   the same bodies and launches the same kernels as the node; a stretch's
-  warm-up runs the body once, on a copy of the carry, so the static
-  buffers stay as they were;
+  warm-up on a CUDA device runs the body once, on a copy of the carry, so
+  the static buffers stay as they were; on the CPU, where no capture
+  follows, it runs that Python loop on the copy, so a stretch decided on
+  the device gives the whole loop's result there;
 - a capture that fails (a body that reads the host, such as a likelihood
   calling `.item()`, or synchronizes or allocates in a way PyTorch's sync
   check misses) raises `CaptureError` naming the cause and
@@ -181,6 +184,65 @@ class _Graph:
             _UNSETTLED.add(self)
 
 
+def _device_key(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class DeviceCounts:
+    """Named counts, one int64 device word each on every device that adds
+    to them, read on the host only when asked (`self[name]`, the sum over
+    the devices; `dict(self)` reads them all). `add` adds on the stream, so
+    an add inside a captured body runs at every replay of it, and a count
+    taken inside the device run loop is read once, after the dispatch.
+    Every `Loops` treats these words as it treats its `counters`: an add
+    inside a conditional body of a stretch's warm-up counts times the
+    body's predicate (`guards`), and a capture's warm-up leaves the words
+    as they were."""
+
+    _ALL: "weakref.WeakSet[DeviceCounts]" = weakref.WeakSet()
+
+    class Words:
+        """The words of one device (`state`, one a name) and the 0-d
+        predicates of the conditional bodies being warmed up around an add."""
+
+        def __init__(self, n: int, device: torch.device):
+            self.state = torch.zeros(n, dtype=torch.int64, device=device)
+            self.guards: List[torch.Tensor] = []
+
+    def __init__(self, *names: str):
+        self.names = names
+        self._words: Dict[torch.device, DeviceCounts.Words] = {}
+        DeviceCounts._ALL.add(self)
+
+    def words(self, device) -> "DeviceCounts.Words":
+        """The words on `device`, made (zero) on first use; made outside any
+        capture, as a `Loops` asks for them before it captures."""
+        key = _device_key(device)
+        if key not in self._words:
+            self._words[key] = DeviceCounts.Words(len(self.names), key)
+        return self._words[key]
+
+    def add(self, name: str, n, device) -> None:
+        """Add `n` (a Python int or a 0-d or one-element device integer) to
+        count `name` on `device`, times each of the guards."""
+        words = self.words(device)
+        value = n.reshape(()).to(torch.int64) if isinstance(n, torch.Tensor) else int(n)
+        for guard in words.guards:
+            value = guard.to(torch.int64) * value
+        i = self.names.index(name)
+        words.state[i:i + 1].add_(value)
+
+    def keys(self):
+        return self.names
+
+    def __getitem__(self, name: str) -> int:
+        i = self.names.index(name)
+        return sum(int(w.state[i]) for w in self._words.values())
+
+
 class Loops:
     """The loops of one sampler: chunk lengths, reads, and the graph cache."""
 
@@ -226,6 +288,10 @@ class Loops:
     def chunk(self, name: str) -> int:
         """The bodies a chunk of loop `name` runs between its reads."""
         return self.chunks.get(name, 1)
+
+    def _counters(self) -> list:
+        """The registered counters and the `DeviceCounts` words on this device."""
+        return self.counters + [c.words(self.device) for c in list(DeviceCounts._ALL)]
 
     @property
     def graphed(self) -> bool:
@@ -345,14 +411,20 @@ class Loops:
             go = pred(carry)
 
             def run() -> Tensors:
-                new = self._checked_body(name, body, {k: v.clone() for k, v in carry.items()},
-                                         consts)
+                copy = {k: v.clone() for k, v in carry.items()}
+                if self.device.type != "cuda":  # no capture follows: the whole loop
+                    return self._loop(name, pred, body, copy, consts)
+                new = self._checked_body(name, body, copy, consts)
                 pred(new)  # the WHILE node's flag, computed at the body's end
                 return new
 
             new = self._warm(name, go, run)
             return {k: torch.where(go, new[k], v) for k, v in carry.items()}
-        c = dict(carry)
+        return self._loop(name, pred, body, dict(carry), consts)
+
+    def _loop(self, name: str, pred: Callable[[Tensors], torch.Tensor], body: Body,
+              c: Tensors, consts: Tensors) -> Tensors:
+        """`repeat` as a Python loop: a read of the predicate after every body."""
         stats = self.stats[name]
         while self.read(name, pred(c))[0]:
             c = body(c, consts)
@@ -376,7 +448,8 @@ class Loops:
         self._open.append(i)
         self._depth += 1
         self._max_depth = max(self._max_depth, self._depth)
-        for c in self.counters:
+        counters = self._counters()
+        for c in counters:
             c.guards.append(pred)
         try:
             if self.device.type != "cuda":
@@ -391,7 +464,7 @@ class Loops:
             current.wait_stream(stream)
             return out
         finally:
-            for c in self.counters:
+            for c in counters:
                 c.guards.pop()
             self._depth -= 1
             self._open.pop()
@@ -533,7 +606,8 @@ class Loops:
             self._stream = torch.cuda.Stream(self.device)
         stream, current = self._stream, torch.cuda.current_stream(self.device)
         offsets = [g.get_offset() for g in self.generators]
-        words = [c.state.clone() for c in self.counters]
+        counters = self._counters()
+        words = [c.state.clone() for c in counters]
         before = _counts()
         # Warm-up: libraries and workspaces meet the capture stream eagerly,
         # every conditional body included, each on its depth's stream.
@@ -550,7 +624,7 @@ class Loops:
         _add_launches({k: v - before[k] for k, v in _counts().items()}, -1)
         for g, offset in zip(self.generators, offsets):
             g.set_offset(offset)
-        for c, saved in zip(self.counters, words):
+        for c, saved in zip(counters, words):
             c.state.copy_(saved)
 
         # The conditional bodies' launch words and memory pools, one a depth.

@@ -10,7 +10,8 @@ The uniforms come in as arguments: `u_draw` (N, d) for the prior draw and
 Under a particle mesh (`group`) `u_draw` is this rank's block of the global
 draw and `patch_uniforms` are global: the count of finite particles is
 summed over the ranks, and the replacements are picked from the global set
-by the claim and reduce-scatter of the sharded resampler.
+by the claim and reduce-scatter of the sharded resampler; whether to patch
+is decided on the device, so the patch reads nothing on the host.
 """
 
 from __future__ import annotations
@@ -71,24 +72,29 @@ def warmup(
 
 
 def _sharded_patch(u, x, logl, blobs, inf_mask, patch_uniforms, group) -> WarmupResult:
-    """The patch over the ranks' blocks. Whether to patch is read from the
-    summed count, the same on every rank, so all ranks take the branch."""
+    """The patch over the ranks' blocks, decided on the device as the
+    single-device patch is (JAX's `can_patch` and `jnp.where`): the gather
+    of replacement rows always runs, its rows taken only where a row is
+    infinite and some row, on any rank, is finite. The finite count is
+    summed over the ranks, so every rank runs the same collectives. Where
+    no row is finite the sampling weights are divided by 1, not 0, so the
+    unused gather stays finite."""
     dtype = u.dtype
     n_global = patch_uniforms.shape[0]
     n_finite = _psum(torch.sum(~inf_mask), group)
     any_inf = n_finite < n_global
-    if bool(any_inf & (n_finite > 0)):
-        p = torch.where(inf_mask, torch.zeros_like(logl), torch.ones_like(logl))
-        p = p / n_finite.to(dtype)
-        arrays = [u.T[:, None], x.T[:, None], logl[None, None]]
-        if blobs is not None:
-            arrays.append(blobs.T[:, None])
-        rows = gather_rows(patch_uniforms, p[None], arrays, group)
-        u = torch.where(inf_mask[:, None], rows[0], u)
-        x = torch.where(inf_mask[:, None], rows[1], x)
-        logl = torch.where(inf_mask, rows[2][:, 0], logl)
-        if blobs is not None:
-            blobs = torch.where(inf_mask[:, None], rows[3], blobs)
+    sel = any_inf & (n_finite > 0) & inf_mask
+    p = torch.where(inf_mask, torch.zeros_like(logl), torch.ones_like(logl))
+    p = p / torch.clamp(n_finite, min=1).to(dtype)
+    arrays = [u.T[:, None], x.T[:, None], logl[None, None]]
+    if blobs is not None:
+        arrays.append(blobs.T[:, None])
+    rows = gather_rows(patch_uniforms, p[None], arrays, group)
+    u = torch.where(sel[:, None], rows[0], u)
+    x = torch.where(sel[:, None], rows[1], x)
+    logl = torch.where(sel, rows[2][:, 0], logl)
+    if blobs is not None:
+        blobs = torch.where(sel[:, None], rows[3], blobs)
     frac = n_finite.to(dtype) / n_global
     logz_corr = torch.where(any_inf, torch.log(frac), torch.zeros((), dtype=dtype, device=u.device))
     return WarmupResult(u=u, x=x, logl=logl, blobs=blobs, logz_correction=logz_corr)

@@ -13,25 +13,31 @@ Counterpart of tempest_tpu/steps/reweight.py. Two modes, as there:
   CV inside it (`_find_beta_bisection`, :122-166), with the boundary rules
   of :234-241. JAX runs no Pallas kernel in this mode. The port's bracket
   on a GPU outside a mesh is one launch of the ESS kernel's bracket mode
-  (`ops.cuda_reweight.ess_bracket`) and one read of its result; the CV's
-  eigenvalues come from `ops.cuda_linalg.eigvalsh`, the port's kernel for
-  a CUDA tensor, which reads nothing on the host.
+  (`ops.cuda_reweight.ess_bracket`); the CV's eigenvalues come from
+  `ops.cuda_linalg.eigvalsh`, the port's kernel for a CUDA tensor, which
+  reads nothing on the host.
 
 The three bisections (the bracket on the CPU or under a mesh, the CV
 bisection and the sharded ESS bisection) are device loops of
-`loops.Loops`, as JAX's `lax.while_loop`s:
-the carry is (lo, hi, beta, i, done) with JAX's rules; the stay, jump and
-CV boundary tests are `torch.where`s and the loop's initial `done`; a body
-that runs past `done` changes nothing. Each loop runs its bodies in chunks
-(`fused.CHUNKS`: "ess_bracket", "cv_bisect", "ess_sharded"; one body a
-chunk by default) and reads `done` once a chunk, so a run with
-`on_device=True` replays the chunks as CUDA graphs. Every body is a
-function of the loop's constants alone (the history's logl, denominator,
-masks and, for the CV, its points), so the results do not depend on the
-chunk length. The CV loop reads its boundary rules first (most reweights
-end there) and runs only when they leave a bisection. `PROBES` counts the
-reweights and the probes of each kind in this process, from the carry's
-`i` at the loop's last read.
+`loops.Loops`, as JAX's `lax.while_loop`s: the carry is (lo, hi, beta, i,
+done) with JAX's rules; the stay, jump and CV boundary tests are
+`torch.where`s and the loop's initial `done`; a body that runs past `done`
+changes nothing, so every form gives the same bits. Where the loops are
+graphed or inside a stretch (the body of the device run loop,
+`fused.make_fused_run`) each is `Loops.repeat`: a CUDA-graph WHILE node
+that reads nothing. Elsewhere (eager runs, the CPU) it runs its bodies in
+chunks (`fused.CHUNKS`: "ess_bracket", "cv_bisect", "ess_sharded"; one
+body a chunk by default) and reads `done` once a chunk. Dynamic mode's
+decisions follow the same split: inside a stretch `crossing` is the
+device bool lo != hi and the CV step is a `loops.when` on it, an IF node
+holding the two boundary CVs and the "cv_bisect" WHILE node, whose initial
+`done` is the boundary test; outside a stretch the host reads the bracket
+(the kernel's (lo, hi) or the loop's last read) and, in chunks, the
+boundary rules before the loop. `PROBES` counts the dynamic reweights and
+the probes of each kind in device words (`loops.DeviceCounts`), added on
+the stream from each loop's `i` and the bracket kernel's probe word, so
+a run of the device run loop counts them as an eager run does, and the
+host reads them only when asked.
 
 Both end with the final weights, ESS, CV and logZ at the chosen beta
 (:243-248). Under a mesh every reduction goes over the ranks' blocks, a
@@ -54,7 +60,7 @@ from ..config import (
     METRIC_ATOL,
     METRIC_ATOL_CV,
 )
-from ..loops import Loops
+from ..loops import DeviceCounts, Loops
 from ..ops.cuda_reweight import ess_bisect_beta, ess_bracket
 from ..ops.tools import ess_from_logw_psum, logsumexp_psum, volume_variation_dtn
 from ..state import History, logw_from_denominator, mis_denominator
@@ -65,7 +71,7 @@ Tensors = Dict[str, torch.Tensor]
 # of the bracket search (ESS(beta_prev) and ESS(1) included), CV
 # evaluations of the boundary tests and the bisection, and the ESS
 # evaluations of the sharded ESS-mode bisection.
-PROBES = {"reweights": 0, "ess_bracket": 0, "cv": 0, "ess_sharded": 0}
+PROBES = DeviceCounts("reweights", "ess_bracket", "cv", "ess_sharded")
 
 
 class ReweightResult(NamedTuple):
@@ -165,16 +171,32 @@ def _metric_body(metric_at: Callable, group, dynamic: bool) -> Callable[[Tensors
     return body
 
 
-def _run(loops: Loops, name: str, body, carry: Tensors, consts: Tensors, group,
-         *keys: str) -> Tuple[Tensors, List[float]]:
-    """Chunks of loop `name` until its `done` reads True: the carry and the
-    last read of (done, i, *keys)."""
+def _going(c: Tensors) -> torch.Tensor:
+    """The bisection loops' predicate: not done."""
+    return ~c["done"]
+
+
+def _loop_form(loops: Loops) -> bool:
+    """Whether the bisections run as `Loops.repeat`: where the loops are
+    graphed or inside a stretch."""
+    return loops.graphed or loops.inside
+
+
+def _loop(loops: Loops, name: str, body, carry: Tensors, consts: Tensors, group,
+          *keys: str) -> Tuple[Tensors, Optional[List[float]]]:
+    """Loop `name` to its end: the carry, and the last read of the carry's
+    `keys` on the host, or None where nothing was read. In the loop form
+    (`_loop_form`) `Loops.repeat`, a WHILE node that reads nothing;
+    elsewhere chunks of `loops.chunk(name)` bodies, a read of `done` (with
+    `keys`) after each."""
+    if _loop_form(loops):
+        return loops.repeat(name, _going, body, carry, consts, static=(id(group),)), None
     run = loops.start(name, body, carry, consts, static=(id(group),))
     while True:
         run.advance(loops.chunk(name))
-        values = run.read("done", "i", *keys)
+        values = run.read("done", *keys)
         if values[0]:
-            return run.result(), values
+            return run.result(), values[1:]
 
 
 def _metric_carry(lo, hi, done) -> Tensors:
@@ -190,28 +212,34 @@ def _find_ess_bracket(hist: History, denom, beta_prev, ess_target: float, group=
     """(beta_low, beta_high, crossing) where ESS crosses the target
     (reweight.py:73-119): both beta_prev when ESS(beta_prev) <= target,
     both 1 when ESS(1) >= target as well (the jump), else [beta_prev, 1]
-    bisected down to the interval tolerance; `crossing` (a host bool) is
-    beta_low != beta_high. A history on a GPU outside a mesh takes one
-    launch of the ESS kernel's bracket mode and one read of its (lo, hi)
-    and probe count; elsewhere the "ess_bracket" loop runs."""
+    bisected down to the interval tolerance; `crossing` is beta_low !=
+    beta_high, a host bool where the host read the bracket and a 0-d
+    device bool inside a stretch (or after the loop form of a graphed
+    bracket loop). A history on a GPU outside a mesh takes one launch of
+    the ESS kernel's bracket mode (and, outside a stretch, one read of its
+    (lo, hi)); elsewhere the "ess_bracket" loop runs. The ESS evaluations
+    are added to `PROBES` on the device."""
     loops = loops or Loops(hist.logl.device)
     k = _consts(hist, denom, ess_target, METRIC_ATOL)
     if group is None and hist.logl.device.type == "cuda":
         bm = torch.where(k["mask"], denom, torch.full_like(denom, float("inf")))
         bracket, probes = ess_bracket(hist.logl.reshape(-1), bm.reshape(-1),
                                       torch.stack([beta_prev, k["target"]]))
-        lo_h, hi_h, n = loops.read("ess_bracket", bracket, probes)
-        PROBES["ess_bracket"] += int(n)
+        PROBES.add("ess_bracket", probes, bracket.device)
+        if loops.inside:
+            return bracket[0], bracket[1], bracket[0] != bracket[1]
+        lo_h, hi_h = loops.read("ess_bracket", bracket)
         return bracket[0], bracket[1], lo_h != hi_h
-    lo, hi, lo_h, hi_h, n = _bracket_search(k, beta_prev, group, loops)
-    PROBES["ess_bracket"] += n
-    return lo, hi, lo_h != hi_h
+    lo, hi, crossing, probes = _bracket_search(k, beta_prev, group, loops)
+    PROBES.add("ess_bracket", probes, lo.device)
+    return lo, hi, crossing
 
 
 def _bracket_search(k: Tensors, beta_prev, group, loops: Loops):
     """Stay, jump or the "ess_bracket" loop on the constants `k`: the
-    bracket (lo, hi), its last read (lo, hi) on the host and the ESS
-    evaluations it made."""
+    bracket (lo, hi), `crossing` (lo != hi: a host bool from the loop's last
+    read, or a device bool where the loop read nothing) and the ESS
+    evaluations it made (a 0-d int32 device word)."""
     target = k["target"]
     one = torch.ones_like(beta_prev)
     ess_cur, ess_one = _ess(k, beta_prev, group), _ess(k, one, group)
@@ -220,10 +248,11 @@ def _bracket_search(k: Tensors, beta_prev, group, loops: Loops):
     lo = torch.where(stay, edge, beta_prev)
     hi = torch.where(stay, edge, one)
     i = torch.zeros((), dtype=torch.int32, device=lo.device)
-    out, (_, n, lo_h, hi_h) = _run(loops, "ess_bracket", _bracket_body(group),
-                                   {"lo": lo, "hi": hi, "i": i, "done": ~_bracket_open(lo, hi, i)},
-                                   k, group, "lo", "hi")
-    return out["lo"], out["hi"], lo_h, hi_h, 2 + int(n)
+    out, read = _loop(loops, "ess_bracket", _bracket_body(group),
+                      {"lo": lo, "hi": hi, "i": i, "done": ~_bracket_open(lo, hi, i)},
+                      k, group, "lo", "hi")
+    crossing = out["lo"] != out["hi"] if read is None else read[0] != read[1]
+    return out["lo"], out["hi"], crossing, 2 + out["i"]
 
 
 def ess_bracket_loop(logl: torch.Tensor, bm: torch.Tensor, scal: torch.Tensor,
@@ -237,29 +266,33 @@ def ess_bracket_loop(logl: torch.Tensor, bm: torch.Tensor, scal: torch.Tensor,
     loops = loops or Loops(logl.device)
     k = {"logl": logl, "denom": bm, "keep": torch.isfinite(logl) & (bm != float("inf")),
          "target": scal[1]}
-    lo, hi, _, _, n = _bracket_search(k, scal[0], None, loops)
-    return torch.stack([lo, hi]), torch.full((1,), n, dtype=torch.int32, device=logl.device)
+    lo, hi, _, probes = _bracket_search(k, scal[0], None, loops)
+    return torch.stack([lo, hi]), probes.reshape(1)
 
 
 def _find_cv_beta(hist: History, denom, beta_prev, beta_high, cv_target: float, group=None,
                   loops: Optional[Loops] = None) -> torch.Tensor:
     """The beta of the CV target in [beta_prev, beta_high] (reweight.py:
     226-241): beta_high when the target is at or above CV(beta_high),
-    beta_prev when at or below CV(beta_prev), else the CV bisection."""
+    beta_prev when at or below CV(beta_prev), else the CV bisection, the
+    "cv_bisect" loop, whose initial `done` is that boundary test: in its
+    loop form (graphed, or inside a stretch) a WHILE node that runs no body
+    where a rule holds; in chunks the host reads the rules first (most
+    reweights end there) and runs the loop only where neither holds."""
     loops = loops or Loops(hist.logl.device)
+    device = hist.logl.device
     k = _consts(hist, denom, cv_target, METRIC_ATOL_CV)
     k["u"] = hist.u
     goal = k["target"]
     take_high = goal >= _cv(k, beta_high, group)
     stay = goal <= _cv(k, beta_prev, group)
-    PROBES["cv"] += 2
-    # Most reweights end on a boundary rule: one read of it, counted as the
-    # loop's, costs what the first chunk's read would and runs no probe.
-    if loops.read("cv_bisect", take_high | stay)[0]:
+    PROBES.add("cv", 2, device)
+    edge = take_high | stay
+    if not _loop_form(loops) and loops.read("cv_bisect", edge)[0]:  # counted as the loop's
         return torch.where(take_high, beta_high, beta_prev)
-    out, (_, n) = _run(loops, "cv_bisect", _metric_body(_cv, group, dynamic=True),
-                       _metric_carry(beta_prev, beta_high, take_high | stay), k, group)
-    PROBES["cv"] += int(n)
+    out, _ = _loop(loops, "cv_bisect", _metric_body(_cv, group, dynamic=True),
+                   _metric_carry(beta_prev, beta_high, edge), k, group)
+    PROBES.add("cv", out["i"], device)
     return torch.where(take_high, beta_high, torch.where(stay, beta_prev, out["beta"]))
 
 
@@ -276,23 +309,29 @@ def _sharded_ess_beta(hist: History, denom, beta_prev, ess_target: float, group,
     one = torch.ones_like(beta_prev)
     stay = _ess_unnormalized(k, beta_prev, group) <= k["target"]
     jump = _ess_unnormalized(k, one, group) >= k["target"]
-    out, (_, n) = _run(loops, "ess_sharded",
-                       _metric_body(_ess_unnormalized, group, dynamic=False),
-                       _metric_carry(beta_prev, one, stay | jump), k, group)
-    PROBES["ess_sharded"] += 2 + int(n)
+    out, _ = _loop(loops, "ess_sharded", _metric_body(_ess_unnormalized, group, dynamic=False),
+                   _metric_carry(beta_prev, one, stay | jump), k, group)
+    PROBES.add("ess_sharded", 2 + out["i"], hist.logl.device)
     return torch.where(stay, beta_prev, torch.where(jump, one, out["beta"]))
 
 
 def _dynamic_beta(hist: History, denom, beta_prev, ess_target: float, cv_target: float,
                   group=None, loops: Optional[Loops] = None) -> torch.Tensor:
     """The next beta in dynamic mode (reweight.py:225-241): without an ESS
-    crossing beta_low; else the CV rules inside the bracket."""
-    PROBES["reweights"] += 1
+    crossing beta_low; else the CV rules inside the bracket, a
+    `loops.when` on `crossing`: inside a stretch an IF node (the CV's
+    eigenvalue launches and probes only where the bracket crosses, as an
+    eager run makes them), elsewhere decided on the host."""
+    loops = loops or Loops(hist.logl.device)
+    PROBES.add("reweights", 1, hist.logl.device)
     beta_low, beta_high, crossing = _find_ess_bracket(hist, denom, beta_prev, ess_target, group,
                                                       loops)
-    if not crossing:
-        return beta_low
-    return _find_cv_beta(hist, denom, beta_prev, beta_high, cv_target, group, loops)
+
+    def cv_step(s: Tensors) -> Tensors:
+        return {"beta": _find_cv_beta(hist, denom, beta_prev, beta_high, cv_target, group,
+                                      loops)}
+
+    return loops.when(crossing, cv_step, {"beta": beta_low}, "cv_step")["beta"]
 
 
 def reweight(

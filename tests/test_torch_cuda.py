@@ -55,8 +55,8 @@ matrices in float32 and float64, within 16 d eps max|lambda|; the CV's
 rank decision equal; NaN out for a non-finite matrix; a launch captured in
 a graph replays to the eager launch's bits. Dynamic mode and a mesh of one rank
 over NCCL (in a process of its own) repeat `on_device=False` bit for bit
-with `on_device=True`; dynamic mode's ESS bracket is one launch of the ESS
-kernel's bracket mode a reweight.
+with `on_device=True`, the device run loop; dynamic mode's ESS bracket is
+one launch of the ESS kernel's bracket mode a reweight.
 
 The weighted-median kernel (`ops.cuda_median`, csrc/weighted_median.cu)
 equals its plain version (torch.cumsum's serial sums, the first crossing,
@@ -1261,36 +1261,40 @@ def test_sym_eigvals_replays_in_a_graph(cuda_device, d, dtype):
 
 @pytest.mark.cuda
 def test_dynamic_run_on_device_repeats_on_device_false(cuda_device):
-    """Dynamic mode on the fused route: graphed, it repeats the eager run
-    bit for bit; its ESS bracket is one launch of the ESS kernel's bracket
-    mode a reweight (no "ess_bracket" loop body, no ESS-mode launch); the
-    CV's eigenvalues come from the kernel, never torch.linalg.eigvalsh."""
-    from tempest_tpu_torch.ops import cuda_linalg
-
+    """Dynamic mode on the fused route: on the device run loop (its CV step
+    an IF node, its CV bisection a WHILE node) it repeats the eager run bit
+    for bit, with the same probes (device words); its ESS bracket is one
+    launch of the ESS kernel's bracket mode a reweight (no "ess_bracket"
+    loop body, no ESS-mode launch), counted inside the run loop's body;
+    the CV's eigenvalues come from the kernel, never
+    torch.linalg.eigvalsh."""
     def loglike(x):  # chained 4-D Rosenbrock
         return -torch.sum(100.0 * (x[..., 1:] - x[..., :-1] ** 2) ** 2
                           + (1.0 - x[..., :-1]) ** 2, dim=-1)
 
-    runs, launches, brackets = [], [], []
+    runs, launches, brackets, probes = [], [], [], []
     for on_device in (False, True):
         s = Sampler(lambda u: 20.0 * u - 10.0, loglike, n_dim=4, n_particles=256,
                     vectorize=True, clustering=False, volume_variation=1.0, random_state=2,
                     history_capacity=64, device=cuda_device)
-        assert s.state.fused
-        before = (cuda_linalg.LAUNCHES, cuda_reweight.BRACKET_LAUNCHES, cuda_reweight.LAUNCHES,
-                  rw_mod.PROBES["reweights"])
+        assert s.state.fused and s.state.run_route
+        before, probes_before = launch_counts(), dict(rw_mod.PROBES)
         s.run(n_total=1024, progress=False, on_device=on_device)
-        launches.append(cuda_linalg.LAUNCHES - before[0])
-        brackets.append(cuda_reweight.BRACKET_LAUNCHES - before[1])
-        assert cuda_reweight.LAUNCHES == before[2]
-        assert brackets[-1] == rw_mod.PROBES["reweights"] - before[3] == s.state.hist.t - 1 > 0
+        after = launch_counts()  # settled: the conditional bodies' launches counted
+        launches.append(after["sym_eigvals"] - before["sym_eigvals"])
+        brackets.append(after["ess_bracket"] - before["ess_bracket"])
+        probes.append({k: rw_mod.PROBES[k] - probes_before[k] for k in probes_before})
+        assert after["ess_bisect"] == before["ess_bisect"]
+        assert brackets[-1] == probes[-1]["reweights"] == s.state.hist.t - 1 > 0
         runs.append(s)
     (off, on), (r_off, r_on) = runs, (runs[0].results(), runs[1].results())
     for name in ("beta", "logz", "ess", "cv", "steps", "calls"):
         assert r_on[name].tobytes() == r_off[name].tobytes(), name
     assert on.beta == 1.0 and launches[0] == launches[1] > 0 and brackets[0] == brackets[1]
+    assert probes[0] == probes[1]
     stats = on.state._iteration.loops.stats
-    assert stats["ess_bracket"]["bodies"] == 0 and stats["mcmc"]["replays"] > 0
+    assert stats["ess_bracket"]["bodies"] == 0 and stats["run"]["replays"] > 0
+    assert stats["mcmc"]["node_bodies"] > 0 and not stats["cv_step"].get("reads")
 
 
 _MESH_RUN = textwrap.dedent("""
@@ -1298,6 +1302,7 @@ _MESH_RUN = textwrap.dedent("""
     import torch
     import torch.distributed as dist
     from tempest_tpu_torch import Sampler
+    from tempest_tpu_torch.loops import settle_launches
     from tempest_tpu_torch.parallel import make_particle_mesh
     from tempest_tpu_torch.parallel.distributed import initialize
 
@@ -1317,11 +1322,15 @@ _MESH_RUN = textwrap.dedent("""
                         vectorize=True, k_max=4, random_state=2, history_capacity=32,
                         device="cuda", mesh=mesh)
             s.run(n_total=1024, progress=False, on_device=on_device)
+            settle_launches()  # the conditional bodies' runs, counted
             r = s.results()
             stats = s.state._iteration.loops.stats
             rows.append({k: r[k].tobytes().hex() for k in ("beta", "logz", "steps")}
-                        | {"fused": s.state.fused, "beta1": s.beta,
-                           "replays": stats["ess_sharded"]["replays"]})
+                        | {"fused": s.state.fused, "route": s.state.run_route, "beta1": s.beta,
+                           "replays": stats["run"]["replays"],
+                           "sharded": stats["ess_sharded"].get("node_bodies", 0),
+                           "reads": sum(v.get("reads", 0) for k, v in stats.items()
+                                        if k != "run")})
         print("MESH " + json.dumps(rows))
     finally:
         dist.destroy_process_group()
@@ -1330,18 +1339,20 @@ _MESH_RUN = textwrap.dedent("""
 
 @pytest.mark.cuda
 def test_mesh_run_on_device_repeats_on_device_false(cuda_device):
-    """A particle mesh of one rank over NCCL (in a process of its own): the
-    sharded ESS bisection and the MCMC steps, their collectives captured
-    with the chunks, replay bit for bit."""
+    """A particle mesh of one rank over NCCL (in a process of its own):
+    run(on_device=True) is the device run loop, one replay, its sharded ESS
+    bisection and MCMC steps WHILE nodes with their collectives inside,
+    no read but the run's, bit for bit with on_device=False."""
     proc = subprocess.run([sys.executable, "-c", _MESH_RUN], capture_output=True, text=True,
                           timeout=600, cwd=Path(__file__).resolve().parents[1])
     line = [ln for ln in proc.stdout.splitlines() if ln.startswith("MESH ")]
     assert proc.returncode == 0 and line, proc.stdout + proc.stderr[-3000:]
     off, on = json.loads(line[0][5:])
-    assert off["fused"] and on["fused"] and on["beta1"] == 1.0
+    assert off["fused"] and on["fused"] and on["route"] and on["beta1"] == 1.0
     for k in ("beta", "logz", "steps"):
         assert on[k] == off[k], k
     assert on["replays"] > 0 and off["replays"] == 0
+    assert on["sharded"] > 0 and on["reads"] == 0
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,11 @@ times out after 60 s and every rank is killed after 120 s.
    shard) loads into a W = 2 port run, value for value, and the run goes
    on to beta = 1; the drill's W = 2 port file loads in JAX's
    `load_checkpoint_sharded` on an 8-device mesh, value for value.
+4. The device run loop under the mesh at W = 2 (`_w_run_loop`):
+   run(on_device=True) equals on_device=False bit for bit in ESS mode,
+   dynamic mode and with a history that fills; the iteration decided
+   inside a stretch equals the host-decided one; the warm-up patch
+   decided on the device equals the branch that read the host.
 """
 
 import math
@@ -151,6 +156,131 @@ def _w_sampler(mesh, rank, world, workdir, cases):
                 "u": float(np.max(np.abs(rows[-1][0]["u"] - rows[-1][1]["u"])))})
 
 
+
+
+def _digest(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+BISECTIONS = ("ess_sharded", "ess_bracket", "cv_bisect")
+RUN_LOOP_CASES = {"ess": {}, "dynamic": {"volume_variation": 0.05},
+                  "growth": {"history_capacity": 2}}
+
+
+def _old_sharded_patch(u, x, logl, blobs, inf_mask, patch_uniforms, group):
+    """The mesh's patch as it was, deciding on the host whether to patch."""
+    from tempest_tpu_torch.ops.tools import _psum
+    from tempest_tpu_torch.parallel.collective import gather_rows
+
+    dtype = u.dtype
+    n_global = patch_uniforms.shape[0]
+    n_finite = _psum(torch.sum(~inf_mask), group)
+    any_inf = n_finite < n_global
+    if bool(any_inf & (n_finite > 0)):
+        p = torch.where(inf_mask, torch.zeros_like(logl), torch.ones_like(logl))
+        p = p / n_finite.to(dtype)
+        arrays = [u.T[:, None], x.T[:, None], logl[None, None], blobs.T[:, None]]
+        rows = gather_rows(patch_uniforms, p[None], arrays, group)
+        u = torch.where(inf_mask[:, None], rows[0], u)
+        x = torch.where(inf_mask[:, None], rows[1], x)
+        logl = torch.where(inf_mask, rows[2][:, 0], logl)
+        blobs = torch.where(inf_mask[:, None], rows[3], blobs)
+    frac = n_finite.to(dtype) / n_global
+    return u, x, logl, blobs, torch.where(any_inf, torch.log(frac), torch.zeros((), dtype=dtype))
+
+
+def _w_run_loop(mesh, rank, world, workdir):
+    """run(on_device=True) under the mesh against on_device=False (each
+    RUN_LOOP_CASES row); the iteration with its decisions inside a stretch
+    against the host's; the patch without a host read against the old
+    branch."""
+    from tempest_tpu_torch.parallel.mesh import particle_group
+    from tempest_tpu_torch.steps import reweight as rw_mod
+    from tempest_tpu_torch.steps.mutate import _sharded_patch
+
+    for name, kw in RUN_LOOP_CASES.items():
+        runs = []
+        for on_device in (False, True):
+            s = _build(mesh, 6, **kw)
+            before = dict(rw_mod.PROBES)
+            s.run(n_total=512, progress=False, on_device=on_device)
+            res, stats = s.results(), s.state._iteration.loops.stats
+            runs.append({"route": s.state.run_route, "logz": s.logz, "beta": s.beta,
+                         "t": s.state.hist.count(), "capacity": s.state.hist.capacity,
+                         "local_n": s.state.hist.u.shape[2],
+                         "run_reads": stats["run"]["reads"] if "run" in stats else 0,
+                         "cv_bodies": stats["cv_bisect"]["bodies"],
+                         "probes": {k: rw_mod.PROBES[k] - before[k] for k in before},
+                         **{f"bits_{k}": _digest(res[k]) for k in (
+                             "beta", "logz", "steps", "calls", "u", "logl", "ess", "cv")}})
+        report({"case": f"run_loop_{name}", "runs": runs})
+
+    from tempest_tpu_torch.draws import BlockDraws, Draws
+
+    class KeyedDraws(Draws):
+        KEYED_ON_CPU = True
+
+    def device_words(core):  # as the run loop carries them (tests/test_torch_fused_run.py)
+        core.cur.iteration = torch.tensor(core.cur.iteration, dtype=torch.int64)
+        core.cur.steps = torch.as_tensor(core.cur.steps, dtype=torch.int32)
+        core.cur.calls = torch.as_tensor(core.cur.calls, dtype=torch.int32)
+        core.cluster_model.fitted = torch.tensor(bool(core.cluster_model.fitted))
+        core.hist.t_host = None
+
+    def host_words(core):
+        core.cur.iteration = int(core.cur.iteration)
+        core.cluster_model.fitted = bool(core.cluster_model.fitted)
+        core.hist.t_host = int(core.hist.t)
+
+    for name, kw in (("ess", {}), ("dynamic", {"volume_variation": 0.05})):
+        host, dev = (_build(mesh, 8, **kw).state for _ in range(2))
+        for core in (host, dev):  # keyed: a draw in an untaken branch counts nothing
+            core.draws = BlockDraws(KeyedDraws(8, "cpu"), rank, world)
+        dev._iteration.loops.counters = [dev.draws.calls]
+        host.execute_iteration()
+        dev.execute_iteration()
+        same = []
+        for _ in range(6):
+            host.execute_iteration()
+            device_words(dev)
+            with dev._iteration.loops.stretch():
+                dev.hist, dev.cur, dev.cluster_model = dev._iteration(
+                    dev.draws, dev.hist, dev.cur, dev.cluster_model)
+            host_words(dev)
+            same.append(all(torch.equal(getattr(host.hist, f), getattr(dev.hist, f))
+                            for f in ("u", "x", "logl", "mis_c", "beta", "logz", "ess", "cv")))
+        stats = dev._iteration.loops.stats
+        report({"case": f"decisions_{name}", "same": same,
+                "beta": float(dev.hist.beta[dev.hist.count() - 1]),
+                "chunks": sum(stats[k].get("chunks", 0) for k in BISECTIONS),
+                "bodies": sum(stats[k].get("bodies", 0) for k in BISECTIONS)})
+
+    group = particle_group(mesh, "particles")
+    rng = np.random.default_rng(3)
+    n_loc, d = 8, 3
+    rows = {}
+    for name, n_inf in (("some_inf", 5), ("none_inf", 0), ("all_inf", 8 * world)):
+        u = rng.uniform(size=(8 * world, d)).astype(np.float32)
+        logl = rng.normal(size=8 * world).astype(np.float32)
+        logl[rng.choice(8 * world, n_inf, replace=False)] = -np.inf
+        blobs = rng.normal(size=(8 * world, 2)).astype(np.float32)
+        patch = torch.from_numpy(rng.uniform(size=8 * world).astype(np.float32))
+        mine = slice(rank * n_loc, (rank + 1) * n_loc)
+        args = (torch.from_numpy(u[mine]), torch.from_numpy(2.0 * u[mine]),
+                torch.from_numpy(logl[mine]), torch.from_numpy(blobs[mine]))
+        inf_mask = torch.isinf(args[2])
+        got = _sharded_patch(*args, inf_mask, patch, group)
+        want = _old_sharded_patch(*args, inf_mask, patch, group)
+        patched = torch.sum(got.logl != args[2]).reshape(1)
+        torch.distributed.all_reduce(patched, group=group)
+        rows[name] = {"equal": all(torch.equal(a, b) for a, b in zip(
+                          (got.u, got.x, got.logl, got.blobs, got.logz_correction), want)),
+                      "patched": int(patched[0]),
+                      "finite": bool(torch.all(torch.isfinite(got.logl))),
+                      "logz_correction": float(got.logz_correction)}
+    report({"case": "patch", "rows": rows})
 
 
 def _drill_sampler(mesh, seed):
@@ -340,6 +470,54 @@ def test_dynamic_mode_under_the_mesh(sampler_runs):
     assert abs(r["logz"] - ANALYTIC_LOGZ) < 0.5
 
 
+@pytest.fixture(scope="module")
+def run_loop_runs(tmp_path_factory):
+    """{case: [each rank's row]} of `_w_run_loop` at W = 2."""
+    return by_case(spawn(__file__, "run_loop", 2, tmp_path_factory.mktemp("run_loop")))
+
+
+@pytest.mark.parametrize("name", sorted(RUN_LOOP_CASES))
+def test_mesh_run_loop_equals_on_device_false(run_loop_runs, name):
+    """At W = 2, run(on_device=True) under the mesh takes the device run loop
+    (on the CPU a Python loop reading its predicate, the run predicate's ESS
+    reduced over the ranks) and equals on_device=False bit for bit (beta,
+    logZ, steps, calls, u, logl, ESS, CV) with the same probes: ESS mode,
+    dynamic mode (CV bisections run) and a history that fills and grows
+    on each rank's block."""
+    off, on = _same_on_every_rank(run_loop_runs[f"run_loop_{name}"])["runs"]
+    assert off["route"] and on["route"] and on["run_reads"] > 0 and off["run_reads"] == 0
+    assert on == dict(off, run_reads=on["run_reads"])
+    assert on["beta"] == 1.0 and abs(on["logz"] - ANALYTIC_LOGZ) < 0.5
+    assert on["local_n"] == 128
+    if name == "dynamic":
+        assert on["cv_bodies"] > 0 and on["probes"]["reweights"] == on["t"] - 1
+    if name == "growth":
+        assert on["capacity"] > 2 and on["t"] > 2
+
+
+@pytest.mark.parametrize("name", ["ess", "dynamic"])
+def test_mesh_device_decisions_equal_host_decisions(run_loop_runs, name):
+    """At W = 2 the iteration with its decisions inside a stretch (the
+    sharded ESS bisection, dynamic mode's bracket and CV bisection as
+    `Loops.repeat`, the CV step and the branches as `loops.when`, each
+    collective run on every rank alike) writes the host-decided
+    iteration's history bit for bit, six iterations past the first."""
+    r = _same_on_every_rank(run_loop_runs[f"decisions_{name}"])
+    assert r["same"] == [True] * 6 and r["beta"] > 0.0
+    assert r["chunks"] == 0 and r["bodies"] > 0  # the bisections in their loop form
+
+
+def test_mesh_patch_decides_on_the_device(run_loop_runs):
+    """The mesh's warm-up patch without a host read equals the old branch,
+    bit for bit, where rows are infinite (patched), where none is
+    (unchanged) and where all are (unchanged, logZ's correction -inf)."""
+    rows = _same_on_every_rank(run_loop_runs["patch"])["rows"]
+    assert all(r["equal"] for r in rows.values()), rows
+    assert rows["some_inf"]["patched"] == 5 and rows["some_inf"]["finite"]
+    assert rows["none_inf"]["patched"] == 0 and rows["none_inf"]["logz_correction"] == 0.0
+    assert rows["all_inf"]["patched"] == 0 and rows["all_inf"]["logz_correction"] == -math.inf
+
+
 def _jax_gaussian(x):
     import jax.numpy as jnp
 
@@ -457,4 +635,4 @@ def test_workers_import_no_jax():
 
 if __name__ == "__main__":
     worker_main({"sampler": _w_sampler, "anneal": _w_anneal, "drill": _w_drill,
-                 "teardown": _w_teardown})
+                 "teardown": _w_teardown, "run_loop": _w_run_loop})

@@ -15,7 +15,13 @@
    mode (`ops.cuda_reweight.ess_bracket` on CPU tensors) equals the
    "ess_bracket" loop bit for bit, probes included, and JAX's
    `_find_ess_bracket` within 1e-5 (relative), on the same histories.
-3. Whole runs on the CPU: the checks of tests/test_dynamic.py on the
+3. The loop form with the decisions on the device, as the body of the
+   device run loop takes them: each case inside a stretch (`Loops.stretch`:
+   the CV step a `loops.when` on the device bool `crossing`, the bisections
+   `Loops.repeat`, run to their end on the CPU): JAX's values at the
+   tolerances of 1, bits equal to the chunked form's (beta, weights, ESS,
+   CV, logZ), the same `PROBES`, no chunk run and no decision read.
+4. Whole runs on the CPU: the checks of tests/test_dynamic.py on the
    port, with per-point likelihoods (the default call form).
 """
 
@@ -177,6 +183,44 @@ def test_probes_are_counted():
     assert after["reweights"] == before["reweights"] + 1
     assert after["ess_bracket"] - before["ess_bracket"] >= 3  # ESS(beta_prev), ESS(1), a probe
     assert after["cv"] - before["cv"] >= 1
+
+
+def _probes_of(fn):
+    """`fn()` and the `PROBES` it added."""
+    before = dict(rw_mod.PROBES)
+    out = fn()
+    return out, {k: rw_mod.PROBES[k] - before[k] for k in before}
+
+
+@pytest.mark.parametrize("fill,seed,contract,ess_mult,cv_target", CASES)
+def test_loop_form_with_device_decisions(fill, seed, contract, ess_mult, cv_target):
+    """The reweight inside a stretch, as the device run loop's body runs
+    it: `crossing` a device bool, the CV step a `loops.when` on it, the
+    bracket and the CV bisection `Loops.repeat` (no chunk, no read of a
+    decision): JAX's values, the chunked form's bits and probes."""
+    hist, th, beta_prev, target, want, _ = _run_case(fill, seed, contract, ess_mult, cv_target)
+    chunks, p_chunks = _probes_of(lambda: reweight(
+        th, torch.tensor(beta_prev), target, cv_target=cv_target, dynamic=True,
+        loops=Loops("cpu", {"ess_bracket": 8, "cv_bisect": 8})))
+    loops = Loops("cpu")
+
+    def device_form():
+        with loops.stretch():
+            return reweight(th, torch.tensor(beta_prev), target, cv_target=cv_target,
+                            dynamic=True, loops=loops)
+
+    got, p_loop = _probes_of(device_form)
+    bj = float(want.beta)
+    assert abs(float(got.beta) - bj) <= 1e-5 * max(abs(bj), 1e-30)
+    np.testing.assert_allclose(float(got.ess), float(want.ess), rtol=1e-5)
+    np.testing.assert_allclose(float(got.logz), float(want.logz), atol=1e-5)
+    np.testing.assert_allclose(float(got.cv), float(want.cv), rtol=1e-4)
+    for name in ("beta", "weights", "ess", "cv", "logz"):
+        assert torch.equal(getattr(got, name), getattr(chunks, name)), name
+    assert p_loop == p_chunks and p_loop["reweights"] == 1 and p_loop["ess_bracket"] >= 2
+    assert all(not v.get("chunks") for v in loops.stats.values()), dict(loops.stats)
+    assert not loops.stats["cv_step"].get("reads"), dict(loops.stats)
+    assert {"ess_bracket", "cv_step"} <= set(loops._names)  # the bracket's loop, the CV's IF
 
 
 # ---------------------------------------------------------------------------

@@ -299,10 +299,10 @@ def test_fused_route_by_configuration(extra, fused, request):
     s = Sampler(_prior, _bimodal_t, n_dim=D, n_particles=N, vectorize=True, device="cpu",
                 **extra)
     assert s.state.fused == fused
-    # run(on_device=True) takes the device run loop on one device in ESS
-    # mode and float32; the rest keep the per-iteration route
-    runs = (fused and "mesh" not in extra and "volume_variation" not in extra
-            and extra.get("dtype", torch.float32) == torch.float32)
+    # run(on_device=True) takes the device run loop in float32, on one
+    # device or a mesh, in ESS or dynamic mode; the rest keep the
+    # per-iteration route
+    runs = fused and extra.get("dtype", torch.float32) == torch.float32
     assert run_route(cfg) == s.state.run_route == runs
 
 

@@ -16,13 +16,16 @@
    and logZ within 1e-5, the committed rows within 1e-4, as
    tests/test_torch_slice.py); the whole run ends at beta = 1 with logZ
    within 0.5 of JAX's (the runs part after a few iterations, as float32
-   chains in another summation order do).
+   chains in another summation order do). The same in dynamic mode, CV
+   bisections included (CV within 1e-4 relative).
 4. The run loop against the per-iteration route, bit for bit on the CPU:
    clustered (`cluster_every` 1 and 3), unclustered, `hardware_prng`, a
-   capacity that fills and grows mid-run; and the iteration with its
-   decisions taken on the device (inside a stretch: every branch runs and
-   `torch.where` selects, as a capture's warm-up runs them) against the
-   host's decisions, the warm-up branch taken at t >= 1 included.
+   capacity that fills and grows mid-run, dynamic mode with and without
+   that; and the iteration with its decisions taken on the device (inside
+   a stretch: every branch runs and `torch.where` selects, as a capture's
+   warm-up runs them, and the bisections run as `Loops.repeat`) against
+   the host's decisions, the warm-up branch taken at t >= 1 and dynamic
+   mode's CV step included, with the same probes.
 5. Keyed warm-up and resampling uniforms: the Philox formula
    (`philox.uniform`) at the counter; a draw inside an untaken conditional
    body leaves the counter where it was.
@@ -46,6 +49,7 @@ from tempest_tpu_torch.fused import run_predicate
 from tempest_tpu_torch.loops import Loops
 from tempest_tpu_torch.ops import philox
 from tempest_tpu_torch.ops.tools import logsumexp
+from tempest_tpu_torch.steps import reweight as rw_mod
 
 torch.set_num_threads(1)
 
@@ -248,6 +252,38 @@ def test_run_route_against_jax_make_fused_run():
     assert abs(tsamp.evidence()[0] - float(jsamp.evidence()[0])) < 0.5
 
 
+def test_dynamic_run_route_against_jax_make_fused_run():
+    """Dynamic mode: JAX's whole run (`make_fused_run`, its bracket and CV
+    bisection inside the run's `while_loop`) and the port's run loop on
+    JAX's key chain, a 3-D Gaussian, N = 128: the first iterations agree
+    value for value (CV bisections among them), CV included, at the
+    tolerances of the ESS-mode test."""
+    d, n = 3, 128
+    kw = dict(n_dim=d, n_particles=n, vectorize=True, clustering=False, random_state=7,
+              history_capacity=32, volume_variation=0.05)
+    jsamp = JaxSampler(lambda u: 20.0 * u - 10.0, lambda x: -0.5 * jnp.sum(x * x, axis=-1), **kw)
+    key = jsamp.state.key
+    jsamp.run(n_total=512, progress=False, on_device=True)
+    tsamp = Sampler(lambda u: 20.0 * u - 10.0, lambda x: -0.5 * torch.sum(x * x, dim=-1),
+                    device="cpu", **kw)
+    assert tsamp.state.run_route
+    tsamp.state.draws = JaxRunDraws(key)
+    tsamp.run(n_total=512, progress=False, on_device=True)
+    stats = tsamp.state._iteration.loops.stats
+    assert stats["run"]["reads"] > 0 and stats["cv_bisect"]["bodies"] > 0  # CV bisections ran
+    r_j, r_t = jsamp.results(), tsamp.results()
+    first = 8
+    assert np.all(r_t["beta"][:2] == 0.0) and r_t["beta"][first - 1] > 0.0
+    np.testing.assert_allclose(r_t["beta"][:first], r_j["beta"][:first], atol=1e-5)
+    np.testing.assert_allclose(r_t["logz"][:first], r_j["logz"][:first], atol=1e-5)
+    np.testing.assert_allclose(r_t["cv"][:first], r_j["cv"][:first], rtol=1e-4, atol=1e-7)
+    np.testing.assert_array_equal(r_t["steps"][:first], r_j["steps"][:first])
+    np.testing.assert_allclose(r_t["u"][:first], r_j["u"][:first], atol=1e-4)
+    np.testing.assert_allclose(r_t["logl"][:first], r_j["logl"][:first], atol=1e-4, rtol=1e-5)
+    assert tsamp.beta == 1.0 and float(jsamp.beta) == 1.0
+    assert abs(tsamp.evidence()[0] - float(jsamp.evidence()[0])) < 0.5
+
+
 # ---------------------------------------------------------------------------
 # 4. The run loop against the per-iteration route
 # ---------------------------------------------------------------------------
@@ -263,6 +299,8 @@ CASES = {
     "unclustered": dict(clustering=False),
     "hardware_prng": dict(clustering=True, k_max=4, hardware_prng=True),
     "capacity_fills": dict(clustering=False, history_capacity=4),
+    "dynamic": dict(clustering=False, volume_variation=0.03),
+    "dynamic_capacity_fills": dict(clustering=False, volume_variation=0.03, history_capacity=4),
 }
 
 
@@ -284,19 +322,23 @@ def test_run_loop_equals_the_per_iteration_route(case):
     assert off.state.cur.iteration == on.state.cur.iteration == on.state.hist.count()
     assert isinstance(on.state.cur.iteration, int)
     assert bool(on.state.cluster_model.fitted) == bool(off.state.cluster_model.fitted)
-    if case == "capacity_fills":
+    if case.endswith("capacity_fills"):
         assert on.state.hist.capacity > 4
+    if case.startswith("dynamic"):  # CV bisections ran inside the run loop
+        assert on.state._iteration.loops.stats["cv_bisect"]["bodies"] > 0
     s_off, s_on = off.state.draws.get_state(), on.state.draws.get_state()
     assert all(np.array_equal(s_off[k], s_on[k]) for k in s_off)
 
 
-@pytest.mark.parametrize("case", ["clustered", "cluster_every_3", "unclustered"])
+@pytest.mark.parametrize("case", ["clustered", "cluster_every_3", "unclustered", "dynamic"])
 def test_device_decisions_equal_host_decisions(case):
     """Each iteration of a run on keyed draws, taken once with the host's
     decisions and once inside a stretch (`cur.beta == 0`, the cadence on the
-    device words of the iteration counter and `model.fitted`: every branch
-    runs, `torch.where` selects, draws in an untaken branch count nothing):
-    the same bits, the second iteration's warm-up branch at t = 1 included."""
+    device words of the iteration counter and `model.fitted`, dynamic
+    mode's CV step on the bracket's `crossing`: every branch runs,
+    `torch.where` selects, draws and probes in an untaken branch count
+    nothing; the bisections run as `Loops.repeat`): the same bits and
+    probes, the second iteration's warm-up branch at t = 1 included."""
     samplers = []
     for _ in range(2):
         s = Sampler(lambda u: 8.0 * u - 4.0, _bimodal, n_dim=2, n_particles=64,
@@ -309,14 +351,19 @@ def test_device_decisions_equal_host_decisions(case):
     host.execute_iteration()  # t = 0: the first iteration's values, on the host
     dev.execute_iteration()
     warmups_at_t = []
+    probes = []
     for _ in range(7):
         t = host.hist.count()
+        before = dict(rw_mod.PROBES)
         host.execute_iteration()
+        middle = dict(rw_mod.PROBES)
         device_words(dev)
         with dev._iteration.loops.stretch():
             dev.hist, dev.cur, dev.cluster_model = dev._iteration(
                 dev.draws, dev.hist, dev.cur, dev.cluster_model)
         host_words(dev)
+        probes.append([{k: b[k] - a[k] for k in a}
+                       for a, b in ((before, middle), (middle, dict(rw_mod.PROBES)))])
         if host.compute_results()["beta"][-1] == 0.0:
             warmups_at_t.append(t)
         r_h, r_d = host.compute_results(), dev.compute_results()
@@ -329,6 +376,11 @@ def test_device_decisions_equal_host_decisions(case):
         for f in ("centers", "covariances", "k_mask"):
             assert torch.equal(getattr(host.cluster_model, f), getattr(dev.cluster_model, f))
     assert 1 in warmups_at_t and host.compute_results()["beta"][-1] > 0.0
+    assert all(h == d for h, d in probes), probes
+    if case == "dynamic":  # the CV step's bisection ran inside the stretch
+        assert sum(h["reweights"] for h, _ in probes) == 7
+        assert dev._iteration.loops.stats["cv_bisect"]["bodies"] > 0
+        assert not dev._iteration.loops.stats["cv_step"].get("reads")
 
 
 def device_words(core):
