@@ -70,7 +70,20 @@ lines and a failure exits non-zero:
     and one synchronized call of each kernel split into wrapper, launch,
     device and sync time, through the public functions and, for the three
     kernels a draws object launches, through its call counter's words
-    (`cuda_prng.PhiloxCounter`);
+    (`cuda_prng.PhiloxCounter`); then the four float64 kernels
+    (`tempest_uniform_f64`, `tempest_normal_f64`, `tempest_gamma_f64`,
+    `tempest_mutation_draws_f64`, which replace XLA's threefry draws in
+    double) through a `PhiloxCounter`'s device words from a call index
+    whose gamma draws' 33 calls cross 2^32, at the paths' shapes (A's
+    mutation draws (8, 1024, 10) and a ragged (8, 1000, 10), the warm-up's
+    (1024, 10) and (1024,) and B's (131,072) uniforms, B's 10,485,760
+    normals, gamma draws at 131,072 and 1,001 for every alpha of the
+    float32 checks): the uniforms bit for bit, the normals and gamma draws
+    within DRAW_TOL_F64, at most MAX_FLIPS_F64 gamma flips a call, one
+    launch a call; their moments; their device and call times beside
+    their plain versions', `randn`, `rand` and `_standard_gamma` in
+    float64, and their bounds (the double functions' instructions counted
+    from the SASS probe of phase 2);
  4b. the eigenvalue kernel (csrc/sym_eigvals.cu, which replaces XLA's
     eigvalsh of the CV, not a Pallas kernel) against torch.linalg.eigvalsh
     of the float64 copy on SPD, indefinite, rank-deficient and diagonal
@@ -231,21 +244,31 @@ lines and a failure exits non-zero:
     mode under the profiler, held to 6b's rule, and a whole run on the run
     loop (`run_window`); then a 2-D narrow Gaussian at volume_variation=0.03
     whose CV steps reach the bisection, on the run loop bit for bit with
-    on_device=False, CV-bisection WHILE bodies run;
+    on_device=False, CV-bisection WHILE bodies run; then rosenbrock10_cv in
+    float64 (`float64_on_loop`), eagerly and on the run loop, bit for bit,
+    one replay and one read, logZ inside the anchor;
 13. the refit cadence, C with cluster_every=3 (on_device=False and True,
     bit for bit, as C), and a host likelihood: the 10-D Gaussian as a
     numpy per-point function with host_likelihood=True;
-14. float64: A at dtype=torch.float64 with hardware_prng=True, seed 42, with
-    `run(on_device=False)` and `run(on_device=True)`, bit for bit, its
-    loops and cluster fits replayed as graphs (one
-    float64 ESS launch per reweight and no PRNG launch: the flag does not
-    apply to float64, as in JAX), its wall beside phases 6 and 6b's seed 42; B at
-    float64 through its first four mutation iterations (no launch of any of
-    the four PRNG kernels), and the float64 ESS kernel at its S = 1,048,576
-    against the plain version; the 4-D Gaussian
-    of tests/test_float64.py with its bars; the mixture facades on the card
-    (GaussianMixture of each covariance type on two blobs,
-    HierarchicalGaussianMixture splitting them, predict_proba summing to 1);
+14. float64, every draw keyed on the `_f64` kernels: A at
+    dtype=torch.float64, seed 42, with `run(on_device=False)` and, with
+    each hardware_prng on a sampler whose seed-43 run captured the graph,
+    `run(on_device=True)`, the device run loop (`float64_on_loop`), each
+    bit for bit with the eager run (ladder, logZ, steps, calls, launches less the eager
+    chunks' steps past the stop, the final draw state), one replay and one
+    read a run, the MCMC chain a WHILE node with no read, one float64 ESS
+    launch a reweight, one mutation_draws_f64 launch a step body, logZ in
+    the clustered band; the two flags the same bits (the flag does not
+    apply to float64, as in JAX); walls beside phases 6 and 6b's seed 42;
+    B in float64 through its first four mutation iterations, eagerly and
+    graphed, bit for bit, one normal_f64, gamma_f64 and uniform_f64 launch
+    a step body and no generator draw (its offset unmoved), the
+    normal_f64 kernel at B's R*N*d and the float64 ESS kernel at its
+    S = 1,048,576 against their plain versions; the 4-D Gaussian of
+    tests/test_float64.py with its bars, eagerly and on the run loop; the
+    mixture facades on the card (GaussianMixture of each covariance type
+    on two blobs, HierarchicalGaussianMixture splitting them,
+    predict_proba summing to 1);
 15. the particle mesh at world size 1 over NCCL (`parallel.distributed.
     initialize` on a free local port): `sharded_resample` on A's history
     shape against the unsharded resampler ("mult" and "syst", the same
@@ -267,7 +290,9 @@ lines and a failure exits non-zero:
     to 6b's rule and a whole run on the run loop; then A under the mesh
     with hardware_prng=True, on_device=False and True: bit for bit, one
     mutation-draws launch a step body, the call counter's device words
-    equal to its host mirror. The process group is destroyed at the end
+    equal to its host mirror; then A under the mesh in float64 eagerly and
+    on the run loop (`float64_on_loop`), bit for bit, one replay and one
+    read. The process group is destroyed at the end
     of the phase, whatever happens in it, after its mesh and samplers;
 16. rosenbrock100: benchmarks/suite.py's 100-D configuration (chained
     Rosenbrock, U(-10, 10), n_particles=2048, n_total=4096,
@@ -290,7 +315,8 @@ drives the path and reads them just after. Each run of A (phases 5, 6,
 6b's reference, 14) and each B iteration launches the weighted-median
 kernel once a mode fit (fits counted by wrapping modes.py's). A kernel's `launches` in the
 table is its count on one path (`launches_on`), and must be above 0 (the
-bits kernel's is B's uniform mode, one an MCMC step). The last three lines
+bits kernel's is B's uniform mode, one an MCMC step; the float64 kernels'
+are A's and B's in float64, phase 14). The last three lines
 are the total wall, the kernel table and {"ok": true, "device": {...}}.
 
 Without a GPU, or without the rest of the repository beside it, the
@@ -440,6 +466,14 @@ BETA_MATCH_RTOL = 1e-6
 TIMED_CALLS = 50
 DRAW_TOL = 1e-5  # normals and uniforms, absolute; gamma draws, relative
 MAX_FLIP_SHARE = 1e-4  # gamma draws whose accept test may fall the other way
+# The float64 draw kernels against their plain versions on the card: the
+# uniforms bit for bit (exact integer arithmetic); the normals (absolute) and
+# the gamma draws (relative) within DRAW_TOL_F64, the same double operations
+# rounded alike but for the last bits of log, sqrt, sincos, cos and pow; at
+# most MAX_FLIPS_F64 gamma draws in a call whose accept test falls the other
+# way.
+DRAW_TOL_F64 = 1e-12
+MAX_FLIPS_F64 = 1
 # B: benchmarks/results/hw_prng_e2e.json
 B_PARTICLES, B_CAPACITY, B_MUTATIONS = 131072, 8, 4
 # One H100 SXM at 700 W (NVIDIA's data sheet): HBM at 3.35 TB/s, 132 SMs at
@@ -861,6 +895,16 @@ extern "C" __global__ void copy_f32(const float* x, float* y) { y[I] = x[I]; }
 extern "C" __global__ void exp_f32(const float* x, float* y) { y[I] = expf(x[I]); }
 extern "C" __global__ void copy_f64(const double* x, double* y) { y[I] = x[I]; }
 extern "C" __global__ void exp_f64(const double* x, double* y) { y[I] = exp(x[I]); }
+extern "C" __global__ void log_f64(const double* x, double* y) { y[I] = log(x[I]); }
+extern "C" __global__ void sqrt_f64(const double* x, double* y) { y[I] = sqrt(x[I]); }
+extern "C" __global__ void cos_f64(const double* x, double* y) { y[I] = cos(x[I]); }
+extern "C" __global__ void sincos_f64(const double* x, double* y) {
+  double s, c;
+  sincos(x[I], &s, &c);
+  y[I] = s + c;
+}
+extern "C" __global__ void pow_f64(const double* x, double* y) { y[I] = pow(x[I], x[I + 1]); }
+extern "C" __global__ void div_f64(const double* x, double* y) { y[I] = 1.0 / x[I]; }
 '''
 # Moves of constants (hoisted out of a loop), uniform-datapath, control and
 # memory instructions: not counted as a sample's arithmetic.
@@ -913,6 +957,29 @@ def _counts(instrs: list) -> list:
             continue
         c[_sass_class(op)] += 1
     return c
+
+
+# The float64 functions of the float64 draw kernels, counted from the SASS
+# as exp is: (32-bit integer, float32, float64) instructions of each, set
+# and printed in phase 2. The bounds take F64_EST instead, CUDA's double
+# functions as sequences of about this many instructions, estimated low:
+# the probes' straight-line counts of sqrt, the division and pow lie above
+# them (on an NVIDIA H100 80GB HBM3: (11, 2, 24), (8, 1, 25), (42, 6, 91)),
+# while log, cos and sincos branch before their main path, so `_fast_path`
+# cuts log's body out and keeps sincos's wide-argument reduction in.
+F64_FUNCTIONS = ("log", "sqrt", "cos", "sincos", "pow", "div")
+F64_FN = {}
+F64_EST = {"log": (2, 0, 20), "sqrt": (2, 1, 8), "cos": (4, 0, 14), "sincos": (6, 0, 24),
+           "pow": (6, 0, 40), "div": (2, 1, 8)}
+
+
+def sass_f64_counts(sass: str) -> dict:
+    """(int, f32, f64) instructions of each of F64_FUNCTIONS in float64:
+    its probe's straight-line arithmetic less the copy probe's."""
+    fns = _sass_functions(sass)
+    c = _counts(fns["copy_f64"])
+    return {name: tuple(max(a - b, 0) for a, b in zip(_counts(fns[f"{name}_f64"]), c))
+            for name in F64_FUNCTIONS}
 
 
 def sass_exp_counts(sass: str) -> dict:
@@ -1064,6 +1131,7 @@ def phase_build() -> dict:
                           capture_output=True, text=True, timeout=120)
     check(dump.returncode == 0, f"cuobjdump failed: {dump.stderr}")
     exp = sass_exp_counts(dump.stdout)
+    F64_FN.update(sass_f64_counts(dump.stdout))
     for t, (i, f, d) in exp.items():
         ESS_SAMPLE_PROBE[t] = (ESS_SAMPLE_OTHER[0] + i, f + (ESS_SAMPLE_OTHER[1] if t == "f32" else 0),
                                d + (ESS_SAMPLE_OTHER[1] if t == "f64" else 0))
@@ -1073,6 +1141,8 @@ def phase_build() -> dict:
     print(f"SASS of exp (32-bit integer, float32, float64 instructions of its straight-line path, "
           f"sm_90a): float32 {exp['f32']}, float64 {exp['f64']}; the ESS kernel per sample and "
           f"probe: {ESS_SAMPLE_PROBE}", flush=True)
+    print(f"SASS of the float64 draw kernels' functions (the same counts; their bounds take "
+          f"the low estimates {json.dumps(F64_EST)}): {json.dumps(F64_FN)}", flush=True)
     reports, spilled = {}, []
     for lib, proc in ptxas:
         out, err = proc.communicate()
@@ -1768,6 +1838,284 @@ def phase_gamma_kernel(device, key) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4, float64: the four float64 draw kernels
+# ---------------------------------------------------------------------------
+# The float64 draws at the main paths' shapes: A's mutation draws and a
+# ragged shape; A's warm-up (1024, 10) and (1024,) and resampling (1024,)
+# uniforms, and B's (131,072); B's normals (10,485,760) and gamma draws
+# (131,072). Drawn through a `PhiloxCounter`'s device words from a call
+# index whose gamma draws' 33 calls cross 2^32.
+F64_MUTATION_SHAPES = MUTATION_SHAPES[:2]
+F64_UNIFORM_SHAPES = ((N_PARTICLES, N_DIM), (N_PARTICLES,), (B_PARTICLES,))
+F64_COUNTER = (1 << 32) - 3
+# A 53-bit uniform from two words: shifts, an or, a 64-bit add (32-bit
+# integer instructions), the conversion and a product (float64 pipe).
+UNIT53 = (5, 0, 2)
+
+
+def _f64(*names_or_tuples):
+    """(int, f32, f64) of the sum of F64_EST entries and explicit tuples."""
+    parts = [F64_EST[t] if isinstance(t, str) else t for t in names_or_tuples]
+    return tuple(sum(p[i] for p in parts) for i in range(3))
+
+
+def f64_pair_uniform():
+    """One Philox block to two float64 uniforms."""
+    return _f64((PHILOX_INT, 0, 0), UNIT53, UNIT53)
+
+
+def f64_pair_normal():
+    """One Philox block to two float64 normals: two uniforms, a log, a sqrt,
+    a sincos and four products."""
+    return _f64(f64_pair_uniform(), "log", "sqrt", "sincos", (0, 0, 4))
+
+
+def f64_mt_test():
+    """A walker's Marsaglia-Tsang test in double: two logs, the cube and
+    about 12 sums, products, compares and selects."""
+    return _f64("log", "log", (0, 0, 12))
+
+
+def f64_mt_setup():
+    return _f64("sqrt", "div", (0, 0, 4))
+
+
+def f64_mt_boost():
+    return _f64(UNIT53, "div", "pow", (0, 0, 2))
+
+
+def f64_rounds(counter: int, key, alpha: torch.Tensor, mutation: bool) -> torch.Tensor:
+    """The Marsaglia-Tsang rounds each walker's float64 draw needs (its
+    first accepted round + 1, or all 16), from the plain version's draws:
+    the gamma kernel's layout, or the mutation draws' (`mutation`)."""
+    n, dev = alpha.numel(), alpha.device
+    _, d, c = philox.mt_setup(alpha.reshape(-1))
+    need = torch.full((n,), philox.MT_ROUNDS_F64, dtype=torch.int64, device=dev)
+    undecided = torch.ones(n, dtype=torch.bool, device=dev)
+    zc, uc, _ = philox.gamma_counters(counter, philox.MT_ROUNDS_F64)
+    for r in range(philox.MT_ROUNDS_F64):
+        if mutation:
+            w0, w1, w2, w3 = philox._blocks(n, philox.STREAM_GAMMA_ROUND0 + 2 * r, counter, key,
+                                            dev)
+            z = torch.sqrt(-2.0 * torch.log(philox.unit53(w0, w1))) * torch.cos(
+                philox.TWO_PI * philox.unit53(w2, w3))
+            a0, a1, _, _ = philox._blocks(n, philox.STREAM_GAMMA_ROUND0 + 2 * r + 1, counter, key,
+                                          dev)
+            u = philox.unit53(a0, a1)
+        else:
+            z = philox.normal_f64(key, zc[r], n, dev)
+            u = philox.uniform_f64(key, uc[r], n, dev)
+        ok, _ = philox.mt_accept(z, u, d, c)
+        need = torch.where(undecided & ok, r + 1, need)
+        undecided &= ~ok
+        if not bool(undecided.any()):
+            break
+    return need
+
+
+def f64_gamma_bound(key, counter: int, alpha: torch.Tensor):
+    """((least ms, what bounds it), mean rounds a walker) of the float64
+    gamma kernel on these draws: alpha read and g written once (16 bytes a
+    walker); per pair of walkers two Philox blocks, four uniforms and a
+    Box-Muller pair a round it runs (as long as one of the two is
+    undecided), per walker a test a round it needs, its set-up, and where
+    alpha < 1 the boost (and a Philox block a pair with such a walker)."""
+    n = alpha.numel()
+    need = f64_rounds(counter, key, alpha, mutation=False)
+    pad = n % 2
+    pairs = torch.nn.functional.pad(need, (0, pad)).reshape(-1, 2).amax(dim=1)
+    boosted = torch.nn.functional.pad(alpha.reshape(-1) < 1.0, (0, pad)).reshape(-1, 2)
+    pair_round = _f64((2 * PHILOX_INT, 0, 0), UNIT53, UNIT53, f64_pair_normal())
+    ops = work((int(pairs.sum()), pair_round), (int(need.sum()), f64_mt_test()),
+               (n, f64_mt_setup()), (int(boosted.any(dim=1).sum()), (PHILOX_INT, 0, 0)),
+               (int(boosted.sum()), f64_mt_boost()))
+    return bound(16 * n, *ops), float(need.double().mean())
+
+
+def f64_mutation_bound(key, counter: int, alpha: torch.Tensor, z_shape):
+    """((least ms, what bounds it), mean rounds a walker) of the float64
+    mutation draws: alpha read, z, g and u written once; the proposal
+    normals a Philox block a pair; per walker the rounds it needs (two
+    Philox blocks, three uniforms, a cos-only normal and a test each), its
+    set-up, its boost and acceptance block and, where alpha < 1, its boost."""
+    R, N, d = z_shape
+    n_z = R * N * d
+    need = f64_rounds(counter, key, alpha, mutation=True)
+    mt_round = _f64((2 * PHILOX_INT, 0, 0), UNIT53, UNIT53, UNIT53, "log", "sqrt", "cos",
+                    (0, 0, 3), f64_mt_test())
+    ops = work((-(-n_z // 2), f64_pair_normal()), (int(need.sum()), mt_round),
+               (N, f64_mt_setup()), (N, f64_pair_uniform()),
+               (int((alpha < 1.0).sum()), f64_mt_boost()))
+    return bound(8 * N + 8 * n_z + 16 * N, *ops), float(need.double().mean())
+
+
+def phase_prng_kernels_f64(device) -> dict:
+    """The float64 draw kernels (`tempest_*_f64`) against their plain
+    versions (`philox.*_f64`) on the card, through a `PhiloxCounter`'s
+    device words at the main paths' shapes: the uniforms bit for bit, the
+    normals and gamma draws within DRAW_TOL_F64, at most MAX_FLIPS_F64 gamma
+    flips a call, one launch of the right kernel and no other a call; their
+    moments; then each kernel's device and call times at its path's shape
+    beside its plain version's, the PyTorch call's (`randn`, `rand`,
+    `_standard_gamma` in float64) and its bound (bytes at 3.35 TB/s, the
+    instructions at Hopper's rates, the double functions counted from the
+    SASS in phase 2, the rounds these draws need)."""
+    f64 = torch.float64
+    key = philox.key_from_seed(2024)
+    calls = cuda_prng.PhiloxCounter(key, device)
+
+    def drawn(name, draw):
+        """A draw through the counter's words at F64_COUNTER: its values and
+        its launches, one of `name` and no other; the words left alone."""
+        calls.seek(F64_COUNTER)
+        before = counts()
+        out = draw()
+        launched = diff(counts(), before)
+        check(launched.get(name) == 1 and sum(launched.values()) == 1
+              and calls.counter == F64_COUNTER,
+              f"{name} through the counter's words: launches {launched}, counter "
+              f"{calls.counter}")
+        return out
+
+    errs = {k: 0.0 for k in ("uniform_f64", "normal_f64", "gamma_f64", "mutation_draws_f64")}
+    flips_max = {"gamma_f64": 0, "mutation_draws_f64": 0}
+    equal = {}
+    for shape in F64_UNIFORM_SHAPES:
+        got = drawn("uniform_f64", lambda: calls.uniform(0, shape, f64))
+        want = philox.uniform_f64(key, F64_COUNTER, math.prod(shape), device).reshape(shape)
+        equal[str(shape)] = bool(torch.equal(got, want)) and got.dtype == f64
+        check(equal[str(shape)], f"uniform_f64 at {shape} differs from philox.uniform_f64")
+    print(f"uniform_f64 through the counter's words, bit for bit with philox.uniform_f64: "
+          f"{json.dumps(equal)}", flush=True)
+    for total in (B_NORMALS, 7):
+        got = drawn("normal_f64", lambda: calls.normal(0, (total,), f64))
+        err = float(torch.max(torch.abs(got - philox.normal_f64(key, F64_COUNTER, total,
+                                                                 device))))
+        print(f"normal_f64 n={total}: max|dz| = {err:.3g} against philox.normal_f64", flush=True)
+        check(got.dtype == f64 and err <= DRAW_TOL_F64, f"normal_f64 n={total}: {err}")
+        errs["normal_f64"] = max(errs["normal_f64"], err)
+
+    def gamma_err(got, want, name, label):
+        flips = int(torch.sum(torch.abs(got - want) > DRAW_TOL_F64 * torch.abs(want)))
+        agree = torch.abs(got - want) <= DRAW_TOL_F64 * torch.abs(want)
+        rel = torch.abs(got - want) / torch.clamp(torch.abs(want), min=1e-300)
+        err = float(torch.max(rel[agree])) if bool(agree.any()) else 0.0
+        check(flips <= MAX_FLIPS_F64 and bool(torch.all(torch.isfinite(got) & (got >= 0))),
+              f"{name} {label}: {flips} flips")
+        errs[name] = max(errs[name], err)
+        flips_max[name] = max(flips_max[name], flips)
+        return f"{label} {flips}/{err:.3g}"
+
+    summary = []
+    for n in (B_GAMMA, 1001):
+        for label, alpha in gamma_cases(device, n):
+            alpha = alpha.to(f64)
+            got = drawn("gamma_f64", lambda: calls.gamma(0, alpha))
+            summary.append(gamma_err(got, philox.gamma_f64(key, F64_COUNTER, alpha), "gamma_f64",
+                                     f"n={n} {label}"))
+    print(f"gamma_f64 against philox.gamma_f64 from call {F64_COUNTER} (flips / max relative "
+          f"|dg| elsewhere): {', '.join(summary)}", flush=True)
+    for R, N, d in F64_MUTATION_SHAPES:
+        third = N // 3
+        alpha = torch.cat([torch.full((third,), 7.5), torch.full((third,), 0.7),
+                           torch.full((N - 2 * third,), 0.02)]).to(device, f64)
+        z, g, u = drawn("mutation_draws_f64", lambda: calls.mutation_draws(0, alpha, (R, N, d)))
+        wz, wg, wu = philox.mutation_draws_f64(key, F64_COUNTER, alpha, (R, N, d))
+        err_z = float(torch.max(torch.abs(z - wz)))
+        later = int((f64_rounds(F64_COUNTER, key, alpha, mutation=True) > 1).sum())
+        line = gamma_err(g, wg, "mutation_draws_f64", f"{R}x{N}x{d}")
+        print(f"mutation_draws_f64 {R}x{N}x{d}: max|dz| = {err_z:.3g}, u bit for bit "
+              f"{bool(torch.equal(u, wu))}, g flips / error {line}; {later} walkers decided "
+              "by a later round", flush=True)
+        check(z.dtype == g.dtype == u.dtype == f64 and err_z <= DRAW_TOL_F64
+              and torch.equal(u, wu) and later > 0,
+              f"mutation_draws_f64 {R}x{N}x{d}: z {err_z}, u equal {torch.equal(u, wu)}, "
+              f"later rounds {later}")
+        errs["mutation_draws_f64"] = max(errs["mutation_draws_f64"], err_z)
+
+    # moments at B's sizes
+    z = cuda_prng.hw_normal(key, 5, (B_NORMALS,), device, f64)
+    zm, zv, zk = _moments(z)
+    u = cuda_prng.hw_uniform(key, 6, (B_GAMMA,), device, f64)
+    g = cuda_prng.hw_gamma(key, 7, torch.full((B_GAMMA,), 7.5, dtype=f64, device=device))
+    gm, gv = float(g.mean()), float(g.var())
+    print(f"float64 moments: normal n={B_NORMALS} mean={zm:.6f} var={zv:.6f} kurt={zk:.5f}; "
+          f"uniform n={B_GAMMA} min={float(u.min()):.3g} max={float(u.max())} "
+          f"mean={float(u.mean()):.5f}; gamma(7.5) n={B_GAMMA} mean={gm:.4f} var={gv:.4f}",
+          flush=True)
+    check(abs(zm) < 0.002 and abs(zv - 1.0) < 0.005 and abs(zk - 3.0) < 0.02, "normal_f64 moments")
+    check(0.0 < float(u.min()) and float(u.max()) <= 1.0 and abs(float(u.mean()) - 0.5) < 0.005,
+          "uniform_f64 moments")
+    check(abs(gm - 7.5) < 5 * math.sqrt(7.5 / B_GAMMA) + 0.01 and abs(gv - 7.5) < 0.4,
+          "gamma_f64 moments")
+
+    # times at the paths' shapes
+    rows = {}
+    R, N, d = MUTATION_SHAPES[0]
+    alpha_a = torch.cat([torch.full((N // 2,), 7.5), torch.full((N // 2,), 0.7)]).to(device, f64)
+    alpha_b = torch.full((B_GAMMA,), GAMMA_TIMED_ALPHA, dtype=f64, device=device)
+    cases = {
+        "mutation_draws_f64": dict(
+            shape=f"{R}x{N}x{d}", kernel="mutation_draws_f64_kernel",
+            fn=lambda: cuda_prng.hw_mutation_draws(key, 1, alpha_a, (R, N, d)),
+            library=lambda: (torch.randn((R, N, d), dtype=f64, device=device),
+                             torch._standard_gamma(alpha_a),
+                             torch.rand(N, dtype=f64, device=device)),
+            plain=lambda: philox.mutation_draws_f64(key, 1, alpha_a, (R, N, d)),
+            bound=lambda: f64_mutation_bound(key, 1, alpha_a, (R, N, d))),
+        "normal_f64": dict(
+            shape=B_NORMALS, kernel="normal_f64_kernel",
+            fn=lambda: cuda_prng.hw_normal(key, 2, (B_NORMALS,), device, f64),
+            library=lambda: torch.randn(B_NORMALS, dtype=f64, device=device),
+            plain=lambda: philox.normal_f64(key, 2, B_NORMALS, device),
+            bound=lambda: (bound(8 * B_NORMALS, *work((B_NORMALS // 2, f64_pair_normal()))),
+                           None)),
+        "uniform_f64": dict(
+            shape=B_GAMMA, kernel="uniform_f64_kernel",
+            fn=lambda: cuda_prng.hw_uniform(key, 3, (B_GAMMA,), device, f64),
+            library=lambda: torch.rand(B_GAMMA, dtype=f64, device=device),
+            plain=lambda: philox.uniform_f64(key, 3, B_GAMMA, device),
+            bound=lambda: (bound(8 * B_GAMMA, *work((B_GAMMA // 2, f64_pair_uniform()))), None)),
+        "uniform_f64 A": dict(
+            shape=N_PARTICLES * N_DIM, kernel="uniform_f64_kernel",
+            fn=lambda: cuda_prng.hw_uniform(key, 3, (N_PARTICLES, N_DIM), device, f64),
+            library=lambda: torch.rand((N_PARTICLES, N_DIM), dtype=f64, device=device),
+            plain=lambda: philox.uniform_f64(key, 3, N_PARTICLES * N_DIM, device),
+            bound=lambda: (bound(8 * N_PARTICLES * N_DIM, *work(
+                (N_PARTICLES * N_DIM // 2, f64_pair_uniform()))), None)),
+        "gamma_f64": dict(
+            shape=B_GAMMA, kernel="gamma_f64_kernel",
+            fn=lambda: cuda_prng.hw_gamma(key, 10, alpha_b),
+            library=lambda: torch._standard_gamma(alpha_b),
+            plain=lambda: philox.gamma_f64(key, 10, alpha_b),
+            bound=lambda: f64_gamma_bound(key, 10, alpha_b)),
+    }
+    for name, c in cases.items():
+        t = timed_in_turns({"kernel": c["fn"], "library": c["library"]})
+        t.update(timed_in_turns({"plain": c["plain"]}, calls=10))
+        dev = {"kernel": device_ms(c["fn"], c["kernel"]), "library": device_ms(c["library"])}
+        (b_ms, b_by), rounds = c["bound"]()
+        row = dict(ms=t["kernel"], device_ms=dev["kernel"], plain_ms=t["plain"],
+                   library_ms=t["library"], library_device_ms=dev["library"], bound_ms=b_ms,
+                   bound_by=b_by, shape=c["shape"])
+        if rounds is not None:
+            row["mean_rounds"] = rounds
+        print(f"{name} timing at {c['shape']}: kernel call {t['kernel']:.4f} ms device "
+              f"{dev['kernel']:.4f} ms; library call {t['library']:.4f} ms device "
+              f"{dev['library']:.4f} ms; plain {t['plain']:.4f} ms; bound {b_ms:.6f} ms ({b_by}"
+              f"{'' if rounds is None else f'; {rounds:.4f} rounds a walker'})", flush=True)
+        base = name.split()[0]
+        if base in rows:
+            rows[base]["shapes"][str(c["shape"])] = row
+        else:
+            rows[base] = dict(row, max_abs_err=errs[base], shapes={str(c["shape"]): dict(row)})
+    for name in ("gamma_f64", "mutation_draws_f64"):
+        rows[name]["gamma_flips"] = flips_max[name]
+    rows["uniform_f64"]["uniform_equal"] = equal
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 4b: the eigenvalue kernel (no Pallas counterpart: XLA's eigvalsh)
 # ---------------------------------------------------------------------------
 EIG_KINDS = ("spd", "indefinite", "rank_deficient", "diagonal")
@@ -2393,7 +2741,7 @@ def while_cost_a_step(device) -> dict:
     def pred(c):
         return kernel.going(c["done"], c["iteration"])
 
-    loops = Loops(device, graphs=True, generators=[draws.generator], counters=[draws.calls])
+    loops = Loops(device, graphs=True, counters=[draws.calls])
 
     def chain():  # each call from call index 0: the same draws, the same steps
         draws.calls.seek(0)
@@ -3803,24 +4151,43 @@ def mcmc_bodies(s) -> int:
 
 
 def keyed_route(s) -> bool:
-    """Whether sampler `s` runs its MCMC chain on keyed draws (float32 on
-    the card): graphed one WHILE node, eagerly in chunks."""
+    """Whether sampler `s` runs its MCMC chain on keyed draws (float32 and
+    float64 on the card): graphed one WHILE node, eagerly in chunks."""
     return bool(getattr(s.state.draws, "keyed", False))
 
 
-# The PRNG kernels a keyed MCMC step launches.
-STEP_KERNELS = ("mutation_draws", "normal", "gamma", "bits")
+# The PRNG kernels a keyed MCMC step launches, float32's and float64's; the
+# uniform kernel of each (which also draws the warm-up's and the
+# resampling's uniforms).
+STEP_KERNELS = ("mutation_draws", "normal", "gamma", "bits",
+                "mutation_draws_f64", "normal_f64", "gamma_f64", "uniform_f64")
+UNIFORM_KERNELS = ("bits", "uniform_f64")
+
+
+def prng_names(dtype) -> dict:
+    """The PRNG kernels' launch names in `dtype`: the mutation draws, the
+    normal, gamma and uniform kernels."""
+    if dtype == torch.float64:
+        return dict(mutation="mutation_draws_f64", normal="normal_f64", gamma="gamma_f64",
+                    uniform="uniform_f64")
+    return dict(mutation="mutation_draws", normal="normal", gamma="gamma", uniform="bits")
+
+
+def run_loop(s) -> bool:
+    """Whether sampler `s`'s run(on_device=True) takes the device run loop
+    (`SamplerCore._run`, made for the configurations that take it)."""
+    return getattr(s.state, "_run", None) is not None
 
 
 def keyed_uniforms(s) -> bool:
     """Whether sampler `s` draws its warm-up and resampling uniforms from
-    the bits kernel's uniform mode (keyed float32 draws in a package with
-    the device run loop)."""
-    return keyed_route(s) and hasattr(s.state, "run_route")
+    the uniform kernel of its dtype (keyed draws in a package with the
+    device run loop)."""
+    return keyed_route(s) and hasattr(s.state, "_run")
 
 
 def iteration_uniforms(s, beta=None) -> int:
-    """The bits kernel's launches for the keyed warm-up and resampling
+    """The uniform kernel's launches for the keyed warm-up and resampling
     uniforms of sampler `s`'s run (`beta` its iterations' betas, default
     the whole run's): two a warm-up iteration (beta 0), one a mutation."""
     if not keyed_uniforms(s):
@@ -3834,11 +4201,12 @@ def without_past_stop(launched: dict, past: int, bodies: int, name: str,
     """An eager run's launches less those of the `past` MCMC steps its
     chunks ran past the stop (of its `bodies` step bodies), which a WHILE
     node does not run: each step kernel launches as often in every body,
-    the bits kernel `uniforms` times more for the iterations' keyed
-    warm-up and resampling uniforms."""
+    the uniform kernel of the run's dtype `uniforms` times more for the
+    iterations' keyed warm-up and resampling uniforms."""
     out = dict(launched)
     for k in STEP_KERNELS:
-        n = launched.get(k, 0) - (uniforms if k == "bits" else 0)
+        n = launched.get(k, 0)
+        n -= uniforms if k in UNIFORM_KERNELS and n else 0
         if n:
             per = n // max(bodies, 1)
             check(per * bodies == n, f"{name}: {n} {k} launches for {bodies} MCMC bodies")
@@ -3867,8 +4235,9 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
     s = canonical_sampler(device, 7, clustering, hardware_prng, dtype)
     ess_key, other = ("ess_bisect_f64", "ess_bisect") if dtype == torch.float64 else (
         "ess_bisect", "ess_bisect_f64")
-    # float32 steps draw from the mutation-draws kernel whatever the flag
+    # keyed steps draw from the mutation-draws kernel of their dtype, either flag
     draws_kernel = keyed_route(s)
+    prng = prng_names(dtype)
     for _ in range(8):  # warm-up: allocator, libraries, kernels, a clustered fit
         s.sample()
     reset_counts()
@@ -3884,7 +4253,7 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched, fits, gmm_fits = diff(counts(), before), MODE_FITS - fits, GMM_FITS - gmm_fits
-        if on_device and getattr(s.state, "run_route", False):
+        if on_device and run_loop(s):
             # the device run loop fits the modes in its replays, once a
             # mutation, where the host counts none
             fits = int((s.results()["beta"] > 0).sum())
@@ -3925,16 +4294,18 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
               f"{name} seed {seed}: {launched[ess_key]} {ess_key} launches for {iters - 1} "
               f"reweights at t >= 1, {launched[other]} {other}")
         if draws_kernel:  # a launch a step body; graphed the WHILE node runs the steps alone
-            check(launched["mutation_draws"] == bodies == steps + past
+            check(launched[prng["mutation"]] == bodies == steps + past
                   and (past == 0 or not on_device),
-                  f"{name} seed {seed}: {launched['mutation_draws']} mutation-draws launches "
+                  f"{name} seed {seed}: {launched[prng['mutation']]} mutation-draws launches "
                   f"for {bodies} MCMC bodies ({steps} steps, {past} past the stop)")
             check((loops_run.get("mcmc", {}).get("chunks", 0) == 0) == on_device,
                   f"{name} seed {seed}: the MCMC chain {'ran' if on_device else 'did not run'} "
                   f"in chunks {loops_run.get('mcmc')}")
-        check(launched["normal"] == 0 and launched["bits"] == uniforms and launched["gamma"] == 0
-              and (draws_kernel or launched["mutation_draws"] == 0),
-              f"{name} seed {seed}: unexpected PRNG launches {launched} (the bits kernel "
+        others = {k: launched.get(k, 0) for k in STEP_KERNELS
+                  if k not in (prng["mutation"], prng["uniform"])}
+        check(not any(others.values()) and launched.get(prng["uniform"], 0) == uniforms
+              and (draws_kernel or launched.get(prng["mutation"], 0) == 0),
+              f"{name} seed {seed}: unexpected PRNG launches {launched} (the uniform kernel "
               f"{uniforms} for the warm-up and resampling uniforms)")
         check(cuda_linalg is None or launched["sym_eigvals"] == iters - 1,
               f"{name} seed {seed}: {launched.get('sym_eigvals')} eigenvalue launches for "
@@ -4451,7 +4822,8 @@ def run_b(device, dtype, name: str, graphs: bool = False, s=None):
                                  launched, past, bodies, name,
                                  iteration_uniforms(s, [out["beta"]])),
                              acceptance=out["acceptance"], launches=launched, fits=fits,
-                             counter=getattr(s.state.draws, "counter", None)))
+                             counter=getattr(s.state.draws, "counter", None),
+                             generator_offset=s.state.draws.generator.get_offset()))
             mutations += out["beta"] > 0.0
     finally:
         loops.graphs = False
@@ -4545,51 +4917,53 @@ def profile_b(s, n_before: int) -> None:
 
 
 def phase_large_ensemble(device, dtype=torch.float32) -> dict:
-    """B: the first four mutation iterations at N = 131,072; in float32
-    eagerly and with the loops' CUDA graphs (a first pass captures them, a
-    second is timed), the same values and launches (the eager chunks' less
-    their steps past the stop) bit for bit, one normal, one gamma and one
-    uniform (the bits kernel's uniform mode) launch a step body, the chain
-    one WHILE node graphed; in float64 no PRNG kernel runs
-    (hardware_prng does not apply) and the ESS kernel is the float64 one."""
+    """B: the first four mutation iterations at N = 131,072, eagerly and
+    with the loops' CUDA graphs (a first pass captures them, a second is
+    timed), the same values and launches (the eager chunks' less their
+    steps past the stop) bit for bit, one normal, one gamma and one uniform
+    launch a step body (float32: the bits kernel's uniform mode; float64:
+    the `_f64` kernels, where hardware_prng does not apply and the draws
+    are `Draws`' keyed ones), the chain one WHILE node graphed, and no draw
+    from the generator (its offset unmoved); the ESS kernel of the dtype."""
     f64 = dtype == torch.float64
     name = "B float64" if f64 else "B"
+    prng = prng_names(dtype)
     s, rows = run_b(device, dtype, name)
     total = counts()  # the eager run's: run_b set the counts to 0 before it
-    graphed = None
-    if not f64:
-        g, _ = run_b(device, dtype, "B graphed (capturing)", graphs=True)
-        g, graphed = run_b(device, dtype, "B graphed", graphs=True, s=g)
-        for a, b in zip(rows, graphed):
-            for k in ("iter", "beta", "logz", "steps", "real_bodies", "acceptance",
-                      "real_launches", "fits", "counter"):
-                check(a[k] == b[k], f"B graphed iteration {a['iter']}: {k} {b[k]!r} against "
-                      f"eager {a[k]!r}")
-        check(len(rows) == len(graphed), f"B graphed: {len(graphed)} iterations, {len(rows)} eager")
-        check(g.state.draws.calls.read() == (g.state.draws.counter, g.state.draws.key),
-              "B graphed: the call counter's device words and host mirror differ")
-        profiled = profile_b(g, len(graphed) - 1)
-        mut = [(a["wall"], b["wall"]) for a, b in zip(rows, graphed) if a["beta"] > 0.0]
-        print(f"B seconds a mutation iteration, eager / graphed: "
-              f"{', '.join(f'{a:.4f} / {b:.4f}' for a, b in mut)}; mean "
-              f"{sum(a for a, _ in mut) / len(mut):.4f} / {sum(b for _, b in mut) / len(mut):.4f}",
-              flush=True)
+    g, _ = run_b(device, dtype, f"{name} graphed (capturing)", graphs=True)
+    g, graphed = run_b(device, dtype, f"{name} graphed", graphs=True, s=g)
+    for a, b in zip(rows, graphed):
+        for k in ("iter", "beta", "logz", "steps", "real_bodies", "acceptance",
+                  "real_launches", "fits", "counter"):
+            check(a[k] == b[k], f"{name} graphed iteration {a['iter']}: {k} {b[k]!r} against "
+                  f"eager {a[k]!r}")
+    check(len(rows) == len(graphed), f"{name} graphed: {len(graphed)} iterations, {len(rows)} "
+          "eager")
+    check(g.state.draws.calls.read() == (g.state.draws.counter, g.state.draws.key),
+          f"{name} graphed: the call counter's device words and host mirror differ")
+    check(all(r["generator_offset"] == 0 for r in rows + graphed),
+          f"{name}: the generator moved: offsets "
+          f"{[r['generator_offset'] for r in rows + graphed]}")
+    profiled = None if f64 else profile_b(g, len(graphed) - 1)
+    mut = [(a["wall"], b["wall"]) for a, b in zip(rows, graphed) if a["beta"] > 0.0]
+    print(f"{name} seconds a mutation iteration, eager / graphed: "
+          f"{', '.join(f'{a:.4f} / {b:.4f}' for a, b in mut)}; mean "
+          f"{sum(a for a, _ in mut) / len(mut):.4f} / {sum(b for _, b in mut) / len(mut):.4f}",
+          flush=True)
     betas = []
     for row in rows:
         if row["beta"] == 0.0:
             continue
         launched, bodies = row["launches"], row["bodies"]
-        if f64:
-            check(all(launched[k] == 0 for k in cuda_prng.LAUNCHES),
-                  f"{name}: PRNG launches {launched} (hardware_prng does not apply)")
-        else:
-            uniforms = iteration_uniforms(s, [row["beta"]])
-            check(launched["normal"] == bodies and launched["gamma"] == bodies
-                  and launched["bits"] == bodies + uniforms
-                  and bodies == row["steps"] + row["past"] and launched["mutation_draws"] == 0,
-                  f"B: launches {launched} for {bodies} MCMC step bodies, {row['steps']} steps "
-                  f"(want 1 normal + 1 gamma + 1 uniform a step body, and {uniforms} uniform "
-                  f"for the resampling)")
+        uniforms = iteration_uniforms(s, [row["beta"]])
+        others = {k: launched.get(k, 0) for k in STEP_KERNELS if k not in prng.values()}
+        check(launched[prng["normal"]] == bodies and launched[prng["gamma"]] == bodies
+              and launched[prng["uniform"]] == bodies + uniforms
+              and bodies == row["steps"] + row["past"] and launched[prng["mutation"]] == 0
+              and not any(others.values()),
+              f"{name}: launches {launched} for {bodies} MCMC step bodies, {row['steps']} steps "
+              f"(want 1 {prng['normal']} + 1 {prng['gamma']} + 1 {prng['uniform']} a step "
+              f"body, and {uniforms} {prng['uniform']} for the resampling)")
         check(cuda_median is None or row["launches"]["weighted_median"] == row["fits"],
               f"{name} iteration {row['iter']}: {row['launches'].get('weighted_median')} "
               f"weighted-median launches for {row['fits']} mode fits")
@@ -4598,18 +4972,19 @@ def phase_large_ensemble(device, dtype=torch.float32) -> dict:
         betas.append(row["beta"])
     errs = {}
 
-    if not f64:
-        # The normal kernel at this path's R*N*d (several grid-stride passes
-        # per thread) against its plain version.
-        z_shape = (N_PROPOSAL_CANDIDATES, B_PARTICLES, N_DIM)
-        n_z = math.prod(z_shape)
-        key = philox.key_from_seed(2024)
-        z = cuda_prng.hw_normal(key, 20, z_shape, device).reshape(-1)
-        err_n = float(torch.max(torch.abs(z - philox.normal(key, 20, n_z, device))))
-        print(f"B: normal kernel at n={n_z}: max|dz|={err_n:.3g} against its plain version",
-              flush=True)
-        check(err_n <= DRAW_TOL, f"B: normal kernel differs from plain by {err_n} at n={n_z}")
-        errs["normal"] = err_n
+    # The normal kernel at this path's R*N*d (several grid-stride passes per
+    # thread) against its plain version.
+    z_shape = (N_PROPOSAL_CANDIDATES, B_PARTICLES, N_DIM)
+    n_z = math.prod(z_shape)
+    key = philox.key_from_seed(2024)
+    z = cuda_prng.hw_normal(key, 20, z_shape, device, dtype).reshape(-1)
+    plain = philox.normal_f64 if f64 else philox.normal
+    err_n = float(torch.max(torch.abs(z - plain(key, 20, n_z, device))))
+    tol = DRAW_TOL_F64 if f64 else DRAW_TOL
+    print(f"{name}: {prng['normal']} kernel at n={n_z}: max|dz|={err_n:.3g} against its plain "
+          "version", flush=True)
+    check(err_n <= tol, f"{name}: normal kernel differs from plain by {err_n} at n={n_z}")
+    errs[prng["normal"]] = err_n
 
     # The ESS kernel at the S this history reached, against its plain version.
     hist = s.state.hist
@@ -4635,7 +5010,7 @@ def phase_large_ensemble(device, dtype=torch.float32) -> dict:
     print(f"{name}: ESS kernel at S={S} (t={int(hist.t)}, {probes} probes): "
           f"kernel {t['kernel']:.4f} ms, "
           f"plain {t['plain']:.4f} ms (median of 10); launches {total}", flush=True)
-    return total, errs, dict(eager=rows, graphed=graphed, profiled=None if f64 else profiled)
+    return total, errs, dict(eager=rows, graphed=graphed, profiled=profiled)
 
 
 def c_sampler(device, **kw):
@@ -4833,10 +5208,10 @@ def phase_reference_surface(device, vectorized_wall: float) -> dict:
     return out
 
 
-def dynamic_sampler(device, seed):
+def dynamic_sampler(device, seed, dtype=torch.float32):
     return Sampler(prior_transform, rosenbrock_chained, n_dim=N_DIM, n_particles=N_PARTICLES,
                    vectorize=True, clustering=False, history_capacity=192, volume_variation=1.0,
-                   random_state=seed, device=device)
+                   random_state=seed, dtype=dtype, device=device)
 
 
 def phase_dynamic(device) -> dict:
@@ -4858,7 +5233,7 @@ def phase_dynamic(device) -> dict:
     for on_device in (False, True):
         s = dynamic_sampler(device, SEEDS[1] if on_device else SEEDS[0])
         check(s.state.fused, "dynamic: not on the fused route")
-        check(s.state.run_route, "dynamic: not on the device run loop's route")
+        check(run_loop(s), "dynamic: not on the device run loop's route")
         if on_device:
             s.run(n_total=N_TOTAL, progress=False, on_device=True)  # captures the graph
             run_graphs = [dict(nodes=g.nodes, depth=g.depth, capture_s=g.capture_s)
@@ -4947,7 +5322,25 @@ def phase_dynamic(device) -> dict:
             "iters": eager["iters"], "loops": {"on_device=False": eager["loops"],
                                                "on_device=True": fused["loops"]},
             "run_graphs": run_graphs, "windows": windows,
-            "bisection": dynamic_bisection(device)}
+            "bisection": dynamic_bisection(device), "float64": dynamic_float64(device)}
+
+
+def dynamic_float64(device) -> dict:
+    """12, float64: rosenbrock10_cv in float64 (seed 42), eagerly and on
+    the run loop (`float64_on_loop`), bit for bit, the eager run's
+    eigenvalue launches less its CV chunks' probes past the loop's end;
+    logZ inside the anchor, one bracket launch a reweight."""
+    out = float64_on_loop(
+        "dynamic float64 (rosenbrock10_cv)",
+        lambda seed: dynamic_sampler(device, seed, torch.float64), N_TOTAL,
+        adjust=lambda real, eager_loops, loops: less_cv_past_stop(
+            real, eager_loops, loops.get("cv_bisect", {}).get("node_bodies", 0)))
+    logz, launched = out["fused"]["logz"], out["eager"]["launches"]
+    check(abs(logz - CV_LOGZ[0]) <= CV_LOGZ[1], f"dynamic float64: logZ {logz} outside {CV_LOGZ}")
+    check(cuda_median is None or launched["ess_bracket"] == out["iters"] - 1,
+          f"dynamic float64: {launched.get('ess_bracket')} bracket launches for "
+          f"{out['iters'] - 1} reweights")
+    return {k: out[k] for k in ("walls", "ms_per_iter", "iters", "graphs", "steps")}
 
 
 def less_cv_past_stop(launches: dict, eager_loops: dict, bisection: int) -> dict:
@@ -5058,13 +5451,101 @@ def gaussian4(x):
     return -0.5 * torch.sum(x * x, dim=-1) - 0.5 * 4 * math.log(2 * math.pi)
 
 
+def float64_on_loop(name: str, make, n_total: int, seed: int = SEEDS[0],
+                    capture_seed: int = SEEDS[1], adjust=None) -> dict:
+    """A float64 configuration on the device run loop: a fresh sampler
+    (`make(seed)`) with run(on_device=False), then run(on_device=True) on a
+    sampler whose `capture_seed` run captured the run loop's graph (its
+    nodes and depth printed), reset to `seed`. Held: beta 1, the ladder,
+    logZ, ESS, CV, steps and calls bit for bit, the launches equal to the
+    eager run's less its chunks' steps past the stop (and `adjust(eager
+    launches, eager loops, graphed loops)` where given), the final draw
+    state equal (the keyed words, the generator unmoved); on the run loop
+    one replay and one read, no other read and no capture, a WHILE body
+    run an iteration after the first and a MCMC WHILE body run a step, no
+    MCMC read; only the float64 PRNG kernels, the ESS kernel's float64
+    entry if any. Returns both runs' walls, launches and loops, and the
+    graphed sampler."""
+    runs = {}
+    for on_device in (False, True):
+        s = make(capture_seed if on_device else seed)
+        check(run_loop(s) and keyed_route(s) and s.state.hist.u.dtype == torch.float64,
+              f"{name}: not keyed float64 on the run route")
+        fits = MODE_FITS
+        graphs = None
+        if on_device:
+            s.run(n_total=n_total, progress=False, on_device=True)  # captures the graph
+            graphs = [dict(nodes=g.nodes, depth=g.depth, capture_s=g.capture_s)
+                      for g in s.state._iteration.loops.graphs_of("run")]
+            check(len(graphs) == 1 and graphs[0]["depth"] >= 2, f"{name}: graphs {graphs}")
+            s.reset(random_state=seed)
+        warm, bodies = loop_stats(s), mcmc_bodies(s)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run(n_total=n_total, progress=False, on_device=on_device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        loops = {k: {c: v.get(c, 0) - warm.get(k, {}).get(c, 0) for c in v}
+                 for k, v in loop_stats(s).items()}
+        runs[on_device] = dict(sampler=s, results=s.results(), logz=s.evidence()[0], wall=wall,
+                               launches=launched, loops=loops, iters=int(s.state.hist.t),
+                               bodies=mcmc_bodies(s) - bodies, draws=s.state.draws.get_state(),
+                               graphs=graphs, mode_fits=MODE_FITS - fits)
+    eager, fused = runs[False], runs[True]
+    for key in ("beta", "logz", "ess", "cv", "steps", "calls"):
+        check(fused["results"][key].tobytes() == eager["results"][key].tobytes(),
+              f"{name}: {key} with on_device=True differs from on_device=False")
+    real = less_past_stop(eager["sampler"], eager["launches"], name)
+    if adjust is not None:
+        real = adjust(real, eager["loops"], fused["loops"])
+    check(fused["logz"] == eager["logz"] and fused["launches"] == real
+          and fused["sampler"].beta == 1.0,
+          f"{name}: logZ {fused['logz']!r} / {eager['logz']!r}, launches {fused['launches']} / "
+          f"{real} (less the eager chunks' steps past the stop)")
+    check(set(fused["draws"]) == set(eager["draws"]) >= {"step_key", "step_counter"}
+          and all(fused["draws"][k].tobytes() == eager["draws"][k].tobytes()
+                  for k in eager["draws"]),
+          f"{name}: the final draw state differs")
+    loops, iters = fused["loops"], fused["iters"]
+    res = fused["results"]
+    steps = int(res["steps"][res["beta"] > 0].sum())
+    check(loops["run"].get("replays") == 1 and loops["run"].get("reads") == 1
+          and not any(v.get("reads", 0) for k, v in loops.items() if k != "run")
+          and all(v.get("captures", 0) == 0 for v in loops.values())
+          and loops["run"].get("node_bodies") == iters - 1
+          and loops["mcmc"].get("node_bodies") == steps == fused["bodies"],
+          f"{name} on the run loop: {loops} for {iters} iterations and {steps} steps")
+    f32_prng = {k: fused["launches"].get(k, 0) for k in ("mutation_draws", "normal", "gamma",
+                                                         "bits")}
+    check(not any(f32_prng.values()) and fused["launches"]["ess_bisect"] == 0,
+          f"{name}: float32 kernels launched {fused['launches']}")
+    print(f"{name} seed {seed}: on_device=False {eager['wall']:.3f} s "
+          f"({1e3 * eager['wall'] / eager['iters']:.1f} ms an iteration), on the run loop "
+          f"{fused['wall']:.3f} s ({1e3 * fused['wall'] / iters:.1f} ms an iteration), bit for "
+          f"bit; logz={fused['logz']!r} iters={iters} steps={steps}; one replay and one read, "
+          f"{loops['run'].get('node_bodies')} run-loop and {loops['mcmc'].get('node_bodies')} MCMC "
+          f"WHILE bodies; graph {json.dumps(fused['graphs'])}; launches {fused['launches']}",
+          flush=True)
+    return dict(eager=eager, fused=fused, steps=steps,
+                walls={"on_device=False": eager["wall"], "on_device=True": fused["wall"]},
+                ms_per_iter={"on_device=False": 1e3 * eager["wall"] / eager["iters"],
+                             "on_device=True": 1e3 * fused["wall"] / iters},
+                iters=iters, graphs=fused["graphs"], loops=loops)
+
+
 def phase_float64_gaussian(device) -> dict:
-    """tests/test_float64.py's run on the card: the 4-D Gaussian in float64."""
-    s = Sampler(prior_transform, gaussian4, n_dim=4, n_particles=256, vectorize=True,
-                clustering=False, random_state=1, dtype=torch.float64, device=device)
-    reset_counts()
-    s.run(n_total=1024, progress=False)
-    launched = counts()
+    """tests/test_float64.py's run on the card: the 4-D Gaussian in float64
+    (seed 1), eagerly and on the run loop (`float64_on_loop`): logZ within
+    0.35 of -4 log 20, the MIS accumulator within 1e-9 of its exact
+    rebuild, one float64 ESS launch a reweight."""
+    def make(seed):
+        return Sampler(prior_transform, gaussian4, n_dim=4, n_particles=256, vectorize=True,
+                       clustering=False, random_state=seed, dtype=torch.float64, device=device)
+
+    out = float64_on_loop("float64 4-D Gaussian", make, 1024, seed=1, capture_seed=2)
+    s, launched = out["fused"]["sampler"], out["eager"]["launches"]
     hist = s.state.hist
     valid = hist.sample_mask()
     mis_err = float(torch.max(torch.abs(mis_denominator(hist) - mis_denominator_exact(hist))[valid]))
@@ -5077,7 +5558,7 @@ def phase_float64_gaussian(device) -> dict:
     check(mis_err < MIS_F64_TOL, f"float64 Gaussian: MIS accumulator error {mis_err}")
     check(launched["ess_bisect_f64"] == int(hist.t) - 1 and launched["ess_bisect"] == 0,
           f"float64 Gaussian: launches {launched} for {int(hist.t) - 1} reweights")
-    return launched
+    return out
 
 
 def two_blobs(n=200, sep=4.0, seed=0, d=2):
@@ -5125,31 +5606,71 @@ def phase_facades(device) -> dict:
 
 
 def phase_float64(device, walls32: dict, fused_wall: float) -> dict:
-    """14: A and B in float64, the 4-D Gaussian, the facades; `fused_wall`
-    is phase 6b's float32 seed 42 with on_device=True."""
+    """14: A in float64 eagerly and on the run loop with each hardware_prng,
+    each held against the eager run (`float64_on_loop`): logZ in the
+    clustered band, one float64 ESS launch
+    a reweight, one mutation_draws_f64 launch a step body and the keyed
+    warm-up and resampling uniforms (uniform_f64); the two flags the same
+    bits (the flag does not apply to float64, as in JAX); B, the 4-D
+    Gaussian, the facades. `fused_wall` is phase 6b's float32 seed 42 on
+    the run loop."""
+    f64 = torch.float64
     paths, runs = {}, {}
-    for on_device in (False, True):
-        runs[on_device] = {}
-        paths["A_float64"], walls = run_canonical(
-            device, f"A float64 hardware_prng on_device={on_device}", SEEDS[:1], True, True,
-            CLUSTERED_LOGZ, torch.float64, on_device=on_device, runs=runs[on_device])
-    eager, graphed = (runs[k][SEEDS[0]] for k in (False, True))
-    for key in ("beta", "logz", "steps", "calls"):
-        check(graphed["results"][key].tobytes() == eager["results"][key].tobytes(),
-              f"A float64: {key} with on_device=True differs from on_device=False")
-    check(graphed["launches"] == eager["launches"] and graphed["logz"] == eager["logz"],
-          f"A float64: launches {graphed['launches']} / {eager['launches']}, logZ "
-          f"{graphed['logz']!r} / {eager['logz']!r}")
-    check_fit_replays("A float64 on_device=True", graphed["loops"])
-    print(f"A float64 seed {SEEDS[0]}: on_device=True equals on_device=False bit for bit "
-          f"({eager['wall']:.3f} s eagerly)", flush=True)
-    print(f"A seed {SEEDS[0]}: float64 wall {walls[SEEDS[0]]:.3f} s (on_device=True) against "
-          f"float32 {fused_wall:.3f} s (phase 6b, on_device=True) and {walls32[SEEDS[0]]:.3f} s "
-          f"(phase 6, on_device=False) in this run", flush=True)
-    paths["B_float64"], errs, _ = phase_large_ensemble(device, torch.float64)
-    paths["gaussian4_float64"] = phase_float64_gaussian(device)
+    for hw in (False, True):
+        name = f"A float64 hardware_prng={hw}"
+        out = float64_on_loop(name, lambda seed, hw=hw: canonical_sampler(
+            device, seed, True, hw, f64), N_TOTAL)
+        eager, fused = out["eager"], out["fused"]
+        iters, launched = fused["iters"], eager["launches"]
+        bodies, past = eager["bodies"], eager["loops"].get("mcmc", {}).get("past_stop", 0)
+        uniforms = iteration_uniforms(eager["sampler"])
+        check(abs(fused["logz"] - CLUSTERED_LOGZ[0]) <= CLUSTERED_LOGZ[1],
+              f"{name}: logZ {fused['logz']} outside {CLUSTERED_LOGZ}")
+        check(launched["ess_bisect_f64"] == iters - 1
+              and launched["mutation_draws_f64"] == bodies == out["steps"] + past
+              and fused["launches"]["mutation_draws_f64"] == out["steps"]
+              and launched["uniform_f64"] == uniforms
+              and launched["normal_f64"] == launched["gamma_f64"] == 0,
+              f"{name}: launches {launched} for {iters} iterations, {bodies} MCMC bodies "
+              f"({out['steps']} steps, {past} past the stop), {uniforms} keyed uniforms")
+        check_fit_replays(f"{name} on_device=True", fused["loops"])
+        check_em_launches(name, launched, eager["mode_fits"], None, eager["loops"])
+        check(cuda_median is None or launched["weighted_median"] == eager["mode_fits"] > 0,
+              f"{name}: {launched.get('weighted_median')} weighted-median launches for "
+              f"{eager['mode_fits']} mode fits")
+        paths["A_float64_hardware_prng" if hw else "A_float64"] = launched
+        runs[hw] = out
+    # the flag does not apply to float64: each run of hardware_prng=True
+    # (eager and on the run loop) draws and launches what the flag off's does
+    for run in ("eager", "fused"):
+        on, off = runs[True][run], runs[False][run]
+        for key in ("beta", "logz", "ess", "cv", "steps", "calls"):
+            check(on["results"][key].tobytes() == off["results"][key].tobytes(),
+                  f"A float64 {run}: {key} with hardware_prng=True differs from False")
+        check(set(on["draws"]) == set(off["draws"])
+              and all(on["draws"][k].tobytes() == off["draws"][k].tobytes() for k in off["draws"]),
+              f"A float64 {run}: the draw states of the two flags differ")
+        check(on["launches"] == off["launches"],
+              f"A float64 {run}: launches {on['launches']} with hardware_prng=True, "
+              f"{off['launches']} without")
+    a = runs[False]
+    print(f"A float64 seed {SEEDS[0]}: both flags the same bits; the run loop "
+          f"{a['walls']['on_device=True']:.3f} s ({a['ms_per_iter']['on_device=True']:.1f} ms an "
+          f"iteration; on_device=False {a['walls']['on_device=False']:.3f} s) against float32 "
+          f"{fused_wall:.3f} s (phase 6b, the run loop) and {walls32[SEEDS[0]]:.3f} s (phase 6, "
+          f"on_device=False) in this run", flush=True)
+    paths["B_float64"], errs, b_rows = phase_large_ensemble(device, f64)
+    gauss = phase_float64_gaussian(device)
+    paths["gaussian4_float64"] = gauss["eager"]["launches"]
     paths["facades"] = phase_facades(device)
-    return paths, errs
+    summary = {"A": {hw: {k: runs[hw][k] for k in ("walls", "ms_per_iter", "iters", "graphs",
+                                                   "steps")} for hw in (False, True)},
+               "gaussian4": {k: gauss[k] for k in ("walls", "ms_per_iter", "iters", "graphs")},
+               "B_mutation_s": [[r["wall"], g["wall"]] for r, g in zip(b_rows["eager"],
+                                                                       b_rows["graphed"])
+                                if r["beta"] > 0.0]}
+    print(f"float64: {json.dumps(summary)}", flush=True)
+    return paths, errs, summary
 
 
 # ---------------------------------------------------------------------------
@@ -5352,12 +5873,21 @@ def _mesh_runs(device, walls32: dict) -> dict:
     check_mesh_pair("A mesh hardware_prng", hw[False], hw[True])
     print(f"A mesh hardware_prng: call counter {int(hw[True]['draws']['philox_counter'])} "
           f"after {hw[True]['bodies']} MCMC bodies", flush=True)
+    f64 = float64_on_loop("A mesh float64", lambda seed: mesh_sampler(
+        device, mesh, seed, dtype=torch.float64), N_TOTAL)
+    launched = f64["eager"]["launches"]
+    check(abs(f64["fused"]["logz"] - CLUSTERED_LOGZ[0]) <= CLUSTERED_LOGZ[1]
+          and launched["ess_bisect_f64"] == 0 and launched["sym_eigvals"] == f64["iters"] - 1
+          and f64["loops"]["ess_sharded"].get("node_bodies", 0) > 0,
+          f"A mesh float64: logZ {f64['fused']['logz']}, launches {launched}, loops "
+          f"{f64['loops']}")
     return {"launches": eager["launches"], "launches_hardware_prng": hw[False]["launches"],
             "walls": {"on_device=False": eager["wall"], "on_device=True": fused["wall"],
                       "hardware_prng on_device=False": hw[False]["wall"],
                       "hardware_prng on_device=True": hw[True]["wall"]},
             "iters": eager["iters"], "loops": fused["loops"], "run_graphs": run_graphs,
-            "windows": windows}
+            "windows": windows, "float64": {k: f64[k] for k in ("walls", "ms_per_iter", "iters",
+                                                                "graphs", "steps")}}
 
 
 # ---------------------------------------------------------------------------
@@ -5390,7 +5920,7 @@ def phase_rosenbrock100(device) -> dict:
     an iteration of the eigenvalue kernel, the ESS kernel and the top other
     kernels."""
     s = rosenbrock100_sampler(device, SEEDS[1])
-    check(s.state.fused and s.state.run_route, "rosenbrock100: not on the device run loop")
+    check(s.state.fused and run_loop(s), "rosenbrock100: not on the device run loop")
     sizes, plan = [], cuda_reweight.plan_launch
 
     def recording_plan(n, dtype=torch.float32):  # the S of every ESS launch planned
@@ -5545,7 +6075,8 @@ SOURCES = {"ess_bisect": "tempest_tpu_torch/csrc/ess_bisect.cu",
            "mvstud_em": "tempest_tpu_torch/csrc/mvstud_em.cu",
            "set_conditional": "tempest_tpu_torch/csrc/graph_cond.cu"}
 KERNELS = ("ess_bisect", "ess_bisect_f64", "ess_bracket", "mutation_draws", "normal", "bits",
-           "gamma", "sym_eigvals", "weighted_median", "gmm_em", "mvstud_em", "set_conditional")
+           "gamma", "mutation_draws_f64", "normal_f64", "uniform_f64", "gamma_f64",
+           "sym_eigvals", "weighted_median", "gmm_em", "mvstud_em", "set_conditional")
 # Kernels of the port that replace no Pallas kernel, and what they replace.
 NO_PALLAS = {
     "sym_eigvals": "XLA's jnp.linalg.eigvalsh of volume_variation_dtn (tools.py:214; also :274); "
@@ -5568,6 +6099,16 @@ NO_PALLAS = {
                        "run (tempest_tpu/fused.py:411-433): the flag of a CUDA-graph "
                        "conditional node, set on the device at each replay; its plain version "
                        "is the host's read of the predicate",
+    # JAX sends every dtype but float32 to threefry (hw_prng_supported,
+    # pallas_prng.py:46-48): the float64 draws replace XLA's, in double.
+    "mutation_draws_f64": "XLA's threefry draws of a float64 tpCN step: jax.random.normal, "
+                          "gamma and uniform (tempest_tpu/mcmc.py:194, :315, :348); the "
+                          "float64 entry of the ported _mutation_draws_kernel",
+    "normal_f64": "XLA's threefry jax.random.normal in float64 (tempest_tpu/mcmc.py:194)",
+    "uniform_f64": "XLA's threefry jax.random.uniform in float64 (tempest_tpu/mcmc.py:348, "
+                   "steps/mutate.py:38, the resampling's)",
+    "gamma_f64": "XLA's threefry jax.random.gamma in float64 (tempest_tpu/mcmc.py:315), an "
+                 "exact rejection loop; Marsaglia-Tsang in double, 16 rounds",
 }
 REPLACES = {
     "ess_bisect": "tempest_tpu/ops/pallas_reweight.py:55",
@@ -5585,6 +6126,10 @@ REPLACES = {
     "gmm_em": "tempest_tpu/cluster.py:256",
     "mvstud_em": "tempest_tpu/student.py:323",
     "set_conditional": "tempest_tpu/cluster.py:933",
+    "mutation_draws_f64": "tempest_tpu/mcmc.py:194",
+    "normal_f64": "tempest_tpu/mcmc.py:194",
+    "uniform_f64": "tempest_tpu/mcmc.py:348",
+    "gamma_f64": "tempest_tpu/mcmc.py:315",
 }
 # Where each kernel's `launches` were counted.
 LAUNCHES_ON = {
@@ -5623,6 +6168,17 @@ LAUNCHES_ON = {
                        "mutation and termination IF nodes), 16 a mutation (the cluster fit's "
                        "15 IF nodes, the MCMC chain's WHILE node) and one a step); the "
                        "on_device=False runs decide on the host and launch none",
+    "mutation_draws_f64": "A in float64 (phase 14, seed 42, on_device=False: one an MCMC step "
+                          "body, the chunks' steps past the stop included; on the run loop "
+                          "once a step, in the MCMC WHILE node's body); with hardware_prng "
+                          "as often, the same draws",
+    "normal_f64": "B in float64 (phase 14, its eager run: one an MCMC step body; graphed once a "
+                  "step, in the WHILE node's body)",
+    "uniform_f64": "B in float64 (phase 14, its eager run: one an MCMC step body's acceptance "
+                   "uniforms, and the keyed warm-up (two) and resampling (one) uniforms); A in "
+                   "float64 those of its iterations",
+    "gamma_f64": "B in float64 (phase 14, its eager run: one an MCMC step body; graphed once a "
+                 "step, in the WHILE node's body)",
 }
 def kernel_table(rows: dict, launches: dict, floor: dict, split: dict, paths=None) -> list:
     table = []
@@ -5643,7 +6199,7 @@ def kernel_table(rows: dict, launches: dict, floor: dict, split: dict, paths=Non
                                    "bytes_bound_ms", "longest_chain", "device_ms_turns",
                                    "cumsum_accumulation", "S", "filled", "probes", "launch_plan",
                                    "gamma_bits_unequal", "hw_uniform_launches", "shapes",
-                                   "mode", "uniform_equal", "raw_words",
+                                   "mode", "uniform_equal", "raw_words", "shape", "mean_rounds",
                                    "routes", "on_rosenbrock100", "on_path", "chain_bound_ms",
                                    "bound_with_chain_ms", "cluster", "n_iter_max",
                                    "iterations_max", "checks", "reduction_us",
@@ -5759,6 +6315,9 @@ def main() -> None:
         rows["ess_bracket"] = phase_bracket_kernel(device)
     stamp("phase 4: the PRNG kernels")
     rows.update(phase_prng_kernels(device))
+    if "tempest_normal_f64" in cuda_prng.LIBRARY.functions:  # absent from an older package
+        stamp("phase 4, float64: the float64 PRNG kernels")
+        rows.update(phase_prng_kernels_f64(device))
     stamp("phase 4b: the eigenvalue kernel")
     if cuda_linalg is not None:
         rows["sym_eigvals"] = phase_eig_kernel(device)
@@ -5842,7 +6401,7 @@ def main() -> None:
     for name, n in phase_cadence_and_host(device).items():
         paths[name] = n
     stamp("phase 14: float64")
-    f64_paths, f64_errs = phase_float64(device, walls, fused["wall"])
+    f64_paths, f64_errs, f64_summary = phase_float64(device, walls, fused["wall"])
     paths.update(f64_paths)
     for name, err in f64_errs.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
@@ -5868,16 +6427,23 @@ def main() -> None:
                 "ess_bracket": paths["dynamic"]["ess_bracket"],
                 "mutation_draws": paths["A"]["mutation_draws"],
                 "normal": paths["B"]["normal"], "bits": paths["B"]["bits"],
-                "gamma": paths["B"]["gamma"], "sym_eigvals": paths["rosenbrock100"]["sym_eigvals"],
+                "gamma": paths["B"]["gamma"],
+                "mutation_draws_f64": paths["A_float64"]["mutation_draws_f64"],
+                "normal_f64": paths["B_float64"]["normal_f64"],
+                "uniform_f64": paths["B_float64"]["uniform_f64"],
+                "gamma_f64": paths["B_float64"]["gamma_f64"],
+                "sym_eigvals": paths["rosenbrock100"]["sym_eigvals"],
                 "weighted_median": paths["B"]["weighted_median"],
                 "gmm_em": paths["A"]["gmm_em"], "mvstud_em": paths["A"]["mvstud_em"],
                 "set_conditional": paths["A_fused"]["set_conditional"]}
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on its path")
     print(f"launches by path: {json.dumps(paths)}", flush=True)
-    keys = ("probes", "wall_s", "iters", "loops", "run_graphs", "windows", "bisection")
+    keys = ("probes", "wall_s", "iters", "loops", "run_graphs", "windows", "bisection",
+            "float64")
     print(f"dynamic: {json.dumps({k: dynamic[k] for k in keys})}", flush=True)
-    keys = ("walls", "iters", "loops", "run_graphs", "windows")
+    print(f"float64: {json.dumps(f64_summary)}", flush=True)
+    keys = ("walls", "iters", "loops", "run_graphs", "windows", "float64")
     print(f"A mesh: {json.dumps({k: mesh[k] for k in keys})}", flush=True)
     keys = ("wall", "iters", "loops", "run_graphs", "windows")
     print(f"A fused: {json.dumps({k: fused[k] for k in keys})}", flush=True)

@@ -1,7 +1,7 @@
 """A's, B's, dynamic mode's and rosenbrock100's runs in two versions of
 tempest_tpu_torch, in turns on one GPU.
 
-    python3 scripts/path_ab.py --parent DIR
+    python3 scripts/path_ab.py --parent DIR [--only float64]
 
 DIR is a checkout of another commit (for instance `git archive <commit> |
 tar -x -C build/parent`). The script runs `--one ROOT` in a process of its
@@ -39,7 +39,17 @@ both versions run the same drive). One process:
 - rosenbrock100 (phase 16): seed 42 with run(on_device=True) after a
   capturing seed-43 run: wall, iterations, logZ; then iterations 21-23
   graphed under the profiler: wall, device ms, blocking host reads and
-  `ps/fit`'s host ms an iteration.
+  `ps/fit`'s host ms an iteration;
+- float64 (`float64_paths`; `--only float64` runs these alone): A in
+  float64 with `hardware_prng` off and on, the 4-D Gaussian of
+  tests/test_float64.py, dynamic mode (rosenbrock10_cv) and A on a
+  one-rank mesh, each seed 42 (the Gaussian seed 1) with
+  run(on_device=True) after a capturing run, then A with
+  run(on_device=False): wall, iterations, ms an iteration, logZ, MCMC
+  steps, the loops' host reads and replays in the timed run, whether it
+  took the device run loop and its graph's nodes and depth; and B in
+  float64 (phase 14) graphed after a capturing pass: the seconds of each
+  mutation iteration.
 
 Each process prints one line `PATH_AB {json}`; the parent process prints
 them in order and exits non-zero if one failed. About 2 min a process.
@@ -75,22 +85,21 @@ def timed_run(cs, s, n_total: int) -> tuple:
     return wall, sum(v.get("reads", 0) for v in s.state._iteration.loops.stats.values()) - before
 
 
-def mesh_a(cs, device) -> dict:
+def mesh_a(cs, device, **kw) -> dict:
     """A on a particle mesh of one rank over NCCL (phase 15): seed 42 with
     run(on_device=True) after a capturing seed-43 run: wall, iterations,
-    logZ, the loops' host reads and whether it took the device run loop."""
+    logZ, the loops' host reads and whether it took the device run loop;
+    `kw` goes to the sampler (dtype=torch.float64 for float64)."""
     import gc
 
     import torch.distributed as dist
 
     cs.initialize(f"127.0.0.1:{cs.free_port()}", 1, 0, device="cuda", timeout=300)
     try:
-        m = cs.mesh_sampler(device, cs.make_particle_mesh(device="cuda"), cs.SEEDS[1])
+        m = cs.mesh_sampler(device, cs.make_particle_mesh(device="cuda"), cs.SEEDS[1], **kw)
         m.run(n_total=cs.N_TOTAL, progress=False, on_device=True)  # captures the graphs
         m.reset(random_state=cs.SEEDS[0])
-        wall, reads = timed_run(cs, m, cs.N_TOTAL)
-        out = {"wall_s": wall, "iters": int(m.state.hist.t), "logz": m.evidence()[0],
-               "reads": reads, "run_loop": "run" in m.state._iteration.loops.stats}
+        out = on_device_run(cs, m, cs.N_TOTAL)
         del m
         return out
     finally:
@@ -98,7 +107,68 @@ def mesh_a(cs, device) -> dict:
         dist.destroy_process_group()
 
 
-def one(root: str) -> dict:
+def on_device_run(cs, s, n_total: int) -> dict:
+    """Sampler `s`'s timed run(on_device=True) (after a run that captured
+    its graphs): wall, iterations, ms an iteration, logZ, MCMC steps, the
+    loops' host reads and graph replays in the run, whether it took the
+    device run loop, and that loop's graph (nodes, depth)."""
+    loops = s.state._iteration.loops
+    replays = sum(v.get("replays", 0) for v in loops.stats.values())
+    wall, reads = timed_run(cs, s, n_total)
+    iters = int(s.state.hist.t)
+    graphs = [dict(nodes=g.nodes, depth=g.depth) for g in loops.graphs_of("run")] \
+        if hasattr(loops, "graphs_of") else []
+    return {"wall_s": wall, "iters": iters, "ms_per_iter": 1e3 * wall / iters,
+            "logz": s.evidence()[0], "steps": int(s.results()["steps"].sum()), "reads": reads,
+            "replays": sum(v.get("replays", 0) for v in loops.stats.values()) - replays,
+            "run_loop": bool(loops.stats.get("run", {}).get("replays", 0)), "run_graphs": graphs}
+
+
+def float64_paths(cs, device) -> dict:
+    """The float64 paths: A with each hardware_prng, the 4-D Gaussian,
+    dynamic mode and A on a one-rank mesh with run(on_device=True) after a
+    capturing run, A also with run(on_device=False); B's mutation
+    iterations graphed after a capturing pass."""
+    import torch
+
+    from tempest_tpu_torch import Sampler
+
+    f64 = torch.float64
+    out = {}
+    for hw in (False, True):
+        a = cs.canonical_sampler(device, cs.SEEDS[1], True, hw, f64)
+        a.run(n_total=cs.N_TOTAL, progress=False, on_device=True)  # captures the graphs
+        a.reset(random_state=cs.SEEDS[0])
+        out[f"A hardware_prng={hw}"] = on_device_run(cs, a, cs.N_TOTAL)
+        a.reset(random_state=cs.SEEDS[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.run(n_total=cs.N_TOTAL, progress=False, on_device=False)
+        torch.cuda.synchronize()
+        out[f"A hardware_prng={hw} on_device=False"] = {
+            "wall_s": time.perf_counter() - t0, "iters": int(a.state.hist.t),
+            "logz": a.evidence()[0], "steps": int(a.results()["steps"].sum())}
+        del a
+    g = Sampler(cs.prior_transform, cs.gaussian4, n_dim=4, n_particles=256, vectorize=True,
+                clustering=False, random_state=2, dtype=f64, device=device)
+    g.run(n_total=1024, progress=False, on_device=True)  # captures the graphs
+    g.reset(random_state=1)
+    out["gaussian4"] = on_device_run(cs, g, 1024)
+    d = Sampler(cs.prior_transform, cs.rosenbrock_chained, n_dim=cs.N_DIM,
+                n_particles=cs.N_PARTICLES, vectorize=True, clustering=False,
+                history_capacity=192, volume_variation=1.0, random_state=cs.SEEDS[1],
+                dtype=f64, device=device)
+    d.run(n_total=cs.N_TOTAL, progress=False, on_device=True)  # captures the graphs
+    d.reset(random_state=cs.SEEDS[0])
+    out["dynamic"] = on_device_run(cs, d, cs.N_TOTAL)
+    out["A_mesh"] = mesh_a(cs, device, dtype=f64)
+    b, _ = cs.run_b(device, f64, "B float64 graphed (capturing)", graphs=True)
+    b, rows = cs.run_b(device, f64, "B float64 graphed", graphs=True, s=b)
+    out["B_mutation_s"] = [r["wall"] for r in rows if r["beta"] > 0.0]
+    return out
+
+
+def one(root: str, only: str = "") -> dict:
     sys.argv = [sys.argv[0], "--package-root", root]  # chip_smoke reads it when imported
     sys.path.insert(0, REPO)
     import torch
@@ -108,6 +178,9 @@ def one(root: str) -> dict:
     device = torch.device("cuda")
     cs.sleep_kernel()  # the profiles' warm-up names it while a profile loses nothing
     out = {"root": root, "package": os.path.dirname(os.path.dirname(cs.cuda_reweight.__file__))}
+    out["float64"] = float64_paths(cs, device)
+    if only == "float64":
+        return out
     g, _ = cs.run_b(device, torch.float32, "B graphed (capturing)", graphs=True)
     g, rows = cs.run_b(device, torch.float32, "B graphed", graphs=True, s=g)
     out["B_mutation_s"] = [r["wall"] for r in rows if r["beta"] > 0.0]
@@ -120,7 +193,7 @@ def one(root: str) -> dict:
     iters, logz = int(s.state.hist.t), s.evidence()[0]
     w = cs.steady_window(s, True, n=3, device_only=False)  # resets the sampler
     out["dynamic"] = {"wall_s": wall, "iters": iters, "logz": logz, "reads": reads,
-                      "run_loop": bool(getattr(s.state, "run_route", False)),
+                      "run_loop": cs.run_loop(s),
                       "window_ms_per_iter": 1e3 * w["wall_per_iter"],
                       "device_ms_per_iter": w["device_ms_per_iter"], "idle": w["idle"],
                       "blocking_per_iter": w["blocking_per_iter"],
@@ -192,17 +265,21 @@ def one(root: str) -> dict:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", metavar="DIR", help="the other version's checkout")
+    parser.add_argument("--only", choices=("float64",),
+                        help="run the float64 paths alone")
     parser.add_argument("--one", metavar="ROOT", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.one:
-        print("PATH_AB " + json.dumps(one(os.path.abspath(args.one))), flush=True)
+        print("PATH_AB " + json.dumps(one(os.path.abspath(args.one), args.only or "")),
+              flush=True)
         return
     if not args.parent:
         parser.error("--parent DIR is required")
     parent = os.path.abspath(args.parent)
     results, ok = [], True
+    only = ["--only", args.only] if args.only else []
     for root in (parent, REPO, REPO, parent):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root, *only],
                               capture_output=True, text=True, timeout=1200)
         line = [ln for ln in proc.stdout.splitlines() if ln.startswith("PATH_AB ")]
         if proc.returncode != 0 or not line:
@@ -212,6 +289,10 @@ def main() -> None:
             continue
         results.append(json.loads(line[0][len("PATH_AB "):]))
         r = results[-1]
+        print(f"{'parent' if root == parent else 'this'} ({r['package']}): float64 "
+              f"{json.dumps(r['float64'])}", flush=True)
+        if args.only:
+            continue
         d = r["dynamic"]
         print(f"{'parent' if root == parent else 'this'} ({r['package']}): B seconds a mutation "
               f"iteration graphed {[round(x, 4) for x in r['B_mutation_s']]}, profiled "

@@ -109,10 +109,11 @@ class SamplerConfig:
     # None = auto (max(4096, 4*n_particles)); 0 disables subsampling.
     train_max_points: Optional[int] = None
     leaf_fit_points: Optional[int] = None
-    # Draw the MCMC steps' normals and gamma mixture scales with the Philox
-    # kernels of ops/cuda_prng.py instead of the torch generator: a
-    # different, equally valid stream. Ignored (the generator's draws) for
-    # non-float32 dtypes, as in tempest_tpu/config.py:156-163.
+    # Draw with the Philox kernels of ops/cuda_prng.py under the seed's own
+    # key (`draws.HardwareDraws`), on every device in float32: a different,
+    # equally valid stream. Ignored in float64, as in
+    # tempest_tpu/config.py:156-163: the draws are then those of
+    # hardware_prng=False (keyed on the card, the generator's on the CPU).
     hardware_prng: bool = False
     split_all: bool = True
 

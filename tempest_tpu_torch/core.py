@@ -15,8 +15,9 @@ iteration (`fused.py`) for `run()` and `sample()` alike, as JAX runs its
 fused iteration for both: its loops in chunks, one host read a chunk.
 `run(on_device=True)` without `save_every` (which keeps the host loop,
 core.py:309, and under a mesh its sharded checkpoints) on a configuration
-of `fused.run_route` (float32, one device or a mesh, ESS or dynamic mode)
-runs the annealing loop itself on the device, as `_run_on_device` does
+of the fused route (float32 or float64, one device or a mesh, ESS or
+dynamic mode: every configuration without a host likelihood) runs the
+annealing loop itself on the device, as `_run_on_device` does
 (core.py:334-464):
 the first iteration on the per-iteration route, then the loop of
 `fused.make_fused_run`, whose predicate is the termination test, until
@@ -24,14 +25,13 @@ it ends or the history fills; the host reads `t` once a dispatch, and
 where the history filled it checks the termination, doubles the capacity
 and enters again. On a CUDA device the loop's CUDA graphs are on
 (`loops.Loops.graphs`), so a dispatch is one graph replay. Every other
-route anneals in the host loop of `run_sampling`, whose termination test
-takes the beta the iteration read (`iteration.beta`) and reads the
-posterior ESS once beta is finished, the run loop's predicate
-(`fused.beta_unfinished`, `fused.ess_below`) evaluated by the host; with
-`on_device=True` on a CUDA device its loop chunks replay as graphs. All
-routes give the same results. The first draws object is kept for the
-sampler's life and reseeded in place, as the graphs hold its generator
-(and, where its draws are keyed, its call counter's words). The
+route (`on_device=False`, `save_every`, a host likelihood) anneals in the
+host loop of `run_sampling`, whose termination test takes the beta the
+iteration read (`iteration.beta`) and reads the posterior ESS once beta is
+finished, the run loop's predicate (`fused.beta_unfinished`,
+`fused.ess_below`) evaluated by the host. All routes give the same
+results. The first draws object is kept for the sampler's life and
+reseeded in place, as the graphs hold its call counter's words. The
 dispatch-budget chunking of the TPU whole-run program is not ported
 (ROADMAP.md queue 1, item 12).
 
@@ -59,7 +59,7 @@ from .cluster import ClusterModel, single_cluster_model
 from .config import SamplerConfig
 from .draws import BlockDraws, Draws, HardwareDraws, seed_from_key_words
 from .fused import (beta_unfinished, ess_below, fused_route, make_fused_iteration,
-                    make_fused_run, run_route)
+                    make_fused_run)
 from .iteration import make_iteration
 from .ops.tools import ess_from_logw_psum, systematic_resample, trim_weights_mask
 from .parallel.mesh import particle_group, shard_current, shard_history
@@ -144,8 +144,7 @@ class SamplerCore:
         self.fused = fused_route(cfg)
         build = make_fused_iteration if self.fused else make_iteration
         self._iteration = build(cfg, self._loglike_batch, self._prior_batch)
-        self.run_route = run_route(cfg)
-        self._run = make_fused_run(cfg, self._iteration) if self.run_route else None
+        self._run = make_fused_run(cfg, self._iteration) if self.fused else None
         self.draws = None
         self.pbar: Optional[ProgressBar] = None
         self.reset()
@@ -172,14 +171,15 @@ class SamplerCore:
 
     def _make_draws(self, seed: int):
         """The draws of seed `seed`: made once, then reseeded in place, as
-        the loops' graphs hold their generator and call counter."""
+        the loops' graphs hold their call counter."""
         if self.draws is not None:
             self.draws.reseed(seed)
             return self.draws
-        draws = (HardwareDraws if self.config.hardware_prng else Draws)(
-            seed, self.device, self.dtype)
+        # hardware_prng applies to float32 only, as JAX's hw_prng_supported
+        # (pallas_prng.py:46-48): float64 draws what it draws without the flag
+        hardware = self.config.hardware_prng and self.dtype == torch.float32
+        draws = (HardwareDraws if hardware else Draws)(seed, self.device, self.dtype)
         loops = self._iteration.loops
-        loops.generators = [draws.generator]
         loops.counters = [draws.calls] if draws.calls is not None else []
         return draws if self.group is None else BlockDraws(draws, self.rank, self.world)
 
@@ -241,7 +241,7 @@ class SamplerCore:
         loops = self._iteration.loops
         loops.graphs = self.fused and on_device and save_every is None
         try:
-            if self.run_route and on_device and save_every is None:
+            if self.fused and on_device and save_every is None:
                 self._run_on_device(t0)
             else:
                 beta = None  # read once, where a resumed run starts

@@ -8,6 +8,10 @@
 //   tempest_gamma           <- `hw_gamma` (:275), which composes 6 `_normal_kernel`
 //                              and 7 `_bits_kernel` calls with elementwise XLA ops
 //   tempest_mutation_draws  <- `_mutation_draws_kernel` (:159; entry hw_mutation_draws)
+// and their float64 entries, tempest_normal_f64, tempest_uniform_f64,
+// tempest_gamma_f64 and tempest_mutation_draws_f64, which replace XLA's
+// threefry draws in double (JAX sends every dtype but float32 to threefry,
+// pallas_prng.py:46-48; the float64 section at the end of this file).
 // The TPU kernels seed the TPU's hardware generator. Hopper has none, so every
 // word here comes from Philox4x32-10 (Random123), written out by hand with
 // __umulhi. The plain PyTorch versions in tempest_tpu_torch/ops/philox.py
@@ -27,7 +31,8 @@
 //   and 1 of stream 7.
 // A word maps to (0, 1] as pallas_prng.py:67-74 does: 2 - float(0x3F800000 | w >> 9).
 //
-// Numerics: precise logf, sqrtf, sincosf, cosf and powf, no --use_fast_math,
+// Numerics: precise logf, sqrtf, sincosf, cosf and powf (log, sqrt, sincos,
+// cos and pow in double for the float64 entries), no --use_fast_math,
 // and the source is built with -fmad=false, so no product is contracted into
 // an FMA that PyTorch's separate elementwise kernels would round twice; the
 // plain version on the card then reproduces the kernel's values, except where
@@ -367,6 +372,194 @@ gamma_kernel(const float* __restrict__ alpha, float* __restrict__ g, int64_t n, 
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Float64: the same draws in double (philox.py's float64 layout)
+// ---------------------------------------------------------------------------
+// A double takes a pair of words, (0, 1) or (2, 3) of a block: 53 bits,
+// u = (k + 1) 2^-53 with k = ((w0 >> 5) << 26) | (w1 >> 6), exact, in
+// (0, 1]. So a block gives two uniforms, or two normals by paired
+// Box-Muller in double. The gamma draws take MT_ROUNDS_F64 = 16 rounds
+// (JAX's float64 gamma has no round cap; a draw no round accepts has
+// probability below 1.5e-21 at alpha >= 1, boosted below). These are the
+// simple designs: one thread a block for the normals and uniforms (two
+// 8-byte outputs, one 16-byte store), one thread a pair of walkers for the
+// gamma kernel, running its rounds in series until both accept, and a warp
+// a walker for the mutation draws, whose lanes 0-15 run the 16 rounds side
+// by side and lane 16 draws the boost and Metropolis uniforms.
+
+constexpr double kTwoPiD = 6.283185307179586;
+constexpr double kTwoPowM53 = 1.0 / 9007199254740992.0;  // 2^-53
+constexpr int kMtRoundsF64 = 16;                         // philox.MT_ROUNDS_F64
+constexpr uint32_t kGammaBoostCallF64 = 2 * kMtRoundsF64;
+constexpr uint32_t kStreamBoostAcceptF64 = 1 + 2 * kMtRoundsF64;  // rounds on 1..32
+constexpr int kLanesPerWalkerF64 = 32;  // a warp: 16 rounds, boost/accept, 15 idle
+
+__device__ __forceinline__ double unit53(uint32_t wa, uint32_t wb) {
+  const uint64_t k = (static_cast<uint64_t>(wa >> 5) << 26) | (wb >> 6);
+  return static_cast<double>(k + 1) * kTwoPowM53;
+}
+
+__device__ __forceinline__ double2 box_muller_f64(double ua, double ub) {
+  const double r = sqrt(-2.0 * log(ua));
+  double s, c;
+  sincos(kTwoPiD * ub, &s, &c);
+  return make_double2(r * c, r * s);
+}
+
+// Elements 2i, 2i + 1 of stream 0: normals (kNormal) or uniforms.
+template <bool kNormal>
+__device__ __forceinline__ void pair_f64(double* __restrict__ out, int64_t total,
+                                         const CallArgs& args) {
+  const Call call = resolve(args);
+  const int64_t n_blocks = (total + 1) / 2;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n_blocks;
+       i += stride) {
+    const uint4 w = philox(static_cast<uint32_t>(i), kStreamNormal, call);  // == kStreamBits
+    const double ua = unit53(w.x, w.y), ub = unit53(w.z, w.w);
+    const double2 v = kNormal ? box_muller_f64(ua, ub) : make_double2(ua, ub);
+    if (2 * i + 2 <= total) {
+      reinterpret_cast<double2*>(out)[i] = v;  // 16-byte aligned
+    } else {
+      out[2 * i] = v.x;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+normal_f64_kernel(double* __restrict__ out, int64_t total, CallArgs args) {
+  pair_f64<true>(out, total, args);
+}
+
+__global__ void __launch_bounds__(kThreads)
+uniform_f64_kernel(double* __restrict__ out, int64_t total, CallArgs args) {
+  pair_f64<false>(out, total, args);
+}
+
+struct MtShapeF64 {
+  double d, c;
+  bool boost;
+};
+
+__device__ __forceinline__ MtShapeF64 mt_shape_f64(double a) {
+  const bool boost = a < 1.0;
+  const double a_eff = boost ? a + 1.0 : a;
+  const double d = a_eff - 1.0 / 3.0;
+  return MtShapeF64{d, 1.0 / sqrt(9.0 * d), boost};
+}
+
+__device__ __forceinline__ bool mt_accept_f64(const MtShapeF64& s, double z, double u,
+                                              double& proposal) {
+  const double one_cz = 1.0 + s.c * z;
+  const double v = one_cz * one_cz * one_cz;
+  proposal = s.d * v;
+  return (v > 0.0) && (log(u) < 0.5 * z * z + s.d - s.d * v + s.d * log(fmax(v, 1e-300)));
+}
+
+__device__ __forceinline__ double mt_boost_f64(double a, double u) {
+  return pow(u, 1.0 / fmax(a, 1e-12));
+}
+
+// hw_gamma in double: thread i draws walkers 2i and 2i + 1 from block i of
+// calls counter + 2r (normals) and counter + 2r + 1 (uniforms), round r
+// while one of the two is undecided, and the boost from block i of call
+// counter + 32 where one has alpha < 1.
+__global__ void __launch_bounds__(kThreads)
+gamma_f64_kernel(const double* __restrict__ alpha, double* __restrict__ g, int64_t n,
+                 CallArgs args) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t w0 = 2 * i;
+  if (w0 >= n) return;
+  const bool v1 = w0 + 1 < n;
+  const double a0 = alpha[w0], a1 = v1 ? alpha[w0 + 1] : 1.0;
+  const Call call = resolve(args);
+  const uint32_t block = static_cast<uint32_t>(i);
+  const MtShapeF64 s0 = mt_shape_f64(a0), s1 = mt_shape_f64(a1);
+  double r0 = s0.d, r1 = s1.d;
+  bool o0 = true, o1 = v1;
+  for (int r = 0; r < kMtRoundsF64 && (o0 || o1); ++r) {
+    const uint4 wz = philox(block, kStreamNormal, call_plus(call, 2 * r));
+    const uint4 wu = philox(block, kStreamBits, call_plus(call, 2 * r + 1));
+    const double2 z = box_muller_f64(unit53(wz.x, wz.y), unit53(wz.z, wz.w));
+    double p0, p1;
+    const bool k0 = mt_accept_f64(s0, z.x, unit53(wu.x, wu.y), p0);
+    const bool k1 = mt_accept_f64(s1, z.y, unit53(wu.z, wu.w), p1);
+    if (o0 && k0) {
+      r0 = p0;
+      o0 = false;
+    }
+    if (o1 && k1) {
+      r1 = p1;
+      o1 = false;
+    }
+  }
+  const bool b1 = v1 && s1.boost;
+  if (s0.boost || b1) {
+    const uint4 wb = philox(block, kStreamBits, call_plus(call, kGammaBoostCallF64));
+    if (s0.boost) r0 = r0 * mt_boost_f64(a0, unit53(wb.x, wb.y));
+    if (b1) r1 = r1 * mt_boost_f64(a1, unit53(wb.z, wb.w));
+  }
+  if (v1) {
+    reinterpret_cast<double2*>(g)[i] = make_double2(r0, r1);  // 16-byte aligned
+  } else {
+    g[w0] = r0;
+  }
+}
+
+// All draws of a float64 tpCN step. The first `walker_ctas` CTAs serve the
+// walkers, a warp each: lane r < 16 runs round r on streams 1 + 2r (its
+// cos-only normal) and 2 + 2r (its acceptance uniform), lane 16 encrypts
+// stream 33 (the boost and Metropolis uniforms); a ballot picks the first
+// accepted round and lane 16 writes g and u. The other CTAs draw the
+// proposal normals, one Philox block (two normals) a thread.
+__global__ void __launch_bounds__(kThreads)
+mutation_draws_f64_kernel(const double* __restrict__ alpha, double* __restrict__ z,
+                          double* __restrict__ g, double* __restrict__ u_acc, int64_t n_z,
+                          int64_t n_walkers, int walker_ctas, CallArgs args) {
+  const Call call = resolve(args);
+  if (static_cast<int>(blockIdx.x) >= walker_ctas) {
+    const int64_t i =
+        static_cast<int64_t>(blockIdx.x - walker_ctas) * kThreads + threadIdx.x;
+    if (i < (n_z + 1) / 2) {
+      const uint4 w = philox(static_cast<uint32_t>(i), kStreamNormal, call);
+      const double2 v = box_muller_f64(unit53(w.x, w.y), unit53(w.z, w.w));
+      if (2 * i + 2 <= n_z) {
+        reinterpret_cast<double2*>(z)[i] = v;  // 16-byte aligned
+      } else {
+        z[2 * i] = v.x;
+      }
+    }
+    return;
+  }
+  const int64_t n =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kLanesPerWalkerF64;
+  if (n >= n_walkers) return;  // the whole warp: one walker a warp
+  const int r = threadIdx.x & 31;
+  const uint32_t walker = static_cast<uint32_t>(n);
+  const double a = alpha[n];
+  const MtShapeF64 s = mt_shape_f64(a);
+  bool ok = false;
+  double proposal = 0.0;
+  uint4 wb = make_uint4(0, 0, 0, 0);
+  if (r < kMtRoundsF64) {
+    const uint4 wn = philox(walker, kStreamGammaRound0 + 2 * r, call);
+    const uint4 wa = philox(walker, kStreamGammaRound0 + 2 * r + 1, call);
+    const double zn = sqrt(-2.0 * log(unit53(wn.x, wn.y))) * cos(kTwoPiD * unit53(wn.z, wn.w));
+    ok = mt_accept_f64(s, zn, unit53(wa.x, wa.y), proposal);
+  } else if (r == kMtRoundsF64) {
+    wb = philox(walker, kStreamBoostAcceptF64, call);
+  }
+  const unsigned votes = __ballot_sync(kFullMask, ok) & ((1u << kMtRoundsF64) - 1u);
+  const int winner = votes ? __ffs(static_cast<int>(votes)) - 1 : 0;  // the first accepted round
+  const double won = __shfl_sync(kFullMask, proposal, winner);
+  if (r == kMtRoundsF64) {
+    const double res = votes ? won : s.d;
+    g[n] = res * (s.boost ? mt_boost_f64(a, unit53(wb.x, wb.y)) : 1.0);
+    u_acc[n] = unit53(wb.z, wb.w);
+  }
+}
+
 inline int grid_for(int64_t work) {
   const int64_t blocks = (work + kThreads - 1) / kThreads;
   return static_cast<int>(blocks < kMaxBlocks ? (blocks > 0 ? blocks : 1) : kMaxBlocks);
@@ -464,6 +657,66 @@ extern "C" int tempest_mutation_draws(const void* alpha, void* out, int64_t n_z,
   mutation_draws_kernel<<<static_cast<int>(walker_ctas + normal_ctas), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(alpha), z, z + n_z, z + n_z + n_walkers, n_z, n_walkers,
+      static_cast<int>(walker_ctas), make_args(k0, k1, counter, state));
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// The float64 entries: the same arguments, double in and out. A block of
+// the normal and uniform kernels gives two elements, so `total` may reach
+// 2^33 (the wrapper checks it).
+
+// out: (total,) float64 standard normals.
+extern "C" int tempest_normal_f64(void* out, int64_t total, uint32_t k0, uint32_t k1,
+                                  uint64_t counter, const void* state, int device,
+                                  void* stream) {
+  DeviceGuard guard(device);
+  normal_f64_kernel<<<grid_for((total + 1) / 2), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<double*>(out), total, make_args(k0, k1, counter, state));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out: (total,) float64 uniforms in (0, 1], 53 bits each.
+extern "C" int tempest_uniform_f64(void* out, int64_t total, uint32_t k0, uint32_t k1,
+                                   uint64_t counter, const void* state, int device,
+                                   void* stream) {
+  DeviceGuard guard(device);
+  uniform_f64_kernel<<<grid_for((total + 1) / 2), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<double*>(out), total, make_args(k0, k1, counter, state));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// alpha: (n,) float64 gamma shapes in, contiguous; out: (n,) float64,
+// 16-byte aligned, the gamma(alpha, 1) draws of calls counter .. counter + 32.
+extern "C" int tempest_gamma_f64(const void* alpha, void* out, int64_t n, uint32_t k0,
+                                 uint32_t k1, uint64_t counter, const void* state, int device,
+                                 void* stream) {
+  const int64_t ctas = ((n + 1) / 2 + kThreads - 1) / kThreads;  // a thread per 2 walkers
+  if (ctas > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  DeviceGuard guard(device);
+  gamma_f64_kernel<<<static_cast<int>(ctas > 0 ? ctas : 1), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(static_cast<const double*>(alpha),
+                                                          static_cast<double*>(out), n,
+                                                          make_args(k0, k1, counter, state));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// alpha: (n_walkers,) float64 gamma shapes in; out: (n_z + 2 n_walkers,)
+// float64, 16-byte aligned: z, then g, then u_acc.
+extern "C" int tempest_mutation_draws_f64(const void* alpha, void* out, int64_t n_z,
+                                          int64_t n_walkers, uint32_t k0, uint32_t k1,
+                                          uint64_t counter, const void* state, int device,
+                                          void* stream) {
+  const int64_t walker_ctas = (kLanesPerWalkerF64 * n_walkers + kThreads - 1) / kThreads;
+  const int64_t normal_ctas = ((n_z + 1) / 2 + kThreads - 1) / kThreads;
+  if (walker_ctas + normal_ctas > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  DeviceGuard guard(device);
+  double* z = static_cast<double*>(out);
+  mutation_draws_f64_kernel<<<static_cast<int>(walker_ctas + normal_ctas), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(alpha), z, z + n_z, z + n_z + n_walkers, n_z, n_walkers,
       static_cast<int>(walker_ctas), make_args(k0, k1, counter, state));
   return static_cast<int>(cudaGetLastError());
 }

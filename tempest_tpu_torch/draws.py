@@ -4,10 +4,12 @@ Every stochastic step of the port is a function of explicit draws; the
 loops take those draws from a draws object with four methods (`warmup`,
 `resample`, `mcmc_step`, `bootstrap`). `Draws` takes the bootstrap's draws
 from one seeded `torch.Generator` on the sampler's device, and on the CPU
-and in float64 every other draw too. On a CUDA device in float32 (`keyed`)
+every other draw too. On a CUDA device (`keyed`, float32 and float64 alike)
 every draw of an iteration (the warm-up's prior draw and patch uniforms,
 the resampling uniforms and every draw of an MCMC step) comes from the
-Philox kernels of `ops/cuda_prng.py`, keyed by a call counter on the
+Philox kernels of `ops/cuda_prng.py` in the run's dtype (their float64
+entries draw in double: 53-bit uniforms, Box-Muller and Marsaglia-Tsang
+in double, 16 rounds), keyed by a call counter on the
 device (`cuda_prng.PhiloxCounter`), as JAX carries its threefry key in the
 `while_loop`'s carry (tempest_tpu/mcmc.py:289, tempest_tpu/fused.py:430):
 a draw adds its calls to the counter's device word, a step times its
@@ -17,11 +19,16 @@ conditional body the calls count only where the body runs
 (`PhiloxCounter.guards`). That lets a CUDA graph run the whole chain as one
 WHILE node (`mcmc.py`), and the whole annealing run as one (`fused.py`),
 which a generator's host-side Philox offset, fixed at capture, would not.
-`HardwareDraws`, the source of `hardware_prng=True`, draws from the same
-kernels under another key, `philox.key_from_seed(seed)` where
-`Draws` takes `philox.draws_key(seed)`, so the two flags stay two streams,
-as threefry and the hardware PRNG are in JAX; it is keyed in float32 on
-every device (on the CPU through the kernels' plain versions). A test can
+So no CUDA graph of a sampler draws from the generator. A keyed draw on a
+CUDA tensor goes to its kernel or raises; nothing falls back to the
+generator. `HardwareDraws`, the source of `hardware_prng=True` in float32,
+draws from the same kernels under another key, `philox.key_from_seed(seed)`
+where `Draws` takes `philox.draws_key(seed)`, so the two flags stay two
+streams, as threefry and the hardware PRNG are in JAX; it is keyed on
+every device (on the CPU through the kernels' plain versions). In float64
+the flag does not apply, as in JAX (`hw_prng_supported`,
+pallas_prng.py:46-48): the sampler takes `Draws` there
+(`core.SamplerCore._make_draws`). A test can
 hand a loop another object with the same methods (for instance one that
 replays the JAX package's key chain) and compare values with `tempest_tpu`,
 not only distributions.
@@ -61,17 +68,13 @@ FUSED_DRAWS_MAX_ELEMS = 1 << 19  # tempest_tpu/ops/pallas_prng.py:226, 235
 
 class Draws:
     """The draws of one run, from a seeded generator on `device`, and where
-    `keyed` (float32 on a CUDA device; `KEYED_ON_CPU` adds the CPU) every
-    draw but the bootstrap's from the Philox kernels on the call counter
-    `calls` (the warm-up's, the resampling's and the MCMC steps').
+    `keyed` (float32 or float64 on a CUDA device; `KEYED_ON_CPU` adds the
+    CPU) every draw but the bootstrap's from the Philox kernels on the call
+    counter `calls` (the warm-up's, the resampling's and the MCMC steps'),
+    in the run's dtype. A keyed CUDA graph registers the counter
+    (`loops.Loops.counters`) and replays the draws of its capture's eager
+    run from the counter's current word."""
 
-    `graph_safe`: every draw comes from `generator` through PyTorch's
-    Philox kernels or from kernels that read their call counter on the
-    device, so a CUDA graph that registers the generator (and the counter,
-    `loops.Loops.counters`) replays the draws of its capture's eager run
-    from the current position."""
-
-    graph_safe = True
     calls: Optional[cuda_prng.PhiloxCounter] = None
     # The checkpoint names of the keyed steps' key and call counter.
     STATE_KEYS = ("step_key", "step_counter")
@@ -80,8 +83,8 @@ class Draws:
     def __init__(self, seed: int, device, dtype=torch.float32):
         self.device = torch.device(device)
         self.dtype = dtype
-        # The kernels draw float32 only.
-        self.keyed = dtype == torch.float32 and (self.KEYED_ON_CPU or self.device.type == "cuda")
+        self.keyed = dtype in cuda_prng.DTYPES and (
+            self.KEYED_ON_CPU or self.device.type == "cuda")
         self.generator = torch.Generator(device=self.device)
         self.reseed(seed)
 
@@ -108,8 +111,9 @@ class Draws:
 
     @property
     def counter(self) -> int:
-        """The keyed steps' call counter (a host read of its device word)."""
-        return self.calls.counter
+        """The keyed steps' call counter (a host read of its device word;
+        0 where no step is keyed)."""
+        return 0 if self.calls is None else self.calls.counter
 
     def _uniform(self, shape) -> torch.Tensor:
         return torch.rand(shape, generator=self.generator, dtype=self.dtype, device=self.device)
@@ -119,7 +123,7 @@ class Draws:
         patch; keyed, two calls of the uniform kernel, in (0, 1]."""
         if not self.keyed:
             return self._uniform((n, d)), self._uniform((n,))
-        out = self.calls.uniform(0, (n, d)), self.calls.uniform(1, (n,))
+        out = self.calls.uniform(0, (n, d), self.dtype), self.calls.uniform(1, (n,), self.dtype)
         self.calls.advance(2)
         return out
 
@@ -129,7 +133,7 @@ class Draws:
         shape = (n,) if method == "mult" else ()
         if not self.keyed:
             return self._uniform(shape)
-        out = self.calls.uniform(0, shape)
+        out = self.calls.uniform(0, shape, self.dtype)
         self.calls.advance(1)
         return out
 
@@ -152,20 +156,21 @@ class Draws:
         return z, g, self._uniform((n,))
 
     def _keyed_step(self, n_candidates, n, d, gamma_shape, active):
-        """Every draw of a step from the Philox kernels on `calls`: the
-        mutation-draws kernel (one call) for tpCN at R n d <= 2^19, else the
-        gamma kernel (13 calls, tpCN), the normal kernel and the uniform
-        mode of the bits kernel (one call each)."""
-        calls = self.calls
+        """Every draw of a step from the Philox kernels on `calls`, in the
+        run's dtype: the mutation-draws kernel (one call) for tpCN at
+        R n d <= 2^19, else the gamma kernel (tpCN; 13 calls in float32, 33
+        in float64), the normal kernel and the uniform kernel (one call
+        each)."""
+        calls, dtype = self.calls, self.dtype
         z_shape = (n_candidates, n, d)
         if gamma_shape is not None and n_candidates * n * d <= FUSED_DRAWS_MAX_ELEMS:
             out, used = calls.mutation_draws(0, gamma_shape, z_shape), 1
         else:
             used, g = 0, None
             if gamma_shape is not None:
-                g, used = calls.gamma(0, gamma_shape), philox.GAMMA_CALLS
-            z = calls.normal(used, z_shape)
-            out, used = (z, g, calls.uniform(used + 1, (n,))), used + 2
+                g, used = calls.gamma(0, gamma_shape), philox.gamma_calls(gamma_shape.dtype)
+            z = calls.normal(used, z_shape, dtype)
+            out, used = (z, g, calls.uniform(used + 1, (n,), dtype)), used + 2
         calls.advance(used, active)
         return out
 
@@ -182,19 +187,13 @@ class Draws:
         return state
 
     def tell(self):
-        """The generator's position: its Philox offset on a CUDA device
-        (advanced alike by every MCMC step of one shape), its whole state
-        on the CPU. Keyed draws do not move it."""
-        if self.device.type == "cuda":
-            return self.generator.get_offset()
+        """The generator's position, its state (the eager MCMC chunks put
+        unkeyed draws back to it). Keyed draws do not move it."""
         return self.generator.get_state()
 
     def seek(self, position) -> None:
         """Put the generator back to a position from `tell`."""
-        if self.device.type == "cuda":
-            self.generator.set_offset(position)
-        else:
-            self.generator.set_state(position)
+        self.generator.set_state(position)
 
     def key_words(self) -> np.ndarray:
         """The run's seed as the two uint32 words of a threefry key
@@ -227,14 +226,13 @@ class HardwareDraws(Draws):
     The key is the seed's two 32-bit words (`philox.key_from_seed`) and
     every kernel call takes the next call index, so a reset (`reseed`)
     restarts the stream. The key and the call counter are a
-    `cuda_prng.PhiloxCounter`, made whatever the device and dtype. In
-    float32 every draw of an iteration is keyed as `Draws`' are on the
-    card, on the CPU too (the plain versions): the warm-up's and the
-    resampling's too, which JAX takes from threefry, so that a CUDA graph
-    can run the whole annealing loop. The generator draws all of a run in
-    another dtype than float32: the kernels draw float32 only, and JAX's
-    `hw_prng_supported` (pallas_prng.py:46-48) sends every other dtype to
-    threefry, so the flag does not apply there.
+    `cuda_prng.PhiloxCounter`, made whatever the device. Every draw of an
+    iteration is keyed as `Draws`' are on the card, on the CPU too (the
+    plain versions): the warm-up's and the resampling's too, which JAX
+    takes from threefry, so that a CUDA graph can run the whole annealing
+    loop. JAX's `hw_prng_supported` (pallas_prng.py:46-48) sends every
+    other dtype than float32 to threefry, so the sampler makes this object
+    in float32 only (`core.SamplerCore._make_draws`).
     """
 
     STATE_KEYS = ("philox_key", "philox_counter")
@@ -253,17 +251,13 @@ class BlockDraws:
     uniforms for walkers [rank n, (rank + 1) n), where n is the rank's
     block width. The warm-up's patch uniforms, the resampling uniforms and
     the bootstrap's are global, as the collectives that use them need.
-    `graph_safe`, `keyed`, `generator`, `calls`, `tell` and `seek` are the
-    wrapped draws': every rank draws the global arrays, so the position is
-    global and the same on every rank.
+    `keyed`, `generator`, `calls`, `tell` and `seek` are the wrapped
+    draws': every rank draws the global arrays, so the position is global
+    and the same on every rank.
     """
 
     def __init__(self, draws: Draws, rank: int, world: int):
         self.draws, self.rank, self.world = draws, rank, world
-
-    @property
-    def graph_safe(self) -> bool:
-        return getattr(self.draws, "graph_safe", False)
 
     @property
     def keyed(self) -> bool:

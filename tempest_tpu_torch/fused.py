@@ -20,14 +20,14 @@ the device with its termination test there (:411-426). Here:
   is finished: a `loops.when`), and while t < capacity. Its carry is the
   history, written in place (`state.commit`), the active set with the
   iteration counter, step and call counts as device words, and the
-  carried cluster model with its `fitted` flag. `run_route(config)` says
-  which configurations take it: float32 (where every draw is keyed,
-  `draws.Draws.keyed`), on one device or a particle mesh (the predicate's
-  ESS reduced over the ranks, `run_predicate`'s `group`), in ESS or
-  dynamic mode (the bisections' WHILE nodes, the dynamic boundary rules'
-  IF nodes), clustered or not at any `cluster_every`, either
-  `hardware_prng`. `SamplerCore.run_sampling`
-  drives it for `run(on_device=True)` without `save_every`, as
+  carried cluster model with its `fitted` flag. Every configuration of
+  the fused route (`fused_route(config)`) takes it: float32 or float64
+  (on the card every draw of either is keyed, `draws.Draws.keyed`), on
+  one device or a particle mesh (the predicate's ESS reduced over the
+  ranks, `run_predicate`'s `group`), in ESS or dynamic mode (the
+  bisections' WHILE nodes, the dynamic boundary rules' IF nodes),
+  clustered or not at any `cluster_every`, either `hardware_prng`.
+  `SamplerCore.run_sampling` drives it for `run(on_device=True)` without `save_every`, as
   `_run_on_device` does (tempest_tpu/core.py:334-464): the first iteration
   (t = 0) on the per-iteration route, as `make_fused_run` requires
   (:380), then one dispatch of the loop, one read of `t` after it, and,
@@ -42,14 +42,14 @@ the device with its termination test there (:411-426). Here:
   step's IF node, the sharded ESS bisection), so a dispatch is one replay
   and the host reads nothing between iterations; under a mesh the
   collectives are captured inside those bodies, every rank replaying its
-  own graph and reading the same `t`. A configuration outside the run
-  route (float64, whose chain draws are not keyed) replays its loops as
-  CUDA graphs (`loops.py`) between host decisions: the bisections in their
-  loop form, one replay of a WHILE node each, the other loops in chunks,
-  each chunk captured once per shape, all replayed from static buffers
-  updated in place; the draws' generator is registered with each
-  graph, and the call counter with the loops (`Loops.counters`). A capture
-  that fails raises `loops.CaptureError`; nothing falls back. Without
+  own graph and reading the same `t`. The per-iteration route with graphs
+  (the first iteration of a run on the device, or `loops.graphs` turned on
+  by hand around `sample()`) replays its loops as CUDA graphs (`loops.py`) between
+  host decisions: the bisections and the MCMC chain in their loop form,
+  one replay of a WHILE node each, the EM loops in chunks, each captured
+  once per shape, all replayed from static buffers updated in place; the
+  draws' call counter is registered with the loops (`Loops.counters`). A
+  capture that fails raises `loops.CaptureError`; nothing falls back. Without
   graphs (`on_device=False`, `sample()`, or the CPU) the same loops run
   eagerly, so the routes give the same results, as in JAX; on the CPU
   `run(on_device=True)` takes the run loop too, a Python loop whose
@@ -60,8 +60,8 @@ The fused route covers every configuration but `host_likelihood=True`
 :168-177, :225; the chunks' collectives are captured with them on CUDA,
 and the draws are a `draws.BlockDraws`, whose position is global), ESS or
 dynamic mode (:223-224), with or without clustering, at any
-`cluster_every`, in float32 or float64, with the generator's draws or
-`hardware_prng=True`. A host likelihood runs on the host by design and
+`cluster_every`, in float32 or float64, either `hardware_prng`. A host
+likelihood runs on the host by design and
 keeps the eager route of `iteration.py`, whose loops read after every body.
 The TPU-only parts of the JAX module are not ported: the layout pins
 (:253-292), donation (:295-312) and the relay watchdog's dispatch budget
@@ -101,20 +101,12 @@ def fused_route(config: SamplerConfig) -> bool:
     return not config.host_likelihood
 
 
-def run_route(config: SamplerConfig) -> bool:
-    """Whether `run(on_device=True)` runs the device run loop: the fused
-    route in float32, on one device or a particle mesh, in ESS or dynamic
-    mode. Float64 keeps the per-iteration route: its chain draws come from
-    the generator, not keyed (ROADMAP.md queue 1, item 20)."""
-    return fused_route(config) and config.dtype == torch.float32
-
-
 def make_fused_iteration(
     config: SamplerConfig, log_likelihood_batch: Callable, prior_transform_batch: Callable,
 ) -> Callable:
     """The iteration with chunked loops: `iteration(draws, hist, cur, model)
     -> (hist, cur, model)`; `iteration.loops.graphs` turns the CUDA graphs
-    on, with the generators in `iteration.loops.generators` registered."""
+    on, with the draws' call counter in `iteration.loops.counters`."""
     return make_iteration(config, log_likelihood_batch, prior_transform_batch,
                           Loops(config.device, CHUNKS))
 

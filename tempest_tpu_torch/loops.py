@@ -19,11 +19,10 @@ runs each chunk as a `torch.cuda.CUDAGraph`:
   the carry (so the next entry may overwrite the buffers);
 - a chunk of a given length is captured once, after one warm-up run of
   its bodies on the capture stream whose effects are undone (the
-  registered generators' Philox offsets, the registered call counters and
-  the kernels' launch counts are put back), and replayed from then on;
-- the generators in `generators` are registered with every graph, so a
-  replay draws what the eager bodies draw from the same offset and
-  advances the offset as they would;
+  registered call counters and the kernels' launch counts are put back),
+  and replayed from then on;
+- a body draws from no generator (a generator's Philox offset is fixed at
+  capture): every draw of a graphed sampler is keyed (`draws.Draws.keyed`);
 - `counters` holds the call counters of the Philox kernels
   (`cuda_prng.PhiloxCounter`), whose device words the captured bodies
   read and advance; a capture leaves each word where it was, and every
@@ -247,12 +246,10 @@ class Loops:
     """The loops of one sampler: chunk lengths, reads, and the graph cache."""
 
     def __init__(self, device, chunks: Optional[Dict[str, int]] = None, graphs: bool = False,
-                 generators: Optional[List[torch.Generator]] = None,
                  counters: Optional[list] = None):
         self.device = torch.device(device)
         self.chunks = dict(chunks or {})
         self.graphs = graphs
-        self.generators = list(generators or [])
         self.counters = list(counters or [])
         self.stats: Dict[str, Counter] = defaultdict(Counter)
         self._statics: Dict[tuple, tuple] = {}
@@ -600,12 +597,11 @@ class Loops:
         """Capture `work()` (which reads static buffers only) and
         `commit(work())`, which writes its results where the graph keeps
         them, after one warm-up run of `work` alone, whose effects on the
-        generators and the launch counts are undone: the warm-up leaves
+        call counters and the launch counts are undone: the warm-up leaves
         every static buffer as it was."""
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         stream, current = self._stream, torch.cuda.current_stream(self.device)
-        offsets = [g.get_offset() for g in self.generators]
         counters = self._counters()
         words = [c.state.clone() for c in counters]
         before = _counts()
@@ -622,8 +618,6 @@ class Loops:
                 self._trial_pool = None
         current.wait_stream(stream)
         _add_launches({k: v - before[k] for k, v in _counts().items()}, -1)
-        for g, offset in zip(self.generators, offsets):
-            g.set_offset(offset)
         for c, saved in zip(counters, words):
             c.state.copy_(saved)
 
@@ -641,8 +635,6 @@ class Loops:
             raise self._capture_error(name, exc) from exc
         self._pools = pools
         graph = torch.cuda.CUDAGraph()
-        for g in self.generators:
-            graph.register_generator_state(g)
         stream.wait_stream(current)
         with torch.cuda.stream(stream), self.stretch("capture"):
             graph.capture_begin()
@@ -683,7 +675,7 @@ class Loops:
         """Abandon a failed capture on `stream`: its captures ended and their
         graphs destroyed, nothing instantiated, PyTorch's allocator routing
         and the graph's pool put back (`cuda_graphs.abort_capture`); then the
-        generators out of capture mode and the body pools released."""
+        default generator out of capture mode and the body pools released."""
         self._depth, self._nested = 0, []
         try:
             cuda_graphs.abort_capture(graph, stream, self._body_streams)
@@ -691,15 +683,14 @@ class Loops:
             self._repair_generators(stream, pools)
 
     def _repair_generators(self, stream, pools: list) -> None:
-        """A capture that fails leaves its generators in capture mode; one
-        small capture that succeeds takes them out of it. The failed
-        capture's body pools go back."""
+        """A capture that fails leaves the generators it registered (PyTorch's
+        default CUDA generator, which every capture registers) in capture
+        mode; one small capture that succeeds takes them out of it. The
+        failed capture's body pools go back."""
         self._release(pools)
         self._pools = []
         try:
             fix = torch.cuda.CUDAGraph()
-            for g in self.generators:
-                fix.register_generator_state(g)
             with torch.cuda.stream(stream):
                 fix.capture_begin()
                 torch.zeros(1, device=self.device)

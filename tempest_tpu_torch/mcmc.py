@@ -3,7 +3,8 @@
 Counterpart of tempest_tpu/mcmc.py:138-433 with the per-walker matrices
 gathered once per mutation (:250-254); the K-loop form is not ported. The
 hardware-PRNG branches (:187-192, :272-315) live in the draws source:
-with `hardware_prng=True` the loop is handed a `draws.HardwareDraws`,
+with `hardware_prng=True` in float32 the loop is handed a
+`draws.HardwareDraws` (float64 takes `Draws`, the flag not applying),
 which routes each step's draws to the Philox kernels by the same size
 thresholds. Semantics kept:
 
@@ -31,25 +32,24 @@ never stop the chain); a step takes its draws from a `Draws` or
 
 - graphed (`loops.graphed`) on keyed draws (`draws.keyed`: every step draw
   from the Philox kernels on a call counter in device words that a step
-  advances only while active, as JAX's key rides in the loop's carry), on
-  one device or a mesh: the loop form `loops.Loops.repeat`, one CUDA-graph
-  WHILE node that runs the real steps and reads nothing (a stretch of its
-  own, or nested in the mutation's IF node of the device run loop,
-  `fused.make_fused_run`). `steps` stays a device tensor.
-- otherwise (eager, float64, the CPU, a test's source): the device loop
-  "mcmc" in chunks (`loops.Loops.start`): with a chunk length of 1 it reads
-  the stop flag after every step; with a longer one its first chunk is the
+  advances only while active, as JAX's key rides in the loop's carry; on
+  the card in float32 and float64 alike), on one device or a mesh: the
+  loop form `loops.Loops.repeat`, one CUDA-graph WHILE node that runs the
+  real steps and reads nothing (a stretch of its own, or nested in the
+  mutation's IF node of the device run loop, `fused.make_fused_run`).
+  `steps` stays a device tensor. A graphed loop takes keyed draws only.
+- otherwise (eager, the CPU, a test's source): the device loop "mcmc" in
+  chunks (`loops.Loops.start`): with a chunk length of 1 it reads the stop
+  flag after every step; with a longer one its first chunk is the
   `n_steps d` steps the clamp always runs, and each later chunk runs that
   many steps before one read. A chunk's steps past the stop change no
   walker; their number is counted in `loops.stats["mcmc"]["past_stop"]`
-  (their kernel launches are the only trace they leave). On keyed draws they
-  draw nothing new either. Generator draws they do consume, which the next
-  stage must not see: the draws object is put back (`Draws.seek`) where the
-  last real step left it, from its position before each step (an eager
-  chunk), or from its position before and after a replay, which every step
-  of one shape advances alike (the generator's Philox offset). A draws
-  object without `tell`/`seek` (a test's one-iteration source) is not put
-  back.
+  (their kernel launches are the only trace they leave). On keyed draws
+  they draw nothing new either. Generator draws (the CPU's) they do
+  consume, which the next stage must not see: the draws object is put
+  back (`Draws.seek`) to its position before the first step past the stop.
+  A draws object without `tell`/`seek` (a test's one-iteration source) is
+  not put back.
 
 So graphed and eager runs give the same bits. `steps` and `n_call_sweeps`
 count the real steps only.
@@ -123,12 +123,6 @@ def _tensors(obj) -> dict:
     """A dataclass's tensor fields (None left out), by name."""
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)
             if getattr(obj, f.name) is not None}
-
-
-def _interpolate(p0: int, p1: int, j: int, length: int) -> int:
-    """The generator offset before step j of `length` steps that moved it
-    from p0 to p1."""
-    return p0 + j * ((p1 - p0) // length)
 
 
 def _quadratic(diff: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
@@ -333,12 +327,10 @@ class MCMCKernel:
         n, d = u.shape
         loops = loops or Loops(u.device)
         keyed = getattr(draws, "keyed", False)
-        if loops.graphed and not (
-                getattr(draws, "graph_safe", False) and draws.generator in loops.generators
-                and (getattr(draws, "calls", None) is None or draws.calls in loops.counters)):
-            raise ValueError("a graphed MCMC loop needs graph-safe draws (draws.Draws, or a "
-                             "draws.BlockDraws of them) whose generator (Loops.generators) and "
-                             "call counter (Loops.counters) are registered with its Loops")
+        if loops.graphed and not (keyed and draws.calls in loops.counters):
+            raise ValueError("a graphed MCMC loop needs keyed draws (draws.Draws on a CUDA "
+                             "device, or a draws.BlockDraws of them) whose call counter is "
+                             "registered with its Loops (Loops.counters)")
 
         body = self.body(draws, n, d, keyed)
         if keyed and loops.graphed:
@@ -377,7 +369,8 @@ class MCMCKernel:
         return body
 
     def _chunks(self, loops: Loops, draws, body, carry, consts, keyed: bool):
-        """The chain as the chunked loop "mcmc", the draws put back where a
+        """The chain as the chunked loop "mcmc" (never graphed: a graphed
+        chain is keyed and takes `Loops.repeat`), the draws put back where a
         chunk ran past the stop (keyed draws need not be)."""
         run = loops.start("mcmc", body, carry, consts, static=(id(draws),))
         chunk = loops.chunk("mcmc")
@@ -390,10 +383,6 @@ class MCMCKernel:
             ran += length
             if tell is None:
                 run.advance(length)
-            elif run.graphed:  # every step advances the offset alike
-                p0 = tell()
-                run.advance(length)
-                positions += [_interpolate(p0, tell(), j, length) for j in range(length)]
             else:
                 run.advance(length, before_body=lambda: positions.append(tell()))
             done, steps = run.read("done", "iteration")

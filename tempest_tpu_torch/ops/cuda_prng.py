@@ -18,6 +18,14 @@ that resumes from a file written before keeps its stream.
 `hw_uniform` is one launch of the bits kernel in its uniform mode
 (`tempest_uniform`), which maps the words to (0, 1] in registers.
 
+Each draw also comes in float64, JAX's threefry draws in double, from a
+kernel of its own (`tempest_normal_f64`, `tempest_uniform_f64`,
+`tempest_gamma_f64`, `tempest_mutation_draws_f64`; plain versions
+`philox.normal_f64` and the rest, the float64 layout in its docstring):
+the dtype comes from `alpha` for the gamma and mutation draws, and from
+`dtype=` for the normals and uniforms. A float64 gamma draw takes
+`philox.GAMMA_CALLS_F64` call indices.
+
 `PhiloxCounter` is the call counter of a draws object's MCMC steps
 (`draws.Draws` on its keyed route, `draws.HardwareDraws`): its key and call
 index live in two 64-bit words on the device, which the normal, uniform,
@@ -34,8 +42,10 @@ indices). The C entries switch to the tensors' device themselves.
 
 Dispatch is by device only, as in `ops/cuda_reweight.py`: a CPU tensor
 takes the plain version (given the mirror, for a counter), a CUDA float32
-tensor the kernel, anything else raises. `LAUNCHES` counts each kernel's
-launches in this process.
+or float64 tensor the kernel of its dtype, anything else raises; nothing
+falls back to a generator. `LAUNCHES` counts each kernel's launches in
+this process, the float64 entries under their own names ("normal_f64",
+"uniform_f64", "gamma_f64", "mutation_draws_f64").
 """
 
 from __future__ import annotations
@@ -64,6 +74,11 @@ LIBRARY = _build.CudaLibrary(
         "tempest_mutation_draws": [_P, _P, _I64, _I64, _U32, _U32, _U64, _P, _INT, _P],
         # (alpha, out, n, k0, k1, counter, state, device, stream)
         "tempest_gamma": [_P, _P, _I64, _U32, _U32, _U64, _P, _INT, _P],
+        # The float64 entries, with the arguments of their float32 ones.
+        "tempest_normal_f64": [_P, _I64, _U32, _U32, _U64, _P, _INT, _P],
+        "tempest_uniform_f64": [_P, _I64, _U32, _U32, _U64, _P, _INT, _P],
+        "tempest_mutation_draws_f64": [_P, _P, _I64, _I64, _U32, _U32, _U64, _P, _INT, _P],
+        "tempest_gamma_f64": [_P, _P, _I64, _U32, _U32, _U64, _P, _INT, _P],
     },
     # No FMA contraction: the plain version's separate elementwise ops round
     # every product, and the kernel must round the same way.
@@ -71,8 +86,13 @@ LIBRARY = _build.CudaLibrary(
 )
 
 # Kernel launches made in this process, by kernel ("bits" counts the bits
-# kernel in both modes, raw words and uniforms).
-LAUNCHES = {"mutation_draws": 0, "normal": 0, "bits": 0, "gamma": 0}
+# kernel in both modes, raw words and uniforms; "uniform_f64" the float64
+# uniforms).
+LAUNCHES = {"mutation_draws": 0, "normal": 0, "bits": 0, "gamma": 0,
+            "mutation_draws_f64": 0, "normal_f64": 0, "uniform_f64": 0, "gamma_f64": 0}
+# The dtypes the kernels draw, and the outputs of one Philox block in each.
+DTYPES = (torch.float32, torch.float64)
+_PER_BLOCK = {torch.float32: 4, torch.float64: 2}
 
 _MAX_BLOCKS = 1 << 32  # the block index is one 32-bit counter word
 _functions = {}  # C entry points by name, looked up once
@@ -101,17 +121,33 @@ def _check_calls(counter: int, calls: int, what: str) -> None:
                          "index is a 64-bit unsigned integer")
 
 
-def _check_total(total: int) -> None:
-    if total > 4 * _MAX_BLOCKS:
-        raise ValueError(f"{total} draws exceed one call's 2^32 blocks of 4")
+def _check_dtype(dtype) -> None:
+    if dtype not in DTYPES:
+        raise ValueError(f"the draws are float32 or float64, not {dtype}")
+
+
+def _check_total(total: int, dtype=torch.float32) -> None:
+    per = _PER_BLOCK[dtype]
+    if total > per * _MAX_BLOCKS:
+        raise ValueError(f"{total} draws exceed one call's 2^32 blocks of {per}")
 
 
 def _check_alpha(alpha: torch.Tensor) -> None:
-    if alpha.dtype != torch.float32 or not alpha.is_contiguous():
+    if alpha.dtype not in DTYPES or not alpha.is_contiguous():
         raise ValueError(
-            f"alpha must be a contiguous float32 tensor (got {alpha.dtype}, "
+            f"alpha must be a contiguous float32 or float64 tensor (got {alpha.dtype}, "
             f"contiguous={alpha.is_contiguous()})"
         )
+
+
+def _suffix(dtype) -> str:
+    """The float64 entries', counts' and plain versions' suffix."""
+    return "_f64" if dtype == torch.float64 else ""
+
+
+def _plain(name: str, dtype):
+    """The plain version (`philox`) of draw `name` in `dtype`."""
+    return getattr(philox, name + _suffix(dtype))
 
 
 def _function(name: str):
@@ -135,35 +171,40 @@ def _index(device: torch.device) -> int:
 # Launches: k0, k1 and counter from the host, or from `state` (its address,
 # 0 for none) on the device.
 # ---------------------------------------------------------------------------
-def _normal(shape, device: torch.device, index: int, k0, k1, counter, state) -> torch.Tensor:
-    out = torch.empty(shape, dtype=torch.float32, device=device)
+def _normal(shape, device: torch.device, index: int, k0, k1, counter, state,
+            dtype=torch.float32) -> torch.Tensor:
+    out = torch.empty(shape, dtype=dtype, device=device)
     total = out.numel()
     if total:
-        _build.check(_function("tempest_normal")(
-            out.data_ptr(), total, k0, k1, counter, state, index, _stream(index)), "normal")
-        LAUNCHES["normal"] += 1
+        name = "normal" + _suffix(dtype)
+        _build.check(_function("tempest_" + name)(
+            out.data_ptr(), total, k0, k1, counter, state, index, _stream(index)), name)
+        LAUNCHES[name] += 1
     return out
 
 
-def _uniform(shape, device: torch.device, index: int, k0, k1, counter, state) -> torch.Tensor:
-    out = torch.empty(shape, dtype=torch.float32, device=device)
+def _uniform(shape, device: torch.device, index: int, k0, k1, counter, state,
+             dtype=torch.float32) -> torch.Tensor:
+    out = torch.empty(shape, dtype=dtype, device=device)
     total = out.numel()
     if total:
-        _build.check(_function("tempest_uniform")(
-            out.data_ptr(), total, k0, k1, counter, state, index, _stream(index)), "uniform")
-        LAUNCHES["bits"] += 1
+        name = "uniform" + _suffix(dtype)
+        _build.check(_function("tempest_" + name)(
+            out.data_ptr(), total, k0, k1, counter, state, index, _stream(index)), name)
+        LAUNCHES["bits" if dtype == torch.float32 else name] += 1
     return out
 
 
 def _gamma(alpha: torch.Tensor, index: int, k0, k1, counter, state) -> torch.Tensor:
     _check_alpha(alpha)
-    out = torch.empty(alpha.shape, dtype=torch.float32, device=alpha.device)
+    out = torch.empty(alpha.shape, dtype=alpha.dtype, device=alpha.device)
     n = alpha.numel()
     if n:
-        _build.check(_function("tempest_gamma")(
+        name = "gamma" + _suffix(alpha.dtype)
+        _build.check(_function("tempest_" + name)(
             alpha.data_ptr(), out.data_ptr(), n, k0, k1, counter, state, index, _stream(index)),
-            "gamma")
-        LAUNCHES["gamma"] += 1
+            name)
+        LAUNCHES[name] += 1
     return out
 
 
@@ -171,13 +212,14 @@ def _mutation_draws(alpha: torch.Tensor, z_shape, index: int, k0, k1, counter, s
     _check_alpha(alpha)
     R, N, d = z_shape
     n_z = R * N * d
-    out = torch.empty(n_z + 2 * N, dtype=torch.float32, device=alpha.device)
+    out = torch.empty(n_z + 2 * N, dtype=alpha.dtype, device=alpha.device)
     z, g, u = out.split((n_z, N, N))
     if N:
-        _build.check(_function("tempest_mutation_draws")(
+        name = "mutation_draws" + _suffix(alpha.dtype)
+        _build.check(_function("tempest_" + name)(
             alpha.data_ptr(), out.data_ptr(), n_z, N, k0, k1, counter, state, index,
-            _stream(index)), "mutation_draws")
-        LAUNCHES["mutation_draws"] += 1
+            _stream(index)), name)
+        LAUNCHES[name] += 1
     return z.view(z_shape), g, u
 
 
@@ -185,7 +227,8 @@ def _check_mutation_shapes(alpha: torch.Tensor, z_shape) -> None:
     R, N, d = z_shape
     if alpha.dim() != 1 or alpha.shape[0] != N:
         raise ValueError(f"alpha must have shape ({N},), got {tuple(alpha.shape)}")
-    _check_total(R * N * d)
+    _check_dtype(alpha.dtype)
+    _check_total(R * N * d, alpha.dtype)
     if N > _MAX_BLOCKS:  # the walker index is one 32-bit counter word
         raise ValueError(f"{N} walkers exceed the 2^32 a call can index")
 
@@ -193,16 +236,18 @@ def _check_mutation_shapes(alpha: torch.Tensor, z_shape) -> None:
 # ---------------------------------------------------------------------------
 # The public functions: a host key and call index
 # ---------------------------------------------------------------------------
-def hw_normal(key: Key, counter: int, shape, device) -> torch.Tensor:
-    """Standard normals of `shape`, float32, by paired Box-Muller."""
+def hw_normal(key: Key, counter: int, shape, device, dtype=torch.float32) -> torch.Tensor:
+    """Standard normals of `shape` and `dtype` (float32 or float64), by
+    paired Box-Muller."""
     device = torch.device(device)
     total = int(torch.Size(shape).numel())
     k0, k1 = _check_key(key)
     _check_calls(int(counter), 1, "hw_normal")
-    _check_total(total)
+    _check_dtype(dtype)
+    _check_total(total, dtype)
     if not _route(device, "hw_normal"):
-        return philox.normal(key, counter, total, device).reshape(shape)
-    return _normal(shape, device, _index(device), k0, k1, counter, None)
+        return _plain("normal", dtype)(key, counter, total, device).reshape(shape)
+    return _normal(shape, device, _index(device), k0, k1, counter, None, dtype)
 
 
 def hw_bits(key: Key, counter: int, shape, device) -> torch.Tensor:
@@ -223,27 +268,31 @@ def hw_bits(key: Key, counter: int, shape, device) -> torch.Tensor:
     return out
 
 
-def hw_uniform(key: Key, counter: int, shape, device) -> torch.Tensor:
-    """Uniforms in (0, 1] of `shape`: the bits kernel's words mapped as
-    `philox.unit_open_closed` maps them, in one launch."""
+def hw_uniform(key: Key, counter: int, shape, device, dtype=torch.float32) -> torch.Tensor:
+    """Uniforms in (0, 1] of `shape`, in one launch: float32, the bits
+    kernel's words mapped as `philox.unit_open_closed` maps them; float64,
+    53 bits from two words (`philox.uniform_f64`)."""
     device = torch.device(device)
     total = int(torch.Size(shape).numel())
     k0, k1 = _check_key(key)
     _check_calls(int(counter), 1, "hw_uniform")
-    _check_total(total)
+    _check_dtype(dtype)
+    _check_total(total, dtype)
     if not _route(device, "hw_uniform"):
-        return philox.uniform(key, counter, total, device).reshape(shape)
-    return _uniform(shape, device, _index(device), k0, k1, counter, None)
+        return _plain("uniform", dtype)(key, counter, total, device).reshape(shape)
+    return _uniform(shape, device, _index(device), k0, k1, counter, None, dtype)
 
 
 def hw_gamma(key: Key, counter: int, alpha: torch.Tensor) -> torch.Tensor:
-    """gamma(alpha, 1) draws of alpha's shape, float32, by Marsaglia-Tsang
-    in one launch on the words of call indices counter .. counter + 12."""
+    """gamma(alpha, 1) draws of alpha's shape and dtype by Marsaglia-Tsang
+    in one launch: float32 on the words of call indices counter ..
+    counter + 12, float64 on counter .. counter + 32."""
     k0, k1 = _check_key(key)
-    _check_calls(int(counter), philox.GAMMA_CALLS, "hw_gamma")
-    _check_total(alpha.numel())
+    _check_dtype(alpha.dtype)
+    _check_calls(int(counter), philox.gamma_calls(alpha.dtype), "hw_gamma")
+    _check_total(alpha.numel(), alpha.dtype)
     if not _route(alpha.device, "hw_gamma"):
-        return philox.gamma(key, counter, alpha)
+        return _plain("gamma", alpha.dtype)(key, counter, alpha)
     return _gamma(alpha, _index(alpha.device), k0, k1, counter, None)
 
 
@@ -251,12 +300,12 @@ def hw_mutation_draws(
     key: Key, counter: int, alpha: torch.Tensor, z_shape: Tuple[int, int, int]
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(z (R, N, d), g (N,), acceptance uniforms (N,)) for one tpCN step in
-    one launch; alpha (N,) are the gamma shapes."""
+    one launch, in alpha's dtype; alpha (N,) are the gamma shapes."""
     _check_mutation_shapes(alpha, z_shape)
     k0, k1 = _check_key(key)
     _check_calls(int(counter), 1, "hw_mutation_draws")
     if not _route(alpha.device, "hw_mutation_draws"):
-        return philox.mutation_draws(key, counter, alpha, z_shape)
+        return _plain("mutation_draws", alpha.dtype)(key, counter, alpha, z_shape)
     return _mutation_draws(alpha, z_shape, _index(alpha.device), k0, k1, counter, None)
 
 
@@ -275,7 +324,8 @@ class PhiloxCounter:
     32); `key` is the key's host mirror and `counter` the counter's, read
     from the word when asked for. `normal`, `uniform`, `gamma` and
     `mutation_draws` draw calls counter + offset on, as the public functions
-    with that call index would; on a CUDA device the kernels read the index
+    with that call index would (in the dtype of `alpha`, or of `dtype` for
+    the normals and uniforms); on a CUDA device the kernels read the index
     and key from `state`, on the CPU the plain versions are given the word's
     value. `advance(calls, active)` adds a step's calls to the word on the
     stream, times the 0-d `active` flag where one is given. `seek` and
@@ -335,30 +385,35 @@ class PhiloxCounter:
         if alpha.device != self.state.device:
             raise ValueError(f"alpha on {alpha.device}, the call counter on {self.state.device}")
 
-    def normal(self, offset: int, shape) -> torch.Tensor:
+    def normal(self, offset: int, shape, dtype=torch.float32) -> torch.Tensor:
         total = math.prod(shape)
-        _check_total(total)
+        _check_dtype(dtype)
+        _check_total(total, dtype)
         self.issued += 1
         if not self._cuda:
-            return philox.normal(self.key, self._first(offset, 1, "normal"), total,
-                                 self.device).reshape(shape)
-        return _normal(shape, self.device, self._index, 0, 0, offset, self._state_ptr)
+            return _plain("normal", dtype)(self.key, self._first(offset, 1, "normal"), total,
+                                           self.device).reshape(shape)
+        return _normal(shape, self.device, self._index, 0, 0, offset, self._state_ptr, dtype)
 
-    def uniform(self, offset: int, shape) -> torch.Tensor:
+    def uniform(self, offset: int, shape, dtype=torch.float32) -> torch.Tensor:
         total = math.prod(shape)
-        _check_total(total)
+        _check_dtype(dtype)
+        _check_total(total, dtype)
         self.issued += 1
         if not self._cuda:
-            return philox.uniform(self.key, self._first(offset, 1, "uniform"), total,
-                                  self.device).reshape(shape)
-        return _uniform(shape, self.device, self._index, 0, 0, offset, self._state_ptr)
+            return _plain("uniform", dtype)(self.key, self._first(offset, 1, "uniform"), total,
+                                            self.device).reshape(shape)
+        return _uniform(shape, self.device, self._index, 0, 0, offset, self._state_ptr, dtype)
 
     def gamma(self, offset: int, alpha: torch.Tensor) -> torch.Tensor:
         self._check_device(alpha)
-        _check_total(alpha.numel())
+        _check_dtype(alpha.dtype)
+        _check_total(alpha.numel(), alpha.dtype)
         self.issued += 1
         if not self._cuda:
-            return philox.gamma(self.key, self._first(offset, philox.GAMMA_CALLS, "gamma"), alpha)
+            calls = philox.gamma_calls(alpha.dtype)
+            return _plain("gamma", alpha.dtype)(self.key, self._first(offset, calls, "gamma"),
+                                                alpha)
         return _gamma(alpha, self._index, 0, 0, offset, self._state_ptr)
 
     def mutation_draws(self, offset: int, alpha: torch.Tensor, z_shape):
@@ -366,8 +421,8 @@ class PhiloxCounter:
         self._check_device(alpha)
         self.issued += 1
         if not self._cuda:
-            return philox.mutation_draws(self.key, self._first(offset, 1, "mutation_draws"),
-                                         alpha, z_shape)
+            return _plain("mutation_draws", alpha.dtype)(
+                self.key, self._first(offset, 1, "mutation_draws"), alpha, z_shape)
         return _mutation_draws(alpha, z_shape, self._index, 0, 0, offset, self._state_ptr)
 
     def read(self) -> Tuple[int, Key]:

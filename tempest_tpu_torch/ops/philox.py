@@ -33,6 +33,34 @@ has no unsigned 64-bit product, so the 32x32 high product is split into
 16-bit halves. Words map to floats in (0, 1] as `_unit_open_closed`
 (pallas_prng.py:67-74) does: the top 23 bits spliced into the mantissa of
 [1, 2), subtracted from 2.
+
+Float64 (`uniform_f64`, `normal_f64`, `gamma_f64`, `mutation_draws_f64`;
+JAX draws float64 from threefry, `hw_prng_supported` at pallas_prng.py:46-48,
+so these have no TPU counterpart). A double takes a pair of words: words
+(0, 1) and (2, 3) of a block give two doubles in (0, 1],
+u = (k + 1) 2^-53 with k = ((w0 >> 5) << 26) | (w1 >> 6), 53 bits, in
+exact integer arithmetic (`unit53`): all-zero words give 2^-53, all-one
+words 1.0. The counter layout, on the same key and call index as above:
+
+- uniforms (stream 0): block i gives elements 2i, 2i + 1;
+- normals (stream 0): block i gives elements 2i, 2i + 1 by paired
+  Box-Muller in double, (r cos t, r sin t) of its two doubles;
+- gamma draws (`gamma_f64`): walker 2i + j's round r (0..MT_ROUNDS_F64 - 1)
+  takes normal j of block i of call counter + 2r and uniform j of block i
+  of call counter + 2r + 1, its boost uniform j of block i of call
+  counter + 2 MT_ROUNDS_F64, all on stream 0 (GAMMA_CALLS_F64 calls);
+- mutation draws (`mutation_draws_f64`): the (R, N, d) proposal normals
+  as above on stream 0; walker n's round r on stream 1 + 2r (its normal,
+  cos-only, from the block's two doubles) and stream 2 + 2r (its
+  acceptance uniform, the block's first double); its boost uniform and
+  its Metropolis uniform the two doubles of stream 1 + 2 MT_ROUNDS_F64.
+
+JAX's float64 gamma is an exact rejection loop with no round cap
+(jax.random.gamma), so float64 takes MT_ROUNDS_F64 = 16 rounds, not
+float32's 6: at alpha >= 1 (alpha < 1 is boosted to alpha + 1) a round
+accepts with probability at least 0.95, so a draw no round accepts has
+probability below 0.05^16 = 1.5e-21; it keeps d = a_eff - 1/3, as float32's
+does.
 """
 
 from __future__ import annotations
@@ -54,6 +82,13 @@ STREAM_BITS = 0
 STREAM_GAMMA_ROUND0 = 1  # rounds use streams 1..6
 STREAM_BOOST_ACCEPT = 1 + MT_ROUNDS
 GAMMA_CALLS = 2 * MT_ROUNDS + 1  # call indices one `hw_gamma` uses
+# Float64: the rounds of a gamma draw (no float32 cap; see above), the call
+# indices one float64 `hw_gamma` uses, and the stream of a float64 mutation
+# step's boost and Metropolis uniforms (its rounds on streams 1..32).
+MT_ROUNDS_F64 = 16
+GAMMA_CALLS_F64 = 2 * MT_ROUNDS_F64 + 1
+STREAM_BOOST_ACCEPT_F64 = 1 + 2 * MT_ROUNDS_F64
+TWO_POW_M53 = 2.0**-53
 
 Key = Tuple[int, int]
 
@@ -153,6 +188,37 @@ def uniform(key: Key, counter: int, total: int, device) -> torch.Tensor:
     return unit_open_closed(bits(key, counter, total, device))
 
 
+def gamma_calls(dtype) -> int:
+    """The call indices one gamma draw of `dtype` uses."""
+    return GAMMA_CALLS_F64 if dtype == torch.float64 else GAMMA_CALLS
+
+
+def unit53(wa: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
+    """Two 32-bit words (int64 in [0, 2^32)) -> float64 in (0, 1]:
+    (k + 1) 2^-53 with k = ((wa >> 5) << 26) | (wb >> 6), exact."""
+    k = ((wa >> 5) << 26) | (wb >> 6)
+    return (k + 1).to(torch.float64) * TWO_POW_M53
+
+
+def _box_muller_f64(ua: torch.Tensor, ub: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    r = torch.sqrt(-2.0 * torch.log(ua))
+    theta = TWO_PI * ub
+    return r * torch.cos(theta), r * torch.sin(theta)
+
+
+def uniform_f64(key: Key, counter: int, total: int, device) -> torch.Tensor:
+    """(total,) float64 uniforms in (0, 1], two a block (53 bits each)."""
+    w0, w1, w2, w3 = _blocks(-(-total // 2), STREAM_BITS, counter, key, device)
+    return torch.stack([unit53(w0, w1), unit53(w2, w3)], dim=1).reshape(-1)[:total]
+
+
+def normal_f64(key: Key, counter: int, total: int, device) -> torch.Tensor:
+    """(total,) float64 standard normals by paired Box-Muller, two a block."""
+    w0, w1, w2, w3 = _blocks(-(-total // 2), STREAM_NORMAL, counter, key, device)
+    z0, z1 = _box_muller_f64(unit53(w0, w1), unit53(w2, w3))
+    return torch.stack([z0, z1], dim=1).reshape(-1)[:total]
+
+
 def mt_setup(alpha: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(boost, d, c) of Marsaglia-Tsang for gamma(alpha, 1): alpha < 1 is
     boosted to alpha + 1, d = a_eff - 1/3 and c = 1 / sqrt(9 d)."""
@@ -169,8 +235,9 @@ def mt_accept(
     the proposal d v)."""
     one_cz = 1.0 + c * z
     v = one_cz * one_cz * one_cz
+    floor = 1e-300 if v.dtype == torch.float64 else 1e-30
     ok = (v > 0.0) & (
-        torch.log(u) < 0.5 * z * z + d - d * v + d * torch.log(torch.clamp(v, min=1e-30))
+        torch.log(u) < 0.5 * z * z + d - d * v + d * torch.log(torch.clamp(v, min=floor))
     )
     return ok, d * v
 
@@ -198,14 +265,16 @@ def marsaglia_tsang(
     return res * torch.where(boost, scale, torch.ones_like(scale))
 
 
-def gamma_counters(counter: int) -> Tuple[Tuple[int, ...], Tuple[int, ...], int]:
+def gamma_counters(counter: int, rounds: int = MT_ROUNDS
+                   ) -> Tuple[Tuple[int, ...], Tuple[int, ...], int]:
     """The call indices `hw_gamma` uses from `counter` on: the normals of
     round r at counter + 2r, its uniforms at counter + 2r + 1, the boost
-    uniforms at counter + 2 MT_ROUNDS (the fold_in pattern of
-    pallas_prng.py:294-305). 2 MT_ROUNDS + 1 calls in all."""
-    normals = tuple(counter + 2 * r for r in range(MT_ROUNDS))
-    uniforms = tuple(counter + 2 * r + 1 for r in range(MT_ROUNDS))
-    return normals, uniforms, counter + 2 * MT_ROUNDS
+    uniforms at counter + 2 rounds (the fold_in pattern of
+    pallas_prng.py:294-305). 2 rounds + 1 calls in all; float64 takes
+    MT_ROUNDS_F64 rounds."""
+    normals = tuple(counter + 2 * r for r in range(rounds))
+    uniforms = tuple(counter + 2 * r + 1 for r in range(rounds))
+    return normals, uniforms, counter + 2 * rounds
 
 
 def gamma(key: Key, counter: int, alpha: torch.Tensor) -> torch.Tensor:
@@ -238,3 +307,38 @@ def mutation_draws(
     wb, wa, _, _ = _blocks(n, STREAM_BOOST_ACCEPT, counter, key, dev)
     g = marsaglia_tsang(alpha, normals, uniforms, unit_open_closed(wb))
     return z, g, unit_open_closed(wa)
+
+
+def gamma_f64(key: Key, counter: int, alpha: torch.Tensor) -> torch.Tensor:
+    """The plain version of the float64 gamma kernel: Marsaglia-Tsang in
+    double on `normal_f64` and `uniform_f64` draws of calls counter ..
+    counter + 32, MT_ROUNDS_F64 rounds (a draw no round accepts, below
+    1.5e-21 of them, keeps d). It evaluates every round; the kernel stops
+    a walker at its first accepted round, which gives the same value."""
+    n, dev = alpha.numel(), alpha.device
+    zc, uc, bc = gamma_counters(counter, MT_ROUNDS_F64)
+    normals = [normal_f64(key, c, n, dev).reshape(alpha.shape) for c in zc]
+    uniforms = [uniform_f64(key, c, n, dev).reshape(alpha.shape) for c in uc]
+    boost = uniform_f64(key, bc, n, dev).reshape(alpha.shape)
+    return marsaglia_tsang(alpha, normals, uniforms, boost)
+
+
+def mutation_draws_f64(
+    key: Key, counter: int, alpha: torch.Tensor, z_shape: Tuple[int, int, int]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`mutation_draws` in float64: z (R, N, d) proposal normals, g (N,)
+    gamma(alpha) draws over MT_ROUNDS_F64 rounds and (N,) acceptance
+    uniforms, in the float64 layout of the module docstring."""
+    total = z_shape[0] * z_shape[1] * z_shape[2]
+    n, dev = alpha.shape[0], alpha.device
+    z = normal_f64(key, counter, total, dev).reshape(z_shape)
+    normals, uniforms = [], []
+    for r in range(MT_ROUNDS_F64):
+        w0, w1, w2, w3 = _blocks(n, STREAM_GAMMA_ROUND0 + 2 * r, counter, key, dev)
+        u1, u2 = unit53(w0, w1), unit53(w2, w3)
+        normals.append(torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(TWO_PI * u2))
+        a0, a1, _, _ = _blocks(n, STREAM_GAMMA_ROUND0 + 2 * r + 1, counter, key, dev)
+        uniforms.append(unit53(a0, a1))
+    w0, w1, w2, w3 = _blocks(n, STREAM_BOOST_ACCEPT_F64, counter, key, dev)
+    g = marsaglia_tsang(alpha, normals, uniforms, unit53(w0, w1))
+    return z, g, unit53(w2, w3)

@@ -16,8 +16,10 @@ reads the other's files:
 Draw state. The port cannot continue JAX's threefry key, nor JAX the
 port's generator, so each package keeps its own under names of its own.
 The port writes `"rng": "torch"` into the meta and its whole draw state
-(`Draws.get_state`: the generator state, and for `HardwareDraws` the
-Philox key and counter) under `draws.<name>`, and the carried cluster
+(`Draws.get_state`: the generator state, and where the draws are keyed
+the Philox key and call counter, `step_key` and `step_counter` (a
+float64 run's on the card, either flag), or `philox_key` and
+`philox_counter` for `HardwareDraws`) under `draws.<name>`, and the carried cluster
 model under `model.<field>`. It also writes `rng_key`, the run's seed as
 a threefry key (`Draws.key_words`), so the JAX package loads a port file
 and continues from that key; the port itself reads its own draw state. A generator's state belongs to its device

@@ -302,7 +302,13 @@ def test_float64_sampler_runs_through_the_double_kernel(cuda_device):
     assert s.state.hist.logl.dtype == torch.float64
     assert cuda_reweight.LAUNCHES == before[0]
     assert cuda_reweight.LAUNCHES_F64 - before[1] == s.state.hist.t - 1
-    assert cuda_prng.LAUNCHES == before[2]
+    # the draws are keyed through the float64 kernels only (hardware_prng
+    # does not apply): the mutation draws a step, the iterations' uniforms
+    launched = {k: v - before[2][k] for k, v in cuda_prng.LAUNCHES.items() if v != before[2][k]}
+    assert set(launched) == {"mutation_draws_f64", "uniform_f64"}
+    past = s.state._iteration.loops.stats["mcmc"]["past_stop"]  # the eager chunks'
+    res = s.results()
+    assert launched["mutation_draws_f64"] == int(res["steps"][res["beta"] > 0].sum()) + past
     assert s.beta >= 1.0 - 1e-4
     assert abs(s.evidence()[0] - (-4 * math.log(20.0) + 2 * math.log(2 * math.pi))) < 0.5
 
@@ -365,8 +371,7 @@ def test_gamma_matches_plain(cuda_device, n, a):
     after = dict(cuda_prng.LAUNCHES)
     want = philox.gamma(KEY, counter, alpha)
     torch.cuda.synchronize()
-    assert {k: after[k] - before[k] for k in after} == {
-        "mutation_draws": 0, "normal": 0, "bits": 0, "gamma": 1}
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {"gamma": 1}
     assert g.shape == alpha.shape and g.dtype == torch.float32
     assert bool(torch.all(torch.isfinite(g) & (g >= 0.0)))  # U^(1/0.02) may underflow to 0
     assert _gamma_mismatches(g, want) <= max(1, 1e-4 * n)
@@ -377,7 +382,7 @@ def test_gamma_matches_plain(cuda_device, n, a):
 @pytest.mark.cuda
 def test_gamma_rejects_what_it_does_not_take(cuda_device):
     alpha = torch.full((1001,), 2.5, device=cuda_device)
-    for bad in (alpha.double(), alpha[::2], alpha.reshape(7, 143).t()):
+    for bad in (alpha.half(), alpha[::2], alpha.reshape(7, 143).t()):
         with pytest.raises(ValueError):
             cuda_prng.hw_gamma(KEY, 0, bad)
     with pytest.raises(ValueError):  # call indices past 2^64 - 1
@@ -409,7 +414,46 @@ def test_mutation_draws_kernel_matches_plain(cuda_device, R, N, d):
     assert float(torch.max(torch.abs(u - wu))) <= 1e-5
     assert _gamma_mismatches(g, wg) <= max(1, 1e-4 * N)
     with pytest.raises(ValueError):
-        cuda_prng.hw_mutation_draws(KEY, 5, alpha.double(), (R, N, d))
+        cuda_prng.hw_mutation_draws(KEY, 5, alpha.half(), (R, N, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["uniform", "normal", "gamma", "mutation_draws"])
+def test_float64_kernels_match_plain(cuda_device, what):
+    """Each float64 kernel against its plain version (`philox.*_f64`) on
+    the card: the uniforms bit for bit, the normals within 1e-12, the gamma
+    draws within 1e-12 relative (their floor 1e-300, so the alpha = 0.02
+    draws far below 1 are held as closely) but for one flip; one launch of
+    the kernel and no other."""
+    f64, counter = torch.float64, (1 << 32) - 3
+    alpha = torch.cat([torch.full((341,), 7.5), torch.full((341,), 0.7),
+                       torch.full((342,), 0.02)]).to(cuda_device, f64)
+    before = dict(cuda_prng.LAUNCHES)
+    z = g = u = wz = wg = wu = None
+    if what == "uniform":
+        u = cuda_prng.hw_uniform(KEY, counter, (1001,), cuda_device, f64)
+        wu = philox.uniform_f64(KEY, counter, 1001, cuda_device)
+    elif what == "normal":
+        z = cuda_prng.hw_normal(KEY, counter, (1001,), cuda_device, f64)
+        wz = philox.normal_f64(KEY, counter, 1001, cuda_device)
+    elif what == "gamma":
+        g = cuda_prng.hw_gamma(KEY, counter, alpha)
+        wg = philox.gamma_f64(KEY, counter, alpha)
+    else:
+        z, g, u = cuda_prng.hw_mutation_draws(KEY, counter, alpha, (8, 1024, 10))
+        wz, wg, wu = philox.mutation_draws_f64(KEY, counter, alpha, (8, 1024, 10))
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in cuda_prng.LAUNCHES.items() if v != before[k]}
+    assert launched == {f"{what}_f64": 1}
+    assert all(t.dtype == f64 for t in (z, g, u) if t is not None)
+    if u is not None:
+        assert torch.equal(u, wu)
+    if z is not None:
+        assert float(torch.max(torch.abs(z - wz))) <= 1e-12
+    if g is not None:
+        assert bool(torch.all(torch.isfinite(g) & (g >= 0)))
+        rel = torch.abs(g - wg) / torch.clamp(torch.abs(wg), min=1e-300)
+        assert int(torch.sum(rel > 1e-12)) <= 1
 
 
 @pytest.mark.cuda
@@ -462,9 +506,8 @@ def test_seeded_run_repeats_on_the_card(cuda_device):
 # ---------------------------------------------------------------------------
 # The fused route's loops as CUDA graphs
 # ---------------------------------------------------------------------------
-def _loops(device, graphs, generators=(), counters=()):
-    return Loops(device, CHUNKS, graphs=graphs, generators=list(generators),
-                 counters=list(counters))
+def _loops(device, graphs, counters=()):
+    return Loops(device, CHUNKS, graphs=graphs, counters=list(counters))
 
 
 # The keyed steps' routes, by the mutation-draws kernel's size limit:
@@ -644,7 +687,7 @@ def test_graphed_mcmc_equals_eager(cuda_device, method):
     kernel, args = _a_chain(cuda_device, method)
     draws = Draws(11, cuda_device)
     assert draws.keyed and draws.calls is not None
-    graphed = _loops(cuda_device, True, [draws.generator], [draws.calls])
+    graphed = _loops(cuda_device, True, [draws.calls])
     for _ in range(2):  # the second run replays the first run's graph
         start, offset = draws.counter, draws.generator.get_offset()
         before = launch_counts()
@@ -676,7 +719,7 @@ def test_graphed_mutation_leaves_the_generator_offset(cuda_device):
     MCMC replays, and only the call counter's word moves."""
     kernel, args = _a_chain(cuda_device)
     draws = Draws(3, cuda_device)
-    loops = _loops(cuda_device, True, [draws.generator], [draws.calls])
+    loops = _loops(cuda_device, True, [draws.calls])
     kernel(draws, *args, loops=loops)  # captures
     offset, counter = draws.generator.get_offset(), draws.counter
     res = kernel(draws, *args, loops=loops)
@@ -713,7 +756,7 @@ def test_while_node_runs_its_body_as_the_eager_loop(cuda_device, runs):
     assert launch_counts()["mutation_draws"] - before == want_runs
     assert int(want["i"]) == want_runs == draws.counter
     draws.calls.seek(0)
-    graphed = _loops(cuda_device, True, [draws.generator], [draws.calls])
+    graphed = _loops(cuda_device, True, [draws.calls])
     for _ in range(2):
         draws.calls.seek(0)
         before = launch_counts()["mutation_draws"]
@@ -767,16 +810,16 @@ def test_graphed_draws_are_the_eager_steps_draws(cuda_device):
     carry = dict(z=torch.zeros(8, 1024, 10, device=cuda_device),
                  g=torch.zeros(1024, device=cuda_device), u=torch.zeros(1024, device=cuda_device),
                  go=torch.ones((), dtype=torch.bool, device=cuda_device))
-    start, offset = draws.counter, draws.tell()
+    start, offset = draws.counter, draws.generator.get_offset()
     eager = [draws.mcmc_step(8, 1024, 10, shape) for _ in range(3)]
     step = (draws.counter - start) // 3
-    assert step == 1 and draws.tell() == offset
+    assert step == 1 and draws.generator.get_offset() == offset
     draws.calls.seek(start)
-    run = _loops(cuda_device, True, [draws.generator], [draws.calls]).start(
+    run = _loops(cuda_device, True, [draws.calls]).start(
         "draws", body, carry, dict(shape=shape))
     for i, (z, g, u) in enumerate(eager):
         run.advance(1)
-        assert draws.counter == start + (i + 1) * step and draws.tell() == offset
+        assert draws.counter == start + (i + 1) * step and draws.generator.get_offset() == offset
         assert torch.equal(run.carry["z"], z) and torch.equal(run.carry["g"], g)
         assert torch.equal(run.carry["u"], u)
 
@@ -803,8 +846,8 @@ def test_ess_kernel_captures_and_counts_replays(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("extra", [
     dict(clustering=True), dict(clustering=False),
-    # The fused route in float64, where hardware_prng does not apply: its
-    # graphed MCMC chunks put the draws back by the generator's offset.
+    # The run loop in float64, where hardware_prng does not apply: its
+    # keyed float64 draws from the `_f64` kernels.
     dict(clustering=True, hardware_prng=True, dtype=torch.float64),
 ], ids=["clustered", "unclustered", "float64-hardware_prng"])
 def test_run_on_device_repeats_on_device_false(cuda_device, extra):
@@ -830,9 +873,8 @@ def test_run_on_device_repeats_on_device_false(cuda_device, extra):
     assert (on.state.draws.get_state()["generator"].tobytes()
             == off.state.draws.get_state()["generator"].tobytes())
     stats, off_stats = on.state._iteration.loops.stats, off.state._iteration.loops.stats
-    # float32 takes the device run loop (one replay a dispatch), float64 the
-    # per-iteration route (its MCMC chunks replayed)
-    route = "run" if on.state.run_route else "mcmc"
+    # float32 and float64 take the device run loop (one replay a dispatch)
+    route = "run" if on.state.fused else "mcmc"
     assert stats[route]["replays"] > 0 and off_stats["run"]["replays"] == 0
     assert off_stats["mcmc"]["replays"] == 0
 
@@ -880,12 +922,12 @@ def test_graphed_hardware_prng_mcmc_equals_eager(cuda_device, route, monkeypatch
     beta = torch.tensor(0.3, device=cuda_device)
     draws = HardwareDraws(11, cuda_device)
     assert draws.keyed
-    graphed = _loops(cuda_device, True, [draws.generator], [draws.calls])
+    graphed = _loops(cuda_device, True, [draws.calls])
     # Keyed, the size limit routes between the kernels only, never to the
     # generator.
     per_step = {"mutation": 1, "large": philox.GAMMA_CALLS + 2}[route]
     for _ in range(2):  # the second run replays the first run's graphs
-        start, offset = draws.counter, draws.tell()
+        start, offset = draws.counter, draws.generator.get_offset()
         before = launch_counts()
         eager_loops = _loops(cuda_device, False)
         want = kernel(draws, u, x, loglike(x), assign, beta, modes, loops=eager_loops)
@@ -899,7 +941,7 @@ def test_graphed_hardware_prng_mcmc_equals_eager(cuda_device, route, monkeypatch
         replayed = {k: v - before[k] for k, v in launch_counts().items()
                     if k in cuda_prng.LAUNCHES}
         assert draws.counter == end and draws.calls.read() == (end, draws.key)
-        assert end - start == per_step * want.steps and draws.tell() == offset
+        assert end - start == per_step * want.steps and draws.generator.get_offset() == offset
         assert eager_loops.stats["mcmc"]["past_stop"] > 0 and replayed == eager
         assert got.steps == want.steps > kernel.n_steps_min
         for name in ("u", "x", "logl", "efficiency", "acceptance"):
@@ -920,7 +962,7 @@ def test_capture_leaves_the_call_counter(cuda_device, route, monkeypatch):
         z, g, u = draws.mcmc_step(8, n, d, k["shape"])
         return dict(z=z, g=g, u=u, go=c["go"])
 
-    start, offset = draws.counter, draws.tell()
+    start, offset = draws.counter, draws.generator.get_offset()
     eager = [draws.mcmc_step(8, n, d, shape) for _ in range(2)]
     per_step = (draws.counter - start) // 2
     assert per_step == {"mutation": 1, "large": philox.GAMMA_CALLS + 2}[route]
@@ -928,13 +970,13 @@ def test_capture_leaves_the_call_counter(cuda_device, route, monkeypatch):
     carry = dict(z=torch.zeros(8, n, d, device=cuda_device), g=torch.zeros(n, device=cuda_device),
                  u=torch.zeros(n, device=cuda_device),
                  go=torch.ones((), dtype=torch.bool, device=cuda_device))
-    loops = _loops(cuda_device, True, [draws.generator], [draws.calls])
+    loops = _loops(cuda_device, True, [draws.calls])
     run = loops.start("draws", body, carry, dict(shape=shape))
     launches = dict(cuda_prng.LAUNCHES)
     loops._graph(run._key, body, run.carry, run.consts, 1)  # capture only
     torch.cuda.synchronize()
     assert draws.counter == start and draws.calls.read() == (start, draws.key)
-    assert cuda_prng.LAUNCHES == launches and draws.tell() == offset
+    assert cuda_prng.LAUNCHES == launches and draws.generator.get_offset() == offset
     for i, (z, g, u) in enumerate(eager):
         run.advance(1)  # a replay of the captured step
         assert draws.counter == start + (i + 1) * per_step
@@ -1277,7 +1319,7 @@ def test_dynamic_run_on_device_repeats_on_device_false(cuda_device):
         s = Sampler(lambda u: 20.0 * u - 10.0, loglike, n_dim=4, n_particles=256,
                     vectorize=True, clustering=False, volume_variation=1.0, random_state=2,
                     history_capacity=64, device=cuda_device)
-        assert s.state.fused and s.state.run_route
+        assert s.state.fused
         before, probes_before = launch_counts(), dict(rw_mod.PROBES)
         s.run(n_total=1024, progress=False, on_device=on_device)
         after = launch_counts()  # settled: the conditional bodies' launches counted
@@ -1326,7 +1368,7 @@ _MESH_RUN = textwrap.dedent("""
             r = s.results()
             stats = s.state._iteration.loops.stats
             rows.append({k: r[k].tobytes().hex() for k in ("beta", "logz", "steps")}
-                        | {"fused": s.state.fused, "route": s.state.run_route, "beta1": s.beta,
+                        | {"fused": s.state.fused, "route": s.state.fused, "beta1": s.beta,
                            "replays": stats["run"]["replays"],
                            "sharded": stats["ess_sharded"].get("node_bodies", 0),
                            "reads": sum(v.get("reads", 0) for k, v in stats.items()
@@ -2058,7 +2100,7 @@ def test_run_loop_on_a_small_a_is_one_replay_and_one_read(cuda_device):
     off = sampler()
     off.run(n_total=1024, progress=False, on_device=False)
     on = sampler()
-    assert on.state.run_route
+    assert on.state.fused
     on.run(n_total=1024, progress=False, on_device=True)  # captures the run loop
     on.reset(random_state=3)
     loops = on.state._iteration.loops

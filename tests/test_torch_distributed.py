@@ -207,7 +207,7 @@ def _w_run_loop(mesh, rank, world, workdir):
             before = dict(rw_mod.PROBES)
             s.run(n_total=512, progress=False, on_device=on_device)
             res, stats = s.results(), s.state._iteration.loops.stats
-            runs.append({"route": s.state.run_route, "logz": s.logz, "beta": s.beta,
+            runs.append({"route": s.state.fused, "logz": s.logz, "beta": s.beta,
                          "t": s.state.hist.count(), "capacity": s.state.hist.capacity,
                          "local_n": s.state.hist.u.shape[2],
                          "run_reads": stats["run"]["reads"] if "run" in stats else 0,
@@ -233,6 +233,22 @@ def _w_run_loop(mesh, rank, world, workdir):
         core.cur.iteration = int(core.cur.iteration)
         core.cluster_model.fitted = bool(core.cluster_model.fitted)
         core.hist.t_host = int(core.hist.t)
+
+    # float64 on keyed float64 draws (the card's stream, on the `_f64`
+    # kernels' plain versions): the run loop against on_device=False
+    runs = []
+    for on_device in (False, True):
+        s = _build(mesh, 6, dtype=torch.float64)
+        s.state.draws = BlockDraws(KeyedDraws(6, "cpu", torch.float64), rank, world)
+        s.state._iteration.loops.counters = [s.state.draws.calls]
+        s.run(n_total=512, progress=False, on_device=on_device)
+        res, stats = s.results(), s.state._iteration.loops.stats
+        runs.append({"route": s.state.fused, "logz": s.logz, "beta": s.beta,
+                     "dtype": str(res["u"].dtype), "counter": s.state.draws.calls.counter,
+                     "run_reads": stats["run"]["reads"] if "run" in stats else 0,
+                     **{f"bits_{k}": _digest(res[k]) for k in (
+                         "beta", "logz", "steps", "calls", "u", "logl", "ess")}})
+    report({"case": "run_loop_float64", "runs": runs})
 
     for name, kw in (("ess", {}), ("dynamic", {"volume_variation": 0.05})):
         host, dev = (_build(mesh, 8, **kw).state for _ in range(2))
@@ -493,6 +509,16 @@ def test_mesh_run_loop_equals_on_device_false(run_loop_runs, name):
         assert on["cv_bodies"] > 0 and on["probes"]["reweights"] == on["t"] - 1
     if name == "growth":
         assert on["capacity"] > 2 and on["t"] > 2
+
+
+def test_mesh_float64_run_loop_equals_on_device_false(run_loop_runs):
+    """At W = 2 in float64 on keyed float64 draws (the card's draws, here
+    the `_f64` kernels' plain versions): the run loop equals on_device=False
+    bit for bit, the call counter included."""
+    off, on = _same_on_every_rank(run_loop_runs["run_loop_float64"])["runs"]
+    assert off["route"] and on["route"] and on["run_reads"] > 0 and off["run_reads"] == 0
+    assert on == dict(off, run_reads=on["run_reads"]) and on["dtype"] == "float64"
+    assert on["beta"] == 1.0 and abs(on["logz"] - ANALYTIC_LOGZ) < 0.5 and on["counter"] > 0
 
 
 @pytest.mark.parametrize("name", ["ess", "dynamic"])

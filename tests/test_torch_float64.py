@@ -30,10 +30,19 @@ writes what it computed to an npz that a module-scoped fixture reads:
    plain route of the ESS kernel's bracket mode must reach it within 1e-12
    (relative) and equal the port's "ess_bracket" loop bit for bit.
 
+7. The port's float64 draws (the plain versions of the `_f64` PRNG
+   kernels, `ops/philox.py`) against threefry's in float64
+   (`jax.random.normal`, `uniform`, `gamma` at alpha 0.02, 1.0 and 7.5),
+   2^16 of each from fixed keys: a two-sample Kolmogorov-Smirnov test with
+   p above KS_P_FLOOR (fixed seeds, so each p-value is one number), and
+   the means within 5 standard errors of each other's.
+
 In the test process (port only): the 4-D Gaussian of tests/test_float64.py
 with its bars (|logZ + 4 log 20| < 0.35, the MIS accumulator within 1e-9 of
 its exact rebuild), and `hardware_prng=True` giving the ladder of
-`hardware_prng=False` (the flag does not apply to float64, as in JAX).
+`hardware_prng=False` (the flag does not apply to float64, as in JAX):
+a float64 sampler takes `Draws` with either flag, keyed or not alike, so
+on the card the flags give the same bits.
 """
 
 import math
@@ -48,7 +57,9 @@ import torch
 
 from tempest_tpu_torch import Sampler, interop
 from tempest_tpu_torch.cluster import fit_uniforms
+from tempest_tpu_torch.draws import Draws
 from tempest_tpu_torch.loops import Loops
+from tempest_tpu_torch.ops import philox
 from tempest_tpu_torch.ops.cuda_reweight import (
     ess_bisect_beta,
     ess_bisect_beta_reference,
@@ -252,6 +263,14 @@ _SCRIPT = textwrap.dedent(
     u, w, mask = cv100_inputs()
     out["cv100"] = np.array(volume_variation_dtn(jnp.asarray(u), jnp.asarray(w),
                                                  mask=jnp.asarray(mask)))
+
+    # 7. threefry's float64 draws, 2^16 each, for the distribution tests
+    ks = jax.random.split(jax.random.PRNGKey(2026), 5)
+    out["ks.normal"] = np.array(jax.random.normal(ks[0], (1 << 16,), dtype=jnp.float64))
+    out["ks.uniform"] = np.array(jax.random.uniform(ks[1], (1 << 16,), dtype=jnp.float64))
+    for k, a in zip(ks[2:], (0.02, 1.0, 7.5)):
+        out[f"ks.gamma{a}"] = np.array(jax.random.gamma(k, jnp.full((1 << 16,), a, jnp.float64),
+                                                        dtype=jnp.float64))
     np.savez(out_path, **out)
     """
 )
@@ -434,9 +453,14 @@ def _gauss(x):
     return -0.5 * torch.sum(x**2, dim=-1) - 0.5 * N_DIM * math.log(2 * math.pi)
 
 
+def _gauss_sampler(hardware_prng, n_particles=256):
+    return Sampler(_prior, _gauss, n_dim=N_DIM, n_particles=n_particles, vectorize=True,
+                   clustering=False, random_state=1, dtype=torch.float64,
+                   hardware_prng=hardware_prng, device="cpu")
+
+
 def _gauss_run(hardware_prng):
-    s = Sampler(_prior, _gauss, n_dim=N_DIM, n_particles=256, vectorize=True, clustering=False,
-                random_state=1, dtype=torch.float64, hardware_prng=hardware_prng, device="cpu")
+    s = _gauss_sampler(hardware_prng)
     s.run(n_total=1024, progress=False)
     return s
 
@@ -458,3 +482,64 @@ def test_hardware_prng_does_not_apply_to_float64():
     assert on.state.draws.counter == 0  # no Philox call
     assert off.results()["beta"].tobytes() == on.results()["beta"].tobytes()
     assert off.evidence()[0] == on.evidence()[0]
+
+
+# ---------------------------------------------------------------------------
+# 7. The float64 draws against threefry's
+# ---------------------------------------------------------------------------
+KS_P_FLOOR = 1e-3
+
+
+def _port_draws(what: str, n: int = 1 << 16) -> np.ndarray:
+    key = philox.key_from_seed(2026)
+    if what == "normal":
+        return philox.normal_f64(key, 1, n, "cpu").numpy()
+    if what == "uniform":
+        return philox.uniform_f64(key, 2, n, "cpu").numpy()
+    a = float(what[len("gamma"):])
+    return philox.gamma_f64(key, 3, torch.full((n,), a, dtype=torch.float64)).numpy()
+
+
+@pytest.mark.parametrize("what", ["normal", "uniform", "gamma0.02", "gamma1.0", "gamma7.5"])
+def test_float64_draws_match_threefry_in_distribution(jax_x64, what):
+    from scipy.stats import ks_2samp
+
+    want = jax_x64[f"ks.{what}"]
+    got = _port_draws(what)
+    assert got.dtype == want.dtype == np.float64 and got.shape == want.shape
+    assert np.all(np.isfinite(got))
+    if what != "normal":
+        assert got.min() > 0.0
+    p = ks_2samp(got, want).pvalue
+    assert p > KS_P_FLOOR, (what, p)
+    se = math.sqrt(got.var() / got.size + want.var() / want.size)
+    assert abs(got.mean() - want.mean()) < 5 * se, (what, got.mean(), want.mean())
+
+
+class _KeyedDraws(Draws):
+    KEYED_ON_CPU = True
+
+
+def test_hardware_prng_in_float64_takes_draws(monkeypatch):
+    """A float64 sampler takes `Draws` with either flag (the flag does not
+    apply); keyed (forced here, as on the card) the two flags draw the same
+    key and give the same bits, iteration by iteration, with the same draw
+    state under `Draws`' checkpoint names."""
+    from tempest_tpu_torch import core as core_mod
+
+    assert type(_gauss_sampler(True).state.draws) is Draws
+    monkeypatch.setattr(core_mod, "Draws", _KeyedDraws)
+    runs = []
+    for hardware_prng in (False, True):
+        s = _gauss_sampler(hardware_prng, n_particles=64)
+        assert type(s.state.draws) is _KeyedDraws and s.state.draws.keyed
+        assert s.state.draws.key == philox.draws_key(1)
+        rows = [s.sample() for _ in range(6)]
+        assert rows[-1]["beta"] > 0.0 and s.state.draws.counter > 0
+        runs.append((rows, s.results(), s.state.draws.get_state()))
+    (rows_off, res_off, st_off), (rows_on, res_on, st_on) = runs
+    assert all(set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a)
+               for a, b in zip(rows_off, rows_on))
+    assert all(res_off[k].tobytes() == res_on[k].tobytes() for k in ("beta", "logz", "u", "logl"))
+    assert set(st_off) == set(st_on) == {"generator", "step_key", "step_counter"}
+    assert all(np.array_equal(st_off[k], st_on[k]) for k in st_off)

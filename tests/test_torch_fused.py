@@ -56,7 +56,7 @@ from tempest_tpu_torch import modes as tm
 from tempest_tpu_torch.cluster import single_cluster_model
 from tempest_tpu_torch.config import SamplerConfig
 from tempest_tpu_torch.draws import Draws, HardwareDraws
-from tempest_tpu_torch.fused import CHUNKS, fused_route, make_fused_iteration, run_route
+from tempest_tpu_torch.fused import CHUNKS, fused_route, make_fused_iteration
 from tempest_tpu_torch.loops import Loops
 from tempest_tpu_torch.mcmc import MCMCKernel
 from tempest_tpu_torch.steps.reweight import reweight
@@ -299,11 +299,11 @@ def test_fused_route_by_configuration(extra, fused, request):
     s = Sampler(_prior, _bimodal_t, n_dim=D, n_particles=N, vectorize=True, device="cpu",
                 **extra)
     assert s.state.fused == fused
-    # run(on_device=True) takes the device run loop in float32, on one
-    # device or a mesh, in ESS or dynamic mode; the rest keep the
+    # run(on_device=True) takes the device run loop on the whole fused
+    # route, float32 or float64 (every draw keyed on the card), on one
+    # device or a mesh, in ESS or dynamic mode; a host likelihood keeps the
     # per-iteration route
-    runs = fused and extra.get("dtype", torch.float32) == torch.float32
-    assert run_route(cfg) == s.state.run_route == runs
+    assert (s.state._run is not None) == fused
 
 
 @pytest.fixture(scope="module")
@@ -515,14 +515,14 @@ def test_sharded_ess_cases_cover_stay_jump_and_bisect(gloo_mesh):
 
 @pytest.mark.parametrize("hardware", [False, True])
 def test_block_draws_tell_seek_round_trip(hardware):
-    """A BlockDraws is graph-safe as its draws are: its position is theirs
+    """A BlockDraws is keyed as its draws are: its position is theirs
     (global: the generator's, or the keyed steps' call counter), and
     seeking back repeats the rank's block of a step."""
     from tempest_tpu_torch.draws import BlockDraws
 
     inner = (HardwareDraws if hardware else Draws)(7, "cpu")
     block = BlockDraws(inner, 1, 2)
-    assert block.graph_safe and block.generator is inner.generator
+    assert block.keyed == inner.keyed and block.generator is inner.generator
     assert block.calls is (inner.calls if hardware else None) and block.keyed == hardware
     gamma_shape = torch.full((64,), 3.0)
     block.mcmc_step(8, 32, 2, gamma_shape)

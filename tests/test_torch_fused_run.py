@@ -29,6 +29,14 @@
 5. Keyed warm-up and resampling uniforms: the Philox formula
    (`philox.uniform`) at the counter; a draw inside an untaken conditional
    body leaves the counter where it was.
+6. Float64 on the run loop, on keyed float64 draws (`KeyedDraws` in
+   float64: the card's stream, `philox.draws_key`, through the plain
+   versions of the `_f64` kernels): the 4-D Gaussian of
+   tests/test_float64.py and a small dynamic case, bit for bit with the
+   per-iteration route, the draw state included; the keyed float64 warm-up
+   and resampling uniforms are `philox.uniform_f64` at the counter; and a
+   float64 keyed run resumed from a state file (which carries `step_key`
+   and `step_counter`) equal to the run that went on.
 """
 
 import math
@@ -266,7 +274,7 @@ def test_dynamic_run_route_against_jax_make_fused_run():
     jsamp.run(n_total=512, progress=False, on_device=True)
     tsamp = Sampler(lambda u: 20.0 * u - 10.0, lambda x: -0.5 * torch.sum(x * x, dim=-1),
                     device="cpu", **kw)
-    assert tsamp.state.run_route
+    assert tsamp.state.fused
     tsamp.state.draws = JaxRunDraws(key)
     tsamp.run(n_total=512, progress=False, on_device=True)
     stats = tsamp.state._iteration.loops.stats
@@ -313,7 +321,7 @@ def test_run_loop_equals_the_per_iteration_route(case):
         s.run(n_total=256, progress=False, on_device=on_device)
         runs.append(s)
     off, on = runs
-    assert on.state.run_route and on.state._iteration.loops.stats["run"]["reads"] > 0
+    assert on.state.fused and on.state._iteration.loops.stats["run"]["reads"] > 0
     assert "run" not in off.state._iteration.loops.stats
     r_off, r_on = off.results(), on.results()
     for name in ("beta", "logz", "steps", "calls", "u", "logl", "ess", "cv"):
@@ -433,3 +441,88 @@ def test_a_draw_in_an_untaken_body_leaves_the_counter(taken):
     assert loops.when(torch.tensor(False), lambda s: {"r": draws.resample(8, "mult")},
                       state, "probe") is state
     assert draws.counter == (3 if taken else 0) and loops.stats["probe"]["reads"] == 1
+
+
+# ---------------------------------------------------------------------------
+# 6. Float64 on the run loop
+# ---------------------------------------------------------------------------
+def _gauss4(x):
+    return -0.5 * torch.sum(x * x, dim=-1) - 0.5 * 4 * math.log(2 * math.pi)
+
+
+F64_CASES = {
+    "gaussian4": dict(prior=lambda u: 20.0 * u - 10.0, loglike=_gauss4, n_dim=4,
+                      n_particles=128, clustering=False, n_total=512),
+    "dynamic": dict(prior=lambda u: 8.0 * u - 4.0, loglike=_bimodal, n_dim=2, n_particles=96,
+                    clustering=False, volume_variation=0.03, n_total=256),
+}
+
+
+def _f64_sampler(case, seed=11, **extra):
+    kw = dict(F64_CASES[case])
+    prior, loglike, n_total = kw.pop("prior"), kw.pop("loglike"), kw.pop("n_total")
+    s = Sampler(prior, loglike, vectorize=True, random_state=seed, device="cpu",
+                history_capacity=16, dtype=torch.float64, **kw, **extra)
+    s.state.draws = KeyedDraws(seed, "cpu", torch.float64)
+    s.state._iteration.loops.counters = [s.state.draws.calls]
+    return s, n_total
+
+
+@pytest.mark.parametrize("case", sorted(F64_CASES))
+def test_float64_run_loop_equals_the_per_iteration_route(case):
+    runs = []
+    for on_device in (False, True):
+        s, n_total = _f64_sampler(case)
+        assert s.state.fused and s.state.draws.keyed
+        s.run(n_total=n_total, progress=False, on_device=on_device)
+        runs.append(s)
+    off, on = runs
+    assert on.state._iteration.loops.stats["run"]["reads"] > 0
+    assert "run" not in off.state._iteration.loops.stats
+    r_off, r_on = off.results(), on.results()
+    assert r_on["u"].dtype == np.float64 and on.beta == 1.0
+    for name in ("beta", "logz", "steps", "calls", "u", "logl", "ess", "cv"):
+        assert r_off[name].tobytes() == r_on[name].tobytes(), name
+    assert off.evidence()[0] == on.evidence()[0] and math.isfinite(on.evidence()[0])
+    assert off.state.draws.counter == on.state.draws.counter > 0
+    s_off, s_on = off.state.draws.get_state(), on.state.draws.get_state()
+    assert set(s_on) == {"generator", "step_key", "step_counter"}
+    assert all(np.array_equal(s_off[k], s_on[k]) for k in s_off)
+    if case == "dynamic":
+        assert on.state._iteration.loops.stats["cv_bisect"]["bodies"] > 0
+
+
+def test_keyed_float64_warmup_and_resample_uniforms_are_the_philox_formula():
+    draws = KeyedDraws(21, "cpu", torch.float64)
+    key = philox.draws_key(21)
+    u, patch = draws.warmup(16, 3)
+    assert u.dtype == patch.dtype == torch.float64
+    assert torch.equal(u.reshape(-1), philox.uniform_f64(key, 0, 48, "cpu"))
+    assert torch.equal(patch, philox.uniform_f64(key, 1, 16, "cpu"))
+    r = draws.resample(16, "mult")
+    assert torch.equal(r, philox.uniform_f64(key, 2, 16, "cpu")) and draws.counter == 3
+    assert not Draws(21, "cpu", torch.float64).keyed  # the CPU's Draws keep the generator
+
+
+def test_float64_keyed_run_resumes_from_a_state_file(tmp_path):
+    """A float64 keyed run's state file holds the call counter's words; a
+    fresh sampler that loads it runs the next iterations as the run that
+    went on did, bit for bit."""
+    s, _ = _f64_sampler("gaussian4", seed=3)
+    for _ in range(5):
+        s.sample()
+    path = tmp_path / "f64.state"
+    s.save_state(path)
+    saved = s.state.draws.counter
+    with np.load(path, allow_pickle=True) as f:
+        assert int(f["draws.step_counter"]) == saved > 0
+    went_on = [s.sample() for _ in range(3)]
+    r, _ = _f64_sampler("gaussian4", seed=99)
+    r.load_state(path)
+    assert r.state.draws.counter == saved and r.state.draws.key == s.state.draws.key
+    resumed = [r.sample() for _ in range(3)]
+    for a, b in zip(went_on, resumed):
+        for k in ("beta", "logz", "steps", "calls", "iter"):
+            assert a[k] == b[k], k
+        assert a["u"].tobytes() == b["u"].tobytes() and a["u"].dtype == np.float64
+    assert r.state.draws.counter == s.state.draws.counter

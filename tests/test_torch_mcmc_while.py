@@ -105,6 +105,49 @@ def test_chunks_and_the_loop_form_give_the_same_bits(monkeypatch, method, route,
     assert torch.equal(draws.generator.get_state(), wdraws.generator.get_state())
 
 
+def _chain64(method):
+    """`_chain` in float64: its modes made again from float64 moments."""
+    kernel, (u, x, logl, assignments, beta, _) = _chain(method)
+    d = u.shape[1]
+    modes = tm.make_mode_statistics(torch.full((d,), 0.5, dtype=torch.float64),
+                                    1e-2 * torch.eye(d, dtype=torch.float64),
+                                    torch.tensor(6.0, dtype=torch.float64))
+    kernel64 = MCMCKernel(kernel.log_likelihood_batch, kernel.prior_transform_batch,
+                          kernel.n_dim, method=method, dtype=torch.float64)
+    return kernel64, (u.double(), x.double(), logl.double(), assignments, beta.double(), modes)
+
+
+@pytest.mark.parametrize("route", ["mutation", "large"])
+@pytest.mark.parametrize("form", [1, 8])
+def test_float64_chunks_and_the_loop_form_give_the_same_bits(monkeypatch, route, form):
+    """The float64 chain on keyed float64 draws (the `_f64` kernels' plain
+    versions): chunks of 1 and 8 and the loop form give the same bits; the
+    final counter is the steps times a step's calls (1, or 33 + 2)."""
+    if route == "large":
+        monkeypatch.setattr(draws_mod, "FUSED_DRAWS_MAX_ELEMS", 0)
+    kernel, args = _chain64("tpcn")
+
+    def run(form):
+        draws = KeyedDraws(11, "cpu", torch.float64)
+        u, x, logl, assignments, beta, modes = args
+        carry = _tensors(kernel.initial_state(u, x, logl, modes.k_max))
+        consts = _tensors(kernel.prepare(assignments, beta, modes))
+        body = kernel.body(draws, *u.shape, keyed=True)
+        if form == "repeat":
+            return Loops("cpu").repeat("mcmc", kernel.pred, body, carry, consts), draws
+        return kernel._chunks(Loops("cpu", {"mcmc": form}), draws, body, carry, consts,
+                              keyed=True), draws
+
+    want, wdraws = run("repeat")
+    got, draws = run(form)
+    steps = int(want["iteration"])
+    assert steps > kernel.n_steps_min and want["u"].dtype == torch.float64
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+    per_step = 1 if route == "mutation" else philox.GAMMA_CALLS_F64 + 2
+    assert draws.counter == wdraws.counter == steps * per_step
+
+
 @pytest.mark.parametrize("hardware", [False, True])
 def test_eager_chain_on_keyed_draws_runs_in_chunks(hardware):
     """`MCMCKernel.__call__` off a graph runs keyed draws in chunks (the
@@ -161,13 +204,15 @@ def test_keyed_step_draws_from_the_kernels_plain_versions(monkeypatch):
 
 def test_keyed_draws_on_the_cpu_only_when_asked():
     """Draws on the CPU keep the generator for their steps (the JAX-draw
-    hooks' tests see no change); HardwareDraws are keyed in float32 on every
-    device; float64 is never keyed (the kernels draw float32 only)."""
+    hooks' tests see no change); HardwareDraws are keyed on every device;
+    in float64 Draws are keyed where asked (the card, or KEYED_ON_CPU: the
+    kernels' float64 entries)."""
     assert not Draws(1, "cpu").keyed and Draws(1, "cpu").calls is None
     assert HardwareDraws(1, "cpu").keyed and KeyedDraws(1, "cpu").keyed
-    for cls in (KeyedDraws, HardwareDraws):
-        assert not cls(1, "cpu", torch.float64).keyed
-    assert KeyedDraws(1, "cpu", torch.float64).calls is None
+    f64 = torch.float64
+    assert KeyedDraws(1, "cpu", f64).keyed and KeyedDraws(1, "cpu", f64).calls is not None
+    assert not Draws(1, "cpu", f64).keyed and HardwareDraws(1, "cpu", f64).keyed
+    assert KeyedDraws(1, "cpu", torch.float16).calls is None  # the kernels draw no other dtype
 
 
 def test_state_round_trip_and_a_file_without_the_keyed_words():

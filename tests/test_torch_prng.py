@@ -16,6 +16,15 @@ ops/cuda_prng.py, draws.HardwareDraws) against tempest_tpu.ops.pallas_prng.
   call indices each route takes; its call counter's device words (which
   the kernels read) and host mirror agree through steps, `tell`/`seek`,
   `get_state`/`set_state` and `reseed`, which keep the same words.
+- Float64 (the plain versions of the `_f64` kernels): the 53-bit mapping
+  on the Philox known-answer words, exactly, its ends (2^-53 and 1.0) and
+  uniforms off float32's 2^-23 grid; normals from the known-answer words
+  within 4 ulp of Box-Muller in numpy (the last bits of log, sqrt and
+  sincos); the counter layout of the float64 gamma and mutation draws
+  rebuilt walker by walker, exactly; moments at about 5 sigma; no gamma
+  draw that no round accepts in 10^6 draws at the 16-round cap; the
+  wrappers' and the counter's dtype routing, and the keyed float64 steps'
+  call indices (33 + 2 on the large route).
 """
 
 import jax
@@ -347,3 +356,212 @@ def test_hardware_draws_mirror_and_device_words_agree(monkeypatch):
     with pytest.raises(ValueError):  # every call index must fit 64 bits
         hw.calls.seek((1 << 64) - philox.GAMMA_CALLS)
         _step(hw, n, alpha)
+
+
+# ---------------------------------------------------------------------------
+# Float64
+# ---------------------------------------------------------------------------
+KAT_WORDS = (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)  # key (0, 0), counter 0
+
+
+def _unit53(wa, wb):
+    """The 53-bit mapping in exact integer arithmetic."""
+    return float(((((wa >> 5) << 26) | (wb >> 6)) + 1)) * 2.0**-53
+
+
+def test_float64_uniforms_on_the_known_answer_words():
+    got = philox.uniform_f64((0, 0), 0, 2, "cpu")
+    assert got.dtype == torch.float64
+    assert got.tolist() == [_unit53(*KAT_WORDS[:2]), _unit53(*KAT_WORDS[2:])]
+    ends = philox.unit53(torch.tensor([0, 0xFFFFFFFF]), torch.tensor([0, 0xFFFFFFFF]))
+    assert ends.tolist() == [2.0**-53, 1.0]
+    # Five elements: the ragged block's second double is left out.
+    five = philox.uniform_f64(KEY, 9, 5, "cpu")
+    assert torch.equal(five, philox.uniform_f64(KEY, 9, 6, "cpu")[:5])
+
+
+def test_float64_uniforms_are_not_on_the_float32_grid():
+    u = philox.uniform_f64(KEY, 3, 1 << 16, "cpu").numpy()
+    assert 0.0 < u.min() and u.max() <= 1.0
+    on_grid = np.mean(np.floor(u * 2.0**23) == u * 2.0**23)
+    assert on_grid < 1e-3  # a 53-bit uniform lands on the 2^-23 grid with probability 2^-30
+    assert np.mean(u.astype(np.float32).astype(np.float64) != u) > 0.999
+
+
+def test_float64_normals_on_the_known_answer_words():
+    got = philox.normal_f64((0, 0), 0, 2, "cpu").numpy()
+    ua, ub = _unit53(*KAT_WORDS[:2]), _unit53(*KAT_WORDS[2:])
+    r, theta = np.sqrt(-2.0 * np.log(ua)), philox.TWO_PI * ub
+    want = np.array([r * np.cos(theta), r * np.sin(theta)])
+    np.testing.assert_allclose(got, want, rtol=4 * np.finfo(np.float64).eps, atol=0)
+
+
+def _t64(v):
+    return torch.tensor([v], dtype=torch.float64)
+
+
+def _scalar_words64(block, stream, call):
+    t = [torch.tensor([v], dtype=torch.int64)
+         for v in (block, stream, call & philox.MASK32, call >> 32)]
+    return [int(w) for w in philox.philox4x32(*t, KEY)]
+
+
+def test_float64_gamma_counter_layout():
+    """`philox.gamma_f64` against walkers rebuilt from their own words:
+    walker j's round r takes normal j % 2 of block j // 2 of call counter +
+    2r and uniform j % 2 of block j // 2 of call counter + 2r + 1 (from
+    `normal_f64` / `uniform_f64` of single blocks), its boost uniform j % 2
+    of call counter + 32; the first accepted round wins. The calls cross
+    2^32."""
+    n, counter = 201, (1 << 32) - 7
+    alpha = torch.tensor([0.02, 0.5, 1.0, 2.5, 7.5, 50.0] * 34, dtype=torch.float64)[:n]
+    want = philox.gamma_f64(KEY, counter, alpha)
+    assert want.dtype == torch.float64 and bool(torch.all(want > 0))
+    zc, uc, bc = philox.gamma_counters(counter, philox.MT_ROUNDS_F64)
+    assert len(zc) == philox.MT_ROUNDS_F64 == 16 and bc == counter + 32
+    assert philox.GAMMA_CALLS_F64 == 33 == philox.gamma_calls(torch.float64)
+    later = 0
+    for j in list(range(12)) + [n - 2, n - 1]:
+        a = alpha[j:j + 1]
+        boost, d, c = philox.mt_setup(a)
+        res = d
+        for r in range(philox.MT_ROUNDS_F64):
+            z = philox.normal_f64(KEY, zc[r], j + 1, "cpu")[j:j + 1]
+            u = philox.uniform_f64(KEY, uc[r], j + 1, "cpu")[j:j + 1]
+            ok, prop = philox.mt_accept(z, u, d, c)
+            if bool(ok):
+                res, later = prop, later + (r > 0)
+                break
+        if bool(boost):
+            ub = philox.uniform_f64(KEY, bc, j + 1, "cpu")[j:j + 1]
+            res = res * ub ** (1.0 / a)
+        assert float(res) == float(want[j]), j
+    # the block's words: walker 2 takes the first double of block 1
+    w = _scalar_words64(1, 0, uc[0])
+    assert philox.uniform_f64(KEY, uc[0], 4, "cpu")[2].item() == _unit53(w[0], w[1])
+
+
+def test_float64_mutation_draws_layout():
+    """Walker n's round r on streams 1 + 2r (normal, cos-only) and 2 + 2r
+    (acceptance uniform), boost and Metropolis uniforms from stream 33; the
+    proposal normals are `normal_f64` of the same call."""
+    R, N, d, counter = 2, 10, 3, 5
+    alpha = torch.linspace(0.3, 9.0, N, dtype=torch.float64)
+    z, g, u = philox.mutation_draws_f64(KEY, counter, alpha, (R, N, d))
+    assert z.dtype == g.dtype == u.dtype == torch.float64
+    assert torch.equal(z.reshape(-1), philox.normal_f64(KEY, counter, R * N * d, "cpu"))
+    assert philox.STREAM_BOOST_ACCEPT_F64 == 33
+    for n in range(N):
+        wb = _scalar_words64(n, 33, counter)
+        assert u[n].item() == _unit53(wb[2], wb[3])
+        boost, dd, c = philox.mt_setup(alpha[n:n + 1])
+        res = dd
+        for r in range(philox.MT_ROUNDS_F64):
+            wn = _scalar_words64(n, 1 + 2 * r, counter)
+            wa = _scalar_words64(n, 2 + 2 * r, counter)
+            zn = torch.sqrt(-2.0 * torch.log(_t64(_unit53(wn[0], wn[1])))) * torch.cos(
+                philox.TWO_PI * _t64(_unit53(wn[2], wn[3])))
+            ok, prop = philox.mt_accept(zn, _t64(_unit53(wa[0], wa[1])), dd, c)
+            if bool(ok):
+                res = prop
+                break
+        if bool(boost):
+            res = res * _t64(_unit53(wb[0], wb[1])) ** (1.0 / alpha[n:n + 1])
+        assert float(res) == g[n].item(), n
+
+
+def test_float64_moments():
+    n = 1 << 20
+    z = cuda_prng.hw_normal(KEY, 0, (n,), "cpu", dtype=torch.float64).numpy()
+    assert z.dtype == np.float64
+    assert abs(z.mean()) < 0.005 and abs(z.var() - 1.0) < 0.01
+    assert abs(((z - z.mean()) ** 4).mean() / z.var() ** 2 - 3.0) < 0.05
+    assert abs((np.abs(z) > 3).mean() - 0.0027) < 0.0005
+    u = cuda_prng.hw_uniform(KEY, 1, (n,), "cpu", dtype=torch.float64).numpy()
+    assert 0.0 < u.min() and u.max() <= 1.0
+    assert abs(u.mean() - 0.5) < 0.002 and abs(u.var() - 1.0 / 12.0) < 0.001
+    for a in (0.5, 1.5, 7.5, 50.0):
+        m = 1 << 16
+        g = cuda_prng.hw_gamma(KEY, 100, torch.full((m,), a, dtype=torch.float64)).numpy()
+        assert g.dtype == np.float64 and g.min() > 0.0
+        assert abs(g.mean() - a) < 5 * np.sqrt(a / m) + 0.01
+        assert abs(g.var() - a) < 0.05 * a + 0.02
+
+
+def test_float64_gamma_no_miss_in_a_million_draws():
+    """At the 16-round cap, 10^6 draws at alpha 0.02, 1.0 and 7.5 (1.0 is
+    where a round accepts least often): every draw accepted by some round
+    (a miss has probability below 1.5e-21)."""
+    n, counter = 1_000_000, 77
+    alpha = torch.tensor([0.02, 1.0, 7.5], dtype=torch.float64).repeat(n // 3 + 1)[:n]
+    _, d, c = philox.mt_setup(alpha)
+    zc, uc, _ = philox.gamma_counters(counter, philox.MT_ROUNDS_F64)
+    undecided = torch.ones(n, dtype=torch.bool)
+    rounds = 0
+    for r in range(philox.MT_ROUNDS_F64):
+        ok, _ = philox.mt_accept(philox.normal_f64(KEY, zc[r], n, "cpu"),
+                                 philox.uniform_f64(KEY, uc[r], n, "cpu"), d, c)
+        undecided &= ~ok
+        rounds += 1
+        if not bool(undecided.any()):
+            break
+    assert not bool(undecided.any()) and rounds < philox.MT_ROUNDS_F64
+
+
+def test_float64_wrappers_and_counter_route_by_dtype():
+    before = dict(cuda_prng.LAUNCHES)
+    alpha = torch.full((16,), 3.0, dtype=torch.float64)
+    z, g, u = cuda_prng.hw_mutation_draws(KEY, 4, alpha, (2, 16, 3))
+    assert z.dtype == g.dtype == u.dtype == torch.float64
+    wz, wg, wu = philox.mutation_draws_f64(KEY, 4, alpha, (2, 16, 3))
+    assert torch.equal(z, wz) and torch.equal(g, wg) and torch.equal(u, wu)
+    assert torch.equal(cuda_prng.hw_gamma(KEY, 4, alpha), philox.gamma_f64(KEY, 4, alpha))
+    assert torch.equal(cuda_prng.hw_normal(KEY, 4, (3, 5), "cpu", torch.float64).reshape(-1),
+                       philox.normal_f64(KEY, 4, 15, "cpu"))
+    assert cuda_prng.LAUNCHES == before  # the plain versions launch nothing
+    with pytest.raises(ValueError):  # another dtype raises; nothing falls back
+        cuda_prng.hw_normal(KEY, 0, (8,), "cpu", torch.float16)
+    with pytest.raises(ValueError):
+        cuda_prng.hw_gamma(KEY, 0, alpha.half())
+    with pytest.raises(ValueError):
+        cuda_prng.hw_uniform(KEY, 0, (8,), "meta", torch.float64)
+    with pytest.raises(ValueError):  # the last of a float64 gamma's 33 calls must fit
+        cuda_prng.hw_gamma(KEY, (1 << 64) - philox.GAMMA_CALLS_F64 + 1, alpha)
+    calls = cuda_prng.PhiloxCounter(KEY, "cpu", counter=9)
+    assert torch.equal(calls.uniform(1, (4, 2), torch.float64).reshape(-1),
+                       philox.uniform_f64(KEY, 10, 8, "cpu"))
+    assert torch.equal(calls.gamma(0, alpha), philox.gamma_f64(KEY, 9, alpha))
+    assert torch.equal(calls.normal(2, (5,), torch.float64), philox.normal_f64(KEY, 11, 5, "cpu"))
+
+
+@pytest.mark.parametrize("route", ["mutation", "large"])
+def test_keyed_float64_steps_take_their_calls(monkeypatch, route):
+    """A keyed float64 step draws in double from the counter: one call on
+    the mutation-draws route; 33 (gamma) + 1 (normal) + 1 (uniform) past
+    FUSED_DRAWS_MAX_ELEMS; the generator is not drawn from."""
+    if route == "large":
+        monkeypatch.setattr(draws_mod, "FUSED_DRAWS_MAX_ELEMS", 0)
+
+    class Keyed(draws_mod.Draws):
+        KEYED_ON_CPU = True
+
+    n = 64
+    alpha = torch.linspace(0.3, 9.0, n, dtype=torch.float64)
+    dr = Keyed(7, "cpu", torch.float64)
+    assert dr.keyed and dr.key == philox.draws_key(7)
+    position = dr.generator.get_state()
+    z, g, u = dr.mcmc_step(2, n, 3, alpha)
+    assert z.dtype == g.dtype == u.dtype == torch.float64
+    if route == "mutation":
+        wz, wg, wu = philox.mutation_draws_f64(dr.key, 0, alpha, (2, n, 3))
+        assert torch.equal(z, wz) and torch.equal(g, wg) and torch.equal(u, wu)
+        assert dr.counter == 1
+    else:
+        assert torch.equal(g, philox.gamma_f64(dr.key, 0, alpha))
+        assert torch.equal(z.reshape(-1), philox.normal_f64(dr.key, 33, 2 * n * 3, "cpu"))
+        assert torch.equal(u, philox.uniform_f64(dr.key, 34, n, "cpu"))
+        assert dr.counter == philox.GAMMA_CALLS_F64 + 2
+    w, patch = dr.warmup(n, 3)
+    assert w.dtype == patch.dtype == torch.float64
+    assert torch.equal(patch, philox.uniform_f64(dr.key, dr.counter - 1, n, "cpu"))
+    assert torch.equal(dr.generator.get_state(), position)
