@@ -3,6 +3,7 @@
     python3 chip_smoke.py [--profile DIR] [--parent DIR]
     python3 chip_smoke.py --kernels-only [--package-root DIR]
     python3 chip_smoke.py --a-only [--package-root DIR]
+    python3 chip_smoke.py --large-scale-only
 
 Builds every CUDA kernel of the port from the sources in this checkout
 (one nvcc per source, started together), holds each against its plain
@@ -54,8 +55,8 @@ lines and a failure exits non-zero:
     131,072 walkers and rosenbrock100's 2,048, and through `Draws` and its
     call counter's device word as the keyed iterations draw them (the
     warm-up's prior draw and patch, two calls; a multinomial and a
-    systematic resampling's, one call each) at A's, B's and
-    rosenbrock100's walkers and dimensions, from call 2^32 - 1 (the
+    systematic resampling's, one call each) at A's, B's, rosenbrock100's
+    and the 2^20 path's walkers and dimensions, from call 2^32 - 1 (the
     counter advanced 2, 1 and 1, and not at all under a false guard); the
     bits row is timed in that mode, the one on the path, beside
     `torch.rand`, with the raw
@@ -308,7 +309,37 @@ lines and a failure exits non-zero:
     the per-iteration graphed route
     under the profiler, held to 6b's rule, with the device busy share and
     the device ms an iteration of the eigenvalue kernel, the ESS kernel
-    and the top five other kernels.
+    and the top five other kernels;
+17. the mutation's two forms (mcmc.py: past N d^2 = 2^21, N the walkers
+    over every rank, JAX's K-loop form, one dense matmul a mode, instead of
+    per-walker (N, d, d) matrices): 17a, the K-loop form's quadratic and
+    proposal step against the gathered form's at B's (R, N, d) =
+    (8, 131,072, 10) with one mode and with 16 (the last empty), float32
+    and float64, within FORMS_TOL d eps of the product of absolute values;
+    their device times in turns at K = 1 and the K-loop's at (1, 2^20,
+    100), beside its bound; one tpCN step's device ms at B's,
+    rosenbrock100's and the 2^20 path's walkers (a graph of
+    MCMCKernel.step replayed between CUDA events); 17b,
+    benchmarks/large_scale.py's configuration on one card, unsharded (the
+    chained 100-D Rosenbrock, U(-10, 10), N = 2^20, unclustered,
+    random_state=5, history_capacity=8, n_candidates=1, n_max_steps=20):
+    five sample() calls, each with logZ and the active set's logl finite,
+    beta > 0 from the fourth on and the ladder monotone, as the script
+    holds them; every mutation in the K-loop form; the path's own peak
+    memory (printed beside the gathered form's 83.9 GB) under one gathered
+    set; one normal, gamma and uniform launch a step body, one ESS launch
+    a reweight, one weighted-median and one mvstud_em launch a mode fit;
+    then a sixth call that keeps copies of its mode fit's inputs, and the
+    ESS kernel at the S reached (8,388,608), the normal kernel at this
+    path's R N d and the bits kernel's uniform mode at its warm-up's
+    (N, d) (104,857,600 each), and the weighted-median and Student-t EM
+    kernels on that fit's inputs ((1, 4,194,304, 100)), each against its
+    plain version (the gamma kernel's 2^20 walkers, and the keyed warm-up
+    and resampling uniforms at this path's shapes, are held in phase 4).
+    Every mutation of the run took the form JAX's
+    switch gives it: A's paths (phases 5-7, 12, 14, 15) gather, B's
+    (phases 8 and 14) and rosenbrock100's (16) take the K-loop form, as
+    phase 17b does; TF32 stays off.
 
 Every path phase sets the kernels' launch counts to 0 just before it
 drives the path and reads them just after. Each run of A (phases 5, 6,
@@ -329,6 +360,7 @@ and prints their table without driving the paths; with `--package-root
 DIR` it imports `tempest_tpu_torch` from DIR (for instance a `git archive`
 of another commit whose ESS kernel has its float64 entry), so two versions
 of the kernels can be timed on one card in turns, each in its own process.
+`--large-scale-only` runs phases 1-2 and 17 and prints no result line.
 `--a-only [--package-root DIR]` runs phases 1-2 and A's seed 42
 (on_device=False) and prints its logZ, iterations, steps and ladder
 digest; `--parent DIR` makes the full run start that in a process of its
@@ -342,6 +374,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import functools
+import gc
 import json
 import math
 import os
@@ -476,6 +509,9 @@ DRAW_TOL_F64 = 1e-12
 MAX_FLIPS_F64 = 1
 # B: benchmarks/results/hw_prng_e2e.json
 B_PARTICLES, B_CAPACITY, B_MUTATIONS = 131072, 8, 4
+# The 2^20 path (phase 17b): benchmarks/large_scale.py's N, d and
+# history_capacity, and n_max_steps as its help gives for hardware.
+LS_PARTICLES, LS_DIM, LS_CAPACITY, LS_MAX_STEPS = 1 << 20, 100, 8, 20
 # One H100 SXM at 700 W (NVIDIA's data sheet): HBM at 3.35 TB/s, 132 SMs at
 # a 1.98 GHz boost clock. An SM issues at most 128 thread-instructions a
 # clock (4 schedulers x 32 lanes; with an FMA as two flops, the data sheet's
@@ -646,6 +682,44 @@ def _count_mode_fits() -> None:
 
     modes_module.fit_mvstud_weighted_modes = counted
     cluster_module._gmm_em = counted_gmm
+
+
+# The form of every mutation prepared in this process (mcmc.py, `Walkers.form`):
+# (walkers over every rank, d, form). A package older than the K-loop form
+# always gathers.
+GATHERED, K_LOOP = "gathered", "k_loop"
+FORMS = []
+
+
+def _record_forms() -> None:
+    """Wrap `MCMCKernel.prepare` to append each mutation's form to FORMS."""
+    prepare = mcmc_module.MCMCKernel.prepare
+
+    def recording(self, assignments, *args, **kwargs):
+        w = prepare(self, assignments, *args, **kwargs)
+        FORMS.append((int(assignments.shape[0]) * self.world, self.n_dim,
+                      getattr(w, "form", GATHERED)))
+        return w
+
+    mcmc_module.MCMCKernel.prepare = recording
+
+
+def check_switch() -> None:
+    """Every mutation of this process took the form JAX's switch gives its
+    walkers over every rank (mcmc.py:250): gathered at N d^2 <= 2^21."""
+    limit = mcmc_module._GATHER_ELEMS_LIMIT
+    wrong = sorted({(n, d, f) for n, d, f in FORMS
+                    if f != (GATHERED if n * d * d <= limit else K_LOOP)})
+    check(limit == 1 << 21 and not wrong, f"mutation forms against the switch at {limit}: {wrong}")
+    taken = {f"{n} {d} {f}": FORMS.count((n, d, f)) for n, d, f in sorted(set(FORMS))}
+    print(f"mutation forms, (walkers, d, form) and mutations: {json.dumps(taken)}", flush=True)
+
+
+def check_forms(what: str, since: int, form: str) -> None:
+    """Every mutation prepared since FORMS[since] took `form`, and one did."""
+    taken = FORMS[since:]
+    check(taken and all(f == form for _, _, f in taken),
+          f"{what}: mutation forms {sorted(set(taken))} (want {form} in every mutation)")
 
 
 def check_em_launches(what: str, launched: dict, mode_fits: int, gmm_fits: int,
@@ -1485,7 +1559,7 @@ B_NORMALS = N_PROPOSAL_CANDIDATES * B_PARTICLES * N_DIM  # B's hw_normal: 10,485
 B_GAMMA = B_PARTICLES  # B's hw_gamma: one gamma launch of 131,072 walkers
 # The gamma draws' checks: sizes (ragged blocks, B's N, B's N + 3 and 2^18),
 # shapes, and a call index whose 13 calls cross 2^32 (the counter's high word).
-GAMMA_SIZES = (1, 3, 5, 1000, B_GAMMA, B_GAMMA + 3, 1 << 18)
+GAMMA_SIZES = (1, 3, 5, 1000, B_GAMMA, B_GAMMA + 3, 1 << 18, 1 << 20)  # 2^20: phase 17b's N
 GAMMA_ALPHAS = (0.02, 0.5, 0.7, 1.5, 7.5, 50.0)
 GAMMA_COUNTER = (1 << 32) - 5
 GAMMA_TIMED = (B_GAMMA, 1 << 18)
@@ -1675,10 +1749,11 @@ def phase_prng_kernels(device) -> dict:
     return rows
 
 
-# (label, walkers, dimensions) of the keyed iterations' uniforms: A's, B's
-# and rosenbrock100's warm-up and resampling draws.
+# (label, walkers, dimensions) of the keyed iterations' uniforms: A's, B's,
+# rosenbrock100's and the 2^20 path's warm-up and resampling draws.
 KEYED_UNIFORM_SHAPES = (("A", N_PARTICLES, N_DIM), ("B", B_PARTICLES, N_DIM),
-                        ("rosenbrock100", R100_PARTICLES, R100_DIM))
+                        ("rosenbrock100", R100_PARTICLES, R100_DIM),
+                        ("large_scale", LS_PARTICLES, LS_DIM))
 
 
 def keyed_iteration_uniforms(device) -> dict:
@@ -4232,6 +4307,7 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
     runs the steps alone); no other PRNG kernel. `runs`, if given,
     receives each seed's results, wall, launches, and launches less those
     of the steps past the stop (`real_launches`)."""
+    since = len(FORMS)
     s = canonical_sampler(device, 7, clustering, hardware_prng, dtype)
     ess_key, other = ("ess_bisect_f64", "ess_bisect") if dtype == torch.float64 else (
         "ess_bisect", "ess_bisect_f64")
@@ -4310,6 +4386,7 @@ def run_canonical(device, name, seeds, clustering, hardware_prng, logz_band,
         check(cuda_linalg is None or launched["sym_eigvals"] == iters - 1,
               f"{name} seed {seed}: {launched.get('sym_eigvals')} eigenvalue launches for "
               f"{iters - 1} reweights (one CV each)")
+    check_forms(name, since, GATHERED)  # N d^2 = 102,400 <= 2^21
     total = counts()
     print(f"{name}: mean wall {sum(walls) / len(walls):.3f} s, mean eff/s "
           f"{sum(effs) / len(effs):.1f}, launches {total}", flush=True)
@@ -4928,6 +5005,7 @@ def phase_large_ensemble(device, dtype=torch.float32) -> dict:
     f64 = dtype == torch.float64
     name = "B float64" if f64 else "B"
     prng = prng_names(dtype)
+    since = len(FORMS)
     s, rows = run_b(device, dtype, name)
     total = counts()  # the eager run's: run_b set the counts to 0 before it
     g, _ = run_b(device, dtype, f"{name} graphed (capturing)", graphs=True)
@@ -4939,6 +5017,8 @@ def phase_large_ensemble(device, dtype=torch.float32) -> dict:
                   f"eager {a[k]!r}")
     check(len(rows) == len(graphed), f"{name} graphed: {len(graphed)} iterations, {len(rows)} "
           "eager")
+    # N d^2 = 13.1 M > 2^21: JAX's K-loop form, eagerly and graphed (K = 1)
+    check_forms(name, since, K_LOOP)
     check(g.state.draws.calls.read() == (g.state.draws.counter, g.state.draws.key),
           f"{name} graphed: the call counter's device words and host mirror differ")
     check(all(r["generator_offset"] == 0 for r in rows + graphed),
@@ -5919,6 +5999,7 @@ def phase_rosenbrock100(device) -> dict:
     graphed route under the profiler, held to 6b's rule, and the device ms
     an iteration of the eigenvalue kernel, the ESS kernel and the top other
     kernels."""
+    since = len(FORMS)
     s = rosenbrock100_sampler(device, SEEDS[1])
     check(s.state.fused and run_loop(s), "rosenbrock100: not on the device run loop")
     sizes, plan = [], cuda_reweight.plan_launch
@@ -5991,6 +6072,9 @@ def phase_rosenbrock100(device) -> dict:
               f"rosenbrock100: {key} of the first {R100_EAGER} iterations differs between "
               f"on_device=True and sample(): {res[key][:R100_EAGER].tolist()} against "
               f"{eres[key][:R100_EAGER].tolist()}")
+    # N d^2 = 20.5 M > 2^21: the K-loop form (K = 1), captured into the run
+    # loop and in sample()
+    check_forms("rosenbrock100", since, K_LOOP)
     print(f"rosenbrock100: the first {R100_EAGER} iterations of sample() (on_device=False, "
           f"{eager_wall:.3f} s, {1e3 * eager_wall / R100_EAGER:.1f} ms an iteration) equal the "
           f"graphed run's bit for bit (beta, logZ, steps, calls)", flush=True)
@@ -6020,6 +6104,391 @@ def phase_rosenbrock100(device) -> dict:
                                          "mcmc_route")},
             "sym_eigvals_ms": eig_ms, "ess_bisect_ms": ess_ms, "ess_launch_sizes": sorted(set(sizes)),
             "top_kernels": top}
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the mutation's two forms, and benchmarks/large_scale.py's path
+# ---------------------------------------------------------------------------
+# The mutation's products (mcmc.py) as cuBLAS GEMMs and batched products,
+# not kernels of the port: their bound counts, per mode, the quadratic's
+# diff (N, d) read and (N,) written with 2 N d^2 + 2 N d flops, and the
+# proposal step's z (R, N, d) read and written with 2 R N d^2 flops; bytes
+# at HBM_BYTES_PER_S, flops at the float32 FMA rate (float64: FP64's).
+FP32_FLOPS_PER_S = 2 * ISSUE_PER_SM_CLOCK * SM_CLOCKS_PER_S  # 66.9 TFLOP/s
+FP64_FLOPS_PER_S = 2 * FP64_PER_SM_CLOCK * SM_CLOCKS_PER_S  # 33.5 TFLOP/s
+FORMS_SHAPE = (N_PROPOSAL_CANDIDATES, B_PARTICLES, N_DIM)  # B's (R, N, d)
+FORMS_MODES = (1, 16)  # B's one mode; 16, the last one empty, to exercise the masks
+# A product's two forms sum in other orders: each within 2 d eps of the
+# exact value times the same product of absolute values (the forward error
+# of a dot product of d terms), so within 4 d eps of each other.
+FORMS_TOL = 4
+
+
+def product_bound(K: int, R: int, N: int, d: int, dtype) -> dict:
+    """(ms, by) of the quadratic and the proposal step over K modes."""
+    elem = torch.finfo(dtype).bits // 8
+    rate = FP64_FLOPS_PER_S if dtype == torch.float64 else FP32_FLOPS_PER_S
+    out = {}
+    for name, n_bytes, flops in (
+            ("quadratic", K * elem * (N * d + N), K * (2 * N * d * d + 2 * N * d)),
+            ("mode_step", K * elem * 2 * R * N * d, K * 2 * R * N * d * d)):
+        b, f = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * flops / rate
+        out[name] = (max(b, f), "bytes" if b >= f else "operations")
+    return out
+
+
+def forms_walkers(device, K: int, N: int, d: int, dtype, seed: int = 0,
+                  forms=(GATHERED, K_LOOP)) -> dict:
+    """The same N walkers over K modes (the last one empty where K > 1) in
+    `forms` of `mcmc.Walkers` ("gathered", "k_loop"); the modes' Cholesky
+    factors and inverses from modes.make_mode_statistics in float64, then
+    cast."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=device)
+    a = torch.randn(K, d, d, generator=g, **f64)
+    cov = a @ a.transpose(1, 2) / d + 0.1 * torch.eye(d, **f64)
+    m = modes_module.make_mode_statistics(torch.zeros(K, d, **f64), cov,
+                                          torch.full((K,), 5.0, **f64))
+    chol, inv = m.chol_covariances.to(dtype), m.inv_covariances.to(dtype)
+    assignments = torch.randint(0, max(K - 1, 1), (N,), generator=g, device=device,
+                                dtype=torch.int32)
+    zero = torch.zeros((), dtype=dtype, device=device)
+    fixed = dict(assignments=assignments, beta=zero, mu=zero, dof=zero, onehot=zero,
+                 count_k=zero)
+    make = {GATHERED: lambda: dict(chol=chol[assignments], inv=inv[assignments]),
+            K_LOOP: lambda: dict(chol_covariances=chol, inv_covariances=inv)}
+    return {f: mcmc_module.Walkers(**make[f](), **fixed) for f in forms}
+
+
+def forms_apart(w: dict, diff, z) -> dict:
+    """Each product's largest gap between the forms, over d eps times the
+    product of absolute values (`FORMS_TOL` at most)."""
+    k = w[K_LOOP]
+    d, eps = diff.shape[1], torch.finfo(diff.dtype).eps
+    scale_q = mcmc_module._mode_quadratic(diff.abs(), k.assignments, k.inv_covariances.abs())
+    scale_z = mcmc_module._mode_matmul(z.abs(), k.assignments, k.chol_covariances.abs())
+    out = {}
+    for name, got, want, scale in (
+            ("quadratic", k.quadratic(diff), w[GATHERED].quadratic(diff), scale_q),
+            ("mode_step", k.mode_step(z), w[GATHERED].mode_step(z), scale_z)):
+        gap = (got.double() - want.double()).abs() / (d * eps * scale.double())
+        out[name] = float(gap.max())
+    return out
+
+
+def phase_forms(device) -> dict:
+    """The K-loop form's products against the gathered form's at B's
+    (R, N, d) with K = 1 and 16 modes, float32 and float64: each within
+    FORMS_TOL d eps of the product of absolute values; then their device
+    times by CUDA events in turns (gathered, K-loop, K-loop, gathered) at
+    K = 1 in float32, beside the K-loop's bound; and the K-loop's at the
+    2^20 path's (1, 2^20, 100), where the gathered sets would take 84 GB."""
+    R, N, d = FORMS_SHAPE
+    out = {"agree": {}, "times": {}}
+    for dtype in (torch.float32, torch.float64):
+        for K in FORMS_MODES:
+            w = forms_walkers(device, K, N, d, dtype, seed=K)
+            g = torch.Generator(device=device).manual_seed(100 + K)
+            diff = torch.randn(N, d, generator=g, device=device, dtype=dtype)
+            z = torch.randn(R, N, d, generator=g, device=device, dtype=dtype)
+            gaps = forms_apart(w, diff, z)
+            out["agree"][f"K={K} {dtype}"] = gaps
+            check(all(v <= FORMS_TOL for v in gaps.values()),
+                  f"the mutation's forms at (R, N, d) = {FORMS_SHAPE}, K = {K}, {dtype}: "
+                  f"apart by {gaps} d eps of the absolute products (at most {FORMS_TOL})")
+    print(f"mutation forms at B's (R, N, d) = {FORMS_SHAPE}: the K-loop form's products "
+          f"against the gathered form's, largest gap over d eps x the product of absolute "
+          f"values (at most {FORMS_TOL}): {json.dumps(out['agree'])}", flush=True)
+    for label, (R, N, d), forms in (("B", FORMS_SHAPE, (GATHERED, K_LOOP)),
+                                    ("large_scale", (1, LS_PARTICLES, LS_DIM), (K_LOOP,))):
+        w = forms_walkers(device, 1, N, d, torch.float32, forms=forms)
+        g = torch.Generator(device=device).manual_seed(7)
+        diff = torch.randn(N, d, generator=g, device=device)
+        z = torch.randn(R, N, d, generator=g, device=device)
+        turns = {f: {"quadratic": [], "mode_step": []} for f in forms}
+        for f in forms + tuple(reversed(forms)):
+            turns[f]["quadratic"].append(event_ms(lambda: w[f].quadratic(diff)))
+            turns[f]["mode_step"].append(event_ms(lambda: w[f].mode_step(z)))
+        bound = product_bound(1, R, N, d, torch.float32)
+        out["times"][label] = {"R_N_d": [R, N, d], "device_ms": turns, "bound_ms": bound}
+        print(f"mutation products at (R, N, d) = {(R, N, d)}, K = 1, float32, device ms by CUDA "
+              f"events in turns: {json.dumps(turns)}; the K-loop form's bound {bound}",
+              flush=True)
+        del w, diff, z
+    out["step_ms"] = step_times(device)
+    print(f"one tpCN step's device ms (a CUDA graph of MCMCKernel.step replayed, CUDA events): "
+          f"{json.dumps(out['step_ms'])}", flush=True)
+    return out
+
+
+def mcmc_step_ms(device, loglike, u, n_candidates: int = N_PROPOSAL_CANDIDATES,
+                 calls: int = 20) -> float:
+    """Device ms of one tpCN step (`MCMCKernel.step` on fixed draws) of
+    walkers `u` under one mode fitted to them, by CUDA events around
+    replays of a CUDA graph of the step: no host gap between its kernels."""
+    n, d = u.shape
+    kernel = mcmc_module.MCMCKernel(lambda x: (loglike(x), None), prior_transform, d,
+                                    n_candidates=n_candidates, dtype=u.dtype)
+    cov = torch.cov(u.T.double()) + 1e-6 * torch.eye(d, device=device, dtype=torch.float64)
+    modes = modes_module.make_mode_statistics(
+        u.double().mean(0)[None].to(u.dtype), cov[None].to(u.dtype),
+        torch.full((1,), 5.0, dtype=u.dtype, device=device))
+    w = kernel.prepare(torch.zeros(n, dtype=torch.int32, device=device), 0.5, modes)
+    x = prior_transform(u)
+    state = kernel.initial_state(u, x, loglike(x), 1)
+    g = torch.Generator(device=device).manual_seed(3)
+    z = torch.randn(n_candidates, n, d, generator=g, device=device, dtype=u.dtype)
+    gam = torch.ones(n, device=device, dtype=u.dtype)
+    acc = torch.rand(n, generator=g, device=device, dtype=u.dtype)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):  # the libraries' workspaces, before the capture
+        kernel.step(w, state, z, gam, acc)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = _captured(device, lambda: kernel.step(w, state, z, gam, acc))
+    return event_ms(graph.replay, calls)
+
+
+def step_times(device, labels=("B", "rosenbrock100", "large_scale")) -> dict:
+    """`mcmc_step_ms` at B's, rosenbrock100's and the 2^20 path's walkers
+    and candidates (each likelihood its own; walkers near the middle of the
+    unit cube, made from a seed), for those in `labels`."""
+    out = {}
+    for label, loglike, n, d, r in (("B", half_square, B_PARTICLES, N_DIM, N_PROPOSAL_CANDIDATES),
+                                    ("rosenbrock100", rosenbrock_chained, R100_PARTICLES, R100_DIM,
+                                     N_PROPOSAL_CANDIDATES),
+                                    ("large_scale", rosenbrock_chained, LS_PARTICLES, LS_DIM, 1)):
+        if label not in labels:
+            continue
+        g = torch.Generator(device=device).manual_seed(n)
+        u = 0.5 + 0.01 * torch.randn(n, d, generator=g, device=device)
+        out[label] = mcmc_step_ms(device, loglike, u, n_candidates=r)
+        del u
+    return out
+
+
+LS_ITERS = 5  # sample() calls, warm-ups included (large_scale.py --iters 5)
+LS_WARMUP = 3  # beta may stay 0 this many calls (benchmarks/large_scale.py:141-148)
+LS_SHOWN = ("rows", "wall", "peak_gb", "errs", "device_ms", "bounds")
+# One gathered (N, d, d) float32 set at this path's N and d: 41.9 GB.
+LS_GATHERED_SET_BYTES = 4 * LS_PARTICLES * LS_DIM * LS_DIM
+
+
+def large_scale_sampler(device):
+    """benchmarks/large_scale.py's configuration on one card, unsharded:
+    the chained 100-D Rosenbrock, U(-10, 10), N = 2^20, unclustered,
+    random_state=5, history_capacity=8, one proposal candidate, and
+    n_max_steps=20, the setting its help gives for hardware (:66-70)."""
+    return Sampler(prior_transform, rosenbrock_chained, n_dim=LS_DIM, n_particles=LS_PARTICLES,
+                   vectorize=True, clustering=False, random_state=5,
+                   history_capacity=LS_CAPACITY, n_candidates=1, n_max_steps=LS_MAX_STEPS,
+                   device=device)
+
+
+def check_tf32_off(what: str) -> None:
+    """The mutation's products run in true float32: TF32 is off."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          f"{what}: TF32 is on (allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+          f"precision {torch.get_float32_matmul_precision()!r})")
+
+
+def phase_large_scale(device) -> dict:
+    """17b: benchmarks/large_scale.py's configuration (`large_scale_sampler`)
+    on one card: LS_ITERS sample() calls, each held as the script holds
+    them (logZ and the active set's logl finite, beta > 0 from call
+    LS_WARMUP + 1 on) and the beta ladder monotone; every mutation in the
+    K-loop form and the path's own peak memory under one gathered set; one
+    gamma, normal and uniform launch a step body, one ESS launch a
+    reweight. Then one more sample() call that keeps copies of its mode
+    fit's inputs (after the peak and the launches are read), and the ESS
+    kernel at the S reached, the normal kernel at this path's R N d, the
+    uniform mode of the bits kernel at its warm-up's (N, d), and the
+    weighted-median and Student-t EM kernels on that fit's own inputs, each
+    against its plain version, timed beside its bound where the bound is
+    counted. Prints each call's beta, logZ, steps, acceptance and wall, the
+    peak memory beside the gathered form's 83.9 GB, the graphs captured,
+    and the launches."""
+    check_tf32_off("phase 17b")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    since = len(FORMS)
+    t_phase = time.perf_counter()
+    s = large_scale_sampler(device)
+    loops = s.state._iteration.loops
+    reset_counts()
+    rows = []
+    for it in range(LS_ITERS):
+        before, bodies, fits = counts(), mcmc_bodies(s), MODE_FITS
+        past = loops.stats["mcmc"]["past_stop"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = s.sample()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched, bodies = diff(counts(), before), mcmc_bodies(s) - bodies
+        logl_finite = bool(torch.isfinite(s.state.cur.logl).all())
+        row = dict(call=it + 1, iter=int(out["iter"]), wall=wall, beta=out["beta"],
+                   logz=out["logz"], ess=out["ess"], steps=int(out["steps"]), bodies=bodies,
+                   past=loops.stats["mcmc"]["past_stop"] - past,
+                   acceptance=out["acceptance"], fits=MODE_FITS - fits, launches=launched,
+                   memory_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+        rows.append(row)
+        print(f"large_scale call {it + 1}: {wall:.3f} s beta={out['beta']:.6g} "
+              f"logz={out['logz']:.4f} ess={out['ess']:.1f} steps={out['steps']} "
+              f"bodies={bodies} (past the stop {row['past']}) "
+              f"acceptance={out['acceptance']:.4f} mode_fits={row['fits']} peak so far "
+              f"{row['memory_gb']:.2f} GB launches={launched}", flush=True)
+        check(math.isfinite(out["logz"]), f"large_scale call {it + 1}: logZ {out['logz']}")
+        check(logl_finite, f"large_scale call {it + 1}: non-finite logl in the active set")
+        check(it < LS_WARMUP or out["beta"] > 0.0,
+              f"large_scale call {it + 1}: beta {out['beta']}: the ladder is not progressing")
+    torch.cuda.synchronize()
+    phase_wall = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated(device)
+    betas = [r["beta"] for r in rows]
+    check(betas == sorted(betas), f"large_scale: the beta ladder is not monotone: {betas}")
+    check(any(b > 0.0 for b in betas), f"large_scale: no iteration past the warm-up: {betas}")
+    check_forms("large_scale", since, K_LOOP)
+    check(peak < LS_GATHERED_SET_BYTES,
+          f"large_scale: peak {peak / 1e9:.2f} GB, one gathered set's "
+          f"{LS_GATHERED_SET_BYTES / 1e9:.1f} GB or more")
+    total = counts()
+    mutations = [r for r in rows if r["beta"] > 0.0]
+    bodies = sum(r["bodies"] for r in mutations)
+    uniforms = iteration_uniforms(s, betas)
+    check(total["normal"] == total["gamma"] == bodies > 0
+          and total["bits"] == bodies + uniforms and total["mutation_draws"] == 0,
+          f"large_scale: launches {total} for {bodies} MCMC step bodies (want one normal, gamma "
+          f"and uniform launch a body and {uniforms} uniform launches for the iterations' draws)")
+    reweights = sum(1 for r in rows if r["iter"] > 1)
+    check(total["ess_bisect"] == reweights and total["mvstud_em"] == total["weighted_median"]
+          == sum(r["fits"] for r in rows) > 0,
+          f"large_scale: launches {total} for {reweights} reweights and "
+          f"{sum(r['fits'] for r in rows)} mode fits")
+    captures = sum(v.get("captures", 0) for v in loops.stats.values())
+    print(f"large_scale: {LS_ITERS} sample() calls in {phase_wall:.3f} s (the sampler's "
+          f"construction included); walls {[round(r['wall'], 3) for r in rows]} s; peak memory "
+          f"of the path {peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB above the phase's "
+          f"start; the gathered form's two (N, d, d) float32 sets alone would take "
+          f"{2 * LS_GATHERED_SET_BYTES / 1e9:.1f} GB); graph captures {captures} (sample() "
+          f"runs its loops eagerly); forms {sorted(set(f for *_, f in FORMS[since:]))}; "
+          f"launches {total}", flush=True)
+
+    # One more call, after the peak is read: it keeps copies of its mode
+    # fit's inputs for the kernels' checks below.
+    mode_em, median = student_module._mode_em, student_module._weighted_median_presorted
+    fit = {}
+
+    def kept_mode_em(carry, consts, loops):
+        fit["em"] = ({k: v.clone() for k, v in carry.items()},
+                     {k: v.clone() if torch.is_tensor(v) else v for k, v in consts.items()})
+        return mode_em(carry, consts, loops)
+
+    def kept_median(d_sorted, order, wbar):
+        fit["median"] = (d_sorted.clone(), order.clone(), wbar.clone())
+        return median(d_sorted, order, wbar)
+
+    student_module._mode_em, student_module._weighted_median_presorted = (kept_mode_em,
+                                                                         kept_median)
+    try:
+        out = s.sample()
+    finally:
+        student_module._mode_em, student_module._weighted_median_presorted = mode_em, median
+    check(set(fit) == {"em", "median"} and math.isfinite(out["logz"]),
+          f"large_scale: the call that keeps a fit's inputs fitted {sorted(fit)}, logZ "
+          f"{out['logz']}")
+    print(f"large_scale: call {LS_ITERS + 1} (not in the rows, the walls or the peak) kept its "
+          f"mode fit's inputs: beta={out['beta']:.6g} logz={out['logz']:.4f} "
+          f"steps={out['steps']}", flush=True)
+
+    # The kernels at this path's sizes, against their plain versions.
+    errs = {}
+    hist = s.state.hist
+    _, logl, bm = kernel_inputs(hist)
+    S = logl.numel()
+    beta_prev = float(s.state.cur.beta)
+    scal = torch.tensor([beta_prev, 2.0 * LS_PARTICLES], device=device)
+    (bk, pk), (br, pr) = [(b.item(), int(p.item())) for b, p in (
+        cuda_reweight.ess_bisect_beta(logl, bm, scal),
+        cuda_reweight.ess_bisect_beta_reference(logl, bm, scal))]
+    print(f"large_scale: ESS kernel at S={S} [{_route(S)}]: beta_prev={beta_prev:.6g} "
+          f"kernel={bk!r} ({pk} probes) plain={br!r} ({pr} probes)", flush=True)
+    check_beta(f"large_scale: ESS kernel at S={S}", logl, bm, beta_prev, 2.0 * LS_PARTICLES, bk,
+               pk, br, pr)
+    errs["ess_bisect"] = abs(bk - br)
+    times = {"ess_bisect": device_ms(lambda: cuda_reweight.ess_bisect_beta(logl, bm, scal),
+                                     "ess_bisect", calls=5)}
+    bounds = {"ess_bisect": bound(8 * S + 16, *work((S * pk, ESS_SAMPLE_PROBE["f32"])))}
+    del logl, bm, hist
+    n_z = LS_PARTICLES * LS_DIM  # one candidate; the warm-up's prior draw has as many
+    key = philox.key_from_seed(2024)
+    z = cuda_prng.hw_normal(key, 20, (1, LS_PARTICLES, LS_DIM), device).reshape(-1)
+    errs["normal"] = float(torch.max(torch.abs(z - philox.normal(key, 20, n_z, device))))
+    times["normal"] = device_ms(lambda: cuda_prng.hw_normal(key, 20, (1, LS_PARTICLES, LS_DIM),
+                                                            device), "normal_", calls=5)
+    bounds["normal"] = bound(4 * n_z, *work((-(-n_z // 4), NORMAL_BLOCK)))
+    del z
+    print(f"large_scale: normal kernel at n={n_z}: max|dz|={errs['normal']:.3g} against its "
+          "plain version", flush=True)
+    check(errs["normal"] <= DRAW_TOL, f"large_scale: normal kernel differs by {errs['normal']}")
+    u = cuda_prng.hw_uniform(key, 21, (LS_PARTICLES, LS_DIM), device)
+    uniform_equal = bool(torch.equal(u.reshape(-1), philox.uniform(key, 21, n_z, device)))
+    errs["bits"] = 0.0 if uniform_equal else float("nan")
+    times["bits"] = device_ms(lambda: cuda_prng.hw_uniform(key, 21, (LS_PARTICLES, LS_DIM),
+                                                           device), "bits_kernel", calls=5)
+    bounds["bits"] = bound(4 * n_z, *work((-(-n_z // 4), (PHILOX_INT + 4 * UNIT[0],
+                                                           4 * UNIT[1]))))
+    del u
+    print(f"large_scale: the bits kernel's uniform mode at the warm-up's (N, d) = "
+          f"{(LS_PARTICLES, LS_DIM)}: bit for bit philox.uniform {uniform_equal}", flush=True)
+    check(uniform_equal, f"large_scale: the uniform mode at {(LS_PARTICLES, LS_DIM)} differs "
+          "from philox.uniform")
+    ds, order, wbar = fit["median"]
+    got = cuda_median.weighted_median_presorted(ds, order, wbar)
+    want = cuda_median.weighted_median_presorted_reference(ds, order, wbar)
+    check(torch.equal(_bits(got), _bits(want)),
+          f"large_scale: the weighted-median kernel at {(wbar.shape[0], *ds.shape)} is not "
+          "its plain version's bits")
+    errs["weighted_median"] = 0.0
+    times["weighted_median"] = time_ms(
+        lambda: cuda_median.weighted_median_presorted(ds, order, wbar))
+    print(f"large_scale: weighted-median kernel at the fit's (K, n, d) = "
+          f"{(wbar.shape[0], *ds.shape)}: bit for bit its plain version", flush=True)
+    del ds, order, wbar, got, want
+    carry, consts = fit["em"]
+    case = em_mode_case(f"large_scale mvstud_em {tuple(consts['data'].shape)}", carry, consts)
+    errs["mvstud_em"] = case["max_abs_err"]
+    times["mvstud_em"] = time_ms(lambda: student_module._mode_em(carry, consts, None))
+    print(f"large_scale: ms a launch at this path's sizes (ESS, normal and uniform: device ms "
+          f"by the profiler; median and EM: one synchronized call): {json.dumps(times)}; bounds "
+          f"{json.dumps(bounds)}", flush=True)
+    print(f"large_scale: Student-t EM kernel on the fit's inputs (n, d) = "
+          f"{tuple(consts['data'].shape)}: {json.dumps(case)}", flush=True)
+    del carry, consts, fit, s, loops
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_tf32_off("phase 17b")
+    return {"rows": rows, "wall": phase_wall, "peak_gb": peak / 1e9, "launches": total,
+            "errs": errs, "captures": captures, "device_ms": times, "bounds": bounds}
+
+
+def phase_17(device, stamp) -> tuple:
+    """17a and 17b, then every mutation of the process against JAX's
+    switch; prints both phases' results, `stamp` marking each. Returns
+    (17a's, 17b's)."""
+    stamp("phase 17a: the mutation's two forms")
+    forms = phase_forms(device)
+    print(f"mutation forms: {json.dumps(forms)}", flush=True)
+    stamp("phase 17b: benchmarks/large_scale.py's configuration")
+    large = phase_large_scale(device)
+    print(f"large_scale: {json.dumps({k: large[k] for k in LS_SHOWN})}", flush=True)
+    check_switch()
+    stamp("phase 17 done")
+    return forms, large
 
 
 def profile_iterations(s, name: str, out_dir: str) -> None:
@@ -6279,6 +6748,8 @@ def main() -> None:
     parser.add_argument("--a-only", action="store_true",
                         help="run phases 1-2 and A's seed 42 only; print its ladder (no result "
                              "line)")
+    parser.add_argument("--large-scale-only", action="store_true",
+                        help="run phases 1-2 and 17 only (no result line)")
     parser.add_argument("--parent", metavar="DIR",
                         help="a checkout of another commit: its package's A seed 42 (--a-only, "
                              "in a process of its own) must give phase 6's logZ and iterations")
@@ -6299,9 +6770,13 @@ def main() -> None:
           flush=True)
     sleep_kernel()  # read while a profile loses nothing (the path windows' warm-up)
     _count_mode_fits()
+    _record_forms()
     if cuda_median is not None and not args.package_root:
         start_extra_builds(args.parent)
     ptxas = phase_build()
+    if args.large_scale_only:
+        phase_17(device, stamp)
+        return
     if args.a_only:
         runs = {}
         run_canonical(device, "A clustered", SEEDS[:1], True, False, CLUSTERED_LOGZ, runs=runs)
@@ -6418,7 +6893,13 @@ def main() -> None:
     rows["sym_eigvals"]["on_rosenbrock100"] = {
         "d": R100_DIM, "launches": r100["launches"]["sym_eigvals"],
         "device_ms": r100["sym_eigvals_ms"]}
-    stamp("phase 16 done")
+    _, large = phase_17(device, stamp)
+    paths["large_scale"] = large["launches"]
+    for name, err in large["errs"].items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+        rows[name].setdefault("on_path", {})["large_scale"] = {
+            "launches": large["launches"][name], "max_abs_err": err,
+            "device_ms": large["device_ms"][name], "bound_ms": large["bounds"].get(name)}
     if args.profile:
         phase_profile(device, args.profile)
 

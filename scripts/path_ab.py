@@ -1,7 +1,7 @@
 """A's, B's, dynamic mode's and rosenbrock100's runs in two versions of
 tempest_tpu_torch, in turns on one GPU.
 
-    python3 scripts/path_ab.py --parent DIR [--only float64]
+    python3 scripts/path_ab.py --parent DIR [--only float64|mutation]
 
 DIR is a checkout of another commit (for instance `git archive <commit> |
 tar -x -C build/parent`). The script runs `--one ROOT` in a process of its
@@ -49,7 +49,13 @@ both versions run the same drive). One process:
   steps, the loops' host reads and replays in the timed run, whether it
   took the device run loop and its graph's nodes and depth; and B in
   float64 (phase 14) graphed after a capturing pass: the seconds of each
-  mutation iteration.
+  mutation iteration;
+- the mutation (`--only mutation` runs this alone): B graphed as above,
+  with its profiled iteration; rosenbrock100's run(on_device=True) after
+  a capturing run, and its graphed window as above; and the device ms of
+  one tpCN step at B's and rosenbrock100's walkers (`chip_smoke.step_times`:
+  a CUDA graph of `MCMCKernel.step` on fixed draws, replayed between CUDA
+  events), in the form each version takes there.
 
 Each process prints one line `PATH_AB {json}`; the parent process prints
 them in order and exits non-zero if one failed. About 2 min a process.
@@ -178,13 +184,13 @@ def one(root: str, only: str = "") -> dict:
     device = torch.device("cuda")
     cs.sleep_kernel()  # the profiles' warm-up names it while a profile loses nothing
     out = {"root": root, "package": os.path.dirname(os.path.dirname(cs.cuda_reweight.__file__))}
+    if only == "mutation":
+        out.update(mutation_paths(cs, device))
+        return out
     out["float64"] = float64_paths(cs, device)
     if only == "float64":
         return out
-    g, _ = cs.run_b(device, torch.float32, "B graphed (capturing)", graphs=True)
-    g, rows = cs.run_b(device, torch.float32, "B graphed", graphs=True, s=g)
-    out["B_mutation_s"] = [r["wall"] for r in rows if r["beta"] > 0.0]
-    out["B_profiled"] = cs.profile_b(g, len(rows) - 1)
+    out.update(b_graphed(cs, device))
 
     s = cs.dynamic_sampler(device, cs.SEEDS[1])
     s.run(n_total=cs.N_TOTAL, progress=False, on_device=True)  # captures the graphs
@@ -242,6 +248,34 @@ def one(root: str, only: str = "") -> dict:
                 "logz": c.evidence()[0]}
 
     out["A_mesh"] = mesh_a(cs, device)
+    out["rosenbrock100"] = rosenbrock100(cs, device)
+    return out
+
+
+def b_graphed(cs, device) -> dict:
+    """B's mutation iterations graphed after a capturing pass, and its last
+    one under the profiler."""
+    import torch
+
+    g, _ = cs.run_b(device, torch.float32, "B graphed (capturing)", graphs=True)
+    g, rows = cs.run_b(device, torch.float32, "B graphed", graphs=True, s=g)
+    return {"B_mutation_s": [r["wall"] for r in rows if r["beta"] > 0.0],
+            "B_profiled": cs.profile_b(g, len(rows) - 1)}
+
+
+def mutation_paths(cs, device) -> dict:
+    """B graphed, rosenbrock100 on the run loop, and one tpCN step's device
+    ms at each one's walkers."""
+    out = b_graphed(cs, device)
+    out["rosenbrock100"] = rosenbrock100(cs, device)
+    out["step_ms"] = cs.step_times(device, ("B", "rosenbrock100"))
+    return out
+
+
+def rosenbrock100(cs, device) -> dict:
+    """rosenbrock100's seed 42 with run(on_device=True) after a capturing
+    seed-43 run, and iterations 21-23 graphed under the profiler."""
+    import torch
 
     r = cs.rosenbrock100_sampler(device, cs.SEEDS[1])
     r.run(n_total=cs.R100_TOTAL, progress=False, on_device=True)  # captures the graphs
@@ -253,20 +287,18 @@ def one(root: str, only: str = "") -> dict:
     wall = time.perf_counter() - t0
     iters, logz = int(r.state.hist.t), r.evidence()[0]
     w = cs.steady_window(r, True, n=3, device_only=False, n_total=cs.R100_TOTAL)
-    out["rosenbrock100"] = {"wall_s": wall, "iters": iters, "logz": logz,
-                            "window_ms_per_iter": 1e3 * w["wall_per_iter"],
-                            "device_ms_per_iter": w["device_ms_per_iter"],
-                            "blocking_per_iter": w["blocking_per_iter"],
-                            "idle": w["idle"], "fit_host_ms": w["stages_ms"].get("ps/fit"),
-                            **_mcmc(w)}
-    return out
+    return {"wall_s": wall, "iters": iters, "logz": logz,
+            "window_ms_per_iter": 1e3 * w["wall_per_iter"],
+            "device_ms_per_iter": w["device_ms_per_iter"],
+            "blocking_per_iter": w["blocking_per_iter"],
+            "idle": w["idle"], "fit_host_ms": w["stages_ms"].get("ps/fit"), **_mcmc(w)}
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", metavar="DIR", help="the other version's checkout")
-    parser.add_argument("--only", choices=("float64",),
-                        help="run the float64 paths alone")
+    parser.add_argument("--only", choices=("float64", "mutation"),
+                        help="run the float64 paths, or the mutation's, alone")
     parser.add_argument("--one", metavar="ROOT", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.one:
@@ -289,8 +321,14 @@ def main() -> None:
             continue
         results.append(json.loads(line[0][len("PATH_AB "):]))
         r = results[-1]
-        print(f"{'parent' if root == parent else 'this'} ({r['package']}): float64 "
-              f"{json.dumps(r['float64'])}", flush=True)
+        who = "parent" if root == parent else "this"
+        if args.only == "mutation":
+            print(f"{who} ({r['package']}): B seconds a mutation iteration graphed "
+                  f"{[round(x, 4) for x in r['B_mutation_s']]}, profiled "
+                  f"{json.dumps(r['B_profiled'])}; rosenbrock100 {json.dumps(r['rosenbrock100'])}; "
+                  f"one tpCN step's device ms {json.dumps(r['step_ms'])}", flush=True)
+            continue
+        print(f"{who} ({r['package']}): float64 {json.dumps(r['float64'])}", flush=True)
         if args.only:
             continue
         d = r["dynamic"]

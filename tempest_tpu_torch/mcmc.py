@@ -1,7 +1,16 @@
 """Adaptive MCMC mutation: tpCN and random-walk Metropolis.
 
-Counterpart of tempest_tpu/mcmc.py:138-433 with the per-walker matrices
-gathered once per mutation (:250-254); the K-loop form is not ported. The
+Counterpart of tempest_tpu/mcmc.py:138-433, with both forms of the
+per-walker matrix products and JAX's switch between them (:250-257): while
+N d^2 <= `_GATHER_ELEMS_LIMIT` (N the walkers over every rank, as JAX
+counts them under pjit) the Cholesky factors and inverse covariances are
+gathered once per mutation to (N, d, d) and each product is a per-walker
+einsum (:110-135); past it nothing (N, d, d) is made, and each product
+loops over all K modes with one dense (N, d) x (d, d) (or (R N, d) x
+(d, d)) matmul a mode, a walker taking its own mode's value (`_mode_quadratic`,
+`_mode_matmul`, :76-107). `Walkers.form` says which form a mutation holds.
+The loop over the modes is a static Python loop, so it is captured into a
+graphed body as it stands, and it skips no empty mode. The
 hardware-PRNG branches (:187-192, :272-315) live in the draws source:
 with `hardware_prng=True` in float32 the loop is handed a
 `draws.HardwareDraws` (float64 takes `Draws`, the flag not applying),
@@ -92,19 +101,56 @@ class MCMCResult(NamedTuple):
     n_call_sweeps: torch.Tensor  # batched likelihood evaluations of all walkers
 
 
+GATHERED, K_LOOP = "gathered", "k_loop"
+
+# Past this many gathered-matrix elements, N d^2, the per-walker matrices
+# are not gathered and each product loops over the modes instead
+# (mcmc.py:124): at N = 2^20 and d = 100 one gathered float32 set would
+# take 42 GB.
+_GATHER_ELEMS_LIMIT = 1 << 21
+
+
+def gathers(n_walkers: int, n_dim: int) -> bool:
+    """Whether a mutation of `n_walkers` walkers (over every rank) gathers
+    the per-walker matrices (mcmc.py:250): N d^2 <= `_GATHER_ELEMS_LIMIT`."""
+    return n_walkers * n_dim * n_dim <= _GATHER_ELEMS_LIMIT
+
+
 @dataclasses.dataclass
 class Walkers:
-    """What one mutation holds fixed: the walkers' modes and matrices."""
+    """What one mutation holds fixed: the walkers' modes and matrices, in
+    one of two forms (`form`): the gathered (N, d, d) `chol` and `inv`, or
+    the modes' (K, d, d) `chol_covariances` and `inv_covariances`, which the
+    products index by `assignments`."""
 
     assignments: torch.Tensor  # (N,)
     beta: torch.Tensor  # ()
     mu: torch.Tensor  # (N, d) mode mean per walker
     dof: torch.Tensor  # (N,)
-    chol: torch.Tensor  # (N, d, d) gathered Cholesky factors
-    inv: torch.Tensor  # (N, d, d) gathered inverse covariances
     onehot: torch.Tensor  # (N, K)
     count_k: torch.Tensor  # (K,) over all ranks
-    gamma_shape: Optional[torch.Tensor]  # (N,) tpCN only; global under a mesh
+    gamma_shape: Optional[torch.Tensor] = None  # (N,) tpCN only; global under a mesh
+    chol: Optional[torch.Tensor] = None  # (N, d, d) gathered Cholesky factors
+    inv: Optional[torch.Tensor] = None  # (N, d, d) gathered inverse covariances
+    chol_covariances: Optional[torch.Tensor] = None  # (K, d, d), the K-loop form
+    inv_covariances: Optional[torch.Tensor] = None  # (K, d, d), the K-loop form
+
+    @property
+    def form(self) -> str:
+        """`GATHERED` or `K_LOOP`."""
+        return GATHERED if self.chol is not None else K_LOOP
+
+    def quadratic(self, diff: torch.Tensor) -> torch.Tensor:
+        """diff_n^T Sigma_{a(n)}^-1 diff_n, (N,)."""
+        if self.chol is not None:
+            return _quadratic(diff, self.inv)
+        return _mode_quadratic(diff, self.assignments, self.inv_covariances)
+
+    def mode_step(self, z: torch.Tensor) -> torch.Tensor:
+        """z_rn @ L_{a(n)}^T for z (R, N, d)."""
+        if self.chol is not None:
+            return torch.einsum("rnj,nij->rni", z, self.chol)
+        return _mode_matmul(z, self.assignments, self.chol_covariances)
 
 
 @dataclasses.dataclass
@@ -129,6 +175,30 @@ def _quadratic(diff: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
     """diff_n^T M_n diff_n for per-walker matrices (N, d, d) (mcmc.py:127-130)."""
     v = torch.einsum("nj,nji->ni", diff, mats)
     return torch.sum(v * diff, dim=1)
+
+
+# The K-loop form (mcmc.py:76-107). JAX adds where(a(n) == k, value, 0) to
+# a zero accumulator for each mode; a walker's own mode gives its only
+# nonzero term, so taking where(a(n) == k, value, acc) gives the same values
+# with one pass fewer a mode.
+def _mode_quadratic(diff: torch.Tensor, assignments: torch.Tensor,
+                    mats: torch.Tensor) -> torch.Tensor:
+    """diff_n^T M_{a(n)} diff_n -> (N,) for the modes' matrices (K, d, d):
+    one (N, d) x (d, d) matmul a mode, every mode run."""
+    acc = torch.zeros(diff.shape[0], dtype=diff.dtype, device=diff.device)
+    for k in range(mats.shape[0]):
+        dk = torch.sum((diff @ mats[k]) * diff, dim=1)
+        acc = torch.where(assignments == k, dk, acc)
+    return acc
+
+
+def _mode_matmul(z: torch.Tensor, assignments: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
+    """z_rn @ M_{a(n)}^T -> (R, N, d) for z (R, N, d) and the modes'
+    matrices (K, d, d): one (R N, d) x (d, d) matmul a mode, every mode run."""
+    acc = torch.zeros_like(z)
+    for k in range(mats.shape[0]):
+        acc = torch.where((assignments == k)[None, :, None], z @ mats[k].T, acc)
+    return acc
 
 
 class MCMCKernel:
@@ -179,8 +249,10 @@ class MCMCKernel:
 
     # ------------------------------------------------------------------
     def prepare(self, assignments, beta, modes: ModeStatistics) -> Walkers:
-        """Gather the per-walker mode quantities once per mutation (and move
-        the boundary masks to the walkers' device, outside any capture)."""
+        """Gather the per-walker mode quantities once per mutation, the
+        matrices too where `gathers` holds for the walkers of every rank (and
+        move the boundary masks to the walkers' device, outside any
+        capture)."""
         dev = assignments.device
         self.periodic_mask, self.reflective_mask, self.strict_mask = (
             m.to(dev) for m in (self.periodic_mask, self.reflective_mask, self.strict_mask))
@@ -192,16 +264,21 @@ class MCMCKernel:
         if self.is_tpcn:
             dof_all = dof if self.group is None else all_gather(dof, self.group, 0)
             gamma_shape = (self.n_dim + dof_all) / 2.0
+        if gathers(assignments.shape[0] * self.world, self.n_dim):  # JAX counts every rank
+            mats = dict(chol=modes.chol_covariances[assignments],
+                        inv=modes.inv_covariances[assignments])
+        else:
+            mats = dict(chol_covariances=modes.chol_covariances,
+                        inv_covariances=modes.inv_covariances)
         return Walkers(
             assignments=assignments,
             beta=torch.as_tensor(beta, dtype=dtype, device=assignments.device),
             mu=modes.means[assignments],
             dof=dof,
-            chol=modes.chol_covariances[assignments],
-            inv=modes.inv_covariances[assignments],
             onehot=onehot,
             count_k=_psum(torch.sum(onehot, dim=0), self.group),
             gamma_shape=gamma_shape,
+            **mats,
         )
 
     def initial_state(self, u, x, logl, k_max: int, blobs=None) -> ChainState:
@@ -221,7 +298,7 @@ class MCMCKernel:
 
     def _propose(self, w: Walkers, u, diff, sigma_w, scale_w, z):
         """First in-bounds of the R candidates per walker, and whether any was."""
-        step = torch.einsum("rnj,nij->rni", z, w.chol)  # z_rn @ L_n^T
+        step = w.mode_step(z)  # z_rn @ L_{a(n)}^T
         if self.is_tpcn:
             cand = (
                 w.mu
@@ -253,7 +330,7 @@ class MCMCKernel:
         sigma_w = sigmas[w.assignments]
         diff = s.u - w.mu
         if self.is_tpcn:
-            dot = _quadratic(diff, w.inv)
+            dot = w.quadratic(diff)
             g_scale = 2.0 / (w.dof + dot)
             scale_w = torch.sqrt(1.0 / (g * g_scale))
         else:
@@ -265,7 +342,7 @@ class MCMCKernel:
         logl_prime = logl_prime.to(dtype)
 
         if self.is_tpcn:
-            dot_p = _quadratic(u_prime - w.mu, w.inv)
+            dot_p = w.quadratic(u_prime - w.mu)
             coeff = -0.5 * (self.n_dim + w.dof)
             factor = -coeff * torch.log1p(dot_p / w.dof) + coeff * torch.log1p(dot / w.dof)
         else:
@@ -363,8 +440,7 @@ class MCMCKernel:
             state = ChainState(**dict(c, blobs=c.get("blobs")))
             extra = {"active": self.going(state.done, state.iteration)} if keyed else {}
             z, g, u_acc = draws.mcmc_step(self.n_candidates, n, d, k.get("gamma_shape"), **extra)
-            return _tensors(self.step(Walkers(**dict(k, gamma_shape=k.get("gamma_shape"))),
-                                      state, z, g, u_acc))
+            return _tensors(self.step(Walkers(**k), state, z, g, u_acc))
 
         return body
 

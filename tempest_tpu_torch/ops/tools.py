@@ -150,10 +150,18 @@ def cumsum(x: torch.Tensor) -> torch.Tensor:
 
 
 def _invert_cdf(w: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """The first index whose CDF reaches each position (tools.py:89-94), and
+    never one of zero weight. Where the weights end in zeros (the history's
+    unfilled rows) and the CDF's float sum stops short of 1, JAX's guard
+    cdf[-1] = 1 hands the positions past the shortfall to the last index,
+    a zero-weight slot; here they go to the last index of nonzero weight.
+    Every other position takes JAX's index."""
+    n = w.shape[0]
     cdf = cumsum(w)
     cdf[-1:].fill_(1.0)  # guard against rounding shortfall (a fill: no host copy)
     idx = torch.searchsorted(cdf, positions, right=False)  # side="left"
-    return torch.clamp(idx, 0, w.shape[0] - 1)
+    last = torch.amax(torch.where(w > 0, torch.arange(n, device=w.device), 0))
+    return torch.minimum(torch.clamp(idx, 0, n - 1), last)
 
 
 def trim_weights_mask(

@@ -53,7 +53,12 @@ the last d held in shared memory in either type: past it, the
 global-workspace route), on SPD, indefinite, rank-deficient and diagonal
 matrices in float32 and float64, within 16 d eps max|lambda|; the CV's
 rank decision equal; NaN out for a non-finite matrix; a launch captured in
-a graph replays to the eager launch's bits. Dynamic mode and a mesh of one rank
+a graph replays to the eager launch's bits. The mutation's K-loop form
+(mcmc.py, JAX's form past N d^2 = 2^21) against its gathered form at B's
+(R, N, d) with one mode and with 16 (the last empty) and a quadratic at
+(N, d) = (2^18, 100), float32 and float64, within 4 d eps of the product
+of absolute values; graphed with three modes (one empty), the chain
+repeats its eager run bit for bit. Dynamic mode and a mesh of one rank
 over NCCL (in a process of its own) repeat `on_device=False` bit for bit
 with `on_device=True`, the device run loop; dynamic mode's ESS bracket is
 one launch of the ESS kernel's bracket mode a reweight.
@@ -113,6 +118,7 @@ from tempest_tpu_torch.config import ESS_TOLERANCE, METRIC_ATOL
 from tempest_tpu_torch.draws import Draws, HardwareDraws
 from tempest_tpu_torch.fused import CHUNKS
 from tempest_tpu_torch.loops import Loops, launch_counts
+from tempest_tpu_torch import mcmc as mcmc_mod
 from tempest_tpu_torch.mcmc import MCMCKernel
 from tempest_tpu_torch.ops import cuda_prng, cuda_reweight, philox, tools
 from tempest_tpu_torch.ops.tools import ess_from_logw, logsumexp
@@ -710,6 +716,71 @@ def test_graphed_mcmc_equals_eager(cuda_device, method):
         assert graphed.stats["mcmc"]["node_bodies"] - runs == int(want.steps)
     stats = graphed.stats["mcmc"]
     assert stats["captures"] == 1 and stats["replays"] == 2 and "reads" not in stats
+
+
+# The mutation's two forms (mcmc.py): B's (R, N, d) with one mode and with
+# 16 (the last empty), and a quadratic at (N, d) = (2^18, 100). A product's
+# forms sum in other orders, each within 2 d eps of the exact value times
+# the product of absolute values, so within 4 d eps of each other.
+FORM_CASES = [((8, 131072, 10), 1), ((8, 131072, 10), 16), ((1, 1 << 18, 100), 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,K", FORM_CASES)
+def test_kloop_form_matches_the_gathered_form(cuda_device, shape, K, dtype):
+    R, N, d = shape
+    g = torch.Generator(device=cuda_device).manual_seed(K)
+    f64 = dict(dtype=torch.float64, device=cuda_device)
+    a = torch.randn(K, d, d, generator=g, **f64)
+    m = tm.make_mode_statistics(torch.zeros(K, d, **f64),
+                                a @ a.transpose(1, 2) / d + 0.1 * torch.eye(d, **f64),
+                                torch.full((K,), 5.0, **f64))
+    chol, inv = m.chol_covariances.to(dtype), m.inv_covariances.to(dtype)
+    assignments = torch.randint(0, max(K - 1, 1), (N,), generator=g, device=cuda_device,
+                                dtype=torch.int32)
+    zero = torch.zeros((), dtype=dtype, device=cuda_device)
+    fixed = dict(assignments=assignments, beta=zero, mu=zero, dof=zero, onehot=zero,
+                 count_k=zero)
+    looped = mcmc_mod.Walkers(chol_covariances=chol, inv_covariances=inv, **fixed)
+    diff = torch.randn(N, d, generator=g, device=cuda_device, dtype=dtype)
+    bound = 4 * d * torch.finfo(dtype).eps
+    got = looped.quadratic(diff)
+    want = mcmc_mod._quadratic(diff, inv[assignments])
+    scale = mcmc_mod._mode_quadratic(diff.abs(), assignments, inv.abs())
+    assert looped.form == mcmc_mod.K_LOOP and got.dtype == dtype
+    assert float(((got - want).abs() / scale).max()) <= bound
+    if R > 1:
+        z = torch.randn(R, N, d, generator=g, device=cuda_device, dtype=dtype)
+        got = looped.mode_step(z)
+        want = torch.einsum("rnj,nij->rni", z, chol[assignments])
+        scale = mcmc_mod._mode_matmul(z.abs(), assignments, chol.abs())
+        assert float(((got - want).abs() / scale).max()) <= bound
+
+
+@pytest.mark.cuda
+def test_graphed_kloop_mcmc_equals_eager(cuda_device, monkeypatch):
+    """The K-loop form (the limit lowered to 0) with three modes, one of
+    them empty, at A's shapes: the chain graphed as one WHILE node gives the
+    eager chunks' values and steps bit for bit."""
+    monkeypatch.setattr(mcmc_mod, "_GATHER_ELEMS_LIMIT", 0)
+    kernel, (u, x, logl, _, beta, _) = _a_chain(cuda_device)
+    n, d = u.shape
+    modes = tm.make_mode_statistics(
+        torch.full((3, d), 0.5, device=cuda_device),
+        torch.stack([s * torch.eye(d, device=cuda_device) for s in (1e-2, 2e-2, 5e-3)]),
+        torch.full((3,), 6.0, device=cuda_device))
+    assignments = torch.where(torch.arange(n, device=cuda_device) % 2 == 0, 0, 2).to(torch.int32)
+    draws = Draws(11, cuda_device)
+    start = draws.counter
+    want = kernel(draws, u, x, logl, assignments, beta, modes, loops=_loops(cuda_device, False))
+    draws.calls.seek(start)
+    graphed = _loops(cuda_device, True, [draws.calls])
+    got = kernel(draws, u, x, logl, assignments, beta, modes, loops=graphed)
+    assert graphed.stats["mcmc"]["captures"] == 1
+    assert torch.equal(got.steps, want.steps) and int(want.steps) > kernel.n_steps_min
+    for name in ("u", "x", "logl", "efficiency", "acceptance"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
 @pytest.mark.cuda

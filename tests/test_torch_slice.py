@@ -9,7 +9,8 @@
    what JAX computes for that iteration. Tolerances: beta and logZ 1e-5
    (the same float32 bisection and logsumexp), mode rtol 1e-3 (float32 EM
    with other summation orders), particles atol 1e-4 after the whole
-   adaptive chain.
+   adaptive chain. The 4-D mutation gathers its per-walker matrices; the
+   100-D one (N d^2 = 2.56 M > 2^21) takes the K-loop form, as JAX's does.
 2. A whole run on the CPU: the tests/test_end_to_end.py problem and bar.
 """
 
@@ -30,8 +31,10 @@ from tempest_tpu_torch import Sampler, interop
 from tempest_tpu_torch.cluster import single_cluster_model
 from tempest_tpu_torch.config import SamplerConfig
 from tempest_tpu_torch.iteration import make_iteration, select_fit_points
+from tempest_tpu_torch.mcmc import GATHERED, K_LOOP
 from tempest_tpu_torch.modes import fit_global_mode
 from tempest_tpu_torch.steps.reweight import reweight
+from test_torch_mcmc_kloop import record_forms
 
 torch.set_num_threads(1)
 
@@ -69,17 +72,22 @@ def _loglike_t(x):
     return -0.5 * torch.sum(x * x, dim=-1)
 
 
-def test_one_iteration_value_for_value():
-    _one_iteration(D4, N4)
+def test_one_iteration_value_for_value(monkeypatch):
+    assert _one_iteration(monkeypatch, D4, N4) == [GATHERED]  # N d^2 = 2048
 
 
-def test_one_iteration_value_for_value_at_d100():
+def test_one_iteration_value_for_value_at_d100(monkeypatch):
     """The rosenbrock100 path's width: d = 100 (the CV's eigenvalues, the
-    100 x 100 mode covariance), at N = 256 and the same tolerances."""
-    _one_iteration(100, 256)
+    100 x 100 mode covariance), at N = 256 and the same tolerances. N d^2 =
+    2.56 M is past the gather limit (2^21): JAX's mutation and the port's
+    take the K-loop form."""
+    assert _one_iteration(monkeypatch, 100, 256) == [K_LOOP]
 
 
-def _one_iteration(d, n):
+def _one_iteration(monkeypatch, d, n):
+    """The checks above; returns the forms of the port's mutations
+    (`Walkers.form`)."""
+    forms = record_forms(monkeypatch)
     js = JaxSampler(_prior, _loglike_j, n_dim=d, n_particles=n, vectorize=True,
                     clustering=False, random_state=0, history_capacity=16)
     while js.state.cur.beta == 0.0 or int(js.state.hist.t) < 5:
@@ -127,6 +135,7 @@ def _one_iteration(d, n):
     np.testing.assert_allclose(float(tc.acceptance), out_j["acceptance"], atol=1e-4)
     np.testing.assert_allclose(th.mis_c.numpy(), np.asarray(core.hist.mis_c), atol=1e-4,
                                rtol=1e-5)
+    return forms
 
 
 N_DIM = 10

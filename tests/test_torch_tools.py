@@ -4,7 +4,9 @@ Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: rtol 1e-5 for float32 reductions whose summation order differs;
 exact for the boundary ops (elementwise, same formulas); and at least 99 %
 equal indices for the resamplers, because a cumsum taken in another order
-can move a uniform across a CDF edge. The port's row-blocked `cumsum`
+can move a uniform across a CDF edge; never an index of zero weight, not
+even past a CDF whose float sum stops short of 1 before a zero tail (where
+JAX's guard picks the last, zero-weight slot). The port's row-blocked `cumsum`
 against a float64 cumsum: rtol 1e-6. `ops.cuda_linalg.eigvalsh` on the CPU
 is `torch.linalg.eigvalsh` bit for bit, within 16 d eps max|lambda| of
 XLA's float32 `jnp.linalg.eigvalsh` (two LAPACK-style solvers' rounding),
@@ -91,6 +93,40 @@ def test_resamplers_fed_jax_uniforms(seed):
     idx_t = tt.systematic_resample(torch.from_numpy(u0), n, torch.from_numpy(w)).numpy()
     assert np.mean(idx_t == idx_j) >= 0.99
     assert np.all(w[idx_t] > 0)
+
+
+@pytest.mark.parametrize("method", ["mult", "syst"])
+def test_resamplers_skip_a_zero_weight_tail(method):
+    """The history's unfilled rows weigh 0 at the end of the flat weights.
+    Where the CDF's float sum stops short of 1 before them, JAX's guard
+    cdf[-1] = 1 (tools.py:89-94) gives the positions past the shortfall
+    the last index, a slot of zero weight: on the card at N = 2^20 and
+    d = 100 (benchmarks/large_scale.py) such a walker joined the active set
+    with logl -inf. The port gives them the last index of nonzero weight,
+    and every other position the index of JAX's rule on the same CDF."""
+    rng = np.random.default_rng(0)
+    w = rng.exponential(size=4096).astype(np.float32)
+    w[3072:] = 0.0  # the unfilled rows
+    wt = torch.from_numpy(w)
+    cdf = tt.cumsum(wt / torch.sum(wt))
+    assert float(cdf[3071]) < 1.0  # the shortfall this test is about
+    guard = cdf.clone()
+    guard[-1] = 1.0
+    if method == "mult":
+        pos = np.append(rng.uniform(size=2000), [np.nextafter(float(cdf[3071]), 2.0), 1.0])
+        pos = torch.from_numpy(pos.astype(np.float32))
+        got = tt.multinomial_resample(pos, wt)
+    else:
+        u0 = torch.tensor(np.float32(1.0))  # the uniforms lie in (0, 1]
+        n = 3000
+        pos = (u0 + torch.arange(n, dtype=torch.float32)) / n
+        got = tt.systematic_resample(u0, n, wt)
+    jax_rule = torch.clamp(torch.searchsorted(guard, pos, right=False), 0, w.size - 1)
+    tail = w[jax_rule.numpy()] == 0
+    assert tail.any() and np.all(jax_rule.numpy()[tail] == w.size - 1)
+    assert np.all(w[got.numpy()] > 0)
+    assert np.all(got.numpy()[tail] == 3071)
+    assert torch.equal(got[torch.from_numpy(~tail)], jax_rule[torch.from_numpy(~tail)])
 
 
 @pytest.mark.parametrize("n", [1, 1000, 1024, 1025, 4097, 70000, 1100000])
