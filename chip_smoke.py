@@ -164,6 +164,18 @@ lines and a failure exits non-zero:
     --nccl, each case in a process of its own): an all-reduce over a
     one-rank NCCL group in a WHILE body, an IF body, WHILE > IF, IF > WHILE
     and WHILE > IF > WHILE, graphed bit for bit with the host's loop;
+ 4j. the host-call kernel (csrc/host_call.cu, which stands for JAX's host
+    callback of a host likelihood, not a Pallas kernel) against its plain
+    version, the plain crossing (`HostLikelihood.plain`), bit for bit at
+    A's (1024, 10) with two blob values a point and B's (131,072, 10),
+    active and not (an inactive step's rows back, no call), one pool map
+    call a call; a raising host function re-raised with its `failed` word
+    set, the next call clean; its device ms a handshake with an empty host
+    function, its call ms and the plain crossing's, against its bound (the
+    points out and logl in at the pinned copy rates measured here, plus the
+    link's round trip, `cuda_host.round_trip_ms`: a kernel's exchanges with
+    a host C thread, no Python); the serving loop's own cost a handshake
+    (the kernel's handshake at N = 1 less that round trip) apart;
  5. the canonical problem unclustered (paired 10-D Rosenbrock, U(-10, 10)
     prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42,
     with `run(on_device=True)`: the device run loop, one graph replay;
@@ -250,7 +262,18 @@ lines and a failure exits non-zero:
     one replay and one read, logZ inside the anchor;
 13. the refit cadence, C with cluster_every=3 (on_device=False and True,
     bit for bit, as C), and a host likelihood: the 10-D Gaussian as a
-    numpy per-point function with host_likelihood=True;
+    numpy per-point function with host_likelihood=True; A with its
+    likelihood on the host (`rosenbrock_numpy`), seed 42 with
+    run(on_device=False) and, on a sampler whose seed-43 run captured the
+    graph, run(on_device=True): bit for bit, logZ in the clustered band,
+    one replay and one read a run, the host-call kernel's handshakes and
+    the pool's map calls equal to the sweeps on both routes (eagerly the
+    kernel served at once, on the run loop by the replay), the launches the
+    eager run's less its chunks' steps past the stop; the wall, the pool's seconds and the rest; then
+    tests/test_blobs.py's object payloads on the run loop (each following
+    its particle, the store pruned), and a likelihood that raises in a
+    later iteration of a run on the run loop (its exception, no call and
+    no handshake after it, then after reset() a clean run's bits);
 14. float64, every draw keyed on the `_f64` kernels: A at
     dtype=torch.float64, seed 42, with `run(on_device=False)` and, with
     each hardware_prng on a sampler whose seed-43 run captured the graph,
@@ -436,11 +459,16 @@ try:  # the conditional nodes of the graphed cluster fit; likewise
     from tempest_tpu_torch.ops import cuda_graphs  # noqa: E402
 except ImportError:
     cuda_graphs = None
+try:  # the host-call kernel of a host likelihood; likewise
+    from tempest_tpu_torch.ops import cuda_host  # noqa: E402
+except ImportError:
+    cuda_host = None
 from tempest_tpu_torch import cluster as cluster_module  # noqa: E402
 from tempest_tpu_torch import iteration as iteration_module  # noqa: E402
 from tempest_tpu_torch import loops as loops_module  # noqa: E402
 from tempest_tpu_torch import mcmc as mcmc_module  # noqa: E402
 from tempest_tpu_torch.draws import Draws  # noqa: E402
+from tempest_tpu_torch.fused import CHUNKS  # noqa: E402
 from tempest_tpu_torch import student as student_module  # noqa: E402
 from tempest_tpu_torch.loops import Loops  # noqa: E402
 from tempest_tpu_torch import modes as modes_module  # noqa: E402
@@ -598,6 +626,35 @@ def gaussian_numpy(x):
     return float(-0.5 * np.sum(x * x) - 0.5 * N_DIM * math.log(2 * math.pi))
 
 
+def rosenbrock_numpy(x):
+    # A's paired Rosenbrock (bench.py:71-77) as a host likelihood of one numpy point.
+    return float(-np.sum(100.0 * (x[1::2] - x[::2] ** 2) ** 2 + (1.0 - x[::2]) ** 2))
+
+
+class TimedPool:
+    """A host pool (`Sampler(pool=...)`) that maps in this thread and counts
+    its map calls and the seconds spent in them."""
+
+    def __init__(self):
+        self.calls, self.seconds = 0, 0.0
+
+    def map(self, f, xs):
+        t0 = time.perf_counter()
+        try:
+            return [f(x) for x in xs]
+        finally:
+            self.calls += 1
+            self.seconds += time.perf_counter() - t0
+
+
+def host_a_sampler(device, seed, pool=None, **kw):
+    """A (the canonical clustered problem) with its likelihood on the host:
+    `rosenbrock_numpy` with host_likelihood=True."""
+    return Sampler(prior_transform, rosenbrock_numpy, n_dim=N_DIM, n_particles=N_PARTICLES,
+                   vectorize=True, host_likelihood=True, clustering=True,
+                   history_capacity=CAPACITY, random_state=seed, pool=pool, device=device, **kw)
+
+
 def half_square(x):
     # hw_prng_e2e.json's likelihood: -0.5 |x|^2
     return -0.5 * torch.sum(x * x, dim=-1)
@@ -644,6 +701,8 @@ def reset_counts() -> None:
         cuda_prng.LAUNCHES[name] = 0
     for name in (cuda_em.LAUNCHES if cuda_em is not None else ()):
         cuda_em.LAUNCHES[name] = 0
+    if cuda_host is not None:
+        cuda_host.LAUNCHES = 0
 
 
 def counts() -> dict:
@@ -652,8 +711,9 @@ def counts() -> dict:
     median = {} if cuda_median is None else {"weighted_median": cuda_median.LAUNCHES,
                                              "ess_bracket": cuda_reweight.BRACKET_LAUNCHES}
     em = {} if cuda_em is None else dict(cuda_em.LAUNCHES)
+    host = {} if cuda_host is None else {"host_call": cuda_host.LAUNCHES}
     return {"ess_bisect": cuda_reweight.LAUNCHES, "ess_bisect_f64": cuda_reweight.LAUNCHES_F64,
-            **eig, **median, **em, **cuda_prng.LAUNCHES}
+            **eig, **median, **em, **host, **cuda_prng.LAUNCHES}
 
 
 # Weighted Student-t fits (`student.fit_mvstud_weighted_modes`, each of K
@@ -1188,7 +1248,8 @@ def phase_build() -> dict:
         () if cuda_linalg is None else (cuda_linalg.LIBRARY,)) + (
         () if cuda_median is None else (cuda_median.LIBRARY,)) + (
         () if cuda_em is None else (cuda_em.GMM_LIBRARY, cuda_em.MVSTUD_LIBRARY)) + (
-        () if cuda_graphs is None else (cuda_graphs.LIBRARY,))
+        () if cuda_graphs is None else (cuda_graphs.LIBRARY,)) + (
+        () if cuda_host is None else (cuda_host.LIBRARY,))
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     ptxas = []
     for i, lib in enumerate(libs):  # the same compiles as the libraries', to cubins, verbose
@@ -2799,7 +2860,7 @@ def while_cost_a_step(device) -> dict:
     modes = modes_module.make_mode_statistics(torch.full((d,), 0.5, device=device),
                                               1e-2 * torch.eye(d, device=device),
                                               torch.tensor(6.0, device=device))
-    kernel = mcmc_module.MCMCKernel(lambda x: (rosenbrock(x), None), prior_transform, d)
+    kernel = mcmc_module.MCMCKernel(lambda x, *_: (rosenbrock(x), None), prior_transform, d)
     x = prior_transform(u)
     w = kernel.prepare(torch.zeros(n, dtype=torch.int32, device=device),
                        torch.tensor(0.3, device=device), modes)
@@ -3030,6 +3091,155 @@ def phase_capture_abort() -> dict:
         print(f"capture abort, {case} past the check: exit code {proc.returncode}; "
               + " / ".join(ln[:400] for ln in lines), flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4j: the host-call kernel (no Pallas counterpart: JAX's host callback)
+# ---------------------------------------------------------------------------
+# (label, N, d, blob width): A's points with two blob values a point, and B's
+# walkers at A's width without blobs.
+HOST_SHAPES = (("A", N_PARTICLES, N_DIM, 2), ("B", B_PARTICLES, N_DIM, 0))
+HOST_ROUNDS = 50  # handshakes timed in one served launch
+
+
+def rosenbrock_numpy_blobs(x):
+    # A's host likelihood with two blob values, |x|^2 and x0.
+    return rosenbrock_numpy(x), float(np.sum(x * x)), float(x[0])
+
+
+def _bits_equal(a, b) -> bool:
+    return a is None and b is None or (a is not None and b is not None and a.dtype == b.dtype
+                                       and torch.equal(a.view(torch.uint8), b.view(torch.uint8)))
+
+
+def _empty_host(n: int, width: int = 0):
+    """A host function that returns at once: (n,) zeros and (n, width)
+    float32 blob rows of zeros (none where the width is 0)."""
+    logl = np.zeros(n, np.float32)
+    rows = np.zeros((n, width), np.float32) if width else None
+    return lambda points: (logl, rows)
+
+
+def handshake_ms(device, n: int, d: int, rounds: int = HOST_ROUNDS) -> float:
+    """Device ms a host call of (n, d) float32 points with an empty host
+    function: `rounds` back to back between two CUDA events, served on this
+    thread (the second of two served launches)."""
+    failed = torch.zeros(1, dtype=torch.int32, device=device)
+    box = cuda_host.Mailbox(n, d, np.float32, 0, np.float32, device, _empty_host(n), failed)
+    x = torch.rand(n, d, device=device)
+    out = torch.empty(n, device=device)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def launch():
+        a.record()
+        for _ in range(rounds):
+            box.launch(x, None, out, None)
+        b.record()
+
+    for _ in range(2):
+        cuda_host.served(launch, [box])
+    return a.elapsed_time(b) / rounds
+
+
+def pinned_rates(device) -> dict:
+    """GB/s of a 64 MB copy from the device to pinned host memory and back,
+    by CUDA events (the host link's rate the bound takes)."""
+    n = 16 << 20
+    dev = torch.rand(n, device=device)
+    host = torch.empty(n, pin_memory=True)
+    d2h = event_ms(lambda: host.copy_(dev, non_blocking=True), calls=10)
+    h2d = event_ms(lambda: dev.copy_(host, non_blocking=True), calls=10)
+    return {"d2h_gb_s": 4 * n / d2h / 1e6, "h2d_gb_s": 4 * n / h2d / 1e6}
+
+
+def phase_host_kernel(device) -> dict:
+    """4j: the host-call kernel (csrc/host_call.cu) against its plain
+    version, the plain crossing (`HostLikelihood.plain`), at A's (1024, 10)
+    with two blob values a point and B's (131,072, 10): logl and the blob
+    rows bit for bit, an inactive step's rows back as they were with no
+    call, one pool map call an active call; a host function that raises:
+    its exception, the device word `failed` set, the next call clean; the
+    device ms a handshake with an empty host function (the wall of the
+    host's serving included, as the device waits for it), its call ms and
+    the plain crossing's, against its bound: the points out and logl in at
+    the pinned copy rates measured here, plus the link's round trip, taken
+    from a C ping-pong on mapped memory (`cuda_host.round_trip_ms`), not
+    from the kernel under test. The kernel's handshake at N = 1 less that
+    round trip is the Python serving loop's cost, the design's overhead,
+    reported apart."""
+    from tempest_tpu_torch.utils.blobs import BlobSchema
+    from tempest_tpu_torch.utils.wrappers import HostLikelihood, make_pool_map
+
+    rates = pinned_rates(device)
+    cuda_host.round_trip_ms(device, 100)  # loads the kernel
+    round_trip = cuda_host.round_trip_ms(device)
+    served = handshake_ms(device, 1, 1)
+    shapes, launches0 = {}, cuda_host.LAUNCHES
+    for label, n, d, width in HOST_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(7)
+        x = 20.0 * torch.rand(n, d, device=device, generator=gen) - 10.0
+        pool = TimedPool()
+        schema = BlobSchema(np.float32, blob_size=width) if width else None
+        fn = rosenbrock_numpy_blobs if width else rosenbrock_numpy
+        h = HostLikelihood(fn, make_pool_map(pool), torch.float32, schema)
+        logl0 = torch.randn(n, device=device, generator=gen)
+        blobs0 = torch.randn(n, width, device=device, generator=gen) if width else None
+        for go in (True, False):
+            active = torch.full((), go, device=device)
+            calls = pool.calls
+            want = h.plain(x, active, logl0, blobs0)
+            got = h.kernel_call(x, active, logl0, blobs0)
+            check(_bits_equal(got[0], want[0]) and _bits_equal(got[1], want[1]),
+                  f"host call {label} active={go}: the kernel's rows differ from the plain "
+                  f"crossing's")
+            check(pool.calls - calls == (2 if go else 0),
+                  f"host call {label} active={go}: {pool.calls - calls} map calls for 2 crossings")
+            if not go:
+                check(_bits_equal(got[0], logl0) and _bits_equal(got[1], blobs0),
+                      f"host call {label}: an inactive step's rows changed")
+        # a host function that raises: its exception, `failed` set, then a clean call
+        bad = HostLikelihood(lambda p: 1 / 0, make_pool_map(None), torch.float32)
+        raised = None
+        try:
+            bad.kernel_call(x)
+        except ZeroDivisionError as exc:
+            raised = exc
+        check(raised is not None and int(bad.failed[0]) == 1,
+              f"host call {label}: a raising host function gave {raised!r}, failed "
+              f"{bad.failed.tolist()}")
+        bad.log_likelihood = rosenbrock_numpy
+        check(_bits_equal(bad.kernel_call(x)[0], h.plain(x)[0]),
+              f"host call {label}: the call after a failure differs")
+        # times with the host function returning at once
+        h.evaluate = _empty_host(n, width)
+        h._boxes.clear()
+        times = timed_in_turns({"kernel": lambda: h.kernel_call(x),
+                                "plain": lambda: h.plain(x)}, calls=20)
+        device_ms = handshake_ms(device, n, d)
+        moved = {"out_bytes": 4 * n * d, "in_bytes": 4 * n}
+        bytes_ms = (moved["out_bytes"] / (rates["d2h_gb_s"] * 1e6)
+                    + moved["in_bytes"] / (rates["h2d_gb_s"] * 1e6))
+        bound = bytes_ms + round_trip
+        shapes[label] = {"n": n, "d": d, "blob_width": width, "device_ms": device_ms,
+                         "call_ms": times["kernel"], "plain_ms": times["plain"],
+                         "bound_ms": bound, "bytes_ms": bytes_ms, **moved}
+        print(f"host call {label} ({n}, {d}), blob width {width}: bit for bit the plain "
+              f"crossing (active and not), one map call a call, a raising host function "
+              f"re-raised with `failed` set; device {device_ms:.4f} ms a handshake (empty host "
+              f"function), call {times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, bound "
+              f"{bound:.4f} ms", flush=True)
+    a = shapes["A"]
+    print(f"host link: {json.dumps(rates)}; its round trip (C ping-pong) {round_trip:.5f} ms; "
+          f"the kernel's handshake at N = 1 {served:.5f} ms, of which the serving loop "
+          f"{served - round_trip:.5f} ms", flush=True)
+    # The work is moving bytes over the host link: the points out, logl in,
+    # and the handshake's words each way, whose cost is the link's latency.
+    return {"max_abs_err": 0.0, "ms": a["call_ms"], "plain_ms": a["plain_ms"],
+            "device_ms": a["device_ms"], "bound_ms": a["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "shapes": shapes,
+            "bounds": {"host_link": rates, "round_trip_ms": round_trip,
+                       "handshake_at_1_ms": served, "serving_ms": served - round_trip},
+            "checks": cuda_host.LAUNCHES - launches0}
 
 
 # ---------------------------------------------------------------------------
@@ -4250,8 +4460,13 @@ def prng_names(dtype) -> dict:
 
 def run_loop(s) -> bool:
     """Whether sampler `s`'s run(on_device=True) takes the device run loop
-    (`SamplerCore._run`, made for the configurations that take it)."""
+    (`SamplerCore._run`, made for every configuration)."""
     return getattr(s.state, "_run", None) is not None
+
+
+def fused_iteration(s) -> bool:
+    """Whether sampler `s` runs the fused iteration (its loops in chunks)."""
+    return s.state._iteration.loops.chunks == CHUNKS
 
 
 def keyed_uniforms(s) -> bool:
@@ -5312,7 +5527,7 @@ def phase_dynamic(device) -> dict:
     runs, run_graphs = {}, []
     for on_device in (False, True):
         s = dynamic_sampler(device, SEEDS[1] if on_device else SEEDS[0])
-        check(s.state.fused, "dynamic: not on the fused route")
+        check(fused_iteration(s), "dynamic: not on the fused route")
         check(run_loop(s), "dynamic: not on the device run loop's route")
         if on_device:
             s.run(n_total=N_TOTAL, progress=False, on_device=True)  # captures the graph
@@ -5521,7 +5736,173 @@ def phase_cadence_and_host(device) -> dict:
     check(s.beta > 0.99 and abs(logz - GAUSSIAN_LOGZ[0]) < GAUSSIAN_LOGZ[1] and acc > 0.1,
           f"host likelihood: beta {s.beta}, logZ {logz}, acceptance {acc}")
     check(host["ess_bisect"] > 0, "host likelihood: no ESS kernel launch")
-    return {"cadence": cadence, "host": host}
+    out = {"cadence": cadence, "host": host}
+    if cuda_host is not None:
+        out.update(host_route(device))
+    return out
+
+
+def host_route(device) -> dict:
+    """13b-d: A with its likelihood on the host (`host_a_sampler`) on both
+    routes, object blobs on the run loop, and a likelihood that raises on
+    it. Returns the launches of A's runs by route."""
+    runs = {}
+    for on_device in (False, True):
+        pool = TimedPool()
+        s = host_a_sampler(device, SEEDS[1] if on_device else SEEDS[0], pool=pool)
+        graphs = None
+        if on_device:
+            s.run(n_total=N_TOTAL, progress=False, on_device=True)  # captures the graph
+            graphs = [dict(nodes=g.nodes, depth=g.depth, capture_s=g.capture_s)
+                      for g in s.state._iteration.loops.graphs_of("run")]
+            check(len(graphs) == 1 and graphs[0]["depth"] >= 2, f"A host: graphs {graphs}")
+            s.reset(random_state=SEEDS[0])
+        warm = loop_stats(s)
+        calls, seconds = pool.calls, pool.seconds
+        reset_counts()
+        served = cuda_host.HANDSHAKES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run(n_total=N_TOTAL, progress=False, on_device=on_device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        handshakes = cuda_host.HANDSHAKES - served
+        loops = {k: {c: v.get(c, 0) - warm.get(k, {}).get(c, 0) for c in v}
+                 for k, v in loop_stats(s).items()}
+        host_s = pool.seconds - seconds
+        runs[on_device] = dict(sampler=s, results=s.results(), logz=s.evidence()[0], wall=wall,
+                               pool_s=host_s, rest_s=wall - host_s, map_calls=pool.calls - calls,
+                               sweeps=int(s.state.cur.calls), iters=int(s.state.hist.t),
+                               handshakes=handshakes, launches=launched, loops=loops,
+                               graphs=graphs)
+    eager, fused = runs[False], runs[True]
+    for key in ("beta", "logz", "ess", "steps", "calls"):
+        check(fused["results"][key].tobytes() == eager["results"][key].tobytes(),
+              f"A host: {key} with on_device=True differs from on_device=False")
+    lo, hi = CLUSTERED_LOGZ[0] - CLUSTERED_LOGZ[1], CLUSTERED_LOGZ[0] + CLUSTERED_LOGZ[1]
+    check(fused["logz"] == eager["logz"] and lo <= fused["logz"] <= hi
+          and fused["sampler"].beta == 1.0, f"A host: logZ {fused['logz']!r} / {eager['logz']!r}")
+    for name, run in runs.items():
+        check(run["map_calls"] == run["sweeps"] == run["handshakes"] > 0,
+              f"A host on_device={name}: {run['map_calls']} map calls and {run['handshakes']} "
+              f"handshakes for {run['sweeps']} sweeps")
+    loops = fused["loops"]
+    reads = sum(v.get("reads", 0) for v in loops.values())
+    check(loops["run"].get("replays") == 1 and loops["run"].get("reads") == 1 and reads == 1
+          and all(v.get("captures", 0) == 0 for v in loops.values())
+          and loops["run"].get("node_bodies") == fused["iters"] - 1,
+          f"A host on the run loop: {loops} for {fused['iters']} iterations")
+    # eagerly the kernel launches in every MCMC body, and a body past the
+    # stop makes no handshake; the run loop runs the real steps alone
+    past = eager["loops"]["mcmc"]["past_stop"]
+    check(fused["launches"]["host_call"] == fused["sweeps"]
+          and eager["launches"]["host_call"] - past == eager["sweeps"]
+          and "likelihood" not in eager["loops"],
+          f"A host: {fused['launches']['host_call']} host-call launches on the run loop, "
+          f"{eager['launches']['host_call']} eagerly ({past} steps past the stop), for "
+          f"{fused['sweeps']} sweeps; eager loops {eager['loops']}")
+    real = less_past_stop(eager["sampler"], eager["launches"], "A host")
+    real["host_call"] -= past
+    check(fused["launches"] == real,
+          f"A host: launches {fused['launches']} on the run loop, {real} eagerly less the "
+          f"chunks' steps past the stop")
+    shown = {f"on_device={k}": {f: r[f] for f in ("wall", "pool_s", "rest_s", "map_calls",
+                                                  "handshakes", "sweeps", "iters", "logz")}
+             for k, r in runs.items()}
+    print(f"A host (rosenbrock_numpy, seed {SEEDS[0]}): bit for bit on both routes, logz "
+          f"{fused['logz']!r}; the run loop one replay and one read a run; a handshake a "
+          f"sweep on both routes ({fused['handshakes']}); eagerly "
+          f"{eager['launches']['host_call']} host-call launches; {json.dumps(shown)}; "
+          f"graph {json.dumps(fused['graphs'])}", flush=True)
+    object_blobs_on_loop(device)
+    raising_on_loop(device)
+    return {"A_host": eager["launches"], "A_host_fused": fused["launches"], "host_runs": shown}
+
+
+def ll_object(x):
+    # tests/test_blobs.py:141-146: an arbitrary Python payload a point
+    return -0.5 * float(np.sum(x * x)), {"tag": round(float(x[0]), 3)}
+
+
+def object_blobs_on_loop(device) -> None:
+    """tests/test_blobs.py:140-156's object-payload likelihood on the run
+    loop: every payload follows its particle, the store is pruned."""
+    s = Sampler(lambda u: 10.0 * u - 5.0, ll_object, n_dim=2, n_particles=16,
+                host_likelihood=True, blobs_dtype="object", random_state=0, n_max_steps=3,
+                device=device)
+    s.run(n_total=32, progress=False, on_device=True)
+    x, _, _, blobs = s.posterior(return_blobs=True)
+    follow = all(b is not None and abs(b["tag"] - round(float(xi[0]), 3)) < 5e-3
+                 for xi, b in zip(x, blobs))
+    store = s.state.blob_schema.store
+    live = set(s.state.hist.blobs.reshape(-1).tolist()) | set(s.state.cur.blobs.reshape(-1).tolist())
+    pruned = all((p is not None) == (i in live) for i, p in enumerate(store))
+    stats = loop_stats(s)
+    check(len(blobs) > 0 and follow and pruned and stats["run"].get("replays") == 1
+          and len(store) == 16 * int(s.state.cur.calls),
+          f"object blobs on the run loop: follow {follow}, pruned {pruned}, store {len(store)} "
+          f"for {int(s.state.cur.calls)} sweeps, loops {stats}")
+    print(f"object blobs on the run loop: {len(blobs)} payloads follow their particles, "
+          f"{sum(p is None for p in store)} of {len(store)} store entries pruned", flush=True)
+
+
+class Boom(RuntimeError):
+    """The exception of `Flaky`."""
+
+
+class Flaky:
+    """The 10-D Gaussian host likelihood, raising `Boom` at its `fail_at`-th
+    call and after, until `fail_at` is None."""
+
+    def __init__(self, fail_at):
+        self.fail_at, self.calls = fail_at, 0
+
+    def __call__(self, x):
+        self.calls += 1
+        if self.fail_at is not None and self.calls >= self.fail_at:
+            raise Boom(f"likelihood call {self.calls}")
+        return gaussian_numpy(x)
+
+
+def raising_on_loop(device) -> None:
+    """A likelihood that raises in a later iteration of a run on the run
+    loop: its own exception, no call after it and no handshake after the
+    one that failed (the loops end within that step), the process alive;
+    then the same sampler, reset, repeats a clean sampler's run bit for
+    bit."""
+    def make(fn):
+        return Sampler(prior_transform, fn, n_dim=N_DIM, n_particles=512, host_likelihood=True,
+                       clustering=False, random_state=0, history_capacity=64, device=device)
+
+    clean = make(gaussian_numpy)
+    clean.run(n_total=2048, progress=False, on_device=True)
+    sweeps = int(clean.state.cur.calls)
+    fail_at = 512 * (sweeps // 2) + 7
+    flaky = Flaky(fail_at)
+    s = make(flaky)
+    reset_counts()
+    raised = None
+    t0 = time.perf_counter()
+    try:
+        s.run(n_total=2048, progress=False, on_device=True)
+    except Boom as exc:
+        raised = exc
+    seconds = time.perf_counter() - t0
+    handshakes = counts()["host_call"]
+    check(raised is not None and flaky.calls == flaky.fail_at
+          and handshakes == -(-flaky.fail_at // 512),
+          f"a raising likelihood: {raised!r}, {flaky.calls} calls for a failure at "
+          f"{flaky.fail_at}, {handshakes} handshakes")
+    flaky.fail_at = None
+    s.reset(random_state=0)
+    s.run(n_total=2048, progress=False, on_device=True)
+    for key in ("beta", "logz", "steps", "calls"):
+        check(s.results()[key].tobytes() == clean.results()[key].tobytes(),
+              f"a raising likelihood: {key} of the run after reset() differs from a clean run")
+    print(f"a raising likelihood on the run loop: {raised!r} raised after {seconds:.3f} s at "
+          f"call {fail_at}, {handshakes} handshakes (the failing one last); "
+          f"after reset() the run equals a clean run bit for bit ({sweeps} sweeps)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5897,7 +6278,7 @@ def _mesh_runs(device, walls32: dict) -> dict:
     mesh_collectives(device, particle_group(mesh))
     with tempfile.TemporaryDirectory() as tmp:
         s = mesh_sampler(device, mesh, SEEDS[0], output_dir=tmp)
-        check(s.state.fused, "A mesh: not on the fused route")
+        check(fused_iteration(s), "A mesh: not on the fused route")
         eager = mesh_run(s, f"A mesh (world size 1, seed {SEEDS[0]}, save_every=10)",
                          save_every=10)
         print(f"A mesh seed {SEEDS[0]}: phase 6 seed {SEEDS[0]} without a mesh: "
@@ -6001,7 +6382,7 @@ def phase_rosenbrock100(device) -> dict:
     kernels."""
     since = len(FORMS)
     s = rosenbrock100_sampler(device, SEEDS[1])
-    check(s.state.fused and run_loop(s), "rosenbrock100: not on the device run loop")
+    check(fused_iteration(s) and run_loop(s), "rosenbrock100: not on the device run loop")
     sizes, plan = [], cuda_reweight.plan_launch
 
     def recording_plan(n, dtype=torch.float32):  # the S of every ESS launch planned
@@ -6227,7 +6608,7 @@ def mcmc_step_ms(device, loglike, u, n_candidates: int = N_PROPOSAL_CANDIDATES,
     walkers `u` under one mode fitted to them, by CUDA events around
     replays of a CUDA graph of the step: no host gap between its kernels."""
     n, d = u.shape
-    kernel = mcmc_module.MCMCKernel(lambda x: (loglike(x), None), prior_transform, d,
+    kernel = mcmc_module.MCMCKernel(lambda x, *_: (loglike(x), None), prior_transform, d,
                                     n_candidates=n_candidates, dtype=u.dtype)
     cov = torch.cov(u.T.double()) + 1e-6 * torch.eye(d, device=device, dtype=torch.float64)
     modes = modes_module.make_mode_statistics(
@@ -6542,10 +6923,11 @@ SOURCES = {"ess_bisect": "tempest_tpu_torch/csrc/ess_bisect.cu",
            "weighted_median": "tempest_tpu_torch/csrc/weighted_median.cu",
            "gmm_em": "tempest_tpu_torch/csrc/gmm_em.cu",
            "mvstud_em": "tempest_tpu_torch/csrc/mvstud_em.cu",
-           "set_conditional": "tempest_tpu_torch/csrc/graph_cond.cu"}
+           "set_conditional": "tempest_tpu_torch/csrc/graph_cond.cu",
+           "host_call": "tempest_tpu_torch/csrc/host_call.cu"}
 KERNELS = ("ess_bisect", "ess_bisect_f64", "ess_bracket", "mutation_draws", "normal", "bits",
            "gamma", "mutation_draws_f64", "normal_f64", "uniform_f64", "gamma_f64",
-           "sym_eigvals", "weighted_median", "gmm_em", "mvstud_em", "set_conditional")
+           "sym_eigvals", "weighted_median", "gmm_em", "mvstud_em", "set_conditional", "host_call")
 # Kernels of the port that replace no Pallas kernel, and what they replace.
 NO_PALLAS = {
     "sym_eigvals": "XLA's jnp.linalg.eigvalsh of volume_variation_dtn (tools.py:214; also :274); "
@@ -6568,6 +6950,12 @@ NO_PALLAS = {
                        "run (tempest_tpu/fused.py:411-433): the flag of a CUDA-graph "
                        "conditional node, set on the device at each replay; its plain version "
                        "is the host's read of the predicate",
+    "host_call": "JAX's host callback of host_likelihood=True (jax.pure_callback, io_callback "
+                 "with object blobs; tempest_tpu/utils/wrappers.py:88-131) inside its one "
+                 "device program: a CUDA graph's conditional bodies take kernel nodes, not host "
+                 "nodes, so a kernel hands the points to the host through mapped pinned memory "
+                 "and waits for the replaying thread's reply; its plain version is the eager "
+                 "crossing, a blocking read and a copy back",
     # JAX sends every dtype but float32 to threefry (hw_prng_supported,
     # pallas_prng.py:46-48): the float64 draws replace XLA's, in double.
     "mutation_draws_f64": "XLA's threefry draws of a float64 tpCN step: jax.random.normal, "
@@ -6595,6 +6983,7 @@ REPLACES = {
     "gmm_em": "tempest_tpu/cluster.py:256",
     "mvstud_em": "tempest_tpu/student.py:323",
     "set_conditional": "tempest_tpu/cluster.py:933",
+    "host_call": "tempest_tpu/utils/wrappers.py:128",
     "mutation_draws_f64": "tempest_tpu/mcmc.py:194",
     "normal_f64": "tempest_tpu/mcmc.py:194",
     "uniform_f64": "tempest_tpu/mcmc.py:348",
@@ -6637,6 +7026,10 @@ LAUNCHES_ON = {
                        "mutation and termination IF nodes), 16 a mutation (the cluster fit's "
                        "15 IF nodes, the MCMC chain's WHILE node) and one a step); the "
                        "on_device=False runs decide on the host and launch none",
+    "host_call": "A with its likelihood on the host (phase 13, seed 42, on the run loop: one a "
+                 "sweep, the first iteration's served outside the graph, the others in the "
+                 "warm-up IF body and the MCMC WHILE body; its on_device=False run reads "
+                 "instead, and launches none)",
     "mutation_draws_f64": "A in float64 (phase 14, seed 42, on_device=False: one an MCMC step "
                           "body, the chunks' steps past the stop included; on the run loop "
                           "once a step, in the MCMC WHILE node's body); with hardware_prng "
@@ -6816,6 +7209,9 @@ def main() -> None:
             rows["set_conditional"]["nested"] = phase_nested_nodes(device)
             stamp("phase 4i: NCCL collectives inside conditional bodies")
             rows["set_conditional"]["nccl"] = phase_nccl_probe()
+    if cuda_host is not None:
+        stamp("phase 4j: the host-call kernel")
+        rows["host_call"] = phase_host_kernel(device)
     floor = launch_floor(device)
     split = phase_call_split(device)
     if args.kernels_only:
@@ -6873,8 +7269,9 @@ def main() -> None:
             "dynamic graphed window, device ms and launches an iteration": on_path,
             "ps/reweight host ms an iteration": graphed["stages_ms"].get("ps/reweight")}
     stamp("phase 13: cadence and a host likelihood")
-    for name, n in phase_cadence_and_host(device).items():
-        paths[name] = n
+    cadence_host = phase_cadence_and_host(device)
+    host_runs = cadence_host.pop("host_runs", None)
+    paths.update(cadence_host)
     stamp("phase 14: float64")
     f64_paths, f64_errs, f64_summary = phase_float64(device, walls, fused["wall"])
     paths.update(f64_paths)
@@ -6916,7 +7313,8 @@ def main() -> None:
                 "sym_eigvals": paths["rosenbrock100"]["sym_eigvals"],
                 "weighted_median": paths["B"]["weighted_median"],
                 "gmm_em": paths["A"]["gmm_em"], "mvstud_em": paths["A"]["mvstud_em"],
-                "set_conditional": paths["A_fused"]["set_conditional"]}
+                "set_conditional": paths["A_fused"]["set_conditional"],
+                "host_call": paths["A_host_fused"]["host_call"]}
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on its path")
     print(f"launches by path: {json.dumps(paths)}", flush=True)
@@ -6924,6 +7322,7 @@ def main() -> None:
             "float64")
     print(f"dynamic: {json.dumps({k: dynamic[k] for k in keys})}", flush=True)
     print(f"float64: {json.dumps(f64_summary)}", flush=True)
+    print(f"A host: {json.dumps(host_runs)}", flush=True)
     keys = ("walls", "iters", "loops", "run_graphs", "windows", "float64")
     print(f"A mesh: {json.dumps({k: mesh[k] for k in keys})}", flush=True)
     keys = ("wall", "iters", "loops", "run_graphs", "windows")

@@ -19,6 +19,15 @@
 // Then, whatever happened, a clean capture of an IF node on new streams is
 // made and replayed ("ALIVE ... x = 2").
 //
+//   capture_probe hostfunc <route>
+// a host function inside a WHILE node's body (3 runs), each run adding one to
+// a host counter: route tograph (cudaLaunchHostFunc captured straight into
+// the node's body graph), child (captured into a graph of its own, added as
+// a child graph node) or addnode (cudaGraphAddHostNode into the node's body
+// graph beside the captured step kernel). Prints the CUDA runtime and driver
+// versions, every call's result and, where the graph instantiated and ran,
+// the host counter ("HOSTFUNC_RAN calls = 3") or HOSTFUNC_REFUSED.
+//
 //   capture_probe nested <shape> <route> <fault>
 // conditional nodes inside conditional bodies: shape w1i, w2i, w3i (a WHILE
 // node of 4 runs holding a chain of 1, 2 or 3 IF nodes, depths 2-4; IF level
@@ -64,9 +73,11 @@ static const char* status_name(cudaStream_t s) {
 }
 
 int nested_main(int argc, char** argv);
+int host_main(int argc, char** argv);
 
 int main(int argc, char** argv) {
   if (argc >= 2 && !strcmp(argv[1], "nested")) return nested_main(argc, argv);
+  if (argc >= 2 && !strcmp(argv[1], "hostfunc")) return host_main(argc, argv);
   if (argc < 4) return 2;
   const bool is_while = strcmp(argv[1], "while") == 0;
   const char* fault = argv[2];
@@ -516,5 +527,105 @@ int nested_main(int argc, char** argv) {
   int w2[4];
   cudaMemcpy(w2, d.words, 16, cudaMemcpyDeviceToHost);
   printf("ALIVE clean nested replay words %d %d %d (want 4 3 2)\n", w2[0], w2[1], w2[2]);
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// A host function inside a WHILE node's body.
+// ---------------------------------------------------------------------------
+static void CUDART_CB count_call(void* data) { ++*static_cast<int*>(data); }
+
+int host_main(int argc, char** argv) {
+  if (argc < 3) return 2;
+  const char* route = argv[2];
+  int runtime = 0, driver = 0;
+  cudaRuntimeGetVersion(&runtime);
+  cudaDriverGetVersion(&driver);
+  printf("case hostfunc %s\n", route);
+  printf("  CUDA runtime %d driver %d\n", runtime, driver);
+  cudaStream_t parent, body;
+  cudaStreamCreateWithFlags(&parent, cudaStreamNonBlocking);
+  cudaStreamCreateWithFlags(&body, cudaStreamNonBlocking);
+  int *x, *left;
+  bool* pred;
+  cudaMalloc(&x, 4);
+  cudaMalloc(&left, 4);
+  cudaMalloc(&pred, 1);
+  cudaMemset(x, 0, 4);
+  int three = 3;
+  cudaMemcpy(left, &three, 4, cudaMemcpyHostToDevice);
+  cudaMemset(pred, 1, 1);
+  cudaDeviceSynchronize();
+  static int calls = 0;
+
+  R(cudaStreamBeginCapture(parent, cudaStreamCaptureModeThreadLocal));
+  cudaStreamCaptureStatus st;
+  cudaGraph_t graph;
+  cudaStreamGetCaptureInfo(parent, &st, nullptr, &graph, nullptr, nullptr);
+  cudaGraphConditionalHandle handle;
+  R(cudaGraphConditionalHandleCreate(&handle, graph, 0, 0));
+  set_cond<<<1, 1, 0, parent>>>(handle, pred);
+  const cudaGraphNode_t* deps = nullptr;
+  size_t n_deps = 0;
+  cudaStreamGetCaptureInfo(parent, &st, nullptr, &graph, &deps, &n_deps);
+  cudaGraphNodeParams params = {};
+  params.type = cudaGraphNodeTypeConditional;
+  params.conditional.handle = handle;
+  params.conditional.type = cudaGraphCondTypeWhile;
+  params.conditional.size = 1;
+  cudaGraphNode_t node;
+  R(cudaGraphAddNode(&node, graph, deps, n_deps, &params));
+  R(cudaStreamUpdateCaptureDependencies(parent, &node, 1, cudaStreamSetCaptureDependencies));
+  cudaGraph_t node_body = params.conditional.phGraph_out[0];
+  const bool child = !strcmp(route, "child");
+  if (child) {
+    R(cudaStreamBeginCapture(body, cudaStreamCaptureModeThreadLocal));
+  } else {
+    R(cudaStreamBeginCaptureToGraph(body, node_body, nullptr, nullptr, 0,
+                                    cudaStreamCaptureModeThreadLocal));
+  }
+  step<<<1, 1, 0, body>>>(x, left, pred);
+  if (strcmp(route, "addnode") != 0) R(cudaLaunchHostFunc(body, count_call, &calls));
+  set_cond<<<1, 1, 0, body>>>(handle, pred);
+  R(cudaGetLastError());
+  cudaGraph_t bg = nullptr;
+  R(cudaStreamEndCapture(body, &bg));
+  if (child && bg) {
+    cudaGraphNode_t cn;
+    R(cudaGraphAddChildGraphNode(&cn, node_body, nullptr, 0, bg));
+    cudaGraphDestroy(bg);
+  }
+  if (!strcmp(route, "addnode")) {
+    cudaHostNodeParams hp = {};
+    hp.fn = count_call;
+    hp.userData = &calls;
+    cudaGraphNode_t hn;
+    R(cudaGraphAddHostNode(&hn, node_body, nullptr, 0, &hp));
+  }
+  cudaGraph_t pg = nullptr;
+  R(cudaStreamEndCapture(parent, &pg));
+  bool ran = false;
+  if (pg) {
+    cudaGraphExec_t exec;
+    cudaError_t e = cudaGraphInstantiate(&exec, pg, 0);
+    printf("  cudaGraphInstantiate -> %d %s\n", (int)e, cudaGetErrorName(e));
+    if (e == cudaSuccess) {
+      R(cudaGraphLaunch(exec, parent));
+      cudaError_t s2 = cudaStreamSynchronize(parent);
+      printf("  cudaStreamSynchronize -> %d %s\n", (int)s2, cudaGetErrorName(s2));
+      int got = -1;
+      cudaMemcpy(&got, x, 4, cudaMemcpyDeviceToHost);
+      printf("  replay x = %d (want 6)\n", got);
+      ran = s2 == cudaSuccess;
+      cudaGraphExecDestroy(exec);
+    }
+    cudaGraphDestroy(pg);
+  }
+  if (ran) {
+    printf("HOSTFUNC_RAN calls = %d (want 3)\n", calls);
+  } else {
+    printf("HOSTFUNC_REFUSED\n");
+  }
+  fflush(stdout);
   return 0;
 }

@@ -1,7 +1,7 @@
 """How the capture of a CUDA-graph conditional node's body fails, case by
 case, on one NVIDIA GPU.
 
-    python3 scripts/capture_probe.py [--nested-only | --nccl]
+    python3 scripts/capture_probe.py [--nested-only | --nccl | --host-node]
 
 Builds scripts/capture_probe.cu with nvcc (sm_90a) into build/capture_probe/
 and runs each case (IF or WHILE node; a fault inside the body's capture;
@@ -12,6 +12,15 @@ from this: on CUDA 12.8 every case whose body was captured straight into the
 node's body graph and then failed died when the enclosing capture ended,
 while the "child" cases lived. The last line is one JSON object: each
 case's exit code.
+
+`--host-node` runs only the host-function cases instead: a
+`cudaLaunchHostFunc` inside a WHILE node's body (3 runs), captured straight
+into the node's body graph ("tograph"), into a child graph ("child"), and a
+`cudaGraphAddHostNode` into the body graph ("addnode"), each in a process
+of its own, with the CUDA runtime and driver versions; where the graph
+instantiates and runs, the host function's calls (HOSTFUNC_RAN), else
+HOSTFUNC_REFUSED. The port's host likelihood calls the host from such
+bodies through a kernel instead (csrc/host_call.cu).
 
 `--nccl` runs only the NCCL cases instead: a process group of one rank
 over NCCL (a free local port), and an all-reduce inside conditional
@@ -53,9 +62,13 @@ def _run(exe: Path, args) -> tuple:
     return run.returncode, lines
 
 
+HOST_ROUTES = ("tograph", "child", "addnode")
+
+
 def _outcome(rc: int, lines) -> str:
     said = " ".join(lines)
-    words = [w for w in ("NESTED_OK", "NESTED_WRONG", "NESTED_FAILED", "ALIVE") if w in said]
+    words = [w for w in ("NESTED_OK", "NESTED_WRONG", "NESTED_FAILED", "ALIVE", "HOSTFUNC_RAN",
+                         "HOSTFUNC_REFUSED") if w in said]
     return f"rc={rc} " + "+".join(words)
 
 
@@ -169,6 +182,14 @@ def main() -> None:
     if proc.returncode != 0:
         sys.exit(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
     codes, nested = {}, {}
+    if "--host-node" in sys.argv[1:]:
+        host = {}
+        for route in HOST_ROUTES:
+            rc, lines = _run(exe, ("hostfunc", route))
+            host[route] = _outcome(rc, lines)
+            print(f"hostfunc {route}: rc={rc} | " + " | ".join(lines), flush=True)
+        print(json.dumps({"host_node": host}), flush=True)
+        return
     if "--nested-only" not in sys.argv[1:]:
         for kind, fault, strategy in itertools.product(KINDS, FAULTS, STRATEGIES):
             rc, lines = _run(exe, (kind, fault, strategy))

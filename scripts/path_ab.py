@@ -1,7 +1,7 @@
 """A's, B's, dynamic mode's and rosenbrock100's runs in two versions of
 tempest_tpu_torch, in turns on one GPU.
 
-    python3 scripts/path_ab.py --parent DIR [--only float64|mutation]
+    python3 scripts/path_ab.py --parent DIR [--only float64|mutation|host]
 
 DIR is a checkout of another commit (for instance `git archive <commit> |
 tar -x -C build/parent`). The script runs `--one ROOT` in a process of its
@@ -55,7 +55,16 @@ both versions run the same drive). One process:
   a capturing run, and its graphed window as above; and the device ms of
   one tpCN step at B's and rosenbrock100's walkers (`chip_smoke.step_times`:
   a CUDA graph of `MCMCKernel.step` on fixed draws, replayed between CUDA
-  events), in the form each version takes there.
+  events), in the form each version takes there;
+- A with a host likelihood (`--only host` runs this alone; `host_paths`):
+  A's configuration with `chip_smoke.rosenbrock_numpy`, a per-point numpy
+  function, and host_likelihood=True, seed 42 with run(on_device=True)
+  after a capturing seed-43 run, then with run(on_device=False): wall,
+  iterations, ms an iteration, the seconds inside the pool's map and the
+  rest, the loops' blocking reads an iteration, the map calls and the
+  host-call kernel's handshakes (null for a package without it) beside
+  the likelihood sweeps, logZ, and whether the run took the device run
+  loop.
 
 Each process prints one line `PATH_AB {json}`; the parent process prints
 them in order and exits non-zero if one failed. About 2 min a process.
@@ -174,6 +183,46 @@ def float64_paths(cs, device) -> dict:
     return out
 
 
+def host_paths(cs, device) -> dict:
+    """A with its likelihood on the host (`chip_smoke.host_a_sampler`, a
+    `TimedPool` counting the map calls and their seconds): seed 42 with
+    run(on_device=True) after a capturing seed-43 run, then with
+    run(on_device=False): wall, iterations, ms an iteration, the seconds
+    inside the pool's map and the rest, the loops' blocking host reads an
+    iteration, the map calls and the host-call kernel's handshakes beside
+    the likelihood sweeps, logZ."""
+    import torch
+
+    pool = cs.TimedPool()
+    s = cs.host_a_sampler(device, cs.SEEDS[1], pool=pool)
+    s.run(n_total=cs.N_TOTAL, progress=False, on_device=True)  # captures the graphs
+    out = {}
+    for on_device in (True, False):
+        s.reset(random_state=cs.SEEDS[0])
+        loops = s.state._iteration.loops
+        reads = sum(v.get("reads", 0) for v in loops.stats.values())
+        replays = loops.stats.get("run", {}).get("replays", 0)
+        calls, seconds = pool.calls, pool.seconds
+        served = None if cs.cuda_host is None else cs.cuda_host.HANDSHAKES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run(n_total=cs.N_TOTAL, progress=False, on_device=on_device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        iters = int(s.state.hist.t)
+        host_s = pool.seconds - seconds
+        out[f"on_device={on_device}"] = {
+            "wall_s": wall, "iters": iters, "ms_per_iter": 1e3 * wall / iters,
+            "pool_map_s": host_s, "rest_s": wall - host_s,
+            "reads_per_iter": (sum(v.get("reads", 0) for v in loops.stats.values()) - reads)
+            / iters,
+            "map_calls": pool.calls - calls, "sweeps": int(s.state.cur.calls),
+            "handshakes": None if served is None else cs.cuda_host.HANDSHAKES - served,
+            "logz": s.evidence()[0],
+            "run_loop": loops.stats.get("run", {}).get("replays", 0) > replays}
+    return out
+
+
 def one(root: str, only: str = "") -> dict:
     sys.argv = [sys.argv[0], "--package-root", root]  # chip_smoke reads it when imported
     sys.path.insert(0, REPO)
@@ -186,6 +235,9 @@ def one(root: str, only: str = "") -> dict:
     out = {"root": root, "package": os.path.dirname(os.path.dirname(cs.cuda_reweight.__file__))}
     if only == "mutation":
         out.update(mutation_paths(cs, device))
+        return out
+    if only == "host":
+        out["host"] = host_paths(cs, device)
         return out
     out["float64"] = float64_paths(cs, device)
     if only == "float64":
@@ -297,8 +349,9 @@ def rosenbrock100(cs, device) -> dict:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", metavar="DIR", help="the other version's checkout")
-    parser.add_argument("--only", choices=("float64", "mutation"),
-                        help="run the float64 paths, or the mutation's, alone")
+    parser.add_argument("--only", choices=("float64", "mutation", "host"),
+                        help="run the float64 paths, the mutation's or A's host likelihood "
+                             "alone")
     parser.add_argument("--one", metavar="ROOT", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.one:
@@ -327,6 +380,10 @@ def main() -> None:
                   f"{[round(x, 4) for x in r['B_mutation_s']]}, profiled "
                   f"{json.dumps(r['B_profiled'])}; rosenbrock100 {json.dumps(r['rosenbrock100'])}; "
                   f"one tpCN step's device ms {json.dumps(r['step_ms'])}", flush=True)
+            continue
+        if args.only == "host":
+            print(f"{who} ({r['package']}): A with a host likelihood {json.dumps(r['host'])}",
+                  flush=True)
             continue
         print(f"{who} ({r['package']}): float64 {json.dumps(r['float64'])}", flush=True)
         if args.only:

@@ -9,24 +9,29 @@ block-bootstrap error), results and state-file extraction. The fitted
 cluster model is carried from iteration to iteration in `cluster_model`
 (in JAX, `_fused_model` and `_fused_fitted`), and saved with the state.
 
-A configuration of `fused.fused_route` (every one without a host
-likelihood: one device or a mesh, ESS or dynamic mode) runs the fused
-iteration (`fused.py`) for `run()` and `sample()` alike, as JAX runs its
-fused iteration for both: its loops in chunks, one host read a chunk.
-`run(on_device=True)` without `save_every` (which keeps the host loop,
-core.py:309, and under a mesh its sharded checkpoints) on a configuration
-of the fused route (float32 or float64, one device or a mesh, ESS or
-dynamic mode: every configuration without a host likelihood) runs the
-annealing loop itself on the device, as `_run_on_device` does
-(core.py:334-464):
+Every configuration (one device or a mesh, ESS or dynamic mode, a torch
+or a host likelihood) runs the fused iteration (`fused.py`) for `run()`
+and `sample()` alike, as JAX runs its fused iteration for both: its loops
+in chunks, one host read a chunk, and a host likelihood's crossing once a
+sweep (on the CPU one counted read, on the card the host-call kernel).
+`iteration.make_iteration` alone (a read after every body) is the tests'
+reference. `run(on_device=True)` without
+`save_every` (which keeps the host loop, core.py:309, and under a mesh its
+sharded checkpoints) runs the annealing loop itself on the device, as
+`_run_on_device` does (core.py:334-464), for every configuration (float32
+or float64, one device or a mesh, ESS or dynamic mode, a host likelihood
+too: its host-call kernel inside the graph's bodies, served by the thread
+that replays it, `utils.wrappers.HostLikelihood`):
 the first iteration on the per-iteration route, then the loop of
 `fused.make_fused_run`, whose predicate is the termination test, until
 it ends or the history fills; the host reads `t` once a dispatch, and
 where the history filled it checks the termination, doubles the capacity
 and enters again. On a CUDA device the loop's CUDA graphs are on
-(`loops.Loops.graphs`), so a dispatch is one graph replay. Every other
-route (`on_device=False`, `save_every`, a host likelihood) anneals in the
-host loop of `run_sampling`, whose termination test takes the beta the
+(`loops.Loops.graphs`), so a dispatch is one graph replay; a host
+likelihood that raises ends the loop after its step, and the replay
+re-raises its exception (`reset()` then starts clean). Every other route
+(`on_device=False`, `save_every`) anneals in the host loop of
+`run_sampling`, whose termination test takes the beta the
 iteration read (`iteration.beta`) and reads the posterior ESS once beta is
 finished, the run loop's predicate (`fused.beta_unfinished`,
 `fused.ess_below`) evaluated by the host. All routes give the same
@@ -58,9 +63,7 @@ import torch.distributed as dist
 from .cluster import ClusterModel, single_cluster_model
 from .config import SamplerConfig
 from .draws import BlockDraws, Draws, HardwareDraws, seed_from_key_words
-from .fused import (beta_unfinished, ess_below, fused_route, make_fused_iteration,
-                    make_fused_run)
-from .iteration import make_iteration
+from .fused import beta_unfinished, ess_below, make_fused_iteration, make_fused_run
 from .ops.tools import ess_from_logw_psum, systematic_resample, trim_weights_mask
 from .parallel.mesh import particle_group, shard_current, shard_history
 from .state import (
@@ -141,10 +144,8 @@ class SamplerCore:
             schema=self.blob_schema,
             pool_map=self.pool_map,
         )
-        self.fused = fused_route(cfg)
-        build = make_fused_iteration if self.fused else make_iteration
-        self._iteration = build(cfg, self._loglike_batch, self._prior_batch)
-        self._run = make_fused_run(cfg, self._iteration) if self.fused else None
+        self._iteration = make_fused_iteration(cfg, self._loglike_batch, self._prior_batch)
+        self._run = make_fused_run(cfg, self._iteration)
         self.draws = None
         self.pbar: Optional[ProgressBar] = None
         self.reset()
@@ -239,9 +240,9 @@ class SamplerCore:
                 logL=0.0, acc=0.0, steps=0, eff=0.0, K=1,
             ))
         loops = self._iteration.loops
-        loops.graphs = self.fused and on_device and save_every is None
+        loops.graphs = on_device and save_every is None
         try:
-            if self.fused and on_device and save_every is None:
+            if on_device and save_every is None:
                 self._run_on_device(t0)
             else:
                 beta = None  # read once, where a resumed run starts

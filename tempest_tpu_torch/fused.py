@@ -20,13 +20,18 @@ the device with its termination test there (:411-426). Here:
   is finished: a `loops.when`), and while t < capacity. Its carry is the
   history, written in place (`state.commit`), the active set with the
   iteration counter, step and call counts as device words, and the
-  carried cluster model with its `fitted` flag. Every configuration of
-  the fused route (`fused_route(config)`) takes it: float32 or float64
-  (on the card every draw of either is keyed, `draws.Draws.keyed`), on
-  one device or a particle mesh (the predicate's ESS reduced over the
-  ranks, `run_predicate`'s `group`), in ESS or dynamic mode (the
-  bisections' WHILE nodes, the dynamic boundary rules' IF nodes),
-  clustered or not at any `cluster_every`, either `hardware_prng`.
+  carried cluster model with its `fitted` flag. Every configuration
+  takes it: float32 or float64 (on the card
+  every draw of either is keyed, `draws.Draws.keyed`), on one device or a
+  particle mesh (the predicate's ESS reduced over the ranks,
+  `run_predicate`'s `group`), in ESS or dynamic mode (the bisections'
+  WHILE nodes, the dynamic boundary rules' IF nodes), clustered or not at
+  any `cluster_every`, either `hardware_prng`, a torch likelihood or a
+  host one (`host_likelihood=True`: its host-call kernel in the warm-up's
+  IF body and the MCMC chain's WHILE body, served by the thread that
+  replays the graph, `utils.wrappers.HostLikelihood`; the predicate ANDs
+  in the word that kernel sets where the likelihood raised, so the loop
+  ends after that iteration and the replay re-raises the exception).
   `SamplerCore.run_sampling` drives it for `run(on_device=True)` without `save_every`, as
   `_run_on_device` does (tempest_tpu/core.py:334-464): the first iteration
   (t = 0) on the per-iteration route, as `make_fused_run` requires
@@ -55,15 +60,18 @@ the device with its termination test there (:411-426). Here:
   `run(on_device=True)` takes the run loop too, a Python loop whose
   decisions the host reads.
 
-The fused route covers every configuration but `host_likelihood=True`
-(`fused_route`): one device or a particle mesh (`mesh=`, fused.py:102-112,
-:168-177, :225; the chunks' collectives are captured with them on CUDA,
-and the draws are a `draws.BlockDraws`, whose position is global), ESS or
-dynamic mode (:223-224), with or without clustering, at any
-`cluster_every`, in float32 or float64, either `hardware_prng`. A host
-likelihood runs on the host by design and
-keeps the eager route of `iteration.py`, whose loops read after every body.
-The TPU-only parts of the JAX module are not ported: the layout pins
+The fused route covers every configuration, as JAX builds its fused
+iteration for every one (tempest_tpu/core.py:151-155): one
+device or a particle mesh (`mesh=`, fused.py:102-112, :168-177, :225; the
+chunks' collectives are captured with them on CUDA, and the draws are a
+`draws.BlockDraws`, whose position is global), ESS or dynamic mode
+(:223-224), with or without clustering, at any `cluster_every`, in float32
+or float64, either `hardware_prng`, and a host likelihood, which JAX calls
+through `jax.pure_callback` inside its program: on the CPU one counted
+read a sweep, on the card the host-call kernel (`ops.cuda_host`). The
+eager iteration of `iteration.py` alone (a read after every body) is the
+tests' reference. The
+TPU-only parts of the JAX module are not ported: the layout pins
 (:253-292), donation (:295-312) and the relay watchdog's dispatch budget
 (core.py:366-463), so a dispatch runs until the loop ends or the history
 fills.
@@ -96,11 +104,6 @@ CHUNKS = {"ess_bracket": 8, "cv_bisect": 8, "ess_sharded": 8, "mode_em": 4, "gmm
 BETA_DONE = 1e-4
 
 
-def fused_route(config: SamplerConfig) -> bool:
-    """Whether `config` runs the fused iteration: all but a host likelihood."""
-    return not config.host_likelihood
-
-
 def make_fused_iteration(
     config: SamplerConfig, log_likelihood_batch: Callable, prior_transform_batch: Callable,
 ) -> Callable:
@@ -127,11 +130,12 @@ def run_predicate(loops: Loops, hist: History, beta: torch.Tensor, n_total,
                   group=None) -> torch.Tensor:
     """JAX's `cond` of the run loop (fused.py:411-426) as a 0-d bool: beta
     unfinished, or else the posterior ESS below `n_total` (evaluated only
-    where beta is finished, `loops.when`), and t < capacity."""
+    where beta is finished, `loops.when`), and t < capacity; and no host
+    call's likelihood raised (`Loops.unhalted`)."""
     unfinished = beta_unfinished(beta)
     go = loops.when(~unfinished, lambda s: {"go": ess_below(hist, n_total, group)},
                     {"go": unfinished}, "termination")["go"]
-    return go & (hist.t < hist.capacity)
+    return loops.unhalted(go & (hist.t < hist.capacity), group)
 
 
 # The carry of the run loop: the history's fields (its host mirror of t

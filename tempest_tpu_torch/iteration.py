@@ -106,11 +106,16 @@ def make_iteration(
     """Build `iteration(draws, hist, cur, model) -> (hist, cur, model)`;
     `model` is the ClusterModel carried from the last fit (the one-cluster
     placeholder, `fitted=False`, before it). `log_likelihood_batch` returns
-    (logl, blobs or None). The caller grows the history so that capacity >
-    hist.t. `iteration.loops` runs the loops; after a call, `iteration.beta`
-    is the iteration's beta on the host."""
+    (logl, blobs or None); one that has a `bind` (the host crossing,
+    `utils.wrappers.HostLikelihood`) is bound to the loops here. The caller
+    grows the history so that capacity > hist.t. `iteration.loops` runs the
+    loops; after a call, `iteration.beta` is the iteration's beta on the
+    host."""
     cfg = config
     loops = loops or Loops(cfg.device)
+    bind = getattr(log_likelihood_batch, "bind", None)
+    if bind is not None:  # its reads, stretches and halt word
+        bind(loops)
     N, d = cfg.n_particles, cfg.n_dim
     group = None if cfg.mesh is None else particle_group(cfg.mesh, cfg.particle_axis)
     p_mask, r_mask, s_mask = make_boundary_masks(d, cfg.periodic, cfg.reflective, device=cfg.device)

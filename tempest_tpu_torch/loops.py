@@ -76,6 +76,14 @@ runs each chunk as a `torch.cuda.CUDAGraph`:
   the static buffers stay as they were; on the CPU, where no capture
   follows, it runs that Python loop on the copy, so a stretch decided on
   the device gives the whole loop's result there;
+- a host call (`utils.wrappers.HostLikelihood`, a host likelihood's
+  crossing) inside a stretch is captured as the host-call kernel
+  (`ops.cuda_host`); the graph notes its mailbox (`_Graph.hosts`) and every
+  replay of it serves the calls on the thread that replays it until the
+  graph has finished, then re-raises what the likelihood raised; the
+  word the kernel sets where it raised is `halt`, which the predicates
+  around it AND in (`unhalted`); a capture's warm-up and trial call
+  nothing on the host;
 - a capture that fails (a body that reads the host, such as a likelihood
   calling `.item()`, or synchronizes or allocates in a way PyTorch's sync
   check misses) raises `CaptureError` naming the cause and
@@ -98,9 +106,11 @@ import weakref
 from collections import Counter, defaultdict
 from typing import Callable, Dict, Iterator, List, Optional
 
+import numpy as np
 import torch
 
-from .ops import cuda_em, cuda_graphs, cuda_linalg, cuda_median, cuda_prng, cuda_reweight
+from .ops import cuda_em, cuda_graphs, cuda_host, cuda_linalg, cuda_median, cuda_prng, cuda_reweight
+from .ops.tools import _psum
 
 Tensors = Dict[str, torch.Tensor]
 Body = Callable[[Tensors, Tensors], Tensors]
@@ -114,7 +124,7 @@ def _counts() -> Dict[str, int]:
     return {"ess_bisect": cuda_reweight.LAUNCHES, "ess_bisect_f64": cuda_reweight.LAUNCHES_F64,
             "ess_bracket": cuda_reweight.BRACKET_LAUNCHES, "sym_eigvals": cuda_linalg.LAUNCHES,
             "weighted_median": cuda_median.LAUNCHES, "set_conditional": cuda_graphs.LAUNCHES,
-            **cuda_em.LAUNCHES, **cuda_prng.LAUNCHES}
+            "host_call": cuda_host.LAUNCHES, **cuda_em.LAUNCHES, **cuda_prng.LAUNCHES}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -148,6 +158,7 @@ def _add_launches(delta: Dict[str, int], sign: int = 1) -> None:
     cuda_linalg.LAUNCHES += sign * delta["sym_eigvals"]
     cuda_median.LAUNCHES += sign * delta["weighted_median"]
     cuda_graphs.LAUNCHES += sign * delta["set_conditional"]
+    cuda_host.LAUNCHES += sign * delta["host_call"]
     for counts in (cuda_em.LAUNCHES, cuda_prng.LAUNCHES):
         for name in counts:
             counts[name] += sign * delta[name]
@@ -163,11 +174,14 @@ class _Graph:
     returns; `branches`, where it has conditional nodes, their device words
     (one int64 each, the bodies run since the last `settle_launches`), each
     body's own launches (those of the nodes nested in it left out) and the
-    counters of the loop each body belongs to (`Loops.stats`)."""
+    counters of the loop each body belongs to (`Loops.stats`); `hosts`, the
+    mailboxes of the host calls it holds (`ops.cuda_host`), which its
+    replays serve."""
 
     def __init__(self, graph: torch.cuda.CUDAGraph, launches: Dict[str, int],
-                 branches: Optional[tuple] = None):
+                 branches: Optional[tuple] = None, hosts: tuple = ()):
         self.graph, self.launches, self.branches = graph, launches, branches
+        self.hosts = hosts
         self.outputs: Tensors = {}
         # (top-level nodes, nodes in conditional bodies) where it has any,
         # the deepest nesting of its nodes, and the seconds its capture and
@@ -177,10 +191,18 @@ class _Graph:
         self.capture_s = 0.0
 
     def replay(self) -> None:
-        self.graph.replay()
-        _add_launches(self.launches)
-        if self.branches is not None:
-            _UNSETTLED.add(self)
+        """Launch the graph; where it holds host calls, serve them on this
+        thread until it has finished (`cuda_host.served`), and raise what
+        a host function raised."""
+        try:
+            if self.hosts:
+                cuda_host.served(self.graph.replay, self.hosts)
+            else:
+                self.graph.replay()
+        finally:
+            _add_launches(self.launches)
+            if self.branches is not None:
+                _UNSETTLED.add(self)
 
 
 def _device_key(device) -> torch.device:
@@ -252,6 +274,10 @@ class Loops:
         self.graphs = graphs
         self.counters = list(counters or [])
         self.stats: Dict[str, Counter] = defaultdict(Counter)
+        # The device word a host call sets where its host function raised
+        # (`utils.wrappers.HostLikelihood`), which `unhalted` ANDs into the
+        # predicates of the loops around it.
+        self.halt: Optional[torch.Tensor] = None
         self._statics: Dict[tuple, tuple] = {}
         self._graphs: Dict[tuple, _Graph] = {}
         self._pinned: Optional[torch.Tensor] = None
@@ -281,6 +307,8 @@ class Loops:
         # trial captures (`_trial`).
         self._capturing = ""
         self._trial_pool = None
+        # During a capture: the mailboxes of the host calls captured.
+        self._hosts: list = []
 
     def chunk(self, name: str) -> int:
         """The bodies a chunk of loop `name` runs between its reads."""
@@ -297,10 +325,15 @@ class Loops:
     def read(self, name: str, *tensors: torch.Tensor) -> List[float]:
         """The values of `tensors` (flattened, in order) on the host: one
         blocking read, counted for loop `name`."""
+        return self.fetch(name, *tensors).tolist()
+
+    def fetch(self, name: str, *tensors: torch.Tensor) -> np.ndarray:
+        """`read`'s values as a float64 numpy array: one blocking read,
+        counted for loop `name`."""
         self.stats[name]["reads"] += 1
         flat = torch.cat([t.detach().reshape(-1).to(torch.float64) for t in tensors])
         if flat.device.type != "cuda":
-            return flat.tolist()
+            return flat.numpy()
         n = flat.numel()
         if self._pinned is None or self._pinned.numel() < n:
             self._pinned = torch.empty(max(n, 64), dtype=torch.float64, pin_memory=True)
@@ -308,7 +341,34 @@ class Loops:
         self._pinned[:n].copy_(flat, non_blocking=True)
         self._event.record()
         self._event.synchronize()
-        return self._pinned[:n].tolist()
+        return self._pinned[:n].numpy().copy()
+
+    def unhalted(self, pred: torch.Tensor, group=None) -> torch.Tensor:
+        """`pred` and the host call's function did not raise (`halt`, summed
+        over the ranks of `group`): a loop around a host call that failed
+        ends after the body that made it."""
+        if self.halt is None:
+            return pred
+        return pred & (_psum(self.halt, group) == 0).reshape(pred.shape)
+
+    @property
+    def guards(self) -> List[torch.Tensor]:
+        """The predicates of the conditional bodies a stretch's warm-up is
+        in around the caller: the guard stack `_warm` keeps in every
+        counter, read from the first."""
+        counters = self._counters()
+        return list(counters[0].guards) if counters else []
+
+    @property
+    def capturing(self) -> bool:
+        """Whether a stretch is being captured (not warmed up)."""
+        return self._stretch == "capture"
+
+    def note_host(self, box) -> None:
+        """Record host-call mailbox `box` in the graph being captured, whose
+        replays then serve it."""
+        if box not in self._hosts:
+            self._hosts.append(box)
 
     def start(self, name: str, body: Body, carry: Tensors, consts: Tensors,
               static: tuple = ()) -> "LoopRun":
@@ -626,6 +686,7 @@ class Loops:
         words = torch.zeros(n_bodies, dtype=torch.int64, device=self.device)
         self._words, self._branches, self._body_nodes = words, [None] * n_bodies, 0
         self._next_body = 0
+        self._hosts = []
         pools = []
         try:
             for depth in range(1, self._max_depth + 1):
@@ -655,13 +716,14 @@ class Loops:
                 raise self._capture_error(name, exc) from exc
         current.wait_stream(stream)
         branches, self._words, self._pools = self._branches, None, []
+        hosts, self._hosts = tuple(self._hosts), []
         captured = {k: v - before[k] for k, v in _counts().items()}
         _add_launches(captured, -1)
         for delta in branches:  # a replay counts these from the words
             captured = {k: v - delta[k] for k, v in captured.items()}
         self.stats[name]["captures"] += 1
         stats = [self.stats[n] for n in self._names]
-        out = _Graph(graph, captured, (words, branches, stats) if branches else None)
+        out = _Graph(graph, captured, (words, branches, stats) if branches else None, hosts)
         out.nodes, out.depth, out.capture_s = nodes, self._max_depth, time.perf_counter() - t0
         if pools:  # the bodies' memory lives as long as the graph
             weakref.finalize(out, self._release, pools).atexit = False

@@ -61,7 +61,12 @@ never stop the chain); a step takes its draws from a `Draws` or
   not put back.
 
 So graphed and eager runs give the same bits. `steps` and `n_call_sweeps`
-count the real steps only.
+count the real steps only. Every batched likelihood is handed the step's
+`active` flag with the walkers' logl and blob rows; a host likelihood
+(`utils.wrappers.HostLikelihood`) then calls nothing on the host for a
+step past the stop; graphed, the chain's
+predicate ANDs in the word its host-call kernel sets where the likelihood
+raised (`Loops.unhalted`), so the WHILE node ends after that step.
 
 Under a particle mesh (`group`) each rank mutates its block of walkers.
 The cluster counts are summed over the ranks once per mutation, and each
@@ -204,7 +209,9 @@ def _mode_matmul(z: torch.Tensor, assignments: torch.Tensor, mats: torch.Tensor)
 class MCMCKernel:
     """Adaptive mutation (mcmc.py:138-433).
 
-    log_likelihood_batch: x (N, d) -> (logl (N,), blobs (N, B) or None)
+    log_likelihood_batch: (x (N, d), active, logl, blobs) -> (logl (N,),
+        blobs (N, B) or None); `active` is the step's 0-d bool and logl,
+        blobs the walkers' own (`utils.wrappers.build_log_likelihood`)
     prior_transform_batch: u (N, d) -> x (N, d)
     """
 
@@ -338,7 +345,8 @@ class MCMCKernel:
 
         u_prime, valid = self._propose(w, s.u, diff, sigma_w, scale_w, z)
         x_prime = self.prior_transform_batch(u_prime)
-        logl_prime, blobs_prime = self.log_likelihood_batch(x_prime)
+        # a host crossing calls nothing past the stop; the torch likelihoods ignore these
+        logl_prime, blobs_prime = self.log_likelihood_batch(x_prime, active, s.logl, s.blobs)
         logl_prime = logl_prime.to(dtype)
 
         if self.is_tpcn:
@@ -411,8 +419,9 @@ class MCMCKernel:
 
         body = self.body(draws, n, d, keyed)
         if keyed and loops.graphed:
-            out = loops.repeat("mcmc", self.pred, body, _tensors(s), _tensors(w),
-                               static=(id(draws),))
+            # a host call that raised ends the chain after its step (`Loops.halt`)
+            out = loops.repeat("mcmc", lambda c: loops.unhalted(self.pred(c), self.group), body,
+                               _tensors(s), _tensors(w), static=(id(draws),))
         else:
             out = self._chunks(loops, draws, body, _tensors(s), _tensors(w), keyed)
         s = ChainState(**dict(out, blobs=out.get("blobs")))

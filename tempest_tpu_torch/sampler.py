@@ -139,10 +139,19 @@ class Sampler:
     ):
         """Run until beta reaches 1 and the posterior ESS reaches n_total.
 
-        With `on_device=True` on a CUDA device (and no `save_every`), the
-        loops of each iteration replay as CUDA graphs (fused.py); the
-        results are those of `on_device=False`. A likelihood that reads the
-        host cannot be captured: it raises, and runs with on_device=False."""
+        With `on_device=True` (and no `save_every`) the whole annealing
+        loop runs on the device (fused.py), on a CUDA device as one CUDA
+        graph replay; the results are those of `on_device=False`. A torch
+        likelihood that reads the host cannot be captured: it raises, and
+        runs with on_device=False. On a CUDA device a host likelihood
+        (`host_likelihood=True`) is called once a sweep by this thread while
+        the host-call kernel waits for it on the card (`ops.cuda_host`),
+        inside the graph's replay with on_device=True and eagerly without:
+        it must make no CUDA call that waits for the sampler's device work
+        (no `torch.cuda.synchronize()`, no copy of a tensor of its stream to
+        the host, no new CUDA allocation), or the kernel waits for it
+        forever. An exception it raises ends the run after its step and is
+        raised here; `reset()` then starts a clean run."""
         return self._core.run_sampling(
             n_total=n_total,
             progress=progress,

@@ -5,7 +5,9 @@ mutate.py:99-149). Particles whose log-likelihood is infinite are replaced,
 blobs included, by uniform picks among the finite ones, and logZ gains
 log(n_finite / N).
 The uniforms come in as arguments: `u_draw` (N, d) for the prior draw and
-`patch_uniforms` (N,) for the multinomial pick of replacements.
+`patch_uniforms` (N,) for the multinomial pick of replacements. A host
+likelihood (`utils.wrappers.HostLikelihood`) is called with no `active`
+flag: a warm-up always evaluates its draw.
 
 Under a particle mesh (`group`) `u_draw` is this rank's block of the global
 draw and `patch_uniforms` are global: the count of finite particles is

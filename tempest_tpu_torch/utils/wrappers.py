@@ -7,10 +7,26 @@ function, as there:
   point, mapped over the particle axis with `torch.func.vmap` as JAX maps
   them with `jax.vmap` (:40, :155, :166);
 - `vectorize=True`: torch functions that already take (N, d) batches;
-- `host_likelihood=True`: any Python function of one numpy point (float32,
-  shape (d,)), called on the host through `pool_map`, with the result
-  moved back to the particles' device. This is the port's
-  `jax.pure_callback` (:88-131): the run crosses to the host by design.
+- `host_likelihood=True`: any Python function of one numpy point (of the
+  run's dtype, shape (d,)), called on the host through `pool_map` once a
+  sweep, with the result moved back to the particles' device: the host
+  crossing `HostLikelihood`, the port's `jax.pure_callback` and, for object
+  blobs, `io_callback` (:88-131). On a CPU tensor one counted blocking read
+  (`Loops.fetch("likelihood", ...)`) of the points and the step's `active`
+  flag, and no call where the step is inactive; on a CUDA tensor the
+  host-call kernel (`ops.cuda_host`, `csrc/host_call.cu`), which hands the
+  points to the host through mapped pinned memory: inside a CUDA graph
+  served by the thread that replays it (`loops._Graph.replay`), outside one
+  (eagerly, and a run's first iteration) at once. Either way one `pool_map`
+  call an active sweep and no other: none in a capture's warm-up or trial
+  capture (where it returns the walkers' logl and blob rows as they are)
+  and none for a chunk's step past the stop. That is `io_callback`'s
+  guarantee, which object blobs need (`BlobSchema.pack` appends to the
+  host store).
+
+Every batched likelihood takes `(x, active=None, logl=None, blobs=None)`:
+an MCMC step hands it its `active` flag and the walkers' own logl and blob
+rows, which only the host crossing uses (the torch ones ignore them).
 
 A per-point function under `torch.func.vmap` has the limits of one under
 `jax.vmap`: it cannot call `.item()`, convert to Python numbers or numpy,
@@ -30,6 +46,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..ops import cuda_host
 from .blobs import BlobSchema, infer_np_dtype_from_result
 
 
@@ -101,30 +118,20 @@ def build_log_likelihood(
     schema: Optional[BlobSchema] = None,
     pool_map: Optional[Callable] = None,
 ) -> Callable:
-    """Batched x (N, d) -> (logl (N,) of `dtype`, blobs (N, B) or None).
+    """Batched `(x (N, d), active=None, logl=None, blobs=None) -> (logl (N,)
+    of `dtype`, blobs (N, B) or None)`; only the host crossing uses the
+    step's `active` flag and the walkers' rows.
 
     `schema` describes the blob rows when `have_blobs`; `pool_map` is the
     host map of `host_likelihood=True` (default: a list comprehension).
     """
     if host_likelihood:
-        pool_map = pool_map or make_pool_map(None)
-
-        def batched_host(x):
-            out = pool_map(log_likelihood, list(x.detach().cpu().numpy()))
-            if have_blobs:
-                logl = np.array([float(o[0]) for o in out], dtype=np.float32)
-                rows = schema.pack([tuple(o[1:]) for o in out])
-                blobs = torch.from_numpy(rows).to(x.device)
-            else:
-                logl = np.array([float(v) for v in out], dtype=np.float32)
-                blobs = None
-            return torch.from_numpy(logl).to(device=x.device, dtype=dtype), blobs
-
-        return batched_host
+        return HostLikelihood(log_likelihood, pool_map or make_pool_map(None), dtype,
+                              schema if have_blobs else None)
 
     if vectorize:
         # Already batched; blobs need per-point calls (the config checks).
-        def batched_vec(x):
+        def batched_vec(x, active=None, logl=None, blobs=None):
             return torch.as_tensor(log_likelihood(x)).to(dtype), None
 
         return batched_vec
@@ -139,17 +146,170 @@ def build_log_likelihood(
             blob = torch.cat(flat) if len(flat) > 1 else flat[0]
             return torch.as_tensor(logl).to(dtype), blob.to(schema.device_dtype)
 
-        return torch.func.vmap(per_point)
+        vmapped_blobs = torch.func.vmap(per_point)
+
+        def batched_blobs(x, active=None, logl=None, blobs=None):
+            return vmapped_blobs(x)
+
+        return batched_blobs
 
     def per_point_plain(x):
         return torch.as_tensor(log_likelihood(x)).to(dtype)
 
     vmapped = torch.func.vmap(per_point_plain)
 
-    def batched(x):
+    def batched(x, active=None, logl=None, blobs=None):
         return vmapped(x), None
 
     return batched
+
+
+# The numpy types of the points a host likelihood takes.
+_NUMPY = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+class HostLikelihood:
+    """The host crossing of `host_likelihood=True`: `crossing(x, active=None,
+    logl=None, blobs=None) -> (logl (N,) of `dtype`, blobs (N, B) or None)`
+    for points x (N, d), the likelihood evaluated on the host through
+    `pool_map` (one call a sweep). `active` is an MCMC step's 0-d bool (None:
+    always, as in the warm-up); where it is false, `logl` and `blobs`, the
+    walkers' own, come back as they are and nothing is called.
+
+    The route follows the points' device alone: a CPU tensor takes `plain`,
+    a CUDA tensor the host-call kernel. On the card inside a stretch's
+    capture it is `kernel`, recorded in the graph, whose replays serve it;
+    in the capture's warm-up or trial nothing is called (the walkers' rows
+    come back, zeros where there are none: the warm-up's results are
+    dropped); everywhere else (eagerly, a run's first iteration) it is
+    `kernel_call`, served here. `bind(loops)` ties it to an iteration's
+    loops (`iteration.make_iteration` binds it): their counted reads, the
+    stretch they are in and, on a CUDA device, their `halt` word, which is
+    `failed`, the word the kernel sets where the likelihood raised, and
+    which the predicates of the loops around the call AND in. Unbound it
+    reads uncounted and is never inside a stretch."""
+
+    def __init__(self, log_likelihood: Callable, pool_map: Callable, dtype,
+                 schema: Optional[BlobSchema] = None):
+        self.log_likelihood, self.pool_map = log_likelihood, pool_map
+        self.dtype, self.schema = dtype, schema
+        self.loops = None  # a loops.Loops, once bound
+        self.failed: Optional[torch.Tensor] = None
+        self._boxes: Dict[tuple, cuda_host.Mailbox] = {}
+
+    def bind(self, loops) -> None:
+        """Run through `loops` (a `loops.Loops`): its reads, stretches and
+        `halt` word."""
+        self.loops = loops
+        if loops.device.type == "cuda":
+            loops.halt = self._failed(loops.device)
+
+    def _failed(self, device) -> torch.Tensor:
+        if self.failed is None:
+            self.failed = torch.zeros(1, dtype=torch.int32, device=device)
+        return self.failed
+
+    def evaluate(self, points: np.ndarray):
+        """The likelihood of each row of `points` (n, d) on the host, one
+        `pool_map` call: (logl (n,) float32, blob rows (n, B) or None)."""
+        out = self.pool_map(self.log_likelihood, list(points))
+        if self.schema is None:
+            return np.array([float(v) for v in out], dtype=np.float32), None
+        logl = np.array([float(o[0]) for o in out], dtype=np.float32)
+        return logl, self.schema.pack([tuple(o[1:]) for o in out])
+
+    def __call__(self, x: torch.Tensor, active: Optional[torch.Tensor] = None,
+                 logl: Optional[torch.Tensor] = None, blobs: Optional[torch.Tensor] = None):
+        if x.device.type != "cuda":
+            return self.plain(x, active, logl, blobs)
+        loops = self.loops
+        if loops is not None and loops.capturing:
+            return self.kernel(x, active, logl, blobs)
+        if loops is not None and loops.inside:  # a capture's warm-up or trial: no call
+            self.mailbox(x)  # made here, before the capture
+            return self._unchanged(x, logl, blobs)
+        return self.kernel_call(x, active, logl, blobs)
+
+    def plain(self, x: torch.Tensor, active: Optional[torch.Tensor] = None,
+              logl: Optional[torch.Tensor] = None, blobs: Optional[torch.Tensor] = None):
+        """The plain crossing, the host-call kernel's plain version (the
+        route of CPU tensors): one read of `x` and the step's `active` flag
+        (with the predicates of the conditional bodies a stretch's warm-up
+        is in, `Loops.guards`), counted as the loop "likelihood"'s where
+        bound; the call where they all hold."""
+        n, d = x.shape
+        flags = [] if active is None else [active]
+        if self.loops is None:
+            values = torch.cat([t.detach().reshape(-1).to(torch.float64)
+                                for t in (x, *flags)]).cpu().numpy()
+        else:
+            values = self.loops.fetch("likelihood", x, *flags, *self.loops.guards)
+        if not np.all(values[n * d:]):
+            return self._unchanged(x, logl, blobs)
+        points = values[:n * d].astype(_NUMPY[x.dtype]).reshape(n, d)
+        out, rows = self.evaluate(points)
+        new = torch.from_numpy(out).to(device=x.device, dtype=self.dtype)
+        return new, None if rows is None else torch.from_numpy(rows).to(x.device)
+
+    def kernel(self, x: torch.Tensor, active: Optional[torch.Tensor] = None,
+               logl: Optional[torch.Tensor] = None, blobs: Optional[torch.Tensor] = None):
+        """The host-call kernel on the current stream (inside a capture of
+        the bound loops, recorded in the graph, whose replays serve it): the
+        results where `active` holds, else `logl` and `blobs`. Outside a
+        graph the caller serves it (`kernel_call`)."""
+        box = self.mailbox(x)
+        if self.loops is not None and self.loops.capturing:
+            self.loops.note_host(box)
+        # Every tensor is made, and an inactive step's rows copied, before
+        # the launch, and nothing after it: outside a graph a CUDA allocation
+        # or a kernel's first load after it would wait for the device, which
+        # waits for the host.
+        n = x.shape[0]
+        x = x.contiguous()
+        if active is None:
+            new = torch.empty(n, dtype=self.dtype, device=x.device)
+            rows = None if self.schema is None else torch.empty(
+                (n, self.schema.width), dtype=self.schema.device_dtype, device=x.device)
+        else:
+            new = logl.to(self.dtype, copy=True)
+            rows = None if self.schema is None else blobs.clone()
+        box.launch(x, None if active is None else active.reshape(1), new, rows)
+        return new, rows
+
+    def kernel_call(self, x: torch.Tensor, active: Optional[torch.Tensor] = None,
+                    logl: Optional[torch.Tensor] = None, blobs: Optional[torch.Tensor] = None):
+        """`kernel` outside any graph, served on this thread until it ends."""
+        result = []
+        cuda_host.served(lambda: result.append(self.kernel(x, active, logl, blobs)),
+                         [self.mailbox(x)])
+        return result[0]
+
+    def mailbox(self, x: torch.Tensor) -> cuda_host.Mailbox:
+        """The mailbox of points shaped and typed as `x`, made on first use
+        (outside any capture), kept for this crossing's life."""
+        key = (tuple(x.shape), x.dtype, x.device)
+        if key not in self._boxes:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("a host call met a capture before its warm-up: its mailbox "
+                                   "is made outside any capture")
+            width = 0 if self.schema is None else self.schema.width
+            blob_dtype = np.float32 if self.schema is None else self.schema.row_dtype
+            self._boxes[key] = cuda_host.Mailbox(
+                x.shape[0], x.shape[1], _NUMPY[x.dtype], width, blob_dtype, x.device,
+                self.evaluate, self._failed(x.device))
+        return self._boxes[key]
+
+    def _unchanged(self, x: torch.Tensor, logl, blobs):
+        """The walkers' own rows (zeros where none are given)."""
+        n = x.shape[0]
+        if logl is None:
+            logl = torch.zeros(n, dtype=self.dtype, device=x.device)
+        if self.schema is None:
+            return logl, None
+        if blobs is None:
+            blobs = torch.zeros((n, self.schema.width), dtype=self.schema.device_dtype,
+                                device=x.device)
+        return logl, blobs
 
 
 def _np_dtype(value) -> np.dtype:

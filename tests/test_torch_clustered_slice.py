@@ -75,7 +75,7 @@ def test_one_clustered_iteration_value_for_value():
 
     cfg = SamplerConfig(prior_transform=_prior, log_likelihood=_bimodal_t, n_dim=D,
                         n_particles=N, vectorize=True, clustering=True, k_max=4, device="cpu")
-    iteration = make_iteration(cfg, lambda x: (_bimodal_t(x), None), _prior)
+    iteration = make_iteration(cfg, lambda x, *_: (_bimodal_t(x), None), _prior)
     th = interop.history_from_numpy(fields_h, "cpu")
     tc = interop.current_from_numpy(fields_c, "cpu")
     placeholder = single_cluster_model(D, 4, normalize=True)

@@ -516,6 +516,11 @@ def _loops(device, graphs, counters=()):
     return Loops(device, CHUNKS, graphs=graphs, counters=list(counters))
 
 
+def _fused(s) -> bool:
+    """Whether sampler `s` runs the fused iteration (its loops in chunks)."""
+    return s.state._iteration.loops.chunks == CHUNKS
+
+
 # The keyed steps' routes, by the mutation-draws kernel's size limit:
 # "mutation" that kernel (tpCN), "large" the gamma, normal and uniform
 # kernels (the uniform mode of the bits kernel).
@@ -675,7 +680,7 @@ def _a_chain(device, method="tpcn", n=1024, d=10):
     def loglike(x):
         return -8.0 * torch.sum(x * x, dim=-1)
 
-    kernel = MCMCKernel(lambda x: (loglike(x), None), lambda v: 20.0 * v - 10.0, d,
+    kernel = MCMCKernel(lambda x, *_: (loglike(x), None), lambda v: 20.0 * v - 10.0, d,
                         method=method)
     x = 20.0 * u - 10.0
     return kernel, (u, x, loglike(x), torch.zeros(n, dtype=torch.int32, device=device),
@@ -945,8 +950,7 @@ def test_run_on_device_repeats_on_device_false(cuda_device, extra):
             == off.state.draws.get_state()["generator"].tobytes())
     stats, off_stats = on.state._iteration.loops.stats, off.state._iteration.loops.stats
     # float32 and float64 take the device run loop (one replay a dispatch)
-    route = "run" if on.state.fused else "mcmc"
-    assert stats[route]["replays"] > 0 and off_stats["run"]["replays"] == 0
+    assert stats["run"]["replays"] > 0 and off_stats["run"]["replays"] == 0
     assert off_stats["mcmc"]["replays"] == 0
 
 
@@ -987,7 +991,7 @@ def test_graphed_hardware_prng_mcmc_equals_eager(cuda_device, route, monkeypatch
     def loglike(x):  # proposals wider than the target: the chain runs past n_steps d
         return -8.0 * torch.sum(x * x, dim=-1)
 
-    kernel = MCMCKernel(lambda x: (loglike(x), None), lambda v: 20.0 * v - 10.0, d)
+    kernel = MCMCKernel(lambda x, *_: (loglike(x), None), lambda v: 20.0 * v - 10.0, d)
     x = 20.0 * u - 10.0
     assign = torch.zeros(n, dtype=torch.int32, device=cuda_device)
     beta = torch.tensor(0.3, device=cuda_device)
@@ -1076,7 +1080,7 @@ def test_hardware_prng_run_on_device_repeats_on_device_false(cuda_device, route,
         s = Sampler(lambda u: 20.0 * u - 10.0, loglike, n_dim=4, n_particles=256,
                     vectorize=True, k_max=4, random_state=2, history_capacity=32,
                     hardware_prng=True, device=cuda_device)
-        assert s.state.fused
+        assert _fused(s)
         before = launch_counts()
         s.run(n_total=1024, progress=False, on_device=on_device)
         after = launch_counts()
@@ -1390,7 +1394,7 @@ def test_dynamic_run_on_device_repeats_on_device_false(cuda_device):
         s = Sampler(lambda u: 20.0 * u - 10.0, loglike, n_dim=4, n_particles=256,
                     vectorize=True, clustering=False, volume_variation=1.0, random_state=2,
                     history_capacity=64, device=cuda_device)
-        assert s.state.fused
+        assert _fused(s)
         before, probes_before = launch_counts(), dict(rw_mod.PROBES)
         s.run(n_total=1024, progress=False, on_device=on_device)
         after = launch_counts()  # settled: the conditional bodies' launches counted
@@ -1415,6 +1419,7 @@ _MESH_RUN = textwrap.dedent("""
     import torch
     import torch.distributed as dist
     from tempest_tpu_torch import Sampler
+    from tempest_tpu_torch.fused import CHUNKS
     from tempest_tpu_torch.loops import settle_launches
     from tempest_tpu_torch.parallel import make_particle_mesh
     from tempest_tpu_torch.parallel.distributed import initialize
@@ -1439,7 +1444,8 @@ _MESH_RUN = textwrap.dedent("""
             r = s.results()
             stats = s.state._iteration.loops.stats
             rows.append({k: r[k].tobytes().hex() for k in ("beta", "logz", "steps")}
-                        | {"fused": s.state.fused, "route": s.state.fused, "beta1": s.beta,
+                        | {"fused": s.state._iteration.loops.chunks == CHUNKS,
+                           "route": s.state._run is not None, "beta1": s.beta,
                            "replays": stats["run"]["replays"],
                            "sharded": stats["ess_sharded"].get("node_bodies", 0),
                            "reads": sum(v.get("reads", 0) for k, v in stats.items()
@@ -2171,7 +2177,7 @@ def test_run_loop_on_a_small_a_is_one_replay_and_one_read(cuda_device):
     off = sampler()
     off.run(n_total=1024, progress=False, on_device=False)
     on = sampler()
-    assert on.state.fused
+    assert _fused(on)
     on.run(n_total=1024, progress=False, on_device=True)  # captures the run loop
     on.reset(random_state=3)
     loops = on.state._iteration.loops
@@ -2192,3 +2198,126 @@ def test_run_loop_on_a_small_a_is_one_replay_and_one_read(cuda_device):
     assert delta["run"]["node_bodies"] == iters - 1
     assert delta["mcmc"]["node_bodies"] == int(r_on["steps"][r_on["beta"] > 0].sum())
     assert on.state.draws.calls.read() == (off.state.draws.counter, off.state.draws.key)
+
+
+# ---------------------------------------------------------------------------
+# The host-call kernel of a host likelihood (ops/cuda_host.py,
+# csrc/host_call.cu) against its plain version, the plain crossing
+# (`HostLikelihood.plain`), bit for bit; a host run calls the likelihood
+# once a sweep, through one handshake of the kernel a sweep, eagerly and on
+# the run loop; a likelihood that raises ends the run loop.
+# ---------------------------------------------------------------------------
+from tempest_tpu_torch.ops import cuda_host  # noqa: E402
+from tempest_tpu_torch.utils.blobs import BlobSchema  # noqa: E402
+from tempest_tpu_torch.utils.wrappers import HostLikelihood, make_pool_map  # noqa: E402
+
+
+class _CountingPool:
+    def __init__(self):
+        self.calls = 0
+
+    def map(self, f, xs):
+        self.calls += 1
+        return [f(x) for x in xs]
+
+
+def _np_gauss(x):
+    return float(-0.5 * np.sum(x * x))
+
+
+def _np_gauss_blobs(x):
+    return _np_gauss(x), float(np.sum(x)), int(x[0] > 0)
+
+
+def _np_gauss_blob(x):
+    return _np_gauss(x), float(np.sum(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,d,width", [(1024, 10, 2), (4099, 3, 1), (4099, 3, 0), (1, 1, 0)])
+def test_host_call_kernel_matches_plain_crossing(cuda_device, n, d, width, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.randn(n, d, device=cuda_device, dtype=dtype, generator=gen)
+    pool = _CountingPool()
+    # rows of 2 bytes a value: 4099 rows of one end on a 2-byte tail
+    schema = BlobSchema(np.int16, blob_size=width) if width else None
+    fn = {0: _np_gauss, 1: _np_gauss_blob, 2: _np_gauss_blobs}[width]
+    h = HostLikelihood(fn, make_pool_map(pool), dtype, schema)
+    logl0 = torch.randn(n, device=cuda_device, dtype=dtype, generator=gen)
+    blobs0 = torch.ones(n, width, device=cuda_device, dtype=torch.int16) if width else None
+    for go in (True, False):
+        active = torch.full((), go, device=cuda_device)
+        calls = pool.calls
+        want = h.plain(x, active, logl0, blobs0)
+        got = h.kernel_call(x, active, logl0, blobs0)
+        assert pool.calls - calls == (2 if go else 0)
+        assert torch.equal(got[0], want[0]) and got[0].dtype == dtype
+        assert (got[1] is None) == (want[1] is None)
+        if got[1] is not None:
+            assert torch.equal(got[1], want[1])
+        if not go:
+            assert torch.equal(got[0], logl0)
+    assert cuda_host.LAUNCHES > 0
+
+
+def _host_sampler(device, fn, pool=None):
+    return Sampler(lambda u: 20.0 * u - 10.0, fn, n_dim=4, n_particles=256, vectorize=True,
+                   host_likelihood=True, k_max=4, random_state=3, history_capacity=32,
+                   pool=pool, device=device)
+
+
+@pytest.mark.cuda
+def test_host_likelihood_on_the_run_loop_calls_once_a_sweep(cuda_device):
+    pools = [_CountingPool(), _CountingPool()]
+    off = _host_sampler(cuda_device, _np_gauss, pools[0])
+    handshakes = cuda_host.HANDSHAKES
+    off.run(n_total=1024, progress=False, on_device=False)
+    handshakes = [cuda_host.HANDSHAKES - handshakes]
+    on = _host_sampler(cuda_device, _np_gauss, pools[1])
+    assert _fused(on) and on.state._run is not None
+    launch_counts()
+    before, served = cuda_host.LAUNCHES, cuda_host.HANDSHAKES
+    on.run(n_total=1024, progress=False, on_device=True)
+    launch_counts()
+    handshakes.append(cuda_host.HANDSHAKES - served)
+    for name in ("beta", "logz", "steps", "calls", "logl"):
+        assert on.results()[name].tobytes() == off.results()[name].tobytes(), name
+    loops = on.state._iteration.loops.stats
+    assert loops["run"]["replays"] == 1 and loops["run"]["reads"] == 1
+    assert sum(v.get("reads", 0) for v in loops.values()) == 1
+    sweeps = [int(s.state.cur.calls) for s in (off, on)]
+    assert [p.calls for p in pools] == sweeps == handshakes and sweeps[0] == sweeps[1]
+    assert cuda_host.LAUNCHES - before == sweeps[1]
+
+
+class _Boom(RuntimeError):
+    pass
+
+
+@pytest.mark.cuda
+def test_host_likelihood_that_raises_ends_the_run_loop(cuda_device):
+    clean = _host_sampler(cuda_device, _np_gauss)
+    clean.run(n_total=1024, progress=False, on_device=True)
+    fail_at = 256 * (int(clean.state.cur.calls) // 2) + 3
+    calls = []
+
+    def flaky(x):
+        calls.append(1)
+        if fail_at is not None and len(calls) >= fail_at:
+            raise _Boom(len(calls))
+        return _np_gauss(x)
+
+    s = _host_sampler(cuda_device, flaky)
+    launch_counts()
+    before = cuda_host.LAUNCHES
+    with pytest.raises(_Boom):
+        s.run(n_total=1024, progress=False, on_device=True)
+    launch_counts()
+    assert len(calls) == fail_at  # nothing called after the failure
+    assert cuda_host.LAUNCHES - before == -(-fail_at // 256)  # no handshake after it
+    fail_at = None
+    s.reset(random_state=3)
+    s.run(n_total=1024, progress=False, on_device=True)
+    for name in ("beta", "logz", "steps", "calls"):
+        assert s.results()[name].tobytes() == clean.results()[name].tobytes(), name

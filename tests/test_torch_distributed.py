@@ -72,6 +72,13 @@ def _prior(u):
     return 20.0 * u - 10.0
 
 
+def _fused(s) -> bool:
+    """Whether sampler `s` runs the fused iteration (its loops in chunks)."""
+    from tempest_tpu_torch.fused import CHUNKS
+
+    return s.state._iteration.loops.chunks == CHUNKS
+
+
 def _w_sampler(mesh, rank, world, workdir, cases):
     import pickle
 
@@ -122,27 +129,26 @@ def _w_sampler(mesh, rank, world, workdir, cases):
     if "fused" in cases:
         # The fused route (loops in chunks) against the eager iteration,
         # whose loops read after every body: one run, bit for bit.
-        from tempest_tpu_torch import core
+        from tempest_tpu_torch.iteration import make_iteration
 
         rows = []
         for fused in (True, False):
-            route = core.fused_route
-            if not fused:
-                core.fused_route = lambda config: False
-            try:
-                s = _build(mesh, 3, clustering=True)
-            finally:
-                core.fused_route = route
+            s = _build(mesh, 3, clustering=True)
+            if not fused:  # the eager iteration, the draws' counter kept
+                core, counters = s.state, s.state._iteration.loops.counters
+                core._iteration = make_iteration(core.config, core._loglike_batch,
+                                                 core._prior_batch)
+                core._iteration.loops.counters, core._run = counters, None
             s.run(n_total=512, progress=False)
             res = s.results()
-            rows.append({"fused": s.state.fused, "logz": s.logz, "t": s.state.hist.count(),
+            rows.append({"fused": _fused(s), "logz": s.logz, "t": s.state.hist.count(),
                          **{f"{k}_bits": res[k].tobytes().hex() for k in ("beta", "logz", "steps")},
                          "reads": dict(s.state._iteration.loops.stats["ess_sharded"])})
         report({"case": "fused", "runs": rows})
     if "dynamic" in cases:
         s = _build(mesh, 4, volume_variation=1.0)
         s.run(n_total=512, progress=False)
-        report({"case": "dynamic", **_run_row(s), "fused": s.state.fused,
+        report({"case": "dynamic", **_run_row(s), "fused": _fused(s),
                 "cv_reads": s.state._iteration.loops.stats["ess_bracket"]["reads"]})
     if "pickle" in cases:
         s = _build(mesh, 5, clustering=True)
@@ -207,7 +213,7 @@ def _w_run_loop(mesh, rank, world, workdir):
             before = dict(rw_mod.PROBES)
             s.run(n_total=512, progress=False, on_device=on_device)
             res, stats = s.results(), s.state._iteration.loops.stats
-            runs.append({"route": s.state.fused, "logz": s.logz, "beta": s.beta,
+            runs.append({"route": _fused(s), "logz": s.logz, "beta": s.beta,
                          "t": s.state.hist.count(), "capacity": s.state.hist.capacity,
                          "local_n": s.state.hist.u.shape[2],
                          "run_reads": stats["run"]["reads"] if "run" in stats else 0,
@@ -243,7 +249,7 @@ def _w_run_loop(mesh, rank, world, workdir):
         s.state._iteration.loops.counters = [s.state.draws.calls]
         s.run(n_total=512, progress=False, on_device=on_device)
         res, stats = s.results(), s.state._iteration.loops.stats
-        runs.append({"route": s.state.fused, "logz": s.logz, "beta": s.beta,
+        runs.append({"route": _fused(s), "logz": s.logz, "beta": s.beta,
                      "dtype": str(res["u"].dtype), "counter": s.state.draws.calls.counter,
                      "run_reads": stats["run"]["reads"] if "run" in stats else 0,
                      **{f"bits_{k}": _digest(res[k]) for k in (

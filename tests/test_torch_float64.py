@@ -193,7 +193,7 @@ _SCRIPT = textwrap.dedent(
     cfg = SamplerConfig(prior_transform=prior, log_likelihood=bimodal_t, n_dim=D, n_particles=N,
                         vectorize=True, clustering=True, k_max=4, dtype=torch.float64,
                         device="cpu")
-    iteration = make_iteration(cfg, lambda x: (bimodal_t(x), None), prior)
+    iteration = make_iteration(cfg, lambda x, *_: (bimodal_t(x), None), prior)
     th = interop.history_from_numpy(fields_h, "cpu")
     tc = interop.current_from_numpy(fields_c, "cpu")
     placeholder = single_cluster_model(D, 4, dtype=torch.float64, normalize=True)

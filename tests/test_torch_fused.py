@@ -50,13 +50,13 @@ from tempest_tpu import Sampler as JaxSampler
 from tempest_tpu import modes as jm
 from tempest_tpu_torch import Sampler, interop, student
 from tempest_tpu_torch import cluster as tc
-from tempest_tpu_torch import core as core_mod
 from tempest_tpu_torch import draws as draws_mod
 from tempest_tpu_torch import modes as tm
 from tempest_tpu_torch.cluster import single_cluster_model
 from tempest_tpu_torch.config import SamplerConfig
 from tempest_tpu_torch.draws import Draws, HardwareDraws
-from tempest_tpu_torch.fused import CHUNKS, fused_route, make_fused_iteration
+from tempest_tpu_torch.fused import CHUNKS, make_fused_iteration
+from tempest_tpu_torch.iteration import make_iteration
 from tempest_tpu_torch.loops import Loops
 from tempest_tpu_torch.mcmc import MCMCKernel
 from tempest_tpu_torch.steps.reweight import reweight
@@ -183,7 +183,7 @@ def _chain_kernel(method):
     def loglike(x):
         return -0.5 * SHARP[method] * torch.sum(x * x, dim=-1)
 
-    return MCMCKernel(lambda x: (loglike(x), None), _prior, 2, method=method, n_steps=2,
+    return MCMCKernel(lambda x, *_: (loglike(x), None), _prior, 2, method=method, n_steps=2,
                       n_max_steps=20), loglike
 
 
@@ -252,8 +252,7 @@ def test_one_fused_iteration_matches_jax():
 
     cfg = SamplerConfig(prior_transform=_prior, log_likelihood=_bimodal_t, n_dim=D,
                         n_particles=N, vectorize=True, clustering=True, k_max=4, device="cpu")
-    assert fused_route(cfg)
-    iteration = make_fused_iteration(cfg, lambda x: (_bimodal_t(x), None), _prior)
+    iteration = make_fused_iteration(cfg, lambda x, *_: (_bimodal_t(x), None), _prior)
     th = interop.history_from_numpy(fields_h, "cpu")
     tc_ = interop.current_from_numpy(fields_c, "cpu")
     placeholder = single_cluster_model(D, 4, normalize=True)
@@ -288,21 +287,19 @@ def test_one_fused_iteration_matches_jax():
     ({"volume_variation": 1.0}, True),
     ({"mesh": "gloo"}, True),
     ({"mesh": "gloo", "volume_variation": 1.0}, True),
-    ({"host_likelihood": True}, False),
+    # A host likelihood crosses to the host through its host-call kernel
+    # inside the graphs, or one counted read eagerly.
+    ({"host_likelihood": True}, True),
 ])
 def test_fused_route_by_configuration(extra, fused, request):
     if "mesh" in extra:
         extra = dict(extra, mesh=request.getfixturevalue("gloo_mesh"))
-    cfg = SamplerConfig(prior_transform=_prior, log_likelihood=_bimodal_t, n_dim=D,
-                        n_particles=N, vectorize=True, device="cpu", **extra)
-    assert fused_route(cfg) == fused
     s = Sampler(_prior, _bimodal_t, n_dim=D, n_particles=N, vectorize=True, device="cpu",
                 **extra)
-    assert s.state.fused == fused
+    assert fused_iteration(s) == fused
     # run(on_device=True) takes the device run loop on the whole fused
     # route, float32 or float64 (every draw keyed on the card), on one
-    # device or a mesh, in ESS or dynamic mode; a host likelihood keeps the
-    # per-iteration route
+    # device or a mesh, in ESS or dynamic mode, with a host likelihood too
     assert (s.state._run is not None) == fused
 
 
@@ -425,20 +422,18 @@ def _dynamic_sampler(seed=3, **extra):
     return _sampler(False, seed=seed, volume_variation=0.3, **extra)
 
 
-def test_dynamic_run_on_device_equals_per_probe_iteration(monkeypatch):
+def test_dynamic_run_on_device_equals_per_probe_iteration():
     """Dynamic mode on the fused route with run(on_device=True) and False,
     and on the eager iteration whose loops read after every body: the same
     results bit for bit; the fused route reads its bisections once a chunk."""
     runs = []
     for on_device in (False, True):
         s = _dynamic_sampler()
-        assert s.state.fused
+        assert fused_iteration(s)
         s.run(n_total=512, progress=False, on_device=on_device)
         runs.append(s)
-    with monkeypatch.context() as m:
-        _eager_route(m)
-        eager = _dynamic_sampler()
-    assert not eager.state.fused
+    eager = eager_route(_dynamic_sampler())
+    assert not fused_iteration(eager)
     eager.run(n_total=512, progress=False)
     runs.append(eager)
     results = [x.results() for x in runs]
@@ -546,9 +541,20 @@ def _hw_sampler(seed=3, **extra):
                    history_capacity=32, device="cpu", **extra)
 
 
-def _eager_route(monkeypatch):
-    """Samplers made inside take the eager iteration of iteration.py."""
-    monkeypatch.setattr(core_mod, "fused_route", lambda config: False)
+def eager_route(sampler):
+    """`sampler` on the eager iteration of iteration.py, whose loops read
+    after every body: the fused route's reference."""
+    core = sampler.state
+    counters = core._iteration.loops.counters
+    core._iteration = make_iteration(core.config, core._loglike_batch, core._prior_batch)
+    core._iteration.loops.counters = counters
+    core._run = None
+    return sampler
+
+
+def fused_iteration(sampler) -> bool:
+    """Whether `sampler` runs the fused iteration (its loops in chunks)."""
+    return sampler.state._iteration.loops.chunks == CHUNKS
 
 
 @pytest.mark.parametrize("route", ["mutation", "large"])
@@ -560,10 +566,8 @@ def test_hardware_prng_fused_run_equals_eager_iteration(route, monkeypatch):
         monkeypatch.setattr(draws_mod, "FUSED_DRAWS_MAX_ELEMS", 0)
     fused = _hw_sampler()
     fused.run(n_total=512, progress=False)
-    with monkeypatch.context() as m:
-        _eager_route(m)
-        eager = _hw_sampler()
-    assert fused.state.fused and not eager.state.fused
+    eager = eager_route(_hw_sampler())
+    assert fused_iteration(fused) and not fused_iteration(eager)
     eager.run(n_total=512, progress=False)
     r_f, r_e = fused.results(), eager.results()
     for name in ("beta", "logz", "steps", "calls"):
@@ -584,13 +588,11 @@ def test_hardware_prng_fused_run_equals_eager_iteration(route, monkeypatch):
     assert reads["f"] < reads["e"]
 
 
-def test_hardware_prng_state_file_of_the_eager_route_continues_fused(tmp_path, monkeypatch):
+def test_hardware_prng_state_file_of_the_eager_route_continues_fused(tmp_path):
     """A file the eager route wrote (draws.philox_key and philox_counter, as
     before the fused route took the flag) loads into a fused sampler, which
     runs the next iterations as the eager run did."""
-    with monkeypatch.context() as m:
-        _eager_route(m)
-        eager = _hw_sampler(output_dir=str(tmp_path))
+    eager = eager_route(_hw_sampler(output_dir=str(tmp_path)))
     eager.run(n_total=512, progress=False, save_every=5)
     path = tmp_path / "ps_10.state"
     with np.load(path) as f:
@@ -598,7 +600,7 @@ def test_hardware_prng_state_file_of_the_eager_route_continues_fused(tmp_path, m
         counter = int(f["draws.philox_counter"])
     assert counter > 0
     fused = _hw_sampler(seed=9)
-    assert fused.state.fused
+    assert fused_iteration(fused)
     fused.load_state(path)
     assert fused.state.draws.counter == counter
     assert fused.state.draws.calls.read() == (counter, eager.state.draws.key)

@@ -53,7 +53,7 @@ from tempest_tpu.ops.tools import ess_from_logw as jax_ess_from_logw
 import tempest_tpu_torch.state as ts
 from tempest_tpu_torch import Sampler
 from tempest_tpu_torch.draws import Draws
-from tempest_tpu_torch.fused import run_predicate
+from tempest_tpu_torch.fused import CHUNKS, run_predicate
 from tempest_tpu_torch.loops import Loops
 from tempest_tpu_torch.ops import philox
 from tempest_tpu_torch.ops.tools import logsumexp
@@ -274,7 +274,7 @@ def test_dynamic_run_route_against_jax_make_fused_run():
     jsamp.run(n_total=512, progress=False, on_device=True)
     tsamp = Sampler(lambda u: 20.0 * u - 10.0, lambda x: -0.5 * torch.sum(x * x, dim=-1),
                     device="cpu", **kw)
-    assert tsamp.state.fused
+    assert tsamp.state._iteration.loops.chunks == CHUNKS
     tsamp.state.draws = JaxRunDraws(key)
     tsamp.run(n_total=512, progress=False, on_device=True)
     stats = tsamp.state._iteration.loops.stats
@@ -321,7 +321,7 @@ def test_run_loop_equals_the_per_iteration_route(case):
         s.run(n_total=256, progress=False, on_device=on_device)
         runs.append(s)
     off, on = runs
-    assert on.state.fused and on.state._iteration.loops.stats["run"]["reads"] > 0
+    assert on.state._iteration.loops.chunks == CHUNKS and on.state._iteration.loops.stats["run"]["reads"] > 0
     assert "run" not in off.state._iteration.loops.stats
     r_off, r_on = off.results(), on.results()
     for name in ("beta", "logz", "steps", "calls", "u", "logl", "ess", "cv"):
@@ -473,7 +473,7 @@ def test_float64_run_loop_equals_the_per_iteration_route(case):
     runs = []
     for on_device in (False, True):
         s, n_total = _f64_sampler(case)
-        assert s.state.fused and s.state.draws.keyed
+        assert s.state._iteration.loops.chunks == CHUNKS and s.state.draws.keyed
         s.run(n_total=n_total, progress=False, on_device=on_device)
         runs.append(s)
     off, on = runs

@@ -86,7 +86,7 @@ def test_steps_match_jax_draw_for_draw(method, d, s):
     res_j = jax_kernel(key, jnp.asarray(u), x, loglike_j(x), None,
                        jnp.zeros(N, jnp.int32), jnp.asarray(beta, jnp.float32), modes_j)
 
-    port = MCMCKernel(lambda x: (loglike_t(x), None), prior_t, d, method=method, n_steps=s,
+    port = MCMCKernel(lambda x, *_: (loglike_t(x), None), prior_t, d, method=method, n_steps=s,
                       n_max_steps=s)
     ut = torch.from_numpy(u)
     xt = prior_t(ut)
@@ -109,7 +109,7 @@ def test_pure_step_matches_loop():
     """`step` on explicit draws is the loop body: one step by hand equals
     the loop stopped after one step."""
     u, _, modes_t = _problem(seed=7, d=1, dof=4.0)
-    port = MCMCKernel(lambda x: (loglike_t(x), None), prior_t, 1, method="tpcn", n_steps=1,
+    port = MCMCKernel(lambda x, *_: (loglike_t(x), None), prior_t, 1, method="tpcn", n_steps=1,
                       n_max_steps=1)
     ut = torch.from_numpy(u)
     xt = prior_t(ut)

@@ -104,7 +104,7 @@ def _modes(d, k=1, dtype=torch.float32, seed=1):
 ])
 def test_the_switch_counts_every_rank(n_local, world, form):
     d = 32
-    kernel = MCMCKernel(lambda x: (-torch.sum(x * x, dim=-1), None), lambda v: v, d)
+    kernel = MCMCKernel(lambda x, *_: (-torch.sum(x * x, dim=-1), None), lambda v: v, d)
     kernel.world = world  # the decision alone: no collective runs with group=None
     assert tmc.gathers(n_local * world, d) == (form == tmc.GATHERED)
     modes = _modes(d)
@@ -160,7 +160,7 @@ def test_chain_past_the_limit_matches_jax(monkeypatch):
     res_j = jax_kernel(key, jnp.asarray(u), x, loglike_j(x), None, jnp.zeros(n, jnp.int32),
                        jnp.asarray(beta, jnp.float32), modes_j)
 
-    port = MCMCKernel(lambda x: (loglike_t(x), None), lambda v: 20.0 * v - 10.0, d,
+    port = MCMCKernel(lambda x, *_: (loglike_t(x), None), lambda v: 20.0 * v - 10.0, d,
                       n_steps=1, n_max_steps=1)
     taken = record_forms(monkeypatch)
     ut = torch.from_numpy(u)
@@ -186,7 +186,7 @@ def _kloop_chain(dtype, n=96, d=3, k=3):
     def loglike(x):
         return -8.0 * torch.sum(x * x, dim=-1)
 
-    kernel = MCMCKernel(lambda x: (loglike(x), None), lambda v: 20.0 * v - 10.0, d, dtype=dtype)
+    kernel = MCMCKernel(lambda x, *_: (loglike(x), None), lambda v: 20.0 * v - 10.0, d, dtype=dtype)
     x = 20.0 * u - 10.0
     return kernel, (u, x, loglike(x), assignments, torch.tensor(0.3, dtype=dtype), modes)
 

@@ -53,7 +53,7 @@ def _chain(method, d=3, n=64):
     def loglike(x):  # proposals wider than the target: the chain runs past n_steps d
         return -8.0 * torch.sum(x * x, dim=-1)
 
-    kernel = MCMCKernel(lambda x: (loglike(x), None), lambda v: 20.0 * v - 10.0, d,
+    kernel = MCMCKernel(lambda x, *_: (loglike(x), None), lambda v: 20.0 * v - 10.0, d,
                         method=method)
     x = 20.0 * u - 10.0
     args = (u, x, loglike(x), torch.zeros(n, dtype=torch.int32), torch.tensor(0.3), modes)
@@ -307,7 +307,7 @@ def test_loop_form_stops_where_jax_while_loop_stops(method, d, n_steps, n_max_st
     res_j = jax_kernel(key, jax.numpy.asarray(u), x, _narrow_j(x), None,
                        jax.numpy.zeros(N, jax.numpy.int32),
                        jax.numpy.asarray(1.0, jax.numpy.float32), modes_j)
-    port = MCMCKernel(lambda x: (_narrow_t(x), None), prior_t, d, method=method,
+    port = MCMCKernel(lambda x, *_: (_narrow_t(x), None), prior_t, d, method=method,
                       n_steps=n_steps, n_max_steps=n_max_steps)
     ut = torch.from_numpy(u)
     xt = prior_t(ut)

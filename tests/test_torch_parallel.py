@@ -332,7 +332,7 @@ def _w_iteration(mesh, rank, world, workdir):
     cfg = SamplerConfig(prior_transform=_prior, log_likelihood=_bimodal_t, n_dim=D,
                         n_particles=N_IT, vectorize=True, clustering=True, k_max=4,
                         device="cpu", mesh=mesh)
-    iteration = make_iteration(cfg, lambda x: (_bimodal_t(x), None), _prior)
+    iteration = make_iteration(cfg, lambda x, *_: (_bimodal_t(x), None), _prior)
     th = interop.history_from_numpy({k[2:]: v for k, v in data.items() if k.startswith("h.")},
                                     "cpu", mesh)
     tc = interop.current_from_numpy({k[2:]: v for k, v in data.items() if k.startswith("c.")},
@@ -556,7 +556,7 @@ def test_clustered_iteration_at_two_ranks_equals_jax(tmp_path):
     cfg = SamplerConfig(prior_transform=_prior, log_likelihood=_bimodal_t, n_dim=D,
                         n_particles=N_IT, vectorize=True, clustering=True, k_max=4, device="cpu")
     rec = _Recording(JaxIterationDraws(it_key))
-    make_iteration(cfg, lambda x: (_bimodal_t(x), None), _prior)(
+    make_iteration(cfg, lambda x, *_: (_bimodal_t(x), None), _prior)(
         rec, interop.history_from_numpy(fields_h, "cpu"),
         interop.current_from_numpy(fields_c, "cpu"), single_cluster_model(D, 4, normalize=True))
     np.savez(tmp_path / "iteration_in.npz", **rec.saved,

@@ -123,7 +123,7 @@ def _one_iteration(monkeypatch, d, n):
 
     cfg = SamplerConfig(prior_transform=_prior, log_likelihood=_loglike_t, n_dim=d,
                         n_particles=n, vectorize=True, clustering=False, device="cpu")
-    iteration = make_iteration(cfg, lambda x: (_loglike_t(x), None), _prior)
+    iteration = make_iteration(cfg, lambda x, *_: (_loglike_t(x), None), _prior)
     th, tc, _ = iteration(JaxIterationDraws(it_key), th, tc, single_cluster_model(d, 1))
 
     assert th.t == int(core.hist.t) and tc.iteration == out_j["iter"]
@@ -257,7 +257,7 @@ def test_one_iteration_cluster_every_3_value_for_value(refit):
     cfg = SamplerConfig(prior_transform=_prior, log_likelihood=_bimodal_t, n_dim=D_BI,
                         n_particles=N_BI, vectorize=True, clustering=True, k_max=4,
                         cluster_every=3, device="cpu")
-    iteration = make_iteration(cfg, lambda x: (_bimodal_t(x), None), _prior)
+    iteration = make_iteration(cfg, lambda x, *_: (_bimodal_t(x), None), _prior)
     th = interop.history_from_numpy(fields_h, "cpu")
     tc = interop.current_from_numpy(fields_c, "cpu")
     th, tc, model_t = iteration(JaxIterationDraws(it_key), th, tc, carried)
