@@ -4,6 +4,7 @@
     python3 chip_smoke.py --kernels-only [--package-root DIR]
     python3 chip_smoke.py --a-only [--package-root DIR]
     python3 chip_smoke.py --large-scale-only
+    python3 chip_smoke.py --host-only
 
 Builds every CUDA kernel of the port from the sources in this checkout
 (one nvcc per source, started together), holds each against its plain
@@ -167,15 +168,20 @@ lines and a failure exits non-zero:
  4j. the host-call kernel (csrc/host_call.cu, which stands for JAX's host
     callback of a host likelihood, not a Pallas kernel) against its plain
     version, the plain crossing (`HostLikelihood.plain`), bit for bit at
-    A's (1024, 10) with two blob values a point and B's (131,072, 10),
-    active and not (an inactive step's rows back, no call), one pool map
-    call a call; a raising host function re-raised with its `failed` word
-    set, the next call clean; its device ms a handshake with an empty host
-    function, its call ms and the plain crossing's, against its bound (the
-    points out and logl in at the pinned copy rates measured here, plus the
-    link's round trip, `cuda_host.round_trip_ms`: a kernel's exchanges with
-    a host C thread, no Python); the serving loop's own cost a handshake
-    (the kernel's handshake at N = 1 less that round trip) apart;
+    one point, A's (1024, 10) with two blob values a point and B's
+    (131,072, 10), active and not (an inactive step's rows back, no
+    call), one pool map call a call; a raising host function re-raised
+    with its `failed` word set, the next call clean; each handshake split
+    into its parts by the device's %globaltimer and the host's
+    perf_counter_ns stamps, in this design and in the polled one it
+    replaced (scripts/host_call_polled.py: three kernels, 32-bit words, a
+    Python loop with an event query a turn), at B also without the host
+    copy; its device ms a handshake with an empty host function in turns
+    with the polled design (polled, current, current, polled), its call ms
+    and the plain crossing's, against its bound (the points out and logl
+    in at the pinned copy rates measured here, plus the link's round trip,
+    `cuda_host.round_trip_ms`: a kernel's exchanges with a host C thread,
+    no Python);
  5. the canonical problem unclustered (paired 10-D Rosenbrock, U(-10, 10)
     prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42,
     with `run(on_device=True)`: the device run loop, one graph replay;
@@ -262,14 +268,19 @@ lines and a failure exits non-zero:
     one replay and one read, logZ inside the anchor;
 13. the refit cadence, C with cluster_every=3 (on_device=False and True,
     bit for bit, as C), and a host likelihood: the 10-D Gaussian as a
-    numpy per-point function with host_likelihood=True; A with its
+    numpy per-point function with host_likelihood=True, with pool=None
+    and with pool=2 (spawned workers that import this script by name),
+    eagerly and on the run loop, the same bits, map calls = handshakes =
+    sweeps, the pool's seconds and the rest, a worker raising at a later
+    sweep ending the run there and a clean run after reset(); A with its
     likelihood on the host (`rosenbrock_numpy`), seed 42 with
     run(on_device=False) and, on a sampler whose seed-43 run captured the
     graph, run(on_device=True): bit for bit, logZ in the clustered band,
     one replay and one read a run, the host-call kernel's handshakes and
     the pool's map calls equal to the sweeps on both routes (eagerly the
     kernel served at once, on the run loop by the replay), the launches the
-    eager run's less its chunks' steps past the stop; the wall, the pool's seconds and the rest; then
+    eager run's less its chunks' steps past the stop; the wall, the pool's
+    seconds and the rest; then
     tests/test_blobs.py's object payloads on the run loop (each following
     its particle, the store pruned), and a likelihood that raises in a
     later iteration of a run on the run loop (its exception, no call and
@@ -383,7 +394,9 @@ and prints their table without driving the paths; with `--package-root
 DIR` it imports `tempest_tpu_torch` from DIR (for instance a `git archive`
 of another commit whose ESS kernel has its float64 entry), so two versions
 of the kernels can be timed on one card in turns, each in its own process.
-`--large-scale-only` runs phases 1-2 and 17 and prints no result line.
+`--large-scale-only` runs phases 1-2 and 17 and prints no result line;
+`--host-only` runs phases 1-2, 4j and 13's host likelihoods and prints
+none either.
 `--a-only [--package-root DIR]` runs phases 1-2 and A's seed 42
 (on_device=False) and prints its logZ, iterations, steps and ladder
 digest; `--parent DIR` makes the full run start that in a process of its
@@ -502,6 +515,10 @@ UNCLUSTERED_LOGZ = (-35.53, 0.75)
 # (benchmarks/results/reference_cpu.json); it holds JAX's clustered -35.11
 # (benchmarks/results/flagship_tpu.json).
 CLUSTERED_LOGZ = (-34.98, 1.0)
+# A host's seed-42 logZ on the card, the same on both routes and on every
+# card since its likelihood first crossed to the host (PERF.md section 6):
+# a change of the crossing keeps these bits.
+A_HOST_LOGZ = -34.861183166503906
 # Dynamic mode, rosenbrock10_cv: tempest_tpu on the CPU, seeds 42-44, logZ
 # -51.0069 / -51.5353 / -51.4085, mean -51.3169 +/- max(3 sigma, 1.0) with
 # sigma 0.2759 (scripts/rosenbrock10_cv_anchor.py; PERF.md section 2).
@@ -632,19 +649,31 @@ def rosenbrock_numpy(x):
 
 
 class TimedPool:
-    """A host pool (`Sampler(pool=...)`) that maps in this thread and counts
-    its map calls and the seconds spent in them."""
+    """A host pool (`Sampler(pool=...)`) that maps in this thread, or a
+    sampler's host map `inner` wrapped (`timed_map`), counting its map
+    calls and the seconds spent in them; from call `raise_at` on it maps
+    `raising_gaussian` in place of the likelihood (None: never)."""
 
-    def __init__(self):
-        self.calls, self.seconds = 0, 0.0
+    def __init__(self, inner=None):
+        self.inner, self.calls, self.seconds, self.raise_at = inner, 0, 0.0, None
+        self.copies_points = getattr(inner, "copies_points", False)
 
     def map(self, f, xs):
+        self.calls += 1
+        if self.raise_at is not None and self.calls >= self.raise_at:
+            f = raising_gaussian
         t0 = time.perf_counter()
         try:
-            return [f(x) for x in xs]
+            return [f(x) for x in xs] if self.inner is None else self.inner(f, xs)
         finally:
-            self.calls += 1
             self.seconds += time.perf_counter() - t0
+
+    __call__ = map
+
+
+def raising_gaussian(x):
+    # Raised inside a pool's worker: a built-in type, which the parent unpickles.
+    raise RuntimeError(f"likelihood raised in worker {os.getpid()}")
 
 
 def host_a_sampler(device, seed, pool=None, **kw):
@@ -1253,8 +1282,9 @@ def phase_build() -> dict:
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     ptxas = []
     for i, lib in enumerate(libs):  # the same compiles as the libraries', to cubins, verbose
+        source = getattr(lib, "directory", _build.CSRC) / lib.source
         cmd = [nvcc, *flags, *lib.extra_flags, "-Xptxas", "-v", "-cubin",
-               "-o", os.path.join(tmp, f"ptxas_{i}.cubin"), str(_build.CSRC / lib.source)]
+               "-o", os.path.join(tmp, f"ptxas_{i}.cubin"), str(source)]
         ptxas.append((lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                             text=True)))
     paths = _build.build_all(libs)
@@ -3096,10 +3126,11 @@ def phase_capture_abort() -> dict:
 # ---------------------------------------------------------------------------
 # Phase 4j: the host-call kernel (no Pallas counterpart: JAX's host callback)
 # ---------------------------------------------------------------------------
-# (label, N, d, blob width): A's points with two blob values a point, and B's
-# walkers at A's width without blobs.
-HOST_SHAPES = (("A", N_PARTICLES, N_DIM, 2), ("B", B_PARTICLES, N_DIM, 0))
-HOST_ROUNDS = 50  # handshakes timed in one served launch
+# (label, N, d, blob width): one point, A's points with two blob values a
+# point, and B's walkers at A's width without blobs.
+HOST_SHAPES = (("1", 1, 1, 0), ("A", N_PARTICLES, N_DIM, 2), ("B", B_PARTICLES, N_DIM, 0))
+HOST_ROUNDS = 50  # handshakes timed in one served launch (at most cuda_host.STAMP_RING)
+HOST_TURNS = ("polled", "current", "current", "polled")  # the designs' timing order
 
 
 def rosenbrock_numpy_blobs(x):
@@ -3120,25 +3151,87 @@ def _empty_host(n: int, width: int = 0):
     return lambda points: (logl, rows)
 
 
-def handshake_ms(device, n: int, d: int, rounds: int = HOST_ROUNDS) -> float:
+def host_designs() -> dict:
+    """The crossing's designs by name: (mailbox class, its `served`): the
+    current one (`ops/cuda_host.py`) and the polled one it replaced
+    (`scripts/host_call_polled.py`)."""
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import host_call_polled
+
+    return {"current": (cuda_host.Mailbox, cuda_host.served),
+            "polled": (host_call_polled.PolledMailbox, host_call_polled.polled_served)}
+
+
+def handshake_run(device, design, n: int, d: int, rounds: int = HOST_ROUNDS, copy: bool = True,
+                  stamps: bool = False):
     """Device ms a host call of (n, d) float32 points with an empty host
-    function: `rounds` back to back between two CUDA events, served on this
-    thread (the second of two served launches)."""
+    function in `design` (a `host_designs()` value): `rounds` back to back
+    in a CUDA graph, as the run loop replays them (launched one by one, the
+    first requests would wait for the host to queue the rest), its replay
+    between two CUDA events, served on this thread (the second of two
+    served replays); and the mailbox, whose stamps hold that replay's marks
+    where `stamps`. `copy` is the current design's (module docstring of
+    `ops/cuda_host.py`); the polled one always copies."""
+    make, serve = design
     failed = torch.zeros(1, dtype=torch.int32, device=device)
-    box = cuda_host.Mailbox(n, d, np.float32, 0, np.float32, device, _empty_host(n), failed)
+    kw = {"copy": copy} if make is cuda_host.Mailbox else {}
+    box = make(n, d, np.float32, 0, np.float32, device, _empty_host(n), failed, stamps=stamps,
+               **kw)
     x = torch.rand(n, d, device=device)
     out = torch.empty(n, device=device)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    graph = _captured(device, lambda: [box.launch(x, None, out, None) for _ in range(rounds)])
 
     def launch():
         a.record()
-        for _ in range(rounds):
-            box.launch(x, None, out, None)
+        graph.replay()
         b.record()
 
-    for _ in range(2):
-        cuda_host.served(launch, [box])
-    return a.elapsed_time(b) / rounds
+    for turn in range(2):
+        if stamps:
+            box.host_stamps.clear()
+        serve(launch, [box])
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / rounds, box
+
+
+# The parts of a handshake (ns, the mean over a served launch's rounds):
+# device marks (%globaltimer) and host marks (perf_counter_ns), each side
+# against its own clock.
+SPLIT_PARTS = {
+    "device: posted -> request stored": ("d", 0, 1, 0),
+    "device: request stored -> reply seen": ("d", 1, 2, 0),
+    "device: reply seen -> fetch ended": ("d", 2, 3, 0),
+    "device: fetch ended -> next post ended": ("d", 3, 0, 1),
+    "host: request seen -> fn entered": ("h", 1, 2, 0),
+    "host: fn entered -> fn returned": ("h", 2, 3, 0),
+    "host: fn returned -> reply written": ("h", 3, 4, 0),
+    "host: reply written -> next request seen": ("h", 4, 1, 1),
+}
+
+
+def handshake_split(box) -> dict:
+    """The parts of a stamped mailbox's last served launch (SPLIT_PARTS),
+    in us, and the link's share: the device's wait for the reply less the
+    host's time from the request seen to the reply written (the link both
+    ways and the host's detection of the request)."""
+    host = np.array(box.host_stamps, dtype=np.int64)  # seq, seen, entered, returned, written
+    seqs = host[:, 0]
+    marks = box.stamps.view(-1, 4).cpu().numpy()[(seqs - 1) % cuda_host.STAMP_RING]
+    sides = {"d": marks, "h": host}
+    out = {}
+    for name, (side, a, b, shift) in SPLIT_PARTS.items():
+        v = sides[side]
+        diff = v[shift:, b] - v[:len(v) - shift, a]
+        out[name] = float(np.mean(diff)) / 1e3
+    out["link and detection"] = (out["device: request stored -> reply seen"]
+                                 - out["host: request seen -> fn entered"]
+                                 - out["host: fn entered -> fn returned"]
+                                 - out["host: fn returned -> reply written"])
+    out["handshake (post ended to post ended)"] = float(np.mean(np.diff(marks[:, 0]))) / 1e3
+    return out
 
 
 def pinned_rates(device) -> dict:
@@ -3152,93 +3245,116 @@ def pinned_rates(device) -> dict:
     return {"d2h_gb_s": 4 * n / d2h / 1e6, "h2d_gb_s": 4 * n / h2d / 1e6}
 
 
-def phase_host_kernel(device) -> dict:
-    """4j: the host-call kernel (csrc/host_call.cu) against its plain
-    version, the plain crossing (`HostLikelihood.plain`), at A's (1024, 10)
-    with two blob values a point and B's (131,072, 10): logl and the blob
-    rows bit for bit, an inactive step's rows back as they were with no
-    call, one pool map call an active call; a host function that raises:
-    its exception, the device word `failed` set, the next call clean; the
-    device ms a handshake with an empty host function (the wall of the
-    host's serving included, as the device waits for it), its call ms and
-    the plain crossing's, against its bound: the points out and logl in at
-    the pinned copy rates measured here, plus the link's round trip, taken
-    from a C ping-pong on mapped memory (`cuda_host.round_trip_ms`), not
-    from the kernel under test. The kernel's handshake at N = 1 less that
-    round trip is the Python serving loop's cost, the design's overhead,
-    reported apart."""
+def host_checks(device, label: str, n: int, d: int, width: int) -> tuple:
+    """The kernel against the plain crossing at (n, d) with `width` blob
+    values a point: logl and the blob rows bit for bit, an inactive step's
+    rows back as they were with no call, one map call an active call; a
+    host function that raises: its exception, `failed` set, the next call
+    clean. Returns the crossing (a counting pool's) and the points."""
     from tempest_tpu_torch.utils.blobs import BlobSchema
     from tempest_tpu_torch.utils.wrappers import HostLikelihood, make_pool_map
 
+    gen = torch.Generator(device=device).manual_seed(7)
+    x = 20.0 * torch.rand(n, d, device=device, generator=gen) - 10.0
+    pool = TimedPool()
+    schema = BlobSchema(np.float32, blob_size=width) if width else None
+    fn = rosenbrock_numpy_blobs if width else rosenbrock_numpy
+    h = HostLikelihood(fn, make_pool_map(pool), torch.float32, schema)
+    logl0 = torch.randn(n, device=device, generator=gen)
+    blobs0 = torch.randn(n, width, device=device, generator=gen) if width else None
+    for go in (True, False):
+        active = torch.full((), go, device=device)
+        calls = pool.calls
+        want = h.plain(x, active, logl0, blobs0)
+        got = h.kernel_call(x, active, logl0, blobs0)
+        check(_bits_equal(got[0], want[0]) and _bits_equal(got[1], want[1]),
+              f"host call {label} active={go}: the kernel's rows differ from the plain "
+              f"crossing's")
+        check(pool.calls - calls == (2 if go else 0),
+              f"host call {label} active={go}: {pool.calls - calls} map calls for 2 crossings")
+        if not go:
+            check(_bits_equal(got[0], logl0) and _bits_equal(got[1], blobs0),
+                  f"host call {label}: an inactive step's rows changed")
+    bad = HostLikelihood(lambda p: 1 / 0, make_pool_map(None), torch.float32)
+    raised = None
+    try:
+        bad.kernel_call(x)
+    except ZeroDivisionError as exc:
+        raised = exc
+    check(raised is not None and int(bad.failed[0]) == 1,
+          f"host call {label}: a raising host function gave {raised!r}, failed "
+          f"{bad.failed.tolist()}")
+    bad.log_likelihood = rosenbrock_numpy
+    check(_bits_equal(bad.kernel_call(x)[0], h.plain(x)[0]),
+          f"host call {label}: the call after a failure differs")
+    return h, x
+
+
+def phase_host_kernel(device) -> dict:
+    """4j: the host-call kernel (csrc/host_call.cu) against its plain
+    version, the plain crossing (`HostLikelihood.plain`), at one point,
+    A's (1024, 10) with two blob values a point and B's (131,072, 10)
+    (`host_checks`); each handshake split into its parts by the device's
+    and the host's stamps (`handshake_split`), in the current design and
+    the polled one it replaced (`scripts/host_call_polled.py`); the device
+    ms a handshake with an empty host function (the host's serving
+    included, as the device waits for it) in both designs in turns
+    (polled, current, current, polled), at B also without the host copy
+    (a spawned pool's route), its call ms and the plain crossing's, against
+    its bound: the points out and logl in at the pinned copy rates
+    measured here, plus the link's round trip, taken from a C ping-pong on
+    mapped memory (`cuda_host.round_trip_ms`), not from the kernel under
+    test."""
+    designs = host_designs()
     rates = pinned_rates(device)
     cuda_host.round_trip_ms(device, 100)  # loads the kernel
     round_trip = cuda_host.round_trip_ms(device)
-    served = handshake_ms(device, 1, 1)
     shapes, launches0 = {}, cuda_host.LAUNCHES
     for label, n, d, width in HOST_SHAPES:
-        gen = torch.Generator(device=device).manual_seed(7)
-        x = 20.0 * torch.rand(n, d, device=device, generator=gen) - 10.0
-        pool = TimedPool()
-        schema = BlobSchema(np.float32, blob_size=width) if width else None
-        fn = rosenbrock_numpy_blobs if width else rosenbrock_numpy
-        h = HostLikelihood(fn, make_pool_map(pool), torch.float32, schema)
-        logl0 = torch.randn(n, device=device, generator=gen)
-        blobs0 = torch.randn(n, width, device=device, generator=gen) if width else None
-        for go in (True, False):
-            active = torch.full((), go, device=device)
-            calls = pool.calls
-            want = h.plain(x, active, logl0, blobs0)
-            got = h.kernel_call(x, active, logl0, blobs0)
-            check(_bits_equal(got[0], want[0]) and _bits_equal(got[1], want[1]),
-                  f"host call {label} active={go}: the kernel's rows differ from the plain "
-                  f"crossing's")
-            check(pool.calls - calls == (2 if go else 0),
-                  f"host call {label} active={go}: {pool.calls - calls} map calls for 2 crossings")
-            if not go:
-                check(_bits_equal(got[0], logl0) and _bits_equal(got[1], blobs0),
-                      f"host call {label}: an inactive step's rows changed")
-        # a host function that raises: its exception, `failed` set, then a clean call
-        bad = HostLikelihood(lambda p: 1 / 0, make_pool_map(None), torch.float32)
-        raised = None
-        try:
-            bad.kernel_call(x)
-        except ZeroDivisionError as exc:
-            raised = exc
-        check(raised is not None and int(bad.failed[0]) == 1,
-              f"host call {label}: a raising host function gave {raised!r}, failed "
-              f"{bad.failed.tolist()}")
-        bad.log_likelihood = rosenbrock_numpy
-        check(_bits_equal(bad.kernel_call(x)[0], h.plain(x)[0]),
-              f"host call {label}: the call after a failure differs")
+        h, x = host_checks(device, label, n, d, width)
+        split = {name: handshake_split(handshake_run(device, design, n, d, stamps=True)[1])
+                 for name, design in designs.items()}
+        if label == "B":
+            split["current, no copy"] = handshake_split(
+                handshake_run(device, designs["current"], n, d, copy=False, stamps=True)[1])
+        turns = [(name, handshake_run(device, designs[name], n, d)[0]) for name in HOST_TURNS]
+        if label == "B":
+            turns += [("current, no copy", handshake_run(device, designs["current"], n, d,
+                                                        copy=False)[0]) for _ in range(2)]
+        by_design = {}
+        for name, ms in turns:
+            by_design.setdefault(name, []).append(ms)
         # times with the host function returning at once
         h.evaluate = _empty_host(n, width)
         h._boxes.clear()
         times = timed_in_turns({"kernel": lambda: h.kernel_call(x),
                                 "plain": lambda: h.plain(x)}, calls=20)
-        device_ms = handshake_ms(device, n, d)
+        device_ms = float(np.mean(by_design["current"]))
         moved = {"out_bytes": 4 * n * d, "in_bytes": 4 * n}
         bytes_ms = (moved["out_bytes"] / (rates["d2h_gb_s"] * 1e6)
                     + moved["in_bytes"] / (rates["h2d_gb_s"] * 1e6))
         bound = bytes_ms + round_trip
         shapes[label] = {"n": n, "d": d, "blob_width": width, "device_ms": device_ms,
-                         "call_ms": times["kernel"], "plain_ms": times["plain"],
-                         "bound_ms": bound, "bytes_ms": bytes_ms, **moved}
+                         "device_ms_turns": turns, "call_ms": times["kernel"],
+                         "plain_ms": times["plain"], "bound_ms": bound, "bytes_ms": bytes_ms,
+                         "split_us": split, **moved}
         print(f"host call {label} ({n}, {d}), blob width {width}: bit for bit the plain "
               f"crossing (active and not), one map call a call, a raising host function "
-              f"re-raised with `failed` set; device {device_ms:.4f} ms a handshake (empty host "
-              f"function), call {times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, bound "
-              f"{bound:.4f} ms", flush=True)
+              f"re-raised with `failed` set; device ms a handshake (empty host function) in "
+              f"turns {json.dumps(turns)}; call {times['kernel']:.4f} ms, plain "
+              f"{times['plain']:.4f} ms, bound {bound:.4f} ms", flush=True)
+        for name, parts in split.items():
+            print(f"host call {label} split, {name} (us): "
+                  + json.dumps({k: round(v, 3) for k, v in parts.items()}), flush=True)
     a = shapes["A"]
-    print(f"host link: {json.dumps(rates)}; its round trip (C ping-pong) {round_trip:.5f} ms; "
-          f"the kernel's handshake at N = 1 {served:.5f} ms, of which the serving loop "
-          f"{served - round_trip:.5f} ms", flush=True)
+    print(f"host link: {json.dumps(rates)}; its round trip (C ping-pong) {round_trip:.5f} ms",
+          flush=True)
     # The work is moving bytes over the host link: the points out, logl in,
     # and the handshake's words each way, whose cost is the link's latency.
     return {"max_abs_err": 0.0, "ms": a["call_ms"], "plain_ms": a["plain_ms"],
             "device_ms": a["device_ms"], "bound_ms": a["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "shapes": shapes,
-            "bounds": {"host_link": rates, "round_trip_ms": round_trip,
-                       "handshake_at_1_ms": served, "serving_ms": served - round_trip},
+            "bounds": {"host_link": rates, "round_trip_ms": round_trip},
             "checks": cuda_host.LAUNCHES - launches0}
 
 
@@ -5701,25 +5817,14 @@ def dynamic_bisection(device) -> dict:
     fail("dynamic CV bisection: no CV-bisection body ran in seeds 11, 4 and 5")
 
 
-def phase_cadence_and_host(device) -> dict:
+def phase_cadence_and_host(device, cadence: bool = True) -> dict:
     """13: C with cluster_every=3 (with run(on_device=False) and True, bit
-    for bit), and the 10-D Gaussian as a host likelihood."""
-    s = c_sampler(device, cluster_every=3)
-    reset_counts()
-    s.run(n_total=512, progress=False)
-    cadence = counts()
-    g = c_sampler(device, cluster_every=3)
-    reset_counts()
-    g.run(n_total=512, progress=False, on_device=True)
-    check_graphed_pair("cadence (C, cluster_every=3)", s, g, cadence, counts())
-    k = int(s.state.cluster_model.n_clusters())
-    x, w, _ = s.posterior()
-    mass = float(np.sum(w[x[:, 0] > 0]))
-    print(f"cadence (C, cluster_every=3): clusters={k} mass(x0>0)={mass:.4f} "
-          f"logz={s.evidence()[0]:.4f} beta={s.beta:.6f} launches={cadence}", flush=True)
-    check(k >= 2 and 0.15 < mass < 0.85, f"cadence: {k} cluster(s), mass {mass}")
-    check(cadence["ess_bisect"] > 0, "cadence: no ESS kernel launch")
-
+    for bit; not where `cadence` is False), the 10-D Gaussian as a host
+    likelihood, with pool=None and with a spawned pool of two workers
+    (`pooled_host`), and A with its likelihood on the host (`host_route`)."""
+    out = {}
+    if cadence:
+        out["cadence"] = cadence_run(device)
     s = Sampler(prior_transform, gaussian_numpy, n_dim=N_DIM, n_particles=512,
                 host_likelihood=True, clustering=False, random_state=0, history_capacity=64,
                 device=device)
@@ -5736,10 +5841,119 @@ def phase_cadence_and_host(device) -> dict:
     check(s.beta > 0.99 and abs(logz - GAUSSIAN_LOGZ[0]) < GAUSSIAN_LOGZ[1] and acc > 0.1,
           f"host likelihood: beta {s.beta}, logZ {logz}, acceptance {acc}")
     check(host["ess_bisect"] > 0, "host likelihood: no ESS kernel launch")
-    out = {"cadence": cadence, "host": host}
+    out["host"] = host
     if cuda_host is not None:
+        out.update(pooled_host(device, s, wall))
         out.update(host_route(device))
     return out
+
+
+def cadence_run(device) -> dict:
+    """C with cluster_every=3, run(on_device=False) and True, bit for bit."""
+    s = c_sampler(device, cluster_every=3)
+    reset_counts()
+    s.run(n_total=512, progress=False)
+    cadence = counts()
+    g = c_sampler(device, cluster_every=3)
+    reset_counts()
+    g.run(n_total=512, progress=False, on_device=True)
+    check_graphed_pair("cadence (C, cluster_every=3)", s, g, cadence, counts())
+    k = int(s.state.cluster_model.n_clusters())
+    x, w, _ = s.posterior()
+    mass = float(np.sum(w[x[:, 0] > 0]))
+    print(f"cadence (C, cluster_every=3): clusters={k} mass(x0>0)={mass:.4f} "
+          f"logz={s.evidence()[0]:.4f} beta={s.beta:.6f} launches={cadence}", flush=True)
+    check(k >= 2 and 0.15 < mass < 0.85, f"cadence: {k} cluster(s), mass {mass}")
+    check(cadence["ess_bisect"] > 0, "cadence: no ESS kernel launch")
+    return cadence
+
+
+POOL_WORKERS = 2
+
+
+def timed_map(s) -> TimedPool:
+    """Wrap sampler `s`'s host map (its crossing's) in a `TimedPool`."""
+    crossing = s.state._loglike_batch
+    if not isinstance(crossing.pool_map, TimedPool):
+        crossing.pool_map = TimedPool(crossing.pool_map)
+    return crossing.pool_map
+
+
+def pooled_host(device, plain, plain_wall: float) -> dict:
+    """13a: the 10-D Gaussian host likelihood with pool=POOL_WORKERS (spawned
+    workers, which import this script by name and touch no CUDA), eagerly
+    and on the run loop (after a capturing run), each bit for bit
+    `plain`'s run (pool=None, eager): beta, logZ, ESS, steps and calls; map
+    calls = handshakes = sweeps; the pool's seconds and the rest of the
+    wall; then a likelihood raising inside a worker at a later sweep of a
+    run on the run loop: its RuntimeError, no map call or handshake after
+    the failing one, and after reset() the clean run's bits. Returns the
+    launches of the pooled runs by route."""
+    s = Sampler(prior_transform, gaussian_numpy, n_dim=N_DIM, n_particles=512,
+                host_likelihood=True, clustering=False, random_state=0, history_capacity=64,
+                pool=POOL_WORKERS, device=device)
+    timed = timed_map(s)
+    check(timed.copies_points, "pool=<int>: its map does not copy the points")
+    want = plain.results()
+    runs, launches = {}, {}
+    try:
+        for on_device in (False, True):
+            if on_device:
+                s.reset(random_state=1)
+                s.run(n_total=2048, progress=False, on_device=True)  # captures the graph
+            s.reset(random_state=0)
+            calls, seconds, served = timed.calls, timed.seconds, cuda_host.HANDSHAKES
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.run(n_total=2048, progress=False, on_device=on_device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[on_device] = counts()
+            got = s.results()
+            for key in ("beta", "logz", "ess", "steps", "calls"):
+                check(got[key].tobytes() == want[key].tobytes(),
+                      f"pool={POOL_WORKERS} on_device={on_device}: {key} differs from pool=None")
+            sweeps = int(s.state.cur.calls)
+            runs[f"on_device={on_device}"] = run = {
+                "wall": wall, "pool_s": timed.seconds - seconds,
+                "rest_s": wall - (timed.seconds - seconds), "map_calls": timed.calls - calls,
+                "handshakes": cuda_host.HANDSHAKES - served, "sweeps": sweeps,
+                "iters": int(s.state.hist.t), "logz": s.evidence()[0]}
+            check(run["map_calls"] == run["handshakes"] == sweeps > 0,
+                  f"pool={POOL_WORKERS} on_device={on_device}: {run['map_calls']} map calls, "
+                  f"{run['handshakes']} handshakes, {sweeps} sweeps")
+            if on_device:
+                stats = loop_stats(s)["run"]
+                check(stats.get("replays", 0) >= 1 and launches[True]["host_call"] == sweeps,
+                      f"pool on the run loop: {stats}, {launches[True]['host_call']} launches")
+        sweeps = runs["on_device=True"]["sweeps"]
+        calls, served, raised = timed.calls, cuda_host.HANDSHAKES, None
+        timed.raise_at = calls + sweeps // 2
+        s.reset(random_state=0)
+        try:
+            s.run(n_total=2048, progress=False, on_device=True)
+        except RuntimeError as exc:
+            raised = exc
+        made, handshakes = timed.calls - calls, cuda_host.HANDSHAKES - served
+        check(raised is not None and "in worker" in str(raised) and made == sweeps // 2
+              and handshakes == made,
+              f"pool={POOL_WORKERS}: a raising worker gave {raised!r}, {made} map calls and "
+              f"{handshakes} handshakes for a failure at map call {sweeps // 2}")
+        timed.raise_at = None
+        s.reset(random_state=0)
+        s.run(n_total=2048, progress=False, on_device=True)
+        for key in ("beta", "logz", "steps", "calls"):
+            check(s.results()[key].tobytes() == want[key].tobytes(),
+                  f"pool={POOL_WORKERS}: {key} after a raising worker and reset() differs")
+    finally:
+        s.close()
+    print(f"host likelihood with pool={POOL_WORKERS}: bit for bit pool=None eagerly and on the "
+          f"run loop; map calls = handshakes = sweeps; {json.dumps(runs)}; pool=None eagerly "
+          f"{plain_wall:.3f} s; a worker raising at map call {sweeps // 2} ended the run there "
+          f"({raised!r}), and after reset() the run repeats the clean bits", flush=True)
+    return {"host_pool": launches[False], "host_pool_fused": launches[True],
+            "pool_runs": runs}
 
 
 def host_route(device) -> dict:
@@ -5781,8 +5995,9 @@ def host_route(device) -> dict:
         check(fused["results"][key].tobytes() == eager["results"][key].tobytes(),
               f"A host: {key} with on_device=True differs from on_device=False")
     lo, hi = CLUSTERED_LOGZ[0] - CLUSTERED_LOGZ[1], CLUSTERED_LOGZ[0] + CLUSTERED_LOGZ[1]
-    check(fused["logz"] == eager["logz"] and lo <= fused["logz"] <= hi
-          and fused["sampler"].beta == 1.0, f"A host: logZ {fused['logz']!r} / {eager['logz']!r}")
+    check(fused["logz"] == eager["logz"] == A_HOST_LOGZ and lo <= fused["logz"] <= hi
+          and fused["sampler"].beta == 1.0,
+          f"A host: logZ {fused['logz']!r} / {eager['logz']!r}, not {A_HOST_LOGZ!r}")
     for name, run in runs.items():
         check(run["map_calls"] == run["sweeps"] == run["handshakes"] > 0,
               f"A host on_device={name}: {run['map_calls']} map calls and {run['handshakes']} "
@@ -7143,6 +7358,9 @@ def main() -> None:
                              "line)")
     parser.add_argument("--large-scale-only", action="store_true",
                         help="run phases 1-2 and 17 only (no result line)")
+    parser.add_argument("--host-only", action="store_true",
+                        help="run phases 1-2, 4j and 13's host likelihoods only (no result "
+                             "line)")
     parser.add_argument("--parent", metavar="DIR",
                         help="a checkout of another commit: its package's A seed 42 (--a-only, "
                              "in a process of its own) must give phase 6's logZ and iterations")
@@ -7169,6 +7387,13 @@ def main() -> None:
     ptxas = phase_build()
     if args.large_scale_only:
         phase_17(device, stamp)
+        return
+    if args.host_only:
+        stamp("phase 4j: the host-call kernel")
+        phase_host_kernel(device)
+        stamp("phase 13: host likelihoods")
+        phase_cadence_and_host(device, cadence=False)
+        stamp("host only: done")
         return
     if args.a_only:
         runs = {}
@@ -7271,6 +7496,7 @@ def main() -> None:
     stamp("phase 13: cadence and a host likelihood")
     cadence_host = phase_cadence_and_host(device)
     host_runs = cadence_host.pop("host_runs", None)
+    pool_runs = cadence_host.pop("pool_runs", None)
     paths.update(cadence_host)
     stamp("phase 14: float64")
     f64_paths, f64_errs, f64_summary = phase_float64(device, walls, fused["wall"])
@@ -7323,6 +7549,7 @@ def main() -> None:
     print(f"dynamic: {json.dumps({k: dynamic[k] for k in keys})}", flush=True)
     print(f"float64: {json.dumps(f64_summary)}", flush=True)
     print(f"A host: {json.dumps(host_runs)}", flush=True)
+    print(f"host pool: {json.dumps(pool_runs)}", flush=True)
     keys = ("walls", "iters", "loops", "run_graphs", "windows", "float64")
     print(f"A mesh: {json.dumps({k: mesh[k] for k in keys})}", flush=True)
     keys = ("wall", "iters", "loops", "run_graphs", "windows")

@@ -17,7 +17,7 @@
 // card (CUDA runtime 12.9, driver 13.0) it captures a host function in a
 // WHILE body but refuses to instantiate the graph (scripts/capture_probe.py
 // --host-node). A kernel node may touch any memory the device can reach, so
-// the crossing is three kernel nodes around a mailbox that both sides see:
+// the crossing is two kernel nodes around a mailbox that both sides see:
 //
 //  - tempest_host_alloc(bytes, &host, &device) allocates the mailbox with
 //    cudaHostAlloc(cudaHostAllocMapped | cudaHostAllocPortable), zeroed, and
@@ -25,39 +25,56 @@
 //    (tempest_tpu_torch/ops/cuda_host.py): a 128-byte header (the request
 //    sequence at byte 0, written by the device; the reply sequence at 64
 //    and the status at 72, written by the host), the points (N x d of the
-//    run's type), logl (N float32) and the blob rows (N x B of their type).
+//    run's type), logl (N float32) and the blob rows (N x B of their type),
+//    each region at a multiple of 128 bytes.
 //  - tempest_host_call(stream, ...) launches, on `stream`, where the 0-d bool
 //    `active` holds (a null `active` always; an inactive step launches the
-//    three kernels, and they return at once: no copy, no handshake):
-//     1. post: a grid copies the points into the mailbox as 32-bit words
-//        (coalesced posted writes over the host link), each thread ending
-//        with __threadfence_system();
-//     2. handshake (one thread): a fence at system scope, the next sequence
-//        number s from a device word (`counter`, this mailbox's requests so
-//        far), s stored to the request word with release semantics at system
-//        scope, then an acquire load of the reply word at system scope until
-//        it reads s, with __nanosleep between loads (64 ns, doubled to at
-//        most 512); a nonzero status (the host function raised) sets the
-//        device word `failed`, which the predicates of the WHILE nodes
-//        around the call AND in, so the replay ends within one step;
-//     3. fetch: a grid reads logl and the blob rows from the mailbox with
-//        relaxed loads at system scope (so nothing stale from a cache) into
-//        the caller's buffers, logl converted to the run's type (32-bit
-//        words, a byte tail for blob rows of an odd size); an inactive step
-//        leaves them as they are (the wrapper fills them with the walkers'
-//        rows first), so nothing runs after the call on the host's side.
+//    two kernels, and they return at once: no copy, no handshake):
+//     1. post: a grid copies the points into the mailbox with 16-byte
+//        stores where both ends are 16-byte aligned (whole lines cross the
+//        link; 4-byte words otherwise and for the tail), each thread ending
+//        with __threadfence_system(). The CTA that arrives last (a device
+//        word counts the arrivals) makes the handshake: the next sequence
+//        number s from a device word (`counter[0]`, this mailbox's requests
+//        so far), s stored to the request word with release semantics at
+//        system scope, then an acquire load of the reply word at system
+//        scope until it reads s (__nanosleep 64 ns, doubled to at most 512);
+//        a nonzero status (the host function raised) sets the device word
+//        `failed`, which the predicates of the WHILE nodes around the call
+//        AND in, so the replay ends within one step. Folding the handshake
+//        into the post saves a node's launch and the second fence.
+//     2. fetch: a grid reads logl and the blob rows from the mailbox with
+//        16-byte relaxed loads at system scope (nothing stale from a cache)
+//        into the caller's buffers where they are 16-byte aligned, logl
+//        converted to the run's type; an inactive step leaves them as they
+//        are (the wrapper fills them with the walkers' rows first), so
+//        nothing runs after the call on the host's side.
 //    Sequence numbers, not flags: the host serves a request where the
 //    request word differs from the reply word and answers with that number,
 //    so a word a past replay left means nothing. Outside a graph the caller
 //    queues nothing after the call until it has ended: a kernel loaded
 //    lazily, or a new CUDA allocation, waits for the device, which waits
-//    for the host (so tempest_host_alloc loads these three kernels).
-//  - The host side (ops/cuda_host.py `served`) runs on the thread that
-//    replays the graph: it records an event after the launch, then polls
-//    the request word, calls the host function on a copy of the points,
-//    writes logl, the blob rows and the status, then the reply word (x86
-//    keeps stores in order), until the event has completed. It makes no
-//    blocking CUDA call while the graph runs: the kernel would wait on it.
+//    for the host (so tempest_host_alloc loads the kernels).
+//  - tempest_host_signal(stream, word, s) queues one thread that stores s to
+//    a mapped completion word at system scope: the last node of the work
+//    the host serves (a graph replay, an eager call).
+//  - tempest_host_wait(headers, n, done, s, timeout_ns), called from Python
+//    through ctypes with the GIL released, spins on every mailbox's request
+//    and reply words and on the completion word: it returns the index of a
+//    mailbox that waits, -1 once the completion word reads s (every request
+//    was answered before it), or -2 after `timeout_ns`, so that Python sees
+//    a Ctrl-C. The host side (ops/cuda_host.py `served`) runs on the thread
+//    that replays the graph: it launches the work and the signal, then waits
+//    here and enters Python only to call the host function and write logl,
+//    the blob rows, the status and then the reply word (x86 keeps stores in
+//    order). It makes no blocking CUDA call while the graph runs: the kernel
+//    would wait on it.
+//
+// `stamps`, where not null, takes %globaltimer (ns) marks of each request in
+// a ring of kRing slots of four: the post's end (every CTA arrived), the
+// request stored, the reply seen and the fetch's end (the last CTA's); the
+// host's marks are cuda_host.py's. They split a handshake (chip_smoke.py
+// phase 4j).
 //
 // What bounds it on this card: the host link and the round trip, not the
 // device. Its bytes are the points out and logl (and the blob rows) in,
@@ -65,23 +82,29 @@
 // system-scope store seen by the host's poll and its reply seen by the
 // kernel's poll. tempest_host_pingpong(rounds, &ms) measures that round trip
 // alone: one kernel makes `rounds` exchanges with a host C thread that
-// spins on the request word and writes the reply, timed by CUDA events;
-// what a handshake of the host-call kernel takes beyond it is the Python
-// serving loop's (chip_smoke.py). The device does nothing else meanwhile:
-// the body waits for the likelihood, as XLA's program waits for its
-// callback.
+// spins on the request word and writes the reply, timed by CUDA events.
+// The device does nothing else meanwhile: the body waits for the
+// likelihood, as XLA's program waits for its callback.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
 #include <atomic>
+#include <chrono>
 #include <thread>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 4;
+constexpr unsigned long long kRing = 64;
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
 __device__ __forceinline__ void store_release_sys(unsigned long long* p, unsigned long long v) {
   asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
@@ -96,6 +119,15 @@ __device__ __forceinline__ unsigned long long load_acquire_sys(const unsigned lo
 __device__ __forceinline__ uint32_t load_relaxed_sys(const uint32_t* p) {
   uint32_t v;
   asm volatile("ld.relaxed.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint4 load_relaxed_sys_v4(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.relaxed.sys.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p)
+               : "memory");
   return v;
 }
 
@@ -123,26 +155,43 @@ __device__ __forceinline__ bool skipped(const bool* active) {
   return active != nullptr && !*active;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    post_kernel(const bool* active, const uint32_t* __restrict__ x, uint32_t* box_x,
-                long long words) {
-  if (skipped(active)) return;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < words;
-       i += stride) {
-    box_x[i] = x[i];
-  }
-  __threadfence_system();
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-__global__ void handshake_kernel(const bool* active, unsigned long long* counter,
-                                 unsigned long long* request, const unsigned long long* reply,
-                                 const uint32_t* status, int* failed) {
+// counter[0]: the requests made; counter[1]: the post's CTAs arrived.
+__global__ void __launch_bounds__(kThreads)
+    post_kernel(const bool* active, const uint32_t* __restrict__ x, uint32_t* box_x,
+                long long x_bytes, unsigned long long* counter, unsigned long long* request,
+                const unsigned long long* reply, const uint32_t* status, int* failed,
+                unsigned long long* stamps) {
   if (skipped(active)) return;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long lines = aligned16(x) && aligned16(box_x) ? x_bytes / 16 : 0;
+  const uint4* x16 = reinterpret_cast<const uint4*>(x);
+  uint4* box16 = reinterpret_cast<uint4*>(box_x);
+  for (long long i = first; i < lines; i += stride) box16[i] = x16[i];
+  for (long long i = 4 * lines + first; i < x_bytes / 4; i += stride) box_x[i] = x[i];
   __threadfence_system();
-  const unsigned long long seq = *counter + 1;
-  *counter = seq;
-  exchange(request, reply, seq);
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  if (atomicAdd(counter + 1, 1ull) != gridDim.x - 1) return;
+  // the last CTA: every CTA's points are out
+  counter[1] = 0;
+  __threadfence_system();
+  const unsigned long long seq = counter[0] + 1;
+  counter[0] = seq;
+  unsigned long long* mark = stamps == nullptr ? nullptr : stamps + 4 * ((seq - 1) % kRing);
+  if (mark) mark[0] = now_ns();
+  store_release_sys(request, seq);
+  if (mark) mark[1] = now_ns();
+  unsigned ns = 64;
+  while (load_acquire_sys(reply) != seq) {
+    __nanosleep(ns);
+    if (ns < 512) ns *= 2;
+  }
+  if (mark) mark[2] = now_ns();
   if (load_relaxed_sys(status) != 0) *failed = 1;
 }
 
@@ -153,14 +202,35 @@ __global__ void pingpong_kernel(unsigned long long* request, const unsigned long
   for (int r = 1; r <= rounds; ++r) exchange(request, reply, static_cast<unsigned long long>(r));
 }
 
+__global__ void signal_kernel(unsigned long long* word, unsigned long long seq) {
+  __threadfence_system();
+  store_release_sys(word, seq);
+}
+
 __global__ void __launch_bounds__(kThreads)
     fetch_kernel(const bool* active, const uint32_t* box_logl, void* __restrict__ logl,
                  int logl_f64, long long n, const uint8_t* box_blobs,
-                 uint8_t* __restrict__ blobs, long long blob_bytes) {
+                 uint8_t* __restrict__ blobs, long long blob_bytes,
+                 const unsigned long long* counter, unsigned long long* stamps) {
   if (skipped(active)) return;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  for (long long i = first; i < n; i += stride) {
+  // logl: four values a 16-byte load (the mailbox's region is aligned)
+  const long long quads = aligned16(logl) ? n / 4 : 0;
+  const uint4* box_quads = reinterpret_cast<const uint4*>(box_logl);
+  for (long long i = first; i < quads; i += stride) {
+    const uint4 v = load_relaxed_sys_v4(box_quads + i);
+    const float4 f = make_float4(__uint_as_float(v.x), __uint_as_float(v.y),
+                                 __uint_as_float(v.z), __uint_as_float(v.w));
+    if (logl_f64) {
+      double2* out = static_cast<double2*>(logl) + 2 * i;
+      out[0] = make_double2(f.x, f.y);
+      out[1] = make_double2(f.z, f.w);
+    } else {
+      static_cast<float4*>(logl)[i] = f;
+    }
+  }
+  for (long long i = 4 * quads + first; i < n; i += stride) {
     const float v = __uint_as_float(load_relaxed_sys(box_logl + i));
     if (logl_f64) {
       static_cast<double*>(logl)[i] = static_cast<double>(v);
@@ -168,14 +238,20 @@ __global__ void __launch_bounds__(kThreads)
       static_cast<float*>(logl)[i] = v;
     }
   }
-  const long long words = blob_bytes / 4;
-  const uint32_t* box_words = reinterpret_cast<const uint32_t*>(box_blobs);
-  uint32_t* out_words = reinterpret_cast<uint32_t*>(blobs);
-  for (long long i = first; i < words; i += stride) out_words[i] = load_relaxed_sys(box_words + i);
-  if (first == 0) {
-    for (long long b = 4 * words; b < blob_bytes; ++b) {
-      blobs[b] = static_cast<uint8_t>(load_relaxed_sys_u8(box_blobs + b));
-    }
+  // the blob rows: 16 bytes a load where the caller's buffer is aligned,
+  // then the tail a byte at a time
+  const long long chunks = aligned16(blobs) ? blob_bytes / 16 : 0;
+  const uint4* box_chunks = reinterpret_cast<const uint4*>(box_blobs);
+  uint4* out_chunks = reinterpret_cast<uint4*>(blobs);
+  for (long long i = first; i < chunks; i += stride) {
+    out_chunks[i] = load_relaxed_sys_v4(box_chunks + i);
+  }
+  for (long long b = 16 * chunks + first; b < blob_bytes; b += stride) {
+    blobs[b] = static_cast<uint8_t>(load_relaxed_sys_u8(box_blobs + b));
+  }
+  if (stamps != nullptr) {
+    __syncthreads();
+    if (threadIdx.x == 0) atomicMax(stamps + 4 * ((counter[0] - 1) % kRing) + 3, now_ns());
   }
 }
 
@@ -184,16 +260,23 @@ int blocks_for(long long items) {
   return static_cast<int>(b < 1 ? 1 : (b > kMaxBlocks ? kMaxBlocks : b));
 }
 
+inline void cpu_relax() {
+#if defined(__x86_64__) || defined(__i386__)
+  __builtin_ia32_pause();
+#endif
+}
+
 }  // namespace
 
 extern "C" int tempest_host_alloc(long long bytes, void* host_out, void* device_out) {
   if (bytes <= 0) return cudaErrorInvalidValue;
-  // Load the three kernels now: loaded lazily at their first launch, the
-  // fetch kernel's load could wait for the device while the handshake spins.
+  // Load the kernels now: loaded lazily at their first launch, the fetch
+  // kernel's or the signal's load could wait for the device while the
+  // handshake spins.
   cudaFuncAttributes attributes;
   const void* kernels[] = {reinterpret_cast<const void*>(post_kernel),
-                           reinterpret_cast<const void*>(handshake_kernel),
-                           reinterpret_cast<const void*>(fetch_kernel)};
+                           reinterpret_cast<const void*>(fetch_kernel),
+                           reinterpret_cast<const void*>(signal_kernel)};
   for (const void* kernel : kernels) {
     cudaError_t loaded = cudaFuncGetAttributes(&attributes, kernel);
     if (loaded != cudaSuccess) return loaded;
@@ -216,39 +299,71 @@ extern "C" int tempest_host_alloc(long long bytes, void* host_out, void* device_
 
 extern "C" int tempest_host_free(void* host) { return cudaFreeHost(host); }
 
-// One host call: the three kernels above on `stream`. `box` is the mailbox's
+// One host call: the two kernels above on `stream`. `box` is the mailbox's
 // device address; `x_offset`, `logl_offset` and `blobs_offset` its regions'
-// byte offsets (the header at 0). `x` holds `x_bytes` bytes (a multiple of
-// 4), `logl` n float32 (double where `logl_f64`), written from the reply's
-// float32, `blobs` `blob_bytes` bytes (none when 0), both written only where
-// the step is active; `active` a device bool or null; `counter` a device
-// uint64, `failed` a device int32.
+// byte offsets (the header at 0; multiples of 16). `x` holds `x_bytes` bytes
+// (a multiple of 4), `logl` n float32 (double where `logl_f64`), written
+// from the reply's float32, `blobs` `blob_bytes` bytes (none when 0), both
+// written only where the step is active; `active` a device bool or null;
+// `counter` two device uint64 (zero at first), `failed` a device int32,
+// `stamps` null or 4 kRing device uint64.
 extern "C" int tempest_host_call(void* stream_ptr, const void* active, const void* x,
                                  long long x_bytes, void* box, long long x_offset,
                                  long long logl_offset, long long blobs_offset, void* logl,
                                  int logl_f64, long long n, void* blobs, long long blob_bytes,
-                                 void* counter, void* failed) {
+                                 void* counter, void* failed, void* stamps) {
   if (x_bytes <= 0 || x_bytes % 4 != 0 || n <= 0 || blob_bytes < 0) return cudaErrorInvalidValue;
+  if (x_offset % 16 || logl_offset % 16 || blobs_offset % 16) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool* flag = static_cast<const bool*>(active);
   uint8_t* base = static_cast<uint8_t*>(box);
-  const long long words = x_bytes / 4;
-  post_kernel<<<blocks_for(words), kThreads, 0, stream>>>(
-      flag, static_cast<const uint32_t*>(x), reinterpret_cast<uint32_t*>(base + x_offset), words);
+  unsigned long long* count = static_cast<unsigned long long*>(counter);
+  unsigned long long* marks = static_cast<unsigned long long*>(stamps);
+  post_kernel<<<blocks_for(x_bytes / 16), kThreads, 0, stream>>>(
+      flag, static_cast<const uint32_t*>(x), reinterpret_cast<uint32_t*>(base + x_offset),
+      x_bytes, count, reinterpret_cast<unsigned long long*>(base),
+      reinterpret_cast<const unsigned long long*>(base + 64),
+      reinterpret_cast<const uint32_t*>(base + 72), static_cast<int*>(failed), marks);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  handshake_kernel<<<1, 1, 0, stream>>>(
-      flag, static_cast<unsigned long long*>(counter),
-      reinterpret_cast<unsigned long long*>(base),
-      reinterpret_cast<const unsigned long long*>(base + 64),
-      reinterpret_cast<const uint32_t*>(base + 72), static_cast<int*>(failed));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long items = n > blob_bytes / 4 ? n : blob_bytes / 4;
+  const long long items = n / 4 > blob_bytes / 16 ? n / 4 : blob_bytes / 16;
   fetch_kernel<<<blocks_for(items), kThreads, 0, stream>>>(
       flag, reinterpret_cast<const uint32_t*>(base + logl_offset), logl, logl_f64, n,
-      base + blobs_offset, static_cast<uint8_t*>(blobs), blob_bytes);
+      base + blobs_offset, static_cast<uint8_t*>(blobs), blob_bytes, count, marks);
   return cudaGetLastError();
+}
+
+// The completion word: `seq` stored to the mapped `word` (its device
+// address) once the work queued on `stream` before it has run.
+extern "C" int tempest_host_signal(void* stream_ptr, void* word, unsigned long long seq) {
+  signal_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
+      static_cast<unsigned long long*>(word), seq);
+  return cudaGetLastError();
+}
+
+// Spin until one of the `n` mailboxes (`headers`, their host addresses)
+// waits for a reply (its index), the completion word `done` (host address)
+// reads `seq` (-1), or `timeout_ns` has passed (-2). Reads mapped memory
+// only: no CUDA call.
+extern "C" int tempest_host_wait(void* const* headers, int n, const void* done,
+                                 unsigned long long seq, long long timeout_ns) {
+  const auto start = std::chrono::steady_clock::now();
+  using Word = const volatile unsigned long long;
+  Word* finished = static_cast<Word*>(done);
+  for (unsigned spins = 0;; ++spins) {
+    for (int k = 0; k < n; ++k) {
+      Word* words = static_cast<Word*>(headers[k]);
+      if (words[0] != words[8]) return k;
+    }
+    if (*finished == seq) return -1;
+    if ((spins & 1023) == 1023) {
+      const auto spent = std::chrono::steady_clock::now() - start;
+      if (std::chrono::duration_cast<std::chrono::nanoseconds>(spent).count() >= timeout_ns) {
+        return -2;
+      }
+    }
+    cpu_relax();
+  }
 }
 
 // The link's round trip (ms an exchange) into `*ms_out`: a mapped mailbox of

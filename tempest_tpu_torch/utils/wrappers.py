@@ -75,8 +75,11 @@ class SpawnPoolMap:
     Spawn, not fork: forking a process that holds a CUDA context or
     threads can deadlock. Spawned workers import the likelihood by name, so
     it must be picklable (a module-level function). `close()` ends the
-    workers.
+    workers. The map pickles the points before it returns
+    (`copies_points`), so the host crossing hands it the mailbox's own.
     """
+
+    copies_points = True
 
     def __init__(self, size: int):
         self.size = size
@@ -210,8 +213,9 @@ class HostLikelihood:
         return self.failed
 
     def evaluate(self, points: np.ndarray):
-        """The likelihood of each row of `points` (n, d) on the host, one
-        `pool_map` call: (logl (n,) float32, blob rows (n, B) or None)."""
+        """The likelihood of each row of `points` (n, d, read-only) on the
+        host, one `pool_map` call: (logl (n,) float32, blob rows (n, B) or
+        None)."""
         out = self.pool_map(self.log_likelihood, list(points))
         if self.schema is None:
             return np.array([float(v) for v in out], dtype=np.float32), None
@@ -247,6 +251,7 @@ class HostLikelihood:
         if not np.all(values[n * d:]):
             return self._unchanged(x, logl, blobs)
         points = values[:n * d].astype(_NUMPY[x.dtype]).reshape(n, d)
+        points.flags.writeable = False  # as the kernel's, and JAX's callback's
         out, rows = self.evaluate(points)
         new = torch.from_numpy(out).to(device=x.device, dtype=self.dtype)
         return new, None if rows is None else torch.from_numpy(rows).to(x.device)
@@ -294,9 +299,12 @@ class HostLikelihood:
                                    "is made outside any capture")
             width = 0 if self.schema is None else self.schema.width
             blob_dtype = np.float32 if self.schema is None else self.schema.row_dtype
+            # a map that copies the points before it returns (a spawned
+            # pool pickles them) takes the mailbox's own
             self._boxes[key] = cuda_host.Mailbox(
                 x.shape[0], x.shape[1], _NUMPY[x.dtype], width, blob_dtype, x.device,
-                self.evaluate, self._failed(x.device))
+                self.evaluate, self._failed(x.device),
+                copy=not getattr(self.pool_map, "copies_points", False))
         return self._boxes[key]
 
     def _unchanged(self, x: torch.Tensor, logl, blobs):

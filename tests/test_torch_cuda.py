@@ -2233,19 +2233,38 @@ def _np_gauss_blob(x):
     return _np_gauss(x), float(np.sum(x))
 
 
+def _np_gauss_blobs3(x):
+    # three one-byte values a point
+    return _np_gauss(x), int(x[0] > 0), int(x[1] > 0), int(x[-1] > 0) + 2
+
+
+# (n, d, blob width, blob type, offset): one point; A's points (rows of 40
+# bytes, not 16-byte aligned) with two blob values; B's walkers; rows of 12
+# bytes whose points end on a 4-byte tail past the last 16-byte line, with
+# blob rows of 2 bytes (4099 of them end on a 2-byte tail) or of 3 bytes (an
+# odd byte width); points that start one value past a 16-byte boundary
+# (the 4-byte route).
+HOST_CALL_CASES = [(1, 1, 0, np.int16, 0), (1024, 10, 2, np.int16, 0),
+                   (131072, 10, 0, np.int16, 0), (4099, 3, 1, np.int16, 0),
+                   (4099, 3, 0, np.int16, 0), (1001, 3, 3, np.uint8, 0),
+                   (1000, 3, 3, np.uint8, 1)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,d,width", [(1024, 10, 2), (4099, 3, 1), (4099, 3, 0), (1, 1, 0)])
-def test_host_call_kernel_matches_plain_crossing(cuda_device, n, d, width, dtype):
+@pytest.mark.parametrize("n,d,width,blob_dtype,offset", HOST_CALL_CASES)
+def test_host_call_kernel_matches_plain_crossing(cuda_device, n, d, width, blob_dtype, offset,
+                                                 dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(n)
-    x = torch.randn(n, d, device=cuda_device, dtype=dtype, generator=gen)
+    x = torch.randn(n * d + offset, device=cuda_device, dtype=dtype, generator=gen)
+    x = x[offset:].view(n, d)  # contiguous, `offset` values past the allocation's start
     pool = _CountingPool()
-    # rows of 2 bytes a value: 4099 rows of one end on a 2-byte tail
-    schema = BlobSchema(np.int16, blob_size=width) if width else None
-    fn = {0: _np_gauss, 1: _np_gauss_blob, 2: _np_gauss_blobs}[width]
+    schema = BlobSchema(blob_dtype, blob_size=width) if width else None
+    fn = {0: _np_gauss, 1: _np_gauss_blob, 2: _np_gauss_blobs, 3: _np_gauss_blobs3}[width]
     h = HostLikelihood(fn, make_pool_map(pool), dtype, schema)
     logl0 = torch.randn(n, device=cuda_device, dtype=dtype, generator=gen)
-    blobs0 = torch.ones(n, width, device=cuda_device, dtype=torch.int16) if width else None
+    blobs0 = (torch.ones(n, width, device=cuda_device, dtype=schema.device_dtype)
+              if width else None)
     for go in (True, False):
         active = torch.full((), go, device=cuda_device)
         calls = pool.calls
@@ -2259,6 +2278,63 @@ def test_host_call_kernel_matches_plain_crossing(cuda_device, n, d, width, dtype
         if not go:
             assert torch.equal(got[0], logl0)
     assert cuda_host.LAUNCHES > 0
+
+
+@pytest.mark.cuda
+def test_host_call_abort_status(cuda_device):
+    """A host function that raises: its exception once the served work has
+    ended, the later requests of the same served launch answered with the
+    abort status and no call, `failed` set; the next launch clean."""
+    calls = []
+
+    def fn(points):
+        calls.append(1)
+        if len(calls) == 1:
+            raise _Boom("first")
+        return np.full(len(points), 2.0, np.float32), None
+
+    failed = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    box = cuda_host.Mailbox(64, 4, np.float32, 0, np.float32, cuda_device, fn, failed)
+    x = torch.randn(64, 4, device=cuda_device)
+    out = torch.zeros(64, device=cuda_device)
+    served = cuda_host.HANDSHAKES
+    with pytest.raises(_Boom):
+        cuda_host.served(lambda: [box.launch(x, None, out, None) for _ in range(3)], [box])
+    assert len(calls) == 1 and cuda_host.HANDSHAKES - served == 3
+    assert int(failed[0]) == 1 and int(box.status[0]) == cuda_host.ABORT
+    cuda_host.served(lambda: box.launch(x, None, out, None), [box])
+    assert len(calls) == 2 and int(failed[0]) == 0 and torch.equal(out, torch.full_like(out, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("copies", [False, True])
+def test_host_call_points_kept_by_the_function(cuda_device, copies):
+    """Read-only points, as JAX's callback's; a point the function keeps
+    does not change after it returns where the map does not copy them (the
+    crossing's own copy), and is the mailbox's region where it does."""
+    kept = []
+
+    class Map:
+        copies_points = copies
+
+        def __call__(self, f, xs):
+            return [f(x) for x in xs]
+
+    def fn(x):
+        kept.append(x)
+        assert not x.flags.writeable
+        return _np_gauss(x)
+
+    h = HostLikelihood(fn, Map(), torch.float32)
+    first = torch.randn(8, 3, device=cuda_device)
+    h.kernel_call(first)
+    h.kernel_call(first + 1.0)
+    rows = np.stack(kept[:8])
+    if copies:
+        assert np.array_equal(rows, (first + 1.0).cpu().numpy())  # the mailbox, overwritten
+    else:
+        assert np.array_equal(rows, first.cpu().numpy())
+        assert np.array_equal(np.stack(kept[8:]), (first + 1.0).cpu().numpy())
 
 
 def _host_sampler(device, fn, pool=None):

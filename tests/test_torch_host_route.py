@@ -346,3 +346,83 @@ def test_loop_bodies_read_only_the_crossing(monkeypatch):
     with pytest.raises(AssertionError, match="host read"):
         guarded("check", lambda: torch.ones(2).numpy())()
     assert stats["likelihood"]["reads"] > 0 and CHUNKS["mcmc"] > 1
+
+
+# ---------------------------------------------------------------------------
+# The host side of the host-call kernel (ops/cuda_host.py) on numpy alone:
+# the copies a host function keeps, and the serving loop's answers.
+# ---------------------------------------------------------------------------
+from tempest_tpu_torch.ops import cuda_host  # noqa: E402
+
+
+def test_copies_reused_unless_held():
+    copies = cuda_host.Copies(3, 2, np.float32)
+    source = np.arange(6, dtype=np.float32).reshape(3, 2)
+    first = copies(source)
+    assert not first.flags.writeable and np.array_equal(first, source)
+    kept = list(first)[1]  # a row the host function keeps
+    buffer = copies.buffer
+    del first
+    second = copies(source + 10)  # the kept row's buffer is not reused
+    assert copies.buffer is not buffer and np.array_equal(kept, source[1])
+    buffer = id(copies.buffer)
+    del second, kept
+    third = copies(source + 20)  # nothing holds the last buffer: reused
+    assert id(copies.buffer) == buffer and np.array_equal(third, source + 20)
+    del third
+    whole = copies(source)  # the array itself kept: not reused
+    assert copies(source + 30) is not whole and np.array_equal(whole, source)
+
+
+def _host_box(n, d, fn, width=0):
+    """A `cuda_host.Mailbox` over plain numpy memory (no device): the host
+    side of the mailbox, served by hand."""
+    box = object.__new__(cuda_host.Mailbox)
+    raw = np.zeros(128 + 128 * (1 + (4 * n * d + 4 * n + 4 * n * width) // 128), np.uint8)
+    box.fn, box.error, box.host_stamps = fn, None, []
+    box.header = raw[:128].view(np.uint64)
+    box.status = raw[72:76].view(np.int32)
+    box.x = raw[128:128 + 4 * n * d].view(np.float32).reshape(n, d)
+    box.logl = raw[128 + 4 * n * d:128 + 4 * n * d + 4 * n].view(np.float32)
+    box.blobs = None
+    box._copies = cuda_host.Copies(n, d, np.float32)
+    return box
+
+
+def test_serving_loop_answers_and_aborts():
+    """`serve_until_done`: each request the wait names is answered (logl,
+    the status, the reply sequence); after a host function raises, its box
+    answers every later request with the abort status and no call; an
+    interrupt in the wait answers every box's later requests so and is
+    returned; `DONE` ends the loop, anything else waits again."""
+    calls = []
+
+    def fn(points):
+        calls.append(points.copy())
+        if len(calls) == 2:
+            raise ZeroDivisionError
+        return np.full(len(points), float(len(calls)), np.float32), None
+
+    boxes = [_host_box(4, 2, fn), _host_box(4, 2, fn)]
+    script = iter([0, cuda_host.WAITING, 1, 0, KeyboardInterrupt, 1, 0, cuda_host.DONE])
+
+    def wait():
+        k = next(script)
+        if isinstance(k, type):
+            raise k
+        if k >= 0:  # the device's request: its points and the next sequence number
+            boxes[k].header[0] += 1
+            boxes[k].x[...] = k + boxes[k].header[0]
+        return k
+
+    stopped = cuda_host.serve_until_done(wait, boxes)
+    assert isinstance(stopped, KeyboardInterrupt)
+    # box 0's first two requests call fn, box 1's first raises; none after
+    assert [float(c[0, 0]) for c in calls] == [1.0, 2.0, 2.0]
+    assert isinstance(boxes[1].error, ZeroDivisionError)
+    assert isinstance(boxes[0].error, KeyboardInterrupt)
+    for box, requests in zip(boxes, (3, 2)):
+        assert box.header[0] == box.header[8] == requests  # every request answered
+        assert box.status[0] == cuda_host.ABORT
+    assert np.all(boxes[0].logl == 3.0)  # the abort leaves the last good reply
+    assert [s[0] for s in boxes[0].host_stamps] == [1, 2, 3]

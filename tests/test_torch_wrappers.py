@@ -234,6 +234,22 @@ def test_int_pool_run_and_close():
     assert pool_map.pool is None
 
 
+def test_int_pool_gives_the_bits_of_no_pool():
+    """pool=2 on the run loop: the spawned workers' logl, pickled back,
+    give pool=None's run bit for bit."""
+    runs = []
+    for pool in (None, 2):
+        s = Sampler(_prior5, _gauss_np, n_dim=2, n_particles=16, host_likelihood=True,
+                    pool=pool, clustering=False, random_state=1, n_max_steps=2, device="cpu")
+        try:
+            s.run(n_total=32, progress=False, on_device=True)
+            runs.append(s.results())
+        finally:
+            s.close()
+    for key in ("beta", "logz", "steps", "calls", "logl"):
+        assert runs[0][key].tobytes() == runs[1][key].tobytes(), key
+
+
 def test_pool_without_host_likelihood_warns_and_bad_pool_raises():
     with pytest.warns(UserWarning, match="pool is ignored"):
         Sampler(prior_t, rosen_t, n_dim=D, pool=2, vectorize=True, device="cpu")
