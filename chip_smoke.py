@@ -4,7 +4,8 @@
     python3 chip_smoke.py --kernels-only [--package-root DIR]
     python3 chip_smoke.py --a-only [--package-root DIR]
     python3 chip_smoke.py --large-scale-only
-    python3 chip_smoke.py --host-only
+    python3 chip_smoke.py --host-only [--parent DIR]
+    python3 chip_smoke.py --handshakes-only [--package-root DIR]
 
 Builds every CUDA kernel of the port from the sources in this checkout
 (one nvcc per source, started together), holds each against its plain
@@ -173,15 +174,14 @@ lines and a failure exits non-zero:
     call), one pool map call a call; a raising host function re-raised
     with its `failed` word set, the next call clean; each handshake split
     into its parts by the device's %globaltimer and the host's
-    perf_counter_ns stamps, in this design and in the polled one it
-    replaced (scripts/host_call_polled.py: three kernels, 32-bit words, a
-    Python loop with an event query a turn), at B also without the host
-    copy; its device ms a handshake with an empty host function in turns
-    with the polled design (polled, current, current, polled), its call ms
-    and the plain crossing's, against its bound (the points out and logl
-    in at the pinned copy rates measured here, plus the link's round trip,
-    `cuda_host.round_trip_ms`: a kernel's exchanges with a host C thread,
-    no Python);
+    perf_counter_ns stamps; its device ms a handshake with an empty host
+    function (twice, or with `--parent DIR` in turns with DIR's package:
+    parent, this, this, parent, the parent's in processes of their own),
+    its call ms and the plain crossing's, against its bound (the points
+    out and logl in at the host link's rated 64 GB/s each way, the pinned
+    copy rates measured here printed beside it, plus the link's round
+    trip, `cuda_host.round_trip_ms`: a kernel's exchanges with a host C
+    thread, no Python);
  5. the canonical problem unclustered (paired 10-D Rosenbrock, U(-10, 10)
     prior, n_particles=1024, n_total=8192, history_capacity=64), seed 42,
     with `run(on_device=True)`: the device run loop, one graph replay;
@@ -396,7 +396,9 @@ of another commit whose ESS kernel has its float64 entry), so two versions
 of the kernels can be timed on one card in turns, each in its own process.
 `--large-scale-only` runs phases 1-2 and 17 and prints no result line;
 `--host-only` runs phases 1-2, 4j and 13's host likelihoods and prints
-none either.
+none either; `--handshakes-only [--package-root DIR]` prints 4j's device ms
+a handshake at its three shapes, `HANDSHAKES {json}`, and nothing else
+(4j's `--parent` turns run it).
 `--a-only [--package-root DIR]` runs phases 1-2 and A's seed 42
 (on_device=False) and prints its logZ, iterations, steps and ladder
 digest; `--parent DIR` makes the full run start that in a process of its
@@ -656,7 +658,6 @@ class TimedPool:
 
     def __init__(self, inner=None):
         self.inner, self.calls, self.seconds, self.raise_at = inner, 0, 0.0, None
-        self.copies_points = getattr(inner, "copies_points", False)
 
     def map(self, f, xs):
         self.calls += 1
@@ -3130,7 +3131,9 @@ def phase_capture_abort() -> dict:
 # point, and B's walkers at A's width without blobs.
 HOST_SHAPES = (("1", 1, 1, 0), ("A", N_PARTICLES, N_DIM, 2), ("B", B_PARTICLES, N_DIM, 0))
 HOST_ROUNDS = 50  # handshakes timed in one served launch (at most cuda_host.STAMP_RING)
-HOST_TURNS = ("polled", "current", "current", "polled")  # the designs' timing order
+# The host link's rated rate each way, GB/s: PCIe Gen5 x16 (NVIDIA's H100
+# data sheet: 128 GB/s both ways), the byte term of the host call's bound.
+LINK_GB_S = 64.0
 
 
 def rosenbrock_numpy_blobs(x):
@@ -3151,34 +3154,18 @@ def _empty_host(n: int, width: int = 0):
     return lambda points: (logl, rows)
 
 
-def host_designs() -> dict:
-    """The crossing's designs by name: (mailbox class, its `served`): the
-    current one (`ops/cuda_host.py`) and the polled one it replaced
-    (`scripts/host_call_polled.py`)."""
-    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
-    if scripts not in sys.path:
-        sys.path.insert(0, scripts)
-    import host_call_polled
-
-    return {"current": (cuda_host.Mailbox, cuda_host.served),
-            "polled": (host_call_polled.PolledMailbox, host_call_polled.polled_served)}
-
-
-def handshake_run(device, design, n: int, d: int, rounds: int = HOST_ROUNDS, copy: bool = True,
-                  stamps: bool = False):
+def handshake_run(device, n: int, d: int, rounds: int = HOST_ROUNDS, stamps: bool = False):
     """Device ms a host call of (n, d) float32 points with an empty host
-    function in `design` (a `host_designs()` value): `rounds` back to back
-    in a CUDA graph, as the run loop replays them (launched one by one, the
-    first requests would wait for the host to queue the rest), its replay
-    between two CUDA events, served on this thread (the second of two
-    served replays); and the mailbox, whose stamps hold that replay's marks
-    where `stamps`. `copy` is the current design's (module docstring of
-    `ops/cuda_host.py`); the polled one always copies."""
-    make, serve = design
+    function: `rounds` back to back in a CUDA graph, as the run loop
+    replays them (launched one by one, the first requests would wait for
+    the host to queue the rest), its replay between two CUDA events, served
+    on this thread (the second of two served replays); and the mailbox,
+    whose stamps hold that replay's marks where `stamps` (a package older
+    than the stamps is timed without them)."""
     failed = torch.zeros(1, dtype=torch.int32, device=device)
-    kw = {"copy": copy} if make is cuda_host.Mailbox else {}
-    box = make(n, d, np.float32, 0, np.float32, device, _empty_host(n), failed, stamps=stamps,
-               **kw)
+    kw = {"stamps": True} if stamps else {}
+    box = cuda_host.Mailbox(n, d, np.float32, 0, np.float32, device, _empty_host(n), failed,
+                            **kw)
     x = torch.rand(n, d, device=device)
     out = torch.empty(n, device=device)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3192,9 +3179,27 @@ def handshake_run(device, design, n: int, d: int, rounds: int = HOST_ROUNDS, cop
     for turn in range(2):
         if stamps:
             box.host_stamps.clear()
-        serve(launch, [box])
+        cuda_host.served(launch, [box])
     torch.cuda.synchronize()
     return a.elapsed_time(b) / rounds, box
+
+
+def handshakes(device) -> dict:
+    """Device ms a handshake (`handshake_run`) at each of HOST_SHAPES."""
+    return {label: handshake_run(device, n, d)[0] for label, n, d, _ in HOST_SHAPES}
+
+
+def parent_handshakes(parent: str) -> dict:
+    """`handshakes` in the package of checkout `parent` (this script with
+    --handshakes-only --package-root, in a process of its own)."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--handshakes-only",
+                           "--package-root", parent], capture_output=True, text=True,
+                          timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("HANDSHAKES ")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"parent handshakes failed ({proc.returncode}): {proc.stdout[-2000:]}"
+          f"{proc.stderr[-3000:]}")
+    return json.loads(lines[0][len("HANDSHAKES "):])
 
 
 # The parts of a handshake (ns, the mean over a served launch's rounds):
@@ -3290,71 +3295,64 @@ def host_checks(device, label: str, n: int, d: int, width: int) -> tuple:
     return h, x
 
 
-def phase_host_kernel(device) -> dict:
+def phase_host_kernel(device, parent: str = None) -> dict:
     """4j: the host-call kernel (csrc/host_call.cu) against its plain
     version, the plain crossing (`HostLikelihood.plain`), at one point,
     A's (1024, 10) with two blob values a point and B's (131,072, 10)
     (`host_checks`); each handshake split into its parts by the device's
-    and the host's stamps (`handshake_split`), in the current design and
-    the polled one it replaced (`scripts/host_call_polled.py`); the device
-    ms a handshake with an empty host function (the host's serving
-    included, as the device waits for it) in both designs in turns
-    (polled, current, current, polled), at B also without the host copy
-    (a spawned pool's route), its call ms and the plain crossing's, against
-    its bound: the points out and logl in at the pinned copy rates
-    measured here, plus the link's round trip, taken from a C ping-pong on
-    mapped memory (`cuda_host.round_trip_ms`), not from the kernel under
-    test."""
-    designs = host_designs()
+    and the host's stamps (`handshake_split`); the device ms a handshake
+    with an empty host function (the host's serving included, as the
+    device waits for it), twice, or in turns with the package of checkout
+    `parent` (parent, this, this, parent); its call ms and the plain
+    crossing's, against its bound: the points out and logl in at the host
+    link's rated rate (LINK_GB_S; the pinned copy rates measured here are
+    printed beside it), plus the link's round trip, taken from a C
+    ping-pong on mapped memory (`cuda_host.round_trip_ms`), not from the
+    kernel under test."""
     rates = pinned_rates(device)
     cuda_host.round_trip_ms(device, 100)  # loads the kernel
     round_trip = cuda_host.round_trip_ms(device)
+    turns = []
+    for who in ("parent", "this", "this", "parent") if parent else ("this", "this"):
+        turns.append((who, parent_handshakes(parent) if who == "parent" else handshakes(device)))
     shapes, launches0 = {}, cuda_host.LAUNCHES
     for label, n, d, width in HOST_SHAPES:
         h, x = host_checks(device, label, n, d, width)
-        split = {name: handshake_split(handshake_run(device, design, n, d, stamps=True)[1])
-                 for name, design in designs.items()}
-        if label == "B":
-            split["current, no copy"] = handshake_split(
-                handshake_run(device, designs["current"], n, d, copy=False, stamps=True)[1])
-        turns = [(name, handshake_run(device, designs[name], n, d)[0]) for name in HOST_TURNS]
-        if label == "B":
-            turns += [("current, no copy", handshake_run(device, designs["current"], n, d,
-                                                        copy=False)[0]) for _ in range(2)]
-        by_design = {}
-        for name, ms in turns:
-            by_design.setdefault(name, []).append(ms)
+        split = handshake_split(handshake_run(device, n, d, stamps=True)[1])
+        by_package = {}
+        for who, ms in turns:
+            by_package.setdefault(who, []).append(ms[label])
         # times with the host function returning at once
         h.evaluate = _empty_host(n, width)
         h._boxes.clear()
         times = timed_in_turns({"kernel": lambda: h.kernel_call(x),
                                 "plain": lambda: h.plain(x)}, calls=20)
-        device_ms = float(np.mean(by_design["current"]))
+        device_ms = float(np.mean(by_package["this"]))
         moved = {"out_bytes": 4 * n * d, "in_bytes": 4 * n}
-        bytes_ms = (moved["out_bytes"] / (rates["d2h_gb_s"] * 1e6)
-                    + moved["in_bytes"] / (rates["h2d_gb_s"] * 1e6))
+        bytes_ms = (moved["out_bytes"] + moved["in_bytes"]) / (LINK_GB_S * 1e6)
         bound = bytes_ms + round_trip
         shapes[label] = {"n": n, "d": d, "blob_width": width, "device_ms": device_ms,
-                         "device_ms_turns": turns, "call_ms": times["kernel"],
+                         "device_ms_turns": by_package, "call_ms": times["kernel"],
                          "plain_ms": times["plain"], "bound_ms": bound, "bytes_ms": bytes_ms,
                          "split_us": split, **moved}
         print(f"host call {label} ({n}, {d}), blob width {width}: bit for bit the plain "
               f"crossing (active and not), one map call a call, a raising host function "
-              f"re-raised with `failed` set; device ms a handshake (empty host function) in "
-              f"turns {json.dumps(turns)}; call {times['kernel']:.4f} ms, plain "
-              f"{times['plain']:.4f} ms, bound {bound:.4f} ms", flush=True)
-        for name, parts in split.items():
-            print(f"host call {label} split, {name} (us): "
-                  + json.dumps({k: round(v, 3) for k, v in parts.items()}), flush=True)
+              f"re-raised with `failed` set; device ms a handshake (empty host function) "
+              f"{device_ms:.4f}, bound {bound:.4f} ms, in turns "
+              f"{json.dumps([(who, ms[label]) for who, ms in turns])}; call "
+              f"{times['kernel']:.4f} ms, plain {times['plain']:.4f} ms", flush=True)
+        print(f"host call {label} split (us): "
+              + json.dumps({k: round(v, 3) for k, v in split.items()}), flush=True)
     a = shapes["A"]
-    print(f"host link: {json.dumps(rates)}; its round trip (C ping-pong) {round_trip:.5f} ms",
-          flush=True)
+    print(f"host link: rated {LINK_GB_S} GB/s each way, pinned copies here "
+          f"{json.dumps(rates)}; its round trip (C ping-pong) {round_trip:.5f} ms", flush=True)
     # The work is moving bytes over the host link: the points out, logl in,
     # and the handshake's words each way, whose cost is the link's latency.
     return {"max_abs_err": 0.0, "ms": a["call_ms"], "plain_ms": a["plain_ms"],
             "device_ms": a["device_ms"], "bound_ms": a["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "shapes": shapes,
-            "bounds": {"host_link": rates, "round_trip_ms": round_trip},
+            "bounds": {"link_gb_s": LINK_GB_S, "pinned_copies": rates,
+                       "round_trip_ms": round_trip},
             "checks": cuda_host.LAUNCHES - launches0}
 
 
@@ -5893,7 +5891,6 @@ def pooled_host(device, plain, plain_wall: float) -> dict:
                 host_likelihood=True, clustering=False, random_state=0, history_capacity=64,
                 pool=POOL_WORKERS, device=device)
     timed = timed_map(s)
-    check(timed.copies_points, "pool=<int>: its map does not copy the points")
     want = plain.results()
     runs, launches = {}, {}
     try:
@@ -7361,16 +7358,22 @@ def main() -> None:
     parser.add_argument("--host-only", action="store_true",
                         help="run phases 1-2, 4j and 13's host likelihoods only (no result "
                              "line)")
+    parser.add_argument("--handshakes-only", action="store_true",
+                        help="print phase 4j's device ms a handshake only (no result line)")
     parser.add_argument("--parent", metavar="DIR",
                         help="a checkout of another commit: its package's A seed 42 (--a-only, "
-                             "in a process of its own) must give phase 6's logZ and iterations")
+                             "in a process of its own) beside phase 6's, and its handshakes "
+                             "(--handshakes-only) in turns with phase 4j's")
     args = parser.parse_args()
-    if args.package_root and not (args.kernels_only or args.a_only):
-        fail("--package-root runs another version's package: use it with --kernels-only or "
-             "--a-only")
+    if args.package_root and not (args.kernels_only or args.a_only or args.handshakes_only):
+        fail("--package-root runs another version's package: use it with --kernels-only, "
+             "--a-only or --handshakes-only")
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs only on an NVIDIA GPU")
     device = torch.device("cuda")
+    if args.handshakes_only:
+        print("HANDSHAKES " + json.dumps(handshakes(device)), flush=True)
+        return
     t_start = time.perf_counter()
 
     def stamp(what: str) -> None:
@@ -7382,7 +7385,7 @@ def main() -> None:
     sleep_kernel()  # read while a profile loses nothing (the path windows' warm-up)
     _count_mode_fits()
     _record_forms()
-    if cuda_median is not None and not args.package_root:
+    if cuda_median is not None and not (args.package_root or args.host_only):
         start_extra_builds(args.parent)
     ptxas = phase_build()
     if args.large_scale_only:
@@ -7390,7 +7393,7 @@ def main() -> None:
         return
     if args.host_only:
         stamp("phase 4j: the host-call kernel")
-        phase_host_kernel(device)
+        phase_host_kernel(device, args.parent)
         stamp("phase 13: host likelihoods")
         phase_cadence_and_host(device, cadence=False)
         stamp("host only: done")
@@ -7436,7 +7439,7 @@ def main() -> None:
             rows["set_conditional"]["nccl"] = phase_nccl_probe()
     if cuda_host is not None:
         stamp("phase 4j: the host-call kernel")
-        rows["host_call"] = phase_host_kernel(device)
+        rows["host_call"] = phase_host_kernel(device, args.parent)
     floor = launch_floor(device)
     split = phase_call_split(device)
     if args.kernels_only:

@@ -55,20 +55,13 @@
 //    queues nothing after the call until it has ended: a kernel loaded
 //    lazily, or a new CUDA allocation, waits for the device, which waits
 //    for the host (so tempest_host_alloc loads the kernels).
-//  - tempest_host_signal(stream, word, s) queues one thread that stores s to
-//    a mapped completion word at system scope: the last node of the work
-//    the host serves (a graph replay, an eager call).
-//  - tempest_host_wait(headers, n, done, s, timeout_ns), called from Python
-//    through ctypes with the GIL released, spins on every mailbox's request
-//    and reply words and on the completion word: it returns the index of a
-//    mailbox that waits, -1 once the completion word reads s (every request
-//    was answered before it), or -2 after `timeout_ns`, so that Python sees
-//    a Ctrl-C. The host side (ops/cuda_host.py `served`) runs on the thread
-//    that replays the graph: it launches the work and the signal, then waits
-//    here and enters Python only to call the host function and write logl,
-//    the blob rows, the status and then the reply word (x86 keeps stores in
-//    order). It makes no blocking CUDA call while the graph runs: the kernel
-//    would wait on it.
+//    The host side (ops/cuda_host.py `served`) runs on the thread that
+//    replays the graph: it launches the work, then polls every mailbox's
+//    request and reply words and an event's query of the work's end, and
+//    answers a request by calling the host function and writing logl, the
+//    blob rows, the status and then the reply word (x86 keeps stores in
+//    order). It makes no blocking CUDA call while the graph runs: the
+//    kernel would wait on it.
 //
 // `stamps`, where not null, takes %globaltimer (ns) marks of each request in
 // a ring of kRing slots of four: the post's end (every CTA arrived), the
@@ -78,11 +71,12 @@
 //
 // What bounds it on this card: the host link and the round trip, not the
 // device. Its bytes are the points out and logl (and the blob rows) in,
-// at the rate a pinned copy takes over the link; the round trip is a
-// system-scope store seen by the host's poll and its reply seen by the
-// kernel's poll. tempest_host_pingpong(rounds, &ms) measures that round trip
-// alone: one kernel makes `rounds` exchanges with a host C thread that
-// spins on the request word and writes the reply, timed by CUDA events.
+// at the link's rated rate (PCIe Gen5 x16, 64 GB/s each way); the round
+// trip is a system-scope store seen by the host's poll and its reply seen
+// by the kernel's poll. tempest_host_pingpong(rounds, &ms) measures that
+// round trip alone: one kernel makes `rounds` exchanges with a host C
+// thread that spins on the request word and writes the reply, timed by
+// CUDA events.
 // The device does nothing else meanwhile: the body waits for the
 // likelihood, as XLA's program waits for its callback.
 
@@ -91,7 +85,6 @@
 #include <string.h>
 
 #include <atomic>
-#include <chrono>
 #include <thread>
 
 namespace {
@@ -202,11 +195,6 @@ __global__ void pingpong_kernel(unsigned long long* request, const unsigned long
   for (int r = 1; r <= rounds; ++r) exchange(request, reply, static_cast<unsigned long long>(r));
 }
 
-__global__ void signal_kernel(unsigned long long* word, unsigned long long seq) {
-  __threadfence_system();
-  store_release_sys(word, seq);
-}
-
 __global__ void __launch_bounds__(kThreads)
     fetch_kernel(const bool* active, const uint32_t* box_logl, void* __restrict__ logl,
                  int logl_f64, long long n, const uint8_t* box_blobs,
@@ -260,23 +248,15 @@ int blocks_for(long long items) {
   return static_cast<int>(b < 1 ? 1 : (b > kMaxBlocks ? kMaxBlocks : b));
 }
 
-inline void cpu_relax() {
-#if defined(__x86_64__) || defined(__i386__)
-  __builtin_ia32_pause();
-#endif
-}
-
 }  // namespace
 
 extern "C" int tempest_host_alloc(long long bytes, void* host_out, void* device_out) {
   if (bytes <= 0) return cudaErrorInvalidValue;
-  // Load the kernels now: loaded lazily at their first launch, the fetch
-  // kernel's or the signal's load could wait for the device while the
-  // handshake spins.
+  // Load the kernels now: loaded lazily at its first launch, the fetch
+  // kernel's load could wait for the device while the handshake spins.
   cudaFuncAttributes attributes;
   const void* kernels[] = {reinterpret_cast<const void*>(post_kernel),
-                           reinterpret_cast<const void*>(fetch_kernel),
-                           reinterpret_cast<const void*>(signal_kernel)};
+                           reinterpret_cast<const void*>(fetch_kernel)};
   for (const void* kernel : kernels) {
     cudaError_t loaded = cudaFuncGetAttributes(&attributes, kernel);
     if (loaded != cudaSuccess) return loaded;
@@ -331,39 +311,6 @@ extern "C" int tempest_host_call(void* stream_ptr, const void* active, const voi
       flag, reinterpret_cast<const uint32_t*>(base + logl_offset), logl, logl_f64, n,
       base + blobs_offset, static_cast<uint8_t*>(blobs), blob_bytes, count, marks);
   return cudaGetLastError();
-}
-
-// The completion word: `seq` stored to the mapped `word` (its device
-// address) once the work queued on `stream` before it has run.
-extern "C" int tempest_host_signal(void* stream_ptr, void* word, unsigned long long seq) {
-  signal_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
-      static_cast<unsigned long long*>(word), seq);
-  return cudaGetLastError();
-}
-
-// Spin until one of the `n` mailboxes (`headers`, their host addresses)
-// waits for a reply (its index), the completion word `done` (host address)
-// reads `seq` (-1), or `timeout_ns` has passed (-2). Reads mapped memory
-// only: no CUDA call.
-extern "C" int tempest_host_wait(void* const* headers, int n, const void* done,
-                                 unsigned long long seq, long long timeout_ns) {
-  const auto start = std::chrono::steady_clock::now();
-  using Word = const volatile unsigned long long;
-  Word* finished = static_cast<Word*>(done);
-  for (unsigned spins = 0;; ++spins) {
-    for (int k = 0; k < n; ++k) {
-      Word* words = static_cast<Word*>(headers[k]);
-      if (words[0] != words[8]) return k;
-    }
-    if (*finished == seq) return -1;
-    if ((spins & 1023) == 1023) {
-      const auto spent = std::chrono::steady_clock::now() - start;
-      if (std::chrono::duration_cast<std::chrono::nanoseconds>(spent).count() >= timeout_ns) {
-        return -2;
-      }
-    }
-    cpu_relax();
-  }
 }
 
 // The link's round trip (ms an exchange) into `*ms_out`: a mapped mailbox of

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Iterable, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Mapping, Sequence, Tuple
 
 _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
@@ -38,15 +38,10 @@ class CudaLibrary:
     function returns a cudaError_t as int.
     """
 
-    source: str  # file name under `root`
+    source: str  # file name under csrc/
     functions: Mapping[str, Sequence[type]]
     extra_flags: Tuple[str, ...] = ()
-    headers: Tuple[str, ...] = ()  # files under `root` the source includes
-    root: Optional[Path] = None  # the directory of the source; None: csrc/
-
-    @property
-    def directory(self) -> Path:
-        return CSRC if self.root is None else self.root
+    headers: Tuple[str, ...] = ()  # files under csrc/ the source includes
 
     @property
     def stem(self) -> str:
@@ -57,12 +52,11 @@ class CudaLibrary:
         flags = NVCC_FLAGS + self.extra_flags
         h = hashlib.sha256(" ".join(flags).encode())
         for name in (self.source, *self.headers):
-            h.update((self.directory / name).read_bytes())
+            h.update((CSRC / name).read_bytes())
         return BUILD_DIR / f"lib{self.stem}_{h.hexdigest()[:16]}.so"
 
     def _command(self, out: Path) -> list:
-        return [_nvcc(), *NVCC_FLAGS, *self.extra_flags, "-o", str(out),
-                str(self.directory / self.source)]
+        return [_nvcc(), *NVCC_FLAGS, *self.extra_flags, "-o", str(out), str(CSRC / self.source)]
 
 
 def _nvcc() -> str:

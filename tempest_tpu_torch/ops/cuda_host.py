@@ -15,31 +15,25 @@ life; freed when it is collected): its header, points, logl and blob-row
 regions as numpy views, and two device words, the request count and the
 word `failed` is given. `Mailbox.launch` launches the kernel on the current
 stream (inside a capture it becomes two kernel nodes); `served(launch,
-boxes)` runs `launch()` and a completion signal, then serves the boxes'
-requests on this thread until the signal has run, waiting in C with the GIL
-released (`tempest_host_wait`), then raises the first exception a host
+boxes)` runs `launch()` and serves the boxes' requests on this thread until
+the work it queued has finished, then raises the first exception a host
 function raised. `round_trip_ms(device)` is the link's round trip alone,
 the bound's latency: a kernel's exchanges with a host C thread on mapped
 memory, no Python in the loop. A failed build or launch raises; nothing
 falls back.
 
-The points a host function receives are read-only, as the arrays of JAX's
-callback are (views of its buffer, which live as long as they are held).
-A function may keep them: with `copy=True` it gets a copy of the mailbox's
-points in a buffer reused while nothing holds it (one `np.copyto`); with
-`copy=False` the mailbox's own region, which the next request overwrites,
-for a map that copies the points before it returns (a spawned pool pickles
-them).
+A host function gets a read-only copy of the points, as JAX's callback
+gets read-only arrays that it may keep: a point it keeps does not change
+when the next request overwrites the mailbox.
 """
 
 from __future__ import annotations
 
 import ctypes
 import gc
-import sys
 import time
 import weakref
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -52,8 +46,6 @@ LIBRARY = _build.CudaLibrary(
     {"tempest_host_alloc": [_I64, _PTR, _PTR], "tempest_host_free": [_PTR],
      "tempest_host_call": [_PTR, _PTR, _PTR, _I64, _PTR, _I64, _I64, _I64, _PTR, ctypes.c_int,
                            _I64, _PTR, _I64, _PTR, _PTR, _PTR],
-     "tempest_host_signal": [_PTR, _PTR, ctypes.c_uint64],
-     "tempest_host_wait": [_PTR, ctypes.c_int, _PTR, ctypes.c_uint64, _I64],
      "tempest_host_pingpong": [ctypes.c_int, _PTR]},
 )
 
@@ -69,10 +61,6 @@ HANDSHAKES = 0
 _HEADER, _REPLY, _STATUS, _ALIGN = 128, 64, 72, 128
 # The status a host function that raised leaves.
 ABORT = 1
-# `tempest_host_wait`'s answers other than a mailbox's index, and how long
-# it spins before it returns to Python (which then sees a Ctrl-C).
-DONE, WAITING = -1, -2
-WAIT_NS = 2_000_000
 # The device stamps' ring (`csrc/host_call.cu` kRing): four a request.
 STAMP_RING = 64
 
@@ -81,75 +69,19 @@ def _aligned(n: int) -> int:
     return -(-n // _ALIGN) * _ALIGN
 
 
-def _mapped(nbytes: int, device: torch.device):
-    """`nbytes` of zeroed mapped pinned memory on `device`: (host address,
-    device address, uint8 numpy view), freed when the view's owner is."""
-    lib = _build.load(LIBRARY)
-    host, dev = ctypes.c_void_p(), ctypes.c_void_p()
-    with torch.cuda.device(device):
-        _check(lib.tempest_host_alloc(nbytes, ctypes.byref(host), ctypes.byref(dev)),
-               "allocating mapped host memory")
-    raw = np.ctypeslib.as_array((ctypes.c_uint8 * nbytes).from_address(host.value))
-    return host.value, dev.value, raw
-
-
-class _Completion:
-    """A mapped word per device that `tempest_host_signal` sets to the
-    sequence number of the work `served` waits for."""
-
-    def __init__(self, device: torch.device):
-        self.host, self.address, raw = _mapped(_ALIGN, device)
-        weakref.finalize(self, _build.load(LIBRARY).tempest_host_free, self.host)
-        self.device, self.seq = device, 0
-
-    def signal(self) -> int:
-        """Queue the signal on the current stream; its sequence number."""
-        self.seq += 1
-        stream = torch.cuda.current_stream(self.device).cuda_stream
-        _build.check(_build.load(LIBRARY).tempest_host_signal(stream, self.address, self.seq),
-                     "host_call signal")
-        return self.seq
-
-
-_COMPLETIONS: Dict[torch.device, _Completion] = {}
-
-
-class Copies:
-    """Read-only copies of (n, d) points of numpy type `dtype` in one buffer,
-    reused while nothing holds what it handed out last (else a new one)."""
-
-    def __init__(self, n: int, d: int, dtype):
-        self.shape, self.dtype = (n, d), np.dtype(dtype)
-        self.buffer: Optional[np.ndarray] = None
-        self.view: Optional[np.ndarray] = None  # the read-only view handed out
-
-    def __call__(self, source: np.ndarray) -> np.ndarray:
-        # Free where only these attributes hold them (with getrefcount's
-        # argument; the view holds the buffer, and so does every view of
-        # it, rows included: numpy's `base` is the owner).
-        if (self.view is None or sys.getrefcount(self.view) > 2
-                or sys.getrefcount(self.buffer) > 3):
-            self.buffer = np.empty(self.shape, self.dtype)
-            self.view = self.buffer.view()
-            self.view.flags.writeable = False
-        self.buffer[...] = source
-        return self.view
-
-
 class Mailbox:
     """One mailbox of (n, d) points of numpy type `x_dtype`, logl (n,)
     float32 and (n, `blob_width`) blob rows of numpy type `blob_dtype` (none
     where the width is 0), on CUDA device `device`; `fn(points) -> (logl,
-    rows or None)` is the host function its requests call, on read-only
-    points (a copy where `copy`, else the mailbox's region: module
-    docstring). `failed` is the int32 device word (one element) the kernel
-    sets where `fn` raised. `stamps=True` records each request's device
-    marks (`csrc/host_call.cu`) in `stamps` and its host marks
+    rows or None)` is the host function its requests call, on a read-only
+    copy of the points. `failed` is the int32 device word (one element) the
+    kernel sets where `fn` raised. `stamps=True` records each request's
+    device marks (`csrc/host_call.cu`) in `stamps` and its host marks
     (perf_counter_ns: request seen, `fn` entered, `fn` returned, reply
     written) in `host_stamps`."""
 
     def __init__(self, n: int, d: int, x_dtype, blob_width: int, blob_dtype, device,
-                 fn: Callable, failed: torch.Tensor, copy: bool = True, stamps: bool = False):
+                 fn: Callable, failed: torch.Tensor, stamps: bool = False):
         self.n, self.d, self.fn, self.failed = n, d, fn, failed
         self.device = torch.device(device)
         if self.device.index is None:
@@ -163,14 +95,17 @@ class Mailbox:
         self.logl_offset = self.x_offset + _aligned(self.x_bytes)
         self.blobs_offset = self.logl_offset + _aligned(4 * n)
         total = self.blobs_offset + _aligned(max(self.blob_bytes, 1))
-        self.host, self.address, raw = _mapped(total, self.device)
-        weakref.finalize(self, _build.load(LIBRARY).tempest_host_free, self.host)
-        if self.device not in _COMPLETIONS:
-            _COMPLETIONS[self.device] = _Completion(self.device)
+        lib = _build.load(LIBRARY)
+        host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+        with torch.cuda.device(self.device):
+            _check(lib.tempest_host_alloc(total, ctypes.byref(host), ctypes.byref(dev)),
+                   "allocating a host-call mailbox")
+        self.address = dev.value
+        weakref.finalize(self, lib.tempest_host_free, host.value)
+        raw = np.ctypeslib.as_array((ctypes.c_uint8 * total).from_address(host.value))
         self.header = raw[:_HEADER].view(np.uint64)
         self.status = raw[_STATUS:_STATUS + 4].view(np.int32)
         self.x = raw[self.x_offset:self.x_offset + self.x_bytes].view(self.x_dtype).reshape(n, d)
-        self.x.flags.writeable = False
         self.logl = raw[self.logl_offset:self.logl_offset + 4 * n].view(np.float32)
         self.blobs = (raw[self.blobs_offset:self.blobs_offset + self.blob_bytes]
                       .view(self.blob_dtype).reshape(n, blob_width) if self.blob_bytes else None)
@@ -179,7 +114,6 @@ class Mailbox:
         self.stamps = (torch.zeros(4 * STAMP_RING, dtype=torch.int64, device=self.device)
                        if stamps else None)
         self.host_stamps: Optional[List[tuple]] = [] if stamps else None
-        self._copies = Copies(n, d, self.x_dtype) if copy else None
         self.error: Optional[BaseException] = None
 
     def launch(self, x: torch.Tensor, active: Optional[torch.Tensor], logl: torch.Tensor,
@@ -207,16 +141,15 @@ class Mailbox:
         _build.check(err, "host_call")
         LAUNCHES += 1
 
-    def points(self) -> np.ndarray:
-        """The points `fn` gets, read-only: the mailbox's region, or where
-        `copy` one `np.copyto` of it (`Copies`)."""
-        return self.x if self._copies is None else self._copies(self.x)
+    def pending(self) -> bool:
+        """Whether the device waits for a reply."""
+        return self.header[0] != self.header[_REPLY // 8]
 
     def serve(self) -> None:
-        """Answer the pending request: `fn` on the points, its logl and blob
-        rows written, then the status and the reply sequence; after an
-        exception (kept in `error`) every request is answered with the abort
-        status and no call."""
+        """Answer the pending request: `fn` on a read-only copy of the
+        points, its logl and blob rows written, then the status and the
+        reply sequence; after an exception (kept in `error`) every request
+        is answered with the abort status and no call."""
         global HANDSHAKES
         HANDSHAKES += 1
         seen = time.perf_counter_ns()
@@ -224,7 +157,8 @@ class Mailbox:
         status, entered, returned = ABORT, seen, seen
         if self.error is None:
             try:
-                points = self.points()
+                points = self.x.copy()
+                points.flags.writeable = False
                 entered = time.perf_counter_ns()
                 logl, rows = self.fn(points)
                 returned = time.perf_counter_ns()
@@ -240,18 +174,20 @@ class Mailbox:
             self.host_stamps.append((int(seq), seen, entered, returned, time.perf_counter_ns()))
 
 
-def serve_until_done(wait: Callable[[], int], boxes: List[Mailbox],
+def serve_until_done(finished: Callable[[], bool], boxes: List[Mailbox],
                      stopped: Optional[BaseException] = None) -> Optional[BaseException]:
-    """Serve `boxes` as `wait()` names them (an index; `DONE` ends it;
-    anything else waits again) and return the first exception that broke
-    in (`stopped`, else an interrupt here): after it, every box answers
-    with the abort status."""
+    """Serve the requests of `boxes` as they come until `finished()` holds
+    on a turn that found none pending, and return the first exception that
+    broke in (`stopped`, else an interrupt here): after it, every box
+    answers with the abort status."""
     while True:
         try:
-            k = wait()
-            if k >= 0:
-                boxes[k].serve()
-            elif k == DONE:
+            busy = False
+            for box in boxes:
+                if box.pending():
+                    box.serve()
+                    busy = True
+            if not busy and finished():
                 return stopped
         except BaseException as exc:  # an interrupt: answer the rest with the abort status
             stopped = stopped or exc
@@ -262,18 +198,16 @@ def serve_until_done(wait: Callable[[], int], boxes: List[Mailbox],
 def served(launch: Callable[[], None], boxes: Iterable[Mailbox]) -> None:
     """`launch()` (work queued on the current stream, a graph replay), with
     the requests of `boxes` served on this thread until that work has
-    finished; each box's `failed` word is set to 0 on the stream first.
-    Makes no blocking CUDA call meanwhile, and `launch` must make none after
-    it queues a host call: not even a new CUDA allocation, which waits for
-    the device (the caller makes its tensors first). Raises the first
-    exception a host function raised (after the work has finished)."""
+    finished (an event's query, `serve_until_done`); each box's `failed`
+    word is set to 0 on the stream first. Makes no blocking CUDA call
+    meanwhile, and `launch` must make none after it queues a host call: not
+    even a new CUDA allocation, which waits for the device (the caller makes
+    its tensors first). Raises the first exception a host function raised
+    (after the work has finished)."""
     boxes = list(dict.fromkeys(boxes))
     for box in boxes:
         box.error = None
         box.failed.zero_()
-    done = _COMPLETIONS[boxes[0].device]
-    headers = (ctypes.c_void_p * len(boxes))(*[box.host for box in boxes])
-    wait = _build.load(LIBRARY).tempest_host_wait
     stopped: Optional[BaseException] = None
     # No cyclic garbage collection meanwhile: a collected mailbox's
     # cudaFreeHost would wait for the device, which waits for this thread.
@@ -284,9 +218,9 @@ def served(launch: Callable[[], None], boxes: Iterable[Mailbox]) -> None:
             launch()
         except BaseException as exc:  # what it queued before it raised still waits for replies
             stopped = exc
-        seq = done.signal()
-        stopped = serve_until_done(lambda: wait(headers, len(boxes), done.host, seq, WAIT_NS),
-                                   boxes, stopped)
+        done = torch.cuda.Event()
+        done.record()
+        stopped = serve_until_done(done.query, boxes, stopped)
     finally:
         if collecting:
             gc.enable()

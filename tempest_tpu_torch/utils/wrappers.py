@@ -75,11 +75,8 @@ class SpawnPoolMap:
     Spawn, not fork: forking a process that holds a CUDA context or
     threads can deadlock. Spawned workers import the likelihood by name, so
     it must be picklable (a module-level function). `close()` ends the
-    workers. The map pickles the points before it returns
-    (`copies_points`), so the host crossing hands it the mailbox's own.
+    workers.
     """
-
-    copies_points = True
 
     def __init__(self, size: int):
         self.size = size
@@ -299,12 +296,9 @@ class HostLikelihood:
                                    "is made outside any capture")
             width = 0 if self.schema is None else self.schema.width
             blob_dtype = np.float32 if self.schema is None else self.schema.row_dtype
-            # a map that copies the points before it returns (a spawned
-            # pool pickles them) takes the mailbox's own
             self._boxes[key] = cuda_host.Mailbox(
                 x.shape[0], x.shape[1], _NUMPY[x.dtype], width, blob_dtype, x.device,
-                self.evaluate, self._failed(x.device),
-                copy=not getattr(self.pool_map, "copies_points", False))
+                self.evaluate, self._failed(x.device))
         return self._boxes[key]
 
     def _unchanged(self, x: torch.Tensor, logl, blobs):

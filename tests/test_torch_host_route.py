@@ -350,28 +350,9 @@ def test_loop_bodies_read_only_the_crossing(monkeypatch):
 
 # ---------------------------------------------------------------------------
 # The host side of the host-call kernel (ops/cuda_host.py) on numpy alone:
-# the copies a host function keeps, and the serving loop's answers.
+# the points a host function gets, and the serving loop's answers.
 # ---------------------------------------------------------------------------
 from tempest_tpu_torch.ops import cuda_host  # noqa: E402
-
-
-def test_copies_reused_unless_held():
-    copies = cuda_host.Copies(3, 2, np.float32)
-    source = np.arange(6, dtype=np.float32).reshape(3, 2)
-    first = copies(source)
-    assert not first.flags.writeable and np.array_equal(first, source)
-    kept = list(first)[1]  # a row the host function keeps
-    buffer = copies.buffer
-    del first
-    second = copies(source + 10)  # the kept row's buffer is not reused
-    assert copies.buffer is not buffer and np.array_equal(kept, source[1])
-    buffer = id(copies.buffer)
-    del second, kept
-    third = copies(source + 20)  # nothing holds the last buffer: reused
-    assert id(copies.buffer) == buffer and np.array_equal(third, source + 20)
-    del third
-    whole = copies(source)  # the array itself kept: not reused
-    assert copies(source + 30) is not whole and np.array_equal(whole, source)
 
 
 def _host_box(n, d, fn, width=0):
@@ -385,16 +366,42 @@ def _host_box(n, d, fn, width=0):
     box.x = raw[128:128 + 4 * n * d].view(np.float32).reshape(n, d)
     box.logl = raw[128 + 4 * n * d:128 + 4 * n * d + 4 * n].view(np.float32)
     box.blobs = None
-    box._copies = cuda_host.Copies(n, d, np.float32)
     return box
 
 
+def _request(box, value):
+    """The device's side of a request: its points, then the next sequence
+    number."""
+    box.x[...] = value
+    box.header[0] += 1
+
+
+def test_points_kept_by_the_host_function():
+    """Each request's points reach the host function read-only, and a point
+    it keeps does not change when the next request overwrites the mailbox."""
+    kept = []
+
+    def fn(points):
+        assert not points.flags.writeable
+        kept.extend(points)
+        return np.zeros(len(points), np.float32), None
+
+    box = _host_box(3, 2, fn)
+    for value in (1.0, 2.0):
+        _request(box, value)
+        assert box.pending()
+        box.serve()
+        assert not box.pending() and box.status[0] == 0
+    assert np.array_equal(np.stack(kept), np.repeat([1.0, 2.0], 3)[:, None] * np.ones(2))
+
+
 def test_serving_loop_answers_and_aborts():
-    """`serve_until_done`: each request the wait names is answered (logl,
-    the status, the reply sequence); after a host function raises, its box
+    """`serve_until_done`: each pending request is answered (logl, the
+    status, the reply sequence); after a host function raises, its box
     answers every later request with the abort status and no call; an
-    interrupt in the wait answers every box's later requests so and is
-    returned; `DONE` ends the loop, anything else waits again."""
+    interrupt while polling answers every box's later requests so and is
+    returned; the loop ends when `finished()` holds on a turn with no
+    request pending."""
     calls = []
 
     def fn(points):
@@ -404,18 +411,18 @@ def test_serving_loop_answers_and_aborts():
         return np.full(len(points), float(len(calls)), np.float32), None
 
     boxes = [_host_box(4, 2, fn), _host_box(4, 2, fn)]
-    script = iter([0, cuda_host.WAITING, 1, 0, KeyboardInterrupt, 1, 0, cuda_host.DONE])
+    script = iter([0, None, 1, 0, KeyboardInterrupt, 1, 0, True])
 
-    def wait():
+    def finished():
         k = next(script)
         if isinstance(k, type):
             raise k
-        if k >= 0:  # the device's request: its points and the next sequence number
-            boxes[k].header[0] += 1
-            boxes[k].x[...] = k + boxes[k].header[0]
-        return k
+        if k is None or k is True:
+            return bool(k)
+        _request(boxes[k], k + boxes[k].header[0] + 1)  # seen on the next turn
+        return False
 
-    stopped = cuda_host.serve_until_done(wait, boxes)
+    stopped = cuda_host.serve_until_done(finished, boxes)
     assert isinstance(stopped, KeyboardInterrupt)
     # box 0's first two requests call fn, box 1's first raises; none after
     assert [float(c[0, 0]) for c in calls] == [1.0, 2.0, 2.0]
